@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+All `csrc/*.cu` files compile, with `nvcc` by hand, into ONE shared library
+with a plain C interface, loaded with `ctypes` (no PyTorch headers, so the
+build takes seconds, not minutes). The library goes to
+`build/ct_clip_ut_tpu_torch/` at the root of the checkout, named after a
+hash of the sources and flags: editing a source rebuilds, an unchanged tree
+reuses the file. The compiler's per-kernel register and shared-memory
+report (`-Xptxas -v`) is kept beside it as `<lib>.log`.
+
+Nothing here runs at import time: the first CUDA launch calls `load()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ct_clip_ut_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry -> argtypes; every entry returns cudaGetLastError() as an int
+SIGNATURES = {
+    "ctc_attn_block": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    "ctc_attn_packed": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
+    "ctc_geglu_ff": [_P] * 7 + [_I] * 5 + [_P],
+    "ctc_vq_nearest": [_P] * 3 + [_I] * 3 + [_P],
+    "ctc_attn_block_max_n": [],
+    "ctc_attn_packed_max_n": [],
+}
+
+
+def sources() -> list:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the port's CUDA "
+        "kernels are built from source and cannot run without it")
+
+
+def build() -> Path:
+    """Compile the library unless a build of the same sources exists."""
+    lib = BUILD_DIR / f"libctclip_kernels_{source_hash()}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        Path(tmp).unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    Path(str(lib) + ".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, lib)   # atomic: concurrent builders never see a torn file
+    return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use in this process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of this dtype and shape on
+    `device`: the kernels take nothing else."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def on_cuda(x) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor (which takes the plain
+    version); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def stream_of(x) -> int:
+    """The handle of PyTorch's current stream on x's device."""
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -1,0 +1,30 @@
+"""Launch counters of the port's hand-written kernels.
+
+Each kernel wrapper adds one to its counter where it launches its kernel
+chain on a CUDA tensor, and nowhere else: the plain versions the CPU takes
+never count. A run can then show that its main path went through every
+kernel (`chip_smoke.py` resets the counters, drives the path and reads
+them back). These integers are the package's only global state.
+"""
+
+from __future__ import annotations
+
+KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest")
+
+attn_block = 0
+attn_packed = 0
+geglu_ff = 0
+vq_nearest = 0
+
+
+def count(name: str) -> None:
+    globals()[name] += 1
+
+
+def launch_counts() -> dict:
+    return {name: globals()[name] for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        globals()[name] = 0
