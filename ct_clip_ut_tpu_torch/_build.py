@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` files compile, with `nvcc` by hand, into ONE shared library
-with a plain C interface, loaded with `ctypes` (no PyTorch headers, so the
-build takes seconds, not minutes). The library goes to
-`build/ct_clip_ut_tpu_torch/` at the root of the checkout, named after a
+Each `csrc/*.cu` file compiles, with `nvcc` by hand, to an object file,
+all of them at once in parallel processes; one more `nvcc` links them into
+ONE shared library with a plain C interface, loaded with `ctypes` (no
+PyTorch headers, so the build takes seconds, not minutes). The library goes
+to `build/ct_clip_ut_tpu_torch/` at the root of the checkout, named after a
 hash of the sources and flags: editing a source rebuilds, an unchanged tree
 reuses the file. The compiler's per-kernel register and shared-memory
 report (`-Xptxas -v`) is kept beside it as `<lib>.log`.
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ct_clip_ut_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,8 @@ SIGNATURES = {
     "ctc_attn_packed": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
     "ctc_geglu_ff": [_P] * 7 + [_I] * 5 + [_P],
     "ctc_vq_nearest": [_P] * 3 + [_I] * 3 + [_P],
+    "ctc_patch_embed": [_P] * 8 + [_I] * 7 + [_P],
+    "ctc_bert_layer": [_P] * 20 + [_I] * 5 + [_F, _F, _P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
 }
@@ -75,16 +78,25 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
-    Path(str(lib) + ".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)   # atomic: concurrent builders never see a torn file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            objs.append(str(Path(tmp) / f"{src.stem}.o"))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", objs[-1], str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(p.args[-1], log) for p, log in zip(procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src}:\n{log[-8000:]}" for src, log in failed))
+        so = str(Path(tmp) / "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-8000:]}")
+        Path(str(lib) + ".log").write_text("".join(logs) + res.stdout + res.stderr)
+        os.replace(so, lib)   # atomic: concurrent builders never see a torn file
     return lib
 
 
@@ -116,6 +128,16 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_device(device) -> torch.device:
+    """torch.device(device); asking for the card on a machine without one
+    raises instead of building on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's entry points run on the card; "
+                           "pass device='cpu' to run the plain versions on the CPU")
+    return dev
 
 
 def on_cuda(x) -> bool:

@@ -1,14 +1,11 @@
 """Configuration: frozen dataclasses mirroring ct_clip_ut_tpu/config.py.
 
 The port keeps its own copy of the config classes it uses, field for field
-and default for default, because its main path (and chip_smoke.py, which
-drives it) loads nothing of the JAX package: the GPU machine runs the
-checkout's port alone. The single exception is
-`CTClipInference.zeroshot()`, which imports the JAX package's
-framework-free metrics module for scikit-learn's metrics, off the main
-path. tests/test_torch_port_modules.py holds each class equal to its JAX
-counterpart. The JAX package's config objects work wherever these do (the
-port reads attributes only).
+and default for default, because the port (and chip_smoke.py, which drives
+it) loads nothing of the JAX package: the GPU machine runs the checkout's
+port alone. tests/test_torch_port_modules.py holds each class equal to its
+JAX counterpart. The JAX package's config objects work wherever these do
+(the port reads attributes only).
 """
 
 from __future__ import annotations
@@ -195,13 +192,13 @@ def replace(cfg, **kw):
 def flagship_cfg() -> CTCLIPConfig:
     """The zero-shot flagship (bench.py:102-109: CT-ViT dim 512, 4 + 4
     layers of 8 heads of 32, 8192 codes, 480 x 480 x 240 volumes; CXR-BERT
-    text tower) with the plain patch embed (patch_embed_conv=False): the
-    same function as the conv formulation, which needs a kernel the port
-    does not have yet."""
+    text tower) at the JAX default, the LN-folded conv patch embed
+    (`patch_embed_conv=True`, the patch_embed kernel). The plain embed is
+    the same function: `replace(cfg.ctvit, patch_embed_conv=False)`."""
     return CTCLIPConfig(
         dim_text=768, dim_image=294912, dim_latent=512,
         ctvit=CTViTConfig(dim=512, codebook_size=8192, image_size=480,
                           patch_size=20, temporal_patch_size=10,
                           spatial_depth=4, temporal_depth=4,
-                          dim_head=32, heads=8, patch_embed_conv=False),
+                          dim_head=32, heads=8, patch_embed_conv=True),
         bert=BertConfig())

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _build
 from .config import CTCLIPConfig
 from .models.ctclip import CTCLIP
 
@@ -78,8 +79,12 @@ def _bert(sd, prefix, p):
         _ln(sd, f"{lp}.output.LayerNorm", layer["ffn_ln"])
 
 
-def from_jax_params(np_tree, cfg: CTCLIPConfig) -> CTCLIP:
-    """CTCLIP (CPU, eval mode) holding the weights of the JAX params tree."""
+def from_jax_params(np_tree, cfg: CTCLIPConfig, device="cuda") -> CTCLIP:
+    """CTCLIP (eval mode, on `device`: the card unless told otherwise)
+    holding the weights of the JAX params tree. The conv patch embed
+    (`patch_embed_conv=True`) reads the same norm_in / proj / norm_out
+    weights and folds them at call time, as the JAX package does."""
+    device = _build.check_device(device)
     sd = {}
     _bert(sd, "text_transformer", np_tree["text_transformer"])
     v = np_tree["visual_transformer"]
@@ -102,6 +107,6 @@ def from_jax_params(np_tree, cfg: CTCLIPConfig) -> CTCLIP:
 
     with torch.device("meta"):
         model = CTCLIP(cfg)
-    model.to_empty(device="cpu")
+    model.to_empty(device=device)
     model.load_state_dict(sd, strict=True)
     return model.eval()

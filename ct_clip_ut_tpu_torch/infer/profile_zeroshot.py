@@ -2,9 +2,14 @@
 
     python -m ct_clip_ut_tpu_torch.infer.profile_zeroshot [--table PATH]
 
-At flagship width (`config.flagship_cfg()`, random weights from seed 0) on
-[b, 1, 240, 480, 480] bf16 volumes it prints:
+At flagship width and the default configuration (`config.flagship_cfg()`:
+the conv patch embed; random weights from seed 0) on [b, 1, 240, 480, 480]
+bf16 volumes, with the 36 prompts tokenised padded to 512 tokens (the
+stand-in `WordTokenizer`), it prints:
 
+- the time of one `CTClipInference.prompt_latents()` (the prompt encoding,
+  12 bert_layer chains; host clock around a synchronised call, after one
+  warm-up encoding) and its launch counts;
 - per batch size b in SIZES: volumes/s of `CTClipInference.predict` over
   BATCHES batches (host clock around the loop, which ends in one
   device-to-host copy of the probabilities), as the median, min and max of
@@ -33,10 +38,12 @@ import torch
 from ..config import flagship_cfg
 from ..models.ctclip import init_ctclip
 from ..ops import launches
-from .zeroshot import CTClipInference, zeroshot_probs
+from .zeroshot import (CTClipInference, WordTokenizer, encode_prompt_latents, tokenize_prompts,
+                       zeroshot_probs)
 
 VOLUME = (1, 240, 480, 480)          # [c, T, H, W] of the flagship's volumes
 SIZES, BATCHES, REPEATS, PROFILE_BATCH = (1, 2, 4, 8), 30, 5, 2
+PROMPT_LEN = 512                     # the JAX zero-shot's padding (infer/zeroshot.py:49-58)
 
 
 def card_name() -> str:
@@ -106,9 +113,18 @@ def main(argv=None) -> int:
     cfg = flagship_cfg()
     model = init_ctclip(cfg, seed=0, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
-    ids = torch.randint(0, cfg.bert.vocab_size, (36, 24), generator=g, device="cuda")
-    runner = CTClipInference(model, {"input_ids": ids, "attention_mask": torch.ones_like(ids)}, [])
+    prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), max_length=PROMPT_LEN,
+                               device="cuda")
+    encode_prompt_latents(model, prompts)                           # warm-up
+    torch.cuda.synchronize()
+    launches.reset_launch_counts()
+    runner = CTClipInference(model, prompts, [])
+    t0 = time.perf_counter()
     latents = runner.prompt_latents()
+    torch.cuda.synchronize()
+    print(f"prompt_latents: 36 prompts x {PROMPT_LEN} tokens in "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms; launches {launches.launch_counts()} "
+          f"[{card}]", flush=True)
 
     def volumes(b):
         return torch.randn((b, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16)

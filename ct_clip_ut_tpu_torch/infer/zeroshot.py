@@ -1,12 +1,10 @@
 """Zero-shot pathology classification, single device.
 
-Counterpart of ct_clip_ut_tpu/infer/zeroshot.py: the 36 prompt latents are
-encoded once per checkpoint, each batch of volumes is encoded once, and the
-[B, 36] similarity gives softmax([present, absent]) per pathology.
-`CTClipInference.predict` is the batch loop alone, so it runs where
-scikit-learn is absent; `zeroshot` adds the metrics, and is the one place
-the port loads anything of the JAX package (its framework-free
-`ct_clip_ut_tpu.utils.metrics`, numpy and scikit-learn only).
+Counterpart of ct_clip_ut_tpu/infer/zeroshot.py: the 36 prompts are
+tokenised padded to 512 tokens and encoded once per checkpoint, each batch
+of volumes is encoded once, and the [B, 36] similarity gives
+softmax([present, absent]) per pathology. `CTClipInference.predict` is the
+batch loop; `zeroshot` adds the metrics (`utils/metrics.py`, numpy only).
 """
 
 from __future__ import annotations
@@ -17,8 +15,10 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import PATHOLOGIES
 from ..models.ctclip import CTCLIP, encode_image_latents, encode_text_latents
+from ..utils import metrics
 
 
 def prompt_texts(pathologies: Sequence[str] = PATHOLOGIES):
@@ -28,6 +28,54 @@ def prompt_texts(pathologies: Sequence[str] = PATHOLOGIES):
         out.append(f"There is {p}.")
         out.append(f"There is no {p}.")
     return out
+
+
+def tokenize_prompts(tokenizer, pathologies: Sequence[str] = PATHOLOGIES,
+                     max_length: int = 512, device="cuda") -> dict:
+    """prompt_texts() through an HF-style tokenizer, padded to `max_length`
+    (ct_clip_ut_tpu/infer/zeroshot.py:49-58), as int64 tensors on
+    `device`: input_ids, attention_mask and, where the tokenizer gives
+    them, token_type_ids."""
+    device = _build.check_device(device)
+    enc = tokenizer(prompt_texts(pathologies), return_tensors="np", padding="max_length",
+                    truncation=True, max_length=max_length)
+    keys = [k for k in ("input_ids", "attention_mask", "token_type_ids") if k in enc]
+    return {k: torch.as_tensor(np.asarray(enc[k]), dtype=torch.int64, device=device)
+            for k in keys}
+
+
+class WordTokenizer:
+    """A stand-in for the text tower's HF tokenizer where its files are
+    absent (the repository holds none): one id per lower-cased word or
+    punctuation mark, from a fixed hash into [1000, vocab_size), between
+    [CLS] (101) and [SEP] (102), padded with 0. Called as tokenize_prompts
+    calls an HF tokenizer, it does what that call asks for (pad to
+    max_length, truncate, numpy arrays) and returns input_ids,
+    attention_mask and token_type_ids. The prompts of prompt_texts() give 6
+    to 10 real tokens."""
+
+    CLS, SEP, PAD = 101, 102, 0
+
+    def __init__(self, vocab_size: int = 30522):
+        self.vocab_size = vocab_size
+
+    def word_id(self, word: str) -> int:
+        h = 0
+        for ch in word.encode():
+            h = (h * 131 + ch) % 1_000_003
+        return 1000 + h % (self.vocab_size - 1000)
+
+    def __call__(self, texts, max_length: int = 512, **hf_options) -> dict:
+        ids = np.full((len(texts), max_length), self.PAD, np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            words = text.lower().replace(".", " .").replace(",", " ,").split()
+            row = [self.CLS, *(self.word_id(w) for w in words), self.SEP]
+            if len(row) > max_length:
+                row = row[:max_length - 1] + [self.SEP]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask, "token_type_ids": np.zeros_like(ids)}
 
 
 @torch.no_grad()
@@ -53,8 +101,8 @@ def zeroshot_probs(model: CTCLIP, image: torch.Tensor, prompt_latents: torch.Ten
 class CTClipInference:
     """Zero-shot driver. `data` yields (images [B, 1, D, H, W], texts,
     labels [B, 18], ...); `prompt_tokens` is the tokenised prompt_texts()
-    (input_ids [36, n] and optionally attention_mask / token_type_ids) on
-    the model's device."""
+    (`tokenize_prompts`: input_ids [36, 512] and attention_mask /
+    token_type_ids) on the model's device."""
 
     def __init__(self, model: CTCLIP, prompt_tokens: dict, data: Iterable,
                  results_folder: str = "./results",
@@ -92,13 +140,11 @@ class CTClipInference:
         return torch.cat(preds).float().cpu().numpy(), np.concatenate(targets, axis=0)
 
     def zeroshot(self):
-        """predict(), then the metrics of ct_clip_ut_tpu.utils.metrics
-        (needs scikit-learn; loads that module and the JAX package's
-        config, not JAX). Returns (metrics, preds, targets)."""
-        from ct_clip_ut_tpu.utils import metrics as M
+        """predict(), then the metrics, appended to metrics_history and
+        written to results_folder/metrics.txt. Returns (metrics, preds,
+        targets)."""
         preds, targets = self.predict()
-        m = M.calculate_metrics(preds, targets, list(self.pathologies))
+        m = metrics.calculate_metrics(preds, targets, list(self.pathologies))
         self.metrics_history.append(m)
-        self.results_folder.mkdir(parents=True, exist_ok=True)
-        M.save_metrics(self.metrics_history, list(self.pathologies), self.results_folder)
+        metrics.save_metrics(self.metrics_history, list(self.pathologies), self.results_folder)
         return m, preds, targets

@@ -1,9 +1,13 @@
 """BERT text encoder (HF BertModel semantics, post-LN), inference only.
 
-Counterpart of the plain path of ct_clip_ut_tpu/models/bert.py:127-179.
-Submodules carry HF's state-dict names (embeddings.word_embeddings,
-encoder.layer.N.attention.self.query, ...). No kernel is reached: the
-zero-shot prompts are 24 tokens, below the fused layer's n >= 128 gate.
+Counterpart of ct_clip_ut_tpu/models/bert.py:60-179. Submodules carry HF's
+state-dict names (embeddings.word_embeddings,
+encoder.layer.N.attention.self.query, ...). On the card, sequences that
+pass the JAX package's gate for its fused layer (bert.py:97-100: n >= 128
+and a multiple of 8, hidden a multiple of 128, heads of a width 8 divides)
+run each layer through the bert_layer kernel: the zero-shot prompts,
+padded to 512 tokens, do. Shorter sequences, and CPU tensors, take the
+layer loop written out below (HF semantics, two-pass LayerNorm).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from ..config import BertConfig
+from ..ops.bert_layer import bert_layer, bert_layer_plain
 from ..ops.layers import layernorm, linear
 
 
@@ -51,11 +56,42 @@ class Bert(nn.Module):
         self.encoder.layer = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
 
 
+def fused_layer_gate(cfg: BertConfig, n: int) -> bool:
+    """The JAX package's condition for its fused layer (bert.py:97-100)."""
+    hd = cfg.hidden_size // cfg.num_heads
+    return (cfg.hidden_size % 128 == 0 and n % 8 == 0 and n >= 128 and hd % 8 == 0
+            and cfg.num_heads * hd == cfg.hidden_size)
+
+
+def layer_args(layer: BertLayer) -> tuple:
+    """A layer's weights in bert_layer's argument order."""
+    sa, ao, out = layer.attention["self"], layer.attention["output"], layer.output
+    return (torch.cat([sa["query"].weight, sa["key"].weight, sa["value"].weight]),
+            torch.cat([sa["query"].bias, sa["key"].bias, sa["value"].bias]),
+            ao["dense"].weight, ao["dense"].bias, ao["LayerNorm"].weight, ao["LayerNorm"].bias,
+            layer.intermediate["dense"].weight, layer.intermediate["dense"].bias,
+            out["dense"].weight, out["dense"].bias, out["LayerNorm"].weight,
+            out["LayerNorm"].bias)
+
+
+def fused_layers(bert: Bert, x: torch.Tensor, mask_row: torch.Tensor,
+                 plain: bool = False) -> torch.Tensor:
+    """Every layer through bert_layer (its plain version with plain=True);
+    x [b, n, hidden] fp32 after the embeddings, mask_row [b, n] additive."""
+    fn = bert_layer_plain if plain else bert_layer
+    for layer in bert.encoder.layer:
+        x = fn(x.contiguous(), mask_row, *layer_args(layer), bert.cfg.num_heads,
+               bert.cfg.layer_norm_eps)
+    return x
+
+
 def bert_apply(bert: Bert, input_ids: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
                token_type_ids: Optional[torch.Tensor] = None,
-               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """last_hidden_state [b, n, hidden] (deterministic)."""
+               compute_dtype: torch.dtype = torch.float32,
+               plain: bool = False) -> torch.Tensor:
+    """last_hidden_state [b, n, hidden] (deterministic). plain=True runs
+    the kernel's plain version where the kernel would run."""
     cfg = bert.cfg
     b, n = input_ids.shape
     if token_type_ids is None:
@@ -69,7 +105,11 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
     x = layernorm(x, e.LayerNorm.weight, e.LayerNorm.bias, eps).to(compute_dtype)
 
     # HF additive mask: 0 where attended, dtype-min where padded
-    ext_mask = ((1.0 - attention_mask.float()) * torch.finfo(torch.float32).min)[:, None, None, :]
+    mask_row = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min
+    if x.is_cuda and fused_layer_gate(cfg, n):
+        return fused_layers(bert, x, mask_row, plain)
+
+    ext_mask = mask_row[:, None, None, :]
     nh = cfg.num_heads
     hd = cfg.hidden_size // nh
     scale = hd ** -0.5
@@ -95,6 +135,7 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
 
 
 def bert_cls(bert: Bert, input_ids, attention_mask=None, token_type_ids=None,
-             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             compute_dtype: torch.dtype = torch.float32, plain: bool = False) -> torch.Tensor:
     """CLS-token hidden state [b, hidden]."""
-    return bert_apply(bert, input_ids, attention_mask, token_type_ids, compute_dtype)[:, 0]
+    return bert_apply(bert, input_ids, attention_mask, token_type_ids, compute_dtype,
+                      plain)[:, 0]

@@ -12,6 +12,7 @@ import math
 import torch
 from torch import nn
 
+from .. import _build
 from ..config import CTCLIPConfig
 from ..ops.attention import Attention
 from ..ops.layers import FrozenBiasLayerNorm, l2norm, linear
@@ -32,12 +33,15 @@ class CTCLIP(nn.Module):
 
 
 @torch.no_grad()
-def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cpu") -> CTCLIP:
+def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cuda") -> CTCLIP:
     """A CTCLIP in eval mode with weights drawn from `seed`, with the JAX
     package's init distributions: linear and conv weights U(+-sqrt(3/fan_in)),
     biases U(+-1/sqrt(fan_in)), embeddings N(0, 0.02^2), null key/values
     N(0, 1), LayerNorm and q/k scales ones, the codebook l2-normalised N(0, 1)
-    rows. Built on the meta device first, so no default init is paid."""
+    rows. Built on the meta device first, so no default init is paid. On
+    the card unless `device` says otherwise; without one, the default
+    raises."""
+    device = _build.check_device(device)
     with torch.device("meta"):
         model = CTCLIP(cfg)
     model.to_empty(device=device)
@@ -100,10 +104,11 @@ def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool 
 
 
 def encode_text_latents(model: CTCLIP, text_tokens: dict,
-                        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                        compute_dtype: torch.dtype = torch.float32,
+                        plain: bool = False) -> torch.Tensor:
     """BERT CLS -> project -> l2norm (ctclip.py:129-141). `text_tokens`
     holds input_ids and optionally attention_mask / token_type_ids."""
     cls = bert_cls(model.text_transformer, text_tokens["input_ids"],
                    text_tokens.get("attention_mask"), text_tokens.get("token_type_ids"),
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, plain=plain)
     return l2norm(linear(cls, model.to_text_latent.weight))

@@ -1,11 +1,12 @@
 """CT-ViT: 3-D patch embed, factorised spatial/temporal attention, cosine VQ.
 
-Counterpart of ct_clip_ut_tpu/models/ctvit.py for the ctclip model type
-with the plain patch embed (patchify -> LN -> Linear -> LN,
-`patch_embed_conv=False`). For a [b, 1, 240, 480, 480] volume: a
-[b, 24, 24, 24, 512] token grid, 4 spatial layers over (b t) x 576 tokens
-with a 2-D CPB bias, 4 temporal layers over (b h w) x 24 tokens, VQ against
-8192 codes.
+Counterpart of ct_clip_ut_tpu/models/ctvit.py for the ctclip model type.
+The patch embed is patchify -> LN -> Linear -> LN, either as written
+(`patch_embed_conv=False`) or, at the default `patch_embed_conv=True`,
+with the first LN folded into the projection (the patch_embed kernel). For
+a [b, 1, 240, 480, 480] volume: a [b, 24, 24, 24, 512] token grid, 4
+spatial layers over (b t) x 576 tokens with a 2-D CPB bias, 4 temporal
+layers over (b h w) x 24 tokens, VQ against 8192 codes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..config import CTViTConfig
 from ..ops.layers import layernorm, linear
+from ..ops.patch_embed import fold_patch_embed, patch_embed_fused, patch_embed_plain
 from ..ops.posbias import ContinuousPositionBias, continuous_pos_bias
 from ..ops.transformer import Transformer, transformer
 from ..ops.vq import VectorQuantize, VQState, vq_apply
@@ -75,6 +77,21 @@ def _patch_embed(emb: nn.Sequential, patches: torch.Tensor) -> torch.Tensor:
     return layernorm(h, emb[3].weight, emb[3].bias)
 
 
+def _patch_embed_conv(vit: CTViT, image: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The LN-folded embed of a [b, c, T, H, W] volume (ctvit.py:63-99):
+    the patch_embed kernel for one channel and T, H, W that the patch sizes
+    divide (the JAX package's gate, ctvit.py:92-93), the plain version
+    otherwise or with plain=True. The fold runs per call, in fp32."""
+    cfg = vit.cfg
+    b, c, T, H, W = image.shape
+    p, tp = cfg.patch_size, cfg.temporal_patch_size
+    emb = vit.to_patch_emb
+    kw, s1, b1 = fold_patch_embed(emb, p, tp, c)
+    kernel = not plain and c == 1 and T % tp == 0 and H % p == 0 and W % p == 0
+    fn = patch_embed_fused if kernel else patch_embed_plain
+    return fn(image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float(), p, tp)
+
+
 def ctvit_temporal_encode(vit: CTViT, x: torch.Tensor, *, return_weights: bool = False,
                           plain: bool = False):
     """[b, t, h, w, d] -> temporal transformer over (b h w) x t -> [b, t, h, w, d]."""
@@ -119,10 +136,9 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
         raise NotImplementedError(
             "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9: attribution)")
     if cfg.patch_embed_conv:
-        raise NotImplementedError(
-            "patch_embed_conv=True needs the patch_embed_fused kernel, not ported yet "
-            "(ROADMAP, Queue 2 item 1); use patch_embed_conv=False (the same function)")
-    tokens = _patch_embed(vit.to_patch_emb, vit.to_patch_emb[0](image))
+        tokens = _patch_embed_conv(vit, image, plain=plain)
+    else:
+        tokens = _patch_embed(vit.to_patch_emb, vit.to_patch_emb[0](image))
     x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
     b, t, h, w, d = x.shape
     quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),

@@ -9,12 +9,14 @@ them back). These integers are the package's only global state.
 
 from __future__ import annotations
 
-KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest")
+KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed", "bert_layer")
 
 attn_block = 0
 attn_packed = 0
 geglu_ff = 0
 vq_nearest = 0
+patch_embed = 0
+bert_layer = 0
 
 
 def count(name: str) -> None:

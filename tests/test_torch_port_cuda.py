@@ -7,12 +7,15 @@ conftest.py does, so run it there with:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Shapes are the flagship widths (D = 512, 8 heads of 32, inner 1365, 8192
-codes) with ragged lengths besides the flagship ones; inputs are bf16.
-The bands: 1.5e-2 max relative error for the float kernels (both sides
-round at the same points and differ in the order of fp32 sums), held on
-the branch alone as well as with the residual, and shown to reject a
-plain version with a norm gain, LN bias, q/k scale or bias left out;
->= 99.9% equal VQ indices, and the first maximum winning a tie.
+codes; the patch embed's 20 x 20 x 10 patches into 512; BERT's 768 wide
+layer of 12 heads of 64, FF 3072) with ragged lengths besides the flagship
+ones; inputs are bf16, the BERT layer's fp32. The bands: 1.5e-2 max
+relative error for the bf16 kernels (both sides round at the same points
+and differ in the order of fp32 sums), held on the branch alone as well as
+with the residual, and shown to reject a plain version with a norm gain,
+LN bias, q/k scale or bias left out; BERT_BAND for the fp32 layer, shown
+to reject a plain version without the mask, LN1 gain or QKV bias; >= 99.9%
+equal VQ indices, and the first maximum winning a tie.
 """
 
 import numpy as np
@@ -22,8 +25,13 @@ import torch
 from ct_clip_ut_tpu_torch.ops import launches
 from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_plain
 from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed, attn_packed_plain
+from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_plain
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff, geglu_ff_plain
+from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
+                                                  patch_embed_plain)
 from ct_clip_ut_tpu_torch.ops.vq_nearest import vq_nearest, vq_nearest_plain
+
+BERT_BAND = 1e-4   # max relative error of the fp32 BERT layer vs its plain version
 
 
 def _attn_inputs(rng, r, n, d, heads, dh, with_bias):
@@ -65,6 +73,72 @@ def _torch_ff_args(a):
     return (torch.from_numpy(a["x"]), torch.from_numpy(a["gamma"]),
             torch.from_numpy(a["beta"]), torch.from_numpy(w_in),
             torch.from_numpy(a["w2"].T.copy()))
+
+
+def _patch_inputs(rng, b, T, H, W, patch, t_patch, dim):
+    """numpy weights of the plain embed (LN1 gamma/beta [K], projection w
+    [K, dim] (in, out) and bias, LN2 gamma/beta [dim]; gains drawn as
+    1 + 0.1 N, biases 0.1 N) and an image [b, 1, T, H, W]; K = t_patch *
+    patch^2."""
+    f = np.float32
+    k = t_patch * patch * patch
+    return dict(image=rng.standard_normal((b, 1, T, H, W)).astype(f),
+                g1=(1.0 + 0.1 * rng.standard_normal(k)).astype(f),
+                be1=(0.1 * rng.standard_normal(k)).astype(f),
+                w=(rng.standard_normal((k, dim)) / np.sqrt(k)).astype(f),
+                bias=(0.1 * rng.standard_normal(dim)).astype(f),
+                g2=(1.0 + 0.1 * rng.standard_normal(dim)).astype(f),
+                b2=(0.1 * rng.standard_normal(dim)).astype(f))
+
+
+def _patch_args(a, patch, t_patch, device="cpu", ln1_gain=True):
+    """The port's patch_embed arguments (image, kw, s1, b1, g2, b2) from
+    _patch_inputs, folded by fold_patch_embed (LN1's gain replaced by ones
+    with ln1_gain=False)."""
+    k, dim = a["w"].shape
+    emb = torch.nn.Sequential(torch.nn.Identity(), torch.nn.LayerNorm(k),
+                              torch.nn.Linear(k, dim), torch.nn.LayerNorm(dim))
+    with torch.no_grad():
+        for mod, weight, bias in ((emb[1], a["g1"], a["be1"]), (emb[2], a["w"].T, a["bias"]),
+                                  (emb[3], a["g2"], a["b2"])):
+            mod.weight.copy_(torch.from_numpy(np.ascontiguousarray(weight)))
+            mod.bias.copy_(torch.from_numpy(bias))
+        if not ln1_gain:
+            emb[1].weight.fill_(1.0)
+        kw, s1, b1 = fold_patch_embed(emb, patch, t_patch)
+    return [t.to(device) for t in (torch.from_numpy(a["image"]), kw, s1, b1,
+                                   emb[3].weight.detach(), emb[3].bias.detach())]
+
+
+def _bert_inputs(rng, b, n, d, f, lengths):
+    """numpy inputs of the JAX BERT layer, weights (in, out): x [b, n, d];
+    mask_row [b, n] additive (0 for the first lengths[i] keys of row i,
+    float32 min after); wqkv [d, 3d], wo [d, d], w1 [d, f], w2 [f, d]; LN
+    gains 1 + 0.1 N, biases 0.1 N."""
+    f32 = np.float32
+    mask = np.zeros((b, n), f32)
+    for i, length in enumerate(lengths):
+        mask[i, length:] = np.finfo(np.float32).min
+
+    def w(i, o):
+        return (rng.standard_normal((i, o)) / np.sqrt(i)).astype(f32)
+
+    def vec(k, base=0.0):
+        return (base + 0.1 * rng.standard_normal(k)).astype(f32)
+
+    return dict(x=rng.standard_normal((b, n, d)).astype(f32), mask=mask, wqkv=w(d, 3 * d),
+                bqkv=vec(3 * d), wo=w(d, d), bo=vec(d), g1=vec(d, 1.0), be1=vec(d),
+                w1=w(d, f), b1=vec(f), w2=w(f, d), b2=vec(d), g2=vec(d, 1.0), be2=vec(d))
+
+
+BERT_KEYS = ("x", "mask", "wqkv", "bqkv", "wo", "bo", "g1", "be1", "w1", "b1", "w2", "b2",
+             "g2", "be2")
+
+
+def _torch_bert_args(a):
+    """The port's layouts: the weight matrices transposed to (out, in)."""
+    return [torch.from_numpy(a[k].T.copy() if k in ("wqkv", "wo", "w1", "w2") else a[k])
+            for k in BERT_KEYS]
 
 
 def _unit_rows(rng, shape):
@@ -139,3 +213,50 @@ def test_vq_nearest_kernel_matches_plain_on_card(cuda_device):
     base = torch.ones((1, 512), device=cuda_device, dtype=torch.bfloat16) / 512 ** 0.5
     tie = torch.cat([-base, base, base, -base.expand(300, 512)])        # duplicates at 1 and 2
     assert int(vq_nearest(base, tie.contiguous())[0]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,H,W", [(2, 240, 480, 480), (1, 20, 60, 100)])
+def test_patch_embed_kernel_matches_plain_on_card(cuda_device, b, T, H, W):
+    """The flagship volume at B = 2, and B = 1 with a non-flagship H and W
+    that 20 divides. Controls: LN1 gain left out of the fold, no mean
+    correction (s1 = 0), LN2 bias left out."""
+    a = _patch_inputs(np.random.default_rng(8), b, T, H, W, 20, 10, 512)
+    args = _patch_args(a, 20, 10, cuda_device)
+    args[0] = args[0].to(torch.bfloat16)
+    launches.reset_launch_counts()
+    got = patch_embed_fused(*args, 20, 10)
+    assert launches.launch_counts()["patch_embed"] == 1
+    assert got.shape == (b, T // 10, H // 20, W // 20, 512) and got.dtype == torch.bfloat16
+    assert _rel_err(got, patch_embed_plain(*args, 20, 10)) <= 1.5e-2
+    no_gain = _patch_args(a, 20, 10, cuda_device, ln1_gain=False)
+    for i, wrong in ((1, no_gain[1]), (2, torch.zeros_like(args[2])),
+                     (5, torch.zeros_like(args[5]))):
+        bad = list(args)
+        bad[i] = wrong
+        if i == 1:
+            bad[2] = no_gain[2]
+        assert _rel_err(got, patch_embed_plain(*bad, 20, 10)) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,lengths", [(36, 512, None), (1, 512, [512]), (3, 136, [7, 136, 60])])
+def test_bert_layer_kernel_matches_plain_on_card(cuda_device, b, n, lengths):
+    """fp32 [b, n, 768], 12 heads, FF 3072: ragged masks (6 to 14 real keys
+    per row and two full rows at the flagship shape), B = 1, and a length
+    that 64 does not divide. Controls: mask dropped (where a row is
+    padded), LN1 gain left out, QKV bias left out."""
+    rng = np.random.default_rng(9)
+    if lengths is None:
+        lengths = list(rng.integers(6, 15, b))
+        lengths[3] = lengths[17] = n
+    a = _bert_inputs(rng, b, n, 768, 3072, lengths)
+    args = [t.to(cuda_device) for t in _torch_bert_args(a)]
+    launches.reset_launch_counts()
+    got = bert_layer(*args, 12, 1e-12)
+    assert launches.launch_counts()["bert_layer"] == 1
+    assert _rel_err(got, bert_layer_plain(*args, 12, 1e-12)) <= BERT_BAND
+    for i in (1, 6, 3) if min(lengths) < n else (6, 3):
+        bad = list(args)
+        bad[i] = torch.ones_like(args[i]) if i == 6 else torch.zeros_like(args[i])
+        assert _rel_err(got, bert_layer_plain(*bad, 12, 1e-12)) > BERT_BAND, i

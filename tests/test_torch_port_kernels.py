@@ -1,11 +1,13 @@
-"""The port's four kernel modules (ct_clip_ut_tpu_torch/ops/{attn_block,
-attn_packed,geglu_ff,vq_nearest}.py).
+"""The port's six kernel modules (ct_clip_ut_tpu_torch/ops/{attn_block,
+attn_packed,geglu_ff,vq_nearest,patch_embed,bert_layer}.py).
 
 On the CPU: each plain PyTorch version against its JAX Pallas kernel run
 in interpret mode (as tests/test_pallas.py runs them), at fp32 with atol
-2e-5; VQ indices exactly equal, the first maximum winning a tie. Each
-wrapper given CPU tensors takes its plain version, never builds or loads
-the CUDA library, and leaves the launch counters at 0.
+2e-5 (the BERT layer 1e-5, also against its XLA twin; the patch embed also
+against its `_xla_twin`); VQ indices exactly equal, the first maximum
+winning a tie. Each wrapper given CPU tensors takes its plain version,
+never builds or loads the CUDA library, and leaves the launch counters at
+0.
 
 The card's checks of the same kernels are in test_torch_port_cuda.py.
 """
@@ -18,17 +20,22 @@ import jax.numpy as jnp
 
 from ct_clip_ut_tpu.ops.pallas_attn_block import attention_block_fused
 from ct_clip_ut_tpu.ops.pallas_attn_packed import attention_block_packed
+from ct_clip_ut_tpu.ops.pallas_bert_layer import bert_layer_fused, bert_layer_xla
 from ct_clip_ut_tpu.ops.pallas_ff import geglu_ff_fused
+from ct_clip_ut_tpu.ops.pallas_patch_embed import _xla_twin, patch_embed_fused as jax_patch_embed
 from ct_clip_ut_tpu.ops.pallas_vq import vq_nearest_pallas
 from ct_clip_ut_tpu_torch import _build
 from ct_clip_ut_tpu_torch.ops import launches
 from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_plain
 from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed, attn_packed_plain
+from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_plain
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff, geglu_ff_plain
+from ct_clip_ut_tpu_torch.ops.patch_embed import patch_embed_fused, patch_embed_plain
 from ct_clip_ut_tpu_torch.ops.vq_nearest import vq_nearest, vq_nearest_plain
 
-from test_torch_port_cuda import (_attn_inputs, _ff_inputs, _torch_attn_args, _torch_ff_args,
-                                  _unit_rows)
+from test_torch_port_cuda import (BERT_KEYS, _attn_inputs, _bert_inputs, _ff_inputs,
+                                  _patch_args, _patch_inputs, _torch_attn_args,
+                                  _torch_bert_args, _torch_ff_args, _unit_rows)
 
 ATOL = 2e-5
 
@@ -112,7 +119,7 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {"attn_block": 0, "attn_packed": 0, "geglu_ff": 2,
-                                        "vq_nearest": 0}
+                                        "vq_nearest": 0, "patch_embed": 0, "bert_layer": 0}
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -120,7 +127,108 @@ def test_launch_counters_count_and_reset():
 def test_build_sources_are_the_package_csrc():
     names = {p.name for p in _build.sources()}
     assert names == {"attn_block.cu", "attn_common.cuh", "attn_packed.cu", "gemm_tile.cuh",
-                     "geglu_ff.cu", "vq_nearest.cu"}
+                     "geglu_ff.cu", "vq_nearest.cu", "patch_embed.cu", "bert_layer.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
-               ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest"))
+               ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
+                "ctc_patch_embed", "ctc_bert_layer"))
+
+
+# the patch embed at the geometry of tests/test_pallas.py:361-394
+PE_PATCH, PE_TPATCH, PE_DIM, PE_SHAPE = 4, 2, 128, (2, 6, 16, 16)
+
+
+def _jax_fold(a, patch, t_patch):
+    """The JAX package's fold (ctvit.py:80-95): (k1d, s1, b1)."""
+    w, dim = a["w"], a["w"].shape[1]
+    wg = w * a["g1"][:, None]
+    k1d = wg.reshape(t_patch * patch, patch, dim).transpose(1, 0, 2)
+    return jnp.asarray(k1d), jnp.asarray(wg.sum(0)), jnp.asarray(a["be1"] @ w + a["bias"])
+
+
+def _patch_embed_both(dtype):
+    a = _patch_inputs(np.random.default_rng(10), *PE_SHAPE, PE_PATCH, PE_TPATCH, PE_DIM)
+    img = jnp.asarray(a["image"]).astype(dtype)
+    jargs = (img, *_jax_fold(a, PE_PATCH, PE_TPATCH), jnp.asarray(a["g2"]), jnp.asarray(a["b2"]))
+    kernel = np.asarray(jax_patch_embed(*jargs, PE_PATCH, PE_TPATCH, True), np.float32)
+    twin = np.asarray(_xla_twin(*jargs, PE_PATCH, PE_TPATCH), np.float32)
+    args = _patch_args(a, PE_PATCH, PE_TPATCH)
+    args[0] = args[0].to(getattr(torch, dtype))
+    got = patch_embed_plain(*args, PE_PATCH, PE_TPATCH)
+    assert got.dtype == getattr(torch, dtype)
+    assert got.shape == (2, 3, 4, 4, PE_DIM)
+    return got.float().numpy(), kernel, twin
+
+
+def test_patch_embed_fold_matches_jax():
+    a = _patch_inputs(np.random.default_rng(11), *PE_SHAPE, PE_PATCH, PE_TPATCH, PE_DIM)
+    _, kw, s1, b1, _, _ = _patch_args(a, PE_PATCH, PE_TPATCH)
+    for got, want in zip((kw, s1, b1), _jax_fold(a, PE_PATCH, PE_TPATCH)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_patch_embed_plain_matches_pallas_kernel_fp32():
+    got, kernel, twin = _patch_embed_both("float32")
+    np.testing.assert_allclose(got, kernel, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, twin, atol=ATOL, rtol=0)
+
+
+def test_patch_embed_plain_within_bf16_band_of_pallas_kernel():
+    """bf16 volume: the plain version squares pixels in fp32 and keeps the
+    product in fp32; the Pallas kernel squares in bf16 for its moments and
+    the `_xla_twin` rounds the product to bf16. All three round h and the
+    output to bf16, so they differ by single bf16 steps of the output
+    (measured max 0.0156, one step at |out| in [2, 4)): within 2^-7
+    relative plus 2e-2 absolute near zero, and 3e-3 on average (measured
+    2.8e-4 against the kernel, 1.3e-3 against the twin)."""
+    got, kernel, twin = _patch_embed_both("bfloat16")
+    for want in (kernel, twin):
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2e-2)
+        assert np.abs(got - want).mean() <= 3e-3
+
+
+@pytest.mark.parametrize("lengths", [[16, 9, 1], [16, 16, 16]])
+def test_bert_layer_plain_matches_pallas_kernel(lengths):
+    """fp32, 4 heads of 32, padded key rows (9 and 1 real keys)."""
+    a = _bert_inputs(np.random.default_rng(12), 3, 16, 128, 256, lengths)
+    x, mask, *w = (jnp.asarray(a[k]) for k in BERT_KEYS)
+    kernel = bert_layer_fused(x, mask, jnp.zeros(3, jnp.int32), *w, 4, 1e-12, 0.0, 0.0, False,
+                              True)
+    twin = bert_layer_xla(x, mask, *w, 4, 1e-12)
+    got = bert_layer_plain(*_torch_bert_args(a), 4, 1e-12)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(twin), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("train,p_attn,p_hidden", [(True, 0.1, 0.1), (False, 0.1, 0.0),
+                                                   (False, 0.0, 0.1), (True, 0.0, 0.0)])
+def test_bert_layer_dropout_and_train_mode_raise(train, p_attn, p_hidden):
+    args = _torch_bert_args(_bert_inputs(np.random.default_rng(13), 1, 8, 64, 128, [8]))
+    for fn in (bert_layer, bert_layer_plain):
+        with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+            fn(*args, 1, 1e-12, p_attn=p_attn, p_hidden=p_hidden, train=train)
+
+
+def test_bert_layer_takes_fp32_only():
+    args = _torch_bert_args(_bert_inputs(np.random.default_rng(14), 1, 8, 64, 128, [8]))
+    args[0] = args[0].bfloat16()
+    with pytest.raises(TypeError, match="fp32"):
+        bert_layer(*args, 1, 1e-12)
+
+
+def test_new_wrappers_take_plain_versions_on_cpu(monkeypatch):
+    """patch_embed and bert_layer on CPU tensors: the plain versions, no
+    library load, no launch counted."""
+    def no_load():
+        raise AssertionError("the CUDA library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    launches.reset_launch_counts()
+    a = _patch_inputs(np.random.default_rng(15), *PE_SHAPE, PE_PATCH, PE_TPATCH, PE_DIM)
+    args = _patch_args(a, PE_PATCH, PE_TPATCH)
+    assert torch.equal(patch_embed_fused(*args, PE_PATCH, PE_TPATCH),
+                       patch_embed_plain(*args, PE_PATCH, PE_TPATCH))
+    bargs = _torch_bert_args(_bert_inputs(np.random.default_rng(16), 2, 8, 64, 128, [8, 3]))
+    assert torch.equal(bert_layer(*bargs, 2, 1e-12), bert_layer_plain(*bargs, 2, 1e-12))
+    assert launches.launch_counts() == dict.fromkeys(launches.KERNELS, 0)

@@ -3,7 +3,10 @@ with atol 1e-5 and shared weights (JAX init -> convert.from_jax_params).
 
 Small geometry of tests/test_torch_reference_parity.py: [2, 1, 20, 32, 32]
 volumes -> 2 frames x 4 x 4 patches, dim 16, 4 heads of 4, 2 + 2 layers,
-32 codes, with the plain patch embed (patch_embed_conv=False).
+32 codes, with the plain patch embed (patch_embed_conv=False); the conv
+embed (the default, patch_embed_conv=True) on the same weights. The BERT
+layers that the card sends through bert_layer: 128 tokens, hidden 128 in
+2 heads of 64.
 """
 
 import dataclasses
@@ -67,7 +70,8 @@ def jax_and_port_models():
     """(JAX params, the port's CTCLIP holding the same weights), built once
     per process; no test mutates either."""
     params = jax_init_ctclip(jax.random.PRNGKey(0), SMALL_CLIP)
-    return params, convert.from_jax_params(jax.tree.map(np.asarray, params), PORT_CLIP)
+    return params, convert.from_jax_params(jax.tree.map(np.asarray, params), PORT_CLIP,
+                                           device="cpu")
 
 
 @pytest.fixture
@@ -103,13 +107,20 @@ def test_config_mirrors_the_jax_dataclasses(name):
 
 
 def test_flagship_cfg_is_the_bench_flagship_with_the_plain_patch_embed():
+    """The flagship is bench.py's at the JAX default, the conv patch embed;
+    the plain embed is one `replace` away."""
     want = CTCLIPConfig(dim_text=768, dim_image=294912, dim_latent=512,
                         ctvit=CTViTConfig(dim=512, codebook_size=8192, image_size=480,
                                           patch_size=20, temporal_patch_size=10,
                                           spatial_depth=4, temporal_depth=4, dim_head=32,
-                                          heads=8, patch_embed_conv=False),
+                                          heads=8),
                         bert=BertConfig())
-    assert dataclasses.asdict(pconfig.flagship_cfg()) == dataclasses.asdict(want)
+    got = pconfig.flagship_cfg()
+    assert got.ctvit.patch_embed_conv and want.ctvit.patch_embed_conv
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    plain = pconfig.replace(got.ctvit, patch_embed_conv=False)
+    assert dataclasses.asdict(plain) == dataclasses.asdict(
+        dataclasses.replace(want.ctvit, patch_embed_conv=False))
 
 
 def test_convert_carries_every_weight(shared):
@@ -337,9 +348,8 @@ def test_ctvit(shared, return_weights):
 
 def test_features_outside_the_slice_raise():
     vit = init_ctclip(dataclasses.replace(
-        PORT_CLIP, ctvit=dataclasses.replace(PORT_VIT, patch_embed_conv=True))).visual_transformer
-    with pytest.raises(NotImplementedError, match="patch_embed_fused.*ROADMAP"):
-        tctvit.ctvit_apply(vit, torch.zeros((1, 1, DEPTH, IMG, IMG)))
+        PORT_CLIP, ctvit=dataclasses.replace(PORT_VIT, patch_embed_conv=True)),
+        device="cpu").visual_transformer
     with pytest.raises(NotImplementedError, match="tap capture.*ROADMAP"):
         tctvit.ctvit_apply(vit, torch.zeros((1, 1, DEPTH, IMG, IMG)), taps=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -353,8 +363,9 @@ def test_features_outside_the_slice_raise():
 
 
 def test_init_ctclip_is_seeded_with_the_jax_distributions():
-    a, b = init_ctclip(PORT_CLIP, seed=0), init_ctclip(PORT_CLIP, seed=0)
-    c = init_ctclip(PORT_CLIP, seed=1)
+    a, b = init_ctclip(PORT_CLIP, seed=0, device="cpu"), init_ctclip(PORT_CLIP, seed=0,
+                                                                     device="cpu")
+    c = init_ctclip(PORT_CLIP, seed=1, device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     w = "visual_transformer.enc_spatial_transformer.layers.0.1.to_q.weight"
@@ -367,3 +378,111 @@ def test_init_ctclip_is_seeded_with_the_jax_distributions():
     assert torch.equal(sa["visual_transformer.vq._codebook.embed_avg"], embed)
     assert float(sa["temperature"]) == SMALL_CLIP.temperature_init
     assert not a.training
+
+
+SMALL_VIT_CONV = dataclasses.replace(SMALL_VIT, patch_embed_conv=True)
+
+
+@functools.cache
+def conv_model():
+    """The shared JAX weights in a port model with the conv patch embed."""
+    params, _ = jax_and_port_models()
+    cfg = port_config(dataclasses.replace(SMALL_CLIP, ctvit=SMALL_VIT_CONV))
+    return convert.from_jax_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("seed", [8, 9])
+def test_ctvit_conv_patch_embed(shared, seed):
+    """patch_embed_conv=True: the folded embed (the kernel's plain version on
+    the CPU) and the whole CT-ViT against the JAX package's conv path."""
+    params, _ = shared
+    vit = conv_model().visual_transformer
+    img = _rand((2, 1, DEPTH, IMG, IMG), seed)
+    jp = params["visual_transformer"]["to_patch_emb"]
+    want_tok = jctvit._patch_embed_conv(jp, jnp.asarray(img), PATCH, T_PATCH)
+    want = jctvit.ctvit_apply(params["visual_transformer"], SMALL_VIT_CONV, jnp.asarray(img))
+    with torch.no_grad():
+        tok = tctvit._patch_embed_conv(vit, torch.from_numpy(img))
+        got = tctvit.ctvit_apply(vit, torch.from_numpy(img))
+        plain = tctvit.ctvit_apply(vit, torch.from_numpy(img), plain=True)
+    _close(tok, want_tok)
+    np.testing.assert_array_equal(got.codebook_ids.numpy(), np.asarray(want.codebook_ids))
+    _close(got.tokens, want.tokens)
+    assert torch.equal(got.tokens, plain.tokens)
+
+
+def test_conv_and_plain_patch_embeds_agree(shared):
+    """The two embeds are one function: the conv form against the plain
+    patchify -> LN -> Linear -> LN on the same weights."""
+    _, model = shared
+    img = torch.from_numpy(_rand((2, 1, DEPTH, IMG, IMG), 10))
+    with torch.no_grad():
+        conv = tctvit._patch_embed_conv(conv_model().visual_transformer, img)
+        emb = model.visual_transformer.to_patch_emb
+        plain = tctvit._patch_embed(emb, emb[0](img))
+    _close(conv, plain.numpy())
+
+
+GATE_BERT = BertConfig(vocab_size=64, hidden_size=128, num_layers=2, num_heads=2,
+                       intermediate_size=256, max_position_embeddings=136)
+
+
+@functools.cache
+def gate_bert_pair():
+    params = jbert.init_bert(jax.random.PRNGKey(3), GATE_BERT)
+    sd = {}
+    convert._bert(sd, "b", jax.tree.map(np.asarray, params))
+    mod = tbert.Bert(port_config(GATE_BERT))
+    mod.load_state_dict({k[2:]: v for k, v in sd.items()}, strict=True)
+    return params, mod.eval()
+
+
+@pytest.mark.parametrize("n", [128, 136])
+def test_bert_fused_layers_match_jax_bert_apply(n):
+    """At n >= 128 the card sends every layer through bert_layer; on the
+    CPU the same chain (fused_layers, the plain version) and bert_apply's
+    written-out loop both match the JAX bert_apply, with padded rows."""
+    params, mod = gate_bert_pair()
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, GATE_BERT.vocab_size, (3, n))
+    mask = np.ones((3, n), np.int64)
+    mask[0, 9:] = 0
+    mask[2, 100:] = 0
+    want = jbert.bert_apply(params, GATE_BERT, jnp.asarray(ids), jnp.asarray(mask))
+    ids_t, mask_t = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.no_grad():
+        loop = tbert.bert_apply(mod, ids_t, mask_t)
+        e = mod.embeddings
+        x = (e.word_embeddings.weight[ids_t] + e.position_embeddings.weight[None, :n]
+             + e.token_type_embeddings.weight[torch.zeros_like(ids_t)])
+        x = tlayers.layernorm(x, e.LayerNorm.weight, e.LayerNorm.bias, GATE_BERT.layer_norm_eps)
+        mask_row = (1.0 - mask_t.float()) * torch.finfo(torch.float32).min
+        fused = tbert.fused_layers(mod, x, mask_row)
+    _close(loop, want)
+    _close(fused, want)
+
+
+@pytest.mark.parametrize("n,hidden,heads", [(128, 128, 2), (512, 768, 12), (136, 128, 2),
+                                            (120, 128, 2), (130, 128, 2), (128, 96, 2),
+                                            (128, 128, 3)])
+def test_fused_layer_gate_is_the_jax_gate(n, hidden, heads):
+    """bert.py:97-100 of the JAX package, without its TPU clause."""
+    cfg = pconfig.BertConfig(hidden_size=hidden, num_heads=heads)
+    hd = hidden // heads
+    want = hidden % 128 == 0 and n % 8 == 0 and n >= 128 and hd % 8 == 0 and heads * hd == hidden
+    assert tbert.fused_layer_gate(cfg, n) == want
+
+
+def test_entry_points_default_to_the_card():
+    """Without device=..., the model and the prompt tokens go to the card;
+    on a machine without one that raises rather than building on the CPU."""
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the refusal without one")
+    params, _ = jax_and_port_models()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_ctclip(PORT_CLIP)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax_params(jax.tree.map(np.asarray, params), PORT_CLIP)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tokenize_prompts(WordTokenizer())

@@ -4,8 +4,13 @@ chip_smoke.py refuses to report without a GPU.
 
 Small geometry of tests/test_torch_reference_parity.py (see
 test_torch_port_modules.py), shared weights through convert.from_jax_params.
+The default configuration (conv patch embed, prompts tokenised padded to a
+fixed length) runs on a text tower whose positions reach 128 tokens.
 """
 
+import ast
+import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -15,9 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from ct_clip_ut_tpu.config import BertConfig
 from ct_clip_ut_tpu.infer import zeroshot as jz
+from ct_clip_ut_tpu.models.ctclip import init_ctclip as jax_init_ctclip
+from ct_clip_ut_tpu_torch import convert
 from ct_clip_ut_tpu.models import ctvit as jctvit
 from ct_clip_ut_tpu.models.ctclip import encode_image_latents as jax_image_latents
 from ct_clip_ut_tpu_torch.infer import zeroshot as tz
@@ -25,8 +34,10 @@ from ct_clip_ut_tpu_torch.models import ctvit as tctvit
 from ct_clip_ut_tpu_torch.models.ctclip import encode_image_latents
 from ct_clip_ut_tpu_torch.ops import launches
 
-from test_torch_port_modules import (DEPTH, IMG, PATCH, SMALL_CLIP, T_PATCH,
-                                     jax_and_port_models)
+from ct_clip_ut_tpu_torch.utils import metrics as port_metrics
+
+from test_torch_port_modules import (DEPTH, IMG, PATCH, SMALL_CLIP, SMALL_VIT_CONV, T_PATCH,
+                                     jax_and_port_models, port_config)
 
 REPO = Path(__file__).resolve().parent.parent
 N_PROMPT = 12
@@ -179,3 +190,107 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path):
     res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+PROMPT_LEN = 128
+DEFAULT_CLIP = dataclasses.replace(
+    SMALL_CLIP, ctvit=SMALL_VIT_CONV,
+    bert=BertConfig(vocab_size=2048, hidden_size=32, num_layers=1, num_heads=4,
+                    intermediate_size=64, max_position_embeddings=PROMPT_LEN))
+
+
+@functools.cache
+def default_models():
+    params = jax_init_ctclip(jax.random.PRNGKey(1), DEFAULT_CLIP)
+    model = convert.from_jax_params(jax.tree.map(np.asarray, params), port_config(DEFAULT_CLIP),
+                                    device="cpu")
+    return params, model
+
+
+def test_tokenize_prompts_matches_jax():
+    tok = tz.WordTokenizer()
+    want = jz.tokenize_prompts(tok)
+    got = tz.tokenize_prompts(tok, device="cpu")
+    assert set(got) == set(want) == {"input_ids", "attention_mask", "token_type_ids"}
+    for k in want:
+        assert got[k].dtype == torch.int64 and got[k].shape == (36, 512)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    real = got["attention_mask"].sum(1)
+    assert 6 <= int(real.min()) and int(real.max()) <= 14
+    assert (got["input_ids"][:, 0] == tz.WordTokenizer.CLS).all()
+    assert (got["input_ids"][torch.arange(36), real - 1] == tz.WordTokenizer.SEP).all()
+
+
+def test_zeroshot_default_config_matches_jax():
+    """Conv patch embed, prompts padded to PROMPT_LEN: prompt latents, image
+    latents and probabilities within 1e-5 of the JAX package in fp32."""
+    params, model = default_models()
+    tok = tz.WordTokenizer(DEFAULT_CLIP.bert.vocab_size)
+    jtokens = jz.tokenize_prompts(tok, max_length=PROMPT_LEN)
+    ttokens = tz.tokenize_prompts(tok, max_length=PROMPT_LEN, device="cpu")
+    images = np.random.default_rng(5).standard_normal((3, 1, DEPTH, IMG, IMG)).astype(np.float32)
+    jl = jz.encode_prompt_latents(params, DEFAULT_CLIP, jtokens)
+    tl = tz.encode_prompt_latents(model, ttokens)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+    ji, _ = jax_image_latents(params, DEFAULT_CLIP, jnp.asarray(images))
+    with torch.no_grad():
+        ti, _ = encode_image_latents(model, torch.from_numpy(images))
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-5, rtol=0)
+    jp = jz.zeroshot_probs(params, DEFAULT_CLIP, jnp.asarray(images), jl,
+                           compute_dtype="float32")
+    tp = tz.zeroshot_probs(model, torch.from_numpy(images), tl, compute_dtype=torch.float32)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5, rtol=0)
+
+
+def test_zeroshot_metrics_need_no_sklearn(setup, tmp_path, monkeypatch):
+    """zeroshot() computes and writes its metrics with numpy alone: with
+    scikit-learn and tabulate made unimportable it still writes
+    metrics.txt, the port's save_metrics of its own metrics."""
+    _, model, ids, mask, images = setup
+    for name in ("sklearn", "sklearn.metrics", "tabulate"):
+        monkeypatch.setitem(sys.modules, name, None)
+    labels = np.array([[0, 1] * 9, [1, 0] * 9, [1, 1] * 9, [0, 0] * 9])
+    runner = tz.CTClipInference(model, _prompts_torch(ids, mask), [(images, None, labels)],
+                                results_folder=str(tmp_path / "run"),
+                                compute_dtype=torch.float32)
+    metrics, preds, targets = runner.zeroshot()
+    port_metrics.save_metrics([metrics], list(tz.PATHOLOGIES), tmp_path / "want")
+    assert (tmp_path / "run" / "metrics.txt").read_text() == \
+        (tmp_path / "want" / "metrics.txt").read_text()
+    assert runner.metrics_history == [metrics]
+    assert metrics == port_metrics.calculate_metrics(preds, targets, list(tz.PATHOLOGIES))
+
+
+FORBIDDEN = ("jax", "jaxlib", "ct_clip_ut_tpu", "flax", "optax")
+
+
+def _imports(path):
+    """Every module name an import statement or __import__ / import_module
+    call in `path` names, at any depth (lazy imports inside functions too)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and getattr(node.func, "id", getattr(node.func, "attr", "")) in
+              ("__import__", "import_module")):
+            names.append(node.args[0].value)
+    return names
+
+
+def test_port_sources_import_no_jax_even_lazily():
+    files = sorted((REPO / "ct_clip_ut_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): [n for n in _imports(f) if n.split(".")[0] in FORBIDDEN]
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def test_import_scan_sees_lazy_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    from ct_clip_ut_tpu.utils import metrics\n"
+                   "    import jax.numpy\n    __import__('flax')\n")
+    assert _imports(src) == ["ct_clip_ut_tpu.utils", "jax.numpy", "flax"]
