@@ -22,9 +22,26 @@ Phases, each printing its lines before the last:
      every kernel's launch count > 0; one prompt encoding timed alone; the
      prompt latents, the patch embed's token grid (against the plain
      embed), the encoder output and one batch's image latents held against
-     the plain path; then zeroshot() writes metrics.txt.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Any failed phase exits non-zero before it.
+     the plain path; then zeroshot() writes metrics.txt;
+  5. each of the five backward kernels of the train step against its plain
+     version at the shapes a B = 2 train step gives it (every gradient),
+     with both times, `bound_ms` and, for the patch embed's weight grad,
+     one PyTorch call computing the same function (`library_ms`); the
+     controls are the gradients of a plain backward with one fault (the
+     LN gain left out of dx, the softmax row term or the l2-norm
+     projection dropped, g missing from dx under the residual, dbias zero,
+     GELU for its derivative, wv / cin swapped in the weight grad);
+  6. the train path at flagship width, B = 2, 120-token reports: one step's
+     gradients held against the same step on the plain path (relative rms
+     per parameter group, with the gradients of another batch as the
+     control), then CTClipTrainer.train() over three steps (the step-0
+     evaluation and a checkpoint included) with every train-path launch
+     counter > 0, finite losses, the VQ cluster sizes grown by
+     b t h w (1 - decay^3), and the time of three more steps.
+The line before the last is the kernels' JSON record (launches: the
+zero-shot run's counts for the forward kernels, the train run's for the
+backward ones); the last line is {"ok": true, "device": {...}}. Any failed
+phase exits non-zero before it.
 """
 
 from __future__ import annotations
@@ -50,7 +67,16 @@ ENCODER_BAND = 3e-2      # relative rms of the CT-ViT encoder output vs the plai
 LATENT_BAND = 3e-2       # 1 - cosine of batch 0's image latents vs the plain path
 PROMPT_BAND = 1e-4       # 1 - cosine of the fp32 prompt latents vs the plain path
 BERT_BAND = 1e-4         # max relative error of the fp32 BERT layer vs its plain version
+# Train-path gradients vs the plain path, relative rms per parameter group.
+# Read on an H100 80GB HBM3 at 700 W: the CT-ViT groups 0.028 to 0.040; the
+# text tower and the latent projections / temperature 0.16 to 0.17, since
+# their gradients are functions of the image latents, which differ from the
+# plain path's where bf16 flips VQ indices at near ties (PR 1: 2.7% of
+# indices, latents 1 - cos 9e-3); the controls (another batch) 1.30 to 1.58.
+GRAD_BAND = 0.1          # the CT-ViT groups
+LATENT_GRAD_BAND = 0.5   # the groups downstream of the image latents only
 BATCHES, BATCH = 3, 2
+TEXT_LEN = 120           # the train slice's reports: under the fused BERT layer's gate
 VOLUME = (1, 240, 480, 480)
 PROMPTS, PROMPT_LEN = 36, 512
 
@@ -72,7 +98,19 @@ KERNELS = {
                     "ct_clip_ut_tpu/ops/pallas_patch_embed.py:287"),
     "bert_layer": ("ct_clip_ut_tpu_torch/csrc/bert_layer.cu",
                    "ct_clip_ut_tpu/ops/pallas_bert_layer.py:440"),
+    "attn_block_bwd": ("ct_clip_ut_tpu_torch/csrc/attn_block_bwd.cu",
+                       "ct_clip_ut_tpu/ops/pallas_attn_block.py:407"),
+    "attn_packed_bwd": ("ct_clip_ut_tpu_torch/csrc/attn_packed_bwd.cu",
+                        "ct_clip_ut_tpu/ops/pallas_attn_packed.py:424"),
+    "geglu_ff_bwd": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_bwd.cu",
+                     "ct_clip_ut_tpu/ops/pallas_ff.py:234"),
+    "patch_embed_res": ("ct_clip_ut_tpu_torch/csrc/patch_embed.cu",
+                        "ct_clip_ut_tpu/ops/pallas_patch_embed.py:329"),
+    "patch_embed_dkw": ("ct_clip_ut_tpu_torch/csrc/patch_embed_dkw.cu",
+                        "ct_clip_ut_tpu/ops/pallas_patch_embed.py:381"),
 }
+TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
+                 "patch_embed_dkw")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -109,6 +147,23 @@ def rel_rms(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
+def around_ones(torch, g, n: int, base: float = 1.0):
+    """base + 0.1 N: a norm gain or scale drawn away from the init's ones."""
+    return base + 0.1 * torch.randn((n,), generator=g, device="cuda")
+
+
+def block_args(torch, g, tf) -> list:
+    """Layer 0's attention weights of a stack in the block kernels' argument
+    order (gamma, wq, wk, wv, wo, q_scale, k_scale), gains drawn by around_ones."""
+    a = tf.layers[0][1]
+    bf = torch.bfloat16
+    wkv = a.to_kv.weight.to(bf)
+    inner, d, dh = a.cfg.inner_dim, a.cfg.dim, a.cfg.dim_head
+    return [around_ones(torch, g, d), a.to_q.weight.to(bf), wkv[:inner].contiguous(),
+            wkv[inner:].contiguous(), a.to_out.weight.to(bf), around_ones(torch, g, dh),
+            around_ones(torch, g, dh)]
+
+
 def kernel_phase(torch, model, card: str) -> dict:
     """Each kernel vs its plain version at the shapes predict() gives it at
     B = BATCH; returns the per-kernel record (without launch counts).
@@ -136,15 +191,10 @@ def kernel_phase(torch, model, card: str) -> dict:
     hw, d = h * w, cfg.dim
 
     def around(base, n):
-        return base + 0.1 * torch.randn((n,), generator=g, device="cuda")
+        return around_ones(torch, g, n, base)
 
     def attn_args(tf):
-        a = tf.layers[0][1]
-        wkv = a.to_kv.weight.to(bf)
-        inner, dh = a.cfg.inner_dim, a.cfg.dim_head
-        return [around(1.0, d), a.to_q.weight.to(bf), wkv[:inner].contiguous(),
-                wkv[inner:].contiguous(), a.to_out.weight.to(bf), around(1.0, dh),
-                around(1.0, dh)]
+        return block_args(torch, g, tf)
 
     bias = continuous_pos_bias(vit.spatial_rel_pos_bias, cfg.patch_height, cfg.patch_width)
     xs = torch.randn((BATCH * t, hw, d), generator=g, device="cuda").to(bf)
@@ -382,9 +432,9 @@ def slice_phase(torch, model, card: str) -> dict:
         raise AssertionError(f"bad predictions: shape {preds.shape}")
     if not ((preds >= 0) & (preds <= 1)).all():
         raise AssertionError("probabilities outside [0, 1]")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items() if v <= 0 and k not in TRAIN_KERNELS]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the zero-shot path: {missing}")
 
     # one prompt encoding alone (12 bert_layer chains), then its latents
     # against the plain path; the control drops the attention mask
@@ -479,6 +529,328 @@ def slice_phase(torch, model, card: str) -> dict:
     return counts
 
 
+def grads_check(name: str, got: dict, want: dict, band: float, faulty: dict, line: str) -> float:
+    """Every gradient of a backward kernel within `band` (max relative
+    error) of its plain version; each control (the gradients a kernel with
+    one fault would give) must differ from the kernel's by more than the
+    band in at least one gradient. Returns the largest abs error."""
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    # a control's distance is taken relative to the right gradient's maximum
+    controls = {f: max(((got[k].float() - v[k].float()).abs().max()
+                        / want[k].float().abs().max()).item() for k in v)
+                for f, v in faulty.items()}
+    abs_err = max((got[k].float() - want[k].float()).abs().max().item() for k in want)
+    print(f"kernel {name} {line}: max_rel_err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (band {band}); controls " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()))
+    if not all(got[k].float().isfinite().all() for k in got):
+        raise AssertionError(f"{name}: non-finite gradients")
+    bad = {k: v for k, v in errs.items() if not v <= band}
+    if bad:
+        raise AssertionError(f"{name}: gradients over the band {band}: {bad}")
+    blind = {k: v for k, v in controls.items() if not v > band}
+    if blind:
+        raise AssertionError(f"{name}: the band {band} passes faulty kernels {blind}")
+    return abs_err
+
+
+def backward_phase(torch, model, card: str) -> dict:
+    """The five backward kernels of the train step against their plain
+    versions at the shapes a B = BATCH train step gives them; returns the
+    per-kernel record (without launch counts). The attention and FF checks
+    run on the branch (residual=False) with the math-fault controls, then
+    with the residual, whose control leaves g out of dx."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd, attn_packed_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd, geglu_ff_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
+
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    t, h, w = token_grid_shape(cfg, VOLUME)
+    hw, d = h * w, cfg.dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    attn_names = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
+    ff_names = ("dx", "dgamma", "dbeta", "dw_in", "dw_out")
+    scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
+    with torch.no_grad():
+        bias = continuous_pos_bias(vit.spatial_rel_pos_bias, cfg.patch_height, cfg.patch_width)
+    ff = vit.enc_spatial_transformer.layers[0][3]
+    attn_faults = {"no LN gain in dx": "gamma", "softmax row term dropped": "row_term",
+                   "l2-norm projection dropped": "l2norm"}
+    # name: (kernel, plain, args before g, names, {control: fault})
+    cases = {
+        "attn_block_bwd": (attn_block_bwd, attn_block_bwd_plain,
+                           [randn(BATCH * t, hw, d),
+                            *block_args(torch, g, vit.enc_spatial_transformer), bias],
+                           attn_names, attn_faults),
+        "attn_packed_bwd": (attn_packed_bwd, attn_packed_bwd_plain,
+                            [randn(BATCH * hw, t, d),
+                             *block_args(torch, g, vit.enc_temporal_transformer)],
+                            attn_names[:8], attn_faults),
+        "geglu_ff_bwd": (geglu_ff_bwd, geglu_ff_bwd_plain,
+                         [randn(BATCH * t * hw, d), around_ones(torch, g, d),
+                          0.1 * torch.randn((d,), generator=g, device="cuda"),
+                          ff[1].weight.to(bf), ff[4].weight.to(bf)],
+                         ff_names, {"no LN gain in dx": "gamma", "GELU for GELU'": "gelu_prime"}),
+    }
+    out = {}
+    for name, (kern, plain, args, names, faults) in cases.items():
+        gr = randn(*args[0].shape)
+        extra = (scale,) if name.startswith("attn") else ()
+        got = dict(zip(names, kern(*args, gr, *extra, False)))
+        want = dict(zip(names, plain(*args, gr, *extra, False)))
+        torch.cuda.synchronize()
+        faulty = {f: dict(zip(names, plain(*args, gr, *extra, False, faults=(fault,))))
+                  for f, fault in faults.items()}
+        if "dbias" in want:
+            faulty["dbias zero"] = {"dbias": torch.zeros_like(want["dbias"])}
+        abs_err = grads_check(name, got, want, FLOAT_BAND, faulty,
+                              f"x {list(args[0].shape)} (branch)")
+        got = dict(zip(names, kern(*args, gr, *extra, True)))
+        want = dict(zip(names, plain(*args, gr, *extra, True)))
+        no_g = {"g missing from dx": {"dx": plain(*args, gr, *extra, False)[0]}}
+        grads_check(name, got, want, FLOAT_BAND, no_g, "(residual)")
+        ms = cuda_ms(torch, lambda: kern(*args, gr, *extra, True))
+        plain_ms = cuda_ms(torch, lambda: plain(*args, gr, *extra, True))
+        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+        x = args[0]
+        m = x.numel() // d
+        grads = [v for v in got.values() if v is not None]
+        if name == "geglu_ff_bwd":
+            flops = 2 * 8 * m * d * args[4].shape[1]
+        else:
+            r, n, hd = x.shape[0], x.shape[1], args[2].shape[0]
+            heads = hd // 32
+            flops = 2 * r * (9 * n * d * hd + heads * 6 * n * n * 32)
+        tensors = [a for a in args if isinstance(a, torch.Tensor)] + [gr]
+        out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         **bound(flops, nbytes(*tensors, *grads), BF16_PEAK), library_ms=None)
+    out.update(patch_embed_train_check(torch, model, card, g))
+    return out
+
+
+def patch_embed_train_check(torch, model, card: str, g) -> dict:
+    """The residual-saving patch embed (out, the fp32 product, the LN1
+    moments) and the projection weight grad on a [2, 1, 240, 480, 480] bf16
+    volume. Controls: LN1's gain left out of the fold (the saved product
+    and output change), LN2's bias left out; the weight grad with wv / cin
+    swapped, and with the second volume's patches left out. library_ms of
+    the weight grad: torch.nn.grad.conv3d_weight on the same volume and
+    cotangent (laid out as [b, dim, t, hp, wp] outside the timed call)."""
+    import copy
+
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_dkw,
+                                                      patch_embed_dkw_plain, patch_embed_res,
+                                                      patch_embed_res_plain)
+
+    cfg = model.visual_transformer.cfg
+    p, tp = cfg.patch_size, cfg.temporal_patch_size
+    emb = copy.deepcopy(model.visual_transformer.to_patch_emb)
+    out = {}
+    with torch.no_grad():
+        for ln in (emb[1], emb[3]):
+            ln.weight.copy_(1.0 + 0.1 * torch.randn(ln.weight.shape, generator=g, device="cuda"))
+            ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g, device="cuda"))
+        image = torch.randn((BATCH, *VOLUME), generator=g, device="cuda").to(torch.bfloat16)
+        kw, s1, b1 = fold_patch_embed(emb, p, tp)
+        args = [image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float()]
+        names = ("out", "conv", "stats")
+        got = dict(zip(names, patch_embed_res(*args, p, tp)))
+        want = dict(zip(names, patch_embed_res_plain(*args, p, tp)))
+        torch.cuda.synchronize()
+        emb[1].weight.fill_(1.0)
+        kw0, s10, _ = fold_patch_embed(emb, p, tp)
+        faulty = {"no LN1 gain": dict(zip(names, patch_embed_res_plain(image, kw0, s10, *args[3:],
+                                                                       p, tp))),
+                  "no LN2 beta": {"out": patch_embed_res_plain(
+                      *args[:5], torch.zeros_like(args[5]), p, tp)[0]}}
+        abs_err = grads_check("patch_embed_res", got, want, FLOAT_BAND, faulty,
+                              f"{list(image.shape)} -> out, conv {list(got['conv'].shape)}, stats")
+        ms = cuda_ms(torch, lambda: patch_embed_res(*args, p, tp))
+        plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
+        print(f"kernel patch_embed_res: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+        m, dim = got["conv"].shape
+        k = kw.shape[0] * kw.shape[1]
+        out["patch_embed_res"] = dict(
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            **bound(2 * m * k * dim, nbytes(image, *args[1:], *got.values()), BF16_PEAK),
+            library_ms=None)
+
+        dconv = torch.randn((m, dim), generator=g, device="cuda").to(torch.bfloat16)
+        got = patch_embed_dkw(image, dconv, p, tp)
+        want = patch_embed_dkw_plain(image, dconv, p, tp)
+        torch.cuda.synchronize()
+        half = dconv.clone()
+        half[m // BATCH:] = 0
+        faulty = {"wv/cin swapped": {"dkw": want.permute(1, 0, 2).reshape(want.shape)},
+                  "one volume only": {"dkw": patch_embed_dkw_plain(image, half, p, tp)}}
+        abs_err = grads_check("patch_embed_dkw", {"dkw": got}, {"dkw": want}, FLOAT_BAND, faulty,
+                              f"{list(image.shape)}, dconv {list(dconv.shape)} -> "
+                              f"{list(got.shape)}")
+        ms = cuda_ms(torch, lambda: patch_embed_dkw(image, dconv, p, tp))
+        plain_ms = cuda_ms(torch, lambda: patch_embed_dkw_plain(image, dconv, p, tp))
+        b, _, T, H, W = image.shape
+        go = dconv.reshape(b, T // tp, H // p, W // p, dim).permute(0, 4, 1, 2, 3).contiguous()
+        lib = torch.nn.grad.conv3d_weight(image, (dim, 1, tp, p, p), go, stride=(tp, p, p))
+        lib_err = rel_err(lib.reshape(dim, k // p, p).permute(2, 1, 0), want)
+        library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            image, (dim, 1, tp, p, p), go, stride=(tp, p, p)))
+        print(f"kernel patch_embed_dkw: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms (vs the plain version: "
+              f"max_rel_err {lib_err:.3e}) [{card}]")
+        out["patch_embed_dkw"] = dict(
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            **bound(2 * m * k * dim, nbytes(image, dconv, got), BF16_PEAK), library_ms=library_ms)
+    return out
+
+
+def param_group(name: str) -> str:
+    """The parameter group of a CTCLIP parameter, for the gradient check."""
+    import re
+
+    if name.startswith("text_transformer"):
+        return "text tower"
+    if "to_patch_emb" in name:
+        return "patch embed"
+    if "spatial_rel_pos_bias" in name:
+        return "CPB MLP"
+    hit = re.match(r"visual_transformer\.enc_(spatial|temporal)_transformer\.layers\.\d+\.(\d)\.",
+                   name)
+    if hit:
+        return f"{hit[1]} " + {"0": "PEG", "1": "attention", "3": "FF"}[hit[2]]
+    if "norm_out" in name:
+        return "norm_out"
+    return "latents + temperature"
+
+
+def train_phase(torch, model, card: str) -> dict:
+    """The train path at flagship width; returns the train run's launch counts."""
+    import tempfile
+
+    from ct_clip_ut_tpu_torch.config import TrainConfig
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.models.ctclip import contrastive_loss, ctclip_apply
+    from ct_clip_ut_tpu_torch.train.trainer import CTClipTrainer
+
+    cfg = model.cfg
+    tcfg = TrainConfig(text_max_length=TEXT_LEN, num_epochs=1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tok = WordTokenizer(cfg.bert.vocab_size)
+    words = ("the lungs are clear without consolidation effusion or nodule heart size is normal "
+             "mild emphysema and atelectasis in the lower lobes no lymphadenopathy").split()
+
+    def batch(i):
+        texts = [" ".join(words[(i * 5 + j * 3 + k) % len(words)] for k in range(40 + 9 * j))
+                 for j in range(BATCH)]
+        return (torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16),
+                texts)
+
+    data = [batch(i) for i in range(4)]
+
+    def tokens(texts):
+        enc = tok(texts, max_length=TEXT_LEN)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
+
+    # one step's gradients, kernels vs the plain path, from the same weights,
+    # inputs and dropout masks; the control is the plain gradient of another batch
+    def grads(i, plain):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        out = ctclip_apply(model, tokens(data[i][1]), data[i][0], freeze_vq=False,
+                           generator=gen, deterministic=False, plain=plain)
+        loss = contrastive_loss(out.sim_matrix)
+        loss.backward()
+        by_group = {}
+        for name, prm in model.named_parameters():
+            if prm.grad is not None:
+                by_group.setdefault(param_group(name), []).append(
+                    prm.grad.detach().float().flatten())
+        model.zero_grad(set_to_none=True)
+        return (loss.item(), out.image_latents.detach().float(), out.image_tokens.detach(),
+                {k: torch.cat(v) for k, v in by_group.items()})
+
+    loss_k, lat_k, tok_k, gk = grads(0, False)
+    loss_p, lat_p, tok_p, gp = grads(0, True)
+    gc = grads(1, True)[3]
+    cos = torch.nn.functional.cosine_similarity(lat_k, lat_p, dim=-1)
+    # a token whose code matches keeps the same row up to the straight-through
+    # form's bf16 rounding (~1e-2); a flipped code moves it by ~1
+    same = ((tok_k.float() - tok_p.float()).abs().amax(-1) < 0.1).float().mean().item()
+    errs = {k: ((gk[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
+    ctrl = {k: ((gc[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
+    bands = {k: LATENT_GRAD_BAND if k in ("text tower", "latents + temperature") else GRAD_BAND
+             for k in gp}
+    print(f"train: one step's loss {loss_k:.6f} (plain path {loss_p:.6f}); image latents vs the "
+          f"plain path 1 - cos {(1 - cos).max().item():.3e}, {same:.6f} of quantised tokens on "
+          f"the same code; "
+          f"gradients vs the plain path, relative rms per group (band {GRAD_BAND}, "
+          f"{LATENT_GRAD_BAND} downstream of the latents): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + "; controls (another batch): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ctrl.items()) + f" [{card}]")
+    if set(gk) != set(gp) or not all(torch.isfinite(v).all() for v in gk.values()):
+        raise AssertionError("kernel-path gradients missing or non-finite")
+    bad = {k: v for k, v in errs.items() if not v <= bands[k]}
+    blind = {k: v for k, v in ctrl.items() if not v > bands[k]}
+    if bad or blind:
+        raise AssertionError(f"train gradients: over the band {bad}, controls within it {blind}")
+
+    # CTClipTrainer.train(): 3 steps, the step-0 evaluation, a checkpoint
+    vq = model.visual_transformer.vq._codebook
+    cs0 = vq.cluster_size.sum().item()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = CTClipTrainer(cfg, tcfg, tok, data[:3], data[3:], results_folder=tmp,
+                                params=model, device="cuda")
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches.launch_counts()
+        saved = sorted(p.name for p in trainer.results_folder.iterdir())
+    losses = trainer.train_losses["epochs"] + trainer.valid_losses
+    print(f"train: CTClipTrainer.train() over 3 steps of {BATCH} x {list(VOLUME)} bf16 volumes "
+          f"with {TEXT_LEN}-token reports, the step-0 evaluation and a checkpoint in "
+          f"{seconds:.3f} s (host clock) [{card}]; epoch losses {trainer.train_losses['epochs']}, "
+          f"validation {trainer.valid_losses}; files {saved}; launches {json.dumps(counts)}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
+    missing = [k for k, v in counts.items() if v <= 0 and k != "bert_layer"]
+    if missing:
+        raise AssertionError(f"kernels not launched on the train path: {missing}")
+    t, h, w = (s // d for s, d in zip(VOLUME[1:], (cfg.ctvit.temporal_patch_size,
+                                                   cfg.ctvit.patch_size, cfg.ctvit.patch_size)))
+    grow = BATCH * t * h * w
+    decay = cfg.ctvit.vq_decay
+    want_cs = cs0 * decay ** 3 + grow * (1 - decay ** 3)
+    cs = vq.cluster_size.sum().item()
+    print(f"train: VQ cluster sizes sum {cs:.3f} after 3 EMA steps (expected "
+          f"{want_cs:.3f} = {cs0:.3f} decay^3 + {grow} (1 - {decay}^3))")
+    if abs(cs - want_cs) > 1e-3 * want_cs:
+        raise AssertionError(f"VQ cluster size sum {cs}, expected {want_cs}")
+
+    # three more steps, each synchronised
+    state, step = trainer.state, trainer.train_step
+    image, text = data[0][0], tokens(data[0][1])
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = step(state, image, text)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"train: make_train_step at B = {BATCH}: {', '.join(f'{v:.3f}' for v in ms)} ms per "
+          f"step (host clock, synchronised; loss {loss.item():.6f}); peak memory of these steps "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -512,12 +884,15 @@ def main() -> int:
         model = init_ctclip(flagship_cfg(), seed=0, device="cuda")
         record = kernel_phase(torch, model, card)
         counts = slice_phase(torch, model, card)
+        record.update(backward_phase(torch, model, card))
+        train_counts = train_phase(torch, model, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=counts[n],
-                    **record[n]) for n, (src, rep) in KERNELS.items()]
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
+                    launches=(train_counts if n in TRAIN_KERNELS else counts)[n], **record[n])
+               for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,9 +40,15 @@ SIGNATURES = {
     "ctc_geglu_ff": [_P] * 7 + [_I] * 5 + [_P],
     "ctc_vq_nearest": [_P] * 3 + [_I] * 3 + [_P],
     "ctc_patch_embed": [_P] * 8 + [_I] * 7 + [_P],
+    "ctc_patch_embed_res": [_P] * 9 + [_I] * 7 + [_P],
+    "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 7 + [_P],
+    "ctc_attn_block_bwd": [_P] * 32 + [_I] * 4 + [_F, _I, _P],
+    "ctc_attn_packed_bwd": [_P] * 30 + [_I] * 4 + [_F, _I, _P],
+    "ctc_geglu_ff_bwd": [_P] * 18 + [_I] * 5 + [_P],
     "ctc_bert_layer": [_P] * 20 + [_I] * 5 + [_F, _F, _P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
+    "ctc_attn_bwd_max_n": [],
 }
 
 
@@ -128,6 +134,12 @@ def require(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def aligned16(t):
+    """t, or a copy of it when its data is not 16-B aligned (the kernels
+    read rows with 16-B loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_device(device) -> torch.device:

@@ -184,6 +184,44 @@ class CTCLIPConfig:
     bert: BertConfig = field(default_factory=BertConfig)
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
+    CTClipTrainer.py:38-59, optimizer.py). The port runs single-device,
+    single-pass steps: grad_accum > 1, fsdp, sharded_checkpoints and the MoE
+    aux loss raise in the trainer (ROADMAP Queue 1 items 8 and 11)."""
+    batch_size: int = 1          # per-device
+    lr: float = 1.25e-5
+    wd: float = 0.0              # wd==0 -> plain Adam (reference optimizer.py:42)
+    betas: Tuple[float, float] = (0.9, 0.99)
+    eps: float = 1e-8
+    max_grad_norm: float = 0.5
+    num_epochs: int = 10
+    num_save_split: int = 5
+    num_train_samples: int = 100
+    num_valid_samples: int = 20
+    save_best_model: bool = False
+    # atomically write last_checkpoint every N global steps (0 = off)
+    save_every_steps: int = 0
+    text_max_length: int = 512   # tokenizer truncation (CTClipTrainer.py:191)
+    compute_dtype: str = "bfloat16"
+    seed: int = 42
+    # GradCache chunking (the JAX package's make_train_step_gradcache); 1 = single pass
+    grad_accum: int = 1
+    sharded_checkpoints: bool = False
+    moe_aux_weight: float = 0.01
+    # profiler window of steps [2, 2 + profile_steps) (0 = off)
+    profile_steps: int = 0
+    profile_dir: str = "/tmp/ctclip_trace"
+    # LR schedule (both 0 = constant lr): linear warmup, then cosine decay
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    end_lr_frac: float = 0.0
+    # Adam's first moment in this dtype ("bfloat16"); None = fp32
+    adam_mu_dtype: Optional[str] = None
+    fsdp: bool = False
+
+
 def replace(cfg, **kw):
     """dataclasses.replace that works on any frozen config."""
     return dataclasses.replace(cfg, **kw)

@@ -1,4 +1,4 @@
-// Shared block-level GEMM for the four hand-written kernels of the port.
+// Shared block-level GEMM of the port's hand-written kernels.
 //
 // One thread block of 256 threads (8 warps, 2 x 4) computes a 128 x 128
 // fp32 tile C = A @ B^T with bf16 tensor-core products (nvcuda::wmma,
@@ -184,6 +184,88 @@ __device__ void block_gemm(const LoadA& load_a, const LoadB& load_b, int K, char
 #pragma unroll
       for (int j = 0; j < FN; ++j)
         wmma::load_matrix_sync(fb[j], Bs + (cur * BN + wn * WTN + j * 16) * LDS + kk, LDS);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) stash(cur ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(C + (wm * WTM + i * 16) * LDC + wn * WTN + j * 16, acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+}
+
+// The transposed product of the backward kernels:
+// C[BM][LDC] (fp32, in smem) = sum over k in [0, K) of A[k][m] * B[k][n].
+// Both operands are read along their ROWS (k indexes the rows of two
+// row-major [rows, cols] activations), the form of every weight gradient
+// (dW = X^T G, a reduction over token rows). `load_a(k, c)` / `load_b(k, c)`
+// return 8 bf16 of row k at tile column c (a multiple of 8 in [0, 128));
+// rows k >= K read as zero. The tiles are staged k-major ([BK][LDT]) and
+// fed to wmma as a column-major A and a row-major B.
+constexpr int LDT = BM + 8;        // bf16 stride of a k-major staged tile (BM == BN)
+
+template <class LoadA, class LoadB>
+__device__ void block_gemm_tn(const LoadA& load_a, const LoadB& load_b, int K, char* smem) {
+  using namespace nvcuda;
+  bf16* As = reinterpret_cast<bf16*>(smem);           // [2][BK][LDT]
+  bf16* Bs = As + 2 * BK * LDT;                       // [2][BK][LDT]
+  float* C = reinterpret_cast<float*>(smem);          // [BM][LDC], after the loop
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // each tile is 32 rows x 128 columns = 512 chunks of 8; two per thread
+  uint4 ra[2], rb[2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int c = tid + i * THREADS;
+      int k = k0 + (c >> 4), col = (c & 15) * 8;
+      ra[i] = k < K ? load_a(k, col) : make_uint4(0u, 0u, 0u, 0u);
+      rb[i] = k < K ? load_b(k, col) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int c = tid + i * THREADS;
+      int kr = c >> 4, col = (c & 15) * 8;
+      *reinterpret_cast<uint4*>(As + (buf * BK + kr) * LDT + col) = ra[i];
+      *reinterpret_cast<uint4*>(Bs + (buf * BK + kr) * LDT + col) = rb[i];
+    }
+  };
+
+  const int nk = (K + BK - 1) / BK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) fetch((kt + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], As + (cur * BK + kk) * LDT + wm * WTM + i * 16, LDT);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + (cur * BK + kk) * LDT + wn * WTN + j * 16, LDT);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll

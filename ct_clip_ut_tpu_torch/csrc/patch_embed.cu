@@ -25,29 +25,11 @@
 //                      kernel's rounding point before LN2);
 //   pe_ln_kernel       LN2 over each 512-wide row of `out`, in place, with
 //                      the two-pass variance of the `_xla_twin`.
-#include "gemm_tile.cuh"
+#include "patch_common.cuh"
 
 namespace ctc {
 
 constexpr float PE_EPS = 1e-5f;
-
-struct PatchGeom {
-  int T, H, W, patch, t_patch;
-  // element offset of patch m's first pixel in the volume, m ordered (b, t, hp, wp)
-  __device__ __forceinline__ int64_t base(int m) const {
-    const int wp = W / patch, hp = H / patch, tt = T / t_patch;
-    int wi = m % wp, r = m / wp;
-    int hi = r % hp;
-    r /= hp;
-    int ti = r % tt, b = r / tt;
-    return ((int64_t)(b * T + ti * t_patch) * H + hi * patch) * W + wi * patch;
-  }
-  // offset of pixel k = (tv, p1, wv) within a patch
-  __device__ __forceinline__ int64_t pixel(int k) const {
-    int wv = k % patch, r = k / patch;
-    return ((int64_t)(r / patch) * H + r % patch) * W + wv;
-  }
-};
 
 __global__ void __launch_bounds__(256)
 pe_moments_kernel(const bf16* __restrict__ image, float2* __restrict__ stats, int M,
@@ -74,8 +56,8 @@ pe_moments_kernel(const bf16* __restrict__ image, float2* __restrict__ stats, in
 __global__ void __launch_bounds__(THREADS)
 pe_gemm_kernel(const bf16* __restrict__ image, const bf16* __restrict__ kwd,
                const float* __restrict__ s1, const float* __restrict__ b1,
-               const float2* __restrict__ stats, bf16* __restrict__ h, int M, int dim,
-               PatchGeom g, int vec4) {
+               const float2* __restrict__ stats, bf16* __restrict__ h,
+               float* __restrict__ conv, int M, int dim, PatchGeom g, int vec4) {
   extern __shared__ __align__(128) char smem[];
   int64_t* base = reinterpret_cast<int64_t*>(smem + GEMM_SMEM);   // [BM] patch offsets
   const int n0 = blockIdx.x * BN;
@@ -85,22 +67,9 @@ pe_gemm_kernel(const bf16* __restrict__ image, const bf16* __restrict__ kwd,
   __syncthreads();
 
   auto load_a = [&](int r, int k) {
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
     const int64_t o = base[r];
-    if (o < 0 || k >= K) return v;
-    const bf16* p = image + o;
-    if (vec4) {  // k % 8 == 0 and patch % 4 == 0: two aligned runs of 4 along W
-      uint2* half = reinterpret_cast<uint2*>(&v);
-      half[0] = *reinterpret_cast<const uint2*>(p + g.pixel(k));
-      if (k + 4 < K) half[1] = *reinterpret_cast<const uint2*>(p + g.pixel(k + 4));
-      return v;
-    }
-    bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (k + i < K) e[i] = p[g.pixel(k + i)];
-    }
-    return v;
+    if (o < 0) return make_uint4(0u, 0u, 0u, 0u);
+    return patch_load8(image + o, g, k, K, vec4);
   };
   const RowMajor wb{kwd + (int64_t)n0 * K, K, dim - n0, K};
   auto load_b = [&](int r, int k) { return wb.load8(r, k); };
@@ -112,6 +81,7 @@ pe_gemm_kernel(const bf16* __restrict__ image, const bf16* __restrict__ kwd,
     int m = row0 + r, n = n0 + c;
     if (m >= M || n >= dim) continue;
     float2 st = stats[m];
+    if (conv != nullptr) conv[(int64_t)m * dim + n] = C[r * LDC + c];
     float y = (C[r * LDC + c] - st.x * s1[n]) * st.y + b1[n];
     h[(int64_t)m * dim + n] = __float2bfloat16(y);
   }
@@ -144,12 +114,13 @@ using namespace ctc;
 
 // image [B, 1, T, H, W] bf16 (T, H, W multiples of t_patch, patch, patch);
 // kwd [dim, t_patch * patch * patch] bf16, column (tv, p1, wv); s1/b1/g2/b2
-// [dim] fp32; stats [M] float2 workspace; out [M, dim] bf16 with M = B *
-// T/t_patch * H/patch * W/patch.
-extern "C" int ctc_patch_embed(const void* image, const void* kwd, const void* s1,
-                               const void* b1, const void* g2, const void* b2, void* stats,
-                               void* out, int B, int T, int H, int W, int patch, int t_patch,
-                               int dim, void* stream) {
+// [dim] fp32; stats [M] float2 (each patch's LN1 mean and rstd); out [M, dim]
+// bf16 with M = B * T/t_patch * H/patch * W/patch; conv [M, dim] fp32 (the
+// product before the folded LN1) or null.
+static int patch_embed_launch(const void* image, const void* kwd, const void* s1, const void* b1,
+                              const void* g2, const void* b2, void* stats, void* out, void* conv,
+                              int B, int T, int H, int W, int patch, int t_patch, int dim,
+                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const PatchGeom g{T, H, W, patch, t_patch};
   const int M = B * (T / t_patch) * (H / patch) * (W / patch);
@@ -162,8 +133,28 @@ extern "C" int ctc_patch_embed(const void* image, const void* kwd, const void* s
   dim3 grid((dim + BN - 1) / BN, (M + BM - 1) / BM);
   pe_gemm_kernel<<<grid, THREADS, smem, st>>>((const bf16*)image, (const bf16*)kwd,
                                               (const float*)s1, (const float*)b1,
-                                              (const float2*)stats, (bf16*)out, M, dim, g, vec4);
+                                              (const float2*)stats, (bf16*)out, (float*)conv, M,
+                                              dim, g, vec4);
   pe_ln_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0, st>>>(
       (bf16*)out, (const float*)g2, (const float*)b2, M, dim);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ctc_patch_embed(const void* image, const void* kwd, const void* s1,
+                               const void* b1, const void* g2, const void* b2, void* stats,
+                               void* out, int B, int T, int H, int W, int patch, int t_patch,
+                               int dim, void* stream) {
+  return patch_embed_launch(image, kwd, s1, b1, g2, b2, stats, out, nullptr, B, T, H, W, patch,
+                            t_patch, dim, stream);
+}
+
+// The residual-saving forward (the port of _forward_res_impl): the same
+// chain, and the pe_gemm epilogue also writes the fp32 product `conv`; with
+// `stats` these are what the LayerNorm-chain backward rebuilds from.
+extern "C" int ctc_patch_embed_res(const void* image, const void* kwd, const void* s1,
+                                   const void* b1, const void* g2, const void* b2, void* stats,
+                                   void* out, void* conv, int B, int T, int H, int W, int patch,
+                                   int t_patch, int dim, void* stream) {
+  return patch_embed_launch(image, kwd, s1, b1, g2, b2, stats, out, conv, B, T, H, W, patch,
+                            t_patch, dim, stream);
 }

@@ -71,14 +71,22 @@ def throughput(runner: CTClipInference, image: torch.Tensor, batches: int,
 
 def device_profile(model, image: torch.Tensor, latents: torch.Tensor) -> dict:
     """One zeroshot_probs call under torch.profiler."""
+    return profile_call(lambda: zeroshot_probs(model, image, latents))
+
+
+def profile_call(fn) -> dict:
+    """fn() once as a warm-up, then once under torch.profiler with the
+    launch counters reset: host wall time, summed device kernel time, busy
+    time (the union of kernel intervals) and share, launch counts, and the
+    device kernels ranked by time."""
     from torch.profiler import ProfilerActivity, profile
 
-    zeroshot_probs(model, image, latents)
+    fn()
     torch.cuda.synchronize()
     launches.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        zeroshot_probs(model, image, latents)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     counts = launches.launch_counts()
@@ -98,6 +106,20 @@ def device_profile(model, image: torch.Tensor, latents: torch.Tensor) -> dict:
                 busy_share=busy / wall_us, counts=counts,
                 rows=sorted(((v[0] / 1e3, v[1], name) for name, v in by_name.items()),
                             reverse=True))
+
+
+def print_profile(p: dict, label: str, card: str, table=None, top: int = 20) -> None:
+    """The profile's summary line, its top kernels, and every row to `table`."""
+    print(f"{label}: wall {p['wall_ms']:.3f} ms, device kernel time {p['kernel_ms']:.3f} ms, "
+          f"busy {p['busy_ms']:.3f} ms = {100 * p['busy_share']:.1f}% of the wall; "
+          f"launches {p['counts']} [{card}]")
+    for ms, n, name in p["rows"][:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / p['kernel_ms']:5.1f}% {n:5d}x  {name[:90]}")
+    if table:
+        with open(table, "w") as f:
+            f.write(f"# {label} [{card}]: ms, share of kernel time, calls, kernel\n")
+            for ms, n, name in p["rows"]:
+                f.write(f"{ms:.4f}\t{100 * ms / p['kernel_ms']:.2f}%\t{n}\t{name}\n")
 
 
 def main(argv=None) -> int:
@@ -136,17 +158,7 @@ def main(argv=None) -> int:
               f"peak {r['peak_gb']:.3f} GB [{card}]", flush=True)
 
     b = PROFILE_BATCH
-    p = device_profile(model, volumes(b), latents)
-    print(f"profile B={b}: wall {p['wall_ms']:.3f} ms, device kernel time {p['kernel_ms']:.3f} ms, "
-          f"busy {p['busy_ms']:.3f} ms = {100 * p['busy_share']:.1f}% of the wall; "
-          f"launches {p['counts']} [{card}]")
-    for ms, n, name in p["rows"][:20]:
-        print(f"  {ms:9.3f} ms {100 * ms / p['kernel_ms']:5.1f}% {n:5d}x  {name[:90]}")
-    if args.table:
-        with open(args.table, "w") as f:
-            f.write(f"# profile B={b} [{card}]: ms, share of kernel time, calls, kernel\n")
-            for ms, n, name in p["rows"]:
-                f.write(f"{ms:.4f}\t{100 * ms / p['kernel_ms']:.2f}%\t{n}\t{name}\n")
+    print_profile(device_profile(model, volumes(b), latents), f"profile B={b}", card, args.table)
     return 0
 
 

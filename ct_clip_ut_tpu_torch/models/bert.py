@@ -1,4 +1,4 @@
-"""BERT text encoder (HF BertModel semantics, post-LN), inference only.
+"""BERT text encoder (HF BertModel semantics, post-LN).
 
 Counterpart of ct_clip_ut_tpu/models/bert.py:60-179. Submodules carry HF's
 state-dict names (embeddings.word_embeddings,
@@ -8,6 +8,14 @@ and a multiple of 8, hidden a multiple of 128, heads of a width 8 divides)
 run each layer through the bert_layer kernel: the zero-shot prompts,
 padded to 512 tokens, do. Shorter sequences, and CPU tensors, take the
 layer loop written out below (HF semantics, two-pass LayerNorm).
+
+Train mode (deterministic=False) runs the layer loop with the JAX package's
+dropout sites (bert.py:78-80, 127-170): the embeddings, the attention
+probabilities and both hidden outputs, at the BertConfig rates, masks drawn
+from a torch.Generator. The fused kernel has no train variant yet, so a
+train-mode call on the card that meets the fused gate raises rather than
+quietly running the loop (ROADMAP Queue 2 item 8); the training slice
+keeps its reports under 128 tokens, below the gate.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from torch import nn
 
 from ..config import BertConfig
 from ..ops.bert_layer import bert_layer, bert_layer_plain
-from ..ops.layers import layernorm, linear
+from ..ops.layers import dropout, layernorm, linear
 
 
 class BertEmbeddings(nn.Module):
@@ -63,6 +71,12 @@ def fused_layer_gate(cfg: BertConfig, n: int) -> bool:
             and cfg.num_heads * hd == cfg.hidden_size)
 
 
+def takes_fused_layers(x: torch.Tensor, cfg: BertConfig, n: int) -> bool:
+    """The card runs the bert_layer kernel where the JAX gate holds; the
+    CPU takes the layer loop."""
+    return x.is_cuda and fused_layer_gate(cfg, n)
+
+
 def layer_args(layer: BertLayer) -> tuple:
     """A layer's weights in bert_layer's argument order."""
     sa, ao, out = layer.attention["self"], layer.attention["output"], layer.output
@@ -89,11 +103,16 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
                token_type_ids: Optional[torch.Tensor] = None,
                compute_dtype: torch.dtype = torch.float32,
-               plain: bool = False) -> torch.Tensor:
-    """last_hidden_state [b, n, hidden] (deterministic). plain=True runs
-    the kernel's plain version where the kernel would run."""
+               plain: bool = False, *, generator: Optional[torch.Generator] = None,
+               deterministic: bool = True) -> torch.Tensor:
+    """last_hidden_state [b, n, hidden]. plain=True runs the kernel's plain
+    version where the kernel would run. deterministic=False applies dropout
+    with masks from `generator`."""
     cfg = bert.cfg
     b, n = input_ids.shape
+    train = not deterministic
+    if train and generator is None:
+        raise ValueError("train-mode BERT (deterministic=False) needs a torch.Generator")
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
     if attention_mask is None:
@@ -106,8 +125,15 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
 
     # HF additive mask: 0 where attended, dtype-min where padded
     mask_row = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min
-    if x.is_cuda and fused_layer_gate(cfg, n):
+    if takes_fused_layers(x, cfg, n):
+        if train:
+            raise NotImplementedError(
+                f"train-mode BERT at {n} tokens meets the fused-layer gate (n >= 128), and the "
+                "bert_layer kernel's train variant (bf16, Philox dropout) and backward are not "
+                "ported yet (ROADMAP, Queue 2 item 8)")
         return fused_layers(bert, x, mask_row, plain)
+    if train:
+        x = dropout(x, cfg.hidden_dropout, generator)
 
     ext_mask = mask_row[:, None, None, :]
     nh = cfg.num_heads
@@ -122,20 +148,28 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
         q, k, v = (t.reshape(b, n, nh, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         sim = (q.float() @ k.float().transpose(-1, -2)) * scale + ext_mask
         attn = torch.softmax(sim, dim=-1).to(compute_dtype)
+        if train:
+            attn = dropout(attn, cfg.attention_dropout, generator)
         ctx = (attn.float() @ v.float()).to(compute_dtype)
         ctx = ctx.transpose(1, 2).reshape(b, n, cfg.hidden_size)
         h = linear(ctx, ao["dense"].weight, ao["dense"].bias)
+        if train:
+            h = dropout(h, cfg.hidden_dropout, generator)
         x = layernorm(h + x, ao["LayerNorm"].weight, ao["LayerNorm"].bias, eps).to(compute_dtype)
         h = linear(x, layer.intermediate["dense"].weight, layer.intermediate["dense"].bias)
         h = torch.nn.functional.gelu(h.float()).to(compute_dtype)
         out = layer.output
         h = linear(h, out["dense"].weight, out["dense"].bias)
+        if train:
+            h = dropout(h, cfg.hidden_dropout, generator)
         x = layernorm(h + x, out["LayerNorm"].weight, out["LayerNorm"].bias, eps).to(compute_dtype)
     return x
 
 
 def bert_cls(bert: Bert, input_ids, attention_mask=None, token_type_ids=None,
-             compute_dtype: torch.dtype = torch.float32, plain: bool = False) -> torch.Tensor:
+             compute_dtype: torch.dtype = torch.float32, plain: bool = False, *,
+             generator: Optional[torch.Generator] = None,
+             deterministic: bool = True) -> torch.Tensor:
     """CLS-token hidden state [b, hidden]."""
-    return bert_apply(bert, input_ids, attention_mask, token_type_ids, compute_dtype,
-                      plain)[:, 0]
+    return bert_apply(bert, input_ids, attention_mask, token_type_ids, compute_dtype, plain,
+                      generator=generator, deterministic=deterministic)[:, 0]

@@ -1,6 +1,8 @@
 """CTCLIP: BERT text tower + CT-ViT image tower, l2-normalised latents.
 
-Counterpart of ct_clip_ut_tpu/models/ctclip.py (inference half). Submodule
+Counterpart of ct_clip_ut_tpu/models/ctclip.py: the latents, the full
+forward `ctclip_apply` (sim matrix scaled by exp(temperature)) and the
+symmetric InfoNCE `contrastive_loss` the train step minimises. Submodule
 names follow the reference state dict (text_transformer, visual_transformer,
 to_text_latent, to_visual_latent, temperature).
 """
@@ -8,8 +10,10 @@ to_text_latent, to_visual_latent, temperature).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import _build
@@ -18,6 +22,7 @@ from ..ops.attention import Attention
 from ..ops.layers import FrozenBiasLayerNorm, l2norm, linear
 from ..ops.vq import _Codebook
 from .bert import Bert, bert_cls
+from ..ops.vq import VQState
 from .ctvit import CTViT, ctvit_apply
 
 
@@ -92,11 +97,13 @@ def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cuda") -> CTCLIP:
 
 
 def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool = True,
-                         return_weights: bool = False, taps=None, plain: bool = False):
+                         return_weights: bool = False, taps=None, deterministic: bool = True,
+                         plain: bool = False):
     """CT-ViT -> fp32 temporal mean (cast back) -> flatten -> project ->
     l2norm (ctclip.py:63-83). Returns (latents, CTViTOutput)."""
     vit_out = ctvit_apply(model.visual_transformer, image, freeze_vq=freeze_vq,
-                          return_weights=return_weights, taps=taps, plain=plain)
+                          return_weights=return_weights, taps=taps,
+                          deterministic=deterministic, plain=plain)
     tokens = vit_out.tokens
     pooled = tokens.float().mean(dim=1).to(tokens.dtype)
     latents = linear(pooled.reshape(pooled.shape[0], -1), model.to_visual_latent.weight)
@@ -105,10 +112,64 @@ def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool 
 
 def encode_text_latents(model: CTCLIP, text_tokens: dict,
                         compute_dtype: torch.dtype = torch.float32,
-                        plain: bool = False) -> torch.Tensor:
+                        plain: bool = False, *, generator: Optional[torch.Generator] = None,
+                        deterministic: bool = True) -> torch.Tensor:
     """BERT CLS -> project -> l2norm (ctclip.py:129-141). `text_tokens`
     holds input_ids and optionally attention_mask / token_type_ids."""
     cls = bert_cls(model.text_transformer, text_tokens["input_ids"],
                    text_tokens.get("attention_mask"), text_tokens.get("token_type_ids"),
-                   compute_dtype=compute_dtype, plain=plain)
+                   compute_dtype=compute_dtype, plain=plain, generator=generator,
+                   deterministic=deterministic)
     return l2norm(linear(cls, model.to_text_latent.weight))
+
+
+class CTCLIPOutput(NamedTuple):
+    sim_matrix: torch.Tensor            # [B_img, B_txt] fp32
+    image_latents: torch.Tensor         # [B, dim_latent], l2-normalised
+    text_latents: torch.Tensor
+    temperature: torch.Tensor           # exp(temperature)
+    image_tokens: torch.Tensor          # [b, t, h, w, d] quantized CT-ViT tokens
+    spatial_attn: Optional[tuple]
+    temporal_attn: Optional[tuple]
+    vq_state: VQState
+    moe_aux: Optional[torch.Tensor] = None
+
+
+def ctclip_apply(model: CTCLIP, text_tokens: dict, image: torch.Tensor, *,
+                 text_embeds: Optional[torch.Tensor] = None, gather_axis=None,
+                 freeze_vq: bool = True, return_weights: bool = False, taps=None,
+                 generator: Optional[torch.Generator] = None, deterministic: bool = True,
+                 plain: bool = False) -> CTCLIPOutput:
+    """Full forward (ctclip.py:144-197): text latents in the image's dtype,
+    image latents, sim = image_latents @ text_latents^T * exp(temperature)
+    in fp32. `generator` draws the text tower's dropout masks when
+    deterministic=False."""
+    if text_embeds is not None or text_tokens is None:
+        raise NotImplementedError(
+            "the precomputed text-embedding bypass is not ported yet "
+            "(ROADMAP, Queue 1 item 9: attribution / occlusion)")
+    if gather_axis is not None:
+        raise NotImplementedError(
+            "the gradient-carrying all-gather of latents is not ported yet "
+            "(ROADMAP, Queue 1 item 11: parallel)")
+    text_latents = encode_text_latents(model, text_tokens, compute_dtype=image.dtype,
+                                       plain=plain, generator=generator,
+                                       deterministic=deterministic)
+    image_latents, vit_out = encode_image_latents(
+        model, image, freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
+        deterministic=deterministic, plain=plain)
+    temp = model.temperature.exp()
+    sim = (image_latents.float() @ text_latents.float().t()) * temp
+    return CTCLIPOutput(sim_matrix=sim, image_latents=image_latents, text_latents=text_latents,
+                        temperature=temp, image_tokens=vit_out.tokens,
+                        spatial_attn=vit_out.spatial_attn, temporal_attn=vit_out.temporal_attn,
+                        vq_state=vit_out.vq_state)
+
+
+def contrastive_loss(sim_matrix: torch.Tensor,
+                     targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Symmetric InfoNCE: the mean of the cross-entropies over rows and over
+    columns, arange targets by default (ctclip.py:200-210)."""
+    if targets is None:
+        targets = torch.arange(sim_matrix.shape[0], device=sim_matrix.device)
+    return (F.cross_entropy(sim_matrix, targets) + F.cross_entropy(sim_matrix.t(), targets)) / 2.0

@@ -7,6 +7,11 @@ with the first LN folded into the projection (the patch_embed kernel). For
 a [b, 1, 240, 480, 480] volume: a [b, 24, 24, 24, 512] token grid, 4
 spatial layers over (b t) x 576 tokens with a 2-D CPB bias, 4 temporal
 layers over (b h w) x 24 tokens, VQ against 8192 codes.
+
+Training (`ctvit_apply(freeze_vq=False)`, under autograd) runs the same
+kernels through their autograd Functions: the conv embed takes the
+residual-saving patch embed and its dkw backward, the blocks their
+backward chains; the VQ returns its EMA-updated codebook.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from torch import nn
 
 from ..config import CTViTConfig
 from ..ops.layers import layernorm, linear
-from ..ops.patch_embed import fold_patch_embed, patch_embed_fused, patch_embed_plain
+from ..ops.patch_embed import (fold_patch_embed, patch_embed_fused, patch_embed_grad,
+                               patch_embed_plain)
 from ..ops.posbias import ContinuousPositionBias, continuous_pos_bias
 from ..ops.transformer import Transformer, transformer
 from ..ops.vq import VectorQuantize, VQState, vq_apply
@@ -81,14 +87,19 @@ def _patch_embed_conv(vit: CTViT, image: torch.Tensor, plain: bool = False) -> t
     """The LN-folded embed of a [b, c, T, H, W] volume (ctvit.py:63-99):
     the patch_embed kernel for one channel and T, H, W that the patch sizes
     divide (the JAX package's gate, ctvit.py:92-93), the plain version
-    otherwise or with plain=True. The fold runs per call, in fp32."""
+    otherwise or with plain=True. Under autograd the kernel path is the
+    residual-saving forward with its backward (`patch_embed_grad`). The
+    fold runs per call, in fp32."""
     cfg = vit.cfg
     b, c, T, H, W = image.shape
     p, tp = cfg.patch_size, cfg.temporal_patch_size
     emb = vit.to_patch_emb
     kw, s1, b1 = fold_patch_embed(emb, p, tp, c)
     kernel = not plain and c == 1 and T % tp == 0 and H % p == 0 and W % p == 0
-    fn = patch_embed_fused if kernel else patch_embed_plain
+    if not kernel:
+        fn = patch_embed_plain
+    else:
+        fn = patch_embed_grad if torch.is_grad_enabled() else patch_embed_fused
     return fn(image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float(), p, tp)
 
 
@@ -129,12 +140,21 @@ def token_grid_shape(cfg: CTViTConfig, image_shape) -> tuple:
 
 
 def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
-                return_weights: bool = False, taps=None, plain: bool = False) -> CTViTOutput:
-    """Full CT-ViT forward of a [b, c, T, H, W] volume (ctvit.py:249-296)."""
+                return_weights: bool = False, taps=None, deterministic: bool = True,
+                plain: bool = False) -> CTViTOutput:
+    """Full CT-ViT forward of a [b, c, T, H, W] volume (ctvit.py:249-296).
+    freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
+    caller writes it back). CT-ViT dropout is not ported: its rates are 0
+    in every configuration the JAX package ships, and a train-mode call
+    with a rate above 0 raises."""
     cfg = vit.cfg
     if taps is not None:
         raise NotImplementedError(
             "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9: attribution)")
+    if not deterministic and (cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0):
+        raise NotImplementedError(
+            "CT-ViT attention / FF dropout is not ported (the kernels take no dropout); "
+            "the configurations use rate 0")
     if cfg.patch_embed_conv:
         tokens = _patch_embed_conv(vit, image, plain=plain)
     else:
@@ -142,7 +162,8 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
     b, t, h, w, d = x.shape
     quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),
-                                 freeze=freeze_vq, plain=plain)
+                                 freeze=freeze_vq, decay=cfg.vq_decay, eps=cfg.vq_eps,
+                                 plain=plain)
     return CTViTOutput(tokens=quant.reshape(b, t, h, w, d),
                        codebook_ids=idx.reshape(b, t, h, w),
                        spatial_attn=sp_w, temporal_attn=tm_w, vq_state=state)

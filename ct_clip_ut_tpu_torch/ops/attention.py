@@ -7,7 +7,11 @@ spatial stack), `attn_packed` otherwise (the temporal stack). On CUDA
 tensors those launch their kernels or raise for a shape they do not take;
 on CPU tensors they take their plain versions. Every other call runs the
 plain path of attention.py:141-226, which also returns the pre-dropout
-attention weights. The port is inference-only: no dropout.
+attention weights. The block path carries its backward: `_BlockFn` (the
+custom VJPs of pallas_attn_block / pallas_attn_packed) runs the backward
+kernel chains on CUDA tensors and their plain versions on CPU tensors;
+with plain=True the plain forward is differentiated by autograd instead.
+Attention dropout is not ported (the CT-ViT's rates are 0).
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import AttentionConfig
-from .attn_block import attn_block, attn_block_plain
-from .attn_packed import attn_packed, attn_packed_plain
+from .attn_block import attn_block, attn_block_bwd, attn_block_plain
+from .attn_packed import attn_packed, attn_packed_bwd, attn_packed_plain
 from .layers import FrozenBiasLayerNorm, l2norm, layernorm, linear
 from .posbias import alibi_bias, causal_mask
 
@@ -44,6 +48,33 @@ class Attention(nn.Module):
         self.null_kv = nn.Parameter(torch.zeros(cfg.heads, 2 * cfg.num_null_kv, cfg.dim_head))
         if cfg.norm_context:
             self.context_norm = FrozenBiasLayerNorm(cfg.context_dim)
+
+
+class _BlockFn(torch.autograd.Function):
+    """The fused block with its backward: attn_block (with a bias) or
+    attn_packed (without), forward and backward, on CUDA tensors the kernels
+    and on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):
+        ctx.save_for_backward(x, gamma, wq, wk, wv, wo, qs, ks, bias)
+        ctx.scale, ctx.residual = scale, residual
+        if bias is not None:
+            return attn_block(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+        return attn_packed(x, gamma, wq, wk, wv, wo, qs, ks, scale, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, wq, wk, wv, wo, qs, ks, bias = ctx.saved_tensors
+        args = (x, gamma, wq, wk, wv, wo, qs, ks)
+        if bias is not None:
+            *grads, dbias = attn_block_bwd(*args, bias, g.contiguous(), ctx.scale, ctx.residual)
+            dbias = dbias.to(bias.dtype)
+        else:
+            grads = attn_packed_bwd(*args, g.contiguous(), ctx.scale, ctx.residual)
+            dbias = None
+        grads = [grads[0]] + [d.to(a.dtype) for d, a in zip(grads[1:], args[1:])]
+        return (*grads, dbias, None, None)
 
 
 class AttentionOutput(NamedTuple):
@@ -72,12 +103,13 @@ def attention(attn: Attention, x: torch.Tensor, *,
         args = (x.contiguous(), attn.norm.gamma.float(), attn.to_q.weight.to(dt),
                 wkv[:cfg.inner_dim], wkv[cfg.inner_dim:], attn.to_out.weight.to(dt),
                 attn.q_scale.float(), attn.k_scale.float())
-        if attn_bias is not None:
-            fn = attn_block_plain if plain else attn_block
-            out = fn(*args, attn_bias.float().contiguous(), cfg.scale, residual)
+        bias = None if attn_bias is None else attn_bias.float().contiguous()
+        if not plain:
+            out = _BlockFn.apply(*args, bias, cfg.scale, residual)
+        elif bias is not None:
+            out = attn_block_plain(*args, bias, cfg.scale, residual)
         else:
-            fn = attn_packed_plain if plain else attn_packed
-            out = fn(*args, cfg.scale, residual)
+            out = attn_packed_plain(*args, cfg.scale, residual)
         return AttentionOutput(out, None)
     return _attention_plain(attn, x, mask, attn_bias, return_weights, residual)
 

@@ -9,7 +9,9 @@ them back). These integers are the package's only global state.
 
 from __future__ import annotations
 
-KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed", "bert_layer")
+KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed", "bert_layer",
+           "attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
+           "patch_embed_dkw")
 
 attn_block = 0
 attn_packed = 0
@@ -17,6 +19,11 @@ geglu_ff = 0
 vq_nearest = 0
 patch_embed = 0
 bert_layer = 0
+attn_block_bwd = 0
+attn_packed_bwd = 0
+geglu_ff_bwd = 0
+patch_embed_res = 0
+patch_embed_dkw = 0
 
 
 def count(name: str) -> None:

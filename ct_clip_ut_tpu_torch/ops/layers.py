@@ -1,4 +1,4 @@
-"""NN primitives: linear, layer norms, l2norm, GEGLU feed-forward, PEG.
+"""NN primitives: linear, layer norms, l2norm, dropout, GEGLU feed-forward, PEG.
 
 Counterpart of ct_clip_ut_tpu/ops/layers.py. Weights are torch-layout
 (nn.Linear (out, in), Conv3d [dim, 1, 3, 3, 3]); normalisation runs in
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .geglu_ff import geglu_ff, geglu_ff_plain
+from .geglu_ff import geglu_ff_grad, geglu_ff_plain
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -55,6 +55,22 @@ def l2norm(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return out.to(t.dtype)
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout at rate p (layers.py:113-118): keep each element with
+    probability 1 - p and scale it by 1 / (1 - p), in x's dtype. The mask is
+    drawn with torch.bernoulli from `generator` (a torch.Generator on x's
+    device): the JAX package's threefry bits cannot be reproduced, so runs
+    agree in distribution, not bit for bit. p == 0 returns x."""
+    if p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with p > 0 needs a torch.Generator")
+    keep = 1.0 - p
+    mask = torch.bernoulli(torch.full(x.shape, keep, device=x.device), generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device)).to(x.dtype)
+
+
 class FrozenBiasLayerNorm(nn.Module):
     """The reference's LayerNorm with a learned `gamma` and a zero `beta`
     buffer (attention norm and `norm_out`); `beta` never enters the math."""
@@ -83,13 +99,14 @@ class FeedForward(nn.Sequential):
 
 def feedforward(ff: FeedForward, x: torch.Tensor, *, residual: bool = False,
                 plain: bool = False) -> torch.Tensor:
-    """GEGLU FF of [b, n, dim] tokens through the geglu_ff kernel (its plain
-    version on CPU tensors, or everywhere with plain=True)."""
+    """GEGLU FF of [b, n, dim] tokens through the geglu_ff kernel and its
+    backward (their plain versions on CPU tensors), or with plain=True the
+    plain forward everywhere, differentiated by autograd."""
     b, n, d = x.shape
     dt = x.dtype
     args = (x.reshape(b * n, d).contiguous(), ff[0].weight.float(), ff[0].bias.float(),
             ff[1].weight.to(dt), ff[4].weight.to(dt))
-    fn = geglu_ff_plain if plain else geglu_ff
+    fn = geglu_ff_plain if plain else geglu_ff_grad
     return fn(*args, residual=residual).reshape(b, n, d)
 
 

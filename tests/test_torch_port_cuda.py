@@ -260,3 +260,80 @@ def test_bert_layer_kernel_matches_plain_on_card(cuda_device, b, n, lengths):
         bad = list(args)
         bad[i] = torch.ones_like(args[i]) if i == 6 else torch.zeros_like(args[i])
         assert _rel_err(got, bert_layer_plain(*bad, 12, 1e-12)) > BERT_BAND, i
+
+
+ATTN_GRADS = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,bias", [(576, True), (100, True), (24, False), (7, False)])
+def test_attention_backward_kernels_match_plain_on_card(cuda_device, n, bias, residual):
+    """Every gradient of the attention backward chains within 1.5e-2 max
+    relative error of the plain backward (bf16 inputs, fp32 sums in another
+    order; dbias and the scales summed with atomics)."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd, attn_packed_bwd_plain
+
+    a = _attn_inputs(np.random.default_rng(15), r=5, n=n, d=512, heads=8, dh=32, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    for i in (0, 2, 3, 4, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3)).to(torch.bfloat16)
+    if bias:
+        args.append(torch.from_numpy(a["bias"]).to(cuda_device))
+        kern, plain = attn_block_bwd, attn_block_bwd_plain
+    else:
+        kern, plain = attn_packed_bwd, attn_packed_bwd_plain
+    launches.reset_launch_counts()
+    got = kern(*args, g, 8.0, residual)
+    want = plain(*args, g, 8.0, residual)
+    assert sum(launches.launch_counts().values()) == 1
+    for name, x, y in zip(ATTN_GRADS, got, want):
+        assert torch.isfinite(x).all(), name
+        assert _rel_err(x, y) <= 1.5e-2, (name, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n", [13824, 77])
+def test_geglu_ff_backward_kernel_matches_plain_on_card(cuda_device, n, residual):
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd, geglu_ff_bwd_plain
+
+    a = _ff_inputs(np.random.default_rng(16), n=n, dim=512)
+    args = [t.to(cuda_device) for t in _torch_ff_args(a)]
+    for i in (0, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(4)).to(torch.bfloat16)
+    got = geglu_ff_bwd(*args, g, residual)
+    want = geglu_ff_bwd_plain(*args, g, residual)
+    for name, x, y in zip(("dx", "dgamma", "dbeta", "dw_in", "dw_out"), got, want):
+        assert torch.isfinite(x).all(), name
+        assert _rel_err(x, y) <= 1.5e-2, (name, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,H,W", [(2, 240, 480, 480), (1, 20, 60, 100)])
+def test_patch_embed_res_and_dkw_kernels_match_plain_on_card(cuda_device, b, T, H, W):
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (patch_embed_dkw, patch_embed_dkw_plain,
+                                                      patch_embed_res, patch_embed_res_plain)
+
+    a = _patch_inputs(np.random.default_rng(17), b, T, H, W, 20, 10, 512)
+    args = _patch_args(a, 20, 10, cuda_device)
+    args[0] = args[0].to(torch.bfloat16)
+    launches.reset_launch_counts()
+    out, conv, stats = patch_embed_res(*args, 20, 10)
+    pout, pconv, pstats = patch_embed_res_plain(*args, 20, 10)
+    assert _rel_err(out, pout) <= 1.5e-2
+    assert _rel_err(conv, pconv) <= 1e-3 and _rel_err(stats, pstats) <= 1e-4
+    dconv = torch.randn(conv.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(5)).to(torch.bfloat16)
+    got = patch_embed_dkw(args[0], dconv, 20, 10)
+    want = patch_embed_dkw_plain(args[0], dconv, 20, 10)
+    assert got.shape == (20, 200, 512)
+    assert _rel_err(got, want) <= 1.5e-2
+    assert _rel_err(got, want.transpose(0, 1).reshape(20, 200, 512)) > 1.5e-2
+    assert launches.launch_counts()["patch_embed_res"] == 1
+    assert launches.launch_counts()["patch_embed_dkw"] == 1

@@ -118,8 +118,8 @@ def test_launch_counters_count_and_reset():
     launches.reset_launch_counts()
     launches.count("geglu_ff")
     launches.count("geglu_ff")
-    assert launches.launch_counts() == {"attn_block": 0, "attn_packed": 0, "geglu_ff": 2,
-                                        "vq_nearest": 0, "patch_embed": 0, "bert_layer": 0}
+    assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
+    assert len(launches.KERNELS) == 11
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -127,11 +127,14 @@ def test_launch_counters_count_and_reset():
 def test_build_sources_are_the_package_csrc():
     names = {p.name for p in _build.sources()}
     assert names == {"attn_block.cu", "attn_common.cuh", "attn_packed.cu", "gemm_tile.cuh",
-                     "geglu_ff.cu", "vq_nearest.cu", "patch_embed.cu", "bert_layer.cu"}
+                     "geglu_ff.cu", "vq_nearest.cu", "patch_embed.cu", "bert_layer.cu",
+                     "attn_bwd.cuh", "attn_block_bwd.cu", "attn_packed_bwd.cu", "bwd_common.cuh",
+                     "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
-                "ctc_patch_embed", "ctc_bert_layer"))
+                "ctc_patch_embed", "ctc_bert_layer", "ctc_attn_block_bwd", "ctc_attn_packed_bwd",
+                "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw"))
 
 
 # the patch embed at the geometry of tests/test_pallas.py:361-394

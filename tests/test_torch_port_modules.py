@@ -89,7 +89,7 @@ def _close(got, want, atol=ATOL):
 
 
 @pytest.mark.parametrize("name", ["AttentionConfig", "TransformerConfig", "CTViTConfig",
-                                  "BertConfig", "CTCLIPConfig"])
+                                  "BertConfig", "CTCLIPConfig", "TrainConfig"])
 def test_config_mirrors_the_jax_dataclasses(name):
     j, p = getattr(jconfig, name)(), getattr(pconfig, name)()
     assert [f.name for f in dataclasses.fields(p)] == [f.name for f in dataclasses.fields(j)]
@@ -298,8 +298,11 @@ def test_vq(shared):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     _close(out, want_out)
     _close(state.embed, jstate.embed)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvq.vq_apply(state, torch.from_numpy(x), freeze=False)
+    # training: the EMA-updated codebook (ported with the train step)
+    _, _, jnew = jvq.vq_apply(jstate, jnp.asarray(x), freeze=False)
+    _, _, new = tvq.vq_apply(state, torch.from_numpy(x), freeze=False)
+    for got, want in zip(new, jnew):
+        _close(got, want)
 
 
 def test_bert(shared):

@@ -169,6 +169,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "import ct_clip_ut_tpu_torch, ct_clip_ut_tpu_torch.convert, chip_smoke\n"
             "import ct_clip_ut_tpu_torch.infer.zeroshot, ct_clip_ut_tpu_torch._build\n"
             "import ct_clip_ut_tpu_torch.infer.profile_zeroshot\n"
+            "import ct_clip_ut_tpu_torch.train.trainer, ct_clip_ut_tpu_torch.train.profile_train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ct_clip_ut_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(), check=True,
