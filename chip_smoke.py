@@ -7,7 +7,7 @@ Phases, each printing its lines before the last:
   1. the device: `nvidia-smi` name and power limit, torch and CUDA versions;
   2. the build of csrc/*.cu (one nvcc per source, in parallel), with its
      seconds;
-  3. each of the six kernels against its plain PyTorch version on the card,
+  3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
      (`bound_ms`) and, for the BERT layer, one PyTorch call computing the
@@ -31,17 +31,31 @@ Phases, each printing its lines before the last:
      LN gain left out of dx, the softmax row term or the l2-norm
      projection dropped, g missing from dx under the residual, dbias zero,
      GELU for its derivative, wv / cin swapped in the weight grad);
-  6. the train path at flagship width, B = 2, 120-token reports: one step's
-     gradients held against the same step on the plain path (relative rms
+  6. the four kernels of the 512-token train step at the shapes a B = 2
+     step gives them: the bf16 BERT layer, deterministic and in train mode
+     (dropout 0.1 / 0.1), and its backward (dx and the twelve parameter
+     gradients) against their plain versions through the same Philox masks,
+     the masks themselves bit for bit against the plain generator with
+     their keep shares, and nn.TransformerEncoderLayer as the library call;
+     the PEG stencil (causal, and the backward's flipped form) and its
+     weight gradient against their plain versions, with the default
+     route's copy + F.conv3d + copy and torch.nn.grad.conv3d_weight as the
+     library calls; each with the controls a faulty kernel would give;
+  7. the earlier train path (120-token reports, the PEG on F.conv3d): two
+     steps of make_train_step and one evaluation, its kernels' launch
+     counters > 0 and the new kernels' at 0;
+  8. the train path as users run it, at flagship width, B = 2, 512-token
+     reports, peg_pallas=True: one step's gradients held against the same
+     step on the plain path from the same generator state (relative rms
      per parameter group, with the gradients of another batch as the
      control), then CTClipTrainer.train() over three steps (the step-0
      evaluation and a checkpoint included) with every train-path launch
      counter > 0, finite losses, the VQ cluster sizes grown by
      b t h w (1 - decay^3), and the time of three more steps.
 The line before the last is the kernels' JSON record (launches: the
-zero-shot run's counts for the forward kernels, the train run's for the
-backward ones); the last line is {"ok": true, "device": {...}}. Any failed
-phase exits non-zero before it.
+zero-shot run's counts for the forward kernels, phase 8's for the train
+kernels); the last line is {"ok": true, "device": {...}}. Any failed phase
+exits non-zero before it.
 """
 
 from __future__ import annotations
@@ -76,7 +90,14 @@ BERT_BAND = 1e-4         # max relative error of the fp32 BERT layer vs its plai
 GRAD_BAND = 0.1          # the CT-ViT groups
 LATENT_GRAD_BAND = 0.5   # the groups downstream of the image latents only
 BATCHES, BATCH = 3, 2
-TEXT_LEN = 120           # the train slice's reports: under the fused BERT layer's gate
+TEXT_LEN = 512           # the train slice's reports: the TrainConfig default
+EARLIER_TEXT_LEN = 120   # the earlier train path: under the fused BERT layer's gate
+# fp32 sums of the same bf16 (or fp32) products in another order
+PEG_WGRAD_BAND = 1e-4    # max relative error of the PEG weight and bias gradients
+# The bf16 BERT layer's second residual, read from its own workspaces: r2 - y against
+# g W2^T + b2 (times the keep mask), relative rms. The output's bf16 rounding hides a
+# residual taken from the rounded y; this difference shows it
+RESIDUAL_BAND = 1e-4
 VOLUME = (1, 240, 480, 480)
 PROMPTS, PROMPT_LEN = 36, 512
 
@@ -108,9 +129,17 @@ KERNELS = {
                         "ct_clip_ut_tpu/ops/pallas_patch_embed.py:329"),
     "patch_embed_dkw": ("ct_clip_ut_tpu_torch/csrc/patch_embed_dkw.cu",
                         "ct_clip_ut_tpu/ops/pallas_patch_embed.py:381"),
+    "bert_layer_bf16": ("ct_clip_ut_tpu_torch/csrc/bert_layer_bf16.cu",
+                        "ct_clip_ut_tpu/ops/pallas_bert_layer.py:440"),
+    "bert_layer_bwd": ("ct_clip_ut_tpu_torch/csrc/bert_layer_bwd.cu",
+                       "ct_clip_ut_tpu/ops/pallas_bert_layer.py:473"),
+    "peg": ("ct_clip_ut_tpu_torch/csrc/peg.cu", "ct_clip_ut_tpu/ops/pallas_peg.py:131"),
+    "peg_weight_grads": ("ct_clip_ut_tpu_torch/csrc/peg_wgrad.cu",
+                         "ct_clip_ut_tpu/ops/pallas_peg_bwd.py:85"),
 }
+BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
-                 "patch_embed_dkw")
+                 "patch_embed_dkw", *BERT_PEG_KERNELS)
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -710,6 +739,273 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
     return out
 
 
+def bert_train_check(torch, model, card: str) -> dict:
+    """The bf16 BERT layer and its backward at the shapes of a B = 2,
+    512-token train step: [2, 512, 768], one row padded after 300 tokens,
+    LN gains drawn as 1 + 0.1 N and biases as 0.1 N, fp32 weights as the
+    model holds them.
+
+    Forward, deterministic and in train mode (p = 0.1 / 0.1), against
+    bert_layer_plain through the same Philox masks. Controls: the masks of
+    other seeds, the key mask dropped, LN1's gain left out; and, on the
+    second residual read from the chain's own fp32 workspaces (the output's
+    bf16 rounding hides it), the FF residual taken from the rounded y. The masks themselves: the kernels' generator
+    bit for bit against the plain one per site, the keep share within 4
+    sigma of 1 - p, two calls equal, another seed different.
+
+    Backward: dx and the twelve parameter gradients against autograd of the
+    plain forward through the same masks. Controls (a plain backward with
+    one fault): masks from other seeds, the attention keep mask left out of
+    dp, the post-FF keep mask left out, p_used in place of p in ds.
+
+    library_ms: nn.TransformerEncoderLayer (bf16, post-LN, exact GELU,
+    dropout 0) with the same weights, its forward in eval mode, and forward
+    + backward in train mode: yardsticks the port never calls."""
+    from ct_clip_ut_tpu_torch.models.bert import layer_args
+    from ct_clip_ut_tpu_torch.ops.bert_layer import (SITES, bert_layer, bert_layer_bwd,
+                                                     bert_layer_bwd_plain, bert_layer_plain,
+                                                     keep_mask, philox_keep)
+
+    bcfg = model.cfg.bert
+    d, heads, eps = bcfg.hidden_size, bcfg.num_heads, bcfg.layer_norm_eps
+    pa, ph = bcfg.attention_dropout, bcfg.hidden_dropout
+    b, n = BATCH, TEXT_LEN
+    g = torch.Generator(device="cuda").manual_seed(13)
+    bf = torch.bfloat16
+    pad = torch.arange(n, device="cuda")[None, :] >= torch.tensor([n, 300], device="cuda")[:, None]
+    mask_row = pad.float() * torch.finfo(torch.float32).min
+    x = torch.randn((b, n, d), generator=g, device="cuda").to(bf)
+    w = [t.detach().clone() for t in layer_args(model.text_transformer.encoder.layer[0])]
+    for i in (4, 10):                                  # LN gains
+        w[i] = around_ones(torch, g, d)
+    for i in (5, 11):                                  # LN biases
+        w[i] = 0.1 * torch.randn((d,), generator=g, device="cuda")
+    f = w[6].shape[0]
+    seeds = torch.tensor([20231, 77, 1 << 30], dtype=torch.int32, device="cuda")
+    args = [x, mask_row, *w]
+    train = dict(p_attn=pa, p_hidden=ph, train=True, seeds=seeds)
+    other = {**train, "seeds": seeds + 1}
+    out = {}
+
+    with torch.no_grad():
+        # the masks
+        for site, name in enumerate(SITES):
+            hh, inner, rate = (heads, n * n, pa) if site == 0 else (1, n * d, ph)
+            got = keep_mask(seeds, site, b, hh, inner, rate)
+            share = (got > 0).float().mean().item()
+            sigma = (rate * (1 - rate) / got.numel()) ** 0.5
+            same = torch.equal(got, philox_keep(seeds, site, b, hh, inner, rate))
+            again = torch.equal(got, keep_mask(seeds, site, b, hh, inner, rate))
+            moved = (got != keep_mask(seeds + 1, site, b, hh, inner, rate)).float().mean().item()
+            print(f"kernel bert_layer_bf16 dropout site {name} [{b}, {hh}, {inner}] at p = {rate}: "
+                  f"kernel bits == plain Philox4x32-10 bits: {same}; two calls equal: {again}; "
+                  f"keep share {share:.6f} (1 - p = {1 - rate}, 4 sigma = {4 * sigma:.2e}); another "
+                  f"seed changes {moved:.4f} of the mask")
+            if not (same and again and abs(share - (1 - rate)) <= 4 * sigma and moved > rate):
+                raise AssertionError(f"dropout site {name}: mask check failed")
+
+        # the forward
+        faults = {"no mask": (1, torch.zeros_like(mask_row)),
+                  "no LN1 gain": (6, torch.ones_like(w[4]))}
+        for label, kw in (("deterministic", {}), ("train", train)):
+            parts, plain_parts = {}, {}
+            got = bert_layer(*args, heads, eps, **kw, parts=parts)
+            want = bert_layer_plain(*args, heads, eps, **kw, parts=plain_parts)
+            torch.cuda.synchronize()
+            controls = {}
+            if kw:
+                controls["other seeds"] = rel_err(got, bert_layer_plain(*args, heads, eps, **other))
+            for fault, (i, value) in faults.items():
+                wrong = list(args)
+                wrong[i] = value
+                controls[fault] = rel_err(got, bert_layer_plain(*wrong, heads, eps, **kw))
+            abs_err = band_check("bert_layer_bf16", got, want, FLOAT_BAND, controls,
+                                 f"{label} bf16 {list(x.shape)}")
+            o2 = parts["g"].float() @ w[8].to(bf).float().t() + w[9]
+            if kw:
+                o2 = o2 * philox_keep(seeds, 2, b, 1, n * d, ph).reshape(b, n, d)
+            y = parts["y"]
+            r2_err = rel_rms(parts["r2"] - y, o2)
+            r2_control = rel_rms(parts["r2"] - y + y.to(bf).float() - y, o2)
+            print(f"kernel bert_layer_bf16 {label}: its second residual r2 - y vs g W2^T + b2"
+                  f"{' (x keep)' if kw else ''} from its own workspaces: relative rms {r2_err:.3e} "
+                  f"(band {RESIDUAL_BAND}); control (the residual taken from the rounded y) "
+                  f"{r2_control:.3e}; r2 vs the plain version's {rel_rms(parts['r2'], plain_parts['r2']):.3e}")
+            if not r2_err <= RESIDUAL_BAND < r2_control:
+                raise AssertionError(f"bert_layer_bf16 {label}: second residual {r2_err}, band "
+                                     f"{RESIDUAL_BAND}, control {r2_control}")
+        if not torch.equal(got, bert_layer(*args, heads, eps, **train)):
+            raise AssertionError("bert_layer_bf16: two train-mode calls with the same seeds differ")
+        ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps, **train))
+        det_ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps))
+        plain_ms = cuda_ms(torch, lambda: bert_layer_plain(*args, heads, eps, **train))
+
+    lib = torch.nn.TransformerEncoderLayer(d, heads, f, dropout=0.0, activation="gelu",
+                                           batch_first=True, norm_first=False,
+                                           layer_norm_eps=eps, device="cuda")
+    lib.load_state_dict(dict(zip(
+        ["self_attn.in_proj_weight", "self_attn.in_proj_bias", "self_attn.out_proj.weight",
+         "self_attn.out_proj.bias", "norm1.weight", "norm1.bias", "linear1.weight",
+         "linear1.bias", "linear2.weight", "linear2.bias", "norm2.weight", "norm2.bias"], w)),
+        strict=True)
+    lib = lib.to(bf)
+    with torch.no_grad():
+        lib.eval()
+        lib_out = lib(x, src_key_padding_mask=pad)
+        det = bert_layer_plain(*args, heads, eps)
+        lib_err = rel_err(lib_out[~pad], det[~pad])
+        library_ms = cuda_ms(torch, lambda: lib(x, src_key_padding_mask=pad))
+    print(f"kernel bert_layer_bf16: train {ms:.3f} ms, deterministic {det_ms:.3f} ms vs plain "
+          f"(train) {plain_ms:.3f} ms, nn.TransformerEncoderLayer (bf16, eval) {library_ms:.3f} ms "
+          f"(its real rows vs the plain version: max_rel_err {lib_err:.3e}) [{card}]")
+    flops = 2 * b * n * d * (3 * d + d + 2 * f) + 4 * b * heads * n * n * (d // heads)
+    wbytes = 2 * (4 * d * d + 2 * d * f) + 4 * (3 * d + d + f + 5 * d)     # bf16 matrices, fp32 vectors
+    out["bert_layer_bf16"] = dict(
+        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+        **bound(flops, nbytes(x, mask_row, seeds, got) + wbytes, BF16_PEAK), library_ms=library_ms)
+
+    # the backward
+    names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg1", "dbe1", "dw1", "db1", "dw2", "db2",
+             "dg2", "dbe2")
+    dout = torch.randn((b, n, d), generator=g, device="cuda").to(bf)
+    for label, kw in (("deterministic", {}), ("train", train)):
+        got = dict(zip(names, bert_layer_bwd(*args, dout, heads, eps, **kw)))
+        leaves = [x.clone().requires_grad_(True)] + [t.clone().requires_grad_(True) for t in w]
+        bert_layer_plain(leaves[0], mask_row, *leaves[1:], heads, eps, **kw).backward(dout)
+        want = dict(zip(names, (t.grad for t in leaves)))
+        torch.cuda.synchronize()
+        faulty = {}
+        if kw:
+            with torch.no_grad():
+                cases = {"masks from other seeds": dict(kw=other),
+                         "attention keep mask left out of dp": dict(faults=("no_attn_keep",)),
+                         "post-FF keep mask left out": dict(faults=("no_hidden_keep",)),
+                         "p_used for p in ds": dict(faults=("p_used_in_ds",))}
+                for fault, c in cases.items():
+                    faulty[fault] = dict(zip(names, bert_layer_bwd_plain(
+                        *args, dout, heads, eps, **c.get("kw", kw), faults=c.get("faults", ()))))
+        else:
+            faulty["mask dropped"] = dict(zip(names, bert_layer_bwd_plain(
+                x, torch.zeros_like(mask_row), *w, dout, heads, eps)))
+        abs_err = grads_check("bert_layer_bwd", got, want, FLOAT_BAND, faulty,
+                              f"{label} bf16 {list(x.shape)} vs autograd of the plain forward")
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda: bert_layer_bwd(*args, dout, heads, eps, **train))
+        plain_ms = cuda_ms(torch, lambda: bert_layer_bwd_plain(*args, dout, heads, eps, **train))
+    lib.train()
+    xl = x.clone().requires_grad_(True)
+
+    def lib_step():
+        lib.zero_grad(set_to_none=True)
+        xl.grad = None
+        lib(xl, src_key_padding_mask=pad).backward(dout)
+
+    library_ms = cuda_ms(torch, lib_step)
+    print(f"kernel bert_layer_bwd: {ms:.3f} ms (the forward recomputed inside) vs plain "
+          f"{plain_ms:.3f} ms, nn.TransformerEncoderLayer forward + backward (bf16, dropout 0) "
+          f"{library_ms:.3f} ms [{card}]")
+    flops = 6 * b * n * d * (3 * d + d + 2 * f) + 12 * b * heads * n * n * (d // heads)
+    out["bert_layer_bwd"] = dict(
+        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+        **bound(flops, nbytes(x, mask_row, seeds, dout, *got.values()) + wbytes, BF16_PEAK),
+        library_ms=library_ms)
+    return out
+
+
+def peg_check(torch, model, card: str) -> dict:
+    """The PEG stencil and its weight gradient on the token video of a B = 2
+    step, [2, 24, 24, 24, 512] bf16, with layer 0's Conv3d taps and a bias
+    drawn as 0.2 N. The stencil on its branch (output minus residual), in
+    the causal forward form (front padding 2, bias) and the input
+    gradient's form (front padding 0, flipped taps, no bias). Controls: the
+    frame padding (1, 1) for (2, 0), the bias left out; the taps unflipped
+    in the backward form. The weight gradient's controls: x shifted by one
+    frame, the non-causal padding. library_ms: what the default route runs,
+    the NCDHW copy + F.conv3d + bias + residual + copy back (peg_residual),
+    and torch.nn.grad.conv3d_weight on NCDHW copies made outside the timed
+    call."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.layers import peg_residual
+    from ct_clip_ut_tpu_torch.ops.peg import (peg, peg_plain, peg_weight_grads,
+                                              peg_weight_grads_plain, taps_of)
+
+    vit = model.visual_transformer
+    t, h, w = token_grid_shape(vit.cfg, VOLUME)
+    c = vit.cfg.dim
+    g = torch.Generator(device="cuda").manual_seed(17)
+    bf = torch.bfloat16
+    x = torch.randn((BATCH, t, h, w, c), generator=g, device="cuda").to(bf)
+    gr = torch.randn((BATCH, t, h, w, c), generator=g, device="cuda").to(bf)
+    weight = vit.enc_spatial_transformer.layers[0][0].dsconv.weight.detach()
+    taps = taps_of(weight)
+    flipped = taps.flip(0).contiguous()
+    bias = 0.2 * torch.randn((c,), generator=g, device="cuda")
+    out = {}
+    with torch.no_grad():
+        def branch(y, base):
+            return y.float() - base.float()
+
+        got = branch(peg(x, taps, bias, 2), x)
+        want = branch(peg_plain(x, taps, bias, 2), x)
+        torch.cuda.synchronize()
+        controls = {"frame padding (1, 1)": rel_err(got, branch(peg_plain(x, taps, bias, 1), x)),
+                    "no bias": rel_err(got, branch(peg_plain(x, taps, None, 2), x))}
+        abs_err = band_check("peg", got, want, FLOAT_BAND, controls,
+                             f"causal forward {list(x.shape)} bf16, branch max "
+                             f"{want.abs().max().item():.3e}")
+        got = branch(peg(gr, flipped, None, 0), gr)
+        want = branch(peg_plain(gr, flipped, None, 0), gr)
+        controls = {"taps unflipped": rel_err(got, branch(peg_plain(gr, taps, None, 0), gr)),
+                    "frame padding (2, 0)": rel_err(got, branch(peg_plain(gr, flipped, None, 2), gr))}
+        abs_err = max(abs_err, band_check("peg", got, want, FLOAT_BAND, controls,
+                                          "input-gradient form (front 0, flipped taps, no bias)"))
+        tokens = x.reshape(BATCH, t * h * w, c)
+        lib_err = rel_err(peg_residual(weight, bias, tokens, (BATCH, t, h, w), True),
+                          peg_plain(x, taps, bias, 2).reshape(tokens.shape))
+        ms = cuda_ms(torch, lambda: peg(x, taps, bias, 2))
+        plain_ms = cuda_ms(torch, lambda: peg_plain(x, taps, bias, 2))
+        library_ms = cuda_ms(torch, lambda: peg_residual(weight, bias, tokens,
+                                                         (BATCH, t, h, w), True))
+        print(f"kernel peg: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the default route (NCDHW copy "
+              f"+ F.conv3d + copy back) {library_ms:.3f} ms (vs the plain version, with its "
+              f"residual: max_rel_err {lib_err:.3e}) [{card}]")
+        npos = x.numel() // c
+        out["peg"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                          **bound(2 * 27 * npos * c, nbytes(x, taps, bias, x), FP32_PEAK),
+                          library_ms=library_ms)
+
+        names = ("dw", "db")
+        got = dict(zip(names, peg_weight_grads(x, gr, 2)))
+        want = dict(zip(names, peg_weight_grads_plain(x, gr, 2)))
+        torch.cuda.synchronize()
+        again = peg_weight_grads(x, gr, 2)
+        if not (torch.equal(got["dw"], again[0]) and torch.equal(got["db"], again[1])):
+            raise AssertionError("peg_weight_grads: two calls on the same inputs differ")
+        faulty = {"x shifted by one frame": {"dw": peg_weight_grads_plain(x.roll(1, 1), gr, 2)[0]},
+                  "frame padding (1, 1)": {"dw": peg_weight_grads_plain(x, gr, 1)[0]}}
+        abs_err = grads_check("peg_weight_grads", got, want, PEG_WGRAD_BAND, faulty,
+                              f"{list(x.shape)} bf16 -> dw {list(got['dw'].shape)}, db (fp32 sums; "
+                              "two calls bit-equal)")
+        ms = cuda_ms(torch, lambda: peg_weight_grads(x, gr, 2))
+        plain_ms = cuda_ms(torch, lambda: peg_weight_grads_plain(x, gr, 2))
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 2, 0)).contiguous()
+        gc = gr.permute(0, 4, 1, 2, 3).contiguous()
+        lib = torch.nn.grad.conv3d_weight(xc, (c, 1, 3, 3, 3), gc, groups=c)
+        lib_err = rel_err(lib, want["dw"])
+        library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(xc, (c, 1, 3, 3, 3), gc,
+                                                                         groups=c))
+        print(f"kernel peg_weight_grads: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms (vs the plain version: max_rel_err "
+              f"{lib_err:.3e}) [{card}]")
+        out["peg_weight_grads"] = dict(
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            **bound(2 * 28 * npos * c, nbytes(x, gr, *got.values()), FP32_PEAK),
+            library_ms=library_ms)
+    return out
+
+
 def param_group(name: str) -> str:
     """The parameter group of a CTCLIP parameter, for the gradient check."""
     import re
@@ -729,8 +1025,65 @@ def param_group(name: str) -> str:
     return "latents + temperature"
 
 
+REPORT_WORDS = ("the lungs are clear without consolidation effusion or nodule heart size is normal "
+                "mild emphysema and atelectasis in the lower lobes no lymphadenopathy").split()
+
+
+def train_batches(torch, g, count: int, words: int) -> list:
+    """`count` batches of BATCH bf16 volumes and stand-in reports of about
+    `words` words (one token a word)."""
+    def texts(i):
+        return [" ".join(REPORT_WORDS[(i * 5 + j * 3 + k) % len(REPORT_WORDS)]
+                         for k in range(words + 9 * j)) for j in range(BATCH)]
+
+    return [(torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16),
+             texts(i)) for i in range(count)]
+
+
+def earlier_train_phase(torch, model, card: str) -> dict:
+    """The earlier train path: 120-token reports (under the fused BERT
+    layer's gate, so BERT trains on its layer loop) and the PEG on F.conv3d
+    and autograd. Two steps of make_train_step and one evaluation; its
+    kernels must launch and this slice's must not. Returns the launch counts."""
+    from ct_clip_ut_tpu_torch.config import TrainConfig
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.train.trainer import (create_train_state, make_eval_step,
+                                                    make_train_step)
+
+    cfg = model.cfg
+    tcfg = TrainConfig(text_max_length=EARLIER_TEXT_LEN)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    image, texts = train_batches(torch, g, 1, 40)[0]
+    enc = WordTokenizer(cfg.bert.vocab_size)(texts, max_length=EARLIER_TEXT_LEN)
+    text = {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
+    state = create_train_state(cfg, tcfg, params=model, device="cuda")
+    step, eval_step = make_train_step(cfg, tcfg), make_eval_step(cfg, tcfg)
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, image, text) for _ in range(2)] + [eval_step(state.model, image, text)]
+    losses = [v.item() for v in losses]
+    seconds = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    print(f"earlier train path: 2 steps of make_train_step and 1 evaluation at B = {BATCH}, "
+          f"{EARLIER_TEXT_LEN}-token reports, peg_pallas=False in {seconds:.3f} s (host clock, "
+          f"first calls) [{card}]; losses {losses}; launches {json.dumps(counts)}")
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"non-finite losses on the earlier train path: {losses}")
+    missing = [k for k, v in counts.items() if v <= 0 and k not in BERT_PEG_KERNELS
+               and k != "bert_layer"]
+    stray = [k for k in (*BERT_PEG_KERNELS, "bert_layer") if counts[k] != 0]
+    if missing or stray:
+        raise AssertionError(f"earlier train path: kernels not launched {missing}, kernels of "
+                             f"another path launched {stray}")
+    return counts
+
+
 def train_phase(torch, model, card: str) -> dict:
-    """The train path at flagship width; returns the train run's launch counts."""
+    """The train path as users run it, at flagship width: 512-token reports
+    through the fused BERT layer (bf16, Philox dropout, backward kernel) and
+    the PEG through its stencil and weight-grad kernels (`model` is built
+    with peg_pallas=True); returns the train run's launch counts."""
     import tempfile
 
     from ct_clip_ut_tpu_torch.config import TrainConfig
@@ -740,19 +1093,14 @@ def train_phase(torch, model, card: str) -> dict:
     from ct_clip_ut_tpu_torch.train.trainer import CTClipTrainer
 
     cfg = model.cfg
-    tcfg = TrainConfig(text_max_length=TEXT_LEN, num_epochs=1)
+    if not cfg.ctvit.peg_pallas:
+        raise AssertionError("the train phase runs the peg_pallas=True configuration")
+    tcfg = TrainConfig(num_epochs=1)
+    if tcfg.text_max_length != TEXT_LEN or tcfg.compute_dtype != "bfloat16":
+        raise AssertionError("the train phase runs the TrainConfig defaults: 512 tokens, bf16")
     g = torch.Generator(device="cuda").manual_seed(3)
     tok = WordTokenizer(cfg.bert.vocab_size)
-    words = ("the lungs are clear without consolidation effusion or nodule heart size is normal "
-             "mild emphysema and atelectasis in the lower lobes no lymphadenopathy").split()
-
-    def batch(i):
-        texts = [" ".join(words[(i * 5 + j * 3 + k) % len(words)] for k in range(40 + 9 * j))
-                 for j in range(BATCH)]
-        return (torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16),
-                texts)
-
-    data = [batch(i) for i in range(4)]
+    data = train_batches(torch, g, 4, 300)
 
     def tokens(texts):
         enc = tok(texts, max_length=TEXT_LEN)
@@ -787,6 +1135,8 @@ def train_phase(torch, model, card: str) -> dict:
     ctrl = {k: ((gc[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
     bands = {k: LATENT_GRAD_BAND if k in ("text tower", "latents + temperature") else GRAD_BAND
              for k in gp}
+    real = tokens(data[0][1])["attention_mask"].sum(1).tolist()
+    print(f"train: reports of {real} real tokens padded to {TEXT_LEN}, peg_pallas=True")
     print(f"train: one step's loss {loss_k:.6f} (plain path {loss_p:.6f}); image latents vs the "
           f"plain path 1 - cos {(1 - cos).max().item():.3e}, {same:.6f} of quantised tokens on "
           f"the same code; "
@@ -816,7 +1166,8 @@ def train_phase(torch, model, card: str) -> dict:
         saved = sorted(p.name for p in trainer.results_folder.iterdir())
     losses = trainer.train_losses["epochs"] + trainer.valid_losses
     print(f"train: CTClipTrainer.train() over 3 steps of {BATCH} x {list(VOLUME)} bf16 volumes "
-          f"with {TEXT_LEN}-token reports, the step-0 evaluation and a checkpoint in "
+          f"with {TEXT_LEN}-token reports, peg_pallas=True, the step-0 and end-of-epoch evaluations "
+          f"and a checkpoint in "
           f"{seconds:.3f} s (host clock) [{card}]; epoch losses {trainer.train_losses['epochs']}, "
           f"validation {trainer.valid_losses}; files {saved}; launches {json.dumps(counts)}")
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
@@ -824,6 +1175,14 @@ def train_phase(torch, model, card: str) -> dict:
     missing = [k for k, v in counts.items() if v <= 0 and k != "bert_layer"]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
+    layers, pegs = cfg.bert.num_layers, cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
+    evals = len(trainer.valid_losses)
+    want_counts = {"bert_layer_bf16": (3 + evals) * layers, "bert_layer_bwd": 3 * layers,
+                   "peg": (2 * 3 + evals) * pegs, "peg_weight_grads": 3 * pegs}
+    got_counts = {k: counts[k] for k in want_counts}
+    if got_counts != want_counts:
+        raise AssertionError(f"train path launches {got_counts}, expected {want_counts} (3 steps "
+                             f"forward and backward, {evals} evaluations)")
     t, h, w = (s // d for s, d in zip(VOLUME[1:], (cfg.ctvit.temporal_patch_size,
                                                    cfg.ctvit.patch_size, cfg.ctvit.patch_size)))
     grow = BATCH * t * h * w
@@ -859,7 +1218,7 @@ def main() -> int:
         return 2
     try:
         from ct_clip_ut_tpu_torch import _build
-        from ct_clip_ut_tpu_torch.config import flagship_cfg
+        from ct_clip_ut_tpu_torch.config import flagship_cfg, replace
         from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
     except ImportError:
         print("chip_smoke: run from the root of a checkout (ct_clip_ut_tpu_torch not found)",
@@ -885,7 +1244,14 @@ def main() -> int:
         record = kernel_phase(torch, model, card)
         counts = slice_phase(torch, model, card)
         record.update(backward_phase(torch, model, card))
-        train_counts = train_phase(torch, model, card)
+        record.update(bert_train_check(torch, model, card))
+        record.update(peg_check(torch, model, card))
+        earlier_train_phase(torch, model, card)
+        del model
+        torch.cuda.empty_cache()
+        cfg = flagship_cfg()
+        cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
+        train_counts = train_phase(torch, init_ctclip(cfg, seed=0, device="cuda"), card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

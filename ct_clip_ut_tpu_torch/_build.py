@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
 SIGNATURES = {
     "ctc_attn_block": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
@@ -46,6 +47,11 @@ SIGNATURES = {
     "ctc_attn_packed_bwd": [_P] * 30 + [_I] * 4 + [_F, _I, _P],
     "ctc_geglu_ff_bwd": [_P] * 18 + [_I] * 5 + [_P],
     "ctc_bert_layer": [_P] * 20 + [_I] * 5 + [_F, _F, _P],
+    "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
+    "ctc_bert_layer_bwd": [_P] * 53 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
+    "ctc_bert_keep_mask": [_P, _U, _I, _I, _I, _U, _F, _P, _P],
+    "ctc_peg": [_P] * 4 + [_I] * 7 + [_P],
+    "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
     "ctc_attn_bwd_max_n": [],

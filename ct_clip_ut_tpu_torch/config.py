@@ -153,6 +153,9 @@ class CTViTConfig:
             dim=self.dim, depth=self.temporal_depth, dim_head=self.dim_head,
             heads=self.heads, attn_dropout=self.attn_dropout,
             ff_dropout=self.ff_dropout, peg=True, peg_causal=True,
+            # the JAX package's flag reaches its spatial stack only (a serving
+            # experiment there); here it selects the PEG kernels of both stacks
+            peg_pallas=self.peg_pallas,
             remat=self.remat, moe_experts=self.moe_experts,
             moe_top_k=self.moe_top_k)
 

@@ -5,17 +5,23 @@ state-dict names (embeddings.word_embeddings,
 encoder.layer.N.attention.self.query, ...). On the card, sequences that
 pass the JAX package's gate for its fused layer (bert.py:97-100: n >= 128
 and a multiple of 8, hidden a multiple of 128, heads of a width 8 divides)
-run each layer through the bert_layer kernel: the zero-shot prompts,
-padded to 512 tokens, do. Shorter sequences, and CPU tensors, take the
-layer loop written out below (HF semantics, two-pass LayerNorm).
+run each layer through the bert_layer kernels (`fused_layers`): the
+zero-shot prompts, padded to 512 tokens, in fp32; the train step's 512-token
+reports in bf16 with dropout, forward and backward (`bert_layer_grad`); the
+train loop's evaluation in bf16 without. Shorter sequences, and CPU tensors,
+take the layer loop written out below (HF semantics, two-pass LayerNorm).
 
-Train mode (deterministic=False) runs the layer loop with the JAX package's
-dropout sites (bert.py:78-80, 127-170): the embeddings, the attention
-probabilities and both hidden outputs, at the BertConfig rates, masks drawn
-from a torch.Generator. The fused kernel has no train variant yet, so a
-train-mode call on the card that meets the fused gate raises rather than
-quietly running the loop (ROADMAP Queue 2 item 8); the training slice
-keeps its reports under 128 tokens, below the gate.
+Train mode (deterministic=False) applies the JAX package's dropout sites
+(bert.py:78-80, 127-170): the embeddings first, on both routes
+(`embed`); then per layer the attention probabilities and both hidden
+outputs at the BertConfig rates. The layer loop draws its masks with
+torch.bernoulli from the generator; the fused route draws three seeds per
+layer from it (`draw_seeds`, a device tensor) and the kernels compute
+Philox masks from them. A train-mode call without a generator raises (the
+JAX package silently turns dropout off there). One limit: an fp32
+train-mode call on the card that meets the gate raises, since the fp32
+chain has no dropout and no backward kernel (ROADMAP, Queue 2 item 8b; the
+TrainConfig default is bf16).
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import _build
 from ..config import BertConfig
-from ..ops.bert_layer import bert_layer, bert_layer_plain
+from ..ops.bert_layer import bert_layer_grad, bert_layer_plain, draw_seeds
 from ..ops.layers import dropout, layernorm, linear
 
 
@@ -88,14 +95,45 @@ def layer_args(layer: BertLayer) -> tuple:
             out["LayerNorm"].bias)
 
 
-def fused_layers(bert: Bert, x: torch.Tensor, mask_row: torch.Tensor,
-                 plain: bool = False) -> torch.Tensor:
-    """Every layer through bert_layer (its plain version with plain=True);
-    x [b, n, hidden] fp32 after the embeddings, mask_row [b, n] additive."""
-    fn = bert_layer_plain if plain else bert_layer
+def embed(bert: Bert, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+          compute_dtype: torch.dtype, generator: Optional[torch.Generator] = None,
+          deterministic: bool = True) -> torch.Tensor:
+    """The embedding sum, its LayerNorm, the cast to compute_dtype and, in
+    train mode, the embedding dropout (bert.py:73-80 of the JAX package):
+    what both routes feed their first layer."""
+    e = bert.embeddings
+    n = input_ids.shape[1]
+    x = (e.word_embeddings.weight[input_ids] + e.position_embeddings.weight[None, :n]
+         + e.token_type_embeddings.weight[token_type_ids])
+    x = layernorm(x, e.LayerNorm.weight, e.LayerNorm.bias,
+                  bert.cfg.layer_norm_eps).to(compute_dtype)
+    if not deterministic:
+        x = dropout(x, bert.cfg.hidden_dropout, generator)
+    return x
+
+
+def fused_layers(bert: Bert, x: torch.Tensor, mask_row: torch.Tensor, plain: bool = False, *,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = True) -> torch.Tensor:
+    """Every layer through bert_layer with its backward (its plain version,
+    differentiated by autograd, with plain=True); x [b, n, hidden] after
+    `embed`, mask_row [b, n] additive. In train mode each layer draws its
+    three dropout seeds from `generator`, the same draws on both routes."""
+    cfg = bert.cfg
+    train = not deterministic
+    if train and generator is None:
+        raise ValueError("train-mode BERT (deterministic=False) needs a torch.Generator")
+    if train and not plain and x.dtype == torch.float32 and _build.on_cuda(x):
+        raise NotImplementedError(
+            f"train-mode BERT in fp32 at {x.shape[1]} tokens meets the fused-layer gate "
+            "(n >= 128), and the fp32 bert_layer chain has no dropout and no backward kernel "
+            "(ROADMAP, Queue 2 item 8b); train in bf16, the TrainConfig default")
+    fn = bert_layer_plain if plain else bert_layer_grad
     for layer in bert.encoder.layer:
-        x = fn(x.contiguous(), mask_row, *layer_args(layer), bert.cfg.num_heads,
-               bert.cfg.layer_norm_eps)
+        seeds = draw_seeds(generator, x.device) if train else None
+        x = fn(x.contiguous(), mask_row, *layer_args(layer), cfg.num_heads, cfg.layer_norm_eps,
+               p_attn=cfg.attention_dropout, p_hidden=cfg.hidden_dropout, train=train,
+               seeds=seeds)
     return x
 
 
@@ -117,23 +155,14 @@ def bert_apply(bert: Bert, input_ids: torch.Tensor,
         token_type_ids = torch.zeros_like(input_ids)
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
-    e = bert.embeddings
-    x = (e.word_embeddings.weight[input_ids] + e.position_embeddings.weight[None, :n]
-         + e.token_type_embeddings.weight[token_type_ids])
     eps = cfg.layer_norm_eps
-    x = layernorm(x, e.LayerNorm.weight, e.LayerNorm.bias, eps).to(compute_dtype)
+    x = embed(bert, input_ids, token_type_ids, compute_dtype, generator, deterministic)
 
     # HF additive mask: 0 where attended, dtype-min where padded
     mask_row = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min
     if takes_fused_layers(x, cfg, n):
-        if train:
-            raise NotImplementedError(
-                f"train-mode BERT at {n} tokens meets the fused-layer gate (n >= 128), and the "
-                "bert_layer kernel's train variant (bf16, Philox dropout) and backward are not "
-                "ported yet (ROADMAP, Queue 2 item 8)")
-        return fused_layers(bert, x, mask_row, plain)
-    if train:
-        x = dropout(x, cfg.hidden_dropout, generator)
+        return fused_layers(bert, x, mask_row, plain, generator=generator,
+                            deterministic=deterministic)
 
     ext_mask = mask_row[:, None, None, :]
     nh = cfg.num_heads

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed", "bert_layer",
            "attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
-           "patch_embed_dkw")
+           "patch_embed_dkw", "bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 
 attn_block = 0
 attn_packed = 0
@@ -24,6 +24,10 @@ attn_packed_bwd = 0
 geglu_ff_bwd = 0
 patch_embed_res = 0
 patch_embed_dkw = 0
+bert_layer_bf16 = 0
+bert_layer_bwd = 0
+peg = 0
+peg_weight_grads = 0
 
 
 def count(name: str) -> None:

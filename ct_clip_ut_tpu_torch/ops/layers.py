@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .geglu_ff import geglu_ff_grad, geglu_ff_plain
+from .peg import front_pad, peg_grad, peg_plain, taps_of
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -111,15 +112,39 @@ def feedforward(ff: FeedForward, x: torch.Tensor, *, residual: bool = False,
 
 
 class PEG(nn.Module):
-    """Depthwise 3x3x3 conv positional encoding (`dsconv`, reference naming)."""
+    """Depthwise 3x3x3 conv positional encoding (`dsconv`, reference naming).
+    With `fused` (TransformerConfig.peg_pallas) the forward is the peg
+    stencil kernel and the backward its flipped-tap stencil and the
+    peg_weight_grads kernel (ops/peg.py); otherwise F.conv3d and autograd."""
 
-    def __init__(self, dim: int, causal: bool = True):
+    def __init__(self, dim: int, causal: bool = True, fused: bool = False):
         super().__init__()
         self.causal = causal
+        self.fused = fused
         self.dsconv = nn.Conv3d(dim, dim, 3, groups=dim)
 
-    def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
+                plain: bool = False) -> torch.Tensor:
+        if self.fused:
+            return peg_fused_residual(self.dsconv.weight, self.dsconv.bias, x, video_shape,
+                                      self.causal, plain=plain)
         return peg_residual(self.dsconv.weight, self.dsconv.bias, x, video_shape, self.causal)
+
+
+def peg_fused_residual(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                       video_shape: Tuple[int, int, int, int], causal: bool = True,
+                       plain: bool = False) -> torch.Tensor:
+    """peg(x) + x through the stencil of ops/peg.py on the token buffer as
+    it lies in memory, the same raw reshape to (b, t, h, w, D) as
+    `peg_residual` and no layout copy. plain=True runs the kernel's plain
+    version, differentiated by autograd."""
+    b, t, h, w = video_shape
+    v = x.reshape(b, t, h, w, x.shape[-1]).contiguous()
+    if plain:
+        out = peg_plain(v, taps_of(weight), bias.float(), front_pad(causal))
+    else:
+        out = peg_grad(v, weight, bias, causal)
+    return out.reshape(x.shape)
 
 
 def peg_residual(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,

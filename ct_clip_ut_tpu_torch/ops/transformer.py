@@ -3,7 +3,9 @@
 Counterpart of the non-remat, untapped path of
 ct_clip_ut_tpu/ops/transformer.py. Each layer is the reference ModuleList
 [PEG, self-attention, cross-attention (None here), FF]; both residual adds
-ride the block kernels' output writes.
+ride the block kernels' output writes. With `cfg.peg_pallas` the PEG runs
+the peg stencil kernel and, in the backward, the peg_weight_grads kernel
+(ops/peg.py); without it, F.conv3d and autograd.
 """
 
 from __future__ import annotations
@@ -27,12 +29,9 @@ class Transformer(nn.Module):
         if cfg.has_cross_attn:
             raise NotImplementedError(
                 "cross-attention is not ported yet (ROADMAP, Queue 1 item 10: CTGenerate)")
-        if cfg.peg_pallas:
-            raise NotImplementedError(
-                "the fused PEG stencil is not ported yet (ROADMAP, Queue 2 item 12)")
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            nn.ModuleList([PEG(cfg.dim, cfg.peg_causal) if cfg.peg else None,
+            nn.ModuleList([PEG(cfg.dim, cfg.peg_causal, cfg.peg_pallas) if cfg.peg else None,
                            Attention(cfg.self_attn()), None,
                            FeedForward(cfg.dim, cfg.ff_inner_dim)])
             for _ in range(cfg.depth))
@@ -48,7 +47,7 @@ def transformer(tf: Transformer, x: torch.Tensor, *,
     weights = []
     for peg, attn, _, ff in tf.layers:
         if peg is not None:
-            x = peg(x, video_shape)
+            x = peg(x, video_shape, plain=plain)
         x, w = attention(attn, x, attn_bias=attn_bias, return_weights=return_weights,
                          residual=True, plain=plain)
         weights.append(w)

@@ -9,7 +9,9 @@ conftest.py does, so run it there with:
 Shapes are the flagship widths (D = 512, 8 heads of 32, inner 1365, 8192
 codes; the patch embed's 20 x 20 x 10 patches into 512; BERT's 768 wide
 layer of 12 heads of 64, FF 3072) with ragged lengths besides the flagship
-ones; inputs are bf16, the BERT layer's fp32. The bands: 1.5e-2 max
+ones; inputs are bf16, the zero-shot BERT layer's fp32 (the train step's bf16
+variant, its backward, its Philox masks and the two PEG kernels are at the
+end of the file). The bands: 1.5e-2 max
 relative error for the bf16 kernels (both sides round at the same points
 and differ in the order of fp32 sums), held on the branch alone as well as
 with the residual, and shown to reject a plain version with a norm gain,
@@ -337,3 +339,229 @@ def test_patch_embed_res_and_dkw_kernels_match_plain_on_card(cuda_device, b, T, 
     assert _rel_err(got, want.transpose(0, 1).reshape(20, 200, 512)) > 1.5e-2
     assert launches.launch_counts()["patch_embed_res"] == 1
     assert launches.launch_counts()["patch_embed_dkw"] == 1
+
+
+BERT_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg1", "dbe1", "dw1", "db1", "dw2", "db2",
+              "dg2", "dbe2")
+
+
+def _bert_bf16_case(cuda_device, b, n, lengths, seed):
+    rng = np.random.default_rng(seed)
+    a = _bert_inputs(rng, b, n, 768, 3072, lengths)
+    args = [t.to(cuda_device) for t in _torch_bert_args(a)]
+    args[0] = args[0].to(torch.bfloat16)
+    seeds = torch.tensor([11, 22, 33], dtype=torch.int32, device=cuda_device)
+    return args, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site,heads,inner,rate", [(0, 12, 512 * 512, 0.1), (1, 1, 512 * 768, 0.1),
+                                                   (2, 1, 136 * 768, 0.25)])
+def test_bert_keep_mask_kernel_is_the_plain_philox(cuda_device, site, heads, inner, rate):
+    """The kernels' Philox4x32-10 against the plain generator, bit for bit;
+    the keep share within 4 sigma of 1 - rate; another seed, another mask."""
+    from ct_clip_ut_tpu_torch.ops.bert_layer import keep_mask, philox_keep
+
+    seeds = torch.tensor([5, 2 ** 31 - 2, 123456789], dtype=torch.int32, device=cuda_device)
+    got = keep_mask(seeds, site, 2, heads, inner, rate)
+    assert torch.equal(got, philox_keep(seeds, site, 2, heads, inner, rate))
+    assert torch.equal(got, keep_mask(seeds, site, 2, heads, inner, rate))
+    share, count = (got > 0).float().mean().item(), got.numel()
+    assert abs(share - (1 - rate)) <= 4 * (rate * (1 - rate) / count) ** 0.5
+    assert torch.equal(got[got > 0], torch.full_like(got[got > 0], 1.0 / (1.0 - rate)))
+    assert not torch.equal(got, keep_mask(seeds + 1, site, 2, heads, inner, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60]),
+                                         (1, 128, [128])])
+def test_bert_layer_bf16_kernel_matches_plain_on_card(cuda_device, b, n, lengths, train):
+    """bf16 [b, n, 768], deterministic and in train mode (p = 0.1 / 0.1)
+    through the same Philox masks, band 1.5e-2; a length that 32 does not
+    divide pads inside the wrapper. Controls: other seeds (train), the mask
+    dropped, LN1's gain left out."""
+    args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 19)
+    kw = dict(p_attn=0.1, p_hidden=0.1, train=train, seeds=seeds)
+    launches.reset_launch_counts()
+    got = bert_layer(*args, 12, 1e-12, **kw)
+    assert launches.launch_counts()["bert_layer_bf16"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, 768)
+    assert torch.equal(got, bert_layer(*args, 12, 1e-12, **kw))
+    want = bert_layer_plain(*args, 12, 1e-12, **kw)
+    assert _rel_err(got, want) <= 1.5e-2, _rel_err(got, want)
+    if train:
+        other = bert_layer_plain(*args, 12, 1e-12, **{**kw, "seeds": seeds + 1})
+        assert _rel_err(got, other) > 1.5e-2
+    for i in (1, 6) if min(lengths) < n else (6,):
+        bad = list(args)
+        bad[i] = torch.ones_like(args[i]) if i == 6 else torch.zeros_like(args[i])
+        assert _rel_err(got, bert_layer_plain(*bad, 12, 1e-12, **kw)) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60])])
+def test_bert_layer_bwd_kernel_matches_plain_on_card(cuda_device, b, n, lengths, train):
+    """dx and the twelve parameter gradients within 1.5e-2 of the plain
+    backward through the same masks, and of autograd through the plain
+    forward; other seeds read outside the band."""
+    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer_bwd, bert_layer_bwd_plain
+
+    args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 20)
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(6)).to(torch.bfloat16)
+    kw = dict(p_attn=0.1, p_hidden=0.1, train=train, seeds=seeds)
+    launches.reset_launch_counts()
+    got = bert_layer_bwd(*args, g, 12, 1e-12, **kw)
+    assert launches.launch_counts()["bert_layer_bwd"] == 1
+    want = bert_layer_bwd_plain(*args, g, 12, 1e-12, **kw)
+    for name, x, y in zip(BERT_GRADS, got, want):
+        assert torch.isfinite(x).all(), name
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert _rel_err(x, y) <= 1.5e-2, (name, _rel_err(x, y))
+    leaves = [args[0].clone().requires_grad_(True), args[1]] + [
+        t.clone().requires_grad_(True) for t in args[2:]]
+    bert_layer_plain(*leaves, 12, 1e-12, **kw).backward(g)
+    for name, x, leaf in zip(BERT_GRADS, got, [leaves[0]] + leaves[2:]):
+        assert _rel_err(x, leaf.grad) <= 1.5e-2, (name, _rel_err(x, leaf.grad))
+    if train:
+        other = bert_layer_bwd_plain(*args, g, 12, 1e-12, **{**kw, "seeds": seeds + 1})
+        assert _rel_err(got[0], other[0]) > 1.5e-2
+
+
+def _peg_case(cuda_device, dtype, shape=(2, 24, 24, 24, 512), seed=21):
+    gen = torch.Generator(cuda_device).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    g = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    taps = torch.randn((27, c), device=cuda_device, generator=gen) * (3.0 / 27) ** 0.5
+    bias = torch.randn((c,), device=cuda_device, generator=gen) * 0.2
+    return x, g, taps, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("front", [2, 1, 0])
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40)])
+def test_peg_kernel_matches_plain_on_card(cuda_device, shape, front, dtype):
+    """The stencil on its branch (output minus residual) within 1.5e-2 of
+    the plain version (bf16; 1e-5 in fp32). Controls: another frame
+    padding, the taps flipped, the bias left out."""
+    from ct_clip_ut_tpu_torch.ops.peg import peg, peg_plain
+
+    x, _, taps, bias = _peg_case(cuda_device, dtype, shape)
+    band = 1.5e-2 if dtype == torch.bfloat16 else 1e-5
+    launches.reset_launch_counts()
+    got = peg(x, taps, bias, front).float() - x.float()
+    assert launches.launch_counts()["peg"] == 1
+    assert _rel_err(got, peg_plain(x, taps, bias, front).float() - x.float()) <= band
+    for wrong in (peg_plain(x, taps, bias, (front + 1) % 3), peg_plain(x, taps.flip(0), bias, front),
+                  peg_plain(x, taps, None, front)):
+        assert _rel_err(got, wrong.float() - x.float()) > band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("front", [2, 1])
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40)])
+def test_peg_weight_grads_kernel_matches_plain_on_card(cuda_device, shape, front, dtype):
+    """fp32 sums of the same products in another order: 1e-4 relative.
+    Deterministic: two calls give the same bits. Control: x shifted by one
+    frame."""
+    from ct_clip_ut_tpu_torch.ops.peg import peg_weight_grads, peg_weight_grads_plain
+
+    x, g, _, _ = _peg_case(cuda_device, dtype, shape)
+    launches.reset_launch_counts()
+    dw, db = peg_weight_grads(x, g, front)
+    assert launches.launch_counts()["peg_weight_grads"] == 1
+    want_dw, want_db = peg_weight_grads_plain(x, g, front)
+    assert dw.shape == want_dw.shape == (shape[-1], 1, 3, 3, 3)
+    assert _rel_err(dw, want_dw) <= 1e-4 and _rel_err(db, want_db) <= 1e-4
+    again = peg_weight_grads(x, g, front)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    assert _rel_err(dw, peg_weight_grads_plain(x.roll(1, 1), g, front)[0]) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_peg_grad_function_matches_autograd_of_plain_on_card(cuda_device, causal):
+    """peg_grad's dx, dw and db against autograd through peg_plain."""
+    from ct_clip_ut_tpu_torch.ops.peg import front_pad, peg_grad, peg_plain, taps_of
+
+    x, g, taps, bias = _peg_case(cuda_device, torch.bfloat16, (2, 6, 24, 24, 512))
+    weight = taps.t().reshape(512, 1, 3, 3, 3).contiguous()
+    leaves = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+    peg_grad(*leaves, causal).backward(g)
+    ref = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+    peg_plain(ref[0], taps_of(ref[1]), ref[2], front_pad(causal)).backward(g)
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == want.grad.dtype
+        assert _rel_err(got.grad, want.grad) <= 1.5e-2
+
+
+@pytest.mark.cuda
+def test_bert_apply_train_mode_takes_the_kernels_on_card(cuda_device):
+    """A train-mode bert_apply at 512 tokens in bf16 runs every layer through
+    bert_layer_bf16 and its backward through bert_layer_bwd, none through the
+    layer loop; the same generator state repeats it; fp32 train mode raises."""
+    from ct_clip_ut_tpu_torch.config import BertConfig
+    from ct_clip_ut_tpu_torch.models import bert as tbert
+
+    cfg = BertConfig(vocab_size=512, num_layers=2)
+    torch.manual_seed(0)
+    mod = tbert.Bert(cfg).to(cuda_device)
+    ids = torch.randint(0, 512, (2, 512), device=cuda_device)
+    mask = torch.ones_like(ids)
+    mask[1, 300:] = 0
+
+    def run(seed):
+        mod.zero_grad()
+        gen = torch.Generator(cuda_device).manual_seed(seed)
+        out = tbert.bert_apply(mod, ids, mask, compute_dtype=torch.bfloat16, generator=gen,
+                               deterministic=False)
+        out.float().square().mean().backward()
+        return out.detach(), mod.encoder.layer[0].intermediate["dense"].weight.grad.clone()
+
+    launches.reset_launch_counts()
+    out, grad = run(1)
+    counts = launches.launch_counts()
+    assert counts["bert_layer_bf16"] == counts["bert_layer_bwd"] == 2 and counts["bert_layer"] == 0
+    assert out.dtype == torch.bfloat16 and torch.isfinite(grad).all() and grad.abs().max() > 0
+    again, _ = run(1)
+    other, _ = run(2)
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
+        tbert.bert_apply(mod, ids, mask, generator=torch.Generator(cuda_device),
+                         deterministic=False)
+
+
+@pytest.mark.cuda
+def test_transformer_peg_pallas_runs_no_conv3d_on_card(cuda_device, monkeypatch):
+    """Transformer(peg_pallas=True): forward and backward through the peg and
+    peg_weight_grads kernels, no F.conv3d; within the bf16 band of the
+    default route's output."""
+    from ct_clip_ut_tpu_torch.config import TransformerConfig
+    from ct_clip_ut_tpu_torch.ops.transformer import Transformer, transformer
+
+    cfg = TransformerConfig(dim=512, depth=2, dim_head=32, heads=8, peg=True, peg_causal=True,
+                            peg_pallas=True)
+    torch.manual_seed(0)
+    fused = Transformer(cfg).to(cuda_device)
+    default = Transformer(TransformerConfig(**{**cfg.__dict__, "peg_pallas": False})).to(cuda_device)
+    default.load_state_dict(fused.state_dict())
+    x = torch.randn((2 * 4, 64, 512), device=cuda_device).to(torch.bfloat16)
+    want, _ = transformer(default, x, video_shape=(2, 4, 8, 8))
+
+    def no_conv(*a, **k):
+        raise AssertionError("F.conv3d called on the peg_pallas route")
+
+    monkeypatch.setattr(torch.nn.functional, "conv3d", no_conv)
+    launches.reset_launch_counts()
+    xi = x.clone().requires_grad_(True)
+    got, _ = transformer(fused, xi, video_shape=(2, 4, 8, 8))
+    got.float().square().mean().backward()
+    counts = launches.launch_counts()
+    assert counts["peg"] == 4 and counts["peg_weight_grads"] == 2
+    assert _rel_err(got, want) <= 3e-2
+    assert torch.isfinite(fused.layers[0][0].dsconv.weight.grad).all()

@@ -119,7 +119,7 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
-    assert len(launches.KERNELS) == 11
+    assert len(launches.KERNELS) == 15
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -129,12 +129,16 @@ def test_build_sources_are_the_package_csrc():
     assert names == {"attn_block.cu", "attn_common.cuh", "attn_packed.cu", "gemm_tile.cuh",
                      "geglu_ff.cu", "vq_nearest.cu", "patch_embed.cu", "bert_layer.cu",
                      "attn_bwd.cuh", "attn_block_bwd.cu", "attn_packed_bwd.cu", "bwd_common.cuh",
-                     "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu"}
+                     "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu",
+                     "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
+                     "peg_wgrad.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
                 "ctc_patch_embed", "ctc_bert_layer", "ctc_attn_block_bwd", "ctc_attn_packed_bwd",
-                "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw"))
+                "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw",
+                "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
+                "ctc_peg_wgrad"))
 
 
 # the patch embed at the geometry of tests/test_pallas.py:361-394
@@ -207,17 +211,36 @@ def test_bert_layer_plain_matches_pallas_kernel(lengths):
 @pytest.mark.parametrize("train,p_attn,p_hidden", [(True, 0.1, 0.1), (False, 0.1, 0.0),
                                                    (False, 0.0, 0.1), (True, 0.0, 0.0)])
 def test_bert_layer_dropout_and_train_mode_raise(train, p_attn, p_hidden):
+    """Dropout acts only in train mode at a rate > 0, and then needs the
+    layer's seeds: without them the call raises; every other combination is
+    the deterministic layer. On the card an fp32 layer with dropout has no
+    kernel and raises, naming its ROADMAP item."""
     args = _torch_bert_args(_bert_inputs(np.random.default_rng(13), 1, 8, 64, 128, [8]))
+    kw = dict(p_attn=p_attn, p_hidden=p_hidden, train=train)
     for fn in (bert_layer, bert_layer_plain):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-            fn(*args, 1, 1e-12, p_attn=p_attn, p_hidden=p_hidden, train=train)
+        if train and (p_attn > 0 or p_hidden > 0):
+            with pytest.raises(ValueError, match="seeds"):
+                fn(*args, 1, 1e-12, **kw)
+        else:
+            assert torch.equal(fn(*args, 1, 1e-12, **kw), bert_layer_plain(*args, 1, 1e-12))
+
+
+def test_bert_layer_fp32_dropout_has_no_kernel(monkeypatch):
+    args = _torch_bert_args(_bert_inputs(np.random.default_rng(13), 1, 8, 64, 128, [8]))
+    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
+        bert_layer(*args, 1, 1e-12, p_attn=0.1, p_hidden=0.1, train=True,
+                   seeds=torch.zeros(3, dtype=torch.int32))
 
 
 def test_bert_layer_takes_fp32_only():
+    """fp32 and, since the train slice, bf16: any other dtype raises."""
     args = _torch_bert_args(_bert_inputs(np.random.default_rng(14), 1, 8, 64, 128, [8]))
-    args[0] = args[0].bfloat16()
-    with pytest.raises(TypeError, match="fp32"):
-        bert_layer(*args, 1, 1e-12)
+    assert bert_layer(args[0].bfloat16(), *args[1:], 1, 1e-12).dtype == torch.bfloat16
+    args[0] = args[0].half()
+    for fn in (bert_layer, bert_layer_plain):
+        with pytest.raises(TypeError, match="fp32 or bf16"):
+            fn(*args, 1, 1e-12)
 
 
 def test_new_wrappers_take_plain_versions_on_cpu(monkeypatch):

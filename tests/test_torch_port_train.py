@@ -277,14 +277,16 @@ SMALL_BERT_PORT = port_config(SMALL_BERT)
 
 
 def test_bert_train_mode_refuses_the_fused_gate(monkeypatch):
-    """Where the card would run the fused layer (n >= 128), train mode
-    raises instead of quietly running the loop; eval is unaffected."""
+    """Where the card would run the fused layer (n >= 128), an fp32
+    train-mode call raises instead of quietly running the loop (the fp32
+    chain has no dropout and no backward kernel); eval is unaffected, and so
+    is bf16, which has both."""
     _, model = jax_and_port_models()
     monkeypatch.setattr(tbert, "takes_fused_layers", lambda x, cfg, n: True)
-    monkeypatch.setattr(tbert, "fused_layers", lambda bert, x, mask_row, plain=False: x)
     ids = torch.ones((1, 8), dtype=torch.int64)
     tbert.bert_apply(model.text_transformer, ids)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+    monkeypatch.setattr(tbert._build, "on_cuda", lambda x: True)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
         tbert.bert_apply(model.text_transformer, ids, generator=torch.Generator(),
                          deterministic=False)
 
