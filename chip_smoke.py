@@ -51,16 +51,32 @@ Phases, each printing its lines before the last:
      control), then CTClipTrainer.train() over three steps (the step-0
      evaluation and a checkpoint included) with every train-path launch
      counter > 0, finite losses, the VQ cluster sizes grown by
-     b t h w (1 - decay^3), and the time of three more steps.
+     b t h w (1 - decay^3), and the time of three more steps;
+  9. CTGenerate at CTGenerateConfig() (random weights from a seed): the
+     attn_qrows kernel against its plain version at MaskGit's shapes (x
+     [B, 6464, 512], B = 1 and 2, the bf16 [8, 6464, 6464] CPB table), with
+     the controls a faulty kernel would give (bias left out, k from the LN'd
+     x, q_scale dropped, p unnormalised), its times, `bound_ms` and, as
+     `library_ms`, F.scaled_dot_product_attention with the bias as its mask
+     and the projections around it; then the localisation path as users run
+     it (the script's `localize`: T5 encodes stand-in reports,
+     ctgenerate_apply_batched runs bf16 MaskGit over the bias cache, each
+     report's pathologies get a [201, 128, 128] heatmap) over 2 batches of 2
+     bf16 scans [2, 1, 201, 128, 128], every kernel of that path launched;
+     the feature map and the cross-attention held against plain=True, from
+     the same codebook ids and end to end, with the plain tokenizer's id
+     agreement; an fp32 scan refused; and `maskgit_generate` at B = 1 over
+     18 steps: 108 attn_qrows launches, every id inside the codebook.
 The line before the last is the kernels' JSON record (launches: the
 zero-shot run's counts for the forward kernels, phase 8's for the train
-kernels); the last line is {"ok": true, "device": {...}}. Any failed phase
-exits non-zero before it.
+kernels, phase 9's for attn_qrows); the last line is {"ok": true,
+"device": {...}}. Any failed phase exits non-zero before it.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -136,10 +152,30 @@ KERNELS = {
     "peg": ("ct_clip_ut_tpu_torch/csrc/peg.cu", "ct_clip_ut_tpu/ops/pallas_peg.py:131"),
     "peg_weight_grads": ("ct_clip_ut_tpu_torch/csrc/peg_wgrad.cu",
                          "ct_clip_ut_tpu/ops/pallas_peg_bwd.py:85"),
+    "attn_qrows": ("ct_clip_ut_tpu_torch/csrc/attn_qrows.cu",
+                   "ct_clip_ut_tpu/ops/pallas_attn_qrows.py:230"),
 }
 BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
                  "patch_embed_dkw", *BERT_PEG_KERNELS)
+# CTGenerate (phase 9): the kernels of one batched forward, with their launches each
+CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
+                 "vq_nearest": 1, "attn_qrows": 6}
+CTGEN_SCAN = (1, 201, 128, 128)
+CTGEN_BATCHES, GENERATE_STEPS = 2, 18
+SHORT_REPORT = 30                    # words of every second stand-in report
+# MaskGit's feature map (relative rms) and last cross-attention (max abs)
+# against the plain path: from the same codebook ids and end to end (where
+# 2.9% of the bf16 tokenizer's ids differ from the plain tokenizer's). Read
+# on an H100 80GB HBM3 at 700 W: 5.6e-3 / 5.4e-3 from the same ids, 1.1e-2 /
+# 1.2e-2 end to end. Controls: scan 0 against scan 1, 1.21 / 0.37; plain
+# MaskGit from the same ids without the CPB table, 7.1e-2 / 3.5e-2 (3.8e-2
+# against the end-to-end plain path); without the text mask, 0.66 / 0.35. Each band lies between the readings and the
+# nearest control (the end-to-end feature band near their geometric mean).
+FEATURE_BAND = 3e-2
+CROSS_BAND = 1e-2
+E2E_FEATURE_BAND = 3e-2
+E2E_CROSS_BAND = 2e-2
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -461,7 +497,8 @@ def slice_phase(torch, model, card: str) -> dict:
         raise AssertionError(f"bad predictions: shape {preds.shape}")
     if not ((preds >= 0) & (preds <= 1)).all():
         raise AssertionError("probabilities outside [0, 1]")
-    missing = [k for k, v in counts.items() if v <= 0 and k not in TRAIN_KERNELS]
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k not in TRAIN_KERNELS and k != "attn_qrows"]
     if missing:
         raise AssertionError(f"kernels not launched on the zero-shot path: {missing}")
 
@@ -1071,7 +1108,7 @@ def earlier_train_phase(torch, model, card: str) -> dict:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"non-finite losses on the earlier train path: {losses}")
     missing = [k for k, v in counts.items() if v <= 0 and k not in BERT_PEG_KERNELS
-               and k != "bert_layer"]
+               and k not in ("bert_layer", "attn_qrows")]
     stray = [k for k in (*BERT_PEG_KERNELS, "bert_layer") if counts[k] != 0]
     if missing or stray:
         raise AssertionError(f"earlier train path: kernels not launched {missing}, kernels of "
@@ -1172,7 +1209,7 @@ def train_phase(torch, model, card: str) -> dict:
           f"validation {trainer.valid_losses}; files {saved}; launches {json.dumps(counts)}")
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
         raise AssertionError(f"non-finite train losses {losses}")
-    missing = [k for k, v in counts.items() if v <= 0 and k != "bert_layer"]
+    missing = [k for k, v in counts.items() if v <= 0 and k not in ("bert_layer", "attn_qrows")]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
     layers, pegs = cfg.bert.num_layers, cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
@@ -1208,6 +1245,201 @@ def train_phase(torch, model, card: str) -> dict:
           f"step (host clock, synchronised; loss {loss.item():.6f}); peak memory of these steps "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
     return counts
+
+
+def qrows_check(torch, model, card: str, g) -> dict:
+    """attn_qrows against its plain version at MaskGit's shapes (x [B, 6464,
+    512] for B = 1 and 2, layer 0's weights with gains drawn around their
+    ones, the bf16 CPB table of the 101 x 8 x 8 grid), with the controls; the
+    record holds B = 2, the batched forward's shape. library_ms: LN, the q
+    and kv projections, F.normalize, F.scaled_dot_product_attention with the
+    bias as its additive mask (scale 1: q already carries the scale), the
+    output projection, and the residual: one PyTorch call for the core."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.models.ctgenerate import maskgit_bias_table
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_qrows import attn_qrows, attn_qrows_plain
+
+    cfg = model.cfg
+    grid = token_grid_shape(cfg.ctvit, (1, *CTGEN_SCAN))
+    n = grid[0] * grid[1] * grid[2]
+    bias = maskgit_bias_table(model, grid, dtype="bfloat16")
+    w = block_args(torch, g, model.maskgit.transformer)
+    scale = model.maskgit.transformer.layers[0][1].cfg.scale
+    heads, dh = cfg.maskgit.heads, cfg.maskgit.dim_head
+    out = {}
+    for b in (1, 2):
+        x = torch.randn((b, n, cfg.maskgit.dim), generator=g, device="cuda").to(torch.bfloat16)
+        args = [x, *w, bias]
+        got = attn_qrows(*args, scale, False)
+        want = attn_qrows_plain(*args, scale, False)
+        torch.cuda.synchronize()
+        no_qs = list(args)
+        no_qs[6] = torch.ones_like(args[6])
+        controls = {"no bias": rel_err(got, attn_qrows_plain(*args[:8], None, scale, False)),
+                    "k from LN(x)": rel_err(got, attn_qrows_plain(*args, scale, False,
+                                                                  faults=("k_from_ln",))),
+                    "no q_scale": rel_err(got, attn_qrows_plain(*no_qs, scale, False)),
+                    "p unnormalised": rel_err(got, attn_qrows_plain(*args, scale, False,
+                                                                    faults=("unnormalised",)))}
+        abs_err = band_check("attn_qrows", got, want, FLOAT_BAND, controls,
+                             f"x {list(x.shape)}, bias {list(bias.shape)} bf16, branch max "
+                             f"{want.float().abs().max().item():.3e}")
+        ms = cuda_ms(torch, lambda: attn_qrows(*args, scale, True))
+        plain_ms = cuda_ms(torch, lambda: attn_qrows_plain(*args, scale, True), iters=3)
+        gamma, wq, wk, wv, wo, qs, ks = w
+        wkv = torch.cat([wk, wv])
+
+        def library():   # the branch; timed with the residual add
+            xn = F.layer_norm(x.float(), (x.shape[-1],), gamma).to(x.dtype)
+            q = (xn @ wq.t()).view(b, n, heads, dh).transpose(1, 2)
+            k, v = (x @ wkv.t()).view(b, n, 2, heads, dh).permute(2, 0, 3, 1, 4)
+            q = (F.normalize(q.float(), dim=-1) * (qs * scale)).to(x.dtype)
+            k = (F.normalize(k.float(), dim=-1) * ks).to(x.dtype)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias[None], scale=1.0)
+            return o.transpose(1, 2).reshape(b, n, heads * dh) @ wo.t()
+
+        lib_err = rel_err(library(), want)
+        library_ms = cuda_ms(torch, lambda: library() + x)
+        hd = heads * dh
+        flops = 2 * b * (4 * n * x.shape[-1] * hd + heads * 2 * n * n * dh)
+        rec = bound(flops, nbytes(x, *w, bias, got), BF16_PEAK)
+        print(f"kernel attn_qrows B={b}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), SDPA yardstick {library_ms:.3f} ms "
+              f"(max_rel_err {lib_err:.3e} vs the plain branch) [{card}]")
+        out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec, library_ms=library_ms)
+    return out
+
+
+def ctgenerate_phase(torch, card: str) -> tuple:
+    """CTGenerate's localisation and generation paths at CTGenerateConfig();
+    returns (the attn_qrows record, the localisation run's launch counts)."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.config import PATHOLOGIES, CTGenerateConfig
+    from ct_clip_ut_tpu_torch.infer.profile_ctgenerate import reports
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctgenerate import (ctgenerate_apply_batched,
+                                                        init_ctgenerate)
+    from ct_clip_ut_tpu_torch.models.ctvit import ctvit_apply
+    from ct_clip_ut_tpu_torch.models.maskgit import maskgit_apply
+    from ct_clip_ut_tpu_torch.models.t5 import T5TextConditioner
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.scripts.inference_ctgenerate import generate, localize
+
+    cfg = CTGenerateConfig()
+    model = init_ctgenerate(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    record = qrows_check(torch, model, card, g)
+
+    t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
+    b = BATCH
+    # reports of 120 and SHORT_REPORT words: the text mask pads the short one
+    texts = [r if i % 2 == 0 else " ".join(r.split()[:SHORT_REPORT])
+             for i, r in enumerate(reports(b))]
+    data = [(torch.randn((b, *CTGEN_SCAN), generator=g, device="cuda", dtype=torch.bfloat16),
+             texts) for _ in range(CTGEN_BATCHES)]
+    cache = {}
+    localize(model, t5, *data[0], bias_cache=cache)                  # warm-up, builds the table
+    torch.cuda.synchronize()
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    maps = [m for scans, texts in data for m in localize(model, t5, scans, texts,
+                                                          bias_cache=cache)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    print(f"ctgenerate: localize() over {CTGEN_BATCHES} x {b} bf16 scans "
+          f"{[b, *CTGEN_SCAN]} with stand-in reports in {seconds:.3f} s (smoke reading, host "
+          f"clock) [{card}]; {sum(len(m) for m in maps)} heatmaps; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    short = {k: counts[k] for k, per in CTGEN_KERNELS.items()
+             if counts[k] < per * CTGEN_BATCHES}
+    if short:
+        raise AssertionError(f"kernels launched fewer times than the path needs: {short}")
+    for heat in (v for m in maps for v in m.values()):
+        if heat.shape != CTGEN_SCAN[1:] or not (np.isfinite(heat).all() and heat.min() >= 0
+                                                  and heat.max() <= 1 + 1e-6):
+            raise AssertionError(f"bad heatmap: shape {heat.shape}, range "
+                                 f"[{heat.min()}, {heat.max()}]")
+    if not all(maps):
+        raise AssertionError("a report matched no pathology")
+
+    # batch 0 against plain=True: MaskGit from the kernel path's ids, then end to end.
+    # Controls: the batch's other scan, and plain MaskGit from the same ids with one
+    # fault each: the CPB table left out, the text mask left out.
+    scans, texts = data[0]
+    emb, mask = t5.encode(texts)
+    with torch.no_grad():
+        out = ctgenerate_apply_batched(model, scans, emb, mask, bias_cache=cache)
+        plain = ctgenerate_apply_batched(model, scans, emb, mask, bias_cache=cache, plain=True)
+        fp32_ids = ctvit_apply(model.ctvit, scans.float(), plain=True).codebook_ids
+        ids = out.codebook_ids.reshape(b, -1)
+        table = cache[(*out.video_patch_shape, "bfloat16")]
+
+        def plain_maskgit(bias, text_mask):
+            r = maskgit_apply(model.maskgit, ids, emb, out.video_patch_shape,
+                              text_mask=text_mask, return_embeds=True, weights="last_cross",
+                              self_attn_block=64, precomputed_bias=(bias, None),
+                              compute_dtype="bfloat16", plain=True)
+            return r.output.float(), r.cross_attn[-1][..., 2:]
+
+        same_feat, same_cross = plain_maskgit(table, mask)
+        faults = {"no CPB table": plain_maskgit(None, mask),
+                  "no text mask": plain_maskgit(table, None)}
+    feat, cross = out.feature_map.float(), out.cross_attention
+    plain_feat, plain_cross = plain.feature_map.float(), plain.cross_attention
+
+    def cross_err(got, want):
+        return (got - want).abs().max().item()
+
+    checks = [("same ids: feature map, relative rms", rel_rms, feat, same_feat, FEATURE_BAND,
+               (same_feat[1], same_feat[0]), 0),
+              ("same ids: cross-attention, max abs", cross_err, cross, same_cross, CROSS_BAND,
+               (same_cross[1], same_cross[0]), 1),
+              ("end to end: feature map, relative rms", rel_rms, feat, plain_feat,
+               E2E_FEATURE_BAND, (plain_feat[1], plain_feat[0]), 0),
+              ("end to end: cross-attention, max abs", cross_err, cross, plain_cross,
+               E2E_CROSS_BAND, (plain_cross[1], plain_cross[0]), 1)]
+    agree = (out.codebook_ids == plain.codebook_ids).float().mean().item()
+    agree32 = (out.codebook_ids == fp32_ids).float().mean().item()
+    print(f"ctgenerate: codebook ids equal to the plain bf16 tokenizer's: {agree:.6f}; to the "
+          f"plain fp32 tokenizer's on the same scans (the JAX script's one-scan route): "
+          f"{agree32:.6f}")
+    for name, dist, got, want, band, other, part in checks:
+        err = dist(got, want)
+        controls = {"scan 0 vs 1": dist(*other),
+                    **{k: dist(f[part], want) for k, f in faults.items()}}
+        print(f"ctgenerate: {name} vs plain=True {err:.3e} (band {band}); controls "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in controls.items()})}")
+        if not (math.isfinite(err) and err <= band < min(controls.values())):
+            raise AssertionError(f"ctgenerate {name}: {err}, band {band}, controls {controls}")
+    try:
+        ctgenerate_apply_batched(model, scans.float(), emb, mask, bias_cache=cache)
+    except NotImplementedError as e:
+        if "ROADMAP" not in str(e):
+            raise
+        print(f"ctgenerate: an fp32 scan is refused: {e}")
+    else:
+        raise AssertionError("an fp32 scan ran on the card")
+
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    grid_ids = generate(model, t5, ["mild emphysema in the lower lobes"], CTGEN_SCAN[1],
+                        GENERATE_STEPS, 1.0, 0)
+    seconds = time.perf_counter() - t0
+    gen_counts = {k: v for k, v in launches.launch_counts().items() if v}
+    print(f"ctgenerate: maskgit_generate B=1, {GENERATE_STEPS} steps, grid "
+          f"{list(grid_ids.shape)} in {seconds:.3f} s (host clock) [{card}]; "
+          f"{len(np.unique(grid_ids))} distinct ids; launches {json.dumps(gen_counts)}")
+    if gen_counts.get("attn_qrows") != GENERATE_STEPS * cfg.maskgit.depth:
+        raise AssertionError(f"generate launched attn_qrows {gen_counts.get('attn_qrows')} times")
+    if grid_ids.shape != (1, 101, 8, 8) or grid_ids.min() < 0 or \
+            grid_ids.max() >= cfg.maskgit.num_tokens:
+        raise AssertionError(f"bad generated grid: {grid_ids.shape}, "
+                             f"[{grid_ids.min()}, {grid_ids.max()}]")
+    return record, counts
 
 
 def main() -> int:
@@ -1252,13 +1484,18 @@ def main() -> int:
         cfg = flagship_cfg()
         cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
         train_counts = train_phase(torch, init_ctclip(cfg, seed=0, device="cuda"), card)
+        torch.cuda.empty_cache()
+        record["attn_qrows"], ctgen_counts = ctgenerate_phase(torch, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
-                    launches=(train_counts if n in TRAIN_KERNELS else counts)[n], **record[n])
-               for n, (src, rep) in KERNELS.items()]
+    def run_of(name):
+        return (train_counts if name in TRAIN_KERNELS else
+                ctgen_counts if name == "attn_qrows" else counts)
+
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=run_of(n)[n],
+                    **record[n]) for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -177,6 +177,43 @@ class BertConfig:
 
 
 @dataclass(frozen=True)
+class T5EncoderConfig:
+    """T5-v1_1-base encoder shape."""
+    vocab_size: int = 32128
+    d_model: int = 768
+    d_kv: int = 64
+    num_heads: int = 12
+    d_ff: int = 2048
+    num_layers: int = 12
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+    max_length: int = 256  # tokenizer truncation
+
+
+@dataclass(frozen=True)
+class MaskGitConfig:
+    """MaskGit transformer over CT-ViT codebook ids."""
+    dim: int = 512
+    num_tokens: int = 8192
+    max_seq_len: int = 10000
+    gradient_shrink_alpha: float = 0.1
+    heads: int = 8
+    dim_head: int = 64
+    depth: int = 6
+    dim_context: int = 768
+    attn_dropout: float = 0.0
+    ff_dropout: float = 0.0
+
+    def transformer(self) -> TransformerConfig:
+        return TransformerConfig(
+            dim=self.dim, depth=self.depth, dim_context=self.dim_context,
+            dim_head=self.dim_head, heads=self.heads, attn_num_null_kv=2,
+            has_cross_attn=True, attn_dropout=self.attn_dropout,
+            ff_dropout=self.ff_dropout, peg=True, peg_causal=False)
+
+
+@dataclass(frozen=True)
 class CTCLIPConfig:
     """Dual-tower contrastive model."""
     dim_text: int = 768
@@ -185,6 +222,17 @@ class CTCLIPConfig:
     temperature_init: float = 1.0
     ctvit: CTViTConfig = field(default_factory=CTViTConfig)
     bert: BertConfig = field(default_factory=BertConfig)
+
+
+@dataclass(frozen=True)
+class CTGenerateConfig:
+    """CT-ViT tokenizer + MaskGit + T5: [1, 201, 128, 128] scans -> a
+    101 x 8 x 8 token grid."""
+    ctvit: CTViTConfig = field(default_factory=lambda: CTViTConfig(
+        image_size=128, patch_size=16, temporal_patch_size=2,
+        model_type="ctgenerate"))
+    maskgit: MaskGitConfig = field(default_factory=MaskGitConfig)
+    t5: T5EncoderConfig = field(default_factory=T5EncoderConfig)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Carry JAX weights into the port: the JAX CTCLIP params pytree, with its
-leaves as numpy arrays, becomes a CTCLIP module with the same weights.
+"""Carry JAX weights into the port: the JAX CTCLIP (or CTGenerate) params
+pytree, with its leaves as numpy arrays, becomes the port's module with the
+same weights.
 
 Transposes: JAX linear `w` is (in, out), nn.Linear stores (out, in); the
 PEG kernel is DHWIO [3, 3, 3, 1, dim], Conv3d wants [dim, 1, 3, 3, 3]. The
@@ -13,8 +14,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .config import CTCLIPConfig
+from .config import CTCLIPConfig, CTGenerateConfig
 from .models.ctclip import CTCLIP
+from .models.ctgenerate import CTGenerate
 
 
 def _t(a) -> torch.Tensor:
@@ -55,6 +57,8 @@ def _transformer(sd, prefix, p):
             sd[f"{lp}.0.dsconv.weight"] = _t(np.transpose(w, (4, 3, 0, 1, 2)))
             sd[f"{lp}.0.dsconv.bias"] = _t(layer["peg"]["b"])
         _attention(sd, f"{lp}.1", layer["self_attn"])
+        if "cross_attn" in layer:
+            _attention(sd, f"{lp}.2", layer["cross_attn"])
         _ln(sd, f"{lp}.3.0", layer["ff"]["norm"])
         _linear(sd, f"{lp}.3.1", layer["ff"]["proj_in"])
         _linear(sd, f"{lp}.3.4", layer["ff"]["proj_out"])
@@ -79,34 +83,73 @@ def _bert(sd, prefix, p):
         _ln(sd, f"{lp}.output.LayerNorm", layer["ffn_ln"])
 
 
+def _cpb(sd, prefix, p):
+    for i, layer in enumerate(p["net"]):
+        _linear(sd, f"{prefix}.net.{i}" + ("" if i == len(p["net"]) - 1 else ".0"), layer)
+
+
+def _ctvit(sd, prefix, v):
+    _cpb(sd, f"{prefix}.spatial_rel_pos_bias", v["spatial_rel_pos_bias"])
+    for emb in ("to_patch_emb", "to_patch_emb_first_frame"):
+        if emb in v:
+            for idx, name in ((1, "norm_in"), (3, "norm_out")):
+                _ln(sd, f"{prefix}.{emb}.{idx}", v[emb][name])
+            _linear(sd, f"{prefix}.{emb}.2", v[emb]["proj"])
+    _transformer(sd, f"{prefix}.enc_spatial_transformer", v["spatial"])
+    _transformer(sd, f"{prefix}.enc_temporal_transformer", v["temporal"])
+    vq = v["vq"]
+    sd[f"{prefix}.vq._codebook.embed"] = _t(vq.embed)
+    sd[f"{prefix}.vq._codebook.embed_avg"] = _t(vq.embed_avg)
+    sd[f"{prefix}.vq._codebook.cluster_size"] = _t(vq.cluster_size)
+
+
+def _load(model_cls, cfg, sd, device):
+    """The module built on the meta device, filled strictly from sd."""
+    device = _build.check_device(device)
+    with torch.device("meta"):
+        model = model_cls(cfg)
+    model.to_empty(device=device)
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
 def from_jax_params(np_tree, cfg: CTCLIPConfig, device="cuda") -> CTCLIP:
     """CTCLIP (eval mode, on `device`: the card unless told otherwise)
     holding the weights of the JAX params tree. The conv patch embed
     (`patch_embed_conv=True`) reads the same norm_in / proj / norm_out
     weights and folds them at call time, as the JAX package does."""
-    device = _build.check_device(device)
     sd = {}
     _bert(sd, "text_transformer", np_tree["text_transformer"])
-    v = np_tree["visual_transformer"]
-    for i, layer in enumerate(v["spatial_rel_pos_bias"]["net"]):
-        last = i == len(v["spatial_rel_pos_bias"]["net"]) - 1
-        _linear(sd, f"visual_transformer.spatial_rel_pos_bias.net.{i}" + ("" if last else ".0"),
-                layer)
-    for idx, name in ((1, "norm_in"), (3, "norm_out")):
-        _ln(sd, f"visual_transformer.to_patch_emb.{idx}", v["to_patch_emb"][name])
-    _linear(sd, "visual_transformer.to_patch_emb.2", v["to_patch_emb"]["proj"])
-    _transformer(sd, "visual_transformer.enc_spatial_transformer", v["spatial"])
-    _transformer(sd, "visual_transformer.enc_temporal_transformer", v["temporal"])
-    vq = v["vq"]
-    sd["visual_transformer.vq._codebook.embed"] = _t(vq.embed)
-    sd["visual_transformer.vq._codebook.embed_avg"] = _t(vq.embed_avg)
-    sd["visual_transformer.vq._codebook.cluster_size"] = _t(vq.cluster_size)
+    _ctvit(sd, "visual_transformer", np_tree["visual_transformer"])
     _linear(sd, "to_text_latent", np_tree["to_text_latent"])
     _linear(sd, "to_visual_latent", np_tree["to_visual_latent"])
     sd["temperature"] = _t(np_tree["temperature"]).reshape(())
+    return _load(CTCLIP, cfg, sd, device)
 
-    with torch.device("meta"):
-        model = CTCLIP(cfg)
-    model.to_empty(device=device)
-    model.load_state_dict(sd, strict=True)
-    return model.eval()
+
+def from_jax_ctgenerate_params(np_tree, cfg: CTGenerateConfig, device="cuda") -> CTGenerate:
+    """CTGenerate (eval mode, on `device`) holding the weights of the JAX
+    init_ctgenerate tree: the ctgenerate CT-ViT, MaskGit (cross-attention
+    at ModuleList index 2) and the T5 encoder under HF T5's names."""
+    sd = {}
+    _ctvit(sd, "ctvit", np_tree["ctvit"])
+    m = np_tree["maskgit"]
+    sd["maskgit.token_emb.weight"] = _t(m["token_emb"])
+    sd["maskgit.pos_emb.weight"] = _t(m["pos_emb"])
+    _cpb(sd, "maskgit.continuous_pos_bias", m["continuous_pos_bias"])
+    _transformer(sd, "maskgit.transformer", m["transformer"])
+    _linear(sd, "maskgit.to_logits", m["to_logits"])
+    t = np_tree["t5"]
+    sd["t5.shared.weight"] = _t(t["shared"])
+    sd["t5.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = \
+        _t(t["rel_bias"])
+    sd["t5.encoder.final_layer_norm.weight"] = _t(t["final_norm"])
+    for i, blk in enumerate(t["blocks"]):
+        bp = f"t5.encoder.block.{i}.layer"
+        sd[f"{bp}.0.layer_norm.weight"] = _t(blk["attn_norm"])
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, f"{bp}.0.SelfAttention.{name}", blk[name])
+        sd[f"{bp}.1.layer_norm.weight"] = _t(blk["ff_norm"])
+        for name in ("wi_0", "wi_1", "wo"):
+            _linear(sd, f"{bp}.1.DenseReluDense.{name}", blk[name])
+    return _load(CTGenerate, cfg, sd, device)

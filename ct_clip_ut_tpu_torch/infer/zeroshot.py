@@ -45,37 +45,56 @@ def tokenize_prompts(tokenizer, pathologies: Sequence[str] = PATHOLOGIES,
 
 
 class WordTokenizer:
-    """A stand-in for the text tower's HF tokenizer where its files are
-    absent (the repository holds none): one id per lower-cased word or
-    punctuation mark, from a fixed hash into [1000, vocab_size), between
-    [CLS] (101) and [SEP] (102), padded with 0. Called as tokenize_prompts
-    calls an HF tokenizer, it does what that call asks for (pad to
-    max_length, truncate, numpy arrays) and returns input_ids,
-    attention_mask and token_type_ids. The prompts of prompt_texts() give 6
-    to 10 real tokens."""
+    """A stand-in for an HF tokenizer where its files are absent (the
+    repository holds none): one id per lower-cased word or punctuation
+    mark, from a fixed hash into [1000, vocab_size), between [CLS] (101) and
+    [SEP] (102), padded with 0. Called as tokenize_prompts and the T5
+    conditioner call an HF tokenizer, it does what the call asks for (pad to
+    max_length or to the longest text, truncate, numpy arrays; one text
+    without return_tensors gives lists) and returns input_ids,
+    attention_mask and token_type_ids. `convert_ids_to_tokens` maps the ids
+    it has made back to their words, so keyword spans resolve. The prompts
+    of prompt_texts() give 6 to 10 real tokens."""
 
     CLS, SEP, PAD = 101, 102, 0
 
     def __init__(self, vocab_size: int = 30522):
         self.vocab_size = vocab_size
+        self.words = {self.CLS: "[CLS]", self.SEP: "[SEP]", self.PAD: "[PAD]"}
 
     def word_id(self, word: str) -> int:
         h = 0
         for ch in word.encode():
             h = (h * 131 + ch) % 1_000_003
-        return 1000 + h % (self.vocab_size - 1000)
+        i = 1000 + h % (self.vocab_size - 1000)
+        self.words.setdefault(i, word)
+        return i
 
-    def __call__(self, texts, max_length: int = 512, **hf_options) -> dict:
-        ids = np.full((len(texts), max_length), self.PAD, np.int64)
-        mask = np.zeros_like(ids)
-        for i, text in enumerate(texts):
+    def __call__(self, texts, max_length: int = 512, padding="max_length",
+                 truncation: bool = True, add_special_tokens: bool = True,
+                 return_tensors=None, **hf_options) -> dict:
+        rows = []
+        for text in [texts] if isinstance(texts, str) else texts:
             words = text.lower().replace(".", " .").replace(",", " ,").split()
-            row = [self.CLS, *(self.word_id(w) for w in words), self.SEP]
-            if len(row) > max_length:
-                row = row[:max_length - 1] + [self.SEP]
+            row = [self.word_id(w) for w in words]
+            if add_special_tokens:
+                row = [self.CLS, *row, self.SEP]
+            if truncation and len(row) > max_length:
+                row = row[:max_length - 1] + [self.SEP] if add_special_tokens else row[:max_length]
+            rows.append(row)
+        if isinstance(texts, str) and return_tensors is None:
+            return {"input_ids": rows[0], "attention_mask": [1] * len(rows[0]),
+                    "token_type_ids": [0] * len(rows[0])}
+        width = max_length if padding == "max_length" else max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.PAD, np.int64)
+        mask = np.zeros_like(ids)
+        for i, row in enumerate(rows):
             ids[i, :len(row)] = row
             mask[i, :len(row)] = 1
         return {"input_ids": ids, "attention_mask": mask, "token_type_ids": np.zeros_like(ids)}
+
+    def convert_ids_to_tokens(self, ids) -> list:
+        return [self.words.get(int(i), f"[{int(i)}]") for i in ids]
 
 
 @torch.no_grad()

@@ -37,63 +37,81 @@ class CTCLIP(nn.Module):
         self.temperature = nn.Parameter(torch.tensor(cfg.temperature_init))
 
 
+class SeededInit:
+    """Draws a module's weights from one torch.Generator with the JAX
+    package's init distributions, remembering which tensors it has set."""
+
+    def __init__(self, seed: int, device):
+        self.device = device
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.done = set()
+
+    def uniform_(self, t, bound):
+        t.copy_(torch.rand(t.shape, generator=self.gen, device=self.device) * (2 * bound) - bound)
+        self.done.add(id(t))
+
+    def normal_(self, t, std):
+        t.copy_(torch.randn(t.shape, generator=self.gen, device=self.device) * std)
+        self.done.add(id(t))
+
+    def fill_(self, t, value):
+        t.fill_(value)
+        self.done.add(id(t))
+
+    def modules_(self, model: nn.Module) -> None:
+        """Linear and conv weights U(+-sqrt(3/fan_in)), biases
+        U(+-1/sqrt(fan_in)), embeddings N(0, 0.02^2), null key/values
+        N(0, 1), LayerNorm and q/k scales ones, the codebook l2-normalised
+        N(0, 1) rows."""
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv3d)):
+                fan_in = m.weight[0].numel()
+                self.uniform_(m.weight, math.sqrt(3.0 / fan_in))
+                if m.bias is not None:
+                    self.uniform_(m.bias, 1.0 / math.sqrt(fan_in))
+            elif isinstance(m, nn.LayerNorm):
+                self.fill_(m.weight, 1.0)
+                self.fill_(m.bias, 0.0)
+            elif isinstance(m, FrozenBiasLayerNorm):
+                self.fill_(m.gamma, 1.0)
+                self.fill_(m.beta, 0.0)
+            elif isinstance(m, nn.Embedding):
+                self.normal_(m.weight, 0.02)
+            elif isinstance(m, Attention):
+                self.fill_(m.q_scale, 1.0)
+                self.fill_(m.k_scale, 1.0)
+                self.normal_(m.null_kv, 1.0)
+            elif isinstance(m, _Codebook):
+                self.normal_(m.embed, 1.0)
+                m.embed.copy_(l2norm(m.embed))
+                m.embed_avg.copy_(m.embed)
+                self.fill_(m.cluster_size, 0.0)
+                self.done.add(id(m.embed_avg))
+
+    def check(self, model: nn.Module) -> nn.Module:
+        """Raise unless every parameter and buffer was set; returns the
+        model in eval mode."""
+        missing = [n for n, t in [*model.named_parameters(), *model.named_buffers()]
+                   if id(t) not in self.done]
+        if missing:
+            raise AssertionError(f"the seeded init left tensors uninitialised: {missing}")
+        return model.eval()
+
+
 @torch.no_grad()
 def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cuda") -> CTCLIP:
-    """A CTCLIP in eval mode with weights drawn from `seed`, with the JAX
-    package's init distributions: linear and conv weights U(+-sqrt(3/fan_in)),
-    biases U(+-1/sqrt(fan_in)), embeddings N(0, 0.02^2), null key/values
-    N(0, 1), LayerNorm and q/k scales ones, the codebook l2-normalised N(0, 1)
-    rows. Built on the meta device first, so no default init is paid. On
-    the card unless `device` says otherwise; without one, the default
-    raises."""
+    """A CTCLIP in eval mode with weights drawn from `seed` with the JAX
+    package's init distributions (SeededInit.modules_). Built on the meta
+    device first, so no default init is paid. On the card unless `device`
+    says otherwise; without one, the default raises."""
     device = _build.check_device(device)
     with torch.device("meta"):
         model = CTCLIP(cfg)
     model.to_empty(device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    done = set()
-
-    def uniform_(t, bound):
-        t.copy_(torch.rand(t.shape, generator=gen, device=device) * (2 * bound) - bound)
-        done.add(id(t))
-
-    def normal_(t, std):
-        t.copy_(torch.randn(t.shape, generator=gen, device=device) * std)
-        done.add(id(t))
-
-    def fill_(t, value):
-        t.fill_(value)
-        done.add(id(t))
-
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv3d)):
-            fan_in = m.weight[0].numel()
-            uniform_(m.weight, math.sqrt(3.0 / fan_in))
-            if m.bias is not None:
-                uniform_(m.bias, 1.0 / math.sqrt(fan_in))
-        elif isinstance(m, nn.LayerNorm):
-            fill_(m.weight, 1.0)
-            fill_(m.bias, 0.0)
-        elif isinstance(m, FrozenBiasLayerNorm):
-            fill_(m.gamma, 1.0)
-            fill_(m.beta, 0.0)
-        elif isinstance(m, nn.Embedding):
-            normal_(m.weight, 0.02)
-        elif isinstance(m, Attention):
-            fill_(m.q_scale, 1.0)
-            fill_(m.k_scale, 1.0)
-            normal_(m.null_kv, 1.0)
-        elif isinstance(m, _Codebook):
-            normal_(m.embed, 1.0)
-            m.embed.copy_(l2norm(m.embed))
-            m.embed_avg.copy_(m.embed)
-            fill_(m.cluster_size, 0.0)
-            done.add(id(m.embed_avg))
-    fill_(model.temperature, cfg.temperature_init)
-    missing = [n for n, t in [*model.named_parameters(), *model.named_buffers()] if id(t) not in done]
-    if missing:
-        raise AssertionError(f"init_ctclip left tensors uninitialised: {missing}")
-    return model.eval()
+    init = SeededInit(seed, device)
+    init.modules_(model)
+    init.fill_(model.temperature, cfg.temperature_init)
+    return init.check(model)
 
 
 def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool = True,

@@ -1,12 +1,16 @@
 """CT-ViT: 3-D patch embed, factorised spatial/temporal attention, cosine VQ.
 
-Counterpart of ct_clip_ut_tpu/models/ctvit.py for the ctclip model type.
-The patch embed is patchify -> LN -> Linear -> LN, either as written
+Counterpart of ct_clip_ut_tpu/models/ctvit.py. The patch embed is
+patchify -> LN -> Linear -> LN, either as written
 (`patch_embed_conv=False`) or, at the default `patch_embed_conv=True`,
 with the first LN folded into the projection (the patch_embed kernel). For
 a [b, 1, 240, 480, 480] volume: a [b, 24, 24, 24, 512] token grid, 4
 spatial layers over (b t) x 576 tokens with a 2-D CPB bias, 4 temporal
-layers over (b h w) x 24 tokens, VQ against 8192 codes.
+layers over (b h w) x 24 tokens, VQ against 8192 codes. The ctgenerate
+model type (CTGenerate's tokenizer) embeds the first frame on its own
+(`to_patch_emb_first_frame`, temporal patch 1) and the rest at the
+temporal patch size, then concatenates them along t (ctvit.py:284-290):
+a [b, 1, 201, 128, 128] scan becomes a 101 x 8 x 8 grid.
 
 Training (`ctvit_apply(freeze_vq=False)`, under autograd) runs the same
 kernels through their autograd Functions: the conv embed takes the
@@ -51,18 +55,23 @@ class Patchify(nn.Module):
         return patchify(image, self.patch, self.t_patch)
 
 
+def _embed(patch: int, t_patch: int, patch_dim: int, dim: int) -> nn.Sequential:
+    return nn.Sequential(Patchify(patch, t_patch), nn.LayerNorm(patch_dim),
+                         nn.Linear(patch_dim, dim), nn.LayerNorm(dim))
+
+
 class CTViT(nn.Module):
     def __init__(self, cfg: CTViTConfig):
         super().__init__()
-        if cfg.model_type != "ctclip":
-            raise NotImplementedError(
-                "the ctgenerate CT-ViT is not ported yet (ROADMAP, Queue 1 item 10)")
+        if cfg.model_type not in ("ctclip", "ctgenerate"):
+            raise ValueError(f"unknown CT-ViT model_type {cfg.model_type!r}")
         self.cfg = cfg
         self.spatial_rel_pos_bias = ContinuousPositionBias(cfg.dim, cfg.heads, num_dims=2)
-        self.to_patch_emb = nn.Sequential(
-            Patchify(cfg.patch_size, cfg.temporal_patch_size),
-            nn.LayerNorm(cfg.patch_dim), nn.Linear(cfg.patch_dim, cfg.dim),
-            nn.LayerNorm(cfg.dim))
+        self.to_patch_emb = _embed(cfg.patch_size, cfg.temporal_patch_size, cfg.patch_dim,
+                                   cfg.dim)
+        if cfg.model_type == "ctgenerate":
+            self.to_patch_emb_first_frame = _embed(cfg.patch_size, 1, cfg.first_frame_patch_dim,
+                                                   cfg.dim)
         self.enc_spatial_transformer = Transformer(cfg.spatial_transformer())
         self.enc_temporal_transformer = Transformer(cfg.temporal_transformer())
         self.vq = VectorQuantize(cfg.codebook_size, cfg.dim)
@@ -83,17 +92,21 @@ def _patch_embed(emb: nn.Sequential, patches: torch.Tensor) -> torch.Tensor:
     return layernorm(h, emb[3].weight, emb[3].bias)
 
 
-def _patch_embed_conv(vit: CTViT, image: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """The LN-folded embed of a [b, c, T, H, W] volume (ctvit.py:63-99):
-    the patch_embed kernel for one channel and T, H, W that the patch sizes
-    divide (the JAX package's gate, ctvit.py:92-93), the plain version
-    otherwise or with plain=True. Under autograd the kernel path is the
-    residual-saving forward with its backward (`patch_embed_grad`). The
-    fold runs per call, in fp32."""
+def _patch_embed_conv(vit: CTViT, image: torch.Tensor, plain: bool = False, *,
+                      emb: Optional[nn.Sequential] = None,
+                      t_patch: Optional[int] = None) -> torch.Tensor:
+    """The LN-folded embed of a [b, c, T, H, W] volume (ctvit.py:63-99)
+    through `emb` at temporal patch `t_patch` (default: `to_patch_emb` at
+    the config's): the patch_embed kernel for one channel and T, H, W that
+    the patch sizes divide (the JAX package's gate, ctvit.py:92-93), the
+    plain version otherwise or with plain=True. Under autograd the kernel
+    path is the residual-saving forward with its backward
+    (`patch_embed_grad`). The fold runs per call, in fp32."""
     cfg = vit.cfg
     b, c, T, H, W = image.shape
-    p, tp = cfg.patch_size, cfg.temporal_patch_size
-    emb = vit.to_patch_emb
+    p = cfg.patch_size
+    tp = cfg.temporal_patch_size if t_patch is None else t_patch
+    emb = vit.to_patch_emb if emb is None else emb
     kw, s1, b1 = fold_patch_embed(emb, p, tp, c)
     kernel = not plain and c == 1 and T % tp == 0 and H % p == 0 and W % p == 0
     if not kernel:
@@ -156,9 +169,19 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
             "CT-ViT attention / FF dropout is not ported (the kernels take no dropout); "
             "the configurations use rate 0")
     if cfg.patch_embed_conv:
-        tokens = _patch_embed_conv(vit, image, plain=plain)
+        def embed(emb, img, t_patch):
+            return _patch_embed_conv(vit, img.contiguous(), plain=plain, emb=emb,
+                                     t_patch=t_patch)
     else:
-        tokens = _patch_embed(vit.to_patch_emb, vit.to_patch_emb[0](image))
+        def embed(emb, img, t_patch):
+            return _patch_embed(emb, patchify(img, cfg.patch_size, t_patch))
+    if cfg.model_type == "ctgenerate":
+        # the first frame embedded on its own (ctvit.py:284-290)
+        tokens = torch.cat([embed(vit.to_patch_emb_first_frame, image[:, :, :1], 1),
+                            embed(vit.to_patch_emb, image[:, :, 1:], cfg.temporal_patch_size)],
+                           dim=1)
+    else:
+        tokens = embed(vit.to_patch_emb, image, cfg.temporal_patch_size)
     x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
     b, t, h, w, d = x.shape
     quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),

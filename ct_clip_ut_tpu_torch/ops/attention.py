@@ -7,7 +7,10 @@ spatial stack), `attn_packed` otherwise (the temporal stack). On CUDA
 tensors those launch their kernels or raise for a shape they do not take;
 on CPU tensors they take their plain versions. Every other call runs the
 plain path of attention.py:141-226, which also returns the pre-dropout
-attention weights. The block path carries its backward: `_BlockFn` (the
+attention weights. Cross-attention (a `context`: the frozen-bias LN of the
+context when `norm_context`, k and v from it, null key/values, the text
+mask) always runs the plain path: no TPU kernel covers that call in the JAX
+package's configurations. The block path carries its backward: `_BlockFn` (the
 custom VJPs of pallas_attn_block / pallas_attn_packed) runs the backward
 kernel chains on CUDA tensors and their plain versions on CPU tensors;
 with plain=True the plain forward is differentiated by autograd instead.
@@ -90,14 +93,13 @@ def attention(attn: Attention, x: torch.Tensor, *,
               residual: bool = False,
               plain: bool = False) -> AttentionOutput:
     """Cosine attention of x [b, n, dim]. mask: [b, j] bool (True = attend);
-    attn_bias: [heads, i, j]; residual: return block(x) + x. plain=True
-    takes the block kernels' plain versions on any device (the reference
-    the card compares its kernels with)."""
+    context: [b, m, dim_context] for cross-attention; attn_bias: [heads, i,
+    j]; residual: return block(x) + x. plain=True takes the block kernels'
+    plain versions on any device (the reference the card compares its
+    kernels with)."""
     cfg = attn.cfg
-    if context is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP, Queue 1 item 10: CTGenerate)")
-    if (not return_weights and mask is None and not cfg.causal and cfg.num_null_kv == 0):
+    if (context is None and not return_weights and mask is None and not cfg.causal
+            and cfg.num_null_kv == 0):
         dt = x.dtype
         wkv = attn.to_kv.weight.to(dt)
         args = (x.contiguous(), attn.norm.gamma.float(), attn.to_q.weight.to(dt),
@@ -111,16 +113,19 @@ def attention(attn: Attention, x: torch.Tensor, *,
         else:
             out = attn_packed_plain(*args, cfg.scale, residual)
         return AttentionOutput(out, None)
-    return _attention_plain(attn, x, mask, attn_bias, return_weights, residual)
+    return _attention_plain(attn, x, mask, context, attn_bias, return_weights, residual)
 
 
-def _attention_plain(attn: Attention, x, mask, attn_bias, return_weights, residual):
-    """attention.py:141-226 (self-attention)."""
+def _attention_plain(attn: Attention, x, mask, context, attn_bias, return_weights, residual):
+    """attention.py:141-226. k and v come from the pre-norm x for
+    self-attention, from the (normed) context for cross-attention."""
     cfg = attn.cfg
     b, h, dh = x.shape[0], cfg.heads, cfg.dim_head
+    if context is not None and cfg.norm_context:
+        context = layernorm(context, attn.context_norm.gamma)
     xn = layernorm(x, attn.norm.gamma)
     q = linear(xn, attn.to_q.weight)
-    k, v = linear(x, attn.to_kv.weight).chunk(2, dim=-1)
+    k, v = linear(x if context is None else context, attn.to_kv.weight).chunk(2, dim=-1)
 
     def split_heads(t):
         return t.reshape(t.shape[0], t.shape[1], h, dh).transpose(1, 2)

@@ -1,11 +1,19 @@
-"""Transformer block stack: PEG -> self-attention -> GEGLU FF, then norm_out.
+"""Transformer block stack: PEG -> self-attention -> (cross-attention) -> GEGLU FF.
 
-Counterpart of the non-remat, untapped path of
-ct_clip_ut_tpu/ops/transformer.py. Each layer is the reference ModuleList
-[PEG, self-attention, cross-attention (None here), FF]; both residual adds
-ride the block kernels' output writes. With `cfg.peg_pallas` the PEG runs
-the peg stencil kernel and, in the backward, the peg_weight_grads kernel
+Counterpart of the non-remat path of ct_clip_ut_tpu/ops/transformer.py.
+Each layer is the reference ModuleList [PEG, self-attention,
+cross-attention (None without `has_cross_attn`), FF], then norm_out. The
+residual adds ride the block kernels' output writes. With `cfg.peg_pallas` the PEG runs the
+peg stencil kernel and, in the backward, the peg_weight_grads kernel
 (ops/peg.py); without it, F.conv3d and autograd.
+
+`self_attn_block` routes self-attention through the query-row-block path
+(ops/attention_blockwise.py, the attn_qrows kernel) for long token grids;
+`self_attn_bias_fn` then streams the bias as row stripes. Self-attention
+weights are not observable there (asserted, as in the JAX package).
+Cross-attention (MaskGit's, to the T5 context) is the plain path; its
+weights reach the caller through the taps `{i}.cross_attn_weights`, the
+one tap point the port's callers read (MaskGit's last cross-attention).
 """
 
 from __future__ import annotations
@@ -17,7 +25,9 @@ from torch import nn
 
 from ..config import TransformerConfig
 from .attention import Attention, attention
+from .attention_blockwise import blockwise_cosine_attention_qrows
 from .layers import PEG, FeedForward, FrozenBiasLayerNorm, layernorm
+from .taps import NULL_TAPS, Taps
 
 
 class Transformer(nn.Module):
@@ -26,13 +36,11 @@ class Transformer(nn.Module):
         if cfg.moe_experts > 0:
             raise NotImplementedError(
                 "the MoE feed-forward is not ported yet (ROADMAP, Queue 1 item 11)")
-        if cfg.has_cross_attn:
-            raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP, Queue 1 item 10: CTGenerate)")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             nn.ModuleList([PEG(cfg.dim, cfg.peg_causal, cfg.peg_pallas) if cfg.peg else None,
-                           Attention(cfg.self_attn()), None,
+                           Attention(cfg.self_attn()),
+                           Attention(cfg.cross_attn()) if cfg.has_cross_attn else None,
                            FeedForward(cfg.dim, cfg.ff_inner_dim)])
             for _ in range(cfg.depth))
         self.norm_out = FrozenBiasLayerNorm(cfg.dim)
@@ -41,15 +49,46 @@ class Transformer(nn.Module):
 def transformer(tf: Transformer, x: torch.Tensor, *,
                 video_shape: Optional[Tuple[int, int, int, int]] = None,
                 attn_bias: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None,
+                cross_attn_context_mask: Optional[torch.Tensor] = None,
                 return_weights: bool = False,
+                taps: Taps = NULL_TAPS,
+                self_attn_block: Optional[int] = None,
+                self_attn_bias_fn=None,
                 plain: bool = False):
-    """(out, per-layer self-attention weights or None) for x [b, n, dim]."""
+    """(out, per-layer self-attention weights or None) for x [b, n, dim].
+    Tap point per layer i: {i}.cross_attn_weights (transformer.py:197-214)."""
+    if self_attn_block is not None:
+        assert self_attn_mask is None, \
+            "blockwise self-attention does not support a key-padding mask"
+        assert not return_weights, "self-attention weights are not observable blockwise"
+    else:
+        assert self_attn_bias_fn is None, \
+            "self_attn_bias_fn without self_attn_block would silently drop the positional bias"
+
     weights = []
-    for peg, attn, _, ff in tf.layers:
+    for i, (peg, attn, cross, ff) in enumerate(tf.layers):
         if peg is not None:
             x = peg(x, video_shape, plain=plain)
-        x, w = attention(attn, x, attn_bias=attn_bias, return_weights=return_weights,
-                         residual=True, plain=plain)
+
+        if self_attn_block is not None:
+            x = blockwise_cosine_attention_qrows(
+                attn, x, q_block=self_attn_block, attn_bias=attn_bias,
+                bias_row_fn=self_attn_bias_fn, residual=True, plain=plain)
+            w = None
+        else:
+            x, w = attention(attn, x, attn_bias=attn_bias, mask=self_attn_mask,
+                             return_weights=return_weights, residual=True, plain=plain)
         weights.append(w)
+
+        if cross is not None and context is not None:
+            name = f"{i}.cross_attn_weights"
+            x, cw = attention(cross, x, context=context, mask=cross_attn_context_mask,
+                              return_weights=taps.wants(name), residual=True,
+                              plain=plain)
+            if cw is not None:
+                taps.tap(name, cw)
+
         x = ff(x, residual=True, plain=plain)
     return layernorm(x, tf.norm_out.gamma), (tuple(weights) if return_weights else None)

@@ -17,7 +17,10 @@ and differ in the order of fp32 sums), held on the branch alone as well as
 with the residual, and shown to reject a plain version with a norm gain,
 LN bias, q/k scale or bias left out; BERT_BAND for the fp32 layer, shown
 to reject a plain version without the mask, LN1 gain or QKV bias; >= 99.9%
-equal VQ indices, and the first maximum winning a tie.
+equal VQ indices, and the first maximum winning a tie. The attention
+blocks also run at CTGenerate's tokenizer lengths (64 tokens with a bias,
+101 without); attn_qrows at MaskGit's width (8 heads of 64) with a bf16
+bias, ragged lengths and one sequence or several.
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ import torch
 from ct_clip_ut_tpu_torch.ops import launches
 from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_plain
 from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed, attn_packed_plain
+from ct_clip_ut_tpu_torch.ops.attn_qrows import attn_qrows, attn_qrows_plain
 from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_plain
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff, geglu_ff_plain
 from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
@@ -163,7 +167,8 @@ def _rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,bias", [(576, True), (100, True), (24, False), (7, False)])
+@pytest.mark.parametrize("n,bias", [(576, True), (100, True), (64, True), (24, False), (7, False),
+                                    (101, False)])
 def test_attention_kernels_match_plain_on_card(cuda_device, n, bias, residual):
     """bf16 band 1.5e-2 relative: both sides round at the same points and
     differ only in the order of fp32 sums. Without the residual the band
@@ -185,6 +190,35 @@ def test_attention_kernels_match_plain_on_card(cuda_device, n, bias, residual):
             wrong = list(args)
             wrong[i] = torch.zeros_like(args[i]) if i == 8 else torch.ones_like(args[i])
             assert _rel_err(got, plain(*wrong, 8.0, False)) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("b,n,bias", [(1, 640, True), (2, 200, True), (3, 77, True),
+                                      (2, 64, False)])
+def test_attn_qrows_kernel_matches_plain_on_card(cuda_device, b, n, bias, residual):
+    """The same band; without the residual it rejects a plain version that
+    leaves out the bias or q_scale, takes k from the LN'd x, or leaves p
+    unnormalised."""
+    a = _attn_inputs(np.random.default_rng(8), r=b, n=n, d=512, heads=8, dh=64, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    for i in (0, 2, 3, 4, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    args.append(torch.from_numpy(a["bias"]).to(cuda_device, torch.bfloat16) if bias else None)
+    launches.reset_launch_counts()
+    got = attn_qrows(*args, 8.0, residual)
+    assert _rel_err(got, attn_qrows_plain(*args, 8.0, residual)) <= 1.5e-2
+    assert launches.launch_counts()["attn_qrows"] == 1
+    if not residual:
+        wrong = list(args)
+        wrong[6] = torch.ones_like(args[6])
+        controls = [attn_qrows_plain(*wrong, 8.0, False),
+                    attn_qrows_plain(*args, 8.0, False, faults=("k_from_ln",)),
+                    attn_qrows_plain(*args, 8.0, False, faults=("unnormalised",))]
+        if bias:
+            controls.append(attn_qrows_plain(*args[:8], None, 8.0, False))
+        for i, c in enumerate(controls):
+            assert _rel_err(got, c) > 1.5e-2, i
 
 
 @pytest.mark.cuda

@@ -33,7 +33,7 @@ from ct_clip_ut_tpu_torch import config as pconfig
 from ct_clip_ut_tpu_torch import convert
 from ct_clip_ut_tpu_torch.models import bert as tbert
 from ct_clip_ut_tpu_torch.models import ctvit as tctvit
-from ct_clip_ut_tpu_torch.models.ctclip import CTCLIP, init_ctclip
+from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
 from ct_clip_ut_tpu_torch.ops import attention as tattn
 from ct_clip_ut_tpu_torch.ops import layers as tlayers
 from ct_clip_ut_tpu_torch.ops import posbias as tposbias
@@ -89,7 +89,8 @@ def _close(got, want, atol=ATOL):
 
 
 @pytest.mark.parametrize("name", ["AttentionConfig", "TransformerConfig", "CTViTConfig",
-                                  "BertConfig", "CTCLIPConfig", "TrainConfig"])
+                                  "BertConfig", "CTCLIPConfig", "TrainConfig", "T5EncoderConfig",
+                                  "MaskGitConfig", "CTGenerateConfig"])
 def test_config_mirrors_the_jax_dataclasses(name):
     j, p = getattr(jconfig, name)(), getattr(pconfig, name)()
     assert [f.name for f in dataclasses.fields(p)] == [f.name for f in dataclasses.fields(j)]
@@ -97,7 +98,8 @@ def test_config_mirrors_the_jax_dataclasses(name):
     derived = {"AttentionConfig": ["inner_dim", "context_dim"],
                "TransformerConfig": ["ff_inner_dim", "self_attn", "cross_attn"],
                "CTViTConfig": ["patch_height", "patch_width", "patch_dim", "first_frame_patch_dim",
-                               "spatial_transformer", "temporal_transformer"]}.get(name, [])
+                               "spatial_transformer", "temporal_transformer"],
+               "MaskGitConfig": ["transformer"]}.get(name, [])
     for attr in derived:
         pv, jv = getattr(p, attr), getattr(j, attr)
         pv, jv = (pv(), jv()) if callable(pv) else (pv, jv)
@@ -357,12 +359,6 @@ def test_features_outside_the_slice_raise():
         tctvit.ctvit_apply(vit, torch.zeros((1, 1, DEPTH, IMG, IMG)), taps=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(dataclasses.replace(PORT_VIT.spatial_transformer(), moe_experts=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CTCLIP(dataclasses.replace(PORT_CLIP, ctvit=dataclasses.replace(
-            PORT_VIT, model_type="ctgenerate")))
-    mod = tattn.Attention(pconfig.AttentionConfig(dim=DIM, dim_head=DIM_HEAD, heads=HEADS))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attention(mod, torch.zeros((1, 4, DIM)), context=torch.zeros((1, 3, DIM)))
 
 
 def test_init_ctclip_is_seeded_with_the_jax_distributions():
