@@ -23,6 +23,28 @@ Phases, each printing its lines before the last:
      prompt latents, the patch embed's token grid (against the plain
      embed), the encoder output and one batch's image latents held against
      the plain path; then zeroshot() writes metrics.txt;
+  4a. geglu_ff_int8 (--quantize-ff's W8A8 GEGLU) against its plain version
+     at the 2-volume FF shape (x [27648, 512], spatial layer 0's FF of the
+     seeded flagship quantised, inner 1365 padded to 1376), residual off
+     and on, within INT8_BAND relative rms, with the controls (h left
+     unquantised, one scale per tensor, sv and sg swapped), its times,
+     `bound_ms` (int8 operations) and the torch._int_mm chain as
+     `library_ms`;
+  4b. the zero-shot path on quantize_ctclip_ff(model): predict() over 3
+     batches of 2 volumes with 8 geglu_ff_int8 launches a batch and no
+     geglu_ff; batch 0's image latents against plain=True (share of equal
+     VQ ids printed), the probabilities against the bf16 model's and both
+     FF weight sizes;
+  4c. the CLI end to end: scripts.inference_ctclip.main over 2 synthetic
+     NIfTI volumes (128 x 128 x 60 int16, resampled and padded to [1, 240,
+     480, 480]) with their CSVs, with --quantize-ff and without, each
+     writing metrics.txt;
+  4d. cosine_attention (the bare core) against its plain version at q/k/v
+     [384, 576, 32] with the [8, 576, 576] bias and at [9216, 24, 32]
+     without, with the controls (q_scale, k_scale or the bias left out),
+     its times, `bound_ms` and F.scaled_dot_product_attention as
+     `library_ms`; one cross-attention through ops/attention.attention()
+     launches it once;
   5. each of the five backward kernels of the train step against its plain
      version at the shapes a B = 2 train step gives it (every gradient),
      with both times, `bound_ms` and, for the patch embed's weight grad,
@@ -68,8 +90,9 @@ Phases, each printing its lines before the last:
      agreement; an fp32 scan refused; and `maskgit_generate` at B = 1 over
      18 steps: 108 attn_qrows launches, every id inside the codebook.
 The line before the last is the kernels' JSON record (launches: the
-zero-shot run's counts for the forward kernels, phase 8's for the train
-kernels, phase 9's for attn_qrows); the last line is {"ok": true,
+zero-shot run's counts for the forward kernels, phase 4b's for
+geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
+the train kernels, phase 9's for attn_qrows); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -120,7 +143,7 @@ PROMPTS, PROMPT_LEN = 36, 512
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its FLOPs over the peak of its operands' type and its bytes (each
 # input read once, each output written once) over the memory rate
-BF16_PEAK, FP32_PEAK, HBM_RATE = 989e12, 67e12, 3.35e12
+BF16_PEAK, FP32_PEAK, INT8_PEAK, HBM_RATE = 989e12, 67e12, 1979e12, 3.35e12
 
 KERNELS = {
     "attn_block": ("ct_clip_ut_tpu_torch/csrc/attn_block.cu",
@@ -154,6 +177,10 @@ KERNELS = {
                          "ct_clip_ut_tpu/ops/pallas_peg_bwd.py:85"),
     "attn_qrows": ("ct_clip_ut_tpu_torch/csrc/attn_qrows.cu",
                    "ct_clip_ut_tpu/ops/pallas_attn_qrows.py:230"),
+    "geglu_ff_int8": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_int8.cu",
+                      "ct_clip_ut_tpu/ops/pallas_ff_int8.py:148"),
+    "cosine_attention": ("ct_clip_ut_tpu_torch/csrc/cosine_attention.cu",
+                         "ct_clip_ut_tpu/ops/pallas_attention.py:125"),
 }
 BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
@@ -161,6 +188,9 @@ TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_emb
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
 CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
                  "vq_nearest": 1, "attn_qrows": 6}
+# kernels of other serving paths, launched by neither zero-shot nor training:
+# CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine core
+SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention")
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -176,6 +206,14 @@ FEATURE_BAND = 3e-2
 CROSS_BAND = 1e-2
 E2E_FEATURE_BAND = 3e-2
 E2E_CROSS_BAND = 2e-2
+# geglu_ff_int8 vs its plain version, relative rms: the two differ only where
+# LN's last bit moves a code across a .5 boundary, a few codes in a tensor;
+# the controls (h left unquantised, one scale per tensor, sv and sg swapped)
+# move every row
+INT8_BAND = 2e-3
+CLI_VOLUME = (128, 128, 60)         # raw [H, W, D] int16 grid of the CLI phase
+CLI_SPACING = (2.5, 5.0)            # xy, z mm: resampled to [200, 426, 426], padded
+COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at B = 1
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -498,7 +536,7 @@ def slice_phase(torch, model, card: str) -> dict:
     if not ((preds >= 0) & (preds <= 1)).all():
         raise AssertionError("probabilities outside [0, 1]")
     missing = [k for k, v in counts.items()
-               if v <= 0 and k not in TRAIN_KERNELS and k != "attn_qrows"]
+               if v <= 0 and k not in TRAIN_KERNELS and k not in SERVING_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched on the zero-shot path: {missing}")
 
@@ -593,6 +631,287 @@ def slice_phase(torch, model, card: str) -> dict:
     print(f"slice: zeroshot() wrote metrics.txt ({len(report.splitlines())} lines): label "
           f"accuracy {m['label_accuracy']:.4f}, mean ROC-AUC {m['mean_roc_auc']:.4f}")
     return counts
+
+
+def int8_check(torch, model, card: str) -> dict:
+    """geglu_ff_int8 against its plain version at the zero-shot FF's shape
+    (x [2 * 13824, 512] bf16; spatial layer 0's FF of the seeded flagship,
+    quantised, with the LN gain drawn as 1 + 0.1 N and bias 0.1 N), residual
+    off and on, with the controls; times, the bound and the torch._int_mm
+    chain (LN, per-row quantisation, cuBLASLt int8 products, GELU) as the
+    library yardstick."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import (geglu_ff_int8, geglu_ff_int8_plain,
+                                                        row_quant)
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+
+    vit = model.visual_transformer
+    g = torch.Generator(device="cuda").manual_seed(11)
+    t, h, w = token_grid_shape(vit.cfg, VOLUME)
+    d = vit.cfg.dim
+    q = quantize_ff_params(vit.enc_spatial_transformer.layers[0][3])
+    q.gamma.copy_(around_ones(torch, g, d))
+    q.beta.copy_(0.1 * torch.randn((d,), generator=g, device="cuda"))
+    args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
+    swapped = list(args)
+    swapped[5], swapped[6] = args[6], args[5]
+    x = torch.randn((BATCH * t * h * w, d), generator=g, device="cuda").to(torch.bfloat16)
+    for residual in (False, True):
+        got = geglu_ff_int8(x, *args, residual=residual)
+        want = geglu_ff_int8_plain(x, *args, residual=residual)
+        torch.cuda.synchronize()
+        err = rel_rms(got, want)
+        controls = {"h unquantised": geglu_ff_int8_plain(x, *args, residual=residual,
+                                                         faults=("h_float",)),
+                    "per-tensor scales": geglu_ff_int8_plain(x, *args, residual=residual,
+                                                             faults=("per_tensor",)),
+                    "sv / sg swapped": geglu_ff_int8_plain(x, *swapped, residual=residual)}
+        controls = {k: rel_rms(got, c) for k, c in controls.items()}
+        abs_err = (got.float() - want.float()).abs().max().item()
+        print(f"kernel geglu_ff_int8 x {list(x.shape)}, inner {q.inner_dim} (padded "
+              f"{q.wv_q.shape[0]}), residual={residual}: relative rms {err:.3e} (band "
+              f"{INT8_BAND}), max_rel_err {rel_err(got, want):.3e}, max_abs_err {abs_err:.3e}; "
+              "controls " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()))
+        if not got.float().isfinite().all():
+            raise AssertionError("geglu_ff_int8: non-finite kernel output")
+        if not err <= INT8_BAND < min(controls.values()):
+            raise AssertionError(f"geglu_ff_int8: relative rms {err}, band {INT8_BAND}, "
+                                 f"controls {controls}")
+        if not residual:
+            branch_abs_err = abs_err
+    inner = q.wv_q.shape[0]
+    wvg_t = torch.cat([q.wv_q, q.wg_q]).t()            # [512, 2 * inner], column-major
+    w2_t = q.w2_q.t()
+
+    def library():
+        xn = F.layer_norm(x.float(), (d,), q.gamma, q.beta, eps=1e-5)
+        xi, rx = row_quant(xn)
+        vg = torch._int_mm(xi, wvg_t).float() * rx
+        hh = F.gelu(vg[:, inner:] * q.sg) * (vg[:, :inner] * q.sv)
+        hi, rh = row_quant(hh)
+        return (torch._int_mm(hi, w2_t).float() * rh * q.s2 + x.float()).to(x.dtype)
+
+    lib_err = rel_rms(library(), geglu_ff_int8_plain(x, *args, residual=True))
+    ms = cuda_ms(torch, lambda: geglu_ff_int8(x, *args, residual=True))
+    plain_ms = cuda_ms(torch, lambda: geglu_ff_int8_plain(x, *args, residual=True), iters=3)
+    library_ms = cuda_ms(torch, library)
+    flops = 2 * x.shape[0] * d * q.inner_dim * 3
+    rec = bound(flops, nbytes(x, *args, x), INT8_PEAK)
+    print(f"kernel geglu_ff_int8: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), torch._int_mm chain {library_ms:.3f} "
+          f"ms (relative rms {lib_err:.3e} vs the plain version) [{card}]")
+    return dict(max_abs_err=branch_abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                library_ms=library_ms)
+
+
+def quantized_phase(torch, model, card: str) -> dict:
+    """The zero-shot path with --quantize-ff: CTClipInference.predict over
+    BATCHES batches of BATCH volumes on quantize_ctclip_ff(model), 8
+    geglu_ff_int8 launches a batch and no geglu_ff; batch 0's image latents
+    against plain=True on the same quantised model (control: volume 0 vs
+    1); the probabilities against the bf16 model's; both FF weight sizes.
+    Returns the launch counts of the predict run."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.infer.zeroshot import (CTClipInference, WordTokenizer,
+                                                     tokenize_prompts)
+    from ct_clip_ut_tpu_torch.models.ctclip import encode_image_latents
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.ops.quant import ff_weight_bytes, quantize_ctclip_ff
+
+    qmodel = quantize_ctclip_ff(model)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    prompts = tokenize_prompts(WordTokenizer(model.cfg.bert.vocab_size), max_length=PROMPT_LEN,
+                               device="cuda")
+    data = [(torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16),
+             None, np.zeros((BATCH, 18))) for _ in range(BATCHES)]
+    runner = CTClipInference(qmodel, prompts, data)
+    runner.predict()                                                   # warm-up
+    torch.cuda.synchronize()
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    preds, _ = runner.predict()
+    seconds = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    depth = model.cfg.ctvit.spatial_depth + model.cfg.ctvit.temporal_depth
+    print(f"quantized: CTClipInference.predict on quantize_ctclip_ff(model), {BATCHES} x {BATCH} "
+          f"volumes in {seconds:.3f} s (smoke reading, host clock) [{card}]; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    if counts["geglu_ff_int8"] != depth * BATCHES or counts["geglu_ff"] != 0:
+        raise AssertionError(f"quantized path: geglu_ff_int8 {counts['geglu_ff_int8']} "
+                             f"launches (want {depth * BATCHES}), geglu_ff {counts['geglu_ff']}")
+    missing = [k for k in ("attn_block", "attn_packed", "vq_nearest", "patch_embed")
+               if counts[k] <= 0]
+    if missing or not np.isfinite(preds).all():
+        raise AssertionError(f"quantized path: kernels not launched {missing} or bad preds")
+
+    bf16_preds, _ = CTClipInference(model, prompts, data).predict()
+    cos = torch.nn.functional.cosine_similarity
+    with torch.no_grad():
+        lat, out = encode_image_latents(qmodel, data[0][0])
+        lat_plain, out_plain = encode_image_latents(qmodel, data[0][0], plain=True)
+    lat, lat_plain = lat.float(), lat_plain.float()
+    lat_err = (1.0 - cos(lat, lat_plain, dim=-1)).max().item()
+    lat_control = (1.0 - cos(lat_plain[0], lat_plain[1], dim=-1)).item()
+    same_ids = (out.codebook_ids == out_plain.codebook_ids).float().mean().item()
+    wq, wb = ff_weight_bytes(qmodel), ff_weight_bytes(model)
+    print(f"quantized: batch 0 image latents vs plain=True: 1 - cos {lat_err:.3e} (band "
+          f"{LATENT_BAND}), {same_ids:.6f} of VQ indices equal; control (volume 0 vs 1) 1 - cos "
+          f"{lat_control:.3e}")
+    print(f"quantized: probabilities vs the bf16 model over {BATCHES * BATCH} volumes: max abs "
+          f"diff {np.abs(preds - bf16_preds).max():.4e}, mean abs diff "
+          f"{np.abs(preds - bf16_preds).mean():.4e}; FF weights (8 layers) int8 + scales "
+          f"{wq['stored']} B, fp {wb['stored']} B as stored ({wb['served']} B as the bf16 "
+          f"kernels read them)")
+    if not lat_err <= LATENT_BAND < lat_control:
+        raise AssertionError(f"quantized latents: 1 - cos {lat_err}, band {LATENT_BAND}, "
+                             f"control {lat_control}")
+    return counts
+
+
+def cli_phase(torch, card: str) -> None:
+    """scripts.inference_ctclip.main end to end: 2 synthetic NIfTI volumes
+    (raw int16 grids the chain resamples and pads to [1, 240, 480, 480])
+    with their reports / labels / metadata CSVs in a temporary directory,
+    --zero-shot with --quantize-ff and without, each writing metrics.txt."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.data.nifti import write_nii
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.scripts import inference_ctclip
+
+    rng = np.random.default_rng(13)
+    xy, z = CLI_SPACING
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "valid").mkdir()
+        names = [f"valid_{i}_a_1.nii.gz" for i in range(2)]
+        for name in names:
+            write_nii(root / "valid" / name,
+                      rng.integers(-1024, 2000, CLI_VOLUME).astype(np.int16),
+                      pixdim=(xy, xy, z))
+        tables = {"reports.csv": [["VolumeName", "Findings_EN", "Impressions_EN"]] + [
+                      [n, "the lungs are clear", "no acute finding"] for n in names],
+                  "metadata.csv": [["VolumeName", "RescaleSlope", "RescaleIntercept",
+                                    "XYSpacing", "ZSpacing"]] + [
+                      [n, "1", "0", f"[{xy}, {xy}]", str(z)] for n in names],
+                  "labels.csv": [["VolumeName"] + [f"p{i}" for i in range(18)]] + [
+                      [n] + [str(int(v)) for v in rng.integers(0, 2, 18)] for n in names]}
+        for fname, rows in tables.items():
+            with open(root / fname, "w", newline="") as f:
+                csv.writer(f).writerows(rows)
+        for quantize in (True, False):
+            out = root / ("results_int8" if quantize else "results")
+            argv = ["--data-valid", str(root / "valid"), "--valid-reports",
+                    str(root / "reports.csv"), "--valid-labels", str(root / "labels.csv"),
+                    "--valid-metadata", str(root / "metadata.csv"), "--results-folder",
+                    str(out), "--zero-shot", "--batch-size", "2", "--num-workers", "2"]
+            launches.reset_launch_counts()
+            t0 = time.perf_counter()
+            m, preds, _ = inference_ctclip.main(argv + (["--quantize-ff"] if quantize else []))
+            seconds = time.perf_counter() - t0
+            counts = launches.launch_counts()
+            report = (out / "metrics.txt").read_text()
+            print(f"cli: inference_ctclip --zero-shot{' --quantize-ff' if quantize else ''} on 2 "
+                  f"volumes {list(CLI_VOLUME)} int16 (xy {xy} mm, z {z} mm) in {seconds:.1f} s "
+                  f"(host clock, model init and preprocessing included) [{card}]: metrics.txt "
+                  f"{len(report.splitlines())} lines, probabilities [{preds.min():.4f}, "
+                  f"{preds.max():.4f}]; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+            if not report.startswith("Epoch 0 Metrics:") or preds.shape != (2, 18):
+                raise AssertionError("the CLI wrote no metrics table")
+            if (counts["geglu_ff_int8"] > 0) != quantize or (counts["geglu_ff"] > 0) == quantize:
+                raise AssertionError(f"the CLI took the wrong FF route: {counts}")
+
+
+def cosine_check(torch, card: str) -> tuple:
+    """cosine_attention against its plain version at the spatial shape the
+    TPU kernel was written for (q / k / v [384, 576, 32] bf16, bias [8, 576,
+    576] fp32) and the temporal one without a bias ([9216, 24, 32]), with the
+    controls (q_scale or k_scale left out, the bias left out); times, the
+    bound and F.scaled_dot_product_attention (F.normalize, the scales, the
+    bias as its mask, fp32) as the library yardstick. Then one
+    cross-attention through ops/attention.attention() with a context and no
+    null key/values, which must launch the kernel once. Returns (the record
+    at the spatial shape, that call's launch counts)."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.config import AttentionConfig
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.ops.attention import Attention, attention
+    from ct_clip_ut_tpu_torch.ops.cosine_attention import (cosine_attention,
+                                                           cosine_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    heads, dh, scale = 8, 32, 8.0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    record = None
+    for bh, n, with_bias in ((BATCH * 24 * heads, 576, True), (*COSINE_TEMPORAL, False)):
+        q, k, v = (randn(bh, n, dh).to(torch.bfloat16) for _ in range(3))
+        qs, ks = around_ones(torch, g, dh), around_ones(torch, g, dh)
+        bias = 0.5 * randn(heads, n, n) if with_bias else None
+        args = (q, k, v, qs, ks, bias, heads, scale)
+        got = cosine_attention(*args)
+        want = cosine_attention_plain(*args)
+        torch.cuda.synchronize()
+        controls = {"no q_scale": cosine_attention_plain(q, k, v, torch.ones_like(qs), ks, bias,
+                                                         heads, scale),
+                    "k without k_scale": cosine_attention_plain(q, k, v, qs, torch.ones_like(ks),
+                                                                bias, heads, scale)}
+        if with_bias:
+            controls["no bias"] = cosine_attention_plain(q, k, v, qs, ks, None, heads, scale)
+        abs_err = band_check("cosine_attention", got, want, FLOAT_BAND,
+                             {c: rel_err(got, o) for c, o in controls.items()},
+                             f"q/k/v {list(q.shape)}, bias "
+                             f"{list(bias.shape) if with_bias else None}")
+
+        def library():
+            mask = None if bias is None else bias.expand(bh // heads, heads, n, n)
+            qn = (F.normalize(q.float(), dim=-1) * (qs * scale)).view(-1, heads, n, dh)
+            kn = (F.normalize(k.float(), dim=-1) * ks).view(-1, heads, n, dh)
+            o = F.scaled_dot_product_attention(qn, kn, v.float().view(-1, heads, n, dh),
+                                               attn_mask=mask, scale=1.0)
+            return o.reshape(bh, n, dh).to(q.dtype)
+
+        lib_err = rel_err(library(), want)
+        ms = cuda_ms(torch, lambda: cosine_attention(*args))
+        plain_ms = cuda_ms(torch, lambda: cosine_attention_plain(*args), iters=3)
+        library_ms = cuda_ms(torch, library)
+        rec = bound(4 * bh * n * n * dh, nbytes(q, k, v, qs, ks, got)
+                    + (nbytes(bias) if with_bias else 0), BF16_PEAK)
+        print(f"kernel cosine_attention [{bh}, {n}, {dh}]: {ms:.3f} ms vs plain {plain_ms:.3f} "
+              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), SDPA yardstick "
+              f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
+        if record is None:
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                          library_ms=library_ms)
+
+    torch.manual_seed(15)
+    cfg = AttentionConfig(dim=512, dim_head=dh, heads=heads, dim_context=768)
+    attn = Attention(cfg).cuda()
+    x = torch.randn((BATCH, 576, 512), generator=g, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((BATCH, 120, 768), generator=g, device="cuda").to(torch.bfloat16)
+    launches.reset_launch_counts()
+    with torch.no_grad():
+        got = attention(attn, x, context=ctx, return_weights=False, residual=False).out
+        counts = launches.launch_counts()
+        want = attention(attn, x, context=ctx, return_weights=False, residual=False,
+                         plain=True).out
+    err = rel_err(got, want)
+    print(f"cosine_attention: cross-attention x {list(x.shape)}, context {list(ctx.shape)}, "
+          f"no null key/values: launches {json.dumps({k: v for k, v in counts.items() if v})}; "
+          f"branch vs plain=True max_rel_err {err:.3e} (band {FLOAT_BAND})")
+    if counts["cosine_attention"] != 1 or not err <= FLOAT_BAND:
+        raise AssertionError(f"cross-attention route: {counts['cosine_attention']} launches, "
+                             f"error {err}")
+    return record, counts
 
 
 def grads_check(name: str, got: dict, want: dict, band: float, faulty: dict, line: str) -> float:
@@ -1108,7 +1427,7 @@ def earlier_train_phase(torch, model, card: str) -> dict:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"non-finite losses on the earlier train path: {losses}")
     missing = [k for k, v in counts.items() if v <= 0 and k not in BERT_PEG_KERNELS
-               and k not in ("bert_layer", "attn_qrows")]
+               and k not in ("bert_layer", *SERVING_KERNELS)]
     stray = [k for k in (*BERT_PEG_KERNELS, "bert_layer") if counts[k] != 0]
     if missing or stray:
         raise AssertionError(f"earlier train path: kernels not launched {missing}, kernels of "
@@ -1209,7 +1528,8 @@ def train_phase(torch, model, card: str) -> dict:
           f"validation {trainer.valid_losses}; files {saved}; launches {json.dumps(counts)}")
     if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
         raise AssertionError(f"non-finite train losses {losses}")
-    missing = [k for k, v in counts.items() if v <= 0 and k not in ("bert_layer", "attn_qrows")]
+    missing = [k for k, v in counts.items() if v <= 0 and k not in ("bert_layer",
+                                                                      *SERVING_KERNELS)]
     if missing:
         raise AssertionError(f"kernels not launched on the train path: {missing}")
     layers, pegs = cfg.bert.num_layers, cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
@@ -1475,6 +1795,11 @@ def main() -> int:
         model = init_ctclip(flagship_cfg(), seed=0, device="cuda")
         record = kernel_phase(torch, model, card)
         counts = slice_phase(torch, model, card)
+        record["geglu_ff_int8"] = int8_check(torch, model, card)
+        int8_counts = quantized_phase(torch, model, card)
+        cli_phase(torch, card)
+        record["cosine_attention"], cosine_counts = cosine_check(torch, card)
+        torch.cuda.empty_cache()
         record.update(backward_phase(torch, model, card))
         record.update(bert_train_check(torch, model, card))
         record.update(peg_check(torch, model, card))
@@ -1492,7 +1817,9 @@ def main() -> int:
         return 1
     def run_of(name):
         return (train_counts if name in TRAIN_KERNELS else
-                ctgen_counts if name == "attn_qrows" else counts)
+                ctgen_counts if name == "attn_qrows" else
+                int8_counts if name == "geglu_ff_int8" else
+                cosine_counts if name == "cosine_attention" else counts)
 
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=run_of(n)[n],
                     **record[n]) for n, (src, rep) in KERNELS.items()]

@@ -53,9 +53,12 @@ SIGNATURES = {
     "ctc_bert_keep_mask": [_P, _U, _I, _I, _I, _U, _F, _P, _P],
     "ctc_peg": [_P] * 4 + [_I] * 7 + [_P],
     "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
+    "ctc_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
+    "ctc_cosine_attention": [_P] * 7 + [_I] * 4 + [_F, _P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
     "ctc_attn_bwd_max_n": [],
+    "ctc_cosine_attention_max_m": [],
 }
 
 

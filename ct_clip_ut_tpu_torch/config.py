@@ -236,6 +236,17 @@ class CTGenerateConfig:
 
 
 @dataclass(frozen=True)
+class PreprocessConfig:
+    """CT preprocessing chain (ct_clip_ut_tpu/config.py:348-356)."""
+    target_spacing: Tuple[float, float, float] = (1.5, 0.75, 0.75)  # (z, x, y) mm
+    hu_min: float = -1000.0
+    hu_max: float = 1000.0
+    target_shape_hwd: Tuple[int, int, int] = (480, 480, 240)  # (H, W, D)
+    pad_value: float = -1.0
+    ctgenerate_shape: Tuple[int, int, int] = (201, 128, 128)  # (D, H, W)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
     CTClipTrainer.py:38-59, optimizer.py). The port runs single-device,

@@ -5,7 +5,10 @@ same weights.
 Transposes: JAX linear `w` is (in, out), nn.Linear stores (out, in); the
 PEG kernel is DHWIO [3, 3, 3, 1, dim], Conv3d wants [dim, 1, 3, 3, 3]. The
 reference's frozen LayerNorm `beta` buffers, which the JAX tree drops, are
-zeros. The state dict is loaded strictly, so a weight left out raises.
+zeros. A W8A8 tree (the JAX `quantize_ctclip_ff`: int8 codes and scales
+under `ff`) gives Int8FeedForward modules, the codes transposed and the
+inner width padded as `ops/quant.py` pads its own. The state dict is
+loaded strictly, so a weight left out raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from . import _build
 from .config import CTCLIPConfig, CTGenerateConfig
 from .models.ctclip import CTCLIP
 from .models.ctgenerate import CTGenerate
+from .ops.layers import Int8FeedForward
 
 
 def _t(a) -> torch.Tensor:
@@ -59,9 +63,16 @@ def _transformer(sd, prefix, p):
         _attention(sd, f"{lp}.1", layer["self_attn"])
         if "cross_attn" in layer:
             _attention(sd, f"{lp}.2", layer["cross_attn"])
-        _ln(sd, f"{lp}.3.0", layer["ff"]["norm"])
-        _linear(sd, f"{lp}.3.1", layer["ff"]["proj_in"])
-        _linear(sd, f"{lp}.3.4", layer["ff"]["proj_out"])
+        ff = layer["ff"]
+        if "wv_q" in ff:            # quantize_ff_params' tree: an Int8FeedForward
+            codes = [torch.tensor(np.asarray(ff[k]).T.copy()) for k in ("wv_q", "wg_q", "w2_q")]
+            q = Int8FeedForward.from_codes(_t(ff["norm"]["gamma"]), _t(ff["norm"]["beta"]),
+                                           *codes, *(_t(ff[k]) for k in ("sv", "sg", "s2")))
+            sd.update({f"{lp}.3.{k}": t for k, t in q.state_dict().items()})
+        else:
+            _ln(sd, f"{lp}.3.0", ff["norm"])
+            _linear(sd, f"{lp}.3.1", ff["proj_in"])
+            _linear(sd, f"{lp}.3.4", ff["proj_out"])
     _ln_frozen(sd, f"{prefix}.norm_out", p["norm_out"])
 
 
@@ -104,10 +115,14 @@ def _ctvit(sd, prefix, v):
 
 
 def _load(model_cls, cfg, sd, device):
-    """The module built on the meta device, filled strictly from sd."""
+    """The module built on the meta device, filled strictly from sd; each FF
+    whose weights sd holds as int8 codes becomes an Int8FeedForward."""
     device = _build.check_device(device)
     with torch.device("meta"):
         model = model_cls(cfg)
+        for key in [k for k in sd if k.endswith(".3.wv_q")]:
+            layer = model.get_submodule(key[:-len(".3.wv_q")])
+            layer[3] = Int8FeedForward(layer[3][1].in_features, layer[3][4].in_features)
     model.to_empty(device=device)
     model.load_state_dict(sd, strict=True)
     return model.eval()

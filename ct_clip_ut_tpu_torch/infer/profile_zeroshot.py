@@ -1,6 +1,6 @@
 """Throughput and device-time profile of the zero-shot path on one GPU.
 
-    python -m ct_clip_ut_tpu_torch.infer.profile_zeroshot [--table PATH]
+    python -m ct_clip_ut_tpu_torch.infer.profile_zeroshot [--table PATH] [--quantize-ff]
 
 At flagship width and the default configuration (`config.flagship_cfg()`:
 the conv patch embed; random weights from seed 0) on [b, 1, 240, 480, 480]
@@ -20,6 +20,10 @@ stand-in `WordTokenizer`), it prints:
   counts of the port's kernels, and the device kernels ranked by time.
   --table writes every kernel's row to PATH.
 
+With --quantize-ff the same readings are of `quantize_ctclip_ff(model)`
+(the visual transformer's FFs W8A8, the geglu_ff_int8 kernel), after a
+line with the FF weight bytes of both models.
+
 Each line names the card and its power limit (`nvidia-smi`).
 """
 
@@ -38,6 +42,7 @@ import torch
 from ..config import flagship_cfg
 from ..models.ctclip import init_ctclip
 from ..ops import launches
+from ..ops.quant import ff_weight_bytes, quantize_ctclip_ff
 from .zeroshot import (CTClipInference, WordTokenizer, encode_prompt_latents, tokenize_prompts,
                        zeroshot_probs)
 
@@ -125,6 +130,8 @@ def print_profile(p: dict, label: str, card: str, table=None, top: int = 20) -> 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--table", default=None, help="write every kernel's profile row here")
+    ap.add_argument("--quantize-ff", action="store_true",
+                    help="profile the model with its visual FFs quantised W8A8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_zeroshot: needs a CUDA device", file=sys.stderr)
@@ -134,6 +141,12 @@ def main(argv=None) -> int:
     card = card_name()
     cfg = flagship_cfg()
     model = init_ctclip(cfg, seed=0, device="cuda")
+    if args.quantize_ff:
+        fp, model = ff_weight_bytes(model), quantize_ctclip_ff(model)
+        q = ff_weight_bytes(model)
+        print(f"quantize_ff: FF weights (8 layers) int8 + scales {q['stored']} B; fp "
+              f"{fp['stored']} B as stored, {fp['served']} B as the bf16 kernels read them "
+              f"[{card}]", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), max_length=PROMPT_LEN,
                                device="cuda")

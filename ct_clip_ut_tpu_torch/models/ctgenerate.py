@@ -9,7 +9,7 @@ columns dropped, gives each keyword's localisation heatmap.
 
 On the card the tokenizer runs in the scan's dtype and every image-tower
 kernel takes bf16, so the card serves bf16 scans: an fp32 scan on a CUDA
-device raises (ROADMAP Queue 1 item 10), as does an fp32 MaskGit
+device raises in `ctvit_apply` (ROADMAP Queue 2 item 14), as does an fp32 MaskGit
 (`compute_dtype="float32"`, the default of `ctgenerate_apply`, the parity
 route the CPU tests take). Serving goes through `ctgenerate_apply_batched`
 in bf16 with the bias cache at every batch size. plain=True runs every
@@ -71,15 +71,6 @@ class CTGenerateOutput(NamedTuple):
     cross_attention: Optional[torch.Tensor] = None   # [b, heads, n, text_len], fp32
 
 
-def check_scan(ct_scan: torch.Tensor, plain: bool) -> None:
-    """Raise for a scan the card's tokenizer kernels do not take."""
-    if _build.on_cuda(ct_scan) and not plain and ct_scan.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"a {ct_scan.dtype} scan on the card: the CT-ViT kernels take bf16 scans only "
-            "(ROADMAP Queue 1 item 10: fp32 variants of the image-tower kernels); "
-            "cast the scan to bfloat16")
-
-
 def ctgenerate_apply(model: CTGenerate, ct_scan: torch.Tensor, text_embed: torch.Tensor,
                      text_mask: torch.Tensor, keyword_indices: Dict[str, list], *,
                      return_embeds: bool = True, self_attn_bias: Optional[torch.Tensor] = None,
@@ -89,7 +80,6 @@ def ctgenerate_apply(model: CTGenerate, ct_scan: torch.Tensor, text_embed: torch
     `self_attn_bias` is a prebuilt [heads, n, n] table (maskgit_bias_table).
     The tokenizer keeps the scan's dtype; compute_dtype is MaskGit's."""
     cfg = model.cfg
-    check_scan(ct_scan, plain)
     with torch.no_grad():
         ids_grid = ctvit_apply(model.ctvit, ct_scan, freeze_vq=True, plain=plain).codebook_ids
     video_patch_shape = tuple(int(d) for d in ids_grid.shape[1:])

@@ -152,6 +152,15 @@ def token_grid_shape(cfg: CTViTConfig, image_shape) -> tuple:
     return (t, H // cfg.patch_size, W // cfg.patch_size)
 
 
+def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool) -> None:
+    """Raise for an image the card's image-tower kernels do not take: on a
+    CUDA device (`device_type` "cuda") without plain=True, bf16 only."""
+    if device_type == "cuda" and not plain and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"a {dtype} image on the card: the CT-ViT kernels take bf16 only (ROADMAP Queue 2 "
+            "item 14: fp32 variants of the ported kernels); cast the image to bfloat16")
+
+
 def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
                 return_weights: bool = False, taps=None, deterministic: bool = True,
                 plain: bool = False) -> CTViTOutput:
@@ -159,8 +168,10 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
     caller writes it back). CT-ViT dropout is not ported: its rates are 0
     in every configuration the JAX package ships, and a train-mode call
-    with a rate above 0 raises."""
+    with a rate above 0 raises. On the card the image must be bf16
+    (`check_image_dtype`)."""
     cfg = vit.cfg
+    check_image_dtype(image.dtype, image.device.type, plain)
     if taps is not None:
         raise NotImplementedError(
             "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9: attribution)")

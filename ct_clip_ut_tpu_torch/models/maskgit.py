@@ -119,7 +119,7 @@ def maskgit_apply(mg: MaskGit, ct_codebook_ids: torch.Tensor, context: torch.Ten
     if _build.on_cuda(x) and not plain and x.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"MaskGit in {x.dtype} on the card: the geglu_ff and attn_qrows kernels take bf16 "
-            "only (ROADMAP Queue 1 item 10: fp32 variants); pass compute_dtype='bfloat16'")
+            "only (ROADMAP Queue 2 item 14: fp32 variants); pass compute_dtype='bfloat16'")
 
     if precomputed_bias is not None:
         attn_bias, bias_fn = precomputed_bias

@@ -7,10 +7,14 @@ spatial stack), `attn_packed` otherwise (the temporal stack). On CUDA
 tensors those launch their kernels or raise for a shape they do not take;
 on CPU tensors they take their plain versions. Every other call runs the
 plain path of attention.py:141-226, which also returns the pre-dropout
-attention weights. Cross-attention (a `context`: the frozen-bias LN of the
-context when `norm_context`, k and v from it, null key/values, the text
-mask) always runs the plain path: no TPU kernel covers that call in the JAX
-package's configurations. The block path carries its backward: `_BlockFn` (the
+attention weights, except one: a cross-attention (a `context`, normed by
+its frozen-bias LN when `norm_context`, gives k and v) of n >= 128 queries
+with no mask, no weights requested and no null key/values goes, as in the
+JAX package (attention.py:159-180), through the bare cosine_attention
+core (ops/cosine_attention.py) between plain projections; on the card up
+to the kernel's key limit, past it the plain path. No shipped
+configuration makes such a call (MaskGit's cross-attention has 2 null
+key/values and a mask). The block path carries its backward: `_BlockFn` (the
 custom VJPs of pallas_attn_block / pallas_attn_packed) runs the backward
 kernel chains on CUDA tensors and their plain versions on CPU tensors;
 with plain=True the plain forward is differentiated by autograd instead.
@@ -25,9 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _build
 from ..config import AttentionConfig
 from .attn_block import attn_block, attn_block_bwd, attn_block_plain
 from .attn_packed import attn_packed, attn_packed_bwd, attn_packed_plain
+from .cosine_attention import (cosine_attention_grad, cosine_attention_max_m,
+                               cosine_attention_plain)
 from .layers import FrozenBiasLayerNorm, l2norm, layernorm, linear
 from .posbias import alibi_bias, causal_mask
 
@@ -98,8 +105,8 @@ def attention(attn: Attention, x: torch.Tensor, *,
     plain versions on any device (the reference the card compares its
     kernels with)."""
     cfg = attn.cfg
-    if (context is None and not return_weights and mask is None and not cfg.causal
-            and cfg.num_null_kv == 0):
+    fusable = not return_weights and mask is None and not cfg.causal and cfg.num_null_kv == 0
+    if fusable and context is None:
         dt = x.dtype
         wkv = attn.to_kv.weight.to(dt)
         args = (x.contiguous(), attn.norm.gamma.float(), attn.to_q.weight.to(dt),
@@ -113,7 +120,37 @@ def attention(attn: Attention, x: torch.Tensor, *,
         else:
             out = attn_packed_plain(*args, cfg.scale, residual)
         return AttentionOutput(out, None)
+    # the bare core (attention.py:159-180) past the block routes, at n >= 128;
+    # a call over the card kernel's keys takes the plain path, as JAX's VMEM
+    # cap sends an oversize call to XLA
+    if (fusable and x.shape[1] >= 128
+            and (not _build.on_cuda(x) or context.shape[1] <= cosine_attention_max_m())):
+        return AttentionOutput(_attention_core(attn, x, context, attn_bias, residual, plain),
+                               None)
     return _attention_plain(attn, x, mask, context, attn_bias, return_weights, residual)
+
+
+def _attention_core(attn: Attention, x, context, attn_bias, residual, plain):
+    """attention.py:141-180: the projections (q from the LN'd x, k and v
+    from the normed context), the cosine_attention core over [b * h, n, dh]
+    (its plain version with plain=True), the output projection."""
+    cfg = attn.cfg
+    b, n, h, dh = x.shape[0], x.shape[1], cfg.heads, cfg.dim_head
+    if cfg.norm_context:
+        context = layernorm(context, attn.context_norm.gamma)
+    q = linear(layernorm(x, attn.norm.gamma), attn.to_q.weight)
+    k, v = linear(context, attn.to_kv.weight).chunk(2, dim=-1)
+
+    def slices(t):   # [b, len, h*dh] -> [b*h, len, dh]
+        return t.reshape(b, t.shape[1], h, dh).transpose(1, 2).reshape(b * h, t.shape[1], dh)
+
+    args = (slices(q).contiguous(), slices(k).contiguous(), slices(v).contiguous(),
+            attn.q_scale.float(), attn.k_scale.float(),
+            None if attn_bias is None else attn_bias.float().contiguous(), h, cfg.scale)
+    o = cosine_attention_plain(*args) if plain else cosine_attention_grad(*args)
+    out = linear(o.reshape(b, h, n, dh).transpose(1, 2).reshape(b, n, cfg.inner_dim),
+                 attn.to_out.weight)
+    return out + x if residual else out
 
 
 def _attention_plain(attn: Attention, x, mask, context, attn_bias, return_weights, residual):

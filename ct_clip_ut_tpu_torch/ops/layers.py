@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .geglu_ff import geglu_ff_grad, geglu_ff_plain
+from .geglu_ff_int8 import INNER_MULTIPLE, geglu_ff_int8, geglu_ff_int8_plain, serving_only
 from .peg import front_pad, peg_grad, peg_plain, taps_of
 
 
@@ -98,12 +99,64 @@ class FeedForward(nn.Sequential):
         return feedforward(self, x, residual=residual, plain=plain)
 
 
-def feedforward(ff: FeedForward, x: torch.Tensor, *, residual: bool = False,
+class Int8FeedForward(nn.Module):
+    """The serving-only W8A8 form of a FeedForward (ops/quant.py builds it;
+    the JAX package's {norm, wv_q, wg_q, w2_q, sv, sg, s2} FF dict): the LN
+    gain and bias in fp32, value / gate / output weights as int8 codes in
+    the nn.Linear layout with fp32 per-output-row scales, all buffers. The
+    inner width is zero-padded to INNER_MULTIPLE here, once (`inner_dim`
+    keeps the unpadded width): zero codes give zero value and gate, so h is
+    0 there and its row absmax unchanged."""
+
+    def __init__(self, dim: int, inner_dim: int):
+        super().__init__()
+        self.inner_dim = inner_dim
+        pad = -(-inner_dim // INNER_MULTIPLE) * INNER_MULTIPLE
+        for name, shape, dtype in (("gamma", (dim,), torch.float32),
+                                   ("beta", (dim,), torch.float32),
+                                   ("wv_q", (pad, dim), torch.int8),
+                                   ("wg_q", (pad, dim), torch.int8),
+                                   ("w2_q", (dim, pad), torch.int8),
+                                   ("sv", (pad,), torch.float32),
+                                   ("sg", (pad,), torch.float32),
+                                   ("s2", (dim,), torch.float32)):
+            self.register_buffer(name, torch.zeros(shape, dtype=dtype))
+
+    @classmethod
+    @torch.no_grad()
+    def from_codes(cls, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2) -> "Int8FeedForward":
+        """From unpadded codes: wv_q / wg_q [inner, dim], w2_q [dim, inner]
+        int8; sv / sg [inner], s2 [dim] fp32; on their device."""
+        inner, dim = wv_q.shape
+        with torch.device(wv_q.device):
+            ff = cls(dim, inner)
+        for name, t in (("gamma", gamma), ("beta", beta), ("s2", s2)):
+            getattr(ff, name).copy_(t)
+        for name, t in (("wv_q", wv_q), ("wg_q", wg_q), ("sv", sv), ("sg", sg)):
+            getattr(ff, name)[:inner].copy_(t)
+        ff.w2_q[:, :inner].copy_(w2_q)
+        return ff
+
+    def forward(self, x: torch.Tensor, residual: bool = False,
                 plain: bool = False) -> torch.Tensor:
-    """GEGLU FF of [b, n, dim] tokens through the geglu_ff kernel and its
-    backward (their plain versions on CPU tensors), or with plain=True the
-    plain forward everywhere, differentiated by autograd."""
+        return feedforward(self, x, residual=residual, plain=plain)
+
+
+def feedforward(ff, x: torch.Tensor, *, residual: bool = False,
+                plain: bool = False) -> torch.Tensor:
+    """GEGLU FF of [b, n, dim] tokens. A FeedForward goes through the
+    geglu_ff kernel and its backward (their plain versions on CPU tensors),
+    or with plain=True the plain forward everywhere, differentiated by
+    autograd. An Int8FeedForward goes through the geglu_ff_int8 kernel
+    (its plain version on CPU tensors, or everywhere with plain=True;
+    layers.py:152-165 routes by the leaf name wv_q), serving only: an x
+    that autograd would differentiate raises."""
     b, n, d = x.shape
+    if isinstance(ff, Int8FeedForward):
+        serving_only(x)
+        fn = geglu_ff_int8_plain if plain else geglu_ff_int8
+        return fn(x.reshape(b * n, d).contiguous(), ff.gamma, ff.beta, ff.wv_q, ff.wg_q,
+                  ff.w2_q, ff.sv, ff.sg, ff.s2, residual=residual).reshape(b, n, d)
     dt = x.dtype
     args = (x.reshape(b * n, d).contiguous(), ff[0].weight.float(), ff[0].bias.float(),
             ff[1].weight.to(dt), ff[4].weight.to(dt))

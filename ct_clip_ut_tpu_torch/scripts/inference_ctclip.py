@@ -1,0 +1,154 @@
+"""CT-CLIP zero-shot evaluation on one GPU.
+
+    python -m ct_clip_ut_tpu_torch.scripts.inference_ctclip \
+        --data-valid /data/valid --valid-reports reports/valid_reports.csv \
+        --valid-labels labels/valid_labels.csv \
+        --valid-metadata metadata/valid_metadata.csv --zero-shot [--quantize-ff]
+
+Counterpart of ct_clip_ut_tpu/scripts/inference_ctclip.py, with its parser
+flag for flag and its refusals (--quantize-ff with a gradient method,
+--occlusion-text-embeds without occlusion or --diff-embeds). --zero-shot
+reads the .nii.gz volumes under --data-valid through `InferenceDataset`
+(the reports, labels and metadata CSVs) and the threaded `DataLoader`,
+scores them with `CTClipInference.zeroshot()` (36 prompts padded to 512
+tokens, bf16 volumes) and writes metrics.txt to --results-folder.
+--quantize-ff serves the visual transformer's FFs W8A8 (`quantize_ctclip_ff`,
+the geglu_ff_int8 kernel).
+
+Weights: --checkpoint, a state dict of the port's CTCLIP
+(torch.save(model.state_dict())); without it, random weights from --seed.
+Prompts are tokenised by the stand-in `WordTokenizer`. Left for later, each
+raising with its ROADMAP item after the parser's refusals: HF tokenizer
+files (--tokenizer) and the reference's ctclip_v2.pt (Queue 1 item 12),
+--visualize and --diff-embeds (item 9: attribution), --multihost and the
+--mesh-* flags (item 11). `main(argv, model_cfg=, preprocess_cfg=)` takes
+another configuration from Python (the tests' tiny one); the command line
+serves the JAX script's `CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import _build
+from ..config import CTCLIPConfig, CTViTConfig, PreprocessConfig
+from ..data.datasets import InferenceDataset
+from ..data.loader import DataLoader, ShardedSampler
+from ..infer.zeroshot import CTClipInference, WordTokenizer, tokenize_prompts
+from ..models.ctclip import CTCLIP, init_ctclip
+from ..ops.quant import quantize_ctclip_ff
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--data-valid", required=True)
+    p.add_argument("--valid-reports", required=True)
+    p.add_argument("--valid-labels", required=True)
+    p.add_argument("--valid-metadata", required=True)
+    p.add_argument("--results-folder", default="./results/valid/ctclip")
+    p.add_argument("--diff-embeds", default=None,
+                   help="pathology_diff_embeddings.npy: not ported (Queue 1 item 9)")
+    p.add_argument("--checkpoint", default=None,
+                   help="a state dict of the port's CTCLIP; default: random from --seed")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer files: not in the repository (Queue 1 item 12); "
+                        "default: the stand-in WordTokenizer")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--num-valid-samples", type=int, default=10)
+    p.add_argument("--preprocess-cache", default=None,
+                   help="dir for preprocessed-volume .npy cache")
+    p.add_argument("--zero-shot", action="store_true")
+    p.add_argument("--visualize", nargs="*", default=[],
+                   choices=["raw_attention_maps", "attention_rollout",
+                            "integrated_gradients", "grad_cam", "occlusion"],
+                   help="attribution: not ported (Queue 1 item 9)")
+    p.add_argument("--occlusion-text-embeds", action="store_true",
+                   help="occlusion in the diff-embedding bypass mode (requires --diff-embeds)")
+    p.add_argument("--multihost", action="store_true", help="not ported (Queue 1 item 11)")
+    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None, help="not ported (Queue 1 item 11)")
+    p.add_argument("--mesh-model", type=int, default=1, help="not ported (Queue 1 item 11)")
+    p.add_argument("--occlusion-prompt", default="",
+                   help="tag recorded in occlusion artifact filenames")
+    p.add_argument("--quantize-ff", action="store_true",
+                   help="serve the visual transformer's GEGLU FFs W8A8 (the geglu_ff_int8 "
+                        "kernel; forward-only, so incompatible with gradient-based "
+                        "attribution)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def load_model(cfg: CTCLIPConfig, checkpoint, seed: int, device) -> CTCLIP:
+    """The port's CTCLIP from a state dict of its own, or seeded random
+    weights."""
+    model = init_ctclip(cfg, seed=seed, device=device)
+    if checkpoint is None:
+        return model
+    sd = torch.load(checkpoint, map_location=device, weights_only=True)
+    if not isinstance(sd, dict) or set(sd) != set(model.state_dict()):
+        raise NotImplementedError(
+            f"{checkpoint} is not a state dict of the port's CTCLIP; converting the "
+            "reference's ctclip_v2.pt waits for that file (ROADMAP Queue 1 item 12)")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessConfig = None):
+    """Returns (metrics, preds, targets) of --zero-shot, else None."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.occlusion_text_embeds:
+        if "occlusion" not in args.visualize:
+            parser.error("--occlusion-text-embeds requires --visualize occlusion")
+        if not args.diff_embeds:
+            parser.error("--occlusion-text-embeds requires --diff-embeds")
+    if args.quantize_ff:
+        grad_methods = {"integrated_gradients", "grad_cam"} & set(args.visualize)
+        if grad_methods:
+            parser.error("--quantize-ff is forward-only (the int8 kernel raises under "
+                         "autograd); drop " + ", ".join(sorted(grad_methods)))
+    if args.tokenizer is not None:
+        raise NotImplementedError("HF tokenizer files are not in the repository (ROADMAP "
+                                  "Queue 1 item 12); the stand-in WordTokenizer is used")
+    if args.visualize or args.diff_embeds:
+        raise NotImplementedError("--visualize and --diff-embeds (the attribution suite) are "
+                                  "not ported yet (ROADMAP Queue 1 item 9)")
+    if (args.multihost or args.coordinator_address or (args.num_processes or 0) > 1
+            or args.process_id is not None or args.mesh_data is not None
+            or args.mesh_model != 1):
+        raise NotImplementedError("multi-process and mesh-sharded evaluation are not ported "
+                                  "yet (ROADMAP Queue 1 item 11)")
+
+    device = _build.check_device(args.device)
+    cfg = model_cfg or CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
+    model = load_model(cfg, args.checkpoint, args.seed, device)
+    if args.quantize_ff:
+        model = quantize_ctclip_ff(model)
+    ds = InferenceDataset(args.data_valid, args.valid_reports, args.valid_metadata,
+                          args.valid_labels, num_samples=args.num_valid_samples,
+                          preprocess_cfg=preprocess_cfg or PreprocessConfig(),
+                          cache_dir=args.preprocess_cache)
+    dl = DataLoader(ds, batch_size=args.batch_size,
+                    sampler=ShardedSampler(len(ds), shuffle=False, drop_last=False),
+                    num_workers=args.num_workers, drop_last=False)
+    prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), device=device)
+    inference = CTClipInference(model, prompts, dl, results_folder=args.results_folder)
+    start = time.time()
+    result = None
+    if args.zero_shot:
+        result = inference.zeroshot()
+        print(f"zero-shot: {len(ds)} volumes, mean ROC-AUC {result[0]['mean_roc_auc']:.4f} -> "
+              f"{inference.results_folder / 'metrics.txt'}")
+    print(f"Evaluation completed in {time.time() - start:.1f}s")
+    return result
+
+
+if __name__ == "__main__":
+    main()

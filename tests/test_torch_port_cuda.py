@@ -20,7 +20,10 @@ to reject a plain version without the mask, LN1 gain or QKV bias; >= 99.9%
 equal VQ indices, and the first maximum winning a tie. The attention
 blocks also run at CTGenerate's tokenizer lengths (64 tokens with a bias,
 101 without); attn_qrows at MaskGit's width (8 heads of 64) with a bf16
-bias, ragged lengths and one sequence or several.
+bias, ragged lengths and one sequence or several. The W8A8 GEGLU at the
+flagship FF (relative rms band, see INT8_BAND) and the bare cosine core at
+the spatial shape, the temporal one and ragged ones, and through a
+cross-attention, are at the end.
 """
 
 import numpy as np
@@ -599,3 +602,98 @@ def test_transformer_peg_pallas_runs_no_conv3d_on_card(cuda_device, monkeypatch)
     assert counts["peg"] == 4 and counts["peg_weight_grads"] == 2
     assert _rel_err(got, want) <= 3e-2
     assert torch.isfinite(fused.layers[0][0].dsconv.weight.grad).all()
+
+
+INT8_BAND = 2e-3   # relative rms of geglu_ff_int8 vs its plain version
+
+
+def _rel_rms(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n", [13824, 77])
+def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, residual):
+    """The flagship FF (512 -> 1365, padded to 1376) quantised per row. The
+    two sides differ where LN's last bit moves a code across a .5 boundary,
+    a few codes in a tensor: INT8_BAND relative rms, which rejects h left
+    unquantised, one scale per tensor, and sv and sg swapped."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8, geglu_ff_int8_plain
+    from ct_clip_ut_tpu_torch.ops.layers import FeedForward
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+
+    torch.manual_seed(0)
+    ff = FeedForward(512, 1365)
+    with torch.no_grad():
+        ff[0].weight.normal_(1.0, 0.2)
+        ff[0].bias.normal_(0.0, 0.1)
+    q = quantize_ff_params(ff).to(cuda_device)
+    args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
+    x = torch.randn((n, 512), device=cuda_device).to(torch.bfloat16)
+    launches.reset_launch_counts()
+    got = geglu_ff_int8(x, *args, residual=residual)
+    assert launches.launch_counts()["geglu_ff_int8"] == 1 and torch.isfinite(got.float()).all()
+    assert _rel_rms(got, geglu_ff_int8_plain(x, *args, residual=residual)) <= INT8_BAND
+    if not residual:
+        swapped = list(args)
+        swapped[5], swapped[6] = args[6], args[5]
+        for c in (geglu_ff_int8_plain(x, *args, faults=("h_float",)),
+                  geglu_ff_int8_plain(x, *args, faults=("per_tensor",)),
+                  geglu_ff_int8_plain(x, *swapped)):
+            assert _rel_rms(got, c) > INT8_BAND
+    with pytest.raises(NotImplementedError, match="serving-only"):
+        geglu_ff_int8(x.float().requires_grad_().to(torch.bfloat16), *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,m,bias", [(384, 576, 576, True), (9216, 24, 24, False),
+                                         (24, 200, 77, True), (16, 130, 800, False)])
+def test_cosine_attention_kernel_matches_plain_on_card(cuda_device, bh, n, m, bias):
+    """The bf16 band; it rejects a plain version without q_scale, without
+    k_scale or without the bias."""
+    from ct_clip_ut_tpu_torch.ops.cosine_attention import (cosine_attention,
+                                                           cosine_attention_plain)
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    q, k, v = (randn(bh, r, 32).to(torch.bfloat16) for r in (n, m, m))
+    qs, ks = 1.0 + 0.1 * randn(32), 1.0 + 0.1 * randn(32)
+    b = 0.5 * randn(8, n, m) if bias else None
+    launches.reset_launch_counts()
+    got = cosine_attention(q, k, v, qs, ks, b, 8, 8.0)
+    assert launches.launch_counts()["cosine_attention"] == 1
+    assert _rel_err(got, cosine_attention_plain(q, k, v, qs, ks, b, 8, 8.0)) <= 1.5e-2
+    controls = [cosine_attention_plain(q, k, v, torch.ones_like(qs), ks, b, 8, 8.0),
+                cosine_attention_plain(q, k, v, qs, torch.ones_like(ks), b, 8, 8.0)]
+    if bias:
+        controls.append(cosine_attention_plain(q, k, v, qs, ks, None, 8, 8.0))
+    for i, c in enumerate(controls):
+        assert _rel_err(got, c) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+def test_cross_attention_takes_the_cosine_kernel_on_card(cuda_device):
+    """A cross-attention of 256 queries, no null key/values or mask: one
+    cosine_attention launch, within the bf16 band of plain=True; past the
+    kernel's key limit the plain path, no launch."""
+    from ct_clip_ut_tpu_torch.config import AttentionConfig
+    from ct_clip_ut_tpu_torch.ops.attention import Attention, attention
+    from ct_clip_ut_tpu_torch.ops.cosine_attention import cosine_attention_max_m
+
+    torch.manual_seed(1)
+    attn = Attention(AttentionConfig(dim=512, dim_head=32, heads=8, dim_context=768)).to(
+        cuda_device)
+    x = torch.randn((2, 256, 512), device=cuda_device).to(torch.bfloat16)
+    for m, launched in ((120, 1), (cosine_attention_max_m() + 1, 0)):
+        ctx = torch.randn((2, m, 768), device=cuda_device).to(torch.bfloat16)
+        launches.reset_launch_counts()
+        with torch.no_grad():
+            got = attention(attn, x, context=ctx, return_weights=False, residual=False).out
+            want = attention(attn, x, context=ctx, return_weights=False, residual=False,
+                             plain=True).out
+        assert launches.launch_counts()["cosine_attention"] == launched
+        assert _rel_err(got, want) <= 1.5e-2

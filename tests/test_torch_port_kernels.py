@@ -119,7 +119,7 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
-    assert len(launches.KERNELS) == 16
+    assert len(launches.KERNELS) == 18
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -131,14 +131,16 @@ def test_build_sources_are_the_package_csrc():
                      "attn_bwd.cuh", "attn_block_bwd.cu", "attn_packed_bwd.cu", "bwd_common.cuh",
                      "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu",
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
-                     "peg_wgrad.cu", "attn_qrows.cu"}
+                     "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
+                     "cosine_attention.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
                 "ctc_patch_embed", "ctc_bert_layer", "ctc_attn_block_bwd", "ctc_attn_packed_bwd",
                 "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw",
                 "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
-                "ctc_peg_wgrad", "ctc_attn_qrows"))
+                "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
+                "ctc_cosine_attention_max_m"))
 
 
 # the patch embed at the geometry of tests/test_pallas.py:361-394

@@ -359,6 +359,12 @@ def test_features_outside_the_slice_raise():
         tctvit.ctvit_apply(vit, torch.zeros((1, 1, DEPTH, IMG, IMG)), taps=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(dataclasses.replace(PORT_VIT.spatial_transformer(), moe_experts=2))
+    # an fp32 image bound for the card's bf16 kernels (ctvit_apply's entry check)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 14"):
+        tctvit.check_image_dtype(torch.float32, "cuda", plain=False)
+    tctvit.check_image_dtype(torch.bfloat16, "cuda", plain=False)
+    tctvit.check_image_dtype(torch.float32, "cuda", plain=True)
+    tctvit.check_image_dtype(torch.float32, "cpu", plain=False)
 
 
 def test_init_ctclip_is_seeded_with_the_jax_distributions():
