@@ -6,12 +6,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each printing its lines before the last:
   1. the device: `nvidia-smi` name and power limit, torch and CUDA versions;
   2. the build of csrc/*.cu (one nvcc per source, in parallel), with its
-     seconds;
+     seconds, and the HGMMA (wgmma) instructions in the SASS of each GEMM
+     on the Hopper core (csrc/gemm_sm90.cuh), counted with cuobjdump where
+     the toolkit has it (a GEMM with none fails the phase);
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
-     (`bound_ms`) and, for the BERT layer, one PyTorch call computing the
-     same function (`library_ms`); each float check also shows that its
+     (`bound_ms`) and one PyTorch call or chain of calls computing the
+     same function (`library_ms`: nn.TransformerEncoderLayer for the BERT
+     layer; LN, projections, F.normalize and F.scaled_dot_product_attention
+     for the attention blocks; LN, F.linear and F.gelu for the FF; tok @
+     cb.t() + argmax for the VQ; patchify, LN, F.linear, LN for the patch
+     embed), with its error against the plain version; each float check also shows that its
      band rejects a plain version that leaves out a norm gain, LN bias, q/k
      scale, the position bias, the LN1 fold's gain or mean correction, the
      key mask or the QKV bias;
@@ -47,8 +53,10 @@ Phases, each printing its lines before the last:
      launches it once;
   5. each of the five backward kernels of the train step against its plain
      version at the shapes a B = 2 train step gives it (every gradient),
-     with both times, `bound_ms` and, for the patch embed's weight grad,
-     one PyTorch call computing the same function (`library_ms`); the
+     with both times, `bound_ms` and `library_ms`: forward + backward under
+     autograd of the phase-3 chains for the attention blocks (the bias's
+     gradient on) and the FF, phase 3's patch-embed chain for the
+     residual-saving embed, torch.nn.grad.conv3d_weight for its weight grad; the
      controls are the gradients of a plain backward with one fault (the
      LN gain left out of dx, the softmax row term or the l2-norm
      projection dropped, g missing from dx under the residual, dbias zero,
@@ -216,6 +224,32 @@ CLI_SPACING = (2.5, 5.0)            # xy, z mm: resampled to [200, 426, 426], pa
 COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at B = 1
 
 
+def sass_check(lib: Path) -> None:
+    """Print the HGMMA (wgmma) instructions in the SASS of each GEMM of the
+    Hopper core in the built library, counted with the toolkit's cuobjdump;
+    raise if one has none. Without cuobjdump, say so and check nothing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        print("sass: no cuobjdump on this machine; HGMMA not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "sm90" in fn and "gemm_kernel" in fn:     # ctc::sm90::gemm_kernel<...>
+                counts.setdefault(fn, 0)
+        elif fn in counts and "HGMMA" in line:
+            counts[fn] += 1
+    print("sass: HGMMA instructions per GEMM of the Hopper core: "
+          + ", ".join(f"{fn[fn.index('gemm_kernel'):][:60]} {n}" for fn, n in counts.items()))
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"a GEMM of the Hopper core without wgmma: {counts}")
+
+
 def bound(flops: float, nbytes: float, peak: float) -> dict:
     """bound_ms and what sets it."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
@@ -267,6 +301,82 @@ def block_args(torch, g, tf) -> list:
             around_ones(torch, g, dh)]
 
 
+def attn_library(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: float, residual: bool = True):
+    """The attention block as a chain of PyTorch calls the port never makes,
+    the yardstick (library_ms) of rows attn_block / attn_packed and, under
+    autograd, of their backward rows: F.layer_norm (gamma only), F.linear of
+    q from the LN'd x and of k, v from x, F.normalize of q and k times
+    q_scale * scale / k_scale, bf16 F.scaled_dot_product_attention (scale 1:
+    q carries it) with the bias in bf16 as its additive mask, F.linear out
+    (+ x)."""
+    import torch.nn.functional as F
+
+    r, n, d = x.shape
+    dh = qs.shape[0]
+    heads = wq.shape[0] // dh
+
+    def heads_of(t):
+        return t.view(r, n, heads, dh).transpose(1, 2)
+
+    xn = F.layer_norm(x.float(), (d,), gamma).to(x.dtype)
+    q, k, v = heads_of(F.linear(xn, wq)), heads_of(F.linear(x, wk)), heads_of(F.linear(x, wv))
+    q = (F.normalize(q.float(), dim=-1) * (qs * scale)).to(x.dtype)
+    k = (F.normalize(k.float(), dim=-1) * ks).to(x.dtype)
+    mask = None if bias is None else bias.to(x.dtype)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    out = F.linear(o.transpose(1, 2).reshape(r, n, heads * dh), wo)
+    return out + x if residual else out
+
+
+def ff_library(x, gamma, beta, w_in, w_out, residual: bool = True):
+    """The GEGLU FF as PyTorch calls (the yardstick of geglu_ff and, under
+    autograd, geglu_ff_bwd): F.layer_norm, F.linear (w_in), F.gelu(gate) *
+    value, F.linear (w_out) (+ x)."""
+    import torch.nn.functional as F
+
+    xn = F.layer_norm(x.float(), (x.shape[-1],), gamma, beta).to(x.dtype)
+    value, gate = F.linear(xn, w_in).chunk(2, dim=-1)
+    out = F.linear(F.gelu(gate) * value, w_out)
+    return out + x if residual else out
+
+
+def patch_library(emb, p: int, tp: int):
+    """The patch embed as PyTorch calls on `emb`'s unfolded weights (the
+    yardstick of patch_embed and patch_embed_res): patchify by reshape /
+    permute, F.layer_norm, F.linear, F.layer_norm. Returns fn(image)."""
+    import torch.nn.functional as F
+
+    g1, be1, g2, be2 = (t.detach().float().clone() for t in (emb[1].weight, emb[1].bias,
+                                                             emb[3].weight, emb[3].bias))
+    w, bias = emb[2].weight.detach().clone(), emb[2].bias.detach().clone()
+
+    def fn(image):
+        b, c, T, H, W = image.shape
+        t, hp, wp = T // tp, H // p, W // p
+        x = image.reshape(b, c, t, tp, hp, p, wp, p).permute(0, 2, 4, 6, 1, 3, 5, 7)
+        x = x.reshape(b, t, hp, wp, -1)
+        h = F.layer_norm(x.float(), (x.shape[-1],), g1, be1).to(image.dtype)
+        h = F.linear(h, w.to(image.dtype), bias.to(image.dtype))
+        return F.layer_norm(h.float(), (h.shape[-1],), g2, be2).to(image.dtype)
+
+    return fn
+
+
+def library_grad_ms(torch, fn, leaves: list, g) -> tuple:
+    """(ms of forward + backward of fn(*leaves) under autograd with
+    cotangent g, the leaves' gradients of one such step)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+
+    def step():
+        for t in leaves:
+            t.grad = None
+        fn(*leaves).backward(g)
+
+    step()
+    grads = [t.grad for t in leaves]
+    return cuda_ms(torch, step), grads
+
+
 def kernel_phase(torch, model, card: str) -> dict:
     """Each kernel vs its plain version at the shapes predict() gives it at
     B = BATCH; returns the per-kernel record (without launch counts).
@@ -306,21 +416,27 @@ def kernel_phase(torch, model, card: str) -> dict:
     xf = torch.randn((BATCH * t * hw, d), generator=g, device="cuda").to(bf)
     scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
 
-    # name: (kernel, plain, args before `residual`, {control: (arg index, neutral value)})
+    # name: (kernel, plain, args before `residual`, {control: (arg index, neutral value)},
+    #        the PyTorch chain of library_ms)
     attn_faults = {"no gamma": (1, 1.0), "no q_scale": (6, 1.0), "no k_scale": (7, 1.0)}
+
+    def packed_library(*a, residual=True):
+        return attn_library(*a[:8], None, *a[8:], residual=residual)
+
     cases = {
         "attn_block": (attn_block, attn_block_plain,
                        [xs, *attn_args(vit.enc_spatial_transformer), bias, scale],
-                       {**attn_faults, "no bias": (8, 0.0)}),
+                       {**attn_faults, "no bias": (8, 0.0)}, attn_library),
         "attn_packed": (attn_packed, attn_packed_plain,
-                        [xt, *attn_args(vit.enc_temporal_transformer), scale], attn_faults),
+                        [xt, *attn_args(vit.enc_temporal_transformer), scale], attn_faults,
+                        packed_library),
         "geglu_ff": (geglu_ff, geglu_ff_plain,
                      [xf, around(1.0, d), 0.1 * torch.randn((d,), generator=g, device="cuda"),
                       ff[1].weight.to(bf), ff[4].weight.to(bf)],
-                     {"no gamma": (1, 1.0), "no beta": (2, 0.0)}),
+                     {"no gamma": (1, 1.0), "no beta": (2, 0.0)}, ff_library),
     }
     out = {}
-    for name, (kern, plain, args, faults) in cases.items():
+    for name, (kern, plain, args, faults, library) in cases.items():
         got = kern(*args, residual=False)
         want = plain(*args, residual=False)
         torch.cuda.synchronize()
@@ -334,7 +450,10 @@ def kernel_phase(torch, model, card: str) -> dict:
                              f"{want.float().abs().max().item():.3e}")
         ms = cuda_ms(torch, lambda: kern(*args, residual=True))
         plain_ms = cuda_ms(torch, lambda: plain(*args, residual=True))
-        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+        lib_err = rel_err(library(*args, residual=False), want)
+        library_ms = cuda_ms(torch, lambda: library(*args, residual=True))
+        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain "
+              f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
         x = args[0]
         m, dm = x.numel() // x.shape[-1], x.shape[-1]
         if name == "geglu_ff":
@@ -344,7 +463,7 @@ def kernel_phase(torch, model, card: str) -> dict:
             flops = 2 * m * dm * hd * 4 + 4 * r * n * n * hd
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         **bound(flops, nbytes(*tensors, got), BF16_PEAK), library_ms=None)
+                         **bound(flops, nbytes(*tensors, got), BF16_PEAK), library_ms=library_ms)
 
     tok = l2norm(torch.randn((BATCH * t * hw, d), generator=g, device="cuda")).to(bf)
     cb = vit.vq.state().embed.to(bf)
@@ -358,15 +477,19 @@ def kernel_phase(torch, model, card: str) -> dict:
         gap = (sims.gather(1, got[bad, None]) - sims.gather(1, want[bad, None])).abs().max().item()
     ms = cuda_ms(torch, lambda: vq_nearest(tok, cb))
     plain_ms = cuda_ms(torch, lambda: vq_nearest_plain(tok, cb))
+    lib_agree = ((tok @ cb.t()).argmax(-1) == want).float().mean().item()
+    library_ms = cuda_ms(torch, lambda: (tok @ cb.t()).argmax(-1))
     print(f"kernel vq_nearest {list(tok.shape)} x {list(cb.shape)}: {agree:.6f} of indices "
           f"equal (band {VQ_AGREE}), {bad.numel()} mismatches, largest sim gap {gap:.3e} "
-          f"(band {VQ_TIE}); {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+          f"(band {VQ_TIE}); {ms:.3f} ms vs plain {plain_ms:.3f} ms, tok @ cb.t() + argmax "
+          f"{library_ms:.3f} ms ({lib_agree:.6f} of its indices equal the plain version's) "
+          f"[{card}]")
     if agree < VQ_AGREE or gap > VQ_TIE:
         raise AssertionError(f"vq_nearest: agreement {agree}, tie gap {gap}")
     out["vq_nearest"] = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms,
                              **bound(2 * tok.shape[0] * cb.shape[0] * tok.shape[1],
                                      nbytes(tok, cb) + 4 * tok.shape[0], BF16_PEAK),
-                             library_ms=None)
+                             library_ms=library_ms)
     out["patch_embed"] = patch_embed_check(torch, model, card, g)
     out["bert_layer"] = bert_layer_check(torch, model, card, g)
     return out
@@ -409,6 +532,7 @@ def patch_embed_check(torch, model, card: str, g) -> dict:
             ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g, device="cuda"))
         image = torch.randn((BATCH, *VOLUME), generator=g, device="cuda").to(torch.bfloat16)
         kw, s1, b1 = fold_patch_embed(emb, p, tp)
+        library = patch_library(emb, p, tp)
         args = [image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float()]
         got = patch_embed_fused(*args, p, tp)
         want = patch_embed_plain(*args, p, tp)
@@ -423,15 +547,18 @@ def patch_embed_check(torch, model, card: str, g) -> dict:
             controls[fault] = rel_err(got, patch_embed_plain(*wrong, p, tp))
         ms = cuda_ms(torch, lambda: patch_embed_fused(*args, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_plain(*args, p, tp))
+        lib_err = rel_err(library(image), want)
+        library_ms = cuda_ms(torch, lambda: library(image))
     abs_err = band_check("patch_embed", got, want, FLOAT_BAND, controls,
                          f"{list(image.shape)} -> {list(got.shape)}")
-    print(f"kernel patch_embed: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+    print(f"kernel patch_embed: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain "
+          f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
     m, dim = got.numel() // got.shape[-1], got.shape[-1]
     k = kw.shape[0] * kw.shape[1]
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 **bound(2 * m * k * dim, nbytes(image, got) + 2 * k * dim + 4 * 4 * dim,
                         BF16_PEAK),
-                library_ms=None)
+                library_ms=library_ms)
 
 
 def bert_layer_check(torch, model, card: str, g) -> dict:
@@ -1003,7 +1130,18 @@ def backward_phase(torch, model, card: str) -> dict:
         grads_check(name, got, want, FLOAT_BAND, no_g, "(residual)")
         ms = cuda_ms(torch, lambda: kern(*args, gr, *extra, True))
         plain_ms = cuda_ms(torch, lambda: plain(*args, gr, *extra, True))
-        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+        if name == "geglu_ff_bwd":
+            def library(*a):
+                return ff_library(*a, residual=True)
+        else:
+            def library(*a):
+                bias_arg = a[8:] or (None,)
+                return attn_library(*a[:8], *bias_arg, scale, residual=True)
+        library_ms, lib_grads = library_grad_ms(torch, library, args, gr)
+        lib_err = max(rel_err(lg, want[k]) for k, lg in zip(names, lib_grads))
+        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain's "
+              f"forward + backward {library_ms:.3f} ms (its gradients vs the plain ones: "
+              f"max_rel_err {lib_err:.3e}) [{card}]")
         x = args[0]
         m = x.numel() // d
         grads = [v for v in got.values() if v is not None]
@@ -1015,7 +1153,8 @@ def backward_phase(torch, model, card: str) -> dict:
             flops = 2 * r * (9 * n * d * hd + heads * 6 * n * n * 32)
         tensors = [a for a in args if isinstance(a, torch.Tensor)] + [gr]
         out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         **bound(flops, nbytes(*tensors, *grads), BF16_PEAK), library_ms=None)
+                         **bound(flops, nbytes(*tensors, *grads), BF16_PEAK),
+                         library_ms=library_ms)
     out.update(patch_embed_train_check(torch, model, card, g))
     return out
 
@@ -1044,6 +1183,7 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
             ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g, device="cuda"))
         image = torch.randn((BATCH, *VOLUME), generator=g, device="cuda").to(torch.bfloat16)
         kw, s1, b1 = fold_patch_embed(emb, p, tp)
+        library = patch_library(emb, p, tp)
         args = [image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float()]
         names = ("out", "conv", "stats")
         got = dict(zip(names, patch_embed_res(*args, p, tp)))
@@ -1059,13 +1199,17 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
                               f"{list(image.shape)} -> out, conv {list(got['conv'].shape)}, stats")
         ms = cuda_ms(torch, lambda: patch_embed_res(*args, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
-        print(f"kernel patch_embed_res: {ms:.3f} ms vs plain {plain_ms:.3f} ms [{card}]")
+        lib_err = rel_err(library(image), want["out"])
+        library_ms = cuda_ms(torch, lambda: library(image))
+        print(f"kernel patch_embed_res: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch "
+              f"chain {library_ms:.3f} ms (its output vs the plain out: max_rel_err "
+              f"{lib_err:.3e}) [{card}]")
         m, dim = got["conv"].shape
         k = kw.shape[0] * kw.shape[1]
         out["patch_embed_res"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
             **bound(2 * m * k * dim, nbytes(image, *args[1:], *got.values()), BF16_PEAK),
-            library_ms=None)
+            library_ms=library_ms)
 
         dconv = torch.randn((m, dim), generator=g, device="cuda").to(torch.bfloat16)
         got = patch_embed_dkw(image, dconv, p, tp)
@@ -1791,6 +1935,7 @@ def main() -> int:
         lib = _build.build()
         _build.load()
         print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+        sass_check(lib)
 
         model = init_ctclip(flagship_cfg(), seed=0, device="cuda")
         record = kernel_phase(torch, model, card)

@@ -39,7 +39,7 @@ SIGNATURES = {
     "ctc_attn_block": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_qrows": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
-    "ctc_geglu_ff": [_P] * 7 + [_I] * 5 + [_P],
+    "ctc_geglu_ff": [_P] * 8 + [_I] * 6 + [_P],
     "ctc_vq_nearest": [_P] * 3 + [_I] * 3 + [_P],
     "ctc_patch_embed": [_P] * 8 + [_I] * 7 + [_P],
     "ctc_patch_embed_res": [_P] * 9 + [_I] * 7 + [_P],
@@ -55,6 +55,7 @@ SIGNATURES = {
     "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
     "ctc_cosine_attention": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "ctc_gemm_sm90_check": [_P] * 3 + [_I] * 5 + [_P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
     "ctc_attn_bwd_max_n": [],
@@ -150,6 +151,33 @@ def aligned16(t):
     """t, or a copy of it when its data is not 16-B aligned (the kernels
     read rows with 16-B loads)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# TMA (csrc/gemm_sm90.cuh) takes a 2-D operand only with a 16-B aligned base
+# address and a row stride that is a multiple of 16 B
+TMA_ALIGN = 16
+
+
+def tma_pitch(cols: int, itemsize: int = 2) -> int:
+    """The row length, in elements, of a TMA operand with `cols` columns:
+    `cols` rounded up to a whole number of 16-B units."""
+    step = TMA_ALIGN // itemsize
+    return -(-cols // step) * step
+
+
+def tma_rows(t):
+    """(operand, row stride in elements) of a contiguous 2-D tensor for TMA:
+    the tensor itself where its rows are 16-B strided and its data 16-B
+    aligned, else a zero-padded copy [rows, tma_pitch(cols)]. The copy is
+    made on every call, never cached: a train step updates weights in
+    place, and a cached copy would go stale."""
+    rows, cols = t.shape
+    pitch = tma_pitch(cols, t.element_size())
+    if pitch == cols and t.data_ptr() % TMA_ALIGN == 0:
+        return t, cols
+    padded = t.new_zeros((rows, pitch))
+    padded[:, :cols] = t
+    return padded, pitch
 
 
 def check_device(device) -> torch.device:

@@ -2,100 +2,100 @@
 // ct_clip_ut_tpu/ops/pallas_ff.py:geglu_ff_fused (_forward_impl / _kernel).
 //
 // out = (gelu_erf(xn Wg^T) * (xn Wv^T)) W2^T (+ x),  xn = LN(x) (gamma, beta)
-// over N token rows (the CT-ViT FF: D = 512, inner = 1365, N = B * 13824).
+// over N token rows (the CT-ViT and MaskGit FF: D = 512, inner = 1365,
+// N = B * 13824 or B * 6464).
 //
 // What bounds it on the H100: tensor-core FLOPs, 2 * N * 512 * 1365 * 3
 // (58 GFLOP per volume per layer); the [N, 1365] hidden tensor is the only
-// large intermediate. The design is two launches around the shared GEMM
-// tile: (1) the LN prologue feeds the value and gate halves of the first
-// projection side by side in one 128-wide tile (64 value + 64 gate columns),
-// and the epilogue writes h = gelu(gate) * value rounded to bf16 (the TPU
-// kernel's rounding point before W2); (2) h @ W2^T with the residual added
-// in fp32. inner = 1365 is not a multiple of 16: the loaders zero the
-// ragged tile edge in both GEMMs. gelu uses erff, the exact erf.
-#include "gemm_tile.cuh"
+// large intermediate. The design runs both products on the Hopper core of
+// gemm_sm90.cuh (TMA ring, wgmma, register epilogues), in three launches:
+//   (1) ln_rows_kernel writes xn bf16 [N, D] (TMA copies tiles as they are,
+//       so the LayerNorm cannot ride on the loads);
+//   (2) xn . [Wv; Wg]^T: each 128-wide tile of the product takes 64 value
+//       rows and the 64 gate rows of the same columns from two maps of w_in,
+//       so a thread holds value column c and gate column c in acc[j], acc[j
+//       + 32]; the epilogue writes h = gelu(gate) * value rounded to bf16
+//       (the TPU kernel's rounding point before W2) into hbuf [N, ldh];
+//   (3) h . W2^T with the residual added in fp32.
+// inner = 1365 is not a multiple of 64: the maps read hbuf and w_out as
+// [., inner] matrices and TMA zero-fills the ragged K slice. w_out's rows
+// (2730 B) are not 16-B strided, so the wrapper hands a zero-padded copy
+// with row stride ldw. gelu uses erff, the exact erf (the TPU kernel's A&S
+// polynomial exists because Mosaic has no erf).
+#include "gemm_sm90.cuh"
 
 namespace ctc {
+namespace ff {
 
-constexpr int HALF = BN / 2;
+using namespace sm90;
 
-__global__ void __launch_bounds__(THREADS)
-ff_in_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-             const float* __restrict__ beta, const bf16* __restrict__ w_in,
-             bf16* __restrict__ hbuf, int M, int D, int inner, int ldh) {
-  extern __shared__ __align__(128) char smem[];
-  float2* stats = reinterpret_cast<float2*>(smem + GEMM_SMEM);
-  const int n0 = blockIdx.x * HALF;
-  const int row0 = blockIdx.y * BM;
-  const RowMajor xa{x, D, M, D};
-  // tile rows 0..63 -> value rows n0.., 64..127 -> gate rows inner + n0..
-  const RowMajor wv{w_in + (int64_t)n0 * D, D, inner - n0, D};
-  const RowMajor wg{w_in + (int64_t)(inner + n0) * D, D, inner - n0, D};
-  ln_row_stats(xa, row0, 1e-5f, stats);
-  __syncthreads();
-  auto load_a = [&](int r, int k) {
-    return ln_apply8(xa.load8(row0 + r, k), stats[r], gamma, beta, k, D);
-  };
-  auto load_b = [&](int r, int k) { return r < HALF ? wv.load8(r, k) : wg.load8(r - HALF, k); };
-  block_gemm(load_a, load_b, D, smem);
+// A = xn (map 0); value rows nt * 64 ... of map 1, gate rows of map 2
+struct GegluPlan {
+  __device__ TileSrc src(int nt) const { return {0, 1, nt * 64, 2, nt * 64}; }
+};
 
-  const float* C = reinterpret_cast<const float*>(smem);
-  for (int i = threadIdx.x; i < BM * HALF; i += THREADS) {
-    int r = i / HALF, c = i % HALF;
-    int m = row0 + r, n = n0 + c;
-    if (m >= M || n >= inner) continue;
-    float value = C[r * LDC + c];
-    float gate = C[r * LDC + HALF + c];
-    float g = 0.5f * gate * (1.0f + erff(gate * 0.7071067811865476f));
-    hbuf[(int64_t)m * ldh + n] = __float2bfloat16(g * value);
+// h [M, ldh] bf16 = gelu(gate) * value, inner columns nt * 64 ...
+struct GegluEpi {
+  bf16* h;
+  int M, inner, ldh;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = row + g + 8 * hf;
+      if (m < M) {
+        bf16* hr = h + (int64_t)m * ldh;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = nt * 64 + 8 * j + 2 * t;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float value = acc[4 * j + 2 * hf + e];
+            const float gate = acc[4 * (j + 8) + 2 * hf + e];
+            y[e] = 0.5f * gate * (1.0f + erff(gate * 0.7071067811865476f)) * value;
+          }
+          if (c + 1 < inner) {
+            *reinterpret_cast<__nv_bfloat162*>(hr + c) = __floats2bfloat162_rn(y[0], y[1]);
+          } else if (c < inner) {
+            hr[c] = __float2bfloat16(y[0]);
+          }
+        }
+      }
+    }
   }
-}
+};
 
-__global__ void __launch_bounds__(THREADS)
-ff_out_kernel(const bf16* __restrict__ hbuf, const bf16* __restrict__ w_out,
-              const bf16* __restrict__ x, bf16* __restrict__ out, int M, int D, int inner,
-              int ldh, int residual) {
-  extern __shared__ __align__(128) char smem[];
-  const int n0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BM;
-  const RowMajor ha{hbuf, ldh, M, inner};
-  const RowMajor wb{w_out + (int64_t)n0 * inner, inner, D - n0, inner};
-  auto load_a = [&](int r, int k) { return ha.load8(row0 + r, k); };
-  auto load_b = [&](int r, int k) { return wb.load8(r, k); };
-  block_gemm(load_a, load_b, inner, smem);
-
-  const float* C = reinterpret_cast<const float*>(smem);
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    int r = i / BN, c = i % BN;
-    int m = row0 + r, n = n0 + c;
-    if (m >= M || n >= D) continue;
-    float y = C[r * LDC + c];
-    if (residual) y += __bfloat162float(x[(int64_t)m * D + n]);
-    out[(int64_t)m * D + n] = __float2bfloat16(y);
-  }
-}
-
+}  // namespace ff
 }  // namespace ctc
 
-using namespace ctc;
+using namespace ctc::sm90;
 
-// x [M, D] bf16; gamma/beta [D] fp32; w_in [2*inner, D] bf16 (value rows
-// then gate rows); w_out [D, inner] bf16; hbuf [M, ldh] bf16 workspace
-// (ldh >= inner, a multiple of 8); out [M, D] bf16.
+// x [M, D] bf16 (D a multiple of 8); gamma/beta [D] fp32; w_in [2*inner, D]
+// bf16 (value rows then gate rows); w_out [D, inner] bf16 with row stride ldw
+// (a multiple of 8); xn [M, D] and hbuf [M, ldh] bf16 workspaces (ldh >=
+// inner, a multiple of 8); out [M, D] bf16. Every pointer 16-B aligned.
 extern "C" int ctc_geglu_ff(const void* x, const void* gamma, const void* beta, const void* w_in,
-                            const void* w_out, void* hbuf, void* out, int M, int D, int inner,
-                            int ldh, int residual, void* stream) {
+                            const void* w_out, void* xn, void* hbuf, void* out, int M, int D,
+                            int inner, int ldh, int ldw, int residual, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int smem_in = GEMM_SMEM + BM * (int)sizeof(float2);
-  cudaFuncSetAttribute(ff_in_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_in);
-  cudaFuncSetAttribute(ff_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  dim3 g1((inner + HALF - 1) / HALF, (M + BM - 1) / BM);
-  ff_in_kernel<<<g1, THREADS, smem_in, st>>>((const bf16*)x, (const float*)gamma,
-                                             (const float*)beta, (const bf16*)w_in, (bf16*)hbuf,
-                                             M, D, inner, ldh);
-  dim3 g2((D + BN - 1) / BN, (M + BM - 1) / BM);
-  ff_out_kernel<<<g2, THREADS, GEMM_SMEM, st>>>((const bf16*)hbuf, (const bf16*)w_out,
-                                                (const bf16*)x, (bf16*)out, M, D, inner, ldh,
-                                                residual);
-  return (int)cudaGetLastError();
+  Maps in{}, outm{};
+  const bf16* w = static_cast<const bf16*>(w_in);
+  int err = map_a(&in.m[0], xn, M, D, D);
+  if (!err) err = map_b(&in.m[1], w, inner, D, D);
+  if (!err) err = map_b(&in.m[2], w + (int64_t)inner * D, inner, D, D);
+  if (!err) err = map_a(&outm.m[0], hbuf, M, inner, ldh);
+  if (!err) err = map_b(&outm.m[1], w_out, D, inner, ldw);
+  if (err) return err;
+  err = launch_ln_rows(static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta), static_cast<bf16*>(xn), M, D, st);
+  if (err) return err;
+  err = launch_gemm(in, ctc::ff::GegluPlan{},
+                    ctc::ff::GegluEpi{static_cast<bf16*>(hbuf), M, inner, ldh},
+                    (inner + 63) / 64, M, D, st);
+  if (err) return err;
+  return launch_gemm(outm, LinearPlan{},
+                     ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
+                                 residual},
+                     (D + BN - 1) / BN, M, inner, st);
 }

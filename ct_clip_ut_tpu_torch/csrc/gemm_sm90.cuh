@@ -1,0 +1,378 @@
+// Hopper GEMM core of the port's hand-written kernels (sm_90a only).
+//
+// C = A . B^T with A [M, K] and B [N, K] bf16, both K-major: the nn.Linear
+// (out, in) layout the port keeps its weights in, which wgmma reads without
+// a transpose. fp32 accumulation in registers.
+//
+// One block of 288 threads computes a 128 x 128 tile of C:
+//   - one producer warp (warp 8) starts TMA loads (cp.async.bulk.tensor.2d,
+//     128-B swizzle) of 64-deep K slices of A (128 rows) and B (two boxes
+//     of 64 rows) into a ring of STAGES shared tiles, paced by full / empty
+//     mbarriers; it gives back its registers (setmaxnreg.dec);
+//   - two consumer warpgroups (warps 0-3, 4-7) each take 64 rows of the tile
+//     and run wgmma.mma_async m64n128k16 on every slice that has arrived,
+//     the accumulator in registers;
+//   - the epilogue runs from those registers through a functor (no fp32 C
+//     tile in shared memory): `epi(acc, row, nt, lane)`, where `row` is the
+//     first of the warp's 16 rows and acc[4j + 2h + e] holds C[row + lane/4 +
+//     8h][nt-tile column 8j + 2(lane%4) + e] (the wgmma D fragment layout).
+// Two blocks fit an SM (96 KB of ring each, <= 112 registers a thread), so
+// one block's epilogue and first loads overlap the other's products.
+//
+// Which maps a tile reads is a plan functor's choice (`src(nt)`): the GEGLU's
+// first product pairs 64 value rows with 64 gate rows from two maps of the
+// same weight, the attention block's projection picks q, k or v. TMA fills
+// boxes that run past a matrix's edge with zeros, which covers a ragged M,
+// N and K; epilogues mask their stores to the matrix. TMA needs 16-B aligned
+// base addresses and row strides: the wrappers pad what is not
+// (ops/*.py, _build.tma_rows).
+//
+// The tensor maps are encoded on the host per call with cuTensorMapEncodeTiled,
+// looked up in the already-loaded libcuda.so.1 (no -lcuda at link time), and
+// passed by value as a __grid_constant__ parameter.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace ctc {
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 128;                 // rows of a tile: two consumer warpgroups of 64
+constexpr int BN = 128;                 // columns of a tile
+constexpr int BK = 64;                  // K slice: 64 bf16 = one 128-B swizzle row
+constexpr int STAGES = 3;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = CONSUMER_WARPS * 32 + 32;
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_HALF_BYTES = 64 * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + slack to align the ring to 1 KB
+constexpr int MAX_MAPS = 5;
+
+struct Maps {
+  CUtensorMap m[MAX_MAPS];
+};
+
+// The maps and rows one tile reads: A from m[a] at the block's rows, B's
+// rows 0-63 from m[b0] at row0 and rows 64-127 from m[b1] at row1.
+struct TileSrc {
+  int a, b0, row0, b1, row1;
+};
+
+// ---- PTX wrappers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed. A
+// wait that never ends (a fault in the ring's bookkeeping) traps after 2^26
+// polls, each of which suspends the thread for a while, instead of hanging
+// the card: the launch then fails with an error the wrapper raises.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile written by TMA with the
+// 128-B swizzle: rows of 128 B, 8-row core groups 1024 B apart (SBO), the
+// leading offset unused by this mode (1). Stepping K by 16 bf16 inside the
+// swizzle row adds 32 B to the start address; tiles sit on 1-KB boundaries.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d[64] += A (64 x 16, desc a) . B (128 x 16, desc b)^T
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+template <class Plan, class Epi>
+__global__ void __launch_bounds__(THREADS, 2)
+gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const int nt = blockIdx.x, m0 = blockIdx.y * BM;
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // producer: the roles never meet again at a block barrier
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      const TileSrc src = plan.src(nt);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        char* a = ring + s * STAGE_BYTES;
+        char* b = a + A_BYTES;
+        tma_load_2d(a, &maps.m[src.a], &full[s], kt * BK, m0);
+        tma_load_2d(b, &maps.m[src.b0], &full[s], kt * BK, src.row0);
+        tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], kt * BK, src.row1);
+      }
+    }
+  } else {
+    const int wg = warp >> 2;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint32_t a = smem_u32(ring + s * STAGE_BYTES) + wg * (64 * BK * 2);
+      const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n128k16(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32));
+      wgmma_commit();
+      wgmma_wait_all();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    epi(acc, m0 + wg * 64 + (warp & 3) * 16, nt, lane);
+  }
+}
+
+// ---- plans -----------------------------------------------------------------
+
+// One A (map 0) and one B (map 1): B's tile rows are nt * 128 ...
+struct LinearPlan {
+  __device__ TileSrc src(int nt) const { return {0, 1, nt * BN, 1, nt * BN + 64}; }
+};
+
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// Error codes the entries return besides cudaError_t values.
+constexpr int ERR_NO_ENCODER = 9001;     // cuTensorMapEncodeTiled not found
+constexpr int ERR_MAP = 9002;            // cuTensorMapEncodeTiled refused a map (alignment, stride)
+
+// The map of a row-major bf16 matrix [rows, cols] with row stride `ld`
+// elements, read in boxes of box_rows x 64 with the 128-B swizzle; zeros
+// outside the matrix. Returns 0 or an ERR_ code.
+inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
+                    int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t estrides[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                  box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_MAP;
+}
+
+// An A operand (boxes of BM rows) and a B operand (boxes of 64 rows).
+inline int map_a(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
+  return make_map(m, p, rows, cols, ld, BM);
+}
+inline int map_b(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
+  return make_map(m, p, rows, cols, ld, 64);
+}
+
+// Launch gemm_kernel over n_tiles x ceil(M / BM) tiles; returns the launch's error.
+template <class Plan, class Epi>
+int launch_gemm(const Maps& maps, const Plan& plan, const Epi& epi, int n_tiles, int M, int K,
+                cudaStream_t st) {
+  auto kern = gemm_kernel<Plan, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  dim3 grid(n_tiles, (M + BM - 1) / BM);
+  kern<<<grid, THREADS, SMEM, st>>>(maps, plan, epi, K);
+  return (int)cudaGetLastError();
+}
+
+// ---- the LayerNorm pre-pass --------------------------------------------------
+
+constexpr int LN_WARPS = 8;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// xn = LN(x) * gamma (+ beta) rounded to bf16, one warp a row of x [M, D]
+// (D a multiple of 8): one-pass moments E[x^2] - E[x]^2 in the lane order of
+// gemm_tile.cuh's ln_row_stats and ln_apply8's arithmetic, the TPU kernels'
+// LayerNorm. TMA copies tiles as they are, so the projections that read a
+// normalised x take it from here.
+template <int Dummy = 0>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, bf16* __restrict__ xn, int M, int D, float eps) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const bf16* xr = x + (int64_t)row * D;
+  bf16* yr = xn + (int64_t)row * D;
+  float s = 0.f, s2 = 0.f;
+  for (int k = lane * 8; k < D; k += 256) {
+    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float f = __bfloat162float(e[i]);
+      s += f;
+      s2 += f * f;
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mean = s / (float)D;
+  const float rstd = rsqrtf(fmaxf(s2 / (float)D - mean * mean, 0.f) + eps);
+  for (int k = lane * 8; k < D; k += 256) {
+    uint4 v = *reinterpret_cast<const uint4*>(xr + k);
+    uint4 out;
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float y = (__bfloat162float(e[i]) - mean) * rstd * gamma[k + i];
+      if (beta != nullptr) y += beta[k + i];
+      o[i] = __float2bfloat16(y);
+    }
+    *reinterpret_cast<uint4*>(yr + k) = out;
+  }
+}
+
+inline int launch_ln_rows(const bf16* x, const float* gamma, const float* beta, bf16* xn, int M,
+                          int D, cudaStream_t st) {
+  ln_rows_kernel<><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(x, gamma, beta, xn, M,
+                                                                         D, 1e-5f);
+  return (int)cudaGetLastError();
+}
+
+// ---- epilogues shared by several kernels -------------------------------------
+
+// out [M, N] bf16 = acc (+ x [M, N] in fp32), columns nt * 128 ...; pairs
+// of columns go as one 4-B store where N is even.
+struct ResidualEpi {
+  bf16* out;
+  const bf16* x;
+  int M, N, residual;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m < M) {
+        const int64_t base = (int64_t)m * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = nt * BN + 8 * j + 2 * t;
+          float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+          if (c + 1 < N && (N & 1) == 0) {
+            if (residual) {
+              __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + base + c);
+              y0 += __low2float(xv);
+              y1 += __high2float(xv);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(out + base + c) = __floats2bfloat162_rn(y0, y1);
+          } else if (c < N) {
+            if (residual) y0 += __bfloat162float(x[base + c]);
+            out[base + c] = __float2bfloat16(y0);
+          }
+        }
+      }
+    }
+  }
+};
+
+}  // namespace sm90
+}  // namespace ctc

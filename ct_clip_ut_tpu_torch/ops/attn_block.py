@@ -105,15 +105,24 @@ def attn_block(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
                scale: float = 8.0, residual: bool = False) -> torch.Tensor:
-    """The attn_block kernel on CUDA tensors (bf16 x and weights; fp32
-    gamma, scales and bias [h, n, n]), the plain version on CPU tensors."""
+    """The attn_block kernel on CUDA tensors (bf16 x and weights, a width
+    that 8 divides; fp32 gamma, scales and bias [h, n, n]), the plain
+    version on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_block_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
                                       lib.ctc_attn_block_max_n())
     _build.require(bias, "bias", torch.float32, (heads, n, n), x.device)
-    ws = workspaces(r * n, heads * DIM_HEAD, x.device)
+    if d % 8:
+        raise ValueError(f"the attn_block kernel takes a width that 8 divides (16-B TMA rows), "
+                         f"got {d}")
+    m, hd = r * n, heads * DIM_HEAD
+    x, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, wq, wk, wv, wo))
+    b16 = dict(dtype=torch.bfloat16, device=x.device)
+    # xn; q and k as bf16 hi / lo planes; v; o
+    ws = (torch.empty((m, d), **b16), torch.empty((4, m, hd), **b16),
+          torch.empty((m, hd), **b16), torch.empty((m, hd), **b16))
     out = torch.empty_like(x)
     err = lib.ctc_attn_block(
         x.data_ptr(), gamma.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),

@@ -44,11 +44,29 @@ def geglu_ff_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out.to(dt)
 
 
+def tma_operands(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> dict:
+    """The operands the geglu_ff kernel reads through TMA, name -> (tensor,
+    rows, cols, row stride in elements): xn [N, D] and hbuf [N, ldh], fresh
+    workspaces (ldh = inner rounded up to 16 B); w_in's value and gate rows
+    as two [inner, D] matrices; w_out [D, inner] as it is where its rows are
+    16-B strided, else a zero-padded copy made on this call."""
+    n, d = x.shape
+    inner = w_out.shape[1]
+    w2, ldw = _build.tma_rows(w_out)
+    ldh = _build.tma_pitch(inner)
+    b16 = dict(dtype=torch.bfloat16, device=x.device)
+    return {"xn": (torch.empty((n, d), **b16), n, d, d),
+            "w_value": (w_in[:inner], inner, d, d),
+            "w_gate": (w_in[inner:], inner, d, d),
+            "hbuf": (torch.empty((n, ldh), **b16), n, inner, ldh),
+            "w_out": (w2, d, inner, ldw)}
+
+
 def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              w_in: torch.Tensor, w_out: torch.Tensor,
              residual: bool = False) -> torch.Tensor:
     """The geglu_ff kernel on CUDA tensors (bf16 x and weights, fp32
-    gamma/beta), the plain version on CPU tensors."""
+    gamma/beta, a width that 8 divides), the plain version on CPU tensors."""
     if not _build.on_cuda(x):
         return geglu_ff_plain(x, gamma, beta, w_in, w_out, residual)
     n, d = x.shape
@@ -60,13 +78,17 @@ def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                   (w_in, "w_in", torch.bfloat16, (2 * inner, d)),
                                   (w_out, "w_out", torch.bfloat16, (d, inner))):
         _build.require(t, name, dtype, shape, dev)
-    ldh = (inner + 7) // 8 * 8            # 16-B aligned rows for the second GEMM
-    hbuf = torch.empty((n, ldh), dtype=torch.bfloat16, device=dev)
+    if d % 8:
+        raise ValueError(f"the geglu_ff kernel takes a width that 8 divides (16-B TMA rows), "
+                         f"got {d}")
+    x, w_in = _build.aligned16(x), _build.aligned16(w_in)
+    ops = tma_operands(x, w_in, w_out)
     out = torch.empty_like(x)
     err = _build.load().ctc_geglu_ff(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
-        w_out.data_ptr(), hbuf.data_ptr(), out.data_ptr(), n, d, inner, ldh,
-        int(residual), _build.stream_of(x))
+        ops["w_out"][0].data_ptr(), ops["xn"][0].data_ptr(), ops["hbuf"][0].data_ptr(),
+        out.data_ptr(), n, d, inner, ops["hbuf"][3], ops["w_out"][3], int(residual),
+        _build.stream_of(x))
     _build.check(err, "geglu_ff")
     launches.count("geglu_ff")
     return out

@@ -697,3 +697,92 @@ def test_cross_attention_takes_the_cosine_kernel_on_card(cuda_device):
                              plain=True).out
         assert launches.launch_counts()["cosine_attention"] == launched
         assert _rel_err(got, want) <= 1.5e-2
+
+
+# ---- the Hopper GEMM core (csrc/gemm_sm90.cuh) and the two kernels on it ----
+
+GEMM_BAND = 1e-4   # max relative error of the core's fp32 sums vs torch.matmul in fp32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,pad", [(333, 300, 200, 0), (77, 129, 1365, 3), (128, 256, 64, 0),
+                                       (1, 8, 8, 8), (27648, 512, 512, 0)])
+def test_gemm_sm90_core_matches_matmul_on_card(cuda_device, m, n, k, pad):
+    """C = A . B^T through the bare core (ctc_gemm_sm90_check), bf16 operands
+    of row stride k + pad, against torch.matmul of the same values in fp32
+    (TF32 off). M, N and K that 64 and 128 do not divide exercise TMA's
+    zero fill and the epilogue's masks; the padded rows, filled with NaN,
+    must not reach C. Controls: B's rows shifted by one, K cut to its first
+    64-wide slice."""
+    from ct_clip_ut_tpu_torch import _build
+
+    g = torch.Generator(cuda_device).manual_seed(21)
+    a = torch.full((m, k + pad), float("nan"), device=cuda_device).to(torch.bfloat16)
+    b = torch.full((n, k + pad), float("nan"), device=cuda_device).to(torch.bfloat16)
+    a[:, :k] = torch.randn((m, k), device=cuda_device, generator=g).to(torch.bfloat16)
+    b[:, :k] = torch.randn((n, k), device=cuda_device, generator=g).to(torch.bfloat16)
+    c = torch.empty((m, n), device=cuda_device)
+    err = _build.load().ctc_gemm_sm90_check(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                                            k + pad, k + pad,
+                                            torch.cuda.current_stream(cuda_device).cuda_stream)
+    _build.check(err, "ctc_gemm_sm90_check")
+    af, bf = a[:, :k].float(), b[:, :k].float()
+    want = af @ bf.t()
+    assert c.isfinite().all()
+    assert _rel_err(c, want) <= GEMM_BAND
+    if n > 1:
+        assert _rel_err(c, af @ bf.roll(1, 0).t()) > GEMM_BAND
+    if k > 64:
+        assert _rel_err(c, af[:, :64] @ bf[:, :64].t()) > GEMM_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,inner", [(12928, 1365), (300, 1344)])
+def test_geglu_ff_kernel_on_the_hopper_core_on_card(cuda_device, n, inner, residual):
+    """MaskGit's FF rows at B = 2 (12928 = 2 x 6464) with the ragged inner
+    width 1365 (w_out padded per call), and an inner width that 64 divides
+    (w_out read as it is, every tile of the first product full). The bf16
+    band and its controls as for the flagship shapes."""
+    rng = np.random.default_rng(22)
+    a = _ff_inputs(rng, n=n, dim=512)
+    a["wv"], a["wg"] = (rng.standard_normal((512, inner)).astype(np.float32) / np.sqrt(512)
+                        for _ in range(2))
+    a["w2"] = (rng.standard_normal((inner, 512)) / np.sqrt(inner)).astype(np.float32)
+    args = [t.to(cuda_device) for t in _torch_ff_args(a)]
+    for i in (0, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    launches.reset_launch_counts()
+    got = geglu_ff(*args, residual=residual)
+    assert launches.launch_counts()["geglu_ff"] == 1
+    assert _rel_err(got, geglu_ff_plain(*args, residual=residual)) <= 1.5e-2
+    if not residual:
+        for i, neutral in ((1, torch.ones_like), (2, torch.zeros_like)):
+            wrong = list(args)
+            wrong[i] = neutral(args[i])
+            assert _rel_err(got, geglu_ff_plain(*wrong, residual=False)) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n", [832, 33])
+def test_attn_block_kernel_long_and_odd_on_card(cuda_device, n, residual):
+    """R = 3 sequences of 832 tokens (the longest length callers gave the
+    earlier kernel, 160 KB of staged keys a block) and of 33 (odd: the bias
+    read one column at a time, a query tile and a key chunk mostly
+    padding). The bf16 band; controls: gamma, q_scale, k_scale or the bias
+    left out."""
+    a = _attn_inputs(np.random.default_rng(23), r=3, n=n, d=512, heads=8, dh=32, with_bias=True)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    for i in (0, 2, 3, 4, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    args.append(torch.from_numpy(a["bias"]).to(cuda_device))
+    launches.reset_launch_counts()
+    got = attn_block(*args, 8.0, residual)
+    assert launches.launch_counts()["attn_block"] == 1
+    assert _rel_err(got, attn_block_plain(*args, 8.0, residual)) <= 1.5e-2
+    if not residual:
+        for i in (1, 6, 7, 8):
+            wrong = list(args)
+            wrong[i] = torch.zeros_like(args[i]) if i == 8 else torch.ones_like(args[i])
+            assert _rel_err(got, attn_block_plain(*wrong, 8.0, False)) > 1.5e-2, i

@@ -132,7 +132,7 @@ def test_build_sources_are_the_package_csrc():
                      "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu",
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
-                     "cosine_attention.cu"}
+                     "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
@@ -140,7 +140,7 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw",
                 "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
-                "ctc_cosine_attention_max_m"))
+                "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check"))
 
 
 # the patch embed at the geometry of tests/test_pallas.py:361-394
