@@ -7,8 +7,11 @@ Phases, each printing its lines before the last:
   1. the device: `nvidia-smi` name and power limit, torch and CUDA versions;
   2. the build of csrc/*.cu (one nvcc per source, in parallel), with its
      seconds, and the HGMMA (wgmma) instructions in the SASS of each GEMM
-     on the Hopper core (csrc/gemm_sm90.cuh), counted with cuobjdump where
-     the toolkit has it (a GEMM with none fails the phase);
+     on the Hopper core (csrc/gemm_sm90.cuh) and of attn_qrows' attention
+     core, counted with cuobjdump where the toolkit has it: every one must
+     have some, and the GEMMs of vq_nearest (its argmax epilogue) and of
+     attn_qrows' projections (QkvPlan with the per-head l2-norm epilogue)
+     and the qrows core must be among them;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -17,7 +20,11 @@ Phases, each printing its lines before the last:
      layer; LN, projections, F.normalize and F.scaled_dot_product_attention
      for the attention blocks; LN, F.linear and F.gelu for the FF; tok @
      cb.t() + argmax for the VQ; patchify, LN, F.linear, LN for the patch
-     embed), with its error against the plain version; each float check also shows that its
+     embed), with its error against the plain version. vq_nearest is the
+     Hopper GEMM core with an argmax epilogue (64-bit atomicMax keys a
+     row and code tile): >= VQ_AGREE equal indices, every mismatch a
+     near-tie (<= VQ_TIE), and two equal codes in tiles 0 and 32 give the
+     first; each float check also shows that its
      band rejects a plain version that leaves out a norm gain, LN bias, q/k
      scale, the position bias, the LN1 fold's gain or mean correction, the
      key mask or the QKV bias;
@@ -83,12 +90,17 @@ Phases, each printing its lines before the last:
      counter > 0, finite losses, the VQ cluster sizes grown by
      b t h w (1 - decay^3), and the time of three more steps;
   9. CTGenerate at CTGenerateConfig() (random weights from a seed): the
-     attn_qrows kernel against its plain version at MaskGit's shapes (x
-     [B, 6464, 512], B = 1 and 2, the bf16 [8, 6464, 6464] CPB table), with
+     attn_qrows chain (LN pass, the q / k / v projections on the Hopper
+     GEMM core with the per-head l2-norm epilogue, the two-pass wgmma
+     attention core over TMA-fed K, V^T and bias tiles in blocks of 256
+     query rows at B = 1 and 128 at B = 2, the output
+     projection) against its plain version at MaskGit's shapes (x [B,
+     6464, 512], B = 1 and 2, the bf16 [8, 6464, 6464] CPB table), with
      the controls a faulty kernel would give (bias left out, k from the LN'd
-     x, q_scale dropped, p unnormalised), its times, `bound_ms` and, as
-     `library_ms`, F.scaled_dot_product_attention with the bias as its mask
-     and the projections around it; then the localisation path as users run
+     x, q_scale dropped, p unnormalised), its times, `bound_ms`, the two
+     passes' floor of bias bytes and, as `library_ms`,
+     F.scaled_dot_product_attention with the bias as its mask and the
+     projections around it; then the localisation path as users run
      it (the script's `localize`: T5 encodes stand-in reports,
      ctgenerate_apply_batched runs bf16 MaskGit over the bias cache, each
      report's pathologies get a [201, 128, 128] heatmap) over 2 batches of 2
@@ -224,10 +236,19 @@ CLI_SPACING = (2.5, 5.0)            # xy, z mm: resampled to [200, 426, 426], pa
 COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at B = 1
 
 
+# Mangled-name marks of the wgmma kernels that must be in the library: the
+# argmax GEMM of vq_nearest, the q / k / v GEMM and the attention core of
+# attn_qrows
+SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
+                 "attn_qrows projections (QkvPlan, qr::QkvEpi)": "2qr6QkvEpi",
+                 "attn_qrows core": "2qr11core_kernel"}
+
+
 def sass_check(lib: Path) -> None:
     """Print the HGMMA (wgmma) instructions in the SASS of each GEMM of the
-    Hopper core in the built library, counted with the toolkit's cuobjdump;
-    raise if one has none. Without cuobjdump, say so and check nothing."""
+    Hopper core and of attn_qrows' core in the built library, counted with
+    the toolkit's cuobjdump; raise if one has none or a kernel of
+    SASS_REQUIRED is missing. Without cuobjdump, say so and check nothing."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -240,14 +261,19 @@ def sass_check(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "sm90" in fn and "gemm_kernel" in fn:     # ctc::sm90::gemm_kernel<...>
+            if ("sm90" in fn and "gemm_kernel" in fn) or "2qr11core_kernel" in fn:
                 counts.setdefault(fn, 0)
         elif fn in counts and "HGMMA" in line:
             counts[fn] += 1
-    print("sass: HGMMA instructions per GEMM of the Hopper core: "
-          + ", ".join(f"{fn[fn.index('gemm_kernel'):][:60]} {n}" for fn, n in counts.items()))
+    print("sass: HGMMA instructions per wgmma kernel: "
+          + ", ".join(f"{fn[:90]} {n}" for fn, n in counts.items()))
     if not counts or not all(counts.values()):
-        raise AssertionError(f"a GEMM of the Hopper core without wgmma: {counts}")
+        raise AssertionError(f"a Hopper-core kernel without wgmma: {counts}")
+    for what, mark in SASS_REQUIRED.items():
+        found = {fn: n for fn, n in counts.items() if mark in fn}
+        print(f"sass: {what}: {sum(found.values())} HGMMA in {len(found)} kernel(s)")
+        if not found:
+            raise AssertionError(f"no wgmma kernel for {what} in the library")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -486,6 +512,14 @@ def kernel_phase(torch, model, card: str) -> dict:
           f"[{card}]")
     if agree < VQ_AGREE or gap > VQ_TIE:
         raise AssertionError(f"vq_nearest: agreement {agree}, tie gap {gap}")
+    # an exact tie across code tiles 0 and 32: the first maximum wins
+    tie_cb, tie_tok = cb.clone(), tok[:77].clone()
+    tie_cb[4100] = tie_cb[5]
+    tie_tok[0] = tie_cb[5]
+    first = int(vq_nearest(tie_tok, tie_cb)[0])
+    print(f"kernel vq_nearest: token 0 equal to codes 5 and 4100 -> index {first} [{card}]")
+    if first != 5:
+        raise AssertionError(f"vq_nearest: a tie between codes 5 and 4100 gave {first}")
     out["vq_nearest"] = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms,
                              **bound(2 * tok.shape[0] * cb.shape[0] * tok.shape[1],
                                      nbytes(tok, cb) + 4 * tok.shape[0], BF16_PEAK),
@@ -1769,9 +1803,11 @@ def qrows_check(torch, model, card: str, g) -> dict:
         hd = heads * dh
         flops = 2 * b * (4 * n * x.shape[-1] * hd + heads * 2 * n * n * dh)
         rec = bound(flops, nbytes(x, *w, bias, got), BF16_PEAK)
+        floor_ms = 1e3 * 2 * nbytes(bias) / HBM_RATE     # the two passes read the table twice
         print(f"kernel attn_qrows B={b}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), SDPA yardstick {library_ms:.3f} ms "
-              f"(max_rel_err {lib_err:.3e} vs the plain branch) [{card}]")
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), two-pass floor of bias bytes "
+              f"{floor_ms:.4f} ms, SDPA yardstick {library_ms:.3f} ms (max_rel_err "
+              f"{lib_err:.3e} vs the plain branch) [{card}]")
         out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec, library_ms=library_ms)
     return out
 

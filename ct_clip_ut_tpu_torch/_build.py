@@ -38,9 +38,9 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "ctc_attn_block": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
-    "ctc_attn_qrows": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    "ctc_attn_qrows": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "ctc_geglu_ff": [_P] * 8 + [_I] * 6 + [_P],
-    "ctc_vq_nearest": [_P] * 3 + [_I] * 3 + [_P],
+    "ctc_vq_nearest": [_P] * 4 + [_I] * 5 + [_P],
     "ctc_patch_embed": [_P] * 8 + [_I] * 7 + [_P],
     "ctc_patch_embed_res": [_P] * 9 + [_I] * 7 + [_P],
     "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 7 + [_P],

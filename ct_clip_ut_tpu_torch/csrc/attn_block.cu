@@ -50,15 +50,6 @@ constexpr int QT = CORE_WARPS * 16;
 constexpr int KC = 64;             // keys a chunk; staged keys are padded to it
 constexpr float LOG2E = 1.4426950408889634f;
 
-// maps: 0 xn, 1 x, 2 wq, 3 wk, 4 wv; tiles [0, tiles) q, then k, then v
-struct QkvPlan {
-  int tiles;
-  __device__ TileSrc src(int nt) const {
-    const int which = nt / tiles, r = (nt % tiles) * BN;
-    return {which == 0 ? 0 : 1, 2 + which, r, 2 + which, r + 64};
-  }
-};
-
 struct QkvEpi {
   bf16* qk;              // [4][M][HD]: q_hi, q_lo, k_hi, k_lo
   bf16* v;               // [M][HD]
@@ -153,11 +144,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __host__ __device__ __forceinline__ int padded_keys(int n) { return (n + KC - 1) / KC * KC; }
@@ -362,7 +348,7 @@ extern "C" int ctc_attn_block(const void* x, const void* gamma, const void* wq, 
   err = launch_ln_rows(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,
                        static_cast<bf16*>(xn), M, D, st);
   if (err) return err;
-  err = launch_gemm(proj, ctc::ab::QkvPlan{tiles},
+  err = launch_gemm(proj, QkvPlan{tiles},
                     ctc::ab::QkvEpi{static_cast<bf16*>(qk), static_cast<bf16*>(v_ws),
                                     static_cast<const float*>(qs), static_cast<const float*>(ks),
                                     scale, M, HD, tiles},

@@ -19,314 +19,428 @@
 // What bounds it on the H100: bytes. The bias is 8 * N^2 * 2 B = 0.67 GB,
 // read against 2 * B * N * D * 2 B of x and output (26 MB at B = 2) and
 // 2 * B * (4 N D HD + 2 H N^2 64) FLOP (0.20 ms at the bf16 peak at B = 2,
-// against 0.21 ms for the bytes). A 64-row score stripe of one head is
-// 64 x 6464 fp32 = 1.65 MB: the TPU keeps it in VMEM, a block here has 227
-// KB of shared memory. So the core makes TWO passes over the keys of each
-// (query stripe, head, sequence), 64 keys at a time, with tensor-core
-// (wmma, bf16 in, fp32 out) QK^T tiles: pass 1 keeps each row's running max
-// and sum; pass 2 recomputes the scores, forms p = exp(s - max) / sum,
-// rounds it to bf16 and accumulates PV in wmma fragments. Two passes keep
-// the TPU kernel's rounding points (an online softmax would round
-// unnormalised terms); the price is QK^T and the bias read twice. The
-// blocks of one (stripe, head) for the B sequences are launched side by
-// side (the batch is the fastest grid axis), so a bias tile read from
-// device memory by one is served from L2 to the others: the kv variant's
-// "one bias stripe for the whole batch", without holding the batch in one
-// block. Any N works: rows and keys past N are masked.
+// against 0.21 ms for the bytes). A 128-row score stripe of one head is
+// 128 x 6464 fp32 = 3.3 MB: the TPU keeps its stripe in VMEM, a block here
+// has 227 KB of shared memory. So the core makes TWO passes over the keys:
+// pass 1 keeps each row's running max and sum, pass 2 recomputes the
+// scores, forms p = exp(s - max) / sum, rounds it to bf16 and runs PV. Two
+// passes keep the TPU kernel's rounding points (an online softmax would
+// round unnormalised terms); their price is QK^T and the bias read twice,
+// a floor of 2 * 0.67 GB / 3.35 TB/s = 0.40 ms of bias bytes, and 1.5x the
+// products and 2x the exponentials of one pass.
 //
-// Chain of three launches: qrows_proj_kernel (LN + q, k and v projections
-// with their per-head epilogues) -> qrows_core_kernel -> out_proj_kernel
-// (attn_common.cuh, + x in fp32). Workspaces are allocated by the caller.
-#include "attn_common.cuh"
+// Four launches:
+//   ln_rows_kernel   xn = LN(x) * gamma, bf16 (gemm_sm90.cuh);
+//   gemm_kernel      q from xn, k and v from the pre-norm x on the Hopper
+//                    core (QkvPlan picks the maps a tile reads); the epilogue
+//                    l2-normalises each 64-wide head in registers (a head's
+//                    columns of a row sit in one quad: two shuffles give
+//                    the norm), applies the scales and writes bf16 q and k
+//                    [B*N, HD] and v transposed per head, [B, H, 64, N], so
+//                    that PV reads V with the keys along its rows, as wgmma
+//                    takes a K-major B;
+//   core_kernel      the attention core on wgmma: TMA loads of the 64-key
+//                    tiles of K, V^T and of the bf16 bias (R rows x 128
+//                    B, one box) stay in flight through a ring of stages,
+//                    each paced by a full mbarrier and a count of the
+//                    warps yet to leave it; thread 0 issues the first
+//                    loads and the last warp out of a stage refills it
+//                    (no producer warp: a ninth warp would put five warps
+//                    on one of the SM's four register files and cut every
+//                    thread to 96 registers; eight keep 128); each
+//                    warpgroup takes 64
+//                    query rows, with q as wgmma's A in registers.
+//                    Scores: the accumulator starts at the bias (read
+//                    from the swizzled tile, no bank conflicts) and
+//                    four m64n64k16 products over the head add q . k. PV:
+//                    p = exp2(s log2 e - (max + log2 sum)) packed to bf16 in
+//                    the A fragment layout straight from the score
+//                    registers, four more products into o. A block takes
+//                    R rows of one head of one sequence, the grid runs
+//                    the batch fastest so that the blocks sharing a bias
+//                    tile run together and L2 serves it to all but the
+//                    first: R = 256 (16 warps, one block an SM) at B = 1
+//                    and R = 128 (8 warps, two blocks an SM) otherwise,
+//                    the faster of the two at MaskGit's shapes on the
+//                    H100 (PERF.md §6). Pass 2
+//                    walks the keys from the last tile to the first, so
+//                    the tiles pass 1 read last may still be in L2; the
+//                    loads run on from pass 1 into pass 2 with no bubble;
+//   gemm_kernel      O . Wo^T with the residual added in fp32 (LinearPlan,
+//                    ResidualEpi).
+// Any N works: TMA zero-fills what lies past the tensors, keys past N are
+// masked to -inf, rows past N are not stored. The bias may be left out.
+#include <math_constants.h>
+
+#include "gemm_sm90.cuh"
 
 namespace ctc {
+namespace qr {
 
-constexpr int QR_DH = 64;                 // head width
-constexpr int QR_BQ = 64;                 // query rows per block
-constexpr int QR_BK = 64;                 // keys per tile
-constexpr int QR_WARPS = QR_BQ / 16;      // one warp per 16 query rows
-constexpr int QR_THREADS = QR_WARPS * 32;
-constexpr int QR_LD = QR_DH + 8;          // bf16 stride of staged rows (144 B, 16-B aligned)
-constexpr int QR_LDS = QR_BK + 4;         // fp32 stride of a warp's score tile
+using namespace sm90;
 
-// LN(x) Wq^T, x Wk^T, x Wv^T over all rows at full width, with the per-head
-// epilogues of the kv variant; q, k, v out as bf16 [M, HD].
-template <int Dummy = 0>
-__global__ void __launch_bounds__(THREADS)
-qrows_proj_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                  const bf16* __restrict__ wq, const bf16* __restrict__ wk,
-                  const bf16* __restrict__ wv, const float* __restrict__ qs,
-                  const float* __restrict__ ks, bf16* __restrict__ q_out,
-                  bf16* __restrict__ k_out, bf16* __restrict__ v_out, int M, int D, int HD,
-                  float scale) {
-  extern __shared__ __align__(128) char smem[];
-  float2* stats = reinterpret_cast<float2*>(smem + GEMM_SMEM);
-  const int tiles_per = HD / BN;
-  const int which = blockIdx.x / tiles_per;           // 0 q, 1 k, 2 v
-  const int n0 = (blockIdx.x % tiles_per) * BN;
-  const int row0 = blockIdx.y * BM;
+constexpr int DH = 64;                       // head width
+constexpr int KT = 64;                       // keys a tile
+constexpr int KV_BYTES = KT * DH * 2;        // one K or V^T tile: 8 KB
+constexpr float LOG2E = 1.4426950408889634f;
 
-  const RowMajor xa{x, D, M, D};
-  const bf16* w = which == 0 ? wq : (which == 1 ? wk : wv);
-  const RowMajor wb{w + (int64_t)n0 * D, D, HD - n0, D};
-  auto load_b = [&](int r, int k) { return wb.load8(r, k); };
-
-  if (which == 0) {
-    ln_row_stats(xa, row0, 1e-5f, stats);
-    __syncthreads();
-    auto load_a = [&](int r, int k) {
-      return ln_apply8(xa.load8(row0 + r, k), stats[r], gamma, nullptr, k, D);
-    };
-    block_gemm(load_a, load_b, D, smem);
-  } else {
-    auto load_a = [&](int r, int k) { return xa.load8(row0 + r, k); };
-    block_gemm(load_a, load_b, D, smem);
-  }
-
-  const float* C = reinterpret_cast<const float*>(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (which == 2) {
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      int r = i / BN, c = i % BN;
-      if (row0 + r < M) v_out[(int64_t)(row0 + r) * HD + n0 + c] = __float2bfloat16(C[r * LDC + c]);
-    }
-    return;
-  }
-  bf16* out = which == 0 ? q_out : k_out;
-  const int d = 2 * lane;                             // this lane's two head positions
-  const float sc0 = which == 0 ? qs[d] * scale : ks[d];
-  const float sc1 = which == 0 ? qs[d + 1] * scale : ks[d + 1];
-  // one (row, head) pair per warp iteration
-  for (int p = warp; p < BM * (BN / QR_DH); p += THREADS / 32) {
-    int r = p / (BN / QR_DH), hh = p % (BN / QR_DH);
-    if (row0 + r >= M) continue;
-    float v0 = C[r * LDC + hh * QR_DH + d], v1 = C[r * LDC + hh * QR_DH + d + 1];
-    if (which == 1) {   // the k projection is rounded before its l2-norm
-      v0 = __bfloat162float(__float2bfloat16(v0));
-      v1 = __bfloat162float(__float2bfloat16(v1));
-    }
-    const float inv = 1.f / fmaxf(sqrtf(warp_sum(v0 * v0 + v1 * v1)), 1e-12f);
-    *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)(row0 + r) * HD + n0 + hh * QR_DH + d) =
-        __floats2bfloat162_rn(v0 * inv * sc0, v1 * inv * sc1);
-  }
-}
-
-// Rows [r0, r0 + 64) of head columns [hc, hc + 64) of a [B*N, HD] bf16
-// buffer (sequence at row `base`) into shared [64][QR_LD]; rows past N zero.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int64_t base,
-                                           int r0, int N, int HD, int hc) {
-  for (int c = threadIdx.x; c < 64 * (QR_DH / 8); c += QR_THREADS) {
-    const int r = c / (QR_DH / 8), col = (c % (QR_DH / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(src + (base + r0 + r) * HD + hc + col);
-    *reinterpret_cast<uint4*>(dst + r * QR_LD + col) = v;
-  }
-}
-
-// S[16][64] = Q (this warp's 16 rows, fragments fq) . K_tile^T into sw.
-__device__ __forceinline__ void score_tile(
-    const nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                 nvcuda::wmma::row_major> (&fq)[QR_DH / 16],
-    const bf16* ks, float* sw) {
-  using namespace nvcuda;
+// The q, k and v epilogue of the kv variant: q = bf16(l2n(acc) * qs * scale),
+// k = bf16(l2n(bf16(acc)) * ks) as [M][HD]; v = bf16(acc) as vt [B][H][64][ldv],
+// row m = b N + n of x going to column n. A 128-wide tile holds two heads of
+// 64; a row's 16 values of a head sit in this thread and the three others
+// of its quad.
+struct QkvEpi {
+  bf16 *q, *k, *vt;
+  const float* qs;
+  const float* ks;
+  float scale;
+  int M, HD, tiles, N, ldv;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const int which = nt / tiles, n0 = (nt % tiles) * BN;
+    bf16* out = which == 0 ? q : k;
+    const float* sc = which == 0 ? qs : ks;
+    const float mul = which == 0 ? scale : 1.f;
 #pragma unroll
-  for (int nt = 0; nt < QR_BK / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = row + g + 8 * hf;
 #pragma unroll
-    for (int kk = 0; kk < QR_DH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-      wmma::load_matrix_sync(fk, ks + nt * 16 * QR_LD + kk * 16, QR_LD);
-      wmma::mma_sync(acc, fq[kk], fk, acc);
-    }
-    wmma::store_matrix_sync(sw + nt * 16, acc, QR_LDS, wmma::mem_row_major);
-  }
-}
-
-// This lane's 32 scores of tile row `r` (keys j0 + half*32 ...), plus the
-// bias row of query i, keys past N at -inf.
-__device__ __forceinline__ void lane_scores(float (&s)[32], const float* sw, int r, int half,
-                                            const bf16* __restrict__ brow, int j0, int N) {
-  const float* src = sw + r * QR_LDS + half * 32;
+      for (int hh = 0; hh < BN / DH; ++hh) {
+        float y[16];
 #pragma unroll
-  for (int c = 0; c < 32; c += 4) {
-    float4 t = *reinterpret_cast<const float4*>(src + c);
-    s[c] = t.x; s[c + 1] = t.y; s[c + 2] = t.z; s[c + 3] = t.w;
-  }
-  const int jb = j0 + half * 32;
-  if (brow != nullptr) {
-    if (jb + 32 <= N && (N & 7) == 0) {       // 16-B aligned rows of 32 bias values
-      const uint4* bp = reinterpret_cast<const uint4*>(brow + jb);
+        for (int jj = 0; jj < 8; ++jj) {
+          y[2 * jj] = acc[4 * (8 * hh + jj) + 2 * hf];
+          y[2 * jj + 1] = acc[4 * (8 * hh + jj) + 2 * hf + 1];
+        }
+        if (which == 2) {
+          if (m < M) {
+            const int b = m / N, n = m - b * N;
+            bf16* col = vt + ((int64_t)b * HD + n0 + DH * hh) * ldv + n;
 #pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        uint4 u = bp[c / 8];
-        const bf16* e = reinterpret_cast<const bf16*>(&u);
+            for (int jj = 0; jj < 8; ++jj) {
+              col[(int64_t)(8 * jj + 2 * t) * ldv] = __float2bfloat16(y[2 * jj]);
+              col[(int64_t)(8 * jj + 2 * t + 1) * ldv] = __float2bfloat16(y[2 * jj + 1]);
+            }
+          }
+          continue;
+        }
+        if (which == 1) {   // the k projection is rounded before its l2-norm
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s[c + i] += __bfloat162float(e[i]);
+          for (int i = 0; i < 16; ++i) y[i] = __bfloat162float(__float2bfloat16(y[i]));
+        }
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) ss += y[i] * y[i];
+        ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+        ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+        const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+        if (m < M) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int d = 8 * jj + 2 * t;
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * HD + n0 + DH * hh + d) =
+                __floats2bfloat162_rn(y[2 * jj] / nrm * (sc[d] * mul),
+                                      y[2 * jj + 1] / nrm * (sc[d + 1] * mul));
+          }
+        }
       }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 32; ++c)
-        if (jb + c < N) s[c] += __bfloat162float(brow[jb + c]);
     }
   }
-#pragma unroll
-  for (int c = 0; c < 32; ++c)
-    if (jb + c >= N) s[c] = -CUDART_INF_F;
+};
+
+// ---- the core --------------------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One (sequence b, head h, stripe of 64 query rows) per block; 4 warps of
-// 16 rows. Lane l of a warp owns row l % 16 of the warp's rows and key half
-// l / 16 of each 64-key tile; the two halves of a row meet by one shuffle.
-__global__ void __launch_bounds__(QR_THREADS)
-qrows_core_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                  bf16* __restrict__ o, int N, int HD) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) char smem[];
-  const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * QR_BQ;
-  bf16* qs_ = reinterpret_cast<bf16*>(smem);                 // [64][QR_LD]
-  bf16* ks_ = qs_ + QR_BQ * QR_LD;                           // [64][QR_LD]
-  bf16* vs_ = ks_ + QR_BK * QR_LD;                           // [64][QR_LD]
-  bf16* ps_ = vs_ + QR_BK * QR_LD;                           // [warps][16][QR_LD]
-  float* ss_ = reinterpret_cast<float*>(ps_ + QR_WARPS * 16 * QR_LD);  // [warps][16][QR_LDS]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane & 15, half = lane >> 4;
-  const int64_t base = (int64_t)b * N;
-  const int hc = h * QR_DH;
-  bf16* pw = ps_ + warp * 16 * QR_LD;
-  float* sw = ss_ + warp * 16 * QR_LDS;
-  const int i = q0 + warp * 16 + r;                          // this lane's query row
-  const bf16* brow = (bias != nullptr && i < N) ? bias + ((int64_t)h * N + i) * N : nullptr;
+// maps of the core: 0 the bias [H*N, N] (boxes of R rows), 1 k [B*N, HD],
+// 2 v^T [B*H*64, N] (boxes of 64 rows)
+constexpr int MAP_BIAS = 0, MAP_K = 1, MAP_V = 2;
 
-  stage_rows(qs_, q, base, q0, N, HD, hc);
+// A block takes R query rows, R / 16 warps: 8 (two blocks an SM) or 16 (one).
+__host__ __device__ constexpr int warps(int R) { return R / 16; }
+__host__ __device__ constexpr int stage_bytes(int R) {
+  return R * KT * 2 + 2 * KV_BYTES;   // the bias tile, K and V^T
+}
+__host__ __device__ constexpr int ring(int R) { return warps(R) == 8 ? 3 : 4; }
+__host__ __device__ constexpr int core_smem(int R) {
+  return ring(R) * stage_bytes(R) + 1024;   // + slack to align the ring to 1 KB
+}
+
+// One block per (sequence, head, stripe of R query rows). Warp w takes rows
+// 16 w ... of the stripe; the four warps 4i .. 4i+3 form a warpgroup over
+// 64 rows.
+template <int R, bool BIAS>
+__global__ void __launch_bounds__(warps(R) * 32, 16 / warps(R))
+core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16* __restrict__ o,
+            int N, int H, int HD) {
+  constexpr int WARPS = warps(R), RING = ring(R), STAGE = stage_bytes(R);
+  constexpr int BIAS_BYTES = R * KT * 2;
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[RING];
+  __shared__ int left[RING];   // warps yet to leave a stage in its current step
+  char* stages = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                         ~static_cast<uintptr_t>(1023));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * R;
+  const int ntiles = (N + KT - 1) / KT;
+
+  // step `it` of the loads: pass 1's tiles (bias, K) in order, then pass
+  // 2's (bias, K, V^T) from the last to the first, through one ring
+  auto load = [&](int it) {
+    const int pass2 = it >= ntiles, tile = pass2 ? 2 * ntiles - 1 - it : it;
+    const int s = it % RING;
+    mbar_expect_tx(&full[s], (BIAS ? BIAS_BYTES : 0) + (pass2 ? 2 : 1) * KV_BYTES);
+    char* st = stages + s * STAGE;
+    if (BIAS) tma_load_2d(st, &maps.m[MAP_BIAS], &full[s], tile * KT, h * N + q0);
+    tma_load_2d(st + BIAS_BYTES, &maps.m[MAP_K], &full[s], h * DH, item * N + tile * KT);
+    if (pass2)
+      tma_load_2d(st + BIAS_BYTES + KV_BYTES, &maps.m[MAP_V], &full[s], tile * KT,
+                  (item * H + h) * DH);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 1);
+      left[s] = WARPS;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int it = 0; it < RING && it < 2 * ntiles; ++it) load(it);
+  }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[QR_DH / 16];
-#pragma unroll
-  for (int kk = 0; kk < QR_DH / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], qs_ + warp * 16 * QR_LD + kk * 16, QR_LD);
-
-  const int ntiles = (N + QR_BK - 1) / QR_BK;
-  float s[32];
-  // pass 1: each row's max and sum of exp(s - max)
-  float m = -CUDART_INF_F, l = 0.f;
-  for (int jt = 0; jt < ntiles; ++jt) {
-    const int j0 = jt * QR_BK;
-    __syncthreads();
-    stage_rows(ks_, k, base, j0, N, HD, hc);
-    __syncthreads();
-    score_tile(fq, ks_, sw);
+  // after step `it` (every lane of this warp done with its stage): the
+  // last warp to leave refills the stage for step it + RING, so no warp
+  // waits for another to issue its loads
+  auto release = [&](int it) {
     __syncwarp();
-    lane_scores(s, sw, r, half, brow, j0, N);
-    float mx = s[0];
-#pragma unroll
-    for (int c = 1; c < 32; ++c) mx = fmaxf(mx, s[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-    const float m_new = fmaxf(m, mx);
-    float e = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) e += expf(s[c] - m_new);
-    e += __shfl_xor_sync(0xffffffffu, e, 16);
-    l = l * expf(m - m_new) + e;
-    m = m_new;
-    __syncwarp();
-  }
-
-  // pass 2: p = exp(s - max) / sum rounded to bf16, O += P V
-  const float inv_l = 1.f / l;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[QR_DH / 16];
-#pragma unroll
-  for (int nt = 0; nt < QR_DH / 16; ++nt) wmma::fill_fragment(fo[nt], 0.f);
-  for (int jt = 0; jt < ntiles; ++jt) {
-    const int j0 = jt * QR_BK;
-    __syncthreads();
-    stage_rows(ks_, k, base, j0, N, HD, hc);
-    stage_rows(vs_, v, base, j0, N, HD, hc);
-    __syncthreads();
-    score_tile(fq, ks_, sw);
-    __syncwarp();
-    lane_scores(s, sw, r, half, brow, j0, N);
-    bf16* prow = pw + r * QR_LD + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      uint4 u;
-      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        e[t] = __floats2bfloat162_rn(expf(s[c + 2 * t] - m) * inv_l,
-                                     expf(s[c + 2 * t + 1] - m) * inv_l);
-      *reinterpret_cast<uint4*>(prow + c) = u;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < QR_BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, pw + kk * 16, QR_LD);
-#pragma unroll
-      for (int nt = 0; nt < QR_DH / 16; ++nt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, vs_ + kk * 16 * QR_LD + nt * 16, QR_LD);
-        wmma::mma_sync(fo[nt], fp, fv, fo[nt]);
+    if (lane == 0) {
+      const int s = it % RING;
+      if (atomicAdd(&left[s], -1) == 1) {
+        atomicExch(&left[s], WARPS);
+        if (it + RING < 2 * ntiles) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          load(it + RING);
+        }
       }
     }
-    __syncwarp();
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;
+  const int ra = q0 + wrow + g, rb = ra + 8;
+  // q as wgmma's A in registers: the four 16-deep steps over the head
+  uint32_t qf[4][4];
+  {
+    const bf16* qb = q + ((int64_t)item * N + q0 + wrow) * HD + h * DH;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = g + 8 * (i & 1), d = 16 * ks + 8 * (i >> 1) + 2 * t;
+        qf[ks][i] = q0 + wrow + rr < N
+                        ? *reinterpret_cast<const uint32_t*>(qb + (int64_t)rr * HD + d)
+                        : 0u;
+      }
+    }
   }
 
-  // the per-head output, rounded to bf16
+  // step `it`'s scores, issued: s = the bias tile's rows, then four
+  // m64n64k16 products over the head add q . k (not waited for);
+  // s[4j + 2hf + e] is row g + 8 hf, key 8j + 2t + e of the tile
+  auto issue_scores = [&](int it, float (&s)[32]) {
+    const int s_ = it % RING;
+    mbar_wait(&full[s_], (it / RING) & 1);
+    const char* st = stages + s_ * STAGE;
 #pragma unroll
-  for (int nt = 0; nt < QR_DH / 16; ++nt)
-    wmma::store_matrix_sync(sw + nt * 16, fo[nt], QR_LDS, wmma::mem_row_major);
-  __syncwarp();
-  if (i < N) {
-    const float* src = sw + r * QR_LDS + half * 32;
-    bf16* dst = o + (base + i) * HD + hc + half * 32;
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      uint4 u;
-      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&u);
+      for (int hf = 0; hf < 2; ++hf) {
+        float2 b = make_float2(0.f, 0.f);
+        if (BIAS) {   // the TMA's 128-B swizzle: 16-B chunk j of row r at chunk j ^ (r % 8)
+          const int r = wrow + g + 8 * hf;
+          b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t));
+        }
+        s[4 * j + 2 * hf] = b.x;
+        s[4 * j + 2 * hf + 1] = b.y;
+      }
+    }
+    const uint32_t kb = smem_u32(st + BIAS_BYTES);
+    wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 4; ++t) e[t] = __floats2bfloat162_rn(src[c + 2 * t], src[c + 2 * t + 1]);
-      *reinterpret_cast<uint4*>(dst + c) = u;
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
+    wgmma_commit();
+  };
+  // after the wait: keys past N at -inf
+  auto finish_scores = [&](int tile, float (&s)[32]) {
+    fence_regs(s);
+    if ((tile + 1) * KT > N) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (tile * KT + 8 * (i >> 2) + 2 * t + (i & 1) >= N) s[i] = -CUDART_INF_F;
+    }
+  };
+
+  // pass 1: the running max and sum of each row over this thread's
+  // columns, the exponentials of tile j beside the products of tile j + 1
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_r[2] = {0.f, 0.f};
+  auto stats = [&](const float (&s)[32]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = m_r[hf];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x = fmaxf(x, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+      // in log2 units; a row with no key yet keeps base 0 so no inf - inf
+      const float base = x == -CUDART_INF_F ? 0.f : x * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += ex2(fmaf(s[4 * j + 2 * hf], LOG2E, -base)) +
+               ex2(fmaf(s[4 * j + 2 * hf + 1], LOG2E, -base));
+      l_r[hf] = l_r[hf] * ex2(fmaf(m_r[hf], LOG2E, -base)) + sum;
+      m_r[hf] = x;
+    }
+  };
+  float sa[32], sb[32];
+  issue_scores(0, sa);
+  wgmma_wait_all();
+  finish_scores(0, sa);
+  for (int it = 0; it < ntiles; it += 2) {
+    const bool next = it + 1 < ntiles;
+    if (next) issue_scores(it + 1, sb);
+    release(it);
+    stats(sa);
+    wgmma_wait_all();
+    if (next) {
+      finish_scores(it + 1, sb);
+      if (it + 2 < ntiles) issue_scores(it + 2, sa);
+      release(it + 1);
+      stats(sb);
+      wgmma_wait_all();
+      if (it + 2 < ntiles) finish_scores(it + 2, sa);
+    }
+  }
+  // each row's max and sum over its quad; p = exp2(s log2 e - lb[hf])
+  float lb[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float mq = fmaxf(m_r[hf], __shfl_xor_sync(0xffffffffu, m_r[hf], 1));
+    mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+    float lq = l_r[hf] * ex2(m_r[hf] * LOG2E - mq * LOG2E);
+    lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+    lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+    lb[hf] = mq * LOG2E + __log2f(lq);
+  }
+
+  // pass 2, from the last tile to the first: p rounded to bf16, then P . V
+  // of tile j issued beside the scores of tile j + 1
+  float oacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  issue_scores(ntiles, sa);
+  wgmma_wait_all();
+  finish_scores(ntiles - 1, sa);
+  for (int it = ntiles; it < 2 * ntiles; ++it) {
+    uint32_t a[4][4];   // p of keys 16 ks ... as A fragments
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = 8 * ks + 2 * i, hf = i & 1;
+        a[ks][i] = pack_bf16(ex2(fmaf(sa[idx], LOG2E, -lb[hf])),
+                             ex2(fmaf(sa[idx + 1], LOG2E, -lb[hf])));
+      }
+    }
+    const uint32_t vb = smem_u32(stages + (it % RING) * STAGE + BIAS_BYTES + KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
+    wgmma_commit();
+    if (it + 1 < 2 * ntiles) issue_scores(it + 1, sa);
+    wgmma_wait_all();
+    release(it);
+    if (it + 1 < 2 * ntiles) finish_scores(2 * ntiles - 2 - it, sa);
+  }
+  fence_regs(oacc);
+  bf16* ob = o + (int64_t)item * N * HD + h * DH;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = hf ? rb : ra;
+      if (r < N)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)r * HD + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * hf], oacc[4 * j + 2 * hf + 1]);
     }
   }
 }
 
-constexpr size_t QR_CORE_SMEM = (size_t)(QR_BQ + 2 * QR_BK + QR_WARPS * 16) * QR_LD * 2 +
-                                (size_t)QR_WARPS * 16 * QR_LDS * 4;
+// The core's query rows a block for a batch of B (see the header).
+inline int core_rows(int B) { return B == 1 ? 256 : 128; }
 
+template <int R, bool BIAS>
+int launch_core(const Maps& maps, const bf16* q, bf16* o, int B, int N, int H, int HD,
+                cudaStream_t st) {
+  auto kern = core_kernel<R, BIAS>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem(R));
+  dim3 grid(B, H, (N + R - 1) / R);
+  kern<<<grid, warps(R) * 32, core_smem(R), st>>>(maps, q, o, N, H, HD);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace qr
 }  // namespace ctc
 
-using namespace ctc;
+using namespace ctc::sm90;
 
 // x [B*N, D] bf16; gamma [D], qs/ks [64] fp32; wq/wk/wv [HD, D], wo [D, HD]
-// bf16; bias [H, N, N] bf16 or null; q_ws/k_ws/v_ws/o_ws [B*N, HD] bf16; out
-// [B*N, D] bf16. HD = H * 64, a multiple of 128; D a multiple of 8. Returns
-// cudaGetLastError() after the launches.
+// bf16; bias [H*N, N] bf16 with row stride ldb (a multiple of 8), or null;
+// workspaces: xn [B*N, D], q_ws, k_ws and o_ws [B*N, HD], v_ws [B*H*64, ldv]
+// with ldv = N rounded up to a multiple of 8, all bf16; out [B*N, D] bf16.
+// HD = H * 64, a multiple of 128; D a multiple of 8; every pointer 16-B
+// aligned. Returns 0, a cudaError_t or an sm90 ERR_ code.
 extern "C" int ctc_attn_qrows(const void* x, const void* gamma, const void* wq, const void* wk,
                               const void* wv, const void* wo, const void* qs, const void* ks,
-                              const void* bias, void* q_ws, void* k_ws, void* v_ws, void* o_ws,
-                              void* out, int B, int N, int D, int H, float scale, int residual,
-                              void* stream) {
+                              const void* bias, void* xn, void* q_ws, void* k_ws, void* v_ws,
+                              void* o_ws, void* out, int B, int N, int D, int H, int ldb,
+                              float scale, int residual, void* stream) {
+  using namespace ctc::qr;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * N, HD = H * QR_DH;
-  const int smem_proj = GEMM_SMEM + BM * (int)sizeof(float2);
-  cudaFuncSetAttribute(qrows_proj_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_proj);
-  cudaFuncSetAttribute(out_proj_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  cudaFuncSetAttribute(qrows_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)QR_CORE_SMEM);
-
-  dim3 gp(3 * HD / BN, (M + BM - 1) / BM);
-  qrows_proj_kernel<><<<gp, THREADS, smem_proj, st>>>(
-      (const bf16*)x, (const float*)gamma, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv,
-      (const float*)qs, (const float*)ks, (bf16*)q_ws, (bf16*)k_ws, (bf16*)v_ws, M, D, HD, scale);
-  dim3 gc(B, H, (N + QR_BQ - 1) / QR_BQ);
-  qrows_core_kernel<<<gc, QR_THREADS, QR_CORE_SMEM, st>>>(
-      (const bf16*)q_ws, (const bf16*)k_ws, (const bf16*)v_ws, (const bf16*)bias, (bf16*)o_ws, N,
-      HD);
-  dim3 go((D + BN - 1) / BN, (M + BM - 1) / BM);
-  out_proj_kernel<><<<go, THREADS, GEMM_SMEM, st>>>((const bf16*)o_ws, (const bf16*)wo,
-                                                    (const bf16*)x, (bf16*)out, M, D, HD,
-                                                    residual);
-  return (int)cudaGetLastError();
+  const int M = B * N, HD = H * DH, tiles = HD / BN, ldv = (N + 7) / 8 * 8;
+  const int R = core_rows(B);
+  if (M == 0) return 0;
+  Maps proj{}, core{}, outm{};
+  int err = map_a(&proj.m[0], xn, M, D, D);
+  if (!err) err = map_a(&proj.m[1], x, M, D, D);
+  if (!err) err = map_b(&proj.m[2], wq, HD, D, D);
+  if (!err) err = map_b(&proj.m[3], wk, HD, D, D);
+  if (!err) err = map_b(&proj.m[4], wv, HD, D, D);
+  if (!err && bias != nullptr)
+    err = make_map(&core.m[MAP_BIAS], bias, H * N, N, ldb, R);
+  if (!err) err = make_map(&core.m[MAP_K], k_ws, M, HD, HD, KT);
+  if (!err) err = make_map(&core.m[MAP_V], v_ws, B * HD, N, ldv, DH);
+  if (!err) err = map_a(&outm.m[0], o_ws, M, HD, HD);
+  if (!err) err = map_b(&outm.m[1], wo, D, HD, HD);
+  if (err) return err;
+  err = launch_ln_rows(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,
+                       static_cast<bf16*>(xn), M, D, st);
+  if (err) return err;
+  const auto qb = static_cast<bf16*>(q_ws), ob = static_cast<bf16*>(o_ws);
+  err = launch_gemm(proj, QkvPlan{tiles},
+                    QkvEpi{qb, static_cast<bf16*>(k_ws), static_cast<bf16*>(v_ws),
+                           static_cast<const float*>(qs), static_cast<const float*>(ks), scale,
+                           M, HD, tiles, N, ldv},
+                    3 * tiles, M, D, st);
+  if (err) return err;
+  typedef int (*Core)(const Maps&, const bf16*, bf16*, int, int, int, int, cudaStream_t);
+  static const Core cores[2][2] = {{launch_core<128, false>, launch_core<128, true>},
+                                   {launch_core<256, false>, launch_core<256, true>}};
+  err = cores[R == 256][bias != nullptr](core, qb, ob, B, N, H, HD, st);
+  if (err) return err;
+  return launch_gemm(outm, LinearPlan{},
+                     ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
+                                 residual},
+                     (D + BN - 1) / BN, M, HD, st);
 }

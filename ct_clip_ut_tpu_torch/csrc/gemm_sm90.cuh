@@ -155,6 +155,43 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[32] += A (64 x 16) . B (64 x 16, desc b)^T with A in registers: this
+// warp's 16 rows of A as the mma.sync m16n8k16 A fragment (a[0] rows g,
+// columns 2t, 2t + 1; a[1] rows g + 8; a[2], a[3] columns + 8), d in the
+// D fragment layout above. The attention core feeds q, and p straight from
+// the score registers, this way.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Registers an asynchronous wgmma writes: this empty asm "modifies" them, so
+// the compiler moves no read of them above the wgmma_wait before it and no
+// write of them below the wgmma that follows.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Two floats rounded to bf16 and packed, the first in the low half: an A
+// fragment register of p for the attention cores.
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ---- the kernel ------------------------------------------------------------
 
 template <class Plan, class Epi>
@@ -219,6 +256,17 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
 // One A (map 0) and one B (map 1): B's tile rows are nt * 128 ...
 struct LinearPlan {
   __device__ TileSrc src(int nt) const { return {0, 1, nt * BN, 1, nt * BN + 64}; }
+};
+
+// The q, k and v projections of a cosine-attention block in one launch.
+// maps: 0 xn (the LayerNorm'd x), 1 x, 2 wq, 3 wk, 4 wv; tiles [0, tiles)
+// are q (from xn), then k, then v (from the pre-norm x), `tiles` = HD / BN.
+struct QkvPlan {
+  int tiles;
+  __device__ TileSrc src(int nt) const {
+    const int which = nt / tiles, r = (nt % tiles) * BN;
+    return {which == 0 ? 0 : 1, 2 + which, r, 2 + which, r + 64};
+  }
 };
 
 // ---- host side -------------------------------------------------------------

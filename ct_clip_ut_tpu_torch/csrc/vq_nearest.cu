@@ -6,80 +6,115 @@
 //
 // What bounds it on the H100: tensor-core FLOPs, 2 * M * C * D (116 GFLOP
 // per volume at M = 13824 tokens, C = 8192 codes, D = 512); the [M, C]
-// similarity matrix (453 MB fp32 per volume) is never written. The design
-// gives each block a tile of 128 token rows and lets it loop over every
-// 128-code tile itself, keeping a running (max, argmax) per row in shared
-// memory: the loop replaces the TPU kernel's sequential grid axis, so no
-// cross-block reduction is needed. Within a tile the lowest index among
-// equal maxima wins; across tiles only a strict > replaces the running
-// maximum.
-#include "gemm_tile.cuh"
+// similarity matrix (453 MB fp32 per volume) is never written.
+//
+// The design: the product runs on the Hopper core of gemm_sm90.cuh (TMA
+// ring, wgmma, two blocks an SM) over its usual grid of 128-code x 128-token
+// tiles, code tiles fastest, so the 8 MB codebook stays in L2 while the
+// blocks of one token tile pass over it. The epilogue reduces the tile
+// from the registers that hold it, with no C tile in shared memory:
+//   - each thread walks its 32 columns of each of its two rows in
+//     increasing order from -inf, keeping (max, column) on a strict >;
+//   - two quad shuffles combine the four threads of a row, the lower column
+//     winning equal maxima;
+//   - one 64-bit atomicMax a (row, tile) into a [M] workspace, the key
+//     (orderable(sim) << 32) | (0xFFFFFFFF - column): the largest sim wins,
+//     then the lowest column, which is the first maximum whatever order the
+//     atomics land in, so the result is deterministic. -0.0 is taken as
+//     +0.0 first (torch.argmax counts them equal).
+// NaN follows torch.argmax too: it ranks above every number (key 0xFFFFFFFF
+// above the inverted column), so a row with a NaN sim, a diverged one,
+// gets its first NaN; a row of -inf gets index 0.
+// A second launch turns the keys into int32 indices.
+#include <math_constants.h>
+
+#include "gemm_sm90.cuh"
 
 namespace ctc {
+namespace vq {
 
-__global__ void __launch_bounds__(THREADS)
-vq_nearest_kernel(const bf16* __restrict__ tok, const bf16* __restrict__ cb,
-                  int* __restrict__ idx, int M, int C, int D) {
-  extern __shared__ __align__(128) char smem[];
-  float* run_max = reinterpret_cast<float*>(smem + GEMM_SMEM);
-  int* run_arg = reinterpret_cast<int*>(run_max + BM);
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    run_max[r] = -CUDART_INF_F;
-    run_arg[r] = 0;
-  }
-  const RowMajor ta{tok, D, M, D};
-  auto load_a = [&](int r, int k) { return ta.load8(row0 + r, k); };
-  const float* Ct = reinterpret_cast<const float*>(smem);
+using namespace sm90;
 
-  for (int c0 = 0; c0 < C; c0 += BN) {
-    const RowMajor cbt{cb + (int64_t)c0 * D, D, C - c0, D};
-    auto load_b = [&](int r, int k) { return cbt.load8(r, k); };
-    block_gemm(load_a, load_b, D, smem);
-    const int ncol = min(BN, C - c0);
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      float best = -CUDART_INF_F;
-      int arg = 0x7fffffff;
-      for (int c = lane; c < ncol; c += 32) {   // increasing c: strict > keeps the first
-        float s = Ct[r * LDC + c];
-        if (s > best) {
-          best = s;
-          arg = c;
+typedef unsigned long long u64;
+
+// torch.argmax's order, strict: a above b when a > b, or when a is NaN and
+// b is not. !(a <= b) is one unordered compare: a > b, or either NaN.
+__device__ __forceinline__ bool above(float a, float b) { return b == b && !(a <= b); }
+
+// Order-preserving map of a float to 32 unsigned bits (every NaN to the
+// top), packed above the inverted column.
+__device__ __forceinline__ u64 argmax_key(float sim, int col) {
+  uint32_t u = __float_as_uint(sim == 0.f ? 0.f : sim);
+  u = sim != sim ? 0xFFFFFFFFu : (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((u64)u << 32) | (u64)(0xFFFFFFFFu - (uint32_t)col);
+}
+
+struct ArgmaxEpi {
+  u64* best;   // [M], zeroed before the launch
+  int M, C;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float bv = -CUDART_INF_F;
+      int bc = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * BN + 8 * j + 2 * t + e;   // increasing in (j, e)
+          const float v = acc[4 * j + 2 * h + e];
+          if (c < C && above(v, bv)) {
+            bv = v;
+            bc = c;
+          }
         }
       }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-        if (ob > best || (ob == best && oa < arg)) {
-          best = ob;
-          arg = oa;
+      for (int o = 1; o < 4; o <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+        if (above(ov, bv) || (!above(bv, ov) && oc < bc)) {
+          bv = ov;
+          bc = oc;
         }
       }
-      if (lane == 0 && best > run_max[r]) {
-        run_max[r] = best;
-        run_arg[r] = c0 + arg;
-      }
+      const int m = row + g + 8 * h;
+      if (t == 0 && m < M && bc != 0x7fffffff) atomicMax(best + m, argmax_key(bv, bc));
     }
-    __syncthreads();  // the next tile's GEMM reuses the shared memory of C
   }
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    if (row0 + r < M) idx[row0 + r] = run_arg[r];
-  }
+};
+
+// A row whose every sim is -inf kept no column (nothing lies above the
+// scan's -inf start): its key is still the zero of the memset, and its
+// index 0, torch.argmax's first maximum.
+__global__ void finish_kernel(const u64* __restrict__ best, int* __restrict__ idx, int M) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < M) idx[i] = best[i] ? (int)(0xFFFFFFFFu - (uint32_t)(best[i] & 0xFFFFFFFFull)) : 0;
 }
 
+}  // namespace vq
 }  // namespace ctc
 
-using namespace ctc;
+using namespace ctc::sm90;
 
-// tok [M, D] bf16, cb [C, D] bf16, idx [M] int32.
-extern "C" int ctc_vq_nearest(const void* tok, const void* cb, void* idx, int M, int C, int D,
-                              void* stream) {
+// tok [M, D] bf16 with row stride ldt, cb [C, D] bf16 with row stride ldc
+// (strides multiples of 8, pointers 16-B aligned: the wrapper's TMA plan);
+// best [M] u64 workspace; idx [M] int32.
+extern "C" int ctc_vq_nearest(const void* tok, const void* cb, void* best, void* idx, int M,
+                              int C, int D, int ldt, int ldc, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int smem = GEMM_SMEM + BM * 8;
-  cudaFuncSetAttribute(vq_nearest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  vq_nearest_kernel<<<(M + BM - 1) / BM, THREADS, smem, st>>>((const bf16*)tok, (const bf16*)cb,
-                                                              (int*)idx, M, C, D);
+  if (M == 0) return 0;
+  Maps maps{};
+  int err = map_a(&maps.m[0], tok, M, D, ldt);
+  if (!err) err = map_b(&maps.m[1], cb, C, D, ldc);
+  if (err) return err;
+  auto* keys = static_cast<ctc::vq::u64*>(best);
+  err = (int)cudaMemsetAsync(keys, 0, (size_t)M * sizeof(ctc::vq::u64), st);
+  if (err) return err;
+  err = launch_gemm(maps, LinearPlan{}, ctc::vq::ArgmaxEpi{keys, M, C}, (C + BN - 1) / BN, M, D,
+                    st);
+  if (err) return err;
+  ctc::vq::finish_kernel<<<(M + 255) / 256, 256, 0, st>>>(keys, static_cast<int*>(idx), M);
   return (int)cudaGetLastError();
 }

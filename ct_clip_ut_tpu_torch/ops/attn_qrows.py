@@ -2,8 +2,10 @@
 
 Replaces ct_clip_ut_tpu/ops/pallas_attn_qrows.py:attention_qrows_fused
 (`_forward_impl`, both of its pallas_call sites). The CUDA chain is
-`csrc/attn_qrows.cu`; its header says what bounds it on the H100 and what
-the design does about it. `attn_qrows` launches it for CUDA tensors and
+`csrc/attn_qrows.cu` (LN pass, the q / k / v projections and the output
+projection on the Hopper GEMM core, a two-pass wgmma attention core whose
+blocks take 256 query rows at B = 1 and 128 otherwise); its header says
+what bounds it on the H100 and what the design does about it. `attn_qrows` launches it for CUDA tensors and
 takes the plain version for CPU tensors; `attn_qrows_grad` adds the TPU
 kernel's backward, autograd through the plain version recomputed (the JAX
 custom VJP recomputes `_xla_reference_block`; no backward kernel exists).
@@ -90,9 +92,23 @@ def attn_qrows(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wk: torch
                residual: bool = False) -> torch.Tensor:
     """The attn_qrows kernel on CUDA tensors (bf16 x, weights and bias
     [h, N, N] or None; fp32 gamma and scales; heads of 64, h*64 a multiple
-    of 128), the plain version on CPU tensors."""
+    of 128), the plain version on CPU tensors. A bias whose N is not a
+    multiple of 8 has rows TMA cannot read as they are: it goes as a
+    zero-padded copy made on every call (about 0.67 GB for a table of
+    MaskGit's size; MaskGit's N = 6464, a multiple of 8, needs none)."""
     if not _build.on_cuda(x):
         return attn_qrows_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+    out, _ = launch_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+    launches.count("attn_qrows")
+    return out
+
+
+def launch_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):
+    """Checks the operands and launches the CUDA chain once (no count).
+    Returns the output and the chain's workspaces, bf16: xn = LN(x) gamma
+    [B*N, D]; q and k [B*N, h*64]; v transposed per head [B*h*64, pitch]
+    (each head's 64 rows hold v's columns along the sequence, rows padded
+    to 16 B); o [B*N, h*64], the attention before the output projection."""
     b, n, d = x.shape
     hd = wq.shape[0]
     heads = hd // DIM_HEAD
@@ -112,16 +128,23 @@ def attn_qrows(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wk: torch
         _build.require(t, name, dtype, shape, dev)
     if bias is not None:
         _build.require(bias, "bias", torch.bfloat16, (heads, n, n), dev)
-    ws = [torch.empty((b * n, hd), dtype=torch.bfloat16, device=dev) for _ in range(4)]
+    x, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, wq, wk, wv, wo))
+    ldb = 0
+    if bias is not None:   # TMA reads [h*N, N]; rows not 16-B strided go as a padded copy
+        bias, ldb = _build.tma_rows(bias.view(heads * n, n))
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    ws = {"xn": torch.empty((b * n, d), **b16), "q": torch.empty((b * n, hd), **b16),
+          "k": torch.empty((b * n, hd), **b16),
+          "vt": torch.empty((b * hd, _build.tma_pitch(n)), **b16),
+          "o": torch.empty((b * n, hd), **b16)}
     out = torch.empty_like(x)
     err = _build.load().ctc_attn_qrows(
         x.data_ptr(), gamma.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         wo.data_ptr(), qs.data_ptr(), ks.data_ptr(), None if bias is None else bias.data_ptr(),
-        *(w.data_ptr() for w in ws), out.data_ptr(), b, n, d, heads, float(scale),
-        int(residual), _build.stream_of(x))
+        *(w.data_ptr() for w in ws.values()), out.data_ptr(), b, n, d, heads, ldb,
+        float(scale), int(residual), _build.stream_of(x))
     _build.check(err, "attn_qrows")
-    launches.count("attn_qrows")
-    return out
+    return out, ws
 
 
 class _QrowsFn(torch.autograd.Function):

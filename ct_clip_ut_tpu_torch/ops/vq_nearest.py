@@ -1,9 +1,12 @@
 """Cosine-codebook nearest neighbour: kernel wrapper and plain version.
 
 Replaces ct_clip_ut_tpu/ops/pallas_vq.py:vq_nearest_pallas. The CUDA kernel
-is `csrc/vq_nearest.cu`; its header says what bounds it on the H100 and
-what the design does about it. Both return int32 argmax_j <tok_i, cb_j>
-with fp32 accumulation, the first maximum winning a tie.
+is `csrc/vq_nearest.cu` (the Hopper GEMM core with an argmax epilogue); its
+header says what bounds it on the H100 and what the design does about it.
+Both return int32 argmax_j <tok_i, cb_j> with fp32 accumulation, the first
+maximum winning a tie, and follow torch.argmax on NaN: a NaN sim ranks
+above every number, so a diverged row gets its first NaN's index. Operands whose rows TMA cannot read as they are go
+as 16-B strided copies (`_build.tma_rows`).
 """
 
 from __future__ import annotations
@@ -33,11 +36,17 @@ def vq_nearest(tokens: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         return vq_nearest_plain(tokens, codebook)
     m, d = tokens.shape
     c = codebook.shape[0]
+    if c == 0:
+        raise ValueError("vq_nearest needs a codebook of at least one code")
     _build.require(tokens, "tokens", torch.bfloat16, (m, d), tokens.device)
     _build.require(codebook, "codebook", torch.bfloat16, (c, d), tokens.device)
+    tok, ldt = _build.tma_rows(tokens)
+    cb, ldc = _build.tma_rows(codebook)
+    best = torch.empty((m,), dtype=torch.int64, device=tokens.device)   # the argmax keys
     idx = torch.empty((m,), dtype=torch.int32, device=tokens.device)
-    err = _build.load().ctc_vq_nearest(tokens.data_ptr(), codebook.data_ptr(),
-                                       idx.data_ptr(), m, c, d, _build.stream_of(tokens))
+    err = _build.load().ctc_vq_nearest(tok.data_ptr(), cb.data_ptr(), best.data_ptr(),
+                                       idx.data_ptr(), m, c, d, ldt, ldc,
+                                       _build.stream_of(tokens))
     _build.check(err, "vq_nearest")
     launches.count("vq_nearest")
     return idx

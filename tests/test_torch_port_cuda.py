@@ -786,3 +786,173 @@ def test_attn_block_kernel_long_and_odd_on_card(cuda_device, n, residual):
             wrong = list(args)
             wrong[i] = torch.zeros_like(args[i]) if i == 8 else torch.ones_like(args[i])
             assert _rel_err(got, attn_block_plain(*wrong, 8.0, False)) > 1.5e-2, i
+
+
+# ---- vq_nearest and attn_qrows on the Hopper core ----
+
+def _vq_mismatch_gap(tok, cb, got, want):
+    """Largest |sim(got) - sim(want)| over the rows where the two differ."""
+    bad = (got != want).nonzero().flatten()
+    if not bad.numel():
+        return 0.0
+    sims = tok[bad].float() @ cb.float().t()
+    return (sims.gather(1, got[bad, None].long()) -
+            sims.gather(1, want[bad, None].long())).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 77, 5000, 27648])
+def test_vq_nearest_argmax_epilogue_on_card(cuda_device, m):
+    """The argmax epilogue over 8192 codes (64 code tiles): at most 0.1% of
+    the indices differ from the plain version's, every difference a
+    near-tie (sims within 1e-3); codes 5 and 4100 (tiles 0 and 32) equal,
+    token 0 a copy of them, so both are its maximum and index 5 must win;
+    one launch."""
+    rng = np.random.default_rng(41)
+    tok = torch.from_numpy(_unit_rows(rng, (m, 512))).to(cuda_device, torch.bfloat16)
+    cb = torch.from_numpy(_unit_rows(rng, (8192, 512))).to(cuda_device, torch.bfloat16)
+    cb[4100] = cb[5]
+    tok[0] = cb[5]
+    launches.reset_launch_counts()
+    got = vq_nearest(tok, cb)
+    assert launches.launch_counts()["vq_nearest"] == 1
+    want = vq_nearest_plain(tok, cb)
+    assert got.dtype == torch.int32 and got.shape == (m,)
+    assert int(got[0]) == int(want[0]) == 5
+    assert int((got != want).sum()) <= int(0.001 * m)
+    assert _vq_mismatch_gap(tok, cb, got, want) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_vq_nearest_signed_zero_tie_on_card(cuda_device):
+    """Token e_0 against codes whose sims are -1 but for code 3 (all -0.0:
+    its sim is a zero of either sign) and code 7 (+0.0): the two zeros are
+    equal maxima, as torch.argmax counts them, so code 3 wins; in a second
+    tile the same pair at 131 and 135 loses to code 3."""
+    tok = torch.zeros((2, 512), device=cuda_device, dtype=torch.bfloat16)
+    tok[:, 0] = 1.0
+    cb = torch.zeros((300, 512), device=cuda_device, dtype=torch.bfloat16)
+    cb[:, 0] = -1.0
+    cb[3] = -0.0
+    cb[7] = 0.0
+    cb[131] = -0.0
+    cb[135] = 0.0
+    assert torch.signbit(cb[3]).all() and not torch.signbit(cb[7]).any()
+    assert vq_nearest(tok, cb).tolist() == vq_nearest_plain(tok, cb).tolist() == [3, 3]
+
+
+@pytest.mark.cuda
+def test_vq_nearest_nan_row_on_card(cuda_device):
+    """A diverged step, as torch.argmax orders it (NaN above every number,
+    the first NaN wins): token 0 all NaN gets index 0 and the clean rows
+    their near-ties at worst; with NaN in codes 4100 and 6000 (tiles 32
+    and 46) every clean token gets 4100. Always the plain version's index
+    on the NaN rows, never one out of range."""
+    rng = np.random.default_rng(45)
+    tok = torch.from_numpy(_unit_rows(rng, (300, 512))).to(cuda_device, torch.bfloat16)
+    cb = torch.from_numpy(_unit_rows(rng, (8192, 512))).to(cuda_device, torch.bfloat16)
+    tok[0] = float("nan")
+    got, want = vq_nearest(tok, cb), vq_nearest_plain(tok, cb)
+    assert int(got[0]) == int(want[0]) == 0
+    assert bool(((got >= 0) & (got < 8192)).all())
+    assert _vq_mismatch_gap(tok[1:], cb, got[1:], want[1:]) <= 1e-3
+    cb[4100, 7] = float("nan")
+    cb[6000] = float("nan")
+    got, want = vq_nearest(tok, cb), vq_nearest_plain(tok, cb)
+    assert want.tolist() == [0] + [4100] * 299
+    assert got.tolist() == want.tolist()
+
+
+def _maskgit_inputs(cuda_device, b, n=6464, seed=42):
+    """x [b, n, 512] bf16 and layer weights at MaskGit's width (8 heads of 64),
+    the bf16 [8, n, n] table of a CPB's scale (N(0, 1))."""
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+
+    def randn(*shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device=cuda_device)
+
+    bf = torch.bfloat16
+    x = randn(b, n, 512).to(bf)
+    gamma = 1.0 + randn(512, s=0.1)
+    wq, wk, wv = (randn(512, 512, s=512 ** -0.5).to(bf) for _ in range(3))
+    wo = randn(512, 512, s=512 ** -0.5).to(bf)
+    qs, ks = 1.0 + randn(64, s=0.1), 1.0 + randn(64, s=0.1)
+    bias = randn(8, n, n).to(bf)
+    return [x, gamma, wq, wk, wv, wo, qs, ks, bias]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_attn_qrows_kernel_at_maskgit_shape_on_card(cuda_device, b):
+    """x [b, 6464, 512] with the bf16 [8, 6464, 6464] table: blocks of 256
+    query rows of one sequence at b = 1 (a last stripe of 64 rows) and of
+    128 at b = 2, 101 key tiles. The bf16 band, with
+    and without the residual; it rejects the bias left out, k from the LN'd
+    x, q_scale dropped and p unnormalised."""
+    args = _maskgit_inputs(cuda_device, b)
+    launches.reset_launch_counts()
+    got = attn_qrows(*args, 8.0, False)
+    assert launches.launch_counts()["attn_qrows"] == 1
+    assert _rel_err(got, attn_qrows_plain(*args, 8.0, False)) <= 1.5e-2
+    assert _rel_err(attn_qrows(*args, 8.0, True), attn_qrows_plain(*args, 8.0, True)) <= 1.5e-2
+    wrong = list(args)
+    wrong[6] = torch.ones_like(args[6])
+    controls = [attn_qrows_plain(*args[:8], None, 8.0, False),
+                attn_qrows_plain(*args, 8.0, False, faults=("k_from_ln",)),
+                attn_qrows_plain(*wrong, 8.0, False),
+                attn_qrows_plain(*args, 8.0, False, faults=("unnormalised",))]
+    for i, c in enumerate(controls):
+        assert _rel_err(got, c) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(2, 300), (3, 77)])
+def test_attn_qrows_projection_epilogue_on_card(cuda_device, b, n):
+    """The chain's workspaces after one launch: xn = LN(x) * gamma, and the
+    QkvPlan GEMM's epilogue, q = bf16(l2n(xn Wq^T) q_scale 8), k =
+    bf16(l2n(bf16(x Wk^T)) k_scale), v = bf16(x Wv^T) written transposed
+    per head ([b, 8, 64, N], rows padded to 16 B), against the same
+    arithmetic in torch: within one bf16 step (4e-3 of the largest value).
+    Controls: q without q_scale, k from the LN'd x, v from xn. N = 77 takes
+    the bias as a padded copy (`_build.tma_rows`)."""
+    from ct_clip_ut_tpu_torch.ops.attn_qrows import launch_chain
+
+    args = _maskgit_inputs(cuda_device, b, n, seed=43)
+    x, gamma, wq, wk, wv, wo, qs, ks, bias = args
+    m, bf = b * n, torch.bfloat16
+    _, ws = launch_chain(*args, 8.0, False)
+    torch.cuda.synchronize()
+    xn, q, k = ws["xn"], ws["q"], ws["k"]
+    # v^T [b, 8, 64, pitch] back to [b * n, 512]
+    v = ws["vt"][:, :n].reshape(b, 8, 64, n).permute(0, 3, 1, 2).reshape(m, 512)
+    x32 = x.float().reshape(m, 512)
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    xn_want = ((x32 - mean) * torch.rsqrt(var + 1e-5) * gamma).to(bf).float()
+
+    def unit_heads(t, scale):
+        t = t.reshape(m, 8, 64)
+        return (t / t.norm(dim=-1, keepdim=True).clamp_min(1e-12) * scale).reshape(m, 512)
+
+    q_want = unit_heads(xn_want @ wq.float().t(), qs * 8.0).to(bf)
+    k_want = unit_heads((x32 @ wk.float().t()).to(bf).float(), ks).to(bf)
+    v_want = (x32 @ wv.float().t()).to(bf)
+    for got, want in ((xn, xn_want), (q, q_want), (k, k_want), (v, v_want)):
+        assert _rel_err(got, want) <= 4e-3
+    assert _rel_err(q, unit_heads(xn_want @ wq.float().t(), 8.0)) > 4e-3
+    assert _rel_err(k, unit_heads((xn_want @ wk.float().t()).to(bf).float(), ks)) > 4e-3
+    assert _rel_err(v, xn_want @ wv.float().t()) > 4e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n,bias", [(300, True), (77, True), (200, False)])
+def test_attn_qrows_core_blocks_on_card(cuda_device, b, n, bias):
+    """Both block sizes of the core (256 query rows at b = 1, 128 at b = 2)
+    at ragged N (a last stripe and key tile partly past N; 77 takes the
+    bias as a padded copy), with the table and without, with the residual:
+    the bf16 band against attn_qrows_plain."""
+    args = _maskgit_inputs(cuda_device, b, n, seed=44)
+    tb = args[8] if bias else None
+    got = attn_qrows(*args[:8], tb, 8.0, True)
+    assert _rel_err(got, attn_qrows_plain(*args[:8], tb, 8.0, True)) <= 1.5e-2

@@ -14,7 +14,25 @@ against their plain versions there). Here, on the CPU:
   = exp(s - m) / l rounded to bf16 before P.V) gives attn_block_plain's
   block within the card's band, where a core with the bias left out of
   pass 2, or a running sum not rescaled when the max grows (the
-  controls), does not.
+  controls), does not;
+- vq_nearest's argmax epilogue (csrc/vq_nearest.cu), emulated in torch:
+  each thread's strict > over its columns of a 128-code tile, the two quad
+  shuffles, the 64-bit key (orderable(sim) << 32) | (0xFFFFFFFF - column)
+  with -0.0 taken as +0.0, and the max over tiles that the atomics take,
+  equal torch.argmax on random sims, on negative ones, on equal maxima in
+  one tile and in tiles far apart (the lowest index wins), on -0.0 /
+  +0.0 ties and on NaN (above every number, the first NaN wins); a key
+  that keeps -0.0 below +0.0, the column not inverted, a plain > that
+  never takes a NaN, or a decode that gives a row of -inf index -1 (the
+  controls) does not;
+- attn_qrows's chain (csrc/attn_qrows.cu), emulated in torch at the
+  kernel's rounding points and tiles: 128-row query stripes, 64-key tiles
+  with the bias (zero past N, keys past N at -inf), pass 1's running max
+  and sum in exp2 form, pass 2 from the last tile to the first with p =
+  exp2(s log2 e - (max log2 e + log2 sum)) rounded to bf16, equals
+  attn_qrows_plain within the card's band at ragged N; a pass 2 without the
+  bias, a sum never rescaled, or the sum's natural log folded in for its
+  log2 (the controls) does not.
 
 Inputs are made from a seed with numpy.
 """
@@ -27,6 +45,7 @@ import torch
 
 from ct_clip_ut_tpu_torch import _build
 from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_plain
+from ct_clip_ut_tpu_torch.ops.attn_qrows import attn_qrows_plain
 from ct_clip_ut_tpu_torch.ops.geglu_ff import tma_operands
 
 SCORE_BAND = 1e-4    # max abs error of the split-bf16 scores vs fp32 at scale 8
@@ -197,4 +216,258 @@ def test_two_pass_core_matches_attn_block_plain(n):
     assert _rel_err(got, want) <= FLOAT_BAND
     for fault in ("pass2_no_bias",) + (("no_rescale",) if n > KC else ()):
         bad = block_with_core(*args, lambda *a: two_pass_core(*a, fault=fault))
+        assert _rel_err(bad, want) > FLOAT_BAND, fault
+
+
+# ---- vq_nearest's argmax epilogue ----
+
+VQ_TILE = 128   # codes a tile of the GEMM core
+
+
+NO_COL = 2 ** 31 - 1   # a thread's column before it keeps one
+
+
+def _above(a, b, nan_rule=True):
+    """torch.argmax's strict order (the kernel's `above`, b == b && !(a <=
+    b)): a > b, or a NaN and b not."""
+    return (b == b) & ~(a <= b) if nan_rule else a > b
+
+
+def _tile_first_max(block, valid, nan_rule=True):
+    """One tile's (max, column) per row as the epilogue finds it: thread t
+    of a quad scans columns 8j + 2t + e in increasing order from -inf,
+    keeping a strict `above`, then two shuffles combine the quad, a lower
+    column winning equal values. block [M, 128] fp32, valid [128] bool.
+    Without `nan_rule` (a control) it is the plain >: a NaN never wins."""
+    m = block.shape[0]
+    vals = torch.full((m, 4), -math.inf)
+    cols = torch.full((m, 4), NO_COL, dtype=torch.int64)
+    for t in range(4):
+        for j in range(VQ_TILE // 8):
+            for e in range(2):
+                c = 8 * j + 2 * t + e
+                if not valid[c]:
+                    continue
+                better = _above(block[:, c], vals[:, t], nan_rule)
+                vals[:, t] = torch.where(better, block[:, c], vals[:, t])
+                cols[:, t] = torch.where(better, torch.tensor(c), cols[:, t])
+    for o in (1, 2):
+        ov, oc = vals[:, [t ^ o for t in range(4)]], cols[:, [t ^ o for t in range(4)]]
+        level = ~_above(vals, ov) if nan_rule else ov == vals   # no lower
+        take = _above(ov, vals, nan_rule) | (level & (oc < cols))
+        vals, cols = torch.where(take, ov, vals), torch.where(take, oc, cols)
+    return vals[:, 0], cols[:, 0]
+
+
+def argmax_key(v, col, *, canonical_zero=True, invert=True, nan_rule=True, zero_key=True):
+    """The 64-bit key as a signed int64 of the same order (the unsigned key
+    minus 2^63): orderable(v) << 32 | (0xFFFFFFFF - col), every NaN at the
+    top of the order."""
+    if canonical_zero:
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ord_ = torch.where(bits >= 2 ** 31, 0xFFFFFFFF - bits, bits + 2 ** 31)
+    if nan_rule:
+        ord_ = torch.where(v != v, torch.tensor(0xFFFFFFFF), ord_)
+    low = (0xFFFFFFFF - col) if invert else col
+    return (ord_ - 2 ** 31) * 2 ** 32 + low
+
+
+def vq_argmax_emulated(sims, **key_opts):
+    """csrc/vq_nearest.cu's indices from fp32 sims [M, C]: a key per (row,
+    tile where a column was kept, their max (what the atomicMax calls
+    leave, in any order, over the zeroed workspace), the column decoded as
+    the kernel's int32; a key still zero (a row of -inf) gives 0, or -1
+    without `zero_key` (a control: the decode alone)."""
+    m, c = sims.shape
+    best = torch.full((m,), -2 ** 63, dtype=torch.int64)
+    for c0 in range(0, c, VQ_TILE):
+        block = torch.full((m, VQ_TILE), -math.inf)
+        n = min(VQ_TILE, c - c0)
+        block[:, :n] = sims[:, c0:c0 + n]
+        valid = torch.arange(VQ_TILE) < n
+        v, col = _tile_first_max(block, valid, key_opts.get("nan_rule", True))
+        key = torch.where(col == NO_COL, best, argmax_key(v, c0 + col, **key_opts))
+        best = torch.maximum(best, key)
+    low = (best + 2 ** 63) & 0xFFFFFFFF
+    idx = (0xFFFFFFFF - low) if key_opts.get("invert", True) else low
+    idx = torch.where(idx >= 2 ** 31, idx - 2 ** 32, idx)
+    return torch.where(best == -2 ** 63, 0, idx) if key_opts.get("zero_key", True) else idx
+
+
+def _vq_sims(rng, m, c):
+    tok = _bf16(rng.standard_normal((m, 64))).float()
+    cb = _bf16(rng.standard_normal((c, 64))).float()
+    return tok @ cb.t()
+
+
+@pytest.mark.parametrize("c", [8192, 300])
+def test_vq_argmax_epilogue_matches_torch_argmax(c):
+    """Random sims, all-negative rows, equal maxima in one tile (5 and 9)
+    and in tiles far apart (5 and 4100, 130 and 290), -0.0 / +0.0 ties in
+    either order and across tiles: the emulated epilogue gives
+    torch.argmax's first maximum on every row."""
+    rng = np.random.default_rng(34)
+    sims = _vq_sims(rng, 40, c)
+    sims[1] = -sims[1].abs() - 0.5                       # all negative
+    far = 4100 if c > 4100 else 290
+    top = sims.abs().max() + 1.0
+    sims[2, 5] = sims[2, 9] = top                         # one tile
+    sims[3, 5] = sims[3, far] = top                       # tiles apart
+    sims[4, 130] = sims[4, far] = top
+    for r, (lo, hi) in zip((5, 6, 7, 8), ((-0.0, 0.0), (0.0, -0.0), (-0.0, 0.0), (0.0, -0.0))):
+        sims[r] = -1.0 - torch.rand(c)
+        a, b = (3, 7) if r < 7 else (9, far)
+        sims[r, a], sims[r, b] = lo, hi
+    assert torch.signbit(sims[5, 3]) and torch.signbit(sims[8, far])
+    want = torch.argmax(sims, dim=-1)
+    assert want[2] == 5 and want[3] == 5 and want[4] == 130
+    assert want[5] == want[6] == 3 and want[7] == want[8] == 9
+    assert torch.equal(vq_argmax_emulated(sims), want)
+
+
+def test_vq_argmax_epilogue_controls_miss():
+    """A key that orders -0.0 below +0.0 takes +0.0 in the later tile over
+    the first maximum; a key with the column not inverted takes the last
+    of equal maxima."""
+    rng = np.random.default_rng(35)
+    sims = _vq_sims(rng, 4, 8192)
+    sims[0] = -1.0 - torch.rand(8192)
+    sims[0, 9], sims[0, 4100] = -0.0, 0.0
+    top = sims.abs().max() + 1.0
+    sims[1, 5] = sims[1, 4100] = top
+    want = torch.argmax(sims, dim=-1)
+    assert want[0] == 9 and want[1] == 5
+    assert vq_argmax_emulated(sims, canonical_zero=False)[0] == 4100
+    assert vq_argmax_emulated(sims, invert=False)[1] == 4100
+
+
+def test_vq_argmax_epilogue_nan_rule():
+    """A diverged row: all NaN gives index 0, NaN among numbers gives the
+    first NaN (in a later tile too, above +inf, and across a quad), a row
+    of -inf index 0, as torch.argmax does. Controls: a plain > never takes
+    a NaN; the key decoded without the zero-key rule gives the row of -inf
+    index -1."""
+    rng = np.random.default_rng(37)
+    sims = _vq_sims(rng, 5, 300)
+    sims[0] = math.nan
+    sims[1, 200], sims[1, 290] = math.nan, -math.nan
+    sims[2, 3] = math.inf
+    sims[2, 130] = math.nan
+    sims[3] = -math.inf
+    sims[4, 11], sims[4, 9] = math.nan, math.nan           # two threads of a quad
+    want = torch.argmax(sims, dim=-1)
+    assert want.tolist() == [0, 200, 130, 0, 9]
+    assert torch.equal(vq_argmax_emulated(sims), want)
+    bad = vq_argmax_emulated(sims, nan_rule=False)
+    assert bad[1] != 200 and bad[2] == 3
+    assert vq_argmax_emulated(sims, zero_key=False)[3] == -1
+
+
+# ---- attn_qrows's two-pass core at its tiles ----
+
+QR_ROWS, QR_KT = 128, 64    # query rows a block, keys a tile (csrc/attn_qrows.cu)
+
+
+def qrows_core(q, k, v, bias, *, fault: str = ""):
+    """The core of csrc/attn_qrows.cu in torch, stripe by stripe: s = bias +
+    q . k in fp32 (q, k, v bf16-valued fp32 [b, h, n, 64]; bias [h, n, n]
+    bf16-valued or None), keys past N at -inf; pass 1 over 64-key tiles
+    keeps each row's running max m and sum l (exp2 form); pass 2 walks the
+    tiles from the last to the first, p = exp2(s log2 e - (m log2 e + log2
+    l)) rounded to bf16, o += p v in fp32; o rounded. `fault` builds the
+    controls: "pass2_no_bias", "no_rescale", "ln_for_log2" (the sum's
+    natural log folded in)."""
+    b, h, n, dh = q.shape
+    o = torch.zeros_like(q)
+    ntiles = -(-n // QR_KT)
+    pad = ntiles * QR_KT
+    kp = torch.zeros((b, h, pad, dh))
+    vp = torch.zeros((b, h, pad, dh))
+    kp[:, :, :n], vp[:, :, :n] = k, v
+    for r0 in range(0, n, QR_ROWS):
+        rows = slice(r0, r0 + QR_ROWS)
+        qr = q[:, :, rows]
+        bias_r = torch.zeros((h, qr.shape[2], pad))
+        if bias is not None:
+            bias_r[:, :, :n] = bias[:, rows]
+
+        def scores(t, with_bias=True):
+            keys = slice(t * QR_KT, (t + 1) * QR_KT)
+            s = qr @ kp[:, :, keys].transpose(-1, -2)
+            if with_bias:
+                s = s + bias_r[:, :, keys]
+            past = torch.arange(t * QR_KT, (t + 1) * QR_KT) >= n
+            return s.masked_fill(past, -math.inf)
+
+        m = torch.full(qr.shape[:-1], -math.inf)
+        l = torch.zeros(qr.shape[:-1])
+        for t in range(ntiles):
+            s = scores(t)
+            x = torch.maximum(m, s.amax(-1))
+            base = x * LOG2E
+            grow = torch.exp2(m * LOG2E - base) if fault != "no_rescale" else torch.ones_like(l)
+            l = l * grow + torch.exp2(s * LOG2E - base[..., None]).sum(-1)
+            m = x
+        lb = m * LOG2E + (torch.log(l) if fault == "ln_for_log2" else torch.log2(l))
+        acc = torch.zeros_like(qr)
+        for t in reversed(range(ntiles)):
+            s = scores(t, with_bias=fault != "pass2_no_bias")
+            p = torch.exp2(s * LOG2E - lb[..., None]).to(torch.bfloat16).float()
+            acc = acc + p @ vp[:, :, t * QR_KT:(t + 1) * QR_KT]
+        o[:, :, rows] = acc.to(torch.bfloat16).float()
+    return o
+
+
+def qrows_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, core):
+    """attn_qrows's chain in torch at the kernel's rounding points, with the
+    core replaced by `core`: xn = bf16(LN(x) gamma); q = bf16(l2n(xn Wq^T)
+    qs scale), k = bf16(l2n(bf16(x Wk^T)) ks), v = bf16(x Wv^T) (the QkvPlan
+    GEMM's epilogue); o Wo^T in fp32, rounded."""
+    b, n, d = x.shape
+    dh = qs.shape[0]
+    heads = wq.shape[0] // dh
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    xn = ((x32 - mean) * torch.rsqrt(var + 1e-5) * gamma).to(torch.bfloat16).float()
+
+    def heads_of(t):
+        return t.reshape(b, n, heads, dh).transpose(1, 2)
+
+    def unit(t):
+        return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12)
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    q = bf(unit(heads_of(xn @ wq.float().t())) * (qs * scale))
+    k = bf(unit(heads_of(bf(x32 @ wk.float().t()))) * ks)
+    v = bf(heads_of(x32 @ wv.float().t()))
+    o = core(q, k, v, None if bias is None else bias.float())
+    return (o.transpose(1, 2).reshape(b, n, heads * dh) @ wo.float().t()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,n,bias", [(2, 200, True), (1, 77, True), (1, 150, False)])
+def test_qrows_core_tiles_match_attn_qrows_plain(b, n, bias):
+    """The emulated chain against attn_qrows_plain (q_block 64) within the
+    card's band: two query stripes at N = 200 and 150 (the second ragged),
+    one at 77, a last key tile partly past N each time. The controls miss
+    it (the bias ones where there is a bias)."""
+    rng = np.random.default_rng(36)
+    d, heads, dh = 128, 2, 64
+    hd = heads * dh
+    x = _bf16(rng.standard_normal((b, n, d)))
+    gamma = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    wq, wk, wv = (_bf16(rng.standard_normal((hd, d)) / np.sqrt(d)) for _ in range(3))
+    wo = _bf16(rng.standard_normal((d, hd)) / np.sqrt(hd))
+    qs, ks = (torch.from_numpy((1.0 + 0.1 * rng.standard_normal(dh)).astype(np.float32))
+              for _ in range(2))
+    tb = _bf16(rng.standard_normal((heads, n, n))) if bias else None
+    args = (x, gamma, wq, wk, wv, wo, qs, ks, tb, 8.0)
+    want = attn_qrows_plain(*args)
+    assert _rel_err(qrows_chain(*args, qrows_core), want) <= FLOAT_BAND
+    faults = ("no_rescale", "ln_for_log2") + (("pass2_no_bias",) if bias else ())
+    for fault in faults:
+        bad = qrows_chain(*args, lambda *a: qrows_core(*a, fault=fault))
         assert _rel_err(bad, want) > FLOAT_BAND, fault
