@@ -6,12 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each printing its lines before the last:
   1. the device: `nvidia-smi` name and power limit, torch and CUDA versions;
   2. the build of csrc/*.cu (one nvcc per source, in parallel), with its
-     seconds, and the HGMMA (wgmma) instructions in the SASS of each GEMM
-     on the Hopper core (csrc/gemm_sm90.cuh) and of attn_qrows' attention
-     core, counted with cuobjdump where the toolkit has it: every one must
-     have some, and the GEMMs of vq_nearest (its argmax epilogue) and of
-     attn_qrows' projections (QkvPlan with the per-head l2-norm epilogue)
-     and the qrows core must be among them;
+     seconds, and the tensor-core instructions in the SASS, counted with
+     cuobjdump where the toolkit has it: HGMMA (wgmma) in each GEMM on the
+     Hopper core (csrc/gemm_sm90.cuh) and in attn_qrows' attention core,
+     every one of which must have some, the GEMMs of vq_nearest (its argmax
+     epilogue) and of attn_qrows' projections (QkvPlan with the per-head
+     l2-norm epilogue) and the qrows core among them; HMMA (mma.sync) in the
+     shared split-bf16 core (csrc/attn_mma.cuh: attn_block's forward, the
+     backward's statistics pass), the backward's query and key passes
+     (attn_block_bwd and attn_packed_bwd), its dbias pass and the
+     cosine_attention core, each of which must have some;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -52,9 +56,11 @@ Phases, each printing its lines before the last:
      NIfTI volumes (128 x 128 x 60 int16, resampled and padded to [1, 240,
      480, 480]) with their CSVs, with --quantize-ff and without, each
      writing metrics.txt;
-  4d. cosine_attention (the bare core) against its plain version at q/k/v
-     [384, 576, 32] with the [8, 576, 576] bias and at [9216, 24, 32]
-     without, with the controls (q_scale, k_scale or the bias left out),
+  4d. cosine_attention (the bare core: a prologue writing the l2-normed,
+     scaled q and k as bf16 hi / lo pairs, then the shared split-bf16 core)
+     against its plain version at q/k/v [384, 576, 32] with the [8, 576,
+     576] bias and at [9216, 24, 32] without, with the controls (q_scale,
+     k_scale or the bias left out),
      its times, `bound_ms` and F.scaled_dot_product_attention as
      `library_ms`; one cross-attention through ops/attention.attention()
      launches it once;
@@ -67,7 +73,10 @@ Phases, each printing its lines before the last:
      controls are the gradients of a plain backward with one fault (the
      LN gain left out of dx, the softmax row term or the l2-norm
      projection dropped, g missing from dx under the residual, dbias zero,
-     GELU for its derivative, wv / cin swapped in the weight grad);
+     dbias with one sequence left out of its sum, dbias with one 64 x 64
+     block of its pass left unwritten, GELU for its derivative, wv / cin
+     swapped in the weight grad); attn_block_bwd's dbias the same bits on
+     two calls (its pass sums in a fixed order);
   6. the four kernels of the 512-token train step at the shapes a B = 2
      step gives them: the bf16 BERT layer, deterministic and in train mode
      (dropout 0.1 / 0.1), and its backward (dx and the twelve parameter
@@ -242,38 +251,61 @@ COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at
 SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "attn_qrows projections (QkvPlan, qr::QkvEpi)": "2qr6QkvEpi",
                  "attn_qrows core": "2qr11core_kernel"}
+# ... and of the mma.sync kernels of the split-bf16 attention cores
+SASS_MMA_REQUIRED = {"shared core (attn_block, the backward's statistics)":
+                         "17block_core_kernel",
+                     "the backward's query pass (attn_block_bwd, attn_packed_bwd)":
+                         "13bwd_dq_kernel",
+                     "the backward's key pass (attn_block_bwd, attn_packed_bwd)":
+                         "14bwd_dkv_kernel",
+                     "attn_block_bwd dbias pass": "16bwd_dbias_kernel",
+                     "cosine_attention core": "18cosine_core_kernel"}
 
 
 def sass_check(lib: Path) -> None:
     """Print the HGMMA (wgmma) instructions in the SASS of each GEMM of the
-    Hopper core and of attn_qrows' core in the built library, counted with
+    Hopper core and of attn_qrows' core in the built library, and the HMMA
+    (mma.sync) instructions of the split-bf16 attention cores, counted with
     the toolkit's cuobjdump; raise if one has none or a kernel of
-    SASS_REQUIRED is missing. Without cuobjdump, say so and check nothing."""
+    SASS_REQUIRED / SASS_MMA_REQUIRED is missing. Without cuobjdump, say so
+    and check nothing."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).is_file():
-        print("sass: no cuobjdump on this machine; HGMMA not counted")
+        print("sass: no cuobjdump on this machine; HGMMA / HMMA not counted")
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts, fn = {}, None
+    counts, mma, fn = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if ("sm90" in fn and "gemm_kernel" in fn) or "2qr11core_kernel" in fn:
                 counts.setdefault(fn, 0)
+            if any(mark in fn for mark in SASS_MMA_REQUIRED.values()):
+                mma.setdefault(fn, 0)
         elif fn in counts and "HGMMA" in line:
             counts[fn] += 1
+        elif fn in mma and "HMMA" in line:
+            mma[fn] += 1
     print("sass: HGMMA instructions per wgmma kernel: "
           + ", ".join(f"{fn[:90]} {n}" for fn, n in counts.items()))
     if not counts or not all(counts.values()):
         raise AssertionError(f"a Hopper-core kernel without wgmma: {counts}")
+    if not all(mma.values()):
+        raise AssertionError(f"an attention core without mma.sync: {mma}")
     for what, mark in SASS_REQUIRED.items():
         found = {fn: n for fn, n in counts.items() if mark in fn}
         print(f"sass: {what}: {sum(found.values())} HGMMA in {len(found)} kernel(s)")
         if not found:
             raise AssertionError(f"no wgmma kernel for {what} in the library")
+    for what, mark in SASS_MMA_REQUIRED.items():
+        found = {fn: n for fn, n in mma.items() if mark in fn}
+        print(f"sass: {what}: {sum(found.values())} HMMA in {len(found)} kernel(s) "
+              f"({', '.join(str(n) for n in found.values())})")
+        if not found:
+            raise AssertionError(f"no mma.sync kernel for {what} in the library")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -1155,7 +1187,18 @@ def backward_phase(torch, model, card: str) -> dict:
         faulty = {f: dict(zip(names, plain(*args, gr, *extra, False, faults=(fault,))))
                   for f, fault in faults.items()}
         if "dbias" in want:
-            faulty["dbias zero"] = {"dbias": torch.zeros_like(want["dbias"])}
+            # the dbias pass's faults: its sum short of one sequence, one
+            # 64 x 64 block never written
+            short = plain(args[0][:-1], *args[1:], gr[:-1], *extra, False)[8]
+            hole = want["dbias"].clone()
+            hole[:, -64:, -64:] = 0
+            faulty.update({"dbias zero": {"dbias": torch.zeros_like(want["dbias"])},
+                           "dbias with one sequence left out": {"dbias": short},
+                           "dbias with one block unwritten": {"dbias": hole}})
+            again = kern(*args, gr, *extra, False)[8]
+            print(f"kernel {name}: dbias of two calls equal: {torch.equal(again, got['dbias'])}")
+            if not torch.equal(again, got["dbias"]):
+                raise AssertionError(f"{name}: dbias differs between two calls")
         abs_err = grads_check(name, got, want, FLOAT_BAND, faulty,
                               f"x {list(args[0].shape)} (branch)")
         got = dict(zip(names, kern(*args, gr, *extra, True)))

@@ -1,5 +1,5 @@
-// Pieces shared by the two attention-block chains (attn_block.cu, spatial
-// with a position bias; attn_packed.cu, short temporal sequences):
+// Pieces of the short-sequence attention chain on the CUDA cores
+// (attn_packed.cu, the temporal block):
 //
 //   qkv_proj_kernel  LN(x) @ Wq^T, x @ Wk^T, x @ Wv^T over all rows at full
 //                    width (k and v from the PRE-norm x). The epilogue
@@ -8,7 +8,7 @@
 //                    TPU kernel does; v is rounded to bf16, the point where
 //                    the TPU kernel casts it before PV.
 //   attend_row       one query row of one head against keys staged in
-//                    shared memory: fp32 scores (+ bias row), fp32 softmax,
+//                    shared memory: fp32 scores, fp32 softmax,
 //                    p rounded to bf16, PV with fp32 accumulation, the
 //                    per-head output rounded to bf16 (the TPU kernel casts o
 //                    before the output projection).
@@ -120,11 +120,10 @@ __device__ __forceinline__ void stage_kv(const float* __restrict__ k, const bf16
 
 // One query row of one head, computed by one warp. q: 32 fp32 in `qrow`
 // (shared, already normalised and scaled); keys/values staged by stage_kv;
-// bias_row: n fp32 or nullptr; prow: n fp32 of per-warp scratch. Returns the
-// output element for head position `lane`, before rounding.
+// prow: n fp32 of per-warp scratch. Returns the output element for head
+// position `lane`, before rounding.
 __device__ __forceinline__ float attend_row(const float* qrow, const float* ks, const bf16* vs,
-                                            const float* __restrict__ bias_row, int n, float* prow,
-                                            int lane) {
+                                            int n, float* prow, int lane) {
   float q[DH];
 #pragma unroll
   for (int d = 0; d < DH; d += 4) {
@@ -143,7 +142,6 @@ __device__ __forceinline__ float attend_row(const float* qrow, const float* ks, 
       s = fmaf(q[d + 2], t.z, s);
       s = fmaf(q[d + 3], t.w, s);
     }
-    if (bias_row != nullptr) s += bias_row[j];
     prow[j] = s;
     mx = fmaxf(mx, s);
   }

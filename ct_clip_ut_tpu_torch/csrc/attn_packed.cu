@@ -47,7 +47,7 @@ packed_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < n; ++i) {
     qrow[lane] = q[(row0 + i) * HD + h * DH + lane];
     __syncwarp();
-    float out = attend_row(qrow, ks, vs, nullptr, n, prow, lane);
+    float out = attend_row(qrow, ks, vs, n, prow, lane);
     o[(row0 + i) * HD + h * DH + lane] = __float2bfloat16(out);
   }
 }

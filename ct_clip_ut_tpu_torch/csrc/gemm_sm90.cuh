@@ -422,5 +422,33 @@ struct ResidualEpi {
   }
 };
 
+// c [M, N] fp32 = acc, columns nt * 128 ...; pairs of columns go as one 8-B
+// store where N is even.
+struct StoreF32Epi {
+  float* c;
+  int M, N;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m < M) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = nt * BN + 8 * j + 2 * t;
+          if (col + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<float2*>(c + (int64_t)m * N + col) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (col + e < N) c[(int64_t)m * N + col + e] = acc[4 * j + 2 * h + e];
+          }
+        }
+      }
+    }
+  }
+};
+
 }  // namespace sm90
 }  // namespace ctc

@@ -16,7 +16,8 @@ projection; the residual added in fp32.
 
 The backward (pallas_attn_block._backward_impl, the custom VJP's kernel)
 is `attn_block_bwd`: the CUDA chain `csrc/attn_block_bwd.cu` for CUDA
-tensors, `attn_block_bwd_plain` for CPU tensors. The plain backward is the
+tensors (its chain is `csrc/attn_bwd.cuh`), `attn_block_bwd_plain` for CPU
+tensors. The plain backward is the
 TPU kernel's `_bwd_kernel` in plain PyTorch with its rounding points (dO,
 P, dS, the per-head output and dq / dk / dv rounded to the compute dtype
 before their products; softmax, l2-norm backward and sums in fp32).
@@ -215,39 +216,49 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
                     residual: bool) -> tuple:
     """Run the backward chain `entry` (ctc_attn_block_bwd, or
     ctc_attn_packed_bwd when bias is None) on CUDA tensors; returns the
-    gradients of attn_block_bwd_plain, in fp32 but dx."""
+    gradients of attn_block_bwd_plain, in fp32 but dx. The one place that
+    knows the entries' workspaces."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, lib.ctc_attn_bwd_max_n())
+    if d % 8:
+        raise ValueError(f"the attention backward kernels take a width that 8 divides (16-B TMA "
+                         f"rows), got {d}")
     dev = x.device
     hd = heads * DIM_HEAD
     m = r * n
     _build.require(g, "g", torch.bfloat16, (r, n, d), dev)
-    x, g = _build.aligned16(x), _build.aligned16(g)
+    x, g, wq, wk, wv = (_build.aligned16(t) for t in (x, g, wq, wk, wv))
     wqt = wq.t().contiguous()
     wkvt = torch.cat([wk, wv]).t().contiguous()
     wot = wo.t().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     b16 = dict(dtype=torch.bfloat16, device=dev)
-    work = (torch.empty((m, d), **b16), torch.empty((m, 2), **f32),
-            torch.empty((m, hd), **f32), torch.empty((m, hd), **f32),
-            torch.empty((m, hd), **b16), torch.empty((m, hd), **b16),
-            torch.empty((m, hd), **b16), torch.empty((m, hd), **b16),
-            torch.empty((m, 2 * hd), **b16), torch.empty((m * heads, 4), **f32),
-            torch.empty((m, d), **f32), torch.empty((m, d), **f32))
+    spatial = entry == "ctc_attn_block_bwd"   # takes bias, biasT and dbias (each may be null)
+    biasT = dbias = None
+    if bias is not None:
+        _build.require(bias, "bias", torch.float32, (heads, n, n), dev)
+        biasT = torch.empty((heads, n, n), **f32)
+        dbias = torch.empty((heads, n, n), **f32)   # written whole by its pass
+    # xn, LN stats; q / k hi, lo planes; their unit rows; their norms
+    work = [torch.empty((m, d), **b16), torch.empty((m, 2), **f32),
+            torch.empty((4, m, hd), **b16), torch.empty((2, m, hd), **f32),
+            torch.empty((2, m, heads), **f32)]
+    if spatial:
+        work.append(biasT)
+    # v, dO, o, dq, dk | dv, each row's (m log2 e, 1 / l, D, 0), dxn, dxd
+    work += [torch.empty((m, hd), **b16), torch.empty((m, hd), **b16),
+             torch.empty((m, hd), **b16), torch.empty((m, hd), **b16),
+             torch.empty((m, 2 * hd), **b16), torch.empty((m * heads, 4), **f32),
+             torch.empty((m, d), **f32), torch.empty((m, d), **f32)]
     dx = torch.empty_like(x)
     dgamma, dwq = torch.zeros((d,), **f32), torch.zeros((hd, d), **f32)
     dwkv, dwo = torch.zeros((2 * hd, d), **f32), torch.zeros((d, hd), **f32)
     dqs, dks = torch.zeros((DIM_HEAD,), **f32), torch.zeros((DIM_HEAD,), **f32)
-    ins = [x, gamma, wq, wk, wv, wqt, wkvt, wot, qs, ks]
-    outs = [dx, dgamma, dwq, dwkv, dwo, dqs, dks]
-    dbias = None
-    if bias is not None:
-        _build.require(bias, "bias", torch.float32, (heads, n, n), dev)
-        dbias = torch.zeros((heads, n, n), **f32)
-        ins.append(bias)
-        outs.append(dbias)
-    err = getattr(lib, entry)(*(t.data_ptr() for t in ins), g.data_ptr(),
-                              *(w.data_ptr() for w in work), *(t.data_ptr() for t in outs),
+    ins = [x, gamma, wq, wk, wv, wqt, wkvt, wot, qs, ks] + ([bias] if spatial else [])
+    outs = [dx, dgamma, dwq, dwkv, dwo, dqs, dks] + ([dbias] if spatial else [])
+    err = getattr(lib, entry)(*(None if t is None else t.data_ptr() for t in ins), g.data_ptr(),
+                              *(None if t is None else t.data_ptr() for t in work),
+                              *(None if t is None else t.data_ptr() for t in outs),
                               r, n, d, heads, float(scale), int(residual), _build.stream_of(x))
     _build.check(err, entry)
     return dx, dgamma, dwq, dwkv[:hd], dwkv[hd:], dwo, dqs, dks, dbias

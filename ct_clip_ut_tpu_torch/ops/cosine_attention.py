@@ -46,8 +46,8 @@ def cosine_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def cosine_attention_max_m() -> int:
-    """The most keys the CUDA kernel takes (its staged keys, values and
-    score rows fill a block's shared memory)."""
+    """The most keys the CUDA kernel takes (its staged key hi / lo and value
+    planes fill a block's shared memory)."""
     return _build.load().ctc_cosine_attention_max_m()
 
 
@@ -77,11 +77,14 @@ def cosine_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.require(t, name, dtype, shape, dev)
     if bias is not None:
         _build.require(bias, "bias", torch.float32, (heads, n, m), dev)
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
+    # the bf16 hi / lo planes of the scaled unit rows of q, then of k
+    work = torch.empty((2 * bh * (n + m) * dh,), dtype=torch.bfloat16, device=dev)
     err = lib.ctc_cosine_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), bh, n, m, heads,
-        float(scale), _build.stream_of(q))
+        None if bias is None else bias.data_ptr(), work.data_ptr(), out.data_ptr(), bh, n, m,
+        heads, float(scale), _build.stream_of(q))
     _build.check(err, "cosine_attention")
     launches.count("cosine_attention")
     return out

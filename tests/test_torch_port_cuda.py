@@ -304,17 +304,8 @@ def test_bert_layer_kernel_matches_plain_on_card(cuda_device, b, n, lengths):
 ATTN_GRADS = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,bias", [(576, True), (100, True), (24, False), (7, False)])
-def test_attention_backward_kernels_match_plain_on_card(cuda_device, n, bias, residual):
-    """Every gradient of the attention backward chains within 1.5e-2 max
-    relative error of the plain backward (bf16 inputs, fp32 sums in another
-    order; dbias and the scales summed with atomics)."""
-    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd, attn_block_bwd_plain
-    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd, attn_packed_bwd_plain
-
-    a = _attn_inputs(np.random.default_rng(15), r=5, n=n, d=512, heads=8, dh=32, with_bias=bias)
+def _attn_bwd_case(cuda_device, r, n, bias):
+    a = _attn_inputs(np.random.default_rng(15), r=r, n=n, d=512, heads=8, dh=32, with_bias=bias)
     args = [t.to(cuda_device) for t in _torch_attn_args(a)]
     for i in (0, 2, 3, 4, 5):
         args[i] = args[i].to(torch.bfloat16)
@@ -322,9 +313,27 @@ def test_attention_backward_kernels_match_plain_on_card(cuda_device, n, bias, re
                     generator=torch.Generator(cuda_device).manual_seed(3)).to(torch.bfloat16)
     if bias:
         args.append(torch.from_numpy(a["bias"]).to(cuda_device))
-        kern, plain = attn_block_bwd, attn_block_bwd_plain
-    else:
-        kern, plain = attn_packed_bwd, attn_packed_bwd_plain
+    return args, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("r,n,bias", [(5, 576, True), (48, 576, True), (5, 100, True),
+                                      (5, 101, True), (2, 1152, True), (5, 24, False),
+                                      (5, 7, False)])
+def test_attention_backward_kernels_match_plain_on_card(cuda_device, r, n, bias, residual):
+    """Every gradient of the attention backward chains within 1.5e-2 max
+    relative error of the plain backward (bf16 inputs, fp32 sums in another
+    order; the scales summed with atomics): the spatial chain at the
+    flagship's R = 48 sequences of 576, at ragged tiles, at an odd n (the
+    passes' scalar bias loads) and at the backward's largest n; the temporal
+    chain (no bias) at n = 24 and 7."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd, attn_packed_bwd_plain
+
+    args, g = _attn_bwd_case(cuda_device, r, n, bias)
+    kern, plain = ((attn_block_bwd, attn_block_bwd_plain) if bias else
+                   (attn_packed_bwd, attn_packed_bwd_plain))
     launches.reset_launch_counts()
     got = kern(*args, g, 8.0, residual)
     want = plain(*args, g, 8.0, residual)
@@ -332,6 +341,21 @@ def test_attention_backward_kernels_match_plain_on_card(cuda_device, n, bias, re
     for name, x, y in zip(ATTN_GRADS, got, want):
         assert torch.isfinite(x).all(), name
         assert _rel_err(x, y) <= 1.5e-2, (name, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+def test_attn_block_bwd_dbias_same_bits_on_two_calls_on_card(cuda_device):
+    """dbias is summed over the sequences in registers in a fixed order (no
+    atomics): two calls give the same bits; the other gradients agree
+    within fp32 rounding of their atomics (1e-5 of their maxima)."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd
+
+    args, g = _attn_bwd_case(cuda_device, 12, 576, True)
+    one = attn_block_bwd(*args, g, 8.0, False)
+    two = attn_block_bwd(*args, g, 8.0, False)
+    assert torch.equal(one[8], two[8])
+    for name, x, y in zip(ATTN_GRADS[:8], one, two):
+        assert _rel_err(x, y) <= 1e-5, name
 
 
 @pytest.mark.cuda
@@ -648,7 +672,8 @@ def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, residual):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,n,m,bias", [(384, 576, 576, True), (9216, 24, 24, False),
-                                         (24, 200, 77, True), (16, 130, 800, False)])
+                                         (24, 200, 77, True), (16, 130, 800, False),
+                                         (16, 130, 1152, True)])
 def test_cosine_attention_kernel_matches_plain_on_card(cuda_device, bh, n, m, bias):
     """The bf16 band; it rejects a plain version without q_scale, without
     k_scale or without the bias."""

@@ -132,7 +132,8 @@ def test_build_sources_are_the_package_csrc():
                      "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu",
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
-                     "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu"}
+                     "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
+                     "attn_mma.cuh"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
@@ -141,6 +142,22 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
                 "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check"))
+
+
+def test_signatures_match_the_c_entries():
+    """Every `extern "C"` entry of the sources has a ctypes signature with
+    its parameters' types in order (a mismatch shows only on the card)."""
+    import ctypes
+    import re
+
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float, "unsigned": ctypes.c_uint32}
+    entries = {}
+    for path in _build.sources():
+        for m in re.finditer(r'extern "C" int (ctc_\w+)\(([^)]*)\)', path.read_text()):
+            params = [p.split() for p in m.group(2).split(",") if p.strip() not in ("", "void")]
+            entries[m.group(1)] = [ctypes.c_void_p if "*" in "".join(p) else kinds[p[-2]]
+                                   for p in params]
+    assert entries == _build.SIGNATURES
 
 
 # the patch embed at the geometry of tests/test_pallas.py:361-394

@@ -33,6 +33,18 @@ against their plain versions there). Here, on the CPU:
   attn_qrows_plain within the card's band at ragged N; a pass 2 without the
   bias, a sum never rescaled, or the sum's natural log folded in for its
   log2 (the controls) does not.
+- the attention backward's tensor-core passes (csrc/attn_bwd.cuh), emulated
+  pass by pass: the forward core saving each row's max, sum and rowsum(dO
+  o), the query pass's dS from them, the key pass's S^T recomputed from
+  the split pair (within SCORE_BAND of S) with p from the log-sum-exp,
+  and dbias summed over the sequences in the dbias pass's 64 x 64 blocks,
+  gives every gradient of attn_block_bwd_plain within the card's band at
+  n = 64 and a ragged 100; a core without the row term, a dbias block
+  never written or a dbias sum short of one sequence (the controls) does
+  not;
+- cosine_attention's prologue (l2-norm, scales) and the shared core with
+  m keys and bias head bh % h against cosine_attention_plain at m != n;
+  q_scale left out or the wrong bias head (the controls) miss the band.
 
 Inputs are made from a seed with numpy.
 """
@@ -44,8 +56,9 @@ import pytest
 import torch
 
 from ct_clip_ut_tpu_torch import _build
-from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_plain
+from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd_plain, attn_block_plain
 from ct_clip_ut_tpu_torch.ops.attn_qrows import attn_qrows_plain
+from ct_clip_ut_tpu_torch.ops.cosine_attention import cosine_attention_plain
 from ct_clip_ut_tpu_torch.ops.geglu_ff import tma_operands
 
 SCORE_BAND = 1e-4    # max abs error of the split-bf16 scores vs fp32 at scale 8
@@ -471,3 +484,216 @@ def test_qrows_core_tiles_match_attn_qrows_plain(b, n, bias):
     for fault in faults:
         bad = qrows_chain(*args, lambda *a: qrows_core(*a, fault=fault))
         assert _rel_err(bad, want) > FLOAT_BAND, fault
+
+
+# ---- the spatial block's backward on the tensor cores (csrc/attn_bwd.cuh) ----
+
+DB_QT = 64   # query rows of a dbias block; its key chunk is KC
+
+
+def bwd_core(qh, kh, v, do, bias, *, fault: str = ""):
+    """The tensor-core passes of csrc/attn_bwd.cuh in torch, one by one.
+    qh, kh fp32 scaled unit rows [r, h, n, dh]; v, do bf16-valued fp32;
+    bias [h, n, n] or None. Forward pass: split-bf16 scores + bias, the
+    running max m and sum l over 64-key chunks (exp2 form), p = exp(s - m)
+    / l rounded to bf16, o = bf16(p v), D = rowsum(do o); the row saves (m
+    log2 e, 1 / l, D). Query pass: p from the saved (m, l) unrounded, dp =
+    do v^T, ds = p (dp - D), dqh = bf16(ds) bf16(kh). Key pass: S^T from
+    the split pair (k, q) + bias^T, p^T = exp2(s log2 e - lse), lse = m
+    log2 e + log2 l, dv = bf16(p^T) do, dkh = bf16(ds^T) bf16(qh). dbias
+    pass: per (64-query tile, 64-key chunk) the query pass's ds summed over
+    the sequences in order. Returns (o, dqh, dkh, dv, dbias, s, s^T).
+    `fault` builds the controls: "row_term" drops D, "dbias_tile" leaves
+    the last (query tile, key chunk) block of dbias unwritten, "dbias_seq"
+    leaves the last sequence out of dbias's sum."""
+    r, h, n, dh = qh.shape
+    bias_t = torch.zeros((h, n, n)) if bias is None else bias
+    s = split_scores(qh, kh) + bias_t
+    m = torch.full(s.shape[:-1], -math.inf)
+    l = torch.zeros(s.shape[:-1])
+    for kc in range(0, n, KC):
+        chunk = s[..., kc:kc + KC]
+        m_new = torch.maximum(m, chunk.amax(-1))
+        l = l * torch.exp2(m * LOG2E - m_new * LOG2E) \
+            + torch.exp2(chunk * LOG2E - m_new[..., None] * LOG2E).sum(-1)
+        m = m_new
+    base, inv = m * LOG2E, 1.0 / l
+    p = torch.exp2(s * LOG2E - base[..., None]) * inv[..., None]
+    o = (p.to(torch.bfloat16).float() @ v).to(torch.bfloat16).float()
+    d_row = torch.zeros_like(base) if fault == "row_term" else (do * o).sum(-1)
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    ds = p * (do @ v.transpose(-1, -2) - d_row[..., None])
+    dqh = bf(ds) @ bf(kh)
+    st = split_scores(kh, qh) + bias_t.transpose(-1, -2)
+    lse = base - torch.log2(inv)
+    pt = torch.exp2(st * LOG2E - lse[..., None, :])
+    dst = pt * (v @ do.transpose(-1, -2) - d_row[..., None, :])
+    dv = bf(pt) @ do
+    dkh = bf(dst) @ bf(qh)
+    dbias = torch.zeros((h, n, n))
+    last = ((n - 1) // DB_QT * DB_QT, (n - 1) // KC * KC)
+    for q0 in range(0, n, DB_QT):
+        for k0 in range(0, n, KC):
+            if fault == "dbias_tile" and (q0, k0) == last:
+                continue
+            acc = torch.zeros_like(dbias[:, q0:q0 + DB_QT, k0:k0 + KC])
+            for seq in range(r - 1 if fault == "dbias_seq" else r):
+                acc = acc + ds[seq, :, q0:q0 + DB_QT, k0:k0 + KC]
+            dbias[:, q0:q0 + DB_QT, k0:k0 + KC] = acc
+    return o, dqh, dkh, dv, dbias, s, st
+
+
+def block_bwd_with_core(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, core):
+    """attn_block_bwd_plain's chain at the kernel's rounding points with its
+    core replaced by `core` (bwd_core's signature): LN, the projections, q /
+    k l2-normed and scaled (the QkvEpi epilogue's unit rows and norms), dO
+    = bf16(g Wo), then the scale and l2-norm backward, the data and weight
+    gradients and the LN backward around the core's outputs."""
+    dt = x.dtype
+    r, n, d = x.shape
+    dh = qs.shape[0]
+    heads = wq.shape[0] // dh
+    m = r * n
+    x32 = x.float().reshape(m, d)
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    xhat = (x32 - mean) * rstd
+    xn = (xhat * gamma).to(dt).float()
+    wqf, wkf, wvf, wof = (w.float() for w in (wq, wk, wv, wo))
+
+    def heads_of(t):
+        return t.reshape(r, n, heads, dh).transpose(1, 2)
+
+    def merged(t):
+        return t.transpose(1, 2).reshape(m, heads * dh)
+
+    def bf(t):
+        return t.to(dt).float()
+
+    q, k = heads_of(xn @ wqf.t()), heads_of(x32 @ wkf.t())
+    qn = torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+    kn = torch.linalg.vector_norm(k, dim=-1, keepdim=True).clamp_min(1e-12)
+    uq, uk = q / qn, k / kn
+    qsc = qs * scale
+    v = bf(heads_of(x32 @ wvf.t()))
+    gb = bf(g.reshape(m, d))
+    do = bf(heads_of(gb @ wof))
+    o, dqh, dkh, dv, dbias, _, _ = core(uq * qsc, uk * ks, v, do, bias)
+    dqs = (uq * dqh).sum((0, 1, 2)) * scale
+    dks = (uk * dkh).sum((0, 1, 2))
+    duq, duk = dqh * qsc, dkh * ks
+    dq = bf(merged((duq - uq * (uq * duq).sum(-1, keepdim=True)) / qn))
+    dk = bf(merged((duk - uk * (uk * duk).sum(-1, keepdim=True)) / kn))
+    dv = bf(merged(dv))
+    o = merged(o)
+    dxn = dq @ wqf
+    dgamma = (dxn * xhat).sum(0)
+    dxhat = dxn * gamma
+    dx = (dxhat - dxhat.mean(-1, keepdim=True)
+          - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * rstd + dk @ wkf + dv @ wvf
+    return (dx.reshape(r, n, d).to(dt), dgamma, dq.t() @ xn, dk.t() @ x32, dv.t() @ x32,
+            gb.t() @ o, dqs, dks, dbias if bias is not None else None)
+
+
+ATTN_GRADS = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
+
+
+def _bwd_case(n, heads, r=5, d=64, dh=32, seed=37):
+    rng = np.random.default_rng(seed)
+    hd = heads * dh
+    x = _bf16(rng.standard_normal((r, n, d)))
+    gamma = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    wq, wk, wv = (_bf16(rng.standard_normal((hd, d)) / np.sqrt(d)) for _ in range(3))
+    wo = _bf16(rng.standard_normal((d, hd)) / np.sqrt(hd))
+    qs, ks = (torch.from_numpy((1.0 + 0.1 * rng.standard_normal(dh)).astype(np.float32))
+              for _ in range(2))
+    bias = torch.from_numpy(rng.standard_normal((heads, n, n)).astype(np.float32))
+    g = _bf16(rng.standard_normal((r, n, d)))
+    return (x, gamma, wq, wk, wv, wo, qs, ks, bias, g, 8.0)
+
+
+def _grad_errs(got, want):
+    return {k: _rel_err(a, b) for k, a, b in zip(ATTN_GRADS, got, want) if b is not None}
+
+
+@pytest.mark.parametrize("n,heads", [(64, 2), (100, 4)])
+def test_backward_core_tiles_match_attn_block_bwd_plain(n, heads):
+    """The emulated tensor-core backward (R = 5 sequences; n one key chunk,
+    or ragged against the 64-row tiles) gives every gradient of
+    attn_block_bwd_plain within the card's band, and the key pass's
+    recomputed S^T stays within SCORE_BAND of the query pass's S and of
+    the fp32 scores."""
+    args = _bwd_case(n, heads)
+    want = attn_block_bwd_plain(*args)
+    got = block_bwd_with_core(*args, bwd_core)
+    errs = _grad_errs(got, want)
+    assert max(errs.values()) <= FLOAT_BAND, errs
+    rng = np.random.default_rng(38)
+    qh = _unit_heads(rng, (2, heads, n, 32), 8.0)
+    kh = _unit_heads(rng, (2, heads, n, 32), 1.0)
+    v = _bf16(rng.standard_normal((2, heads, n, 32))).float()
+    *_, s, st = bwd_core(qh, kh, v, v, None)
+    assert (st.transpose(-1, -2) - s).abs().max().item() <= SCORE_BAND
+    assert (s - qh @ kh.transpose(-1, -2)).abs().max().item() <= SCORE_BAND
+
+
+@pytest.mark.parametrize("fault,grad", [("row_term", "dx"), ("dbias_tile", "dbias"),
+                                        ("dbias_seq", "dbias")])
+def test_backward_core_controls_miss(fault, grad):
+    """A core without the softmax row term, a dbias block never written,
+    or a dbias sum that leaves out a sequence lies outside the band."""
+    args = _bwd_case(100, 4)
+    want = attn_block_bwd_plain(*args)
+    got = block_bwd_with_core(*args, lambda *a: bwd_core(*a, fault=fault))
+    assert _grad_errs(got, want)[grad] > FLOAT_BAND
+
+
+# ---- the bare cosine core on the shared core (csrc/cosine_attention.cu) ----
+
+def cosine_core(q, k, v, qs, ks, bias, heads, scale, *, fault: str = ""):
+    """csrc/cosine_attention.cu in torch: the prologue l2-normalises each
+    bf16 row in fp32 (max(||.||, 1e-12)), times q_scale * scale or k_scale;
+    the shared two-pass core runs over m keys (split-bf16 scores of the hi /
+    lo pairs) with slice bh taking bias head bh % heads. `fault`:
+    "bias_head" takes head bh // (BH / heads) instead."""
+    bh = q.shape[0]
+
+    def unit(t):
+        t = t.float()
+        return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12)
+
+    qh, kh = unit(q) * (qs * scale), unit(k) * ks
+    if bias is None:
+        b = torch.zeros((bh, q.shape[1], k.shape[1]))
+    elif fault == "bias_head":
+        b = bias.repeat_interleave(bh // heads, 0)
+    else:
+        b = bias.repeat(bh // heads, 1, 1)
+    return two_pass_core(qh, kh, v.float(), b).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bh,n,m,bias", [(8, 70, 130, True), (16, 24, 24, False),
+                                         (8, 100, 33, True)])
+def test_cosine_core_matches_cosine_attention_plain(bh, n, m, bias):
+    """The emulated prologue + shared core against cosine_attention_plain
+    within the card's band, m != n and keys ragged against the 64-key
+    chunks; with a bias, a core that takes the wrong bias head or leaves
+    q_scale out misses it."""
+    rng = np.random.default_rng(39)
+    heads = 4
+    q = _bf16(rng.standard_normal((bh, n, 32)))
+    k, v = (_bf16(rng.standard_normal((bh, m, 32))) for _ in range(2))
+    qs, ks = (torch.from_numpy((1.0 + 0.1 * rng.standard_normal(32)).astype(np.float32))
+              for _ in range(2))
+    b = torch.from_numpy(rng.standard_normal((heads, n, m)).astype(np.float32)) if bias else None
+    want = cosine_attention_plain(q, k, v, qs, ks, b, heads, 8.0)
+    assert _rel_err(cosine_core(q, k, v, qs, ks, b, heads, 8.0), want) <= FLOAT_BAND
+    assert _rel_err(cosine_core(q, k, v, torch.ones_like(qs), ks, b, heads, 8.0),
+                    want) > FLOAT_BAND
+    if bias:
+        bad = cosine_core(q, k, v, qs, ks, b, heads, 8.0, fault="bias_head")
+        assert _rel_err(bad, want) > FLOAT_BAND
