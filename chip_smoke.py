@@ -8,14 +8,18 @@ Phases, each printing its lines before the last:
   2. the build of csrc/*.cu (one nvcc per source, in parallel), with its
      seconds, and the tensor-core instructions in the SASS, counted with
      cuobjdump where the toolkit has it: HGMMA (wgmma) in each GEMM on the
-     Hopper core (csrc/gemm_sm90.cuh) and in attn_qrows' attention core,
-     every one of which must have some, the GEMMs of vq_nearest (its argmax
-     epilogue) and of attn_qrows' projections (QkvPlan with the per-head
-     l2-norm epilogue) and the qrows core among them; HMMA (mma.sync) in the
-     shared split-bf16 core (csrc/attn_mma.cuh: attn_block's forward, the
-     backward's statistics pass), the backward's query and key passes
-     (attn_block_bwd and attn_packed_bwd), its dbias pass and the
-     cosine_attention core, each of which must have some;
+     Hopper core (csrc/gemm_sm90.cuh), in each weight-gradient kernel on
+     its MN-major variant (csrc/wgrad_sm90.cuh) and in attn_qrows'
+     attention core, every one of which must have some, the GEMMs of
+     vq_nearest (its argmax epilogue), of attn_qrows' projections (QkvPlan
+     with the per-head l2-norm epilogue), of the fp32 BERT layer (SplitPlan:
+     three bf16 passes a product) and of geglu_ff_bwd (the value / gate
+     recompute with dh, the weight gradients) and the qrows core among them; HMMA
+     (mma.sync) in the shared split-bf16 core (csrc/attn_mma.cuh:
+     attn_block's forward, the backward's statistics pass), the backward's
+     query and key passes (attn_block_bwd and attn_packed_bwd), its dbias
+     pass, the cosine_attention core and the fp32 BERT layer's attention,
+     each of which must have some;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -31,7 +35,11 @@ Phases, each printing its lines before the last:
      first; each float check also shows that its
      band rejects a plain version that leaves out a norm gain, LN bias, q/k
      scale, the position bias, the LN1 fold's gain or mean correction, the
-     key mask or the QKV bias;
+     key mask or the QKV bias; the fp32 BERT layer (every product as three
+     bf16 products of hi / lo planes) also that it rejects the kernel with
+     one bf16 product each (lo planes zeroed), that skipping the key chunks
+     the mask removes changes no bit, and that it reads no faster than its
+     route's bound (three bf16 products at the bf16 peak);
   4. the zero-shot slice at flagship width and the default configuration
      (conv patch embed; random weights from a seed): CTClipInference.predict
      over 3 batches of 2 bf16 volumes [2, 1, 240, 480, 480], encoding the 36
@@ -75,8 +83,10 @@ Phases, each printing its lines before the last:
      projection dropped, g missing from dx under the residual, dbias zero,
      dbias with one sequence left out of its sum, dbias with one 64 x 64
      block of its pass left unwritten, GELU for its derivative, wv / cin
-     swapped in the weight grad); attn_block_bwd's dbias the same bits on
-     two calls (its pass sums in a fixed order);
+     swapped in the weight grad, geglu_ff_bwd's weight gradients with a
+     64-token slice left out or one 128 x 128 tile unwritten);
+     attn_block_bwd's dbias and geglu_ff_bwd's weight gradients the same
+     bits on two calls (each sums in a fixed order, no atomics);
   6. the four kernels of the 512-token train step at the shapes a B = 2
      step gives them: the bf16 BERT layer, deterministic and in train mode
      (dropout 0.1 / 0.1), and its backward (dx and the twelve parameter
@@ -118,6 +128,10 @@ Phases, each printing its lines before the last:
      the same codebook ids and end to end, with the plain tokenizer's id
      agreement; an fp32 scan refused; and `maskgit_generate` at B = 1 over
      18 steps: 108 attn_qrows launches, every id inside the codebook.
+Kernel times are CUDA events over 10 calls after 2 warm-ups; every
+library_ms is the median of 5 windows of 50 calls, with their range on the
+kernel's line (a library chain of ~0.3 ms reads what the host's launches
+allow in a short window).
 The line before the last is the kernels' JSON record (launches: the
 zero-shot run's counts for the forward kernels, phase 4b's for
 geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
@@ -129,6 +143,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -137,8 +152,9 @@ from pathlib import Path
 
 # Read on an H100 80GB HBM3 at 700 W: the bf16 kernels' branches within
 # 3.3e-3 to 5.4e-3 of their plain versions, the fault controls 0.038 to 0.94;
-# the fp32 BERT layer within 5.5e-7 (controls 0.020 to 0.44) and the prompt
-# latents within 6e-8 (1 - cos; control 0.19).
+# the fp32 BERT layer within 1.3e-5 as three bf16 products a product (5.5e-7
+# on FFMA; controls 0.020 to 0.44, one bf16 product each 2.7e-3) and the
+# prompt latents within 6e-8 (1 - cos; control 0.19).
 FLOAT_BAND = 1.5e-2      # max relative error of a bf16 kernel's branch vs its plain version
 VQ_AGREE = 0.999         # least share of equal VQ indices
 VQ_TIE = 1e-3            # a mismatch must be a near-tie: fp32 sims within this
@@ -173,6 +189,8 @@ PROMPTS, PROMPT_LEN = 36, 512
 # larger of its FLOPs over the peak of its operands' type and its bytes (each
 # input read once, each output written once) over the memory rate
 BF16_PEAK, FP32_PEAK, INT8_PEAK, HBM_RATE = 989e12, 67e12, 1979e12, 3.35e12
+LIB_WINDOWS, LIB_CALLS = 5, 50      # library_ms: the median of 5 windows of 50 calls
+SLICE, TILE = 64, 128               # the weight-gradient kernel's token slice and output tile
 
 KERNELS = {
     "attn_block": ("ct_clip_ut_tpu_torch/csrc/attn_block.cu",
@@ -247,10 +265,14 @@ COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at
 
 # Mangled-name marks of the wgmma kernels that must be in the library: the
 # argmax GEMM of vq_nearest, the q / k / v GEMM and the attention core of
-# attn_qrows
+# attn_qrows, the fp32 BERT layer's split products, the FF backward's
+# recompute and its MN-major weight gradients
 SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "attn_qrows projections (QkvPlan, qr::QkvEpi)": "2qr6QkvEpi",
-                 "attn_qrows core": "2qr11core_kernel"}
+                 "attn_qrows core": "2qr11core_kernel",
+                 "fp32 bert_layer products (SplitPlan: three bf16 passes)": "9SplitPlan",
+                 "geglu_ff_bwd value / gate recompute with dh (GateBwdEpi)": "10GateBwdEpi",
+                 "geglu_ff_bwd weight gradients (FFWgradPlan, MN-major)": "11FFWgradPlan"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, the backward's statistics)":
                          "17block_core_kernel",
@@ -259,7 +281,9 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, the backward's statistics)":
                      "the backward's key pass (attn_block_bwd, attn_packed_bwd)":
                          "14bwd_dkv_kernel",
                      "attn_block_bwd dbias pass": "16bwd_dbias_kernel",
-                     "cosine_attention core": "18cosine_core_kernel"}
+                     "cosine_attention core": "18cosine_core_kernel",
+                     "fp32 bert_layer attention (split-bf16 scores and P.V)":
+                         "4bert11attn_kernel"}
 
 
 def sass_check(lib: Path) -> None:
@@ -281,7 +305,8 @@ def sass_check(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if ("sm90" in fn and "gemm_kernel" in fn) or "2qr11core_kernel" in fn:
+            if ("sm90" in fn and ("gemm_kernel" in fn or "wgrad_kernel" in fn)
+                    or "2qr11core_kernel" in fn or "3ffb15gate_bwd_kernel" in fn):
                 counts.setdefault(fn, 0)
             if any(mark in fn for mark in SASS_MMA_REQUIRED.values()):
                 mma.setdefault(fn, 0)
@@ -330,6 +355,29 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class LibraryMs(float):
+    """A library call's ms per call: the median of LIB_WINDOWS windows of
+    LIB_CALLS calls each (CUDA events), with their range. At ~0.3 ms a call
+    a single short window reads what the host's launches allow; the median
+    of long windows is the yardstick."""
+
+    def __new__(cls, times: list):
+        obj = super().__new__(cls, statistics.median(times))
+        obj.lo, obj.hi = min(times), max(times)
+        return obj
+
+    @property
+    def span(self) -> str:
+        return f"median of {LIB_WINDOWS} x {LIB_CALLS} calls, range {self.lo:.3f}-{self.hi:.3f}"
+
+
+def library_time(torch, fn) -> LibraryMs:
+    """fn's LibraryMs, after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    return LibraryMs([cuda_ms(torch, fn, LIB_CALLS, warmup=0) for _ in range(LIB_WINDOWS)])
 
 
 def rel_err(got, want) -> float:
@@ -432,7 +480,7 @@ def library_grad_ms(torch, fn, leaves: list, g) -> tuple:
 
     step()
     grads = [t.grad for t in leaves]
-    return cuda_ms(torch, step), grads
+    return library_time(torch, step), grads
 
 
 def kernel_phase(torch, model, card: str) -> dict:
@@ -509,9 +557,10 @@ def kernel_phase(torch, model, card: str) -> dict:
         ms = cuda_ms(torch, lambda: kern(*args, residual=True))
         plain_ms = cuda_ms(torch, lambda: plain(*args, residual=True))
         lib_err = rel_err(library(*args, residual=False), want)
-        library_ms = cuda_ms(torch, lambda: library(*args, residual=True))
+        library_ms = library_time(torch, lambda: library(*args, residual=True))
         print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain "
-              f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
+              f"{library_ms:.3f} ms ({library_ms.span}) (max_rel_err {lib_err:.3e} vs the plain "
+              f"version) [{card}]")
         x = args[0]
         m, dm = x.numel() // x.shape[-1], x.shape[-1]
         if name == "geglu_ff":
@@ -536,11 +585,12 @@ def kernel_phase(torch, model, card: str) -> dict:
     ms = cuda_ms(torch, lambda: vq_nearest(tok, cb))
     plain_ms = cuda_ms(torch, lambda: vq_nearest_plain(tok, cb))
     lib_agree = ((tok @ cb.t()).argmax(-1) == want).float().mean().item()
-    library_ms = cuda_ms(torch, lambda: (tok @ cb.t()).argmax(-1))
+    library_ms = library_time(torch, lambda: (tok @ cb.t()).argmax(-1))
     print(f"kernel vq_nearest {list(tok.shape)} x {list(cb.shape)}: {agree:.6f} of indices "
           f"equal (band {VQ_AGREE}), {bad.numel()} mismatches, largest sim gap {gap:.3e} "
           f"(band {VQ_TIE}); {ms:.3f} ms vs plain {plain_ms:.3f} ms, tok @ cb.t() + argmax "
-          f"{library_ms:.3f} ms ({lib_agree:.6f} of its indices equal the plain version's) "
+          f"{library_ms:.3f} ms ({library_ms.span}) ({lib_agree:.6f} of its indices equal the "
+          f"plain version's) "
           f"[{card}]")
     if agree < VQ_AGREE or gap > VQ_TIE:
         raise AssertionError(f"vq_nearest: agreement {agree}, tie gap {gap}")
@@ -614,11 +664,12 @@ def patch_embed_check(torch, model, card: str, g) -> dict:
         ms = cuda_ms(torch, lambda: patch_embed_fused(*args, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_plain(*args, p, tp))
         lib_err = rel_err(library(image), want)
-        library_ms = cuda_ms(torch, lambda: library(image))
+        library_ms = library_time(torch, lambda: library(image))
     abs_err = band_check("patch_embed", got, want, FLOAT_BAND, controls,
                          f"{list(image.shape)} -> {list(got.shape)}")
     print(f"kernel patch_embed: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain "
-          f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
+          f"{library_ms:.3f} ms ({library_ms.span}) (max_rel_err {lib_err:.3e} vs the plain "
+          f"version) [{card}]")
     m, dim = got.numel() // got.shape[-1], got.shape[-1]
     k = kw.shape[0] * kw.shape[1]
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -631,12 +682,17 @@ def bert_layer_check(torch, model, card: str, g) -> dict:
     """One BERT layer in fp32 on [36, 512, 768], keys padded after 6 to 14
     real tokens per row and two rows at full length, LN gains drawn as
     1 + 0.1 N and biases as 0.1 N. Controls: mask dropped, LN1's gain left
-    out, QKV bias left out. library_ms: nn.TransformerEncoderLayer (post-LN,
-    exact GELU) in eval mode with the same weights and key padding mask,
-    one PyTorch call computing the same function (a yardstick: the port
-    never calls it)."""
+    out, QKV bias left out, and the kernel with one bf16 product for each
+    fp32 one (every lo plane zeroed). The key chunks the mask removes add
+    exactly 0: the output must be the same bits as the kernel's that walks
+    them. library_ms: nn.TransformerEncoderLayer (post-LN, exact GELU) in
+    eval mode with the same weights and key padding mask, one PyTorch call
+    computing the same function (a yardstick: the port never calls it).
+    bound_ms: the route's, three bf16 products for each fp32 one at the
+    bf16 peak, the attention over the real keys only; the kernel must not
+    read faster."""
     from ct_clip_ut_tpu_torch.models.bert import layer_args
-    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_plain
+    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_fp32, bert_layer_plain
 
     bcfg = model.cfg.bert
     d, heads, eps = bcfg.hidden_size, bcfg.num_heads, bcfg.layer_norm_eps
@@ -654,6 +710,7 @@ def bert_layer_check(torch, model, card: str, g) -> dict:
     with torch.no_grad():
         got = bert_layer(*args, heads, eps)
         want = bert_layer_plain(*args, heads, eps)
+        walked = bert_layer_fp32(*args, heads, eps, skip_masked=False)
         torch.cuda.synchronize()
         faults = {"no mask": (1, torch.zeros_like(mask_row)), "no LN1 gain": (6, torch.ones_like(w[4])),
                   "no QKV bias": (3, torch.zeros_like(w[1]))}
@@ -662,6 +719,8 @@ def bert_layer_check(torch, model, card: str, g) -> dict:
             wrong = list(args)
             wrong[i] = value
             controls[fault] = rel_err(got, bert_layer_plain(*wrong, heads, eps))
+        controls["one-pass bf16 products"] = rel_err(
+            bert_layer_fp32(*args, heads, eps, one_pass=True), want)
         ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps))
         plain_ms = cuda_ms(torch, lambda: bert_layer_plain(*args, heads, eps))
 
@@ -677,16 +736,26 @@ def bert_layer_check(torch, model, card: str, g) -> dict:
         lib_out = lib(x, src_key_padding_mask=pad)
         keep = ~pad
         lib_err = rel_err(lib_out[keep], want[keep])
-        library_ms = cuda_ms(torch, lambda: lib(x, src_key_padding_mask=pad))
+        library_ms = library_time(torch, lambda: lib(x, src_key_padding_mask=pad))
     abs_err = band_check("bert_layer", got, want, BERT_BAND, controls,
                          f"fp32 {list(x.shape)}, {int(keep.sum())} real tokens")
-    print(f"kernel bert_layer: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-          f"nn.TransformerEncoderLayer {library_ms:.3f} ms (its real rows vs the plain "
-          f"version: max_rel_err {lib_err:.3e}) [{card}]")
+    same = torch.equal(got, walked)
+    print(f"kernel bert_layer: masked key chunks skipped vs walked: the same bits: {same}")
+    if not same:
+        raise AssertionError("bert_layer: skipping the masked key chunks changed the output")
     b, n, f = PROMPTS, PROMPT_LEN, w[6].shape[0]
-    flops = 2 * b * n * d * (3 * d + d + 2 * f) + 4 * b * n * n * d
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                **bound(flops, nbytes(x, mask_row, *w, got), FP32_PEAK), library_ms=library_ms)
+    linear = 2 * b * n * d * (3 * d + d + 2 * f)
+    real_keys = int(lengths.sum())
+    rec = bound(3 * (linear + 4 * n * d * real_keys), nbytes(x, mask_row, *w, got), BF16_PEAK)
+    ffma_ms = 1e3 * (linear + 4 * b * n * n * d) / FP32_PEAK
+    print(f"kernel bert_layer: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+          f"nn.TransformerEncoderLayer {library_ms:.3f} ms ({library_ms.span}) (its real rows vs "
+          f"the plain version: max_rel_err {lib_err:.3e}); bound {rec['bound_ms']:.4f} ms "
+          f"(three bf16 products, {real_keys} real keys), the fp32 FFMA bound over every key "
+          f"{ffma_ms:.3f} ms [{card}]")
+    if ms < rec["bound_ms"]:
+        raise AssertionError(f"bert_layer: {ms} ms reads faster than its bound {rec['bound_ms']}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec, library_ms=library_ms)
 
 
 def slice_phase(torch, model, card: str) -> dict:
@@ -889,12 +958,12 @@ def int8_check(torch, model, card: str) -> dict:
     lib_err = rel_rms(library(), geglu_ff_int8_plain(x, *args, residual=True))
     ms = cuda_ms(torch, lambda: geglu_ff_int8(x, *args, residual=True))
     plain_ms = cuda_ms(torch, lambda: geglu_ff_int8_plain(x, *args, residual=True), iters=3)
-    library_ms = cuda_ms(torch, library)
+    library_ms = library_time(torch, library)
     flops = 2 * x.shape[0] * d * q.inner_dim * 3
     rec = bound(flops, nbytes(x, *args, x), INT8_PEAK)
     print(f"kernel geglu_ff_int8: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), torch._int_mm chain {library_ms:.3f} "
-          f"ms (relative rms {lib_err:.3e} vs the plain version) [{card}]")
+          f"ms ({library_ms.span}) (relative rms {lib_err:.3e} vs the plain version) [{card}]")
     return dict(max_abs_err=branch_abs_err, ms=ms, plain_ms=plain_ms, **rec,
                 library_ms=library_ms)
 
@@ -1076,12 +1145,13 @@ def cosine_check(torch, card: str) -> tuple:
         lib_err = rel_err(library(), want)
         ms = cuda_ms(torch, lambda: cosine_attention(*args))
         plain_ms = cuda_ms(torch, lambda: cosine_attention_plain(*args), iters=3)
-        library_ms = cuda_ms(torch, library)
+        library_ms = library_time(torch, library)
         rec = bound(4 * bh * n * n * dh, nbytes(q, k, v, qs, ks, got)
                     + (nbytes(bias) if with_bias else 0), BF16_PEAK)
         print(f"kernel cosine_attention [{bh}, {n}, {dh}]: {ms:.3f} ms vs plain {plain_ms:.3f} "
               f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), SDPA yardstick "
-              f"{library_ms:.3f} ms (max_rel_err {lib_err:.3e} vs the plain version) [{card}]")
+              f"{library_ms:.3f} ms ({library_ms.span}) (max_rel_err {lib_err:.3e} vs the plain "
+              f"version) [{card}]")
         if record is None:
             record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
                           library_ms=library_ms)
@@ -1186,6 +1256,21 @@ def backward_phase(torch, model, card: str) -> dict:
         torch.cuda.synchronize()
         faulty = {f: dict(zip(names, plain(*args, gr, *extra, False, faults=(fault,))))
                   for f, fault in faults.items()}
+        if name == "geglu_ff_bwd":
+            # the weight-gradient tiles' faults: a 64-token slice left out
+            # of the sum, one 128 x 128 tile of each weight never written
+            short = plain(args[0][SLICE:], *args[1:], gr[SLICE:], False)
+            holes = {k: want[k].clone() for k in ("dw_in", "dw_out")}
+            for t in holes.values():
+                t[-TILE:, -TILE:] = 0
+            faulty.update({"dW with one token slice left out": {"dw_in": short[3],
+                                                                "dw_out": short[4]},
+                           "dW with one tile unwritten": holes})
+            again = kern(*args, gr, False)
+            same = torch.equal(again[3], got["dw_in"]) and torch.equal(again[4], got["dw_out"])
+            print(f"kernel {name}: dW of two calls equal: {same}")
+            if not same:
+                raise AssertionError(f"{name}: the weight gradients differ between two calls")
         if "dbias" in want:
             # the dbias pass's faults: its sum short of one sequence, one
             # 64 x 64 block never written
@@ -1217,7 +1302,8 @@ def backward_phase(torch, model, card: str) -> dict:
         library_ms, lib_grads = library_grad_ms(torch, library, args, gr)
         lib_err = max(rel_err(lg, want[k]) for k, lg in zip(names, lib_grads))
         print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain's "
-              f"forward + backward {library_ms:.3f} ms (its gradients vs the plain ones: "
+              f"forward + backward {library_ms:.3f} ms ({library_ms.span}) (its gradients vs the "
+              f"plain ones: "
               f"max_rel_err {lib_err:.3e}) [{card}]")
         x = args[0]
         m = x.numel() // d
@@ -1277,9 +1363,9 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
         ms = cuda_ms(torch, lambda: patch_embed_res(*args, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
         lib_err = rel_err(library(image), want["out"])
-        library_ms = cuda_ms(torch, lambda: library(image))
+        library_ms = library_time(torch, lambda: library(image))
         print(f"kernel patch_embed_res: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch "
-              f"chain {library_ms:.3f} ms (its output vs the plain out: max_rel_err "
+              f"chain {library_ms:.3f} ms ({library_ms.span}) (its output vs the plain out: max_rel_err "
               f"{lib_err:.3e}) [{card}]")
         m, dim = got["conv"].shape
         k = kw.shape[0] * kw.shape[1]
@@ -1305,10 +1391,11 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
         go = dconv.reshape(b, T // tp, H // p, W // p, dim).permute(0, 4, 1, 2, 3).contiguous()
         lib = torch.nn.grad.conv3d_weight(image, (dim, 1, tp, p, p), go, stride=(tp, p, p))
         lib_err = rel_err(lib.reshape(dim, k // p, p).permute(2, 1, 0), want)
-        library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+        library_ms = library_time(torch, lambda: torch.nn.grad.conv3d_weight(
             image, (dim, 1, tp, p, p), go, stride=(tp, p, p)))
         print(f"kernel patch_embed_dkw: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms (vs the plain version: "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms ({library_ms.span}) (vs the plain "
+              f"version: "
               f"max_rel_err {lib_err:.3e}) [{card}]")
         out["patch_embed_dkw"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -1431,9 +1518,10 @@ def bert_train_check(torch, model, card: str) -> dict:
         lib_out = lib(x, src_key_padding_mask=pad)
         det = bert_layer_plain(*args, heads, eps)
         lib_err = rel_err(lib_out[~pad], det[~pad])
-        library_ms = cuda_ms(torch, lambda: lib(x, src_key_padding_mask=pad))
+        library_ms = library_time(torch, lambda: lib(x, src_key_padding_mask=pad))
     print(f"kernel bert_layer_bf16: train {ms:.3f} ms, deterministic {det_ms:.3f} ms vs plain "
           f"(train) {plain_ms:.3f} ms, nn.TransformerEncoderLayer (bf16, eval) {library_ms:.3f} ms "
+          f"({library_ms.span}) "
           f"(its real rows vs the plain version: max_rel_err {lib_err:.3e}) [{card}]")
     flops = 2 * b * n * d * (3 * d + d + 2 * f) + 4 * b * heads * n * n * (d // heads)
     wbytes = 2 * (4 * d * d + 2 * d * f) + 4 * (3 * d + d + f + 5 * d)     # bf16 matrices, fp32 vectors
@@ -1477,10 +1565,10 @@ def bert_train_check(torch, model, card: str) -> dict:
         xl.grad = None
         lib(xl, src_key_padding_mask=pad).backward(dout)
 
-    library_ms = cuda_ms(torch, lib_step)
+    library_ms = library_time(torch, lib_step)
     print(f"kernel bert_layer_bwd: {ms:.3f} ms (the forward recomputed inside) vs plain "
           f"{plain_ms:.3f} ms, nn.TransformerEncoderLayer forward + backward (bf16, dropout 0) "
-          f"{library_ms:.3f} ms [{card}]")
+          f"{library_ms:.3f} ms ({library_ms.span}) [{card}]")
     flops = 6 * b * n * d * (3 * d + d + 2 * f) + 12 * b * heads * n * n * (d // heads)
     out["bert_layer_bwd"] = dict(
         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -1543,10 +1631,11 @@ def peg_check(torch, model, card: str) -> dict:
                           peg_plain(x, taps, bias, 2).reshape(tokens.shape))
         ms = cuda_ms(torch, lambda: peg(x, taps, bias, 2))
         plain_ms = cuda_ms(torch, lambda: peg_plain(x, taps, bias, 2))
-        library_ms = cuda_ms(torch, lambda: peg_residual(weight, bias, tokens,
+        library_ms = library_time(torch, lambda: peg_residual(weight, bias, tokens,
                                                          (BATCH, t, h, w), True))
         print(f"kernel peg: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the default route (NCDHW copy "
-              f"+ F.conv3d + copy back) {library_ms:.3f} ms (vs the plain version, with its "
+              f"+ F.conv3d + copy back) {library_ms:.3f} ms ({library_ms.span}) (vs the plain "
+              f"version, with its "
               f"residual: max_rel_err {lib_err:.3e}) [{card}]")
         npos = x.numel() // c
         out["peg"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -1571,10 +1660,11 @@ def peg_check(torch, model, card: str) -> dict:
         gc = gr.permute(0, 4, 1, 2, 3).contiguous()
         lib = torch.nn.grad.conv3d_weight(xc, (c, 1, 3, 3, 3), gc, groups=c)
         lib_err = rel_err(lib, want["dw"])
-        library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(xc, (c, 1, 3, 3, 3), gc,
+        library_ms = library_time(torch, lambda: torch.nn.grad.conv3d_weight(xc, (c, 1, 3, 3, 3), gc,
                                                                          groups=c))
         print(f"kernel peg_weight_grads: {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms (vs the plain version: max_rel_err "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms ({library_ms.span}) (vs the plain "
+              f"version: max_rel_err "
               f"{lib_err:.3e}) [{card}]")
         out["peg_weight_grads"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -1842,14 +1932,15 @@ def qrows_check(torch, model, card: str, g) -> dict:
             return o.transpose(1, 2).reshape(b, n, heads * dh) @ wo.t()
 
         lib_err = rel_err(library(), want)
-        library_ms = cuda_ms(torch, lambda: library() + x)
+        library_ms = library_time(torch, lambda: library() + x)
         hd = heads * dh
         flops = 2 * b * (4 * n * x.shape[-1] * hd + heads * 2 * n * n * dh)
         rec = bound(flops, nbytes(x, *w, bias, got), BF16_PEAK)
         floor_ms = 1e3 * 2 * nbytes(bias) / HBM_RATE     # the two passes read the table twice
         print(f"kernel attn_qrows B={b}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), two-pass floor of bias bytes "
-              f"{floor_ms:.4f} ms, SDPA yardstick {library_ms:.3f} ms (max_rel_err "
+              f"{floor_ms:.4f} ms, SDPA yardstick {library_ms:.3f} ms ({library_ms.span}) "
+              f"(max_rel_err "
               f"{lib_err:.3e} vs the plain branch) [{card}]")
         out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec, library_ms=library_ms)
     return out

@@ -46,8 +46,8 @@ SIGNATURES = {
     "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 7 + [_P],
     "ctc_attn_block_bwd": [_P] * 34 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed_bwd": [_P] * 31 + [_I] * 4 + [_F, _I, _P],
-    "ctc_geglu_ff_bwd": [_P] * 18 + [_I] * 5 + [_P],
-    "ctc_bert_layer": [_P] * 20 + [_I] * 5 + [_F, _F, _P],
+    "ctc_geglu_ff_bwd": [_P] * 17 + [_I] * 5 + [_P],
+    "ctc_bert_layer": [_P] * 26 + [_I] * 6 + [_F, _F, _P],
     "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd": [_P] * 53 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_keep_mask": [_P, _U, _I, _I, _I, _U, _F, _P, _P],
@@ -55,7 +55,8 @@ SIGNATURES = {
     "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
     "ctc_cosine_attention": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "ctc_gemm_sm90_check": [_P] * 3 + [_I] * 5 + [_P],
+    "ctc_gemm_sm90_check": [_P] * 3 + [_I] * 6 + [_P],
+    "ctc_wgrad_sm90_check": [_P] * 3 + [_I] * 5 + [_P],
     "ctc_attn_block_max_n": [],
     "ctc_attn_packed_max_n": [],
     "ctc_attn_bwd_max_n": [],

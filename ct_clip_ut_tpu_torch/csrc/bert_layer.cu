@@ -11,354 +11,464 @@
 // finfo(float32).min) and LayerNorm in the TPU kernel's one-pass
 // E[r^2] - E[r]^2 form.
 //
-// What bounds it on the H100: fp32 operations. 2 * B * n * D * (3D + D + 2F)
-// in the four products plus 4 * B * heads * n^2 * dh in attention: 290
-// GFLOP per layer at 36 x 512, 4.3 ms at the 67 TFLOP/s fp32 (CUDA-core)
-// rate; the bytes (activations and 28 MB of weights) take a hundredth of
-// that. The function is fp32, so the products run as FFMA on the CUDA cores
-// (no TF32, whose 10-bit mantissa is far coarser than the fp32 reference).
-// The TPU kernel holds a whole layer in VMEM; one head's fp32 K and V at
-// n = 512 (256 KB) do not even fit a block's 227 KB of shared memory, so the
-// layer is a chain of seven launches, counted as one kernel:
-//   sgemm_kernel<EpiBias>         qkv = x Wqkv^T + bqkv
-//   bert_attn_kernel              per (sequence, head, 64 query rows): keys
-//                                 and values streamed in tiles of 64 with an
-//                                 online softmax (running max and sum), ctx
-//   sgemm_kernel<EpiBiasResidual> r = ctx Wo^T + bo + x
-//   bert_ln_kernel                y = LN1(r)
-//   sgemm_kernel<EpiBiasGelu>     h = gelu(y W1^T + b1)   (erff, exact)
-//   sgemm_kernel<EpiBiasResidual> r = h W2^T + b2 + y     (y in fp32)
-//   bert_ln_kernel                out = LN2(r)
-// The fp32 GEMM is a register-blocked tile: 128 x 128 per block of 256
-// threads, 8 x 8 outputs per thread, K in steps of 8 double-buffered in
-// shared memory through registers.
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+// What bounds it on the H100: operations. 2 * B * n * D * (3D + D + 2F) in
+// the four products plus 4 * B * heads * n * keys * dh in attention, 290
+// GFLOP a layer at 36 x 512 with every key: 4.3 ms at the 67 TFLOP/s of
+// fp32 FFMA. The tensor cores take bf16, whose one-pass products miss the
+// fp32 layer by ~1e-3, so every product is made of three bf16 products
+// with fp32 sums, a . b ~ a_hi b_hi + a_lo b_hi + a_hi b_lo with hi =
+// bf16(a), lo = bf16(a - hi): within ~2^-16 of fp32 (the layer within
+// ~5e-6 of its fp32 version on the CPU, where one-pass bf16 products miss
+// by ~1e-3 and a one-pass P.V alone by ~3e-4). Bound of that route: three
+// times the products at 989 TFLOP/s, 0.88 ms. The chain:
+//   split_kernel x 5          x and the four weight matrices as hi / lo
+//                             bf16 planes (per call)
+//   gemm_kernel<SplitPlan>    qkv = x Wqkv^T + bqkv, written as hi / lo
+//                             planes (SplitEpi): the Hopper core of
+//                             gemm_sm90.cuh walking K three times, one pass
+//                             a product
+//   attn_kernel               per (sequence, head, 64 queries), mma.sync
+//                             split-bf16 scores and P.V with an online
+//                             softmax in fp32 over 64-key chunks staged by
+//                             cp.async; key chunks whose keys the mask
+//                             removes entirely (while the sequence has a
+//                             real key) add exactly 0 and are skipped: a
+//                             prompt of 6-14 tokens reads one chunk of 8;
+//                             ctx written as hi / lo planes
+//   gemm_kernel<SplitPlan>    r = ctx Wo^T + bo + x (fp32)
+//   ln_kernel                 y = LN1(r) in fp32 and as hi / lo planes
+//   gemm_kernel<SplitPlan>    h = gelu(y W1^T + b1) as hi / lo planes (erff)
+//   gemm_kernel<SplitPlan>    r = h W2^T + b2 + y (fp32)
+//   ln_kernel                 out = LN2(r)
+// flags: ONE_PASS writes every lo plane as zeros (one-pass bf16 products:
+// the control that shows the band needs the split); NO_SKIP walks every
+// key chunk (the skipped chunks' sums are the same bits).
+#include "attn_mma.cuh"
 
-namespace ctc_bert {
+namespace ctc {
+namespace bert {
 
-constexpr int SG_BM = 128, SG_BN = 128, SG_BK = 8, SG_THREADS = 256;
-constexpr int SG_LD = SG_BM + 4;  // 16-B aligned rows; the transposed stores hit distinct banks
+using bf16 = __nv_bfloat16;
+using sm90::BN;
+using tc::cp_async16;
+using tc::ldsm_x4;
+using tc::ldsm_x4_t;
+using tc::mma16816;
 
-struct EpiBias {
-  const float* bias;
-  float* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
-    const float4 b = *reinterpret_cast<const float4*>(bias + n);
-    *reinterpret_cast<float4*>(out + (int64_t)m * ld + n) =
-        make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
-  }
-};
-
-struct EpiBiasResidual {
-  const float* bias;
-  const float* res;
-  float* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
-    const float4 b = *reinterpret_cast<const float4*>(bias + n);
-    const float4 r = *reinterpret_cast<const float4*>(res + (int64_t)m * ld + n);
-    *reinterpret_cast<float4*>(out + (int64_t)m * ld + n) =
-        make_float4((v.x + b.x) + r.x, (v.y + b.y) + r.y, (v.z + b.z) + r.z, (v.w + b.w) + r.w);
-  }
-};
+constexpr int ONE_PASS = 1, NO_SKIP = 2;
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-struct EpiBiasGelu {
-  const float* bias;
-  float* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float4 v) const {
-    const float4 b = *reinterpret_cast<const float4*>(bias + n);
-    *reinterpret_cast<float4*>(out + (int64_t)m * ld + n) =
-        make_float4(gelu_erf(v.x + b.x), gelu_erf(v.y + b.y), gelu_erf(v.z + b.z),
-                    gelu_erf(v.w + b.w));
-  }
-};
-
-// C[M, N] = A[M, K] @ B[N, K]^T in fp32, handed to `epi` four columns at a
-// time. K and N must be multiples of 4 and A, B 16-B aligned.
-template <class Epi>
-__global__ void __launch_bounds__(SG_THREADS)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
-             Epi epi) {
-  __shared__ __align__(16) float As[2][SG_BK][SG_LD];
-  __shared__ __align__(16) float Bs[2][SG_BK][SG_LD];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * SG_BM, col0 = blockIdx.x * SG_BN;
-  // each thread fetches one float4 of A and one of B per K step
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
-  const bool a_ok = row0 + lr < M, b_ok = col0 + lr < N;
-  const float* a_ptr = A + (int64_t)(a_ok ? row0 + lr : 0) * K + lk;
-  const float* b_ptr = B + (int64_t)(b_ok ? col0 + lr : 0) * K + lk;
-  auto fetch = [&](const float* p, bool ok, int k0) {
-    if (ok && k0 + lk < K) return *reinterpret_cast<const float4*>(p + k0);
-    return make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  float4 ra = fetch(a_ptr, a_ok, 0), rb = fetch(b_ptr, b_ok, 0);
-  auto stash = [&](int buf) {
-    As[buf][lk + 0][lr] = ra.x;
-    As[buf][lk + 1][lr] = ra.y;
-    As[buf][lk + 2][lr] = ra.z;
-    As[buf][lk + 3][lr] = ra.w;
-    Bs[buf][lk + 0][lr] = rb.x;
-    Bs[buf][lk + 1][lr] = rb.y;
-    Bs[buf][lk + 2][lr] = rb.z;
-    Bs[buf][lk + 3][lr] = rb.w;
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  stash(0);
-  __syncthreads();
-  const int nk = (K + SG_BK - 1) / SG_BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      ra = fetch(a_ptr, a_ok, (kt + 1) * SG_BK);
-      rb = fetch(b_ptr, b_ok, (kt + 1) * SG_BK);
-    }
-#pragma unroll
-    for (int k = 0; k < SG_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) stash(cur ^ 1);
-    __syncthreads();
-  }
-  // thread rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = col0 + half * 64 + tx * 4;
-      if (n < N) {
-        epi(m, n, make_float4(acc[i][half * 4], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
-                              acc[i][half * 4 + 3]));
-      }
-    }
-  }
+// (a, b) as a bf16 pair hi and the pair of what it leaves, lo (zeros
+// without keep_lo)
+__device__ __forceinline__ void split2(float a, float b, bool keep_lo, __nv_bfloat162& hi,
+                                       __nv_bfloat162& lo) {
+  hi = __floats2bfloat162_rn(a, b);
+  lo = keep_lo ? __floats2bfloat162_rn(a - __low2float(hi), b - __high2float(hi))
+               : __floats2bfloat162_rn(0.f, 0.f);
 }
 
-constexpr int AT_DH = 64;       // head width the attention core takes
-constexpr int AT_BQ = 64;       // query rows per block
-constexpr int AT_BK = 64;       // keys per streamed tile
-constexpr int AT_THREADS = 256;
-constexpr int AT_LD = 68;       // fp32 stride of the shared tiles (16-B aligned rows)
-constexpr int AT_SMEM = 4 * 64 * AT_LD * 4;
-
-// Per block: one sequence, one head, AT_BQ query rows. Thread (ty, tx) owns
-// query rows ty*4..+3 and, in turn, keys tx*4..+3 of the tile (scores) and
-// head columns tx*4..+3 (output). The 16 threads of a query row are one half
-// of a warp, so the row's max and sum reduce with shuffles.
-__global__ void __launch_bounds__(AT_THREADS)
-bert_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                 float* __restrict__ ctx, int n, int D, float scale) {
-  extern __shared__ __align__(16) float at_smem[];
-  float* Qt = at_smem;                   // [dh][AT_LD]   q transposed
-  float* Kt = Qt + AT_DH * AT_LD;        // [dh][AT_LD]   k transposed
-  float* Vs = Kt + AT_DH * AT_LD;        // [key][AT_LD]
-  float* Pt = Vs + AT_BK * AT_LD;        // [key][AT_LD]  p transposed
-  const int q0 = blockIdx.x * AT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ld3 = 3 * D;
-  const float* seq = qkv + (int64_t)b * n * ld3;
-  const float* mrow = mask + (int64_t)b * n;
-
-  // rows run fastest across threads so the transposed stores hit distinct banks
-  for (int i = tid; i < AT_BQ * (AT_DH / 4); i += AT_THREADS) {
-    const int r = i % AT_BQ, c = (i / AT_BQ) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < n) v = *reinterpret_cast<const float4*>(seq + (int64_t)(q0 + r) * ld3 + h * AT_DH + c);
-    Qt[(c + 0) * AT_LD + r] = v.x;
-    Qt[(c + 1) * AT_LD + r] = v.y;
-    Qt[(c + 2) * AT_LD + r] = v.z;
-    Qt[(c + 3) * AT_LD + r] = v.w;
-  }
-
-  float o[4][4], row_max[4], row_sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_max[i] = -CUDART_INF_F;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n; k0 += AT_BK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < AT_BK * (AT_DH / 4); i += AT_THREADS) {
-      const int r = i % AT_BK, c = (i / AT_BK) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n) kv = *reinterpret_cast<const float4*>(seq + (int64_t)(k0 + r) * ld3 + D + h * AT_DH + c);
-      Kt[(c + 0) * AT_LD + r] = kv.x;
-      Kt[(c + 1) * AT_LD + r] = kv.y;
-      Kt[(c + 2) * AT_LD + r] = kv.z;
-      Kt[(c + 3) * AT_LD + r] = kv.w;
-    }
-    for (int i = tid; i < AT_BK * (AT_DH / 4); i += AT_THREADS) {
-      const int r = i / (AT_DH / 4), c = (i % (AT_DH / 4)) * 4;
-      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n) vv = *reinterpret_cast<const float4*>(seq + (int64_t)(k0 + r) * ld3 + 2 * D + h * AT_DH + c);
-      *reinterpret_cast<float4*>(Vs + r * AT_LD + c) = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < AT_DH; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(Qt + d * AT_LD + ty * 4);
-      const float4 kb = *reinterpret_cast<const float4*>(Kt + d * AT_LD + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, kw[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kw[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx * 4 + j;
-      const float mk = key < n ? mrow[key] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][j] = key < n ? s[i][j] * scale + mk : -CUDART_INF_F;
-    }
-    // online softmax: rescale what the earlier tiles summed to the new row max
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(row_max[i], mx);
-      const float alpha = row_max[i] == -CUDART_INF_F ? 0.f : expf(row_max[i] - m_new);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] == -CUDART_INF_F ? 0.f : expf(s[i][j] - m_new);
-        ls += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
-      row_sum[i] = row_sum[i] * alpha + ls;
-      row_max[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(Pt + (tx * 4 + j) * AT_LD + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < AT_BK; ++k) {
-      const float4 pa = *reinterpret_cast<const float4*>(Pt + k * AT_LD + ty * 4);
-      const float4 vb = *reinterpret_cast<const float4*>(Vs + k * AT_LD + tx * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, vw[4] = {vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], vw[j], o[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    if (q >= n) continue;
-    const float inv = 1.f / row_sum[i];
-    *reinterpret_cast<float4*>(ctx + ((int64_t)b * n + q) * D + h * AT_DH + tx * 4) =
-        make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv, o[i][3] * inv);
-  }
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// ---- the split pass and the LayerNorm rows ------------------------------------
 
-// out = LN(r) * gamma + beta per row of D, one warp per row; the moments in
-// the one-pass form of pallas_bert_layer._ln_fwd.
+// hi / lo planes of n4 float4s of src
 __global__ void __launch_bounds__(256)
-bert_ln_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
-               const float* __restrict__ beta, float* __restrict__ out, int M, int D, float eps) {
+split_kernel(const float4* __restrict__ src, bf16* __restrict__ hi, bf16* __restrict__ lo,
+             int64_t n4, int keep_lo) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float4 v = src[i];
+    __nv_bfloat162 h0, l0, h1, l1;
+    split2(v.x, v.y, keep_lo, h0, l0);
+    split2(v.z, v.w, keep_lo, h1, l1);
+    reinterpret_cast<uint2*>(hi)[i] = make_uint2(as_u32(h0), as_u32(h1));
+    reinterpret_cast<uint2*>(lo)[i] = make_uint2(as_u32(l0), as_u32(l1));
+  }
+}
+
+// out = LN(r) * gamma + beta, one warp a row of D (a multiple of 4), the
+// moments in the one-pass form of pallas_bert_layer._ln_fwd; also as hi /
+// lo planes where `hi` is given.
+__global__ void __launch_bounds__(256)
+ln_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
+          const float* __restrict__ beta, float* __restrict__ out, bf16* __restrict__ hi,
+          bf16* __restrict__ lo, int M, int D, float eps, int keep_lo) {
   const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (m >= M) return;
   const float* row = r + (int64_t)m * D;
   float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float v = row[c];
-    s += v;
-    s2 += v * v;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    s += (v.x + v.y) + (v.z + v.w);
+    s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
   }
-  const float mean = warp_sum(s) / (float)D;
-  const float var = warp_sum(s2) / (float)D - mean * mean;
+  const float mean = sm90::warp_sum(s) / (float)D;
+  const float var = sm90::warp_sum(s2) / (float)D - mean * mean;
   const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
-  for (int c = lane; c < D; c += 32) out[(int64_t)m * D + c] = (row[c] - mean) * rstd * gamma[c] + beta[c];
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
+    const float4 y = make_float4((v.x - mean) * rstd * gm.x + bt.x, (v.y - mean) * rstd * gm.y + bt.y,
+                                 (v.z - mean) * rstd * gm.z + bt.z, (v.w - mean) * rstd * gm.w + bt.w);
+    const int64_t off = (int64_t)m * D + c;
+    *reinterpret_cast<float4*>(out + off) = y;
+    if (hi != nullptr) {
+      __nv_bfloat162 h0, l0, h1, l1;
+      split2(y.x, y.y, keep_lo, h0, l0);
+      split2(y.z, y.w, keep_lo, h1, l1);
+      *reinterpret_cast<uint2*>(hi + off) = make_uint2(as_u32(h0), as_u32(h1));
+      *reinterpret_cast<uint2*>(lo + off) = make_uint2(as_u32(l0), as_u32(l1));
+    }
+  }
 }
 
+// ---- epilogues of the products (registers in the wgmma D layout) ------------
+
+// planes hi / lo [M, N] of acc + bias (GELU: of gelu(acc + bias)); N even
+template <bool GELU>
+struct SplitEpi {
+  bf16* hi;
+  bf16* lo;
+  const float* bias;
+  int M, N, keep_lo;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= N) continue;
+        const float2 bv = *reinterpret_cast<const float2*>(bias + c);
+        float y0 = acc[4 * j + 2 * h] + bv.x, y1 = acc[4 * j + 2 * h + 1] + bv.y;
+        if (GELU) {
+          y0 = gelu_erf(y0);
+          y1 = gelu_erf(y1);
+        }
+        __nv_bfloat162 hv, lv;
+        split2(y0, y1, keep_lo, hv, lv);
+        const int64_t off = (int64_t)m * N + c;
+        *reinterpret_cast<__nv_bfloat162*>(hi + off) = hv;
+        *reinterpret_cast<__nv_bfloat162*>(lo + off) = lv;
+      }
+    }
+  }
+};
+
+// out [M, N] fp32 = (acc + bias) + res; N even
+struct ResidualF32Epi {
+  float* out;
+  const float* bias;
+  const float* res;
+  int M, N;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= N) continue;
+        const int64_t off = (int64_t)m * N + c;
+        const float2 bv = *reinterpret_cast<const float2*>(bias + c);
+        const float2 rv = *reinterpret_cast<const float2*>(res + off);
+        *reinterpret_cast<float2*>(out + off) =
+            make_float2((acc[4 * j + 2 * h] + bv.x) + rv.x, (acc[4 * j + 2 * h + 1] + bv.y) + rv.y);
+      }
+    }
+  }
+};
+
+// ---- the attention core -------------------------------------------------------
+
+constexpr int DH = 64;                  // head width
+constexpr int WARPS = 4;                // 16 query rows each
+constexpr int QT = WARPS * 16;          // query rows a block
+constexpr int KC = 64;                  // keys a staged chunk
+constexpr int PLANE_B = KC * DH * 2;    // one staged plane: 64 rows of 128 B
+constexpr int STAGE_B = 4 * PLANE_B;    // k_hi, k_lo, v_hi, v_lo
+constexpr int ATTN_SMEM = 2 * STAGE_B;  // double-buffered
+// A key whose mask lies below MASKED, in a sequence with a key above REAL,
+// scores below every real key's by ~1e30: its exp is exactly 0 in fp32.
+constexpr float MASKED = -1e30f, REAL = -1e20f;
+
+// Byte offset of (row, 16-B chunk) in a staged [64][64] bf16 plane: the
+// chunk index XOR the row's low three bits, so the 8 rows an ldmatrix reads
+// hit 8 distinct bank groups.
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// qkv planes hi / lo [B n][3D] (q, k, v of head h at columns h * 64, D +
+// h * 64, 2D + h * 64); mask [B][n] additive; ctx planes [B n][D]. One
+// block per (64 query rows, head, sequence).
+__global__ void __launch_bounds__(WARPS * 32)
+attn_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
+            const float* __restrict__ mask, bf16* __restrict__ ctx_hi, bf16* __restrict__ ctx_lo,
+            int n, int D, float scale, int flags) {
+  extern __shared__ __align__(128) char smem[];
+  const int b = blockIdx.z, h = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, ld = 3 * D, nch = (n + KC - 1) / KC;
+  const bool keep_lo = !(flags & ONE_PASS);
+  const int64_t seq0 = (int64_t)b * n;
+  const float* mrow = mask + seq0;
+  const uint32_t sbase = sm90::smem_u32(smem);
+
+  // every warp reaches the same answers from the same mask row, so the
+  // block agrees on which chunks it stages
+  bool any_real = false;
+  if (!(flags & NO_SKIP)) {
+    for (int k = lane; k < n; k += 32) any_real |= mrow[k] > REAL;
+    any_real = __any_sync(0xffffffffu, any_real);
+  }
+  auto next_live = [&](int c) {
+    for (; c < nch && any_real; ++c) {
+      const int k0 = c * KC + lane, k1 = k0 + 32;
+      const bool dead = (k0 >= n || mrow[k0] < MASKED) && (k1 >= n || mrow[k1] < MASKED);
+      if (!__all_sync(0xffffffffu, dead)) break;
+    }
+    return c;
+  };
+  auto stage = [&](int c, int buf) {
+    const uint32_t dst = sbase + buf * STAGE_B;
+    for (int i = threadIdx.x; i < 4 * KC * 8; i += blockDim.x) {
+      const int p = i / (KC * 8), j = (i >> 3) % KC, ch = i & 7, key = c * KC + j;
+      const bf16* src = ((p & 1) ? qkv_lo : qkv_hi) + (seq0 + min(key, n - 1)) * ld +
+                        (p < 2 ? D : 2 * D) + h * DH + ch * 8;
+      cp_async16(dst + p * PLANE_B + swz(j, ch), src, key < n ? 16 : 0);
+    }
+  };
+
+  const int q0 = blockIdx.x * QT + warp * 16, ra = q0 + g, rb = ra + 8;
+  uint32_t qh[4][4], ql[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = q0 + g + 8 * (i & 1), d = 16 * ks + 8 * (i >> 1) + 2 * t;
+      const int64_t off = (seq0 + rr) * ld + h * DH + d;
+      qh[ks][i] = rr < n ? *reinterpret_cast<const uint32_t*>(qkv_hi + off) : 0u;
+      ql[ks][i] = rr < n ? *reinterpret_cast<const uint32_t*>(qkv_lo + off) : 0u;
+    }
+  }
+  float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
+  float o[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  int c = next_live(0), buf = 0;
+  if (c < nch) stage(c, 0);
+  while (c < nch) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // chunk c is in `buf`; every warp is done with the other buffer
+    const int nx = next_live(c + 1);
+    if (nx < nch) stage(nx, buf ^ 1);
+    if (q0 < n) {
+      const uint32_t kh = sbase + buf * STAGE_B, kl = kh + PLANE_B, vh = kl + PLANE_B,
+                     vl = vh + PLANE_B;
+      // scores of keys c * KC + 8 jt ..., split-bf16, then scale and mask
+      float s[8][4];
+#pragma unroll
+      for (int jt = 0; jt < 8; ++jt) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4(bh, kh + swz(8 * jt + (lane & 7), 4 * hf + (lane >> 3)));
+          ldsm_x4(bl, kl + swz(8 * jt + (lane & 7), 4 * hf + (lane >> 3)));
+          mma16816(acc, qh[2 * hf], bl[0], bl[1]);
+          mma16816(acc, qh[2 * hf + 1], bl[2], bl[3]);
+          mma16816(acc, ql[2 * hf], bh[0], bh[1]);
+          mma16816(acc, ql[2 * hf + 1], bh[2], bh[3]);
+          mma16816(acc, qh[2 * hf], bh[0], bh[1]);
+          mma16816(acc, qh[2 * hf + 1], bh[2], bh[3]);
+        }
+        const int key = c * KC + 8 * jt + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kk = key + (i & 1);
+          s[jt][i] = kk < n ? acc[i] * scale + mrow[kk] : -CUDART_INF_F;
+        }
+      }
+      // online softmax: the rows' maxima over their quads, earlier sums rescaled
+      float xa = m_a, xb = m_b;
+#pragma unroll
+      for (int jt = 0; jt < 8; ++jt) {
+        xa = fmaxf(xa, fmaxf(s[jt][0], s[jt][1]));
+        xb = fmaxf(xb, fmaxf(s[jt][2], s[jt][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, off));
+        xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, off));
+      }
+      const float alpha_a = expf(m_a - xa), alpha_b = expf(m_b - xb);
+      m_a = xa;
+      m_b = xb;
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        o[dt][0] *= alpha_a;
+        o[dt][1] *= alpha_a;
+        o[dt][2] *= alpha_b;
+        o[dt][3] *= alpha_b;
+      }
+      // P.V, p = exp(s - m) in fp32 fed as hi / lo A fragments
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* sj = s[2 * ks + u];
+          const float pa0 = expf(sj[0] - m_a), pa1 = expf(sj[1] - m_a);
+          const float pb0 = expf(sj[2] - m_b), pb1 = expf(sj[3] - m_b);
+          l_a += pa0 + pa1;
+          l_b += pb0 + pb1;
+          __nv_bfloat162 hv, lv;
+          split2(pa0, pa1, keep_lo, hv, lv);
+          ah[2 * u] = as_u32(hv);
+          al[2 * u] = as_u32(lv);
+          split2(pb0, pb1, keep_lo, hv, lv);
+          ah[2 * u + 1] = as_u32(hv);
+          al[2 * u + 1] = as_u32(lv);
+        }
+        const int row = 16 * ks + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4_t(bh, vh + swz(row, 2 * dp + (lane >> 4)));
+          ldsm_x4_t(bl, vl + swz(row, 2 * dp + (lane >> 4)));
+          mma16816(o[2 * dp], al, bh[0], bh[1]);
+          mma16816(o[2 * dp], ah, bl[0], bl[1]);
+          mma16816(o[2 * dp], ah, bh[0], bh[1]);
+          mma16816(o[2 * dp + 1], al, bh[2], bh[3]);
+          mma16816(o[2 * dp + 1], ah, bl[2], bl[3]);
+          mma16816(o[2 * dp + 1], ah, bh[2], bh[3]);
+        }
+      }
+    }
+    c = nx;
+    buf ^= 1;
+  }
+  if (q0 >= n) return;
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = h * DH + 8 * dt + 2 * t;
+    __nv_bfloat162 hv, lv;
+    if (ra < n) {
+      split2(o[dt][0] * inv_a, o[dt][1] * inv_a, keep_lo, hv, lv);
+      *reinterpret_cast<__nv_bfloat162*>(ctx_hi + (seq0 + ra) * D + col) = hv;
+      *reinterpret_cast<__nv_bfloat162*>(ctx_lo + (seq0 + ra) * D + col) = lv;
+    }
+    if (rb < n) {
+      split2(o[dt][2] * inv_b, o[dt][3] * inv_b, keep_lo, hv, lv);
+      *reinterpret_cast<__nv_bfloat162*>(ctx_hi + (seq0 + rb) * D + col) = hv;
+      *reinterpret_cast<__nv_bfloat162*>(ctx_lo + (seq0 + rb) * D + col) = lv;
+    }
+  }
+}
+
+// ---- host side ------------------------------------------------------------------
+
+inline int split(const void* src, bf16* planes, int64_t count, int keep_lo, cudaStream_t st) {
+  const int64_t n4 = count / 4;
+  const int64_t want = (n4 + 255) / 256;
+  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
+  split_kernel<<<blocks, 256, 0, st>>>(static_cast<const float4*>(src), planes, planes + count,
+                                       n4, keep_lo);
+  return (int)cudaGetLastError();
+}
+
+// The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo).
 template <class Epi>
-void sgemm(const float* A, const float* B, int M, int N, int K, Epi epi, cudaStream_t st) {
-  dim3 grid((N + SG_BN - 1) / SG_BN, (M + SG_BM - 1) / SG_BM);
-  sgemm_kernel<Epi><<<grid, SG_THREADS, 0, st>>>(A, B, M, N, K, epi);
+inline int product(const bf16* a, const bf16* b, int M, int N, int K, const Epi& epi,
+                   cudaStream_t st) {
+  sm90::Maps maps{};
+  int err = sm90::map_a(&maps.m[0], a, M, K, K);
+  if (!err) err = sm90::map_a(&maps.m[1], a + (int64_t)M * K, M, K, K);
+  if (!err) err = sm90::map_b(&maps.m[2], b, N, K, K);
+  if (!err) err = sm90::map_b(&maps.m[3], b + (int64_t)N * K, N, K, K);
+  if (err) return err;
+  return sm90::launch_gemm(maps, sm90::SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
 }
 
-}  // namespace ctc_bert
+}  // namespace bert
+}  // namespace ctc
 
-using namespace ctc_bert;
+using namespace ctc::bert;
 
 // x [B*n, D], mask [B, n] (additive), wqkv [3D, D], bqkv [3D], wo [D, D],
 // bo/g1/be1/b2/g2/be2 [D], w1 [F, D], b1 [F], w2 [D, F], all fp32 (weights
-// in the nn.Linear (out, in) layout); workspaces qkv [B*n, 3D], ctx, r, y
-// [B*n, D], h [B*n, F]; out [B*n, D]. D = heads * 64; D and F multiples of 4.
+// in the nn.Linear (out, in) layout), 16-B aligned. Workspaces: bf16 hi /
+// lo planes [2][rows][cols] of x, wqkv, wo, w1, w2 (as those), qkv [B*n,
+// 3D], ctx [B*n, D], y [B*n, D], h [B*n, F]; fp32 r, y [B*n, D]. out [B*n,
+// D]. D = heads * 64; F a multiple of 8. flags: ONE_PASS, NO_SKIP.
 extern "C" int ctc_bert_layer(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                               const void* wo, const void* bo, const void* g1, const void* be1,
                               const void* w1, const void* b1, const void* w2, const void* b2,
-                              const void* g2, const void* be2, void* qkv_ws, void* ctx_ws,
-                              void* r_ws, void* y_ws, void* h_ws, void* out, int B, int n, int D,
-                              int F, int heads, float eps, float scale, void* stream) {
+                              const void* g2, const void* be2, void* x_s, void* wqkv_s,
+                              void* wo_s, void* w1_s, void* w2_s, void* qkv_s, void* ctx_s,
+                              void* y_s, void* h_s, void* r_ws, void* y_ws, void* out, int B,
+                              int n, int D, int F, int heads, int flags, float eps, float scale,
+                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * n;
-  const float* xf = (const float*)x;
-  float* qkv = (float*)qkv_ws;
-  float* ctx = (float*)ctx_ws;
-  float* r = (float*)r_ws;
-  float* y = (float*)y_ws;
-  float* h = (float*)h_ws;
-  sgemm(xf, (const float*)wqkv, M, 3 * D, D, EpiBias{(const float*)bqkv, qkv, 3 * D}, st);
-  cudaFuncSetAttribute(bert_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AT_SMEM);
-  dim3 ga((n + AT_BQ - 1) / AT_BQ, heads, B);
-  bert_attn_kernel<<<ga, AT_THREADS, AT_SMEM, st>>>(qkv, (const float*)mask, ctx, n, D, scale);
-  sgemm((const float*)ctx, (const float*)wo, M, D, D,
-        EpiBiasResidual{(const float*)bo, xf, r, D}, st);
+  const int M = B * n, keep = !(flags & ONE_PASS);
+  bf16 *xs = (bf16*)x_s, *wqkvs = (bf16*)wqkv_s, *wos = (bf16*)wo_s, *w1s = (bf16*)w1_s,
+       *w2s = (bf16*)w2_s, *qkvs = (bf16*)qkv_s, *ctxs = (bf16*)ctx_s, *ys = (bf16*)y_s,
+       *hs = (bf16*)h_s;
+  float *r = (float*)r_ws, *y = (float*)y_ws;
+  const int64_t md = (int64_t)M * D;
+  int err = split(x, xs, md, keep, st);
+  if (!err) err = split(wqkv, wqkvs, (int64_t)3 * D * D, keep, st);
+  if (!err) err = split(wo, wos, (int64_t)D * D, keep, st);
+  if (!err) err = split(w1, w1s, (int64_t)F * D, keep, st);
+  if (!err) err = split(w2, w2s, (int64_t)D * F, keep, st);
+  if (!err)
+    err = product(xs, wqkvs, M, 3 * D, D,
+                  SplitEpi<false>{qkvs, qkvs + (int64_t)M * 3 * D, (const float*)bqkv, M, 3 * D,
+                                  keep},
+                  st);
+  if (err) return err;
+  cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATTN_SMEM);
+  dim3 ga((n + QT - 1) / QT, heads, B);
+  attn_kernel<<<ga, WARPS * 32, ATTN_SMEM, st>>>(qkvs, qkvs + (int64_t)M * 3 * D,
+                                                 (const float*)mask, ctxs, ctxs + md, n, D, scale,
+                                                 flags);
+  err = (int)cudaGetLastError();
+  if (!err)
+    err = product(ctxs, wos, M, D, D, ResidualF32Epi{r, (const float*)bo, (const float*)x, M, D},
+                  st);
+  if (err) return err;
   const int ln_blocks = (M + 7) / 8;
-  bert_ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g1, (const float*)be1, y, M, D, eps);
-  sgemm((const float*)y, (const float*)w1, M, F, D, EpiBiasGelu{(const float*)b1, h, F}, st);
-  sgemm((const float*)h, (const float*)w2, M, D, F,
-        EpiBiasResidual{(const float*)b2, (const float*)y, r, D}, st);
-  bert_ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g2, (const float*)be2, (float*)out,
-                                           M, D, eps);
+  ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g1, (const float*)be1, y, ys, ys + md, M,
+                                       D, eps, keep);
+  err = (int)cudaGetLastError();
+  if (!err)
+    err = product(ys, w1s, M, F, D,
+                  SplitEpi<true>{hs, hs + (int64_t)M * F, (const float*)b1, M, F, keep}, st);
+  if (!err)
+    err = product(hs, w2s, M, D, F, ResidualF32Epi{r, (const float*)b2, y, M, D}, st);
+  if (err) return err;
+  ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g2, (const float*)be2, (float*)out,
+                                       nullptr, nullptr, M, D, eps, keep);
   return (int)cudaGetLastError();
 }

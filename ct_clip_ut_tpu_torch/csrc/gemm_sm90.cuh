@@ -21,7 +21,11 @@
 //
 // Which maps a tile reads is a plan functor's choice (`src(nt)`): the GEGLU's
 // first product pairs 64 value rows with 64 gate rows from two maps of the
-// same weight, the attention block's projection picks q, k or v. TMA fills
+// same weight, the attention block's projection picks q, k or v. A plan with
+// PASSES > 1 walks the K slices that many times, `src(nt, pass)` naming the
+// maps of each pass into the same accumulator: SplitPlan's three passes
+// (A_hi B_hi, A_lo B_hi, A_hi B_lo) make an fp32 product of bf16 hi / lo
+// planes (hi = bf16(a), lo = bf16(a - hi)) within ~2^-16 of fp32. TMA fills
 // boxes that run past a matrix's edge with zeros, which covers a ragged M,
 // N and K; epilogues mask their stores to the matrix. TMA needs 16-B aligned
 // base addresses and row strides: the wrappers pad what is not
@@ -37,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ctc {
 namespace sm90 {
@@ -194,6 +200,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
 
 // ---- the kernel ------------------------------------------------------------
 
+// K loops of a plan: PASSES where it declares them, else 1.
+template <class P, class = void>
+struct Passes {
+  static constexpr int value = 1;
+};
+template <class P>
+struct Passes<P, std::void_t<decltype(P::PASSES)>> {
+  static constexpr int value = P::PASSES;
+};
+
+template <class Plan>
+__device__ __forceinline__ TileSrc plan_src(const Plan& plan, int nt, int pass) {
+  if constexpr (Passes<Plan>::value == 1) {
+    return plan.src(nt);
+  } else {
+    return plan.src(nt, pass);
+  }
+}
+
 template <class Plan, class Epi>
 __global__ void __launch_bounds__(THREADS, 2)
 gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int K) {
@@ -201,8 +226,9 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~static_cast<uintptr_t>(1023));
+  constexpr int passes = Passes<Plan>::value;
   const int nt = blockIdx.x, m0 = blockIdx.y * BM;
-  const int nk = (K + BK - 1) / BK;
+  const int nk = (K + BK - 1) / BK, steps = nk * passes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -217,16 +243,17 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
     // producer: the roles never meet again at a block barrier
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (lane == 0) {
-      const TileSrc src = plan.src(nt);
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = 0; kt < steps; ++kt) {
+        const int pass = passes == 1 ? 0 : kt / nk, k0 = (kt - pass * nk) * BK;
+        const TileSrc src = plan_src(plan, nt, pass);
         const int s = kt % STAGES;
         mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], STAGE_BYTES);
         char* a = ring + s * STAGE_BYTES;
         char* b = a + A_BYTES;
-        tma_load_2d(a, &maps.m[src.a], &full[s], kt * BK, m0);
-        tma_load_2d(b, &maps.m[src.b0], &full[s], kt * BK, src.row0);
-        tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], kt * BK, src.row1);
+        tma_load_2d(a, &maps.m[src.a], &full[s], k0, m0);
+        tma_load_2d(b, &maps.m[src.b0], &full[s], k0, src.row0);
+        tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], k0, src.row1);
       }
     }
   } else {
@@ -234,7 +261,7 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
+    for (int kt = 0; kt < steps; ++kt) {
       const int s = kt % STAGES;
       mbar_wait(&full[s], (kt / STAGES) & 1);
       const uint32_t a = smem_u32(ring + s * STAGE_BYTES) + wg * (64 * BK * 2);
@@ -266,6 +293,17 @@ struct QkvPlan {
   __device__ TileSrc src(int nt) const {
     const int which = nt / tiles, r = (nt % tiles) * BN;
     return {which == 0 ? 0 : 1, 2 + which, r, 2 + which, r + 64};
+  }
+};
+
+// The fp32 product of split-bf16 operands: maps 0 A_hi, 1 A_lo, 2 B_hi,
+// 3 B_lo; passes A_hi B_hi, A_lo B_hi, A_hi B_lo (the lo . lo term, ~2^-16
+// relative, is left out).
+struct SplitPlan {
+  static constexpr int PASSES = 3;
+  __device__ TileSrc src(int nt, int pass) const {
+    const int a = pass == 1 ? 1 : 0, b = pass == 2 ? 3 : 2;
+    return {a, b, nt * BN, b, nt * BN + 64};
   }
 };
 

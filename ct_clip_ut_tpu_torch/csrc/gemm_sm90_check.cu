@@ -1,20 +1,45 @@
-// The bare Hopper GEMM core (gemm_sm90.cuh) behind a C entry of its own, for
-// the card tests: C = A . B^T in fp32, with no prologue or epilogue of a
-// kernel around it, so a fault of the core (descriptors, swizzle, the
-// ring's phases, ragged edges) shows on its own.
-#include "gemm_sm90.cuh"
+// The bare Hopper GEMM cores (gemm_sm90.cuh, wgrad_sm90.cuh) behind C
+// entries of their own, for the card tests, with no prologue or epilogue of
+// a kernel around them, so a fault of a core (descriptors, swizzle, the
+// ring's phases, ragged edges, the split plan's passes) shows on its own.
+#include "wgrad_sm90.cuh"
 
 using namespace ctc::sm90;
 
-// a [M, K] with row stride lda, b [N, K] with row stride ldb (bf16; strides
-// multiples of 8, pointers 16-B aligned); c [M, N] fp32.
+// C = A . B^T in fp32: a [M, K] with row stride lda, b [N, K] with row
+// stride ldb (bf16; strides multiples of 8, pointers 16-B aligned); c [M, N]
+// fp32. split: a and b are hi / lo planes [2][rows][ld] and C takes
+// SplitPlan's three passes.
 extern "C" int ctc_gemm_sm90_check(const void* a, const void* b, void* c, int M, int N, int K,
-                                   int lda, int ldb, void* stream) {
+                                   int lda, int ldb, int split, void* stream) {
   Maps maps{};
-  int err = map_a(&maps.m[0], a, M, K, lda);
-  if (!err) err = map_b(&maps.m[1], b, N, K, ldb);
+  const bf16* ab = static_cast<const bf16*>(a);
+  const bf16* bb = static_cast<const bf16*>(b);
+  const int bi = split ? 2 : 1;       // LinearPlan reads B from map 1, SplitPlan from 2 and 3
+  int err = map_a(&maps.m[0], ab, M, K, lda);
+  if (!err) err = map_b(&maps.m[bi], bb, N, K, ldb);
+  if (!err && split) err = map_a(&maps.m[1], ab + (int64_t)M * lda, M, K, lda);
+  if (!err && split) err = map_b(&maps.m[3], bb + (int64_t)N * ldb, N, K, ldb);
   if (err) return err;
-  return launch_gemm(maps, LinearPlan{},
-                     StoreF32Epi{static_cast<float*>(c), M, N},
-                     (N + BN - 1) / BN, M, K, reinterpret_cast<cudaStream_t>(stream));
+  const StoreF32Epi epi{static_cast<float*>(c), M, N};
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return split ? launch_gemm(maps, SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st)
+               : launch_gemm(maps, LinearPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+}
+
+// C = A^T B in fp32 over `tokens` rows on the MN-major core: a [tokens,
+// rows] with row stride lda, b [tokens, cols] with row stride ldb (bf16;
+// strides multiples of 8, pointers 16-B aligned); c [rows, cols] fp32.
+extern "C" int ctc_wgrad_sm90_check(const void* a, const void* b, void* c, int tokens, int rows,
+                                    int cols, int lda, int ldb, void* stream) {
+  Maps maps{};
+  int err = map_mn(&maps.m[0], a, tokens, rows, lda);
+  if (!err) err = map_mn(&maps.m[1], b, tokens, cols, ldb);
+  if (err) return err;
+  float* cf = static_cast<float*>(c);
+  const int col_tiles = (cols + BN - 1) / BN;
+  return launch_wgrad_sm90(maps, WgradPlan{rows, col_tiles},
+                           WgradStoreEpi{{cf, cf}, {cols, cols}, {cols, cols}},
+                           ((rows + BM - 1) / BM) * col_tiles, tokens,
+                           reinterpret_cast<cudaStream_t>(stream));
 }

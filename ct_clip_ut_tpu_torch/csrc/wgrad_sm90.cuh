@@ -1,0 +1,191 @@
+// Weight gradients on the Hopper core (sm_90a only): C[i, j] = sum over
+// token rows m of A[m, i] B[m, j], A and B row-major bf16 [tokens, .] as
+// the backward chains hold activations and cotangents, C fp32.
+//
+// Both operands of such a product are MN-major (contiguous along the
+// output's rows and columns, strided along the contraction), which wgmma
+// reads with its transpose bits set. One block of 288 threads sums one
+// 128 x 128 tile of C over ALL the token rows, in order, and stores it: no
+// atomics and no partial buffers, so two calls give the same bits (the TPU
+// kernels sum over a sequential grid the same way). The block is
+// gemm_sm90.cuh's: one producer warp issuing TMA loads of 64-token slices
+// (per operand two boxes of 64 columns x 64 tokens, 128-B swizzle) into a
+// ring of WG_STAGES tiles, two consumer warpgroups of 64 output rows
+// running wgmma m64n128k16 with MN-major descriptors (a 16-token step is
+// 2 KB into a box; B's two 64-column boxes 8 KB apart), keeping one slice's
+// wgmma group in flight while the next is issued; the epilogue from
+// registers. Which operand maps, columns and output a tile takes is a plan
+// functor's choice (`tile(t)`), so one launch serves several weights.
+#pragma once
+
+#include "gemm_sm90.cuh"
+
+namespace ctc {
+namespace sm90 {
+
+constexpr int WG_STAGES = 6;   // one block an SM: a deeper ring than the K-major core's
+constexpr int WG_SMEM = WG_STAGES * STAGE_BYTES + 1024;
+
+// One output tile: A's columns i0 .. i0 + 127 from map a, B's columns j0 ..
+// j0 + 127 from map b, summed into output `out` at rows orow0 ... (nrows
+// of them hold data) and columns j0 ...
+struct WgradTile {
+  int a, b, i0, j0, out, orow0, nrows;
+};
+
+// Shared-memory descriptor of an MN-major tile written by TMA with the
+// 128-B swizzle: rows of 128 B run along MN (64 bf16), 8-row core groups
+// along K 1024 B apart (SBO); 64-wide MN blocks `lbo` bytes apart (LBO).
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64] += A (64 x 16, MN-major) . B (128 x 16, MN-major)^T
+__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+template <class Plan, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int tokens) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const WgradTile tile = plan.tile(blockIdx.x);
+  const int nk = (tokens + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG_STAGES;
+        mbar_wait(&empty[s], ((kt / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        char* a = ring + s * STAGE_BYTES;
+        char* b = a + A_BYTES;
+        tma_load_2d(a, &maps.m[tile.a], &full[s], tile.i0, kt * BK);
+        tma_load_2d(a + B_HALF_BYTES, &maps.m[tile.a], &full[s], tile.i0 + 64, kt * BK);
+        tma_load_2d(b, &maps.m[tile.b], &full[s], tile.j0, kt * BK);
+        tma_load_2d(b + B_HALF_BYTES, &maps.m[tile.b], &full[s], tile.j0 + 64, kt * BK);
+      }
+    }
+  } else {
+    const int wg = warp >> 2;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % WG_STAGES;
+      mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+      const uint32_t a = smem_u32(ring + s * STAGE_BYTES) + wg * B_HALF_BYTES;
+      const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n128k16_mn(acc, desc_mn_sw128(a + kk * 2048, B_HALF_BYTES),
+                            desc_mn_sw128(b + kk * 2048, B_HALF_BYTES));
+      wgmma_commit();
+      // the slice before this one is read: give its stage back
+      wgmma_wait_one();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    epi(acc, tile, wg * 64 + (warp & 3) * 16, lane);
+  }
+}
+
+// An operand [tokens, cols] with row stride ld, read in boxes of 64 columns
+// x 64 tokens.
+inline int map_mn(CUtensorMap* m, const void* p, int tokens, int cols, int64_t ld) {
+  return make_map(m, p, tokens, cols, ld, 64);
+}
+
+// Launch wgrad_kernel over `tiles` tiles of the plan; returns the launch's error.
+template <class Plan, class Epi>
+int launch_wgrad_sm90(const Maps& maps, const Plan& plan, const Epi& epi, int tiles, int tokens,
+                      cudaStream_t st) {
+  auto kern = wgrad_kernel<Plan, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  kern<<<tiles, THREADS, WG_SMEM, st>>>(maps, plan, epi, tokens);
+  return (int)cudaGetLastError();
+}
+
+// out[o] [rows, cols] fp32 (row stride ld) = the tile's sums, rows orow0 +
+// r for r < nrows, columns below cols[o]; pairs of columns as one 8-B store
+// where cols and ld are even.
+struct WgradStoreEpi {
+  float* out[2];
+  int ld[2], cols[2];
+  __device__ void operator()(const float (&acc)[64], const WgradTile& tile, int r0,
+                             int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    // selected, not indexed: a runtime index would put the arrays on the stack
+    float* base = tile.out ? out[1] : out[0];
+    const int ldo = tile.out ? ld[1] : ld[0], nc = tile.out ? cols[1] : cols[0];
+    const bool pairs = ((ldo | nc) & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r >= tile.nrows) continue;
+      float* row = base + (int64_t)(tile.orow0 + r) * ldo;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = tile.j0 + 8 * j + 2 * t;
+        if (pairs && c + 1 < nc) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (c + e < nc) row[c + e] = acc[4 * j + 2 * h + e];
+        }
+      }
+    }
+  }
+};
+
+// C = A^T B over `tokens` rows for one pair of operands: maps 0 A, 1 B;
+// tiles row-major over ceil(rows / 128) x ceil(cols / 128).
+struct WgradPlan {
+  int rows, col_tiles;
+  __device__ WgradTile tile(int t) const {
+    const int i0 = (t / col_tiles) * BM, j0 = (t % col_tiles) * BN;
+    return {0, 1, i0, j0, 0, i0, min(BM, rows - i0)};
+  }
+};
+
+}  // namespace sm90
+}  // namespace ctc

@@ -1,0 +1,98 @@
+"""Per-launch device profile of one fp32 BERT layer, one GEGLU FF backward
+and one prompt encoding on one GPU.
+
+    python -m ct_clip_ut_tpu_torch.infer.profile_layers [--label L] [--out DIR]
+
+At flagship width (`config.flagship_cfg()`, random weights from seed 0) it
+runs under torch.profiler, each after one warm-up call (`profile_call`):
+
+- `bert_layer` in fp32 on [36, 512, 768] with the zero-shot slice's key
+  mask as chip_smoke.py draws it (6 to 14 real tokens a prompt, two at
+  512), text layer 0's weights;
+- `geglu_ff_bwd` at a B = 2 train step's shape, x and g [27648, 512] bf16,
+  spatial layer 0's FF weights, the residual on;
+- one `encode_prompt_latents` of the 36 prompts padded to 512 tokens (12
+  fp32 layers).
+
+For each it prints the device kernel time and the kernels ranked by time
+with their launch counts (every row into DIR/<name>.table with --out). The
+module imports the package by absolute name only, so that it can also be
+run as a file against another checkout of the port on PYTHONPATH, to
+profile two versions in one session. Each line names the card and its
+power limit (`nvidia-smi`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from ct_clip_ut_tpu_torch.config import flagship_cfg
+from ct_clip_ut_tpu_torch.infer.profile_zeroshot import card_name, print_profile, profile_call
+from ct_clip_ut_tpu_torch.infer.zeroshot import (WordTokenizer, encode_prompt_latents,
+                                                 tokenize_prompts)
+from ct_clip_ut_tpu_torch.models.bert import layer_args
+from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer
+from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
+
+PROMPTS, PROMPT_LEN, FF_ROWS = 36, 512, 27648
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="profile_layers", help="prefix of every printed line")
+    ap.add_argument("--out", default=None, help="write every kernel's profile row under DIR")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_layers: needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_name()
+    cfg = flagship_cfg()
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+
+    def table(name):
+        return os.path.join(args.out, f"{name}.table") if args.out else None
+
+    bcfg = cfg.bert
+    lengths = torch.randint(6, 15, (PROMPTS,), generator=g, device="cuda")
+    lengths[3] = lengths[17] = PROMPT_LEN
+    pad = torch.arange(PROMPT_LEN, device="cuda")[None] >= lengths[:, None]
+    mask = pad.float() * torch.finfo(torch.float32).min
+    x = torch.randn((PROMPTS, PROMPT_LEN, bcfg.hidden_size), generator=g, device="cuda")
+    w = [t.detach().clone() for t in layer_args(model.text_transformer.encoder.layer[0])]
+    with torch.no_grad():
+        p = profile_call(lambda: bert_layer(x, mask, *w, bcfg.num_heads, bcfg.layer_norm_eps))
+    print_profile(p, f"{args.label}: one fp32 bert_layer {list(x.shape)}", card,
+                  table("bert_layer"), top=12)
+
+    ff = model.visual_transformer.enc_spatial_transformer.layers[0][3]
+    bf, d = torch.bfloat16, cfg.ctvit.dim
+    xf = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
+    gr = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
+    gamma = 1.0 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+    beta = 0.1 * torch.randn((d,), generator=g, device="cuda")
+    ff_args = (xf, gamma, beta, ff[1].weight.detach().to(bf), ff[4].weight.detach().to(bf), gr,
+               True)
+    p = profile_call(lambda: geglu_ff_bwd(*ff_args))
+    print_profile(p, f"{args.label}: one geglu_ff_bwd {list(xf.shape)}", card,
+                  table("geglu_ff_bwd"), top=12)
+
+    prompts = tokenize_prompts(WordTokenizer(bcfg.vocab_size), max_length=PROMPT_LEN,
+                               device="cuda")
+    with torch.no_grad():
+        p = profile_call(lambda: encode_prompt_latents(model, prompts))
+    print_profile(p, f"{args.label}: one prompt encoding ({PROMPTS} x {PROMPT_LEN})", card,
+                  table("prompt"), top=12)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@ tower at n >= 128 tokens. Three CUDA chains, each with a header that says
 what bounds it on the H100 and what the design does about it:
 
 - `csrc/bert_layer.cu`: fp32, deterministic (the zero-shot prompts, padded
-  to 512 tokens and encoded in fp32);
+  to 512 tokens and encoded in fp32), every product as three bf16
+  tensor-core products of hi / lo planes (`bert_layer_fp32`);
 - `csrc/bert_layer_bf16.cu`: bf16, deterministic (the train loop's
   evaluation) or in train mode with dropout on the attention probabilities
   and both hidden outputs (the train step's 512-token reports);
@@ -323,13 +324,28 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _bert_layer_fp32(x, mask_row, w, heads, eps):
-    """The fp32 deterministic chain (csrc/bert_layer.cu)."""
+FP32_ONE_PASS, FP32_NO_SKIP = 1, 2     # ctc_bert_layer's flags
+
+
+def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
+                    heads: int, eps: float, *, one_pass: bool = False,
+                    skip_masked: bool = True) -> torch.Tensor:
+    """The fp32 deterministic chain (csrc/bert_layer.cu) on CUDA tensors:
+    every product as three bf16 products of hi / lo planes on the tensor
+    cores. `one_pass=True` zeroes every lo plane (one bf16 product each: the
+    control a run holds outside the fp32 band); `skip_masked=False` walks
+    the key chunks that the mask removes entirely, which add exactly 0 (a
+    run holds the two outputs bit for bit). CPU tensors raise: their route
+    is `bert_layer`'s plain version."""
+    if not _build.on_cuda(x):
+        raise ValueError("bert_layer_fp32 runs the CUDA chain; bert_layer takes the plain "
+                         "version for CPU tensors")
+    w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
     b, n, d = x.shape
-    f = w[6].shape[0]
-    if d != heads * DIM_HEAD or f % 4:
+    f = w1.shape[0]
+    if d != heads * DIM_HEAD or f % 8:
         raise ValueError(f"the bert_layer kernel takes heads of {DIM_HEAD} and an FF width "
-                         f"that 4 divides; got D={d}, heads={heads}, F={f}")
+                         f"that 8 divides; got D={d}, heads={heads}, F={f}")
     dev = x.device
     args = ((x, "x", (b, n, d)), (mask_row, "mask_row", (b, n)),
             *zip(w, ("wqkv", "bqkv", "wo", "bo", "g1", "be1", "w1", "b1", "w2", "b2", "g2", "be2"),
@@ -341,12 +357,18 @@ def _bert_layer_fp32(x, mask_row, w, heads, eps):
             raise ValueError(f"{name}: the kernel reads float4, the data must be 16-B aligned")
     m = b * n
     f32 = dict(dtype=torch.float32, device=dev)
-    ws = (torch.empty((m, 3 * d), **f32), torch.empty((m, d), **f32),
-          torch.empty((m, d), **f32), torch.empty((m, d), **f32), torch.empty((m, f), **f32))
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    # hi / lo planes [2, rows, cols] of x, wqkv, wo, w1, w2, then of qkv, ctx, y, h
+    planes = [torch.empty((2, r, c), **b16)
+              for r, c in ((m, d), (3 * d, d), (d, d), (f, d), (d, f), (m, 3 * d), (m, d), (m, d),
+                           (m, f))]
+    ws = (torch.empty((m, d), **f32), torch.empty((m, d), **f32))
     out = torch.empty_like(x)
+    flags = (FP32_ONE_PASS if one_pass else 0) | (0 if skip_masked else FP32_NO_SKIP)
     err = _build.load().ctc_bert_layer(
-        *(t.data_ptr() for t, _, _ in args), *(t.data_ptr() for t in ws), out.data_ptr(),
-        b, n, d, f, heads, float(eps), 1.0 / DIM_HEAD ** 0.5, _build.stream_of(x))
+        *(t.data_ptr() for t, _, _ in args), *(t.data_ptr() for t in planes),
+        *(t.data_ptr() for t in ws), out.data_ptr(), b, n, d, f, heads, flags, float(eps),
+        1.0 / DIM_HEAD ** 0.5, _build.stream_of(x))
     _build.check(err, "bert_layer")
     launches.count("bert_layer")
     return out
@@ -372,7 +394,7 @@ def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2
             raise NotImplementedError(
                 "the fp32 bert_layer kernel runs the deterministic forward only: train-mode "
                 "dropout runs in bf16 (ROADMAP, Queue 2 item 8b)")
-        return _bert_layer_fp32(x, mask_row, w, heads, eps)
+        return bert_layer_fp32(x, mask_row, *w, heads, eps)
     b, n, d = x.shape
     xp, mask_p, seeds, weights, npad = _bf16_args(x, mask_row, w, seeds, heads)
     f = weights[6].shape[0]

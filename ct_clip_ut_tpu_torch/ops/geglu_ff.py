@@ -167,20 +167,20 @@ def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=dev)
     b16 = dict(dtype=torch.bfloat16, device=dev)
     work = (torch.empty((n, d), **b16), torch.empty((n, 2), **f32),
-            torch.empty((n, ldh), **f32), torch.empty((n, ldh), **b16),
-            torch.empty((n, 2 * ldh), **b16), torch.empty((n, d), **f32))
-    x, g = _build.aligned16(x), _build.aligned16(g)
-    dx = torch.empty_like(x)
+            torch.empty((n, ldh), **b16), torch.empty((n, 2 * ldh), **b16),
+            torch.empty((n, d), **f32))
+    dx = torch.empty((n, d), **b16)
     dgamma, dbeta = torch.zeros((d,), **f32), torch.zeros((d,), **f32)
-    dw_vg, dw_out = torch.zeros((2 * ldh, d), **f32), torch.zeros((d, inner), **f32)
+    dw_in, dw_out = torch.empty((2 * inner, d), **f32), torch.empty((d, inner), **f32)
+    x, g, w_in = _build.aligned16(x), _build.aligned16(g), _build.aligned16(w_in)
     err = _build.load().ctc_geglu_ff_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_in.data_ptr(), w2t.data_ptr(),
         wvgt.data_ptr(), g.data_ptr(), *(w.data_ptr() for w in work), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), dw_vg.data_ptr(), dw_out.data_ptr(), n, d, inner,
+        dgamma.data_ptr(), dbeta.data_ptr(), dw_in.data_ptr(), dw_out.data_ptr(), n, d, inner,
         ldh, int(residual), _build.stream_of(x))
     _build.check(err, "geglu_ff_bwd")
     launches.count("geglu_ff_bwd")
-    return dx, dgamma, dbeta, torch.cat([dw_vg[:inner], dw_vg[ldh:ldh + inner]]), dw_out
+    return dx, dgamma, dbeta, dw_in, dw_out
 
 
 class _GegluFFFn(torch.autograd.Function):

@@ -284,7 +284,12 @@ def test_bert_layer_kernel_matches_plain_on_card(cuda_device, b, n, lengths):
     """fp32 [b, n, 768], 12 heads, FF 3072: ragged masks (6 to 14 real keys
     per row and two full rows at the flagship shape), B = 1, and a length
     that 64 does not divide. Controls: mask dropped (where a row is
-    padded), LN1 gain left out, QKV bias left out."""
+    padded), LN1 gain left out, QKV bias left out, and the kernel built
+    with every lo plane zeroed (one bf16 product for each fp32 one). The
+    key chunks the mask removes are skipped: the output is the same bits
+    as the kernel's that walks them."""
+    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer_fp32
+
     rng = np.random.default_rng(9)
     if lengths is None:
         lengths = list(rng.integers(6, 15, b))
@@ -294,11 +299,14 @@ def test_bert_layer_kernel_matches_plain_on_card(cuda_device, b, n, lengths):
     launches.reset_launch_counts()
     got = bert_layer(*args, 12, 1e-12)
     assert launches.launch_counts()["bert_layer"] == 1
-    assert _rel_err(got, bert_layer_plain(*args, 12, 1e-12)) <= BERT_BAND
+    want = bert_layer_plain(*args, 12, 1e-12)
+    assert _rel_err(got, want) <= BERT_BAND, _rel_err(got, want)
     for i in (1, 6, 3) if min(lengths) < n else (6, 3):
         bad = list(args)
         bad[i] = torch.ones_like(args[i]) if i == 6 else torch.zeros_like(args[i])
         assert _rel_err(got, bert_layer_plain(*bad, 12, 1e-12)) > BERT_BAND, i
+    assert _rel_err(bert_layer_fp32(*args, 12, 1e-12, one_pass=True), want) > BERT_BAND
+    assert torch.equal(got, bert_layer_fp32(*args, 12, 1e-12, skip_masked=False))
 
 
 ATTN_GRADS = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
@@ -360,7 +368,7 @@ def test_attn_block_bwd_dbias_same_bits_on_two_calls_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n", [13824, 77])
+@pytest.mark.parametrize("n", [27648, 13824, 77])
 def test_geglu_ff_backward_kernel_matches_plain_on_card(cuda_device, n, residual):
     from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd, geglu_ff_bwd_plain
 
@@ -375,6 +383,22 @@ def test_geglu_ff_backward_kernel_matches_plain_on_card(cuda_device, n, residual
     for name, x, y in zip(("dx", "dgamma", "dbeta", "dw_in", "dw_out"), got, want):
         assert torch.isfinite(x).all(), name
         assert _rel_err(x, y) <= 1.5e-2, (name, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+def test_geglu_ff_backward_weight_grads_same_bits_on_card(cuda_device):
+    """dWv | dWg and dW2 are summed per tile over every token in one order
+    (no atomics): two calls give the same bits, at B = 2's 27648 rows."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
+
+    a = _ff_inputs(np.random.default_rng(18), n=27648, dim=512)
+    args = [t.to(cuda_device) for t in _torch_ff_args(a)]
+    for i in (0, 3, 4):
+        args[i] = args[i].to(torch.bfloat16)
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(6)).to(torch.bfloat16)
+    one, two = geglu_ff_bwd(*args, g, True), geglu_ff_bwd(*args, g, True)
+    assert torch.equal(one[3], two[3]) and torch.equal(one[4], two[4])
 
 
 @pytest.mark.cuda
@@ -748,7 +772,7 @@ def test_gemm_sm90_core_matches_matmul_on_card(cuda_device, m, n, k, pad):
     b[:, :k] = torch.randn((n, k), device=cuda_device, generator=g).to(torch.bfloat16)
     c = torch.empty((m, n), device=cuda_device)
     err = _build.load().ctc_gemm_sm90_check(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                                            k + pad, k + pad,
+                                            k + pad, k + pad, 0,
                                             torch.cuda.current_stream(cuda_device).cuda_stream)
     _build.check(err, "ctc_gemm_sm90_check")
     af, bf = a[:, :k].float(), b[:, :k].float()
@@ -759,6 +783,105 @@ def test_gemm_sm90_core_matches_matmul_on_card(cuda_device, m, n, k, pad):
         assert _rel_err(c, af @ bf.roll(1, 0).t()) > GEMM_BAND
     if k > 64:
         assert _rel_err(c, af[:, :64] @ bf[:, :64].t()) > GEMM_BAND
+
+
+def _planes(t):
+    """hi / lo bf16 planes [2, rows, cols] of an fp32 matrix, as the fp32
+    BERT layer's split pass writes them."""
+    hi = t.to(torch.bfloat16)
+    return torch.stack([hi, (t - hi.float()).to(torch.bfloat16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(18432, 2304, 768), (333, 300, 200), (77, 136, 3072)])
+def test_gemm_sm90_split_plan_matches_fp32_matmul_on_card(cuda_device, m, n, k):
+    """SplitPlan's three passes over hi / lo planes of fp32 A [M, K] and B
+    [N, K] (ctc_gemm_sm90_check with split) against torch.matmul in fp32
+    (TF32 off), within GEMM_BAND; the hi planes alone (one bf16 product)
+    miss it."""
+    from ct_clip_ut_tpu_torch import _build
+
+    g = torch.Generator(cuda_device).manual_seed(22)
+    a = torch.randn((m, k), device=cuda_device, generator=g)
+    b = torch.randn((n, k), device=cuda_device, generator=g) / k ** 0.5
+    pa, pb = _planes(a), _planes(b)
+    c = torch.empty((m, n), device=cuda_device)
+    err = _build.load().ctc_gemm_sm90_check(pa.data_ptr(), pb.data_ptr(), c.data_ptr(), m, n, k,
+                                            k, k, 1,
+                                            torch.cuda.current_stream(cuda_device).cuda_stream)
+    _build.check(err, "ctc_gemm_sm90_check")
+    want = a @ b.t()
+    assert c.isfinite().all()
+    assert _rel_err(c, want) <= GEMM_BAND, _rel_err(c, want)
+    assert _rel_err(pa[0].float() @ pb[0].float().t(), want) > GEMM_BAND
+
+
+def _wgrad_check(cuda_device, a, b, rows, cols):
+    from ct_clip_ut_tpu_torch import _build
+
+    c = torch.empty((rows, cols), device=cuda_device)
+    err = _build.load().ctc_wgrad_sm90_check(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                             a.shape[0], rows, cols, a.shape[1], b.shape[1],
+                                             torch.cuda.current_stream(cuda_device).cuda_stream)
+    _build.check(err, "ctc_wgrad_sm90_check")
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,rows,cols,pad", [(27648, 512, 1365, 11), (27648, 2730, 512, 0),
+                                                  (200, 300, 129, 8), (64, 128, 128, 0),
+                                                  (77, 5, 9, 7)])
+def test_wgrad_sm90_core_matches_matmul_on_card(cuda_device, tokens, rows, cols, pad):
+    """C = A^T B over the token rows through the MN-major core
+    (ctc_wgrad_sm90_check; A [tokens, rows], B [tokens, cols], bf16 with
+    rows padded by `pad` or more NaN columns to a 16-B stride, which must
+    not reach C) against
+    torch.matmul in fp32: dW2's and dWv | dWg's shapes at B = 2, and ragged
+    tiles and token slices. The same bits on two calls (one block sums a
+    tile over every token in order). Controls: B's columns shifted by one,
+    the tokens cut to the first 64-row slice."""
+    g = torch.Generator(cuda_device).manual_seed(23)
+    lda, ldb = (-(-(c + pad) // 8) * 8 for c in (rows, cols))     # 16-B rows for TMA
+    a = torch.full((tokens, lda), float("nan"), device=cuda_device).to(torch.bfloat16)
+    b = torch.full((tokens, ldb), float("nan"), device=cuda_device).to(torch.bfloat16)
+    a[:, :rows] = torch.randn((tokens, rows), device=cuda_device, generator=g).to(torch.bfloat16)
+    b[:, :cols] = torch.randn((tokens, cols), device=cuda_device, generator=g).to(torch.bfloat16)
+    c = _wgrad_check(cuda_device, a, b, rows, cols)
+    af, bf = a[:, :rows].float(), b[:, :cols].float()
+    want = af.t() @ bf
+    assert c.isfinite().all()
+    assert _rel_err(c, want) <= GEMM_BAND, _rel_err(c, want)
+    assert torch.equal(c, _wgrad_check(cuda_device, a, b, rows, cols))
+    if cols > 1:
+        assert _rel_err(c, af.t() @ bf.roll(1, 1)) > GEMM_BAND
+    if tokens > 64:
+        assert _rel_err(c, af[:64].t() @ bf[:64]) > GEMM_BAND
+
+
+@pytest.mark.cuda
+def test_wgrad_sm90_kernels_run_on_wgmma_on_card(cuda_device):
+    """The weight-gradient kernels on the MN-major core (the FF backward's
+    FFWgradPlan, the check entry's WgradPlan) have HGMMA instructions in
+    their SASS (cuobjdump of the built library); the fp32 BERT layer's
+    products (SplitPlan) and the FF backward's value / gate and dh kernel
+    too."""
+    import shutil
+    import subprocess
+
+    from ct_clip_ut_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    for mark in ("4sm9012wgrad_kernel", "11FFWgradPlan", "9WgradPlan", "9SplitPlan",
+                 "3ffb15gate_bwd_kernel"):
+        assert any(mark in f and n > 0 for f, n in counts.items()), mark
 
 
 @pytest.mark.cuda

@@ -133,7 +133,7 @@ def test_build_sources_are_the_package_csrc():
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
                      "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
-                     "attn_mma.cuh"}
+                     "attn_mma.cuh", "wgrad_sm90.cuh"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
@@ -141,7 +141,7 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw",
                 "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
-                "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check"))
+                "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check", "ctc_wgrad_sm90_check"))
 
 
 def test_signatures_match_the_c_entries():
