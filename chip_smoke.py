@@ -13,13 +13,15 @@ Phases, each printing its lines before the last:
      attention core, every one of which must have some, the GEMMs of
      vq_nearest (its argmax epilogue), of attn_qrows' projections (QkvPlan
      with the per-head l2-norm epilogue), of the fp32 BERT layer (SplitPlan:
-     three bf16 passes a product) and of geglu_ff_bwd (the value / gate
-     recompute with dh, the weight gradients) and the qrows core among them; HMMA
-     (mma.sync) in the shared split-bf16 core (csrc/attn_mma.cuh:
-     attn_block's forward, the backward's statistics pass), the backward's
-     query and key passes (attn_block_bwd and attn_packed_bwd), its dbias
-     pass, the cosine_attention core and the fp32 BERT layer's attention,
-     each of which must have some;
+     three bf16 passes a product), of geglu_ff_bwd (the value / gate
+     recompute with dh, the weight gradients), of the attention blocks'
+     projections (QkvPlan with tc::QkvEpi, attn_block and attn_packed) and
+     of the patch embed (PatchEpi: the folded LN1) and the qrows core among
+     them; HMMA (mma.sync) in the shared split-bf16 core (csrc/attn_mma.cuh:
+     attn_block's and attn_packed's forward, the backward's statistics
+     pass), the backward's query and key passes (attn_block_bwd and
+     attn_packed_bwd), its dbias pass, the cosine_attention core and the
+     fp32 BERT layer's attention, each of which must have some;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -28,7 +30,11 @@ Phases, each printing its lines before the last:
      layer; LN, projections, F.normalize and F.scaled_dot_product_attention
      for the attention blocks; LN, F.linear and F.gelu for the FF; tok @
      cb.t() + argmax for the VQ; patchify, LN, F.linear, LN for the patch
-     embed), with its error against the plain version. vq_nearest is the
+     embed), with its error against the plain version; attn_packed's and
+     the patch embed's chains run under torch.profiler once, printing each
+     launch's ms, and fail if a launch of theirs is not on the Hopper pieces
+     (ctc::sm90, ctc::tc, ctc::pe: no wmma kernel of gemm_tile.cuh), or
+     if no gemm_kernel is among them. vq_nearest is the
      Hopper GEMM core with an argmax epilogue (64-bit atomicMax keys a
      row and code tile): >= VQ_AGREE equal indices, every mismatch a
      near-tie (<= VQ_TIE), and two equal codes in tiles 0 and 32 give the
@@ -266,15 +272,18 @@ COSINE_TEMPORAL = (9216, 24)        # (b h w, t) slices of the temporal stack at
 # Mangled-name marks of the wgmma kernels that must be in the library: the
 # argmax GEMM of vq_nearest, the q / k / v GEMM and the attention core of
 # attn_qrows, the fp32 BERT layer's split products, the FF backward's
-# recompute and its MN-major weight gradients
+# recompute and its MN-major weight gradients, the attention blocks'
+# projections, the patch embed's product
 SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
+                 "attn_block / attn_packed projections (QkvPlan, tc::QkvEpi)": "2tc6QkvEpi",
+                 "patch_embed GEMM (PatchEpi: the folded LN1, conv)": "2pe8PatchEpi",
                  "attn_qrows projections (QkvPlan, qr::QkvEpi)": "2qr6QkvEpi",
                  "attn_qrows core": "2qr11core_kernel",
                  "fp32 bert_layer products (SplitPlan: three bf16 passes)": "9SplitPlan",
                  "geglu_ff_bwd value / gate recompute with dh (GateBwdEpi)": "10GateBwdEpi",
                  "geglu_ff_bwd weight gradients (FFWgradPlan, MN-major)": "11FFWgradPlan"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
-SASS_MMA_REQUIRED = {"shared core (attn_block, the backward's statistics)":
+SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
                      "the backward's query pass (attn_block_bwd, attn_packed_bwd)":
                          "13bwd_dq_kernel",
@@ -331,6 +340,27 @@ def sass_check(lib: Path) -> None:
               f"({', '.join(str(n) for n in found.values())})")
         if not found:
             raise AssertionError(f"no mma.sync kernel for {what} in the library")
+
+
+# The namespaces of the Hopper pieces (mangled or demangled): a chain moved
+# off the wmma tile of gemm_tile.cuh launches no ctc kernel outside them
+HOPPER_SPACES = ("sm90", "tc::", "pe::", "3ctc2tc", "3ctc2pe")
+
+
+def hopper_chain_check(name: str, fn, card: str) -> None:
+    """Run fn once under torch.profiler (after a warm-up), print each of the
+    port's launches with its ms, and raise if one lies outside
+    HOPPER_SPACES (a wmma kernel of gemm_tile.cuh) or none is a gemm_kernel."""
+    from ct_clip_ut_tpu_torch.infer.profile_zeroshot import profile_call
+
+    rows = [(ms, n, k) for ms, n, k in profile_call(fn)["rows"] if "ctc" in k]
+    print(f"kernel {name}: one call's launches: "
+          + "; ".join(f"{k.split('(')[0][-70:]} x{n} {ms:.3f} ms" for ms, n, k in rows)
+          + f" [{card}]")
+    stray = [k for _, _, k in rows if not any(sp in k for sp in HOPPER_SPACES)]
+    if stray or not any("gemm_kernel" in k for _, _, k in rows):
+        raise AssertionError(f"{name}: launches outside the Hopper pieces {stray}, or no "
+                             f"gemm_kernel among {[k for _, _, k in rows]}")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -571,6 +601,8 @@ def kernel_phase(torch, model, card: str) -> dict:
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          **bound(flops, nbytes(*tensors, got), BF16_PEAK), library_ms=library_ms)
+        if name == "attn_packed":
+            hopper_chain_check(name, lambda: kern(*args, residual=True), card)
 
     tok = l2norm(torch.randn((BATCH * t * hw, d), generator=g, device="cuda")).to(bf)
     cb = vit.vq.state().embed.to(bf)
@@ -665,6 +697,7 @@ def patch_embed_check(torch, model, card: str, g) -> dict:
         plain_ms = cuda_ms(torch, lambda: patch_embed_plain(*args, p, tp))
         lib_err = rel_err(library(image), want)
         library_ms = library_time(torch, lambda: library(image))
+        hopper_chain_check("patch_embed", lambda: patch_embed_fused(*args, p, tp), card)
     abs_err = band_check("patch_embed", got, want, FLOAT_BAND, controls,
                          f"{list(image.shape)} -> {list(got.shape)}")
     print(f"kernel patch_embed: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch chain "
@@ -1364,6 +1397,7 @@ def patch_embed_train_check(torch, model, card: str, g) -> dict:
         plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
         lib_err = rel_err(library(image), want["out"])
         library_ms = library_time(torch, lambda: library(image))
+        hopper_chain_check("patch_embed_res", lambda: patch_embed_res(*args, p, tp), card)
         print(f"kernel patch_embed_res: {ms:.3f} ms vs plain {plain_ms:.3f} ms, the PyTorch "
               f"chain {library_ms:.3f} ms ({library_ms.span}) (its output vs the plain out: max_rel_err "
               f"{lib_err:.3e}) [{card}]")

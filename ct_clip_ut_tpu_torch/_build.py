@@ -41,8 +41,8 @@ SIGNATURES = {
     "ctc_attn_qrows": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "ctc_geglu_ff": [_P] * 8 + [_I] * 6 + [_P],
     "ctc_vq_nearest": [_P] * 4 + [_I] * 5 + [_P],
-    "ctc_patch_embed": [_P] * 8 + [_I] * 7 + [_P],
-    "ctc_patch_embed_res": [_P] * 9 + [_I] * 7 + [_P],
+    "ctc_patch_embed": [_P] * 9 + [_I] * 9 + [_P],
+    "ctc_patch_embed_res": [_P] * 10 + [_I] * 9 + [_P],
     "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 7 + [_P],
     "ctc_attn_block_bwd": [_P] * 34 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed_bwd": [_P] * 31 + [_I] * 4 + [_F, _I, _P],

@@ -9,7 +9,8 @@
 // What bounds it on the H100: the four projections are tensor-core GEMMs
 // (2 * M * 512 * 256 * 4 FLOP); the core's 2 * R * 8 * n^2 * 32 * 2 FLOP,
 // one exp per score and the fp32 bias, read from L2 for every (sequence,
-// head). Four launches:
+// head). Four launches, the chain tc::block_forward of attn_mma.cuh that
+// the temporal block (attn_packed.cu) shares:
 //   ln_rows_kernel      xn = LN(x) * gamma (no beta), bf16;
 //   gemm_kernel         q from xn, k and v from the pre-norm x, on the
 //                       Hopper core of gemm_sm90.cuh (QkvPlan picks the maps
@@ -36,8 +37,6 @@
 //   gemm_kernel         O . Wo^T with the residual added in fp32.
 #include "attn_mma.cuh"
 
-using namespace ctc::sm90;
-
 // x [R*n, D] bf16 (D a multiple of 8); gamma [D], qs/ks [32], bias [H, n, n]
 // fp32; wq/wk/wv [HD, D], wo [D, HD] bf16; xn [R*n, D], qk [4, R*n, HD]
 // (q_hi, q_lo, k_hi, k_lo), v_ws / o_ws [R*n, HD] bf16 workspaces; out
@@ -47,35 +46,9 @@ extern "C" int ctc_attn_block(const void* x, const void* gamma, const void* wq, 
                               const void* bias, void* xn, void* qk, void* v_ws, void* o_ws,
                               void* out, int R, int n, int D, int H, float scale, int residual,
                               void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = R * n, HD = H * ctc::tc::DH, tiles = HD / BN;
-  Maps proj{}, outm{};
-  int err = map_a(&proj.m[0], xn, M, D, D);
-  if (!err) err = map_a(&proj.m[1], x, M, D, D);
-  if (!err) err = map_b(&proj.m[2], wq, HD, D, D);
-  if (!err) err = map_b(&proj.m[3], wk, HD, D, D);
-  if (!err) err = map_b(&proj.m[4], wv, HD, D, D);
-  if (!err) err = map_a(&outm.m[0], o_ws, M, HD, HD);
-  if (!err) err = map_b(&outm.m[1], wo, D, HD, HD);
-  if (err) return err;
-  err = launch_ln_rows(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,
-                       static_cast<bf16*>(xn), M, D, st);
-  if (err) return err;
-  err = launch_gemm(proj, QkvPlan{tiles},
-                    ctc::tc::QkvEpi{static_cast<bf16*>(qk), static_cast<bf16*>(v_ws),
-                                    static_cast<const float*>(qs), static_cast<const float*>(ks),
-                                    scale, M, HD, tiles, nullptr, nullptr},
-                    3 * tiles, M, D, st);
-  if (err) return err;
-  err = ctc::tc::launch_block_core<false>(static_cast<const bf16*>(qk),
-                                          static_cast<const bf16*>(v_ws),
-                                          static_cast<const float*>(bias),
-                                          static_cast<bf16*>(o_ws), R, n, H, nullptr, nullptr, st);
-  if (err) return err;
-  return launch_gemm(outm, LinearPlan{},
-                     ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
-                                 residual},
-                     (D + BN - 1) / BN, M, HD, st);
+  return ctc::tc::block_forward(x, gamma, wq, wk, wv, wo, qs, ks,
+                                static_cast<const float*>(bias), xn, qk, v_ws, o_ws, out, R, n,
+                                D, H, scale, residual, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Largest sequence length whose staged keys and values fit a block's shared memory.

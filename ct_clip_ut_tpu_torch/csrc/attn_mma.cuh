@@ -1,7 +1,7 @@
 // The tensor-core pieces of the cosine-attention cores (mma.sync m16n8k16,
-// bf16 operands, fp32 sums), shared by the spatial block's forward core
-// (attn_block.cu), the block backward's passes (attn_bwd.cuh) and the bare
-// cosine core (cosine_attention.cu):
+// bf16 operands, fp32 sums), shared by the forward of the spatial and the
+// temporal block (attn_block.cu, attn_packed.cu), the block backward's
+// passes (attn_bwd.cuh) and the bare cosine core (cosine_attention.cu):
 //
 //   swz / stage_planes   keys (or queries) of one slice staged in shared
 //                        memory as [rows][32] bf16 planes, 64 B a row, the
@@ -25,7 +25,10 @@
 //                        rounding point) and P.V with p fed from the score
 //                        registers; o rounded to bf16. With STATS it also
 //                        writes each row's (m log2 e, 1 / l, D = rowsum(dO o))
-//                        for the backward passes.
+//                        for the backward passes;
+//   block_forward        the block's forward chain on the Hopper GEMM core
+//                        around that core: LN pass, QkvPlan + QkvEpi, the
+//                        core, the output projection (+ x).
 #pragma once
 
 #include <math_constants.h>
@@ -454,6 +457,52 @@ inline int core_max_keys() {
   int m = KC;
   while (core_smem_bytes(m + KC) <= 227 * 1024) m += KC;
   return m;
+}
+
+// ---- the block forward ---------------------------------------------------------
+
+// The cosine-attention block's forward, the chain of attn_block.cu (bias
+// [H][n][n] fp32) and attn_packed.cu (bias null): ln_rows_kernel writes xn;
+// one QkvPlan GEMM writes q / k as hi / lo planes (QkvEpi) and v; the core
+// writes o; a LinearPlan GEMM writes o Wo^T (+ x). x [R*n, D] bf16 (D a
+// multiple of 8); gamma [D], qs / ks [32] fp32; wq / wk / wv [HD, D], wo [D,
+// HD] bf16; workspaces xn [R*n, D], qk [4][R*n][HD], v_ws / o_ws [R*n, HD]
+// bf16; out [R*n, D] bf16. HD = H * 32, a multiple of 128; every pointer
+// 16-B aligned. A template so that only the sources that call it build its
+// kernels.
+template <int Dummy = 0>
+int block_forward(const void* x, const void* gamma, const void* wq, const void* wk,
+                         const void* wv, const void* wo, const void* qs, const void* ks,
+                         const float* bias, void* xn, void* qk, void* v_ws, void* o_ws, void* out,
+                         int R, int n, int D, int H, float scale, int residual,
+                         cudaStream_t st) {
+  using namespace sm90;
+  const int M = R * n, HD = H * DH, tiles = HD / BN;
+  Maps proj{}, outm{};
+  int err = map_a(&proj.m[0], xn, M, D, D);
+  if (!err) err = map_a(&proj.m[1], x, M, D, D);
+  if (!err) err = map_b(&proj.m[2], wq, HD, D, D);
+  if (!err) err = map_b(&proj.m[3], wk, HD, D, D);
+  if (!err) err = map_b(&proj.m[4], wv, HD, D, D);
+  if (!err) err = map_a(&outm.m[0], o_ws, M, HD, HD);
+  if (!err) err = map_b(&outm.m[1], wo, D, HD, HD);
+  if (err) return err;
+  err = launch_ln_rows(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,
+                       static_cast<bf16*>(xn), M, D, st);
+  if (err) return err;
+  err = launch_gemm(proj, QkvPlan{tiles},
+                    QkvEpi{static_cast<bf16*>(qk), static_cast<bf16*>(v_ws),
+                           static_cast<const float*>(qs), static_cast<const float*>(ks), scale,
+                           M, HD, tiles, nullptr, nullptr},
+                    3 * tiles, M, D, st);
+  if (err) return err;
+  err = launch_block_core<false>(static_cast<const bf16*>(qk), static_cast<const bf16*>(v_ws),
+                                 bias, static_cast<bf16*>(o_ws), R, n, H, nullptr, nullptr, st);
+  if (err) return err;
+  return launch_gemm(outm, LinearPlan{},
+                     ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
+                                 residual},
+                     (D + BN - 1) / BN, M, HD, st);
 }
 
 }  // namespace tc

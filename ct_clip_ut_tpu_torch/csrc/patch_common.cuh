@@ -2,10 +2,13 @@
 // (patch_embed.cu) and its weight gradient (patch_embed_dkw.cu): patch m,
 // ordered (b, t, hp, wp), of a [B, 1, T, H, W] volume holds K = t_patch *
 // patch^2 pixels, column k = (tv, p1, wv) with wv fastest, the order of the
-// pixels along W.
+// pixels along W. It names no GEMM core: the forward includes gemm_sm90.cuh,
+// the weight gradient gemm_tile.cuh.
 #pragma once
 
-#include "gemm_tile.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ctc {
 
@@ -20,6 +23,7 @@ struct PatchGeom {
     int ti = r % tt, b = r / tt;
     return ((int64_t)(b * T + ti * t_patch) * H + hi * patch) * W + wi * patch;
   }
+  __host__ __device__ __forceinline__ int K() const { return t_patch * patch * patch; }
   // offset of pixel k = (tv, p1, wv) within a patch
   __device__ __forceinline__ int64_t pixel(int k) const {
     int wv = k % patch, r = k / patch;
@@ -31,8 +35,8 @@ struct PatchGeom {
 // K. With vec4 (k % 8 == 0, a patch width and W that 4 divides, an 8-B
 // aligned volume) they are two aligned runs of 4 along W: a run of 20 bf16
 // is only 8-B aligned, so no 16-B load is legal there.
-__device__ __forceinline__ uint4 patch_load8(const bf16* p, const PatchGeom& g, int k, int K,
-                                             int vec4) {
+__device__ __forceinline__ uint4 patch_load8(const __nv_bfloat16* p, const PatchGeom& g, int k,
+                                             int K, int vec4) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
   if (k >= K) return v;
   if (vec4) {
@@ -41,7 +45,7 @@ __device__ __forceinline__ uint4 patch_load8(const bf16* p, const PatchGeom& g, 
     if (k + 4 < K) half[1] = *reinterpret_cast<const uint2*>(p + g.pixel(k + 4));
     return v;
   }
-  bf16* e = reinterpret_cast<bf16*>(&v);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     if (k + i < K) e[i] = p[g.pixel(k + i)];

@@ -1,5 +1,6 @@
-"""Per-launch device profile of one fp32 BERT layer, one GEGLU FF backward
-and one prompt encoding on one GPU.
+"""Per-launch device profile of one fp32 BERT layer, one GEGLU FF backward,
+one prompt encoding, one temporal attention block and one patch embed on
+one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_layers [--label L] [--out DIR]
 
@@ -12,7 +13,11 @@ runs under torch.profiler, each after one warm-up call (`profile_call`):
 - `geglu_ff_bwd` at a B = 2 train step's shape, x and g [27648, 512] bf16,
   spatial layer 0's FF weights, the residual on;
 - one `encode_prompt_latents` of the 36 prompts padded to 512 tokens (12
-  fp32 layers).
+  fp32 layers);
+- `attn_packed` at the zero-shot shape of two volumes, x [1152, 24, 512]
+  bf16, temporal layer 0's weights, the residual on;
+- `patch_embed_fused` and `patch_embed_res` on two flagship volumes [2, 1,
+  240, 480, 480] bf16 (the model's embed weights, folded).
 
 For each it prints the device kernel time and the kernels ranked by time
 with their launch counts (every row into DIR/<name>.table with --out). The
@@ -36,10 +41,15 @@ from ct_clip_ut_tpu_torch.infer.zeroshot import (WordTokenizer, encode_prompt_la
                                                  tokenize_prompts)
 from ct_clip_ut_tpu_torch.models.bert import layer_args
 from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed
 from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
+from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
+                                                  patch_embed_res)
 
 PROMPTS, PROMPT_LEN, FF_ROWS = 36, 512, 27648
+SEQS, SEQ_LEN = 1152, 24             # the temporal stack's sequences at two volumes
+VOLUMES = (2, 1, 240, 480, 480)
 
 
 def main(argv=None) -> int:
@@ -73,7 +83,8 @@ def main(argv=None) -> int:
     print_profile(p, f"{args.label}: one fp32 bert_layer {list(x.shape)}", card,
                   table("bert_layer"), top=12)
 
-    ff = model.visual_transformer.enc_spatial_transformer.layers[0][3]
+    vit = model.visual_transformer
+    ff = vit.enc_spatial_transformer.layers[0][3]
     bf, d = torch.bfloat16, cfg.ctvit.dim
     xf = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
     gr = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
@@ -91,6 +102,34 @@ def main(argv=None) -> int:
         p = profile_call(lambda: encode_prompt_latents(model, prompts))
     print_profile(p, f"{args.label}: one prompt encoding ({PROMPTS} x {PROMPT_LEN})", card,
                   table("prompt"), top=12)
+
+    a = vit.enc_temporal_transformer.layers[0][1]
+    wkv = a.to_kv.weight.detach().to(bf)
+    inner, dh = a.cfg.inner_dim, a.cfg.dim_head
+    xt = torch.randn((SEQS, SEQ_LEN, d), generator=g, device="cuda").to(bf)
+    at_args = (xt, 1.0 + 0.1 * torch.randn((d,), generator=g, device="cuda"),
+               a.to_q.weight.detach().to(bf), wkv[:inner].contiguous(), wkv[inner:].contiguous(),
+               a.to_out.weight.detach().to(bf),
+               1.0 + 0.1 * torch.randn((dh,), generator=g, device="cuda"),
+               1.0 + 0.1 * torch.randn((dh,), generator=g, device="cuda"), a.cfg.scale, True)
+    with torch.no_grad():
+        p = profile_call(lambda: attn_packed(*at_args))
+    print_profile(p, f"{args.label}: one attn_packed {list(xt.shape)}", card,
+                  table("attn_packed"), top=12)
+
+    vcfg = cfg.ctvit
+    pt, tp = vcfg.patch_size, vcfg.temporal_patch_size
+    image = torch.randn(VOLUMES, generator=g, device="cuda").to(bf)
+    with torch.no_grad():
+        emb = vit.to_patch_emb
+        kw, s1, b1 = fold_patch_embed(emb, pt, tp)
+        pe_args = (image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float(), pt, tp)
+        p = profile_call(lambda: patch_embed_fused(*pe_args))
+        print_profile(p, f"{args.label}: one patch_embed {list(image.shape)}", card,
+                      table("patch_embed"), top=12)
+        p = profile_call(lambda: patch_embed_res(*pe_args))
+        print_profile(p, f"{args.label}: one patch_embed_res {list(image.shape)}", card,
+                      table("patch_embed_res"), top=12)
     return 0
 
 

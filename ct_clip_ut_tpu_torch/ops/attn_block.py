@@ -81,6 +81,9 @@ def check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n: int) -> tuple:
                          f"h*dh={hd}")
     if n > max_n:
         raise ValueError(f"sequence length {n} over the kernel's {max_n}")
+    if d % 8:
+        raise ValueError(f"the attention kernels take a width that 8 divides (16-B TMA rows), "
+                         f"got {d}")
     dev = x.device
     for t, name, dtype, shape in ((x, "x", torch.bfloat16, (r, n, d)),
                                   (gamma, "gamma", torch.float32, (d,)),
@@ -94,12 +97,29 @@ def check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n: int) -> tuple:
     return r, n, d, heads
 
 
-def workspaces(m: int, hd: int, dev) -> tuple:
-    """q, k (fp32) and v, o (bf16) [m, hd] buffers of the attention chains."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    return (torch.empty((m, hd), **f32), torch.empty((m, hd), **f32),
-            torch.empty((m, hd), **b16), torch.empty((m, hd), **b16))
+def launch_block(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: float,
+                 residual: bool) -> torch.Tensor:
+    """Run the forward chain `entry` (ctc_attn_block with a bias [h, n, n]
+    fp32, ctc_attn_packed with None) on CUDA tensors: the one place that
+    knows the two entries' workspaces (xn; q and k as bf16 hi / lo planes;
+    v; o)."""
+    lib = _build.load()
+    max_n = lib.ctc_attn_block_max_n() if bias is not None else lib.ctc_attn_packed_max_n()
+    r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n)
+    if bias is not None:
+        _build.require(bias, "bias", torch.float32, (heads, n, n), x.device)
+    m, hd = r * n, heads * DIM_HEAD
+    x, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, wq, wk, wv, wo))
+    b16 = dict(dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((m, d), **b16), torch.empty((4, m, hd), **b16),
+          torch.empty((m, hd), **b16), torch.empty((m, hd), **b16))
+    out = torch.empty_like(x)
+    ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else [])
+    err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in ws),
+                              out.data_ptr(), r, n, d, heads, float(scale), int(residual),
+                              _build.stream_of(x))
+    _build.check(err, entry)
+    return out
 
 
 def attn_block(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -111,26 +131,10 @@ def attn_block(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
     version on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_block_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
-    lib = _build.load()
-    r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
-                                      lib.ctc_attn_block_max_n())
-    _build.require(bias, "bias", torch.float32, (heads, n, n), x.device)
-    if d % 8:
-        raise ValueError(f"the attn_block kernel takes a width that 8 divides (16-B TMA rows), "
-                         f"got {d}")
-    m, hd = r * n, heads * DIM_HEAD
-    x, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, wq, wk, wv, wo))
-    b16 = dict(dtype=torch.bfloat16, device=x.device)
-    # xn; q and k as bf16 hi / lo planes; v; o
-    ws = (torch.empty((m, d), **b16), torch.empty((4, m, hd), **b16),
-          torch.empty((m, hd), **b16), torch.empty((m, hd), **b16))
-    out = torch.empty_like(x)
-    err = lib.ctc_attn_block(
-        x.data_ptr(), gamma.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-        wo.data_ptr(), qs.data_ptr(), ks.data_ptr(), bias.data_ptr(),
-        *(w.data_ptr() for w in ws), out.data_ptr(), r, n, d, heads, float(scale),
-        int(residual), _build.stream_of(x))
-    _build.check(err, "attn_block")
+    if bias is None:
+        raise ValueError("attn_block takes a bias [h, n, n]; attn_packed is the block without")
+    out = launch_block("ctc_attn_block", x, gamma, wq, wk, wv, wo, qs, ks, bias, scale,
+                       residual)
     launches.count("attn_block")
     return out
 
@@ -220,9 +224,6 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
     knows the entries' workspaces."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, lib.ctc_attn_bwd_max_n())
-    if d % 8:
-        raise ValueError(f"the attention backward kernels take a width that 8 divides (16-B TMA "
-                         f"rows), got {d}")
     dev = x.device
     hd = heads * DIM_HEAD
     m = r * n

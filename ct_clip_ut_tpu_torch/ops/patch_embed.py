@@ -1,8 +1,11 @@
 """CT-ViT patch embed in the LN-folded conv form: kernel wrapper and plain version.
 
 Replaces ct_clip_ut_tpu/ops/pallas_patch_embed.py:patch_embed_fused (the
-forward, `_forward_impl`). The CUDA chain is `csrc/patch_embed.cu`; its
-header says what bounds it on the H100 and what the design does about it.
+forward, `_forward_impl`). The CUDA chain is `csrc/patch_embed.cu`: a
+patchify pass writes the patch matrix P (and each patch's LN1 moments), the
+Hopper GEMM core reads it through TMA (`tma_operands` is the plan), and an
+LN2 pass finishes; its header says what bounds it on the H100 and what the
+design does about it.
 
 patchify -> LN1 -> Linear -> LN2 (ctvit.py:56-60) is computed with LN1
 folded into the projection (models/ctvit.py:63-99 of the JAX package):
@@ -99,6 +102,44 @@ def _check_embed_args(image, kw, s1, b1, g2, b2, patch: int, t_patch: int) -> No
         _build.require(t, name, dtype, shape, image.device)
 
 
+def tma_operands(image: torch.Tensor, kw: torch.Tensor, patch: int, t_patch: int) -> dict:
+    """The operands the patch_embed GEMM reads through TMA, name -> (tensor,
+    rows, cols, row stride in elements): the patch matrix P [M, K] as a
+    fresh workspace [M, ldp] (ldp = K rounded up to 16 B; the patchify pass
+    writes it whole, zeros past K), and the folded weight [dim, K] in the
+    image dtype, column (tv, p1, wv), as it is where its rows are 16-B
+    strided, else a zero-padded copy made on this call."""
+    b, c, T, H, W = image.shape
+    m = b * (T // t_patch) * (H // patch) * (W // patch)
+    k = t_patch * patch * patch
+    kwd, ldk = _build.tma_rows(_kernel_weight(kw, image.dtype))
+    ldp = _build.tma_pitch(k, image.element_size())
+    return {"patches": (torch.empty((m, ldp), dtype=image.dtype, device=image.device), m, k, ldp),
+            "kwd": (kwd, kw.shape[-1], k, ldk)}
+
+
+def _launch(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
+            conv: bool) -> tuple:
+    """Run ctc_patch_embed(_res) on CUDA tensors: (out, conv or None, stats)."""
+    b, c, T, H, W = image.shape
+    _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch)
+    dim = kw.shape[-1]
+    dev = image.device
+    t, hp, wp = T // t_patch, H // patch, W // patch
+    m = b * t * hp * wp
+    ops = tma_operands(image, kw, patch, t_patch)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, hp, wp, dim), dtype=image.dtype, device=dev)
+    res = torch.empty((m, dim), dtype=torch.float32, device=dev) if conv else None
+    err = getattr(_build.load(), entry)(
+        image.data_ptr(), ops["kwd"][0].data_ptr(), s1.data_ptr(), b1.data_ptr(),
+        g2.data_ptr(), b2.data_ptr(), ops["patches"][0].data_ptr(), stats.data_ptr(),
+        out.data_ptr(), *([res.data_ptr()] if conv else []), b, T, H, W, patch, t_patch, dim,
+        ops["patches"][3], ops["kwd"][3], _build.stream_of(image))
+    _build.check(err, entry)
+    return out, res, stats
+
+
 def patch_embed_fused(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
                       b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                       patch: int, t_patch: int) -> torch.Tensor:
@@ -107,20 +148,7 @@ def patch_embed_fused(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
     plain version on CPU tensors."""
     if not _build.on_cuda(image):
         return patch_embed_plain(image, kw, s1, b1, g2, b2, patch, t_patch)
-    b, c, T, H, W = image.shape
-    _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch)
-    dim = kw.shape[-1]
-    dev = image.device
-    t, hp, wp = T // t_patch, H // patch, W // patch
-    m = b * t * hp * wp
-    kwd = _kernel_weight(kw, image.dtype)
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((b, t, hp, wp, dim), dtype=image.dtype, device=dev)
-    err = _build.load().ctc_patch_embed(
-        image.data_ptr(), kwd.data_ptr(), s1.data_ptr(), b1.data_ptr(), g2.data_ptr(),
-        b2.data_ptr(), stats.data_ptr(), out.data_ptr(), b, T, H, W, patch, t_patch, dim,
-        _build.stream_of(image))
-    _build.check(err, "patch_embed")
+    out = _launch("ctc_patch_embed", image, kw, s1, b1, g2, b2, patch, t_patch, False)[0]
     launches.count("patch_embed")
     return out
 
@@ -156,22 +184,9 @@ def patch_embed_res(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
     inputs), the plain version on CPU tensors."""
     if not _build.on_cuda(image):
         return patch_embed_res_plain(image, kw, s1, b1, g2, b2, patch, t_patch)
-    b, dim, dev = image.shape[0], kw.shape[-1], image.device
-    T, H, W = image.shape[2:]
-    _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch)
-    m = b * (T // t_patch) * (H // patch) * (W // patch)
-    kwd = _kernel_weight(kw, image.dtype)
-    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
-    conv = torch.empty((m, dim), dtype=torch.float32, device=dev)
-    out = torch.empty((b, T // t_patch, H // patch, W // patch, dim), dtype=image.dtype,
-                      device=dev)
-    err = _build.load().ctc_patch_embed_res(
-        image.data_ptr(), kwd.data_ptr(), s1.data_ptr(), b1.data_ptr(), g2.data_ptr(),
-        b2.data_ptr(), stats.data_ptr(), out.data_ptr(), conv.data_ptr(), b, T, H, W, patch,
-        t_patch, dim, _build.stream_of(image))
-    _build.check(err, "patch_embed_res")
+    out = _launch("ctc_patch_embed_res", image, kw, s1, b1, g2, b2, patch, t_patch, True)
     launches.count("patch_embed_res")
-    return out, conv, stats
+    return out
 
 
 def patch_embed_dkw_plain(image: torch.Tensor, dconv: torch.Tensor, patch: int,

@@ -936,6 +936,75 @@ def test_attn_block_kernel_long_and_odd_on_card(cuda_device, n, residual):
             assert _rel_err(got, attn_block_plain(*wrong, 8.0, False)) > 1.5e-2, i
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n", [8, 24, 40])
+@pytest.mark.parametrize("r", [1, 3, 577])
+def test_attn_packed_kernel_on_the_hopper_chain_on_card(cuda_device, r, n, residual):
+    """The temporal block's chain (LN pass, QkvPlan + QkvEpi, the split-bf16
+    core without a bias, the output projection) at ragged sequence counts
+    (577: four full and one partial 128-row tile of rows past 128 x 4) and
+    lengths inside one 64-key chunk. The bf16 band; controls: gamma,
+    q_scale or k_scale left out."""
+    a = _attn_inputs(np.random.default_rng(24), r=r, n=n, d=512, heads=8, dh=32,
+                     with_bias=False)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    for i in (0, 2, 3, 4, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    launches.reset_launch_counts()
+    got = attn_packed(*args, 8.0, residual)
+    assert launches.launch_counts()["attn_packed"] == 1
+    assert got.shape == (r, n, 512) and got.dtype == torch.bfloat16
+    assert _rel_err(got, attn_packed_plain(*args, 8.0, residual)) <= 1.5e-2
+    if not residual:
+        for i in (1, 6, 7):
+            wrong = list(args)
+            wrong[i] = torch.ones_like(args[i])
+            assert _rel_err(got, attn_packed_plain(*wrong, 8.0, False)) > 1.5e-2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,t_patch,dim", [
+    ((1, 1, 20, 60, 100), 20, 10, 512), ((3, 1, 10, 40, 60), 20, 10, 512),  # M = 30, 18
+    ((2, 1, 200, 128, 128), 16, 2, 512), ((2, 1, 1, 128, 128), 16, 1, 512),  # CTGenerate's
+    ((2, 1, 2, 18, 30), 6, 1, 512),                                  # K = 36, 2-B pixel loads
+    ((1, 1, 10, 40, 40), 20, 10, 99)])                               # an odd width
+def test_patch_embed_chain_on_the_hopper_core_on_card(cuda_device, shape, patch, t_patch, dim):
+    """patch_embed and patch_embed_res (the patchify pass, the GEMM on the
+    Hopper core reading P through TMA with the folded-LN1 epilogue, LN2) at
+    B = 1 and 3 on small volumes, at CTGenerate's geometries (K = 512 and
+    256), at a patch width 4 does not divide (the pixel-by-pixel gather, a
+    K that is no multiple of 8: P and the weight padded to 40 columns) and
+    at an odd embedding width (scalar stores). Both entries give the same
+    bits; conv and stats come from the res launch. The bf16 band; controls:
+    LN1 gain left out of the fold, no mean correction (s1 = 0), LN2 bias
+    left out."""
+    from ct_clip_ut_tpu_torch.ops.patch_embed import patch_embed_res, patch_embed_res_plain
+
+    b, _, T, H, W = shape
+    a = _patch_inputs(np.random.default_rng(25), b, T, H, W, patch, t_patch, dim)
+    args = _patch_args(a, patch, t_patch, cuda_device)
+    args[0] = args[0].to(torch.bfloat16)
+    launches.reset_launch_counts()
+    got = patch_embed_fused(*args, patch, t_patch)
+    out, conv, stats = patch_embed_res(*args, patch, t_patch)
+    assert launches.launch_counts()["patch_embed"] == 1
+    assert launches.launch_counts()["patch_embed_res"] == 1
+    assert got.shape == (b, T // t_patch, H // patch, W // patch, dim)
+    assert torch.equal(got, out)
+    pout, pconv, pstats = patch_embed_res_plain(*args, patch, t_patch)
+    assert _rel_err(got, pout) <= 1.5e-2
+    assert _rel_err(conv, pconv) <= 1e-3 and _rel_err(stats, pstats) <= 1e-4
+    no_gain = _patch_args(a, patch, t_patch, cuda_device, ln1_gain=False)
+    for i, wrong in ((1, no_gain[1]), (2, torch.zeros_like(args[2])),
+                     (5, torch.zeros_like(args[5]))):
+        bad = list(args)
+        bad[i] = wrong
+        if i == 1:
+            bad[2] = no_gain[2]
+        assert _rel_err(got, patch_embed_plain(*bad, patch, t_patch)) > 1.5e-2, i
+
+
 # ---- vq_nearest and attn_qrows on the Hopper core ----
 
 def _vq_mismatch_gap(tok, cb, got, want):

@@ -126,7 +126,7 @@ def test_launch_counters_count_and_reset():
 
 def test_build_sources_are_the_package_csrc():
     names = {p.name for p in _build.sources()}
-    assert names == {"attn_block.cu", "attn_common.cuh", "attn_packed.cu", "gemm_tile.cuh",
+    assert names == {"attn_block.cu", "attn_packed.cu", "gemm_tile.cuh",
                      "geglu_ff.cu", "vq_nearest.cu", "patch_embed.cu", "bert_layer.cu",
                      "attn_bwd.cuh", "attn_block_bwd.cu", "attn_packed_bwd.cu", "bwd_common.cuh",
                      "geglu_ff_bwd.cu", "patch_common.cuh", "patch_embed_dkw.cu",
