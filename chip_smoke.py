@@ -21,7 +21,11 @@ Phases, each printing its lines before the last:
      attn_block's and attn_packed's forward, the backward's statistics
      pass), the backward's query and key passes (attn_block_bwd and
      attn_packed_bwd), its dbias pass, the cosine_attention core and the
-     fp32 BERT layer's attention, each of which must have some;
+     fp32 BERT layer's attention, each of which must have some; and for
+     the bf16 BERT layer's chain, HGMMA in its products (its epilogues on
+     gemm_kernel and the 64-row gemm64_kernel) and weight gradients
+     (BertWgradPlan), HMMA in its forward core and its backward's query
+     and key passes;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -99,6 +103,10 @@ Phases, each printing its lines before the last:
      gradients) against their plain versions through the same Philox masks,
      the masks themselves bit for bit against the plain generator with
      their keep shares, and nn.TransformerEncoderLayer as the library call;
+     one train-mode call of each under torch.profiler, failing if a launch
+     of theirs lies outside the Hopper pieces (ctc::sm90, ctc::bh: no wmma
+     kernel of gemm_tile.cuh or bwd_common.cuh), and the backward's
+     thirteen gradients the same bits on two calls;
      the PEG stencil (causal, and the backward's flipped form) and its
      weight gradient against their plain versions, with the default
      route's copy + F.conv3d + copy and torch.nn.grad.conv3d_weight as the
@@ -281,7 +289,13 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "attn_qrows core": "2qr11core_kernel",
                  "fp32 bert_layer products (SplitPlan: three bf16 passes)": "9SplitPlan",
                  "geglu_ff_bwd value / gate recompute with dh (GateBwdEpi)": "10GateBwdEpi",
-                 "geglu_ff_bwd weight gradients (FFWgradPlan, MN-major)": "11FFWgradPlan"}
+                 "geglu_ff_bwd weight gradients (FFWgradPlan, MN-major)": "11FFWgradPlan",
+                 "bf16 bert_layer hidden sites (HiddenEpi: bias, Philox keep, residual)":
+                     "2bh9HiddenEpi",
+                 "bf16 bert_layer_bwd GELU backward (GeluBwdEpi, W2 read as stored)":
+                     "2bh10GeluBwdEpi",
+                 "bf16 bert_layer_bwd weight gradients (BertWgradPlan, MN-major)":
+                     "2bh13BertWgradPlan"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -292,7 +306,11 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                      "attn_block_bwd dbias pass": "16bwd_dbias_kernel",
                      "cosine_attention core": "18cosine_core_kernel",
                      "fp32 bert_layer attention (split-bf16 scores and P.V)":
-                         "4bert11attn_kernel"}
+                         "4bert11attn_kernel",
+                     "bf16 bert_layer attention forward (two passes, Philox keep)":
+                         "2bh15fwd_core_kernel",
+                     "bf16 bert_layer_bwd query pass": "2bh14dq_pass_kernel",
+                     "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel"}
 
 
 def sass_check(lib: Path) -> None:
@@ -314,7 +332,8 @@ def sass_check(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if ("sm90" in fn and ("gemm_kernel" in fn or "wgrad_kernel" in fn)
+            if ("sm90" in fn and ("gemm_kernel" in fn or "gemm64_kernel" in fn
+                                  or "wgrad_kernel" in fn)
                     or "2qr11core_kernel" in fn or "3ffb15gate_bwd_kernel" in fn):
                 counts.setdefault(fn, 0)
             if any(mark in fn for mark in SASS_MMA_REQUIRED.values()):
@@ -344,7 +363,7 @@ def sass_check(lib: Path) -> None:
 
 # The namespaces of the Hopper pieces (mangled or demangled): a chain moved
 # off the wmma tile of gemm_tile.cuh launches no ctc kernel outside them
-HOPPER_SPACES = ("sm90", "tc::", "pe::", "3ctc2tc", "3ctc2pe")
+HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "3ctc2tc", "3ctc2pe", "3ctc2bh")
 
 
 def hopper_chain_check(name: str, fn, card: str) -> None:
@@ -1454,7 +1473,10 @@ def bert_train_check(torch, model, card: str) -> dict:
     Backward: dx and the twelve parameter gradients against autograd of the
     plain forward through the same masks. Controls (a plain backward with
     one fault): masks from other seeds, the attention keep mask left out of
-    dp, the post-FF keep mask left out, p_used in place of p in ds.
+    dp, the post-FF keep mask left out, p_used in place of p in ds. The
+    thirteen gradients the same bits on two train-mode calls; one train
+    call of the forward and of the backward profiled, every launch on the
+    Hopper pieces (hopper_chain_check).
 
     library_ms: nn.TransformerEncoderLayer (bf16, post-LN, exact GELU,
     dropout 0) with the same weights, its forward in eval mode, and forward
@@ -1534,6 +1556,8 @@ def bert_train_check(torch, model, card: str) -> dict:
                                      f"{RESIDUAL_BAND}, control {r2_control}")
         if not torch.equal(got, bert_layer(*args, heads, eps, **train)):
             raise AssertionError("bert_layer_bf16: two train-mode calls with the same seeds differ")
+        hopper_chain_check("bert_layer_bf16 (train)",
+                           lambda: bert_layer(*args, heads, eps, **train), card)
         ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps, **train))
         det_ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps))
         plain_ms = cuda_ms(torch, lambda: bert_layer_plain(*args, heads, eps, **train))
@@ -1589,6 +1613,17 @@ def bert_train_check(torch, model, card: str) -> dict:
         abs_err = grads_check("bert_layer_bwd", got, want, FLOAT_BAND, faulty,
                               f"{label} bf16 {list(x.shape)} vs autograd of the plain forward")
     with torch.no_grad():
+        first = bert_layer_bwd(*args, dout, heads, eps, **train)
+        second = bert_layer_bwd(*args, dout, heads, eps, **train)
+        same = [nm for nm, x, y in zip(names, first, second) if torch.equal(x, y)]
+        print(f"kernel bert_layer_bwd: two train-mode calls with the same seeds give the same bits "
+              f"in {len(same)} of {len(names)} gradients (dx and the twelve parameters' sums in a "
+              f"fixed order, no atomics) [{card}]")
+        if len(same) != len(names):
+            raise AssertionError(f"bert_layer_bwd: gradients differ between two calls: "
+                                 f"{sorted(set(names) - set(same))}")
+        hopper_chain_check("bert_layer_bwd (train)",
+                           lambda: bert_layer_bwd(*args, dout, heads, eps, **train), card)
         ms = cuda_ms(torch, lambda: bert_layer_bwd(*args, dout, heads, eps, **train))
         plain_ms = cuda_ms(torch, lambda: bert_layer_bwd_plain(*args, dout, heads, eps, **train))
     lib.train()

@@ -29,7 +29,11 @@
 // boxes that run past a matrix's edge with zeros, which covers a ragged M,
 // N and K; epilogues mask their stores to the matrix. TMA needs 16-B aligned
 // base addresses and row strides: the wrappers pad what is not
-// (ops/*.py, _build.tma_rows).
+// (ops/*.py, _build.tma_rows). A plan with B_MN reads B as a [K, N] matrix
+// as it is stored (a weight in a backward product, LinearKNPlan): boxes of
+// 64 columns x 64 K rows and wgmma's transpose bit for B. A product of
+// fewer 128 x 128 tiles than the card has SMs can take gemm64_kernel's
+// 64-row tiles instead (below).
 //
 // The tensor maps are encoded on the host per call with cuTensorMapEncodeTiled,
 // looked up in the already-loaded libcuda.so.1 (no -lcuda at link time), and
@@ -138,6 +142,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
+// Shared-memory descriptor of an MN-major tile written by TMA with the
+// 128-B swizzle: rows of 128 B run along MN (64 bf16), 8-row core groups
+// along K 1024 B apart (SBO); 64-wide MN blocks `lbo` bytes apart (LBO).
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // d[64] += A (64 x 16, desc a) . B (128 x 16, desc b)^T
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
@@ -147,6 +159,30 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
       "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
       "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64] += A (64 x 16, K-major, desc a) . B (16 x 128, MN-major: a weight
+// [K, N] read as it is stored, desc b); the transpose bit of B set
+__device__ __forceinline__ void wgmma_m64n128k16_kn(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -210,6 +246,18 @@ struct Passes<P, std::void_t<decltype(P::PASSES)>> {
   static constexpr int value = P::PASSES;
 };
 
+// Whether a plan's B operand is MN-major (B_MN = true: a [K, N] matrix read
+// through map_mn in boxes of 64 columns x 64 K rows, TileSrc's row0 / row1
+// naming B's first columns) rather than [N, K] K-major.
+template <class P, class = void>
+struct BMajor {
+  static constexpr bool mn = false;
+};
+template <class P>
+struct BMajor<P, std::void_t<decltype(P::B_MN)>> {
+  static constexpr bool mn = P::B_MN;
+};
+
 template <class Plan>
 __device__ __forceinline__ TileSrc plan_src(const Plan& plan, int nt, int pass) {
   if constexpr (Passes<Plan>::value == 1) {
@@ -252,8 +300,13 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
         char* a = ring + s * STAGE_BYTES;
         char* b = a + A_BYTES;
         tma_load_2d(a, &maps.m[src.a], &full[s], k0, m0);
-        tma_load_2d(b, &maps.m[src.b0], &full[s], k0, src.row0);
-        tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], k0, src.row1);
+        if constexpr (BMajor<Plan>::mn) {
+          tma_load_2d(b, &maps.m[src.b0], &full[s], src.row0, k0);
+          tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], src.row1, k0);
+        } else {
+          tma_load_2d(b, &maps.m[src.b0], &full[s], k0, src.row0);
+          tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], k0, src.row1);
+        }
       }
     }
   } else {
@@ -268,8 +321,14 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
       const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n128k16(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (BMajor<Plan>::mn) {
+          wgmma_m64n128k16_kn(acc, desc_sw128(a + kk * 32),
+                              desc_mn_sw128(b + kk * 2048, B_HALF_BYTES));
+        } else {
+          wgmma_m64n128k16(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32));
+        }
+      }
       wgmma_commit();
       wgmma_wait_all();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -282,6 +341,14 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
 
 // One A (map 0) and one B (map 1): B's tile rows are nt * 128 ...
 struct LinearPlan {
+  __device__ TileSrc src(int nt) const { return {0, 1, nt * BN, 1, nt * BN + 64}; }
+};
+
+// C = A . W with W [K, N] as it is stored (map 1 from map_mn): the backward
+// products of a layer's activations' gradients with its nn.Linear weights,
+// read MN-major instead of transposed per call.
+struct LinearKNPlan {
+  static constexpr bool B_MN = true;
   __device__ TileSrc src(int nt) const { return {0, 1, nt * BN, 1, nt * BN + 64}; }
 };
 
@@ -353,6 +420,13 @@ inline int map_b(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) 
   return make_map(m, p, rows, cols, ld, 64);
 }
 
+// An MN-major operand [rows, cols] with row stride ld (activations [tokens,
+// cols] of a weight gradient, a weight [K, N]), read in boxes of 64 columns
+// x 64 rows.
+inline int map_mn(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
+  return make_map(m, p, rows, cols, ld, 64);
+}
+
 // Launch gemm_kernel over n_tiles x ceil(M / BM) tiles; returns the launch's error.
 template <class Plan, class Epi>
 int launch_gemm(const Maps& maps, const Plan& plan, const Epi& epi, int n_tiles, int M, int K,
@@ -361,6 +435,117 @@ int launch_gemm(const Maps& maps, const Plan& plan, const Epi& epi, int n_tiles,
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   dim3 grid(n_tiles, (M + BM - 1) / BM);
   kern<<<grid, THREADS, SMEM, st>>>(maps, plan, epi, K);
+  return (int)cudaGetLastError();
+}
+
+// ---- 64-row tiles, K split between the warpgroups ---------------------------
+
+// A product whose N is narrow (768 columns at M = 1024 rows make 48 tiles of
+// 128 x 128 for 132 SMs) takes tiles of 64 rows x 128 columns, twice as
+// many: one producer warp feeds a ring of 64-row A slices (boxes of 64 rows:
+// map_b's, or map_mn's for an MN-major B), consumer warpgroup w takes the K
+// slices kt with kt % 2 == w into its own m64n128 accumulator; at the end
+// each warp pair (warp q of both warpgroups, the same 16 rows) meets in
+// shared memory, and one of the pair adds the other's sums (a + b: the same
+// bits on every call) and runs the epilogue with gemm_kernel's interface,
+// `epi(acc, row, nt, lane)`: rows 0-31 in warpgroup 0, 32-63 in 1.
+constexpr int S64_STAGES = 8;
+constexpr int A64_BYTES = 64 * BK * 2;
+constexpr int STAGE64_BYTES = A64_BYTES + 2 * B_HALF_BYTES;
+constexpr int RED64_BYTES = 128 * 64 * 4;          // four warps' accumulators
+constexpr int SMEM64 = S64_STAGES * STAGE64_BYTES + RED64_BYTES + 1024;
+
+template <class Plan, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm64_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S64_STAGES], empty[S64_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  float* red = reinterpret_cast<float*>(ring + S64_STAGES * STAGE64_BYTES);
+  const int nt = blockIdx.x, m0 = blockIdx.y * 64;
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S64_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS / 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      const TileSrc src = plan_src(plan, nt, 0);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S64_STAGES, k0 = kt * BK;
+        mbar_wait(&empty[s], ((kt / S64_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE64_BYTES);
+        char* a = ring + s * STAGE64_BYTES;
+        char* b = a + A64_BYTES;
+        tma_load_2d(a, &maps.m[src.a], &full[s], k0, m0);
+        if constexpr (BMajor<Plan>::mn) {
+          tma_load_2d(b, &maps.m[src.b0], &full[s], src.row0, k0);
+          tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], src.row1, k0);
+        } else {
+          tma_load_2d(b, &maps.m[src.b0], &full[s], k0, src.row0);
+          tma_load_2d(b + B_HALF_BYTES, &maps.m[src.b1], &full[s], k0, src.row1);
+        }
+      }
+    }
+  } else {
+    const int wg = warp >> 2;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = wg; kt < nk; kt += 2) {
+      const int s = kt % S64_STAGES;
+      mbar_wait(&full[s], (kt / S64_STAGES) & 1);
+      const uint32_t a = smem_u32(ring + s * STAGE64_BYTES);
+      const uint32_t b = a + A64_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (BMajor<Plan>::mn) {
+          wgmma_m64n128k16_kn(acc, desc_sw128(a + kk * 32),
+                              desc_mn_sw128(b + kk * 2048, B_HALF_BYTES));
+        } else {
+          wgmma_m64n128k16(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    fence_regs(acc);
+    // rows 16 q ... (q = warp % 4) finish in warpgroup 0 for q < 2 and in
+    // warpgroup 1 for q >= 2: the other warp of the pair hands over its sums
+    const int q = warp & 3, slot = q * 32 + lane;
+    const bool finisher = (wg == 0) == (q < 2);
+    if (!finisher) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) red[i * 128 + slot] = acc[i];
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_WARPS * 32) : "memory");
+    if (finisher) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += red[i * 128 + slot];
+      epi(acc, m0 + q * 16, nt, lane);
+    }
+  }
+}
+
+// Launch gemm64_kernel over n_tiles x ceil(M / 64) tiles (A's map in boxes
+// of 64 rows); returns the launch's error.
+template <class Plan, class Epi>
+int launch_gemm64(const Maps& maps, const Plan& plan, const Epi& epi, int n_tiles, int M, int K,
+                  cudaStream_t st) {
+  auto kern = gemm64_kernel<Plan, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM64);
+  dim3 grid(n_tiles, (M + 63) / 64);
+  kern<<<grid, THREADS, SMEM64, st>>>(maps, plan, epi, K);
   return (int)cudaGetLastError();
 }
 

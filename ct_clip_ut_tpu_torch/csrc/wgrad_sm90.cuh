@@ -33,14 +33,6 @@ struct WgradTile {
   int a, b, i0, j0, out, orow0, nrows;
 };
 
-// Shared-memory descriptor of an MN-major tile written by TMA with the
-// 128-B swizzle: rows of 128 B run along MN (64 bf16), 8-row core groups
-// along K 1024 B apart (SBO); 64-wide MN blocks `lbo` bytes apart (LBO).
-__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 // d[64] += A (64 x 16, MN-major) . B (128 x 16, MN-major)^T
 __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
@@ -126,12 +118,6 @@ wgrad_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, 
     fence_regs(acc);
     epi(acc, tile, wg * 64 + (warp & 3) * 16, lane);
   }
-}
-
-// An operand [tokens, cols] with row stride ld, read in boxes of 64 columns
-// x 64 tokens.
-inline int map_mn(CUtensorMap* m, const void* p, int tokens, int cols, int64_t ld) {
-  return make_map(m, p, tokens, cols, ld, 64);
 }
 
 // Launch wgrad_kernel over `tiles` tiles of the plan; returns the launch's error.

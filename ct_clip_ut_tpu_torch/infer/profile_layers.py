@@ -1,6 +1,6 @@
-"""Per-launch device profile of one fp32 BERT layer, one GEGLU FF backward,
-one prompt encoding, one temporal attention block and one patch embed on
-one GPU.
+"""Per-launch device profile of one fp32 BERT layer, one bf16 train-mode
+BERT layer forward and backward, one GEGLU FF backward, one prompt
+encoding, one temporal attention block and one patch embed on one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_layers [--label L] [--out DIR]
 
@@ -10,6 +10,10 @@ runs under torch.profiler, each after one warm-up call (`profile_call`):
 - `bert_layer` in fp32 on [36, 512, 768] with the zero-shot slice's key
   mask as chip_smoke.py draws it (6 to 14 real tokens a prompt, two at
   512), text layer 0's weights;
+- `bert_layer` in bf16 and train mode (the config's dropout rates, seeds
+  [20231, 77, 2^30]) on [2, 512, 768], one sequence padded after 300
+  tokens as chip_smoke.py has it, text layer 0's fp32 weights, and its
+  `bert_layer_bwd`: a B = 2 train step's text layer;
 - `geglu_ff_bwd` at a B = 2 train step's shape, x and g [27648, 512] bf16,
   spatial layer 0's FF weights, the residual on;
 - one `encode_prompt_latents` of the 36 prompts padded to 512 tokens (12
@@ -42,13 +46,14 @@ from ct_clip_ut_tpu_torch.infer.zeroshot import (WordTokenizer, encode_prompt_la
 from ct_clip_ut_tpu_torch.models.bert import layer_args
 from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
 from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed
-from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer
+from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_bwd
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
 from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
                                                   patch_embed_res)
 
 PROMPTS, PROMPT_LEN, FF_ROWS = 36, 512, 27648
 SEQS, SEQ_LEN = 1152, 24             # the temporal stack's sequences at two volumes
+TRAIN_BATCH, TRAIN_LEN, TRAIN_SHORT = 2, 512, 300   # the train step's text layer
 VOLUMES = (2, 1, 240, 480, 480)
 
 
@@ -83,9 +88,27 @@ def main(argv=None) -> int:
     print_profile(p, f"{args.label}: one fp32 bert_layer {list(x.shape)}", card,
                   table("bert_layer"), top=12)
 
+    bf = torch.bfloat16
+    short = torch.tensor([TRAIN_LEN, TRAIN_SHORT], device="cuda")
+    tmask = (torch.arange(TRAIN_LEN, device="cuda")[None] >= short[:, None]).float() \
+        * torch.finfo(torch.float32).min
+    xb = torch.randn((TRAIN_BATCH, TRAIN_LEN, bcfg.hidden_size), generator=g,
+                     device="cuda").to(bf)
+    dout = torch.randn(xb.shape, generator=g, device="cuda").to(bf)
+    train = dict(p_attn=bcfg.attention_dropout, p_hidden=bcfg.hidden_dropout, train=True,
+                 seeds=torch.tensor([20231, 77, 1 << 30], dtype=torch.int32, device="cuda"))
+    heads, eps = bcfg.num_heads, bcfg.layer_norm_eps
+    with torch.no_grad():
+        p = profile_call(lambda: bert_layer(xb, tmask, *w, heads, eps, **train))
+        print_profile(p, f"{args.label}: one bf16 train-mode bert_layer {list(xb.shape)}", card,
+                      table("bert_bf16"), top=12)
+        p = profile_call(lambda: bert_layer_bwd(xb, tmask, *w, dout, heads, eps, **train))
+        print_profile(p, f"{args.label}: one bf16 train-mode bert_layer_bwd {list(xb.shape)}",
+                      card, table("bert_bwd"), top=20)
+
     vit = model.visual_transformer
     ff = vit.enc_spatial_transformer.layers[0][3]
-    bf, d = torch.bfloat16, cfg.ctvit.dim
+    d = cfg.ctvit.dim
     xf = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
     gr = torch.randn((FF_ROWS, d), generator=g, device="cuda").to(bf)
     gamma = 1.0 + 0.1 * torch.randn((d,), generator=g, device="cuda")

@@ -10,10 +10,12 @@ what bounds it on the H100 and what the design does about it:
   tensor-core products of hi / lo planes (`bert_layer_fp32`);
 - `csrc/bert_layer_bf16.cu`: bf16, deterministic (the train loop's
   evaluation) or in train mode with dropout on the attention probabilities
-  and both hidden outputs (the train step's 512-token reports);
+  and both hidden outputs (the train step's 512-token reports): the
+  products on the Hopper GEMM core, a two-pass mma.sync attention core;
 - `csrc/bert_layer_bwd.cu`: the backward of the bf16 chain: dx and the
   twelve parameter gradients, the forward recomputed and the dropout masks
-  regenerated from the same seeds.
+  regenerated from the same seeds; every sum in a fixed order, so two calls
+  give the same bits.
 
 `bert_layer` picks the chain by x's dtype; `bert_layer_grad` is the layer
 with its backward (a torch.autograd.Function, the custom VJP of
@@ -55,7 +57,8 @@ from .. import _build
 from . import launches
 
 DIM_HEAD = 64       # the head width the CUDA attention cores take
-MAX_TOKENS = 672    # the bf16 chains keep whole score rows in shared memory
+MAX_TOKENS = 672    # the bf16 chains' token cap (ROADMAP); rows pad to a multiple of KEY_CHUNK
+KEY_CHUNK = 64      # the bf16 attention passes' key (and query) chunk
 SITES = ("attention", "post-attention", "post-FF")
 
 _M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
@@ -271,57 +274,72 @@ def _thresholds(p_attn, p_hidden, train, seeds):
     return ta, th, 1.0 / (1.0 - p_attn) if ta else 1.0, 1.0 / (1.0 - p_hidden) if th else 1.0
 
 
+_MATRICES = (0, 2, 6, 8)    # wqkv, wo, w1, w2 among the twelve weights
+_ALIGN = 256                # bytes: every workspace block starts on this boundary
+
+
+def _layout(sizes) -> tuple:
+    """(byte offsets, total bytes) of consecutive blocks of the given byte
+    sizes, each starting on an _ALIGN boundary."""
+    offs, total = [], 0
+    for size in sizes:
+        offs.append(total)
+        total += -(-size // _ALIGN) * _ALIGN
+    return offs, total
+
+
 def _bf16_args(x, mask_row, w, seeds, heads):
     """The bf16 chains' inputs, checked: (x padded to [b, npad, d], the mask
-    padded to [b, npad], seeds, the twelve weights with the matrices in
-    bf16), npad = n rounded up to 32."""
+    padded to [b, npad], seeds, the twelve weights with the vectors in fp32,
+    npad), npad = n rounded up to KEY_CHUNK. The four matrices stay bf16
+    where all four are, else go as fp32 and the chain's first launch rounds
+    them (one cast kernel in place of four torch casts)."""
     b, n, d = x.shape
     dev = x.device
-    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = w
-    f = w1.shape[0]
+    f = w[6].shape[0]
     if d != heads * DIM_HEAD or f % 8:
         raise ValueError(f"the bert_layer kernel takes heads of {DIM_HEAD} and an FF width "
                          f"that 8 divides; got D={d}, heads={heads}, F={f}")
     if n % 4:
         raise ValueError(f"the bert_layer kernel takes a token count that 4 divides, got {n}")
-    npad = (n + 31) // 32 * 32
-    if npad > MAX_TOKENS:
-        raise ValueError(f"the bf16 bert_layer kernel keeps a score row in shared memory: "
-                         f"at most {MAX_TOKENS} tokens, got {n}")
+    npad = -(-n // KEY_CHUNK) * KEY_CHUNK
+    if n > MAX_TOKENS:
+        raise ValueError(f"the bf16 bert_layer kernel takes at most {MAX_TOKENS} tokens, "
+                         f"got {n}")
     _build.require(x, "x", torch.bfloat16, (b, n, d), dev)
     _build.require(mask_row, "mask_row", torch.float32, (b, n), dev)
-    mats = [t.to(torch.bfloat16).contiguous() for t in (wqkv, wo, w1, w2)]
-    vecs = [t.float().contiguous() for t in (bqkv, bo, g1, be1, b1, b2, g2, be2)]
-    for t, name, shape in ((mats[0], "wqkv", (3 * d, d)), (mats[1], "wo", (d, d)),
-                           (mats[2], "w1", (f, d)), (mats[3], "w2", (d, f)),
-                           (vecs[0], "bqkv", (3 * d,)), (vecs[4], "b1", (f,)),
-                           *((v, "a [D] vector", (d,)) for v in vecs[1:4] + vecs[5:])):
-        _build.require(t, name, t.dtype, shape, dev)
+    shapes = ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (f, d), (f,), (d, f), (d,), (d,),
+              (d,))
+    for i, (t, shape) in enumerate(zip(w, shapes)):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"bert_layer weight {i}: {tuple(t.shape)} on {t.device}, expected "
+                             f"{shape} on {dev}")
+    keep_bf16 = all(w[i].dtype == torch.bfloat16 for i in _MATRICES)
+    weights = [_build.aligned16(t.contiguous() if keep_bf16 else t.float().contiguous())
+               if i in _MATRICES else t.float().contiguous() for i, t in enumerate(w)]
     if npad != n:
         x = torch.nn.functional.pad(x, (0, 0, 0, npad - n))
         mask_row = torch.nn.functional.pad(mask_row, (0, npad - n))
     if seeds is None:
         seeds = torch.zeros((3,), dtype=torch.int32, device=dev)
     _build.require(seeds, "seeds", torch.int32, (3,), dev)
-    weights = (mats[0], vecs[0], mats[1], vecs[1], vecs[2], vecs[3], mats[2], vecs[4], mats[3],
-               vecs[5], vecs[6], vecs[7])
     return _build.aligned16(x), _build.aligned16(mask_row), seeds, weights, npad
 
 
-def _bf16_work(b, npad, d, f, heads, dev, keep_probs: bool) -> list:
-    """The forward chain's workspaces, in the C entry's order."""
+def _bf16_work(b, npad, d, f, heads, backward: bool, weights_f32: bool) -> list:
+    """The byte sizes of the forward chain's workspaces, in the C entry's
+    order: the bf16 copies of the four matrices [3d d + d d + 2 f d] (empty
+    unless they come in fp32), qkv [m, 3d] bf16, ctx [m, d] bf16, r1 [m, d] fp32, stats1 [m, 2]
+    fp32, yf [m, d] fp32, yb [m, d] bf16, h1 [m, f] fp32, g [m, f] bf16, r2
+    [m, d] fp32, stats2 [m, 2] fp32 (m = b npad); for the backward also each
+    attention row's (max, 1 / sum, D, -) [b, heads, npad, 4] fp32 and the
+    attention keep mask's bits [b, heads, npad, npad / 32] u32."""
     m = b * npad
-    f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    pu = torch.empty((b, heads, npad, npad), **b16) if keep_probs else None
-    return [torch.empty((m, 3 * d), **b16), pu, torch.empty((m, d), **b16),
-            torch.empty((m, d), **f32), torch.empty((m, 2), **f32), torch.empty((m, d), **f32),
-            torch.empty((m, d), **b16), torch.empty((m, f), **f32), torch.empty((m, f), **b16),
-            torch.empty((m, d), **f32), torch.empty((m, 2), **f32)]
-
-
-def _ptr(t) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+    sizes = [2 * (4 * d * d + 2 * f * d) if weights_f32 else 0, 6 * m * d, 2 * m * d, 4 * m * d, 8 * m, 4 * m * d, 2 * m * d, 4 * m * f, 2 * m * f,
+             4 * m * d, 8 * m]
+    if backward:
+        sizes += [16 * b * heads * npad, b * heads * npad * npad // 8]
+    return sizes
 
 
 FP32_ONE_PASS, FP32_NO_SKIP = 1, 2     # ctc_bert_layer's flags
@@ -398,17 +416,23 @@ def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2
     b, n, d = x.shape
     xp, mask_p, seeds, weights, npad = _bf16_args(x, mask_row, w, seeds, heads)
     f = weights[6].shape[0]
-    work = _bf16_work(b, npad, d, f, heads, x.device, keep_probs=False)
+    w_f32 = weights[0].dtype == torch.float32
+    sizes = _bf16_work(b, npad, d, f, heads, backward=False, weights_f32=w_f32)
+    offs, total = _layout(sizes)
+    buf = torch.empty((total,), dtype=torch.uint8, device=x.device)
     out = torch.empty((b, npad, d), dtype=torch.bfloat16, device=x.device)
+    base = buf.data_ptr()
     err = _build.load().ctc_bert_layer_bf16(
         xp.data_ptr(), mask_p.data_ptr(), seeds.data_ptr(), *(t.data_ptr() for t in weights),
-        *(_ptr(t) for t in work), out.data_ptr(), b, n, npad, d, f, heads, float(eps),
-        1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
+        *(base + o for o in offs), out.data_ptr(), int(w_f32), b, n,
+        npad, d, f, heads, float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
     _build.check(err, "bert_layer_bf16")
     launches.count("bert_layer_bf16")
     if parts is not None:
-        parts.update({k: work[i].reshape(b, npad, -1)[:, :n]
-                      for k, i in (("y", 5), ("g", 8), ("r2", 9))})
+        for k, i, cols in (("y", 5, d), ("g", 8, f), ("r2", 9, d)):
+            dt = torch.bfloat16 if k == "g" else torch.float32
+            block = buf[offs[i]:offs[i] + sizes[i]].view(dt)
+            parts[k] = block.reshape(b, npad, cols)[:, :n]
     return out if npad == n else out[:, :n].contiguous()
 
 
@@ -438,23 +462,25 @@ def bert_layer_bwd(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2,
     dout = _build.aligned16(dout)
     f = weights[6].shape[0]
     m = b * npad
-    transposed = [weights[i].t().contiguous() for i in (0, 2, 6, 8)]
+    # the forward's workspaces, then out_ws, dr2 (then dy), dr1, do2, do1, dctx,
+    # dh1, dqkv and the partial column sums of dqkv and dh1 (per 16 rows) and
+    # of both LayerNorms (per 8)
+    w_f32 = weights[0].dtype == torch.float32
+    sizes = _bf16_work(b, npad, d, f, heads, backward=True, weights_f32=w_f32) + [
+        2 * m * d, 4 * m * d, 4 * m * d, 2 * m * d, 2 * m * d, 2 * m * d, 2 * m * f,
+        6 * m * d, 12 * (m // 16) * d, 4 * (m // 16) * f, 24 * -(-m // 8) * d]
+    offs, total = _layout(sizes)
+    buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
     f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    work = _bf16_work(b, npad, d, f, heads, dev, keep_probs=True)
-    more = [torch.empty((m, d), **b16), torch.empty((m, d), **f32), torch.empty((m, d), **f32),
-            torch.empty((m, d), **b16), torch.empty((m, f), **b16), torch.empty((m, d), **b16),
-            torch.empty((b, heads, npad, npad), **b16), torch.empty((m, 3 * d), **f32),
-            torch.empty((m, 3 * d), **b16)]
-    dx = torch.empty((b, npad, d), **b16)
-    grads = [torch.zeros(s, **f32) for s in ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,),
+    dx = torch.empty((b, npad, d), dtype=torch.bfloat16, device=dev)
+    grads = [torch.empty(s, **f32) for s in ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,),
                                              (f, d), (f,), (d, f), (d,), (d,), (d,))]
     err = _build.load().ctc_bert_layer_bwd(
         xp.data_ptr(), mask_p.data_ptr(), seeds.data_ptr(), *(t.data_ptr() for t in weights),
-        *(t.data_ptr() for t in transposed), dout.data_ptr(), *(_ptr(t) for t in work),
-        *(t.data_ptr() for t in more), dx.data_ptr(), *(t.data_ptr() for t in grads),
-        b, n, npad, d, f, heads, float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh,
-        _build.stream_of(x))
+        dout.data_ptr(), *(base + o for o in offs), dx.data_ptr(),
+        *(t.data_ptr() for t in grads), int(w_f32), b, n, npad, d, f,
+        heads, float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
     _build.check(err, "bert_layer_bwd")
     launches.count("bert_layer_bwd")
     return (dx if npad == n else dx[:, :n].contiguous(), *grads)

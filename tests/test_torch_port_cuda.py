@@ -426,6 +426,8 @@ def test_patch_embed_res_and_dkw_kernels_match_plain_on_card(cuda_device, b, T, 
     assert launches.launch_counts()["patch_embed_dkw"] == 1
 
 
+# a train step's batch of 8 reports, ragged
+BERT_B8_LENGTHS = [512, 300, 512, 77, 400, 512, 128, 256]
 BERT_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg1", "dbe1", "dw1", "db1", "dw2", "db2",
               "dg2", "dbe2")
 
@@ -460,12 +462,16 @@ def test_bert_keep_mask_kernel_is_the_plain_philox(cuda_device, site, heads, inn
 @pytest.mark.cuda
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60]),
-                                         (1, 128, [128])])
+                                         (1, 128, [128]), (2, 40, [40, 12]),
+                                         (8, 512, BERT_B8_LENGTHS)])
 def test_bert_layer_bf16_kernel_matches_plain_on_card(cuda_device, b, n, lengths, train):
     """bf16 [b, n, 768], deterministic and in train mode (p = 0.1 / 0.1)
-    through the same Philox masks, band 1.5e-2; a length that 32 does not
-    divide pads inside the wrapper. Controls: other seeds (train), the mask
-    dropped, LN1's gain left out."""
+    through the same Philox masks, band 1.5e-2; a length that 64 does not
+    divide pads inside the wrapper. n = 40 pads to one 64-key chunk (the
+    attention core's smallest staging); b = 8 at 512 tokens sends the
+    N = 768 products to the 128-row gemm_kernel (at least as many tiles as
+    SMs). Controls: other seeds (train), the mask dropped, LN1's gain left
+    out."""
     args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 19)
     kw = dict(p_attn=0.1, p_hidden=0.1, train=train, seeds=seeds)
     launches.reset_launch_counts()
@@ -486,11 +492,13 @@ def test_bert_layer_bf16_kernel_matches_plain_on_card(cuda_device, b, n, lengths
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("train", [False, True])
-@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60])])
+@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60]),
+                                         (2, 40, [40, 12]), (8, 512, BERT_B8_LENGTHS)])
 def test_bert_layer_bwd_kernel_matches_plain_on_card(cuda_device, b, n, lengths, train):
     """dx and the twelve parameter gradients within 1.5e-2 of the plain
     backward through the same masks, and of autograd through the plain
-    forward; other seeds read outside the band."""
+    forward; other seeds read outside the band. The n = 40 and b = 8 cases
+    as in the forward's test."""
     from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer_bwd, bert_layer_bwd_plain
 
     args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 20)
@@ -513,6 +521,56 @@ def test_bert_layer_bwd_kernel_matches_plain_on_card(cuda_device, b, n, lengths,
     if train:
         other = bert_layer_bwd_plain(*args, g, 12, 1e-12, **{**kw, "seeds": seeds + 1})
         assert _rel_err(got[0], other[0]) > 1.5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60]),
+                                         (2, 40, [40, 12]), (8, 512, BERT_B8_LENGTHS)])
+def test_bert_layer_bwd_same_bits_on_two_calls_on_card(cuda_device, b, n, lengths):
+    """dx and the twelve parameter gradients of the bf16 chain in train mode
+    are the same bits on two calls with the same seeds: every sum runs in a
+    fixed order (a weight gradient's tile in one block over every token; the
+    bias and LayerNorm gradients as partial rows summed in order; the
+    attention passes' halves added in order), no atomics."""
+    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer_bwd
+
+    args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 24)
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(8)).to(torch.bfloat16)
+    kw = dict(p_attn=0.1, p_hidden=0.1, train=True, seeds=seeds)
+    first = bert_layer_bwd(*args, g, 12, 1e-12, **kw)
+    second = bert_layer_bwd(*args, g, 12, 1e-12, **kw)
+    for name, x, y in zip(BERT_GRADS, first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_bert_bf16_chain_runs_on_wgmma_and_mma_sync_on_card(cuda_device):
+    """The bf16 BERT chain's products (its epilogues on gemm_kernel and
+    gemm64_kernel) and weight gradients (BertWgradPlan) have HGMMA
+    instructions in their SASS, its attention passes HMMA (cuobjdump of the
+    built library)."""
+    import shutil
+    import subprocess
+
+    from ct_clip_ut_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    hgmma, hmma, fn = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and "HGMMA" in line:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] = hmma.get(fn, 0) + 1
+    for mark in ("2bh6QkvEpi", "2bh9HiddenEpi", "2bh7GeluEpi", "2bh10GeluBwdEpi", "2bh9AddF32Epi",
+                 "2bh10AddBf16Epi", "2bh7DctxEpi", "2bh13BertWgradPlan", "13gemm64_kernel"):
+        assert any(mark in f and c > 0 for f, c in hgmma.items()), mark
+    for mark in ("2bh15fwd_core_kernel", "2bh14dq_pass_kernel", "2bh15dkv_pass_kernel"):
+        assert any(mark in f and c > 0 for f, c in hmma.items()), mark
 
 
 def _peg_case(cuda_device, dtype, shape=(2, 24, 24, 24, 512), seed=21):
@@ -814,6 +872,41 @@ def test_gemm_sm90_split_plan_matches_fp32_matmul_on_card(cuda_device, m, n, k):
     assert c.isfinite().all()
     assert _rel_err(c, want) <= GEMM_BAND, _rel_err(c, want)
     assert _rel_err(pa[0].float() @ pb[0].float().t(), want) > GEMM_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [2, 3, 4])
+@pytest.mark.parametrize("m,n,k", [(1024, 768, 3072), (576, 768, 2304), (333, 304, 200),
+                                   (64, 128, 64)])
+def test_gemm_sm90_narrow_tiles_and_stored_weights_on_card(cuda_device, mode, m, n, k):
+    """The bf16 BERT chain's variants of the core through ctc_gemm_sm90_check:
+    64-row tiles with the K slices split between the two warpgroups and
+    summed in order (mode 2: gemm64_kernel), B read MN-major from a weight
+    W [K, N] as it is stored (mode 3: LinearKNPlan), both (mode 4); against
+    torch.matmul in fp32 within GEMM_BAND, the same bits on two calls.
+    Control: B's rows shifted by one."""
+    from ct_clip_ut_tpu_torch import _build
+
+    g = torch.Generator(cuda_device).manual_seed(26)
+    a = torch.randn((m, k), device=cuda_device, generator=g).to(torch.bfloat16)
+    w = torch.randn((n, k), device=cuda_device, generator=g).to(torch.bfloat16)
+    b, ldb = (w.t().contiguous(), n) if mode >= 3 else (w, k)
+
+    def run():
+        c = torch.empty((m, n), device=cuda_device)
+        err = _build.load().ctc_gemm_sm90_check(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
+                                                k, k, ldb, mode,
+                                                torch.cuda.current_stream(cuda_device).cuda_stream)
+        _build.check(err, "ctc_gemm_sm90_check")
+        return c
+
+    c = run()
+    af, wf = a.float(), w.float()
+    want = af @ wf.t()
+    assert c.isfinite().all()
+    assert _rel_err(c, want) <= GEMM_BAND, _rel_err(c, want)
+    assert torch.equal(c, run())
+    assert _rel_err(c, af @ wf.roll(1, 0).t()) > GEMM_BAND
 
 
 def _wgrad_check(cuda_device, a, b, rows, cols):
