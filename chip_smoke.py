@@ -25,7 +25,8 @@ Phases, each printing its lines before the last:
      the bf16 BERT layer's chain, HGMMA in its products (its epilogues on
      gemm_kernel and the 64-row gemm64_kernel) and weight gradients
      (BertWgradPlan), HMMA in its forward core and its backward's query
-     and key passes;
+     and key passes; IGMMA (int8 wgmma) in geglu_ff_int8's two products
+     (HEpi, OutEpi);
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -62,9 +63,10 @@ Phases, each printing its lines before the last:
      at the 2-volume FF shape (x [27648, 512], spatial layer 0's FF of the
      seeded flagship quantised, inner 1365 padded to 1376), residual off
      and on, within INT8_BAND relative rms, with the controls (h left
-     unquantised, one scale per tensor, sv and sg swapped), its times,
-     `bound_ms` (int8 operations) and the torch._int_mm chain as
-     `library_ms`;
+     unquantised, one scale per tensor, sv and sg swapped), one call under
+     torch.profiler (every launch on the Hopper pieces, ctc::sm90 and
+     ctc::q8, a gemm_kernel among them), its times, `bound_ms` (int8
+     operations) and the torch._int_mm chain as `library_ms`;
   4b. the zero-shot path on quantize_ctclip_ff(model): predict() over 3
      batches of 2 volumes with 8 geglu_ff_int8 launches a batch and no
      geglu_ff; batch 0's image latents against plain=True (share of equal
@@ -313,13 +315,21 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                      "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel"}
 
 
+# ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
+SASS_INT8_REQUIRED = {"geglu_ff_int8 value | gate product writing h (HEpi)":
+                          "11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
+                      "geglu_ff_int8 W2 product with the residual (OutEpi)":
+                          "11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi"}
+
+
 def sass_check(lib: Path) -> None:
-    """Print the HGMMA (wgmma) instructions in the SASS of each GEMM of the
-    Hopper core and of attn_qrows' core in the built library, and the HMMA
-    (mma.sync) instructions of the split-bf16 attention cores, counted with
-    the toolkit's cuobjdump; raise if one has none or a kernel of
-    SASS_REQUIRED / SASS_MMA_REQUIRED is missing. Without cuobjdump, say so
-    and check nothing."""
+    """Print the wgmma instructions (HGMMA, IGMMA for int8 operands) in the
+    SASS of each GEMM of the Hopper core and of attn_qrows' core in the
+    built library, and the HMMA (mma.sync) instructions of the split-bf16
+    attention cores, counted with the toolkit's cuobjdump; raise if one has
+    none or a kernel of SASS_REQUIRED / SASS_MMA_REQUIRED is missing, or
+    one of SASS_INT8_REQUIRED has no IGMMA. Without cuobjdump, say so and
+    check nothing."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -328,7 +338,7 @@ def sass_check(lib: Path) -> None:
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts, mma, fn = {}, {}, None
+    counts, igmma, mma, fn = {}, {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
@@ -338,11 +348,13 @@ def sass_check(lib: Path) -> None:
                 counts.setdefault(fn, 0)
             if any(mark in fn for mark in SASS_MMA_REQUIRED.values()):
                 mma.setdefault(fn, 0)
-        elif fn in counts and "HGMMA" in line:
+        elif fn in counts and ("HGMMA" in line or "IGMMA" in line):
             counts[fn] += 1
+            if "IGMMA" in line:
+                igmma[fn] = igmma.get(fn, 0) + 1
         elif fn in mma and "HMMA" in line:
             mma[fn] += 1
-    print("sass: HGMMA instructions per wgmma kernel: "
+    print("sass: HGMMA / IGMMA instructions per wgmma kernel: "
           + ", ".join(f"{fn[:90]} {n}" for fn, n in counts.items()))
     if not counts or not all(counts.values()):
         raise AssertionError(f"a Hopper-core kernel without wgmma: {counts}")
@@ -353,6 +365,11 @@ def sass_check(lib: Path) -> None:
         print(f"sass: {what}: {sum(found.values())} HGMMA in {len(found)} kernel(s)")
         if not found:
             raise AssertionError(f"no wgmma kernel for {what} in the library")
+    for what, mark in SASS_INT8_REQUIRED.items():
+        found = {fn: n for fn, n in igmma.items() if mark in fn}
+        print(f"sass: {what}: {sum(found.values())} IGMMA in {len(found)} kernel(s)")
+        if not found:
+            raise AssertionError(f"no int8 wgmma kernel for {what} in the library")
     for what, mark in SASS_MMA_REQUIRED.items():
         found = {fn: n for fn, n in mma.items() if mark in fn}
         print(f"sass: {what}: {sum(found.values())} HMMA in {len(found)} kernel(s) "
@@ -363,7 +380,8 @@ def sass_check(lib: Path) -> None:
 
 # The namespaces of the Hopper pieces (mangled or demangled): a chain moved
 # off the wmma tile of gemm_tile.cuh launches no ctc kernel outside them
-HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "3ctc2tc", "3ctc2pe", "3ctc2bh")
+HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "q8::", "3ctc2tc", "3ctc2pe", "3ctc2bh",
+                 "3ctc2q8")
 
 
 def hopper_chain_check(name: str, fn, card: str) -> None:
@@ -995,6 +1013,7 @@ def int8_check(torch, model, card: str) -> dict:
                                  f"controls {controls}")
         if not residual:
             branch_abs_err = abs_err
+    hopper_chain_check("geglu_ff_int8", lambda: geglu_ff_int8(x, *args, residual=True), card)
     inner = q.wv_q.shape[0]
     wvg_t = torch.cat([q.wv_q, q.wg_q]).t()            # [512, 2 * inner], column-major
     w2_t = q.w2_q.t()

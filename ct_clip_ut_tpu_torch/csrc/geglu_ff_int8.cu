@@ -9,149 +9,176 @@
 // over N token rows (the CT-ViT FF: D = 512, inner 1365 zero-padded to 1376
 // when the module is built; N = B * 13824). Weights are int8 codes in the
 // nn.Linear layout (out, in), so both operands of each product are read
-// along K; sv, sg, s2 are their fp32 per-output-row scales.
+// along K, the only layout integer wgmma takes; sv, sg, s2 are their fp32
+// per-output-row scales.
 //
 // What bounds it on the H100: int8 tensor-core operations, 2 * N * 512 *
 // 1365 * 3 (at 1,979 TOP/s dense: 0.059 ms at N = 27,648), against ~28 MB
-// of x and output. The TPU kernel quantises h inside one tile that holds
-// the whole inner width; here a block of the first product sees 64 of its
-// 1,376 columns, and a per-row scale needs the whole row. So the chain is
-// four launches: (1) LN + per-row quantisation of xn, one warp a row;
-// (2) the value and gate products side by side in one 128-wide tile (64
-// value + 64 gate columns, int8 wmma 16x16x16, int32 accumulators), whose
-// epilogue dequantises and writes h in fp32; (3) the per-row absmax of h and
-// its int8 codes, one warp a row; (4) hq W2^T with the dequant and the
-// residual. h in fp32 is the price of the exact per-row scale: 4 bytes a
-// column written and read once more. Rounding: IEEE division (no fast
-// math) and __float2int_rn, round half to even as torch.round and
-// jnp.round; a code differs from the plain version's only where LN's or
-// erf's last bit moves x / s across a .5 boundary. int32 sums are exact:
-// 1376 * 127^2 < 2^31.
-#include "gemm_tile.cuh"
+// of x and output. Both products run on the int8 path of the Hopper core
+// (gemm_sm90.cuh: TMA ring, wgmma m64n128k32 .s32.s8.s8, epilogues from
+// registers). The TPU kernel quantises h inside one tile that holds the
+// whole inner width; here a tile of the first product sees 64 of its 1,376
+// columns, and h's per-row scale needs the whole row. So h goes to memory
+// in fp32 and back (304 MB at N = 27,648), four launches:
+//   (1) LN + per-row int8 codes of xn, one warp a row held in registers;
+//   (2) xq . [Wv; Wg]^T, 64 value and 64 gate columns a tile (the bf16
+//       GEGLU's plan): the epilogue computes h in registers and writes it
+//       in fp32, hbuf [N, ldh];
+//   (3) h's row absmax and int8 codes, one warp a row held in registers;
+//   (4) hq . W2^T with the dequant and the residual.
+// A chain that keeps no h in memory (the first product run twice, its
+// epilogue writing each row's partial absmax, then h's codes) was built
+// and measured slower: the product with its erf epilogue costs more than
+// the round trip's bytes (PERF.md). Rounding: h in the plain version's
+// operation order with every operation rounded on its own (no
+// contraction); codes round half to even, as torch.round and jnp.round,
+// of the IEEE quotient (code_of); a code differs from the plain version's
+// only where LN's or erf's last bit moves x / s across a .5 boundary.
+// int32 sums are exact: 1376 * 127^2 < 2^31.
+#include "gemm_sm90.cuh"
 
 namespace ctc {
+namespace q8 {
 
-constexpr int Q_BK = 64;                       // int8 K per shared tile
-constexpr int Q_KC = Q_BK / 16;                // 16-byte chunks per tile row
-constexpr int Q_LDC = BN + 4;                  // int32 stride of the C tile
-constexpr int Q_AB = 2 * (BM + BN) * Q_BK;     // two stages of A and B, bytes
-constexpr int Q_C = BM * Q_LDC * 4;
-constexpr int Q_SMEM = Q_AB > Q_C ? Q_AB : Q_C;
-constexpr int Q_HALF = BN / 2;
+using namespace sm90;
 
-// 16 int8 of row r of a row-major [nrows, K] matrix at columns [k, k + 16),
-// zero outside; K and k are multiples of 16 and rows are 16-B aligned.
-struct RowMajor8 {
-  const int8_t* ptr;
-  int64_t ld;
-  int nrows;
-  int K;
-  __device__ __forceinline__ uint4 load16(int r, int k) const {
-    if (r < 0 || r >= nrows || k >= K) return make_uint4(0u, 0u, 0u, 0u);
-    return *reinterpret_cast<const uint4*>(ptr + (int64_t)r * ld + k);
+constexpr int HALF = 64;                 // value (and gate) columns of a first-product tile
+constexpr int ROW_WARPS = 8;             // rows a block of the row passes
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The int8 code of v at row scale s (inv = 1 / s): round half to even of
+// the IEEE quotient v / s. v * inv lies within 2^-22 |q| of that quotient,
+// so it rounds to the same integer unless it falls within 2^-20 (|q| + 1)
+// of a .5 boundary; there the quotient itself is taken.
+__device__ __forceinline__ int8_t code_of(float v, float s, float inv) {
+  const float q = __fmul_rn(v, inv), n = rintf(q);
+  if (fabsf(fabsf(q - n) - 0.5f) > 9.5367431640625e-07f * (fabsf(q) + 1.0f)) return (int8_t)n;
+  return (int8_t)__float2int_rn(v / s);
+}
+
+// h = gelu_erf(gate) * value of one value / gate pair of int32 sums, each
+// operation rounded on its own: the plain version's (C rx) sv, 0.5 gate
+// (1 + erf(gate / sqrt 2)) value.
+__device__ __forceinline__ float geglu_h(int cv, int cg, float rs, float svn, float sgn) {
+  const float value = __fmul_rn(__fmul_rn((float)cv, rs), svn);
+  const float gate = __fmul_rn(__fmul_rn((float)cg, rs), sgn);
+  const float e = erff(__fmul_rn(gate, 0.7071067811865476f));
+  return __fmul_rn(__fmul_rn(__fmul_rn(0.5f, gate), __fadd_rn(1.0f, e)), value);
+}
+
+// The first product: A = xq (map 0); value rows nt * 64 ... of map 1, gate
+// rows of map 2. A thread holds value column c in acc[4j + 2hf + e] and gate
+// column c in acc[4(j + 8) + 2hf + e].
+struct GegluPlan8 {
+  static constexpr bool S8 = true;
+  __device__ TileSrc src(int nt) const { return {0, 1, nt * HALF, 2, nt * HALF}; }
+};
+
+// The second product: A = hq (map 0), B = w2 (map 1).
+struct LinearPlan8 {
+  static constexpr bool S8 = true;
+  __device__ TileSrc src(int nt) const { return {0, 1, nt * BN, 1, nt * BN + 64}; }
+};
+
+// (2) h [M, ldh] in fp32, columns nt * 64 ..., two a store (c is even and
+// ldh a multiple of 16).
+struct HEpi {
+  const float* rx;
+  const float* sv;
+  const float* sg;
+  float* h;
+  int M, ldh;
+  __device__ void operator()(const int (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    float rs[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) rs[hf] = row + g + 8 * hf < M ? rx[row + g + 8 * hf] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = nt * HALF + 8 * j + 2 * t;
+      if (c >= ldh) continue;
+      const float2 svn = *reinterpret_cast<const float2*>(sv + c);
+      const float2 sgn = *reinterpret_cast<const float2*>(sg + c);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = row + g + 8 * hf;
+        if (m >= M) continue;
+        const int* av = acc + 4 * j + 2 * hf;
+        const int* ag = acc + 4 * (j + 8) + 2 * hf;
+        *reinterpret_cast<float2*>(h + (int64_t)m * ldh + c) =
+            make_float2(geglu_h(av[0], ag[0], rs[hf], svn.x, sgn.x),
+                        geglu_h(av[1], ag[1], rs[hf], svn.y, sgn.y));
+      }
+    }
   }
 };
 
-// C[BM][Q_LDC] (int32, in smem) = A_tile @ B_tile^T over K, both int8 and
-// read along K. Shared tiles are chunk-major, [stage][K chunk][row][16 B],
-// so every 16 x 16 wmma operand is 256 contiguous, 32-B aligned bytes.
-template <class LoadA, class LoadB>
-__device__ void block_gemm_s8(const LoadA& load_a, const LoadB& load_b, int K, char* smem) {
-  using namespace nvcuda;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);     // [2][Q_KC][BM][16]
-  int8_t* Bs = As + 2 * BM * Q_BK;                  // [2][Q_KC][BN][16]
-  int* C = reinterpret_cast<int*>(smem);            // [BM][Q_LDC], after the loop
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[FM][FN];
+// (4) out = (C rh) s2 (+ x in fp32), rounded to bf16; D is even.
+struct OutEpi {
+  const float* rh;
+  const float* s2;
+  const bf16* x;
+  bf16* out;
+  int M, D, residual;
+  __device__ void operator()(const int (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = row + g + 8 * hf;
+      if (m >= M) continue;
+      const float r = rh[m];
+      const int64_t base = (int64_t)m * D;
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  // a tile is 128 rows x 4 chunks = 512 chunks; two per thread, a warp
-  // taking 32 rows of one chunk (conflict-free 16-B shared stores)
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;
-      int r = c % BM, kc = c / BM;
-      ra[i] = load_a(r, k0 + kc * 16);
-      rb[i] = load_b(r, k0 + kc * 16);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= D) continue;
+        float y0 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * hf], r), s2[c]);
+        float y1 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * hf + 1], r), s2[c + 1]);
+        if (residual) {
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + base + c);
+          y0 = __fadd_rn(y0, __low2float(xv));
+          y1 = __fadd_rn(y1, __high2float(xv));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + base + c) = __floats2bfloat162_rn(y0, y1);
+      }
     }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * THREADS;
-      int r = c % BM, kc = c / BM;
-      *reinterpret_cast<uint4*>(As + ((buf * Q_KC + kc) * BM + r) * 16) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + ((buf * Q_KC + kc) * BN + r) * 16) = rb[i];
-    }
-  };
-
-  const int nk = (K + Q_BK - 1) / Q_BK;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * Q_BK);
-#pragma unroll
-    for (int kc = 0; kc < Q_KC; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + ((cur * Q_KC + kc) * BM + wm * WTM + i * 16) * 16, 16);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + ((cur * Q_KC + kc) * BN + wn * WTN + j * 16) * 16, 16);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) stash(cur ^ 1);
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(C + (wm * WTM + i * 16) * Q_LDC + wn * WTN + j * 16, acc[i][j],
-                              Q_LDC, wmma::mem_row_major);
-  __syncthreads();
-}
+};
 
-// Per-row int8 codes of 16 fp32 values at scale s: __float2int_rn(v / s).
-__device__ __forceinline__ void quant16(const float* v, float s, int8_t* q) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) q[i] = (int8_t)__float2int_rn(v[i] / s);
-}
-
-// (1) LN of each row of x [M, D] (D a multiple of 16) and its per-row
-// int8 codes: one warp a row, lane l holding columns [16 l + 512 j, + 16).
-// xq [M, D] int8, rx [M].
-__global__ void __launch_bounds__(THREADS)
-ff8_quant_x_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, int8_t* __restrict__ xq,
-                   float* __restrict__ rx, int M, int D) {
+// (1) LN of each row of x [M, D] (D a multiple of 16, at most 256 XCH)
+// and its per-row int8 codes: one warp a row, lane l holding columns [256 i
+// + 8 l, + 8) in registers (16-B loads, 8-B stores, a warp's 512 B in a
+// row). xq [M, D] int8, rx [M]. XCH, the 256-column chunks of a row, is a
+// template argument so that a row takes the registers it needs.
+constexpr int MAX_XCH = 8;               // D <= 2048
+template <int XCH>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+quant_x_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, int8_t* __restrict__ xq, float* __restrict__ rx,
+               int M, int D) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (THREADS / 32) + warp;
+  const int m = blockIdx.x * ROW_WARPS + warp;
   if (m >= M) return;
   const bf16* xr = x + (int64_t)m * D;
+  float v[XCH][8];
   float s = 0.f, s2 = 0.f;
-  for (int k = lane * 16; k < D; k += 512) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      float f = __bfloat162float(xr[k + i]);
-      s += f;
-      s2 += f * f;
+  for (int c = 0; c < XCH; ++c) {
+    const int k = c * 256 + lane * 8;
+    if (k < D) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
+      const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[c][i] = __bfloat162float(e[i]);
+        s += v[c][i];
+        s2 += v[c][i] * v[c][i];
+      }
     }
   }
   s = warp_sum(s);
@@ -160,145 +187,136 @@ ff8_quant_x_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
   const float mean = s / (float)D;
   const float var = fmaxf(__fsub_rn(s2 / (float)D, __fmul_rn(mean, mean)), 0.f);
   const float rstd = 1.0f / sqrtf(var + 1e-5f);
-  auto ln = [&](int k) {
-    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__bfloat162float(xr[k]), mean), rstd),
-                               gamma[k]), beta[k]);
-  };
   float amax = 0.f;
-  for (int k = lane * 16; k < D; k += 512) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(ln(k + i)));
+  for (int c = 0; c < XCH; ++c) {
+    const int k = c * 256 + lane * 8;
+    if (k < D) {
+      float gm[8], bt[8];
+      *reinterpret_cast<float4*>(gm) = *reinterpret_cast<const float4*>(gamma + k);
+      *reinterpret_cast<float4*>(gm + 4) = *reinterpret_cast<const float4*>(gamma + k + 4);
+      *reinterpret_cast<float4*>(bt) = *reinterpret_cast<const float4*>(beta + k);
+      *reinterpret_cast<float4*>(bt + 4) = *reinterpret_cast<const float4*>(beta + k + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[c][i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[c][i], mean), rstd), gm[i]), bt[i]);
+        amax = fmaxf(amax, fabsf(v[c][i]));
+      }
+    }
   }
-  const float sc = fmaxf(warp_max(amax) / 127.f, 1e-8f);
-  for (int k = lane * 16; k < D; k += 512) {
-    float y[16];
+  const float sc = fmaxf(warp_max(amax) / 127.f, 1e-8f), inv = 1.0f / sc;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) y[i] = ln(k + i);
-    uint4 u;
-    quant16(y, sc, reinterpret_cast<int8_t*>(&u));
-    *reinterpret_cast<uint4*>(xq + (int64_t)m * D + k) = u;
+  for (int c = 0; c < XCH; ++c) {
+    const int k = c * 256 + lane * 8;
+    if (k < D) {
+      uint2 u;
+      int8_t* q = reinterpret_cast<int8_t*>(&u);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) q[i] = code_of(v[c][i], sc, inv);
+      *reinterpret_cast<uint2*>(xq + (int64_t)m * D + k) = u;
+    }
   }
   if (lane == 0) rx[m] = sc;
 }
 
-// (2) value and gate columns [n0, n0 + 64) of 128 rows, dequantised; h in
-// fp32 into hbuf [M, ldh] (ldh = the padded inner width).
-__global__ void __launch_bounds__(THREADS)
-ff8_in_kernel(const int8_t* __restrict__ xq, const float* __restrict__ rx,
-              const int8_t* __restrict__ wv, const int8_t* __restrict__ wg,
-              const float* __restrict__ sv, const float* __restrict__ sg,
-              float* __restrict__ hbuf, int M, int D, int ldh) {
-  extern __shared__ __align__(128) char smem[];
-  const int n0 = blockIdx.x * Q_HALF;
-  const int row0 = blockIdx.y * BM;
-  const RowMajor8 xa{xq, D, M, D};
-  const RowMajor8 wvb{wv + (int64_t)n0 * D, D, ldh - n0, D};
-  const RowMajor8 wgb{wg + (int64_t)n0 * D, D, ldh - n0, D};
-  auto load_a = [&](int r, int k) { return xa.load16(row0 + r, k); };
-  auto load_b = [&](int r, int k) {
-    return r < Q_HALF ? wvb.load16(r, k) : wgb.load16(r - Q_HALF, k);
-  };
-  block_gemm_s8(load_a, load_b, D, smem);
-
-  const int* C = reinterpret_cast<const int*>(smem);
-  for (int i = threadIdx.x; i < BM * Q_HALF; i += THREADS) {
-    int r = i / Q_HALF, c = i % Q_HALF;
-    int m = row0 + r, n = n0 + c;
-    if (m >= M || n >= ldh) continue;
-    const float rs = rx[m];
-    float value = (float)C[r * Q_LDC + c] * rs * sv[n];
-    float gate = (float)C[r * Q_LDC + Q_HALF + c] * rs * sg[n];
-    hbuf[(int64_t)m * ldh + n] = 0.5f * gate * (1.0f + erff(gate * 0.7071067811865476f)) * value;
-  }
-}
-
-// (3) the per-row int8 codes of h over its full (padded) width: one warp a
-// row. hq [M, ldh] int8, rh [M]. ldh is a multiple of 16.
-__global__ void __launch_bounds__(THREADS)
-ff8_quant_h_kernel(const float* __restrict__ hbuf, int8_t* __restrict__ hq,
-                   float* __restrict__ rh, int M, int ldh) {
+// (3) h's row absmax and int8 codes: one warp a row of hbuf [M, ldh]
+// (ldh a multiple of 16, at most 128 HCH), lane l holding columns [128 i +
+// 4 l, + 4) in registers. hq [M, ldh] int8, rh [M].
+constexpr int MAX_HCH = 32;              // ldh <= 4096
+template <int HCH>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+quant_h_kernel(const float* __restrict__ h, int8_t* __restrict__ hq, float* __restrict__ rh,
+               int M, int ldh) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (THREADS / 32) + warp;
+  const int m = blockIdx.x * ROW_WARPS + warp;
   if (m >= M) return;
-  const float* hr = hbuf + (int64_t)m * ldh;
+  const float* hr = h + (int64_t)m * ldh;
+  float4 v[HCH];
   float amax = 0.f;
-  for (int k = lane * 4; k < ldh; k += 128) {
-    float4 v = *reinterpret_cast<const float4*>(hr + k);
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-  }
-  const float sc = fmaxf(warp_max(amax) / 127.f, 1e-8f);
-  for (int k = lane * 16; k < ldh; k += 512) {
-    float v[16];
 #pragma unroll
-    for (int i = 0; i < 16; i += 4) {
-      float4 t = *reinterpret_cast<const float4*>(hr + k + i);
-      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
+  for (int c = 0; c < HCH; ++c) {
+    const int k = c * 128 + lane * 4;
+    if (k < ldh) {
+      v[c] = *reinterpret_cast<const float4*>(hr + k);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[c].x), fabsf(v[c].y)),
+                               fmaxf(fabsf(v[c].z), fabsf(v[c].w))));
     }
-    uint4 u;
-    quant16(v, sc, reinterpret_cast<int8_t*>(&u));
-    *reinterpret_cast<uint4*>(hq + (int64_t)m * ldh + k) = u;
+  }
+  const float sc = fmaxf(warp_max(amax) / 127.f, 1e-8f), inv = 1.0f / sc;
+#pragma unroll
+  for (int c = 0; c < HCH; ++c) {
+    const int k = c * 128 + lane * 4;
+    if (k < ldh) {
+      char4 q;
+      q.x = code_of(v[c].x, sc, inv);
+      q.y = code_of(v[c].y, sc, inv);
+      q.z = code_of(v[c].z, sc, inv);
+      q.w = code_of(v[c].w, sc, inv);
+      *reinterpret_cast<char4*>(hq + (int64_t)m * ldh + k) = q;
+    }
   }
   if (lane == 0) rh[m] = sc;
 }
 
-// (4) hq W2^T, dequantised, (+ x), rounded to bf16.
-__global__ void __launch_bounds__(THREADS)
-ff8_out_kernel(const int8_t* __restrict__ hq, const float* __restrict__ rh,
-               const int8_t* __restrict__ w2, const float* __restrict__ s2,
-               const bf16* __restrict__ x, bf16* __restrict__ out, int M, int D, int ldh,
-               int residual) {
-  extern __shared__ __align__(128) char smem[];
-  const int n0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BM;
-  const RowMajor8 ha{hq, ldh, M, ldh};
-  const RowMajor8 wb{w2 + (int64_t)n0 * ldh, ldh, D - n0, ldh};
-  auto load_a = [&](int r, int k) { return ha.load16(row0 + r, k); };
-  auto load_b = [&](int r, int k) { return wb.load16(r, k); };
-  block_gemm_s8(load_a, load_b, ldh, smem);
-
-  const int* C = reinterpret_cast<const int*>(smem);
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    int r = i / BN, c = i % BN;
-    int m = row0 + r, n = n0 + c;
-    if (m >= M || n >= D) continue;
-    float y = __fmul_rn((float)C[r * Q_LDC + c] * rh[m], s2[n]);
-    if (residual) y = __fadd_rn(y, __bfloat162float(x[(int64_t)m * D + n]));
-    out[(int64_t)m * D + n] = __float2bfloat16(y);
-  }
+// A row pass over M rows, ROW_WARPS a block; returns the launch's error.
+template <class... Params, class... Args>
+int launch_rows(void (*kernel)(Params...), int M, cudaStream_t st, Args... args) {
+  kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
+}  // namespace q8
 }  // namespace ctc
 
-using namespace ctc;
+using namespace ctc::sm90;
+namespace q8 = ctc::q8;
 
-// x [M, D] bf16 (D a multiple of 16); gamma/beta [D] fp32; wv/wg [ldh, D]
-// and w2 [D, ldh] int8 (ldh, the padded inner width, a multiple of 16;
-// padded rows / columns zero); sv/sg [ldh], s2 [D] fp32; workspaces xq [M,
-// D] int8, rx [M] fp32, hbuf [M, ldh] fp32, hq [M, ldh] int8, rh [M] fp32;
-// out [M, D] bf16. Returns cudaGetLastError() after the launches.
+// x [M, D] bf16 (D a multiple of 16, at most 2048); gamma/beta [D] fp32;
+// wv/wg [ldh, D] and w2 [D, ldh] int8 (ldh, the padded inner width, a
+// multiple of 16, at most 4096; padded rows / columns zero); sv/sg [ldh],
+// s2 [D] fp32; workspaces xq [M, D] int8, rx [M] fp32, hbuf [M, ldh] fp32,
+// hq [M, ldh] int8, rh [M] fp32; out [M, D] bf16. Every pointer 16-B
+// aligned. Returns 0, an ERR_ code of gemm_sm90.cuh, or cudaGetLastError()
+// after the launches.
 extern "C" int ctc_geglu_ff_int8(const void* x, const void* gamma, const void* beta,
                                  const void* wv, const void* wg, const void* w2, const void* sv,
                                  const void* sg, const void* s2, void* xq, void* rx, void* hbuf,
                                  void* hq, void* rh, void* out, int M, int D, int ldh,
                                  int residual, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaFuncSetAttribute(ff8_in_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
-  cudaFuncSetAttribute(ff8_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
-  const int rows_per_block = THREADS / 32;
-  const int grid_rows = (M + rows_per_block - 1) / rows_per_block;
-  ff8_quant_x_kernel<<<grid_rows, THREADS, 0, st>>>((const bf16*)x, (const float*)gamma,
-                                                    (const float*)beta, (int8_t*)xq,
-                                                    (float*)rx, M, D);
-  dim3 g1((ldh + Q_HALF - 1) / Q_HALF, (M + BM - 1) / BM);
-  ff8_in_kernel<<<g1, THREADS, Q_SMEM, st>>>((const int8_t*)xq, (const float*)rx,
-                                             (const int8_t*)wv, (const int8_t*)wg,
-                                             (const float*)sv, (const float*)sg, (float*)hbuf, M,
-                                             D, ldh);
-  ff8_quant_h_kernel<<<grid_rows, THREADS, 0, st>>>((const float*)hbuf, (int8_t*)hq,
-                                                    (float*)rh, M, ldh);
-  dim3 g2((D + BN - 1) / BN, (M + BM - 1) / BM);
-  ff8_out_kernel<<<g2, THREADS, Q_SMEM, st>>>((const int8_t*)hq, (const float*)rh,
-                                              (const int8_t*)w2, (const float*)s2,
-                                              (const bf16*)x, (bf16*)out, M, D, ldh, residual);
-  return (int)cudaGetLastError();
+  if (D % 16 || D > q8::MAX_XCH * 256 || ldh % 16 || ldh > q8::MAX_HCH * 128)
+    return (int)cudaErrorInvalidValue;
+  Maps in{}, outm{};
+  int err = map_a8(&in.m[0], xq, M, D, D);
+  if (!err) err = map_b8(&in.m[1], wv, ldh, D, D);
+  if (!err) err = map_b8(&in.m[2], wg, ldh, D, D);
+  if (!err) err = map_a8(&outm.m[0], hq, M, ldh, ldh);
+  if (!err) err = map_b8(&outm.m[1], w2, D, ldh, ldh);
+  if (err) return err;
+  const int xch = (D + 255) / 256, hch = (ldh + 127) / 128;
+  err = q8::launch_rows(xch <= 1   ? q8::quant_x_kernel<1>
+                        : xch <= 2 ? q8::quant_x_kernel<2>
+                        : xch <= 4 ? q8::quant_x_kernel<4>
+                                   : q8::quant_x_kernel<q8::MAX_XCH>,
+                        M, st, static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+                        static_cast<const float*>(beta), static_cast<int8_t*>(xq),
+                        static_cast<float*>(rx), M, D);
+  if (err) return err;
+  err = launch_gemm(in, q8::GegluPlan8{},
+                    q8::HEpi{static_cast<const float*>(rx), static_cast<const float*>(sv),
+                             static_cast<const float*>(sg), static_cast<float*>(hbuf), M, ldh},
+                    (ldh + q8::HALF - 1) / q8::HALF, M, D, st);
+  if (err) return err;
+  err = q8::launch_rows(hch <= 8    ? q8::quant_h_kernel<8>
+                        : hch <= 12 ? q8::quant_h_kernel<12>
+                        : hch <= 16 ? q8::quant_h_kernel<16>
+                                    : q8::quant_h_kernel<q8::MAX_HCH>,
+                        M, st, static_cast<const float*>(hbuf), static_cast<int8_t*>(hq),
+                        static_cast<float*>(rh), M, ldh);
+  if (err) return err;
+  return launch_gemm(outm, q8::LinearPlan8{},
+                     q8::OutEpi{static_cast<const float*>(rh), static_cast<const float*>(s2),
+                                static_cast<const bf16*>(x), static_cast<bf16*>(out), M, D,
+                                residual},
+                     (D + BN - 1) / BN, M, ldh, st);
 }

@@ -19,6 +19,12 @@
 // Two blocks fit an SM (96 KB of ring each, <= 112 registers a thread), so
 // one block's epilogue and first loads overlap the other's products.
 //
+// A plan with S8 runs the same ring on int8 operands (the W8A8 FF): a K
+// slice of 128 int8 fills the same 128-B swizzle row, wgmma m64n128k32
+// .s32.s8.s8 steps 32 B along it as the bf16 m64n128k16 does, the maps
+// are UINT8 (map_a8 / map_b8) and the accumulator is int acc[64] in the
+// same D fragment layout, handed to the epilogue as `const int (&)[64]`.
+//
 // Which maps a tile reads is a plan functor's choice (`src(nt)`): the GEGLU's
 // first product pairs 64 value rows with 64 gate rows from two maps of the
 // same weight, the attention block's projection picks q, k or v. A plan with
@@ -197,6 +203,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_kn(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[64] += A (64 x 32 int8, desc a) . B (128 x 32 int8, desc b)^T in int32:
+// both K-major (integer wgmma has no transpose), 32 B of K a step as above
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d[32] += A (64 x 16) . B (64 x 16, desc b)^T with A in registers: this
 // warp's 16 rows of A as the mma.sync m16n8k16 A fragment (a[0] rows g,
 // columns 2t, 2t + 1; a[1] rows g + 8; a[2], a[3] columns + 8), d in the
@@ -258,6 +287,17 @@ struct BMajor<P, std::void_t<decltype(P::B_MN)>> {
   static constexpr bool mn = P::B_MN;
 };
 
+// Whether a plan's operands are int8 (S8 = true: UINT8 maps, K slices of
+// 128, int32 accumulators) rather than bf16.
+template <class P, class = void>
+struct Int8 {
+  static constexpr bool value = false;
+};
+template <class P>
+struct Int8<P, std::void_t<decltype(P::S8)>> {
+  static constexpr bool value = P::S8;
+};
+
 template <class Plan>
 __device__ __forceinline__ TileSrc plan_src(const Plan& plan, int nt, int pass) {
   if constexpr (Passes<Plan>::value == 1) {
@@ -275,8 +315,11 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
   char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~static_cast<uintptr_t>(1023));
   constexpr int passes = Passes<Plan>::value;
+  constexpr bool s8 = Int8<Plan>::value;
+  static_assert(!(s8 && BMajor<Plan>::mn), "int8 wgmma reads both operands K-major");
+  constexpr int kslice = s8 ? 2 * BK : BK;     // elements in a 128-B swizzle row
   const int nt = blockIdx.x, m0 = blockIdx.y * BM;
-  const int nk = (K + BK - 1) / BK, steps = nk * passes;
+  const int nk = (K + kslice - 1) / kslice, steps = nk * passes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -292,7 +335,7 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (lane == 0) {
       for (int kt = 0; kt < steps; ++kt) {
-        const int pass = passes == 1 ? 0 : kt / nk, k0 = (kt - pass * nk) * BK;
+        const int pass = passes == 1 ? 0 : kt / nk, k0 = (kt - pass * nk) * kslice;
         const TileSrc src = plan_src(plan, nt, pass);
         const int s = kt % STAGES;
         mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
@@ -311,9 +354,9 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
     }
   } else {
     const int wg = warp >> 2;
-    float acc[64];
+    std::conditional_t<s8, int, float> acc[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
     for (int kt = 0; kt < steps; ++kt) {
       const int s = kt % STAGES;
       mbar_wait(&full[s], (kt / STAGES) & 1);
@@ -322,7 +365,9 @@ gemm_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, i
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (BMajor<Plan>::mn) {
+        if constexpr (s8) {
+          wgmma_m64n128k32_s8(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32));
+        } else if constexpr (BMajor<Plan>::mn) {
           wgmma_m64n128k16_kn(acc, desc_sw128(a + kk * 32),
                               desc_mn_sw128(b + kk * 2048, B_HALF_BYTES));
         } else {
@@ -397,17 +442,20 @@ constexpr int ERR_MAP = 9002;            // cuTensorMapEncodeTiled refused a map
 
 // The map of a row-major bf16 matrix [rows, cols] with row stride `ld`
 // elements, read in boxes of box_rows x 64 with the 128-B swizzle; zeros
-// outside the matrix. Returns 0 or an ERR_ code.
+// outside the matrix. elem_bytes = 1 maps an int8 matrix (UINT8: TMA moves
+// bytes as they are) in boxes of box_rows x 128. Returns 0 or an ERR_ code.
 inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
-                    int box_rows) {
+                    int box_rows, int elem_bytes = 2) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t estrides[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                  box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  2, const_cast<void*>(ptr), dims, strides, box, estrides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_MAP;
 }
@@ -418,6 +466,14 @@ inline int map_a(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) 
 }
 inline int map_b(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
   return make_map(m, p, rows, cols, ld, 64);
+}
+
+// The same for int8 operands (a plan with S8), ld in bytes.
+inline int map_a8(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
+  return make_map(m, p, rows, cols, ld, BM, 1);
+}
+inline int map_b8(CUtensorMap* m, const void* p, int rows, int cols, int64_t ld) {
+  return make_map(m, p, rows, cols, ld, 64, 1);
 }
 
 // An MN-major operand [rows, cols] with row stride ld (activations [tokens,

@@ -1,6 +1,7 @@
 """Per-launch device profile of one fp32 BERT layer, one bf16 train-mode
 BERT layer forward and backward, one GEGLU FF backward, one prompt
-encoding, one temporal attention block and one patch embed on one GPU.
+encoding, one temporal attention block, one patch embed, one W8A8 GEGLU FF
+and one PEG weight gradient on one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_layers [--label L] [--out DIR]
 
@@ -21,7 +22,12 @@ runs under torch.profiler, each after one warm-up call (`profile_call`):
 - `attn_packed` at the zero-shot shape of two volumes, x [1152, 24, 512]
   bf16, temporal layer 0's weights, the residual on;
 - `patch_embed_fused` and `patch_embed_res` on two flagship volumes [2, 1,
-  240, 480, 480] bf16 (the model's embed weights, folded).
+  240, 480, 480] bf16 (the model's embed weights, folded);
+- `geglu_ff_int8` at the `--quantize-ff` zero-shot shape of two volumes,
+  x [27648, 512] bf16, spatial layer 0's FF quantised (inner 1365 padded
+  to 1376), the residual on;
+- `peg_weight_grads` at a B = 2 train step's shape, x and g [2, 24, 24, 24,
+  512] bf16, the causal padding.
 
 For each it prints the device kernel time and the kernels ranked by time
 with their launch counts (every row into DIR/<name>.table with --out). The
@@ -48,13 +54,17 @@ from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
 from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed
 from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_bwd
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
+from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8
 from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
                                                   patch_embed_res)
+from ct_clip_ut_tpu_torch.ops.peg import peg_weight_grads
+from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
 
 PROMPTS, PROMPT_LEN, FF_ROWS = 36, 512, 27648
 SEQS, SEQ_LEN = 1152, 24             # the temporal stack's sequences at two volumes
 TRAIN_BATCH, TRAIN_LEN, TRAIN_SHORT = 2, 512, 300   # the train step's text layer
 VOLUMES = (2, 1, 240, 480, 480)
+PEG_VIDEO = (2, 24, 24, 24, 512)     # the token video of a B = 2 train step
 
 
 def main(argv=None) -> int:
@@ -76,6 +86,12 @@ def main(argv=None) -> int:
     def table(name):
         return os.path.join(args.out, f"{name}.table") if args.out else None
 
+    def run(name, fn, label, top=12):
+        """Profile fn() and print it (its rows to DIR/name.table)."""
+        with torch.no_grad():
+            p = profile_call(fn)
+        print_profile(p, f"{args.label}: {label}", card, table(name), top=top)
+
     bcfg = cfg.bert
     lengths = torch.randint(6, 15, (PROMPTS,), generator=g, device="cuda")
     lengths[3] = lengths[17] = PROMPT_LEN
@@ -83,10 +99,8 @@ def main(argv=None) -> int:
     mask = pad.float() * torch.finfo(torch.float32).min
     x = torch.randn((PROMPTS, PROMPT_LEN, bcfg.hidden_size), generator=g, device="cuda")
     w = [t.detach().clone() for t in layer_args(model.text_transformer.encoder.layer[0])]
-    with torch.no_grad():
-        p = profile_call(lambda: bert_layer(x, mask, *w, bcfg.num_heads, bcfg.layer_norm_eps))
-    print_profile(p, f"{args.label}: one fp32 bert_layer {list(x.shape)}", card,
-                  table("bert_layer"), top=12)
+    run("bert_layer", lambda: bert_layer(x, mask, *w, bcfg.num_heads, bcfg.layer_norm_eps),
+        f"one fp32 bert_layer {list(x.shape)}")
 
     bf = torch.bfloat16
     short = torch.tensor([TRAIN_LEN, TRAIN_SHORT], device="cuda")
@@ -98,13 +112,10 @@ def main(argv=None) -> int:
     train = dict(p_attn=bcfg.attention_dropout, p_hidden=bcfg.hidden_dropout, train=True,
                  seeds=torch.tensor([20231, 77, 1 << 30], dtype=torch.int32, device="cuda"))
     heads, eps = bcfg.num_heads, bcfg.layer_norm_eps
-    with torch.no_grad():
-        p = profile_call(lambda: bert_layer(xb, tmask, *w, heads, eps, **train))
-        print_profile(p, f"{args.label}: one bf16 train-mode bert_layer {list(xb.shape)}", card,
-                      table("bert_bf16"), top=12)
-        p = profile_call(lambda: bert_layer_bwd(xb, tmask, *w, dout, heads, eps, **train))
-        print_profile(p, f"{args.label}: one bf16 train-mode bert_layer_bwd {list(xb.shape)}",
-                      card, table("bert_bwd"), top=20)
+    run("bert_bf16", lambda: bert_layer(xb, tmask, *w, heads, eps, **train),
+        f"one bf16 train-mode bert_layer {list(xb.shape)}")
+    run("bert_bwd", lambda: bert_layer_bwd(xb, tmask, *w, dout, heads, eps, **train),
+        f"one bf16 train-mode bert_layer_bwd {list(xb.shape)}", top=20)
 
     vit = model.visual_transformer
     ff = vit.enc_spatial_transformer.layers[0][3]
@@ -115,16 +126,23 @@ def main(argv=None) -> int:
     beta = 0.1 * torch.randn((d,), generator=g, device="cuda")
     ff_args = (xf, gamma, beta, ff[1].weight.detach().to(bf), ff[4].weight.detach().to(bf), gr,
                True)
-    p = profile_call(lambda: geglu_ff_bwd(*ff_args))
-    print_profile(p, f"{args.label}: one geglu_ff_bwd {list(xf.shape)}", card,
-                  table("geglu_ff_bwd"), top=12)
+    run("geglu_ff_bwd", lambda: geglu_ff_bwd(*ff_args), f"one geglu_ff_bwd {list(xf.shape)}")
+    q = quantize_ff_params(ff)
+    with torch.no_grad():
+        q.gamma.copy_(gamma)
+        q.beta.copy_(beta)
+    q8_args = (xf, q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2, True)
+    run("geglu_ff_int8", lambda: geglu_ff_int8(*q8_args),
+        f"one geglu_ff_int8 {list(xf.shape)}, inner {q.inner_dim} padded to {q.wv_q.shape[0]}")
+    xv = torch.randn(PEG_VIDEO, generator=g, device="cuda").to(bf)
+    gv = torch.randn(PEG_VIDEO, generator=g, device="cuda").to(bf)
+    run("peg_weight_grads", lambda: peg_weight_grads(xv, gv, 2),
+        f"one peg_weight_grads {list(xv.shape)} bf16, front 2")
 
     prompts = tokenize_prompts(WordTokenizer(bcfg.vocab_size), max_length=PROMPT_LEN,
                                device="cuda")
-    with torch.no_grad():
-        p = profile_call(lambda: encode_prompt_latents(model, prompts))
-    print_profile(p, f"{args.label}: one prompt encoding ({PROMPTS} x {PROMPT_LEN})", card,
-                  table("prompt"), top=12)
+    run("prompt", lambda: encode_prompt_latents(model, prompts),
+        f"one prompt encoding ({PROMPTS} x {PROMPT_LEN})")
 
     a = vit.enc_temporal_transformer.layers[0][1]
     wkv = a.to_kv.weight.detach().to(bf)
@@ -135,10 +153,7 @@ def main(argv=None) -> int:
                a.to_out.weight.detach().to(bf),
                1.0 + 0.1 * torch.randn((dh,), generator=g, device="cuda"),
                1.0 + 0.1 * torch.randn((dh,), generator=g, device="cuda"), a.cfg.scale, True)
-    with torch.no_grad():
-        p = profile_call(lambda: attn_packed(*at_args))
-    print_profile(p, f"{args.label}: one attn_packed {list(xt.shape)}", card,
-                  table("attn_packed"), top=12)
+    run("attn_packed", lambda: attn_packed(*at_args), f"one attn_packed {list(xt.shape)}")
 
     vcfg = cfg.ctvit
     pt, tp = vcfg.patch_size, vcfg.temporal_patch_size
@@ -147,12 +162,10 @@ def main(argv=None) -> int:
         emb = vit.to_patch_emb
         kw, s1, b1 = fold_patch_embed(emb, pt, tp)
         pe_args = (image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float(), pt, tp)
-        p = profile_call(lambda: patch_embed_fused(*pe_args))
-        print_profile(p, f"{args.label}: one patch_embed {list(image.shape)}", card,
-                      table("patch_embed"), top=12)
-        p = profile_call(lambda: patch_embed_res(*pe_args))
-        print_profile(p, f"{args.label}: one patch_embed_res {list(image.shape)}", card,
-                      table("patch_embed_res"), top=12)
+    run("patch_embed", lambda: patch_embed_fused(*pe_args),
+        f"one patch_embed {list(image.shape)}")
+    run("patch_embed_res", lambda: patch_embed_res(*pe_args),
+        f"one patch_embed_res {list(image.shape)}")
     return 0
 
 

@@ -1,9 +1,12 @@
 """W8A8 GEGLU feed-forward block: kernel wrapper and plain version.
 
 Replaces ct_clip_ut_tpu/ops/pallas_ff_int8.py:geglu_ff_int8. The CUDA chain
-is `csrc/geglu_ff_int8.cu`; its header says what bounds it on the H100 and
-what the design does about it. `geglu_ff_int8` launches it for CUDA tensors
-and takes the plain version for CPU tensors.
+is `csrc/geglu_ff_int8.cu`, four launches with both products on the int8
+wgmma path of the Hopper core: LN and xn's codes; the value | gate product
+writing h in fp32, 64 columns of each a tile; h's row scales and codes;
+the W2 product with the residual. Its header says what bounds it on the
+H100 and what the design does about it. `geglu_ff_int8` launches it for
+CUDA tensors and takes the plain version for CPU tensors.
 
 `geglu_ff_int8_plain` follows `xla_int8_reference` (pallas_ff_int8.py:
 100-119) step by step: LN in fp32 with beta (one-pass moments, eps 1e-5,
@@ -34,7 +37,8 @@ import torch
 from .. import _build
 from . import launches
 
-INNER_MULTIPLE = 16   # the int8 MMA's K step: the padded inner width's multiple
+INNER_MULTIPLE = 16   # TMA's 16-B rows: the padded inner width's multiple
+MAX_DIM, MAX_INNER = 2048, 4096   # the widths the chain's row passes hold in registers
 _EPS = 1e-8
 
 
@@ -109,9 +113,10 @@ def geglu_ff_int8(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return geglu_ff_int8_plain(x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2, residual)
     n, d = x.shape
     inner = wv_q.shape[0]
-    if d % 16 or inner % INNER_MULTIPLE:
-        raise ValueError(f"geglu_ff_int8 takes D and an inner width that 16 divides; got D={d},"
-                         f" inner={inner} (Int8FeedForward pads inner when it is built)")
+    if d % 16 or inner % INNER_MULTIPLE or d > MAX_DIM or inner > MAX_INNER:
+        raise ValueError(f"geglu_ff_int8 takes D <= {MAX_DIM} and an inner width <= {MAX_INNER},"
+                         f" both multiples of 16; got D={d}, inner={inner} (Int8FeedForward pads"
+                         " inner when it is built)")
     dev = x.device
     for t, name, dtype, shape in ((x, "x", torch.bfloat16, (n, d)),
                                   (gamma, "gamma", torch.float32, (d,)),
@@ -123,7 +128,8 @@ def geglu_ff_int8(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                                   (sg, "sg", torch.float32, (inner,)),
                                   (s2, "s2", torch.float32, (d,))):
         _build.require(t, name, dtype, shape, dev)
-    wv_q, wg_q, w2_q = (_build.aligned16(w) for w in (wv_q, wg_q, w2_q))
+    x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2 = (
+        _build.aligned16(t) for t in (x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2))
     f32 = dict(dtype=torch.float32, device=dev)
     xq, rx = torch.empty((n, d), dtype=torch.int8, device=dev), torch.empty((n,), **f32)
     hbuf = torch.empty((n, inner), **f32)

@@ -117,7 +117,23 @@ def peg_weight_grads_plain(x: torch.Tensor, g: torch.Tensor, front: int = 2) -> 
     return dw.t().reshape(c, 1, 3, 3, 3), g32.sum((0, 1, 2, 3))
 
 
-WGRAD_BLOCKS = 264      # position chunks of the weight-grad reduction: two waves of 132 SMs
+# The weight-grad kernel's partition (csrc/peg_wgrad.cu): a block owns 64
+# channels, one video, a band of WGRAD_ROWS rows, a segment of at most
+# WGRAD_SEG columns and a chunk of frames, and writes one partial [28, 64].
+WGRAD_ROWS, WGRAD_SLAB, WGRAD_SEG = 6, 64, 24
+WGRAD_BLOCKS = 264      # the blocks aimed at: two an SM on 132 SMs
+
+
+def wgrad_partition(b: int, t: int, h: int, w: int, c: int) -> tuple:
+    """(frames a chunk, segment width, partials P) of the weight-grad
+    kernel: chunks of frames as long as keeps about WGRAD_BLOCKS blocks;
+    the partials are ordered (video, chunk, band, segment)."""
+    slabs, bands = -(-c // WGRAD_SLAB), -(-h // WGRAD_ROWS)
+    segs = -(-w // WGRAD_SEG)
+    wseg = -(-w // segs)
+    tchunks = max(1, min(t, WGRAD_BLOCKS // (slabs * b * bands * segs)))
+    tc = -(-t // tchunks)
+    return tc, wseg, b * -(-t // tc) * bands * segs
 
 
 def peg_weight_grads(x: torch.Tensor, g: torch.Tensor, front: int = 2) -> tuple:
@@ -133,13 +149,11 @@ def peg_weight_grads(x: torch.Tensor, g: torch.Tensor, front: int = 2) -> tuple:
     _build.require(g, "g", x.dtype, x.shape, x.device)
     b, t, h, w, c = x.shape
     x, g = _build.aligned16(x), _build.aligned16(g)
-    npos = b * t * h * w
-    chunks = min(WGRAD_BLOCKS, npos)
-    chunk = (npos + chunks - 1) // chunks
-    partial = torch.empty((chunks, 28, c), dtype=torch.float32, device=x.device)
+    tc, wseg, parts = wgrad_partition(b, t, h, w, c)
+    partial = torch.empty((parts, 28, c), dtype=torch.float32, device=x.device)
     dwb = torch.empty((28, c), dtype=torch.float32, device=x.device)
     err = _build.load().ctc_peg_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                      dwb.data_ptr(), b, t, h, w, c, front, chunks, chunk,
+                                      dwb.data_ptr(), b, t, h, w, c, front, tc, wseg,
                                       int(x.dtype == torch.float32), _build.stream_of(x))
     _build.check(err, "peg_weight_grads")
     launches.count("peg_weight_grads")

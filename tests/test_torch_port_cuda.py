@@ -606,12 +606,14 @@ def test_peg_kernel_matches_plain_on_card(cuda_device, shape, front, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("front", [2, 1])
-@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40)])
+@pytest.mark.parametrize("front", [2, 1, 0])
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40), (1, 5, 7, 9, 24),
+                                   (2, 4, 13, 30, 72)])
 def test_peg_weight_grads_kernel_matches_plain_on_card(cuda_device, shape, front, dtype):
     """fp32 sums of the same products in another order: 1e-4 relative.
     Deterministic: two calls give the same bits. Control: x shifted by one
-    frame."""
+    frame. The ragged shapes: H no multiple of the kernel's 6-row band, C
+    no multiple of its 64-channel slab, W = 30 in two column segments."""
     from ct_clip_ut_tpu_torch.ops.peg import peg_weight_grads, peg_weight_grads_plain
 
     x, g, _, _ = _peg_case(cuda_device, dtype, shape)
@@ -719,28 +721,34 @@ def _rel_rms(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n", [13824, 77])
-def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, residual):
-    """The flagship FF (512 -> 1365, padded to 1376) quantised per row. The
-    two sides differ where LN's last bit moves a code across a .5 boundary,
-    a few codes in a tensor: INT8_BAND relative rms, which rejects h left
-    unquantised, one scale per tensor, and sv and sg swapped."""
+@pytest.mark.parametrize("n,d,inner", [(13824, 512, 1365), (77, 512, 1365), (27648, 512, 1365),
+                                       (300, 256, 688), (200, 768, 2048)])
+def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, d, inner, residual):
+    """The flagship FF (512 -> 1365, padded to 1376) quantised per row, at
+    the smoke's N = 27,648 too, a narrower FF (256 -> 688: 11 tiles of the
+    first product, 2 of the second) and a wider one (768 -> 2048: the row
+    passes' four- and sixteen-chunk rows, six K slices a first-product
+    tile). The two sides differ where LN's
+    last bit moves a code across a .5 boundary, a few codes in a tensor:
+    INT8_BAND relative rms, which rejects h left unquantised, one scale per
+    tensor, and sv and sg swapped. Two calls give the same bits."""
     from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8, geglu_ff_int8_plain
     from ct_clip_ut_tpu_torch.ops.layers import FeedForward
     from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
 
     torch.manual_seed(0)
-    ff = FeedForward(512, 1365)
+    ff = FeedForward(d, inner)
     with torch.no_grad():
         ff[0].weight.normal_(1.0, 0.2)
         ff[0].bias.normal_(0.0, 0.1)
     q = quantize_ff_params(ff).to(cuda_device)
     args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
-    x = torch.randn((n, 512), device=cuda_device).to(torch.bfloat16)
+    x = torch.randn((n, d), device=cuda_device).to(torch.bfloat16)
     launches.reset_launch_counts()
     got = geglu_ff_int8(x, *args, residual=residual)
     assert launches.launch_counts()["geglu_ff_int8"] == 1 and torch.isfinite(got.float()).all()
     assert _rel_rms(got, geglu_ff_int8_plain(x, *args, residual=residual)) <= INT8_BAND
+    assert torch.equal(got, geglu_ff_int8(x, *args, residual=residual))
     if not residual:
         swapped = list(args)
         swapped[5], swapped[6] = args[6], args[5]
@@ -750,6 +758,47 @@ def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, residual):
             assert _rel_rms(got, c) > INT8_BAND
     with pytest.raises(NotImplementedError, match="serving-only"):
         geglu_ff_int8(x.float().requires_grad_().to(torch.bfloat16), *args)
+
+
+@pytest.mark.cuda
+def test_geglu_ff_int8_chain_runs_on_int8_wgmma_on_card(cuda_device):
+    """geglu_ff_int8's two products (HEpi and OutEpi on the Hopper core's
+    int8 path) have IGMMA instructions in their SASS
+    (cuobjdump of the built library), and the chain launches no kernel
+    outside ctc::sm90 / ctc::q8."""
+    import shutil
+    import subprocess
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ct_clip_ut_tpu_torch import _build
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8
+    from ct_clip_ut_tpu_torch.ops.layers import FeedForward
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    igmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and "IGMMA" in line:
+            igmma[fn] = igmma.get(fn, 0) + 1
+    for mark in ("11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
+                 "11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi"):
+        assert any(mark in f and n > 0 for f, n in igmma.items()), mark
+    q = quantize_ff_params(FeedForward(512, 1365)).to(cuda_device)
+    x = torch.randn((1000, 512), device=cuda_device).to(torch.bfloat16)
+    args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
+    geglu_ff_int8(x, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        geglu_ff_int8(x, *args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 4 and sum("gemm_kernel" in k for k in names) == 2, names
+    assert all("sm90" in k or "q8::" in k for k in names), names
 
 
 @pytest.mark.cuda
