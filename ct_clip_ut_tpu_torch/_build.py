@@ -43,7 +43,8 @@ SIGNATURES = {
     "ctc_vq_nearest": [_P] * 4 + [_I] * 5 + [_P],
     "ctc_patch_embed": [_P] * 9 + [_I] * 9 + [_P],
     "ctc_patch_embed_res": [_P] * 10 + [_I] * 9 + [_P],
-    "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 7 + [_P],
+    "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 8 + [_P],
+    "ctc_patchify": [_P] * 2 + [_I] * 7 + [_P],
     "ctc_attn_block_bwd": [_P] * 34 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed_bwd": [_P] * 31 + [_I] * 4 + [_F, _I, _P],
     "ctc_geglu_ff_bwd": [_P] * 17 + [_I] * 5 + [_P],
@@ -51,7 +52,7 @@ SIGNATURES = {
     "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd": [_P] * 53 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_keep_mask": [_P, _U, _I, _I, _I, _U, _F, _P, _P],
-    "ctc_peg": [_P] * 4 + [_I] * 7 + [_P],
+    "ctc_peg": [_P] * 4 + [_I] * 10 + [_P],
     "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
     "ctc_cosine_attention": [_P] * 8 + [_I] * 4 + [_F, _P],

@@ -16,8 +16,8 @@
 // 40 B, and a box's inner extent must be a multiple of 16 B), so one pass
 // writes the patches out as a matrix the Hopper GEMM core reads through
 // TMA. Three launches:
-//   patchify_kernel  one warp a patch: 8-pixel chunks (two aligned 4-pixel
-//                    runs along W, patch_common.cuh) gathered from the
+//   patchify_kernel  (patch_common.cuh) one warp a patch: 8-pixel chunks
+//                    (two aligned 4-pixel runs along W) gathered from the
 //                    volume, stored as one 16-B store each into P's row
 //                    (column (tv, p1, wv)), and the LN1 mean and rstd
 //                    summed on the way (one-pass E[x^2] - E[x]^2 in fp32,
@@ -45,39 +45,6 @@ namespace ctc {
 namespace pe {
 
 using namespace sm90;
-
-constexpr float EPS = 1e-5f;
-constexpr int ROW_WARPS = 8;        // rows (patches) a block of the row passes
-
-__global__ void __launch_bounds__(ROW_WARPS * 32)
-patchify_kernel(const bf16* __restrict__ image, bf16* __restrict__ patches,
-                float2* __restrict__ stats, int M, int ldp, PatchGeom g, int vec4) {
-  const int m = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (m >= M) return;
-  const int K = g.K();
-  const bf16* src = image + g.base(m);
-  bf16* dst = patches + (int64_t)m * ldp;
-  float s = 0.f, s2 = 0.f;
-#pragma unroll 4
-  for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = patch_load8(src, g, k, K, vec4);   // zeros past K: ldp >= K rounded to 8
-    *reinterpret_cast<uint4*>(dst + k) = v;
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float f = __bfloat162float(e[i]);
-      s += f;
-      s2 += f * f;
-    }
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    const float mean = s / (float)K;
-    const float var = fmaxf(s2 / (float)K - mean * mean, 0.f);
-    stats[m] = make_float2(mean, rsqrtf(var + EPS));
-  }
-}
 
 // h [M, N] bf16 = (acc - mean * s1) * rstd + b1, and conv [M, N] fp32 =
 // acc where conv is not null; columns nt * 128 ...; pairs of columns go as
@@ -159,16 +126,10 @@ inline int launch(const void* image, const void* kwd, const void* s1, const void
                   int ldp, int ldk, cudaStream_t st) {
   const PatchGeom g{T, H, W, patch, t_patch};
   const int M = B * (T / t_patch) * (H / patch) * (W / patch), K = g.K();
-  const int vec4 = patch % 4 == 0 && W % 4 == 0 && (reinterpret_cast<uintptr_t>(image) & 7u) == 0;
   Maps maps{};
   int err = map_a(&maps.m[0], patches, M, K, ldp);
   if (!err) err = map_b(&maps.m[1], kwd, dim, K, ldk);
-  if (err) return err;
-  const int row_blocks = (M + ROW_WARPS - 1) / ROW_WARPS;
-  patchify_kernel<<<row_blocks, ROW_WARPS * 32, 0, st>>>(
-      static_cast<const bf16*>(image), static_cast<bf16*>(patches), static_cast<float2*>(stats),
-      M, ldp, g, vec4);
-  err = (int)cudaGetLastError();
+  if (!err) err = launch_patchify(image, patches, stats, M, ldp, g, st);
   if (err) return err;
   err = launch_gemm(maps, LinearPlan{},
                     PatchEpi{static_cast<bf16*>(out), static_cast<float*>(conv),
@@ -176,7 +137,7 @@ inline int launch(const void* image, const void* kwd, const void* s1, const void
                              static_cast<const float*>(b1), M, dim},
                     (dim + BN - 1) / BN, M, K, st);
   if (err) return err;
-  pe_ln_kernel<<<row_blocks, ROW_WARPS * 32, 0, st>>>(
+  pe_ln_kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(
       static_cast<bf16*>(out), static_cast<const float*>(g2), static_cast<const float*>(b2), M,
       dim);
   return (int)cudaGetLastError();

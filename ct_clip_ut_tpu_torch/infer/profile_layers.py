@@ -1,7 +1,8 @@
 """Per-launch device profile of one fp32 BERT layer, one bf16 train-mode
 BERT layer forward and backward, one GEGLU FF backward, one prompt
-encoding, one temporal attention block, one patch embed, one W8A8 GEGLU FF
-and one PEG weight gradient on one GPU.
+encoding, one temporal attention block, one patch embed and its weight
+gradient, one W8A8 GEGLU FF, the PEG stencil in its two forms and one PEG
+weight gradient on one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_layers [--label L] [--out DIR]
 
@@ -26,8 +27,13 @@ runs under torch.profiler, each after one warm-up call (`profile_call`):
 - `geglu_ff_int8` at the `--quantize-ff` zero-shot shape of two volumes,
   x [27648, 512] bf16, spatial layer 0's FF quantised (inner 1365 padded
   to 1376), the residual on;
-- `peg_weight_grads` at a B = 2 train step's shape, x and g [2, 24, 24, 24,
-  512] bf16, the causal padding.
+- `peg` at a B = 2 train step's shape, x [2, 24, 24, 24, 512] bf16, spatial
+  layer 0's taps: the causal forward (front padding 2, a bias) and the
+  input gradient's form (front 0, the taps flipped, no bias);
+- `peg_weight_grads` at the same shape, x and g bf16, the causal padding;
+- `patch_embed_dkw` on the same two volumes with a dconv [27648, 512] bf16,
+  from the volume (the patchify pass writing P, then the weight gradient
+  over it).
 
 For each it prints the device kernel time and the kernels ranked by time
 with their launch counts (every row into DIR/<name>.table with --out). The
@@ -55,9 +61,9 @@ from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed
 from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer, bert_layer_bwd
 from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd
 from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8
-from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_fused,
-                                                  patch_embed_res)
-from ct_clip_ut_tpu_torch.ops.peg import peg_weight_grads
+from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_dkw,
+                                                  patch_embed_fused, patch_embed_res)
+from ct_clip_ut_tpu_torch.ops.peg import peg, peg_weight_grads, taps_of
 from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
 
 PROMPTS, PROMPT_LEN, FF_ROWS = 36, 512, 27648
@@ -136,6 +142,12 @@ def main(argv=None) -> int:
         f"one geglu_ff_int8 {list(xf.shape)}, inner {q.inner_dim} padded to {q.wv_q.shape[0]}")
     xv = torch.randn(PEG_VIDEO, generator=g, device="cuda").to(bf)
     gv = torch.randn(PEG_VIDEO, generator=g, device="cuda").to(bf)
+    taps = taps_of(vit.enc_spatial_transformer.layers[0][0].dsconv.weight.detach())
+    bias = 0.2 * torch.randn((d,), generator=g, device="cuda")
+    run("peg", lambda: peg(xv, taps, bias, 2), f"one peg {list(xv.shape)} bf16, front 2, bias")
+    flipped = taps.flip(0).contiguous()
+    run("peg_back", lambda: peg(gv, flipped, None, 0),
+        f"one peg {list(gv.shape)} bf16, front 0, flipped taps, no bias")
     run("peg_weight_grads", lambda: peg_weight_grads(xv, gv, 2),
         f"one peg_weight_grads {list(xv.shape)} bf16, front 2")
 
@@ -166,6 +178,10 @@ def main(argv=None) -> int:
         f"one patch_embed {list(image.shape)}")
     run("patch_embed_res", lambda: patch_embed_res(*pe_args),
         f"one patch_embed_res {list(image.shape)}")
+    dconv = torch.randn((image.numel() // (tp * pt * pt), d), generator=g,
+                        device="cuda").to(bf)
+    run("patch_embed_dkw", lambda: patch_embed_dkw(image, dconv, pt, tp),
+        f"one patch_embed_dkw {list(image.shape)}, dconv {list(dconv.shape)}")
     return 0
 
 

@@ -1,6 +1,7 @@
 """Throughput and device-time profile of the zero-shot path on one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_zeroshot [--table PATH] [--quantize-ff]
+                                                          [--peg off|on|both]
 
 At flagship width and the default configuration (`config.flagship_cfg()`:
 the conv patch embed; random weights from seed 0) on [b, 1, 240, 480, 480]
@@ -22,9 +23,14 @@ stand-in `WordTokenizer`), it prints:
 
 With --quantize-ff the same readings are of `quantize_ctclip_ff(model)`
 (the visual transformer's FFs W8A8, the geglu_ff_int8 kernel), after a
-line with the FF weight bytes of both models.
+line with the FF weight bytes of both models. `--peg` runs the PEG on
+F.conv3d (off, the default route, as the JAX package has it), on the peg
+kernel (on: `peg_pallas=True`), or both in turn; the profiled route comes
+last.
 
-Each line names the card and its power limit (`nvidia-smi`).
+Each line names the card and its power limit (`nvidia-smi`). The module
+imports the package by absolute name only, so that it can also be run as a
+file against another checkout of the port on PYTHONPATH.
 """
 
 from __future__ import annotations
@@ -39,12 +45,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ..config import flagship_cfg
-from ..models.ctclip import init_ctclip
-from ..ops import launches
-from ..ops.quant import ff_weight_bytes, quantize_ctclip_ff
-from .zeroshot import (CTClipInference, WordTokenizer, encode_prompt_latents, tokenize_prompts,
-                       zeroshot_probs)
+from ct_clip_ut_tpu_torch.config import flagship_cfg, replace
+from ct_clip_ut_tpu_torch.infer.zeroshot import (CTClipInference, WordTokenizer,
+                                                 encode_prompt_latents, tokenize_prompts,
+                                                 zeroshot_probs)
+from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+from ct_clip_ut_tpu_torch.ops import launches
+from ct_clip_ut_tpu_torch.ops.quant import ff_weight_bytes, quantize_ctclip_ff
 
 VOLUME = (1, 240, 480, 480)          # [c, T, H, W] of the flagship's volumes
 SIZES, BATCHES, REPEATS, PROFILE_BATCH = (1, 2, 4, 8), 30, 5, 2
@@ -132,6 +139,9 @@ def main(argv=None) -> int:
     ap.add_argument("--table", default=None, help="write every kernel's profile row here")
     ap.add_argument("--quantize-ff", action="store_true",
                     help="profile the model with its visual FFs quantised W8A8")
+    ap.add_argument("--peg", choices=("off", "on", "both"), default="off",
+                    help="the PEG on F.conv3d (the default), on its kernel (peg_pallas=True), "
+                         "or both in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_zeroshot: needs a CUDA device", file=sys.stderr)
@@ -139,7 +149,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
-    cfg = flagship_cfg()
+    routes = {"off": (False,), "on": (True,), "both": (False, True)}[args.peg]
+    for fused in routes:
+        cfg = flagship_cfg()
+        cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=fused))
+        profile_route(cfg, args, f"peg_pallas={fused}",
+                      args.table if fused is routes[-1] else None, card)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def profile_route(cfg, args, label: str, table, card: str) -> None:
+    """The readings of one configuration; the profile's rows to `table`."""
     model = init_ctclip(cfg, seed=0, device="cuda")
     if args.quantize_ff:
         fp, model = ff_weight_bytes(model), quantize_ctclip_ff(model)
@@ -157,7 +178,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     latents = runner.prompt_latents()
     torch.cuda.synchronize()
-    print(f"prompt_latents: 36 prompts x {PROMPT_LEN} tokens in "
+    print(f"prompt_latents ({label}): 36 prompts x {PROMPT_LEN} tokens in "
           f"{1e3 * (time.perf_counter() - t0):.3f} ms; launches {launches.launch_counts()} "
           f"[{card}]", flush=True)
 
@@ -166,13 +187,13 @@ def main(argv=None) -> int:
 
     for b in SIZES:
         r = throughput(runner, volumes(b), BATCHES, REPEATS)
-        print(f"throughput B={b}: predict() over {BATCHES} batches x {REPEATS}: "
+        print(f"throughput B={b} ({label}): predict() over {BATCHES} batches x {REPEATS}: "
               f"median {r['median']:.3f} volumes/s (min {r['min']:.3f}, max {r['max']:.3f}), "
               f"peak {r['peak_gb']:.3f} GB [{card}]", flush=True)
 
     b = PROFILE_BATCH
-    print_profile(device_profile(model, volumes(b), latents), f"profile B={b}", card, args.table)
-    return 0
+    print_profile(device_profile(model, volumes(b), latents), f"profile B={b} ({label})", card,
+                  table)
 
 
 if __name__ == "__main__":

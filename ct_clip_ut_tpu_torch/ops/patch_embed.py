@@ -28,9 +28,12 @@ mean and rstd) and whose backward is `_pe_bwd` (pallas_patch_embed.py:
 223-280): the LayerNorm chain in plain PyTorch (elementwise, as it is XLA
 in the JAX package) from those residuals, then the projection weight grad
 `patch_embed_dkw` (`csrc/patch_embed_dkw.cu`, the port of `_dkw_impl`; its
-plain version `patch_embed_dkw_plain` on CPU tensors). The image cotangent
-is autograd of the plain version, and only when the image requires grad
-(the JAX package's `_xla_twin` VJP); training never asks for it.
+plain version `patch_embed_dkw_plain` on CPU tensors). On the card the
+forward's patch matrix P is kept for the weight grad, which then reads it
+instead of writing it again (221 MB more held across a B = 2 step). The
+image cotangent is autograd of the plain version, and only when the image
+requires grad (the JAX package's `_xla_twin` VJP); training never asks
+for it.
 """
 
 from __future__ import annotations
@@ -120,7 +123,8 @@ def tma_operands(image: torch.Tensor, kw: torch.Tensor, patch: int, t_patch: int
 
 def _launch(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
             conv: bool) -> tuple:
-    """Run ctc_patch_embed(_res) on CUDA tensors: (out, conv or None, stats)."""
+    """Run ctc_patch_embed(_res) on CUDA tensors: (out, conv or None, stats,
+    the patch matrix P [M, ldp])."""
     b, c, T, H, W = image.shape
     _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch)
     dim = kw.shape[-1]
@@ -137,7 +141,7 @@ def _launch(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
         out.data_ptr(), *([res.data_ptr()] if conv else []), b, T, H, W, patch, t_patch, dim,
         ops["patches"][3], ops["kwd"][3], _build.stream_of(image))
     _build.check(err, entry)
-    return out, res, stats
+    return out, res, stats, ops["patches"][0]
 
 
 def patch_embed_fused(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
@@ -182,8 +186,14 @@ def patch_embed_res(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
                     patch: int, t_patch: int) -> tuple:
     """The residual-saving patch_embed chain on CUDA tensors (the forward's
     inputs), the plain version on CPU tensors."""
+    return _res_with_patches(image, kw, s1, b1, g2, b2, patch, t_patch)[:3]
+
+
+def _res_with_patches(image, kw, s1, b1, g2, b2, patch: int, t_patch: int) -> tuple:
+    """patch_embed_res and the patch matrix P its chain wrote (None on CPU
+    tensors, whose weight grad takes the plain version)."""
     if not _build.on_cuda(image):
-        return patch_embed_res_plain(image, kw, s1, b1, g2, b2, patch, t_patch)
+        return (*patch_embed_res_plain(image, kw, s1, b1, g2, b2, patch, t_patch), None)
     out = _launch("ctc_patch_embed_res", image, kw, s1, b1, g2, b2, patch, t_patch, True)
     launches.count("patch_embed_res")
     return out
@@ -200,28 +210,53 @@ def patch_embed_dkw_plain(image: torch.Tensor, dconv: torch.Tensor, patch: int,
     return dk.reshape(cin, patch, -1).permute(1, 0, 2).contiguous()
 
 
-def patch_embed_dkw(image: torch.Tensor, dconv: torch.Tensor, patch: int,
-                    t_patch: int) -> torch.Tensor:
+def _patch_matrix(image: torch.Tensor, patch: int, t_patch: int) -> torch.Tensor:
+    """The patch matrix P [M, ldp] bf16 of a bf16 volume on the card, as
+    the forward's patchify pass writes it (zeros past K): the weight
+    gradient's operand for a call from the volume alone."""
+    b, _, T, H, W = image.shape
+    m = b * (T // t_patch) * (H // patch) * (W // patch)
+    patches = torch.empty((m, _build.tma_pitch(t_patch * patch * patch, image.element_size())),
+                          dtype=torch.bfloat16, device=image.device)
+    err = _build.load().ctc_patchify(image.data_ptr(), patches.data_ptr(), b, T, H, W, patch,
+                                     t_patch, patches.shape[1], _build.stream_of(image))
+    _build.check(err, "ctc_patchify")
+    return patches
+
+
+def patch_embed_dkw(image: torch.Tensor, dconv: torch.Tensor, patch: int, t_patch: int,
+                    patches=None) -> torch.Tensor:
     """The patch_embed_dkw kernel on CUDA tensors (the bf16 volume and a
-    bf16 dconv [M, dim]), the plain version on CPU tensors."""
+    bf16 dconv [M, dim], dim a multiple of 8), the plain version on CPU
+    tensors. The kernel reads the patch matrix P [M, ldp] of this volume:
+    `patches` as the forward wrote it (`_res_with_patches`, the train
+    step's form), else `_patch_matrix`'s. The output is written whole, in one
+    summation order: the same bits from call to call."""
     if not _build.on_cuda(image):
         return patch_embed_dkw_plain(image, dconv, patch, t_patch)
     b, c, T, H, W = image.shape
-    m, dim = dconv.shape
+    dim = dconv.shape[-1]
     k = t_patch * patch * patch
     if c != 1 or T % t_patch or H % patch or W % patch:
         raise ValueError(f"patch_embed_dkw takes one channel and T, H, W that the patch sizes "
                          f"divide; got {tuple(image.shape)}")
+    if dim % 8:
+        raise ValueError(f"patch_embed_dkw reads dconv through TMA (16-B rows); dim {dim} is "
+                         "not a multiple of 8")
     _build.require(image, "image", torch.bfloat16, (b, 1, T, H, W), image.device)
-    _build.require(dconv, "dconv", torch.bfloat16,
-                   (b * (T // t_patch) * (H // patch) * (W // patch), dim), image.device)
-    out = torch.zeros((k, dim), dtype=torch.float32, device=image.device)
-    err = _build.load().ctc_patch_embed_dkw(image.data_ptr(), dconv.data_ptr(), out.data_ptr(),
-                                            b, T, H, W, patch, t_patch, dim,
+    m = b * (T // t_patch) * (H // patch) * (W // patch)
+    _build.require(dconv, "dconv", torch.bfloat16, (m, dim), image.device)
+    ldp = _build.tma_pitch(k, image.element_size())
+    if patches is None:
+        patches = _patch_matrix(image, patch, t_patch)
+    _build.require(patches, "patches", torch.bfloat16, (m, ldp), image.device)
+    out = torch.empty((patch, k // patch, dim), dtype=torch.float32, device=image.device)
+    err = _build.load().ctc_patch_embed_dkw(patches.data_ptr(), dconv.data_ptr(), out.data_ptr(),
+                                            b, T, H, W, patch, t_patch, dim, ldp,
                                             _build.stream_of(image))
     _build.check(err, "patch_embed_dkw")
     launches.count("patch_embed_dkw")
-    return out.reshape(k // patch, patch, dim).permute(1, 0, 2).contiguous()
+    return out
 
 
 def patch_embed_ln_bwd(conv: torch.Tensor, stats: torch.Tensor, s1: torch.Tensor,
@@ -250,9 +285,9 @@ def patch_embed_ln_bwd(conv: torch.Tensor, stats: torch.Tensor, s1: torch.Tensor
 class _PatchEmbedFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, image, kw, s1, b1, g2, b2, patch, t_patch):
-        out, conv, stats = patch_embed_res(image, kw, s1, b1, g2, b2, patch, t_patch)
+        out, conv, stats, patches = _res_with_patches(image, kw, s1, b1, g2, b2, patch, t_patch)
         ctx.save_for_backward(image, kw, s1, b1, g2, b2, conv, stats)
-        ctx.patch, ctx.t_patch = patch, t_patch
+        ctx.patch, ctx.t_patch, ctx.patches = patch, t_patch, patches
         return out
 
     @staticmethod
@@ -260,7 +295,8 @@ class _PatchEmbedFn(torch.autograd.Function):
         image, kw, s1, b1, g2, b2, conv, stats = ctx.saved_tensors
         patch, t_patch = ctx.patch, ctx.t_patch
         dconv, ds1, db1, dg2, db2 = patch_embed_ln_bwd(conv, stats, s1, b1, g2, g, image.dtype)
-        dkw = patch_embed_dkw(image, dconv.to(image.dtype), patch, t_patch)
+        dkw = patch_embed_dkw(image, dconv.to(image.dtype), patch, t_patch, ctx.patches)
+        ctx.patches = None
         dimage = None
         if ctx.needs_input_grad[0]:
             with torch.enable_grad():

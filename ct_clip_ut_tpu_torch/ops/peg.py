@@ -4,7 +4,8 @@ gradient: kernel wrappers and plain versions.
 Replaces ct_clip_ut_tpu/ops/pallas_peg.py:peg_fused (`csrc/peg.cu`) and
 ct_clip_ut_tpu/ops/pallas_peg_bwd.py:peg_weight_grads (`csrc/peg_wgrad.cu`);
 each source's header says what bounds it on the H100 and what the design
-does about it. `TransformerConfig.peg_pallas` selects this route
+does about it. Both kernels cut the video the same way
+(`wgrad_partition`). `TransformerConfig.peg_pallas` selects this route
 (ops/layers.py:PEG); the default route stays F.conv3d + autograd.
 
 The video x is [b, t, h, w, c] as the token buffer lies in memory (channels
@@ -98,10 +99,11 @@ def peg(x: torch.Tensor, taps: torch.Tensor, bias: Optional[torch.Tensor],
         _build.require(bias, "bias", torch.float32, (c,), x.device)
     x = _build.aligned16(x)
     out = torch.empty_like(x)
+    rows, tc, wseg, _ = stencil_partition(x)
     err = _build.load().ctc_peg(x.data_ptr(), taps.data_ptr(),
                                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                                b, t, h, w, c, front, int(x.dtype == torch.float32),
-                                _build.stream_of(x))
+                                b, t, h, w, c, front, rows, tc, wseg,
+                                int(x.dtype == torch.float32), _build.stream_of(x))
     _build.check(err, "peg")
     launches.count("peg")
     return out
@@ -120,20 +122,34 @@ def peg_weight_grads_plain(x: torch.Tensor, g: torch.Tensor, front: int = 2) -> 
 # The weight-grad kernel's partition (csrc/peg_wgrad.cu): a block owns 64
 # channels, one video, a band of WGRAD_ROWS rows, a segment of at most
 # WGRAD_SEG columns and a chunk of frames, and writes one partial [28, 64].
+# The stencil (csrc/peg.cu) cuts the video the same way with bands of
+# STENCIL_ROWS rows, one block an SM (its staged frames fill the shared
+# memory), and writes its outputs.
 WGRAD_ROWS, WGRAD_SLAB, WGRAD_SEG = 6, 64, 24
 WGRAD_BLOCKS = 264      # the blocks aimed at: two an SM on 132 SMs
+STENCIL_ROWS = {torch.bfloat16: 12, torch.float32: 6}
+STENCIL_BLOCKS = 132
 
 
-def wgrad_partition(b: int, t: int, h: int, w: int, c: int) -> tuple:
+def wgrad_partition(b: int, t: int, h: int, w: int, c: int, rows: int = WGRAD_ROWS,
+                    blocks: int = WGRAD_BLOCKS) -> tuple:
     """(frames a chunk, segment width, partials P) of the weight-grad
-    kernel: chunks of frames as long as keeps about WGRAD_BLOCKS blocks;
-    the partials are ordered (video, chunk, band, segment)."""
-    slabs, bands = -(-c // WGRAD_SLAB), -(-h // WGRAD_ROWS)
+    kernel (or, with the stencil's `rows` and `blocks`, of the stencil):
+    chunks of frames as long as keeps about `blocks` blocks; the partials
+    are ordered (video, chunk, band, segment)."""
+    slabs, bands = -(-c // WGRAD_SLAB), -(-h // rows)
     segs = -(-w // WGRAD_SEG)
     wseg = -(-w // segs)
-    tchunks = max(1, min(t, WGRAD_BLOCKS // (slabs * b * bands * segs)))
+    tchunks = max(1, min(t, blocks // (slabs * b * bands * segs)))
     tc = -(-t // tchunks)
     return tc, wseg, b * -(-t // tc) * bands * segs
+
+
+def stencil_partition(x: torch.Tensor) -> tuple:
+    """(rows a band, frames a chunk, segment width, blocks a slab) of the
+    stencil on the video x."""
+    rows = STENCIL_ROWS[x.dtype]
+    return (rows, *wgrad_partition(*x.shape, rows, STENCIL_BLOCKS))
 
 
 def peg_weight_grads(x: torch.Tensor, g: torch.Tensor, front: int = 2) -> tuple:

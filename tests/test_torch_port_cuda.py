@@ -404,8 +404,9 @@ def test_geglu_ff_backward_weight_grads_same_bits_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,T,H,W", [(2, 240, 480, 480), (1, 20, 60, 100)])
 def test_patch_embed_res_and_dkw_kernels_match_plain_on_card(cuda_device, b, T, H, W):
-    from ct_clip_ut_tpu_torch.ops.patch_embed import (patch_embed_dkw, patch_embed_dkw_plain,
-                                                      patch_embed_res, patch_embed_res_plain)
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (_res_with_patches, patch_embed_dkw,
+                                                      patch_embed_dkw_plain, patch_embed_res,
+                                                      patch_embed_res_plain)
 
     a = _patch_inputs(np.random.default_rng(17), b, T, H, W, 20, 10, 512)
     args = _patch_args(a, 20, 10, cuda_device)
@@ -424,6 +425,11 @@ def test_patch_embed_res_and_dkw_kernels_match_plain_on_card(cuda_device, b, T, 
     assert _rel_err(got, want.transpose(0, 1).reshape(20, 200, 512)) > 1.5e-2
     assert launches.launch_counts()["patch_embed_res"] == 1
     assert launches.launch_counts()["patch_embed_dkw"] == 1
+    # one order of summation, no atomics: two calls, and the call reading
+    # the forward's patch matrix, give the same bits
+    assert torch.equal(got, patch_embed_dkw(args[0], dconv, 20, 10))
+    patches = _res_with_patches(*args, 20, 10)[3]
+    assert torch.equal(got, patch_embed_dkw(args[0], dconv, 20, 10, patches))
 
 
 # a train step's batch of 8 reports, ragged
@@ -584,23 +590,29 @@ def _peg_case(cuda_device, dtype, shape=(2, 24, 24, 24, 512), seed=21):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("front", [2, 1, 0])
-@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40)])
-def test_peg_kernel_matches_plain_on_card(cuda_device, shape, front, dtype):
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 512), (1, 3, 5, 7, 40), (1, 5, 7, 9, 24),
+                                   (2, 4, 13, 30, 72)])
+def test_peg_kernel_matches_plain_on_card(cuda_device, shape, front, dtype, with_bias):
     """The stencil on its branch (output minus residual) within 1.5e-2 of
-    the plain version (bf16; 1e-5 in fp32). Controls: another frame
-    padding, the taps flipped, the bias left out."""
+    the plain version (bf16; 1e-5 in fp32), with and without a bias. The
+    ragged shapes: H no multiple of the kernel's band (12 rows in bf16, 6
+    in fp32), C no multiple of its 64-channel slab, W = 30 in two column
+    segments, T = 3 and 4 in chunks shorter than the warm-up. Controls:
+    another frame padding, the taps flipped, the bias left out (or added)."""
     from ct_clip_ut_tpu_torch.ops.peg import peg, peg_plain
 
     x, _, taps, bias = _peg_case(cuda_device, dtype, shape)
+    bias, other = (bias, None) if with_bias else (None, bias)
     band = 1.5e-2 if dtype == torch.bfloat16 else 1e-5
     launches.reset_launch_counts()
     got = peg(x, taps, bias, front).float() - x.float()
     assert launches.launch_counts()["peg"] == 1
     assert _rel_err(got, peg_plain(x, taps, bias, front).float() - x.float()) <= band
     for wrong in (peg_plain(x, taps, bias, (front + 1) % 3), peg_plain(x, taps.flip(0), bias, front),
-                  peg_plain(x, taps, None, front)):
+                  peg_plain(x, taps, other, front)):
         assert _rel_err(got, wrong.float() - x.float()) > band
 
 
@@ -1003,7 +1015,8 @@ def test_wgrad_sm90_core_matches_matmul_on_card(cuda_device, tokens, rows, cols,
 @pytest.mark.cuda
 def test_wgrad_sm90_kernels_run_on_wgmma_on_card(cuda_device):
     """The weight-gradient kernels on the MN-major core (the FF backward's
-    FFWgradPlan, the check entry's WgradPlan) have HGMMA instructions in
+    FFWgradPlan, the check entry's WgradPlan, the patch embed's
+    PatchWgradPlan) have HGMMA instructions in
     their SASS (cuobjdump of the built library); the fp32 BERT layer's
     products (SplitPlan) and the FF backward's value / gate and dh kernel
     too."""
@@ -1022,7 +1035,7 @@ def test_wgrad_sm90_kernels_run_on_wgmma_on_card(cuda_device):
         elif fn is not None and "HGMMA" in line:
             counts[fn] = counts.get(fn, 0) + 1
     for mark in ("4sm9012wgrad_kernel", "11FFWgradPlan", "9WgradPlan", "9SplitPlan",
-                 "3ffb15gate_bwd_kernel"):
+                 "3ffb15gate_bwd_kernel", "2pe14PatchWgradPlan"):
         assert any(mark in f and n > 0 for f, n in counts.items()), mark
 
 
