@@ -148,7 +148,32 @@ Phases, each printing its lines before the last:
      the feature map and the cross-attention held against plain=True, from
      the same codebook ids and end to end, with the plain tokenizer's id
      agreement; an fp32 scan refused; and `maskgit_generate` at B = 1 over
-     18 steps: 108 attn_qrows launches, every id inside the codebook.
+     18 steps: 108 attn_qrows launches, every id inside the codebook;
+ 10. the forward attribution methods in fp32 at flagship width (random
+     weights from seed 0, the matmul patch embed of `capture.parity_cfg`,
+     one [1, 1, 240, 480, 480] fp32 volume, a 512-token stand-in prompt):
+     first the fp32 variants of rows 1-4 against their plain versions at
+     the path's shapes (attn_block [24, 576, 512] with the fp32 bias,
+     attn_packed [4608, 24, 512], geglu_ff and vq_nearest at [13824, 512]):
+     F32_BAND max relative error, the VQ's share of equal indices and tie
+     margin, controls the kernel with its lo planes zeroed (one bf16
+     product each) and the plain version without the LN gain / bias, q
+     scale or bias; times, `bound_ms` (three bf16 products at the bf16
+     peak), the PyTorch chain in fp32 as `library_ms`; one call of each
+     under torch.profiler on the Hopper pieces; the fp32 PEG conv under
+     `full_fp32` against float64 (no TF32). Then, counted, the path:
+     `raw_attention_maps`, `rollout_volumes` (its host expansion timed
+     apart), the two latents (a prompt's, a diff embedding's), the
+     frame-sparse occlusion sweep over the flagship grid's first 80 windows
+     in slabs of 72 (a ragged tail) at chunk 8 and the dense shortcut (the
+     only caller of attn_block's fp32 variant), with seconds, ms a window,
+     the projected full sweep and peak memory; every fp32 variant launched.
+     The maps held against plain=True (MAP_BAND); the scores against
+     plain=True and the dense shortcut: each window within OCC_BAND unless
+     one of its VQ indices flipped between the two paths, each flip a tie
+     within VQ_F32_TIE (counted per forward by patching the models' VQ
+     call), a second sweep the same bits, a sweep shifted by one stride
+     outside the band; an fp32 image through the conv patch embed refused.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -156,7 +181,8 @@ allow in a short window).
 The line before the last is the kernels' JSON record (launches: the
 zero-shot run's counts for the forward kernels, phase 4b's for
 geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
-the train kernels, phase 9's for attn_qrows); the last line is {"ok": true,
+the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
+variants); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -250,16 +276,35 @@ KERNELS = {
                       "ct_clip_ut_tpu/ops/pallas_ff_int8.py:148"),
     "cosine_attention": ("ct_clip_ut_tpu_torch/csrc/cosine_attention.cu",
                          "ct_clip_ut_tpu/ops/pallas_attention.py:125"),
+    "attn_block_f32": ("ct_clip_ut_tpu_torch/csrc/attn_block.cu",
+                       "ct_clip_ut_tpu/ops/pallas_attn_block.py:192"),
+    "attn_packed_f32": ("ct_clip_ut_tpu_torch/csrc/attn_packed.cu",
+                        "ct_clip_ut_tpu/ops/pallas_attn_packed.py:230"),
+    "geglu_ff_f32": ("ct_clip_ut_tpu_torch/csrc/geglu_ff.cu",
+                     "ct_clip_ut_tpu/ops/pallas_ff.py:120"),
+    "vq_nearest_f32": ("ct_clip_ut_tpu_torch/csrc/vq_nearest.cu",
+                       "ct_clip_ut_tpu/ops/pallas_vq.py:56"),
 }
+# Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
+F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
+VQ_F32_AGREE = 0.9999   # least share of fp32 VQ indices equal to the plain version's
+VQ_F32_TIE = 1e-5       # a mismatch must be a tie: fp32 sims within this
+MAP_BAND = 1e-3         # max abs error of the [0, 1]-normalised maps vs plain=True
+PEG_F32_BAND = 1e-5     # max relative error of the fp32 PEG conv (TF32 off) vs float64
+OCC_BAND = 1e-4         # relative error of a window's score vs plain=True / the dense shortcut
+OCC_WINDOWS, OCC_SLAB, OCC_CHUNK = 80, 72, 8   # slabs of 72 windows: a ragged tail of 8
+FULL_SWEEP = 12167      # windows of the flagship grid (23^3)
+ATTRIBUTION_KERNELS = ("attn_block_f32", "attn_packed_f32", "geglu_ff_f32", "vq_nearest_f32")
 BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
                  "patch_embed_dkw", *BERT_PEG_KERNELS)
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
 CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
                  "vq_nearest": 1, "attn_qrows": 6}
-# kernels of other serving paths, launched by neither zero-shot nor training:
-# CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine core
-SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention")
+# kernels of other paths, launched by neither zero-shot nor training:
+# CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
+# core, the attribution suite's fp32 variants (phase 10)
+SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -305,7 +350,14 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "bf16 bert_layer_bwd weight gradients (BertWgradPlan, MN-major)":
                      "2bh13BertWgradPlan",
                  "patch_embed_dkw weight gradient over P (PatchWgradPlan, MN-major)":
-                     "2pe14PatchWgradPlan"}
+                     "2pe14PatchWgradPlan",
+                 "fp32 attn_block / attn_packed projections (QkvSplitPlan: three bf16 passes)":
+                     "2tc12QkvSplitPlan",
+                 "fp32 geglu_ff value / gate product (GegluSplitPlan, h as hi / lo planes)":
+                     "2ff14GegluSplitPlan",
+                 "fp32 vq_nearest GEMM (SplitPlan into ArgmaxEpi)": "9SplitPlanENS_2vq9ArgmaxEpi",
+                 "fp32 output products (SplitPlan into F32OutEpi: geglu_ff, the blocks, BERT)":
+                     "9SplitPlanENS0_9F32OutEpi"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -320,7 +372,9 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                      "bf16 bert_layer attention forward (two passes, Philox keep)":
                          "2bh15fwd_core_kernel",
                      "bf16 bert_layer_bwd query pass": "2bh14dq_pass_kernel",
-                     "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel"}
+                     "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel",
+                     "fp32 block core (attn_block_f32, attn_packed_f32: split P.V)":
+                         ("17block_core_kernel", "Lb0ELb1E")}
 
 
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
@@ -328,6 +382,11 @@ SASS_INT8_REQUIRED = {"geglu_ff_int8 value | gate product writing h (HEpi)":
                           "11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
                       "geglu_ff_int8 W2 product with the residual (OutEpi)":
                           "11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi"}
+
+
+def marked(fn: str, mark) -> bool:
+    """Whether a mangled name holds a mark (a substring, or each of a tuple's)."""
+    return all(m in fn for m in ((mark,) if isinstance(mark, str) else mark))
 
 
 def sass_check(lib: Path) -> None:
@@ -354,7 +413,7 @@ def sass_check(lib: Path) -> None:
                                   or "wgrad_kernel" in fn)
                     or "2qr11core_kernel" in fn or "3ffb15gate_bwd_kernel" in fn):
                 counts.setdefault(fn, 0)
-            if any(mark in fn for mark in SASS_MMA_REQUIRED.values()):
+            if any(marked(fn, mark) for mark in SASS_MMA_REQUIRED.values()):
                 mma.setdefault(fn, 0)
         elif fn in counts and ("HGMMA" in line or "IGMMA" in line):
             counts[fn] += 1
@@ -379,7 +438,7 @@ def sass_check(lib: Path) -> None:
         if not found:
             raise AssertionError(f"no int8 wgmma kernel for {what} in the library")
     for what, mark in SASS_MMA_REQUIRED.items():
-        found = {fn: n for fn, n in mma.items() if mark in fn}
+        found = {fn: n for fn, n in mma.items() if marked(fn, mark)}
         print(f"sass: {what}: {sum(found.values())} HMMA in {len(found)} kernel(s) "
               f"({', '.join(str(n) for n in found.values())})")
         if not found:
@@ -388,8 +447,9 @@ def sass_check(lib: Path) -> None:
 
 # The namespaces of the Hopper pieces (mangled or demangled): a chain moved
 # off the wmma tile of gemm_tile.cuh launches no ctc kernel outside them
-HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "q8::", "3ctc2tc", "3ctc2pe", "3ctc2bh",
-                 "3ctc2q8")
+# (vq:: holds vq_nearest's key-to-index pass after its argmax GEMM)
+HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "q8::", "vq::", "3ctc2tc", "3ctc2pe", "3ctc2bh",
+                 "3ctc2q8", "3ctc2vq")
 
 
 def hopper_chain_check(name: str, fn, card: str) -> None:
@@ -2217,6 +2277,392 @@ def ctgenerate_phase(torch, card: str) -> tuple:
     return record, counts
 
 
+def f32_check(torch, model, card: str) -> dict:
+    """Phase 10's kernel checks: the fp32 variants of rows 1-4 against their
+    plain versions at the attribution path's shapes (TF32 off): attn_block
+    over one volume's spatial stack [24, 576, 512] with the fp32 [8, 576,
+    576] bias, attn_packed over a chunk of 8 windows' temporal stacks
+    [4608, 24, 512], geglu_ff at one volume's [13824, 512], vq_nearest on
+    [13824, 512] unit tokens x the 8192 codes. Bands: F32_BAND (max
+    relative error), the VQ's share of equal indices and tie margin.
+    Controls: the kernel with every lo plane zeroed (one bf16 product for
+    each fp32 one), and the plain version without the LN gain / bias, the
+    q scale or the position bias. bound_ms: three bf16 products for each
+    fp32 one at the bf16 peak, as row 6. library_ms: the same PyTorch
+    chain in fp32. One call of each under torch.profiler, every launch on
+    the Hopper pieces."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_plain, launch_block_f32
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed, attn_packed_plain
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff, geglu_ff_f32, geglu_ff_plain
+    from ct_clip_ut_tpu_torch.ops.layers import l2norm
+    from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
+    from ct_clip_ut_tpu_torch.ops.vq_nearest import vq_nearest, vq_nearest_f32, vq_nearest_plain
+
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    g = torch.Generator(device="cuda").manual_seed(15)
+    t, h, w = token_grid_shape(cfg, VOLUME)
+    hw, d = h * w, cfg.dim
+
+    def attn_args(tf):
+        a = tf.layers[0][1]
+        inner = a.cfg.inner_dim
+        wkv = a.to_kv.weight.float()
+        return [around_ones(torch, g, d), a.to_q.weight.float(), wkv[:inner].contiguous(),
+                wkv[inner:].contiguous(), a.to_out.weight.float(),
+                around_ones(torch, g, a.cfg.dim_head), around_ones(torch, g, a.cfg.dim_head)]
+
+    with torch.no_grad():
+        bias = continuous_pos_bias(vit.spatial_rel_pos_bias, cfg.patch_height,
+                                   cfg.patch_width).float().contiguous()
+    scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
+    xs = torch.randn((t, hw, d), generator=g, device="cuda")
+    xt = torch.randn((OCC_CHUNK * hw, t, d), generator=g, device="cuda")
+    xf = torch.randn((t * hw, d), generator=g, device="cuda")
+    ff = vit.enc_spatial_transformer.layers[0][3]
+    attn_faults = {"no gamma": (1, 1.0), "no q_scale": (6, 1.0)}
+
+    def packed_library(*a, residual=True):
+        return attn_library(*a[:8], None, *a[8:], residual=residual)
+
+    def attn_flops(x, hd):
+        r, n, dm = x.shape
+        return 3 * (2 * r * n * dm * hd * 4 + 4 * r * n * n * hd)
+
+    cases = {
+        "attn_block_f32": (attn_block, attn_block_plain,
+                           [xs, *attn_args(vit.enc_spatial_transformer), bias, scale],
+                           {**attn_faults, "no bias": (8, 0.0)}, attn_library,
+                           lambda *a, residual: launch_block_f32("ctc_attn_block_f32", *a,
+                                                                 residual, one_pass=True)),
+        "attn_packed_f32": (attn_packed, attn_packed_plain,
+                            [xt, *attn_args(vit.enc_temporal_transformer), scale], attn_faults,
+                            packed_library,
+                            lambda *a, residual: launch_block_f32(
+                                "ctc_attn_packed_f32", *a[:8], None, *a[8:], residual,
+                                one_pass=True)),
+        "geglu_ff_f32": (geglu_ff, geglu_ff_plain,
+                         [xf, around_ones(torch, g, d),
+                          0.1 * torch.randn((d,), generator=g, device="cuda"),
+                          ff[1].weight.float(), ff[4].weight.float()],
+                         {"no gamma": (1, 1.0), "no beta": (2, 0.0)}, ff_library,
+                         lambda *a, residual: geglu_ff_f32(*a, residual, one_pass=True)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (kern, plain, args, faults, library, one_pass) in cases.items():
+            got = kern(*args, residual=False)
+            want = plain(*args, residual=False)
+            torch.cuda.synchronize()
+            controls = {"one bf16 product each (lo planes zeroed)":
+                        rel_err(one_pass(*args, residual=False), want)}
+            for fault, (i, value) in faults.items():
+                wrong = list(args)
+                wrong[i] = torch.full_like(args[i], value)
+                controls[fault] = rel_err(got, plain(*wrong, residual=False))
+            if got.dtype != torch.float32:
+                raise AssertionError(f"{name}: output dtype {got.dtype}")
+            abs_err = band_check(name, got, want, F32_BAND, controls,
+                                 f"fp32 x {list(args[0].shape)}, branch max "
+                                 f"{want.abs().max().item():.3e}")
+            ms = cuda_ms(torch, lambda: kern(*args, residual=True))
+            plain_ms = cuda_ms(torch, lambda: plain(*args, residual=True))
+            lib_err = rel_err(library(*args, residual=False), want)
+            library_ms = library_time(torch, lambda: library(*args, residual=True))
+            x = args[0]
+            if name == "geglu_ff_f32":
+                flops = 3 * 6 * x.shape[0] * x.shape[1] * args[4].shape[1]
+            else:
+                flops = attn_flops(x, args[2].shape[0])
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            rec = bound(flops, nbytes(*tensors, got), BF16_PEAK)
+            print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products each), the "
+                  f"PyTorch chain in fp32 {library_ms:.3f} ms ({library_ms.span}) (max_rel_err "
+                  f"{lib_err:.3e} vs the plain version) [{card}]")
+            out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                             library_ms=library_ms)
+            hopper_chain_check(name, lambda: kern(*args, residual=True), card)
+
+        tok = l2norm(torch.randn((t * hw, d), generator=g, device="cuda"))
+        cb = vit.vq.state().embed.float().contiguous()
+        got, want = vq_nearest(tok, cb).long(), vq_nearest_plain(tok, cb).long()
+        one = vq_nearest_f32(tok, cb, one_pass=True).long()
+        torch.cuda.synchronize()
+        agree = (got == want).float().mean().item()
+        one_agree = (one == want).float().mean().item()
+        bad = (got != want).nonzero().flatten()
+        gap = 0.0
+        if bad.numel():
+            sims = tok[bad].double() @ cb.double().t()
+            gap = (sims.gather(1, got[bad, None]) - sims.gather(1, want[bad, None])).abs().max().item()
+        ms = cuda_ms(torch, lambda: vq_nearest(tok, cb))
+        plain_ms = cuda_ms(torch, lambda: vq_nearest_plain(tok, cb))
+        lib_agree = ((tok @ cb.t()).argmax(-1) == want).float().mean().item()
+        library_ms = library_time(torch, lambda: (tok @ cb.t()).argmax(-1))
+        rec = bound(3 * 2 * tok.shape[0] * cb.shape[0] * d, nbytes(tok, cb) + 4 * tok.shape[0],
+                    BF16_PEAK)
+        print(f"kernel vq_nearest_f32 fp32 {list(tok.shape)} x {list(cb.shape)}: {agree:.6f} of "
+              f"indices equal the plain version's (band {VQ_F32_AGREE}), {bad.numel()} "
+              f"mismatches, largest fp64 sim gap {gap:.3e} (band {VQ_F32_TIE}); control (one bf16 "
+              f"product, lo planes zeroed) {one_agree:.6f} equal; {ms:.3f} ms vs plain "
+              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms (three bf16 products), fp32 tok "
+              f"@ cb.t() + argmax {library_ms:.3f} ms ({library_ms.span}) ({lib_agree:.6f} of its "
+              f"indices equal) [{card}]")
+        if agree < VQ_F32_AGREE or gap > VQ_F32_TIE or not one_agree < VQ_F32_AGREE:
+            raise AssertionError(f"vq_nearest_f32: agreement {agree}, tie gap {gap}, control "
+                                 f"{one_agree}")
+        out["vq_nearest_f32"] = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms, **rec,
+                                     library_ms=library_ms)
+        hopper_chain_check("vq_nearest_f32", lambda: vq_nearest(tok, cb), card)
+    return out
+
+
+def peg_f32_check(torch, model, card: str) -> None:
+    """The fp32 PEG on the attribution path (F.conv3d through cuDNN, under
+    capture.full_fp32) against a float64 conv on the same input: not TF32.
+    The same conv with cuDNN's TF32 flag on is printed beside it (cuDNN
+    may or may not take TF32 for a depthwise conv)."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.attribution.capture import full_fp32
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.layers import peg_residual
+
+    vit = model.visual_transformer
+    t, h, w = token_grid_shape(vit.cfg, VOLUME)
+    d = vit.cfg.dim
+    peg = vit.enc_spatial_transformer.layers[0][0]
+    x = torch.randn((t, h * w, d), generator=torch.Generator(device="cuda").manual_seed(17),
+                    device="cuda")
+    with torch.no_grad():
+        v = x.double().reshape(1, t, h, w, d).permute(0, 4, 1, 2, 3)
+        ref = F.conv3d(F.pad(v, (1, 1, 1, 1, 2, 0)), peg.dsconv.weight.double(), groups=d)
+        ref = (ref + peg.dsconv.bias.double()[:, None, None, None] + v)
+        ref = ref.permute(0, 2, 3, 4, 1).reshape(x.shape)
+        with full_fp32():
+            got = peg_residual(peg.dsconv.weight, peg.dsconv.bias, x, (1, t, h, w), peg.causal)
+        flag = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = peg_residual(peg.dsconv.weight, peg.dsconv.bias, x, (1, t, h, w), peg.causal)
+        finally:
+            torch.backends.cudnn.allow_tf32 = flag
+    err, tf32_err = rel_err(got, ref), rel_err(tf32, ref)
+    print(f"attribution: fp32 peg_residual {list(x.shape)} under full_fp32 vs a float64 conv: "
+          f"max_rel_err {err:.3e} (band {PEG_F32_BAND}); with cuDNN's TF32 flag on "
+          f"{tf32_err:.3e} [{card}]")
+    if not err <= PEG_F32_BAND:
+        raise AssertionError(f"fp32 PEG: {err} from float64 (TF32?)")
+
+
+class VQRecorder:
+    """A context manager that records the indices of every vq_apply call a
+    sweep makes (patching the name the models call, in models.ctclip and
+    models.ctvit). Given `against`, an earlier recording of a sweep with
+    the same chunks, it also measures each token whose index differs: the
+    fp64 gap between the two codes' cosine sims with this sweep's VQ input
+    (a tie when small)."""
+
+    def __init__(self, torch, against=None):
+        self.torch, self.against = torch, against
+        self.ids, self.gaps = [], []
+
+    def __enter__(self):
+        import ct_clip_ut_tpu_torch.models.ctclip as mc
+        import ct_clip_ut_tpu_torch.models.ctvit as mv
+
+        self.mods, self.orig = (mc, mv), mc.vq_apply
+
+        def recorded(state, x, **kw):
+            out, idx, new = self.orig(state, x, **kw)
+            rows = idx.reshape(x.shape[0], -1)
+            if self.against is not None:
+                other = self.against.ids[len(self.ids)]
+                r, c = (rows != other).nonzero(as_tuple=True)
+                if r.numel():
+                    u = x[r, c].double()
+                    u = u / u.norm(dim=-1, keepdim=True)
+                    e = state.embed.double()
+                    self.gaps.append(((u * e[rows[r, c].long()]).sum(-1)
+                                      - (u * e[other[r, c].long()]).sum(-1)).abs().max().item())
+            self.ids.append(rows.clone())
+            return out, idx, new
+
+        for m in self.mods:
+            m.vq_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.vq_apply = self.orig
+
+    def flips(self):
+        """Tokens whose index differs from `against`'s, per forward (row)."""
+        return self.torch.cat([(a != b).sum(1) for a, b in
+                               zip(self.ids, self.against.ids)]).cpu().numpy()
+
+
+def attribution_phase(torch, card: str) -> tuple:
+    """Phase 10: the forward attribution methods in fp32 at flagship width
+    (`flagship_cfg()`, random weights from seed 0, the matmul patch embed
+    of `capture.parity_cfg`) on one [1, 1, 240, 480, 480] fp32 volume with
+    a 512-token stand-in prompt. Returns (kernel record, launch counts)."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.attribution import capture, occlusion, raw_attention, rollout
+    from ct_clip_ut_tpu_torch.config import OcclusionConfig, flagship_cfg
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
+    from ct_clip_ut_tpu_torch.models.ctclip import ctclip_apply, init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+
+    cfg = flagship_cfg()
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    record = f32_check(torch, model, card)
+    peg_f32_check(torch, model, card)
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    image = torch.randn((1, *VOLUME), generator=g, device="cuda")
+    prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), max_length=PROMPT_LEN,
+                               device="cuda")
+    prompt = {k: v[:1] for k, v in prompts.items()}
+    diff = torch.randn((cfg.dim_text,), generator=g, device="cuda")
+    occ = OcclusionConfig()
+    grid = occlusion.window_grid(VOLUME[1:], occ.patch_size, occ.stride)
+    coords = grid[:OCC_WINDOWS]
+    peak = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        peak[label] = torch.cuda.max_memory_allocated() / 1e9
+        return res, time.perf_counter() - t0
+
+    # the main path, counted: raw attention, rollout, two latents, the
+    # frame-sparse sweep in slabs (a ragged tail), the dense shortcut
+    launches.reset_launch_counts()
+    (sp, tm), raw_s = timed("raw attention", lambda: raw_attention.raw_attention_maps(
+        model, prompt, image))
+    raw_counts = launches.launch_counts()
+    (rsp, rtm), roll_s = timed("rollout", lambda: rollout.rollout_volumes(model, prompt, image))
+    t0 = time.perf_counter()
+    maps = [capture.upsample_to_host(v.cpu().numpy(), VOLUME[1:]) for v in (rsp, rtm)]
+    expand_s = time.perf_counter() - t0
+    latents = torch.stack([occlusion.report_text_latent(model, prompt),
+                           occlusion.diff_embedding_latent(model, diff)])
+    (orig, scores), occ_s = timed("occlusion", lambda: occlusion.occlusion_scores_slabbed(
+        model, image, latents, coords, occ=occ, chunk=OCC_CHUNK, slab=OCC_SLAB))
+    (orig_d, dense), dense_s = timed("dense shortcut", lambda: occlusion.occlusion_scores_multi(
+        model, image, latents, coords, occ=occ, chunk=OCC_CHUNK, frame_sparse=False))
+    counts = launches.launch_counts()
+    print(f"attribution: launches of the path {json.dumps({k: counts[k] for k in counts if counts[k]})};"
+          f" raw attention's alone {json.dumps({k: raw_counts[k] for k in raw_counts if raw_counts[k]})}")
+    missing = [k for k in ATTRIBUTION_KERNELS if counts[k] <= 0]
+    if missing or raw_counts["geglu_ff_f32"] <= 0 or raw_counts["vq_nearest_f32"] <= 0:
+        raise AssertionError(f"attribution path: kernels not launched {missing}, {raw_counts}")
+    ms_window = 1e3 * occ_s / OCC_WINDOWS
+    print(f"attribution: raw_attention_maps {raw_s:.3f} s a map set (peak {peak['raw attention']:.2f}"
+          f" GB); rollout {roll_s:.3f} s on the device + {expand_s:.3f} s host expansion a pair "
+          f"(peak {peak['rollout']:.2f} GB); occlusion frame-sparse, chunk {OCC_CHUNK}, "
+          f"{OCC_WINDOWS} windows in slabs of {OCC_SLAB}: {ms_window:.3f} ms a window, a full "
+          f"{FULL_SWEEP}-window sweep ~{FULL_SWEEP * ms_window / 1e3:.1f} s (peak "
+          f"{peak['occlusion']:.2f} GB); the dense shortcut {1e3 * dense_s / OCC_WINDOWS:.3f} ms "
+          f"a window (peak {peak['dense shortcut']:.2f} GB) (host clock, synchronised, first "
+          f"calls) [{card}]")
+
+    # the same against plain=True and a shifted sweep; the scores also
+    # against the dense shortcut. A window's score may move by ~1e-2 where
+    # one of its 13,824 VQ indices flips at a near-tie between the two
+    # paths (their inputs differ by fp32 rounding); the recorders count
+    # the flips of each forward and measure their ties.
+    psp, ptm = raw_attention.raw_attention_maps(model, prompt, image, plain=True)
+    prsp, prtm = rollout.rollout_volumes(model, prompt, image, plain=True)
+    pmaps = [capture.upsample_to_host(v.cpu().numpy(), VOLUME[1:]) for v in (prsp, prtm)]
+    map_errs = {"raw spatial": (sp - psp).abs().max().item(),
+                "raw temporal": (tm - ptm).abs().max().item(),
+                "rollout spatial": float(np.abs(maps[0] - pmaps[0]).max()),
+                "rollout temporal": float(np.abs(maps[1] - pmaps[1]).max())}
+    map_control = (sp[0] - sp[1]).abs().max().item()
+    print(f"attribution: maps vs plain=True, max abs error on [0, 1]-normalised volumes "
+          + ", ".join(f"{k} {v:.3e}" for k, v in map_errs.items())
+          + f" (band {MAP_BAND}); control (raw spatial layer 0 vs layer 1) {map_control:.3e}; "
+          f"shapes {list(sp.shape)}, {list(tm.shape)}, {list(maps[0].shape)}")
+    if not all(np.isfinite(m).all() for m in maps) or not torch.isfinite(sp).all():
+        raise AssertionError("non-finite maps")
+    if max(map_errs.values()) > MAP_BAND or not map_control > MAP_BAND:
+        raise AssertionError(f"maps: {map_errs}, control {map_control}")
+
+    def slabbed(coords, plain=False):
+        return occlusion.occlusion_scores_slabbed(model, image, latents, coords, occ=occ,
+                                                  chunk=OCC_CHUNK, slab=OCC_SLAB, plain=plain)
+
+    def multi(frame_sparse):
+        o, sc = occlusion.occlusion_scores_multi(model, image, latents, coords, occ=occ,
+                                                 chunk=OCC_CHUNK, frame_sparse=frame_sparse)
+        return o.double().cpu().numpy(), sc.double().cpu().numpy()
+
+    with VQRecorder(torch) as rec_k:
+        again = slabbed(coords)
+    with VQRecorder(torch, rec_k) as rec_p:
+        porig, pscores = slabbed(coords, plain=True)
+    with VQRecorder(torch) as rec_s:
+        _, sparse = multi(True)
+    with VQRecorder(torch, rec_s) as rec_d:
+        _, dense = multi(False)
+    _, shifted = slabbed(grid[1:OCC_WINDOWS + 1])
+    same = np.array_equal(again[1], scores) and np.array_equal(again[0], orig)
+    scale = np.abs(pscores).max()
+
+    def window_errs(a, b):
+        return np.abs(a - b).max(axis=1) / scale
+
+    # the windows' forwards in a slabbed sweep's: each slab's baseline, then its windows
+    slab_rows, row = [], 0
+    for lo in range(0, OCC_WINDOWS, OCC_SLAB):
+        n = min(OCC_SLAB, OCC_WINDOWS - lo)
+        slab_rows += range(row + 1, row + 1 + n)
+        row += 1 + n
+    checks = {"plain=True": (window_errs(scores, pscores), rec_p.flips()[slab_rows], rec_p.gaps),
+              "the dense shortcut": (window_errs(sparse, dense), rec_d.flips()[1:], rec_d.gaps)}
+    shift_errs = window_errs(shifted, scores)
+    orig_err = float(np.abs(orig - porig).max() / np.abs(porig).max())
+    print(f"attribution: occlusion scores {list(scores.shape)} (2 latents: a prompt's, a diff "
+          f"embedding's; range {scores.min():.4f} to {scores.max():.4f}, originals "
+          f"{np.round(orig, 5).tolist()}; a second sweep the same bits: {same}); a window's "
+          f"relative error (over the largest score): "
+          + "; ".join(f"vs {k}: max {e.max():.3e}, median {np.median(e):.3e}, "
+                      f"{(e <= OCC_BAND).mean():.4f} of windows within {OCC_BAND}, "
+                      f"{int((f > 0).sum())} windows with a VQ index flipped ({int(f.sum())} "
+                      f"tokens), the largest tie {max(gaps, default=0.0):.3e}, the largest "
+                      f"error of a window without one {e[f == 0].max(initial=0.0):.3e}"
+                      for k, (e, f, gaps) in checks.items())
+          + f"; control (a sweep shifted by one stride) max {shift_errs.max():.3e}, median "
+          f"{np.median(shift_errs):.3e}, {(shift_errs <= OCC_BAND).mean():.4f} within; originals "
+          f"vs plain=True {orig_err:.3e}")
+    if not np.isfinite(scores).all() or scores.shape != (OCC_WINDOWS, 2) or not same:
+        raise AssertionError(f"occlusion scores: shape {scores.shape}, same bits {same}")
+    for k, (e, f, gaps) in checks.items():
+        if e[f == 0].max(initial=0.0) > OCC_BAND or max(gaps, default=0.0) > VQ_F32_TIE:
+            raise AssertionError(f"occlusion scores vs {k}: a window without a VQ flip over "
+                                 f"{OCC_BAND}, or a flip at no tie ({max(gaps, default=0.0)})")
+    if not (shift_errs <= OCC_BAND).mean() < 0.5:
+        raise AssertionError("occlusion: the band passes a sweep shifted by one stride")
+
+    # an fp32 image through the conv patch embed is still refused on the card
+    try:
+        with torch.no_grad():
+            ctclip_apply(model, prompt, image)
+    except NotImplementedError as e:
+        print(f"attribution: an fp32 image with patch_embed_conv=True refused: {e}")
+    else:
+        raise AssertionError("an fp32 image with the conv patch embed ran on the card")
+    return record, counts
+
+
 def main() -> int:
     import torch
 
@@ -2267,12 +2713,16 @@ def main() -> int:
         train_counts = train_phase(torch, init_ctclip(cfg, seed=0, device="cuda"), card)
         torch.cuda.empty_cache()
         record["attn_qrows"], ctgen_counts = ctgenerate_phase(torch, card)
+        torch.cuda.empty_cache()
+        attribution_record, attribution_counts = attribution_phase(torch, card)
+        record.update(attribution_record)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     def run_of(name):
         return (train_counts if name in TRAIN_KERNELS else
+                attribution_counts if name in ATTRIBUTION_KERNELS else
                 ctgen_counts if name == "attn_qrows" else
                 int8_counts if name == "geglu_ff_int8" else
                 cosine_counts if name == "cosine_attention" else counts)

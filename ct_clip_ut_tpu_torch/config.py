@@ -247,6 +247,18 @@ class PreprocessConfig:
 
 
 @dataclass(frozen=True)
+class OcclusionConfig:
+    """Occlusion sensitivity sweep (ct_clip_ut_tpu/config.py:359-366): a
+    20 x 40 x 40 window at stride 10 x 20 x 20 filled with -1 (23^3 =
+    12,167 windows over a 240 x 480 x 480 volume)."""
+    patch_size: Tuple[int, int, int] = (20, 40, 40)
+    stride: Tuple[int, int, int] = (10, 20, 20)
+    threshold: float = 0.0
+    fill_value: float = -1.0
+    batch_size: int = 8  # masked forwards evaluated per device batch
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
     CTClipTrainer.py:38-59, optimizer.py). The port runs single-device,

@@ -28,12 +28,16 @@
 //                        for the backward passes;
 //   block_forward        the block's forward chain on the Hopper GEMM core
 //                        around that core: LN pass, QkvPlan + QkvEpi, the
-//                        core, the output projection (+ x).
+//                        core, the output projection (+ x);
+//   block_forward_f32    the same chain in fp32 (the fp32 variants of
+//                        attn_block and attn_packed): every product three
+//                        bf16 products of hi / lo planes (split_sm90.cuh),
+//                        the core with split P.V (F32).
 #pragma once
 
 #include <math_constants.h>
 
-#include "gemm_sm90.cuh"
+#include "split_sm90.cuh"
 
 namespace ctc {
 namespace tc {
@@ -51,7 +55,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Tiles of QkvPlan: q (which 0) and k (1) l2-normalised per 32-wide head in
 // registers (a head's columns of a row sit in one quad of 4 threads: two
 // shuffles give the norm), times q_scale * scale / k_scale, written as bf16
-// hi / lo planes; v (2) rounded to bf16. unit / norm (the backward's; null
+// hi / lo planes; v (2) rounded to bf16, or in the fp32 chain written as hi /
+// lo planes (v_lo given). unit / norm (the backward's; null
 // in the forward): the unscaled unit rows [2][M][HD] fp32 and the norms
 // max(||y||, 1e-12) [2][M][H] fp32 of q and k.
 struct QkvEpi {
@@ -63,6 +68,8 @@ struct QkvEpi {
   int M, HD, tiles;
   float* unit;
   float* norm;
+  bf16* v_lo = nullptr;  // the fp32 chain: v as hi (v) / lo (v_lo) planes
+  int keep_lo = 1;       // 0: every lo plane written as zeros (one-pass bf16 control)
   __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
     constexpr int BN = sm90::BN;
     const int g = lane >> 2, t = lane & 3;
@@ -74,9 +81,16 @@ struct QkvEpi {
         const int m = row + g + 8 * hf;
         if (m < M) {
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(v + (size_t)m * HD + n0 + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+          for (int j = 0; j < BN / 8; ++j) {
+            const size_t off = (size_t)m * HD + n0 + 8 * j + 2 * t;
+            const float y0 = acc[4 * j + 2 * hf], y1 = acc[4 * j + 2 * hf + 1];
+            const __nv_bfloat162 h2 = __floats2bfloat162_rn(y0, y1);
+            *reinterpret_cast<__nv_bfloat162*>(v + off) = h2;
+            if (v_lo != nullptr)
+              *reinterpret_cast<__nv_bfloat162*>(v_lo + off) =
+                  keep_lo ? __floats2bfloat162_rn(y0 - __low2float(h2), y1 - __high2float(h2))
+                          : __floats2bfloat162_rn(0.f, 0.f);
+          }
         }
       }
       return;
@@ -109,7 +123,8 @@ struct QkvEpi {
             const float y1 = u1 * (sc[d + 1] * mul);
             const __nv_bfloat162 h2 = __floats2bfloat162_rn(y0, y1);
             const __nv_bfloat162 l2 =
-                __floats2bfloat162_rn(y0 - __low2float(h2), y1 - __high2float(h2));
+                keep_lo ? __floats2bfloat162_rn(y0 - __low2float(h2), y1 - __high2float(h2))
+                        : __floats2bfloat162_rn(0.f, 0.f);
             const size_t off = (size_t)m * HD + n0 + 8 * j + 2 * t;
             *reinterpret_cast<__nv_bfloat162*>(hi + off) = h2;
             *reinterpret_cast<__nv_bfloat162*>(lo + off) = l2;
@@ -164,10 +179,10 @@ __host__ __device__ __forceinline__ int padded_keys(int n) { return (n + KC - 1)
 // working warps an SM holds).
 inline int core_threads(int n) { return 32 * (n >= QT ? CORE_WARPS : (n + 15) / 16); }
 
-// Shared memory of a slice's three staged planes (k_hi, k_lo, v, or their
-// backward counterparts) of m rows.
-__host__ __device__ __forceinline__ size_t core_smem_bytes(int m) {
-  return (size_t)padded_keys(m) * 3 * DH * 2;
+// Shared memory of a slice's staged planes of m rows: three (k_hi, k_lo, v,
+// or their backward counterparts), four in the fp32 core (v_hi, v_lo).
+__host__ __device__ __forceinline__ size_t core_smem_bytes(int m, int planes = 3) {
+  return (size_t)padded_keys(m) * planes * DH * 2;
 }
 
 // Start cp.async copies of rows [0, rows_pad) of NP planes (row j of plane p
@@ -270,25 +285,35 @@ __device__ __forceinline__ void bias_pair(float (&b)[4], const float* row_a, con
 // ---- the forward core ----------------------------------------------------------
 
 // One slice: query row i of q_hi / q_lo / o (and dO) at i * ld, key row j of
-// k_hi / k_lo / v at j * ld; bias [n][m] fp32 or null.
+// k_hi / k_lo / v at j * ld; bias [n][m] fp32 or null. The fp32 core also
+// reads v's lo plane and writes o's (keep_lo 0: p and o without lo planes).
 struct Slice {
   const bf16 *q_hi, *q_lo, *k_hi, *k_lo, *v;
   const float* bias;
   bf16* o;
   int64_t ld;
   int n, m;
+  const bf16* v_lo = nullptr;
+  bf16* o_lo = nullptr;
+  int keep_lo = 1;
 };
 
 // The block stages the slice's keys and values, then warp w takes query rows
 // q_tile + 16 w. STATS: stats[i] = (m log2 e, 1 / l, rowsum(dO_i o_i), 0)
-// with o rounded to bf16 (flash-attention's D, sum_j P dP).
-template <int BIAS, bool STATS>
+// with o rounded to bf16 (flash-attention's D, sum_j P dP). F32: the fp32
+// core, p and v not rounded: P.V as p_lo v_hi + p_hi v_lo + p_hi v_hi (p
+// split in registers, v's planes staged), o written as hi / lo planes.
+template <int BIAS, bool STATS, bool F32 = false>
 __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float4* stats,
                                               const bf16* dO) {
+  static_assert(!(STATS && F32), "the backward's statistics are the bf16 core's");
   extern __shared__ __align__(128) char smem[];
   const int n = sl.n, m = sl.m, m_pad = padded_keys(m);
   const uint32_t sbase = sm90::smem_u32(smem), pbytes = m_pad * DH * 2;
-  {
+  if constexpr (F32) {
+    const bf16* const src[4] = {sl.k_hi, sl.k_lo, sl.v, sl.v_lo};
+    stage_planes<4>(sbase, src, sl.ld, m, m_pad);
+  } else {
     const bf16* const src[3] = {sl.k_hi, sl.k_lo, sl.v};
     stage_planes<3>(sbase, src, sl.ld, m, m_pad);
   }
@@ -371,17 +396,55 @@ __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float
     chunk_scores(kc, s);
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t a[4];
+      if constexpr (F32) {
+        uint32_t ah[4], al[4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float* sj = s[2 * ks + u];
-        a[2 * u] = sm90::pack_bf16(exp2f(sj[0] * LOG2E - base_a) * inv_a,
-                                   exp2f(sj[1] * LOG2E - base_a) * inv_a);
-        a[2 * u + 1] = sm90::pack_bf16(exp2f(sj[2] * LOG2E - base_b) * inv_b,
-                                       exp2f(sj[3] * LOG2E - base_b) * inv_b);
+        for (int u = 0; u < 2; ++u) {
+          const float* sj = s[2 * ks + u];
+          __nv_bfloat162 hv, lv;
+          sm90::split2(exp2f(sj[0] * LOG2E - base_a) * inv_a,
+                       exp2f(sj[1] * LOG2E - base_a) * inv_a, sl.keep_lo, hv, lv);
+          ah[2 * u] = sm90::as_u32(hv);
+          al[2 * u] = sm90::as_u32(lv);
+          sm90::split2(exp2f(sj[2] * LOG2E - base_b) * inv_b,
+                       exp2f(sj[3] * LOG2E - base_b) * inv_b, sl.keep_lo, hv, lv);
+          ah[2 * u + 1] = sm90::as_u32(hv);
+          al[2 * u + 1] = sm90::as_u32(lv);
+        }
+        col_products(oacc, al, sbase + 2 * pbytes, kc + 16 * ks, lane);
+        col_products(oacc, ah, sbase + 3 * pbytes, kc + 16 * ks, lane);
+        col_products(oacc, ah, sbase + 2 * pbytes, kc + 16 * ks, lane);
+      } else {
+        uint32_t a[4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* sj = s[2 * ks + u];
+          a[2 * u] = sm90::pack_bf16(exp2f(sj[0] * LOG2E - base_a) * inv_a,
+                                     exp2f(sj[1] * LOG2E - base_a) * inv_a);
+          a[2 * u + 1] = sm90::pack_bf16(exp2f(sj[2] * LOG2E - base_b) * inv_b,
+                                         exp2f(sj[3] * LOG2E - base_b) * inv_b);
+        }
+        col_products(oacc, a, sbase + 2 * pbytes, kc + 16 * ks, lane);
       }
-      col_products(oacc, a, sbase + 2 * pbytes, kc + 16 * ks, lane);
     }
+  }
+  if constexpr (F32) {
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      const int col = 8 * dt + 2 * t;
+      __nv_bfloat162 hv, lv;
+      if (va) {
+        sm90::split2(oacc[dt][0], oacc[dt][1], sl.keep_lo, hv, lv);
+        *reinterpret_cast<__nv_bfloat162*>(sl.o + (int64_t)ra * sl.ld + col) = hv;
+        *reinterpret_cast<__nv_bfloat162*>(sl.o_lo + (int64_t)ra * sl.ld + col) = lv;
+      }
+      if (vb) {
+        sm90::split2(oacc[dt][2], oacc[dt][3], sl.keep_lo, hv, lv);
+        *reinterpret_cast<__nv_bfloat162*>(sl.o + (int64_t)rb * sl.ld + col) = hv;
+        *reinterpret_cast<__nv_bfloat162*>(sl.o_lo + (int64_t)rb * sl.ld + col) = lv;
+      }
+    }
+    return;
   }
   float d_a = 0.f, d_b = 0.f;
 #pragma unroll
@@ -419,43 +482,47 @@ __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float
 }
 
 // The core over the attention block's layout: qk [4][M][HD] (q_hi, q_lo,
-// k_hi, k_lo), v / o [M][HD], bias [H][n][n]; one block per (sequence r,
-// query tile, head h), sequence fastest, so the sequences that share a
-// (head, query tile) read the same bias rows from L2 side by side. STATS:
-// mld [R][H][n] and dO [M][HD] as in two_pass_core.
-template <int BIAS, bool STATS>
+// k_hi, k_lo), v / o [M][HD] ([2][M][HD], hi then lo, in the fp32 core),
+// bias [H][n][n]; one block per (sequence r, query tile, head h), sequence
+// fastest, so the sequences that share a (head, query tile) read the same
+// bias rows from L2 side by side. STATS: mld [R][H][n] and dO [M][HD] as in
+// two_pass_core.
+template <int BIAS, bool STATS, bool F32 = false>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 2)
 block_core_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
                   const float* __restrict__ bias, bf16* __restrict__ o, int M, int n, int HD,
-                  float4* __restrict__ mld, const bf16* __restrict__ dO) {
+                  float4* __restrict__ mld, const bf16* __restrict__ dO, int keep_lo) {
   const int r = blockIdx.x, h = blockIdx.z;
   const size_t plane = (size_t)M * HD;
   const int64_t off = (int64_t)r * n * HD + h * DH;
   const Slice sl{qk + off, qk + plane + off, qk + 2 * plane + off, qk + 3 * plane + off, v + off,
-                 BIAS ? bias + (int64_t)h * n * n : nullptr, o + off, HD, n, n};
-  two_pass_core<BIAS, STATS>(sl, blockIdx.y * QT,
-                             STATS ? mld + ((int64_t)r * gridDim.z + h) * n : nullptr,
-                             STATS ? dO + off : nullptr);
+                 BIAS ? bias + (int64_t)h * n * n : nullptr, o + off, HD, n, n,
+                 F32 ? v + plane + off : nullptr, F32 ? o + plane + off : nullptr, keep_lo};
+  two_pass_core<BIAS, STATS, F32>(sl, blockIdx.y * QT,
+                                  STATS ? mld + ((int64_t)r * gridDim.z + h) * n : nullptr,
+                                  STATS ? dO + off : nullptr);
 }
 
 // Launch block_core_kernel over R sequences of n tokens, H heads.
-template <bool STATS>
+template <bool STATS, bool F32 = false>
 inline int launch_block_core(const bf16* qk, const bf16* v, const float* bias, bf16* o, int R,
-                             int n, int H, float4* mld, const bf16* dO, cudaStream_t st) {
-  const int M = R * n, HD = H * DH, smem = (int)core_smem_bytes(n);
-  auto core = bias == nullptr ? block_core_kernel<0, STATS>
-              : (n % 2 == 0)  ? block_core_kernel<2, STATS>
-                              : block_core_kernel<1, STATS>;
+                             int n, int H, float4* mld, const bf16* dO, cudaStream_t st,
+                             int keep_lo = 1) {
+  const int M = R * n, HD = H * DH, smem = (int)core_smem_bytes(n, F32 ? 4 : 3);
+  auto core = bias == nullptr ? block_core_kernel<0, STATS, F32>
+              : (n % 2 == 0)  ? block_core_kernel<2, STATS, F32>
+                              : block_core_kernel<1, STATS, F32>;
   cudaFuncSetAttribute(core, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   dim3 grid(R, (n + QT - 1) / QT, H);
-  core<<<grid, core_threads(n), smem, st>>>(qk, v, bias, o, M, n, HD, mld, dO);
+  core<<<grid, core_threads(n), smem, st>>>(qk, v, bias, o, M, n, HD, mld, dO, keep_lo);
   return (int)cudaGetLastError();
 }
 
-// Largest key count whose three staged planes fit a block's shared memory.
-inline int core_max_keys() {
+// Largest key count whose staged planes (three, four in the fp32 core) fit
+// a block's shared memory.
+inline int core_max_keys(int planes = 3) {
   int m = KC;
-  while (core_smem_bytes(m + KC) <= 227 * 1024) m += KC;
+  while (core_smem_bytes(m + KC, planes) <= 227 * 1024) m += KC;
   return m;
 }
 
@@ -503,6 +570,69 @@ int block_forward(const void* x, const void* gamma, const void* wq, const void* 
                      ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
                                  residual},
                      (D + BN - 1) / BN, M, HD, st);
+}
+
+// The q, k and v projections of the fp32 chain as SplitPlan products: maps 0
+// xn_hi, 1 xn_lo, 2 x_hi, 3 x_lo, 4 the stacked weights' hi plane [3 HD, D]
+// (wq, wk, wv), 5 their lo plane; tiles [0, tiles) are q (from xn), then k,
+// then v (from x), each over three passes as SplitPlan's.
+struct QkvSplitPlan {
+  static constexpr int PASSES = 3;
+  int tiles;
+  __device__ sm90::TileSrc src(int nt, int pass) const {
+    const int which = nt / tiles, r = nt * sm90::BN;   // stacked weight rows
+    const int a = (which == 0 ? 0 : 2) + (pass == 1 ? 1 : 0), b = pass == 2 ? 5 : 4;
+    return {a, b, r, b, r + 64};
+  }
+};
+
+// The block's forward in fp32, the chain of the fp32 variants of
+// attn_block.cu / attn_packed.cu: every fp32 product as three bf16 products
+// of hi / lo planes (split_sm90.cuh). Launches: the weights' split pass
+// (wq | wk | wv stacked, wo); ln_split_kernel writing xn's and x's planes;
+// one QkvSplitPlan GEMM, QkvEpi writing q / k (l2-normed, scaled) and v as
+// hi / lo planes; the fp32 core (split scores, split P.V) writing o's
+// planes; a SplitPlan GEMM writing o Wo^T (+ x) in fp32. x [R*n, D] fp32 (D
+// a multiple of 8); gamma [D], qs / ks [32], wq / wk / wv [HD, D], wo [D, HD]
+// fp32; bias [H][n][n] fp32 or null; workspaces xs [4][R*n][D] (xn_hi,
+// xn_lo, x_hi, x_lo), w_s [2][3 HD][D], wo_s [2][D][HD], qk [4][R*n][HD],
+// v_ws / o_ws [2][R*n][HD] bf16; out [R*n, D] fp32. keep_lo 0 zeroes every
+// lo plane (the one-pass control).
+template <int Dummy = 0>
+int block_forward_f32(const float* x, const float* gamma, const float* wq, const float* wk,
+                      const float* wv, const float* wo, const float* qs, const float* ks,
+                      const float* bias, bf16* xs, bf16* w_s, bf16* wo_s, bf16* qk, bf16* v_ws,
+                      bf16* o_ws, float* out, int R, int n, int D, int H, float scale,
+                      int residual, int keep_lo, cudaStream_t st) {
+  using namespace sm90;
+  const int M = R * n, HD = H * DH, tiles = HD / BN;
+  const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz, mh = (int64_t)M * HD;
+  Maps proj{};
+  int err = map_a(&proj.m[0], xs, M, D, D);
+  if (!err) err = map_a(&proj.m[1], xs + md, M, D, D);
+  if (!err) err = map_a(&proj.m[2], xs + 2 * md, M, D, D);
+  if (!err) err = map_a(&proj.m[3], xs + 3 * md, M, D, D);
+  if (!err) err = map_b(&proj.m[4], w_s, 3 * HD, D, D);
+  if (!err) err = map_b(&proj.m[5], w_s + wrows, 3 * HD, D, D);
+  if (err) return err;
+  const float* const w3[3] = {wq, wk, wv};
+  for (int i = 0; i < 3 && !err; ++i)
+    err = split_to(w3[i], w_s + i * wsz, w_s + wrows + i * wsz, wsz, keep_lo, st);
+  if (!err) err = split(wo, wo_s, wsz, keep_lo, st);
+  if (!err)
+    err = launch_ln_split(x, gamma, nullptr, nullptr, xs, xs + md, xs + 2 * md, xs + 3 * md, M, D,
+                          1e-5f, keep_lo, st);
+  if (err) return err;
+  err = launch_gemm(proj, QkvSplitPlan{tiles},
+                    QkvEpi{qk, v_ws, qs, ks, scale, M, HD, tiles, nullptr, nullptr, v_ws + mh,
+                           keep_lo},
+                    3 * tiles, M, D, st);
+  if (err) return err;
+  err = launch_block_core<false, true>(qk, v_ws, bias, o_ws, R, n, H, nullptr, nullptr, st,
+                                       keep_lo);
+  if (err) return err;
+  return split_product(o_ws, o_ws + mh, HD, wo_s, wo_s + wsz, HD, M, D, HD,
+                       F32OutEpi{out, nullptr, residual ? x : nullptr, M, D}, st);
 }
 
 }  // namespace tc

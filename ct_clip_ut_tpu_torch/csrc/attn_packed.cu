@@ -17,7 +17,8 @@
 // (gemm_sm90.cuh) write q / k as bf16 hi / lo planes and v; the split-bf16
 // core (one block a sequence and head, one warp per 16 query rows: two at
 // n = 24, keys padded to 64 with zeros and masked to -inf) writes o; a
-// LinearPlan GEMM writes o Wo^T with the residual added in fp32.
+// LinearPlan GEMM writes o Wo^T with the residual added in fp32. The fp32
+// variant (ctc_attn_packed_f32) is tc::block_forward_f32 without the bias.
 #include "attn_mma.cuh"
 
 // The arguments of ctc_attn_block without the bias.
@@ -33,3 +34,17 @@ extern "C" int ctc_attn_packed(const void* x, const void* gamma, const void* wq,
 // Largest sequence length the core holds: its staged keys and values fit a
 // block's shared memory.
 extern "C" int ctc_attn_packed_max_n(void) { return ctc::tc::core_max_keys(); }
+
+// The fp32 variant: the arguments of ctc_attn_block_f32 without the bias.
+extern "C" int ctc_attn_packed_f32(const void* x, const void* gamma, const void* wq,
+                                   const void* wk, const void* wv, const void* wo, const void* qs,
+                                   const void* ks, void* xs, void* w_s, void* wo_s, void* qk,
+                                   void* v_ws, void* o_ws, void* out, int R, int n, int D, int H,
+                                   float scale, int residual, int flags, void* stream) {
+  using ctc::tc::bf16;
+  return ctc::tc::block_forward_f32(
+      (const float*)x, (const float*)gamma, (const float*)wq, (const float*)wk, (const float*)wv,
+      (const float*)wo, (const float*)qs, (const float*)ks, nullptr, (bf16*)xs, (bf16*)w_s,
+      (bf16*)wo_s, (bf16*)qk, (bf16*)v_ws, (bf16*)o_ws, (float*)out, R, n, D, H, scale, residual,
+      !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
+}

@@ -36,20 +36,26 @@
 //                             prompt of 6-14 tokens reads one chunk of 8;
 //                             ctx written as hi / lo planes
 //   gemm_kernel<SplitPlan>    r = ctx Wo^T + bo + x (fp32)
-//   ln_kernel                 y = LN1(r) in fp32 and as hi / lo planes
+//   ln_split_kernel           y = LN1(r) in fp32 and as hi / lo planes
 //   gemm_kernel<SplitPlan>    h = gelu(y W1^T + b1) as hi / lo planes (erff)
 //   gemm_kernel<SplitPlan>    r = h W2^T + b2 + y (fp32)
-//   ln_kernel                 out = LN2(r)
+//   ln_split_kernel           out = LN2(r)
 // flags: ONE_PASS writes every lo plane as zeros (one-pass bf16 products:
 // the control that shows the band needs the split); NO_SKIP walks every
-// key chunk (the skipped chunks' sums are the same bits).
+// key chunk (the skipped chunks' sums are the same bits). The split pass,
+// the LayerNorm rows and the fp32 output epilogue are split_sm90.cuh's.
 #include "attn_mma.cuh"
+#include "split_sm90.cuh"
 
 namespace ctc {
 namespace bert {
 
 using bf16 = __nv_bfloat16;
+using sm90::as_u32;
 using sm90::BN;
+using sm90::F32OutEpi;
+using sm90::split;
+using sm90::split2;
 using tc::cp_async16;
 using tc::ldsm_x4;
 using tc::ldsm_x4_t;
@@ -59,73 +65,6 @@ constexpr int ONE_PASS = 1, NO_SKIP = 2;
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
-}
-
-// (a, b) as a bf16 pair hi and the pair of what it leaves, lo (zeros
-// without keep_lo)
-__device__ __forceinline__ void split2(float a, float b, bool keep_lo, __nv_bfloat162& hi,
-                                       __nv_bfloat162& lo) {
-  hi = __floats2bfloat162_rn(a, b);
-  lo = keep_lo ? __floats2bfloat162_rn(a - __low2float(hi), b - __high2float(hi))
-               : __floats2bfloat162_rn(0.f, 0.f);
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---- the split pass and the LayerNorm rows ------------------------------------
-
-// hi / lo planes of n4 float4s of src
-__global__ void __launch_bounds__(256)
-split_kernel(const float4* __restrict__ src, bf16* __restrict__ hi, bf16* __restrict__ lo,
-             int64_t n4, int keep_lo) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const float4 v = src[i];
-    __nv_bfloat162 h0, l0, h1, l1;
-    split2(v.x, v.y, keep_lo, h0, l0);
-    split2(v.z, v.w, keep_lo, h1, l1);
-    reinterpret_cast<uint2*>(hi)[i] = make_uint2(as_u32(h0), as_u32(h1));
-    reinterpret_cast<uint2*>(lo)[i] = make_uint2(as_u32(l0), as_u32(l1));
-  }
-}
-
-// out = LN(r) * gamma + beta, one warp a row of D (a multiple of 4), the
-// moments in the one-pass form of pallas_bert_layer._ln_fwd; also as hi /
-// lo planes where `hi` is given.
-__global__ void __launch_bounds__(256)
-ln_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
-          const float* __restrict__ beta, float* __restrict__ out, bf16* __restrict__ hi,
-          bf16* __restrict__ lo, int M, int D, float eps, int keep_lo) {
-  const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (m >= M) return;
-  const float* row = r + (int64_t)m * D;
-  float s = 0.f, s2 = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(row + c);
-    s += (v.x + v.y) + (v.z + v.w);
-    s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
-  }
-  const float mean = sm90::warp_sum(s) / (float)D;
-  const float var = sm90::warp_sum(s2) / (float)D - mean * mean;
-  const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(row + c);
-    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
-    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
-    const float4 y = make_float4((v.x - mean) * rstd * gm.x + bt.x, (v.y - mean) * rstd * gm.y + bt.y,
-                                 (v.z - mean) * rstd * gm.z + bt.z, (v.w - mean) * rstd * gm.w + bt.w);
-    const int64_t off = (int64_t)m * D + c;
-    *reinterpret_cast<float4*>(out + off) = y;
-    if (hi != nullptr) {
-      __nv_bfloat162 h0, l0, h1, l1;
-      split2(y.x, y.y, keep_lo, h0, l0);
-      split2(y.z, y.w, keep_lo, h1, l1);
-      *reinterpret_cast<uint2*>(hi + off) = make_uint2(as_u32(h0), as_u32(h1));
-      *reinterpret_cast<uint2*>(lo + off) = make_uint2(as_u32(l0), as_u32(l1));
-    }
-  }
 }
 
 // ---- epilogues of the products (registers in the wgmma D layout) ------------
@@ -158,32 +97,6 @@ struct SplitEpi {
         const int64_t off = (int64_t)m * N + c;
         *reinterpret_cast<__nv_bfloat162*>(hi + off) = hv;
         *reinterpret_cast<__nv_bfloat162*>(lo + off) = lv;
-      }
-    }
-  }
-};
-
-// out [M, N] fp32 = (acc + bias) + res; N even
-struct ResidualF32Epi {
-  float* out;
-  const float* bias;
-  const float* res;
-  int M, N;
-  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = row + g + 8 * h;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = nt * BN + 8 * j + 2 * t;
-        if (c >= N) continue;
-        const int64_t off = (int64_t)m * N + c;
-        const float2 bv = *reinterpret_cast<const float2*>(bias + c);
-        const float2 rv = *reinterpret_cast<const float2*>(res + off);
-        *reinterpret_cast<float2*>(out + off) =
-            make_float2((acc[4 * j + 2 * h] + bv.x) + rv.x, (acc[4 * j + 2 * h + 1] + bv.y) + rv.y);
       }
     }
   }
@@ -389,26 +302,12 @@ attn_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
 
 // ---- host side ------------------------------------------------------------------
 
-inline int split(const void* src, bf16* planes, int64_t count, int keep_lo, cudaStream_t st) {
-  const int64_t n4 = count / 4;
-  const int64_t want = (n4 + 255) / 256;
-  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
-  split_kernel<<<blocks, 256, 0, st>>>(static_cast<const float4*>(src), planes, planes + count,
-                                       n4, keep_lo);
-  return (int)cudaGetLastError();
-}
-
 // The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo).
 template <class Epi>
 inline int product(const bf16* a, const bf16* b, int M, int N, int K, const Epi& epi,
                    cudaStream_t st) {
-  sm90::Maps maps{};
-  int err = sm90::map_a(&maps.m[0], a, M, K, K);
-  if (!err) err = sm90::map_a(&maps.m[1], a + (int64_t)M * K, M, K, K);
-  if (!err) err = sm90::map_b(&maps.m[2], b, N, K, K);
-  if (!err) err = sm90::map_b(&maps.m[3], b + (int64_t)N * K, N, K, K);
-  if (err) return err;
-  return sm90::launch_gemm(maps, sm90::SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+  return sm90::split_product(a, a + (int64_t)M * K, K, b, b + (int64_t)N * K, K, M, N, K, epi,
+                             st);
 }
 
 }  // namespace bert
@@ -455,20 +354,17 @@ extern "C" int ctc_bert_layer(const void* x, const void* mask, const void* wqkv,
                                                  flags);
   err = (int)cudaGetLastError();
   if (!err)
-    err = product(ctxs, wos, M, D, D, ResidualF32Epi{r, (const float*)bo, (const float*)x, M, D},
+    err = product(ctxs, wos, M, D, D, F32OutEpi{r, (const float*)bo, (const float*)x, M, D},
                   st);
   if (err) return err;
-  const int ln_blocks = (M + 7) / 8;
-  ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g1, (const float*)be1, y, ys, ys + md, M,
-                                       D, eps, keep);
-  err = (int)cudaGetLastError();
+  err = ctc::sm90::launch_ln_split(r, (const float*)g1, (const float*)be1, y, ys, ys + md,
+                                   nullptr, nullptr, M, D, eps, keep, st);
   if (!err)
     err = product(ys, w1s, M, F, D,
                   SplitEpi<true>{hs, hs + (int64_t)M * F, (const float*)b1, M, F, keep}, st);
   if (!err)
-    err = product(hs, w2s, M, D, F, ResidualF32Epi{r, (const float*)b2, y, M, D}, st);
+    err = product(hs, w2s, M, D, F, F32OutEpi{r, (const float*)b2, y, M, D}, st);
   if (err) return err;
-  ln_kernel<<<ln_blocks, 256, 0, st>>>(r, (const float*)g2, (const float*)be2, (float*)out,
-                                       nullptr, nullptr, M, D, eps, keep);
-  return (int)cudaGetLastError();
+  return ctc::sm90::launch_ln_split(r, (const float*)g2, (const float*)be2, (float*)out,
+                                    nullptr, nullptr, nullptr, nullptr, M, D, eps, keep, st);
 }

@@ -69,7 +69,7 @@ constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_HALF_BYTES = 64 * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF_BYTES;
 constexpr int SMEM = STAGES * STAGE_BYTES + 1024;   // + slack to align the ring to 1 KB
-constexpr int MAX_MAPS = 5;
+constexpr int MAX_MAPS = 6;
 
 struct Maps {
   CUtensorMap m[MAX_MAPS];

@@ -1,0 +1,178 @@
+// fp32 products on the bf16 tensor cores: the split-bf16 pieces of the fp32
+// chains (the fp32 BERT layer, bert_layer.cu; the fp32 variants of geglu_ff,
+// vq_nearest, attn_block and attn_packed).
+//
+// An fp32 value a is carried as a bf16 pair hi = bf16(a), lo = bf16(a - hi);
+// a product a . b is taken as a_hi b_hi + a_lo b_hi + a_hi b_lo with fp32
+// sums (SplitPlan of gemm_sm90.cuh, three K passes into one accumulator),
+// within ~2^-16 of the fp32 product: each bf16 x bf16 product is exact in
+// fp32 and the lo . lo term left out is ~2^-16 relative. One bf16 product
+// errs by ~2^-8, which misses the fp32 bands (~1e-3 on a layer). Every
+// piece takes keep_lo: 0 writes its lo planes as zeros, the one-pass bf16
+// control that shows a band needs the split.
+//
+//   split_kernel     hi / lo planes of an fp32 array (weights per call, VQ
+//                    tokens and codes)
+//   ln_split_kernel  LN(x) * gamma (+ beta) of fp32 rows in the one-pass
+//                    E[x^2] - E[x]^2 form, written in fp32 and / or as hi /
+//                    lo planes, and x's own planes where asked for (the
+//                    attention block reads k and v from the pre-norm x)
+//   F32OutEpi        out [M, N] fp32 = acc (+ bias) (+ res), the products
+//                    that end a chain (the residual added in fp32)
+//   split_product    the SplitPlan GEMM of two operands' planes
+#pragma once
+
+#include "gemm_sm90.cuh"
+
+namespace ctc {
+namespace sm90 {
+
+// (a, b) as a bf16 pair hi and the pair of what it leaves, lo (zeros
+// without keep_lo)
+__device__ __forceinline__ void split2(float a, float b, bool keep_lo, __nv_bfloat162& hi,
+                                       __nv_bfloat162& lo) {
+  hi = __floats2bfloat162_rn(a, b);
+  lo = keep_lo ? __floats2bfloat162_rn(a - __low2float(hi), b - __high2float(hi))
+               : __floats2bfloat162_rn(0.f, 0.f);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four floats' hi / lo planes at hi + off, lo + off (8-B stores)
+__device__ __forceinline__ void store_split4(float4 y, bool keep_lo, bf16* hi, bf16* lo,
+                                             int64_t off) {
+  __nv_bfloat162 h0, l0, h1, l1;
+  split2(y.x, y.y, keep_lo, h0, l0);
+  split2(y.z, y.w, keep_lo, h1, l1);
+  *reinterpret_cast<uint2*>(hi + off) = make_uint2(as_u32(h0), as_u32(h1));
+  *reinterpret_cast<uint2*>(lo + off) = make_uint2(as_u32(l0), as_u32(l1));
+}
+
+// hi / lo planes of n4 float4s of src
+template <int Dummy = 0>
+__global__ void __launch_bounds__(256)
+split_kernel(const float4* __restrict__ src, bf16* __restrict__ hi, bf16* __restrict__ lo,
+             int64_t n4, int keep_lo) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x)
+    store_split4(src[i], keep_lo, hi, lo, 4 * i);
+}
+
+// One warp a row of r [M, D] (D a multiple of 4): y = LN(r) * gamma (+ beta),
+// the moments in the one-pass form of the TPU kernels' LayerNorm; y to out
+// (fp32) and / or as hi / lo planes where those are given; r's own planes
+// to rhi / rlo where given.
+template <int Dummy = 0>
+__global__ void __launch_bounds__(256)
+ln_split_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
+                const float* __restrict__ beta, float* __restrict__ out, bf16* __restrict__ hi,
+                bf16* __restrict__ lo, bf16* __restrict__ rhi, bf16* __restrict__ rlo, int M, int D,
+                float eps, int keep_lo) {
+  const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const float* row = r + (int64_t)m * D;
+  float s = 0.f, s2 = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    s += (v.x + v.y) + (v.z + v.w);
+    s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+  }
+  const float mean = warp_sum(s) / (float)D;
+  const float var = warp_sum(s2) / (float)D - mean * mean;
+  const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    float4 y = make_float4((v.x - mean) * rstd * gm.x, (v.y - mean) * rstd * gm.y,
+                           (v.z - mean) * rstd * gm.z, (v.w - mean) * rstd * gm.w);
+    if (beta != nullptr) {
+      const float4 bt = *reinterpret_cast<const float4*>(beta + c);
+      y = make_float4(y.x + bt.x, y.y + bt.y, y.z + bt.z, y.w + bt.w);
+    }
+    const int64_t off = (int64_t)m * D + c;
+    if (out != nullptr) *reinterpret_cast<float4*>(out + off) = y;
+    if (hi != nullptr) store_split4(y, keep_lo, hi, lo, off);
+    if (rhi != nullptr) store_split4(v, keep_lo, rhi, rlo, off);
+  }
+}
+
+// out [M, N] fp32 = acc (+ bias [N]) (+ res [M, N]); N even
+struct F32OutEpi {
+  float* out;
+  const float* bias;
+  const float* res;
+  int M, N;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= N) continue;
+        const int64_t off = (int64_t)m * N + c;
+        float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+        if (bias != nullptr) {
+          const float2 bv = *reinterpret_cast<const float2*>(bias + c);
+          y0 += bv.x;
+          y1 += bv.y;
+        }
+        if (res != nullptr) {
+          const float2 rv = *reinterpret_cast<const float2*>(res + off);
+          y0 += rv.x;
+          y1 += rv.y;
+        }
+        *reinterpret_cast<float2*>(out + off) = make_float2(y0, y1);
+      }
+    }
+  }
+};
+
+// ---- host side ----------------------------------------------------------------
+
+// hi / lo planes of `count` floats of src (count a multiple of 4, src 16-B aligned)
+inline int split_to(const void* src, bf16* hi, bf16* lo, int64_t count, int keep_lo,
+                    cudaStream_t st) {
+  const int64_t n4 = count / 4;
+  const int64_t want = (n4 + 255) / 256;
+  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
+  if (blocks == 0) return 0;
+  split_kernel<><<<blocks, 256, 0, st>>>(static_cast<const float4*>(src), hi, lo, n4, keep_lo);
+  return (int)cudaGetLastError();
+}
+
+// the same into planes [2][count] (hi, then lo)
+inline int split(const void* src, bf16* planes, int64_t count, int keep_lo, cudaStream_t st) {
+  return split_to(src, planes, planes + count, count, keep_lo, st);
+}
+
+inline int launch_ln_split(const float* r, const float* gamma, const float* beta, float* out,
+                           bf16* hi, bf16* lo, bf16* rhi, bf16* rlo, int M, int D, float eps,
+                           int keep_lo, cudaStream_t st) {
+  ln_split_kernel<><<<(M + 7) / 8, 256, 0, st>>>(r, gamma, beta, out, hi, lo, rhi, rlo, M, D, eps,
+                                                 keep_lo);
+  return (int)cudaGetLastError();
+}
+
+// The SplitPlan product of A's planes (hi, lo: [M, K], row stride lda) and
+// B's ([N, K], row stride ldb), every pointer 16-B aligned, strides
+// multiples of 8.
+template <class Epi>
+inline int split_product(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                         const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                         cudaStream_t st) {
+  Maps maps{};
+  int err = map_a(&maps.m[0], a_hi, M, K, lda);
+  if (!err) err = map_a(&maps.m[1], a_lo, M, K, lda);
+  if (!err) err = map_b(&maps.m[2], b_hi, N, K, ldb);
+  if (!err) err = map_b(&maps.m[3], b_lo, N, K, ldb);
+  if (err) return err;
+  return launch_gemm(maps, SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+}
+
+}  // namespace sm90
+}  // namespace ctc

@@ -26,9 +26,15 @@
 // above the inverted column), so a row with a NaN sim, a diverged one,
 // gets its first NaN; a row of -inf gets index 0.
 // A second launch turns the keys into int32 indices.
+//
+// The fp32 variant (ctc_vq_nearest_f32: the TPU kernel on fp32 tokens and
+// codes) splits both into hi / lo bf16 planes (split_sm90.cuh) and runs the
+// product as SplitPlan's three bf16 passes into the same ArgmaxEpi, sims
+// within ~2^-16 of fp32; the planes cost 4 B an element of each operand,
+// written once a call. Its bound: three times the bf16 operations.
 #include <math_constants.h>
 
-#include "gemm_sm90.cuh"
+#include "split_sm90.cuh"
 
 namespace ctc {
 namespace vq {
@@ -114,6 +120,30 @@ extern "C" int ctc_vq_nearest(const void* tok, const void* cb, void* best, void*
   if (err) return err;
   err = launch_gemm(maps, LinearPlan{}, ctc::vq::ArgmaxEpi{keys, M, C}, (C + BN - 1) / BN, M, D,
                     st);
+  if (err) return err;
+  ctc::vq::finish_kernel<<<(M + 255) / 256, 256, 0, st>>>(keys, static_cast<int*>(idx), M);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 variant: tok [M, D] and cb [C, D] fp32 (D a multiple of 8,
+// pointers 16-B aligned); workspaces tok_s [2][M][D] and cb_s [2][C][D]
+// bf16, best [M] u64; idx [M] int32. flags 1: lo planes zeroed (one bf16
+// product, the control).
+extern "C" int ctc_vq_nearest_f32(const void* tok, const void* cb, void* tok_s, void* cb_s,
+                                  void* best, void* idx, int M, int C, int D, int flags,
+                                  void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (M == 0) return 0;
+  const int keep = !(flags & 1);
+  const int64_t md = (int64_t)M * D, cd = (int64_t)C * D;
+  bf16 *ts = static_cast<bf16*>(tok_s), *cs = static_cast<bf16*>(cb_s);
+  auto* keys = static_cast<ctc::vq::u64*>(best);
+  int err = split(tok, ts, md, keep, st);
+  if (!err) err = split(cb, cs, cd, keep, st);
+  if (!err) err = (int)cudaMemsetAsync(keys, 0, (size_t)M * sizeof(ctc::vq::u64), st);
+  if (!err)
+    err = split_product(ts, ts + md, D, cs, cs + cd, D, M, C, D, ctc::vq::ArgmaxEpi{keys, M, C},
+                        st);
   if (err) return err;
   ctc::vq::finish_kernel<<<(M + 255) / 256, 256, 0, st>>>(keys, static_cast<int*>(idx), M);
   return (int)cudaGetLastError();

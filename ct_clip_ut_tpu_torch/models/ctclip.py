@@ -1,7 +1,9 @@
 """CTCLIP: BERT text tower + CT-ViT image tower, l2-normalised latents.
 
-Counterpart of ct_clip_ut_tpu/models/ctclip.py: the latents, the full
-forward `ctclip_apply` (sim matrix scaled by exp(temperature)) and the
+Counterpart of ct_clip_ut_tpu/models/ctclip.py: the latents (from a
+volume, from an embedded token grid, from the spatial stack's output), the
+full forward `ctclip_apply` (sim matrix scaled by exp(temperature), the
+text latents from tokens or from precomputed embeddings) and the
 symmetric InfoNCE `contrastive_loss` the train step minimises. Submodule
 names follow the reference state dict (text_transformer, visual_transformer,
 to_text_latent, to_visual_latent, temperature).
@@ -20,10 +22,9 @@ from .. import _build
 from ..config import CTCLIPConfig
 from ..ops.attention import Attention
 from ..ops.layers import FrozenBiasLayerNorm, l2norm, linear
-from ..ops.vq import _Codebook
+from ..ops.vq import VQState, _Codebook, vq_apply
 from .bert import Bert, bert_cls
-from ..ops.vq import VQState
-from .ctvit import CTViT, ctvit_apply
+from .ctvit import CTViT, ctvit_apply, ctvit_encode_tokens, ctvit_temporal_encode
 
 
 class CTCLIP(nn.Module):
@@ -122,10 +123,43 @@ def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool 
     vit_out = ctvit_apply(model.visual_transformer, image, freeze_vq=freeze_vq,
                           return_weights=return_weights, taps=taps,
                           deterministic=deterministic, plain=plain)
-    tokens = vit_out.tokens
+    return _image_latents_of(model, vit_out.tokens), vit_out
+
+
+def _image_latents_of(model: CTCLIP, tokens: torch.Tensor) -> torch.Tensor:
+    """Quantized [b, t, h, w, d] tokens -> fp32 temporal mean (cast back) ->
+    flatten -> project -> l2norm."""
     pooled = tokens.float().mean(dim=1).to(tokens.dtype)
-    latents = linear(pooled.reshape(pooled.shape[0], -1), model.to_visual_latent.weight)
-    return l2norm(latents), vit_out
+    return l2norm(linear(pooled.reshape(pooled.shape[0], -1), model.to_visual_latent.weight))
+
+
+def encode_image_latents_from_tokens(model: CTCLIP, token_grid: torch.Tensor, *,
+                                     freeze_vq: bool = True, return_weights: bool = False,
+                                     plain: bool = False):
+    """The image half from an embedded [b, t, h, w, d] token grid (the patch
+    embed's output): transformer encode -> VQ -> the latents of
+    `encode_image_latents` (ctclip.py:86-105). Occlusion's token shortcut
+    and the attribution suite's scored forward call it. Returns (latents,
+    CTViTOutput)."""
+    vit_out = ctvit_encode_tokens(model.visual_transformer, token_grid, freeze_vq=freeze_vq,
+                                  return_weights=return_weights, plain=plain)
+    return _image_latents_of(model, vit_out.tokens), vit_out
+
+
+def encode_image_latents_from_spatial_out(model: CTCLIP, spatial_out: torch.Tensor, *,
+                                          freeze_vq: bool = True,
+                                          plain: bool = False) -> torch.Tensor:
+    """The image half from the spatial stack's output grid [b, t, h, w, d]
+    (after its norm_out): temporal transformer -> VQ -> the latents
+    (ctclip.py:108-126). Occlusion's frame-sparse recompute calls it.
+    Returns [b, dim_latent] latents."""
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    x, _ = ctvit_temporal_encode(vit, spatial_out, plain=plain)
+    b, t, h, w, d = x.shape
+    quant, _, _ = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d), freeze=freeze_vq,
+                           decay=cfg.vq_decay, eps=cfg.vq_eps, plain=plain)
+    return _image_latents_of(model, quant.reshape(b, t, h, w, d))
 
 
 def encode_text_latents(model: CTCLIP, text_tokens: dict,
@@ -139,6 +173,20 @@ def encode_text_latents(model: CTCLIP, text_tokens: dict,
                    compute_dtype=compute_dtype, plain=plain, generator=generator,
                    deterministic=deterministic)
     return l2norm(linear(cls, model.to_text_latent.weight))
+
+
+def text_latents_of(model: CTCLIP, text_tokens: Optional[dict],
+                    text_embeds: Optional[torch.Tensor] = None,
+                    compute_dtype: torch.dtype = torch.float32, plain: bool = False, *,
+                    generator: Optional[torch.Generator] = None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """The text latents from tokens (`encode_text_latents`) or, with
+    text_tokens None, from CLS-level embeddings [b, dim_text]:
+    l2norm(text_embeds W^T) (the bypass, ctclip.py:167-172)."""
+    if text_tokens is not None:
+        return encode_text_latents(model, text_tokens, compute_dtype, plain,
+                                   generator=generator, deterministic=deterministic)
+    return l2norm(linear(text_embeds, model.to_text_latent.weight))
 
 
 class CTCLIPOutput(NamedTuple):
@@ -161,18 +209,15 @@ def ctclip_apply(model: CTCLIP, text_tokens: dict, image: torch.Tensor, *,
     """Full forward (ctclip.py:144-197): text latents in the image's dtype,
     image latents, sim = image_latents @ text_latents^T * exp(temperature)
     in fp32. `generator` draws the text tower's dropout masks when
-    deterministic=False."""
-    if text_embeds is not None or text_tokens is None:
-        raise NotImplementedError(
-            "the precomputed text-embedding bypass is not ported yet "
-            "(ROADMAP, Queue 1 item 9: attribution / occlusion)")
+    deterministic=False. With text_tokens None, `text_embeds` [b, dim_text]
+    (CLS-level embeddings, e.g. occlusion's pathology diff embeddings) give
+    the text latents l2norm(text_embeds W^T) (ctclip.py:167-172)."""
     if gather_axis is not None:
         raise NotImplementedError(
             "the gradient-carrying all-gather of latents is not ported yet "
             "(ROADMAP, Queue 1 item 11: parallel)")
-    text_latents = encode_text_latents(model, text_tokens, compute_dtype=image.dtype,
-                                       plain=plain, generator=generator,
-                                       deterministic=deterministic)
+    text_latents = text_latents_of(model, text_tokens, text_embeds, image.dtype, plain,
+                                   generator=generator, deterministic=deterministic)
     image_latents, vit_out = encode_image_latents(
         model, image, freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
         deterministic=deterministic, plain=plain)

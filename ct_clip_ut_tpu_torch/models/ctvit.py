@@ -152,13 +152,37 @@ def token_grid_shape(cfg: CTViTConfig, image_shape) -> tuple:
     return (t, H // cfg.patch_size, W // cfg.patch_size)
 
 
-def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool) -> None:
+def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool,
+                      conv: bool = True) -> None:
     """Raise for an image the card's image-tower kernels do not take: on a
-    CUDA device (`device_type` "cuda") without plain=True, bf16 only."""
-    if device_type == "cuda" and not plain and dtype != torch.bfloat16:
+    CUDA device (`device_type` "cuda") without plain=True, bf16, or fp32
+    with the matmul patch embed (`conv` False: the fp32 variants of the
+    block, FF and VQ kernels; the attribution suite's configuration)."""
+    if device_type != "cuda" or plain or dtype == torch.bfloat16:
+        return
+    if dtype != torch.float32:
+        raise NotImplementedError(f"a {dtype} image on the card: the CT-ViT kernels take "
+                                  "bfloat16 or float32")
+    if conv:
         raise NotImplementedError(
-            f"a {dtype} image on the card: the CT-ViT kernels take bf16 only (ROADMAP Queue 2 "
-            "item 14: fp32 variants of the ported kernels); cast the image to bfloat16")
+            "an fp32 image on the card with the conv patch embed: the patch_embed kernel takes "
+            "bf16 only (ROADMAP Queue 2 item 14, third group: its fp32 variant); use "
+            "patch_embed_conv=False, the matmul embed, or cast the image to bfloat16")
+
+
+def ctvit_encode_tokens(vit: CTViT, tokens: torch.Tensor, *, freeze_vq: bool = True,
+                        return_weights: bool = False, plain: bool = False) -> CTViTOutput:
+    """Transformer encode + VQ of an embedded [b, t, h, w, d] token grid
+    (ctvit.py:299-322, `_ctvit_encode_tokens`)."""
+    cfg = vit.cfg
+    x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
+    b, t, h, w, d = x.shape
+    quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),
+                                 freeze=freeze_vq, decay=cfg.vq_decay, eps=cfg.vq_eps,
+                                 plain=plain)
+    return CTViTOutput(tokens=quant.reshape(b, t, h, w, d),
+                       codebook_ids=idx.reshape(b, t, h, w),
+                       spatial_attn=sp_w, temporal_attn=tm_w, vq_state=state)
 
 
 def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
@@ -168,13 +192,14 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
     caller writes it back). CT-ViT dropout is not ported: its rates are 0
     in every configuration the JAX package ships, and a train-mode call
-    with a rate above 0 raises. On the card the image must be bf16
-    (`check_image_dtype`)."""
+    with a rate above 0 raises. On the card the image must be bf16, or fp32
+    with the matmul patch embed (`check_image_dtype`)."""
     cfg = vit.cfg
-    check_image_dtype(image.dtype, image.device.type, plain)
+    check_image_dtype(image.dtype, image.device.type, plain, cfg.patch_embed_conv)
     if taps is not None:
         raise NotImplementedError(
-            "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9: attribution)")
+            "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9 (c): the "
+            "gradient attribution methods)")
     if not deterministic and (cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0):
         raise NotImplementedError(
             "CT-ViT attention / FF dropout is not ported (the kernels take no dropout); "
@@ -193,11 +218,5 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
                            dim=1)
     else:
         tokens = embed(vit.to_patch_emb, image, cfg.temporal_patch_size)
-    x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
-    b, t, h, w, d = x.shape
-    quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),
-                                 freeze=freeze_vq, decay=cfg.vq_decay, eps=cfg.vq_eps,
-                                 plain=plain)
-    return CTViTOutput(tokens=quant.reshape(b, t, h, w, d),
-                       codebook_ids=idx.reshape(b, t, h, w),
-                       spatial_attn=sp_w, temporal_attn=tm_w, vq_state=state)
+    return ctvit_encode_tokens(vit, tokens, freeze_vq=freeze_vq, return_weights=return_weights,
+                               plain=plain)

@@ -13,8 +13,8 @@ block, over the dense [heads, n, n] CPB table while heads * n^2 * 4 bytes
 stay under 2 GiB (the JAX rule, whatever the dtype), else over row stripes
 built per block. The table rides in the compute dtype there (the TPU
 kernel's kv variant rounds it so). On the card the stack runs in bf16:
-the geglu_ff and attn_qrows kernels take nothing else, so an fp32 MaskGit
-on a CUDA tensor raises; plain=True runs every kernel's plain version, in
+the attn_qrows kernel takes nothing else (geglu_ff has an fp32 variant),
+so an fp32 MaskGit on a CUDA tensor raises; plain=True runs every kernel's plain version, in
 any dtype, on any device.
 """
 
@@ -118,8 +118,8 @@ def maskgit_apply(mg: MaskGit, ct_codebook_ids: torch.Tensor, context: torch.Ten
         x, context = x.to(dt), context.to(dt)
     if _build.on_cuda(x) and not plain and x.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"MaskGit in {x.dtype} on the card: the geglu_ff and attn_qrows kernels take bf16 "
-            "only (ROADMAP Queue 2 item 14: fp32 variants); pass compute_dtype='bfloat16'")
+            f"MaskGit in {x.dtype} on the card: the attn_qrows kernel takes bf16 only (ROADMAP "
+            "Queue 2 item 14, third group: its fp32 variant); pass compute_dtype='bfloat16'")
 
     if precomputed_bias is not None:
         attn_bias, bias_fn = precomputed_bias

@@ -3,8 +3,9 @@
 Replaces ct_clip_ut_tpu/ops/pallas_attn_block.py:attention_block_fused (the
 CT-ViT spatial stack). The CUDA chain is `csrc/attn_block.cu`; its header
 says what bounds it on the H100 and what the design does about it.
-`attn_block` launches it for CUDA tensors and takes the plain version for
-CPU tensors.
+`attn_block` launches it for CUDA tensors (bf16; fp32 tensors take its fp32
+variant, every product three bf16 products of hi / lo planes) and takes the
+plain version for CPU tensors.
 
 `attn_block_plain` is the block in plain PyTorch with the TPU kernel's
 rounding points (pallas_attn_block.py:51-101): LN without bias (one-pass
@@ -70,8 +71,10 @@ def attn_block_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
     return out.to(dt)
 
 
-def check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n: int) -> tuple:
-    """Validate the block kernels' arguments; returns (R, n, D, heads)."""
+def check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n: int,
+                     dtype=torch.bfloat16) -> tuple:
+    """Validate the block kernels' arguments (x and the weights in `dtype`:
+    bf16, or fp32 for the fp32 variants); returns (R, n, D, heads)."""
     r, n, d = x.shape
     hd = wq.shape[0]
     heads = hd // DIM_HEAD
@@ -85,15 +88,15 @@ def check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, max_n: int) -> tuple:
         raise ValueError(f"the attention kernels take a width that 8 divides (16-B TMA rows), "
                          f"got {d}")
     dev = x.device
-    for t, name, dtype, shape in ((x, "x", torch.bfloat16, (r, n, d)),
-                                  (gamma, "gamma", torch.float32, (d,)),
-                                  (wq, "wq", torch.bfloat16, (hd, d)),
-                                  (wk, "wk", torch.bfloat16, (hd, d)),
-                                  (wv, "wv", torch.bfloat16, (hd, d)),
-                                  (wo, "wo", torch.bfloat16, (d, hd)),
-                                  (qs, "q_scale", torch.float32, (DIM_HEAD,)),
-                                  (ks, "k_scale", torch.float32, (DIM_HEAD,))):
-        _build.require(t, name, dtype, shape, dev)
+    for t, name, dt, shape in ((x, "x", dtype, (r, n, d)),
+                               (gamma, "gamma", torch.float32, (d,)),
+                               (wq, "wq", dtype, (hd, d)),
+                               (wk, "wk", dtype, (hd, d)),
+                               (wv, "wv", dtype, (hd, d)),
+                               (wo, "wo", dtype, (d, hd)),
+                               (qs, "q_scale", torch.float32, (DIM_HEAD,)),
+                               (ks, "k_scale", torch.float32, (DIM_HEAD,))):
+        _build.require(t, name, dt, shape, dev)
     return r, n, d, heads
 
 
@@ -122,17 +125,49 @@ def launch_block(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: floa
     return out
 
 
+def launch_block_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: float,
+                     residual: bool, one_pass: bool = False) -> torch.Tensor:
+    """Run the fp32 forward chain `entry` (ctc_attn_block_f32 with a bias,
+    ctc_attn_packed_f32 with None) on CUDA tensors: the one place that knows
+    their workspaces (xn's and x's hi / lo planes; the weights' planes, wq |
+    wk | wv stacked; q and k, v, o as hi / lo planes). one_pass zeroes every
+    lo plane (the control)."""
+    lib = _build.load()
+    r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
+                                      lib.ctc_attn_f32_max_n(), torch.float32)
+    if bias is not None:
+        _build.require(bias, "bias", torch.float32, (heads, n, n), x.device)
+    m, hd = r * n, heads * DIM_HEAD
+    x, gamma, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, gamma, wq, wk, wv, wo))
+    b16 = dict(dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((4, m, d), **b16), torch.empty((2, 3 * hd, d), **b16),
+          torch.empty((2, d, hd), **b16), torch.empty((4, m, hd), **b16),
+          torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16))
+    out = torch.empty_like(x)
+    ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else [])
+    err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in ws),
+                              out.data_ptr(), r, n, d, heads, float(scale), int(residual),
+                              int(one_pass), _build.stream_of(x))
+    _build.check(err, entry)
+    return out
+
+
 def attn_block(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
                scale: float = 8.0, residual: bool = False) -> torch.Tensor:
     """The attn_block kernel on CUDA tensors (bf16 x and weights, a width
-    that 8 divides; fp32 gamma, scales and bias [h, n, n]), the plain
-    version on CPU tensors."""
+    that 8 divides; fp32 gamma, scales and bias [h, n, n]; fp32 x and
+    weights take the fp32 variant), the plain version on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_block_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
     if bias is None:
         raise ValueError("attn_block takes a bias [h, n, n]; attn_packed is the block without")
+    if x.dtype == torch.float32:
+        out = launch_block_f32("ctc_attn_block_f32", x, gamma, wq, wk, wv, wo, qs, ks, bias,
+                               scale, residual)
+        launches.count("attn_block_f32")
+        return out
     out = launch_block("ctc_attn_block", x, gamma, wq, wk, wv, wo, qs, ks, bias, scale,
                        residual)
     launches.count("attn_block")
@@ -222,6 +257,10 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
     ctc_attn_packed_bwd when bias is None) on CUDA tensors; returns the
     gradients of attn_block_bwd_plain, in fp32 but dx. The one place that
     knows the entries' workspaces."""
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            "the fp32 attention-block backward on the card is not ported yet (ROADMAP Queue 2 "
+            "item 14, second group: the gradient attribution methods)")
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, lib.ctc_attn_bwd_max_n())
     dev = x.device

@@ -4,7 +4,8 @@ Replaces ct_clip_ut_tpu/ops/pallas_attn_packed.py:attention_block_packed
 (the CT-ViT temporal stack, n = 24). The CUDA chain is
 `csrc/attn_packed.cu`, the spatial block's chain without the bias (LN
 pass, q / k / v on the Hopper GEMM core, the split-bf16 core, the output
-projection; `attn_block.launch_block` allocates its workspaces); its
+projection; `attn_block.launch_block` allocates its workspaces, and
+`launch_block_f32` those of its fp32 variant); its
 header says what bounds it on the H100 and what the design does about it.
 The TPU kernel's (token, head) packing is a Mosaic artefact, so the plain
 version is the block itself with no bias: the same math and rounding
@@ -23,7 +24,8 @@ import torch
 
 from .. import _build
 from . import launches
-from .attn_block import attn_block_bwd_plain, attn_block_plain, launch_attn_bwd, launch_block
+from .attn_block import (attn_block_bwd_plain, attn_block_plain, launch_attn_bwd, launch_block,
+                         launch_block_f32)
 
 
 def attn_packed_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -38,9 +40,15 @@ def attn_packed(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                 wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                 qs: torch.Tensor, ks: torch.Tensor, scale: float = 8.0,
                 residual: bool = False) -> torch.Tensor:
-    """The attn_packed kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The attn_packed kernel on CUDA tensors (bf16; fp32 tensors take its
+    fp32 variant), the plain version on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_packed_plain(x, gamma, wq, wk, wv, wo, qs, ks, scale, residual)
+    if x.dtype == torch.float32:
+        out = launch_block_f32("ctc_attn_packed_f32", x, gamma, wq, wk, wv, wo, qs, ks, None,
+                               scale, residual)
+        launches.count("attn_packed_f32")
+        return out
     out = launch_block("ctc_attn_packed", x, gamma, wq, wk, wv, wo, qs, ks, None, scale,
                        residual)
     launches.count("attn_packed")

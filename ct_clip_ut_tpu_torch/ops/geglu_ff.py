@@ -2,8 +2,10 @@
 
 Replaces ct_clip_ut_tpu/ops/pallas_ff.py:geglu_ff_fused. The CUDA chain is
 `csrc/geglu_ff.cu`; its header says what bounds it on the H100 and what the
-design does about it. `geglu_ff` launches it for CUDA tensors and takes the
-plain version for CPU tensors; `geglu_ff_plain` is the same function in
+design does about it. `geglu_ff` launches it for CUDA tensors (bf16, or the
+fp32 variant `geglu_ff_f32` for fp32 tensors: three bf16 products of hi /
+lo planes for each fp32 product) and takes the plain version for CPU
+tensors; `geglu_ff_plain` is the same function in
 plain PyTorch, with the TPU kernel's rounding points: LN (one-pass moments)
 rounded to the compute dtype, value and gate in fp32, h rounded before the
 second projection, the residual added in fp32.
@@ -66,9 +68,12 @@ def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              w_in: torch.Tensor, w_out: torch.Tensor,
              residual: bool = False) -> torch.Tensor:
     """The geglu_ff kernel on CUDA tensors (bf16 x and weights, fp32
-    gamma/beta, a width that 8 divides), the plain version on CPU tensors."""
+    gamma/beta, a width that 8 divides; fp32 x and weights take the fp32
+    variant, `geglu_ff_f32`), the plain version on CPU tensors."""
     if not _build.on_cuda(x):
         return geglu_ff_plain(x, gamma, beta, w_in, w_out, residual)
+    if x.dtype == torch.float32:
+        return geglu_ff_f32(x, gamma, beta, w_in, w_out, residual)
     n, d = x.shape
     inner = w_out.shape[1]
     dev = x.device
@@ -91,6 +96,43 @@ def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         _build.stream_of(x))
     _build.check(err, "geglu_ff")
     launches.count("geglu_ff")
+    return out
+
+
+def geglu_ff_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 w_in: torch.Tensor, w_out: torch.Tensor, residual: bool = False, *,
+                 one_pass: bool = False) -> torch.Tensor:
+    """The fp32 variant of the geglu_ff kernel (`ctc_geglu_ff_f32`: every
+    product as three bf16 products of hi / lo planes) on CUDA tensors: fp32
+    x, gamma, beta and weights, a width that 8 divides. one_pass=True zeroes
+    every lo plane (one bf16 product each: the control that shows the fp32
+    band needs the split); it does not count as a launch of the path."""
+    n, d = x.shape
+    inner = w_out.shape[1]
+    dev = x.device
+    f32 = torch.float32
+    for t, name, shape in ((x, "x", (n, d)), (gamma, "gamma", (d,)), (beta, "beta", (d,)),
+                           (w_in, "w_in", (2 * inner, d)), (w_out, "w_out", (d, inner))):
+        _build.require(t, name, f32, shape, dev)
+    if d % 8:
+        raise ValueError(f"the geglu_ff kernels take a width that 8 divides, got {d}")
+    ld = _build.tma_pitch(inner)            # 16-B rows of the bf16 planes of h and w_out
+    w2 = w_out
+    if ld != inner:
+        w2 = w_out.new_zeros((d, ld))
+        w2[:, :inner] = w_out
+    x, gamma, beta, w_in, w2 = (_build.aligned16(t) for t in (x, gamma, beta, w_in, w2))
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    work = (torch.empty((2, n, d), **b16), torch.empty((2, 2 * inner, d), **b16),
+            torch.empty((2, d, ld), **b16), torch.empty((2, n, ld), **b16))
+    out = torch.empty_like(x)
+    err = _build.load().ctc_geglu_ff_f32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_in.data_ptr(), w2.data_ptr(),
+        *(w.data_ptr() for w in work), out.data_ptr(), n, d, inner, ld, ld, int(residual),
+        int(one_pass), _build.stream_of(x))
+    _build.check(err, "geglu_ff_f32")
+    if not one_pass:
+        launches.count("geglu_ff_f32")
     return out
 
 
@@ -147,6 +189,10 @@ def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     types; g bf16 like x), the plain backward on CPU tensors."""
     if not _build.on_cuda(x):
         return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            "the fp32 geglu_ff backward on the card is not ported yet (ROADMAP Queue 2 item 14, "
+            "second group: the gradient attribution methods)")
     n, d = x.shape
     inner = w_out.shape[1]
     dev = x.device

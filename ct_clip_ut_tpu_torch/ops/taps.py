@@ -9,9 +9,12 @@ callers (MaskGit's last cross-attention, the attribution suite) are written
 against.
 
 The port's transformer has one tap point per layer i so far,
-{i}.cross_attn_weights; the JAX package's other points (block outputs
-before the residual, self-attention weights, scope prefixes) come with the
-attribution suite that reads them.
+{i}.cross_attn_weights. The forward attribution methods (`attribution/`:
+raw attention, rollout, occlusion) read the self-attention weights as the
+transformer's outputs (return_weights) and need no tap; the JAX package's
+other points (block outputs before the residual with the `spatial.` /
+`temporal.` scope prefixes, vq.features and vq.input) come with the
+gradient methods that inject at them (ROADMAP Queue 1 item 9 (c)).
 """
 
 from __future__ import annotations

@@ -1328,3 +1328,86 @@ def test_attn_qrows_core_blocks_on_card(cuda_device, b, n, bias):
     tb = args[8] if bias else None
     got = attn_qrows(*args[:8], tb, 8.0, True)
     assert _rel_err(got, attn_qrows_plain(*args[:8], tb, 8.0, True)) <= 1.5e-2
+
+
+# ---- the fp32 variants (the attribution suite's image tower) -----------------------
+
+F32_BAND = 1e-4   # max relative error of an fp32 variant vs its plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("r,n,bias", [(24, 576, True), (3, 100, True), (4608, 24, False),
+                                      (5, 7, False)])
+def test_fp32_attention_blocks_match_plain_on_card(cuda_device, r, n, bias, residual):
+    """The fp32 chain (tc::block_forward_f32) at the spatial shape, a ragged
+    one, the temporal stack of one volume and an odd one: within F32_BAND
+    of the plain version in fp32, where the same chain with its lo planes
+    zeroed (one bf16 product for each fp32 one) and the plain version
+    without the LN gain or q_scale are not."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import launch_block_f32
+
+    a = _attn_inputs(np.random.default_rng(61), r=r, n=n, d=512, heads=8, dh=32, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    b = torch.from_numpy(a["bias"]).to(cuda_device) if bias else None
+    kern = attn_block if bias else attn_packed
+    name = "attn_block_f32" if bias else "attn_packed_f32"
+    launches.reset_launch_counts()
+    got = kern(*args, *([b] if bias else []), 8.0, residual)
+    assert launches.launch_counts()[name] == 1 and got.dtype == torch.float32
+    want = attn_block_plain(*args, b, 8.0, residual)
+    assert _rel_err(got, want) <= F32_BAND
+    if not residual:
+        entry = "ctc_attn_block_f32" if bias else "ctc_attn_packed_f32"
+        one = launch_block_f32(entry, *args, b, 8.0, False, one_pass=True)
+        assert _rel_err(one, want) > F32_BAND
+        for i in (1, 6):
+            wrong = list(args)
+            wrong[i] = torch.ones_like(args[i])
+            assert _rel_err(got, attn_block_plain(*wrong, b, 8.0, False)) > F32_BAND, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,residual", [(13824, False), (13824, True), (77, False)])
+def test_fp32_geglu_ff_matches_plain_on_card(cuda_device, n, residual):
+    """The fp32 FF (three bf16 products of hi / lo planes a product, inner
+    1365 with w_out padded per call) within F32_BAND; the one-pass chain
+    and the plain version without the LN gain or bias outside it."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_f32
+
+    args = [t.to(cuda_device) for t in _torch_ff_args(_ff_inputs(np.random.default_rng(62),
+                                                                  n=n, dim=512))]
+    launches.reset_launch_counts()
+    got = geglu_ff(*args, residual=residual)
+    assert launches.launch_counts()["geglu_ff_f32"] == 1 and got.dtype == torch.float32
+    want = geglu_ff_plain(*args, residual=residual)
+    assert _rel_err(got, want) <= F32_BAND
+    if not residual:
+        assert _rel_err(geglu_ff_f32(*args, one_pass=True), want) > F32_BAND
+        for i, neutral in ((1, torch.ones_like), (2, torch.zeros_like)):
+            wrong = list(args)
+            wrong[i] = neutral(args[i])
+            assert _rel_err(got, geglu_ff_plain(*wrong, residual=False)) > F32_BAND, i
+
+
+@pytest.mark.cuda
+def test_fp32_vq_nearest_matches_plain_on_card(cuda_device):
+    """fp32 tokens [13824, 512] x 8192 codes: >= 99.99% of the indices equal
+    the plain version's, every mismatch a tie within 1e-5 of cosine; the
+    one-pass chain below that share."""
+    from ct_clip_ut_tpu_torch.ops.vq_nearest import vq_nearest_f32
+
+    rng = np.random.default_rng(63)
+    tok = torch.from_numpy(_unit_rows(rng, (13824, 512))).to(cuda_device)
+    cb = torch.from_numpy(_unit_rows(rng, (8192, 512))).to(cuda_device)
+    launches.reset_launch_counts()
+    got = vq_nearest(tok, cb).long()
+    assert launches.launch_counts()["vq_nearest_f32"] == 1
+    want = vq_nearest_plain(tok, cb).long()
+    bad = (got != want).nonzero().flatten()
+    assert 1 - bad.numel() / got.numel() >= 0.9999
+    if bad.numel():
+        sims = tok[bad] @ cb.t()
+        assert (sims.gather(1, got[bad, None]) - sims.gather(1, want[bad, None])).abs().max() <= 1e-5
+    one = vq_nearest_f32(tok, cb, one_pass=True).long()
+    assert (one == want).float().mean().item() < 0.9999

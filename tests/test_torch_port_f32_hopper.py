@@ -1,0 +1,275 @@
+"""What the CPU can check of the fp32 variants of the block, FF and VQ
+kernels (`ctc_attn_block_f32` / `ctc_attn_packed_f32` on
+tc::block_forward_f32, `ctc_geglu_ff_f32`, `ctc_vq_nearest_f32`).
+
+The kernels run only on the card (chip_smoke.py phase 10 holds them against
+their plain versions there). Here each chain is emulated in torch plane by
+plane, as tests/test_torch_port_split.py does for the fp32 BERT layer:
+every fp32 product as three bf16 products of hi / lo planes (hi = bf16(a),
+lo = bf16(a - hi); a_hi b_hi + a_lo b_hi + a_hi b_lo in fp32), the planes
+written where the kernels write them (xn and x; the weights; q and k
+l2-normed and scaled; v; p in registers; o; h), LayerNorm in one-pass
+moments. The emulations are held against the JAX package's XLA twins and
+its Pallas kernels in interpret mode, both at fp32: the attention blocks
+and the FF within 2e-5 (tests/test_pallas.py:592's band), the VQ
+indices equal, even on tokens built as near-ties of two codes (a sim gap
+of ~1e-4). The one-pass control (every lo plane zero, one bf16 product for
+each fp32 one) misses each band. Last, the wrappers' routing by dtype,
+through a stand-in for the kernel library: fp32 CUDA tensors reach the
+fp32 entries with their workspaces, fp16 ones are refused.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ct_clip_ut_tpu.ops.pallas_attn_block import _xla_reference_block, attention_block_fused
+from ct_clip_ut_tpu.ops.pallas_attn_packed import attention_block_packed, packed_attention_xla
+from ct_clip_ut_tpu.ops.pallas_ff import _xla_reference, geglu_ff_fused
+from ct_clip_ut_tpu.ops.pallas_vq import vq_nearest_pallas
+from ct_clip_ut_tpu_torch import _build
+from ct_clip_ut_tpu_torch.models import ctvit as tctvit
+from ct_clip_ut_tpu_torch.ops import attn_block, attn_packed, geglu_ff, launches, vq_nearest
+
+from test_torch_port_cuda import _attn_inputs, _ff_inputs, _torch_attn_args, _torch_ff_args
+
+ATTN_TOL = 2e-5        # atol and rtol, tests/test_pallas.py:592
+# atol and rtol: three bf16 passes keep ~2^-16 of each product, and the FF's
+# two products read up to 1.04e-5 of the output's largest value here
+FF_TOL = 2e-5
+SCALE = 8.0
+
+
+def _split(t, one_pass=False):
+    """The hi / lo planes a kernel writes, as fp32 tensors."""
+    hi = t.to(torch.bfloat16).float()
+    lo = torch.zeros_like(t) if one_pass else (t - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def _product(a, b):
+    """a . b^T of planes a [.., m, k] and b [.., n, k]: SplitPlan's three
+    passes (A_hi B_hi, A_lo B_hi, A_hi B_lo) into one fp32 sum."""
+    (ah, al), (bh, bl) = a, b
+
+    def t(x):
+        return x.transpose(-1, -2)
+
+    return ah @ t(bh) + al @ t(bh) + ah @ t(bl)
+
+
+def _ln_planes(x, gamma, beta, one_pass):
+    """ln_split_kernel: one-pass moments, xn = LN(x) * gamma (+ beta) as planes."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (x - mean) * torch.rsqrt(var + 1e-5) * gamma
+    return _split(y if beta is None else y + beta, one_pass)
+
+
+def emulated_geglu_ff_f32(x, gamma, beta, w_in, w_out, residual=False, one_pass=False):
+    """ctc_geglu_ff_f32: the weights' split pass, xn's planes,
+    GegluSplitPlan with h = gelu(gate) * value written as planes, SplitPlan
+    over h and W2 with the residual added in fp32."""
+    inner = w_out.shape[1]
+    xn = _ln_planes(x, gamma, beta, one_pass)
+    vg = _product(xn, _split(w_in, one_pass))
+    value, gate = vg[:, :inner], vg[:, inner:]
+    h = 0.5 * gate * (1.0 + torch.erf(gate * 0.7071067811865476)) * value
+    out = _product(_split(h, one_pass), _split(w_out, one_pass))
+    return out + x if residual else out
+
+
+def emulated_vq_f32(tok, cb, one_pass=False):
+    """ctc_vq_nearest_f32: both operands split, SplitPlan into the argmax
+    epilogue (the first maximum wins)."""
+    return torch.argmax(_product(_split(tok, one_pass), _split(cb, one_pass)), dim=-1)
+
+
+def emulated_block_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual=False,
+                       one_pass=False):
+    """tc::block_forward_f32: ln_split_kernel (xn's and x's planes),
+    QkvSplitPlan with QkvEpi (q, k l2-normed per head and scaled, v, all as
+    planes), the fp32 core (split scores; two passes: the row max and sum,
+    then p = exp(s - m) / l split in registers and P.V as p_lo v_hi + p_hi
+    v_lo + p_hi v_hi; o as planes), SplitPlan over o and Wo (+ x)."""
+    r, n, d = x.shape
+    dh = qs.shape[0]
+    heads = wq.shape[0] // dh
+    xn, xs = _ln_planes(x, gamma, None, one_pass), _split(x, one_pass)
+
+    def heads_of(t):
+        return t.reshape(r, n, heads, dh).transpose(1, 2)
+
+    def unit(t, s):
+        return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12) * s
+
+    q = unit(heads_of(_product(xn, _split(wq, one_pass))), qs * scale)
+    k = unit(heads_of(_product(xs, _split(wk, one_pass))), ks)
+    v = heads_of(_product(xs, _split(wv, one_pass)))
+    s = _product(_split(q, one_pass), _split(k, one_pass))
+    if bias is not None:
+        s = s + bias
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(-1, keepdim=True)
+    o = _product(_split(p, one_pass), [t.transpose(-1, -2) for t in _split(v, one_pass)])
+    o = o.transpose(1, 2).reshape(r, n, heads * dh)
+    out = _product(_split(o, one_pass), _split(wo, one_pass))
+    return out + x if residual else out
+
+
+def _missed(got, want, tol) -> float:
+    """The largest |got - want| beyond atol = rtol = tol (0 inside the band)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) - tol * (1 + np.abs(want))).max())
+
+
+# ---- the attention blocks ------------------------------------------------------
+
+@pytest.mark.parametrize("r,n,with_bias,residual", [(3, 40, True, False), (2, 64, True, True),
+                                                    (4, 24, False, False), (6, 7, False, True)])
+def test_block_f32_chain_matches_the_jax_twin_and_kernel(r, n, with_bias, residual):
+    a = _attn_inputs(np.random.default_rng(n + r), r, n, 64, 4, 32, with_bias)
+    args = _torch_attn_args(a)
+    bias = torch.from_numpy(a["bias"]) if with_bias else None
+    got = emulated_block_f32(*args, bias, SCALE, residual).numpy()
+    control = emulated_block_f32(*args, bias, SCALE, residual, one_pass=True).numpy()
+    j = {k: jnp.asarray(v) for k, v in a.items() if v is not None}
+    jargs = (j["x"], j["gamma"], j["wq"], j["wk"], j["wv"], j["wo"], j["qs"], j["ks"])
+    if with_bias:
+        twin = _xla_reference_block(*jargs, j["bias"], SCALE, residual)
+        kernel = attention_block_fused(*jargs, j["bias"], SCALE, True, residual)
+    else:
+        twin = packed_attention_xla(*jargs, SCALE, residual)
+        kernel = attention_block_packed(*jargs, SCALE, True, residual)
+    plain = attn_block.attn_block_plain(*args, bias, SCALE, residual).numpy()
+    for want in (twin, kernel, plain):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATTN_TOL, rtol=ATTN_TOL)
+        assert _missed(control, want, ATTN_TOL) > 0
+
+
+# ---- the FF --------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,dim,residual", [(20, 64, False), (77, 64, True), (33, 128, False)])
+def test_geglu_ff_f32_chain_matches_the_jax_twin_and_kernel(n, dim, residual):
+    a = _ff_inputs(np.random.default_rng(n), n, dim)
+    args = _torch_ff_args(a)
+    got = emulated_geglu_ff_f32(*args, residual).numpy()
+    control = emulated_geglu_ff_f32(*args, residual, one_pass=True).numpy()
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    jargs = (j["x"], j["gamma"], j["beta"], j["wv"], j["wg"], j["w2"])
+    twin = _xla_reference(*jargs, residual)
+    kernel = geglu_ff_fused(*jargs, True, residual)
+    plain = geglu_ff.geglu_ff_plain(*args, residual).numpy()
+    for want in (twin, kernel, plain):
+        np.testing.assert_allclose(got, np.asarray(want), atol=FF_TOL, rtol=FF_TOL)
+        assert _missed(control, want, FF_TOL) > 0
+
+
+# ---- the VQ --------------------------------------------------------------------
+
+def _near_tie_tokens(rng, m, c, d):
+    """Unit codes, and unit tokens: half random, half halfway between two
+    codes nudged toward one (sims ~1e-4 apart)."""
+    def unit(t):
+        return t / np.linalg.norm(t, axis=-1, keepdims=True)
+
+    cb = unit(rng.standard_normal((c, d))).astype(np.float32)
+    tok = unit(rng.standard_normal((m, d)))
+    i, j = rng.integers(0, c, m // 2), rng.integers(0, c, m // 2)
+    tok[: m // 2] = unit(cb[i] * (1 + 2e-4) + cb[j])
+    return unit(tok).astype(np.float32), cb
+
+
+def test_vq_nearest_f32_indices_equal_the_jax_twin_and_kernel():
+    tok, cb = _near_tie_tokens(np.random.default_rng(5), 400, 512, 64)
+    got = emulated_vq_f32(torch.from_numpy(tok), torch.from_numpy(cb)).numpy()
+    control = emulated_vq_f32(torch.from_numpy(tok), torch.from_numpy(cb), one_pass=True).numpy()
+    twin = np.asarray(jnp.argmax(jnp.asarray(tok) @ jnp.asarray(cb).T, axis=-1))
+    kernel = np.asarray(vq_nearest_pallas(jnp.asarray(tok), jnp.asarray(cb), tm=8, tc=256,
+                                          interpret=True))
+    plain = vq_nearest.vq_nearest_plain(torch.from_numpy(tok), torch.from_numpy(cb)).numpy()
+    for want in (twin, kernel, plain):
+        np.testing.assert_array_equal(got, want)
+        assert (control != want).sum() > 0
+
+
+# ---- the wrappers' routing by dtype, through a stand-in library ----------------
+
+class FakeLib:
+    """Records each C entry called with its arguments; returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name.endswith("max_n"):
+            return lambda: 896
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    lib = FakeLib()
+    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    launches.reset_launch_counts()
+    yield lib
+    launches.reset_launch_counts()
+
+
+@pytest.mark.parametrize("kernel", ["geglu_ff", "vq_nearest", "attn_block", "attn_packed"])
+def test_fp32_tensors_reach_the_fp32_entries_and_fp16_is_refused(fake_card, kernel):
+    rng = np.random.default_rng(0)
+    if kernel == "geglu_ff":
+        args = _torch_ff_args(_ff_inputs(rng, 20, 64))
+        call = geglu_ff.geglu_ff
+        want_ints = (20, 64, 170, 176, 176, 0, 0)     # n, d, inner, ldh, ldw, residual, flags
+    elif kernel == "vq_nearest":
+        args = (torch.randn(10, 64), torch.randn(30, 64))
+        call = vq_nearest.vq_nearest
+        want_ints = (10, 30, 64, 0)
+    else:
+        a = _attn_inputs(rng, 2, 24, 64, 4, 32, kernel == "attn_block")
+        args = _torch_attn_args(a) + ((torch.from_numpy(a["bias"]),) if a["bias"] is not None
+                                      else ())
+        call = getattr(attn_block if kernel == "attn_block" else attn_packed, kernel)
+        want_ints = (2, 24, 64, 4, SCALE, 0, 0)       # R, n, D, H, scale, residual, flags
+    call(*args)
+    assert [c[0] for c in fake_card.calls] == [f"ctc_{kernel}_f32"]
+    assert fake_card.calls[0][1][-1 - len(want_ints):-1] == want_ints
+    assert launches.launch_counts()[f"{kernel}_f32"] == 1
+    assert launches.launch_counts()[kernel] == 0
+    half = [t.half() if t.dtype == torch.float32 and t.dim() > 1 else t for t in args]
+    with pytest.raises(TypeError, match="dtype"):
+        call(*half)
+
+
+def test_the_fp32_backwards_raise_on_the_card(fake_card):
+    a = _attn_inputs(np.random.default_rng(1), 2, 24, 64, 4, 32, True)
+    args = _torch_attn_args(a)
+    g = torch.zeros_like(args[0])
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, second group"):
+        attn_block.attn_block_bwd(*args, torch.from_numpy(a["bias"]), g)
+    ff = _torch_ff_args(_ff_inputs(np.random.default_rng(2)))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, second group"):
+        geglu_ff.geglu_ff_bwd(*ff, torch.zeros_like(ff[0]))
+    assert fake_card.calls == []
+
+
+def test_image_dtype_gate():
+    """On the card: bf16 always; fp32 with the matmul patch embed (the
+    attribution suite's), not with the conv embed (the fp32 patch_embed is
+    Queue 2 item 14's third group); fp16 never."""
+    tctvit.check_image_dtype(torch.float32, "cuda", plain=False, conv=False)
+    tctvit.check_image_dtype(torch.bfloat16, "cuda", plain=False, conv=True)
+    with pytest.raises(NotImplementedError, match="item 14, third group"):
+        tctvit.check_image_dtype(torch.float32, "cuda", plain=False, conv=True)
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        tctvit.check_image_dtype(torch.float16, "cuda", plain=False, conv=False)
+    tctvit.check_image_dtype(torch.float16, "cpu", plain=False, conv=False)

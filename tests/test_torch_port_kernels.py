@@ -119,7 +119,7 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
-    assert len(launches.KERNELS) == 18
+    assert len(launches.KERNELS) == 22          # 18 kernels and the fp32 variants of four
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -133,7 +133,7 @@ def test_build_sources_are_the_package_csrc():
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
                      "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
-                     "attn_mma.cuh", "wgrad_sm90.cuh"}
+                     "attn_mma.cuh", "wgrad_sm90.cuh", "split_sm90.cuh"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
