@@ -174,6 +174,32 @@ Phases, each printing its lines before the last:
      within VQ_F32_TIE (counted per forward by patching the models' VQ
      call), a second sweep the same bits, a sweep shifted by one stride
      outside the band; an fp32 image through the conv patch embed refused.
+ 11. the gradient attribution methods in fp32 at flagship width (phase
+     10's model, volume and prompt): first the fp32 data-gradient chains of
+     rows 7-9 (attn_block, attn_packed and geglu_ff backward, dx alone)
+     against the plain backwards' dx at an integrated-gradients chunk's
+     shapes ([120, 576, 512] with the fp32 bias, [2880, 24, 512], [69120,
+     512]) and a Grad-CAM's (one volume): F32_BAND, controls the chain with
+     its lo planes zeroed and the plain backward with the softmax row term,
+     the l2-norm projection, the LN gain or GELU's derivative wrong; two
+     calls the same bits; times, `bound_ms`, the fp32 PyTorch chain forward
+     + backward with x alone wanting its gradient as `library_ms`; one call
+     of each under torch.profiler on the Hopper pieces; an fp32 backward
+     with a weight wanting its gradient refused. Then, counted, the path: a
+     Grad-CAM map set (7f x 3, 8f x 4, 9f x 8) and one default
+     integrated-gradients map (50 steps, chunk 5: 7f x 40, 8f x 40, 9f x
+     80), with seconds and peak memory, the six maps expanded on the host,
+     `integrated_gradients_pipelined` over two volumes (its first map the
+     serial one's bits). Grad-CAM in both pairings against plain=True
+     within MAP_BAND when its forward flipped no VQ index (each flip a tie
+     within VQ_F32_TIE; the combined map, sqrt(spatial * temporal + 1e-8),
+     through its square), the aligned pairing outside the reference's band;
+     `grad_cam_maps` against plain=True's (MAP_BAND; the combined map
+     within its volume's error);
+     integrated gradients at 10 steps against plain=True: the map before
+     the threshold and the final map off the threshold's crossings within
+     MAP_BAND, each crossing within IG_CROSS_BAND of the threshold, the VQ
+     flips of each forward counted.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -182,7 +208,7 @@ The line before the last is the kernels' JSON record (launches: the
 zero-shot run's counts for the forward kernels, phase 4b's for
 geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
 the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
-variants); the last line is {"ok": true,
+variants, phase 11's for the fp32 backwards); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -284,6 +310,12 @@ KERNELS = {
                      "ct_clip_ut_tpu/ops/pallas_ff.py:120"),
     "vq_nearest_f32": ("ct_clip_ut_tpu_torch/csrc/vq_nearest.cu",
                        "ct_clip_ut_tpu/ops/pallas_vq.py:56"),
+    "attn_block_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/attn_block_bwd_f32.cu",
+                           "ct_clip_ut_tpu/ops/pallas_attn_block.py:407"),
+    "attn_packed_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/attn_packed_bwd_f32.cu",
+                            "ct_clip_ut_tpu/ops/pallas_attn_packed.py:424"),
+    "geglu_ff_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_bwd_f32.cu",
+                         "ct_clip_ut_tpu/ops/pallas_ff.py:234"),
 }
 # Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
 F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
@@ -295,6 +327,12 @@ OCC_BAND = 1e-4         # relative error of a window's score vs plain=True / the
 OCC_WINDOWS, OCC_SLAB, OCC_CHUNK = 80, 72, 8   # slabs of 72 windows: a ragged tail of 8
 FULL_SWEEP = 12167      # windows of the flagship grid (23^3)
 ATTRIBUTION_KERNELS = ("attn_block_f32", "attn_packed_f32", "geglu_ff_f32", "vq_nearest_f32")
+# Phase 11, the gradient methods in fp32 (the fp32 data-gradient chains of rows 7-9):
+GRADIENT_KERNELS = ("attn_block_bwd_f32", "attn_packed_bwd_f32", "geglu_ff_bwd_f32")
+GRAD_CAM_LAUNCHES = {"attn_block_bwd_f32": 3, "attn_packed_bwd_f32": 4, "geglu_ff_bwd_f32": 8}
+IG_LAUNCHES = {"attn_block_bwd_f32": 40, "attn_packed_bwd_f32": 40, "geglu_ff_bwd_f32": 80}
+IG_CHUNK, IG_CHECK_STEPS = 5, 10
+IG_CROSS_BAND = 1e-5    # an IG threshold crossing's distance from the threshold (map max 1)
 BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
                  "patch_embed_dkw", *BERT_PEG_KERNELS)
@@ -303,8 +341,9 @@ CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff"
                  "vq_nearest": 1, "attn_qrows": 6}
 # kernels of other paths, launched by neither zero-shot nor training:
 # CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
-# core, the attribution suite's fp32 variants (phase 10)
-SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS)
+# core, the attribution suite's fp32 variants (phase 10) and fp32 backwards (phase 11)
+SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS,
+                   *GRADIENT_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -357,7 +396,13 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                      "2ff14GegluSplitPlan",
                  "fp32 vq_nearest GEMM (SplitPlan into ArgmaxEpi)": "9SplitPlanENS_2vq9ArgmaxEpi",
                  "fp32 output products (SplitPlan into F32OutEpi: geglu_ff, the blocks, BERT)":
-                     "9SplitPlanENS0_9F32OutEpi"}
+                     "9SplitPlanENS0_9F32OutEpi",
+                 "fp32 backward products with a weight read as stored (SplitKNPlan)":
+                     "11SplitKNPlanENS0_9F32OutEpi",
+                 "fp32 block backward's dO as hi / lo planes (SplitKNPlan, SplitOutEpi)":
+                     "11SplitKNPlanENS0_11SplitOutEpi",
+                 "fp32 geglu_ff backward recompute writing dvalue | dgate (GateBwdSplitEpi)":
+                     "15GateBwdSplitEpi"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -374,7 +419,11 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                      "bf16 bert_layer_bwd query pass": "2bh14dq_pass_kernel",
                      "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel",
                      "fp32 block core (attn_block_f32, attn_packed_f32: split P.V)":
-                         ("17block_core_kernel", "Lb0ELb1E")}
+                         ("17block_core_kernel", "Lb0ELb1E"),
+                     "fp32 backward's statistics (the fp32 core with STATS)":
+                         ("17block_core_kernel", "Lb1ELb1E"),
+                     "fp32 backward's query pass (split dS.K)": "17bwd_dq_f32_kernel",
+                     "fp32 backward's key pass (split P^T.dO, dS^T.Q)": "18bwd_dkv_f32_kernel"}
 
 
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
@@ -2457,6 +2506,17 @@ def peg_f32_check(torch, model, card: str) -> None:
         raise AssertionError(f"fp32 PEG: {err} from float64 (TF32?)")
 
 
+def peak_timed(torch, fn) -> tuple:
+    """(fn(), its seconds on the host clock, synchronised, and the peak GB
+    of device memory allocated during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
 class VQRecorder:
     """A context manager that records the indices of every vq_apply call a
     sweep makes (patching the name the models call, in models.ctclip and
@@ -2534,13 +2594,8 @@ def attribution_phase(torch, card: str) -> tuple:
     peak = {}
 
     def timed(label, fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        peak[label] = torch.cuda.max_memory_allocated() / 1e9
-        return res, time.perf_counter() - t0
+        res, secs, peak[label] = peak_timed(torch, fn)
+        return res, secs
 
     # the main path, counted: raw attention, rollout, two latents, the
     # frame-sparse sweep in slabs (a ragged tail), the dense shortcut
@@ -2663,6 +2718,275 @@ def attribution_phase(torch, card: str) -> tuple:
     return record, counts
 
 
+def attn_bwd_flops(r: int, n: int, d: int, hd: int) -> float:
+    """The fp32 block backward's products for dx as three bf16 products
+    each: q, k, v, dO, dxn (2 r n d hd each), dx_direct (over 2 hd), and S,
+    P.V, dP, dS.K, dS^T.Q, P^T.dO (2 r n^2 hd each)."""
+    return 3 * 2 * r * (7 * n * d * hd + 6 * n * n * hd)
+
+
+def f32_bwd_check(torch, model, card: str) -> dict:
+    """Phase 11's kernel checks: the fp32 data-gradient chains of rows 7-9
+    against the plain backwards' dx (TF32 off) at an integrated-gradients
+    chunk's shapes (5 volumes: attn_block [120, 576, 512] with the fp32
+    [8, 576, 576] bias, attn_packed [2880, 24, 512], geglu_ff [69120, 512])
+    and at a Grad-CAM's (one volume). Band F32_BAND (max relative error);
+    controls the chain with every lo plane zeroed (one bf16 product each)
+    and the plain backward with one fault (the softmax row term, the
+    l2-norm projection, the LN gain, GELU for its derivative); two calls the
+    same bits. At the chunk's shapes: times, bound_ms (three bf16 products
+    of the function's products, `attn_bwd_flops`; 30 N D inner for the
+    FF), library_ms (the fp32 PyTorch chain forward + backward under
+    autograd with only x wanting its gradient), one call under
+    torch.profiler on the Hopper pieces. Last, an fp32 backward whose
+    weights want their gradients is refused."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd_f32, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd_f32, attn_packed_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd_f32, geglu_ff_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
+
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    g = torch.Generator(device="cuda").manual_seed(18)
+    t, h, w = token_grid_shape(cfg, VOLUME)
+    hw, d = h * w, cfg.dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def attn_args(tf):
+        a = tf.layers[0][1]
+        inner = a.cfg.inner_dim
+        wkv = a.to_kv.weight.detach().float()
+        return [around_ones(torch, g, d), a.to_q.weight.detach().float(),
+                wkv[:inner].contiguous(), wkv[inner:].contiguous(),
+                a.to_out.weight.detach().float(), around_ones(torch, g, a.cfg.dim_head),
+                around_ones(torch, g, a.cfg.dim_head)]
+
+    with torch.no_grad():
+        bias = continuous_pos_bias(vit.spatial_rel_pos_bias, cfg.patch_height,
+                                   cfg.patch_width).float().contiguous()
+    scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
+    ff = vit.enc_spatial_transformer.layers[0][3]
+    sp, tm = attn_args(vit.enc_spatial_transformer), attn_args(vit.enc_temporal_transformer)
+    ffw = [around_ones(torch, g, d), 0.1 * randn(d), ff[1].weight.detach().float(),
+           ff[4].weight.detach().float()]
+    attn_faults, ff_faults = ("row_term", "l2norm", "gamma"), ("gelu_prime", "gamma")
+    # name -> (chain, plain backward, weights, faults, library fn(x, *weights), flops(x))
+    cases = {
+        "attn_block_bwd_f32": (
+            lambda x, gg, **kw: attn_block_bwd_f32(x, *sp, bias, gg, scale, **kw),
+            lambda x, gg, f=(): attn_block_bwd_plain(x, *sp, bias, gg, scale, faults=f)[0],
+            {"IG chunk": (IG_CHUNK * t, hw, d), "Grad-CAM": (t, hw, d)}, attn_faults,
+            lambda x: attn_library(x, *sp, bias, scale, residual=False),
+            lambda x: attn_bwd_flops(x.shape[0], x.shape[1], d, sp[1].shape[0])),
+        "attn_packed_bwd_f32": (
+            lambda x, gg, **kw: attn_packed_bwd_f32(x, *tm, gg, scale, **kw),
+            lambda x, gg, f=(): attn_packed_bwd_plain(x, *tm, gg, scale, faults=f)[0],
+            {"IG chunk": (IG_CHUNK * hw, t, d), "Grad-CAM": (hw, t, d)}, attn_faults,
+            lambda x: attn_library(x, *tm, None, scale, residual=False),
+            lambda x: attn_bwd_flops(x.shape[0], x.shape[1], d, tm[1].shape[0])),
+        "geglu_ff_bwd_f32": (
+            lambda x, gg, **kw: geglu_ff_bwd_f32(x, *ffw, gg, **kw),
+            lambda x, gg, f=(): geglu_ff_bwd_plain(x, *ffw, gg, faults=f)[0],
+            {"IG chunk": (IG_CHUNK * t * hw, d), "Grad-CAM": (t * hw, d)}, ff_faults,
+            lambda x: ff_library(x, *ffw, residual=False),
+            lambda x: 3 * 10 * x.shape[0] * d * ffw[3].shape[1]),
+    }
+    out = {}
+    for name, (kern, plain, shapes, faults, library, flops) in cases.items():
+        for label, shape in shapes.items():
+            x, gg = randn(*shape), randn(*shape)
+            with torch.no_grad():
+                got, want = kern(x, gg), plain(x, gg)
+                same = torch.equal(got, kern(x, gg))
+                controls = {"one bf16 product each (lo planes zeroed)":
+                            rel_err(kern(x, gg, one_pass=True), want)}
+                controls.update({f"plain with fault {f}": rel_err(got, plain(x, gg, (f,)))
+                                 for f in faults})
+            abs_err = band_check(name, got, want, F32_BAND, controls,
+                                 f"{label} fp32 x {list(shape)}, dx max "
+                                 f"{want.abs().max().item():.3e}, two calls the same bits: "
+                                 f"{same}")
+            if not same:
+                raise AssertionError(f"{name}: two calls gave different bits")
+            if label != "IG chunk":
+                continue
+            with torch.no_grad():
+                ms = cuda_ms(torch, lambda: kern(x, gg))
+                plain_ms = cuda_ms(torch, lambda: plain(x, gg))
+            library_ms, (lib_dx,) = library_grad_ms(torch, library, [x], gg)
+            ins = [x, gg, got, *(sp if "attn" in name else ffw)]
+            rec = bound(flops(x), nbytes(*ins, *([bias] if name == "attn_block_bwd_f32" else [])),
+                        BF16_PEAK)
+            print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products each), the "
+                  f"fp32 PyTorch chain forward + backward (x alone wanting its gradient) "
+                  f"{library_ms:.3f} ms ({library_ms.span}) (max_rel_err "
+                  f"{rel_err(lib_dx, want):.3e} vs the plain dx) [{card}]")
+            out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                             library_ms=library_ms)
+            with torch.no_grad():
+                hopper_chain_check(name, lambda: kern(x, gg), card)
+            del x, gg, got, want
+            torch.cuda.empty_cache()
+
+    # a parameter that wants its gradient: refused, no plain fallback
+    x = randn(2, t, d).requires_grad_(True)
+    wq = sp[1].clone().requires_grad_(True)
+    try:
+        _BlockFn.apply(x, sp[0], wq, *sp[2:], None, scale, True).sum().backward()
+    except NotImplementedError as e:
+        if "fourth group" not in str(e):
+            raise
+        print(f"kernel attn_packed_bwd_f32: an fp32 backward with a weight wanting its gradient "
+              f"refused: {e}")
+    else:
+        raise AssertionError("an fp32 backward with parameter gradients ran on the card")
+    return out
+
+
+def gradient_phase(torch, card: str) -> tuple:
+    """Phase 11: the gradient attribution methods in fp32 at flagship width
+    (`flagship_cfg()`, random weights from seed 0, the matmul patch embed,
+    phase 10's [1, 1, 240, 480, 480] fp32 volume and 512-token stand-in
+    prompt). Returns (kernel record, launch counts of the counted path)."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.attribution import grad_cam
+    from ct_clip_ut_tpu_torch.attribution import integrated_gradients as ig
+    from ct_clip_ut_tpu_torch.config import flagship_cfg
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg()
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    record = f32_bwd_check(torch, model, card)
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    image = torch.randn((1, *VOLUME), generator=g, device="cuda")
+    prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), max_length=PROMPT_LEN,
+                               device="cuda")
+    prompt = {k: v[:1] for k, v in prompts.items()}
+
+    # the main path, counted: a Grad-CAM map set, then one default IG map
+    # (50 steps in chunks of 5), first calls
+    launches.reset_launch_counts()
+    cams, cam_s, cam_gb = peak_timed(torch, lambda: grad_cam.grad_cam_volumes(model, prompt,
+                                                                               image))
+    cam_counts = launches.launch_counts()
+    ig_map, ig_s, ig_gb = peak_timed(torch, lambda: ig.integrated_gradients(model, prompt,
+                                                                            image))
+    counts = launches.launch_counts()
+    ig_counts = {k: counts[k] - cam_counts[k] for k in counts}
+    print(f"gradients: launches of a Grad-CAM map set "
+          f"{json.dumps({k: v for k, v in cam_counts.items() if v})}; of a default IG map "
+          f"{json.dumps({k: v for k, v in ig_counts.items() if v})}")
+    want_cam = {k: cam_counts[k] for k in GRAD_CAM_LAUNCHES}
+    want_ig = {k: ig_counts[k] for k in IG_LAUNCHES}
+    if want_cam != GRAD_CAM_LAUNCHES or want_ig != IG_LAUNCHES:
+        raise AssertionError(f"gradient path launches: Grad-CAM {want_cam} (expected "
+                             f"{GRAD_CAM_LAUNCHES}), IG {want_ig} (expected {IG_LAUNCHES})")
+    t0 = time.perf_counter()
+    maps = grad_cam.grad_cam_maps(model, prompt, image)
+    maps_s = time.perf_counter() - t0
+    image2 = torch.randn((1, *VOLUME), generator=g, device="cuda")
+    piped, piped_s, piped_gb = peak_timed(torch, lambda: list(
+        ig.integrated_gradients_pipelined(model, [(prompt, image), (prompt, image2)])))
+    print(f"gradients: grad_cam_volumes {cam_s:.3f} s a map set (peak {cam_gb:.2f} GB), "
+          f"grad_cam_maps with the host expansion of its six maps {maps_s:.3f} s; "
+          f"integrated_gradients {ig_s:.3f} s a map, {ig_s / 50:.4f} s a step (50 steps, chunk "
+          f"5; peak {ig_gb:.2f} GB); pipelined over 2 items {piped_s / 2:.3f} s a map (peak "
+          f"{piped_gb:.2f} GB) (host clock, synchronised, first calls) [{card}]")
+    finite = all(torch.isfinite(v).all() for v in cams.values()) and all(
+        np.isfinite(m).all() for m in (ig_map, *piped, *maps.values()))
+    if (not finite or ig_map.shape != VOLUME[1:] or not np.array_equal(piped[0], ig_map)
+            or any(m.shape != VOLUME[1:] for m in maps.values())):
+        raise AssertionError("gradient maps: non-finite, misshapen, or the pipelined map differs "
+                             "from the serial one")
+
+    # Grad-CAM against plain=True, both pairings; the flips of the one
+    # forward counted, each a tie
+    vols, recs, roots = {}, {}, {}
+    for pairing in ("reference", "aligned"):
+        with VQRecorder(torch) as rec_k:
+            got = grad_cam.grad_cam_volumes(model, prompt, image, pairing=pairing)
+        with VQRecorder(torch, rec_k) as rec_p:
+            want, plain_s, plain_gb = peak_timed(torch, lambda: grad_cam.grad_cam_volumes(
+                model, prompt, image, pairing=pairing, plain=True))
+        vols[pairing], recs[pairing] = got, rec_k
+        # combined = sqrt(spatial * temporal + 1e-8) is held through its square,
+        # the product it is made of: the root turns an error e of a product
+        # near zero into ~sqrt(e), whatever the kernels' precision
+        errs = {k: (got[k] - want[k]).abs().max().item() for k in got if k != "combined"}
+        errs["combined^2"] = (got["combined"] ** 2 - want["combined"] ** 2).abs().max().item()
+        root_err = roots[pairing] = (got["combined"] - want["combined"]).abs().max().item()
+        flips = int(rec_p.flips().sum())
+        print(f"gradients: grad_cam_volumes ({pairing}) vs plain=True, max abs error on [0, 1] "
+              f"volumes " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (band {MAP_BAND}; combined itself {root_err:.3e}); VQ indices flipped "
+              f"{flips}, the largest tie "
+              f"{max(rec_p.gaps, default=0.0):.3e} (band {VQ_F32_TIE}); plain=True {plain_s:.3f} s"
+              f" (peak {plain_gb:.2f} GB) [{card}]")
+        if max(rec_p.gaps, default=0.0) > VQ_F32_TIE or (flips == 0
+                                                         and max(errs.values()) > MAP_BAND):
+            raise AssertionError(f"Grad-CAM ({pairing}) vs plain=True: {errs}, {flips} flips")
+    control = max((vols["reference"][k] - vols["aligned"][k]).abs().max().item()
+                  for k in ("spatial", "temporal", "spatial_ff", "temporal_ff"))
+    print(f"gradients: control (the aligned pairing vs the reference one) {control:.3e}")
+    if not control > MAP_BAND:
+        raise AssertionError("Grad-CAM: the band passes the other pairing")
+    # grad_cam_maps (the path's maps above) against plain=True's: the host
+    # expansion weighs grid values by linear weights that sum to 1, so a
+    # map is as close as its volume, the combined one as its own volume
+    with VQRecorder(torch, recs["reference"]) as rec_p:
+        pmaps = grad_cam.grad_cam_maps(model, prompt, image, plain=True)
+    map_errs = {k: float(np.abs(maps[k] - pmaps[k]).max()) for k in maps}
+    flips = int(rec_p.flips().sum())
+    print(f"gradients: grad_cam_maps vs plain=True, max abs error "
+          + ", ".join(f"{k} {v:.3e}" for k, v in map_errs.items())
+          + f" (band {MAP_BAND}; combined within its volume's {roots['reference']:.3e}); VQ "
+          f"indices flipped {flips}, the largest tie {max(rec_p.gaps, default=0.0):.3e}")
+    if max(rec_p.gaps, default=0.0) > VQ_F32_TIE or (flips == 0 and (
+            max(v for k, v in map_errs.items() if k != "combined") > MAP_BAND
+            or map_errs["combined"] > roots["reference"] + 1e-6)):
+        raise AssertionError(f"grad_cam_maps vs plain=True: {map_errs}, {flips} flips")
+
+    # integrated gradients against plain=True at 10 steps: the map before
+    # the threshold, the final map off the crossings, each crossing a tie
+    with VQRecorder(torch) as rec_k:
+        diff, avg = ig._ig_avg_grads(model, prompt, image, steps=IG_CHECK_STEPS, chunk=IG_CHUNK)
+    with VQRecorder(torch, rec_k) as rec_p:
+        (pdiff, pavg), plain_s, plain_gb = peak_timed(torch, lambda: ig._ig_avg_grads(
+            model, prompt, image, steps=IG_CHECK_STEPS, chunk=IG_CHUNK, plain=True))
+    pre, ppre = ig._ig_normalize(diff, avg, 0.0, 1.0), ig._ig_normalize(pdiff, pavg, 0.0, 1.0)
+    fin, pfin = ig._ig_normalize(diff, avg, 0.9, 0.05), ig._ig_normalize(pdiff, pavg, 0.9, 0.05)
+    crossed = (fin > 0) != (pfin > 0)
+    threshold = ig._quantile(ppre, 0.9)
+    pre_err = (pre - ppre).abs().max().item()
+    fin_err = (fin - pfin).abs()[~crossed].max().item()
+    cross_gap = (ppre[crossed] - threshold).abs().max().item() if crossed.any() else 0.0
+    flips = rec_p.flips()
+    print(f"gradients: integrated gradients vs plain=True ({IG_CHECK_STEPS} steps, chunk "
+          f"{IG_CHUNK}, {pre.numel()} elements): before the threshold max abs error {pre_err:.3e}"
+          f" (band {MAP_BAND}); the final map off the crossings {fin_err:.3e}; "
+          f"{int(crossed.sum())} elements crossed the 0.90 threshold "
+          f"({threshold.item():.6f}), the farthest {cross_gap:.3e} from it (band {IG_CROSS_BAND}); "
+          f"{int((flips > 0).sum())} of {flips.size} forwards flipped a VQ index "
+          f"({int(flips.sum())} tokens), the largest tie {max(rec_p.gaps, default=0.0):.3e}; "
+          f"plain=True {plain_s:.3f} s (peak {plain_gb:.2f} GB) [{card}]")
+    if (max(rec_p.gaps, default=0.0) > VQ_F32_TIE
+            or (flips.sum() == 0 and (pre_err > MAP_BAND or fin_err > MAP_BAND
+                                      or cross_gap > IG_CROSS_BAND))):
+        raise AssertionError("integrated gradients vs plain=True outside the bands")
+    print(f"gradients: phase 11 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return record, counts
+
+
 def main() -> int:
     import torch
 
@@ -2716,6 +3040,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         attribution_record, attribution_counts = attribution_phase(torch, card)
         record.update(attribution_record)
+        torch.cuda.empty_cache()
+        gradient_record, gradient_counts = gradient_phase(torch, card)
+        record.update(gradient_record)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2723,6 +3050,7 @@ def main() -> int:
     def run_of(name):
         return (train_counts if name in TRAIN_KERNELS else
                 attribution_counts if name in ATTRIBUTION_KERNELS else
+                gradient_counts if name in GRADIENT_KERNELS else
                 ctgen_counts if name == "attn_qrows" else
                 int8_counts if name == "geglu_ff_int8" else
                 cosine_counts if name == "cosine_attention" else counts)

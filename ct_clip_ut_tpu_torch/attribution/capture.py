@@ -1,17 +1,27 @@
-"""Shared attribution machinery: the scored forward with its attention
-weights, and the post-processing every method shares.
+"""Shared attribution machinery: scored forwards, weight capture,
+intermediate gradients without hooks, and the post-processing every
+method shares.
 
-Counterpart of ct_clip_ut_tpu/attribution/capture.py (the forward half:
-`tap_shapes` and `score_captures_and_grads` come with the gradient
-methods). The reference drives every method off the per-sample similarity
-score sim[0, 0]; `score_and_weights` is one forward returning it with the
-per-layer attention weights as outputs.
+Counterpart of ct_clip_ut_tpu/attribution/capture.py. The reference drives
+every method off the per-sample similarity score sim[0, 0]:
+
+  * `score_and_weights`: one forward returning it with the per-layer
+    attention weights as outputs;
+  * `score_captures_and_grads`: one forward over zero injections at named
+    tap points (ops/taps.py) and one `torch.autograd.grad`, returning the
+    score, the captured activations and d score / d activation for each:
+    what the reference's register_hook delivered, without hooks.
 
 All attribution math runs in fp32 (saliency band <= 1e-3), with the matmul
 patch embed (`parity_cfg`): on the card the image tower runs the fp32
-variants of the block, FF and VQ kernels. Every entry point runs under
-`no_grad` and `full_fp32`: cuDNN would run the fp32 PEG convs in TF32 by
-default (~3 decimal digits), which the bands do not allow.
+variants of the block, FF and VQ kernels, and under autograd the fp32
+data-gradient chains of the blocks and the FF. The forward methods run
+under `forward_only` (no_grad), the gradient methods under `with_grad`;
+both under `full_fp32`: cuDNN would run the fp32 PEG convs, forward and
+backward, in TF32 by default (~3 decimal digits), which the bands do not
+allow. `with_grad` also freezes the model's parameters for its duration
+(`frozen`): the methods differentiate with respect to activations and
+patches, and the card computes the fp32 data gradient alone.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +38,8 @@ import torch.nn.functional as F
 from ..config import CTCLIPConfig
 from ..models.ctclip import (CTCLIP, CTCLIPOutput, encode_image_latents_from_tokens,
                              text_latents_of)
-from ..models.ctvit import _patch_embed, patchify
+from ..models.ctvit import _patch_embed, patchify, token_grid_shape
+from ..ops.taps import NULL_TAPS, Taps
 
 
 def parity_cfg(cfg: CTCLIPConfig) -> CTCLIPConfig:
@@ -53,11 +65,38 @@ def full_fp32():
 
 
 def forward_only(fn):
-    """Run `fn` under no_grad and full_fp32 (the attribution entry points)."""
+    """Run `fn` under no_grad and full_fp32 (the forward methods' entry points)."""
     @functools.wraps(fn)
     def wrapped(*args, **kw):
         with torch.no_grad(), full_fp32():
             return fn(*args, **kw)
+
+    return wrapped
+
+
+@contextlib.contextmanager
+def frozen(model: torch.nn.Module):
+    """Every parameter of `model` with requires_grad off inside the block,
+    each one's flag restored after it."""
+    flags = [(p, p.requires_grad) for p in model.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+
+
+def with_grad(fn):
+    """Run `fn(model, ...)` with autograd on, under full_fp32 (its forward
+    and its torch.autograd.grad calls alike: cuDNN reads the TF32 flag when
+    each op runs, the PEG's backward convolution too) and with the model's
+    parameters frozen (the gradient methods' entry points)."""
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kw):
+        with torch.enable_grad(), full_fp32(), frozen(model):
+            return fn(model, *args, **kw)
 
     return wrapped
 
@@ -70,22 +109,34 @@ def embed_volume(model: CTCLIP, image: torch.Tensor) -> torch.Tensor:
                         patchify(image, cfg.patch_size, cfg.temporal_patch_size))
 
 
-@forward_only
-def similarity_score(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, *,
-                     return_weights: bool = False, plain: bool = False):
+def scored_forward(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, *,
+                   taps: Taps = NULL_TAPS, return_weights: bool = False,
+                   prepatchified: bool = False, plain: bool = False):
     """(sim[0, 0], CTCLIPOutput): the scored forward of the batch-1
     convention, frozen VQ, through the matmul patch embed (the JAX
-    package's `ctclip_apply` under `parity_cfg`). plain=True runs every
-    kernel's plain version."""
+    package's `similarity_score`: `ctclip_apply` under `parity_cfg`), with
+    autograd as the caller has it. prepatchified=True takes a [b, t, h, w,
+    patch_dim] patch tensor for `image`; plain=True runs every kernel's
+    plain version."""
+    cfg = model.visual_transformer.cfg
+    patches = image if prepatchified else patchify(image, cfg.patch_size,
+                                                   cfg.temporal_patch_size)
     txt = text_latents_of(model, text_tokens, text_embeds, image.dtype, plain)
-    img, vit_out = encode_image_latents_from_tokens(model, embed_volume(model, image),
-                                                    return_weights=return_weights, plain=plain)
+    img, vit_out = encode_image_latents_from_tokens(
+        model, _patch_embed(model.visual_transformer.to_patch_emb, patches),
+        return_weights=return_weights, taps=taps, plain=plain)
     temp = model.temperature.exp()
     sim = (img.float() @ txt.float().t()) * temp
     out = CTCLIPOutput(sim_matrix=sim, image_latents=img, text_latents=txt, temperature=temp,
                        image_tokens=vit_out.tokens, spatial_attn=vit_out.spatial_attn,
                        temporal_attn=vit_out.temporal_attn, vq_state=vit_out.vq_state)
     return sim[0, 0], out
+
+
+@forward_only
+def similarity_score(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, **kw):
+    """`scored_forward` under no_grad and full_fp32."""
+    return scored_forward(model, text_tokens, image, text_embeds, **kw)
 
 
 def score_and_weights(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, *,
@@ -95,6 +146,55 @@ def score_and_weights(model: CTCLIP, text_tokens, image: torch.Tensor, text_embe
     score, out = similarity_score(model, text_tokens, image, text_embeds,
                                   return_weights=True, plain=plain)
     return score, out.spatial_attn, out.temporal_attn
+
+
+def tap_shapes(cfg: CTCLIPConfig, image_shape, tap_names: Sequence[str]) -> Dict[str, tuple]:
+    """Shapes of the CT-ViT's tap points for an image of `image_shape` [b,
+    c, T, H, W], from the config alone (the JAX package's abstract
+    evaluation, capture.py:71-79): a spatial layer's block outputs [b t,
+    h w, dim] and weights [b t, heads, h w, h w], a temporal layer's [b h w,
+    t, dim] and [b h w, heads, t, t], vq.input and vq.features [b, t h w,
+    dim]. An unknown name raises KeyError."""
+    vit = cfg.ctvit
+    b = int(image_shape[0])
+    t, h, w = token_grid_shape(vit, image_shape)
+    stacks = {"spatial": (b * t, h * w, vit.spatial_depth),
+              "temporal": (b * h * w, t, vit.temporal_depth)}
+    shapes = {}
+    for name in tap_names:
+        parts = name.split(".")
+        if name in ("vq.input", "vq.features"):
+            shapes[name] = (b, t * h * w, vit.dim)
+        elif (len(parts) == 3 and parts[0] in stacks and parts[1].isdigit()
+              and int(parts[1]) < stacks[parts[0]][2]
+              and parts[2] in ("attn_out", "ff_out", "attn_weights")):
+            rows, n, _ = stacks[parts[0]]
+            shapes[name] = ((rows, vit.heads, n, n) if parts[2] == "attn_weights"
+                            else (rows, n, vit.dim))
+        else:
+            raise KeyError(f"no tap point {name!r} in the CT-ViT")
+    return shapes
+
+
+@with_grad
+def score_captures_and_grads(model: CTCLIP, text_tokens, image: torch.Tensor,
+                             tap_names: Sequence[str], text_embeds=None, *,
+                             plain: bool = False) -> Tuple[torch.Tensor, dict, dict]:
+    """One pass: the scalar score, the activations captured at `tap_names`
+    and d score / d activation for each (the register_hook gradients,
+    reference visualizations.py:147-218), fp32: zero injections that need
+    their gradients, one forward, one torch.autograd.grad. A point the
+    score does not reach gets a zero gradient, as JAX's."""
+    shapes = tap_shapes(model.cfg, image.shape, tap_names)
+    names = sorted(shapes)
+    zeros = {k: torch.zeros(shapes[k], device=image.device, requires_grad=True) for k in names}
+    taps = Taps(capture=set(tap_names), inject=zeros)
+    score, _ = scored_forward(model, text_tokens, image, text_embeds, taps=taps, plain=plain)
+    grads = torch.autograd.grad(score, [zeros[k] for k in names], allow_unused=True)
+    captured = {k: v.detach().float() for k, v in taps.collected.items()}
+    grads = {k: torch.zeros_like(zeros[k]) if d is None else d.float()
+             for k, d in zip(names, grads)}
+    return score.detach(), captured, grads
 
 
 # ---------------------------------------------------------------------------

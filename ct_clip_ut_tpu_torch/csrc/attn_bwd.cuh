@@ -331,24 +331,6 @@ bwd_dkv_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   if (threadIdx.x < DH) atomicAdd(dks + threadIdx.x, red[threadIdx.x]);
 }
 
-// out[h][j][i] = in[h][i][j] for H planes of n x n fp32 (32 x 32 tiles).
-template <int Dummy = 0>
-__global__ void __launch_bounds__(256)
-transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int n) {
-  __shared__ float tile[32][33];
-  const int64_t base = (int64_t)blockIdx.z * n * n;
-  const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
-  for (int k = threadIdx.x >> 5; k < 32; k += 8) {
-    const int i = i0 + k, j = j0 + (threadIdx.x & 31);
-    if (i < n && j < n) tile[k][threadIdx.x & 31] = in[base + (int64_t)i * n + j];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x >> 5; k < 32; k += 8) {
-    const int j = j0 + k, i = i0 + (threadIdx.x & 31);
-    if (i < n && j < n) out[base + (int64_t)j * n + i] = tile[threadIdx.x & 31][k];
-  }
-}
-
 constexpr int DB_WARPS = 4;          // 16 query rows each
 constexpr int DB_QT = DB_WARPS * 16;
 constexpr int DB_PLANE = KC * DH * 2;          // one staged plane of 64 rows

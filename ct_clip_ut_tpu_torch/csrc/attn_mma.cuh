@@ -302,11 +302,11 @@ struct Slice {
 // q_tile + 16 w. STATS: stats[i] = (m log2 e, 1 / l, rowsum(dO_i o_i), 0)
 // with o rounded to bf16 (flash-attention's D, sum_j P dP). F32: the fp32
 // core, p and v not rounded: P.V as p_lo v_hi + p_hi v_lo + p_hi v_hi (p
-// split in registers, v's planes staged), o written as hi / lo planes.
+// split in registers, v's planes staged), o written as hi / lo planes; with
+// STATS, D from the fp32 o and dO's planes (dO, dO_lo: dO_hi + dO_lo).
 template <int BIAS, bool STATS, bool F32 = false>
 __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float4* stats,
-                                              const bf16* dO) {
-  static_assert(!(STATS && F32), "the backward's statistics are the bf16 core's");
+                                              const bf16* dO, const bf16* dO_lo = nullptr) {
   extern __shared__ __align__(128) char smem[];
   const int n = sl.n, m = sl.m, m_pad = padded_keys(m);
   const uint32_t sbase = sm90::smem_u32(smem), pbytes = m_pad * DH * 2;
@@ -444,6 +444,34 @@ __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float
         *reinterpret_cast<__nv_bfloat162*>(sl.o_lo + (int64_t)rb * sl.ld + col) = lv;
       }
     }
+    if constexpr (STATS) {
+      float d_a = 0.f, d_b = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < 4; ++dt) {
+        const int64_t ca = (int64_t)ra * sl.ld + 8 * dt + 2 * t;
+        const int64_t cb = (int64_t)rb * sl.ld + 8 * dt + 2 * t;
+        if (va) {
+          const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dO + ca));
+          const float2 l =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dO_lo + ca));
+          d_a += (h.x + l.x) * oacc[dt][0] + (h.y + l.y) * oacc[dt][1];
+        }
+        if (vb) {
+          const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dO + cb));
+          const float2 l =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dO_lo + cb));
+          d_b += (h.x + l.x) * oacc[dt][2] + (h.y + l.y) * oacc[dt][3];
+        }
+      }
+      d_a += __shfl_xor_sync(0xffffffffu, d_a, 1);
+      d_a += __shfl_xor_sync(0xffffffffu, d_a, 2);
+      d_b += __shfl_xor_sync(0xffffffffu, d_b, 1);
+      d_b += __shfl_xor_sync(0xffffffffu, d_b, 2);
+      if (t == 0) {
+        if (va) stats[ra] = make_float4(base_a, inv_a, d_a, 0.f);
+        if (vb) stats[rb] = make_float4(base_b, inv_b, d_b, 0.f);
+      }
+    }
     return;
   }
   float d_a = 0.f, d_b = 0.f;
@@ -486,7 +514,7 @@ __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float
 // bias [H][n][n]; one block per (sequence r, query tile, head h), sequence
 // fastest, so the sequences that share a (head, query tile) read the same
 // bias rows from L2 side by side. STATS: mld [R][H][n] and dO [M][HD] as in
-// two_pass_core.
+// two_pass_core (dO [2][M][HD], hi then lo, in the fp32 core).
 template <int BIAS, bool STATS, bool F32 = false>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 2)
 block_core_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
@@ -500,7 +528,8 @@ block_core_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
                  F32 ? v + plane + off : nullptr, F32 ? o + plane + off : nullptr, keep_lo};
   two_pass_core<BIAS, STATS, F32>(sl, blockIdx.y * QT,
                                   STATS ? mld + ((int64_t)r * gridDim.z + h) * n : nullptr,
-                                  STATS ? dO + off : nullptr);
+                                  STATS ? dO + off : nullptr,
+                                  STATS && F32 ? dO + plane + off : nullptr);
 }
 
 // Launch block_core_kernel over R sequences of n tokens, H heads.
@@ -516,6 +545,25 @@ inline int launch_block_core(const bf16* qk, const bf16* v, const float* bias, b
   dim3 grid(R, (n + QT - 1) / QT, H);
   core<<<grid, core_threads(n), smem, st>>>(qk, v, bias, o, M, n, HD, mld, dO, keep_lo);
   return (int)cudaGetLastError();
+}
+
+// out[h][j][i] = in[h][i][j] for H planes of n x n fp32 (32 x 32 tiles):
+// the bias as the backward's key passes read it.
+template <int Dummy = 0>
+__global__ void __launch_bounds__(256)
+transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int n) {
+  __shared__ float tile[32][33];
+  const int64_t base = (int64_t)blockIdx.z * n * n;
+  const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
+  for (int k = threadIdx.x >> 5; k < 32; k += 8) {
+    const int i = i0 + k, j = j0 + (threadIdx.x & 31);
+    if (i < n && j < n) tile[k][threadIdx.x & 31] = in[base + (int64_t)i * n + j];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x >> 5; k < 32; k += 8) {
+    const int j = j0 + k, i = i0 + (threadIdx.x & 31);
+    if (i < n && j < n) out[base + (int64_t)j * n + i] = tile[threadIdx.x & 31][k];
+  }
 }
 
 // Largest key count whose staged planes (three, four in the fp32 core) fit

@@ -76,20 +76,6 @@ struct GegluEpi {
   }
 };
 
-// The fp32 variant's first product: maps 0 xn_hi, 1 xn_lo, 2 the hi plane of
-// w_in [2 inner, D], 3 its lo plane; value rows nt * 64 ... and the gate
-// rows inner + nt * 64 ... of the same map. A value tile past inner reads
-// gate rows, a gate tile past 2 inner reads TMA's zeros: both land only in
-// columns >= inner, which the epilogue does not store.
-struct GegluSplitPlan {
-  static constexpr int PASSES = 3;
-  int inner;
-  __device__ TileSrc src(int nt, int pass) const {
-    const int a = pass == 1 ? 1 : 0, b = pass == 2 ? 3 : 2;
-    return {a, b, nt * 64, b, inner + nt * 64};
-  }
-};
-
 // h = gelu(gate) * value in fp32, written as hi / lo planes [M, ldh]
 // (columns nt * 64 ... below inner)
 struct GegluSplitEpi {

@@ -19,7 +19,15 @@
 //                    attention block reads k and v from the pre-norm x)
 //   F32OutEpi        out [M, N] fp32 = acc (+ bias) (+ res), the products
 //                    that end a chain (the residual added in fp32)
-//   split_product    the SplitPlan GEMM of two operands' planes
+//   SplitOutEpi      acc written as hi / lo planes (a product whose result
+//                    is the next product's operand)
+//   split_product    the SplitPlan GEMM of two operands' planes;
+//   split_product_kn the same with B a [K, N] matrix read as it is stored
+//                    (SplitKNPlan: a weight in a backward product)
+//   ln_bwd_f32_kernel the LayerNorm backward of fp32 rows (the fp32
+//                    backward chains' last launch)
+//   ff::GegluSplitPlan the GEGLU's value | gate product (the fp32 forward
+//                    and the fp32 backward's recompute)
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -132,6 +140,95 @@ struct F32OutEpi {
   }
 };
 
+// hi / lo planes [M, ld] of acc, columns < N (N even)
+struct SplitOutEpi {
+  bf16* hi;
+  bf16* lo;
+  int M, N, ld, keep_lo;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= N) continue;
+        __nv_bfloat162 hv, lv;
+        split2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], keep_lo, hv, lv);
+        const int64_t off = (int64_t)m * ld + c;
+        *reinterpret_cast<__nv_bfloat162*>(hi + off) = hv;
+        *reinterpret_cast<__nv_bfloat162*>(lo + off) = lv;
+      }
+    }
+  }
+};
+
+// SplitPlan with B MN-major: maps 2 / 3 hold B's planes as [K, N] matrices
+// (map_mn), read as they are stored with wgmma's transpose bit
+struct SplitKNPlan {
+  static constexpr int PASSES = 3;
+  static constexpr bool B_MN = true;
+  __device__ TileSrc src(int nt, int pass) const {
+    const int a = pass == 1 ? 1 : 0, b = pass == 2 ? 3 : 2;
+    return {a, b, nt * BN, b, nt * BN + 64};
+  }
+};
+
+// dx = the LayerNorm backward of y = LN(x) * gamma (+ beta) against dxn, plus
+// direct and g where given, all fp32 [M, D] (D a multiple of 4), one warp a
+// row: the moments recomputed from x in the one-pass form of
+// ln_split_kernel, xhat = (x - mean) rstd, dxhat = dxn gamma, dx = (dxhat -
+// mean(dxhat) - xhat mean(dxhat xhat)) rstd. The gains' gradients are not
+// formed (the data-gradient chains).
+template <int Dummy = 0>
+__global__ void __launch_bounds__(256)
+ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ dxn, const float* __restrict__ direct,
+                  const float* __restrict__ g, float* __restrict__ dx, int M, int D, float eps) {
+  const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const int64_t base = (int64_t)m * D;
+  float s = 0.f, s2 = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+    s += (v.x + v.y) + (v.z + v.w);
+    s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+  }
+  const float mean = warp_sum(s) / (float)D;
+  const float rstd = rsqrtf(fmaxf(warp_sum(s2) / (float)D - mean * mean, 0.f) + eps);
+  float a1 = 0.f, a2 = 0.f;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+    const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    const float e0 = d.x * gm.x, e1 = d.y * gm.y, e2 = d.z * gm.z, e3 = d.w * gm.w;
+    a1 += (e0 + e1) + (e2 + e3);
+    a2 += (e0 * (v.x - mean) + e1 * (v.y - mean)) + (e2 * (v.z - mean) + e3 * (v.w - mean));
+  }
+  a1 = warp_sum(a1) / (float)D;
+  a2 = warp_sum(a2) * rstd / (float)D;
+  for (int c = 4 * lane; c < D; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+    const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    float4 y = make_float4((d.x * gm.x - a1 - (v.x - mean) * rstd * a2) * rstd,
+                           (d.y * gm.y - a1 - (v.y - mean) * rstd * a2) * rstd,
+                           (d.z * gm.z - a1 - (v.z - mean) * rstd * a2) * rstd,
+                           (d.w * gm.w - a1 - (v.w - mean) * rstd * a2) * rstd);
+    if (direct != nullptr) {
+      const float4 r = *reinterpret_cast<const float4*>(direct + base + c);
+      y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+    }
+    if (g != nullptr) {
+      const float4 r = *reinterpret_cast<const float4*>(g + base + c);
+      y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+    }
+    *reinterpret_cast<float4*>(dx + base + c) = y;
+  }
+}
+
 // ---- host side ----------------------------------------------------------------
 
 // hi / lo planes of `count` floats of src (count a multiple of 4, src 16-B aligned)
@@ -174,5 +271,47 @@ inline int split_product(const bf16* a_hi, const bf16* a_lo, int64_t lda, const 
   return launch_gemm(maps, SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
 }
 
+// The SplitKNPlan product of A's planes ([M, K], row stride lda) and B's,
+// [K, N] as stored (row stride ldb); the alignment of split_product.
+template <class Epi>
+inline int split_product_kn(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                            const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                            cudaStream_t st) {
+  Maps maps{};
+  int err = map_a(&maps.m[0], a_hi, M, K, lda);
+  if (!err) err = map_a(&maps.m[1], a_lo, M, K, lda);
+  if (!err) err = map_mn(&maps.m[2], b_hi, K, N, ldb);
+  if (!err) err = map_mn(&maps.m[3], b_lo, K, N, ldb);
+  if (err) return err;
+  return launch_gemm(maps, SplitKNPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+}
+
+inline int launch_ln_bwd_f32(const float* x, const float* gamma, const float* dxn,
+                             const float* direct, const float* g, float* dx, int M, int D,
+                             cudaStream_t st) {
+  ln_bwd_f32_kernel<><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, dxn, direct, g, dx, M, D, 1e-5f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sm90
+
+namespace ff {
+
+// The GEGLU's first product in fp32: maps 0 xn_hi, 1 xn_lo, 2 the hi plane
+// of the stacked weight [value rows; gate rows], 3 its lo plane; value rows
+// nt * 64 ... and the gate rows gate + nt * 64 ... of the same map (gate =
+// inner for w_in as stored, the padded row count in the backward's planes).
+// A value tile past inner reads gate (or zero) rows, a gate tile past the
+// map reads TMA's zeros: both land only in columns >= inner, which the
+// epilogues do not use.
+struct GegluSplitPlan {
+  static constexpr int PASSES = 3;
+  int gate;
+  __device__ sm90::TileSrc src(int nt, int pass) const {
+    const int a = pass == 1 ? 1 : 0, b = pass == 2 ? 3 : 2;
+    return {a, b, nt * 64, b, gate + nt * 64};
+  }
+};
+
+}  // namespace ff
 }  // namespace ctc

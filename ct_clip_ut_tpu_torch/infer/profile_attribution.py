@@ -1,4 +1,4 @@
-"""Time and memory of the forward attribution methods on one GPU.
+"""Time and memory of the attribution methods on one GPU.
 
     python -m ct_clip_ut_tpu_torch.infer.profile_attribution [--table PATH]
                                                              [--windows N] [--repeats R]
@@ -21,7 +21,14 @@ the suite embeds patches by matmul, `capture.parity_cfg`) on one [1, 1,
   ms a window, the projected seconds of the full sweep, and peak memory;
 - a one-chunk sweep under torch.profiler (the clean caches, the baseline
   and 7 windows): device kernel time, busy share, launch counts, kernels
-  ranked by time (--table writes every row).
+  ranked by time (--table writes every row);
+- `grad_cam_volumes`: seconds a map set and peak memory (R calls), and
+  `grad_cam_maps` with the host expansion of its six maps;
+- `integrated_gradients` at its defaults (50 steps in chunks of 5): seconds
+  a map and a step over R maps, peak memory, and the pipelined form over R
+  items;
+- one IG chunk (5 steps: the batched forward and its backward) under
+  torch.profiler, as the sweep's (--table writes its rows to PATH.ig).
 
 Each line names the card and its power limit (`nvidia-smi`). The module
 imports the package by absolute name only, so it also runs as a file
@@ -37,7 +44,8 @@ import time
 
 import torch
 
-from ct_clip_ut_tpu_torch.attribution import capture, occlusion, raw_attention, rollout
+from ct_clip_ut_tpu_torch.attribution import capture, grad_cam, occlusion, raw_attention, rollout
+from ct_clip_ut_tpu_torch.attribution import integrated_gradients as ig
 from ct_clip_ut_tpu_torch.config import OcclusionConfig, flagship_cfg
 from ct_clip_ut_tpu_torch.infer.profile_zeroshot import card_name, print_profile, profile_call
 from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
@@ -127,6 +135,24 @@ def main(argv=None) -> int:
                   f"profile of a one-chunk sweep (the clean caches, the baseline and "
                   f"{CHUNK - 1} windows)",
                   card, args.table)
+
+    r = timed(lambda: grad_cam.grad_cam_volumes(model, prompt, image), args.repeats)
+    t0 = time.perf_counter()
+    grad_cam.grad_cam_maps(model, prompt, image)
+    print(f"grad_cam_volumes: {line(r)} a map set; grad_cam_maps with the host expansion of the "
+          f"six maps {time.perf_counter() - t0:.4f} s [{card}]", flush=True)
+
+    r = timed(lambda: ig.integrated_gradients(model, prompt, image), args.repeats)
+    items = [(prompt, image)] * args.repeats
+    t0 = time.perf_counter()
+    n = sum(1 for _ in ig.integrated_gradients_pipelined(model, items))
+    piped = (time.perf_counter() - t0) / n
+    print(f"integrated_gradients: 50 steps, chunk 5: {line(r)} a map, {r['median'] / 50:.4f} s a "
+          f"step; pipelined {piped:.4f} s a map over {n} items [{card}]", flush=True)
+    print_profile(profile_call(lambda: ig._ig_avg_grads(model, prompt, image, steps=5, chunk=5)),
+                  "profile of one integrated-gradients chunk (5 steps: the batched forward and "
+                  "its backward, the text tower once)", card,
+                  args.table and f"{args.table}.ig")
     return 0
 
 

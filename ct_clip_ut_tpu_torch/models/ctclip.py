@@ -22,6 +22,7 @@ from .. import _build
 from ..config import CTCLIPConfig
 from ..ops.attention import Attention
 from ..ops.layers import FrozenBiasLayerNorm, l2norm, linear
+from ..ops.taps import NULL_TAPS, Taps
 from ..ops.vq import VQState, _Codebook, vq_apply
 from .bert import Bert, bert_cls
 from .ctvit import CTViT, ctvit_apply, ctvit_encode_tokens, ctvit_temporal_encode
@@ -116,13 +117,16 @@ def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cuda") -> CTCLIP:
 
 
 def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool = True,
-                         return_weights: bool = False, taps=None, deterministic: bool = True,
+                         return_weights: bool = False, taps: Taps = NULL_TAPS,
+                         deterministic: bool = True, prepatchified: bool = False,
                          plain: bool = False):
     """CT-ViT -> fp32 temporal mean (cast back) -> flatten -> project ->
-    l2norm (ctclip.py:63-83). Returns (latents, CTViTOutput)."""
+    l2norm (ctclip.py:63-83). Returns (latents, CTViTOutput). With
+    prepatchified=True `image` is a [b, t, h, w, patch_dim] patch tensor
+    (the gradient attribution entry, ctvit.ctvit_apply)."""
     vit_out = ctvit_apply(model.visual_transformer, image, freeze_vq=freeze_vq,
                           return_weights=return_weights, taps=taps,
-                          deterministic=deterministic, plain=plain)
+                          deterministic=deterministic, prepatchified=prepatchified, plain=plain)
     return _image_latents_of(model, vit_out.tokens), vit_out
 
 
@@ -135,14 +139,14 @@ def _image_latents_of(model: CTCLIP, tokens: torch.Tensor) -> torch.Tensor:
 
 def encode_image_latents_from_tokens(model: CTCLIP, token_grid: torch.Tensor, *,
                                      freeze_vq: bool = True, return_weights: bool = False,
-                                     plain: bool = False):
+                                     taps: Taps = NULL_TAPS, plain: bool = False):
     """The image half from an embedded [b, t, h, w, d] token grid (the patch
     embed's output): transformer encode -> VQ -> the latents of
     `encode_image_latents` (ctclip.py:86-105). Occlusion's token shortcut
     and the attribution suite's scored forward call it. Returns (latents,
     CTViTOutput)."""
     vit_out = ctvit_encode_tokens(model.visual_transformer, token_grid, freeze_vq=freeze_vq,
-                                  return_weights=return_weights, plain=plain)
+                                  return_weights=return_weights, taps=taps, plain=plain)
     return _image_latents_of(model, vit_out.tokens), vit_out
 
 
@@ -203,15 +207,17 @@ class CTCLIPOutput(NamedTuple):
 
 def ctclip_apply(model: CTCLIP, text_tokens: dict, image: torch.Tensor, *,
                  text_embeds: Optional[torch.Tensor] = None, gather_axis=None,
-                 freeze_vq: bool = True, return_weights: bool = False, taps=None,
-                 generator: Optional[torch.Generator] = None, deterministic: bool = True,
+                 freeze_vq: bool = True, return_weights: bool = False,
+                 taps: Taps = NULL_TAPS, generator: Optional[torch.Generator] = None,
+                 deterministic: bool = True, prepatchified: bool = False,
                  plain: bool = False) -> CTCLIPOutput:
     """Full forward (ctclip.py:144-197): text latents in the image's dtype,
     image latents, sim = image_latents @ text_latents^T * exp(temperature)
     in fp32. `generator` draws the text tower's dropout masks when
     deterministic=False. With text_tokens None, `text_embeds` [b, dim_text]
     (CLS-level embeddings, e.g. occlusion's pathology diff embeddings) give
-    the text latents l2norm(text_embeds W^T) (ctclip.py:167-172)."""
+    the text latents l2norm(text_embeds W^T) (ctclip.py:167-172). `taps`
+    and `prepatchified` as ctvit.ctvit_apply's."""
     if gather_axis is not None:
         raise NotImplementedError(
             "the gradient-carrying all-gather of latents is not ported yet "
@@ -220,7 +226,7 @@ def ctclip_apply(model: CTCLIP, text_tokens: dict, image: torch.Tensor, *,
                                    generator=generator, deterministic=deterministic)
     image_latents, vit_out = encode_image_latents(
         model, image, freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
-        deterministic=deterministic, plain=plain)
+        deterministic=deterministic, prepatchified=prepatchified, plain=plain)
     temp = model.temperature.exp()
     sim = (image_latents.float() @ text_latents.float().t()) * temp
     return CTCLIPOutput(sim_matrix=sim, image_latents=image_latents, text_latents=text_latents,

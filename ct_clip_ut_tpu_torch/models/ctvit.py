@@ -16,12 +16,21 @@ Training (`ctvit_apply(freeze_vq=False)`, under autograd) runs the same
 kernels through their autograd Functions: the conv embed takes the
 residual-saving patch embed and its dkw backward, the blocks their
 backward chains; the VQ returns its EMA-updated codebook.
+
+`taps` (ops/taps.py) thread through the encoder with the scopes
+"spatial." and "temporal.", plus vq.input before the VQ and vq.features
+after its straight-through (ctvit.py:191-232, 308-313): the gradient
+attribution methods inject zeros there. `prepatchified=True` feeds a [b,
+t, h, w, patch_dim] patch tensor to the matmul embed (ctvit.py:270-276):
+integrated gradients differentiates with respect to it, and
+`unpatchify_np` maps a map in patch space back to the volume on the host.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +39,7 @@ from ..ops.layers import layernorm, linear
 from ..ops.patch_embed import (fold_patch_embed, patch_embed_fused, patch_embed_grad,
                                patch_embed_plain)
 from ..ops.posbias import ContinuousPositionBias, continuous_pos_bias
+from ..ops.taps import NULL_TAPS, Taps
 from ..ops.transformer import Transformer, transformer
 from ..ops.vq import VectorQuantize, VQState, vq_apply
 
@@ -42,6 +52,18 @@ def patchify(image: torch.Tensor, patch: int, t_patch: int) -> torch.Tensor:
     x = image.reshape(b, c, t, t_patch, h, patch, w, patch)
     x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
     return x.reshape(b, t, h, w, c * t_patch * patch * patch)
+
+
+def unpatchify_np(patches, patch: int, t_patch: int, channels: int = 1) -> np.ndarray:
+    """The host (numpy) inverse of `patchify` for one volume: [t, h, w,
+    patch_dim] -> [c, t * t_patch, h * patch, w * patch], the channel axis
+    dropped for c == 1 (ctvit.py:164-178). Attribution maps computed in
+    patch space come back to the volume's layout here, once."""
+    p = np.asarray(patches)
+    t, h, w, _ = p.shape
+    x = p.reshape(t, h, w, channels, t_patch, patch, patch).transpose(3, 0, 4, 1, 5, 2, 6)
+    x = x.reshape(channels, t * t_patch, h * patch, w * patch)
+    return x[0] if channels == 1 else x
 
 
 class Patchify(nn.Module):
@@ -117,17 +139,18 @@ def _patch_embed_conv(vit: CTViT, image: torch.Tensor, plain: bool = False, *,
 
 
 def ctvit_temporal_encode(vit: CTViT, x: torch.Tensor, *, return_weights: bool = False,
-                          plain: bool = False):
+                          taps: Taps = NULL_TAPS, plain: bool = False):
     """[b, t, h, w, d] -> temporal transformer over (b h w) x t -> [b, t, h, w, d]."""
     b, t, h, w, d = x.shape
     x = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, d)
     x, weights = transformer(vit.enc_temporal_transformer, x, video_shape=(b, t, h, w),
-                             return_weights=return_weights, plain=plain)
+                             return_weights=return_weights, taps=taps, scope="temporal.",
+                             plain=plain)
     return x.reshape(b, h, w, t, d).permute(0, 3, 1, 2, 4), weights
 
 
 def ctvit_encode(vit: CTViT, tokens: torch.Tensor, *, return_weights: bool = False,
-                 plain: bool = False):
+                 taps: Taps = NULL_TAPS, plain: bool = False):
     """Factorised spatial + temporal encoding of a [b, t, h, w, d] token grid.
     Returns (x, spatial weights, temporal weights)."""
     cfg = vit.cfg
@@ -136,9 +159,10 @@ def ctvit_encode(vit: CTViT, tokens: torch.Tensor, *, return_weights: bool = Fal
                                     cfg.patch_width)
     x, sp_w = transformer(vit.enc_spatial_transformer, tokens.reshape(b * t, h * w, d),
                           video_shape=(b, t, h, w), attn_bias=attn_bias,
-                          return_weights=return_weights, plain=plain)
+                          return_weights=return_weights, taps=taps, scope="spatial.",
+                          plain=plain)
     x, tm_w = ctvit_temporal_encode(vit, x.reshape(b, t, h, w, d),
-                                    return_weights=return_weights, plain=plain)
+                                    return_weights=return_weights, taps=taps, plain=plain)
     return x, sp_w, tm_w
 
 
@@ -171,39 +195,49 @@ def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool,
 
 
 def ctvit_encode_tokens(vit: CTViT, tokens: torch.Tensor, *, freeze_vq: bool = True,
-                        return_weights: bool = False, plain: bool = False) -> CTViTOutput:
+                        return_weights: bool = False, taps: Taps = NULL_TAPS,
+                        plain: bool = False) -> CTViTOutput:
     """Transformer encode + VQ of an embedded [b, t, h, w, d] token grid
-    (ctvit.py:299-322, `_ctvit_encode_tokens`)."""
+    (ctvit.py:299-322, `_ctvit_encode_tokens`), with the taps vq.input and
+    vq.features around the VQ."""
     cfg = vit.cfg
-    x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, plain=plain)
-    b, t, h, w, d = x.shape
-    quant, idx, state = vq_apply(vit.vq.state(), x.reshape(b, t * h * w, d),
-                                 freeze=freeze_vq, decay=cfg.vq_decay, eps=cfg.vq_eps,
+    x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, taps=taps,
                                  plain=plain)
+    b, t, h, w, d = x.shape
+    flat = taps.tap("vq.input", x.reshape(b, t * h * w, d))
+    quant, idx, state = vq_apply(vit.vq.state(), flat, freeze=freeze_vq, decay=cfg.vq_decay,
+                                 eps=cfg.vq_eps, plain=plain)
+    quant = taps.tap("vq.features", quant)
     return CTViTOutput(tokens=quant.reshape(b, t, h, w, d),
                        codebook_ids=idx.reshape(b, t, h, w),
                        spatial_attn=sp_w, temporal_attn=tm_w, vq_state=state)
 
 
 def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
-                return_weights: bool = False, taps=None, deterministic: bool = True,
+                return_weights: bool = False, taps: Taps = NULL_TAPS,
+                deterministic: bool = True, prepatchified: bool = False,
                 plain: bool = False) -> CTViTOutput:
-    """Full CT-ViT forward of a [b, c, T, H, W] volume (ctvit.py:249-296).
+    """Full CT-ViT forward of a [b, c, T, H, W] volume (ctvit.py:249-296),
+    or with prepatchified=True of a [b, t, h, w, patch_dim] patch tensor
+    through the matmul embed (the ctclip model type only).
     freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
     caller writes it back). CT-ViT dropout is not ported: its rates are 0
     in every configuration the JAX package ships, and a train-mode call
     with a rate above 0 raises. On the card the image must be bf16, or fp32
     with the matmul patch embed (`check_image_dtype`)."""
     cfg = vit.cfg
-    check_image_dtype(image.dtype, image.device.type, plain, cfg.patch_embed_conv)
-    if taps is not None:
-        raise NotImplementedError(
-            "tap capture/injection is not ported yet (ROADMAP, Queue 1 item 9 (c): the "
-            "gradient attribution methods)")
     if not deterministic and (cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0):
         raise NotImplementedError(
             "CT-ViT attention / FF dropout is not ported (the kernels take no dropout); "
             "the configurations use rate 0")
+    if prepatchified:
+        assert cfg.model_type != "ctgenerate", \
+            "prepatchified input is only supported for the ctclip embed"
+        check_image_dtype(image.dtype, image.device.type, plain, conv=False)
+        return ctvit_encode_tokens(vit, _patch_embed(vit.to_patch_emb, image),
+                                   freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
+                                   plain=plain)
+    check_image_dtype(image.dtype, image.device.type, plain, cfg.patch_embed_conv)
     if cfg.patch_embed_conv:
         def embed(emb, img, t_patch):
             return _patch_embed_conv(vit, img.contiguous(), plain=plain, emb=emb,
@@ -219,4 +253,4 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     else:
         tokens = embed(vit.to_patch_emb, image, cfg.temporal_patch_size)
     return ctvit_encode_tokens(vit, tokens, freeze_vq=freeze_vq, return_weights=return_weights,
-                               plain=plain)
+                               taps=taps, plain=plain)

@@ -31,10 +31,11 @@ from torch import nn
 
 from .. import _build
 from ..config import AttentionConfig
-from .attn_block import attn_block, attn_block_bwd, attn_block_plain
-from .attn_packed import attn_packed, attn_packed_bwd, attn_packed_plain
+from .attn_block import attn_block, attn_block_bwd, attn_block_bwd_f32, attn_block_plain
+from .attn_packed import attn_packed, attn_packed_bwd, attn_packed_bwd_f32, attn_packed_plain
 from .cosine_attention import (cosine_attention_grad, cosine_attention_max_m,
                                cosine_attention_plain)
+from .fp32_grads import fp32_data_grad_only
 from .layers import FrozenBiasLayerNorm, l2norm, layernorm, linear
 from .posbias import alibi_bias, causal_mask
 
@@ -63,7 +64,9 @@ class Attention(nn.Module):
 class _BlockFn(torch.autograd.Function):
     """The fused block with its backward: attn_block (with a bias) or
     attn_packed (without), forward and backward, on CUDA tensors the kernels
-    and on CPU tensors their plain versions."""
+    and on CPU tensors their plain versions. An fp32 CUDA x takes the
+    data-gradient chain (`*_bwd_f32`) when no parameter wants its gradient,
+    and raises when one does."""
 
     @staticmethod
     def forward(ctx, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):
@@ -77,6 +80,12 @@ class _BlockFn(torch.autograd.Function):
     def backward(ctx, g):
         x, gamma, wq, wk, wv, wo, qs, ks, bias = ctx.saved_tensors
         args = (x, gamma, wq, wk, wv, wo, qs, ks)
+        if fp32_data_grad_only(ctx, x):
+            if bias is not None:
+                dx = attn_block_bwd_f32(*args, bias, g.contiguous(), ctx.scale, ctx.residual)
+            else:
+                dx = attn_packed_bwd_f32(*args, g.contiguous(), ctx.scale, ctx.residual)
+            return (dx,) + (None,) * 10
         if bias is not None:
             *grads, dbias = attn_block_bwd(*args, bias, g.contiguous(), ctx.scale, ctx.residual)
             dbias = dbias.to(bias.dtype)

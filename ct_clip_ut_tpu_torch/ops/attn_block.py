@@ -21,7 +21,11 @@ tensors (its chain is `csrc/attn_bwd.cuh`), `attn_block_bwd_plain` for CPU
 tensors. The plain backward is the
 TPU kernel's `_bwd_kernel` in plain PyTorch with its rounding points (dO,
 P, dS, the per-head output and dq / dk / dv rounded to the compute dtype
-before their products; softmax, l2-norm backward and sums in fp32).
+before their products; softmax, l2-norm backward and sums in fp32). At
+fp32 the card computes the data gradient alone: `attn_block_bwd_f32` (the
+chain `csrc/attn_bwd_f32.cuh`, every product three bf16 products of hi /
+lo planes), the gradient attribution methods' backward; the fp32
+parameter gradients raise (ROADMAP Queue 2 item 14, fourth group).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from .. import _build
 from . import launches
+from .fp32_grads import FP32_PARAM_GRADS
 
 DIM_HEAD = 32   # the head width the CUDA attention cores take
 
@@ -258,9 +263,7 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
     gradients of attn_block_bwd_plain, in fp32 but dx. The one place that
     knows the entries' workspaces."""
     if x.dtype == torch.float32:
-        raise NotImplementedError(
-            "the fp32 attention-block backward on the card is not ported yet (ROADMAP Queue 2 "
-            "item 14, second group: the gradient attribution methods)")
+        raise NotImplementedError(FP32_PARAM_GRADS)
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, lib.ctc_attn_bwd_max_n())
     dev = x.device
@@ -316,3 +319,65 @@ def attn_block_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                             scale, residual)
     launches.count("attn_block_bwd")
     return grads
+
+
+def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale: float,
+                        residual: bool, one_pass: bool = False) -> torch.Tensor:
+    """Run the fp32 data-gradient chain `entry` (ctc_attn_block_bwd_f32 with
+    a bias, ctc_attn_packed_bwd_f32 with None) on CUDA tensors; returns dx
+    (+ g under residual). The one place that knows their workspaces.
+    one_pass zeroes every lo plane (the control)."""
+    lib = _build.load()
+    r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
+                                      lib.ctc_attn_bwd_f32_max_n(), torch.float32)
+    dev = x.device
+    _build.require(g, "g", torch.float32, (r, n, d), dev)
+    if bias is not None:
+        _build.require(bias, "bias", torch.float32, (heads, n, n), dev)
+    m, hd = r * n, heads * DIM_HEAD
+    x, g, gamma, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, g, gamma, wq, wk, wv, wo))
+    f32 = dict(dtype=torch.float32, device=dev)
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    # xn's and x's planes; the weights' (wq | wk | wv stacked, wo); g's; q / k
+    # planes, their unit rows and norms; [biasT]; v, dO, o planes; row
+    # statistics; dq, dk | dv planes; dxn, dx_direct
+    work = [torch.empty((4, m, d), **b16), torch.empty((2, 3 * hd, d), **b16),
+            torch.empty((2, d, hd), **b16), torch.empty((2, m, d), **b16),
+            torch.empty((4, m, hd), **b16), torch.empty((2, m, hd), **f32),
+            torch.empty((2, m, heads), **f32)]
+    if bias is not None:
+        work.append(torch.empty((heads, n, n), **f32))
+    work += [torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16),
+             torch.empty((2, m, hd), **b16), torch.empty((m * heads, 4), **f32),
+             torch.empty((2, m, hd), **b16), torch.empty((2, m, 2 * hd), **b16),
+             torch.empty((m, d), **f32), torch.empty((m, d), **f32)]
+    dx = torch.empty_like(x)
+    ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else []) + [g]
+    err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in work),
+                              dx.data_ptr(), r, n, d, heads, float(scale), int(residual),
+                              int(one_pass), _build.stream_of(x))
+    _build.check(err, entry)
+    return dx
+
+
+def attn_block_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
+                       wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
+                       qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
+                       g: torch.Tensor, scale: float = 8.0, residual: bool = False, *,
+                       one_pass: bool = False) -> torch.Tensor:
+    """dx of attn_block_plain at fp32 against cotangent g: the fp32
+    data-gradient chain on CUDA tensors (fp32 x, weights, g and bias [h,
+    n, n]; one_pass=True zeroes every lo plane, the control, and does not
+    count as a launch of the path), the plain backward's dx on CPU
+    tensors."""
+    if not _build.on_cuda(x):
+        return attn_block_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale,
+                                    residual)[0]
+    if bias is None:
+        raise ValueError("attn_block_bwd_f32 takes a bias [h, n, n]; attn_packed_bwd_f32 is the "
+                         "block without")
+    dx = launch_attn_bwd_f32("ctc_attn_block_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks, bias, g,
+                             scale, residual, one_pass)
+    if not one_pass:
+        launches.count("attn_block_bwd_f32")
+    return dx

@@ -15,7 +15,9 @@ what the core stages (`ctc_attn_packed_max_n`).
 
 The backward (pallas_attn_packed._backward_impl) is `attn_packed_bwd`: the
 CUDA chain `csrc/attn_packed_bwd.cu` for CUDA tensors, the plain backward
-(`attn_block_bwd_plain` without a bias) for CPU tensors.
+(`attn_block_bwd_plain` without a bias) for CPU tensors; at fp32 the card
+computes dx alone, `attn_packed_bwd_f32` (`csrc/attn_packed_bwd_f32.cu`,
+the spatial block's fp32 chain without the bias).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 
 from .. import _build
 from . import launches
-from .attn_block import (attn_block_bwd_plain, attn_block_plain, launch_attn_bwd, launch_block,
-                         launch_block_f32)
+from .attn_block import (attn_block_bwd_plain, attn_block_plain, launch_attn_bwd,
+                         launch_attn_bwd_f32, launch_block, launch_block_f32)
 
 
 def attn_packed_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -78,3 +80,20 @@ def attn_packed_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                             scale, residual)[:8]
     launches.count("attn_packed_bwd")
     return grads
+
+
+def attn_packed_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
+                        wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
+                        qs: torch.Tensor, ks: torch.Tensor, g: torch.Tensor,
+                        scale: float = 8.0, residual: bool = False, *,
+                        one_pass: bool = False) -> torch.Tensor:
+    """dx of attn_packed_plain at fp32: the fp32 data-gradient chain on
+    CUDA tensors (one_pass as `attn_block_bwd_f32`'s), the plain
+    backward's dx on CPU tensors."""
+    if not _build.on_cuda(x):
+        return attn_packed_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, g, scale, residual)[0]
+    dx = launch_attn_bwd_f32("ctc_attn_packed_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks, None,
+                             g, scale, residual, one_pass)
+    if not one_pass:
+        launches.count("attn_packed_bwd_f32")
+    return dx

@@ -14,7 +14,11 @@ The backward (pallas_ff._backward_impl) is `geglu_ff_bwd`: the CUDA chain
 `csrc/geglu_ff_bwd.cu` for CUDA tensors, `geglu_ff_bwd_plain` for CPU
 tensors; the plain backward keeps the TPU kernel's rounding points (xn, h,
 dvalue and dgate rounded to the compute dtype before their products) with
-the exact-erf GELU and its closed-form derivative.
+the exact-erf GELU and its closed-form derivative. At fp32 the card
+computes the data gradient alone, `geglu_ff_bwd_f32` (`csrc/geglu_ff_bwd_f32.cu`,
+every product three bf16 products of hi / lo planes): `_GegluFFFn` takes it
+when no parameter needs its gradient, the gradient attribution methods'
+case, and raises otherwise (ROADMAP Queue 2 item 14, fourth group).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from .. import _build
 from . import launches
+from .fp32_grads import FP32_PARAM_GRADS, fp32_data_grad_only
 
 
 def geglu_ff_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -99,6 +104,19 @@ def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
+def _bf16_plane_rows(w_out: torch.Tensor) -> tuple:
+    """(fp32 w_out [D, ld], ld): its rows zero-padded to the 16-B pitch of
+    its bf16 planes (the fp32 chains' h / dvalue | dgate columns and W2's
+    rows), a copy made on this call where inner is not already that pitch."""
+    d, inner = w_out.shape
+    ld = _build.tma_pitch(inner)
+    if ld == inner:
+        return w_out, ld
+    w2 = w_out.new_zeros((d, ld))
+    w2[:, :inner] = w_out
+    return w2, ld
+
+
 def geglu_ff_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w_in: torch.Tensor, w_out: torch.Tensor, residual: bool = False, *,
                  one_pass: bool = False) -> torch.Tensor:
@@ -116,11 +134,7 @@ def geglu_ff_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         _build.require(t, name, f32, shape, dev)
     if d % 8:
         raise ValueError(f"the geglu_ff kernels take a width that 8 divides, got {d}")
-    ld = _build.tma_pitch(inner)            # 16-B rows of the bf16 planes of h and w_out
-    w2 = w_out
-    if ld != inner:
-        w2 = w_out.new_zeros((d, ld))
-        w2[:, :inner] = w_out
+    w2, ld = _bf16_plane_rows(w_out)
     x, gamma, beta, w_in, w2 = (_build.aligned16(t) for t in (x, gamma, beta, w_in, w2))
     b16 = dict(dtype=torch.bfloat16, device=dev)
     work = (torch.empty((2, n, d), **b16), torch.empty((2, 2 * inner, d), **b16),
@@ -190,9 +204,7 @@ def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if not _build.on_cuda(x):
         return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)
     if x.dtype == torch.float32:
-        raise NotImplementedError(
-            "the fp32 geglu_ff backward on the card is not ported yet (ROADMAP Queue 2 item 14, "
-            "second group: the gradient attribution methods)")
+        raise NotImplementedError(FP32_PARAM_GRADS)
     n, d = x.shape
     inner = w_out.shape[1]
     dev = x.device
@@ -229,6 +241,47 @@ def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return dx, dgamma, dbeta, dw_in, dw_out
 
 
+def geglu_ff_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     w_in: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
+                     residual: bool = False, *, one_pass: bool = False) -> torch.Tensor:
+    """dx of geglu_ff_plain at fp32 against cotangent g [N, D]: the fp32
+    data-gradient chain `ctc_geglu_ff_bwd_f32` on CUDA tensors (fp32 x, g,
+    gains and weights, a width that 8 divides; one_pass=True zeroes every
+    lo plane, the control, and does not count as a launch of the path), the
+    plain backward's dx on CPU tensors."""
+    if not _build.on_cuda(x):
+        return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)[0]
+    n, d = x.shape
+    inner = w_out.shape[1]
+    dev = x.device
+    for t, name, shape in ((x, "x", (n, d)), (gamma, "gamma", (d,)), (beta, "beta", (d,)),
+                           (w_in, "w_in", (2 * inner, d)), (w_out, "w_out", (d, inner)),
+                           (g, "g", (n, d))):
+        _build.require(t, name, torch.float32, shape, dev)
+    if d % 8:
+        raise ValueError(f"the geglu_ff kernels take a width that 8 divides, got {d}")
+    w2, ld = _bf16_plane_rows(w_out)
+    x, gamma, beta, w_in, w2, g = (_build.aligned16(t) for t in (x, gamma, beta, w_in, w2, g))
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # the weights' planes (w_in's zero-padded to [2 ld, D]: value rows, then
+    # the gate rows at row ld), xn's and g's planes, dh, [dvalue | dgate]'s
+    # planes, dxn
+    work = (torch.zeros((2, 2 * ld, d), **b16), torch.empty((2, d, ld), **b16),
+            torch.empty((2, n, d), **b16), torch.empty((2, n, d), **b16),
+            torch.empty((n, ld), **f32), torch.empty((2, n, 2 * ld), **b16),
+            torch.empty((n, d), **f32))
+    dx = torch.empty_like(x)
+    err = _build.load().ctc_geglu_ff_bwd_f32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_in.data_ptr(), w2.data_ptr(),
+        g.data_ptr(), *(w.data_ptr() for w in work), dx.data_ptr(), n, d, inner, ld, ld,
+        int(residual), int(one_pass), _build.stream_of(x))
+    _build.check(err, "geglu_ff_bwd_f32")
+    if not one_pass:
+        launches.count("geglu_ff_bwd_f32")
+    return dx
+
+
 class _GegluFFFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w_in, w_out, residual):
@@ -239,6 +292,9 @@ class _GegluFFFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, w_in, w_out = ctx.saved_tensors
+        if fp32_data_grad_only(ctx, x):
+            return (geglu_ff_bwd_f32(x, gamma, beta, w_in, w_out, g.contiguous(), ctx.residual),
+                    None, None, None, None, None)
         dx, dgamma, dbeta, dw_in, dw_out = geglu_ff_bwd(x, gamma, beta, w_in, w_out,
                                                         g.contiguous(), ctx.residual)
         return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dw_in.to(w_in.dtype),

@@ -8,13 +8,20 @@ but the named points and the injection contract are what the JAX package's
 callers (MaskGit's last cross-attention, the attribution suite) are written
 against.
 
-The port's transformer has one tap point per layer i so far,
-{i}.cross_attn_weights. The forward attribution methods (`attribution/`:
-raw attention, rollout, occlusion) read the self-attention weights as the
-transformer's outputs (return_weights) and need no tap; the JAX package's
-other points (block outputs before the residual with the `spatial.` /
-`temporal.` scope prefixes, vq.features and vq.input) come with the
-gradient methods that inject at them (ROADMAP Queue 1 item 9 (c)).
+Tap names (the scope prefixes "spatial." / "temporal." in the CT-ViT, ""
+in MaskGit), per layer i of a transformer (ops/transformer.py):
+  {scope}{i}.attn_weights        self-attention weights [b, heads, n, n]
+  {scope}{i}.attn_out            self-attention block output, pre-residual
+  {scope}{i}.cross_attn_weights  cross-attention weights (MaskGit's last
+                                 layer's are the one the port's callers read)
+  {scope}{i}.cross_attn_out      cross-attention block output, pre-residual
+  {scope}{i}.ff_out              feed-forward block output, pre-residual
+and in the CT-ViT (models/ctvit.py):
+  vq.input                       the encoder output before the VQ [b, n, d]
+  vq.features                    the straight-through quantized tokens
+Grad-CAM (attribution/grad_cam.py) injects zeros at the block outputs and
+vq.features and reads their gradients; the forward methods read the
+weights as the transformer's outputs (return_weights) and need no tap.
 """
 
 from __future__ import annotations

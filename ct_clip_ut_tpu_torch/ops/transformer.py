@@ -11,9 +11,15 @@ peg stencil kernel and, in the backward, the peg_weight_grads kernel
 (ops/attention_blockwise.py, the attn_qrows kernel) for long token grids;
 `self_attn_bias_fn` then streams the bias as row stripes. Self-attention
 weights are not observable there (asserted, as in the JAX package).
-Cross-attention (MaskGit's, to the T5 context) is the plain path; its
-weights reach the caller through the taps `{i}.cross_attn_weights`, the
-one tap point the port's callers read (MaskGit's last cross-attention).
+Cross-attention (MaskGit's, to the T5 context) is the plain path.
+
+Tap points of layer i (transformer.py:168-222), under a `scope` prefix
+(the CT-ViT's "spatial." / "temporal."; MaskGit's ""):
+{scope}{i}.attn_weights, {scope}{i}.attn_out, {scope}{i}.cross_attn_weights,
+{scope}{i}.cross_attn_out, {scope}{i}.ff_out. A block output is tapped
+BEFORE its residual: a block whose output is captured or injected runs its
+kernel with residual=False and the residual is added after the tap; an
+untapped block keeps the residual fused into its kernel's output write.
 """
 
 from __future__ import annotations
@@ -54,11 +60,12 @@ def transformer(tf: Transformer, x: torch.Tensor, *,
                 cross_attn_context_mask: Optional[torch.Tensor] = None,
                 return_weights: bool = False,
                 taps: Taps = NULL_TAPS,
+                scope: str = "",
                 self_attn_block: Optional[int] = None,
                 self_attn_bias_fn=None,
                 plain: bool = False):
-    """(out, per-layer self-attention weights or None) for x [b, n, dim].
-    Tap point per layer i: {i}.cross_attn_weights (transformer.py:197-214)."""
+    """(out, per-layer self-attention weights or None) for x [b, n, dim],
+    with the tap points of the module docstring under `scope`."""
     if self_attn_block is not None:
         assert self_attn_mask is None, \
             "blockwise self-attention does not support a key-padding mask"
@@ -67,28 +74,46 @@ def transformer(tf: Transformer, x: torch.Tensor, *,
         assert self_attn_bias_fn is None, \
             "self_attn_bias_fn without self_attn_block would silently drop the positional bias"
 
+    def observed(name):
+        return name in taps.inject or taps.wants(name)
+
     weights = []
     for i, (peg, attn, cross, ff) in enumerate(tf.layers):
         if peg is not None:
             x = peg(x, video_shape, plain=plain)
 
+        name = f"{scope}{i}.attn_out"
+        tapped = observed(name)
+        want_w = return_weights or taps.wants(f"{scope}{i}.attn_weights")
         if self_attn_block is not None:
-            x = blockwise_cosine_attention_qrows(
+            if want_w:
+                raise ValueError("self-attention weights requested (taps) on the blockwise "
+                                 "path: they are not observable there")
+            out = blockwise_cosine_attention_qrows(
                 attn, x, q_block=self_attn_block, attn_bias=attn_bias,
-                bias_row_fn=self_attn_bias_fn, residual=True, plain=plain)
+                bias_row_fn=self_attn_bias_fn, residual=not tapped, plain=plain)
             w = None
         else:
-            x, w = attention(attn, x, attn_bias=attn_bias, mask=self_attn_mask,
-                             return_weights=return_weights, residual=True, plain=plain)
+            out, w = attention(attn, x, attn_bias=attn_bias, mask=self_attn_mask,
+                               return_weights=want_w, residual=not tapped, plain=plain)
+        if w is not None:
+            w = taps.tap(f"{scope}{i}.attn_weights", w)
         weights.append(w)
+        x = taps.tap(name, out) + x if tapped else out
 
         if cross is not None and context is not None:
-            name = f"{i}.cross_attn_weights"
-            x, cw = attention(cross, x, context=context, mask=cross_attn_context_mask,
-                              return_weights=taps.wants(name), residual=True,
-                              plain=plain)
+            name = f"{scope}{i}.cross_attn_out"
+            tapped = observed(name)
+            wname = f"{scope}{i}.cross_attn_weights"
+            out, cw = attention(cross, x, context=context, mask=cross_attn_context_mask,
+                                return_weights=taps.wants(wname), residual=not tapped,
+                                plain=plain)
             if cw is not None:
-                taps.tap(name, cw)
+                taps.tap(wname, cw)
+            x = taps.tap(name, out) + x if tapped else out
 
-        x = ff(x, residual=True, plain=plain)
+        name = f"{scope}{i}.ff_out"
+        tapped = observed(name)
+        out = ff(x, residual=not tapped, plain=plain)
+        x = taps.tap(name, out) + x if tapped else out
     return layernorm(x, tf.norm_out.gamma), (tuple(weights) if return_weights else None)

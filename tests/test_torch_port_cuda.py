@@ -1411,3 +1411,109 @@ def test_fp32_vq_nearest_matches_plain_on_card(cuda_device):
         assert (sims.gather(1, got[bad, None]) - sims.gather(1, want[bad, None])).abs().max() <= 1e-5
     one = vq_nearest_f32(tok, cb, one_pass=True).long()
     assert (one == want).float().mean().item() < 0.9999
+
+
+# ---- the fp32 data-gradient chains (the gradient attribution methods) ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("r,n,bias", [(24, 576, True), (3, 100, True), (2, 101, True),
+                                      (576, 24, False), (5, 7, False)])
+def test_fp32_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, bias, residual):
+    """dx of the fp32 chains (tc::block_backward_f32) at Grad-CAM's spatial
+    and temporal shapes, ragged and odd ones (n = 101: the bias read one
+    key at a time): within F32_BAND of the plain backward's dx in fp32,
+    the same bits on two calls; the chain with its lo planes zeroed and
+    the plain backward with the softmax row term, the l2-norm projection
+    or the LN gain left out outside it."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd_f32, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd_f32
+
+    rng = np.random.default_rng(71)
+    a = _attn_inputs(rng, r=r, n=n, d=512, heads=8, dh=32, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    b = torch.from_numpy(a["bias"]).to(cuda_device) if bias else None
+    g = torch.from_numpy(rng.standard_normal((r, n, 512)).astype(np.float32)).to(cuda_device)
+
+    def kern(one_pass=False):
+        if bias:
+            return attn_block_bwd_f32(*args, b, g, 8.0, residual, one_pass=one_pass)
+        return attn_packed_bwd_f32(*args, g, 8.0, residual, one_pass=one_pass)
+
+    name = "attn_block_bwd_f32" if bias else "attn_packed_bwd_f32"
+    launches.reset_launch_counts()
+    got = kern()
+    assert launches.launch_counts()[name] == 1 and got.dtype == torch.float32
+    assert torch.equal(got, kern())
+    want = attn_block_bwd_plain(*args, b, g, 8.0, residual)[0]
+    assert _rel_err(got, want) <= F32_BAND
+    if not residual:
+        assert _rel_err(kern(one_pass=True), want) > F32_BAND
+        for fault in ("row_term", "l2norm", "gamma"):
+            wrong = attn_block_bwd_plain(*args, b, g, 8.0, False, faults=(fault,))[0]
+            assert _rel_err(got, wrong) > F32_BAND, fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,residual", [(13824, False), (13824, True), (77, False)])
+def test_fp32_bwd_geglu_ff_matches_plain_on_card(cuda_device, n, residual):
+    """dx of the fp32 FF chain (ctc_geglu_ff_bwd_f32: dh through memory,
+    the recompute writing dvalue | dgate as planes, inner 1365 padded to
+    1368) within F32_BAND of the plain backward's, the same bits on two
+    calls; the one-pass chain and the plain backward with GELU for its
+    derivative or without the LN gain outside it."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd_f32, geglu_ff_bwd_plain
+
+    rng = np.random.default_rng(72)
+    args = [t.to(cuda_device) for t in _torch_ff_args(_ff_inputs(rng, n=n, dim=512))]
+    g = torch.from_numpy(rng.standard_normal((n, 512)).astype(np.float32)).to(cuda_device)
+    launches.reset_launch_counts()
+    got = geglu_ff_bwd_f32(*args, g, residual)
+    assert launches.launch_counts()["geglu_ff_bwd_f32"] == 1 and got.dtype == torch.float32
+    assert torch.equal(got, geglu_ff_bwd_f32(*args, g, residual))
+    want = geglu_ff_bwd_plain(*args, g, residual)[0]
+    assert _rel_err(got, want) <= F32_BAND
+    if not residual:
+        assert _rel_err(geglu_ff_bwd_f32(*args, g, one_pass=True), want) > F32_BAND
+        for fault in ("gelu_prime", "gamma"):
+            wrong = geglu_ff_bwd_plain(*args, g, False, faults=(fault,))[0]
+            assert _rel_err(got, wrong) > F32_BAND, fault
+
+
+@pytest.mark.cuda
+def test_fp32_bwd_autograd_routes_on_card(cuda_device):
+    """Under autograd at fp32 with every parameter frozen, the blocks'
+    Functions launch the data-gradient chains (one each) and their dx
+    matches autograd of the plain blocks; with the parameters wanting their
+    gradients, the backward raises (Queue 2 item 14, fourth group)."""
+    from ct_clip_ut_tpu_torch.config import TransformerConfig
+    from ct_clip_ut_tpu_torch.ops.attention import attention
+    from ct_clip_ut_tpu_torch.ops.layers import feedforward
+    from ct_clip_ut_tpu_torch.ops.transformer import Transformer
+
+    torch.manual_seed(73)
+    tf = Transformer(TransformerConfig(dim=512, depth=1, dim_head=32, heads=8)).to(cuda_device)
+    _, attn, _, ff = tf.layers[0]
+    x0 = torch.randn((3, 24, 512), device=cuda_device)
+    bias = torch.randn((8, 24, 24), device=cuda_device)
+
+    def run(plain, attn_bias):
+        x = x0.clone().requires_grad_(True)
+        y = attention(attn, x, attn_bias=attn_bias, return_weights=False, residual=True,
+                      plain=plain).out
+        y = feedforward(ff, y, residual=True, plain=plain)
+        (gx,) = torch.autograd.grad((y * y).sum(), x)
+        return gx
+
+    for attn_bias, name in ((None, "attn_packed_bwd_f32"), (bias, "attn_block_bwd_f32")):
+        for p in tf.parameters():
+            p.requires_grad_(False)
+        launches.reset_launch_counts()
+        got = run(False, attn_bias)
+        counts = launches.launch_counts()
+        assert counts[name] == 1 and counts["geglu_ff_bwd_f32"] == 1, counts
+        assert _rel_err(got, run(True, attn_bias)) <= F32_BAND
+        for p in tf.parameters():
+            p.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
+            run(False, attn_bias)

@@ -251,15 +251,49 @@ def test_fp32_tensors_reach_the_fp32_entries_and_fp16_is_refused(fake_card, kern
 
 
 def test_the_fp32_backwards_raise_on_the_card(fake_card):
+    """At fp32 the card computes the blocks' and the FF's data gradient
+    alone: the dx-only entries launch with their sizes, through the
+    wrappers and through the autograd Functions when every parameter is
+    frozen; the full backward wrappers, and a Function whose parameters
+    want their gradients, raise (ROADMAP Queue 2 item 14, fourth group)."""
+    from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
+
     a = _attn_inputs(np.random.default_rng(1), 2, 24, 64, 4, 32, True)
     args = _torch_attn_args(a)
+    bias = torch.from_numpy(a["bias"])
     g = torch.zeros_like(args[0])
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, second group"):
-        attn_block.attn_block_bwd(*args, torch.from_numpy(a["bias"]), g)
     ff = _torch_ff_args(_ff_inputs(np.random.default_rng(2)))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, second group"):
+    attn_block.attn_block_bwd_f32(*args, bias, g)
+    attn_packed.attn_packed_bwd_f32(*args, g)
+    geglu_ff.geglu_ff_bwd_f32(*ff, torch.zeros_like(ff[0]))
+    assert [c[0] for c in fake_card.calls] == ["ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32",
+                                               "ctc_geglu_ff_bwd_f32"]
+    block_ints = (2, 24, 64, 4, SCALE, 0, 0)          # R, n, D, H, scale, residual, flags
+    assert fake_card.calls[0][1][-1 - len(block_ints):-1] == block_ints
+    assert fake_card.calls[1][1][-1 - len(block_ints):-1] == block_ints
+    ff_ints = (20, 64, 170, 176, 176, 0, 0)           # n, d, inner, ldh, ldw, residual, flags
+    assert fake_card.calls[2][1][-1 - len(ff_ints):-1] == ff_ints
+    counts = launches.launch_counts()
+    assert [counts[k] for k in ("attn_block_bwd_f32", "attn_packed_bwd_f32",
+                                "geglu_ff_bwd_f32")] == [1, 1, 1]
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
+        attn_block.attn_block_bwd(*args, bias, g)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
         geglu_ff.geglu_ff_bwd(*ff, torch.zeros_like(ff[0]))
-    assert fake_card.calls == []
+
+    fake_card.calls.clear()
+    x = args[0].clone().requires_grad_(True)
+    _BlockFn.apply(x, *args[1:], bias, SCALE, True).sum().backward()
+    fx = ff[0].clone().requires_grad_(True)
+    geglu_ff.geglu_ff_grad(fx, *ff[1:], True).sum().backward()
+    assert [c[0] for c in fake_card.calls] == ["ctc_attn_block_f32", "ctc_attn_block_bwd_f32",
+                                               "ctc_geglu_ff_f32", "ctc_geglu_ff_bwd_f32"]
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
+        wq = args[2].clone().requires_grad_(True)
+        _BlockFn.apply(x, args[1], wq, *args[3:], bias, SCALE, True).sum().backward()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
+        gamma = ff[1].clone().requires_grad_(True)
+        geglu_ff.geglu_ff_grad(fx, gamma, *ff[2:], True).sum().backward()
 
 
 def test_image_dtype_gate():

@@ -119,7 +119,8 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
-    assert len(launches.KERNELS) == 22          # 18 kernels and the fp32 variants of four
+    # 18 kernels, the fp32 variants of four and the fp32 data-gradient chains of three
+    assert len(launches.KERNELS) == 25
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -133,7 +134,8 @@ def test_build_sources_are_the_package_csrc():
                      "bert_bf16.cuh", "bert_layer_bf16.cu", "bert_layer_bwd.cu", "peg.cu",
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
                      "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
-                     "attn_mma.cuh", "wgrad_sm90.cuh", "split_sm90.cuh"}
+                     "attn_mma.cuh", "wgrad_sm90.cuh", "split_sm90.cuh", "attn_bwd_f32.cuh",
+                     "attn_block_bwd_f32.cu", "attn_packed_bwd_f32.cu", "geglu_ff_bwd_f32.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
@@ -141,7 +143,9 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_geglu_ff_bwd", "ctc_patch_embed_res", "ctc_patch_embed_dkw",
                 "ctc_bert_layer_bf16", "ctc_bert_layer_bwd", "ctc_bert_keep_mask", "ctc_peg",
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
-                "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check", "ctc_wgrad_sm90_check"))
+                "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check", "ctc_wgrad_sm90_check",
+                "ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32", "ctc_geglu_ff_bwd_f32",
+                "ctc_attn_bwd_f32_max_n"))
 
 
 def test_signatures_match_the_c_entries():
