@@ -147,7 +147,7 @@ Phases, each printing its lines before the last:
      bf16 scans [2, 1, 201, 128, 128], every kernel of that path launched;
      the feature map and the cross-attention held against plain=True, from
      the same codebook ids and end to end, with the plain tokenizer's id
-     agreement; an fp32 scan refused; and `maskgit_generate` at B = 1 over
+     agreement; and `maskgit_generate` at B = 1 over
      18 steps: 108 attn_qrows launches, every id inside the codebook;
  10. the forward attribution methods in fp32 at flagship width (random
      weights from seed 0, the matmul patch embed of `capture.parity_cfg`,
@@ -173,7 +173,7 @@ Phases, each printing its lines before the last:
      one of its VQ indices flipped between the two paths, each flip a tie
      within VQ_F32_TIE (counted per forward by patching the models' VQ
      call), a second sweep the same bits, a sweep shifted by one stride
-     outside the band; an fp32 image through the conv patch embed refused.
+     outside the band.
  11. the gradient attribution methods in fp32 at flagship width (phase
      10's model, volume and prompt): first the fp32 data-gradient chains of
      rows 7-9 (attn_block, attn_packed and geglu_ff backward, dx alone)
@@ -200,6 +200,27 @@ Phases, each printing its lines before the last:
      the threshold and the final map off the threshold's crossings within
      MAP_BAND, each crossing within IG_CROSS_BAND of the threshold, the VQ
      flips of each forward counted.
+ 12. CTGenerate's one-scan fp32 route at CTGenerateConfig() (the JAX
+     script's --batch-size 1 default): rows 5f (the fp32 conv patch embed
+     at the route's two temporal patches, timed together) and 13f (the
+     fp32 q-row attention at [1, 6464, 512] with the fp32 [8, 6464, 6464]
+     table) against their plain versions (F32_BAND; controls one bf16
+     product each, and 13f's bias or q scale left out), times, `bound_ms`,
+     the fp32 PyTorch chains as `library_ms`; then, counted,
+     `inference_ctgenerate.main --data-valid` over 2 synthetic NIfTI
+     volumes at --batch-size 1: 5f x 2 and 13f x 6 a scan, the fp32
+     CT-ViT variants, no bf16 kernel; each scan through `localize_scan`
+     timed and against plain=True (heatmaps within HEAT_BAND where no
+     codebook id flipped, each flip a tie within VQ_F32_TIE, the files the
+     CLI wrote the same maps), control scan 0's report over scan 1.
+ 13. the attribution suite: `CTClipInference.infer()` with zero-shot and
+     the five methods (render_gifs off; occlusion at 27 windows through the
+     flags dict, integrated gradients at 50 steps) on one flagship fp32
+     volume, then occlusion's text-embeds mode: every artifact at the JAX
+     suite's path and within SUITE_BAND of a direct call of its method,
+     seconds a method; `scripts.embedding_arithmetic.main` over 64
+     512-token reports in batches of 32 (the fp32 bert_layer), its CLS and
+     diff embeddings against plain=True within EMBED_BAND of the CLS scale.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -208,7 +229,8 @@ The line before the last is the kernels' JSON record (launches: the
 zero-shot run's counts for the forward kernels, phase 4b's for
 geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
 the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
-variants, phase 11's for the fp32 backwards); the last line is {"ok": true,
+variants, phase 11's for the fp32 backwards, phase 12's --data-valid run
+for rows 5f and 13f); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -316,6 +338,10 @@ KERNELS = {
                             "ct_clip_ut_tpu/ops/pallas_attn_packed.py:424"),
     "geglu_ff_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_bwd_f32.cu",
                          "ct_clip_ut_tpu/ops/pallas_ff.py:234"),
+    "patch_embed_f32": ("ct_clip_ut_tpu_torch/csrc/patch_embed.cu",
+                        "ct_clip_ut_tpu/ops/pallas_patch_embed.py:287"),
+    "attn_qrows_f32": ("ct_clip_ut_tpu_torch/csrc/attn_qrows.cu",
+                       "ct_clip_ut_tpu/ops/pallas_attn_qrows.py:230"),
 }
 # Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
 F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
@@ -336,6 +362,21 @@ IG_CROSS_BAND = 1e-5    # an IG threshold crossing's distance from the threshold
 BERT_PEG_KERNELS = ("bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
 TRAIN_KERNELS = ("attn_block_bwd", "attn_packed_bwd", "geglu_ff_bwd", "patch_embed_res",
                  "patch_embed_dkw", *BERT_PEG_KERNELS)
+# Phase 12, CTGenerate's one-scan fp32 route (rows 5f and 13f):
+CTGEN_F32_KERNELS = {"patch_embed_f32": 2, "attn_qrows_f32": 6}   # launches a one-scan forward
+CTGEN_F32_PATH = ("attn_block_f32", "attn_packed_f32", "geglu_ff_f32", "vq_nearest_f32")
+CTGEN_BF16 = ("patch_embed", "attn_block", "attn_packed", "geglu_ff", "vq_nearest", "attn_qrows")
+CTGEN_SCANS = 2                      # synthetic NIfTI volumes of the --data-valid run
+HEAT_BAND = 1e-3                     # max abs error of a [0, 1] heatmap vs plain=True (ids equal)
+CTGEN_REPORTS = ("Mild emphysema in both upper lobes and a lung nodule on the right.",
+                 "Cardiomegaly with a small pericardial effusion and atelectasis.")
+CTGEN_POSITIVES = (("Emphysema", "Lung nodule", "Hiatal hernia"),
+                   ("Cardiomegaly", "Pericardial effusion", "Atelectasis"))
+# Phase 13, the attribution suite and embedding arithmetic at flagship width:
+SUITE_OCC = dict(patch_size=(80, 160, 160), stride=(80, 160, 160))   # 3 x 3 x 3 = 27 windows
+SUITE_BAND = 1e-6       # an artifact vs a direct call of its method (the same kernels, max abs)
+EMBED_BAND = 1e-4       # max abs error of the CLS / diff embeddings vs plain=True over the CLS scale
+EMBED_REPORTS, EMBED_BATCH = 64, 32
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
 CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
                  "vq_nearest": 1, "attn_qrows": 6}
@@ -343,7 +384,7 @@ CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff"
 # CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
 # core, the attribution suite's fp32 variants (phase 10) and fp32 backwards (phase 11)
 SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS,
-                   *GRADIENT_KERNELS)
+                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -402,7 +443,12 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "fp32 block backward's dO as hi / lo planes (SplitKNPlan, SplitOutEpi)":
                      "11SplitKNPlanENS0_11SplitOutEpi",
                  "fp32 geglu_ff backward recompute writing dvalue | dgate (GateBwdSplitEpi)":
-                     "15GateBwdSplitEpi"}
+                     "15GateBwdSplitEpi",
+                 "fp32 patch_embed product (SplitPlan into PatchF32Epi)": "2pe11PatchF32Epi",
+                 "fp32 attn_qrows projections (QkvSplitPlan into qr::QkvEpi)":
+                     "12QkvSplitPlanENS_2qr6QkvEpi",
+                 "fp32 attn_qrows core (split scores and P.V, the fp32 bias)":
+                     ("2qr11core_kernel", "Li128ELb1ELb1E")}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -477,7 +523,7 @@ def sass_check(lib: Path) -> None:
     if not all(mma.values()):
         raise AssertionError(f"an attention core without mma.sync: {mma}")
     for what, mark in SASS_REQUIRED.items():
-        found = {fn: n for fn, n in counts.items() if mark in fn}
+        found = {fn: n for fn, n in counts.items() if marked(fn, mark)}
         print(f"sass: {what}: {sum(found.values())} HGMMA in {len(found)} kernel(s)")
         if not found:
             raise AssertionError(f"no wgmma kernel for {what} in the library")
@@ -2299,15 +2345,6 @@ def ctgenerate_phase(torch, card: str) -> tuple:
               f"{json.dumps({k: float(f'{v:.3e}') for k, v in controls.items()})}")
         if not (math.isfinite(err) and err <= band < min(controls.values())):
             raise AssertionError(f"ctgenerate {name}: {err}, band {band}, controls {controls}")
-    try:
-        ctgenerate_apply_batched(model, scans.float(), emb, mask, bias_cache=cache)
-    except NotImplementedError as e:
-        if "ROADMAP" not in str(e):
-            raise
-        print(f"ctgenerate: an fp32 scan is refused: {e}")
-    else:
-        raise AssertionError("an fp32 scan ran on the card")
-
     launches.reset_launch_counts()
     t0 = time.perf_counter()
     grid_ids = generate(model, t5, ["mild emphysema in the lower lobes"], CTGEN_SCAN[1],
@@ -2574,7 +2611,7 @@ def attribution_phase(torch, card: str) -> tuple:
     from ct_clip_ut_tpu_torch.attribution import capture, occlusion, raw_attention, rollout
     from ct_clip_ut_tpu_torch.config import OcclusionConfig, flagship_cfg
     from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
-    from ct_clip_ut_tpu_torch.models.ctclip import ctclip_apply, init_ctclip
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
     from ct_clip_ut_tpu_torch.ops import launches
 
     cfg = flagship_cfg()
@@ -2706,15 +2743,6 @@ def attribution_phase(torch, card: str) -> tuple:
                                  f"{OCC_BAND}, or a flip at no tie ({max(gaps, default=0.0)})")
     if not (shift_errs <= OCC_BAND).mean() < 0.5:
         raise AssertionError("occlusion: the band passes a sweep shifted by one stride")
-
-    # an fp32 image through the conv patch embed is still refused on the card
-    try:
-        with torch.no_grad():
-            ctclip_apply(model, prompt, image)
-    except NotImplementedError as e:
-        print(f"attribution: an fp32 image with patch_embed_conv=True refused: {e}")
-    else:
-        raise AssertionError("an fp32 image with the conv patch embed ran on the card")
     return record, counts
 
 
@@ -2986,6 +3014,435 @@ def gradient_phase(torch, card: str) -> tuple:
     print(f"gradients: phase 11 in {time.perf_counter() - t_phase:.1f} s [{card}]")
     return record, counts
 
+def ctgen_f32_check(torch, model, card: str, g) -> dict:
+    """Phase 12's kernel checks at the one-scan route's shapes: row 5f, the
+    fp32 conv patch embed, on one [1, 1, 201, 128, 128] scan as the route
+    cuts it (the first frame at temporal patch 1 through
+    to_patch_emb_first_frame, K = 256; the other 200 frames at 2, K = 512),
+    and row 13f, the fp32 q-row attention at [1, 6464, 512] with layer 0's
+    weights (gains drawn around their ones) and the fp32 [8, 6464, 6464]
+    CPB table. Bands: F32_BAND (max relative error); controls the kernel
+    with its lo planes zeroed (one bf16 product each), and for 13f the
+    plain version without the bias or the q scale. The 5f row times the
+    route's two launches together. bound_ms: three bf16 products for each
+    fp32 one at the bf16 peak, or the bytes; library_ms: the same PyTorch
+    chain in fp32 (TF32 off): patchify, F.layer_norm, F.linear,
+    F.layer_norm; and LN, the projections, F.normalize,
+    F.scaled_dot_product_attention with the float bias, the output
+    projection and the residual."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.models.ctgenerate import maskgit_bias_table
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_qrows import attn_qrows, attn_qrows_plain, launch_chain_f32
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (fold_patch_embed, patch_embed_f32,
+                                                      patch_embed_fused, patch_embed_plain)
+
+    cfg = model.cfg
+    vit = model.ctvit
+    p = cfg.ctvit.patch_size
+    scan = torch.randn((1, *CTGEN_SCAN), generator=g, device="cuda")
+    out = {}
+    with torch.no_grad():
+        cases = []
+        for emb, img, tp in ((vit.to_patch_emb_first_frame, scan[:, :, :1].contiguous(), 1),
+                             (vit.to_patch_emb, scan[:, :, 1:].contiguous(),
+                              cfg.ctvit.temporal_patch_size)):
+            kw, s1, b1 = fold_patch_embed(emb, p, tp)
+            cases.append(([img, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float()], tp, emb))
+        errs, abs_errs, controls = [], [], []
+        for args, tp, _ in cases:
+            got = patch_embed_fused(*args, p, tp)
+            want = patch_embed_plain(*args, p, tp)
+            one = patch_embed_f32(*args, p, tp, one_pass=True)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                raise AssertionError(f"patch_embed_f32: {got.dtype} {tuple(got.shape)}")
+            errs.append(rel_err(got, want))
+            abs_errs.append((got - want).abs().max().item())
+            controls.append(rel_err(one, want))
+            print(f"kernel patch_embed_f32 t_patch {tp}: image {list(args[0].shape)} fp32, K = "
+                  f"{tp * p * p}, max_rel_err {errs[-1]:.3e} vs plain (band {F32_BAND}); control "
+                  f"(one bf16 product, lo planes zeroed) {controls[-1]:.3e}")
+        if max(errs) > F32_BAND or min(controls) <= F32_BAND:
+            raise AssertionError(f"patch_embed_f32: errors {errs}, controls {controls}")
+
+        def both(fn):
+            return [fn(*args, p, tp) for args, tp, _ in cases]
+
+        libs = [patch_library(emb, p, tp) for _, tp, emb in cases]
+        lib_err = max(rel_err(lib(args[0]), patch_embed_plain(*args, p, tp))
+                      for lib, (args, tp, _) in zip(libs, cases))
+        ms = cuda_ms(torch, lambda: both(patch_embed_fused))
+        plain_ms = cuda_ms(torch, lambda: both(patch_embed_plain))
+        library_ms = library_time(torch, lambda: [lib(args[0]) for lib, (args, _, _) in
+                                                   zip(libs, cases)])
+        flops = sum(3 * 2 * a[0].numel() // tp // (p * p) * tp * p * p * a[1].shape[-1]
+                    for a, tp, _ in cases)
+        rec = bound(flops, sum(nbytes(*a) + a[0].numel() // (tp * p * p) * a[1].shape[-1] * 4
+                               for a, tp, _ in cases), BF16_PEAK)
+        print(f"kernel patch_embed_f32 (the route's two launches): {ms:.3f} ms vs plain "
+              f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 "
+              f"products each), the PyTorch chain in fp32 {library_ms:.3f} ms "
+              f"({library_ms.span}) (max_rel_err {lib_err:.3e} vs plain) [{card}]")
+        out["patch_embed_f32"] = dict(max_abs_err=max(abs_errs), ms=ms, plain_ms=plain_ms, **rec,
+                                      library_ms=library_ms)
+
+        grid = token_grid_shape(cfg.ctvit, (1, *CTGEN_SCAN))
+        n = grid[0] * grid[1] * grid[2]
+        bias = maskgit_bias_table(model, grid)
+        a = model.maskgit.transformer.layers[0][1]
+        inner = a.cfg.inner_dim
+        wkv = a.to_kv.weight.float()
+        heads, dh = a.cfg.heads, a.cfg.dim_head
+        w = [around_ones(torch, g, a.cfg.dim), a.to_q.weight.float(), wkv[:inner].contiguous(),
+             wkv[inner:].contiguous(), a.to_out.weight.float(), around_ones(torch, g, dh),
+             around_ones(torch, g, dh)]
+        scale = a.cfg.scale
+        x = torch.randn((1, n, a.cfg.dim), generator=g, device="cuda")
+        args = [x, *w, bias]
+        got = attn_qrows(*args, scale, False)
+        want = attn_qrows_plain(*args, scale, False)
+        torch.cuda.synchronize()
+        no_qs = list(args)
+        no_qs[6] = torch.ones_like(args[6])
+        controls = {"one bf16 product each (lo planes zeroed)":
+                    rel_err(launch_chain_f32(*args, scale, False, one_pass=True), want),
+                    "no bias": rel_err(got, attn_qrows_plain(*args[:8], None, scale, False)),
+                    "no q_scale": rel_err(got, attn_qrows_plain(*no_qs, scale, False))}
+        if got.dtype != torch.float32:
+            raise AssertionError(f"attn_qrows_f32: output dtype {got.dtype}")
+        abs_err = band_check("attn_qrows_f32", got, want, F32_BAND, controls,
+                             f"x {list(x.shape)} fp32, bias {list(bias.shape)} fp32, branch max "
+                             f"{want.abs().max().item():.3e}")
+        ms = cuda_ms(torch, lambda: attn_qrows(*args, scale, True))
+        plain_ms = cuda_ms(torch, lambda: attn_qrows_plain(*args, scale, True), iters=3)
+        gamma, wq, wk, wv, wo, qs, ks = w
+        wkv = torch.cat([wk, wv])
+
+        def library():   # the branch; timed with the residual add
+            xn = F.layer_norm(x, (x.shape[-1],), gamma)
+            q = (xn @ wq.t()).view(1, n, heads, dh).transpose(1, 2)
+            k, v = (x @ wkv.t()).view(1, n, 2, heads, dh).permute(2, 0, 3, 1, 4)
+            q = F.normalize(q, dim=-1) * (qs * scale)
+            k = F.normalize(k, dim=-1) * ks
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias[None], scale=1.0)
+            return o.transpose(1, 2).reshape(1, n, heads * dh) @ wo.t()
+
+        lib_err = rel_err(library(), want)
+        library_ms = library_time(torch, lambda: library() + x)
+        hd = heads * dh
+        flops = 3 * 2 * (4 * n * x.shape[-1] * hd + heads * 2 * n * n * dh)
+        rec = bound(flops, nbytes(x, *w, bias, got), BF16_PEAK)
+        floor_ms = 1e3 * 2 * nbytes(bias) / HBM_RATE
+        print(f"kernel attn_qrows_f32 B=1: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; three bf16 products each), two-pass "
+              f"floor of bias bytes {floor_ms:.4f} ms, fp32 SDPA yardstick {library_ms:.3f} ms "
+              f"({library_ms.span}) (max_rel_err {lib_err:.3e} vs the plain branch) [{card}]")
+        out["attn_qrows_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                     library_ms=library_ms)
+    return out
+
+
+def write_ctgen_dataset(root: Path, volumes: int, rng) -> None:
+    """`volumes` raw int16 CT grids (CLI_VOLUME) with their reports, labels
+    (the PATHOLOGIES columns, CTGEN_POSITIVES positive) and metadata CSVs:
+    the inputs of inference_ctgenerate --data-valid."""
+    import csv
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.config import PATHOLOGIES
+    from ct_clip_ut_tpu_torch.data.nifti import write_nii
+
+    xy, z = CLI_SPACING
+    (root / "valid").mkdir()
+    names = [f"valid_{i}_a_1.nii.gz" for i in range(volumes)]
+    for name in names:
+        write_nii(root / "valid" / name, rng.integers(-1024, 2000, CLI_VOLUME).astype(np.int16),
+                  pixdim=(xy, xy, z))
+    tables = {"reports.csv": [["VolumeName", "Findings_EN", "Impressions_EN"]] + [
+                  [n, CTGEN_REPORTS[i % 2], ""] for i, n in enumerate(names)],
+              "metadata.csv": [["VolumeName", "RescaleSlope", "RescaleIntercept", "XYSpacing",
+                                "ZSpacing"]] + [[n, "1", "0", f"[{xy}, {xy}]", str(z)]
+                                                for n in names],
+              "labels.csv": [["VolumeName", *PATHOLOGIES]] + [
+                  [n] + [str(int(p in CTGEN_POSITIVES[i % 2])) for p in PATHOLOGIES]
+                  for i, n in enumerate(names)]}
+    for fname, rows in tables.items():
+        with open(root / fname, "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+
+
+def ctgen_f32_phase(torch, card: str) -> tuple:
+    """Phase 12: CTGenerate's one-scan fp32 route at CTGenerateConfig().
+    Rows 5f and 13f against their plain versions (ctgen_f32_check); then,
+    counted, `inference_ctgenerate.main --data-valid` over CTGEN_SCANS
+    synthetic NIfTI volumes at --batch-size 1 (each scan's positives from
+    its labels, the report T5-encoded, the scan and MaskGit in fp32): 5f x
+    2 and 13f x 6 a scan, the fp32 CT-ViT variants, no bf16 kernel. Each
+    scan again through `localize_scan`, timed, and against plain=True: the
+    heatmaps within HEAT_BAND where the codebook ids agree, the VQ flips
+    counted (each a tie within VQ_F32_TIE), the files main wrote the same
+    maps; control the other scan's heatmaps. Returns (record, counts)."""
+    import tempfile
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.config import CTGenerateConfig
+    from ct_clip_ut_tpu_torch.data.datasets import InferenceDataset
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctgenerate import init_ctgenerate
+    from ct_clip_ut_tpu_torch.models.t5 import T5TextConditioner
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.scripts import inference_ctgenerate as script
+
+    cfg = CTGenerateConfig()
+    model = init_ctgenerate(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    record = ctgen_f32_check(torch, model, card, g)
+    torch.cuda.empty_cache()
+    t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_ctgen_dataset(root, CTGEN_SCANS, np.random.default_rng(18))
+        out = root / "results"
+        argv = ["--data-valid", str(root / "valid"), "--valid-reports", str(root / "reports.csv"),
+                "--valid-labels", str(root / "labels.csv"), "--valid-metadata",
+                str(root / "metadata.csv"), "--num-valid-samples", str(CTGEN_SCANS),
+                "--batch-size", "1", "--results-folder", str(out), "--seed", "0"]
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = script.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = launches.launch_counts()
+        print(f"ctgenerate fp32: inference_ctgenerate --data-valid --batch-size 1 over "
+              f"{CTGEN_SCANS} volumes {list(CLI_VOLUME)} int16 in {cli_s:.1f} s (host clock, model "
+              f"init and preprocessing included) [{card}]: {len(written)} heatmaps; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        wrong = {k: counts[k] for k, per in CTGEN_F32_KERNELS.items()
+                 if counts[k] != per * CTGEN_SCANS}
+        wrong.update({k: counts[k] for k in CTGEN_F32_PATH if counts[k] <= 0})
+        wrong.update({k: counts[k] for k in CTGEN_BF16 if counts[k] != 0})
+        if wrong:
+            raise AssertionError(f"the one-scan route's launches: {wrong}")
+
+        ds = InferenceDataset(root / "valid", root / "reports.csv", root / "metadata.csv",
+                              root / "labels.csv", num_samples=CTGEN_SCANS,
+                              model_type="ctgenerate")
+        samples = [ds[i] for i in range(len(ds))]
+        heats, secs = [], []
+        for image, text, labels, name, _ in samples:
+            scan = torch.as_tensor(image)[None].cuda()
+            positives = script.positives_of(labels)
+            script.localize_scan(model, t5, scan, text, positives)          # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with VQRecorder(torch) as rec_k:
+                maps, res = script.localize_scan(model, t5, scan, text, positives)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            with VQRecorder(torch, rec_k) as rec_p:
+                pmaps, pres = script.localize_scan(model, t5, scan, text, positives, plain=True)
+            flips = int(rec_p.flips().sum())
+            gap = max(rec_p.gaps, default=0.0)
+            if sorted(maps) != sorted(pmaps) or not maps:
+                raise AssertionError(f"{name}: heatmaps {sorted(maps)} vs plain {sorted(pmaps)}")
+            errs = {p: float(np.abs(maps[p] - pmaps[p]).max()) for p in maps}
+            filed = {p: float(np.abs(np.load(out / f"ctgenerate_{name}_{p}.npy")
+                                     - script.rot90_ct(maps[p])).max()) for p in maps}
+            feat = rel_rms(res.feature_map, pres.feature_map)
+            print(f"ctgenerate fp32: {name}: {flips} of {res.codebook_ids.numel()} codebook ids "
+                  f"differ from plain=True's (the largest fp64 cosine gap {gap:.3e}, band "
+                  f"{VQ_F32_TIE}); heatmaps vs plain=True max abs "
+                  f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (band "
+                  f"{HEAT_BAND} where no id flipped); feature map relative rms {feat:.3e}; the "
+                  f"files main wrote vs this call {max(filed.values()):.1e}; "
+                  f"localize_scan {secs[-1]:.3f} s a scan (host clock, synchronised) [{card}]")
+            if gap > VQ_F32_TIE or max(filed.values()) > SUITE_BAND:
+                raise AssertionError(f"{name}: a VQ flip at no tie ({gap}), or the CLI's files "
+                                     f"differ ({filed})")
+            if flips == 0 and max(errs.values()) > HEAT_BAND:
+                raise AssertionError(f"{name}: heatmaps vs plain=True {errs}")
+            for heat in maps.values():
+                if heat.shape != CTGEN_SCAN[1:] or not (np.isfinite(heat).all()
+                                                         and 0 <= heat.min() <= heat.max() <= 1 + 1e-6):
+                    raise AssertionError(f"{name}: bad heatmap {heat.shape}")
+            heats.append(maps)
+        image, text, labels, _, _ = samples[0]
+        other, _ = script.localize_scan(model, t5, torch.as_tensor(samples[1][0])[None].cuda(),
+                                        text, script.positives_of(labels))
+        control = min(float(np.abs(heats[0][p] - other[p]).max()) for p in heats[0])
+        print(f"ctgenerate fp32: control (scan 0's report over scan 1) {control:.3e}; "
+              f"{statistics.mean(secs):.3f} s a scan one at a time (smoke reading, host clock) "
+              f"[{card}]")
+        if not control > HEAT_BAND:
+            raise AssertionError(f"the heatmap band passes another scan's maps ({control})")
+    return record, counts
+
+
+def suite_phase(torch, card: str) -> None:
+    """Phase 13: `CTClipInference.infer()` with zero-shot and all five
+    attribution methods (`AttributionContext(render_gifs=False)`) on one
+    flagship fp32 volume [1, 1, 240, 480, 480] (`flagship_cfg()`, seed 0) in
+    a temporary directory: occlusion through the flags dict at SUITE_OCC (27
+    windows), integrated gradients at its default 50 steps; then occlusion
+    in the text-embeds mode through a second `visualize`. Every artifact
+    at the JAX suite's path and within SUITE_BAND of a direct call of its
+    method; seconds a method. Then `scripts.embedding_arithmetic.main` over
+    EMBED_REPORTS synthetic reports of 512 tokens in batches of
+    EMBED_BATCH (the fp32 bert_layer kernel): its file the same bits as
+    `compute_diff_embeddings` of the phase's model, its CLS and diff
+    embeddings against plain=True within EMBED_BAND of the CLS scale (a
+    diff of two means carries the CLS embeddings' absolute error)."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.attribution import (capture, embedding_arithmetic, grad_cam,
+                                                  integrated_gradients, occlusion,
+                                                  raw_attention, rollout)
+    from ct_clip_ut_tpu_torch.attribution.suite import AttributionContext, Visualizations
+    from ct_clip_ut_tpu_torch.config import PATHOLOGIES, OcclusionConfig, flagship_cfg
+    from ct_clip_ut_tpu_torch.infer.zeroshot import (CTClipInference, WordTokenizer,
+                                                     tokenize_prompts)
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.scripts import embedding_arithmetic as escript
+
+    cfg = flagship_cfg()
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    tok = WordTokenizer(cfg.bert.vocab_size)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    image = torch.randn((1, *VOLUME), generator=g, device="cuda")     # [1, 1, D, H, W]
+    text = CTGEN_REPORTS[0]
+    labels = np.array([float(p in CTGEN_POSITIVES[0]) for p in PATHOLOGIES], np.float32)
+    diff = {p: torch.randn((cfg.dim_text,), generator=g, device="cuda").cpu().numpy()
+            for p in ("Emphysema", "Lung nodule")}
+    occ = OcclusionConfig(**SUITE_OCC)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ctx = AttributionContext(model=model, tokenizer=tok,
+                                 data=[(image, text, labels, "scan_0", "synthetic")],
+                                 diff_embeds=diff, render_gifs=False)
+        flags = {"raw_attention_maps": True, "attention_rollout": True,
+                 "integrated_gradients": True, "grad_cam": True,
+                 "occlusion": {"occ": occ, "prompt": "report"}}
+        inference = CTClipInference(model, tokenize_prompts(tok, device="cuda"),
+                                    [(image, [text], labels[None])], results_folder=root,
+                                    visualize=flags, attribution_ctx=ctx)
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics, preds, _ = inference.infer()
+        infer_s = time.perf_counter() - t0
+        counts = launches.launch_counts()
+        vis = Visualizations(ctx, root)
+        vis.visualize(occlusion={"occ": occ, "use_text_embeds": True, "prompt": "diff"})
+        timings = {**inference.suite.timings, "occlusion (text embeds)": vis.timings["occlusion"]}
+        print(f"suite: infer() with zero-shot and the five methods on one fp32 volume "
+              f"{[1, *VOLUME]} in {infer_s:.1f} s; seconds a method "
+              f"{json.dumps({k: round(v, 3) for k, v in timings.items()})} (host clock, "
+              f"synchronised, first calls) [{card}]; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        need = ("bert_layer", *ATTRIBUTION_KERNELS, *GRADIENT_KERNELS)
+        if [k for k in need if counts[k] <= 0] or preds.shape != (1, 18):
+            raise AssertionError(f"the suite's launches {counts}, preds {preds.shape}")
+        if not (root / "metrics.txt").read_text().startswith("Epoch 0 Metrics:"):
+            raise AssertionError("infer() wrote no metrics table")
+
+        # each artifact against a direct call of its method
+        tokens = vis._tokenize(text)
+        rot = capture.rot90_ct
+        positives = [p for p in PATHOLOGIES if p in diff and p in CTGEN_POSITIVES[0]]
+        direct = {}
+
+        def call(name, fn):   # a direct call, timed (host clock, synchronised, warm)
+            res, direct[name], _ = peak_timed(torch, fn)
+            return res
+
+        sp, tm = call("raw_attention_maps", lambda: raw_attention.raw_attention_maps_np(
+            model, tokens, image))
+        rsp, rtm = call("attention_rollout", lambda: rollout.rollout_maps(model, tokens, image))
+        ig = call("integrated_gradients", lambda: integrated_gradients.integrated_gradients(
+            model, tokens, image))
+        cams = call("grad_cam", lambda: grad_cam.grad_cam_maps(model, tokens, image))
+        heat = call("occlusion", lambda: occlusion.occlusion_heatmap(
+            model, image, occlusion.report_text_latent(model, tokens), occ=occ))
+        multi = call("occlusion (text embeds)", lambda: occlusion.occlusion_heatmaps_multi(
+            model, image, torch.stack([occlusion.diff_embedding_latent(
+                model, torch.as_tensor(diff[p], device="cuda")) for p in positives]), occ=occ))
+        want = {"raw_attention_grids/1/scan_0_spatial.npy": sp,
+                "raw_attention_grids/1/scan_0_temporal.npy": tm,
+                "attention_rollout/1/scan_0_spatial.npy": rot(rsp),
+                "attention_rollout/1/scan_0_temporal.npy": rot(rtm),
+                "integrated_gradients/1/scan_0.npy": rot(ig),
+                **{f"grad_cam/1/scan_0_{k}.npy": rot(v) for k, v in cams.items()},
+                "occlusion/1/scan_0_report_heatmap.npy": rot(heat)}
+        multi_rel = f"occlusion/2/scan_0_{occ.patch_size}_{occ.stride}_diff_heatmaps.npy"
+        got = sorted(str(p.relative_to(root)) for p in root.rglob("*.npy"))
+        if got != sorted([*want, multi_rel]):
+            raise AssertionError(f"artifacts {got}")
+        errs = {k: float(np.abs(np.load(root / k) - v).max()) for k, v in want.items()}
+        saved = np.load(root / multi_rel, allow_pickle=True).item()
+        errs[multi_rel] = max(float(np.abs(saved[p] - rot(h)).max())
+                              for p, h in zip(positives, multi))
+        print(f"suite: {len(errs)} artifacts at the JAX suite's paths; each vs a direct call of "
+              f"its method, max abs {max(errs.values()):.3e} (band {SUITE_BAND}); text-embeds "
+              f"occlusion scored {sorted(saved)} in one sweep; the direct calls' seconds, warm, "
+              f"without writing the maps {json.dumps({k: round(v, 3) for k, v in direct.items()})}"
+              f" [{card}]")
+        if max(errs.values()) > SUITE_BAND or sorted(saved) != sorted(positives):
+            raise AssertionError(f"suite artifacts vs direct calls: {errs}")
+
+        # embedding arithmetic over a CSV corpus, through row 6, against plain=True
+        rng = np.random.default_rng(20)
+        texts = [" ".join(f"w{j}" for j in rng.integers(0, 4096, PROMPT_LEN))
+                 for _ in range(EMBED_REPORTS)]
+        lab = rng.integers(0, 2, (EMBED_REPORTS, len(PATHOLOGIES)))
+        with open(root / "reports.csv", "w", newline="") as fr, \
+                open(root / "labels.csv", "w", newline="") as fl:
+            wr, wl = csv.writer(fr), csv.writer(fl)
+            wr.writerow(["VolumeName", "Findings_EN", "Impressions_EN"])
+            wl.writerow(["VolumeName", *PATHOLOGIES])
+            for i, t in enumerate(texts):
+                wr.writerow([f"v{i}.nii.gz", t, ""])
+                wl.writerow([f"v{i}.nii.gz", *lab[i]])
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        embeds = escript.main(["--reports", str(root / "reports.csv"), "--labels",
+                               str(root / "labels.csv"), "--out", str(root / "diff.npy"),
+                               "--batch-size", str(EMBED_BATCH)])
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        bert = launches.launch_counts()["bert_layer"]
+        cls = embedding_arithmetic.cls_embeddings(model, tok, texts, EMBED_BATCH)
+        pcls = embedding_arithmetic.cls_embeddings(model, tok, texts, EMBED_BATCH, plain=True)
+        plain = embedding_arithmetic.diff_embeddings(pcls, lab)
+        same = all(np.array_equal(embeds[k], v)
+                   for k, v in embedding_arithmetic.diff_embeddings(cls, lab).items())
+        # a diff embedding is a difference of two means of CLS embeddings: its error is the
+        # CLS embeddings' (the kernel's output), so both are read against the CLS scale
+        scale = float(np.abs(pcls).max())
+        cls_err = float(np.abs(cls - pcls).max()) / scale
+        err = max(float(np.abs(embeds[k] - plain[k]).max()) for k in plain) / scale
+        own = max(float(np.abs(embeds[k] - plain[k]).max() / np.abs(plain[k]).max())
+                  for k in plain)
+        control = float(np.abs(embeds[PATHOLOGIES[0]] - plain[PATHOLOGIES[1]]).max()) / scale
+        print(f"suite: embedding_arithmetic over {EMBED_REPORTS} reports of {PROMPT_LEN} tokens in "
+              f"batches of {EMBED_BATCH}: {len(embeds)} diff embeddings in {embed_s:.1f} s (host "
+              f"clock, model init included) [{card}], {bert} bert_layer launches, the script's "
+              f"file the same bits as compute_diff_embeddings: {same}; vs plain=True, over the "
+              f"CLS embeddings' largest |entry|: the CLS embeddings {cls_err:.3e}, the diff "
+              f"embeddings {err:.3e} (band {EMBED_BAND}; over each diff's own largest entry "
+              f"{own:.3e}); control (another pathology's) {control:.3e}")
+        if sorted(embeds) != sorted(plain) or bert != 2 * cfg.bert.num_layers or not same or \
+                not max(err, cls_err) <= EMBED_BAND < control:
+            raise AssertionError(f"embedding arithmetic: {sorted(embeds)}, {bert} launches, "
+                                 f"same bits {same}, errors {cls_err} / {err}, control {control}")
+
+
 
 def main() -> int:
     import torch
@@ -3043,6 +3500,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         gradient_record, gradient_counts = gradient_phase(torch, card)
         record.update(gradient_record)
+        torch.cuda.empty_cache()
+        ctgen_f32_record, ctgen_f32_counts = ctgen_f32_phase(torch, card)
+        record.update(ctgen_f32_record)
+        torch.cuda.empty_cache()
+        suite_phase(torch, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3051,6 +3513,7 @@ def main() -> int:
         return (train_counts if name in TRAIN_KERNELS else
                 attribution_counts if name in ATTRIBUTION_KERNELS else
                 gradient_counts if name in GRADIENT_KERNELS else
+                ctgen_f32_counts if name in CTGEN_F32_KERNELS else
                 ctgen_counts if name == "attn_qrows" else
                 int8_counts if name == "geglu_ff_int8" else
                 cosine_counts if name == "cosine_attention" else counts)

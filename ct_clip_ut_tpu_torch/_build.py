@@ -41,12 +41,14 @@ SIGNATURES = {
     "ctc_attn_block_f32": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_attn_packed_f32": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_attn_qrows": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
+    "ctc_attn_qrows_f32": [_P] * 17 + [_I] * 5 + [_F, _I, _I, _P],
     "ctc_geglu_ff": [_P] * 8 + [_I] * 6 + [_P],
     "ctc_geglu_ff_f32": [_P] * 10 + [_I] * 7 + [_P],
     "ctc_vq_nearest": [_P] * 4 + [_I] * 5 + [_P],
     "ctc_vq_nearest_f32": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_patch_embed": [_P] * 9 + [_I] * 9 + [_P],
     "ctc_patch_embed_res": [_P] * 10 + [_I] * 9 + [_P],
+    "ctc_patch_embed_f32": [_P] * 10 + [_I] * 9 + [_P],
     "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 8 + [_P],
     "ctc_patchify": [_P] * 2 + [_I] * 7 + [_P],
     "ctc_attn_block_bwd": [_P] * 34 + [_I] * 4 + [_F, _I, _P],

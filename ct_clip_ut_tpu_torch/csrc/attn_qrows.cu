@@ -70,9 +70,34 @@
 //                    ResidualEpi).
 // Any N works: TMA zero-fills what lies past the tensors, keys past N are
 // masked to -inf, rows past N are not stored. The bias may be left out.
+//
+// The fp32 variant (ctc_attn_qrows_f32: the per-item grid of the TPU
+// kernel at fp32, CTGenerate's one-scan route, where every rounding point
+// is an identity) runs the same chain with every product as three bf16
+// products of hi / lo planes, within ~2^-16 of fp32 (split_sm90.cuh):
+//   split_kernel     the weights' planes (wq | wk | wv stacked, wo), per call;
+//   ln_split_kernel  xn = LN(x) * gamma and x itself as hi / lo planes;
+//   gemm_kernel      tc::QkvSplitPlan (q from xn, k and v from x, three
+//                    passes each); QkvEpi writes q and k (l2-normed, scaled,
+//                    not rounded) and v^T as hi / lo planes;
+//   core_kernel<F32> the same two passes over 64-key tiles, with the fp32
+//                    bias tile as two TMA boxes of 32 keys (128 B rows,
+//                    swizzled), the K and V^T tiles' hi and lo planes: the
+//                    scores as q_hi k_lo + q_lo k_hi + q_hi k_hi onto the
+//                    bias, p = exp(s - max) / sum in fp32 split into hi /
+//                    lo A fragments in registers, P.V as p_lo v_hi + p_hi
+//                    v_lo + p_hi v_hi, o written as hi / lo planes. A block
+//                    takes 128 query rows (8 warps) whatever B: a stage is
+//                    64 KB (the bias tile 32 KB, four 8-KB planes), three
+//                    stages, one block an SM with up to 255 registers a
+//                    thread; P never reaches memory;
+//   gemm_kernel      SplitPlan o . Wo^T, the residual added in fp32.
+// Its bound at MaskGit's shape: the fp32 table's 1.34 GB at 3.35 TB/s (0.40
+// ms) against ~297 GFLOP as three bf16 products (0.30 ms); the two passes
+// read the table twice, a floor of 0.80 ms.
 #include <math_constants.h>
 
-#include "gemm_sm90.cuh"
+#include "attn_mma.cuh"
 
 namespace ctc {
 namespace qr {
@@ -88,13 +113,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 // k = bf16(l2n(bf16(acc)) * ks) as [M][HD]; v = bf16(acc) as vt [B][H][64][ldv],
 // row m = b N + n of x going to column n. A 128-wide tile holds two heads of
 // 64; a row's 16 values of a head sit in this thread and the three others
-// of its quad.
+// of its quad. The fp32 chain (q_lo given): q = l2n(acc) * qs * scale, k =
+// l2n(acc) * ks and v = acc, each written as hi / lo planes (q / q_lo, k /
+// k_lo, vt / vt_lo; lo zeros without keep_lo).
 struct QkvEpi {
   bf16 *q, *k, *vt;
   const float* qs;
   const float* ks;
   float scale;
   int M, HD, tiles, N, ldv;
+  bf16 *q_lo = nullptr, *k_lo = nullptr, *vt_lo = nullptr;
+  int keep_lo = 1;
   __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
     const int g = lane >> 2, t = lane & 3;
     const int which = nt / tiles, n0 = (nt % tiles) * BN;
@@ -115,16 +144,23 @@ struct QkvEpi {
         if (which == 2) {
           if (m < M) {
             const int b = m / N, n = m - b * N;
-            bf16* col = vt + ((int64_t)b * HD + n0 + DH * hh) * ldv + n;
+            const int64_t off = ((int64_t)b * HD + n0 + DH * hh) * ldv + n;
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
-              col[(int64_t)(8 * jj + 2 * t) * ldv] = __float2bfloat16(y[2 * jj]);
-              col[(int64_t)(8 * jj + 2 * t + 1) * ldv] = __float2bfloat16(y[2 * jj + 1]);
+              const int64_t r0 = off + (int64_t)(8 * jj + 2 * t) * ldv, r1 = r0 + ldv;
+              __nv_bfloat162 hv, lv;
+              split2(y[2 * jj], y[2 * jj + 1], keep_lo, hv, lv);
+              vt[r0] = __low2bfloat16(hv);
+              vt[r1] = __high2bfloat16(hv);
+              if (vt_lo != nullptr) {
+                vt_lo[r0] = __low2bfloat16(lv);
+                vt_lo[r1] = __high2bfloat16(lv);
+              }
             }
           }
           continue;
         }
-        if (which == 1) {   // the k projection is rounded before its l2-norm
+        if (which == 1 && k_lo == nullptr) {   // the bf16 k is rounded before its l2-norm
 #pragma unroll
           for (int i = 0; i < 16; ++i) y[i] = __bfloat162float(__float2bfloat16(y[i]));
         }
@@ -135,12 +171,16 @@ struct QkvEpi {
         ss += __shfl_xor_sync(0xffffffffu, ss, 2);
         const float nrm = fmaxf(sqrtf(ss), 1e-12f);
         if (m < M) {
+          bf16* lo = which == 0 ? q_lo : k_lo;
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
             const int d = 8 * jj + 2 * t;
-            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * HD + n0 + DH * hh + d) =
-                __floats2bfloat162_rn(y[2 * jj] / nrm * (sc[d] * mul),
-                                      y[2 * jj + 1] / nrm * (sc[d + 1] * mul));
+            const size_t off = (size_t)m * HD + n0 + DH * hh + d;
+            __nv_bfloat162 hv, lv;
+            split2(y[2 * jj] / nrm * (sc[d] * mul), y[2 * jj + 1] / nrm * (sc[d + 1] * mul),
+                   keep_lo, hv, lv);
+            *reinterpret_cast<__nv_bfloat162*>(out + off) = hv;
+            if (lo != nullptr) *reinterpret_cast<__nv_bfloat162*>(lo + off) = lv;
           }
         }
       }
@@ -156,29 +196,47 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// maps of the core: 0 the bias [H*N, N] (boxes of R rows), 1 k [B*N, HD],
-// 2 v^T [B*H*64, N] (boxes of 64 rows)
-constexpr int MAP_BIAS = 0, MAP_K = 1, MAP_V = 2;
+// exp2: the fp32 core takes exp2f, the bf16 core the approximate ex2
+template <bool F32>
+__device__ __forceinline__ float exp2_of(float x) {
+  if constexpr (F32) {
+    return exp2f(x);
+  } else {
+    return ex2(x);
+  }
+}
 
-// A block takes R query rows, R / 16 warps: 8 (two blocks an SM) or 16 (one).
+// maps of the core: 0 the bias [H*N, N] (boxes of R rows; fp32 boxes of 32
+// keys), 1 k [B*N, HD], 2 v^T [B*H*64, N] (boxes of 64 rows); the fp32
+// core's lo planes: 3 k_lo, 4 v^T_lo
+constexpr int MAP_BIAS = 0, MAP_K = 1, MAP_V = 2, MAP_K_LO = 3, MAP_V_LO = 4;
+
+// A block takes R query rows, R / 16 warps: 8 (two blocks an SM, one in
+// the fp32 core) or 16 (one).
 __host__ __device__ constexpr int warps(int R) { return R / 16; }
-__host__ __device__ constexpr int stage_bytes(int R) {
-  return R * KT * 2 + 2 * KV_BYTES;   // the bias tile, K and V^T
+__host__ __device__ constexpr int bias_bytes(int R, bool F32) { return R * KT * (F32 ? 4 : 2); }
+__host__ __device__ constexpr int stage_bytes(int R, bool F32 = false) {
+  return bias_bytes(R, F32) + (F32 ? 4 : 2) * KV_BYTES;   // the bias tile, K and V^T (+ lo)
 }
-__host__ __device__ constexpr int ring(int R) { return warps(R) == 8 ? 3 : 4; }
-__host__ __device__ constexpr int core_smem(int R) {
-  return ring(R) * stage_bytes(R) + 1024;   // + slack to align the ring to 1 KB
+__host__ __device__ constexpr int ring(int R, bool F32 = false) {
+  return F32 || warps(R) == 8 ? 3 : 4;
 }
+__host__ __device__ constexpr int core_smem(int R, bool F32 = false) {
+  return ring(R, F32) * stage_bytes(R, F32) + 1024;   // + slack to align the ring to 1 KB
+}
+constexpr int F32_ROWS = 128;   // query rows a block of the fp32 core
 
 // One block per (sequence, head, stripe of R query rows). Warp w takes rows
 // 16 w ... of the stripe; the four warps 4i .. 4i+3 form a warpgroup over
-// 64 rows.
-template <int R, bool BIAS>
-__global__ void __launch_bounds__(warps(R) * 32, 16 / warps(R))
+// 64 rows. F32: q, o and the K / V^T maps as hi / lo planes (q's and o's lo
+// planes at + B N HD), the bias fp32; keep_lo 0 zeroes p's and o's lo.
+template <int R, bool BIAS, bool F32>
+__global__ void __launch_bounds__(warps(R) * 32, F32 ? 1 : 16 / warps(R))
 core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16* __restrict__ o,
-            int N, int H, int HD) {
-  constexpr int WARPS = warps(R), RING = ring(R), STAGE = stage_bytes(R);
-  constexpr int BIAS_BYTES = R * KT * 2;
+            int N, int H, int HD, int keep_lo) {
+  constexpr int WARPS = warps(R), RING = ring(R, F32), STAGE = stage_bytes(R, F32);
+  constexpr int BIAS_BYTES = bias_bytes(R, F32);
+  constexpr int PLANES = F32 ? 2 : 1;   // K (and V^T) planes a tile
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[RING];
   __shared__ int left[RING];   // warps yet to leave a stage in its current step
@@ -193,13 +251,22 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   auto load = [&](int it) {
     const int pass2 = it >= ntiles, tile = pass2 ? 2 * ntiles - 1 - it : it;
     const int s = it % RING;
-    mbar_expect_tx(&full[s], (BIAS ? BIAS_BYTES : 0) + (pass2 ? 2 : 1) * KV_BYTES);
+    mbar_expect_tx(&full[s], (BIAS ? BIAS_BYTES : 0) + (pass2 ? 2 : 1) * PLANES * KV_BYTES);
     char* st = stages + s * STAGE;
-    if (BIAS) tma_load_2d(st, &maps.m[MAP_BIAS], &full[s], tile * KT, h * N + q0);
-    tma_load_2d(st + BIAS_BYTES, &maps.m[MAP_K], &full[s], h * DH, item * N + tile * KT);
-    if (pass2)
-      tma_load_2d(st + BIAS_BYTES + KV_BYTES, &maps.m[MAP_V], &full[s], tile * KT,
-                  (item * H + h) * DH);
+    if (BIAS) {
+      tma_load_2d(st, &maps.m[MAP_BIAS], &full[s], tile * KT, h * N + q0);
+      if (F32)   // keys 32-63 of the tile: the second 128-B box
+        tma_load_2d(st + BIAS_BYTES / 2, &maps.m[MAP_BIAS], &full[s], tile * KT + KT / 2,
+                    h * N + q0);
+    }
+    char* kv = st + BIAS_BYTES;
+    tma_load_2d(kv, &maps.m[MAP_K], &full[s], h * DH, item * N + tile * KT);
+    if (F32) tma_load_2d(kv + KV_BYTES, &maps.m[MAP_K_LO], &full[s], h * DH, item * N + tile * KT);
+    if (pass2) {
+      char* vv = kv + PLANES * KV_BYTES;
+      tma_load_2d(vv, &maps.m[MAP_V], &full[s], tile * KT, (item * H + h) * DH);
+      if (F32) tma_load_2d(vv + KV_BYTES, &maps.m[MAP_V_LO], &full[s], tile * KT, (item * H + h) * DH);
+    }
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -230,8 +297,10 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   const int g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
   const int ra = q0 + wrow + g, rb = ra + 8;
-  // q as wgmma's A in registers: the four 16-deep steps over the head
-  uint32_t qf[4][4];
+  // q as wgmma's A in registers: the four 16-deep steps over the head (and
+  // its lo plane in the fp32 core)
+  const int64_t plane = (int64_t)gridDim.x * N * HD;
+  uint32_t qf[4][4], ql[F32 ? 4 : 1][4];
   {
     const bf16* qb = q + ((int64_t)item * N + q0 + wrow) * HD + h * DH;
 #pragma unroll
@@ -239,9 +308,11 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rr = g + 8 * (i & 1), d = 16 * ks + 8 * (i >> 1) + 2 * t;
-        qf[ks][i] = q0 + wrow + rr < N
-                        ? *reinterpret_cast<const uint32_t*>(qb + (int64_t)rr * HD + d)
-                        : 0u;
+        const bool in = q0 + wrow + rr < N;
+        qf[ks][i] = in ? *reinterpret_cast<const uint32_t*>(qb + (int64_t)rr * HD + d) : 0u;
+        if constexpr (F32)
+          ql[ks][i] =
+              in ? *reinterpret_cast<const uint32_t*>(qb + plane + (int64_t)rr * HD + d) : 0u;
       }
     }
   }
@@ -258,10 +329,16 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         float2 b = make_float2(0.f, 0.f);
-        if (BIAS) {   // the TMA's 128-B swizzle: 16-B chunk j of row r at chunk j ^ (r % 8)
+        if (BIAS) {   // the TMA's 128-B swizzle: 16-B chunk c of row r at chunk c ^ (r % 8)
           const int r = wrow + g + 8 * hf;
-          b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t));
+          if constexpr (F32) {   // key 8j + 2t: box j / 4, float kk of its row
+            const int kk = 8 * (j & 3) + 2 * t;
+            b = *reinterpret_cast<const float2*>(st + (j >> 2) * (BIAS_BYTES / 2) + r * 128 +
+                                                 (((kk >> 2) ^ (r & 7)) << 4) + 4 * (kk & 3));
+          } else {
+            b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t));
+          }
         }
         s[4 * j + 2 * hf] = b.x;
         s[4 * j + 2 * hf + 1] = b.y;
@@ -270,7 +347,13 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
     const uint32_t kb = smem_u32(st + BIAS_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
+    for (int ks = 0; ks < 4; ++ks) {
+      if constexpr (F32) {   // q_hi k_lo + q_lo k_hi, then q_hi k_hi
+        wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + KV_BYTES + 32 * ks));
+        wgmma_m64n64k16_rs(s, ql[ks], desc_sw128(kb + 32 * ks));
+      }
+      wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
+    }
     wgmma_commit();
   };
   // after the wait: keys past N at -inf
@@ -297,9 +380,9 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        sum += ex2(fmaf(s[4 * j + 2 * hf], LOG2E, -base)) +
-               ex2(fmaf(s[4 * j + 2 * hf + 1], LOG2E, -base));
-      l_r[hf] = l_r[hf] * ex2(fmaf(m_r[hf], LOG2E, -base)) + sum;
+        sum += exp2_of<F32>(fmaf(s[4 * j + 2 * hf], LOG2E, -base)) +
+               exp2_of<F32>(fmaf(s[4 * j + 2 * hf + 1], LOG2E, -base));
+      l_r[hf] = l_r[hf] * exp2_of<F32>(fmaf(m_r[hf], LOG2E, -base)) + sum;
       m_r[hf] = x;
     }
   };
@@ -322,16 +405,18 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
       if (it + 2 < ntiles) finish_scores(it + 2, sa);
     }
   }
-  // each row's max and sum over its quad; p = exp2(s log2 e - lb[hf])
-  float lb[2];
+  // each row's max and sum over its quad; p = exp2(s log2 e - lb[hf]), in
+  // the fp32 core exp2(s log2 e - lb[hf]) * inv[hf] (the 1 / sum of 1f's core)
+  float lb[2], inv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float mq = fmaxf(m_r[hf], __shfl_xor_sync(0xffffffffu, m_r[hf], 1));
     mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
-    float lq = l_r[hf] * ex2(m_r[hf] * LOG2E - mq * LOG2E);
+    float lq = l_r[hf] * exp2_of<F32>(m_r[hf] * LOG2E - mq * LOG2E);
     lq += __shfl_xor_sync(0xffffffffu, lq, 1);
     lq += __shfl_xor_sync(0xffffffffu, lq, 2);
-    lb[hf] = mq * LOG2E + __log2f(lq);
+    lb[hf] = F32 ? mq * LOG2E : mq * LOG2E + __log2f(lq);
+    inv[hf] = 1.f / lq;
   }
 
   // pass 2, from the last tile to the first: p rounded to bf16, then P . V
@@ -343,20 +428,35 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   wgmma_wait_all();
   finish_scores(ntiles - 1, sa);
   for (int it = ntiles; it < 2 * ntiles; ++it) {
-    uint32_t a[4][4];   // p of keys 16 ks ... as A fragments
+    uint32_t a[4][4], al[F32 ? 4 : 1][4];   // p of keys 16 ks ... as A fragments (hi, lo)
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int idx = 8 * ks + 2 * i, hf = i & 1;
-        a[ks][i] = pack_bf16(ex2(fmaf(sa[idx], LOG2E, -lb[hf])),
-                             ex2(fmaf(sa[idx + 1], LOG2E, -lb[hf])));
+        if constexpr (F32) {
+          __nv_bfloat162 hv, lv;
+          split2(exp2f(fmaf(sa[idx], LOG2E, -lb[hf])) * inv[hf],
+                 exp2f(fmaf(sa[idx + 1], LOG2E, -lb[hf])) * inv[hf], keep_lo, hv, lv);
+          a[ks][i] = as_u32(hv);
+          al[ks][i] = as_u32(lv);
+        } else {
+          a[ks][i] = pack_bf16(ex2(fmaf(sa[idx], LOG2E, -lb[hf])),
+                               ex2(fmaf(sa[idx + 1], LOG2E, -lb[hf])));
+        }
       }
     }
-    const uint32_t vb = smem_u32(stages + (it % RING) * STAGE + BIAS_BYTES + KV_BYTES);
+    const uint32_t vb =
+        smem_u32(stages + (it % RING) * STAGE + BIAS_BYTES + PLANES * KV_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
+    for (int ks = 0; ks < 4; ++ks) {
+      if constexpr (F32) {   // p_lo v_hi + p_hi v_lo, then p_hi v_hi
+        wgmma_m64n64k16_rs(oacc, al[ks], desc_sw128(vb + 32 * ks));
+        wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + KV_BYTES + 32 * ks));
+      }
+      wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
+    }
     wgmma_commit();
     if (it + 1 < 2 * ntiles) issue_scores(it + 1, sa);
     wgmma_wait_all();
@@ -370,9 +470,13 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = hf ? rb : ra;
-      if (r < N)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)r * HD + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(oacc[4 * j + 2 * hf], oacc[4 * j + 2 * hf + 1]);
+      if (r < N) {
+        const int64_t off = (int64_t)r * HD + 8 * j + 2 * t;
+        __nv_bfloat162 hv, lv;
+        split2(oacc[4 * j + 2 * hf], oacc[4 * j + 2 * hf + 1], F32 && keep_lo, hv, lv);
+        *reinterpret_cast<__nv_bfloat162*>(ob + off) = hv;
+        if constexpr (F32) *reinterpret_cast<__nv_bfloat162*>(ob + plane + off) = lv;
+      }
     }
   }
 }
@@ -380,13 +484,13 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 // The core's query rows a block for a batch of B (see the header).
 inline int core_rows(int B) { return B == 1 ? 256 : 128; }
 
-template <int R, bool BIAS>
+template <int R, bool BIAS, bool F32 = false>
 int launch_core(const Maps& maps, const bf16* q, bf16* o, int B, int N, int H, int HD,
-                cudaStream_t st) {
-  auto kern = core_kernel<R, BIAS>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem(R));
+                int keep_lo, cudaStream_t st) {
+  auto kern = core_kernel<R, BIAS, F32>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem(R, F32));
   dim3 grid(B, H, (N + R - 1) / R);
-  kern<<<grid, warps(R) * 32, core_smem(R), st>>>(maps, q, o, N, H, HD);
+  kern<<<grid, warps(R) * 32, core_smem(R, F32), st>>>(maps, q, o, N, H, HD, keep_lo);
   return (int)cudaGetLastError();
 }
 
@@ -434,13 +538,76 @@ extern "C" int ctc_attn_qrows(const void* x, const void* gamma, const void* wq, 
                            M, HD, tiles, N, ldv},
                     3 * tiles, M, D, st);
   if (err) return err;
-  typedef int (*Core)(const Maps&, const bf16*, bf16*, int, int, int, int, cudaStream_t);
+  typedef int (*Core)(const Maps&, const bf16*, bf16*, int, int, int, int, int, cudaStream_t);
   static const Core cores[2][2] = {{launch_core<128, false>, launch_core<128, true>},
                                    {launch_core<256, false>, launch_core<256, true>}};
-  err = cores[R == 256][bias != nullptr](core, qb, ob, B, N, H, HD, st);
+  err = cores[R == 256][bias != nullptr](core, qb, ob, B, N, H, HD, 1, st);
   if (err) return err;
   return launch_gemm(outm, LinearPlan{},
                      ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
                                  residual},
                      (D + BN - 1) / BN, M, HD, st);
+}
+
+// The fp32 variant (the per-item grid of the TPU kernel at fp32): x [B*N, D]
+// fp32; gamma [D], qs/ks [64], wq/wk/wv [HD, D], wo [D, HD] fp32; bias [H*N,
+// N] fp32 with row stride ldb (a multiple of 4), or null; workspaces xs
+// [4][B*N][D] (xn_hi, xn_lo, x_hi, x_lo), w_s [2][3 HD][D], wo_s [2][D][HD],
+// q_ws, k_ws and o_ws [2][B*N][HD], v_ws [2][B*H*64][ldv] (ldv = N rounded
+// up to a multiple of 8), all bf16 (hi, then lo); out [B*N, D] fp32. HD = H
+// * 64, a multiple of 128; D a multiple of 8; every pointer 16-B aligned.
+// flags 1: every lo plane zeroed (one bf16 product for each fp32 one, the
+// control).
+extern "C" int ctc_attn_qrows_f32(const void* x, const void* gamma, const void* wq,
+                                  const void* wk, const void* wv, const void* wo, const void* qs,
+                                  const void* ks, const void* bias, void* xs, void* w_s,
+                                  void* wo_s, void* q_ws, void* k_ws, void* v_ws, void* o_ws,
+                                  void* out, int B, int N, int D, int H, int ldb, float scale,
+                                  int residual, int flags, void* stream) {
+  using namespace ctc::qr;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * N, HD = H * DH, tiles = HD / BN, ldv = (N + 7) / 8 * 8;
+  const int keep = !(flags & 1);
+  if (M == 0) return 0;
+  const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz;
+  const int64_t mh = (int64_t)M * HD, vsz = (int64_t)B * HD * ldv;
+  bf16* xp = static_cast<bf16*>(xs);
+  bf16* wp = static_cast<bf16*>(w_s);
+  bf16* wop = static_cast<bf16*>(wo_s);
+  bf16* qp = static_cast<bf16*>(q_ws);
+  bf16* kp = static_cast<bf16*>(k_ws);
+  bf16* vp = static_cast<bf16*>(v_ws);
+  bf16* op = static_cast<bf16*>(o_ws);
+  Maps proj{}, core{};
+  int err = 0;
+  for (int i = 0; i < 4 && !err; ++i) err = map_a(&proj.m[i], xp + i * md, M, D, D);
+  if (!err) err = map_b(&proj.m[4], wp, 3 * HD, D, D);
+  if (!err) err = map_b(&proj.m[5], wp + wrows, 3 * HD, D, D);
+  if (!err && bias != nullptr) err = make_map(&core.m[MAP_BIAS], bias, H * N, N, ldb, F32_ROWS, 4);
+  if (!err) err = make_map(&core.m[MAP_K], kp, M, HD, HD, KT);
+  if (!err) err = make_map(&core.m[MAP_K_LO], kp + mh, M, HD, HD, KT);
+  if (!err) err = make_map(&core.m[MAP_V], vp, B * HD, N, ldv, DH);
+  if (!err) err = make_map(&core.m[MAP_V_LO], vp + vsz, B * HD, N, ldv, DH);
+  if (err) return err;
+  const float* const w3[3] = {static_cast<const float*>(wq), static_cast<const float*>(wk),
+                              static_cast<const float*>(wv)};
+  for (int i = 0; i < 3 && !err; ++i) err = split_to(w3[i], wp + i * wsz, wp + wrows + i * wsz, wsz, keep, st);
+  if (!err) err = split(wo, wop, wsz, keep, st);
+  if (!err)
+    err = launch_ln_split(static_cast<const float*>(x), static_cast<const float*>(gamma), nullptr,
+                          nullptr, xp, xp + md, xp + 2 * md, xp + 3 * md, M, D, 1e-5f, keep, st);
+  if (err) return err;
+  err = launch_gemm(proj, ctc::tc::QkvSplitPlan{tiles},
+                    QkvEpi{qp, kp, vp, static_cast<const float*>(qs),
+                           static_cast<const float*>(ks), scale, M, HD, tiles, N, ldv, qp + mh,
+                           kp + mh, vp + vsz, keep},
+                    3 * tiles, M, D, st);
+  if (err) return err;
+  err = bias != nullptr ? launch_core<F32_ROWS, true, true>(core, qp, op, B, N, H, HD, keep, st)
+                        : launch_core<F32_ROWS, false, true>(core, qp, op, B, N, H, HD, keep, st);
+  if (err) return err;
+  return split_product(op, op + mh, HD, wop, wop + wsz, HD, M, D, HD,
+                       F32OutEpi{static_cast<float*>(out), nullptr,
+                                 residual ? static_cast<const float*>(x) : nullptr, M, D},
+                       st);
 }

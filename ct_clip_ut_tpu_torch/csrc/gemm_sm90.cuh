@@ -443,7 +443,8 @@ constexpr int ERR_MAP = 9002;            // cuTensorMapEncodeTiled refused a map
 // The map of a row-major bf16 matrix [rows, cols] with row stride `ld`
 // elements, read in boxes of box_rows x 64 with the 128-B swizzle; zeros
 // outside the matrix. elem_bytes = 1 maps an int8 matrix (UINT8: TMA moves
-// bytes as they are) in boxes of box_rows x 128. Returns 0 or an ERR_ code.
+// bytes as they are) in boxes of box_rows x 128, elem_bytes = 4 an fp32
+// matrix in boxes of box_rows x 32. Returns 0 or an ERR_ code.
 inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
                     int box_rows, int elem_bytes = 2) {
   EncodeTiled fn = encode_tiled();
@@ -452,8 +453,9 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int64
   const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t estrides[2] = {1, 1};
-  CUresult r = fn(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  CUresult r = fn(map, elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                       : elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   2, const_cast<void*>(ptr), dims, strides, box, estrides,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

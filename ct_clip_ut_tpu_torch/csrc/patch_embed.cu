@@ -38,8 +38,28 @@
 // copies of 4-pixel runs into the swizzled tile, no P) measured slower on
 // the H100: each 128-wide column tile gathers its rows again, in 8-B pieces
 // that fetch whole 32-B sectors, where TMA streams P in dense lines.
+//
+// The fp32 variant (ctc_patch_embed_f32: the TPU kernel on an fp32 volume,
+// CTGenerate's one-scan route, where every rounding point is an identity)
+// runs the same three steps with the product as three bf16 products of hi
+// / lo planes (split_sm90.cuh), within ~2^-16 of fp32:
+//   patchify_f32_kernel  the volume read once, P written as hi / lo bf16
+//                        planes [2][M][ldp] and each patch's LN1 moments
+//                        summed in fp32 from the fp32 pixels;
+//   gemm_kernel          SplitPlan over P's planes and the folded weight's
+//                        (split per call from the fp32 [dim, ldk] fold);
+//                        PatchF32Epi applies the folded LN1 and b1 in fp32
+//                        and writes h fp32 into `out`;
+//   pe_ln_f32_kernel     LN2 over each fp32 row of `out`, in place, with
+//                        the two-pass variance.
+// Its bound at CTGenerate's shapes (K = 256 for the first frame, 512 for
+// the other 200 frames, 6,464 patches of dim 512): 10 GFLOP as three bf16
+// products (0.010 ms at the bf16 peak) against 26 MB of volume and output
+// (0.008 ms). The first frame is one 64-row tile: TMA zero-fills the other
+// 64 rows of its 128-row block, whose stores the epilogue masks.
 #include "gemm_sm90.cuh"
 #include "patch_common.cuh"
+#include "split_sm90.cuh"
 
 namespace ctc {
 namespace pe {
@@ -113,6 +133,138 @@ pe_ln_kernel(bf16* __restrict__ h, const float* __restrict__ g2, const float* __
   }
 }
 
+// ---- the fp32 variant -----------------------------------------------------------
+
+// One warp a patch of an fp32 volume: 8-pixel chunks (two 16-B loads of 4
+// pixels along W where vec4: a patch width and W that 4 divides, a 16-B
+// aligned volume) stored as one 16-B store each into P's hi and lo planes
+// (zeros past K, lo zeros without keep_lo), the LN1 moments summed on the
+// way from the fp32 pixels in the one-pass form.
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+patchify_f32_kernel(const float* __restrict__ image, bf16* __restrict__ p_hi,
+                    bf16* __restrict__ p_lo, float2* __restrict__ stats, int M, int ldp,
+                    PatchGeom g, int vec4, int keep_lo) {
+  const int m = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const int K = g.K();
+  const float* src = image + g.base(m);
+  const int64_t row = (int64_t)m * ldp;
+  float s = 0.f, s2 = 0.f;
+  for (int k = lane * 8; k < ldp; k += 256) {
+    float v[8];
+    if (vec4 && k + 8 <= K) {
+      const float4 a = *reinterpret_cast<const float4*>(src + g.pixel(k));
+      const float4 b = *reinterpret_cast<const float4*>(src + g.pixel(k + 4));
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z,
+      v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = k + i < K ? src[g.pixel(k + i)] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += v[i];
+      s2 += v[i] * v[i];
+    }
+    store_split4(make_float4(v[0], v[1], v[2], v[3]), keep_lo, p_hi, p_lo, row + k);
+    store_split4(make_float4(v[4], v[5], v[6], v[7]), keep_lo, p_hi, p_lo, row + k + 4);
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    const float mean = s / (float)K;
+    const float var = fmaxf(s2 / (float)K - mean * mean, 0.f);
+    stats[m] = make_float2(mean, rsqrtf(var + EPS));
+  }
+}
+
+// h [M, N] fp32 = (acc - mean * s1) * rstd + b1 (N even)
+struct PatchF32Epi {
+  float* h;
+  const float2* stats;
+  const float* s1;
+  const float* b1;
+  int M, N;
+  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = row + g + 8 * hf;
+      if (m >= M) continue;
+      const float2 st = stats[m];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = nt * BN + 8 * j + 2 * t;
+        if (c >= N) continue;
+        *reinterpret_cast<float2*>(h + (int64_t)m * N + c) =
+            make_float2((acc[4 * j + 2 * hf] - st.x * s1[c]) * st.y + b1[c],
+                        (acc[4 * j + 2 * hf + 1] - st.x * s1[c + 1]) * st.y + b1[c + 1]);
+      }
+    }
+  }
+};
+
+// LN2 in place over each fp32 row of h [M, dim] (dim a multiple of 4), one
+// warp a row, with the two-pass variance.
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+pe_ln_f32_kernel(float* __restrict__ h, const float* __restrict__ g2,
+                 const float* __restrict__ b2, int M, int dim) {
+  const int m = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (m >= M) return;
+  float* row = h + (int64_t)m * dim;
+  float s = 0.f;
+  for (int c = 4 * lane; c < dim; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mean = warp_sum(s) / (float)dim;
+  float s2 = 0.f;
+  for (int c = 4 * lane; c < dim; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    const float a = v.x - mean, b = v.y - mean, d = v.z - mean, e = v.w - mean;
+    s2 += (a * a + b * b) + (d * d + e * e);
+  }
+  const float rstd = rsqrtf(warp_sum(s2) / (float)dim + EPS);
+  for (int c = 4 * lane; c < dim; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    const float4 gm = *reinterpret_cast<const float4*>(g2 + c);
+    const float4 bt = *reinterpret_cast<const float4*>(b2 + c);
+    *reinterpret_cast<float4*>(row + c) =
+        make_float4((v.x - mean) * rstd * gm.x + bt.x, (v.y - mean) * rstd * gm.y + bt.y,
+                    (v.z - mean) * rstd * gm.z + bt.z, (v.w - mean) * rstd * gm.w + bt.w);
+  }
+}
+
+// image [B, 1, T, H, W] fp32; kwd [dim, ldk] fp32, the folded weight with
+// column (tv, p1, wv) and zeros past K; s1/b1/g2/b2 [dim] fp32; workspaces
+// patches [2][M][ldp] and kw_s [2][dim][ldk] bf16 (hi, then lo), stats [M]
+// float2; out [M, dim] fp32. ldp == ldk, a multiple of 8 at least K; dim a
+// multiple of 4; every pointer 16-B aligned. keep_lo 0 zeroes every lo
+// plane (the one-pass control).
+inline int launch_f32(const float* image, const float* kwd, const float* s1, const float* b1,
+                      const float* g2, const float* b2, bf16* patches, bf16* kw_s, void* stats,
+                      float* out, int B, int T, int H, int W, int patch, int t_patch, int dim,
+                      int ldp, int keep_lo, cudaStream_t st) {
+  const PatchGeom g{T, H, W, patch, t_patch};
+  const int M = B * (T / t_patch) * (H / patch) * (W / patch), K = g.K();
+  const int64_t pm = (int64_t)M * ldp, pw = (int64_t)dim * ldp;
+  if (M == 0) return 0;
+  int err = split(kwd, kw_s, pw, keep_lo, st);
+  if (err) return err;
+  const int vec4 =
+      patch % 4 == 0 && W % 4 == 0 && (reinterpret_cast<uintptr_t>(image) & 15u) == 0;
+  patchify_f32_kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(
+      image, patches, patches + pm, static_cast<float2*>(stats), M, ldp, g, vec4, keep_lo);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  err = split_product(patches, patches + pm, ldp, kw_s, kw_s + pw, ldp, M, dim, K,
+                      PatchF32Epi{out, static_cast<const float2*>(stats), s1, b1, M, dim}, st);
+  if (err) return err;
+  pe_ln_f32_kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(out, g2, b2, M,
+                                                                              dim);
+  return (int)cudaGetLastError();
+}
+
 // image [B, 1, T, H, W] bf16 (T, H, W multiples of t_patch, patch, patch);
 // kwd [dim, K] bf16 with row stride ldk, column (tv, p1, wv); s1/b1/g2/b2
 // [dim] fp32; patches [M, ldp] bf16 workspace; stats [M] float2 (each
@@ -164,4 +316,21 @@ extern "C" int ctc_patch_embed_res(const void* image, const void* kwd, const voi
                                    void* stream) {
   return ctc::pe::launch(image, kwd, s1, b1, g2, b2, patches, stats, out, conv, B, T, H, W, patch,
                          t_patch, dim, ldp, ldk, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The fp32 variant, pe::launch_f32: image [B, 1, T, H, W] fp32, kwd [dim,
+// ld] fp32 (zeros past K), s1/b1/g2/b2 [dim] fp32, workspaces patches
+// [2][M][ld] and kw_s [2][dim][ld] bf16, stats [M, 2] fp32, out [M, dim]
+// fp32; ld a multiple of 8 at least K. flags 1: every lo plane zeroed (one
+// bf16 product for each fp32 one, the control).
+extern "C" int ctc_patch_embed_f32(const void* image, const void* kwd, const void* s1,
+                                   const void* b1, const void* g2, const void* b2, void* patches,
+                                   void* kw_s, void* stats, void* out, int B, int T, int H, int W,
+                                   int patch, int t_patch, int dim, int ld, int flags,
+                                   void* stream) {
+  using ctc::sm90::bf16;
+  return ctc::pe::launch_f32(
+      (const float*)image, (const float*)kwd, (const float*)s1, (const float*)b1,
+      (const float*)g2, (const float*)b2, (bf16*)patches, (bf16*)kw_s, stats, (float*)out, B, T,
+      H, W, patch, t_patch, dim, ld, !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 """Throughput and device-time profile of the CTGenerate path on one GPU.
 
-    python -m ct_clip_ut_tpu_torch.infer.profile_ctgenerate [--table PATH]
+    python -m ct_clip_ut_tpu_torch.infer.profile_ctgenerate [--table PATH] [--one-scan]
 
 At the default configuration (`CTGenerateConfig()`: [b, 1, 201, 128, 128]
 bf16 scans -> a 101 x 8 x 8 grid, T5-v1.1-base, MaskGit 6 x 512; random
@@ -25,6 +25,13 @@ words each), it prints:
   device kernel time, the device's busy share, and the device kernels
   ranked by time (--table writes every row to PATH).
 
+With --one-scan it profiles the JAX script's default route instead, the
+script's `localize_scan` (one fp32 scan a forward: T5 of its report, the
+fp32 tokenizer and MaskGit, its heatmaps copied to the host; TF32 off):
+seconds a scan (host clock, synchronised, median, min and max of REPEATS
+scans after a warm-up), its launch counts, and one call under
+torch.profiler.
+
 Each line names the card and its power limit (`nvidia-smi`).
 """
 
@@ -43,7 +50,7 @@ from ..models.ctvit import token_grid_shape
 from ..models.maskgit import maskgit_generate
 from ..models.t5 import T5TextConditioner
 from ..ops import launches
-from ..scripts.inference_ctgenerate import localize
+from ..scripts.inference_ctgenerate import localize, localize_scan
 from .profile_zeroshot import card_name, print_profile, profile_call
 from .zeroshot import WordTokenizer
 
@@ -114,9 +121,35 @@ def spread(r: dict) -> str:
     return f"median {r['median']:.3f} scans/s (min {r['min']:.3f}, max {r['max']:.3f})"
 
 
+ONE_SCAN_POSITIVES = ("Emphysema", "Atelectasis", "Pleural effusion", "Lymphadenopathy",
+                      "Arterial wall calcification", "Lung nodule")   # all in WORDS
+
+
+def one_scan(model, t5, g, card: str, table) -> None:
+    """The one-scan fp32 route: seconds a scan, launches, one profile."""
+    scan = torch.randn((1, *SCAN), generator=g, device="cuda")
+    text = reports(1)[0]
+
+    def run():
+        return localize_scan(model, t5, scan, text, ONE_SCAN_POSITIVES)[0]
+
+    run()                                                            # warm-up
+    launches.reset_launch_counts()
+    maps, _ = timed(run)
+    counts = {k: v for k, v in launches.launch_counts().items() if v}
+    secs = [timed(run)[1] for _ in range(REPEATS)]
+    print(f"one-scan fp32: localize_scan over [1, {', '.join(map(str, SCAN))}] with "
+          f"{len(maps)} heatmaps: median {statistics.median(secs):.4f} s a scan (min "
+          f"{min(secs):.4f}, max {max(secs):.4f}, {REPEATS} scans); launches {counts} [{card}]",
+          flush=True)
+    print_profile(profile_call(run), "profile one-scan fp32", card, table)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--table", default=None, help="write every kernel's profile row here")
+    ap.add_argument("--one-scan", action="store_true",
+                    help="profile the one-scan fp32 route (localize_scan) instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_ctgenerate: needs a CUDA device", file=sys.stderr)
@@ -129,6 +162,9 @@ def main(argv=None) -> int:
     t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
     g = torch.Generator(device="cuda").manual_seed(0)
     grid = token_grid_shape(cfg.ctvit, (1, *SCAN))
+    if args.one_scan:
+        one_scan(model, t5, g, card, args.table)
+        return 0
 
     for words in (REPORT_WORDS, cfg.t5.max_length):                 # truncated at max_length
         t5.encode(reports(2, words))                                # warm-up

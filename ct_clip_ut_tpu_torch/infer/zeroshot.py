@@ -4,11 +4,14 @@ Counterpart of ct_clip_ut_tpu/infer/zeroshot.py: the 36 prompts are
 tokenised padded to 512 tokens and encoded once per checkpoint, each batch
 of volumes is encoded once, and the [B, 36] similarity gives
 softmax([present, absent]) per pathology. `CTClipInference.predict` is the
-batch loop; `zeroshot` adds the metrics (`utils/metrics.py`, numpy only).
+batch loop; `zeroshot` adds the metrics (`utils/metrics.py`, numpy only);
+`infer` runs zero-shot and then, where asked, the attribution suite
+(`attribution.suite.Visualizations` over `attribution_ctx`).
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Iterable, Optional, Sequence
 
@@ -118,16 +121,20 @@ def zeroshot_probs(model: CTCLIP, image: torch.Tensor, prompt_latents: torch.Ten
 
 
 class CTClipInference:
-    """Zero-shot driver. `data` yields (images [B, 1, D, H, W], texts,
-    labels [B, 18], ...); `prompt_tokens` is the tokenised prompt_texts()
-    (`tokenize_prompts`: input_ids [36, 512] and attention_mask /
-    token_type_ids) on the model's device."""
+    """Zero-shot and attribution runner. `data` yields (images [B, 1, D, H,
+    W], texts, labels [B, 18], ...); `prompt_tokens` is the tokenised
+    prompt_texts() (`tokenize_prompts`: input_ids [36, 512] and
+    attention_mask / token_type_ids) on the model's device. `visualize`
+    ({method: True, or occlusion's keyword dict}) and `attribution_ctx` (an
+    `attribution.suite.AttributionContext`) are what `infer` hands the
+    suite (ct_clip_ut_tpu/infer/zeroshot.py:234-243)."""
 
     def __init__(self, model: CTCLIP, prompt_tokens: dict, data: Iterable,
                  results_folder: str = "./results",
                  pathologies: Sequence[str] = PATHOLOGIES,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 mesh=None):
+                 mesh=None, zero_shot: bool = True, visualize: Optional[dict] = None,
+                 attribution_ctx=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded evaluation is not ported yet (ROADMAP, Queue 1 item 11)")
@@ -137,6 +144,9 @@ class CTClipInference:
         self.results_folder = Path(results_folder)
         self.pathologies = tuple(pathologies)
         self.compute_dtype = compute_dtype
+        self.zero_shot = zero_shot
+        self.visualize = visualize or {}
+        self.attribution_ctx = attribution_ctx
         self.metrics_history = []
         self._prompt_latents: Optional[torch.Tensor] = None
 
@@ -167,3 +177,16 @@ class CTClipInference:
         self.metrics_history.append(m)
         metrics.save_metrics(self.metrics_history, list(self.pathologies), self.results_folder)
         return m, preds, targets
+
+    def infer(self):
+        """zeroshot() where zero_shot is set, then the attribution suite's
+        flagged methods (the suite is kept as `self.suite`: its seconds a
+        method); returns zeroshot()'s result or None."""
+        start = time.time()
+        result = self.zeroshot() if self.zero_shot else None
+        if self.visualize and self.attribution_ctx is not None:
+            from ..attribution.suite import Visualizations
+            self.suite = Visualizations(self.attribution_ctx, self.results_folder)
+            self.suite.visualize(**self.visualize)
+        print(f"Evaluation completed in {time.time() - start:.1f}s")
+        return result

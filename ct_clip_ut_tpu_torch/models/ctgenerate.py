@@ -7,12 +7,13 @@ scan becomes a 101 x 8 x 8 grid of codebook ids; MaskGit attends over the
 cross-attention to the report; the last layer's cross-attention, its 2 null
 columns dropped, gives each keyword's localisation heatmap.
 
-On the card the tokenizer runs in the scan's dtype and its conv patch
-embed takes bf16, so the card serves bf16 scans: an fp32 scan on a CUDA
-device raises in `ctvit_apply` (ROADMAP Queue 2 item 14, third group), as
-does an fp32 MaskGit (`compute_dtype="float32"`, the default of
-`ctgenerate_apply`, the parity route the CPU tests take). Serving goes through `ctgenerate_apply_batched`
-in bf16 with the bias cache at every batch size. plain=True runs every
+On the card the tokenizer runs in the scan's dtype: a bf16 scan through
+the bf16 kernels, an fp32 scan through their fp32 variants (the conv
+patch embed, both attention blocks, the FF and the VQ). MaskGit runs in
+`compute_dtype`: fp32 (the default of `ctgenerate_apply`, the JAX script's
+one-scan route at --batch-size 1) through the fp32 attn_qrows and
+geglu_ff, bf16 (the default of `ctgenerate_apply_batched`, serving with
+the bias cache) through their bf16 kernels. plain=True runs every
 kernel's plain version instead (what the card compares the kernels with).
 """
 

@@ -176,22 +176,15 @@ def token_grid_shape(cfg: CTViTConfig, image_shape) -> tuple:
     return (t, H // cfg.patch_size, W // cfg.patch_size)
 
 
-def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool,
-                      conv: bool = True) -> None:
+def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool) -> None:
     """Raise for an image the card's image-tower kernels do not take: on a
-    CUDA device (`device_type` "cuda") without plain=True, bf16, or fp32
-    with the matmul patch embed (`conv` False: the fp32 variants of the
-    block, FF and VQ kernels; the attribution suite's configuration)."""
-    if device_type != "cuda" or plain or dtype == torch.bfloat16:
+    CUDA device (`device_type` "cuda") without plain=True, bf16 or fp32 (the
+    fp32 variants of the patch embed, block, FF and VQ kernels: CTGenerate's
+    one-scan route and the attribution suite)."""
+    if device_type != "cuda" or plain or dtype in (torch.bfloat16, torch.float32):
         return
-    if dtype != torch.float32:
-        raise NotImplementedError(f"a {dtype} image on the card: the CT-ViT kernels take "
-                                  "bfloat16 or float32")
-    if conv:
-        raise NotImplementedError(
-            "an fp32 image on the card with the conv patch embed: the patch_embed kernel takes "
-            "bf16 only (ROADMAP Queue 2 item 14, third group: its fp32 variant); use "
-            "patch_embed_conv=False, the matmul embed, or cast the image to bfloat16")
+    raise NotImplementedError(f"a {dtype} image on the card: the CT-ViT kernels take "
+                              "bfloat16 or float32")
 
 
 def ctvit_encode_tokens(vit: CTViT, tokens: torch.Tensor, *, freeze_vq: bool = True,
@@ -223,8 +216,8 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
     caller writes it back). CT-ViT dropout is not ported: its rates are 0
     in every configuration the JAX package ships, and a train-mode call
-    with a rate above 0 raises. On the card the image must be bf16, or fp32
-    with the matmul patch embed (`check_image_dtype`)."""
+    with a rate above 0 raises. On the card the image must be bf16 or fp32
+    (`check_image_dtype`)."""
     cfg = vit.cfg
     if not deterministic and (cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0):
         raise NotImplementedError(
@@ -233,11 +226,11 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     if prepatchified:
         assert cfg.model_type != "ctgenerate", \
             "prepatchified input is only supported for the ctclip embed"
-        check_image_dtype(image.dtype, image.device.type, plain, conv=False)
+        check_image_dtype(image.dtype, image.device.type, plain)
         return ctvit_encode_tokens(vit, _patch_embed(vit.to_patch_emb, image),
                                    freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
                                    plain=plain)
-    check_image_dtype(image.dtype, image.device.type, plain, cfg.patch_embed_conv)
+    check_image_dtype(image.dtype, image.device.type, plain)
     if cfg.patch_embed_conv:
         def embed(emb, img, t_patch):
             return _patch_embed_conv(vit, img.contiguous(), plain=plain, emb=emb,

@@ -12,10 +12,12 @@ From 4096 tokens on, self-attention takes the query-row-block route
 block, over the dense [heads, n, n] CPB table while heads * n^2 * 4 bytes
 stay under 2 GiB (the JAX rule, whatever the dtype), else over row stripes
 built per block. The table rides in the compute dtype there (the TPU
-kernel's kv variant rounds it so). On the card the stack runs in bf16:
-the attn_qrows kernel takes nothing else (geglu_ff has an fp32 variant),
-so an fp32 MaskGit on a CUDA tensor raises; plain=True runs every kernel's plain version, in
-any dtype, on any device.
+kernel's kv variant rounds it so). On the card the stack runs in bf16
+(serving) or fp32 (CTGenerate's one-scan route: the fp32 variants of
+attn_qrows and geglu_ff); the cross-attention to the report and the PEG
+stay plain PyTorch in either, as they are XLA in the JAX package.
+plain=True runs every kernel's plain version, in any dtype, on any
+device.
 """
 
 from __future__ import annotations
@@ -116,10 +118,9 @@ def maskgit_apply(mg: MaskGit, ct_codebook_ids: torch.Tensor, context: torch.Ten
     dt = _dtype(compute_dtype)
     if dt is not None:
         x, context = x.to(dt), context.to(dt)
-    if _build.on_cuda(x) and not plain and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"MaskGit in {x.dtype} on the card: the attn_qrows kernel takes bf16 only (ROADMAP "
-            "Queue 2 item 14, third group: its fp32 variant); pass compute_dtype='bfloat16'")
+    if _build.on_cuda(x) and not plain and x.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"MaskGit in {x.dtype} on the card: the attn_qrows and "
+                                  "geglu_ff kernels take bfloat16 or float32")
 
     if precomputed_bias is not None:
         attn_bias, bias_fn = precomputed_bias

@@ -5,8 +5,10 @@ Replaces ct_clip_ut_tpu/ops/pallas_attn_qrows.py:attention_qrows_fused
 `csrc/attn_qrows.cu` (LN pass, the q / k / v projections and the output
 projection on the Hopper GEMM core, a two-pass wgmma attention core whose
 blocks take 256 query rows at B = 1 and 128 otherwise); its header says
-what bounds it on the H100 and what the design does about it. `attn_qrows` launches it for CUDA tensors and
-takes the plain version for CPU tensors; `attn_qrows_grad` adds the TPU
+what bounds it on the H100 and what the design does about it. `attn_qrows` launches it for CUDA tensors
+(bf16; fp32 tensors take its fp32 variant, the per-item grid's function
+with every product three bf16 products of hi / lo planes) and takes the
+plain version for CPU tensors; `attn_qrows_grad` adds the TPU
 kernel's backward, autograd through the plain version recomputed (the JAX
 custom VJP recomputes `_xla_reference_block`; no backward kernel exists).
 
@@ -92,14 +94,74 @@ def attn_qrows(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wk: torch
                residual: bool = False) -> torch.Tensor:
     """The attn_qrows kernel on CUDA tensors (bf16 x, weights and bias
     [h, N, N] or None; fp32 gamma and scales; heads of 64, h*64 a multiple
-    of 128), the plain version on CPU tensors. A bias whose N is not a
-    multiple of 8 has rows TMA cannot read as they are: it goes as a
-    zero-padded copy made on every call (about 0.67 GB for a table of
-    MaskGit's size; MaskGit's N = 6464, a multiple of 8, needs none)."""
+    of 128; fp32 x, weights and bias take the fp32 variant), the plain
+    version on CPU tensors. A bias whose rows are not 16-B strided (N not a
+    multiple of 8 in bf16, of 4 in fp32) goes as a zero-padded copy made on
+    every call (about 0.67 GB for a bf16 table of MaskGit's size; MaskGit's
+    N = 6464 needs none)."""
     if not _build.on_cuda(x):
         return attn_qrows_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+    if x.dtype == torch.float32:
+        out = launch_chain_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+        launches.count("attn_qrows_f32")
+        return out
     out, _ = launch_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
     launches.count("attn_qrows")
+    return out
+
+
+def _check_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, dtype) -> tuple:
+    """Raise unless the chain in `dtype` (bf16, or fp32 for the fp32
+    variant) takes these operands; returns (B, N, D, heads, the operands
+    16-B aligned, the bias as TMA reads it [h*N, ldb] or None, ldb)."""
+    b, n, d = x.shape
+    hd = wq.shape[0]
+    heads = hd // DIM_HEAD
+    if qs.shape != (DIM_HEAD,) or hd % 128 != 0 or d % 8 != 0:
+        raise ValueError(f"attn_qrows takes heads of {DIM_HEAD}, heads*{DIM_HEAD} a multiple of "
+                         f"128 and a width that 8 divides; got dh={tuple(qs.shape)}, h*dh={hd}, "
+                         f"D={d}")
+    dev = x.device
+    for t, name, dt, shape in ((x, "x", dtype, (b, n, d)),
+                               (gamma, "gamma", torch.float32, (d,)),
+                               (wq, "wq", dtype, (hd, d)),
+                               (wk, "wk", dtype, (hd, d)),
+                               (wv, "wv", dtype, (hd, d)),
+                               (wo, "wo", dtype, (d, hd)),
+                               (qs, "q_scale", torch.float32, (DIM_HEAD,)),
+                               (ks, "k_scale", torch.float32, (DIM_HEAD,))):
+        _build.require(t, name, dt, shape, dev)
+    if bias is not None:
+        _build.require(bias, "bias", dtype, (heads, n, n), dev)
+    ops = tuple(_build.aligned16(t) for t in (x, gamma, wq, wk, wv, wo))
+    ldb = 0
+    if bias is not None:   # TMA reads [h*N, N]; rows not 16-B strided go as a padded copy
+        bias, ldb = _build.tma_rows(bias.view(heads * n, n))
+    return b, n, d, heads, ops, bias, ldb
+
+
+def launch_chain_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual,
+                     one_pass: bool = False) -> torch.Tensor:
+    """Checks the fp32 operands and launches the fp32 chain once (no
+    count): the one place that knows its workspaces, bf16 hi / lo planes:
+    xn's and x's [4, B*N, D]; the weights' (wq | wk | wv stacked [2, 3 h*64,
+    D], wo [2, D, h*64]); q, k and o [2, B*N, h*64]; v transposed per head
+    [2, B*h*64, pitch]. one_pass zeroes every lo plane (the control)."""
+    b, n, d, heads, (x, gamma, wq, wk, wv, wo), bias, ldb = _check_chain(
+        x, gamma, wq, wk, wv, wo, qs, ks, bias, torch.float32)
+    m, hd = b * n, heads * DIM_HEAD
+    b16 = dict(dtype=torch.bfloat16, device=x.device)
+    ws = (torch.empty((4, m, d), **b16), torch.empty((2, 3 * hd, d), **b16),
+          torch.empty((2, d, hd), **b16), torch.empty((2, m, hd), **b16),
+          torch.empty((2, m, hd), **b16), torch.empty((2, b * hd, _build.tma_pitch(n)), **b16),
+          torch.empty((2, m, hd), **b16))
+    out = torch.empty_like(x)
+    err = _build.load().ctc_attn_qrows_f32(
+        x.data_ptr(), gamma.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+        wo.data_ptr(), qs.data_ptr(), ks.data_ptr(), None if bias is None else bias.data_ptr(),
+        *(w.data_ptr() for w in ws), out.data_ptr(), b, n, d, heads, ldb, float(scale),
+        int(residual), int(one_pass), _build.stream_of(x))
+    _build.check(err, "attn_qrows_f32")
     return out
 
 
@@ -109,29 +171,10 @@ def launch_chain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):
     [B*N, D]; q and k [B*N, h*64]; v transposed per head [B*h*64, pitch]
     (each head's 64 rows hold v's columns along the sequence, rows padded
     to 16 B); o [B*N, h*64], the attention before the output projection."""
-    b, n, d = x.shape
-    hd = wq.shape[0]
-    heads = hd // DIM_HEAD
-    if qs.shape != (DIM_HEAD,) or hd % 128 != 0 or d % 8 != 0:
-        raise ValueError(f"attn_qrows takes heads of {DIM_HEAD}, heads*{DIM_HEAD} a multiple of "
-                         f"128 and a width that 8 divides; got dh={tuple(qs.shape)}, h*dh={hd}, "
-                         f"D={d}")
+    b, n, d, heads, (x, gamma, wq, wk, wv, wo), bias, ldb = _check_chain(
+        x, gamma, wq, wk, wv, wo, qs, ks, bias, torch.bfloat16)
+    hd = heads * DIM_HEAD
     dev = x.device
-    for t, name, dtype, shape in ((x, "x", torch.bfloat16, (b, n, d)),
-                                  (gamma, "gamma", torch.float32, (d,)),
-                                  (wq, "wq", torch.bfloat16, (hd, d)),
-                                  (wk, "wk", torch.bfloat16, (hd, d)),
-                                  (wv, "wv", torch.bfloat16, (hd, d)),
-                                  (wo, "wo", torch.bfloat16, (d, hd)),
-                                  (qs, "q_scale", torch.float32, (DIM_HEAD,)),
-                                  (ks, "k_scale", torch.float32, (DIM_HEAD,))):
-        _build.require(t, name, dtype, shape, dev)
-    if bias is not None:
-        _build.require(bias, "bias", torch.bfloat16, (heads, n, n), dev)
-    x, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, wq, wk, wv, wo))
-    ldb = 0
-    if bias is not None:   # TMA reads [h*N, N]; rows not 16-B strided go as a padded copy
-        bias, ldb = _build.tma_rows(bias.view(heads * n, n))
     b16 = dict(dtype=torch.bfloat16, device=dev)
     ws = {"xn": torch.empty((b * n, d), **b16), "q": torch.empty((b * n, hd), **b16),
           "k": torch.empty((b * n, hd), **b16),

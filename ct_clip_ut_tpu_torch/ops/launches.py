@@ -14,7 +14,7 @@ KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed",
            "patch_embed_dkw", "bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads",
            "attn_qrows", "geglu_ff_int8", "cosine_attention", "attn_block_f32", "attn_packed_f32",
            "geglu_ff_f32", "vq_nearest_f32", "attn_block_bwd_f32", "attn_packed_bwd_f32",
-           "geglu_ff_bwd_f32")
+           "geglu_ff_bwd_f32", "patch_embed_f32", "attn_qrows_f32")
 
 attn_block = 0
 attn_packed = 0
@@ -41,6 +41,8 @@ vq_nearest_f32 = 0
 attn_block_bwd_f32 = 0
 attn_packed_bwd_f32 = 0
 geglu_ff_bwd_f32 = 0
+patch_embed_f32 = 0
+attn_qrows_f32 = 0
 
 
 def count(name: str) -> None:

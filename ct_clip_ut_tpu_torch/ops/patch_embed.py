@@ -15,8 +15,10 @@ folded into the projection (models/ctvit.py:63-99 of the JAX package):
 
 so the projection runs on the raw pixels and the per-patch moments are
 applied afterwards. `fold_patch_embed` builds the folded weights in fp32;
-`patch_embed_fused` launches the kernel for CUDA tensors and takes the plain
-version for CPU tensors; `patch_embed_plain` is the `_xla_twin` math
+`patch_embed_fused` launches the kernel for CUDA tensors (bf16; an fp32
+volume takes the fp32 variant `patch_embed_f32`, the product as three bf16
+products of hi / lo planes) and takes the plain version for CPU tensors;
+`patch_embed_plain` is the `_xla_twin` math
 (pallas_patch_embed.py:164-194) with the kernel's rounding points: the
 folded weights cast once to the image dtype, the product and the moments
 in fp32, h rounded to the image dtype before LN2 (two-pass variance).
@@ -88,21 +90,23 @@ def patch_embed_plain(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
     return out.reshape(b, t, hp, wp, dim).to(image.dtype)
 
 
-def _check_embed_args(image, kw, s1, b1, g2, b2, patch: int, t_patch: int) -> None:
-    """Raise unless the patch_embed kernels take these arguments."""
+def _check_embed_args(image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
+                      dtype=torch.bfloat16) -> None:
+    """Raise unless the patch_embed kernels take these arguments (a volume
+    in `dtype`: bf16, or fp32 for the fp32 variant)."""
     b, c, T, H, W = image.shape
     if c != 1 or T % t_patch or H % patch or W % patch:
         raise ValueError(f"the patch_embed kernel takes one channel and T, H, W that the "
                          f"patch sizes ({t_patch}, {patch}, {patch}) divide; got "
                          f"{tuple(image.shape)}")
     dim = kw.shape[-1]
-    for t, name, dtype, shape in ((image, "image", torch.bfloat16, (b, 1, T, H, W)),
-                                  (kw, "kw", torch.float32, (patch, t_patch * patch, dim)),
-                                  (s1, "s1", torch.float32, (dim,)),
-                                  (b1, "b1", torch.float32, (dim,)),
-                                  (g2, "g2", torch.float32, (dim,)),
-                                  (b2, "b2", torch.float32, (dim,))):
-        _build.require(t, name, dtype, shape, image.device)
+    for t, name, dt, shape in ((image, "image", dtype, (b, 1, T, H, W)),
+                               (kw, "kw", torch.float32, (patch, t_patch * patch, dim)),
+                               (s1, "s1", torch.float32, (dim,)),
+                               (b1, "b1", torch.float32, (dim,)),
+                               (g2, "g2", torch.float32, (dim,)),
+                               (b2, "b2", torch.float32, (dim,))):
+        _build.require(t, name, dt, shape, image.device)
 
 
 def tma_operands(image: torch.Tensor, kw: torch.Tensor, patch: int, t_patch: int) -> dict:
@@ -144,14 +148,50 @@ def _launch(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
     return out, res, stats, ops["patches"][0]
 
 
+def patch_embed_f32(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
+                    b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor, patch: int,
+                    t_patch: int, one_pass: bool = False) -> torch.Tensor:
+    """Run the fp32 chain ctc_patch_embed_f32 on CUDA tensors (no count):
+    the one place that knows its workspaces (P's and the folded weight's hi
+    / lo planes, rows padded to 16 B; each patch's LN1 moments). one_pass
+    zeroes every lo plane (the control)."""
+    b, c, T, H, W = image.shape
+    _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch, torch.float32)
+    dim = kw.shape[-1]
+    if dim % 4:
+        raise ValueError(f"the fp32 patch_embed kernel takes a width that 4 divides, got {dim}")
+    dev = image.device
+    t, hp, wp = T // t_patch, H // patch, W // patch
+    m, k = b * t * hp * wp, t_patch * patch * patch
+    ld = _build.tma_pitch(k)
+    kwd = _kernel_weight(kw, torch.float32)
+    if ld != k:
+        kwd = torch.nn.functional.pad(kwd, (0, ld - k))
+    image = _build.aligned16(image)
+    b16 = dict(dtype=torch.bfloat16, device=dev)
+    patches, kw_s = torch.empty((2, m, ld), **b16), torch.empty((2, dim, ld), **b16)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, hp, wp, dim), dtype=torch.float32, device=dev)
+    err = _build.load().ctc_patch_embed_f32(
+        image.data_ptr(), kwd.data_ptr(), s1.data_ptr(), b1.data_ptr(), g2.data_ptr(),
+        b2.data_ptr(), patches.data_ptr(), kw_s.data_ptr(), stats.data_ptr(), out.data_ptr(),
+        b, T, H, W, patch, t_patch, dim, ld, int(one_pass), _build.stream_of(image))
+    _build.check(err, "ctc_patch_embed_f32")
+    return out
+
+
 def patch_embed_fused(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
                       b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                       patch: int, t_patch: int) -> torch.Tensor:
     """The patch_embed kernel on CUDA tensors (a bf16 [b, 1, T, H, W] volume
-    with T, H, W multiples of the patch sizes; fp32 kw, s1, b1, g2, b2), the
-    plain version on CPU tensors."""
+    with T, H, W multiples of the patch sizes; fp32 kw, s1, b1, g2, b2; an
+    fp32 volume takes the fp32 variant), the plain version on CPU tensors."""
     if not _build.on_cuda(image):
         return patch_embed_plain(image, kw, s1, b1, g2, b2, patch, t_patch)
+    if image.dtype == torch.float32:
+        out = patch_embed_f32(image, kw, s1, b1, g2, b2, patch, t_patch)
+        launches.count("patch_embed_f32")
+        return out
     out = _launch("ctc_patch_embed", image, kw, s1, b1, g2, b2, patch, t_patch, False)[0]
     launches.count("patch_embed")
     return out

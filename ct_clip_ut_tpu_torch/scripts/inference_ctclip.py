@@ -1,9 +1,10 @@
-"""CT-CLIP zero-shot evaluation on one GPU.
+"""CT-CLIP zero-shot evaluation and attribution on one GPU.
 
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctclip \
         --data-valid /data/valid --valid-reports reports/valid_reports.csv \
         --valid-labels labels/valid_labels.csv \
-        --valid-metadata metadata/valid_metadata.csv --zero-shot [--quantize-ff]
+        --valid-metadata metadata/valid_metadata.csv --zero-shot [--quantize-ff] \
+        [--visualize occlusion grad_cam ...] [--diff-embeds D.npy --occlusion-text-embeds]
 
 Counterpart of ct_clip_ut_tpu/scripts/inference_ctclip.py, with its parser
 flag for flag and its refusals (--quantize-ff with a gradient method,
@@ -13,15 +14,25 @@ reads the .nii.gz volumes under --data-valid through `InferenceDataset`
 scores them with `CTClipInference.zeroshot()` (36 prompts padded to 512
 tokens, bf16 volumes) and writes metrics.txt to --results-folder.
 --quantize-ff serves the visual transformer's FFs W8A8 (`quantize_ctclip_ff`,
-the geglu_ff_int8 kernel).
+the geglu_ff_int8 kernel). --visualize runs the attribution suite
+(`attribution.suite.Visualizations` through `CTClipInference.infer()`)
+over the same dataset, one volume at a time, writing each method's maps
+and GIFs under --results-folder; --diff-embeds loads the diff embeddings
+(`scripts.embedding_arithmetic`) that --occlusion-text-embeds scores
+against, and --occlusion-prompt tags occlusion's file names. Without
+matplotlib or pillow, --visualize raises before the model loads;
+--no-gifs (the port's own flag: the JAX script always renders) writes the
+maps alone and needs neither.
 
 Weights: --checkpoint, a state dict of the port's CTCLIP
 (torch.save(model.state_dict())); without it, random weights from --seed.
 Prompts are tokenised by the stand-in `WordTokenizer`. Left for later, each
 raising with its ROADMAP item after the parser's refusals: HF tokenizer
 files (--tokenizer) and the reference's ctclip_v2.pt (Queue 1 item 12),
---visualize and --diff-embeds (item 9: attribution), --multihost and the
---mesh-* flags (item 11). `main(argv, model_cfg=, preprocess_cfg=)` takes
+--multihost and the --mesh-* flags (item 11), and --quantize-ff with a
+forward attribution method (the JAX package runs the W8A8 FF under the
+fp32 attribution forward there; the geglu_ff_int8 kernel takes bf16
+activations only: Queue 2 item 16). `main(argv, model_cfg=, preprocess_cfg=)` takes
 another configuration from Python (the tests' tiny one); the command line
 serves the JAX script's `CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
 """
@@ -29,17 +40,19 @@ serves the JAX script's `CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
 from .. import _build
+from ..attribution.embedding_arithmetic import load_diff_embeddings
+from ..attribution.suite import AttributionContext
 from ..config import CTCLIPConfig, CTViTConfig, PreprocessConfig
 from ..data.datasets import InferenceDataset
 from ..data.loader import DataLoader, ShardedSampler
 from ..infer.zeroshot import CTClipInference, WordTokenizer, tokenize_prompts
 from ..models.ctclip import CTCLIP, init_ctclip
 from ..ops.quant import quantize_ctclip_ff
+from ..utils import visualizations
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--valid-metadata", required=True)
     p.add_argument("--results-folder", default="./results/valid/ctclip")
     p.add_argument("--diff-embeds", default=None,
-                   help="pathology_diff_embeddings.npy: not ported (Queue 1 item 9)")
+                   help="pathology_diff_embeddings.npy for occlusion's text-embeds mode")
     p.add_argument("--checkpoint", default=None,
                    help="a state dict of the port's CTCLIP; default: random from --seed")
     p.add_argument("--tokenizer", default=None,
@@ -65,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--visualize", nargs="*", default=[],
                    choices=["raw_attention_maps", "attention_rollout",
                             "integrated_gradients", "grad_cam", "occlusion"],
-                   help="attribution: not ported (Queue 1 item 9)")
+                   help="attribution methods to run over the dataset (fp32)")
+    p.add_argument("--no-gifs", action="store_true",
+                   help="--visualize writes the .npy maps alone, no GIFs (no matplotlib needed)")
     p.add_argument("--occlusion-text-embeds", action="store_true",
                    help="occlusion in the diff-embedding bypass mode (requires --diff-embeds)")
     p.add_argument("--multihost", action="store_true", help="not ported (Queue 1 item 11)")
@@ -117,14 +132,19 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
     if args.tokenizer is not None:
         raise NotImplementedError("HF tokenizer files are not in the repository (ROADMAP "
                                   "Queue 1 item 12); the stand-in WordTokenizer is used")
-    if args.visualize or args.diff_embeds:
-        raise NotImplementedError("--visualize and --diff-embeds (the attribution suite) are "
-                                  "not ported yet (ROADMAP Queue 1 item 9)")
+    forward_methods = {"raw_attention_maps", "attention_rollout", "occlusion"}
+    if args.quantize_ff and forward_methods & set(args.visualize):
+        raise NotImplementedError(
+            "--quantize-ff with a forward attribution method: the JAX package runs the W8A8 FF "
+            "under the fp32 attribution forward there, and the geglu_ff_int8 kernel takes bf16 "
+            "activations only (ROADMAP Queue 2 item 16: its fp32-activation variant)")
     if (args.multihost or args.coordinator_address or (args.num_processes or 0) > 1
             or args.process_id is not None or args.mesh_data is not None
             or args.mesh_model != 1):
         raise NotImplementedError("multi-process and mesh-sharded evaluation are not ported "
                                   "yet (ROADMAP Queue 1 item 11)")
+    if args.visualize and not args.no_gifs:
+        visualizations.require_renderer()   # before the model loads
 
     device = _build.check_device(args.device)
     cfg = model_cfg or CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
@@ -138,15 +158,23 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
     dl = DataLoader(ds, batch_size=args.batch_size,
                     sampler=ShardedSampler(len(ds), shuffle=False, drop_last=False),
                     num_workers=args.num_workers, drop_last=False)
-    prompts = tokenize_prompts(WordTokenizer(cfg.bert.vocab_size), device=device)
-    inference = CTClipInference(model, prompts, dl, results_folder=args.results_folder)
-    start = time.time()
-    result = None
-    if args.zero_shot:
-        result = inference.zeroshot()
+    tokenizer = WordTokenizer(cfg.bert.vocab_size)
+    prompts = tokenize_prompts(tokenizer, device=device)
+    visualize = {name: True for name in args.visualize}
+    if "occlusion" in visualize and (args.occlusion_text_embeds or args.occlusion_prompt):
+        visualize["occlusion"] = {"use_text_embeds": args.occlusion_text_embeds,
+                                  "prompt": args.occlusion_prompt}
+    ctx = AttributionContext(model=model, tokenizer=tokenizer, data=ds,
+                             diff_embeds=(load_diff_embeddings(args.diff_embeds)
+                                          if args.diff_embeds else None),
+                             render_gifs=not args.no_gifs)
+    inference = CTClipInference(model, prompts, dl, results_folder=args.results_folder,
+                                zero_shot=args.zero_shot, visualize=visualize,
+                                attribution_ctx=ctx)
+    result = inference.infer()
+    if result is not None:
         print(f"zero-shot: {len(ds)} volumes, mean ROC-AUC {result[0]['mean_roc_auc']:.4f} -> "
               f"{inference.results_folder / 'metrics.txt'}")
-    print(f"Evaluation completed in {time.time() - start:.1f}s")
     return result
 
 

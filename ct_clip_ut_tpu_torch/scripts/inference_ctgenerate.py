@@ -1,29 +1,37 @@
 """CTGenerate on one GPU: keyword localisation heatmaps, or GenerateCT decoding.
 
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate \
+        --data-valid /data/valid --valid-reports R.csv --valid-labels L.csv \
+        --valid-metadata M.csv [--batch-size 1] [--gifs]
+    python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate \
         --scans SCANS.npy --reports REPORTS.txt [--labels LABELS.npy]
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate --generate "PROMPT" ...
 
 Counterpart of ct_clip_ut_tpu/scripts/inference_ctgenerate.py.
-Localisation: [N, 1, 201, 128, 128] scans (a .npy, cast to bf16: the card
-serves bf16 scans) with one report per line, in batches of --batch-size
-through `ctgenerate_apply_batched` (bf16 MaskGit, the CPB table built once
-into a cache): each sample's positive pathologies (a [N, 18] 0/1 --labels
-array; without it, every pathology) whose words occur in its report get a
-heatmap [201, 128, 128], saved rotated as the JAX script saves it
-(ctgenerate_<sample>_<pathology>.npy). --generate decodes one token grid
-per prompt with `maskgit_generate` (bf16, generator seeded by --seed) and
-saves it as generated_<i>_<slug>_tokens.npy.
+Localisation over --data-valid reads the scans through `InferenceDataset`
+(model_type "ctgenerate": [1, 201, 128, 128] fp32 volumes, the reports,
+labels and metadata CSVs). At --batch-size 1 each scan takes the one-scan
+fp32 route of the JAX script (`localize_scan`: the report T5-encoded, the
+scan and MaskGit in fp32 through the fp32 kernels, TF32 off); at
+--batch-size > 1 the scans go in batches through `ctgenerate_apply_batched`
+(MaskGit in --compute-dtype with the CPB table built once into a cache).
+Each scan's positive pathologies whose words occur in its report get a
+heatmap [201, 128, 128], saved rotated as ctgenerate_<scan>_<pathology>.npy
+and, with --gifs, rendered over the rotated scan as a GIF of the same name
+(utils/visualizations; the JAX script always renders). --scans takes [N, 1,
+D, H, W] scans from a .npy with one report per line (--labels: [N, 18] 0/1;
+without it, every pathology), the same routes by --batch-size (the batched
+one on bf16 scans), files named by sample index. --generate decodes one
+token grid per prompt with `maskgit_generate` (bf16, generator seeded by
+--seed) and saves it as generated_<i>_<slug>_tokens.npy.
 
 Weights: --checkpoint, a state dict of the port's CTGenerate
 (torch.save(model.state_dict())); without it, random weights from --seed.
 Reports are tokenised by the stand-in `WordTokenizer`. Left for later, each
-raising with its ROADMAP item: the dataset loop (--data-valid and its
-companions, Queue 1 item 13), GIF rendering (--gifs), --mesh-data (item
-11), and the reference's ctgenerate_filtered.pt or HF T5 tokenizer files
-(--t5, item 12). Unlike the JAX script at --batch-size 1, the one-scan
-fp32 route is not taken: every batch size serves through the batched bf16
-forward.
+raising with its ROADMAP item: --mesh-data (item 11), and the reference's
+ctgenerate_filtered.pt or HF T5 tokenizer files (--t5, item 12).
+`main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
+Python (the tests' tiny one); the command line serves CTGenerateConfig().
 """
 
 from __future__ import annotations
@@ -36,13 +44,16 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..config import PATHOLOGIES, CTGenerateConfig
+from ..attribution.capture import full_fp32, rot90_ct
+from ..config import PATHOLOGIES, CTGenerateConfig, PreprocessConfig
+from ..data.datasets import InferenceDataset
 from ..infer.zeroshot import WordTokenizer
-from ..models.ctgenerate import (CTGenerate, ctgenerate_apply_batched, init_ctgenerate,
-                                 keyword_heatmap)
+from ..models.ctgenerate import (CTGenerate, ctgenerate_apply, ctgenerate_apply_batched,
+                                 init_ctgenerate, keyword_heatmap)
 from ..models.ctvit import token_grid_shape
 from ..models.maskgit import maskgit_generate
 from ..models.t5 import T5TextConditioner
+from ..utils import visualizations
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,10 +61,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scans", default=None, help="[N, 1, D, H, W] scans (.npy)")
     p.add_argument("--reports", default=None, help="one report per line, N lines")
     p.add_argument("--labels", default=None, help="[N, 18] 0/1 pathology labels (.npy)")
-    p.add_argument("--data-valid", default=None, help="not ported (ROADMAP Queue 1 item 13)")
+    p.add_argument("--data-valid", default=None, help="the valid split's .nii.gz volumes")
     p.add_argument("--valid-reports", default=None)
     p.add_argument("--valid-labels", default=None)
     p.add_argument("--valid-metadata", default=None)
+    p.add_argument("--num-valid-samples", type=int, default=1)
+    p.add_argument("--num-workers", type=int, default=4,
+                   help="accepted as the JAX script does; the loop reads the dataset in order")
     p.add_argument("--generate", nargs="*", metavar="PROMPT", default=None,
                    help="decode one CT token grid per prompt (saved as .npy)")
     p.add_argument("--generate-steps", type=int, default=18, help="MaskGIT decode iterations")
@@ -68,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=1, help="scans per forward")
     p.add_argument("--mesh-data", type=int, default=None, help="not ported (item 11)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
-                   help="MaskGit's dtype (float32 runs on the CPU only)")
-    p.add_argument("--gifs", action="store_true", help="GIF overlays: not ported")
+                   help="MaskGit's dtype at --batch-size > 1; the one-scan route runs fp32")
+    p.add_argument("--gifs", action="store_true",
+                   help="also render each heatmap over its scan as a GIF (matplotlib, pillow)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -89,9 +104,25 @@ def load_model(cfg: CTGenerateConfig, checkpoint, seed: int, device) -> CTGenera
     return model
 
 
-def rot90_ct(volume: np.ndarray) -> np.ndarray:
-    """np.rot90(k=-1, axes=(1, 2)): the CT table down (attribution/capture.py:192)."""
-    return np.rot90(volume, k=-1, axes=(1, 2))
+@torch.no_grad()
+def localize_scan(model: CTGenerate, t5: T5TextConditioner, scan: torch.Tensor, report: str,
+                  positives, plain: bool = False) -> tuple:
+    """The JAX script's one-scan route (script :150-161): the report
+    T5-encoded, its positives' token spans, `ctgenerate_apply` on the fp32
+    scan [1, 1, D, H, W] with MaskGit in fp32, TF32 off throughout (the
+    PEG and T5 in full fp32). Returns ({pathology: heatmap [D, H, W] numpy
+    in [0, 1]}, the forward's CTGenerateOutput). plain=True runs every
+    kernel's plain version (what the card compares the route with)."""
+    if scan.dtype != torch.float32:
+        raise TypeError(f"the one-scan route takes an fp32 scan, got {scan.dtype}")
+    with full_fp32():
+        text_embed, text_mask = t5.encode(report)
+        out = ctgenerate_apply(model, scan, text_embed, text_mask,
+                               t5.get_token_indices(list(positives)), compute_dtype="float32",
+                               plain=plain)
+        maps = {p: keyword_heatmap(cross, out.video_patch_shape, scan.shape[-3:]).cpu().numpy()
+                for p, cross in out.kw_attention.items()}
+    return maps, out
 
 
 @torch.no_grad()
@@ -125,27 +156,36 @@ def generate(model: CTGenerate, t5: T5TextConditioner, prompts, frames: int, ste
     return ids.cpu().numpy().reshape(len(prompts), *grid)
 
 
-def main(argv=None) -> None:
+def positives_of(labels, pathologies=PATHOLOGIES) -> list:
+    """The pathologies whose label is 1 (a missing label is not)."""
+    return [p for p, v in zip(pathologies, np.asarray(labels, np.float64).tolist()) if v == 1.0]
+
+
+def main(argv=None, model_cfg: CTGenerateConfig = None,
+         preprocess_cfg: PreprocessConfig = None) -> list:
+    """Returns the paths of the heatmaps (and GIFs) written; [] for --generate."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.data_valid or args.valid_reports or args.valid_labels or args.valid_metadata:
-        raise NotImplementedError("the dataset loop (InferenceDataset) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13); pass --scans and --reports")
+    dataset_flags = (args.data_valid, args.valid_reports, args.valid_labels, args.valid_metadata)
+    if args.generate is None:
+        if any(dataset_flags) and not all(dataset_flags):
+            parser.error("localization over a dataset needs --data-valid/--valid-reports/"
+                         "--valid-labels/--valid-metadata")
+        if not any(dataset_flags) and (args.scans is None or args.reports is None):
+            parser.error("localisation needs --data-valid and its CSVs, or --scans and "
+                         "--reports (or pass --generate PROMPT...)")
+    elif not args.generate:
+        parser.error("--generate needs at least one prompt")
     if args.mesh_data is not None:
         raise NotImplementedError("--mesh-data is not ported yet (ROADMAP Queue 1 item 11)")
     if args.t5 is not None:
         raise NotImplementedError("HF T5 tokenizer files are not in the repository (ROADMAP "
                                   "Queue 1 item 12); the stand-in WordTokenizer is used")
     if args.gifs:
-        raise NotImplementedError("GIF rendering (utils/visualizations) is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
-    if args.generate is None and (args.scans is None or args.reports is None):
-        parser.error("localisation needs --scans and --reports (or pass --generate PROMPT...)")
-    if args.generate is not None and not args.generate:
-        parser.error("--generate needs at least one prompt")
+        visualizations.require_renderer()   # before the model loads
 
     device = _build.check_device(args.device)
-    cfg = CTGenerateConfig()
+    cfg = model_cfg or CTGenerateConfig()
     model = load_model(cfg, args.checkpoint, args.seed, device)
     t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
     results = Path(args.results_folder)
@@ -161,23 +201,63 @@ def main(argv=None) -> None:
             np.save(out, ids[i])
             print(f"[generate] {out}  grid {ids.shape[1:]}  unique tokens {len(np.unique(ids[i]))}")
         print(f"Generated {len(args.generate)} token grid(s) -> {results}")
-        return
+        return []
 
-    scans = np.load(args.scans, mmap_mode="r")
-    reports = Path(args.reports).read_text().splitlines()
-    labels = None if args.labels is None else np.load(args.labels)
-    if len(reports) != len(scans):
-        parser.error(f"{len(scans)} scans but {len(reports)} reports")
+    written = []
+
+    def render(image, heat, scan_name, pathology):
+        """The rotated heatmap to its .npy, and with --gifs over the
+        rotated scan to its .gif (the JAX script's `render`)."""
+        heat = rot90_ct(heat)
+        stem = results / f"ctgenerate_{scan_name}_{pathology}"
+        np.save(f"{stem}.npy", heat)
+        written.append(Path(f"{stem}.npy"))
+        if args.gifs:
+            visualizations.visualize_overlay(rot90_ct(np.asarray(image).squeeze()), heat,
+                                             str(scan_name), "GenerateCT Attention",
+                                             f"{stem}.gif")
+            written.append(Path(f"{stem}.gif"))
+
+    if args.data_valid is not None:
+        ds = InferenceDataset(args.data_valid, args.valid_reports, args.valid_metadata,
+                              args.valid_labels, num_samples=args.num_valid_samples,
+                              model_type="ctgenerate",
+                              preprocess_cfg=preprocess_cfg or PreprocessConfig())
+        samples = ((image, text, positives_of(labels), name)
+                   for image, text, labels, name, _ in (ds[i] for i in range(len(ds))))
+        count = len(ds)
+        scan_dtype = torch.float32          # the JAX batched route keeps the scans' fp32
+    else:
+        scans = np.load(args.scans, mmap_mode="r")
+        reports = Path(args.reports).read_text().splitlines()
+        labels = None if args.labels is None else np.load(args.labels)
+        if len(reports) != len(scans):
+            parser.error(f"{len(scans)} scans but {len(reports)} reports")
+        samples = ((np.asarray(scans[i], np.float32), reports[i],
+                    list(PATHOLOGIES) if labels is None else positives_of(labels[i]), i)
+                   for i in range(len(scans)))
+        count = len(scans)
+        scan_dtype = torch.bfloat16         # the batched serving route's scans
     bsz, cache = max(1, args.batch_size), {}
-    for lo in range(0, len(scans), bsz):
-        batch = torch.as_tensor(np.asarray(scans[lo:lo + bsz]), dtype=torch.float32)
-        maps = localize(model, t5, batch.to(device, torch.bfloat16), reports[lo:lo + bsz],
-                        None if labels is None else labels[lo:lo + bsz], cache,
-                        args.compute_dtype)
-        for i, heat in enumerate(maps, start=lo):
-            for pathology, vol in heat.items():
-                np.save(results / f"ctgenerate_{i}_{pathology}.npy", rot90_ct(vol))
+    if bsz == 1:
+        for image, text, positives, scan_name in samples:
+            scan = torch.as_tensor(image, dtype=torch.float32)[None].to(device)
+            maps, _ = localize_scan(model, t5, scan, text, positives)
+            for pathology, heat in maps.items():
+                render(image, heat, scan_name, pathology)
+    else:
+        samples = list(samples)
+        for lo in range(0, count, bsz):
+            batch = samples[lo:lo + bsz]
+            scans_b = torch.as_tensor(np.stack([s[0] for s in batch])).to(device, scan_dtype)
+            onehot = [[1 if p in s[2] else 0 for p in PATHOLOGIES] for s in batch]
+            maps = localize(model, t5, scans_b, [s[1] for s in batch], onehot, cache,
+                            args.compute_dtype)
+            for (image, _, _, scan_name), heat in zip(batch, maps):
+                for pathology, vol in heat.items():
+                    render(image, vol, scan_name, pathology)
     print(f"CTGENERATE inference completed in {time.time() - start:.1f}s")
+    return written
 
 
 if __name__ == "__main__":

@@ -474,10 +474,13 @@ def test_inference_script_localize_and_generate():
     assert ids.shape == (2, 5, 4, 4) and ids.min() >= 0 and ids.max() < SMALL_MG.num_tokens
 
 
-@pytest.mark.parametrize("argv", [["--data-valid", "d", "--valid-reports", "r"],
+@pytest.mark.parametrize("argv", [["--data-valid", "d", "--valid-reports", "r",
+                                   "--valid-labels", "l", "--valid-metadata", "m",
+                                   "--mesh-data", "2"],
                                   ["--generate", "p", "--mesh-data", "2"],
                                   ["--generate", "p", "--t5", "google/t5-v1_1-base"],
-                                  ["--scans", "s.npy", "--reports", "r.txt", "--gifs"]])
+                                  ["--scans", "s.npy", "--reports", "r.txt", "--gifs",
+                                   "--t5", "google/t5-v1_1-base"]])
 def test_inference_script_raises_for_what_is_not_ported(argv):
     from ct_clip_ut_tpu_torch.scripts import inference_ctgenerate as script
     with pytest.raises(NotImplementedError, match="ROADMAP"):

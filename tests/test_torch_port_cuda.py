@@ -1517,3 +1517,57 @@ def test_fp32_bwd_autograd_routes_on_card(cuda_device):
             p.requires_grad_(True)
         with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
             run(False, attn_bias)
+
+
+# ---- CTGenerate's one-scan route in fp32 (rows 5f, 13f) -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,t_patch", [((1, 1, 1, 128, 128), 16, 1),
+                                                 ((1, 1, 200, 128, 128), 16, 2),
+                                                 ((1, 1, 240, 480, 480), 20, 10),
+                                                 ((2, 1, 6, 48, 32), 16, 2)])
+def test_patch_embed_f32_kernel_on_card(cuda_device, shape, patch, t_patch):
+    """The fp32 patch embed (ctc_patch_embed_f32) at CTGenerate's two
+    temporal patches, the flagship CT-CLIP patch (K = 4000) and a ragged
+    batch: within F32_BAND of patch_embed_plain at fp32; the one-pass
+    control (lo planes zeroed) outside it."""
+    from ct_clip_ut_tpu_torch.ops.patch_embed import patch_embed_f32
+
+    b, _, T, H, W = shape
+    a = _patch_inputs(np.random.default_rng(29), b, T, H, W, patch, t_patch, 512)
+    args = _patch_args(a, patch, t_patch, cuda_device)
+    launches.reset_launch_counts()
+    got = patch_embed_fused(*args, patch, t_patch)
+    assert launches.launch_counts()["patch_embed_f32"] == 1 and got.dtype == torch.float32
+    want = patch_embed_plain(*args, patch, t_patch)
+    assert _rel_err(got, want) <= F32_BAND
+    assert _rel_err(patch_embed_f32(*args, patch, t_patch, one_pass=True), want) > F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,with_bias", [(1, 6464, True), (2, 300, True), (1, 77, False)])
+def test_attn_qrows_f32_kernel_on_card(cuda_device, b, n, with_bias):
+    """The fp32 q-row attention (ctc_attn_qrows_f32) at MaskGit's shape with
+    the fp32 table, a batch of 2 over a ragged last key tile, and N = 77
+    without a bias (its rows padded for TMA): within F32_BAND of
+    attn_qrows_plain at fp32 with and without the residual; the one-pass
+    control, the bias left out and q_scale dropped outside it."""
+    from ct_clip_ut_tpu_torch.ops.attn_qrows import launch_chain_f32
+
+    args = [t.float() for t in _maskgit_inputs(cuda_device, b, n)]
+    if not with_bias:
+        args[8] = None
+    launches.reset_launch_counts()
+    got = attn_qrows(*args, 8.0, False)
+    assert launches.launch_counts()["attn_qrows_f32"] == 1 and got.dtype == torch.float32
+    want = attn_qrows_plain(*args, 8.0, False)
+    assert _rel_err(got, want) <= F32_BAND
+    assert _rel_err(attn_qrows(*args, 8.0, True), attn_qrows_plain(*args, 8.0, True)) <= F32_BAND
+    wrong = list(args)
+    wrong[6] = torch.ones_like(args[6])
+    controls = [launch_chain_f32(*args, 8.0, False, one_pass=True),
+                attn_qrows_plain(*wrong, 8.0, False)]
+    if with_bias:
+        controls.append(attn_qrows_plain(*args[:8], None, 8.0, False))
+    for i, c in enumerate(controls):
+        assert _rel_err(c, want) > F32_BAND, i

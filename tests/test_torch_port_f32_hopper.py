@@ -297,13 +297,11 @@ def test_the_fp32_backwards_raise_on_the_card(fake_card):
 
 
 def test_image_dtype_gate():
-    """On the card: bf16 always; fp32 with the matmul patch embed (the
-    attribution suite's), not with the conv embed (the fp32 patch_embed is
-    Queue 2 item 14's third group); fp16 never."""
-    tctvit.check_image_dtype(torch.float32, "cuda", plain=False, conv=False)
-    tctvit.check_image_dtype(torch.bfloat16, "cuda", plain=False, conv=True)
-    with pytest.raises(NotImplementedError, match="item 14, third group"):
-        tctvit.check_image_dtype(torch.float32, "cuda", plain=False, conv=True)
+    """On the card: bf16 and fp32, whichever patch embed (the conv embed's
+    fp32 variant, row 5f, serves CTGenerate's one-scan route; the matmul
+    embed the attribution suite); fp16 never; any dtype on the CPU."""
+    tctvit.check_image_dtype(torch.float32, "cuda", plain=False)
+    tctvit.check_image_dtype(torch.bfloat16, "cuda", plain=False)
     with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
-        tctvit.check_image_dtype(torch.float16, "cuda", plain=False, conv=False)
-    tctvit.check_image_dtype(torch.float16, "cpu", plain=False, conv=False)
+        tctvit.check_image_dtype(torch.float16, "cuda", plain=False)
+    tctvit.check_image_dtype(torch.float16, "cpu", plain=False)

@@ -357,10 +357,11 @@ def test_features_outside_the_slice_raise():
         device="cpu").visual_transformer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(dataclasses.replace(PORT_VIT.spatial_transformer(), moe_experts=2))
-    # an fp32 image bound for the card's bf16 kernels (ctvit_apply's entry check)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 14"):
-        tctvit.check_image_dtype(torch.float32, "cuda", plain=False)
+    # an fp16 image bound for the card's bf16 / fp32 kernels (ctvit_apply's entry check)
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        tctvit.check_image_dtype(torch.float16, "cuda", plain=False)
     tctvit.check_image_dtype(torch.bfloat16, "cuda", plain=False)
+    tctvit.check_image_dtype(torch.float32, "cuda", plain=False)
     tctvit.check_image_dtype(torch.float32, "cuda", plain=True)
     tctvit.check_image_dtype(torch.float32, "cpu", plain=False)
 
