@@ -185,7 +185,8 @@ Phases, each printing its lines before the last:
      calls the same bits; times, `bound_ms`, the fp32 PyTorch chain forward
      + backward with x alone wanting its gradient as `library_ms`; one call
      of each under torch.profiler on the Hopper pieces; an fp32 backward
-     with a weight wanting its gradient refused. Then, counted, the path: a
+     with a weight wanting its gradient on the full chain (phase 14's), not
+     the dx-only one. Then, counted, the path: a
      Grad-CAM map set (7f x 3, 8f x 4, 9f x 8) and one default
      integrated-gradients map (50 steps, chunk 5: 7f x 40, 8f x 40, 9f x
      80), with seconds and peak memory, the six maps expanded on the host,
@@ -221,6 +222,26 @@ Phases, each printing its lines before the last:
      seconds a method; `scripts.embedding_arithmetic.main` over 64
      512-token reports in batches of 32 (the fp32 bert_layer), its CLS and
      diff embeddings against plain=True within EMBED_BAND of the CLS scale.
+ 14. the fp32 train step at 120-token reports (TrainConfig(compute_dtype=
+     "float32", text_max_length=120), flagship width, peg_pallas=True, B =
+     2): first the full fp32 backwards 7F-9F (attn_block / attn_packed /
+     geglu_ff backward with every parameter gradient at [48, 576, 512] with
+     the fp32 bias, [1152, 24, 512], [27648, 512]), the fp32 residual-saving
+     patch embed (10f) and its weight gradient (11f) on a [2, 1, 240, 480,
+     480] fp32 volume, and the PEG kernels (16, 17) on fp32 tokens, each
+     against its plain version within F32_BAND (PEG_F32_KERNEL_BAND,
+     PEG_WGRAD_BAND) with a one-pass control outside (the PEG's: fault
+     controls), times, `bound_ms`, the fp32 PyTorch chain forward + backward
+     with every parameter wanting its gradient (conv3d_weight for 11f and
+     17) as `library_ms`. Then one step's gradients against plain=True from
+     the same weights, batch, dropout draws and codes (the plain path
+     quantises with the kernel path's indices; each index that flipped a
+     tie within VQ_F32_TIE): every parameter within STEP_GRAD_BAND of its
+     largest entry (the shift-invariant biases, whose gradient is zero up
+     to rounding, of their group's; control another batch); then
+     CTClipTrainer.train() over 3 steps with 10f, 11f x 1, 7F, 8F x 4, 9F
+     x 8 and 17 x 8 a step, 1f-4f, 5f in the evaluations and no bf16 or
+     dx-only kernel; the losses; three more steps timed.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -230,7 +251,8 @@ zero-shot run's counts for the forward kernels, phase 4b's for
 geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
 the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
 variants, phase 11's for the fp32 backwards, phase 12's --data-valid run
-for rows 5f and 13f); the last line is {"ok": true,
+for rows 5f and 13f, phase 14's train run for 10f, 11f, 7F-9F and the fp32
+PEG rows); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -342,6 +364,19 @@ KERNELS = {
                         "ct_clip_ut_tpu/ops/pallas_patch_embed.py:287"),
     "attn_qrows_f32": ("ct_clip_ut_tpu_torch/csrc/attn_qrows.cu",
                        "ct_clip_ut_tpu/ops/pallas_attn_qrows.py:230"),
+    "attn_block_bwd_f32_full": ("ct_clip_ut_tpu_torch/csrc/attn_block_bwd_f32.cu",
+                                "ct_clip_ut_tpu/ops/pallas_attn_block.py:407"),
+    "attn_packed_bwd_f32_full": ("ct_clip_ut_tpu_torch/csrc/attn_packed_bwd_f32.cu",
+                                 "ct_clip_ut_tpu/ops/pallas_attn_packed.py:424"),
+    "geglu_ff_bwd_f32_full": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_bwd_f32.cu",
+                              "ct_clip_ut_tpu/ops/pallas_ff.py:234"),
+    "patch_embed_res_f32": ("ct_clip_ut_tpu_torch/csrc/patch_embed.cu",
+                            "ct_clip_ut_tpu/ops/pallas_patch_embed.py:329"),
+    "patch_embed_dkw_f32": ("ct_clip_ut_tpu_torch/csrc/patch_embed_dkw.cu",
+                            "ct_clip_ut_tpu/ops/pallas_patch_embed.py:381"),
+    "peg_f32": ("ct_clip_ut_tpu_torch/csrc/peg.cu", "ct_clip_ut_tpu/ops/pallas_peg.py:131"),
+    "peg_weight_grads_f32": ("ct_clip_ut_tpu_torch/csrc/peg_wgrad.cu",
+                             "ct_clip_ut_tpu/ops/pallas_peg_bwd.py:85"),
 }
 # Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
 F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
@@ -377,14 +412,30 @@ SUITE_OCC = dict(patch_size=(80, 160, 160), stride=(80, 160, 160))   # 3 x 3 x 3
 SUITE_BAND = 1e-6       # an artifact vs a direct call of its method (the same kernels, max abs)
 EMBED_BAND = 1e-4       # max abs error of the CLS / diff embeddings vs plain=True over the CLS scale
 EMBED_REPORTS, EMBED_BATCH = 64, 32
+# Phase 14, the fp32 train step at 120-token reports: rows 10f, 11f and the
+# full fp32 backwards 7F-9F, with rows 16 and 17 on fp32 tensors
+F32_TRAIN_KERNELS = ("attn_block_bwd_f32_full", "attn_packed_bwd_f32_full",
+                     "geglu_ff_bwd_f32_full", "patch_embed_res_f32", "patch_embed_dkw_f32")
+F32_TRAIN_STEP = {"patch_embed_res_f32": 1, "patch_embed_dkw_f32": 1,
+                  "attn_block_bwd_f32_full": 4, "attn_packed_bwd_f32_full": 4,
+                  "geglu_ff_bwd_f32_full": 8, "peg_weight_grads": 8}   # launches a train step
+F32_TRAIN_FORWARD = ("attn_block_f32", "attn_packed_f32", "geglu_ff_f32", "vq_nearest_f32")
+STEP_GRAD_BAND = 1e-3   # max |kernel - plain| / max |plain| of each parameter's step gradient
+# ... over its parameter group's largest entry instead for the parameters whose
+# gradient is zero up to rounding: softmax ignores a constant added to a row,
+# so neither the CPB MLP's last bias nor BERT's key biases move the loss
+PEG_F32_KERNEL_BAND = 1e-5   # the fp32 PEG stencil's branch vs its plain version
+# kernel rows whose launches another counter holds (the PEG wrappers count either dtype)
+COUNTER_OF = {"peg_f32": "peg", "peg_weight_grads_f32": "peg_weight_grads"}
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
 CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
                  "vq_nearest": 1, "attn_qrows": 6}
 # kernels of other paths, launched by neither zero-shot nor training:
 # CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
-# core, the attribution suite's fp32 variants (phase 10) and fp32 backwards (phase 11)
+# core, the attribution suite's fp32 variants (phase 10) and fp32 backwards
+# (phase 11), CTGenerate's fp32 route (phase 12), the fp32 train step's (phase 14)
 SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS,
-                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS)
+                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS, *F32_TRAIN_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -448,7 +499,12 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "fp32 attn_qrows projections (QkvSplitPlan into qr::QkvEpi)":
                      "12QkvSplitPlanENS_2qr6QkvEpi",
                  "fp32 attn_qrows core (split scores and P.V, the fp32 bias)":
-                     ("2qr11core_kernel", "Li128ELb1ELb1E")}
+                     ("2qr11core_kernel", "Li128ELb1ELb1E"),
+                 "fp32 block weight gradients (BlockWgradSplitPlan: three passes, 12 maps)":
+                     "19BlockWgradSplitPlan",
+                 "fp32 FF weight gradients (FFWgradSplitPlan)": "16FFWgradSplitPlan",
+                 "fp32 patch embed weight gradient (PatchWgradSplitPlan)":
+                     "19PatchWgradSplitPlan"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -469,7 +525,8 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                      "fp32 backward's statistics (the fp32 core with STATS)":
                          ("17block_core_kernel", "Lb1ELb1E"),
                      "fp32 backward's query pass (split dS.K)": "17bwd_dq_f32_kernel",
-                     "fp32 backward's key pass (split P^T.dO, dS^T.Q)": "18bwd_dkv_f32_kernel"}
+                     "fp32 backward's key pass (split P^T.dO, dS^T.Q)": "18bwd_dkv_f32_kernel",
+                     "fp32 backward's dbias pass (split S and dP)": "20bwd_dbias_f32_kernel"}
 
 
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
@@ -1992,14 +2049,15 @@ REPORT_WORDS = ("the lungs are clear without consolidation effusion or nodule he
                 "mild emphysema and atelectasis in the lower lobes no lymphadenopathy").split()
 
 
-def train_batches(torch, g, count: int, words: int) -> list:
-    """`count` batches of BATCH bf16 volumes and stand-in reports of about
-    `words` words (one token a word)."""
+def train_batches(torch, g, count: int, words: int, dtype=None) -> list:
+    """`count` batches of BATCH volumes (bf16 unless `dtype` says otherwise)
+    and stand-in reports of about `words` words (one token a word)."""
     def texts(i):
         return [" ".join(REPORT_WORDS[(i * 5 + j * 3 + k) % len(REPORT_WORDS)]
                          for k in range(words + 9 * j)) for j in range(BATCH)]
 
-    return [(torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=torch.bfloat16),
+    dtype = dtype or torch.bfloat16
+    return [(torch.randn((BATCH, *VOLUME), generator=g, device="cuda", dtype=dtype),
              texts(i)) for i in range(count)]
 
 
@@ -2560,10 +2618,12 @@ class VQRecorder:
     models.ctvit). Given `against`, an earlier recording of a sweep with
     the same chunks, it also measures each token whose index differs: the
     fp64 gap between the two codes' cosine sims with this sweep's VQ input
-    (a tie when small)."""
+    (a tie when small). With `replay` the calls then quantise with
+    `against`'s indices (vq_apply's straight-through output from those
+    codes), so two paths compare from the same codes."""
 
-    def __init__(self, torch, against=None):
-        self.torch, self.against = torch, against
+    def __init__(self, torch, against=None, replay=False):
+        self.torch, self.against, self.replay = torch, against, replay
         self.ids, self.gaps = [], []
 
     def __enter__(self):
@@ -2584,6 +2644,9 @@ class VQRecorder:
                     e = state.embed.double()
                     self.gaps.append(((u * e[rows[r, c].long()]).sum(-1)
                                       - (u * e[other[r, c].long()]).sum(-1)).abs().max().item())
+                if self.replay:
+                    cb = state.embed.to(x.dtype)
+                    out = x + (cb[other.reshape(idx.shape).long()] - x).detach()
             self.ids.append(rows.clone())
             return out, idx, new
 
@@ -2746,43 +2809,24 @@ def attribution_phase(torch, card: str) -> tuple:
     return record, counts
 
 
-def attn_bwd_flops(r: int, n: int, d: int, hd: int) -> float:
+def attn_bwd_flops(r: int, n: int, d: int, hd: int, weights: bool = False) -> float:
     """The fp32 block backward's products for dx as three bf16 products
     each: q, k, v, dO, dxn (2 r n d hd each), dx_direct (over 2 hd), and S,
-    P.V, dP, dS.K, dS^T.Q, P^T.dO (2 r n^2 hd each)."""
-    return 3 * 2 * r * (7 * n * d * hd + 6 * n * n * hd)
+    P.V, dP, dS.K, dS^T.Q, P^T.dO (2 r n^2 hd each); with `weights` also
+    dWq, dWk | dWv, dWo (2 r n d hd each, four in all)."""
+    return 3 * 2 * r * ((11 if weights else 7) * n * d * hd + 6 * n * n * hd)
 
 
-def f32_bwd_check(torch, model, card: str) -> dict:
-    """Phase 11's kernel checks: the fp32 data-gradient chains of rows 7-9
-    against the plain backwards' dx (TF32 off) at an integrated-gradients
-    chunk's shapes (5 volumes: attn_block [120, 576, 512] with the fp32
-    [8, 576, 576] bias, attn_packed [2880, 24, 512], geglu_ff [69120, 512])
-    and at a Grad-CAM's (one volume). Band F32_BAND (max relative error);
-    controls the chain with every lo plane zeroed (one bf16 product each)
-    and the plain backward with one fault (the softmax row term, the
-    l2-norm projection, the LN gain, GELU for its derivative); two calls the
-    same bits. At the chunk's shapes: times, bound_ms (three bf16 products
-    of the function's products, `attn_bwd_flops`; 30 N D inner for the
-    FF), library_ms (the fp32 PyTorch chain forward + backward under
-    autograd with only x wanting its gradient), one call under
-    torch.profiler on the Hopper pieces. Last, an fp32 backward whose
-    weights want their gradients is refused."""
-    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
-    from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
-    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd_f32, attn_block_bwd_plain
-    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd_f32, attn_packed_bwd_plain
-    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd_f32, geglu_ff_bwd_plain
+def f32_layer_args(torch, g, vit) -> tuple:
+    """Layer 0's fp32 weights of a CT-ViT in the fp32 kernels' argument
+    order, gains drawn by around_ones: (the spatial stack's CPB bias [8,
+    576, 576] fp32 at the flagship volume, the attention scale, the spatial
+    and the temporal block's (gamma, wq, wk, wv, wo, q_scale, k_scale), the
+    FF's (gamma, beta drawn as 0.1 N, w_in, w_out))."""
     from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
 
-    vit = model.visual_transformer
     cfg = vit.cfg
-    g = torch.Generator(device="cuda").manual_seed(18)
-    t, h, w = token_grid_shape(cfg, VOLUME)
-    hw, d = h * w, cfg.dim
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
+    d = cfg.dim
 
     def attn_args(tf):
         a = tf.layers[0][1]
@@ -2799,8 +2843,44 @@ def f32_bwd_check(torch, model, card: str) -> dict:
     scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
     ff = vit.enc_spatial_transformer.layers[0][3]
     sp, tm = attn_args(vit.enc_spatial_transformer), attn_args(vit.enc_temporal_transformer)
-    ffw = [around_ones(torch, g, d), 0.1 * randn(d), ff[1].weight.detach().float(),
-           ff[4].weight.detach().float()]
+    ffw = [around_ones(torch, g, d), 0.1 * torch.randn((d,), generator=g, device="cuda"),
+           ff[1].weight.detach().float(), ff[4].weight.detach().float()]
+    return bias, scale, sp, tm, ffw
+
+
+def f32_bwd_check(torch, model, card: str) -> dict:
+    """Phase 11's kernel checks: the fp32 data-gradient chains of rows 7-9
+    against the plain backwards' dx (TF32 off) at an integrated-gradients
+    chunk's shapes (5 volumes: attn_block [120, 576, 512] with the fp32
+    [8, 576, 576] bias, attn_packed [2880, 24, 512], geglu_ff [69120, 512])
+    and at a Grad-CAM's (one volume). Band F32_BAND (max relative error);
+    controls the chain with every lo plane zeroed (one bf16 product each)
+    and the plain backward with one fault (the softmax row term, the
+    l2-norm projection, the LN gain, GELU for its derivative); two calls the
+    same bits. At the chunk's shapes: times, bound_ms (three bf16 products
+    of the function's products, `attn_bwd_flops`; 30 N D inner for the
+    FF), library_ms (the fp32 PyTorch chain forward + backward under
+    autograd with only x wanting its gradient), one call under
+    torch.profiler on the Hopper pieces. Last, an fp32 backward whose
+    weights want their gradients takes the full chain (phase 14's), not
+    this one."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block_bwd_f32, attn_block_bwd_plain
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd_f32, attn_packed_bwd_plain
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd_f32, geglu_ff_bwd_plain
+
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    g = torch.Generator(device="cuda").manual_seed(18)
+    t, h, w = token_grid_shape(cfg, VOLUME)
+    hw, d = h * w, cfg.dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    bias, scale, sp, tm, ffw = f32_layer_args(torch, g, vit)
     attn_faults, ff_faults = ("row_term", "l2norm", "gamma"), ("gelu_prime", "gamma")
     # name -> (chain, plain backward, weights, faults, library fn(x, *weights), flops(x))
     cases = {
@@ -2861,18 +2941,17 @@ def f32_bwd_check(torch, model, card: str) -> dict:
             del x, gg, got, want
             torch.cuda.empty_cache()
 
-    # a parameter that wants its gradient: refused, no plain fallback
+    # a parameter that wants its gradient: the full chain (the fp32 train
+    # step's, phase 14), not this one
     x = randn(2, t, d).requires_grad_(True)
     wq = sp[1].clone().requires_grad_(True)
-    try:
-        _BlockFn.apply(x, sp[0], wq, *sp[2:], None, scale, True).sum().backward()
-    except NotImplementedError as e:
-        if "fourth group" not in str(e):
-            raise
-        print(f"kernel attn_packed_bwd_f32: an fp32 backward with a weight wanting its gradient "
-              f"refused: {e}")
-    else:
-        raise AssertionError("an fp32 backward with parameter gradients ran on the card")
+    launches.reset_launch_counts()
+    _BlockFn.apply(x, sp[0], wq, *sp[2:], None, scale, True).sum().backward()
+    counts = launches.launch_counts()
+    print(f"kernel attn_packed_bwd_f32: an fp32 backward with a weight wanting its gradient "
+          f"launches the full chain: {json.dumps({k: v for k, v in counts.items() if v})}")
+    if counts["attn_packed_bwd_f32"] != 0 or counts["attn_packed_bwd_f32_full"] != 1:
+        raise AssertionError(f"an fp32 backward with parameter gradients: launches {counts}")
     return out
 
 
@@ -3444,6 +3523,394 @@ def suite_phase(torch, card: str) -> None:
 
 
 
+def f32_train_check(torch, model, card: str) -> dict:
+    """Phase 14's kernel checks at the shapes of a B = 2 fp32 train step,
+    TF32 off: the full fp32 backwards (rows 7F, 8F: attn_block_bwd /
+    attn_packed_bwd on fp32 tensors at [48, 576, 512] with the fp32 [8,
+    576, 576] bias and [1152, 24, 512]; 9F: geglu_ff_bwd at [27648, 512]),
+    each with the residual as the step runs them: every gradient within
+    F32_BAND of the plain backward's (max relative error), the chain with
+    its lo planes zeroed (one bf16 product each) outside, two calls the same
+    bits, dx the dx-only chain's bits. Then the fp32 residual-saving patch
+    embed (10f: out, conv and the LN1 moments of a [2, 1, 240, 480, 480]
+    fp32 volume) and its weight gradient from the forward's P planes (11f;
+    from the volume the same bits), controls one bf16 product each; and the
+    PEG kernels on fp32 [2, 24, 24, 24, 512] tokens (rows 16, 17 in fp32:
+    the causal stencil within PEG_F32_KERNEL_BAND, the weight gradient
+    within PEG_WGRAD_BAND, controls the non-causal frame padding, the bias
+    left out, x shifted by a frame). Times, bound_ms (three bf16 products at
+    the bf16 peak; the PEG's fp32 operations or bytes), library_ms: the fp32
+    PyTorch chain forward + backward with x and every parameter wanting its
+    gradient (7F-9F), fp32 patchify + F.layer_norm + F.linear + F.layer_norm
+    (10f), torch.nn.grad.conv3d_weight (11f, 17), the NCDHW copy + F.conv3d
+    + copy (16); one call of each backward (7F-9F) under torch.profiler on
+    the Hopper pieces. (10f and 11f are not profiled here: in two whole
+    smokes the profiler recorded no device activity for 10f's call, the
+    eighteenth profile of the process, though it recorded the same call
+    when phase 14 ran alone; their launches are each one entry's, all in
+    ctc::sm90 / ctc::pe.)"""
+    import copy
+
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_block import (attn_block_bwd, attn_block_bwd_f32,
+                                                     attn_block_bwd_plain)
+    from ct_clip_ut_tpu_torch.ops.attn_packed import (attn_packed_bwd, attn_packed_bwd_f32,
+                                                      attn_packed_bwd_plain)
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import (geglu_ff_bwd, geglu_ff_bwd_f32,
+                                                   geglu_ff_bwd_plain)
+    from ct_clip_ut_tpu_torch.ops.layers import peg_residual
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (_res_with_patches, fold_patch_embed,
+                                                      patch_embed_dkw, patch_embed_dkw_plain,
+                                                      patch_embed_res_f32, patch_embed_res_plain)
+    from ct_clip_ut_tpu_torch.ops.peg import (peg, peg_plain, peg_weight_grads,
+                                              peg_weight_grads_plain, taps_of)
+
+    vit = model.visual_transformer
+    cfg = vit.cfg
+    g = torch.Generator(device="cuda").manual_seed(19)
+    t, h, w = token_grid_shape(cfg, VOLUME)
+    hw, d = h * w, cfg.dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    bias, scale, sp, tm, ffw = f32_layer_args(torch, g, vit)
+    attn_names = ("dx", "dgamma", "dwq", "dwk", "dwv", "dwo", "dqs", "dks", "dbias")
+    ff_names = ("dx", "dgamma", "dbeta", "dw_in", "dw_out")
+    # name -> (full chain, dx-only chain, plain backward, x's shape, names,
+    # weights (the library's leaves after x), library fn, flops)
+    cases = {
+        "attn_block_bwd_f32_full": (
+            lambda x, gg, **kw: attn_block_bwd(x, *sp, bias, gg, scale, True, **kw),
+            lambda x, gg: attn_block_bwd_f32(x, *sp, bias, gg, scale, True),
+            lambda x, gg: attn_block_bwd_plain(x, *sp, bias, gg, scale, True),
+            (BATCH * t, hw, d), attn_names, [*sp, bias],
+            lambda *a: attn_library(*a, scale, residual=True),
+            attn_bwd_flops(BATCH * t, hw, d, sp[1].shape[0], weights=True)),
+        "attn_packed_bwd_f32_full": (
+            lambda x, gg, **kw: attn_packed_bwd(x, *tm, gg, scale, True, **kw),
+            lambda x, gg: attn_packed_bwd_f32(x, *tm, gg, scale, True),
+            lambda x, gg: attn_packed_bwd_plain(x, *tm, gg, scale, True),
+            (BATCH * hw, t, d), attn_names[:8], tm,
+            lambda *a: attn_library(*a, None, scale, residual=True),
+            attn_bwd_flops(BATCH * hw, t, d, tm[1].shape[0], weights=True)),
+        "geglu_ff_bwd_f32_full": (
+            lambda x, gg, **kw: geglu_ff_bwd(x, *ffw, gg, True, **kw),
+            lambda x, gg: geglu_ff_bwd_f32(x, *ffw, gg, True),
+            lambda x, gg: geglu_ff_bwd_plain(x, *ffw, gg, True),
+            (BATCH * t * hw, d), ff_names, ffw,
+            lambda *a: ff_library(*a, residual=True),
+            48 * BATCH * t * hw * d * ffw[3].shape[1]),
+    }
+    out = {}
+    for name, (kern, dx_only, plain, shape, names, weights, library, flops) in cases.items():
+        x, gg = randn(*shape), randn(*shape)
+        with torch.no_grad():
+            got = dict(zip(names, kern(x, gg)))
+            want = dict(zip(names, plain(x, gg)))
+            again = kern(x, gg)
+            same = all(torch.equal(a, b) for a, b in zip(got.values(), again))
+            same_dx = torch.equal(got["dx"], dx_only(x, gg))
+            faulty = {"one bf16 product each (lo planes zeroed)":
+                      dict(zip(names, kern(x, gg, one_pass=True)))}
+        abs_err = grads_check(name, got, want, F32_BAND, faulty,
+                              f"fp32 x {list(shape)} (residual), every gradient; two calls the "
+                              f"same bits: {same}, dx the dx-only chain's bits: {same_dx}")
+        if not (same and same_dx):
+            raise AssertionError(f"{name}: two calls, or dx and the dx-only chain, differ")
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: kern(x, gg))
+            plain_ms = cuda_ms(torch, lambda: plain(x, gg))
+        library_ms, lib_grads = library_grad_ms(torch, library, [x, *weights], gg)
+        lib_err = max(rel_err(lg, want[k]) for k, lg in zip(names, lib_grads))
+        rec = bound(flops, nbytes(x, gg, *weights, *got.values()), BF16_PEAK)
+        print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products each), the "
+              f"fp32 PyTorch chain forward + backward (x and every parameter wanting its "
+              f"gradient) {library_ms:.3f} ms ({library_ms.span}) (its gradients vs the plain "
+              f"ones: max_rel_err {lib_err:.3e}) [{card}]")
+        out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                         library_ms=library_ms)
+        with torch.no_grad():
+            hopper_chain_check(name, lambda: kern(x, gg), card)
+        del x, gg, got, want, again, faulty, lib_grads
+        torch.cuda.empty_cache()
+
+    # rows 10f and 11f: the fp32 patch embed's residual-saving chain and its weight gradient
+    p, tp = cfg.patch_size, cfg.temporal_patch_size
+    emb = copy.deepcopy(vit.to_patch_emb)
+    with torch.no_grad():
+        for ln in (emb[1], emb[3]):
+            ln.weight.copy_(1.0 + 0.1 * torch.randn(ln.weight.shape, generator=g, device="cuda"))
+            ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g, device="cuda"))
+        image = randn(BATCH, *VOLUME)
+        kw, s1, b1 = fold_patch_embed(emb, p, tp)
+        args = [image, kw, s1, b1, emb[3].weight.float(), emb[3].bias.float()]
+        names = ("out", "conv", "stats")
+        got = dict(zip(names, _res_with_patches(*args, p, tp)[:3]))
+        want = dict(zip(names, patch_embed_res_plain(*args, p, tp)))
+        one = dict(zip(names, patch_embed_res_f32(*args, p, tp, one_pass=True)[:3]))
+        abs_err = grads_check("patch_embed_res_f32", got, want, F32_BAND,
+                              {"one bf16 product each (lo planes zeroed)": one},
+                              f"fp32 {list(image.shape)} -> out, conv, stats")
+        ms = cuda_ms(torch, lambda: _res_with_patches(*args, p, tp))
+        plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
+        library = patch_library(emb, p, tp)
+        lib_err = rel_err(library(image), want["out"])
+        library_ms = library_time(torch, lambda: library(image))
+        m, dim = got["conv"].shape
+        k = kw.shape[0] * kw.shape[1]
+        rec = bound(3 * 2 * m * k * dim, nbytes(image, *args[1:], *got.values()), BF16_PEAK)
+        print(f"kernel patch_embed_res_f32: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products), the fp32 "
+              f"PyTorch chain {library_ms:.3f} ms ({library_ms.span}) (its output vs the plain "
+              f"out: max_rel_err {lib_err:.3e}) [{card}]")
+        out["patch_embed_res_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                          library_ms=library_ms)
+
+        dconv = randn(m, dim)
+        planes = _res_with_patches(*args, p, tp)[3]
+        got = patch_embed_dkw(image, dconv, p, tp, planes)
+        want = patch_embed_dkw_plain(image, dconv, p, tp)
+        same = (torch.equal(got, patch_embed_dkw(image, dconv, p, tp, planes))
+                and torch.equal(got, patch_embed_dkw(image, dconv, p, tp)))
+        one = patch_embed_dkw(image, dconv, p, tp, one_pass=True)
+        abs_err = grads_check("patch_embed_dkw_f32", {"dkw": got}, {"dkw": want}, F32_BAND,
+                              {"one bf16 product each (lo planes zeroed)": {"dkw": one}},
+                              f"fp32 {list(image.shape)}, dconv {list(dconv.shape)} -> "
+                              f"{list(got.shape)}; two calls and both forms the same bits: "
+                              f"{same}")
+        if not same:
+            raise AssertionError("patch_embed_dkw_f32: two calls, or the call from the volume "
+                                 "and the call from the forward's planes, differ")
+        ms = cuda_ms(torch, lambda: patch_embed_dkw(image, dconv, p, tp, planes))
+        vol_ms = cuda_ms(torch, lambda: patch_embed_dkw(image, dconv, p, tp))
+        plain_ms = cuda_ms(torch, lambda: patch_embed_dkw_plain(image, dconv, p, tp))
+        b, _, T, H, W = image.shape
+        go = dconv.reshape(b, T // tp, H // p, W // p, dim).permute(0, 4, 1, 2, 3).contiguous()
+        lib = torch.nn.grad.conv3d_weight(image, (dim, 1, tp, p, p), go, stride=(tp, p, p))
+        lib_err = rel_err(lib.reshape(dim, k // p, p).permute(2, 1, 0), want)
+        library_ms = library_time(torch, lambda: torch.nn.grad.conv3d_weight(
+            image, (dim, 1, tp, p, p), go, stride=(tp, p, p)))
+        rec = bound(3 * 2 * m * k * dim, nbytes(planes, dconv, got), BF16_PEAK)
+        print(f"kernel patch_embed_dkw_f32: {ms:.3f} ms from the forward's P planes (the train "
+              f"step's form; {vol_ms:.3f} ms from the volume) vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products), fp32 "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms ({library_ms.span}) (vs the "
+              f"plain version: max_rel_err {lib_err:.3e}) [{card}]")
+        out["patch_embed_dkw_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                          library_ms=library_ms)
+        del image, args, planes, dconv, got, want, one, go, lib
+        torch.cuda.empty_cache()
+
+        # rows 16 and 17 on fp32 tokens
+        x = randn(BATCH, t, h, w, d)
+        gr = randn(BATCH, t, h, w, d)
+        weight = vit.enc_spatial_transformer.layers[0][0].dsconv.weight.detach()
+        taps = taps_of(weight)
+        pbias = 0.2 * randn(d)
+        got = peg(x, taps, pbias, 2) - x
+        want = peg_plain(x, taps, pbias, 2) - x
+        controls = {"frame padding (1, 1)": rel_err(got, peg_plain(x, taps, pbias, 1) - x),
+                    "no bias": rel_err(got, peg_plain(x, taps, None, 2) - x)}
+        abs_err = band_check("peg_f32", got, want, PEG_F32_KERNEL_BAND, controls,
+                             f"causal forward {list(x.shape)} fp32, branch max "
+                             f"{want.abs().max().item():.3e}")
+        tokens = x.reshape(BATCH, t * h * w, d)
+        lib_err = rel_err(peg_residual(weight, pbias, tokens, (BATCH, t, h, w), True),
+                          peg_plain(x, taps, pbias, 2).reshape(tokens.shape))
+        ms = cuda_ms(torch, lambda: peg(x, taps, pbias, 2))
+        plain_ms = cuda_ms(torch, lambda: peg_plain(x, taps, pbias, 2))
+        library_ms = library_time(torch, lambda: peg_residual(weight, pbias, tokens,
+                                                              (BATCH, t, h, w), True))
+        npos = x.numel() // d
+        rec = bound(2 * 27 * npos * d, nbytes(x, taps, pbias, x), FP32_PEAK)
+        print(f"kernel peg_f32: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), the fp32 NCDHW copy + F.conv3d + "
+              f"copy {library_ms:.3f} ms ({library_ms.span}) (max_rel_err {lib_err:.3e}) "
+              f"[{card}]")
+        out["peg_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                              library_ms=library_ms)
+        names = ("dw", "db")
+        got = dict(zip(names, peg_weight_grads(x, gr, 2)))
+        want = dict(zip(names, peg_weight_grads_plain(x, gr, 2)))
+        again = peg_weight_grads(x, gr, 2)
+        if not (torch.equal(got["dw"], again[0]) and torch.equal(got["db"], again[1])):
+            raise AssertionError("peg_weight_grads (fp32): two calls on the same inputs differ")
+        faulty = {"x shifted by one frame": {"dw": peg_weight_grads_plain(x.roll(1, 1), gr, 2)[0]},
+                  "frame padding (1, 1)": {"dw": peg_weight_grads_plain(x, gr, 1)[0]}}
+        abs_err = grads_check("peg_weight_grads_f32", got, want, PEG_WGRAD_BAND, faulty,
+                              f"{list(x.shape)} fp32 -> dw, db (two calls bit-equal)")
+        ms = cuda_ms(torch, lambda: peg_weight_grads(x, gr, 2))
+        plain_ms = cuda_ms(torch, lambda: peg_weight_grads_plain(x, gr, 2))
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 2, 0)).contiguous()
+        gc = gr.permute(0, 4, 1, 2, 3).contiguous()
+        lib_err = rel_err(torch.nn.grad.conv3d_weight(xc, (d, 1, 3, 3, 3), gc, groups=d),
+                          want["dw"])
+        library_ms = library_time(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc, (d, 1, 3, 3, 3), gc, groups=d))
+        rec = bound(2 * 28 * npos * d, nbytes(x, gr, *got.values()), FP32_PEAK)
+        print(f"kernel peg_weight_grads_f32: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), fp32 "
+              f"torch.nn.grad.conv3d_weight {library_ms:.3f} ms ({library_ms.span}) "
+              f"(max_rel_err {lib_err:.3e}) [{card}]")
+        out["peg_weight_grads_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                           library_ms=library_ms)
+    return out
+
+
+def f32_train_phase(torch, card: str) -> tuple:
+    """Phase 14: the fp32 train step at 120-token reports, at flagship
+    width with peg_pallas=True, B = 2 (TrainConfig(compute_dtype="float32",
+    text_max_length=120): BERT unfused under its n >= 128 gate, as in JAX;
+    the CT-ViT on its fp32 kernels both ways). First f32_train_check. Then
+    one step's gradients from the same weights, batch and dropout draws,
+    the kernels against plain=True: every parameter's gradient within
+    STEP_GRAD_BAND of that tensor's largest entry (its group's for the
+    shift-invariant biases), the plain path quantising with the kernel
+    path's codes (each index that flipped between the two forwards
+    must be a tie within VQ_F32_TIE), control another batch's plain
+    gradients outside the band in every parameter group. Then CTClipTrainer.train() over 3 steps (the step-0
+    and end-of-epoch evaluations, a checkpoint) with the launches of each
+    step (F32_TRAIN_STEP), 1f-4f, 5f in the evaluations, 16, and no bf16
+    kernel or dx-only chain; the losses; three more steps timed. Returns
+    (kernel record, launch counts of the train run)."""
+    import tempfile
+
+    from ct_clip_ut_tpu_torch.config import TrainConfig, flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctclip import contrastive_loss, ctclip_apply, init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.train.trainer import CTClipTrainer
+
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg()
+    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    record = f32_train_check(torch, model, card)
+    tcfg = TrainConfig(num_epochs=1, compute_dtype="float32", text_max_length=EARLIER_TEXT_LEN)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    tok = WordTokenizer(cfg.bert.vocab_size)
+    data = train_batches(torch, g, 4, 40, dtype=torch.float32)
+
+    def tokens(texts):
+        enc = tok(texts, max_length=EARLIER_TEXT_LEN)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
+
+    def grads(i, plain, against=None):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with VQRecorder(torch, against, replay=against is not None) as rec:
+            out = ctclip_apply(model, tokens(data[i][1]), data[i][0], freeze_vq=False,
+                               generator=gen, deterministic=False, plain=plain)
+            loss = contrastive_loss(out.sim_matrix)
+            loss.backward()
+        got = {n: prm.grad.detach().clone() for n, prm in model.named_parameters()
+               if prm.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), got, rec
+
+    launches.reset_launch_counts()
+    loss_k, gk, rec_k = grads(0, False)
+    step_counts = launches.launch_counts()
+    loss_p, gp, rec_p = grads(0, True, rec_k)
+    gc = grads(1, True)[1]
+    flips, gaps = int(rec_p.flips().sum()), rec_p.gaps
+
+    group_top = {}
+    for n, v in gp.items():
+        grp = param_group(n)
+        group_top[grp] = max(group_top.get(grp, 0.0), v.abs().max().item())
+    cpb = model.visual_transformer.spatial_rel_pos_bias.net
+    shift_invariant = [n for n in gp if n.endswith("attention.self.key.bias")
+                       or n == f"visual_transformer.spatial_rel_pos_bias.net.{len(cpb) - 1}.bias"]
+
+    def err(a, n):
+        b = gp[n]
+        top = group_top[param_group(n)] if n in shift_invariant else b.abs().max().item()
+        return (a - b).abs().max().item() / top
+
+    errs = {n: err(gk[n], n) for n in gp}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    ctrl = {}
+    for n in gp:
+        grp = param_group(n)
+        ctrl[grp] = max(ctrl.get(grp, 0.0), err(gc[n], n))
+    print(f"train fp32: one step at B = {BATCH}, {EARLIER_TEXT_LEN}-token reports, "
+          f"peg_pallas=True: loss {loss_k:.6f} (plain path {loss_p:.6f}, from the kernel "
+          f"path's codes); {flips} VQ index flips between the two forwards (gaps "
+          f"{[f'{v:.2e}' for v in gaps]}, tie band {VQ_F32_TIE}); gradients of {len(errs)} "
+          f"parameters vs the plain path, max |diff| over the tensor's largest entry: max "
+          f"{max(errs.values()):.3e} (band {STEP_GRAD_BAND}), worst "
+          + ", ".join(f"{n} {v:.3e}" for n, v in worst)
+          + f"; held against their group's largest entry: {len(shift_invariant)} "
+          f"shift-invariant biases, max {max(errs[n] for n in shift_invariant):.3e}; "
+          "controls (another batch) per group "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ctrl.items()) + f" [{card}]")
+    print("train fp32: launches of the step "
+          + json.dumps({k: v for k, v in step_counts.items() if v}))
+    if set(gk) != set(gp) or not all(torch.isfinite(v).all() for v in gk.values()):
+        raise AssertionError("fp32 kernel-path gradients missing or non-finite")
+    if any(not gap <= VQ_F32_TIE for gap in gaps):
+        raise AssertionError(f"fp32 train step: a VQ flip that is no tie: {gaps}")
+    bad = {n: v for n, v in errs.items() if not v <= STEP_GRAD_BAND}
+    if bad:
+        raise AssertionError(f"fp32 train gradients over the band {STEP_GRAD_BAND}: {bad}")
+    blind = {k: v for k, v in ctrl.items() if not v > STEP_GRAD_BAND}
+    if blind:
+        raise AssertionError(f"fp32 train gradients: controls within the band {blind}")
+
+    # CTClipTrainer.train(): 3 steps, the evaluations, a checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = CTClipTrainer(cfg, tcfg, tok, data[:3], data[3:], results_folder=tmp,
+                                params=model, device="cuda")
+        launches.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    evals = len(trainer.valid_losses)
+    print(f"train fp32: CTClipTrainer.train() over 3 steps of {BATCH} x {list(VOLUME)} fp32 "
+          f"volumes with {EARLIER_TEXT_LEN}-token reports, peg_pallas=True, {evals} evaluations "
+          f"and a checkpoint in {seconds:.3f} s (host clock; peak {peak:.2f} GB) [{card}]; step "
+          f"losses {trainer.train_losses['steps']}, epoch {trainer.train_losses['epochs']}, "
+          f"validation {trainer.valid_losses}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    losses = trainer.train_losses["steps"] + trainer.train_losses["epochs"] + trainer.valid_losses
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"non-finite fp32 train losses {losses}")
+    pegs = cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
+    want = {k: 3 * v for k, v in F32_TRAIN_STEP.items()}
+    want.update({"peg": (2 * 3 + evals) * pegs, "patch_embed_f32": evals})
+    wrong = {k: counts[k] for k, v in want.items() if counts[k] != v}
+    wrong.update({k: counts[k] for k in F32_TRAIN_FORWARD if counts[k] <= 0})
+    bf16_or_dx = [k for k in counts if k not in (*want, *F32_TRAIN_FORWARD)]
+    wrong.update({k: counts[k] for k in bf16_or_dx if counts[k] != 0})
+    if wrong:
+        raise AssertionError(f"fp32 train path launches {wrong}, expected {want}, "
+                             f"{F32_TRAIN_FORWARD} > 0 and every other counter 0")
+
+    state, step = trainer.state, trainer.train_step
+    image, text = data[0][0], tokens(data[0][1])
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = step(state, image, text)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"train fp32: make_train_step at B = {BATCH}: {', '.join(f'{v:.3f}' for v in ms)} ms "
+          f"per step (host clock, synchronised; loss {loss.item():.6f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase 14 in "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return record, counts
+
+
 def main() -> int:
     import torch
 
@@ -3505,12 +3972,16 @@ def main() -> int:
         record.update(ctgen_f32_record)
         torch.cuda.empty_cache()
         suite_phase(torch, card)
+        torch.cuda.empty_cache()
+        f32_train_record, f32_train_counts = f32_train_phase(torch, card)
+        record.update(f32_train_record)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     def run_of(name):
-        return (train_counts if name in TRAIN_KERNELS else
+        return (f32_train_counts if name in (*F32_TRAIN_KERNELS, *COUNTER_OF) else
+                train_counts if name in TRAIN_KERNELS else
                 attribution_counts if name in ATTRIBUTION_KERNELS else
                 gradient_counts if name in GRADIENT_KERNELS else
                 ctgen_f32_counts if name in CTGEN_F32_KERNELS else
@@ -3518,8 +3989,9 @@ def main() -> int:
                 int8_counts if name == "geglu_ff_int8" else
                 cosine_counts if name == "cosine_attention" else counts)
 
-    kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=run_of(n)[n],
-                    **record[n]) for n, (src, rep) in KERNELS.items()]
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
+                    launches=run_of(n)[COUNTER_OF.get(n, n)], **record[n])
+               for n, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -49,14 +49,17 @@ SIGNATURES = {
     "ctc_patch_embed": [_P] * 9 + [_I] * 9 + [_P],
     "ctc_patch_embed_res": [_P] * 10 + [_I] * 9 + [_P],
     "ctc_patch_embed_f32": [_P] * 10 + [_I] * 9 + [_P],
+    "ctc_patch_embed_res_f32": [_P] * 11 + [_I] * 9 + [_P],
+    "ctc_patchify_f32": [_P] * 2 + [_I] * 8 + [_P],
     "ctc_patch_embed_dkw": [_P] * 3 + [_I] * 8 + [_P],
+    "ctc_patch_embed_dkw_f32": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_patchify": [_P] * 2 + [_I] * 7 + [_P],
     "ctc_attn_block_bwd": [_P] * 34 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed_bwd": [_P] * 31 + [_I] * 4 + [_F, _I, _P],
-    "ctc_attn_block_bwd_f32": [_P] * 27 + [_I] * 4 + [_F, _I, _I, _P],
-    "ctc_attn_packed_bwd_f32": [_P] * 25 + [_I] * 4 + [_F, _I, _I, _P],
+    "ctc_attn_block_bwd_f32": [_P] * 36 + [_I] * 4 + [_F, _I, _I, _P],
+    "ctc_attn_packed_bwd_f32": [_P] * 33 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_geglu_ff_bwd": [_P] * 17 + [_I] * 5 + [_P],
-    "ctc_geglu_ff_bwd_f32": [_P] * 14 + [_I] * 7 + [_P],
+    "ctc_geglu_ff_bwd_f32": [_P] * 19 + [_I] * 7 + [_P],
     "ctc_bert_layer": [_P] * 26 + [_I] * 6 + [_F, _F, _P],
     "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd": [_P] * 53 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],

@@ -331,20 +331,10 @@ bwd_dkv_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   if (threadIdx.x < DH) atomicAdd(dks + threadIdx.x, red[threadIdx.x]);
 }
 
-constexpr int DB_WARPS = 4;          // 16 query rows each
-constexpr int DB_QT = DB_WARPS * 16;
-constexpr int DB_PLANE = KC * DH * 2;          // one staged plane of 64 rows
 // a stage: k_hi, k_lo, v of the key chunk; q_hi, q_lo, dO of the query
 // tile; the tile's (m log2 e, 1 / l, D, 0)
 constexpr int DB_STAGE = 6 * DB_PLANE + DB_QT * 16;
 constexpr int DB_SMEM = 2 * DB_STAGE;
-
-// A fragments of rows r0 .. r0 + 15 of a staged plane (ldmatrix x4).
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[2][4], uint32_t plane, int r0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-    ldsm_x4(a[ks], plane + swz(r0 + (lane & 15), 2 * ks + (lane >> 4)));
-}
 
 // dbias [H][n][n] = sum over the R sequences of dS: one block per (key chunk
 // of KC, query tile of DB_QT, head h), the sequences in order through a

@@ -1,26 +1,31 @@
-// The cosine-attention block's backward in fp32, the data gradient only,
-// shared by attn_block_bwd_f32.cu (spatial, with a position bias) and
+// The cosine-attention block's backward in fp32, shared by
+// attn_block_bwd_f32.cu (spatial, with a position bias) and
 // attn_packed_bwd_f32.cu (temporal, no bias): the port of
 // pallas_attn_block._backward_impl / pallas_attn_packed._backward_impl at
-// fp32 (where their rounding points are identities) for the gradient
-// attribution methods, which differentiate with respect to activations and
-// patches and need dx alone.
+// fp32 (where their rounding points are identities). Two forms: the data
+// gradient alone, for the gradient attribution methods (they differentiate
+// with respect to activations and patches), and with every parameter
+// gradient, for the fp32 train step (TrainConfig(compute_dtype="float32")).
 //
 // Given x [R*n, D] fp32, the block's weights and the output cotangent g, it
-// recomputes the forward and returns dx (+ g under `residual`). Every fp32
+// recomputes the forward and returns dx (+ g under `residual`) and, in the
+// train step's form, dgamma, dWq, dWk, dWv, dWo, dq_scale, dk_scale and
+// (with a bias) dbias [H, n, n] summed over the R sequences. Every fp32
 // product is three bf16 products of hi / lo planes (a_hi b_hi + a_lo b_hi +
 // a_hi b_lo, within ~2^-16 of fp32): the GEMMs as SplitPlan / SplitKNPlan on
 // the Hopper core (split_sm90.cuh), the attention passes on mma.sync with
 // split operands (attn_mma.cuh's split_scores for S, dP and their
 // transposes; P, dS split in registers against staged hi / lo planes for
-// P.V-shaped products).
+// P.V-shaped products), the weight gradients as one three-pass launch of
+// wgrad_sm90.cuh (BlockWgradSplitPlan) over the planes the dx chain writes.
 //
 // What bounds it on the H100: operations, three bf16 products for each
 // fp32 one. The function's products: the projections q, k, v, dO, dxn
-// (2 M D HD each) and dx_direct (2 M D 2 HD), and per (sequence, head) S,
+// (2 M D HD each), dx_direct (2 M D 2 HD) and the weight gradients dWq,
+// dWk | dWv, dWo (2 M D HD each, 4 in all), and per (sequence, head) S,
 // P.V (for D), dP, dS.K, dS^T.Q, P^T.dO (2 n^2 32 each). The passes take
-// four more n^2 products than that: the statistics pass S twice, the key
-// pass S^T and dP^T again.
+// four more n^2 products than that (the statistics pass S twice, the key
+// pass S^T and dP^T again), and the dbias pass S and dP again.
 // A block stages one (sequence, head)'s four planes of n rows (147 KB at n
 // = 576: one block an SM, as the fp32 forward core). Launches:
 //
@@ -31,26 +36,41 @@
 //                         l2-normed and scaled as hi / lo planes, their unit
 //                         rows and norms in fp32, v as planes)
 //   gemm_kernel           dO = g Wo as planes (SplitKNPlan: Wo as stored)
-//   block_core_kernel     the fp32 core with STATS: o, and each row's (m log2
-//                         e, 1 / l, D = rowsum(dO o)) from the fp32 o
+//   block_core_kernel     the fp32 core with STATS: o as planes, and each
+//                         row's (m log2 e, 1 / l, D = rowsum(dO o)) from the
+//                         fp32 o
 //   transpose_kernel      the bias transposed per head (with a bias)
 //   bwd_dq_f32_kernel     per (sequence, 128-query tile, head), K and V hi /
 //                         lo staged: P from the saved (m, l), dP = dO V^T, dS
 //                         = P (dP - D), dq^ = dS K, the scale and l2-norm
-//                         backward -> dq planes
+//                         backward -> dq planes; in the train form also the
+//                         block's sum of u_q . dq^ per column (dq_scale)
 //   bwd_dkv_f32_kernel    per (sequence, 128-key tile, head), Q and dO hi /
 //                         lo and each query's (lse, D) staged: S^T, dP^T =
 //                         V dO^T, dS^T, dV = P^T dO, dk^ = dS^T Q, the
-//                         l2-norm backward -> dk | dv planes
+//                         l2-norm backward -> dk | dv planes (and the
+//                         block's u_k . dk^ sums)
+//   bwd_dbias_f32_kernel  (train form, with a bias) per (64-query tile,
+//                         64-key chunk, head): S and dP recomputed from the
+//                         split planes for every sequence in turn through a
+//                         two-stage cp.async ring, fp32 dS summed in
+//                         registers over the R sequences and written once
 //   gemm_kernel x 2       dxn = dq Wq, dx_direct = [dk | dv] [Wk; Wv] (fp32;
 //                         SplitKNPlan over the stacked weight planes)
-//   ln_bwd_f32_kernel     dx = LN'(dxn) + dx_direct (+ g)
-// No parameter gradient is formed: dgamma, dWq, dWk, dWv, dWo, the scales'
-// and the bias's gradients are the fp32 train step's (ROADMAP Queue 2 item
-// 14, fourth group).
+//   ln_bwd_f32_kernel     dx = LN'(dxn) + dx_direct (+ g); in the train form
+//                         each block's dgamma partial sums
+//   colsum_kernel x 3     (train form) dgamma, dq_scale, dk_scale from the
+//                         blocks' partial sums, in order
+//   wgrad_kernel          (train form) dWq = dq^T xn, dWk | dWv = [dk | dv]^T
+//                         x, dWo = g^T o: 32 tiles of 128 x 128 at D = 512,
+//                         HD = 256, each summing all R n tokens in order
+//                         over three passes of the planes
+// Every sum over tokens runs in a fixed order without atomics: two calls
+// give the same bits.
 #pragma once
 
 #include "attn_mma.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace ctc {
 namespace tc {
@@ -58,12 +78,13 @@ namespace tc {
 // The scale and l2-norm backward of rows a, b of a 16 x 32 gradient of the
 // scaled unit rows (the mma D layout, as attn_bwd.cuh's l2norm_bwd): du =
 // acc * gain, out = (du - u (u . du)) / norm, written as hi / lo planes at
-// hi_a / hi_b and lo_off further on.
+// hi_a / hi_b and lo_off further on; part[2 dt + e] += u acc, the gain's
+// gradient before its factor (this thread's columns 8 dt + 2 t + e).
 __device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], const float* u_a,
                                                   const float* u_b, float norm_a, float norm_b,
                                                   bool va, bool vb, const float (&gain)[8],
                                                   bf16* hi_a, bf16* hi_b, int64_t lo_off,
-                                                  int keep_lo, int t) {
+                                                  int keep_lo, int t, float (&part)[8]) {
   float ua[8], ub[8], dot_a = 0.f, dot_b = 0.f;
 #pragma unroll
   for (int dt = 0; dt < 4; ++dt) {
@@ -78,6 +99,7 @@ __device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], cons
     for (int e = 0; e < 2; ++e) {
       dot_a += ua[2 * dt + e] * (acc[dt][e] * gain[2 * dt + e]);
       dot_b += ub[2 * dt + e] * (acc[dt][2 + e] * gain[2 * dt + e]);
+      part[2 * dt + e] += ua[2 * dt + e] * acc[dt][e] + ub[2 * dt + e] * acc[dt][2 + e];
     }
   }
   dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 1);
@@ -113,6 +135,40 @@ __device__ __forceinline__ void gain_cols(float (&out)[8], const float* v, float
     for (int e = 0; e < 2; ++e) out[2 * dt + e] = v[8 * dt + 2 * t + e] * mul;
 }
 
+// The block's sums of part[] over its rows into out[0 .. 31] (the 32
+// columns of a head), in a fixed order: the eight row groups of a warp by
+// shuffles, then the warps in order through `red` (32 floats a warp of
+// shared memory the block has finished with). Every thread of the block
+// calls it.
+__device__ __forceinline__ void head_cols_partial(float (&part)[8], float* red, float* out,
+                                                  int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 4);
+    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 8);
+    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 16);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, t = lane & 3;
+  if (lane < 4) {
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[warp * DH + 8 * dt + 2 * t + e] = part[2 * dt + e];
+  }
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float sum = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[w * DH + threadIdx.x];
+    out[threadIdx.x] = sum;
+  }
+}
+
+// The block's row of a [R * tiles * H][32] partial-sums matrix.
+__device__ __forceinline__ int64_t block_row() {
+  return ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+
 // two A-fragment registers (rows a, b at two adjacent keys) of values y[4]
 // as hi / lo pairs
 __device__ __forceinline__ void split_frag(const float (&y)[4], int keep_lo, uint32_t& h_a,
@@ -131,14 +187,16 @@ __device__ __forceinline__ void split_frag(const float (&y)[4], int keep_lo, uin
 // k), mld [R][H][n] float4 (m log2 e, 1 / l, D, 0).
 
 // The query pass: one block per (sequence r, query tile of QT rows, head
-// h), K and V hi / lo staged (four planes); dq [2][M][HD].
+// h), K and V hi / lo staged (four planes); dq [2][M][HD]; qs_part (null in
+// the data-gradient form) [R * tiles * H][32], the block's sums of u_q dq^.
 template <int BIAS>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 1)
 bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
                   const bf16* __restrict__ dO, const float* __restrict__ bias,
                   const float4* __restrict__ mld, const float* __restrict__ unit,
                   const float* __restrict__ norm, const float* __restrict__ qs, float scale,
-                  bf16* __restrict__ dq, int M, int n, int HD, int keep_lo) {
+                  bf16* __restrict__ dq, float* __restrict__ qs_part, int M, int n, int HD,
+                  int keep_lo) {
   extern __shared__ __align__(128) char smem[];
   const int r = blockIdx.x, h = blockIdx.z, H = gridDim.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -154,55 +212,59 @@ bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
-  if (q0 >= n) return;
-  const int ra = q0 + g, rb = ra + 8;
-  const bool va = ra < n, vb = rb < n;
-  uint32_t qh[2][4], ql[2][4], dh[2][4], dl[2][4];
-  load_a(qh, qk + off, HD, q0, n, lane);
-  load_a(ql, qk + plane + off, HD, q0, n, lane);
-  load_a(dh, dO + off, HD, q0, n, lane);
-  load_a(dl, dO + plane + off, HD, q0, n, lane);
-  const float4* st = mld + ((int64_t)r * H + h) * n;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
-  const float* bias_a = BIAS ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
-  const float* bias_b = BIAS ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
-  float acc[4][4];
+  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (q0 < n) {
+    const int ra = q0 + g, rb = ra + 8;
+    const bool va = ra < n, vb = rb < n;
+    uint32_t qh[2][4], ql[2][4], dh[2][4], dl[2][4];
+    load_a(qh, qk + off, HD, q0, n, lane);
+    load_a(ql, qk + plane + off, HD, q0, n, lane);
+    load_a(dh, dO + off, HD, q0, n, lane);
+    load_a(dl, dO + plane + off, HD, q0, n, lane);
+    const float4* st = mld + ((int64_t)r * H + h) * n;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
+    const float* bias_a = BIAS ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
+    const float* bias_b = BIAS ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
+    float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  for (int kc = 0; kc < n_pad; kc += KC) {
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int kc = 0; kc < n_pad; kc += KC) {
 #pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t ah[4], al[4];
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        uint32_t ah[4], al[4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int kb = kc + 16 * ks + 8 * u, key = kb + 2 * t;
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], ds[4];
-        split_scores(s, qh, ql, sbase, sbase + pbytes, kb, lane);
-        split_scores(dp, dh, dl, sbase + 2 * pbytes, sbase + 3 * pbytes, kb, lane);
-        bias_pair<BIAS>(b, bias_a, bias_b, va, vb, key, n);
+        for (int u = 0; u < 2; ++u) {
+          const int kb = kc + 16 * ks + 8 * u, key = kb + 2 * t;
+          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], ds[4];
+          split_scores(s, qh, ql, sbase, sbase + pbytes, kb, lane);
+          split_scores(dp, dh, dl, sbase + 2 * pbytes, sbase + 3 * pbytes, kb, lane);
+          bias_pair<BIAS>(b, bias_a, bias_b, va, vb, key, n);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4& sr = i < 2 ? sa : sb;
-          const float p = key + (i & 1) < n ? exp2f((s[i] + b[i]) * LOG2E - sr.x) * sr.y : 0.f;
-          ds[i] = p * (dp[i] - sr.z);
+          for (int i = 0; i < 4; ++i) {
+            const float4& sr = i < 2 ? sa : sb;
+            const float p = key + (i & 1) < n ? exp2f((s[i] + b[i]) * LOG2E - sr.x) * sr.y : 0.f;
+            ds[i] = p * (dp[i] - sr.z);
+          }
+          split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
         }
-        split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
+        col_products(acc, al, sbase, kc + 16 * ks, lane);
+        col_products(acc, ah, sbase + pbytes, kc + 16 * ks, lane);
+        col_products(acc, ah, sbase, kc + 16 * ks, lane);
       }
-      col_products(acc, al, sbase, kc + 16 * ks, lane);
-      col_products(acc, ah, sbase + pbytes, kc + 16 * ks, lane);
-      col_products(acc, ah, sbase, kc + 16 * ks, lane);
     }
+    const int64_t ma = (int64_t)r * n + (va ? ra : 0), mb = (int64_t)r * n + (vb ? rb : 0);
+    const int64_t col0 = h * DH;
+    float gain[8];
+    gain_cols(gain, qs, scale, t);
+    l2norm_bwd_planes(acc, unit + ma * HD + col0, unit + mb * HD + col0, norm[ma * H + h],
+                      norm[mb * H + h], va, vb, gain, dq + ma * HD + col0, dq + mb * HD + col0,
+                      (int64_t)plane, keep_lo, t, part);
   }
-  const int64_t ma = (int64_t)r * n + (va ? ra : 0), mb = (int64_t)r * n + (vb ? rb : 0);
-  const int64_t col0 = h * DH;
-  float gain[8];
-  gain_cols(gain, qs, scale, t);
-  l2norm_bwd_planes(acc, unit + ma * HD + col0, unit + mb * HD + col0, norm[ma * H + h],
-                    norm[mb * H + h], va, vb, gain, dq + ma * HD + col0, dq + mb * HD + col0,
-                    (int64_t)plane, keep_lo, t);
+  if (qs_part != nullptr)
+    head_cols_partial(part, reinterpret_cast<float*>(smem), qs_part + block_row() * DH, lane);
 }
 
 // Shared memory of the fp32 key pass: four planes, then (lse, D) per query.
@@ -213,14 +275,16 @@ __host__ __device__ __forceinline__ size_t dkv_f32_smem_bytes(int n) {
 // The key pass: one block per (sequence r, key tile of QT keys, head h), Q
 // and dO hi / lo staged; warp w takes keys tile + 16 w as the A operand of
 // S^T and dP^T. biasT [H][key][query] as attn_bwd.cuh's key pass. dkv
-// [2][M][2 HD]: dk at columns h * 32 ..., dv at HD + h * 32 ....
+// [2][M][2 HD]: dk at columns h * 32 ..., dv at HD + h * 32 ...; ks_part
+// as the query pass's qs_part, the sums of u_k dk^.
 template <int BIAS>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 1)
 bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
                    const bf16* __restrict__ dO, const float* __restrict__ biasT,
                    const float4* __restrict__ mld, const float* __restrict__ unit,
                    const float* __restrict__ norm, const float* __restrict__ ks,
-                   bf16* __restrict__ dkv, int M, int n, int HD, int keep_lo) {
+                   bf16* __restrict__ dkv, float* __restrict__ ks_part, int M, int n, int HD,
+                   int keep_lo) {
   extern __shared__ __align__(128) char smem[];
   const int r = blockIdx.x, h = blockIdx.z, H = gridDim.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -241,76 +305,197 @@ bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
-  if (k0 >= n) return;
-  const int ka = k0 + g, kb = ka + 8;
-  const bool va = ka < n, vb = kb < n;
-  uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
-  load_a(kh, qk + 2 * plane + off, HD, k0, n, lane);
-  load_a(kl, qk + 3 * plane + off, HD, k0, n, lane);
-  load_a(vh, v + off, HD, k0, n, lane);
-  load_a(vl, v + plane + off, HD, k0, n, lane);
-  const float* bias_a = BIAS ? biasT + ((int64_t)h * n + (va ? ka : 0)) * n : nullptr;
-  const float* bias_b = BIAS ? biasT + ((int64_t)h * n + (vb ? kb : 0)) * n : nullptr;
-  float dv[4][4], dk[4][4];
+  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (k0 < n) {
+    const int ka = k0 + g, kb = ka + 8;
+    const bool va = ka < n, vb = kb < n;
+    uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
+    load_a(kh, qk + 2 * plane + off, HD, k0, n, lane);
+    load_a(kl, qk + 3 * plane + off, HD, k0, n, lane);
+    load_a(vh, v + off, HD, k0, n, lane);
+    load_a(vl, v + plane + off, HD, k0, n, lane);
+    const float* bias_a = BIAS ? biasT + ((int64_t)h * n + (va ? ka : 0)) * n : nullptr;
+    const float* bias_b = BIAS ? biasT + ((int64_t)h * n + (vb ? kb : 0)) * n : nullptr;
+    float dv[4][4], dk[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dv[i][e] = dk[i][e] = 0.f;
-  for (int qc = 0; qc < n_pad; qc += KC) {
+      for (int e = 0; e < 4; ++e) dv[i][e] = dk[i][e] = 0.f;
+    for (int qc = 0; qc < n_pad; qc += KC) {
 #pragma unroll
-    for (int kt = 0; kt < KC / 16; ++kt) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
+      for (int kt = 0; kt < KC / 16; ++kt) {
+        uint32_t ph[4], pl[4], sh[4], sl[4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int qb = qc + 16 * kt + 8 * u, qi = qb + 2 * t;
-        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], p[4], ds[4];
-        split_scores(s, kh, kl, sbase, sbase + pbytes, qb, lane);
-        split_scores(dp, vh, vl, sbase + 2 * pbytes, sbase + 3 * pbytes, qb, lane);
-        bias_pair<BIAS>(b, bias_a, bias_b, va, vb, qi, n);
-        const float4 sq = *reinterpret_cast<const float4*>(lse_d + qi);   // queries qi, qi + 1
+        for (int u = 0; u < 2; ++u) {
+          const int qb = qc + 16 * kt + 8 * u, qi = qb + 2 * t;
+          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], p[4], ds[4];
+          split_scores(s, kh, kl, sbase, sbase + pbytes, qb, lane);
+          split_scores(dp, vh, vl, sbase + 2 * pbytes, sbase + 3 * pbytes, qb, lane);
+          bias_pair<BIAS>(b, bias_a, bias_b, va, vb, qi, n);
+          const float4 sq = *reinterpret_cast<const float4*>(lse_d + qi);   // queries qi, qi + 1
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // past n, lse is +inf and p 0
-          p[i] = exp2f((s[i] + b[i]) * LOG2E - ((i & 1) ? sq.z : sq.x));
-          ds[i] = p[i] * (dp[i] - ((i & 1) ? sq.w : sq.y));
+          for (int i = 0; i < 4; ++i) {
+            // past n, lse is +inf and p 0
+            p[i] = exp2f((s[i] + b[i]) * LOG2E - ((i & 1) ? sq.z : sq.x));
+            ds[i] = p[i] * (dp[i] - ((i & 1) ? sq.w : sq.y));
+          }
+          split_frag(p, keep_lo, ph[2 * u], ph[2 * u + 1], pl[2 * u], pl[2 * u + 1]);
+          split_frag(ds, keep_lo, sh[2 * u], sh[2 * u + 1], sl[2 * u], sl[2 * u + 1]);
         }
-        split_frag(p, keep_lo, ph[2 * u], ph[2 * u + 1], pl[2 * u], pl[2 * u + 1]);
-        split_frag(ds, keep_lo, sh[2 * u], sh[2 * u + 1], sl[2 * u], sl[2 * u + 1]);
+        const int q16 = qc + 16 * kt;
+        col_products(dv, pl, sbase + 2 * pbytes, q16, lane);
+        col_products(dv, ph, sbase + 3 * pbytes, q16, lane);
+        col_products(dv, ph, sbase + 2 * pbytes, q16, lane);
+        col_products(dk, sl, sbase, q16, lane);
+        col_products(dk, sh, sbase + pbytes, q16, lane);
+        col_products(dk, sh, sbase, q16, lane);
       }
-      const int q16 = qc + 16 * kt;
-      col_products(dv, pl, sbase + 2 * pbytes, q16, lane);
-      col_products(dv, ph, sbase + 3 * pbytes, q16, lane);
-      col_products(dv, ph, sbase + 2 * pbytes, q16, lane);
-      col_products(dk, sl, sbase, q16, lane);
-      col_products(dk, sh, sbase + pbytes, q16, lane);
-      col_products(dk, sh, sbase, q16, lane);
+    }
+    const int64_t ma = (int64_t)r * n + (va ? ka : 0), mb = (int64_t)r * n + (vb ? kb : 0);
+    const int64_t col0 = h * DH, HD2 = 2 * (int64_t)HD, lo_off = 2 * (int64_t)plane;
+    float gain[8];
+    gain_cols(gain, ks, 1.f, t);
+    const float* uk = unit + plane;
+    const float* nk = norm + (size_t)M * H;
+    l2norm_bwd_planes(dk, uk + ma * HD + col0, uk + mb * HD + col0, nk[ma * H + h], nk[mb * H + h],
+                      va, vb, gain, dkv + ma * HD2 + col0, dkv + mb * HD2 + col0, lo_off, keep_lo,
+                      t, part);
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      const int64_t col = HD + col0 + 8 * dt + 2 * t;
+      __nv_bfloat162 h2, l2;
+      if (va) {
+        sm90::split2(dv[dt][0], dv[dt][1], keep_lo, h2, l2);
+        *reinterpret_cast<__nv_bfloat162*>(dkv + ma * HD2 + col) = h2;
+        *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + ma * HD2 + col) = l2;
+      }
+      if (vb) {
+        sm90::split2(dv[dt][2], dv[dt][3], keep_lo, h2, l2);
+        *reinterpret_cast<__nv_bfloat162*>(dkv + mb * HD2 + col) = h2;
+        *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + mb * HD2 + col) = l2;
+      }
     }
   }
-  const int64_t ma = (int64_t)r * n + (va ? ka : 0), mb = (int64_t)r * n + (vb ? kb : 0);
-  const int64_t col0 = h * DH, HD2 = 2 * (int64_t)HD, lo_off = 2 * (int64_t)plane;
-  float gain[8];
-  gain_cols(gain, ks, 1.f, t);
-  const float* uk = unit + plane;
-  const float* nk = norm + (size_t)M * H;
-  l2norm_bwd_planes(dk, uk + ma * HD + col0, uk + mb * HD + col0, nk[ma * H + h], nk[mb * H + h],
-                    va, vb, gain, dkv + ma * HD2 + col0, dkv + mb * HD2 + col0, lo_off, keep_lo,
-                    t);
+  if (ks_part != nullptr)
+    head_cols_partial(part, reinterpret_cast<float*>(smem), ks_part + block_row() * DH, lane);
+}
+
+// a stage of the fp32 dbias pass: k_hi, k_lo, v_hi, v_lo of the key chunk;
+// q_hi, q_lo, dO_hi, dO_lo of the query tile; the tile's (m log2 e, 1 / l,
+// D, 0)
+constexpr int DBF_STAGE = 8 * DB_PLANE + DB_QT * 16;
+constexpr int DBF_SMEM = 2 * DBF_STAGE;
+
+// dbias [H][n][n] = sum over the R sequences of the fp32 dS: one block per
+// (key chunk of KC, query tile of DB_QT, head h), the sequences in order
+// through a two-stage cp.async ring (the next sequence's rows load while
+// this one's are used); S = q k^T and dP = dO v^T as split products of the
+// staged planes, dS = P (dP - D) summed in registers (attn_bwd.cuh's
+// bwd_dbias_kernel with every operand split).
+template <int Dummy = 0>
+__global__ void __launch_bounds__(DB_WARPS * 32)
+bwd_dbias_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dO, const float* __restrict__ bias,
+                     const float4* __restrict__ mld, float* __restrict__ dbias, int R, int n,
+                     int HD) {
+  extern __shared__ __align__(128) char smem[];
+  const int key0 = blockIdx.x * KC, qt0 = blockIdx.y * DB_QT, h = blockIdx.z, H = gridDim.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = (threadIdx.x >> 5) * 16;        // within the tile
+  const int ra = qt0 + q0 + g, rb = ra + 8;
+  const bool va = ra < n, vb = rb < n;
+  const size_t plane = (size_t)R * n * HD;
+  const int keys = min(KC, n - key0), rows = min(DB_QT, n - qt0);
+  const uint32_t sbase = sm90::smem_u32(smem);
+  auto stage = [&](int r, int buf) {
+    const uint32_t at = sbase + buf * DBF_STAGE;
+    const int64_t koff = ((int64_t)r * n + key0) * HD + h * DH;
+    const int64_t qoff = ((int64_t)r * n + qt0) * HD + h * DH;
+    const bf16* const ksrc[4] = {qk + 2 * plane + koff, qk + 3 * plane + koff, v + koff,
+                                 v + plane + koff};
+    const bf16* const qsrc[4] = {qk + qoff, qk + plane + qoff, dO + qoff, dO + plane + qoff};
+    stage_planes<4>(at, ksrc, HD, keys, KC);
+    stage_planes<4>(at + 4 * DB_PLANE, qsrc, HD, rows, DB_QT);
+    const float4* st = mld + ((int64_t)r * H + h) * n + qt0;
+    for (int i = threadIdx.x; i < DB_QT; i += blockDim.x)
+      cp_async16(at + 8 * DB_PLANE + 16 * i, st + min(i, rows - 1), i < rows ? 16 : 0);
+  };
+  float b[KC / 8][4], acc[KC / 8][4];
+  {
+    const float* bias_a = bias + ((int64_t)h * n + (va ? ra : 0)) * n;
+    const float* bias_b = bias + ((int64_t)h * n + (vb ? rb : 0)) * n;
 #pragma unroll
-  for (int dt = 0; dt < 4; ++dt) {
-    const int64_t col = HD + col0 + 8 * dt + 2 * t;
-    __nv_bfloat162 h2, l2;
-    if (va) {
-      sm90::split2(dv[dt][0], dv[dt][1], keep_lo, h2, l2);
-      *reinterpret_cast<__nv_bfloat162*>(dkv + ma * HD2 + col) = h2;
-      *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + ma * HD2 + col) = l2;
+    for (int jt = 0; jt < KC / 8; ++jt) {
+      bias_pair<1>(b[jt], bias_a, bias_b, va, vb, key0 + 8 * jt + 2 * t, n);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[jt][i] = 0.f;
     }
-    if (vb) {
-      sm90::split2(dv[dt][2], dv[dt][3], keep_lo, h2, l2);
-      *reinterpret_cast<__nv_bfloat162*>(dkv + mb * HD2 + col) = h2;
-      *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + mb * HD2 + col) = l2;
+  }
+  stage(0, 0);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  for (int r = 0; r < R; ++r) {
+    if (r + 1 < R) stage(r + 1, (r + 1) & 1);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    if (qt0 + q0 < n) {
+      const uint32_t buf = sbase + (r & 1) * DBF_STAGE;
+      uint32_t qh[2][4], ql[2][4], dh[2][4], dl[2][4];
+      ldsm_a(qh, buf + 4 * DB_PLANE, q0, lane);
+      ldsm_a(ql, buf + 5 * DB_PLANE, q0, lane);
+      ldsm_a(dh, buf + 6 * DB_PLANE, q0, lane);
+      ldsm_a(dl, buf + 7 * DB_PLANE, q0, lane);
+      const float4* st =
+          reinterpret_cast<const float4*>(smem + (r & 1) * DBF_STAGE + 8 * DB_PLANE);
+      const float4 sa = st[q0 + g], sb = st[q0 + g + 8];   // zeros past n: p = 0
+#pragma unroll
+      for (int jt = 0; jt < KC / 8; ++jt) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+        split_scores(s, qh, ql, buf, buf + DB_PLANE, 8 * jt, lane);
+        split_scores(dp, dh, dl, buf + 2 * DB_PLANE, buf + 3 * DB_PLANE, 8 * jt, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4& sr = i < 2 ? sa : sb;
+          const float p = key0 + 8 * jt + 2 * t + (i & 1) < n
+                              ? exp2f((s[i] + b[jt][i]) * LOG2E - sr.x) * sr.y
+                              : 0.f;
+          acc[jt][i] += p * (dp[i] - sr.z);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int jt = 0; jt < KC / 8; ++jt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = i < 2 ? ra : rb, key = key0 + 8 * jt + 2 * t + (i & 1);
+      if ((i < 2 ? va : vb) && key < n) dbias[((int64_t)h * n + row) * n + key] = acc[jt][i];
     }
   }
 }
+
+// The weight gradients of the block in one three-pass launch. Maps (hi, lo
+// each): 0 / 1 dq [M, HD], 2 / 3 xn [M, D], 4 / 5 dk | dv [M, 2 HD], 6 / 7 x
+// [M, D], 8 / 9 g [M, D], 10 / 11 o [M, HD]. Tiles: dWq [HD, D] = dq^T xn,
+// then dWk | dWv [2 HD, D] = [dk | dv]^T x, both into output 0 (dw_qkv [3
+// HD, D], rows dWq, dWk, dWv); then dWo [D, HD] = g^T o (output 1).
+struct BlockWgradSplitPlan {
+  static constexpr int PASSES = 3;
+  int HD, D, d_tiles, h_tiles;
+  __device__ sm90::WgradTile tile(int t) const {
+    const int q = h_tiles * d_tiles, kv = 2 * q;
+    if (t < q + kv) {
+      const bool is_q = t < q;
+      const int u = is_q ? t : t - q, i0 = (u / d_tiles) * sm90::BM;
+      const int j0 = (u % d_tiles) * sm90::BN;
+      return {is_q ? 0 : 4, is_q ? 2 : 6, i0, j0, 0, is_q ? i0 : HD + i0,
+              min(sm90::BM, (is_q ? HD : 2 * HD) - i0)};
+    }
+    const int u = t - q - kv, i0 = (u / h_tiles) * sm90::BM, j0 = (u % h_tiles) * sm90::BN;
+    return {8, 10, i0, j0, 1, i0, min(sm90::BM, D - i0)};
+  }
+};
 
 // Largest sequence length the fp32 passes take: the key pass's four staged
 // planes and each query's (lse, D) in one block's shared memory.
@@ -320,23 +505,31 @@ inline int bwd_f32_max_n() {
   return n;
 }
 
+// The parameter gradients of the train step's form, all fp32 and written
+// whole: dgamma [D], dw_qkv [3 HD][D] (dWq, dWk, dWv), dwo [D][HD], dqs / dks
+// [32], dbias [H][n][n] (null without a bias); workspaces ln_part
+// [ln_parts(M)][2 D], q_part / k_part [R * ceil(n / QT) * H][32].
+struct BlockGradsF32 {
+  float *dgamma, *dw_qkv, *dwo, *dqs, *dks, *dbias, *ln_part, *q_part, *k_part;
+};
+
 // The chain. x [R*n, D] fp32 (D a multiple of 8); gamma [D], qs / ks [32],
 // wq / wk / wv [HD, D], wo [D, HD], g [R*n, D] fp32; bias [H][n][n] fp32 or
 // null; workspaces xs [4][R*n][D] (xn_hi, xn_lo, x_hi, x_lo), w_s [2][3
 // HD][D], wo_s [2][D][HD], gs [2][R*n][D], qk [4][R*n][HD], v, dO, o, dq
 // [2][R*n][HD] and dkv [2][R*n][2 HD] bf16; unit [2][R*n][HD], norm
 // [2][R*n][H], biasT [H][n][n] (null without a bias), dxn / dxd [R*n][D]
-// fp32; mld [R*n*H] float4; out dx [R*n, D] fp32. HD = H * 32, a multiple
-// of 128; every pointer 16-B aligned. keep_lo 0 zeroes every lo plane (the
-// one-pass control).
+// fp32; mld [R*n*H] float4; out dx [R*n, D] fp32; grads null (dx alone) or
+// the train step's outputs. HD = H * 32, a multiple of 128; every pointer
+// 16-B aligned. keep_lo 0 zeroes every lo plane (the one-pass control).
 template <int Dummy = 0>
 int block_backward_f32(const float* x, const float* gamma, const float* wq, const float* wk,
                        const float* wv, const float* wo, const float* qs, const float* ks,
                        const float* bias, const float* g, bf16* xs, bf16* w_s, bf16* wo_s,
                        bf16* gs, bf16* qk, float* unit, float* norm, float* biasT, bf16* v,
                        bf16* dO, bf16* o, float4* mld, bf16* dq, bf16* dkv, float* dxn,
-                       float* dxd, float* dx, int R, int n, int D, int H, float scale,
-                       int residual, int keep_lo, cudaStream_t st) {
+                       float* dxd, float* dx, const BlockGradsF32* grads, int R, int n, int D,
+                       int H, float scale, int residual, int keep_lo, cudaStream_t st) {
   using namespace sm90;
   const int M = R * n, HD = H * DH, tiles = HD / BN;
   const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz, mh = (int64_t)M * HD;
@@ -347,6 +540,17 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   if (!err) err = map_a(&proj.m[3], xs + 3 * md, M, D, D);
   if (!err) err = map_b(&proj.m[4], w_s, 3 * HD, D, D);
   if (!err) err = map_b(&proj.m[5], w_s + wrows, 3 * HD, D, D);
+  MapsN<12> wg{};
+  if (grads != nullptr) {
+    // (hi, lo) of dq, xn, dk | dv, x, g, o: BlockWgradSplitPlan's maps
+    const bf16* const src[6] = {dq, xs, dkv, xs + 2 * md, gs, o};
+    const int cols[6] = {HD, D, 2 * HD, D, D, HD};
+    const int64_t lo[6] = {mh, md, 2 * mh, md, md, mh};
+    for (int i = 0; i < 6 && !err; ++i) {
+      err = map_mn(&wg.m[2 * i], src[i], M, cols[i], cols[i]);
+      if (!err) err = map_mn(&wg.m[2 * i + 1], src[i] + lo[i], M, cols[i], cols[i]);
+    }
+  }
   if (err) return err;
   const float* const w3[3] = {wq, wk, wv};
   for (int i = 0; i < 3 && !err; ++i)
@@ -380,10 +584,19 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
     transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
   }
   dim3 grid(R, (n + QT - 1) / QT, H);
-  dq_pass<<<grid, core_threads(n), smem, st>>>(qk, v, dO, bias, mld, unit, norm, qs, scale, dq, M,
-                                               n, HD, keep_lo);
-  dkv_pass<<<grid, core_threads(n), smem_kv, st>>>(qk, v, dO, biasT, mld, unit, norm, ks, dkv, M,
-                                                   n, HD, keep_lo);
+  float* q_part = grads != nullptr ? grads->q_part : nullptr;
+  float* k_part = grads != nullptr ? grads->k_part : nullptr;
+  dq_pass<<<grid, core_threads(n), smem, st>>>(qk, v, dO, bias, mld, unit, norm, qs, scale, dq,
+                                               q_part, M, n, HD, keep_lo);
+  dkv_pass<<<grid, core_threads(n), smem_kv, st>>>(qk, v, dO, biasT, mld, unit, norm, ks, dkv,
+                                                   k_part, M, n, HD, keep_lo);
+  if (grads != nullptr && bias != nullptr) {
+    dim3 gb((n + KC - 1) / KC, (n + DB_QT - 1) / DB_QT, H);
+    cudaFuncSetAttribute(bwd_dbias_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         DBF_SMEM);
+    bwd_dbias_f32_kernel<><<<gb, DB_WARPS * 32, DBF_SMEM, st>>>(qk, v, dO, bias, mld,
+                                                                grads->dbias, R, n, HD);
+  }
   err = (int)cudaGetLastError();
   if (!err)
     err = split_product_kn(dq, dq + mh, HD, w_s, w_s + wrows, D, M, D, HD,
@@ -391,8 +604,19 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   if (!err)
     err = split_product_kn(dkv, dkv + 2 * mh, 2 * HD, w_s + wsz, w_s + wrows + wsz, D, M, D,
                            2 * HD, F32OutEpi{dxd, nullptr, nullptr, M, D}, st);
+  if (!err)
+    err = launch_ln_bwd_f32(x, gamma, dxn, dxd, residual ? g : nullptr, dx, M, D, st,
+                            grads != nullptr ? grads->ln_part : nullptr);
+  if (err || grads == nullptr) return err;
+  const int parts = (int)grid.x * (int)grid.y * (int)grid.z;
+  err = launch_colsum(grads->ln_part, grads->dgamma, ln_parts(M), D, 2 * D, 1.f, st);
+  if (!err) err = launch_colsum(q_part, grads->dqs, parts, DH, DH, scale, st);
+  if (!err) err = launch_colsum(k_part, grads->dks, parts, DH, DH, 1.f, st);
   if (err) return err;
-  return launch_ln_bwd_f32(x, gamma, dxn, dxd, residual ? g : nullptr, dx, M, D, st);
+  const int d_tiles = (D + BN - 1) / BN, h_tiles = HD / BN;
+  return launch_wgrad_sm90(wg, BlockWgradSplitPlan{HD, D, d_tiles, h_tiles},
+                           WgradStoreEpi{{grads->dw_qkv, grads->dwo}, {D, HD}, {D, HD}},
+                           3 * d_tiles * h_tiles + d_tiles * h_tiles, M, st);
 }
 
 }  // namespace tc

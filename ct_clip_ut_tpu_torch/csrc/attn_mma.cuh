@@ -255,6 +255,19 @@ __device__ __forceinline__ void col_products(float (&acc)[4][4], const uint32_t 
   mma16816(acc[3], a, b1[2], b1[3]);
 }
 
+// A fragments of rows r0 .. r0 + 15 of a staged plane (ldmatrix x4).
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[2][4], uint32_t plane, int r0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(a[ks], plane + swz(r0 + (lane & 15), 2 * ks + (lane >> 4)));
+}
+
+// The backward's dbias passes (attn_bwd.cuh, attn_bwd_f32.cuh): a block of
+// DB_WARPS warps takes DB_QT query rows against one KC-key chunk.
+constexpr int DB_WARPS = 4;          // 16 query rows each
+constexpr int DB_QT = DB_WARPS * 16;
+constexpr int DB_PLANE = KC * DH * 2;          // one staged plane of 64 rows
+
 // The bias of rows a / b at keys key, key + 1 (BIAS 0: none; 1: any row
 // length; 2: even row length, one 8-B load a pair); zero outside.
 template <int BIAS>

@@ -57,6 +57,18 @@
 // products (0.010 ms at the bf16 peak) against 26 MB of volume and output
 // (0.008 ms). The first frame is one 64-row tile: TMA zero-fills the other
 // 64 rows of its 128-row block, whose stores the epilogue masks.
+//
+// The fp32 residual-saving variant (ctc_patch_embed_res_f32: the port of
+// _forward_res_impl on an fp32 volume, the fp32 train step's patch embed)
+// is the same chain with PatchF32Epi also storing the fp32 product conv
+// [M, dim]; with the LN1 moments these are what the LayerNorm chain's
+// backward rebuilds from, and the wrapper keeps P's planes (442 MB at B =
+// 2) for the weight gradient (patch_embed_dkw.cu's fp32 entry), as the
+// bf16 train step keeps P. At B = 2 (27,648 patches of 4,000 pixels into
+// 512) it is 340 GFLOP as bf16 products, 0.34 ms at the bf16 peak, against
+// 442 MB of volume and 113 MB of out and conv (0.17 ms): operations bound.
+// ctc_patchify_f32 is its patchify pass alone (P's planes of a volume, for
+// a weight gradient called from the volume).
 #include "gemm_sm90.cuh"
 #include "patch_common.cuh"
 #include "split_sm90.cuh"
@@ -171,20 +183,22 @@ patchify_f32_kernel(const float* __restrict__ image, bf16* __restrict__ p_hi,
   }
   s = warp_sum(s);
   s2 = warp_sum(s2);
-  if (lane == 0) {
+  if (lane == 0 && stats != nullptr) {
     const float mean = s / (float)K;
     const float var = fmaxf(s2 / (float)K - mean * mean, 0.f);
     stats[m] = make_float2(mean, rsqrtf(var + EPS));
   }
 }
 
-// h [M, N] fp32 = (acc - mean * s1) * rstd + b1 (N even)
+// h [M, N] fp32 = (acc - mean * s1) * rstd + b1, and conv [M, N] fp32 = acc
+// where conv is not null (N even)
 struct PatchF32Epi {
   float* h;
   const float2* stats;
   const float* s1;
   const float* b1;
   int M, N;
+  float* conv;
   __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -196,9 +210,11 @@ struct PatchF32Epi {
       for (int j = 0; j < BN / 8; ++j) {
         const int c = nt * BN + 8 * j + 2 * t;
         if (c >= N) continue;
-        *reinterpret_cast<float2*>(h + (int64_t)m * N + c) =
-            make_float2((acc[4 * j + 2 * hf] - st.x * s1[c]) * st.y + b1[c],
-                        (acc[4 * j + 2 * hf + 1] - st.x * s1[c + 1]) * st.y + b1[c + 1]);
+        const float a0 = acc[4 * j + 2 * hf], a1 = acc[4 * j + 2 * hf + 1];
+        *reinterpret_cast<float2*>(h + (int64_t)m * N + c) = make_float2(
+            (a0 - st.x * s1[c]) * st.y + b1[c], (a1 - st.x * s1[c + 1]) * st.y + b1[c + 1]);
+        if (conv != nullptr)
+          *reinterpret_cast<float2*>(conv + (int64_t)m * N + c) = make_float2(a0, a1);
       }
     }
   }
@@ -238,13 +254,14 @@ pe_ln_f32_kernel(float* __restrict__ h, const float* __restrict__ g2,
 // image [B, 1, T, H, W] fp32; kwd [dim, ldk] fp32, the folded weight with
 // column (tv, p1, wv) and zeros past K; s1/b1/g2/b2 [dim] fp32; workspaces
 // patches [2][M][ldp] and kw_s [2][dim][ldk] bf16 (hi, then lo), stats [M]
-// float2; out [M, dim] fp32. ldp == ldk, a multiple of 8 at least K; dim a
+// float2; out [M, dim] fp32; conv [M, dim] fp32 (the product before the
+// folded LN1) or null. ldp == ldk, a multiple of 8 at least K; dim a
 // multiple of 4; every pointer 16-B aligned. keep_lo 0 zeroes every lo
 // plane (the one-pass control).
 inline int launch_f32(const float* image, const float* kwd, const float* s1, const float* b1,
                       const float* g2, const float* b2, bf16* patches, bf16* kw_s, void* stats,
-                      float* out, int B, int T, int H, int W, int patch, int t_patch, int dim,
-                      int ldp, int keep_lo, cudaStream_t st) {
+                      float* out, float* conv, int B, int T, int H, int W, int patch,
+                      int t_patch, int dim, int ldp, int keep_lo, cudaStream_t st) {
   const PatchGeom g{T, H, W, patch, t_patch};
   const int M = B * (T / t_patch) * (H / patch) * (W / patch), K = g.K();
   const int64_t pm = (int64_t)M * ldp, pw = (int64_t)dim * ldp;
@@ -258,7 +275,8 @@ inline int launch_f32(const float* image, const float* kwd, const float* s1, con
   err = (int)cudaGetLastError();
   if (err) return err;
   err = split_product(patches, patches + pm, ldp, kw_s, kw_s + pw, ldp, M, dim, K,
-                      PatchF32Epi{out, static_cast<const float2*>(stats), s1, b1, M, dim}, st);
+                      PatchF32Epi{out, static_cast<const float2*>(stats), s1, b1, M, dim, conv},
+                      st);
   if (err) return err;
   pe_ln_f32_kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(out, g2, b2, M,
                                                                               dim);
@@ -331,6 +349,43 @@ extern "C" int ctc_patch_embed_f32(const void* image, const void* kwd, const voi
   using ctc::sm90::bf16;
   return ctc::pe::launch_f32(
       (const float*)image, (const float*)kwd, (const float*)s1, (const float*)b1,
-      (const float*)g2, (const float*)b2, (bf16*)patches, (bf16*)kw_s, stats, (float*)out, B, T,
-      H, W, patch, t_patch, dim, ld, !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
+      (const float*)g2, (const float*)b2, (bf16*)patches, (bf16*)kw_s, stats, (float*)out,
+      nullptr, B, T, H, W, patch, t_patch, dim, ld, !(flags & 1),
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The fp32 residual-saving forward (the port of _forward_res_impl on an
+// fp32 volume): ctc_patch_embed_f32's arguments and conv [M, dim] fp32, the
+// product before the folded LN1; `patches` keeps P's planes for the weight
+// gradient.
+extern "C" int ctc_patch_embed_res_f32(const void* image, const void* kwd, const void* s1,
+                                       const void* b1, const void* g2, const void* b2,
+                                       void* patches, void* kw_s, void* stats, void* out,
+                                       void* conv, int B, int T, int H, int W, int patch,
+                                       int t_patch, int dim, int ld, int flags, void* stream) {
+  using ctc::sm90::bf16;
+  return ctc::pe::launch_f32(
+      (const float*)image, (const float*)kwd, (const float*)s1, (const float*)b1,
+      (const float*)g2, (const float*)b2, (bf16*)patches, (bf16*)kw_s, stats, (float*)out,
+      (float*)conv, B, T, H, W, patch, t_patch, dim, ld, !(flags & 1),
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// P's hi / lo planes [2][M][ld] bf16 of an fp32 volume [B, 1, T, H, W] (ld
+// a multiple of 8 at least K, zeros past K): the fp32 chain's patchify pass
+// without the LN1 moments. flags 1: lo plane zeroed.
+extern "C" int ctc_patchify_f32(const void* image, void* patches, int B, int T, int H, int W,
+                                int patch, int t_patch, int ld, int flags, void* stream) {
+  using ctc::pe::ROW_WARPS;
+  const ctc::PatchGeom g{T, H, W, patch, t_patch};
+  const int M = B * (T / t_patch) * (H / patch) * (W / patch);
+  if (M == 0) return 0;
+  const int vec4 =
+      patch % 4 == 0 && W % 4 == 0 && (reinterpret_cast<uintptr_t>(image) & 15u) == 0;
+  ctc::sm90::bf16* p = static_cast<ctc::sm90::bf16*>(patches);
+  ctc::pe::patchify_f32_kernel<<<(M + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
+                                 reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(image), p, p + (int64_t)M * ld, nullptr, M, ld, g, vec4,
+      !(flags & 1));
+  return (int)cudaGetLastError();
 }

@@ -23,7 +23,18 @@
 // training path keeps) or, for a call from the volume alone, from
 // ctc_patchify (the forward's patchify_kernel, patch_common.cuh, without
 // the LN1 moments): a launch of its own, 221 MB read and written more.
+//
+// The fp32 entry (ctc_patch_embed_dkw_f32, the fp32 train step's: the
+// volume and dconv fp32, as JAX's _pe_bwd keeps dconv in the image dtype)
+// takes P as the fp32 forward's hi / lo planes (patch_embed.cu's
+// ctc_patch_embed_res_f32, or ctc_patchify_f32 from the volume), splits
+// dconv into planes by a row pass, and runs the same tiles over three
+// passes of the planes (PatchWgradSplitPlan: P_hi dconv_hi, P_lo dconv_hi,
+// P_hi dconv_lo into one fp32 accumulator, within ~2^-16 of the fp32
+// product). Its bound at B = 2: 340 GFLOP as bf16 products, 0.34 ms at the
+// bf16 peak (the planes of P, 442 MB, 0.13 ms).
 #include "patch_common.cuh"
+#include "split_sm90.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace ctc {
@@ -36,6 +47,16 @@ struct PatchWgradPlan {
   __device__ sm90::WgradTile tile(int t) const {
     const int i0 = (t / col_tiles) * sm90::BM, j0 = (t % col_tiles) * sm90::BN;
     return {0, 1, i0, j0, 0, i0, min(sm90::BM, K - i0)};
+  }
+};
+
+// PatchWgradPlan over split planes: maps 0 / 1 P's hi / lo, 2 / 3 dconv's.
+struct PatchWgradSplitPlan {
+  static constexpr int PASSES = 3;
+  int K, col_tiles;
+  __device__ sm90::WgradTile tile(int t) const {
+    const int i0 = (t / col_tiles) * sm90::BM, j0 = (t % col_tiles) * sm90::BN;
+    return {0, 2, i0, j0, 0, i0, min(sm90::BM, K - i0)};
   }
 };
 
@@ -97,6 +118,33 @@ extern "C" int ctc_patch_embed_dkw(const void* patches, const void* dconv, void*
   if (err) return err;
   const int col_tiles = (dim + sm90::BN - 1) / sm90::BN;
   return sm90::launch_wgrad_sm90(maps, pe::PatchWgradPlan{K, col_tiles},
+                                 pe::DkwStoreEpi{static_cast<float*>(out), dim, patch, K / patch},
+                                 ((K + sm90::BM - 1) / sm90::BM) * col_tiles, M, st);
+}
+
+// patches [2][M][ldp] bf16, P's hi / lo planes of a [B, 1, T, H, W] fp32
+// volume (the fp32 forward's workspace or ctc_patchify_f32's); dconv [M,
+// dim] fp32 (dim a multiple of 8); workspace dconv_s [2][M][dim] bf16; out
+// [patch, t_patch * patch, dim] fp32, written whole. flags 1: dconv's lo
+// plane zeroed (the one-pass control, with P's from a one-pass patchify).
+extern "C" int ctc_patch_embed_dkw_f32(const void* patches, const void* dconv, void* dconv_s,
+                                       void* out, int B, int T, int H, int W, int patch,
+                                       int t_patch, int dim, int ldp, int flags, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const PatchGeom g{T, H, W, patch, t_patch};
+  const int M = B * (T / t_patch) * (H / patch) * (W / patch), K = g.K();
+  const int64_t pm = (int64_t)M * ldp, dm = (int64_t)M * dim;
+  const sm90::bf16* p = static_cast<const sm90::bf16*>(patches);
+  sm90::bf16* ds = static_cast<sm90::bf16*>(dconv_s);
+  sm90::Maps maps{};
+  int err = sm90::map_mn(&maps.m[0], p, M, K, ldp);
+  if (!err) err = sm90::map_mn(&maps.m[1], p + pm, M, K, ldp);
+  if (!err) err = sm90::map_mn(&maps.m[2], ds, M, dim, dim);
+  if (!err) err = sm90::map_mn(&maps.m[3], ds + dm, M, dim, dim);
+  if (!err) err = sm90::split(dconv, ds, dm, !(flags & 1), st);
+  if (err) return err;
+  const int col_tiles = (dim + sm90::BN - 1) / sm90::BN;
+  return sm90::launch_wgrad_sm90(maps, pe::PatchWgradSplitPlan{K, col_tiles},
                                  pe::DkwStoreEpi{static_cast<float*>(out), dim, patch, K / patch},
                                  ((K + sm90::BM - 1) / sm90::BM) * col_tiles, M, st);
 }

@@ -25,7 +25,11 @@
 //   split_product_kn the same with B a [K, N] matrix read as it is stored
 //                    (SplitKNPlan: a weight in a backward product)
 //   ln_bwd_f32_kernel the LayerNorm backward of fp32 rows (the fp32
-//                    backward chains' last launch)
+//                    backward chains' last launch); with GRADS also each
+//                    block's partial sums of the gains' gradients
+//   colsum_kernel    sums of the rows of a partial-sums matrix in a fixed
+//                    order (the fp32 train step's dgamma, dbeta, dq_scale,
+//                    dk_scale: no atomics, the same bits every call)
 //   ff::GegluSplitPlan the GEGLU's value | gate product (the fp32 forward
 //                    and the fp32 backward's recompute)
 #pragma once
@@ -176,56 +180,116 @@ struct SplitKNPlan {
   }
 };
 
+// Rows a block of ln_bwd_f32_kernel<true> takes (8 a warp).
+constexpr int LNG_ROWS = 64;
+
 // dx = the LayerNorm backward of y = LN(x) * gamma (+ beta) against dxn, plus
 // direct and g where given, all fp32 [M, D] (D a multiple of 4), one warp a
 // row: the moments recomputed from x in the one-pass form of
 // ln_split_kernel, xhat = (x - mean) rstd, dxhat = dxn gamma, dx = (dxhat -
-// mean(dxhat) - xhat mean(dxhat xhat)) rstd. The gains' gradients are not
-// formed (the data-gradient chains).
-template <int Dummy = 0>
+// mean(dxhat) - xhat mean(dxhat xhat)) rstd. The data-gradient chains take
+// it without GRADS, a block of 8 rows. With GRADS a block takes LNG_ROWS
+// rows, and its warps' sums of dxn xhat (dgamma) and dxn (dbeta) per column
+// go to shared memory [8][2 D] (each (warp, column) one lane's: no
+// atomics), then in warp order to part [gridDim.x][2 D]: colsum_kernel sums
+// those rows.
+template <bool GRADS = false>
 __global__ void __launch_bounds__(256)
 ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ dxn, const float* __restrict__ direct,
-                  const float* __restrict__ g, float* __restrict__ dx, int M, int D, float eps) {
-  const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (m >= M) return;
-  const int64_t base = (int64_t)m * D;
-  float s = 0.f, s2 = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
-    s += (v.x + v.y) + (v.z + v.w);
-    s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+                  const float* __restrict__ g, float* __restrict__ dx, float* __restrict__ part,
+                  int M, int D, float eps) {
+  extern __shared__ __align__(16) float red[];
+  constexpr int rows = GRADS ? LNG_ROWS / 8 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (GRADS) {
+    for (int c = threadIdx.x; c < 16 * D; c += blockDim.x) red[c] = 0.f;
+    __syncthreads();
   }
-  const float mean = warp_sum(s) / (float)D;
-  const float rstd = rsqrtf(fmaxf(warp_sum(s2) / (float)D - mean * mean, 0.f) + eps);
-  float a1 = 0.f, a2 = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
-    const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
-    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
-    const float e0 = d.x * gm.x, e1 = d.y * gm.y, e2 = d.z * gm.z, e3 = d.w * gm.w;
-    a1 += (e0 + e1) + (e2 + e3);
-    a2 += (e0 * (v.x - mean) + e1 * (v.y - mean)) + (e2 * (v.z - mean) + e3 * (v.w - mean));
+  for (int i = 0; i < rows; ++i) {
+    const int m = (blockIdx.x * rows + i) * 8 + warp;
+    if (m >= M) break;
+    const int64_t base = (int64_t)m * D;
+    float s = 0.f, s2 = 0.f;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+      s += (v.x + v.y) + (v.z + v.w);
+      s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+    }
+    const float mean = warp_sum(s) / (float)D;
+    const float rstd = rsqrtf(fmaxf(warp_sum(s2) / (float)D - mean * mean, 0.f) + eps);
+    float a1 = 0.f, a2 = 0.f;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+      const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+      const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+      const float e0 = d.x * gm.x, e1 = d.y * gm.y, e2 = d.z * gm.z, e3 = d.w * gm.w;
+      a1 += (e0 + e1) + (e2 + e3);
+      a2 += (e0 * (v.x - mean) + e1 * (v.y - mean)) + (e2 * (v.z - mean) + e3 * (v.w - mean));
+      if constexpr (GRADS) {
+        float* rg = red + warp * 2 * D + c;
+        rg[0] += d.x * ((v.x - mean) * rstd);
+        rg[1] += d.y * ((v.y - mean) * rstd);
+        rg[2] += d.z * ((v.z - mean) * rstd);
+        rg[3] += d.w * ((v.w - mean) * rstd);
+        rg[D] += d.x;
+        rg[D + 1] += d.y;
+        rg[D + 2] += d.z;
+        rg[D + 3] += d.w;
+      }
+    }
+    a1 = warp_sum(a1) / (float)D;
+    a2 = warp_sum(a2) * rstd / (float)D;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+      const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+      const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+      float4 y = make_float4((d.x * gm.x - a1 - (v.x - mean) * rstd * a2) * rstd,
+                             (d.y * gm.y - a1 - (v.y - mean) * rstd * a2) * rstd,
+                             (d.z * gm.z - a1 - (v.z - mean) * rstd * a2) * rstd,
+                             (d.w * gm.w - a1 - (v.w - mean) * rstd * a2) * rstd);
+      if (direct != nullptr) {
+        const float4 r = *reinterpret_cast<const float4*>(direct + base + c);
+        y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+      }
+      if (g != nullptr) {
+        const float4 r = *reinterpret_cast<const float4*>(g + base + c);
+        y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+      }
+      *reinterpret_cast<float4*>(dx + base + c) = y;
+    }
   }
-  a1 = warp_sum(a1) / (float)D;
-  a2 = warp_sum(a2) * rstd / (float)D;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(x + base + c);
-    const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
-    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
-    float4 y = make_float4((d.x * gm.x - a1 - (v.x - mean) * rstd * a2) * rstd,
-                           (d.y * gm.y - a1 - (v.y - mean) * rstd * a2) * rstd,
-                           (d.z * gm.z - a1 - (v.z - mean) * rstd * a2) * rstd,
-                           (d.w * gm.w - a1 - (v.w - mean) * rstd * a2) * rstd);
-    if (direct != nullptr) {
-      const float4 r = *reinterpret_cast<const float4*>(direct + base + c);
-      y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+  if constexpr (GRADS) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < 2 * D; c += blockDim.x) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sum += red[w * 2 * D + c];
+      part[(int64_t)blockIdx.x * 2 * D + c] = sum;
     }
-    if (g != nullptr) {
-      const float4 r = *reinterpret_cast<const float4*>(g + base + c);
-      y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
-    }
-    *reinterpret_cast<float4*>(dx + base + c) = y;
+  }
+}
+
+// out[c] = mul * (sum over rows p of part[p * ld + c]) for c < C: a block of
+// 32 x 32 threads takes 32 columns, thread (c, s) sums rows s, s + 32, ...
+// in order, then thread (c, 0) the 32 slices in order. No atomics: the same
+// bits on every call.
+template <int Dummy = 0>
+__global__ void __launch_bounds__(1024)
+colsum_kernel(const float* __restrict__ part, float* __restrict__ out, int P, int C, int ld,
+              float mul) {
+  __shared__ float red[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x, s = threadIdx.y;
+  float sum = 0.f;
+  if (c < C)
+    for (int p = s; p < P; p += 32) sum += part[(int64_t)p * ld + c];
+  red[s][threadIdx.x] = sum;
+  __syncthreads();
+  if (s == 0 && c < C) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) total += red[i][threadIdx.x];
+    out[c] = mul * total;
   }
 }
 
@@ -286,10 +350,30 @@ inline int split_product_kn(const bf16* a_hi, const bf16* a_lo, int64_t lda, con
   return launch_gemm(maps, SplitKNPlan{}, epi, (N + BN - 1) / BN, M, K, st);
 }
 
+// The LayerNorm backward; with `part` (not null) also the gains' partial
+// sums, [ln_parts(M)][2 D].
+inline int ln_parts(int M) { return (M + LNG_ROWS - 1) / LNG_ROWS; }
+
 inline int launch_ln_bwd_f32(const float* x, const float* gamma, const float* dxn,
                              const float* direct, const float* g, float* dx, int M, int D,
-                             cudaStream_t st) {
-  ln_bwd_f32_kernel<><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, dxn, direct, g, dx, M, D, 1e-5f);
+                             cudaStream_t st, float* part = nullptr) {
+  if (part == nullptr) {
+    ln_bwd_f32_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, dxn, direct, g, dx, nullptr,
+                                                         M, D, 1e-5f);
+  } else {
+    const int smem = 16 * D * (int)sizeof(float);
+    cudaFuncSetAttribute(ln_bwd_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    ln_bwd_f32_kernel<true><<<ln_parts(M), 256, smem, st>>>(x, gamma, dxn, direct, g, dx, part,
+                                                             M, D, 1e-5f);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out [C] = mul * the column sums of part [P][ld] (colsum_kernel)
+inline int launch_colsum(const float* part, float* out, int P, int C, int ld, float mul,
+                         cudaStream_t st) {
+  colsum_kernel<><<<(C + 31) / 32, dim3(32, 32), 0, st>>>(part, out, P, C, ld, mul);
   return (int)cudaGetLastError();
 }
 

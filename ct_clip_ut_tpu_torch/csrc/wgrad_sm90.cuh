@@ -15,7 +15,19 @@
 // 2 KB into a box; B's two 64-column boxes 8 KB apart), keeping one slice's
 // wgmma group in flight while the next is issued; the epilogue from
 // registers. Which operand maps, columns and output a tile takes is a plan
-// functor's choice (`tile(t)`), so one launch serves several weights.
+// functor's choice (`tile(t)`), so one launch serves several weights. A plan
+// with PASSES = 3 makes an fp32 weight gradient of split-bf16 operands: its
+// tiles name the hi planes' maps, each lo plane's map is the next one, and
+// the block walks the tokens three times (A_hi B_hi, A_lo B_hi, A_hi B_lo,
+// as gemm_sm90.cuh's SplitPlan); such plans read up to 12 maps (`MapsN`).
+// wgmma's fp32 accumulator adds each 16-deep step without rounding to
+// nearest: on the H100 a three-pass weight gradient over 27,648 tokens read
+// 1.3e-4 of its largest entry off the fp32 sum, every entry nearer zero. So
+// a three-pass block adds its accumulator into fp32 sums of its own in
+// shared memory every WG_FLUSH token slices and starts it again from zero;
+// the same gradient then read 1.5e-5, the split products' own error. (The
+// bf16 plans' bands, 1.5e-2, do not see the drift; they keep one
+// accumulator.)
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -25,12 +37,25 @@ namespace sm90 {
 
 constexpr int WG_STAGES = 6;   // one block an SM: a deeper ring than the K-major core's
 constexpr int WG_SMEM = WG_STAGES * STAGE_BYTES + 1024;
+// three-pass plans: a shorter ring beside the consumers' fp32 sums ([64][256]
+// floats, each consumer thread's 64 in a column), flushed every WG_FLUSH slices
+constexpr int WG_SPLIT_STAGES = 4;
+constexpr int WG_FLUSH = 4;
+constexpr int WG_SPLIT_SMEM = WG_SPLIT_STAGES * STAGE_BYTES + 64 * CONSUMER_WARPS * 32 * 4 + 1024;
 
 // One output tile: A's columns i0 .. i0 + 127 from map a, B's columns j0 ..
 // j0 + 127 from map b, summed into output `out` at rows orow0 ... (nrows
-// of them hold data) and columns j0 ...
+// of them hold data) and columns j0 ... (In a three-pass plan a and b are
+// the hi planes' maps; a + 1 and b + 1 are their lo planes'.)
 struct WgradTile {
   int a, b, i0, j0, out, orow0, nrows;
+};
+
+// More tensor maps than Maps holds, for the split plans (hi and lo planes
+// of every operand): a kernel parameter of N * 128 B.
+template <int N>
+struct MapsN {
+  CUtensorMap m[N];
 };
 
 // d[64] += A (64 x 16, MN-major) . B (128 x 16, MN-major)^T
@@ -60,18 +85,21 @@ __device__ __forceinline__ void wgmma_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
-template <class Plan, class Epi>
+template <class Plan, class Epi, class MapsT>
 __global__ void __launch_bounds__(THREADS, 1)
-wgrad_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int tokens) {
+wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi, int tokens) {
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
   char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~static_cast<uintptr_t>(1023));
+  constexpr bool SPLIT = Passes<Plan>::value > 1;
+  constexpr int NS = SPLIT ? WG_SPLIT_STAGES : WG_STAGES;
   const WgradTile tile = plan.tile(blockIdx.x);
-  const int nk = (tokens + BK - 1) / BK;
+  const int passes_k = (tokens + BK - 1) / BK;           // token slices of one pass
+  const int nk = Passes<Plan>::value * passes_k;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
@@ -83,25 +111,32 @@ wgrad_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, 
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (lane == 0) {
       for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % WG_STAGES;
-        mbar_wait(&empty[s], ((kt / WG_STAGES) & 1) ^ 1);
+        const int s = kt % NS, pass = kt / passes_k, k0 = (kt - pass * passes_k) * BK;
+        const CUtensorMap* ma = &maps.m[tile.a + (pass == 1)];
+        const CUtensorMap* mb = &maps.m[tile.b + (pass == 2)];
+        mbar_wait(&empty[s], ((kt / NS) & 1) ^ 1);
         mbar_expect_tx(&full[s], STAGE_BYTES);
         char* a = ring + s * STAGE_BYTES;
         char* b = a + A_BYTES;
-        tma_load_2d(a, &maps.m[tile.a], &full[s], tile.i0, kt * BK);
-        tma_load_2d(a + B_HALF_BYTES, &maps.m[tile.a], &full[s], tile.i0 + 64, kt * BK);
-        tma_load_2d(b, &maps.m[tile.b], &full[s], tile.j0, kt * BK);
-        tma_load_2d(b + B_HALF_BYTES, &maps.m[tile.b], &full[s], tile.j0 + 64, kt * BK);
+        tma_load_2d(a, ma, &full[s], tile.i0, k0);
+        tma_load_2d(a + B_HALF_BYTES, ma, &full[s], tile.i0 + 64, k0);
+        tma_load_2d(b, mb, &full[s], tile.j0, k0);
+        tma_load_2d(b + B_HALF_BYTES, mb, &full[s], tile.j0 + 64, k0);
       }
     }
   } else {
     const int wg = warp >> 2;
     float acc[64];
+    // this thread's fp32 sums (three-pass plans), a column of [64][256]
+    float* sums = reinterpret_cast<float*>(ring + NS * STAGE_BYTES) + threadIdx.x;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      if constexpr (SPLIT) sums[i * CONSUMER_WARPS * 32] = 0.f;
+    }
     for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % WG_STAGES;
-      mbar_wait(&full[s], (kt / WG_STAGES) & 1);
+      const int s = kt % NS;
+      mbar_wait(&full[s], (kt / NS) & 1);
       const uint32_t a = smem_u32(ring + s * STAGE_BYTES) + wg * B_HALF_BYTES;
       const uint32_t b = smem_u32(ring + s * STAGE_BYTES + A_BYTES);
       wgmma_fence();
@@ -112,21 +147,37 @@ wgrad_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, 
       wgmma_commit();
       // the slice before this one is read: give its stage back
       wgmma_wait_one();
-      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % WG_STAGES]);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % NS]);
+      if constexpr (SPLIT) {
+        if ((kt + 1) % WG_FLUSH == 0 || kt + 1 == nk) {
+          wgmma_wait_all();
+          fence_regs(acc);
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            sums[i * CONSUMER_WARPS * 32] += acc[i];
+            acc[i] = 0.f;
+          }
+        }
+      }
     }
     wgmma_wait_all();
     fence_regs(acc);
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = sums[i * CONSUMER_WARPS * 32];
+    }
     epi(acc, tile, wg * 64 + (warp & 3) * 16, lane);
   }
 }
 
 // Launch wgrad_kernel over `tiles` tiles of the plan; returns the launch's error.
-template <class Plan, class Epi>
-int launch_wgrad_sm90(const Maps& maps, const Plan& plan, const Epi& epi, int tiles, int tokens,
+template <class Plan, class Epi, class MapsT>
+int launch_wgrad_sm90(const MapsT& maps, const Plan& plan, const Epi& epi, int tiles, int tokens,
                       cudaStream_t st) {
-  auto kern = wgrad_kernel<Plan, Epi>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-  kern<<<tiles, THREADS, WG_SMEM, st>>>(maps, plan, epi, tokens);
+  auto kern = wgrad_kernel<Plan, Epi, MapsT>;
+  const int smem = Passes<Plan>::value > 1 ? WG_SPLIT_SMEM : WG_SMEM;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kern<<<tiles, THREADS, smem, st>>>(maps, plan, epi, tokens);
   return (int)cudaGetLastError();
 }
 

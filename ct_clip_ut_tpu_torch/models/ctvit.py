@@ -179,8 +179,9 @@ def token_grid_shape(cfg: CTViTConfig, image_shape) -> tuple:
 def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool) -> None:
     """Raise for an image the card's image-tower kernels do not take: on a
     CUDA device (`device_type` "cuda") without plain=True, bf16 or fp32 (the
-    fp32 variants of the patch embed, block, FF and VQ kernels: CTGenerate's
-    one-scan route and the attribution suite)."""
+    fp32 variants of the patch embed, block, FF and VQ kernels and their
+    backwards: CTGenerate's one-scan route, the attribution suite and the
+    fp32 train step)."""
     if device_type != "cuda" or plain or dtype in (torch.bfloat16, torch.float32):
         return
     raise NotImplementedError(f"a {dtype} image on the card: the CT-ViT kernels take "

@@ -66,7 +66,7 @@ class _BlockFn(torch.autograd.Function):
     attn_packed (without), forward and backward, on CUDA tensors the kernels
     and on CPU tensors their plain versions. An fp32 CUDA x takes the
     data-gradient chain (`*_bwd_f32`) when no parameter wants its gradient,
-    and raises when one does."""
+    the full fp32 chain when one does."""
 
     @staticmethod
     def forward(ctx, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):

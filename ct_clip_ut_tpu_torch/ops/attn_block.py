@@ -22,10 +22,12 @@ tensors. The plain backward is the
 TPU kernel's `_bwd_kernel` in plain PyTorch with its rounding points (dO,
 P, dS, the per-head output and dq / dk / dv rounded to the compute dtype
 before their products; softmax, l2-norm backward and sums in fp32). At
-fp32 the card computes the data gradient alone: `attn_block_bwd_f32` (the
-chain `csrc/attn_bwd_f32.cuh`, every product three bf16 products of hi /
-lo planes), the gradient attribution methods' backward; the fp32
-parameter gradients raise (ROADMAP Queue 2 item 14, fourth group).
+fp32 the chain is `csrc/attn_bwd_f32.cuh` (every product three bf16
+products of hi / lo planes) in two forms: `attn_block_bwd` on fp32 CUDA
+tensors returns every gradient (the fp32 train step's backward; the
+weight gradients on the split planes in one wgrad_sm90.cuh launch, every
+sum over tokens in a fixed order), `attn_block_bwd_f32` dx alone (the
+gradient attribution methods', whose parameters are frozen).
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ import torch
 
 from .. import _build
 from . import launches
-from .fp32_grads import FP32_PARAM_GRADS
+from .fp32_grads import ln_parts
 
 DIM_HEAD = 32   # the head width the CUDA attention cores take
+QT = 128        # query or key rows a block of the backward's passes takes (csrc/attn_mma.cuh)
 
 
 def attn_block_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -262,8 +265,6 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
     ctc_attn_packed_bwd when bias is None) on CUDA tensors; returns the
     gradients of attn_block_bwd_plain, in fp32 but dx. The one place that
     knows the entries' workspaces."""
-    if x.dtype == torch.float32:
-        raise NotImplementedError(FP32_PARAM_GRADS)
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks, lib.ctc_attn_bwd_max_n())
     dev = x.device
@@ -310,11 +311,21 @@ def launch_attn_bwd(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
 def attn_block_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                    wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                    qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
-                   g: torch.Tensor, scale: float = 8.0, residual: bool = False) -> tuple:
+                   g: torch.Tensor, scale: float = 8.0, residual: bool = False, *,
+                   one_pass: bool = False) -> tuple:
     """The attn_block backward kernel chain on CUDA tensors (the forward's
-    types; g bf16 like x), the plain backward on CPU tensors."""
+    types; g like x: bf16, or fp32 for the fp32 chain with every parameter
+    gradient, where one_pass=True zeroes every lo plane, the control, and
+    does not count as a launch of the path), the plain backward on CPU
+    tensors."""
     if not _build.on_cuda(x):
         return attn_block_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, residual)
+    if x.dtype == torch.float32:
+        grads = launch_attn_bwd_f32("ctc_attn_block_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks,
+                                    bias, g, scale, residual, one_pass, params=True)
+        if not one_pass:
+            launches.count("attn_block_bwd_f32_full")
+        return grads
     grads = launch_attn_bwd("ctc_attn_block_bwd", x, gamma, wq, wk, wv, wo, qs, ks, bias, g,
                             scale, residual)
     launches.count("attn_block_bwd")
@@ -322,11 +333,13 @@ def attn_block_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
 
 
 def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale: float,
-                        residual: bool, one_pass: bool = False) -> torch.Tensor:
-    """Run the fp32 data-gradient chain `entry` (ctc_attn_block_bwd_f32 with
-    a bias, ctc_attn_packed_bwd_f32 with None) on CUDA tensors; returns dx
-    (+ g under residual). The one place that knows their workspaces.
-    one_pass zeroes every lo plane (the control)."""
+                        residual: bool, one_pass: bool = False, params: bool = False):
+    """Run the fp32 backward chain `entry` (ctc_attn_block_bwd_f32 with a
+    bias, ctc_attn_packed_bwd_f32 with None) on CUDA tensors: dx (+ g under
+    residual) alone, or with params=True the gradients of
+    attn_block_bwd_plain (dx, dgamma, dwq, dwk, dwv, dwo, dqs, dks, dbias;
+    dbias None without a bias), all fp32. The one place that knows their
+    workspaces. one_pass zeroes every lo plane (the control)."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
                                       lib.ctc_attn_bwd_f32_max_n(), torch.float32)
@@ -352,12 +365,31 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
              torch.empty((2, m, hd), **b16), torch.empty((2, m, 2 * hd), **b16),
              torch.empty((m, d), **f32), torch.empty((m, d), **f32)]
     dx = torch.empty_like(x)
+    # the parameter gradients, written whole, then the partial sums of
+    # dgamma (with a dbeta half the block has no use for), dq_scale, dk_scale
+    outs = [None] * (6 if bias is not None else 5)
+    parts = [None] * 3
+    if params:
+        outs = [torch.empty((d,), **f32), torch.empty((3 * hd, d), **f32),
+                torch.empty((d, hd), **f32), torch.empty((DIM_HEAD,), **f32),
+                torch.empty((DIM_HEAD,), **f32)]
+        if bias is not None:
+            outs.append(torch.empty((heads, n, n), **f32))
+        blocks = r * -(-n // QT) * heads
+        parts = [torch.empty((ln_parts(m), 2 * d), **f32), torch.empty((blocks, DIM_HEAD), **f32),
+                 torch.empty((blocks, DIM_HEAD), **f32)]
     ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else []) + [g]
     err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in work),
-                              dx.data_ptr(), r, n, d, heads, float(scale), int(residual),
-                              int(one_pass), _build.stream_of(x))
+                              dx.data_ptr(), *(None if t is None else t.data_ptr()
+                                               for t in outs + parts),
+                              r, n, d, heads, float(scale), int(residual), int(one_pass),
+                              _build.stream_of(x))
     _build.check(err, entry)
-    return dx
+    if not params:
+        return dx
+    dgamma, dw_qkv, dwo, dqs, dks = outs[:5]
+    dbias = outs[5] if bias is not None else None
+    return dx, dgamma, dw_qkv[:hd], dw_qkv[hd:2 * hd], dw_qkv[2 * hd:], dwo, dqs, dks, dbias
 
 
 def attn_block_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,

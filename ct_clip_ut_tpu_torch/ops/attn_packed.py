@@ -14,10 +14,12 @@ even-batch rule does not exist here); the sequence length is bounded by
 what the core stages (`ctc_attn_packed_max_n`).
 
 The backward (pallas_attn_packed._backward_impl) is `attn_packed_bwd`: the
-CUDA chain `csrc/attn_packed_bwd.cu` for CUDA tensors, the plain backward
-(`attn_block_bwd_plain` without a bias) for CPU tensors; at fp32 the card
-computes dx alone, `attn_packed_bwd_f32` (`csrc/attn_packed_bwd_f32.cu`,
-the spatial block's fp32 chain without the bias).
+CUDA chain `csrc/attn_packed_bwd.cu` for bf16 CUDA tensors and
+`csrc/attn_packed_bwd_f32.cu` (the spatial block's fp32 chain without the
+bias) with every parameter gradient for fp32 ones, the plain backward
+(`attn_block_bwd_plain` without a bias) for CPU tensors;
+`attn_packed_bwd_f32` is the fp32 chain's dx alone (the gradient
+attribution methods').
 """
 
 from __future__ import annotations
@@ -71,11 +73,19 @@ def attn_packed_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor
 def attn_packed_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                     wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                     qs: torch.Tensor, ks: torch.Tensor, g: torch.Tensor,
-                    scale: float = 8.0, residual: bool = False) -> tuple:
-    """The attn_packed backward kernel chain on CUDA tensors, the plain
-    backward on CPU tensors."""
+                    scale: float = 8.0, residual: bool = False, *,
+                    one_pass: bool = False) -> tuple:
+    """The attn_packed backward kernel chain on CUDA tensors (bf16, or fp32
+    with one_pass as `attn_block_bwd`'s), the plain backward on CPU
+    tensors."""
     if not _build.on_cuda(x):
         return attn_packed_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, g, scale, residual)
+    if x.dtype == torch.float32:
+        grads = launch_attn_bwd_f32("ctc_attn_packed_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks,
+                                    None, g, scale, residual, one_pass, params=True)[:8]
+        if not one_pass:
+            launches.count("attn_packed_bwd_f32_full")
+        return grads
     grads = launch_attn_bwd("ctc_attn_packed_bwd", x, gamma, wq, wk, wv, wo, qs, ks, None, g,
                             scale, residual)[:8]
     launches.count("attn_packed_bwd")

@@ -14,11 +14,14 @@ The backward (pallas_ff._backward_impl) is `geglu_ff_bwd`: the CUDA chain
 `csrc/geglu_ff_bwd.cu` for CUDA tensors, `geglu_ff_bwd_plain` for CPU
 tensors; the plain backward keeps the TPU kernel's rounding points (xn, h,
 dvalue and dgate rounded to the compute dtype before their products) with
-the exact-erf GELU and its closed-form derivative. At fp32 the card
-computes the data gradient alone, `geglu_ff_bwd_f32` (`csrc/geglu_ff_bwd_f32.cu`,
-every product three bf16 products of hi / lo planes): `_GegluFFFn` takes it
-when no parameter needs its gradient, the gradient attribution methods'
-case, and raises otherwise (ROADMAP Queue 2 item 14, fourth group).
+the exact-erf GELU and its closed-form derivative. At fp32 the chain is
+`csrc/geglu_ff_bwd_f32.cu` (every product three bf16 products of hi / lo
+planes) in two forms: `geglu_ff_bwd` on fp32 CUDA tensors returns every
+gradient (the fp32 train step's; dW2 | dWv | dWg in one wgrad_sm90.cuh
+launch over the split planes, dgamma and dbeta summed in a fixed order),
+`geglu_ff_bwd_f32` dx alone. `_GegluFFFn` takes the second when no
+parameter needs its gradient (the gradient attribution methods' case), the
+first otherwise.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from .. import _build
 from . import launches
-from .fp32_grads import FP32_PARAM_GRADS, fp32_data_grad_only
+from .fp32_grads import fp32_data_grad_only, ln_parts
 
 
 def geglu_ff_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -198,13 +201,19 @@ def geglu_ff_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w_in: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
-                 residual: bool = False) -> tuple:
+                 residual: bool = False, *, one_pass: bool = False) -> tuple:
     """The geglu_ff backward kernel chain on CUDA tensors (the forward's
-    types; g bf16 like x), the plain backward on CPU tensors."""
+    types; g like x: bf16, or fp32 for the fp32 chain with every parameter
+    gradient, where one_pass=True zeroes every lo plane, the control, and
+    does not count as a launch of the path), the plain backward on CPU
+    tensors."""
     if not _build.on_cuda(x):
         return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)
     if x.dtype == torch.float32:
-        raise NotImplementedError(FP32_PARAM_GRADS)
+        grads = _launch_bwd_f32(x, gamma, beta, w_in, w_out, g, residual, one_pass, params=True)
+        if not one_pass:
+            launches.count("geglu_ff_bwd_f32_full")
+        return grads
     n, d = x.shape
     inner = w_out.shape[1]
     dev = x.device
@@ -241,16 +250,11 @@ def geglu_ff_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return dx, dgamma, dbeta, dw_in, dw_out
 
 
-def geglu_ff_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     w_in: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
-                     residual: bool = False, *, one_pass: bool = False) -> torch.Tensor:
-    """dx of geglu_ff_plain at fp32 against cotangent g [N, D]: the fp32
-    data-gradient chain `ctc_geglu_ff_bwd_f32` on CUDA tensors (fp32 x, g,
-    gains and weights, a width that 8 divides; one_pass=True zeroes every
-    lo plane, the control, and does not count as a launch of the path), the
-    plain backward's dx on CPU tensors."""
-    if not _build.on_cuda(x):
-        return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)[0]
+def _launch_bwd_f32(x, gamma, beta, w_in, w_out, g, residual: bool, one_pass: bool,
+                    params: bool):
+    """Run `ctc_geglu_ff_bwd_f32` on CUDA tensors: dx alone, or with
+    params=True (dx, dgamma, dbeta, dw_in, dw_out), all fp32. The one place
+    that knows its workspaces."""
     n, d = x.shape
     inner = w_out.shape[1]
     dev = x.device
@@ -272,11 +276,36 @@ def geglu_ff_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             torch.empty((n, ld), **f32), torch.empty((2, n, 2 * ld), **b16),
             torch.empty((n, d), **f32))
     dx = torch.empty_like(x)
+    # the train form: h's planes and the LN gains' partial sums (workspaces);
+    # dgamma | dbeta, dw_in, dw_out (written whole)
+    train = [None] * 5
+    if params:
+        train = [torch.empty((2, n, ld), **b16), torch.empty((ln_parts(n), 2 * d), **f32),
+                 torch.empty((2, d), **f32), torch.empty((2 * inner, d), **f32),
+                 torch.empty((d, inner), **f32)]
     err = _build.load().ctc_geglu_ff_bwd_f32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_in.data_ptr(), w2.data_ptr(),
-        g.data_ptr(), *(w.data_ptr() for w in work), dx.data_ptr(), n, d, inner, ld, ld,
+        g.data_ptr(), *(w.data_ptr() for w in work), dx.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in train), n, d, inner, ld, ld,
         int(residual), int(one_pass), _build.stream_of(x))
     _build.check(err, "geglu_ff_bwd_f32")
+    if not params:
+        return dx
+    dgb, dw_in, dw_out = train[2:]
+    return dx, dgb[0], dgb[1], dw_in, dw_out
+
+
+def geglu_ff_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     w_in: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
+                     residual: bool = False, *, one_pass: bool = False) -> torch.Tensor:
+    """dx of geglu_ff_plain at fp32 against cotangent g [N, D]: the fp32
+    data-gradient chain `ctc_geglu_ff_bwd_f32` on CUDA tensors (fp32 x, g,
+    gains and weights, a width that 8 divides; one_pass=True zeroes every
+    lo plane, the control, and does not count as a launch of the path), the
+    plain backward's dx on CPU tensors."""
+    if not _build.on_cuda(x):
+        return geglu_ff_bwd_plain(x, gamma, beta, w_in, w_out, g, residual)[0]
+    dx = _launch_bwd_f32(x, gamma, beta, w_in, w_out, g, residual, one_pass, params=False)
     if not one_pass:
         launches.count("geglu_ff_bwd_f32")
     return dx

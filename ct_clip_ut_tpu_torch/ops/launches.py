@@ -14,7 +14,9 @@ KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed",
            "patch_embed_dkw", "bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads",
            "attn_qrows", "geglu_ff_int8", "cosine_attention", "attn_block_f32", "attn_packed_f32",
            "geglu_ff_f32", "vq_nearest_f32", "attn_block_bwd_f32", "attn_packed_bwd_f32",
-           "geglu_ff_bwd_f32", "patch_embed_f32", "attn_qrows_f32")
+           "geglu_ff_bwd_f32", "patch_embed_f32", "attn_qrows_f32", "attn_block_bwd_f32_full",
+           "attn_packed_bwd_f32_full", "geglu_ff_bwd_f32_full", "patch_embed_res_f32",
+           "patch_embed_dkw_f32")
 
 attn_block = 0
 attn_packed = 0
@@ -43,6 +45,11 @@ attn_packed_bwd_f32 = 0
 geglu_ff_bwd_f32 = 0
 patch_embed_f32 = 0
 attn_qrows_f32 = 0
+attn_block_bwd_f32_full = 0
+attn_packed_bwd_f32_full = 0
+geglu_ff_bwd_f32_full = 0
+patch_embed_res_f32 = 0
+patch_embed_dkw_f32 = 0
 
 
 def count(name: str) -> None:

@@ -35,7 +35,11 @@ forward's patch matrix P is kept for the weight grad, which then reads it
 instead of writing it again (221 MB more held across a B = 2 step). The
 image cotangent is autograd of the plain version, and only when the image
 requires grad (the JAX package's `_xla_twin` VJP); training never asks
-for it.
+for it. An fp32 volume (the fp32 train step) takes the fp32 forms of both
+kernels: `patch_embed_res_f32` (`ctc_patch_embed_res_f32`, row 5f's chain
+also storing conv and the moments) keeps P's hi / lo planes (442 MB at B
+= 2), and `patch_embed_dkw` reads them on the split weight-gradient plan
+(`ctc_patch_embed_dkw_f32`), dconv staying fp32 as in JAX's `_pe_bwd`.
 """
 
 from __future__ import annotations
@@ -148,13 +152,13 @@ def _launch(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
     return out, res, stats, ops["patches"][0]
 
 
-def patch_embed_f32(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
-                    b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor, patch: int,
-                    t_patch: int, one_pass: bool = False) -> torch.Tensor:
-    """Run the fp32 chain ctc_patch_embed_f32 on CUDA tensors (no count):
-    the one place that knows its workspaces (P's and the folded weight's hi
-    / lo planes, rows padded to 16 B; each patch's LN1 moments). one_pass
-    zeroes every lo plane (the control)."""
+def _launch_f32(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
+                one_pass: bool, conv: bool) -> tuple:
+    """Run the fp32 chain `entry` (ctc_patch_embed_f32, or
+    ctc_patch_embed_res_f32 with conv) on CUDA tensors: (out, conv or None,
+    stats, P's planes [2, M, ld]). The one place that knows its workspaces
+    (P's and the folded weight's hi / lo planes, rows padded to 16 B; each
+    patch's LN1 moments). one_pass zeroes every lo plane (the control)."""
     b, c, T, H, W = image.shape
     _check_embed_args(image, kw, s1, b1, g2, b2, patch, t_patch, torch.float32)
     dim = kw.shape[-1]
@@ -172,12 +176,33 @@ def patch_embed_f32(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
     patches, kw_s = torch.empty((2, m, ld), **b16), torch.empty((2, dim, ld), **b16)
     stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
     out = torch.empty((b, t, hp, wp, dim), dtype=torch.float32, device=dev)
-    err = _build.load().ctc_patch_embed_f32(
+    res = torch.empty((m, dim), dtype=torch.float32, device=dev) if conv else None
+    err = getattr(_build.load(), entry)(
         image.data_ptr(), kwd.data_ptr(), s1.data_ptr(), b1.data_ptr(), g2.data_ptr(),
         b2.data_ptr(), patches.data_ptr(), kw_s.data_ptr(), stats.data_ptr(), out.data_ptr(),
-        b, T, H, W, patch, t_patch, dim, ld, int(one_pass), _build.stream_of(image))
-    _build.check(err, "ctc_patch_embed_f32")
-    return out
+        *([res.data_ptr()] if conv else []), b, T, H, W, patch, t_patch, dim, ld, int(one_pass),
+        _build.stream_of(image))
+    _build.check(err, entry)
+    return out, res, stats, patches
+
+
+def patch_embed_f32(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
+                    b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor, patch: int,
+                    t_patch: int, one_pass: bool = False) -> torch.Tensor:
+    """Run the fp32 chain ctc_patch_embed_f32 on CUDA tensors (no count);
+    one_pass zeroes every lo plane (the control)."""
+    return _launch_f32("ctc_patch_embed_f32", image, kw, s1, b1, g2, b2, patch, t_patch,
+                       one_pass, False)[0]
+
+
+def patch_embed_res_f32(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
+                        b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor, patch: int,
+                        t_patch: int, one_pass: bool = False) -> tuple:
+    """Run the fp32 residual-saving chain ctc_patch_embed_res_f32 on CUDA
+    tensors (no count): (out, conv [M, dim], stats [M, 2], P's planes [2,
+    M, ld] bf16 for the weight gradient), all but P fp32."""
+    return _launch_f32("ctc_patch_embed_res_f32", image, kw, s1, b1, g2, b2, patch, t_patch,
+                       one_pass, True)
 
 
 def patch_embed_fused(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
@@ -234,6 +259,10 @@ def _res_with_patches(image, kw, s1, b1, g2, b2, patch: int, t_patch: int) -> tu
     tensors, whose weight grad takes the plain version)."""
     if not _build.on_cuda(image):
         return (*patch_embed_res_plain(image, kw, s1, b1, g2, b2, patch, t_patch), None)
+    if image.dtype == torch.float32:
+        out = patch_embed_res_f32(image, kw, s1, b1, g2, b2, patch, t_patch)
+        launches.count("patch_embed_res_f32")
+        return out
     out = _launch("ctc_patch_embed_res", image, kw, s1, b1, g2, b2, patch, t_patch, True)
     launches.count("patch_embed_res")
     return out
@@ -264,14 +293,33 @@ def _patch_matrix(image: torch.Tensor, patch: int, t_patch: int) -> torch.Tensor
     return patches
 
 
+def _patch_planes_f32(image: torch.Tensor, patch: int, t_patch: int,
+                      one_pass: bool = False) -> torch.Tensor:
+    """P's hi / lo planes [2, M, ld] bf16 of an fp32 volume on the card, as
+    the fp32 forward's patchify pass writes them (zeros past K): the fp32
+    weight gradient's operand for a call from the volume alone."""
+    b, _, T, H, W = image.shape
+    m = b * (T // t_patch) * (H // patch) * (W // patch)
+    ld = _build.tma_pitch(t_patch * patch * patch)
+    image = _build.aligned16(image)
+    planes = torch.empty((2, m, ld), dtype=torch.bfloat16, device=image.device)
+    err = _build.load().ctc_patchify_f32(image.data_ptr(), planes.data_ptr(), b, T, H, W, patch,
+                                         t_patch, ld, int(one_pass), _build.stream_of(image))
+    _build.check(err, "ctc_patchify_f32")
+    return planes
+
+
 def patch_embed_dkw(image: torch.Tensor, dconv: torch.Tensor, patch: int, t_patch: int,
-                    patches=None) -> torch.Tensor:
-    """The patch_embed_dkw kernel on CUDA tensors (the bf16 volume and a
-    bf16 dconv [M, dim], dim a multiple of 8), the plain version on CPU
-    tensors. The kernel reads the patch matrix P [M, ldp] of this volume:
+                    patches=None, *, one_pass: bool = False) -> torch.Tensor:
+    """The patch_embed_dkw kernel on CUDA tensors (the volume and dconv [M,
+    dim] in one dtype, bf16 or fp32; dim a multiple of 8), the plain version
+    on CPU tensors. The kernel reads the patch matrix P of this volume:
     `patches` as the forward wrote it (`_res_with_patches`, the train
-    step's form), else `_patch_matrix`'s. The output is written whole, in one
-    summation order: the same bits from call to call."""
+    step's form: [M, ldp] bf16, or its hi / lo planes [2, M, ld] for an
+    fp32 volume), else written from the volume on this call. The output is
+    written whole, in one summation order: the same bits from call to call.
+    one_pass (fp32, from the volume only) zeroes every lo plane, the
+    control, and does not count as a launch of the path."""
     if not _build.on_cuda(image):
         return patch_embed_dkw_plain(image, dconv, patch, t_patch)
     b, c, T, H, W = image.shape
@@ -283,14 +331,33 @@ def patch_embed_dkw(image: torch.Tensor, dconv: torch.Tensor, patch: int, t_patc
     if dim % 8:
         raise ValueError(f"patch_embed_dkw reads dconv through TMA (16-B rows); dim {dim} is "
                          "not a multiple of 8")
-    _build.require(image, "image", torch.bfloat16, (b, 1, T, H, W), image.device)
+    dt = image.dtype if image.dtype == torch.float32 else torch.bfloat16
+    _build.require(image, "image", dt, (b, 1, T, H, W), image.device)
     m = b * (T // t_patch) * (H // patch) * (W // patch)
-    _build.require(dconv, "dconv", torch.bfloat16, (m, dim), image.device)
+    _build.require(dconv, "dconv", dt, (m, dim), image.device)
+    out = torch.empty((patch, k // patch, dim), dtype=torch.float32, device=image.device)
+    if dt == torch.float32:
+        if one_pass and patches is not None:
+            raise ValueError("the one-pass control writes its own one-pass planes of P")
+        ld = _build.tma_pitch(k)
+        if patches is None:
+            patches = _patch_planes_f32(image, patch, t_patch, one_pass)
+        _build.require(patches, "patches", torch.bfloat16, (2, m, ld), image.device)
+        dconv = _build.aligned16(dconv)
+        dconv_s = torch.empty((2, m, dim), dtype=torch.bfloat16, device=image.device)
+        err = _build.load().ctc_patch_embed_dkw_f32(
+            patches.data_ptr(), dconv.data_ptr(), dconv_s.data_ptr(), out.data_ptr(), b, T, H, W,
+            patch, t_patch, dim, ld, int(one_pass), _build.stream_of(image))
+        _build.check(err, "patch_embed_dkw_f32")
+        if not one_pass:
+            launches.count("patch_embed_dkw_f32")
+        return out
+    if one_pass:
+        raise ValueError("one_pass is the fp32 chain's control")
     ldp = _build.tma_pitch(k, image.element_size())
     if patches is None:
         patches = _patch_matrix(image, patch, t_patch)
     _build.require(patches, "patches", torch.bfloat16, (m, ldp), image.device)
-    out = torch.empty((patch, k // patch, dim), dtype=torch.float32, device=image.device)
     err = _build.load().ctc_patch_embed_dkw(patches.data_ptr(), dconv.data_ptr(), out.data_ptr(),
                                             b, T, H, W, patch, t_patch, dim, ldp,
                                             _build.stream_of(image))

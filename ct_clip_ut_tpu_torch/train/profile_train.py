@@ -2,6 +2,7 @@
 
     python -m ct_clip_ut_tpu_torch.train.profile_train [--table PATH] [--sizes 2,4,8]
                                                        [--text-len 512] [--peg both]
+                                                       [--dtype bfloat16]
 
 The counterpart of infer/profile_zeroshot.py and of the JAX bench's train
 measurement (bench.py:335-381). At flagship width (`config.flagship_cfg()`,
@@ -22,7 +23,11 @@ compute, Adam, lr 1.25e-5, clip 0.5, 512-token reports from the stand-in
   every row to PATH).
 
 `--text-len 120` measures the earlier slice's reports, under the fused BERT
-layer's gate (n >= 128), where BERT trains on its layer loop. Each line
+layer's gate (n >= 128), where BERT trains on its layer loop. `--dtype
+float32` times the fp32 step (TrainConfig(compute_dtype="float32"): the
+CT-ViT's fp32 kernels forward and backward, every product three bf16
+products of hi / lo planes); at 512 tokens it raises (the fp32 BERT layer
+has no train-mode kernel yet), so pass `--text-len 120` with it. Each line
 names the card and its power limit (`nvidia-smi`).
 """
 
@@ -100,6 +105,8 @@ def main(argv=None) -> int:
                     help="tokens a report is padded to (TrainConfig.text_max_length)")
     ap.add_argument("--peg", choices=("both", "on", "off"), default="both",
                     help="the PEG on its kernels (peg_pallas=True), on F.conv3d, or both in turn")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="TrainConfig.compute_dtype (float32: the fp32 step, at --text-len 120)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)
@@ -107,13 +114,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
-    tcfg = dataclasses.replace(TrainConfig(), text_max_length=args.text_len)
+    tcfg = dataclasses.replace(TrainConfig(), text_max_length=args.text_len,
+                               compute_dtype=args.dtype)
     sizes = [int(s) for s in args.sizes.split(",")]
     routes = {"both": (False, True), "on": (True,), "off": (False,)}[args.peg]
     for fused in routes:                       # the profiled route comes last
         cfg = flagship_cfg()
         cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=fused))
-        label = f"{args.text_len} tokens, peg_pallas={fused},"
+        label = f"{args.dtype} {args.text_len} tokens, peg_pallas={fused},"
         state, step, batch = measure(cfg, tcfg, sizes, card, label)
         if fused is routes[-1]:
             print(f"train state: {sum(p.numel() for p in state.model.parameters()) / 1e6:.1f} M "

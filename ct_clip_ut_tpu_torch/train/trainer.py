@@ -7,7 +7,12 @@ generator, the symmetric InfoNCE loss, the backward (the kernels' autograd
 Functions on the card), the global-norm clip and the Adam update
 (train/optimizer.py), and the VQ EMA write-back (not a gradient step). It
 returns the loss as a device tensor, without a host sync. The model's
-parameters stay fp32; the forward runs in `compute_dtype` (bf16).
+parameters stay fp32; the forward runs in `compute_dtype`: bf16 (the
+default), or float32, where the CT-ViT runs its fp32 kernels forward and
+backward (every parameter gradient three bf16 products of hi / lo planes)
+and BERT, at reports under 128 tokens, its plain layers as in the JAX
+package; an fp32 step at 128 tokens or more raises (no fp32 train-mode
+BERT kernel yet, ROADMAP Queue 2 item 8b).
 
 `CTClipTrainer` is the driver of trainer.py:267-672: tokenising on the
 host, the epoch loop with the loss fetched one step late, the step-0

@@ -1485,7 +1485,8 @@ def test_fp32_bwd_autograd_routes_on_card(cuda_device):
     """Under autograd at fp32 with every parameter frozen, the blocks'
     Functions launch the data-gradient chains (one each) and their dx
     matches autograd of the plain blocks; with the parameters wanting their
-    gradients, the backward raises (Queue 2 item 14, fourth group)."""
+    gradients, the full chains (the fp32 train step's) launch instead, and
+    dx and every parameter's gradient match autograd of the plain blocks."""
     from ct_clip_ut_tpu_torch.config import TransformerConfig
     from ct_clip_ut_tpu_torch.ops.attention import attention
     from ct_clip_ut_tpu_torch.ops.layers import feedforward
@@ -1496,27 +1497,127 @@ def test_fp32_bwd_autograd_routes_on_card(cuda_device):
     _, attn, _, ff = tf.layers[0]
     x0 = torch.randn((3, 24, 512), device=cuda_device)
     bias = torch.randn((8, 24, 24), device=cuda_device)
+    params = [p for m in (attn, ff) for p in m.parameters()]
 
-    def run(plain, attn_bias):
+    def run(plain, attn_bias, trained):
         x = x0.clone().requires_grad_(True)
         y = attention(attn, x, attn_bias=attn_bias, return_weights=False, residual=True,
                       plain=plain).out
         y = feedforward(ff, y, residual=True, plain=plain)
-        (gx,) = torch.autograd.grad((y * y).sum(), x)
-        return gx
+        wrt = [x] + ([p for p in params if p.requires_grad] if trained else [])
+        return torch.autograd.grad((y * y).sum(), wrt, allow_unused=True)
 
     for attn_bias, name in ((None, "attn_packed_bwd_f32"), (bias, "attn_block_bwd_f32")):
-        for p in tf.parameters():
-            p.requires_grad_(False)
-        launches.reset_launch_counts()
-        got = run(False, attn_bias)
-        counts = launches.launch_counts()
-        assert counts[name] == 1 and counts["geglu_ff_bwd_f32"] == 1, counts
-        assert _rel_err(got, run(True, attn_bias)) <= F32_BAND
-        for p in tf.parameters():
-            p.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
-            run(False, attn_bias)
+        for trained in (False, True):
+            for p in tf.parameters():
+                p.requires_grad_(trained)
+            launches.reset_launch_counts()
+            got = run(False, attn_bias, trained)
+            counts = launches.launch_counts()
+            suffix = "_full" if trained else ""
+            assert counts[name + suffix] == 1 and counts["geglu_ff_bwd_f32" + suffix] == 1, counts
+            assert counts[name + ("" if trained else "_full")] == 0
+            want = run(True, attn_bias, trained)
+            for gt, wt in zip(got, want):
+                if wt is not None:
+                    assert _rel_err(gt, wt) <= F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,bias", [(48, 576, True), (3, 100, True), (2, 101, True),
+                                      (1152, 24, False), (5, 7, False)])
+def test_fp32_full_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, bias):
+    """Every gradient of the fp32 train step's block backward (the full
+    tc::block_backward_f32: dx, dgamma, dWq, dWk, dWv, dWo, dqs, dks and
+    dbias) at the B = 2 step's spatial and temporal shapes and ragged / odd
+    ones within F32_BAND of the plain backward's largest entry, dx the
+    dx-only chain's bits, the same bits on two calls; the chain with its lo
+    planes zeroed outside the band."""
+    from ct_clip_ut_tpu_torch.ops.attn_block import (attn_block_bwd, attn_block_bwd_f32,
+                                                     attn_block_bwd_plain)
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd, attn_packed_bwd_f32
+
+    rng = np.random.default_rng(74)
+    a = _attn_inputs(rng, r=r, n=n, d=512, heads=8, dh=32, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    b = torch.from_numpy(a["bias"]).to(cuda_device) if bias else None
+    g = torch.from_numpy(rng.standard_normal((r, n, 512)).astype(np.float32)).to(cuda_device)
+
+    def kern(one_pass=False):
+        if bias:
+            return attn_block_bwd(*args, b, g, 8.0, True, one_pass=one_pass)
+        return attn_packed_bwd(*args, g, 8.0, True, one_pass=one_pass)
+
+    name = "attn_block_bwd_f32_full" if bias else "attn_packed_bwd_f32_full"
+    launches.reset_launch_counts()
+    got = kern()
+    assert launches.launch_counts()[name] == 1
+    want = attn_block_bwd_plain(*args, b, g, 8.0, True)[:len(got)]
+    again = kern()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    dx_only = (attn_block_bwd_f32(*args, b, g, 8.0, True) if bias
+               else attn_packed_bwd_f32(*args, g, 8.0, True))
+    assert torch.equal(got[0], dx_only)
+    for k, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.dtype == torch.float32 and _rel_err(gt, wt) <= F32_BAND, k
+    one = kern(one_pass=True)
+    assert max(_rel_err(o, w) for o, w in zip(one, want)) > F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [27648, 77])
+def test_fp32_full_bwd_geglu_ff_matches_plain_on_card(cuda_device, n):
+    """Every gradient of the fp32 train step's FF backward (dx, dgamma,
+    dbeta, dW_in, dW2: h's planes from the recompute, inner 1365 padded to
+    1368 and kept out of the outputs) within F32_BAND of the plain
+    backward's, the same bits on two calls; the one-pass chain outside."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd, geglu_ff_bwd_f32, geglu_ff_bwd_plain
+
+    rng = np.random.default_rng(75)
+    args = [t.to(cuda_device) for t in _torch_ff_args(_ff_inputs(rng, n=n, dim=512))]
+    g = torch.from_numpy(rng.standard_normal((n, 512)).astype(np.float32)).to(cuda_device)
+    launches.reset_launch_counts()
+    got = geglu_ff_bwd(*args, g, True)
+    assert launches.launch_counts()["geglu_ff_bwd_f32_full"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(got, geglu_ff_bwd(*args, g, True)))
+    assert torch.equal(got[0], geglu_ff_bwd_f32(*args, g, True))
+    want = geglu_ff_bwd_plain(*args, g, True)
+    for k, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.shape == wt.shape and _rel_err(gt, wt) <= F32_BAND, k
+    one = geglu_ff_bwd(*args, g, True, one_pass=True)
+    assert max(_rel_err(o, w) for o, w in zip(one, want)) > F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,t_patch,dim", [((2, 1, 240, 480, 480), 20, 10, 512),
+                                                     ((2, 1, 6, 48, 32), 16, 2, 64)])
+def test_fp32_patch_embed_res_and_dkw_on_card(cuda_device, shape, patch, t_patch, dim):
+    """The fp32 train step's patch embed: ctc_patch_embed_res_f32's out,
+    conv and LN1 moments, and ctc_patch_embed_dkw_f32 from the forward's P
+    planes and from the volume (the same bits), within F32_BAND of the
+    plain versions; the one-pass weight gradient outside."""
+    from ct_clip_ut_tpu_torch.ops.patch_embed import (_res_with_patches, patch_embed_dkw,
+                                                      patch_embed_dkw_plain,
+                                                      patch_embed_res_plain)
+
+    rng = np.random.default_rng(76)
+    b, _, T, H, W = shape
+    args = _patch_args(_patch_inputs(rng, b, T, H, W, patch, t_patch, dim), patch, t_patch,
+                       cuda_device)
+    launches.reset_launch_counts()
+    out, conv, stats, planes = _res_with_patches(*args, patch, t_patch)
+    assert launches.launch_counts()["patch_embed_res_f32"] == 1
+    want = patch_embed_res_plain(*args, patch, t_patch)
+    for gt, wt in zip((out, conv, stats), want):
+        assert gt.dtype == torch.float32 and _rel_err(gt, wt) <= F32_BAND
+    dconv = torch.from_numpy(rng.standard_normal(conv.shape).astype(np.float32)).to(cuda_device)
+    got = patch_embed_dkw(args[0], dconv, patch, t_patch, planes)
+    assert launches.launch_counts()["patch_embed_dkw_f32"] == 1
+    assert torch.equal(got, patch_embed_dkw(args[0], dconv, patch, t_patch))
+    want = patch_embed_dkw_plain(args[0], dconv, patch, t_patch)
+    assert _rel_err(got, want) <= F32_BAND
+    one = patch_embed_dkw(args[0], dconv, patch, t_patch, one_pass=True)
+    assert _rel_err(one, want) > F32_BAND
 
 
 # ---- CTGenerate's one-scan route in fp32 (rows 5f, 13f) -----------------------

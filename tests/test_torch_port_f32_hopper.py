@@ -250,50 +250,100 @@ def test_fp32_tensors_reach_the_fp32_entries_and_fp16_is_refused(fake_card, kern
         call(*half)
 
 
-def test_the_fp32_backwards_raise_on_the_card(fake_card):
-    """At fp32 the card computes the blocks' and the FF's data gradient
-    alone: the dx-only entries launch with their sizes, through the
-    wrappers and through the autograd Functions when every parameter is
-    frozen; the full backward wrappers, and a Function whose parameters
-    want their gradients, raise (ROADMAP Queue 2 item 14, fourth group)."""
+def test_the_fp32_backwards_raise_on_the_card(fake_card, monkeypatch):
+    """The fp32 backwards' routes on the card: the wrappers launch the
+    dx-only entries (`*_bwd_f32`) with their sizes and every
+    parameter-gradient pointer null, and the full wrappers the same entries
+    with every pointer set (the fp32 train step); fp16 tensors raise. Through
+    the autograd Functions, frozen parameters take the dx-only entries and
+    parameters that want their gradients the full ones, the patch embed its
+    fp32 residual-saving chain and fp32 weight gradient; no plain version
+    runs on a (stand-in) card tensor."""
+    from ct_clip_ut_tpu_torch.ops import patch_embed
     from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
 
+    from test_torch_port_cuda import _patch_args, _patch_inputs
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version ran on a card tensor")
+
+    for mod, name in ((attn_block, "attn_block_bwd_plain"), (attn_packed, "attn_packed_bwd_plain"),
+                      (geglu_ff, "geglu_ff_bwd_plain"), (patch_embed, "patch_embed_res_plain"),
+                      (patch_embed, "patch_embed_dkw_plain")):
+        monkeypatch.setattr(mod, name, refused)
     a = _attn_inputs(np.random.default_rng(1), 2, 24, 64, 4, 32, True)
     args = _torch_attn_args(a)
     bias = torch.from_numpy(a["bias"])
     g = torch.zeros_like(args[0])
     ff = _torch_ff_args(_ff_inputs(np.random.default_rng(2)))
+    gf = torch.zeros_like(ff[0])
     attn_block.attn_block_bwd_f32(*args, bias, g)
     attn_packed.attn_packed_bwd_f32(*args, g)
-    geglu_ff.geglu_ff_bwd_f32(*ff, torch.zeros_like(ff[0]))
-    assert [c[0] for c in fake_card.calls] == ["ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32",
-                                               "ctc_geglu_ff_bwd_f32"]
+    geglu_ff.geglu_ff_bwd_f32(*ff, gf)
+    full = (attn_block.attn_block_bwd(*args, bias, g), attn_packed.attn_packed_bwd(*args, g),
+            geglu_ff.geglu_ff_bwd(*ff, gf))
+    entries = ["ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32", "ctc_geglu_ff_bwd_f32"]
+    assert [c[0] for c in fake_card.calls] == entries * 2
     block_ints = (2, 24, 64, 4, SCALE, 0, 0)          # R, n, D, H, scale, residual, flags
-    assert fake_card.calls[0][1][-1 - len(block_ints):-1] == block_ints
-    assert fake_card.calls[1][1][-1 - len(block_ints):-1] == block_ints
     ff_ints = (20, 64, 170, 176, 176, 0, 0)           # n, d, inner, ldh, ldw, residual, flags
-    assert fake_card.calls[2][1][-1 - len(ff_ints):-1] == ff_ints
+    # the parameter-gradient pointers before the sizes: dgamma, dw_qkv, dwo,
+    # dqs, dks, [dbias], ln_part, q_part, k_part; h_s, ln_part, dgb, dw_in, dw_out
+    for i, (call, ints, grads) in enumerate(zip(fake_card.calls,
+                                                (block_ints, block_ints, ff_ints) * 2,
+                                                (9, 8, 5) * 2)):
+        assert call[1][-1 - len(ints):-1] == ints
+        ptrs = call[1][-1 - len(ints) - grads:-1 - len(ints)]
+        assert all((p is not None) == (i >= 3) for p in ptrs), call[0]
     counts = launches.launch_counts()
-    assert [counts[k] for k in ("attn_block_bwd_f32", "attn_packed_bwd_f32",
-                                "geglu_ff_bwd_f32")] == [1, 1, 1]
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
-        attn_block.attn_block_bwd(*args, bias, g)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
-        geglu_ff.geglu_ff_bwd(*ff, torch.zeros_like(ff[0]))
+    assert [counts[k] for k in ("attn_block_bwd_f32", "attn_packed_bwd_f32", "geglu_ff_bwd_f32",
+                                "attn_block_bwd_f32_full", "attn_packed_bwd_f32_full",
+                                "geglu_ff_bwd_f32_full")] == [1] * 6
+    assert counts["attn_block_bwd"] + counts["attn_packed_bwd"] + counts["geglu_ff_bwd"] == 0
+    hd, d = args[2].shape
+    assert [tuple(t.shape) for t in full[0]] == [(2, 24, d), (d,), (hd, d), (hd, d), (hd, d),
+                                                 (d, hd), (32,), (32,), (4, 24, 24)]
+    assert len(full[1]) == 8
+    assert [tuple(t.shape) for t in full[2]] == [(20, 64), (64,), (64,), (340, 64), (64, 170)]
+    with pytest.raises(TypeError, match="dtype"):
+        attn_block.attn_block_bwd(*(t.half() if t.dim() > 1 else t for t in args), bias, g.half())
+    with pytest.raises(TypeError, match="dtype"):
+        geglu_ff.geglu_ff_bwd(*(t.half() if t.dim() > 1 else t for t in ff), gf.half())
 
+    def frozen_and_trained(fn, leaves, trained):
+        """The entries one backward through fn launches with x alone wanting
+        its gradient, then with the leaves in `trained` too."""
+        names = []
+        for want in (set(), trained):
+            fake_card.calls.clear()
+            ins = [t.clone().requires_grad_(i == 0 or i in want) for i, t in enumerate(leaves)]
+            fn(*ins).sum().backward()
+            names.append([c[0] for c in fake_card.calls])
+        return names
+
+    launches.reset_launch_counts()
+    block = frozen_and_trained(lambda *t: _BlockFn.apply(*t, bias, SCALE, True), args, {2})
+    assert block == [["ctc_attn_block_f32", "ctc_attn_block_bwd_f32"]] * 2
+    packed = frozen_and_trained(lambda *t: _BlockFn.apply(*t, None, SCALE, True), args, {1, 6})
+    assert packed == [["ctc_attn_packed_f32", "ctc_attn_packed_bwd_f32"]] * 2
+    ffr = frozen_and_trained(lambda *t: geglu_ff.geglu_ff_grad(*t, True), ff, {1, 4})
+    assert ffr == [["ctc_geglu_ff_f32", "ctc_geglu_ff_bwd_f32"]] * 2
+    counts = launches.launch_counts()
+    assert [counts[k] for k in ("attn_block_bwd_f32", "attn_block_bwd_f32_full",
+                                "attn_packed_bwd_f32", "attn_packed_bwd_f32_full",
+                                "geglu_ff_bwd_f32", "geglu_ff_bwd_f32_full")] == [1] * 6
+
+    pa = _patch_inputs(np.random.default_rng(3), 2, 4, 8, 8, 4, 2, 64)
+    pargs = _patch_args(pa, 4, 2)
     fake_card.calls.clear()
-    x = args[0].clone().requires_grad_(True)
-    _BlockFn.apply(x, *args[1:], bias, SCALE, True).sum().backward()
-    fx = ff[0].clone().requires_grad_(True)
-    geglu_ff.geglu_ff_grad(fx, *ff[1:], True).sum().backward()
-    assert [c[0] for c in fake_card.calls] == ["ctc_attn_block_f32", "ctc_attn_block_bwd_f32",
-                                               "ctc_geglu_ff_f32", "ctc_geglu_ff_bwd_f32"]
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
-        wq = args[2].clone().requires_grad_(True)
-        _BlockFn.apply(x, args[1], wq, *args[3:], bias, SCALE, True).sum().backward()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14, fourth group"):
-        gamma = ff[1].clone().requires_grad_(True)
-        geglu_ff.geglu_ff_grad(fx, gamma, *ff[2:], True).sum().backward()
+    launches.reset_launch_counts()
+    kw = pargs[1].clone().requires_grad_(True)
+    patch_embed.patch_embed_grad(pargs[0], kw, *pargs[2:], 4, 2).sum().backward()
+    assert [c[0] for c in fake_card.calls] == ["ctc_patch_embed_res_f32",
+                                               "ctc_patch_embed_dkw_f32"]
+    counts = launches.launch_counts()
+    assert (counts["patch_embed_res_f32"], counts["patch_embed_dkw_f32"]) == (1, 1)
+    assert counts["patch_embed_res"] + counts["patch_embed_dkw"] == 0
+    assert kw.grad.shape == kw.shape
 
 
 def test_image_dtype_gate():
