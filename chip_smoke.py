@@ -27,7 +27,11 @@ Phases, each printing its lines before the last:
      (BertWgradPlan), HMMA in its forward core and its backward's query
      and key passes; HGMMA in the patch embed's weight gradient over its
      patch matrix (PatchWgradPlan); IGMMA (int8 wgmma) in geglu_ff_int8's
-     two products (HEpi, OutEpi);
+     two products (HEpi, OutEpi); for the fp32 BERT layer in train mode and
+     its backward (rows 6F, 12F), HGMMA in the hidden sites' epilogue
+     (HiddenF32Epi), the backward's GELU and dctx products and its weight
+     gradients (SplitPairPlan), HMMA in the core with STATS and the
+     backward's query and key passes;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -242,6 +246,21 @@ Phases, each printing its lines before the last:
      CTClipTrainer.train() over 3 steps with 10f, 11f x 1, 7F, 8F x 4, 9F
      x 8 and 17 x 8 a step, 1f-4f, 5f in the evaluations and no bf16 or
      dx-only kernel; the losses; three more steps timed.
+ 15. the fp32 train step at the TrainConfig default 512-token reports
+     (TrainConfig(compute_dtype="float32")) on phase 14's model: first rows
+     6F (the fp32 BERT layer in train mode, Philox dropout 0.1 / 0.1 at its
+     three sites) and 12F (its fp32 recompute backward, dx and the twelve
+     parameter gradients) at [2, 512, 768], one sequence padded after 300
+     tokens, against their plain versions through the same masks within
+     F32_BAND, controls one bf16 product each, other seeds, the attention
+     site left out and the plain backward's three faults; two calls the
+     same bits, train mode at rate 0 row 6's bits; times, `bound_ms`, the
+     fp32 PyTorch chain (TF32 off, SDPA with the key mask and dropout) as
+     `library_ms`, forward and forward + backward. Then phase 14's step
+     checks at 512 tokens: one step's gradients against plain=True within
+     STEP_GRAD_BAND, CTClipTrainer.train() over 3 steps with 6F x 12 and 12F
+     x 12 a step besides phase 14's launches, row 6 in the evaluations, no
+     bf16 BERT kernel; three more steps timed.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -252,7 +271,7 @@ geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
 the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
 variants, phase 11's for the fp32 backwards, phase 12's --data-valid run
 for rows 5f and 13f, phase 14's train run for 10f, 11f, 7F-9F and the fp32
-PEG rows); the last line is {"ok": true,
+PEG rows, phase 15's for 6F and 12F); the last line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -377,6 +396,10 @@ KERNELS = {
     "peg_f32": ("ct_clip_ut_tpu_torch/csrc/peg.cu", "ct_clip_ut_tpu/ops/pallas_peg.py:131"),
     "peg_weight_grads_f32": ("ct_clip_ut_tpu_torch/csrc/peg_wgrad.cu",
                              "ct_clip_ut_tpu/ops/pallas_peg_bwd.py:85"),
+    "bert_layer_f32_train": ("ct_clip_ut_tpu_torch/csrc/bert_layer.cu",
+                             "ct_clip_ut_tpu/ops/pallas_bert_layer.py:440"),
+    "bert_layer_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/bert_layer_bwd_f32.cu",
+                           "ct_clip_ut_tpu/ops/pallas_bert_layer.py:473"),
 }
 # Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
 F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
@@ -425,6 +448,10 @@ STEP_GRAD_BAND = 1e-3   # max |kernel - plain| / max |plain| of each parameter's
 # gradient is zero up to rounding: softmax ignores a constant added to a row,
 # so neither the CPB MLP's last bias nor BERT's key biases move the loss
 PEG_F32_KERNEL_BAND = 1e-5   # the fp32 PEG stencil's branch vs its plain version
+# Phase 15, the fp32 train step at 512-token reports: rows 6F and 12F, BERT's
+# 12 layers forward in train mode and backward (launches a train step)
+BERT_F32_KERNELS = ("bert_layer_f32_train", "bert_layer_bwd_f32")
+BERT_F32_STEP = dict.fromkeys(BERT_F32_KERNELS, 12)
 # kernel rows whose launches another counter holds (the PEG wrappers count either dtype)
 COUNTER_OF = {"peg_f32": "peg", "peg_weight_grads_f32": "peg_weight_grads"}
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
@@ -433,9 +460,10 @@ CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff"
 # kernels of other paths, launched by neither zero-shot nor training:
 # CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
 # core, the attribution suite's fp32 variants (phase 10) and fp32 backwards
-# (phase 11), CTGenerate's fp32 route (phase 12), the fp32 train step's (phase 14)
+# (phase 11), CTGenerate's fp32 route (phase 12), the fp32 train step's (phases
+# 14 and 15)
 SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS,
-                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS, *F32_TRAIN_KERNELS)
+                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS, *F32_TRAIN_KERNELS, *BERT_F32_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -504,7 +532,15 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                      "19BlockWgradSplitPlan",
                  "fp32 FF weight gradients (FFWgradSplitPlan)": "16FFWgradSplitPlan",
                  "fp32 patch embed weight gradient (PatchWgradSplitPlan)":
-                     "19PatchWgradSplitPlan"}
+                     "19PatchWgradSplitPlan",
+                 "fp32 bert_layer hidden sites (HiddenF32Epi: bias, Philox keep, residual)":
+                     "4bert12HiddenF32Epi",
+                 "fp32 bert_layer_bwd GELU backward (GeluBwdSplitEpi, W2 read as stored)":
+                     "4bert15GeluBwdSplitEpi",
+                 "fp32 bert_layer_bwd dctx and its row term (DctxSplitEpi)":
+                     "4bert12DctxSplitEpi",
+                 "fp32 bert_layer_bwd weight gradients (SplitPairPlan: three passes, 8 maps)":
+                     "4bert13SplitPairPlan"}
 # ... and of the mma.sync kernels of the split-bf16 attention cores
 SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's statistics)":
                          "17block_core_kernel",
@@ -526,7 +562,13 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                          ("17block_core_kernel", "Lb1ELb1E"),
                      "fp32 backward's query pass (split dS.K)": "17bwd_dq_f32_kernel",
                      "fp32 backward's key pass (split P^T.dO, dS^T.Q)": "18bwd_dkv_f32_kernel",
-                     "fp32 backward's dbias pass (split S and dP)": "20bwd_dbias_f32_kernel"}
+                     "fp32 backward's dbias pass (split S and dP)": "20bwd_dbias_f32_kernel",
+                     "fp32 bert_layer attention with STATS (row 12F's recompute, Philox keep)":
+                         ("4bert11attn_kernel", "ILb1E"),
+                     "fp32 bert_layer_bwd query pass (split dS.K, keep bits)":
+                         "4bert13dq_f32_kernel",
+                     "fp32 bert_layer_bwd key pass (split p_used^T.dctx, dS^T.Q)":
+                         "4bert14dkv_f32_kernel"}
 
 
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
@@ -3761,42 +3803,39 @@ def f32_train_check(torch, model, card: str) -> dict:
     return out
 
 
-def f32_train_phase(torch, card: str) -> tuple:
-    """Phase 14: the fp32 train step at 120-token reports, at flagship
-    width with peg_pallas=True, B = 2 (TrainConfig(compute_dtype="float32",
-    text_max_length=120): BERT unfused under its n >= 128 gate, as in JAX;
-    the CT-ViT on its fp32 kernels both ways). First f32_train_check. Then
-    one step's gradients from the same weights, batch and dropout draws,
-    the kernels against plain=True: every parameter's gradient within
-    STEP_GRAD_BAND of that tensor's largest entry (its group's for the
-    shift-invariant biases), the plain path quantising with the kernel
-    path's codes (each index that flipped between the two forwards
-    must be a tie within VQ_F32_TIE), control another batch's plain
-    gradients outside the band in every parameter group. Then CTClipTrainer.train() over 3 steps (the step-0
-    and end-of-epoch evaluations, a checkpoint) with the launches of each
-    step (F32_TRAIN_STEP), 1f-4f, 5f in the evaluations, 16, and no bf16
-    kernel or dx-only chain; the losses; three more steps timed. Returns
-    (kernel record, launch counts of the train run)."""
+def f32_train_run(torch, model, card: str, text_len: int, words: int, seed: int,
+                  step_want: dict, label: str) -> tuple:
+    """The fp32 train step on `model` (flagship width, peg_pallas=True, B =
+    2) with reports of about `words` words padded to `text_len` tokens:
+    one step's gradients from the same weights, batch, dropout draws and
+    codes, the kernels against plain=True (every parameter's gradient within
+    STEP_GRAD_BAND of that tensor's largest entry, its group's for the
+    shift-invariant biases; the plain path quantising with the kernel path's
+    codes, each index that flipped between the two forwards a tie within
+    VQ_F32_TIE; control another batch's plain gradients outside the band in
+    every parameter group); then CTClipTrainer.train() over 3 steps (the
+    step-0 and end-of-epoch evaluations, a checkpoint) with `step_want`'s
+    launches a step, the PEGs', 5f in the evaluations (and row 6, BERT's
+    deterministic layer, where the reports meet the fused-layer gate),
+    1f-4f, and every other counter at 0; the losses; three more steps
+    timed. Returns (the gradient step's launch counts, the train run's)."""
     import tempfile
 
-    from ct_clip_ut_tpu_torch.config import TrainConfig, flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.config import TrainConfig
     from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
-    from ct_clip_ut_tpu_torch.models.ctclip import contrastive_loss, ctclip_apply, init_ctclip
+    from ct_clip_ut_tpu_torch.models.bert import fused_layer_gate
+    from ct_clip_ut_tpu_torch.models.ctclip import contrastive_loss, ctclip_apply
     from ct_clip_ut_tpu_torch.ops import launches
     from ct_clip_ut_tpu_torch.train.trainer import CTClipTrainer
 
-    t_phase = time.perf_counter()
-    cfg = flagship_cfg()
-    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
-    model = init_ctclip(cfg, seed=0, device="cuda")
-    record = f32_train_check(torch, model, card)
-    tcfg = TrainConfig(num_epochs=1, compute_dtype="float32", text_max_length=EARLIER_TEXT_LEN)
-    g = torch.Generator(device="cuda").manual_seed(20)
+    cfg = model.cfg
+    tcfg = TrainConfig(num_epochs=1, compute_dtype="float32", text_max_length=text_len)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     tok = WordTokenizer(cfg.bert.vocab_size)
-    data = train_batches(torch, g, 4, 40, dtype=torch.float32)
+    data = train_batches(torch, g, 4, words, dtype=torch.float32)
 
     def tokens(texts):
-        enc = tok(texts, max_length=EARLIER_TEXT_LEN)
+        enc = tok(texts, max_length=text_len)
         return {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
 
     def grads(i, plain, against=None):
@@ -3838,9 +3877,10 @@ def f32_train_phase(torch, card: str) -> tuple:
     for n in gp:
         grp = param_group(n)
         ctrl[grp] = max(ctrl.get(grp, 0.0), err(gc[n], n))
-    print(f"train fp32: one step at B = {BATCH}, {EARLIER_TEXT_LEN}-token reports, "
-          f"peg_pallas=True: loss {loss_k:.6f} (plain path {loss_p:.6f}, from the kernel "
-          f"path's codes); {flips} VQ index flips between the two forwards (gaps "
+    real = tokens(data[0][1])["attention_mask"].sum(1).tolist()
+    print(f"{label}: one step at B = {BATCH}, reports of {real} real tokens padded to "
+          f"{text_len}, peg_pallas=True: loss {loss_k:.6f} (plain path {loss_p:.6f}, from the "
+          f"kernel path's codes); {flips} VQ index flips between the two forwards (gaps "
           f"{[f'{v:.2e}' for v in gaps]}, tie band {VQ_F32_TIE}); gradients of {len(errs)} "
           f"parameters vs the plain path, max |diff| over the tensor's largest entry: max "
           f"{max(errs.values()):.3e} (band {STEP_GRAD_BAND}), worst "
@@ -3849,7 +3889,7 @@ def f32_train_phase(torch, card: str) -> tuple:
           f"shift-invariant biases, max {max(errs[n] for n in shift_invariant):.3e}; "
           "controls (another batch) per group "
           + ", ".join(f"{k} {v:.3e}" for k, v in ctrl.items()) + f" [{card}]")
-    print("train fp32: launches of the step "
+    print(f"{label}: launches of the step "
           + json.dumps({k: v for k, v in step_counts.items() if v}))
     if set(gk) != set(gp) or not all(torch.isfinite(v).all() for v in gk.values()):
         raise AssertionError("fp32 kernel-path gradients missing or non-finite")
@@ -3875,8 +3915,8 @@ def f32_train_phase(torch, card: str) -> tuple:
         counts = launches.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
     evals = len(trainer.valid_losses)
-    print(f"train fp32: CTClipTrainer.train() over 3 steps of {BATCH} x {list(VOLUME)} fp32 "
-          f"volumes with {EARLIER_TEXT_LEN}-token reports, peg_pallas=True, {evals} evaluations "
+    print(f"{label}: CTClipTrainer.train() over 3 steps of {BATCH} x {list(VOLUME)} fp32 "
+          f"volumes with {text_len}-token reports, peg_pallas=True, {evals} evaluations "
           f"and a checkpoint in {seconds:.3f} s (host clock; peak {peak:.2f} GB) [{card}]; step "
           f"losses {trainer.train_losses['steps']}, epoch {trainer.train_losses['epochs']}, "
           f"validation {trainer.valid_losses}; launches "
@@ -3885,8 +3925,10 @@ def f32_train_phase(torch, card: str) -> tuple:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"non-finite fp32 train losses {losses}")
     pegs = cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
-    want = {k: 3 * v for k, v in F32_TRAIN_STEP.items()}
+    want = {k: 3 * v for k, v in step_want.items()}
     want.update({"peg": (2 * 3 + evals) * pegs, "patch_embed_f32": evals})
+    if fused_layer_gate(cfg.bert, text_len):
+        want["bert_layer"] = evals * cfg.bert.num_layers
     wrong = {k: counts[k] for k, v in want.items() if counts[k] != v}
     wrong.update({k: counts[k] for k in F32_TRAIN_FORWARD if counts[k] <= 0})
     bf16_or_dx = [k for k in counts if k not in (*want, *F32_TRAIN_FORWARD)]
@@ -3904,10 +3946,197 @@ def f32_train_phase(torch, card: str) -> tuple:
         loss = step(state, image, text)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
-    print(f"train fp32: make_train_step at B = {BATCH}: {', '.join(f'{v:.3f}' for v in ms)} ms "
+    print(f"{label}: make_train_step at B = {BATCH}: {', '.join(f'{v:.3f}' for v in ms)} ms "
           f"per step (host clock, synchronised; loss {loss.item():.6f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; phase 14 in "
-          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    return step_counts, counts
+
+
+def f32_train_phase(torch, card: str) -> tuple:
+    """Phase 14: the fp32 train step at 120-token reports, at flagship width
+    with peg_pallas=True, B = 2 (TrainConfig(compute_dtype="float32",
+    text_max_length=120): BERT unfused under its n >= 128 gate, as in JAX;
+    the CT-ViT on its fp32 kernels both ways). First f32_train_check, then
+    f32_train_run: one step's gradients against plain=True and
+    CTClipTrainer.train() over 3 steps with the launches of each step
+    (F32_TRAIN_STEP), 1f-4f, 5f in the evaluations, 16, and no bf16 kernel
+    or dx-only chain. Returns (kernel record, launch counts of the train
+    run, the model for phase 15)."""
+    from ct_clip_ut_tpu_torch.config import flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg()
+    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
+    model = init_ctclip(cfg, seed=0, device="cuda")
+    record = f32_train_check(torch, model, card)
+    _, counts = f32_train_run(torch, model, card, EARLIER_TEXT_LEN, 40, 20, F32_TRAIN_STEP,
+                              "train fp32")
+    print(f"train fp32: phase 14 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return record, counts, model
+
+
+def bert_library(x, pad, w, heads: int, eps: float, p: float):
+    """The fp32 BERT layer as PyTorch calls the port never makes (TF32 off),
+    the yardstick of rows 6F and, under autograd, 12F: F.linear (Wqkv),
+    F.scaled_dot_product_attention with the additive key mask and dropout_p
+    = p, F.linear (Wo), F.dropout, + x, F.layer_norm, F.linear (W1), exact
+    F.gelu, F.linear (W2), F.dropout, + y, F.layer_norm. Its dropout draws
+    its own masks: the same function, not the same draws."""
+    import torch.nn.functional as F
+
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = w
+    b, n, d = x.shape
+    q, k, v = (t.reshape(b, n, heads, d // heads).transpose(1, 2)
+               for t in F.linear(x, wqkv, bqkv).split(d, dim=-1))
+    mask = (pad.float() * -1e30)[:, None, None, :]
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p)
+    ctx = ctx.transpose(1, 2).reshape(b, n, d)
+    y = F.layer_norm(F.dropout(F.linear(ctx, wo, bo), p) + x, (d,), g1, be1, eps)
+    h = F.gelu(F.linear(y, w1, b1))
+    return F.layer_norm(F.dropout(F.linear(h, w2, b2), p) + y, (d,), g2, be2, eps)
+
+
+def bert_f32_train_check(torch, model, card: str) -> dict:
+    """Phase 15's kernel checks: rows 6F (the fp32 BERT layer in train mode,
+    dropout 0.1 / 0.1 at the three sites) and 12F (its fp32 backward, dx and
+    the twelve parameter gradients) at the shapes of a B = 2, 512-token fp32
+    train step: x [2, 512, 768] fp32, 12 heads, F = 3072, one sequence
+    padded after 300 tokens, layer 0's weights with the LN gains drawn as 1
+    + 0.1 N and biases as 0.1 N. Against bert_layer_plain /
+    bert_layer_bwd_plain through the same Philox masks within F32_BAND.
+    Controls: the chains with every lo plane zeroed (one bf16 product each),
+    masks from other seeds, the attention site left out (forward); the plain
+    backward's three faults (the attention keep left out of dp, the post-FF
+    keep left out of do2, the dropped probabilities in ds). Two calls the
+    same bits; train mode at rate 0 (both thresholds 0) row 6's bits. Times,
+    bound_ms (three bf16 products at the bf16 peak, the attention over the
+    real keys; 12F's bound counts the recompute forward and the backward,
+    three times the forward), library_ms: bert_library forward (6F) and
+    forward + backward with x and every parameter wanting its gradient
+    (12F)."""
+    from ct_clip_ut_tpu_torch.models.bert import layer_args
+    from ct_clip_ut_tpu_torch.ops.bert_layer import (bert_layer, bert_layer_bwd,
+                                                     bert_layer_bwd_f32, bert_layer_bwd_plain,
+                                                     bert_layer_fp32, bert_layer_plain)
+
+    bcfg = model.cfg.bert
+    d, heads, eps = bcfg.hidden_size, bcfg.num_heads, bcfg.layer_norm_eps
+    pa, ph = bcfg.attention_dropout, bcfg.hidden_dropout
+    b, n = BATCH, TEXT_LEN
+    g = torch.Generator(device="cuda").manual_seed(23)
+    lengths = torch.tensor([n, 300], device="cuda")
+    pad = torch.arange(n, device="cuda")[None, :] >= lengths[:, None]
+    mask_row = pad.float() * torch.finfo(torch.float32).min
+    x = torch.randn((b, n, d), generator=g, device="cuda")
+    w = [t.detach().clone() for t in layer_args(model.text_transformer.encoder.layer[0])]
+    for i in (4, 10):                                  # LN gains
+        w[i] = around_ones(torch, g, d)
+    for i in (5, 11):                                  # LN biases
+        w[i] = 0.1 * torch.randn((d,), generator=g, device="cuda")
+    f = w[6].shape[0]
+    seeds = torch.tensor([20231, 77, 1 << 30], dtype=torch.int32, device="cuda")
+    args = [x, mask_row, *w]
+    train = dict(p_attn=pa, p_hidden=ph, train=True, seeds=seeds)
+    other = {**train, "seeds": seeds + 1}
+    real_keys = int(lengths.sum())
+    forward_flops = 2 * b * n * d * (3 * d + d + 2 * f) + 4 * n * d * real_keys
+    wbytes = 4 * (4 * d * d + 2 * d * f + 3 * d + d + f + 5 * d)
+    out = {}
+
+    with torch.no_grad():
+        got = bert_layer(*args, heads, eps, **train)
+        want = bert_layer_plain(*args, heads, eps, **train)
+        controls = {
+            "one bf16 product each (lo planes zeroed)":
+                rel_err(bert_layer_fp32(*args, heads, eps, **train, one_pass=True), want),
+            "masks from other seeds": rel_err(got, bert_layer_plain(*args, heads, eps, **other)),
+            "attention site left out": rel_err(got, bert_layer_plain(
+                *args, heads, eps, **{**train, "p_attn": 0.0}))}
+        abs_err = band_check("bert_layer_f32_train", got, want, F32_BAND, controls,
+                             f"train fp32 {list(x.shape)}, p = {pa} / {ph}, {real_keys} real keys")
+        same = torch.equal(got, bert_layer(*args, heads, eps, **train))
+        zero = bert_layer_fp32(*args, heads, eps, p_attn=0.0, p_hidden=0.0, train=True,
+                               seeds=seeds)
+        row6 = torch.equal(zero, bert_layer(*args, heads, eps))
+        print(f"kernel bert_layer_f32_train: two calls the same bits: {same}; train mode at rate "
+              f"0 (thresholds 0) row 6's bits: {row6}")
+        if not (same and row6):
+            raise AssertionError("bert_layer_f32_train: two calls differ, or thresholds 0 move "
+                                 "row 6's bits")
+        ms = cuda_ms(torch, lambda: bert_layer(*args, heads, eps, **train))
+        plain_ms = cuda_ms(torch, lambda: bert_layer_plain(*args, heads, eps, **train))
+        lib_err = rel_err(bert_library(x, pad, w, heads, eps, 0.0)[~pad],
+                          bert_layer_plain(*args, heads, eps)[~pad])
+        library_ms = library_time(torch, lambda: bert_library(x, pad, w, heads, eps, pa))
+    rec = bound(3 * forward_flops, nbytes(x, mask_row, seeds, got) + wbytes, BF16_PEAK)
+    print(f"kernel bert_layer_f32_train: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products each, "
+          f"{real_keys} real keys), the fp32 PyTorch chain (TF32 off, SDPA with dropout "
+          f"{pa}) {library_ms:.3f} ms ({library_ms.span}) (at p = 0 its real rows vs the plain "
+          f"version: max_rel_err {lib_err:.3e}) [{card}]")
+    out["bert_layer_f32_train"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                       library_ms=library_ms)
+
+    names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg1", "dbe1", "dw1", "db1", "dw2", "db2",
+             "dg2", "dbe2")
+    dout = torch.randn((b, n, d), generator=g, device="cuda")
+    with torch.no_grad():
+        got = dict(zip(names, bert_layer_bwd(*args, dout, heads, eps, **train)))
+        want = dict(zip(names, bert_layer_bwd_plain(*args, dout, heads, eps, **train)))
+        faulty = {"one bf16 product each (lo planes zeroed)": dict(zip(names, bert_layer_bwd_f32(
+                      *args, dout, heads, eps, **train, one_pass=True))),
+                  "masks from other seeds": dict(zip(names, bert_layer_bwd_plain(
+                      *args, dout, heads, eps, **other)))}
+        for fault, label in (("no_attn_keep", "attention keep mask left out of dp"),
+                             ("no_hidden_keep", "post-FF keep mask left out"),
+                             ("p_used_in_ds", "p_used for p in ds")):
+            faulty[label] = dict(zip(names, bert_layer_bwd_plain(
+                *args, dout, heads, eps, **train, faults=(fault,))))
+        again = bert_layer_bwd(*args, dout, heads, eps, **train)
+        same = [nm for nm, y in zip(names, again) if torch.equal(got[nm], y)]
+    abs_err = grads_check("bert_layer_bwd_f32", got, want, F32_BAND, faulty,
+                          f"train fp32 {list(x.shape)} vs the plain backward through the same "
+                          f"masks; two calls the same bits in {len(same)} of {len(names)}")
+    if len(same) != len(names):
+        raise AssertionError(f"bert_layer_bwd_f32: gradients differ between two calls: "
+                             f"{sorted(set(names) - set(same))}")
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda: bert_layer_bwd(*args, dout, heads, eps, **train))
+        plain_ms = cuda_ms(torch, lambda: bert_layer_bwd_plain(*args, dout, heads, eps, **train))
+    library_ms, lib_grads = library_grad_ms(
+        torch, lambda xl, *wl: bert_library(xl, pad, wl, heads, eps, pa), [x, *w], dout)
+    rec = bound(9 * forward_flops, nbytes(x, mask_row, seeds, dout, *got.values()) + wbytes,
+                BF16_PEAK)
+    print(f"kernel bert_layer_bwd_f32: {ms:.3f} ms (the forward recomputed inside) vs plain "
+          f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, the forward "
+          f"and the backward as three bf16 products each), the fp32 PyTorch chain forward + "
+          f"backward (x and every parameter wanting its gradient, dropout {pa}) "
+          f"{library_ms:.3f} ms ({library_ms.span}) [{card}]")
+    out["bert_layer_bwd_f32"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
+                                     library_ms=library_ms)
+    del lib_grads
+    return out
+
+
+def bert_f32_train_phase(torch, model, card: str) -> tuple:
+    """Phase 15: the fp32 train step at the TrainConfig default 512-token
+    reports (TrainConfig(compute_dtype="float32")), on phase 14's model
+    (flagship width, peg_pallas=True, B = 2): BERT's 12 layers through rows
+    6F and 12F, the CT-ViT through phase 14's fp32 kernels. First
+    bert_f32_train_check; then f32_train_run at 512 tokens (reports of ~300
+    words): one step's gradients against plain=True, CTClipTrainer.train()
+    over 3 steps with F32_TRAIN_STEP and BERT_F32_STEP launches a step, row
+    6 in the evaluations, no bf16 BERT kernel; three more steps timed.
+    Returns (kernel record, launch counts of the train run)."""
+    t_phase = time.perf_counter()
+    record = bert_f32_train_check(torch, model, card)
+    step_counts, counts = f32_train_run(torch, model, card, TEXT_LEN, 300, 21,
+                                        {**F32_TRAIN_STEP, **BERT_F32_STEP}, "train fp32 512")
+    got = {k: step_counts[k] for k in BERT_F32_STEP}
+    if got != BERT_F32_STEP:
+        raise AssertionError(f"the fp32 512-token step launched {got}, expected {BERT_F32_STEP}")
+    print(f"train fp32 512: phase 15 in {time.perf_counter() - t_phase:.1f} s [{card}]")
     return record, counts
 
 
@@ -3973,14 +4202,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         suite_phase(torch, card)
         torch.cuda.empty_cache()
-        f32_train_record, f32_train_counts = f32_train_phase(torch, card)
+        f32_train_record, f32_train_counts, f32_model = f32_train_phase(torch, card)
         record.update(f32_train_record)
+        bert_f32_record, bert_f32_counts = bert_f32_train_phase(torch, f32_model, card)
+        record.update(bert_f32_record)
+        del f32_model
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     def run_of(name):
-        return (f32_train_counts if name in (*F32_TRAIN_KERNELS, *COUNTER_OF) else
+        return (bert_f32_counts if name in BERT_F32_KERNELS else
+                f32_train_counts if name in (*F32_TRAIN_KERNELS, *COUNTER_OF) else
                 train_counts if name in TRAIN_KERNELS else
                 attribution_counts if name in ATTRIBUTION_KERNELS else
                 gradient_counts if name in GRADIENT_KERNELS else

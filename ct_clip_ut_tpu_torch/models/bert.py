@@ -7,9 +7,10 @@ pass the JAX package's gate for its fused layer (bert.py:97-100: n >= 128
 and a multiple of 8, hidden a multiple of 128, heads of a width 8 divides)
 run each layer through the bert_layer kernels (`fused_layers`): the
 zero-shot prompts, padded to 512 tokens, in fp32; the train step's 512-token
-reports in bf16 with dropout, forward and backward (`bert_layer_grad`); the
-train loop's evaluation in bf16 without. Shorter sequences, and CPU tensors,
-take the layer loop written out below (HF semantics, two-pass LayerNorm).
+reports with dropout, forward and backward (`bert_layer_grad`), in bf16 or,
+under TrainConfig(compute_dtype="float32"), in fp32; the train loop's
+evaluation without. Shorter sequences, and CPU tensors, take the layer loop
+written out below (HF semantics, two-pass LayerNorm).
 
 Train mode (deterministic=False) applies the JAX package's dropout sites
 (bert.py:78-80, 127-170): the embeddings first, on both routes
@@ -17,11 +18,9 @@ Train mode (deterministic=False) applies the JAX package's dropout sites
 outputs at the BertConfig rates. The layer loop draws its masks with
 torch.bernoulli from the generator; the fused route draws three seeds per
 layer from it (`draw_seeds`, a device tensor) and the kernels compute
-Philox masks from them. A train-mode call without a generator raises (the
-JAX package silently turns dropout off there). One limit: an fp32
-train-mode call on the card that meets the gate raises, since the fp32
-chain has no dropout and no backward kernel (ROADMAP, Queue 2 item 8b; the
-TrainConfig default is bf16).
+Philox masks from them (the fp32 and bf16 chains draw the same bits). A
+train-mode call without a generator raises (the JAX package silently turns
+dropout off there).
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .. import _build
 from ..config import BertConfig
 from ..ops.bert_layer import bert_layer_grad, bert_layer_plain, draw_seeds
 from ..ops.layers import dropout, layernorm, linear
@@ -123,11 +121,6 @@ def fused_layers(bert: Bert, x: torch.Tensor, mask_row: torch.Tensor, plain: boo
     train = not deterministic
     if train and generator is None:
         raise ValueError("train-mode BERT (deterministic=False) needs a torch.Generator")
-    if train and not plain and x.dtype == torch.float32 and _build.on_cuda(x):
-        raise NotImplementedError(
-            f"train-mode BERT in fp32 at {x.shape[1]} tokens meets the fused-layer gate "
-            "(n >= 128), and the fp32 bert_layer chain has no dropout and no backward kernel "
-            "(ROADMAP, Queue 2 item 8b); train in bf16, the TrainConfig default")
     fn = bert_layer_plain if plain else bert_layer_grad
     for layer in bert.encoder.layer:
         seeds = draw_seeds(generator, x.device) if train else None

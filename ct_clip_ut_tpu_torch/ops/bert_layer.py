@@ -2,25 +2,27 @@
 
 Replaces ct_clip_ut_tpu/ops/pallas_bert_layer.py: `bert_layer_fused`'s
 forward (`_fwd_impl`) and its recompute backward (`_bwd_impl`), the text
-tower at n >= 128 tokens. Three CUDA chains, each with a header that says
+tower at n >= 128 tokens. Four CUDA chains, each with a header that says
 what bounds it on the H100 and what the design does about it:
 
 - `csrc/bert_layer.cu`: fp32, deterministic (the zero-shot prompts, padded
-  to 512 tokens and encoded in fp32), every product as three bf16
+  to 512 tokens and encoded in fp32) or in train mode with dropout (the
+  fp32 train step's 512-token reports), every product as three bf16
   tensor-core products of hi / lo planes (`bert_layer_fp32`);
+- `csrc/bert_layer_bwd_f32.cu`: the backward of the fp32 chain, dx and the
+  twelve parameter gradients in fp32 the same way (`bert_layer_bwd_f32`);
 - `csrc/bert_layer_bf16.cu`: bf16, deterministic (the train loop's
   evaluation) or in train mode with dropout on the attention probabilities
   and both hidden outputs (the train step's 512-token reports): the
   products on the Hopper GEMM core, a two-pass mma.sync attention core;
 - `csrc/bert_layer_bwd.cu`: the backward of the bf16 chain: dx and the
-  twelve parameter gradients, the forward recomputed and the dropout masks
-  regenerated from the same seeds; every sum in a fixed order, so two calls
-  give the same bits.
+  twelve parameter gradients.
 
-`bert_layer` picks the chain by x's dtype; `bert_layer_grad` is the layer
-with its backward (a torch.autograd.Function, the custom VJP of
-`bert_layer_fused`). An fp32 layer in train mode has no kernel: on a CUDA
-tensor it raises (ROADMAP, Queue 2 item 8b).
+Both backwards recompute the forward and regenerate the dropout masks from
+the same seeds, and sum every gradient in a fixed order, so two calls give
+the same bits. `bert_layer` and `bert_layer_bwd` pick the chain by x's
+dtype; `bert_layer_grad` is the layer with its backward (a
+torch.autograd.Function, the custom VJP of `bert_layer_fused`).
 
 Dropout. The TPU kernel reseeds its hardware PRNG per (site, sequence,
 head). Here every element gets its own Philox4x32-10 bits: the counter is
@@ -342,15 +344,71 @@ def _bf16_work(b, npad, d, f, heads, backward: bool, weights_f32: bool) -> list:
     return sizes
 
 
-FP32_ONE_PASS, FP32_NO_SKIP = 1, 2     # ctc_bert_layer's flags
+FP32_ONE_PASS, FP32_NO_SKIP = 1, 2     # the fp32 chains' flags
+_WEIGHT_NAMES = ("wqkv", "bqkv", "wo", "bo", "g1", "be1", "w1", "b1", "w2", "b2", "g2", "be2")
+
+
+def _f32_args(x, mask_row, w, heads: int) -> list:
+    """The fp32 chains' inputs, checked (fp32, contiguous, 16-B aligned: the
+    kernels read float4): [x, mask_row, the twelve weights]."""
+    b, n, d = x.shape
+    f = w[6].shape[0]
+    if d != heads * DIM_HEAD or f % 8:
+        raise ValueError(f"the bert_layer kernel takes heads of {DIM_HEAD} and an FF width "
+                         f"that 8 divides; got D={d}, heads={heads}, F={f}")
+    shapes = ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (f, d), (f,), (d, f), (d,), (d,),
+              (d,))
+    args = ((x, "x", (b, n, d)), (mask_row, "mask_row", (b, n)),
+            *zip(w, _WEIGHT_NAMES, shapes))
+    for t, name, shape in args:
+        _build.require(t, name, torch.float32, shape, x.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads float4, the data must be 16-B aligned")
+    return [t for t, _, _ in args]
+
+
+def _f32_seeds(seeds, dropout: bool, n: int, dev):
+    """The seeds' pointer for the fp32 chains (None without dropout, which
+    reads none), checked; dropout's slabs need n % 4 == 0."""
+    if not dropout:
+        return None
+    if n % 4:
+        raise ValueError(f"fp32 dropout takes a token count that 4 divides, got {n}")
+    _build.require(seeds, "seeds", torch.int32, (3,), dev)
+    return seeds.data_ptr()
+
+
+def _f32_work(b: int, n: int, d: int, f: int, heads: int, backward: bool) -> list:
+    """The byte sizes of the fp32 chains' workspaces, in the C entries'
+    order: bf16 hi / lo planes of x, wqkv, wo, w1, w2, qkv, ctx, y, g; fp32
+    r (r1 in the backward), y; for the backward also fp32 h1 and r2, rowstat
+    [b, heads, n] float4, the attention keep bits [b, heads, n, n / 32
+    rounded up to a whole 64-key chunk's two words] u32, fp32 dr2, the
+    planes of do2 and dh1, fp32 dr1, the planes of do1, dctx and dqkv, and
+    the partial rows of both LayerNorms [ceil(m / 64), 3d], of db1
+    [ceil(m / 16), f] and of dbqkv [b ceil(n / 16), 3d] (m = b n)."""
+    m = b * n
+    sizes = [4 * m * d, 12 * d * d, 4 * d * d, 4 * f * d, 4 * d * f, 12 * m * d, 4 * m * d,
+             4 * m * d, 4 * m * f, 4 * m * d, 4 * m * d]
+    if backward:
+        words = -(-n // KEY_CHUNK) * 2
+        ln_parts = 4 * -(-m // 64) * 3 * d
+        sizes += [4 * m * f, 4 * m * d, 16 * b * heads * n, 4 * b * heads * n * words,
+                  4 * m * d, 4 * m * d, 4 * m * f, 4 * m * d, 4 * m * d, 4 * m * d, 12 * m * d,
+                  ln_parts, ln_parts, 4 * -(-m // 16) * f, 4 * b * -(-n // 16) * 3 * d]
+    return sizes
 
 
 def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
-                    heads: int, eps: float, *, one_pass: bool = False,
-                    skip_masked: bool = True) -> torch.Tensor:
-    """The fp32 deterministic chain (csrc/bert_layer.cu) on CUDA tensors:
-    every product as three bf16 products of hi / lo planes on the tensor
-    cores. `one_pass=True` zeroes every lo plane (one bf16 product each: the
+                    heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
+                    train: bool = False, seeds: Optional[torch.Tensor] = None,
+                    one_pass: bool = False, skip_masked: bool = True) -> torch.Tensor:
+    """The fp32 chain (csrc/bert_layer.cu) on CUDA tensors: every product as
+    three bf16 products of hi / lo planes on the tensor cores;
+    deterministic, or with train=True dropout at the bf16 chain's Philox
+    masks (the same bits as `philox_keep`). A train-mode call counts
+    `bert_layer_f32_train`, a deterministic one `bert_layer`.
+    `one_pass=True` zeroes every lo plane (one bf16 product each: the
     control a run holds outside the fp32 band); `skip_masked=False` walks
     the key chunks that the mask removes entirely, which add exactly 0 (a
     run holds the two outputs bit for bit). CPU tensors raise: their route
@@ -359,37 +417,61 @@ def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2
         raise ValueError("bert_layer_fp32 runs the CUDA chain; bert_layer takes the plain "
                          "version for CPU tensors")
     w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
     b, n, d = x.shape
     f = w1.shape[0]
-    if d != heads * DIM_HEAD or f % 8:
-        raise ValueError(f"the bert_layer kernel takes heads of {DIM_HEAD} and an FF width "
-                         f"that 8 divides; got D={d}, heads={heads}, F={f}")
-    dev = x.device
-    args = ((x, "x", (b, n, d)), (mask_row, "mask_row", (b, n)),
-            *zip(w, ("wqkv", "bqkv", "wo", "bo", "g1", "be1", "w1", "b1", "w2", "b2", "g2", "be2"),
-                 ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (f, d), (f,), (d, f), (d,),
-                  (d,), (d,))))
-    for t, name, shape in args:
-        _build.require(t, name, torch.float32, shape, dev)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel reads float4, the data must be 16-B aligned")
-    m = b * n
-    f32 = dict(dtype=torch.float32, device=dev)
-    b16 = dict(dtype=torch.bfloat16, device=dev)
-    # hi / lo planes [2, rows, cols] of x, wqkv, wo, w1, w2, then of qkv, ctx, y, h
-    planes = [torch.empty((2, r, c), **b16)
-              for r, c in ((m, d), (3 * d, d), (d, d), (f, d), (d, f), (m, 3 * d), (m, d), (m, d),
-                           (m, f))]
-    ws = (torch.empty((m, d), **f32), torch.empty((m, d), **f32))
+    ins = _f32_args(x, mask_row, w, heads)
+    seeds_ptr = _f32_seeds(seeds, bool(ta or th), n, x.device)
+    offs, total = _layout(_f32_work(b, n, d, f, heads, backward=False))
+    buf = torch.empty((total,), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     flags = (FP32_ONE_PASS if one_pass else 0) | (0 if skip_masked else FP32_NO_SKIP)
     err = _build.load().ctc_bert_layer(
-        *(t.data_ptr() for t, _, _ in args), *(t.data_ptr() for t in planes),
-        *(t.data_ptr() for t in ws), out.data_ptr(), b, n, d, f, heads, flags, float(eps),
-        1.0 / DIM_HEAD ** 0.5, _build.stream_of(x))
+        ins[0].data_ptr(), ins[1].data_ptr(), seeds_ptr, *(t.data_ptr() for t in ins[2:]),
+        *(buf.data_ptr() + o for o in offs), out.data_ptr(), b, n, d, f, heads, flags,
+        float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
     _build.check(err, "bert_layer")
-    launches.count("bert_layer")
+    launches.count("bert_layer_f32_train" if train else "bert_layer")
     return out
+
+
+def bert_layer_bwd_f32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, dout,
+                       heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
+                       train: bool = False, seeds: Optional[torch.Tensor] = None,
+                       one_pass: bool = False) -> tuple:
+    """The fp32 backward chain (csrc/bert_layer_bwd_f32.cu) on CUDA tensors:
+    the forward recomputed, then (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1,
+    dw1, db1, dw2, db2, dg2, dbe2), all fp32, every product three bf16
+    products of hi / lo planes and every sum in a fixed order.
+    `one_pass=True` zeroes every lo plane (the control). CPU tensors raise:
+    their route is `bert_layer_bwd`'s plain version."""
+    if not _build.on_cuda(x):
+        raise ValueError("bert_layer_bwd_f32 runs the CUDA chain; bert_layer_bwd takes the "
+                         "plain version for CPU tensors")
+    w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
+    b, n, d = x.shape
+    f = w1.shape[0]
+    dev = x.device
+    if n % 4 or d % 128:
+        raise ValueError(f"the fp32 bert_layer backward takes a token count that 4 divides and "
+                         f"a width that 128 divides; got n={n}, D={d}")
+    ins = _f32_args(x, mask_row, w, heads)
+    seeds_ptr = _f32_seeds(seeds, bool(ta or th), n, dev)
+    _build.require(dout, "dout", torch.float32, (b, n, d), dev)
+    dout = _build.aligned16(dout)
+    offs, total = _layout(_f32_work(b, n, d, f, heads, backward=True))
+    buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=dev) for t in w]
+    err = _build.load().ctc_bert_layer_bwd_f32(
+        ins[0].data_ptr(), ins[1].data_ptr(), seeds_ptr, *(t.data_ptr() for t in ins[2:]),
+        dout.data_ptr(), *(buf.data_ptr() + o for o in offs), dx.data_ptr(),
+        *(t.data_ptr() for t in grads), b, n, d, f, heads, FP32_ONE_PASS if one_pass else 0,
+        float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
+    _build.check(err, "bert_layer_bwd_f32")
+    launches.count("bert_layer_bwd_f32")
+    return (dx, *grads)
 
 
 def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
@@ -397,22 +479,19 @@ def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2
                train: bool = False, seeds: Optional[torch.Tensor] = None,
                parts: Optional[dict] = None) -> torch.Tensor:
     """The bert_layer kernel chains on CUDA tensors (contiguous, heads of
-    64): fp32 x takes the fp32 deterministic chain (all arguments fp32), bf16
-    x the bf16 chain, with dropout when train=True. CPU tensors take the
-    plain version. A `parts` dict receives the bf16 chain's y, g and r2
+    64): fp32 x takes the fp32 chain (all arguments fp32), bf16 x the bf16
+    chain, each with dropout when train=True. CPU tensors take the plain
+    version. A `parts` dict receives the bf16 chain's y, g and r2
     workspaces, as bert_layer_plain's does."""
     _check_types(x)
     w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
     if not _build.on_cuda(x):
         return bert_layer_plain(x, mask_row, *w, heads, eps, p_attn=p_attn, p_hidden=p_hidden,
                                 train=train, seeds=seeds, parts=parts)
-    ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
     if x.dtype == torch.float32:
-        if ta or th:
-            raise NotImplementedError(
-                "the fp32 bert_layer kernel runs the deterministic forward only: train-mode "
-                "dropout runs in bf16 (ROADMAP, Queue 2 item 8b)")
-        return bert_layer_fp32(x, mask_row, *w, heads, eps)
+        return bert_layer_fp32(x, mask_row, *w, heads, eps, p_attn=p_attn, p_hidden=p_hidden,
+                               train=train, seeds=seeds)
+    ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
     b, n, d = x.shape
     xp, mask_p, seeds, weights, npad = _bf16_args(x, mask_row, w, seeds, heads)
     f = weights[6].shape[0]
@@ -439,19 +518,18 @@ def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2
 def bert_layer_bwd(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, dout,
                    heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
                    train: bool = False, seeds: Optional[torch.Tensor] = None) -> tuple:
-    """The bert_layer backward kernel chain on CUDA tensors (bf16 x and
-    dout), the plain backward on CPU tensors: (dx, dwqkv, dbqkv, dwo, dbo,
-    dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2), dx in x's dtype, the rest
-    fp32."""
+    """The bert_layer backward kernel chains on CUDA tensors (fp32 x and
+    dout: `bert_layer_bwd_f32`; bf16: the bf16 chain), the plain backward
+    on CPU tensors: (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2,
+    db2, dg2, dbe2), dx in x's dtype, the rest fp32."""
     _check_types(x)
     w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
     if not _build.on_cuda(x):
         return bert_layer_bwd_plain(x, mask_row, *w, dout, heads, eps, p_attn=p_attn,
                                     p_hidden=p_hidden, train=train, seeds=seeds)
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the bert_layer backward kernel takes bf16 activations: an fp32 layer has no "
-            "backward kernel (ROADMAP, Queue 2 item 8b)")
+    if x.dtype == torch.float32:
+        return bert_layer_bwd_f32(x, mask_row, *w, dout, heads, eps, p_attn=p_attn,
+                                  p_hidden=p_hidden, train=train, seeds=seeds)
     ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
     b, n, d = x.shape
     dev = x.device

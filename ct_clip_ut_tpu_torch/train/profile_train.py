@@ -26,9 +26,9 @@ compute, Adam, lr 1.25e-5, clip 0.5, 512-token reports from the stand-in
 layer's gate (n >= 128), where BERT trains on its layer loop. `--dtype
 float32` times the fp32 step (TrainConfig(compute_dtype="float32"): the
 CT-ViT's fp32 kernels forward and backward, every product three bf16
-products of hi / lo planes); at 512 tokens it raises (the fp32 BERT layer
-has no train-mode kernel yet), so pass `--text-len 120` with it. Each line
-names the card and its power limit (`nvidia-smi`).
+products of hi / lo planes; at the default 512 tokens BERT's fp32
+bert_layer chains with dropout, forward and backward). Each line names the
+card and its power limit (`nvidia-smi`).
 """
 
 from __future__ import annotations
@@ -106,7 +106,8 @@ def main(argv=None) -> int:
     ap.add_argument("--peg", choices=("both", "on", "off"), default="both",
                     help="the PEG on its kernels (peg_pallas=True), on F.conv3d, or both in turn")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
-                    help="TrainConfig.compute_dtype (float32: the fp32 step, at --text-len 120)")
+                    help="TrainConfig.compute_dtype (float32: the fp32 step, BERT on its fp32 "
+                         "kernels at the default 512 tokens)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)

@@ -10,9 +10,9 @@ returns the loss as a device tensor, without a host sync. The model's
 parameters stay fp32; the forward runs in `compute_dtype`: bf16 (the
 default), or float32, where the CT-ViT runs its fp32 kernels forward and
 backward (every parameter gradient three bf16 products of hi / lo planes)
-and BERT, at reports under 128 tokens, its plain layers as in the JAX
-package; an fp32 step at 128 tokens or more raises (no fp32 train-mode
-BERT kernel yet, ROADMAP Queue 2 item 8b).
+and BERT, at reports of 128 tokens or more (the default 512), its fp32
+bert_layer chains with dropout, forward and backward, or, under 128
+tokens, its plain layers as in the JAX package.
 
 `CTClipTrainer` is the driver of trainer.py:267-672: tokenising on the
 host, the epoch loop with the loss fetched one step late, the step-0

@@ -1,0 +1,357 @@
+"""What the CPU can check of the fp32 BERT layer in train mode (rows 6F and
+12F): the fp32 forward chain with its three dropout sites
+(`ctc_bert_layer`, csrc/bert_layer.cu on csrc/bert_f32.cuh) and its fp32
+recompute backward with every gradient (`ctc_bert_layer_bwd_f32`,
+csrc/bert_layer_bwd_f32.cu).
+
+The chains run only on the card (chip_smoke.py phase 15 and the card tests
+`-k "bert_f32"` hold them against their plain versions there). Here each is
+emulated in torch plane by plane, as tests/test_torch_port_f32_train_hopper.py
+does for rows 7F-9F: every fp32 product three bf16 products of hi / lo
+planes (A_hi B_hi + A_lo B_hi + A_hi B_lo in fp32), the planes written where
+the kernels write them; the attention an online softmax over 64-key chunks,
+each exp(s - m) times its keep factor before it feeds P.V and the row sum
+undropped; the hidden sites' keep factors in the products' epilogues, after
+the bias and before the residual; the backward's p from the recompute's
+(max, 1 / sum), its row term rowsum(dctx (ctx_hi + ctx_lo)), the masks
+from the same Philox bits (`philox_keep`), and the weight gradients A^T B
+over the tokens from the planes, as the three-pass split wgrad plans take
+them. The emulations are held, at D = 256, 4 heads of 64, n = 128, F = 512
+and one sequence masked to 90 (tests/test_torch_port_bert_train.py's case),
+(i) at p = 0 against jax.vjp of the Pallas kernel `bert_layer_fused` in
+interpret mode and of its XLA twin `bert_layer_xla`, and (ii) in train mode
+against `bert_layer_plain` / `bert_layer_bwd_plain` through the same masks
+(there is no JAX twin with dropout on the CPU: the Pallas interpreter's PRNG
+is a stub), for the output, x and all twelve parameters, within 2e-5 of each
+output's largest entry. The one-pass control (every lo plane zero) and the
+plain backward's three faults (the attention keep left out of dp, the
+post-FF keep left out of do2, the dropped probabilities in ds) each miss the
+band. Last, the keep bits' layout as the passes read it, and the split pair
+plan's tiles (mirrored from csrc/bert_layer_bwd_f32.cu) covering every
+weight gradient's elements once.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ct_clip_ut_tpu.ops.pallas_bert_layer import bert_layer_fused, bert_layer_xla
+from ct_clip_ut_tpu_torch.ops.bert_layer import (bert_layer_bwd_plain, bert_layer_plain,
+                                                 philox_keep)
+
+from test_torch_port_bert_train import EPS, HEADS, MATRICES, NAMES, _case, _jax_grads
+from test_torch_port_cuda import BERT_KEYS, _torch_bert_args
+from test_torch_port_f32_bwd_hopper import _t
+from test_torch_port_f32_hopper import _product, _split
+
+BAND = 2e-5               # max |got - want| / max |want| of each output
+KC = 64                   # keys (queries) a chunk of the attention core and passes
+MASKED, REAL = -1e30, -1e20
+RATE = 0.1                # BertConfig's attention and hidden dropout
+SEEDS = torch.tensor([20231, 77, 1 << 30], dtype=torch.int32)
+FAULTS = ("no_attn_keep", "no_hidden_keep", "p_used_in_ds")
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _ln(r, gamma, beta):
+    """ln_split_kernel's one-pass moments: (y, xhat, rstd)."""
+    mean = r.mean(-1, keepdim=True)
+    var = ((r * r).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (r - mean) * rstd
+    return xhat * gamma + beta, xhat, rstd
+
+
+def _ln_bwd(dout, xhat, rstd, gamma):
+    """ln_drop_bwd_kernel's dr, before the keep."""
+    dxhat = dout * gamma
+    return (dxhat - dxhat.mean(-1, keepdim=True)
+            - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * rstd
+
+
+def _keeps(b, n, d, train):
+    """(keep_attn [b, heads, n, n], keep1, keep2 [b n, d]) from SEEDS, or Nones."""
+    if not train:
+        return None, None, None
+    ka = philox_keep(SEEDS, 0, b, HEADS, n * n, RATE).reshape(b, HEADS, n, n)
+    k1, k2 = (philox_keep(SEEDS, s, b, 1, n * d, RATE).reshape(b * n, d) for s in (1, 2))
+    return ka, k1, k2
+
+
+def _wgrad(a, b):
+    """A^T B over the token rows of planes a [M, i], b [M, j]: the split
+    pair plan's three passes."""
+    return _product(_t(a), _t(b))
+
+
+def _attention(q, k, v, mask, ka, one_pass, skip):
+    """attn_kernel on planes q, k, v [b, heads, n, 64]: per (sequence,
+    head) an online softmax over 64-key chunks, the chunks the mask removes
+    entirely skipped (with `skip`), each exp(s - m) times its keep factor
+    before P.V, the row sum undropped. Returns ctx [b, heads, n, 64] and
+    each row's final (max, sum)."""
+    b, _, n, dh = q[0].shape
+    scale = 1.0 / math.sqrt(dh)
+    ctx, mx_out, l_out = (torch.empty(q[0].shape), torch.empty(q[0].shape[:3]),
+                          torch.empty(q[0].shape[:3]))
+    for s in range(b):
+        mrow = mask[s]
+        any_real = skip and bool((mrow > REAL).any())
+        m = torch.full((HEADS, n), -math.inf)
+        l, o = torch.zeros((HEADS, n)), torch.zeros((HEADS, n, dh))
+        for c0 in range(0, n, KC):
+            keys = slice(c0, min(n, c0 + KC))
+            if any_real and bool((mrow[keys] < MASKED).all()):
+                continue
+            sc = _product([t[s] for t in q], [t[s][:, keys] for t in k]) * scale + mrow[keys]
+            mx = torch.maximum(m, sc.max(-1).values)
+            alpha = torch.exp(m - mx)
+            m = mx
+            p = torch.exp(sc - m[..., None])
+            l = l * alpha + p.sum(-1)
+            if ka is not None:
+                p = p * ka[s][:, :, keys]
+            o = o * alpha[..., None] + _product(_split(p, one_pass),
+                                                [t[s][:, keys].transpose(-1, -2) for t in v])
+        ctx[s], mx_out[s], l_out[s] = o / l[..., None], m, l
+    return ctx, mx_out, l_out
+
+
+def emulated_forward(x, mask, w, keeps, *, one_pass=False, skip=True):
+    """ctc_bert_layer (forward_chain_f32): the split pass, the QKV product
+    (SplitEpi), attn_kernel, the out-projection with bias, keep1 and the
+    residual (HiddenF32Epi), LN1 as fp32 and planes, the FF's first product
+    with GELU (h1 kept), its second with bias, keep2 and y, LN2. Returns the
+    output [b, n, d] and what the backward reads."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = w
+    ka, k1, k2 = keeps
+    b, n, d = x.shape
+    dh = d // HEADS
+
+    def sp(t):
+        return _split(t, one_pass)
+
+    def heads_of(t):
+        return t.reshape(b, n, HEADS, dh).transpose(1, 2)
+
+    x2 = x.reshape(b * n, d)
+    xs = sp(x2)
+    ws = [sp(t) for t in (wqkv, wo, w1, w2)]
+    qkv = sp(_product(xs, ws[0]) + bqkv)
+    q, k, v = ([heads_of(p[:, i * d:(i + 1) * d]) for p in qkv] for i in range(3))
+    ctx, mx, l = _attention(q, k, v, mask, ka, one_pass, skip)
+    ctx_s = sp(ctx.transpose(1, 2).reshape(b * n, d))
+    o1 = _product(ctx_s, ws[1]) + bo
+    r1 = (o1 if k1 is None else o1 * k1) + x2
+    y, xhat1, rstd1 = _ln(r1, g1, be1)
+    y_s = sp(y)
+    h1 = _product(y_s, ws[2]) + b1
+    g_s = sp(0.5 * h1 * (1.0 + torch.erf(h1 * 0.7071067811865476)))
+    o2 = _product(g_s, ws[3]) + b2
+    r2 = (o2 if k2 is None else o2 * k2) + y
+    out, xhat2, rstd2 = _ln(r2, g2, be2)
+    return out.reshape(b, n, d), dict(xs=xs, ws=ws, q=q, k=k, v=v, mx=mx, l=l, ctx_s=ctx_s,
+                                      xhat1=xhat1, rstd1=rstd1, y_s=y_s, h1=h1, g_s=g_s,
+                                      xhat2=xhat2, rstd2=rstd2)
+
+
+def emulated_backward(x, mask, w, dout, keeps, *, one_pass=False):
+    """ctc_bert_layer_bwd_f32: the forward recomputed with every key chunk
+    walked, then ln_drop_bwd (LN2, keep2), dh1 = (do2 W2) gelu'(h1) (W2's
+    planes read MN-major), dW2 | dW1, dy = dr2 + dh1 W1, ln_drop_bwd (LN1,
+    keep1), dctx = do1 Wo with the row term D = rowsum(dctx (ctx_hi +
+    ctx_lo)), the query and key passes (p = exp(s - max) / sum, dp = (dctx
+    v^T) keep, ds = p (dp - D) / 8, dq = ds k, dk = ds^T q, dv = (p keep)^T
+    dctx, each product split), dWo | dWqkv, dx = dr1 + dqkv Wqkv; the column
+    sums of fp32 values. Returns the thirteen gradients of
+    bert_layer_bwd_plain."""
+    ka, k1, k2 = keeps
+    b, n, d = x.shape
+    dh = d // HEADS
+    _, f = emulated_forward(x, mask, w, keeps, one_pass=one_pass, skip=False)
+    ws = f["ws"]
+    g1, g2 = w[4], w[10]
+
+    def sp(t):
+        return _split(t, one_pass)
+
+    def heads_of(t):
+        return t.reshape(b, n, HEADS, dh).transpose(1, 2)
+
+    def merged(t):
+        return t.transpose(1, 2).reshape(b * n, d)
+
+    dout2 = dout.reshape(b * n, d)
+    dr2 = _ln_bwd(dout2, f["xhat2"], f["rstd2"], g2)
+    do2 = dr2 if k2 is None else dr2 * k2
+    do2_s = sp(do2)
+    h1 = f["h1"]
+    cdf = 0.5 * (1.0 + torch.erf(h1 * 0.7071067811865476))
+    dh1 = _product(do2_s, _t(ws[3])) * (cdf + h1 * 0.3989422804014327 * torch.exp(-0.5 * h1 * h1))
+    dh1_s = sp(dh1)
+    dy = dr2 + _product(dh1_s, _t(ws[2]))
+    dr1 = _ln_bwd(dy, f["xhat1"], f["rstd1"], g1)
+    do1 = dr1 if k1 is None else dr1 * k1
+    do1_s = sp(do1)
+    dctx = _product(do1_s, _t(ws[1]))
+    ctx_s = f["ctx_s"]
+    row_term = heads_of(dctx * (ctx_s[0] + ctx_s[1])).sum(-1)
+    dc = [heads_of(t) for t in sp(dctx)]
+    q, k, v = f["q"], f["k"], f["v"]
+    s = _product(q, k) / math.sqrt(dh) + mask[:, None, None, :]
+    p = torch.exp(s - f["mx"][..., None]) * (1.0 / f["l"])[..., None]
+    kf = 1.0 if ka is None else ka
+    ds = p * (_product(dc, v) * kf - row_term[..., None]) / math.sqrt(dh)
+    dq = _product(sp(ds), _t(k))
+    dk = _product(sp(ds.transpose(-1, -2)), _t(q))
+    dv = _product(sp((p * kf).transpose(-1, -2)), _t(dc))
+    dqkv = torch.cat([merged(dq), merged(dk), merged(dv)], dim=-1)
+    dqkv_s = sp(dqkv)
+    dx = dr1 + _product(dqkv_s, _t(ws[0]))
+    return (dx.reshape(b, n, d), _wgrad(dqkv_s, f["xs"]), dqkv.sum(0), _wgrad(do1_s, ctx_s),
+            do1.sum(0), (dy * f["xhat1"]).sum(0), dy.sum(0), _wgrad(dh1_s, f["y_s"]),
+            dh1.sum(0), _wgrad(do2_s, f["g_s"]), do2.sum(0), (dout2 * f["xhat2"]).sum(0),
+            dout2.sum(0))
+
+
+def _args(seed):
+    a = _case(seed)
+    args = _torch_bert_args(a)
+    return a, args[0], args[1], args[2:]
+
+
+def _jax_twin_grads(a, g):
+    """jax.vjp of the XLA twin at fp32, weights in the port's layout."""
+    x, mask, *w = (jnp.asarray(a[k]) for k in BERT_KEYS)
+    fn = jax.jit(lambda x_, *w_: jax.vjp(lambda *p: bert_layer_xla(p[0], mask, *p[1:], HEADS, EPS),
+                                         x_, *w_)[1](jnp.asarray(g)))
+    return [np.asarray(t).T if nm in MATRICES else np.asarray(t) for nm, t in zip(NAMES, fn(x, *w))]
+
+
+def test_f32_forward_chain_matches_the_pallas_kernel_at_p0():
+    a, x, mask, w = _args(60)
+    got = emulated_forward(x, mask, w, _keeps(*x.shape, False))[0]
+    one = emulated_forward(x, mask, w, _keeps(*x.shape, False), one_pass=True)[0]
+    jx, jmask, *jw = (jnp.asarray(a[k]) for k in BERT_KEYS)
+    kernel = bert_layer_fused(jx, jmask, jnp.zeros(3, jnp.int32), *jw, HEADS, EPS, 0.0, 0.0,
+                              False, True)
+    twin = bert_layer_xla(jx, jmask, *jw, HEADS, EPS)
+    for want in (kernel, twin, bert_layer_plain(x, mask, *w, HEADS, EPS)):
+        assert _rel(got, want) <= BAND
+        assert _rel(one, want) > BAND
+
+
+def test_f32_train_forward_chain_matches_the_plain_version():
+    """The three sites through the same Philox masks; controls the one-pass
+    chain and the chain with its keep factors left out of P.V."""
+    _, x, mask, w = _args(61)
+    keeps = _keeps(*x.shape, True)
+    got, _ = emulated_forward(x, mask, w, keeps)
+    want = bert_layer_plain(x, mask, *w, HEADS, EPS, p_attn=RATE, p_hidden=RATE, train=True,
+                            seeds=SEEDS)
+    assert _rel(got, want) <= BAND
+    assert _rel(emulated_forward(x, mask, w, keeps, one_pass=True)[0], want) > BAND
+    assert _rel(emulated_forward(x, mask, w, (None, *keeps[1:]))[0], want) > BAND
+    # the masked chunks are skipped: the same bits as walking them
+    assert torch.equal(got, emulated_forward(x, mask, w, keeps, skip=False)[0])
+
+
+def test_f32_backward_chain_matches_the_jax_vjps_at_p0():
+    """x and the twelve parameters against jax.vjp of the Pallas kernel in
+    interpret mode and of the XLA twin; the one-pass chain misses the band
+    in each but dbeta2, the column sums of dout, which no product touches."""
+    a, x, mask, w = _args(62)
+    g = np.random.default_rng(63).standard_normal(a["x"].shape).astype(np.float32)
+    tg = torch.from_numpy(g)
+    got = emulated_backward(x, mask, w, tg, _keeps(*x.shape, False))
+    one = emulated_backward(x, mask, w, tg, _keeps(*x.shape, False), one_pass=True)
+    for want in (_jax_grads(a, g), _jax_twin_grads(a, g)):
+        for name, gt, ct, wt in zip(NAMES, got, one, want):
+            assert _rel(gt, wt) <= BAND, name
+            assert name == "be2" or _rel(ct, wt) > BAND, name
+
+
+def test_f32_train_backward_chain_matches_the_plain_backward():
+    """Dropout at 0.1 on all three sites, the plain backward through the
+    same masks: every gradient within the band; the one-pass chain and each
+    of the plain backward's faults outside it in some gradient."""
+    a, x, mask, w = _args(64)
+    tg = torch.from_numpy(np.random.default_rng(65).standard_normal(a["x"].shape)
+                          .astype(np.float32))
+    keeps = _keeps(*x.shape, True)
+    got = emulated_backward(x, mask, w, tg, keeps)
+    kw = dict(p_attn=RATE, p_hidden=RATE, train=True, seeds=SEEDS)
+    want = bert_layer_bwd_plain(x, mask, *w, tg, HEADS, EPS, **kw)
+    for name, gt, wt in zip(NAMES, got, want):
+        assert _rel(gt, wt) <= BAND, name
+    one = emulated_backward(x, mask, w, tg, keeps, one_pass=True)
+    assert max(_rel(ct, wt) for ct, wt in zip(one, want)) > BAND
+    for fault in FAULTS:
+        faulty = bert_layer_bwd_plain(x, mask, *w, tg, HEADS, EPS, **kw, faults=(fault,))
+        assert max(np.abs(np.asarray(gt) - np.asarray(ft)).max() / np.abs(np.asarray(wt)).max()
+                   for gt, ft, wt in zip(got, faulty, want)) > BAND, fault
+
+
+def test_keep_bits_read_by_the_passes_are_the_philox_masks():
+    """attn_kernel<true> writes the keep mask of row i as keep_words(n)
+    words, key j at bit 8 (jt % 4) + 2 t + e of word 2 c + jt / 4 (chunk c,
+    8-key tile jt, lane quad column t, e = 0, 1); the query pass reads bit
+    j % 32 of word j / 32, the key pass bit kloc % 32 of word 2 c +
+    kloc / 32 (kloc = j % 64). All three name the same bit, and the bits
+    give philox_keep's mask at n = 120 (a ragged last chunk)."""
+    n = 120
+    words = -(-n // KC) * 2
+    mask = philox_keep(SEEDS, 0, 2, HEADS, n * n, RATE).reshape(2, HEADS, n, n) > 0
+    bits = torch.zeros((2, HEADS, n, words), dtype=torch.int64)
+    for c in range(words // 2):
+        for jt in range(8):
+            for t in range(4):
+                for e in range(2):
+                    j = c * KC + 8 * jt + 2 * t + e
+                    if j < n:
+                        bit, word = 8 * (jt & 3) + 2 * t + e, 2 * c + (jt >> 2)
+                        assert (word, bit) == (j // 32, j % 32)
+                        kloc = j % KC
+                        assert (2 * (j // KC) + (kloc >> 5), kloc & 31) == (word, bit)
+                        bits[..., word] |= mask[..., j].long() << bit
+    j = torch.arange(n)
+    read = (bits[..., j // 32] >> (j % 32)) & 1
+    assert torch.equal(read.bool(), mask)
+
+
+BM = BN = 128
+
+
+def split_pair_tiles(r0, c0, r1, c1):
+    """SplitPairPlan's tiles: (map a, map b, i0, j0, out, orow0, nrows)."""
+    ct0, ct1 = -(-c0 // BN), -(-c1 // BN)
+    tiles0, tiles1 = -(-r0 // BM) * ct0, -(-r1 // BM) * ct1
+    tiles = []
+    for t in range(tiles0 + tiles1):
+        second = t >= tiles0
+        u, ct, rows = (t - tiles0, ct1, r1) if second else (t, ct0, r0)
+        i0, j0 = (u // ct) * BM, (u % ct) * BN
+        tiles.append((4 if second else 0, 6 if second else 2, i0, j0, int(second), i0,
+                      min(BM, rows - i0)))
+    return tiles
+
+
+@pytest.mark.parametrize("d,f", [(768, 3072), (256, 512), (384, 200)])
+def test_split_pair_plans_write_every_weight_gradient_once(d, f):
+    """dW2 [d, f] | dW1 [f, d] and dWo [d, d] | dWqkv [3d, d]: every element
+    of both outputs written by one tile, the hi maps even (lo at + 1)."""
+    for shapes in (((d, f), (f, d)), ((d, d), (3 * d, d))):
+        tiles = split_pair_tiles(*shapes[0], *shapes[1])
+        assert all(a % 2 == 0 and b % 2 == 0 for a, b, *_ in tiles)
+        seen = [np.zeros(s, np.int64) for s in shapes]
+        for _, _, _, j0, out, orow0, nrows in tiles:
+            seen[out][orow0:orow0 + nrows, j0:j0 + BN] += 1
+        assert all((s == 1).all() for s in seen)

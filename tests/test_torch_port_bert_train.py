@@ -278,9 +278,10 @@ def test_bert_layer_wrappers_take_plain_versions_on_cpu(monkeypatch):
 
 
 def test_bert_layer_kernel_shape_limits_raise(monkeypatch):
-    """What the bf16 chains cannot take raises before any launch: heads of
-    another width than 64, more tokens than a shared-memory score row holds;
-    the backward has no fp32 kernel."""
+    """What the chains cannot take raises before any launch: heads of
+    another width than 64, more tokens than a shared-memory score row holds
+    (bf16); a width that 128 does not divide in the fp32 backward (its row
+    term's epilogue takes two heads a 128-column tile)."""
     monkeypatch.setattr(_build, "on_cuda", lambda x: True)
     args = _torch_bert_args(_bert_inputs(np.random.default_rng(51), 1, 8, 64, 128, [8]))
     args[0] = args[0].bfloat16()
@@ -291,7 +292,7 @@ def test_bert_layer_kernel_shape_limits_raise(monkeypatch):
     with pytest.raises(ValueError, match="at most 672 tokens"):
         bert_layer(*long, 1, EPS)
     args[0] = args[0].float()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
+    with pytest.raises(ValueError, match="a width that 128 divides"):
         bert_layer_bwd(*args, torch.zeros_like(args[0]), 1, EPS)
 
 

@@ -551,6 +551,58 @@ def test_bert_layer_bwd_same_bits_on_two_calls_on_card(cuda_device, b, n, length
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,lengths", [(2, 512, [512, 300]), (3, 136, [7, 136, 60]),
+                                         (1, 128, [100])])
+def test_bert_f32_train_kernels_match_plain_on_card(cuda_device, b, n, lengths):
+    """Rows 6F and 12F: the fp32 layer in train mode (p = 0.1 / 0.1) and
+    its backward (dx and the twelve parameter gradients) within BERT_BAND
+    of the plain versions through the same Philox masks; n = 136 leaves a
+    ragged last 64-key chunk. Controls: the one-pass chains (every lo plane
+    zeroed), other seeds, the plain backward's three faults (the attention
+    keep left out of dp, the post-FF keep left out of do2, the dropped
+    probabilities in ds). Two calls the same bits; train mode at rate 0
+    (both thresholds 0) the deterministic chain's bits."""
+    from ct_clip_ut_tpu_torch.ops.bert_layer import (bert_layer_bwd, bert_layer_bwd_f32,
+                                                     bert_layer_bwd_plain, bert_layer_fp32)
+
+    args, seeds = _bert_bf16_case(cuda_device, b, n, lengths, 30)
+    args[0] = torch.from_numpy(np.random.default_rng(31).standard_normal((b, n, 768))
+                               .astype(np.float32)).to(cuda_device)
+    kw = dict(p_attn=0.1, p_hidden=0.1, train=True, seeds=seeds)
+    launches.reset_launch_counts()
+    got = bert_layer(*args, 12, 1e-12, **kw)
+    assert launches.launch_counts()["bert_layer_f32_train"] == 1
+    want = bert_layer_plain(*args, 12, 1e-12, **kw)
+    assert _rel_err(got, want) <= BERT_BAND, _rel_err(got, want)
+    assert torch.equal(got, bert_layer(*args, 12, 1e-12, **kw))
+    assert _rel_err(bert_layer_fp32(*args, 12, 1e-12, **kw, one_pass=True), want) > BERT_BAND
+    other = {**kw, "seeds": seeds + 1}
+    assert _rel_err(got, bert_layer_plain(*args, 12, 1e-12, **other)) > BERT_BAND
+    zero = dict(p_attn=0.0, p_hidden=0.0, train=True, seeds=seeds)
+    assert torch.equal(bert_layer_fp32(*args, 12, 1e-12, **zero), bert_layer(*args, 12, 1e-12))
+
+    g = torch.randn(args[0].shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(7))
+    grads = bert_layer_bwd(*args, g, 12, 1e-12, **kw)
+    assert launches.launch_counts()["bert_layer_bwd_f32"] == 1
+    wants = bert_layer_bwd_plain(*args, g, 12, 1e-12, **kw)
+    for name, x, y in zip(BERT_GRADS, grads, wants):
+        assert x.shape == y.shape and x.dtype == torch.float32, name
+        assert _rel_err(x, y) <= BERT_BAND, (name, _rel_err(x, y))
+    for name, x, y in zip(BERT_GRADS, grads, bert_layer_bwd(*args, g, 12, 1e-12, **kw)):
+        assert torch.equal(x, y), name
+
+    def off(faulty):
+        return max(((x - f).abs().max() / y.abs().max()).item()
+                   for x, f, y in zip(grads, faulty, wants))
+
+    assert off(bert_layer_bwd_f32(*args, g, 12, 1e-12, **kw, one_pass=True)) > BERT_BAND
+    assert off(bert_layer_bwd_plain(*args, g, 12, 1e-12, **other)) > BERT_BAND
+    for fault in ("no_attn_keep", "no_hidden_keep", "p_used_in_ds"):
+        assert off(bert_layer_bwd_plain(*args, g, 12, 1e-12, **kw, faults=(fault,))) > BERT_BAND
+
+
+@pytest.mark.cuda
 def test_bert_bf16_chain_runs_on_wgmma_and_mma_sync_on_card(cuda_device):
     """The bf16 BERT chain's products (its epilogues on gemm_kernel and
     gemm64_kernel) and weight gradients (BertWgradPlan) have HGMMA
@@ -659,38 +711,40 @@ def test_peg_grad_function_matches_autograd_of_plain_on_card(cuda_device, causal
 
 @pytest.mark.cuda
 def test_bert_apply_train_mode_takes_the_kernels_on_card(cuda_device):
-    """A train-mode bert_apply at 512 tokens in bf16 runs every layer through
-    bert_layer_bf16 and its backward through bert_layer_bwd, none through the
-    layer loop; the same generator state repeats it; fp32 train mode raises."""
+    """A train-mode bert_apply at 512 tokens runs every layer and its
+    backward through the kernels, none through the layer loop: in bf16
+    bert_layer_bf16 and bert_layer_bwd; in fp32, at BertConfig's 12 layers,
+    bert_layer_f32_train and bert_layer_bwd_f32 (12 + 12), no bf16 entry.
+    The same generator state repeats each bit for bit, another differs."""
     from ct_clip_ut_tpu_torch.config import BertConfig
     from ct_clip_ut_tpu_torch.models import bert as tbert
 
-    cfg = BertConfig(vocab_size=512, num_layers=2)
-    torch.manual_seed(0)
-    mod = tbert.Bert(cfg).to(cuda_device)
     ids = torch.randint(0, 512, (2, 512), device=cuda_device)
     mask = torch.ones_like(ids)
     mask[1, 300:] = 0
 
-    def run(seed):
+    def run(mod, dtype, seed):
         mod.zero_grad()
         gen = torch.Generator(cuda_device).manual_seed(seed)
-        out = tbert.bert_apply(mod, ids, mask, compute_dtype=torch.bfloat16, generator=gen,
+        out = tbert.bert_apply(mod, ids, mask, compute_dtype=dtype, generator=gen,
                                deterministic=False)
         out.float().square().mean().backward()
         return out.detach(), mod.encoder.layer[0].intermediate["dense"].weight.grad.clone()
 
-    launches.reset_launch_counts()
-    out, grad = run(1)
-    counts = launches.launch_counts()
-    assert counts["bert_layer_bf16"] == counts["bert_layer_bwd"] == 2 and counts["bert_layer"] == 0
-    assert out.dtype == torch.bfloat16 and torch.isfinite(grad).all() and grad.abs().max() > 0
-    again, _ = run(1)
-    other, _ = run(2)
-    assert torch.equal(out, again) and not torch.equal(out, other)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
-        tbert.bert_apply(mod, ids, mask, generator=torch.Generator(cuda_device),
-                         deterministic=False)
+    for dtype, layers, fwd, bwd in ((torch.bfloat16, 2, "bert_layer_bf16", "bert_layer_bwd"),
+                                    (torch.float32, 12, "bert_layer_f32_train",
+                                     "bert_layer_bwd_f32")):
+        torch.manual_seed(0)
+        mod = tbert.Bert(BertConfig(vocab_size=512, num_layers=layers)).to(cuda_device)
+        launches.reset_launch_counts()
+        out, grad = run(mod, dtype, 1)
+        counts = launches.launch_counts()
+        assert {k: v for k, v in counts.items() if v} == {fwd: layers, bwd: layers}
+        assert out.dtype == dtype and torch.isfinite(grad).all() and grad.abs().max() > 0
+        again, grad_again = run(mod, dtype, 1)
+        other, _ = run(mod, dtype, 2)
+        assert torch.equal(out, again) and torch.equal(grad, grad_again)
+        assert not torch.equal(out, other)
 
 
 @pytest.mark.cuda

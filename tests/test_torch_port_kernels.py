@@ -120,9 +120,10 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
     # 18 kernels, the fp32 variants of six, the fp32 data-gradient chains of three
-    # and the fp32 train step's five (the full block and FF backwards, the
-    # residual-saving patch embed and its weight gradient)
-    assert len(launches.KERNELS) == 32
+    # and the fp32 train step's seven (the full block and FF backwards, the
+    # residual-saving patch embed and its weight gradient, the BERT layer in
+    # train mode and its backward)
+    assert len(launches.KERNELS) == 34
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -137,7 +138,8 @@ def test_build_sources_are_the_package_csrc():
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
                      "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
                      "attn_mma.cuh", "wgrad_sm90.cuh", "split_sm90.cuh", "attn_bwd_f32.cuh",
-                     "attn_block_bwd_f32.cu", "attn_packed_bwd_f32.cu", "geglu_ff_bwd_f32.cu"}
+                     "attn_block_bwd_f32.cu", "attn_packed_bwd_f32.cu", "geglu_ff_bwd_f32.cu",
+                     "bert_f32.cuh", "bert_layer_bwd_f32.cu"}
     assert len(_build.source_hash()) == 16
     assert all(name in _build.SIGNATURES for name in
                ("ctc_attn_block", "ctc_attn_packed", "ctc_geglu_ff", "ctc_vq_nearest",
@@ -147,7 +149,7 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
                 "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check", "ctc_wgrad_sm90_check",
                 "ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32", "ctc_geglu_ff_bwd_f32",
-                "ctc_attn_bwd_f32_max_n"))
+                "ctc_attn_bwd_f32_max_n", "ctc_bert_layer_bwd_f32"))
 
 
 def test_signatures_match_the_c_entries():
@@ -250,12 +252,41 @@ def test_bert_layer_dropout_and_train_mode_raise(train, p_attn, p_hidden):
             assert torch.equal(fn(*args, 1, 1e-12, **kw), bert_layer_plain(*args, 1, 1e-12))
 
 
-def test_bert_layer_fp32_dropout_has_no_kernel(monkeypatch):
-    args = _torch_bert_args(_bert_inputs(np.random.default_rng(13), 1, 8, 64, 128, [8]))
+def test_bert_layer_fp32_dropout_reaches_the_fp32_chains(monkeypatch):
+    """On a (stand-in) card tensor an fp32 train-mode layer reaches
+    ctc_bert_layer with both thresholds set and its seeds, counted as
+    bert_layer_f32_train; the deterministic layer the same entry with
+    thresholds 0 and no seeds, counted as bert_layer; the fp32 backward
+    ctc_bert_layer_bwd_f32 with the thresholds, counted as
+    bert_layer_bwd_f32. No plain version and no bf16 entry runs."""
+    from ct_clip_ut_tpu_torch.ops import bert_layer as bl
+
+    from test_torch_port_f32_hopper import FakeLib
+
+    lib = FakeLib()
     monkeypatch.setattr(_build, "on_cuda", lambda x: True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
-        bert_layer(*args, 1, 1e-12, p_attn=0.1, p_hidden=0.1, train=True,
-                   seeds=torch.zeros(3, dtype=torch.int32))
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    for name in ("bert_layer_plain", "bert_layer_bwd_plain"):
+        monkeypatch.setattr(bl, name, lambda *a, **k: pytest.fail("a plain version ran"))
+    launches.reset_launch_counts()
+    args = _torch_bert_args(_bert_inputs(np.random.default_rng(13), 1, 8, 128, 256, [8]))
+    seeds = torch.tensor([3, 4, 5], dtype=torch.int32)
+    train = dict(p_attn=0.1, p_hidden=0.1, train=True, seeds=seeds)
+    bert_layer(*args, 2, 1e-12, **train)
+    bert_layer(*args, 2, 1e-12)
+    bl.bert_layer_bwd(*args, torch.zeros_like(args[0]), 2, 1e-12, **train)
+    assert [c[0] for c in lib.calls] == ["ctc_bert_layer"] * 2 + ["ctc_bert_layer_bwd_f32"]
+    threshold = bl.dropout_threshold(0.1)
+    # (..., eps, scale, thresh_attn, thresh_hidden, scale_attn, scale_hidden, stream)
+    for (_, a), want in zip(lib.calls, (threshold, 0, threshold)):
+        assert a[-5:-3] == (want, want)
+        assert a[2] == (seeds.data_ptr() if want else None)
+        assert a[-3] == pytest.approx(1 / 0.9 if want else 1.0)
+    counts = launches.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "bert_layer_f32_train": 1, "bert_layer": 1, "bert_layer_bwd_f32": 1}
+    launches.reset_launch_counts()
 
 
 def test_bert_layer_takes_fp32_only():

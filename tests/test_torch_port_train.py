@@ -276,19 +276,116 @@ def test_bert_train_mode_dropout():
 SMALL_BERT_PORT = port_config(SMALL_BERT)
 
 
-def test_bert_train_mode_refuses_the_fused_gate(monkeypatch):
-    """Where the card would run the fused layer (n >= 128), an fp32
-    train-mode call raises instead of quietly running the loop (the fp32
-    chain has no dropout and no backward kernel); eval is unaffected, and so
-    is bf16, which has both."""
-    _, model = jax_and_port_models()
+def test_bert_train_mode_takes_the_fp32_chains_at_the_fused_gate(monkeypatch):
+    """Where the card runs the fused layer (n >= 128), an fp32 train-mode
+    call takes the fp32 chains: on a (stand-in) card tensor each layer
+    reaches ctc_bert_layer with both dropout thresholds set and its
+    backward ctc_bert_layer_bwd_f32, no plain layer and no bf16 entry;
+    eval reaches ctc_bert_layer with thresholds 0."""
+    from ct_clip_ut_tpu_torch import _build
+    from ct_clip_ut_tpu_torch.ops import bert_layer as bl
+    from ct_clip_ut_tpu_torch.ops import launches
+
+    from test_torch_port_f32_hopper import FakeLib
+    from test_torch_port_modules import GATE_BERT, gate_bert_pair
+
+    _, mod = gate_bert_pair()
+    lib = FakeLib()
     monkeypatch.setattr(tbert, "takes_fused_layers", lambda x, cfg, n: True)
-    ids = torch.ones((1, 8), dtype=torch.int64)
-    tbert.bert_apply(model.text_transformer, ids)
-    monkeypatch.setattr(tbert._build, "on_cuda", lambda x: True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8b"):
-        tbert.bert_apply(model.text_transformer, ids, generator=torch.Generator(),
-                         deterministic=False)
+    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    for name in ("bert_layer_plain", "bert_layer_bwd_plain"):
+        monkeypatch.setattr(bl, name, lambda *a, **k: pytest.fail("a plain layer ran"))
+    ids = torch.ones((2, 128), dtype=torch.int64)
+    launches.reset_launch_counts()
+    mod.zero_grad()
+    out = tbert.bert_apply(mod, ids, generator=torch.Generator(), deterministic=False)
+    out.sum().backward()
+    layers = GATE_BERT.num_layers
+    assert [c[0] for c in lib.calls] == (["ctc_bert_layer"] * layers
+                                         + ["ctc_bert_layer_bwd_f32"] * layers)
+    threshold = bl.dropout_threshold(GATE_BERT.hidden_dropout)
+    assert all(a[-5:-3] == (threshold, threshold) for _, a in lib.calls)
+    lib.calls.clear()
+    with torch.no_grad():
+        tbert.bert_apply(mod, ids)
+    assert [c[0] for c in lib.calls] == ["ctc_bert_layer"] * layers
+    assert all(a[-5:-3] == (0, 0) for _, a in lib.calls)
+    counts = launches.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "bert_layer_f32_train": layers, "bert_layer_bwd_f32": layers, "bert_layer": layers}
+    mod.zero_grad()
+    launches.reset_launch_counts()
+
+
+def test_fp32_train_step_at_the_fused_gate_matches_jax(monkeypatch):
+    """The port's fp32 step at 128-token reports, BERT forced onto its fused
+    route (bert_layer_grad: the autograd Function the card runs, its plain
+    versions on the CPU), dropout 0: the loss and every parameter's gradient
+    against jax.value_and_grad of the JAX step's loss (the JAX package's
+    make_train_step, whose layer loop the CPU runs: the same function).
+    Gradients within GATE_GRAD_BAND of each tensor's largest entry (the
+    key biases, whose gradient is zero up to rounding, of their layer's
+    query bias's)."""
+    from ct_clip_ut_tpu.models.ctclip import ctclip_apply as jax_ctclip_apply
+    from ct_clip_ut_tpu.models.ctclip import init_ctclip as jax_init_ctclip
+    from ct_clip_ut_tpu_torch.models.ctclip import ctclip_apply
+    from ct_clip_ut_tpu_torch.ops import bert_layer as bl
+
+    from test_torch_port_modules import GATE_BERT
+
+    cfg = dataclasses.replace(
+        TRAIN_CLIP, dim_text=GATE_BERT.hidden_size,
+        bert=dataclasses.replace(GATE_BERT, hidden_dropout=0.0, attention_dropout=0.0))
+    n = 128
+    params = jax.jit(jax_init_ctclip, static_argnums=1)(jax.random.PRNGKey(5), cfg)
+    rng = np.random.default_rng(70)
+    images = rng.standard_normal((2, 1, DEPTH, IMG, IMG)).astype(np.float32)
+    ids = rng.integers(5, cfg.bert.vocab_size, (2, n))
+    mask = np.ones_like(ids)
+    mask[1, 90:] = 0
+    ids[1, 90:] = 0
+    text = {"input_ids": ids, "attention_mask": mask, "token_type_ids": np.zeros_like(ids)}
+
+    def jloss(params):
+        out = jax_ctclip_apply(params, cfg, {k: jnp.asarray(v) for k, v in text.items()},
+                               jnp.asarray(images), freeze_vq=False,
+                               rng=jax.random.PRNGKey(6), deterministic=False)
+        return jax_contrastive_loss(out.sim_matrix)
+
+    want_loss, jgrads = jax.jit(jax.value_and_grad(jloss))(params)
+    pcfg = port_config(cfg)
+    model = convert.from_jax_params(jax.tree.map(np.asarray, params), pcfg, device="cpu")
+    want = convert.from_jax_params(jax.tree.map(np.asarray, jgrads), pcfg,
+                                   device="cpu").state_dict()
+    layers = []
+    real = bl.bert_layer_grad
+    monkeypatch.setattr(tbert, "bert_layer_grad",
+                        lambda *a, **k: layers.append(k["train"]) or real(*a, **k))
+    monkeypatch.setattr(tbert, "takes_fused_layers",
+                        lambda x, c, n: tbert.fused_layer_gate(c, n))
+    out = ctclip_apply(model, {k: torch.from_numpy(v) for k, v in text.items()},
+                       torch.from_numpy(images), freeze_vq=False,
+                       generator=torch.Generator().manual_seed(0), deterministic=False)
+    loss = contrastive_loss(out.sim_matrix)
+    loss.backward()
+    assert layers == [True] * GATE_BERT.num_layers
+    assert abs(loss.item() - float(want_loss)) <= 2e-5 * abs(float(want_loss))
+    grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    assert len(grads) > 40
+    for k, g in grads.items():
+        # a shift-invariant bias against its layer's neighbour: the key
+        # bias's query bias, the CPB's last bias its weight
+        top = want[k.replace(".key.", ".query.") if k.endswith("self.key.bias") else
+                   k.replace(".bias", ".weight") if k in SHIFT_INVARIANT else k].abs().max()
+        assert (g - want[k]).abs().max() <= GATE_GRAD_BAND * top, k
+
+
+# fp32 gradients of the fused route's plain versions against the JAX layer
+# loop (one-pass against two-pass LayerNorm moments): measured on this CPU
+# up to 3.8e-5 of a tensor's largest entry, the loss 3.8e-7 relative
+GATE_GRAD_BAND = 1e-4
 
 
 # -- the driver ---------------------------------------------------------------
