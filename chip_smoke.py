@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch + CUDA port (ct_clip_ut_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(phase 17 spawns DP_WORLD processes on the same card and joins them)
 
 Phases, each printing its lines before the last:
   1. the device: `nvidia-smi` name and power limit, torch and CUDA versions;
@@ -261,6 +262,40 @@ Phases, each printing its lines before the last:
      STEP_GRAD_BAND, CTClipTrainer.train() over 3 steps with 6F x 12 and 12F
      x 12 a step besides phase 14's launches, row 6 in the evaluations, no
      bf16 BERT kernel; three more steps timed.
+ 16. the W8A8 FF on fp32 activations (row 15f) and the forward attribution
+     methods on a quantised model: first geglu_ff_int8 on fp32 x [27648,
+     512] and [13824, 512] (the seeded flagship's spatial layer 0 FF,
+     quantised), residual off and on, against its plain version within
+     INT8_BAND relative rms with row 15's controls, xn's and h's codes read
+     from the chain's workspaces (`launch_chain`) against the plain steps',
+     each flip a tie within CODE_TIE; fp32 out, two calls the same bits, one
+     call profiled on the Hopper pieces; times, `bound_ms`, the
+     torch._int_mm chain on fp32 rows as `library_ms`. Then, counted,
+     `inference_ctclip --quantize-ff --visualize raw_attention_maps
+     attention_rollout occlusion --no-gifs` over 2 synthetic NIfTI volumes
+     (occlusion at SUITE_OCC, 27 windows): geglu_ff_int8_f32 launched, the
+     bf16 and dense FFs not at all; every map file the same as a direct call
+     on the same model and volume (SUITE_BAND), those calls against
+     plain=True from the same codes (the VQ indices and int8 codes of the
+     kernel path replayed by VQRecorder / Int8Recorder, each flip counted
+     and a tie within VQ_F32_TIE / CODE_TIE_PATH): maps within MAP_BAND,
+     each window's score within OCC_BAND.
+ 17. data parallelism over torch.distributed on the one card: (a) a
+     one-rank NCCL group through parallel.mesh: the fp32 step at B = 2,
+     512 tokens, flagship width, peg_pallas=True, dropout 0, over the mesh
+     (latents all-gathered, VQ statistics and gradients all-reduced) gives
+     the single-process step's loss and gradients bit for bit, its codebook
+     within DP_CODEBOOK_BAND (index_add_'s atomics move its last bits
+     between any two runs);
+     (b) DP_WORLD spawned ranks sharing the card over gloo (named here; the
+     package's default for CUDA ranks is NCCL, which takes one rank a
+     device), local batch 1: loss and every gradient within STEP_GRAD_BAND
+     of the single-process B = 2 step (its VQ indices replayed, flips
+     counted as ties), the codebook within DP_CODEBOOK_BAND, every gradient
+     the same bits on both ranks; sharded zero-shot over DP_ZS_VOLUMES
+     volumes (the wrapped duplicate dropped) and the window-sharded
+     occlusion sweep over DP_OCC_WINDOWS windows against one process. A
+     failed collective fails its rank, and the phase.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -271,7 +306,8 @@ geglu_ff_int8, 4d's cross-attention for cosine_attention, phase 8's for
 the train kernels, phase 9's for attn_qrows, phase 10's path for the fp32
 variants, phase 11's for the fp32 backwards, phase 12's --data-valid run
 for rows 5f and 13f, phase 14's train run for 10f, 11f, 7F-9F and the fp32
-PEG rows, phase 15's for 6F and 12F); the last line is {"ok": true,
+PEG rows, phase 15's for 6F and 12F, phase 16's CLI run for 15f); the last
+line is {"ok": true,
 "device": {...}}. Any failed phase exits non-zero before it.
 """
 
@@ -400,6 +436,8 @@ KERNELS = {
                              "ct_clip_ut_tpu/ops/pallas_bert_layer.py:440"),
     "bert_layer_bwd_f32": ("ct_clip_ut_tpu_torch/csrc/bert_layer_bwd_f32.cu",
                            "ct_clip_ut_tpu/ops/pallas_bert_layer.py:473"),
+    "geglu_ff_int8_f32": ("ct_clip_ut_tpu_torch/csrc/geglu_ff_int8.cu",
+                          "ct_clip_ut_tpu/ops/pallas_ff_int8.py:148"),
 }
 # Phase 10, the attribution suite in fp32 (the fp32 variants of rows 1-4):
 F32_BAND = 1e-4         # max relative error of an fp32 variant vs its plain version (row 6's)
@@ -452,18 +490,50 @@ PEG_F32_KERNEL_BAND = 1e-5   # the fp32 PEG stencil's branch vs its plain versio
 # 12 layers forward in train mode and backward (launches a train step)
 BERT_F32_KERNELS = ("bert_layer_f32_train", "bert_layer_bwd_f32")
 BERT_F32_STEP = dict.fromkeys(BERT_F32_KERNELS, 12)
+# Phase 16, the W8A8 FF on fp32 activations (row 15f) under the forward methods:
+INT8_F32_ROWS = (27648, 13824)   # zero-shot's 2 volumes; one volume, an occlusion chunk's
+CODE_TIE = 1e-3         # a flipped int8 code: the plain quotient within this of a .5 boundary
+# ... along a whole forward, where the FF's inputs already differ by the fp32
+# attention kernels' rounding (~1e-5 relative after 8 layers: ~1e-3 of a code
+# step at |q| ~ 127); a flip that is no tie sits ~0.5 away
+CODE_TIE_PATH = 1e-2
+INT8_F32_ATTRIBUTION = ("attn_packed_f32", "vq_nearest_f32", "geglu_ff_int8_f32")
+INT8_F32_ABSENT = ("geglu_ff_int8", "geglu_ff", "geglu_ff_f32")   # no bf16 or dense FF
+# Phase 17, data parallelism on the one card:
+DP_WORLD = 2            # gloo ranks sharing the card (NCCL takes one rank a device)
+DP_OCC_WINDOWS = 40     # the sharded occlusion sweep's windows: 20 a rank
+DP_ZS_VOLUMES = 3       # sharded zero-shot: 2 + 2 with the wrapped duplicate dropped
+# the step's reports: phase 15's length (~300 real tokens), and a short one
+DP_REPORT_WORDS, DP_SHORT_WORDS = 300, 40
+# Against the same rows in forwards of 1 in one process the data-parallel
+# gradients should be those bits: rank r backpropagates 2 x its rows'
+# cotangent (exact), the all-reduce sums and halves (exact)
+DP_SPLIT_BAND = 1e-6
+# Against the B = 2 step each gradient is held over at least DP_GRAD_FLOOR of
+# its group's largest entry: at dropout 0 BERT's last layers' query / key
+# gradients are sums that cancel to ~1e-6 of their terms, where the fp32
+# chains' three bf16 products (~2^-16 of the terms) move them by up to ~10%
+# between a batch of 2 and two of 1 in one process, and against plain=True
+# (phase 17 (a) prints the reading); the phase 14 band over that floor is
+# 1e-5 of the group's largest entry, the chains' resolution
+DP_GRAD_FLOOR = 1e-2
+# the codebook after a step vs the single-process step's: max abs over the
+# buffer's largest entry (index_add_ sums its EMA statistics with atomics on
+# the card, which move the last bits between any two runs: 2.9e-7 read)
+DP_CODEBOOK_BAND = 1e-5
 # kernel rows whose launches another counter holds (the PEG wrappers count either dtype)
 COUNTER_OF = {"peg_f32": "peg", "peg_weight_grads_f32": "peg_weight_grads"}
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
 CTGEN_KERNELS = {"patch_embed": 2, "attn_block": 4, "attn_packed": 4, "geglu_ff": 8 + 6,
                  "vq_nearest": 1, "attn_qrows": 6}
 # kernels of other paths, launched by neither zero-shot nor training:
-# CTGenerate's q-row attention, the int8 FF (--quantize-ff), the bare cosine
-# core, the attribution suite's fp32 variants (phase 10) and fp32 backwards
-# (phase 11), CTGenerate's fp32 route (phase 12), the fp32 train step's (phases
-# 14 and 15)
-SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "cosine_attention", *ATTRIBUTION_KERNELS,
-                   *GRADIENT_KERNELS, *CTGEN_F32_KERNELS, *F32_TRAIN_KERNELS, *BERT_F32_KERNELS)
+# CTGenerate's q-row attention, the int8 FF (--quantize-ff) in both forms, the
+# bare cosine core, the attribution suite's fp32 variants (phase 10) and fp32
+# backwards (phase 11), CTGenerate's fp32 route (phase 12), the fp32 train
+# step's (phases 14 and 15)
+SERVING_KERNELS = ("attn_qrows", "geglu_ff_int8", "geglu_ff_int8_f32", "cosine_attention",
+                   *ATTRIBUTION_KERNELS, *GRADIENT_KERNELS, *CTGEN_F32_KERNELS,
+                   *F32_TRAIN_KERNELS, *BERT_F32_KERNELS)
 CTGEN_SCAN = (1, 201, 128, 128)
 CTGEN_BATCHES, GENERATE_STEPS = 2, 18
 SHORT_REPORT = 30                    # words of every second stand-in report
@@ -574,8 +644,10 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
 SASS_INT8_REQUIRED = {"geglu_ff_int8 value | gate product writing h (HEpi)":
                           "11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
-                      "geglu_ff_int8 W2 product with the residual (OutEpi)":
-                          "11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi"}
+                      "geglu_ff_int8 W2 product with the residual, bf16 rows (OutEpi<bf16>)":
+                          ("11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi", "6OutEpiI13__nv_bf"),
+                      "geglu_ff_int8 W2 product with the residual, fp32 rows (OutEpi<float>, "
+                      "row 15f)": ("11gemm_kernelINS_2q811LinearPlan8ENS2_6OutEpi", "6OutEpiIf")}
 
 
 def marked(fn: str, mark) -> bool:
@@ -627,7 +699,7 @@ def sass_check(lib: Path) -> None:
         if not found:
             raise AssertionError(f"no wgmma kernel for {what} in the library")
     for what, mark in SASS_INT8_REQUIRED.items():
-        found = {fn: n for fn, n in igmma.items() if mark in fn}
+        found = {fn: n for fn, n in igmma.items() if marked(fn, mark)}
         print(f"sass: {what}: {sum(found.values())} IGMMA in {len(found)} kernel(s)")
         if not found:
             raise AssertionError(f"no int8 wgmma kernel for {what} in the library")
@@ -1394,46 +1466,58 @@ def quantized_phase(torch, model, card: str) -> dict:
     return counts
 
 
+def write_cli_dataset(root: Path, rng, reports=("the lungs are clear", "no acute finding")):
+    """2 synthetic NIfTI volumes (raw CLI_VOLUME int16 grids at CLI_SPACING,
+    which the chain resamples and pads to [1, 240, 480, 480]) under
+    root/valid with their reports / metadata / labels CSVs; returns the
+    CLI's data arguments."""
+    import csv
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.data.nifti import write_nii
+
+    xy, z = CLI_SPACING
+    (root / "valid").mkdir()
+    names = [f"valid_{i}_a_1.nii.gz" for i in range(2)]
+    for name in names:
+        write_nii(root / "valid" / name, rng.integers(-1024, 2000, CLI_VOLUME).astype(np.int16),
+                  pixdim=(xy, xy, z))
+    tables = {"reports.csv": [["VolumeName", "Findings_EN", "Impressions_EN"]] + [
+                  [n, *reports] for n in names],
+              "metadata.csv": [["VolumeName", "RescaleSlope", "RescaleIntercept",
+                                "XYSpacing", "ZSpacing"]] + [
+                  [n, "1", "0", f"[{xy}, {xy}]", str(z)] for n in names],
+              "labels.csv": [["VolumeName"] + [f"p{i}" for i in range(18)]] + [
+                  [n] + [str(int(v)) for v in rng.integers(0, 2, 18)] for n in names]}
+    for fname, rows in tables.items():
+        with open(root / fname, "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+    return ["--data-valid", str(root / "valid"), "--valid-reports", str(root / "reports.csv"),
+            "--valid-labels", str(root / "labels.csv"), "--valid-metadata",
+            str(root / "metadata.csv")]
+
+
 def cli_phase(torch, card: str) -> None:
     """scripts.inference_ctclip.main end to end: 2 synthetic NIfTI volumes
     (raw int16 grids the chain resamples and pads to [1, 240, 480, 480])
     with their reports / labels / metadata CSVs in a temporary directory,
     --zero-shot with --quantize-ff and without, each writing metrics.txt."""
-    import csv
     import tempfile
 
     import numpy as np
 
-    from ct_clip_ut_tpu_torch.data.nifti import write_nii
     from ct_clip_ut_tpu_torch.ops import launches
     from ct_clip_ut_tpu_torch.scripts import inference_ctclip
 
-    rng = np.random.default_rng(13)
     xy, z = CLI_SPACING
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        (root / "valid").mkdir()
-        names = [f"valid_{i}_a_1.nii.gz" for i in range(2)]
-        for name in names:
-            write_nii(root / "valid" / name,
-                      rng.integers(-1024, 2000, CLI_VOLUME).astype(np.int16),
-                      pixdim=(xy, xy, z))
-        tables = {"reports.csv": [["VolumeName", "Findings_EN", "Impressions_EN"]] + [
-                      [n, "the lungs are clear", "no acute finding"] for n in names],
-                  "metadata.csv": [["VolumeName", "RescaleSlope", "RescaleIntercept",
-                                    "XYSpacing", "ZSpacing"]] + [
-                      [n, "1", "0", f"[{xy}, {xy}]", str(z)] for n in names],
-                  "labels.csv": [["VolumeName"] + [f"p{i}" for i in range(18)]] + [
-                      [n] + [str(int(v)) for v in rng.integers(0, 2, 18)] for n in names]}
-        for fname, rows in tables.items():
-            with open(root / fname, "w", newline="") as f:
-                csv.writer(f).writerows(rows)
+        data_argv = write_cli_dataset(root, np.random.default_rng(13))
         for quantize in (True, False):
             out = root / ("results_int8" if quantize else "results")
-            argv = ["--data-valid", str(root / "valid"), "--valid-reports",
-                    str(root / "reports.csv"), "--valid-labels", str(root / "labels.csv"),
-                    "--valid-metadata", str(root / "metadata.csv"), "--results-folder",
-                    str(out), "--zero-shot", "--batch-size", "2", "--num-workers", "2"]
+            argv = data_argv + ["--results-folder", str(out), "--zero-shot", "--batch-size",
+                                "2", "--num-workers", "2"]
             launches.reset_launch_counts()
             t0 = time.perf_counter()
             m, preds, _ = inference_ctclip.main(argv + (["--quantize-ff"] if quantize else []))
@@ -4140,6 +4224,653 @@ def bert_f32_train_phase(torch, model, card: str) -> tuple:
     return record, counts
 
 
+def int8_plain_steps(torch, x, args, xq=None, rx=None) -> dict:
+    """geglu_ff_int8_plain's steps on x [N, D] with args (gamma, beta, wv_q,
+    wg_q, w2_q, sv, sg, s2): xn and its codes (xi, its scales rx_p), then h
+    from the codes `xq` / `rx` where given (a kernel's: the plain h from the
+    same codes) or else from its own, and h's codes (hi, rh_p)."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import int8_dot, row_quant
+
+    gamma, beta, wv, wg, _, sv, sg, _ = args
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 * x32).mean(-1, keepdim=True) - mean * mean
+    xn = (x32 - mean) * torch.rsqrt(var.clamp_min(0.0) + 1e-5) * gamma + beta
+    xi, rx_p = row_quant(xn)
+    codes, scale = (xi, rx_p) if xq is None else (xq, rx.reshape(-1, 1))
+    value = int8_dot(codes, wv).float() * scale * sv
+    gate = int8_dot(codes, wg).float() * scale * sg
+    h = 0.5 * gate * (1.0 + torch.erf(gate * 0.7071067811865476)) * value
+    hi, rh_p = row_quant(h)
+    return dict(xn=xn, xi=xi, rx=rx_p, h=h, hi=hi, rh=rh_p)
+
+
+def code_flips(codes, want, quotient) -> tuple:
+    """(codes that differ from `want`, the largest distance of their plain
+    quotient from a .5 boundary in code units: a tie when small)."""
+    diff = codes != want
+    n = int(diff.sum())
+    if not n:
+        return 0, 0.0
+    q = quotient[diff].double()
+    return n, ((q - q.floor()) - 0.5).abs().max().item()
+
+
+class Int8Recorder:
+    """A context manager over the W8A8 FF calls a forward makes (patching
+    the two names ops.layers.feedforward calls). On the kernel path it
+    records each call's xn / h codes and row scales (launch_chain's
+    workspaces). Given `against`, such a recording of the same forward, the
+    plain path's calls count the codes their own fp32 LN and h give that
+    differ from `against`'s (xn's; then h's from the same xn codes), each
+    one's distance from a .5 boundary, and quantise with `against`'s codes
+    and scales, so the two paths compare from the same codes."""
+
+    def __init__(self, torch, against=None):
+        self.torch, self.against = torch, against
+        self.calls, self.flips, self.ties = [], [0, 0], [0.0, 0.0]
+
+    def __enter__(self):
+        import ct_clip_ut_tpu_torch.ops.layers as layers
+        from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import int8_dot, launch_chain
+
+        self.layers, self.orig = layers, (layers.geglu_ff_int8, layers.geglu_ff_int8_plain)
+        torch = self.torch
+
+        def kernel(x, *args, residual=False):
+            out, xq, rx, hq, rh = launch_chain(x, *args, residual)
+            self.calls.append((xq, rx, hq, rh))
+            return out
+
+        def plain(x, *args, residual=False):
+            xq, rx, hq, rh = self.against.calls[len(self.calls)]
+            st = int8_plain_steps(torch, x, args, xq, rx)
+            for i, (codes, want, quo) in enumerate(((st["xi"], xq, st["xn"] / st["rx"]),
+                                                    (st["hi"], hq, st["h"] / st["rh"]))):
+                n, tie = code_flips(codes, want, quo)
+                self.flips[i] += n
+                self.ties[i] = max(self.ties[i], tie)
+            out = int8_dot(hq, args[4]).float() * rh.reshape(-1, 1) * args[7]
+            if residual:
+                out = out + x.float()
+            self.calls.append(None)
+            return out.to(x.dtype)
+
+        layers.geglu_ff_int8 = kernel if self.against is None else self.orig[0]
+        layers.geglu_ff_int8_plain = plain if self.against is not None else self.orig[1]
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.geglu_ff_int8, self.layers.geglu_ff_int8_plain = self.orig
+
+
+def int8_f32_check(torch, model, card: str) -> dict:
+    """Row 15f: geglu_ff_int8 on fp32 x at INT8_F32_ROWS tokens (spatial
+    layer 0's FF of the seeded flagship, quantised, the LN gain drawn as 1
+    + 0.1 N and bias 0.1 N), residual off and on, against its plain version
+    within INT8_BAND relative rms with the bf16 form's controls; the codes
+    of xn and h from the chain's workspaces against the plain steps' (xn's,
+    then h's from the kernel's xn codes), each flip a tie within CODE_TIE;
+    fp32 out, two calls the same bits, one call under torch.profiler on the
+    Hopper pieces; times at each row count, bound_ms (int8 operations) and
+    the torch._int_mm chain on fp32 rows as library_ms."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import (geglu_ff_int8, geglu_ff_int8_plain,
+                                                        launch_chain, row_quant)
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+
+    vit = model.visual_transformer
+    g = torch.Generator(device="cuda").manual_seed(31)
+    d = vit.cfg.dim
+    q = quantize_ff_params(vit.enc_spatial_transformer.layers[0][3])
+    q.gamma.copy_(around_ones(torch, g, d))
+    q.beta.copy_(0.1 * torch.randn((d,), generator=g, device="cuda"))
+    args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
+    swapped = list(args)
+    swapped[5], swapped[6] = args[6], args[5]
+    inner = q.wv_q.shape[0]
+    wvg_t = torch.cat([q.wv_q, q.wg_q]).t()
+    w2_t = q.w2_q.t()
+    rec, times = {}, {}
+    for n in INT8_F32_ROWS:
+        x = torch.randn((n, d), generator=g, device="cuda")
+        for residual in (False, True):
+            got = geglu_ff_int8(x, *args, residual=residual)
+            want = geglu_ff_int8_plain(x, *args, residual=residual)
+            _, xq, rx, hq, rh = launch_chain(x, *args, residual)
+            same = torch.equal(got, geglu_ff_int8(x, *args, residual=residual))
+            st = int8_plain_steps(torch, x, args)
+            fx, tx = code_flips(st["xi"], xq, st["xn"] / st["rx"])
+            sk = int8_plain_steps(torch, x, args, xq, rx)
+            fh, th = code_flips(sk["hi"], hq, sk["h"] / sk["rh"])
+            torch.cuda.synchronize()
+            err = rel_rms(got, want)
+            controls = {k: rel_rms(got, c) for k, c in (
+                ("h unquantised", geglu_ff_int8_plain(x, *args, residual=residual,
+                                                      faults=("h_float",))),
+                ("per-tensor scales", geglu_ff_int8_plain(x, *args, residual=residual,
+                                                          faults=("per_tensor",))),
+                ("sv / sg swapped", geglu_ff_int8_plain(x, *swapped, residual=residual)))}
+            abs_err = (got - want).abs().max().item()
+            print(f"kernel geglu_ff_int8_f32 x {list(x.shape)} fp32, inner {q.inner_dim} (padded "
+                  f"{inner}), residual={residual}: out {got.dtype}, relative rms {err:.3e} "
+                  f"(band {INT8_BAND}), max_rel_err {rel_err(got, want):.3e}, max_abs_err "
+                  f"{abs_err:.3e}; code flips vs the plain steps: xn {fx} of {xq.numel()} "
+                  f"(largest tie {tx:.2e}), h from the kernel's xn codes {fh} of {hq.numel()} "
+                  f"(largest tie {th:.2e}; tie band {CODE_TIE}); two calls the same bits: {same};"
+                  " controls " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()))
+            if got.dtype != torch.float32 or not got.isfinite().all() or not same:
+                raise AssertionError("geglu_ff_int8_f32: not fp32, non-finite or unstable")
+            if not err <= INT8_BAND < min(controls.values()):
+                raise AssertionError(f"geglu_ff_int8_f32: relative rms {err}, band {INT8_BAND}, "
+                                     f"controls {controls}")
+            if max(tx, th) > CODE_TIE:
+                raise AssertionError(f"geglu_ff_int8_f32: a code flip at no tie ({tx}, {th})")
+            if n == INT8_F32_ROWS[0] and not residual:
+                rec["max_abs_err"] = abs_err
+
+        def library():
+            xn = F.layer_norm(x, (d,), q.gamma, q.beta, eps=1e-5)
+            xi, rxl = row_quant(xn)
+            vg = torch._int_mm(xi, wvg_t).float() * rxl
+            hh = F.gelu(vg[:, inner:] * q.sg) * (vg[:, :inner] * q.sv)
+            hi, rhl = row_quant(hh)
+            return torch._int_mm(hi, w2_t).float() * rhl * q.s2 + x
+
+        lib_err = rel_rms(library(), geglu_ff_int8_plain(x, *args, residual=True))
+        times[n] = dict(ms=cuda_ms(torch, lambda: geglu_ff_int8(x, *args, residual=True)),
+                        plain_ms=cuda_ms(torch, lambda: geglu_ff_int8_plain(x, *args,
+                                                                             residual=True),
+                                         iters=3),
+                        library_ms=library_time(torch, library),
+                        **bound(2 * n * d * q.inner_dim * 3, nbytes(x, *args, x), INT8_PEAK))
+        t = times[n]
+        print(f"kernel geglu_ff_int8_f32 at {n} rows: {t['ms']:.3f} ms vs plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"torch._int_mm chain on fp32 rows {t['library_ms']:.3f} ms "
+              f"({t['library_ms'].span}) (relative rms {lib_err:.3e} vs the plain version) "
+              f"[{card}]")
+        if n == INT8_F32_ROWS[0]:
+            hopper_chain_check("geglu_ff_int8_f32",
+                               lambda: geglu_ff_int8(x, *args, residual=True), card)
+    return dict(rec, **times[INT8_F32_ROWS[0]])
+
+
+def int8_attribution_phase(torch, card: str) -> tuple:
+    """Phase 16: row 15f under the forward attribution methods with
+    --quantize-ff. First int8_f32_check on the seeded flagship. Then, counted,
+    `inference_ctclip.main --quantize-ff --visualize raw_attention_maps
+    attention_rollout occlusion --no-gifs` over the 2 synthetic NIfTI
+    volumes of the CLI phase (the JAX script's CTCLIPConfig(dim_head=32),
+    random weights from --seed 0; occlusion at SUITE_OCC, 27 windows, its
+    default window is cut for time): geglu_ff_int8_f32 launched, the bf16
+    and dense FFs not at all. Each map file the same as a direct call of its
+    method on the same quantised model and preprocessed volume
+    (SUITE_BAND); those calls against plain=True from the same codes (the
+    VQ indices and int8 codes of the kernel path replayed, each flip
+    counted and shown a tie within VQ_F32_TIE / CODE_TIE_PATH): maps within
+    MAP_BAND, each occlusion window's score within OCC_BAND. Returns (the
+    row's record, the CLI run's launch counts)."""
+    import tempfile
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.attribution import capture, occlusion, raw_attention, rollout
+    from ct_clip_ut_tpu_torch.attribution.suite import AttributionContext, Visualizations
+    from ct_clip_ut_tpu_torch.config import (CTCLIPConfig, CTViTConfig, OcclusionConfig,
+                                             PreprocessConfig, flagship_cfg)
+    from ct_clip_ut_tpu_torch.data.datasets import InferenceDataset
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ctclip_ff
+    from ct_clip_ut_tpu_torch.scripts import inference_ctclip
+
+    t_phase = time.perf_counter()
+    record = int8_f32_check(torch, init_ctclip(flagship_cfg(), seed=0, device="cuda"), card)
+    torch.cuda.empty_cache()
+    occ = OcclusionConfig(**SUITE_OCC)
+    methods = ["raw_attention_maps", "attention_rollout", "occlusion"]
+    keep = Visualizations.occlusion.__defaults__
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data_argv = write_cli_dataset(
+            root, np.random.default_rng(17),
+            reports=("emphysema and a nodule in the right upper lobe", "no effusion"))
+        out = root / "results"
+        argv = data_argv + ["--results-folder", str(out), "--quantize-ff", "--no-gifs",
+                            "--num-workers", "2", "--visualize", *methods]
+        Visualizations.occlusion.__defaults__ = (occ, False, "")
+        try:
+            launches.reset_launch_counts()
+            t0 = time.perf_counter()
+            inference_ctclip.main(argv)
+            seconds = time.perf_counter() - t0
+            counts = launches.launch_counts()
+        finally:
+            Visualizations.occlusion.__defaults__ = keep
+        files = sorted(str(p.relative_to(out)) for p in out.rglob("*.npy"))
+        print(f"int8 fp32: inference_ctclip --quantize-ff --visualize {' '.join(methods)} "
+              f"--no-gifs on 2 volumes {list(CLI_VOLUME)} int16 (occlusion at "
+              f"{occ.patch_size} / {occ.stride}) in {seconds:.1f} s (host clock, model init and "
+              f"preprocessing included) [{card}]: {len(files)} maps; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        missing = [k for k in INT8_F32_ATTRIBUTION if counts[k] <= 0]
+        stray = [k for k in INT8_F32_ABSENT if counts[k] != 0]
+        if missing or stray or len(files) != 2 * 5:
+            raise AssertionError(f"--quantize-ff attribution: not launched {missing}, launched "
+                                 f"{stray}, {len(files)} map files")
+
+        # the same model and volumes, each method called directly
+        cfg = CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
+        model = quantize_ctclip_ff(inference_ctclip.load_model(cfg, None, 0, "cuda"))
+        ds = InferenceDataset(str(root / "valid"), str(root / "reports.csv"),
+                              str(root / "metadata.csv"), str(root / "labels.csv"),
+                              num_samples=10, preprocess_cfg=PreprocessConfig())
+        vis = Visualizations(AttributionContext(model=model, tokenizer=WordTokenizer(
+            cfg.bert.vocab_size), data=ds, render_gifs=False), root / "unused")
+        file_err, map_errs, score_errs = 0.0, {}, []
+        flips = {"VQ": [0, 0.0], "xn codes": [0, 0.0], "h codes": [0, 0.0]}
+
+        def replayed(fn):
+            """fn(plain) on the kernel path, then on plain=True from its codes."""
+            with VQRecorder(torch) as vk, Int8Recorder(torch) as qk:
+                got = fn(False)
+            with VQRecorder(torch, vk, replay=True) as vp, Int8Recorder(torch, qk) as qp:
+                want = fn(True)
+            flips["VQ"][0] += int(vp.flips().sum())
+            flips["VQ"][1] = max([flips["VQ"][1], *vp.gaps])
+            for i, k in enumerate(("xn codes", "h codes")):
+                flips[k][0] += qp.flips[i]
+                flips[k][1] = max(flips[k][1], qp.ties[i])
+            return got, want
+
+        for image, tokens, _, scan, _ in vis.prepared():
+            def load(rel):
+                # each method's call claims its own indexed directory
+                method, name = rel.split("/")
+                found = list((out / method).glob(f"*/{name}"))
+                if len(found) != 1:
+                    raise AssertionError(f"--quantize-ff maps: {rel} found {len(found)} times")
+                return np.load(found[0], allow_pickle=False)
+
+            sp, tm = raw_attention.raw_attention_maps_np(model, tokens, image)
+            rsp, rtm = (capture.rot90_ct(m) for m in rollout.rollout_maps(model, tokens, image))
+            lat = occlusion.report_text_latent(model, tokens)
+            heat = capture.rot90_ct(occlusion.occlusion_heatmap(model, image, lat, occ=occ))
+            for rel, direct in ((f"raw_attention_grids/{scan}_spatial.npy", sp),
+                                (f"raw_attention_grids/{scan}_temporal.npy", tm),
+                                (f"attention_rollout/{scan}_spatial.npy", rsp),
+                                (f"attention_rollout/{scan}_temporal.npy", rtm),
+                                (f"occlusion/{scan}__heatmap.npy", heat)):
+                file_err = max(file_err, float(np.abs(load(rel) - direct).max()))
+            (ksp, ktm), (psp, ptm) = replayed(
+                lambda plain: raw_attention.raw_attention_maps(model, tokens, image, plain=plain))
+            (krs, krt), (prs, prt) = replayed(
+                lambda plain: rollout.rollout_volumes(model, tokens, image, plain=plain))
+            for k, a, b in (("raw spatial", ksp, psp), ("raw temporal", ktm, ptm),
+                            ("rollout spatial", krs, prs), ("rollout temporal", krt, prt)):
+                map_errs[k] = max(map_errs.get(k, 0.0), (a - b).abs().max().item())
+            coords = occlusion.window_grid(tuple(image.shape[-3:]), occ.patch_size, occ.stride)
+            (_, ks), (_, ps) = replayed(lambda plain: occlusion.occlusion_scores_slabbed(
+                model, image, lat[None], coords, occ=occ, plain=plain))
+            score_errs.append(np.abs(ks - ps).max(axis=1) / np.abs(ps).max())
+        score_errs = np.concatenate(score_errs)
+        print(f"int8 fp32: the CLI's {len(files)} map files vs direct calls on the same model "
+              f"and volumes: max abs {file_err:.3e} (band {SUITE_BAND}); direct calls vs "
+              f"plain=True from the kernel path's codes: maps "
+              + ", ".join(f"{k} {v:.3e}" for k, v in map_errs.items())
+              + f" (band {MAP_BAND}); occlusion, {score_errs.size} windows: a window's "
+              f"relative error max {score_errs.max():.3e}, median {np.median(score_errs):.3e} "
+              f"(band {OCC_BAND}); flips between the two paths (replayed): "
+              + ", ".join(f"{k} {n} (largest tie {t:.2e})" for k, (n, t) in flips.items())
+              + f" (tie bands {VQ_F32_TIE} / {CODE_TIE_PATH}) [{card}]")
+        if file_err > SUITE_BAND or max(map_errs.values()) > MAP_BAND:
+            raise AssertionError(f"--quantize-ff maps: files {file_err}, maps {map_errs}")
+        if not score_errs.max() <= OCC_BAND:
+            raise AssertionError(f"--quantize-ff occlusion scores: {score_errs.max()}")
+        if flips["VQ"][1] > VQ_F32_TIE or max(flips["xn codes"][1],
+                                               flips["h codes"][1]) > CODE_TIE_PATH:
+            raise AssertionError(f"--quantize-ff attribution: a flip at no tie {flips}")
+    print(f"int8 fp32: phase 16 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return record, counts
+
+
+def dp_train_setup(torch, seed: int, words: int = DP_REPORT_WORDS):
+    """Phase 17's train step: the fp32 step at the TrainConfig defaults (512
+    tokens) at flagship width with peg_pallas=True and every dropout rate 0,
+    a model drawn from `seed`, and one B = 2 fp32 batch with reports of about
+    `words` words (tokens on the card)."""
+    from ct_clip_ut_tpu_torch.config import TrainConfig, flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+
+    cfg = flagship_cfg()
+    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True),
+                  bert=replace(cfg.bert, hidden_dropout=0.0, attention_dropout=0.0))
+    tcfg = TrainConfig(compute_dtype="float32")
+    images, texts = train_batches(torch, torch.Generator(device="cuda").manual_seed(43), 1,
+                                  words, dtype=torch.float32)[0]
+    enc = WordTokenizer(cfg.bert.vocab_size)(texts, max_length=tcfg.text_max_length)
+    tokens = {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
+    return cfg, tcfg, init_ctclip(cfg, seed=seed, device="cuda"), images, tokens
+
+
+def dp_step(torch, cfg, tcfg, model, images, tokens, mesh=None):
+    """One train step of `model` (on this rank's rows with a mesh): (loss,
+    the gradients entering the optimizer in parameter order, the codebook
+    buffers after the step)."""
+    from ct_clip_ut_tpu_torch.parallel.sharding import shard_host_batch
+    from ct_clip_ut_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    state = create_train_state(cfg, tcfg, params=model.requires_grad_(True), device=images.device,
+                               mesh=mesh)
+    grads, opt_step = [], state.optimizer.step
+
+    def recording_step():
+        grads.extend(g.detach().clone() for g in state.optimizer.grads())
+        return opt_step()
+
+    state.optimizer.step = recording_step
+    if mesh is not None:
+        images, tokens = shard_host_batch(images, mesh), shard_host_batch(tokens, mesh)
+    loss = make_train_step(cfg, tcfg, mesh=mesh)(state, images, tokens).item()
+    cb = state.model.visual_transformer.vq._codebook
+    return loss, grads, [b.detach().clone() for b in (cb.embed, cb.embed_avg, cb.cluster_size)]
+
+
+def split_step_grads(torch, model, images, tokens, parts) -> list:
+    """The fp32 step's gradients (kernel path, dropout 0) of the batch's
+    contrastive loss with the latents of each (lo, hi) row range computed
+    in a forward of its own, one process."""
+    from ct_clip_ut_tpu_torch.models.ctclip import contrastive_loss, ctclip_apply
+
+    model.zero_grad(set_to_none=True)
+    latents = []
+    for lo, hi in parts:
+        out = ctclip_apply(model, {k: v[lo:hi] for k, v in tokens.items()}, images[lo:hi],
+                           freeze_vq=False, generator=torch.Generator(device="cuda").manual_seed(5),
+                           deterministic=False)
+        latents.append((out.image_latents, out.text_latents))
+    img, txt = (torch.cat(t) for t in zip(*latents))
+    contrastive_loss((img.float() @ txt.float().t()) * model.temperature.exp()).backward()
+    grads = [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+             for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def step_errors(model, got, want, floor: float = 0.0) -> dict:
+    """Each gradient's max |got - want| over its largest entry (over its
+    parameter group's for the shift-invariant biases, whose gradient is
+    rounding noise), as phase 14 holds them; with `floor`, over at least
+    that fraction of its group's largest entry."""
+    names = [n for n, _ in model.named_parameters()]
+    cpb = model.visual_transformer.spatial_rel_pos_bias.net
+    shift = {n for n in names if n.endswith("attention.self.key.bias")
+             or n == f"visual_transformer.spatial_rel_pos_bias.net.{len(cpb) - 1}.bias"}
+    top, out = {}, {}
+    for n, w in zip(names, want):
+        if w.numel():
+            top[param_group(n)] = max(top.get(param_group(n), 0.0), w.abs().max().item())
+    for n, g, w in zip(names, got, want):
+        if w.numel():
+            group = top[param_group(n)]
+            scale = group if n in shift else max(w.abs().max().item(), floor * group)
+            out[n] = (g - w).abs().max().item() / max(scale, 1e-30)
+    return out
+
+
+def codebook_err(got, want) -> float:
+    """The largest of the codebook buffers' max |got - want| over the
+    buffer's largest entry."""
+    return max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want))
+
+
+def dp_rank(rank: int, port: int, out_dir: str) -> None:
+    """Phase 17 (b): one of DP_WORLD ranks sharing the card over gloo (the
+    smoke names the backend; NCCL takes one rank a device). Rank 0 first
+    runs each check's single-process reference; then both ranks run the
+    data-parallel step (local batch 1, rank 1's model drawn from another
+    seed so that rank 0's broadcast shows), sharded zero-shot over
+    DP_ZS_VOLUMES volumes and the window-sharded occlusion sweep over
+    DP_OCC_WINDOWS windows. Rank 0 prints and checks; a failed collective
+    raises in its rank."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from ct_clip_ut_tpu_torch.attribution import occlusion
+    from ct_clip_ut_tpu_torch.config import MeshConfig, OcclusionConfig, flagship_cfg
+    from ct_clip_ut_tpu_torch.data.loader import DataLoader, ShardedSampler
+    from ct_clip_ut_tpu_torch.infer.zeroshot import (CTClipInference, WordTokenizer,
+                                                     tokenize_prompts)
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.parallel import collectives
+    from ct_clip_ut_tpu_torch.parallel.mesh import initialize_runtime, make_mesh, shutdown_runtime
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    initialize_runtime(f"localhost:{port}", DP_WORLD, rank, device="cuda", backend="gloo")
+    mesh = make_mesh(MeshConfig(data=DP_WORLD), device="cuda:0")
+    is_main = mesh.is_main
+
+    def say(*args):
+        if is_main:
+            print(*args, flush=True)
+
+    # the train step: the reference on rank 0, then the step over the ranks
+    cfg, tcfg, model, images, tokens = dp_train_setup(torch, seed=0 if is_main else 1)
+    ref_ids = torch.zeros((images.shape[0], math.prod(token_grid_shape(cfg.ctvit, VOLUME))),
+                          dtype=torch.int32, device="cuda")
+    if is_main:
+        ref_model = init_ctclip(cfg, seed=0, device="cuda")
+        halves = split_step_grads(torch, ref_model.requires_grad_(True), images, tokens,
+                                  [(0, 1), (1, 2)])
+        with VQRecorder(torch) as rec:
+            ref = dp_step(torch, cfg, tcfg, ref_model, images, tokens)
+        ref_ids.copy_(rec.ids[0])
+        del ref_model
+        torch.cuda.empty_cache()
+    collectives.broadcast(ref_ids, mesh)
+    against = types.SimpleNamespace(ids=[ref_ids[rank:rank + 1]])
+    t0 = time.perf_counter()
+    with VQRecorder(torch, against, replay=True) as rec:
+        loss, grads, codebook = dp_step(torch, cfg, tcfg, model, images, tokens, mesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    same = 0
+    for g in [*grads, *codebook]:
+        t = g.clone()
+        collectives.broadcast(t, mesh)
+        same += int(torch.equal(t, g))
+    same = int(collectives.psum(torch.tensor([same], device="cuda"), mesh).item())
+    # each rank's VQ flips and its largest tie gap, one row a rank: every
+    # rank's gap is held to the tie band on its own
+    ties = collectives.gather_rows(torch.tensor([[float(rec.flips().sum()),
+                                                  max(rec.gaps, default=0.0)]],
+                                                device="cuda"), mesh)
+    if is_main:
+        rloss, rgrads, rcb = ref
+        split_same = sum(torch.equal(a, b) for a, b in zip(grads, halves))
+        split_err = max(step_errors(model, grads, halves).values())
+        raw = step_errors(model, grads, rgrads)
+        errs = step_errors(model, grads, rgrads, DP_GRAD_FLOOR)
+        worst = sorted(raw.items(), key=lambda kv: -kv[1])[:3]
+        cb_err = codebook_err(codebook, rcb)
+        loss_err = abs(loss - rloss) / abs(rloss)
+        say(f"data parallel: {DP_WORLD} gloo ranks on the one card, the fp32 step at "
+            f"{tcfg.text_max_length} tokens, local batch 1: loss {loss:.7f} vs the "
+            f"single-process B = {BATCH} step {rloss:.7f} (relative {loss_err:.2e}); gradients "
+            f"of {len(errs)} parameters against the same two rows in forwards of 1 in one "
+            f"process: the same bits in {split_same}, max {split_err:.2e}; against the B = "
+            f"{BATCH} step, max |diff| over the tensor's largest entry {max(raw.values()):.3e}, "
+            f"worst " + ", ".join(f"{n} {v:.2e}" for n, v in worst)
+            + f"; over at least {DP_GRAD_FLOOR} of its group's largest {max(errs.values()):.3e} "
+            f"(band {STEP_GRAD_BAND}); the codebook after the step, max abs over the largest "
+            f"entry, {cb_err:.2e} (band {DP_CODEBOOK_BAND}); the same bits on both ranks in "
+            f"{same} of {DP_WORLD * (len(grads) + 3)} tensors; VQ flips vs the reference "
+            f"(replayed) {int(ties[:, 0].sum())}, largest tie by rank "
+            f"{[f'{v:.2e}' for v in ties[:, 1].tolist()]}; the step in "
+            f"{step_s:.2f} s (host clock, the first, its gradient all-reduce over gloo "
+            f"included)")
+        if not (split_err <= DP_SPLIT_BAND and max(errs.values()) <= STEP_GRAD_BAND
+                and loss_err <= STEP_GRAD_BAND and cb_err <= DP_CODEBOOK_BAND
+                and same == DP_WORLD * (len(grads) + 3)
+                and bool((ties[:, 1] <= VQ_F32_TIE).all())):
+            raise AssertionError("data-parallel step: off the single-process step, or the ranks "
+                                 "differ")
+        del ref, rgrads, rcb, halves
+    del model, grads, codebook
+    torch.cuda.empty_cache()
+
+    # sharded zero-shot over DP_ZS_VOLUMES volumes (the last shard wraps)
+    zs_model = init_ctclip(flagship_cfg(), seed=0, device="cuda")
+    prompts = tokenize_prompts(WordTokenizer(zs_model.cfg.bert.vocab_size),
+                               max_length=PROMPT_LEN, device="cuda")
+    rng = np.random.default_rng(47)
+    labels = np.eye(DP_ZS_VOLUMES, 18, dtype=np.float32) + np.eye(DP_ZS_VOLUMES, 18, 9)
+    samples = [(rng.standard_normal(VOLUME, dtype=np.float32), "", labels[i])
+               for i in range(DP_ZS_VOLUMES)]
+
+    def loader():
+        return DataLoader(samples, batch_size=1, num_workers=1, drop_last=False,
+                          sampler=ShardedSampler(DP_ZS_VOLUMES, shuffle=False, drop_last=False))
+
+    out = Path(out_dir)
+    if is_main:
+        _, ref_preds, _ = CTClipInference(zs_model, prompts, loader(),
+                                          results_folder=str(out / "single")).zeroshot()
+    inf = CTClipInference(zs_model, prompts, loader(), results_folder=str(out / "sharded"),
+                          mesh=mesh)
+    _, preds, targets = inf.zeroshot()
+    if is_main:
+        zs_err = float(np.abs(preds - ref_preds).max())
+        say(f"data parallel: sharded zero-shot, {DP_ZS_VOLUMES} volumes over {DP_WORLD} ranks "
+            f"(the wrapped duplicate dropped): preds {list(preds.shape)} vs one process max abs "
+            f"{zs_err:.2e}, targets in order {bool(np.array_equal(targets, labels))}, "
+            f"metrics.txt by rank 0: {(out / 'sharded' / 'metrics.txt').exists()}")
+        if preds.shape != (DP_ZS_VOLUMES, 18) or zs_err > 1e-6 or \
+                not np.array_equal(targets, labels):
+            raise AssertionError("sharded zero-shot: off the single-process predictions")
+
+    # the window-sharded occlusion sweep (phase 10's volume, prompt and latents)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    image = torch.randn((1, *VOLUME), generator=g, device="cuda")
+    diff = torch.randn((zs_model.cfg.dim_text,), generator=g, device="cuda")
+    latents = torch.stack([occlusion.report_text_latent(zs_model, {k: v[:1]
+                                                                   for k, v in prompts.items()}),
+                           occlusion.diff_embedding_latent(zs_model, diff)])
+    occ = OcclusionConfig()
+    coords = occlusion.window_grid(VOLUME[1:], occ.patch_size, occ.stride)[:DP_OCC_WINDOWS]
+
+    def window_ids(rec):
+        return torch.cat(rec.ids)[1:]                  # the baseline first
+
+    if is_main:
+        with VQRecorder(torch) as rec_s:
+            ref_orig, ref_scores = occlusion.occlusion_scores_slabbed(
+                zs_model, image, latents, coords, occ=occ, chunk=OCC_CHUNK)
+    t0 = time.perf_counter()
+    with VQRecorder(torch) as rec_d:
+        orig, scores = occlusion.occlusion_scores_multi_sharded(
+            zs_model, image, latents, coords, mesh, occ=occ, chunk=OCC_CHUNK)
+    occ_s = time.perf_counter() - t0
+    ids = collectives.gather_rows(window_ids(rec_d), mesh)
+    if is_main:
+        flipped = (ids != window_ids(rec_s)).any(dim=1).cpu().numpy()
+        errs = np.abs(scores - ref_scores).max(axis=1) / np.abs(ref_scores).max()
+        say(f"data parallel: occlusion over {DP_OCC_WINDOWS} windows sharded over {DP_WORLD} "
+            f"ranks in {occ_s:.2f} s (host clock, a rank's {DP_OCC_WINDOWS // DP_WORLD} windows "
+            f"and the gathers): scores {list(scores.shape)} vs one process, a window's relative "
+            f"error max {errs.max():.3e} (band {OCC_BAND}), {int(flipped.sum())} windows with a "
+            f"VQ index flipped (the largest error of a window without one "
+            f"{errs[~flipped].max(initial=0.0):.3e}); originals max abs "
+            f"{float(np.abs(orig - ref_orig).max()):.2e}")
+        if scores.shape != (DP_OCC_WINDOWS, 2) or errs[~flipped].max(initial=0.0) > OCC_BAND \
+                or not np.array_equal(orig, ref_orig):
+            raise AssertionError("sharded occlusion: off the single-process sweep")
+    shutdown_runtime()
+
+
+def dp_phase(torch, card: str) -> None:
+    """Phase 17: data parallelism over torch.distributed on the one card.
+    (a) a one-rank NCCL group through the package's own code
+    (parallel.mesh.initialize_runtime with an address, make_mesh): the fp32
+    step at B = 2 over the mesh (the latents' all-gather, the VQ
+    statistics' and the gradients' all-reduces) gives the single-process
+    step's loss and gradients bit for bit, and its codebook within
+    DP_CODEBOOK_BAND (the EMA sums' atomics move their last bits between
+    any two runs). (b) DP_WORLD ranks
+    sharing the card over gloo (`dp_rank`): the step at local batch 1
+    against the single-process B = 2 step within STEP_GRAD_BAND (the VQ
+    indices of the reference replayed, flips counted as ties), the same
+    bits on every rank; sharded zero-shot and the window-sharded occlusion
+    sweep against one process."""
+    import socket
+    import tempfile
+
+    from ct_clip_ut_tpu_torch.parallel.mesh import initialize_runtime, make_mesh, shutdown_runtime
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    t_phase = time.perf_counter()
+    cfg, tcfg, model, images, tokens = dp_train_setup(torch, seed=0)
+    single = dp_step(torch, cfg, tcfg, model, images, tokens)
+    _, _, model, _, _ = dp_train_setup(torch, seed=0)
+    again = dp_step(torch, cfg, tcfg, model, images, tokens)
+    initialize_runtime(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(device="cuda:0")
+        backend = torch.distributed.get_backend()
+        _, _, model, _, _ = dp_train_setup(torch, seed=0)
+        over_mesh = dp_step(torch, cfg, tcfg, model, images, tokens, mesh)
+    finally:
+        shutdown_runtime()
+    del model
+    same_loss = single[0] == over_mesh[0]
+    same = [torch.equal(a, b) for a, b in zip(single[1], over_mesh[1])]
+    # the codebook's EMA sums (index_add_ on the card accumulates with
+    # atomics) move in their last bits between any two runs
+    cb_run, cb_err = codebook_err(again[2], single[2]), codebook_err(over_mesh[2], single[2])
+    print(f"data parallel: a one-rank {backend} group (world {mesh.world}), the fp32 step at "
+          f"B = {BATCH} over the mesh vs the single-process step: loss {over_mesh[0]:.7f} the "
+          f"same bits {same_loss}; gradients the same bits in {sum(same)} of {len(same)}; the "
+          f"codebook after the step, max abs over the largest entry, {cb_err:.2e} (two "
+          f"single-process runs {cb_run:.2e}: index_add_'s atomics; band {DP_CODEBOOK_BAND}) "
+          f"[{card}]")
+    if backend != "nccl" or not same_loss or not all(same) or cb_err > DP_CODEBOOK_BAND:
+        raise AssertionError("one-rank NCCL step: not the single-process step's bits")
+    del single, again, over_mesh, images, tokens
+    # at short reports: a batch of 2 against two forwards of 1 in one
+    # process (no collective), the sensitivity that sets the step's reports
+    _, _, model, images, tokens = dp_train_setup(torch, seed=0, words=DP_SHORT_WORDS)
+    whole = split_step_grads(torch, model.requires_grad_(True), images, tokens, [(0, 2)])
+    halves = split_step_grads(torch, model, images, tokens, [(0, 1), (1, 2)])
+    errs = step_errors(model, halves, whole)
+    top = {n: v.abs().max().item() for n, v in zip((n for n, _ in model.named_parameters()),
+                                                    whole) if v.numel()}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"data parallel: at reports of ~{DP_SHORT_WORDS} words, the step's gradients from two "
+          f"forwards of 1 against one of {BATCH} in one process (kernel path): "
+          + ", ".join(f"{n} {v:.2e} (its largest entry {top[n]:.2e})" for n, v in worst)
+          + f"; the next largest {sorted(errs.values())[-4]:.2e} [{card}]")
+    del model, images, tokens, whole, halves
+    torch.cuda.empty_cache()
+
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.start_processes(dp_rank, args=(free_port(), tmp), nprocs=DP_WORLD,
+                                              join=True, start_method="spawn")
+    print(f"data parallel: phase 17 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4207,12 +4938,17 @@ def main() -> int:
         bert_f32_record, bert_f32_counts = bert_f32_train_phase(torch, f32_model, card)
         record.update(bert_f32_record)
         del f32_model
+        torch.cuda.empty_cache()
+        record["geglu_ff_int8_f32"], int8_f32_counts = int8_attribution_phase(torch, card)
+        torch.cuda.empty_cache()
+        dp_phase(torch, card)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     def run_of(name):
-        return (bert_f32_counts if name in BERT_F32_KERNELS else
+        return (int8_f32_counts if name == "geglu_ff_int8_f32" else
+                bert_f32_counts if name in BERT_F32_KERNELS else
                 f32_train_counts if name in (*F32_TRAIN_KERNELS, *COUNTER_OF) else
                 train_counts if name in TRAIN_KERNELS else
                 attribution_counts if name in ATTRIBUTION_KERNELS else

@@ -68,6 +68,7 @@ SIGNATURES = {
     "ctc_peg": [_P] * 4 + [_I] * 10 + [_P],
     "ctc_peg_wgrad": [_P] * 4 + [_I] * 9 + [_P],
     "ctc_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
+    "ctc_geglu_ff_int8_f32": [_P] * 15 + [_I] * 4 + [_P],
     "ctc_cosine_attention": [_P] * 8 + [_I] * 4 + [_F, _P],
     "ctc_gemm_sm90_check": [_P] * 3 + [_I] * 6 + [_P],
     "ctc_wgrad_sm90_check": [_P] * 3 + [_I] * 5 + [_P],

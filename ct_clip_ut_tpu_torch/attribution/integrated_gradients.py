@@ -46,7 +46,8 @@ from ..models.ctvit import patchify, unpatchify_np
 from .capture import scored_forward, with_grad
 
 SHARDED = ("the mesh-parallel integrated gradients (integrated_gradients_sharded) are not "
-           "ported yet (ROADMAP Queue 1 item 11: parallel)")
+           "ported yet (ROADMAP Queue 1 item 11d: integrated_gradients_sharded and the suite's "
+           "per-process mode)")
 
 
 def _hoist_text_tower(model: CTCLIP, text_tokens, text_embeds, plain: bool = False):

@@ -1,8 +1,7 @@
 """Occlusion sensitivity: batched masked-forward sweep.
 
 Counterpart of ct_clip_ut_tpu/attribution/occlusion.py (reference
-visualizations.py:335-424, 1029-1082), without the sharded variants (they
-come with the parallel modes, ROADMAP Queue 1 item 11). A 3-D window (20 x
+visualizations.py:335-424, 1029-1082). A 3-D window (20 x
 40 x 40 at stride 10 x 20 x 20 over a 240 x 480 x 480 volume: 23^3 =
 12,167 windows) is filled with -1; the drop of the similarity score is the
 window's importance; importances accumulate into a count-normalised,
@@ -28,7 +27,12 @@ min-max scaled, thresholded heatmap. As in the JAX package:
     clean frames, which recompute to their clean values;
   * the heatmap is assembled on the host, separably: the window sum per
     voxel and the coverage counts factor per axis (cumulative-sum
-    differences), never a [D, H, W] count tensor.
+    differences), never a [D, H, W] count tensor;
+  * with a data-axis mesh of more than one rank (parallel/mesh.py) the
+    window list is split into contiguous per-rank runs, each rank sweeps
+    its run, and the scores are gathered back in window order
+    (`occlusion_scores_multi_sharded`; the reference's per-rank chunks and
+    SUM reduce). Every rank must hold the same image and latents.
 
 Every entry point runs under no_grad and full_fp32 (the PEG convs in full
 fp32), through the matmul patch embed (`capture.parity_cfg`).
@@ -36,6 +40,7 @@ fp32), through the matmul patch embed (`capture.parity_cfg`).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -48,6 +53,8 @@ from ..models.ctclip import (CTCLIP, encode_image_latents_from_spatial_out,
 from ..ops.attention import attention
 from ..ops.layers import layernorm, peg_residual
 from ..ops.posbias import continuous_pos_bias
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh
 from .capture import embed_volume, forward_only
 
 # ---------------------------------------------------------------------------
@@ -362,11 +369,48 @@ def _divide_axis_counts(heat: np.ndarray, grid_shape, vol_shape, patch, stride) 
         heat /= c.reshape(shape)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the window-sharded occlusion sweep is not ported yet (ROADMAP, Queue 1 item 11: "
-            "the parallel modes)")
+def occlusion_scores_multi_sharded(model: CTCLIP, image: torch.Tensor,
+                                   text_latents: torch.Tensor, coords, mesh, *,
+                                   occ: OcclusionConfig = OcclusionConfig(), chunk: int = 8,
+                                   slab: int = 2048,
+                                   plain: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The window-sharded multi-pathology sweep (occlusion.py:568-616):
+    (originals [K], scores [N, K]) as float64 numpy arrays, the same on
+    every rank. The window list, padded with no-op (0, 0, 0) windows to a
+    multiple of the ranks, is split into contiguous runs; rank r sweeps run
+    r in slabs of `slab` windows (`occlusion_scores_slabbed`), and the runs'
+    scores are gathered back in window order. The originals are rank 0's
+    (its run starts at the first window, as the single-process sweep's
+    baseline does)."""
+    coords = np.asarray(coords).reshape(-1, 3)
+    n = coords.shape[0]
+    pad = (-n) % mesh.world
+    if pad:
+        coords = np.concatenate([coords, np.zeros((pad, 3), coords.dtype)], axis=0)
+    per = coords.shape[0] // mesh.world
+    originals, scores = occlusion_scores_slabbed(
+        model, image, text_latents, coords[mesh.rank * per:(mesh.rank + 1) * per], occ=occ,
+        chunk=chunk, slab=slab, plain=plain)
+    dev = mesh.device
+    scores = collectives.gather_rows(torch.as_tensor(scores, device=dev), mesh)
+    originals = collectives.broadcast(torch.as_tensor(originals, device=dev), mesh)
+    return originals.cpu().numpy(), scores.cpu().numpy()[:n]
+
+
+def occlusion_scores_sharded(model: CTCLIP, image: torch.Tensor, text_latent: torch.Tensor,
+                             coords, mesh, *, occ: OcclusionConfig = OcclusionConfig(),
+                             chunk: int = 8, plain: bool = False) -> Tuple[float, np.ndarray]:
+    """(original score, scores [N]) of one [dim_latent] latent over the
+    window-sharded sweep (occlusion.py:544-565)."""
+    originals, scores = occlusion_scores_multi_sharded(model, image, text_latent[None], coords,
+                                                       mesh, occ=occ, chunk=chunk, plain=plain)
+    return float(originals[0]), scores[:, 0]
+
+
+def _sharded(mesh) -> bool:
+    """Whether a sweep takes the window-sharded route (occlusion.py:461-463):
+    a DataMesh of more than one rank (anything but a DataMesh raises)."""
+    return check_mesh(mesh) is not None and mesh.world > 1
 
 
 def _heatmap(importance: np.ndarray, grid_shape, vol_shape, occ: OcclusionConfig) -> np.ndarray:
@@ -386,13 +430,16 @@ def occlusion_heatmaps_multi(model: CTCLIP, image: torch.Tensor, text_latents: t
     """K [D, H, W] numpy heatmaps (before rot90) from ONE window sweep (see
     `occlusion_scores_multi`): importance = relu(original - occluded),
     accumulated over windows, count-normalised, min-max scaled,
-    thresholded. A `mesh` (the sharded sweep) raises."""
-    _no_mesh(mesh)
+    thresholded. With a `mesh` of more than one rank the sweep is
+    window-sharded (`occlusion_scores_multi_sharded`) and every rank
+    returns the same maps."""
     vol = tuple(int(s) for s in image.shape[-3:])
     coords = window_grid(vol, occ.patch_size, occ.stride)
     grid_shape = tuple((n - p) // s + 1 for n, p, s in zip(vol, occ.patch_size, occ.stride))
-    originals, scores = occlusion_scores_slabbed(model, image, text_latents, coords, occ=occ,
-                                                 chunk=chunk, plain=plain)
+    sweep = (functools.partial(occlusion_scores_multi_sharded, mesh=mesh) if _sharded(mesh)
+             else occlusion_scores_slabbed)
+    originals, scores = sweep(model, image, text_latents, coords, occ=occ, chunk=chunk,
+                              plain=plain)
     return [_heatmap(np.maximum(originals[k] - scores[:, k], 0.0), grid_shape, vol, occ)
             for k in range(scores.shape[1])]
 

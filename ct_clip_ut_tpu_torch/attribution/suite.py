@@ -21,10 +21,20 @@ their worklists pipelined (`rollout_maps_pipelined`,
 `integrated_gradients_pipelined`). The text-embeds occlusion scores every
 positive pathology that has a diff embedding in one window sweep.
 
-One process on one card: a `mesh`, or a process group of more than one
-process, raises (ROADMAP Queue 1 item 11). That process writes every map
-it computes (the JAX suite drops the integrated-gradients maps of the
-processes other than the first in its per-process mode; not inherited).
+On one card every map is computed and written by the one process. With a
+data-axis `mesh` of more than one rank (parallel/mesh.py; every rank runs
+the suite over the same dataset), occlusion is collective: every rank
+takes rank 0's sample (`_broadcast_sample`, the reference's
+visualizations.py:296-318) and sweeps its run of the windows, and rank 0
+writes the maps. Raw attention, rollout and Grad-CAM split the samples
+over the ranks, interleaved as the zero-shot sampler does (sample i on
+rank i % world, read by index where the dataset has one), and each rank
+writes its own samples' maps: together they write every map the one-card
+suite writes, each sample's in a run directory of its own, numbered in
+the order the ranks claim them. Integrated gradients over a mesh
+(`integrated_gradients_sharded`, and the JAX suite's per-process mode,
+which keeps only the first process's maps) raises (ROADMAP Queue 1 item
+11d).
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import torch
 
 from ..config import PATHOLOGIES, OcclusionConfig
 from ..models.ctclip import CTCLIP
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh
 from ..utils import visualizations as viz
 from . import grad_cam as gc
 from . import integrated_gradients as ig
@@ -57,15 +69,16 @@ class AttributionContext:
     pathologies: Sequence[str] = PATHOLOGIES
     text_max_length: int = 512
     render_gifs: bool = True
-    mesh: Any = None                    # the sharded modes: not ported (item 11)
+    mesh: Any = None                    # a parallel.mesh.DataMesh: occlusion window-sharded
 
 
-def _single_process(mesh) -> None:
-    if mesh is not None or (torch.distributed.is_available()
-                            and torch.distributed.is_initialized()
-                            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("the sharded and multi-process attribution modes are not "
-                                  "ported yet (ROADMAP Queue 1 item 11)")
+def _check_mesh(mesh) -> None:
+    """A process group of more than one rank needs the mesh that spans it."""
+    if check_mesh(mesh) is None and (torch.distributed.is_available()
+                                     and torch.distributed.is_initialized()
+                                     and torch.distributed.get_world_size() > 1):
+        raise ValueError("a multi-process attribution suite needs ctx.mesh "
+                         "(parallel.mesh.make_mesh)")
 
 
 class Visualizations:
@@ -73,11 +86,13 @@ class Visualizations:
                "occlusion")
 
     def __init__(self, ctx: AttributionContext, results_folder):
-        _single_process(ctx.mesh)
+        _check_mesh(ctx.mesh)
         self.ctx = ctx
         self.results_folder = Path(results_folder)
         self.device = ctx.model.temperature.device
         self.timings = {}              # method -> seconds of its last visualize() pass
+        self.sharded = ctx.mesh is not None and ctx.mesh.world > 1
+        self.is_main = ctx.mesh is None or ctx.mesh.is_main
         if ctx.render_gifs:
             viz.require_renderer()
 
@@ -96,6 +111,21 @@ class Visualizations:
 
     def _out(self, name: str) -> Path:
         return viz.results_subdirectory(self.results_folder, name)
+
+    def _broadcast_sample(self, sample):
+        """Rank 0's (image, text tokens, labels, scan name, path) on every
+        rank (suite.py:61-90): tensors broadcast on the mesh's device (each
+        rank's sample gives the shapes: the ranks read the same dataset),
+        strings through `broadcast_bytes`."""
+        mesh = self.ctx.mesh
+        image, tokens, labels, scan_name, path = sample
+        image = collectives.broadcast(image.contiguous(), mesh)
+        tokens = {k: collectives.broadcast(v.contiguous(), mesh) for k, v in sorted(tokens.items())}
+        lab = collectives.broadcast(torch.as_tensor(labels, dtype=torch.float32,
+                                                    device=self.device).contiguous(), mesh)
+        names = [collectives.broadcast_bytes(str(v).encode(), mesh).decode()
+                 for v in (scan_name, path)]
+        return image, tokens, lab.cpu().numpy(), names[0], names[1]
 
     # -- the methods -----------------------------------------------------------
 
@@ -181,9 +211,10 @@ class Visualizations:
     def occlusion(self, image, text_tokens, labels, scan_name, path,
                   occ: OcclusionConfig = OcclusionConfig(), use_text_embeds: bool = False,
                   prompt: str = ""):
-        out = self._out("occlusion")
-        img = self._image_np(image) if self.ctx.render_gifs else None
-        model = self.ctx.model
+        # the indexed run directory is picked by the writing rank alone
+        out = self._out("occlusion") if self.is_main else None
+        img = self._image_np(image) if self.ctx.render_gifs and self.is_main else None
+        model, mesh = self.ctx.model, self.ctx.mesh
         if use_text_embeds:
             if not self.ctx.diff_embeds:
                 raise ValueError("use_text_embeds requires ctx.diff_embeds")
@@ -194,8 +225,10 @@ class Visualizations:
             latents = torch.stack([occ_mod.diff_embedding_latent(
                 model, torch.as_tensor(np.asarray(self.ctx.diff_embeds[p], np.float32),
                                        device=self.device)) for p in positives])
-            heats = occ_mod.occlusion_heatmaps_multi(model, image, latents, occ=occ)
+            heats = occ_mod.occlusion_heatmaps_multi(model, image, latents, occ=occ, mesh=mesh)
             heatmaps = {p: rot90_ct(h) for p, h in zip(positives, heats)}
+            if not self.is_main:       # the same maps on every rank; rank 0 writes
+                return heatmaps
             np.save(out / f"{scan_name}_{occ.patch_size}_{occ.stride}_{prompt}_heatmaps.npy",
                     heatmaps)
             if self.ctx.render_gifs:
@@ -210,7 +243,9 @@ class Visualizations:
                     pathologies=self.ctx.pathologies)
             return heatmaps
         latent = occ_mod.report_text_latent(model, text_tokens)
-        heat = rot90_ct(occ_mod.occlusion_heatmap(model, image, latent, occ=occ))
+        heat = rot90_ct(occ_mod.occlusion_heatmap(model, image, latent, occ=occ, mesh=mesh))
+        if not self.is_main:
+            return heat
         np.save(out / f"{scan_name}_{prompt}_heatmap.npy", heat)
         if self.ctx.render_gifs:
             viz.visualize_overlay(img, heat, scan_name, "Occlusion", out / f"{scan_name}_{prompt}.gif",
@@ -219,11 +254,29 @@ class Visualizations:
 
     # -- the dispatcher --------------------------------------------------------
 
-    def prepared(self):
-        """The dataset's samples (numpy or tensor images) as (image [1, 1, D,
-        H, W] fp32 on the model's device, text tokens, labels [18], scan
-        name, path)."""
-        for image, text, labels, scan_name, path in self.ctx.data:
+    def _samples(self, share: bool):
+        """The dataset's raw samples; with `share` over a mesh of more than
+        one rank only this rank's, sample i on rank i % world, taken by
+        index where the dataset has one so that no rank loads another
+        rank's volumes."""
+        data = self.ctx.data
+        if not (share and self.sharded):
+            yield from data
+            return
+        world, rank = self.ctx.mesh.world, self.ctx.mesh.rank
+        if hasattr(data, "__len__") and hasattr(data, "__getitem__"):
+            for i in range(rank, len(data), world):
+                yield data[i]
+        else:
+            for i, sample in enumerate(data):
+                if i % world == rank:
+                    yield sample
+
+    def prepared(self, share: bool = False):
+        """The dataset's samples (this rank's share with `share`, see
+        `_samples`) as (image [1, 1, D, H, W] fp32 on the model's device,
+        text tokens, labels [18], scan name, path)."""
+        for image, text, labels, scan_name, path in self._samples(share):
             image = torch.as_tensor(image).to(self.device, torch.float32)
             if image.ndim == 4:
                 image = image[None]
@@ -242,19 +295,30 @@ class Visualizations:
             if name not in self.METHODS:
                 print(f"{name} is not a valid visualization argument.")
                 continue
-            print(f"{name} visualization started.")
+            if self.sharded and name == "integrated_gradients":
+                raise NotImplementedError(
+                    "integrated gradients over a data-parallel mesh "
+                    "(integrated_gradients_sharded, the suite's per-process mode) is not ported "
+                    "yet (ROADMAP Queue 1 item 11d)")
+            if self.is_main:
+                print(f"{name} visualization started.")
             start = time.time()
+            # every method but occlusion: each rank its share of the samples
+            share = name != "occlusion"
             if name == "integrated_gradients":
                 self.integrated_gradients_worklist(
-                    (img, tok, nm) for img, tok, _, nm, _ in self.prepared())
+                    (img, tok, nm) for img, tok, _, nm, _ in self.prepared(share))
             elif name == "attention_rollout":
                 self.attention_rollout_worklist(
-                    (img, tok, nm) for img, tok, _, nm, _ in self.prepared())
+                    (img, tok, nm) for img, tok, _, nm, _ in self.prepared(share))
             else:
                 kwargs = enabled if name == "occlusion" and isinstance(enabled, dict) else {}
-                for sample in self.prepared():
+                for sample in self.prepared(share):
+                    if self.sharded and name == "occlusion":
+                        sample = self._broadcast_sample(sample)
                     getattr(self, name)(*sample, **kwargs)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.timings[name] = time.time() - start
-            print(f"{name} completed in {self.timings[name]:.1f}s")
+            if self.is_main:
+                print(f"{name} completed in {self.timings[name]:.1f}s")

@@ -259,11 +259,25 @@ class OcclusionConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (ct_clip_ut_tpu/config.py:280-289). `data` shards
+    the batch over processes (parallel/mesh.py); a `model` (tensor-parallel)
+    axis above 1 is not ported and raises."""
+    data: int = 1
+    model: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return ("data", "model")
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
-    CTClipTrainer.py:38-59, optimizer.py). The port runs single-device,
-    single-pass steps: grad_accum > 1, fsdp, sharded_checkpoints and the MoE
-    aux loss raise in the trainer (ROADMAP Queue 1 items 8 and 11)."""
+    CTClipTrainer.py:38-59, optimizer.py). The port runs single-pass
+    steps on one card or data-parallel over processes: grad_accum > 1,
+    fsdp, sharded_checkpoints and the MoE aux loss raise in the trainer
+    (ROADMAP Queue 1 items 8, 11b and 11h)."""
     batch_size: int = 1          # per-device
     lr: float = 1.25e-5
     wd: float = 0.0              # wd==0 -> plain Adam (reference optimizer.py:42)

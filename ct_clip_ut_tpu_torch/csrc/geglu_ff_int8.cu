@@ -35,6 +35,14 @@
 // of the IEEE quotient (code_of); a code differs from the plain version's
 // only where LN's or erf's last bit moves x / s across a .5 boundary.
 // int32 sums are exact: 1376 * 127^2 < 2^31.
+//
+// x and out are bf16 (the zero-shot serving path, `ctc_geglu_ff_int8`) or
+// fp32 (the fp32 attribution forward on a quantised model,
+// `ctc_geglu_ff_int8_f32`): the activation type reaches only the row loads
+// of (1) and the residual and store of (4). LN, the codes and both
+// products are the same fp32 / int8 math for either type, so an fp32 row's
+// codes are those of the plain version's fp32 LN; its residual is added in
+// fp32 and stored unrounded.
 #include "gemm_sm90.cuh"
 
 namespace ctc {
@@ -49,6 +57,34 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Two consecutive activations as fp32, and two fp32 values stored as the
+// activation type (bf16 rounded to nearest even); c is even.
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(v), __high2float(v));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Eight consecutive activations as fp32: one 16-B load of bf16, two of fp32.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(p);
+  *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(p + 4);
 }
 
 // The int8 code of v at row scale s (inv = 1 / s): round half to even of
@@ -118,12 +154,15 @@ struct HEpi {
   }
 };
 
-// (4) out = (C rh) s2 (+ x in fp32), rounded to bf16; D is even.
+// (4) out = (C rh) s2 (+ x in fp32), stored as T (bf16 rounded, fp32 as
+// it is), two columns a store: c is even and D a multiple of 16, so each
+// store is 4-B (bf16) or 8-B (fp32) aligned whatever the row.
+template <class T>
 struct OutEpi {
   const float* rh;
   const float* s2;
-  const bf16* x;
-  bf16* out;
+  const T* x;
+  T* out;
   int M, D, residual;
   __device__ void operator()(const int (&acc)[64], int row, int nt, int lane) const {
     const int g = lane >> 2, t = lane & 3;
@@ -140,11 +179,11 @@ struct OutEpi {
         float y0 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * hf], r), s2[c]);
         float y1 = __fmul_rn(__fmul_rn((float)acc[4 * j + 2 * hf + 1], r), s2[c + 1]);
         if (residual) {
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + base + c);
-          y0 = __fadd_rn(y0, __low2float(xv));
-          y1 = __fadd_rn(y1, __high2float(xv));
+          const float2 xv = load2(x + base + c);
+          y0 = __fadd_rn(y0, xv.x);
+          y1 = __fadd_rn(y1, xv.y);
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + base + c) = __floats2bfloat162_rn(y0, y1);
+        store2(out + base + c, y0, y1);
       }
     }
   }
@@ -152,30 +191,29 @@ struct OutEpi {
 
 // (1) LN of each row of x [M, D] (D a multiple of 16, at most 256 XCH)
 // and its per-row int8 codes: one warp a row, lane l holding columns [256 i
-// + 8 l, + 8) in registers (16-B loads, 8-B stores, a warp's 512 B in a
-// row). xq [M, D] int8, rx [M]. XCH, the 256-column chunks of a row, is a
-// template argument so that a row takes the registers it needs.
+// + 8 l, + 8) in registers (16-B loads, 8-B stores, a warp's 512 B of bf16
+// or 1 KB of fp32 in a row). xq [M, D] int8, rx [M]. XCH, the 256-column
+// chunks of a row, is a template argument so that a row takes the
+// registers it needs; T, the activation type, changes only the loads.
 constexpr int MAX_XCH = 8;               // D <= 2048
-template <int XCH>
+template <class T, int XCH>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-quant_x_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+quant_x_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, int8_t* __restrict__ xq, float* __restrict__ rx,
                int M, int D) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m = blockIdx.x * ROW_WARPS + warp;
   if (m >= M) return;
-  const bf16* xr = x + (int64_t)m * D;
+  const T* xr = x + (int64_t)m * D;
   float v[XCH][8];
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int c = 0; c < XCH; ++c) {
     const int k = c * 256 + lane * 8;
     if (k < D) {
-      const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
+      load8(xr + k, v[c]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        v[c][i] = __bfloat162float(e[i]);
         s += v[c][i];
         s2 += v[c][i] * v[c][i];
       }
@@ -271,18 +309,14 @@ int launch_rows(void (*kernel)(Params...), int M, cudaStream_t st, Args... args)
 using namespace ctc::sm90;
 namespace q8 = ctc::q8;
 
-// x [M, D] bf16 (D a multiple of 16, at most 2048); gamma/beta [D] fp32;
-// wv/wg [ldh, D] and w2 [D, ldh] int8 (ldh, the padded inner width, a
-// multiple of 16, at most 4096; padded rows / columns zero); sv/sg [ldh],
-// s2 [D] fp32; workspaces xq [M, D] int8, rx [M] fp32, hbuf [M, ldh] fp32,
-// hq [M, ldh] int8, rh [M] fp32; out [M, D] bf16. Every pointer 16-B
-// aligned. Returns 0, an ERR_ code of gemm_sm90.cuh, or cudaGetLastError()
-// after the launches.
-extern "C" int ctc_geglu_ff_int8(const void* x, const void* gamma, const void* beta,
-                                 const void* wv, const void* wg, const void* w2, const void* sv,
-                                 const void* sg, const void* s2, void* xq, void* rx, void* hbuf,
-                                 void* hq, void* rh, void* out, int M, int D, int ldh,
-                                 int residual, void* stream) {
+namespace {
+
+// The four launches of either activation type T (see the C entries).
+template <class T>
+int geglu_ff_int8_chain(const void* x, const void* gamma, const void* beta, const void* wv,
+                        const void* wg, const void* w2, const void* sv, const void* sg,
+                        const void* s2, void* xq, void* rx, void* hbuf, void* hq, void* rh,
+                        void* out, int M, int D, int ldh, int residual, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D % 16 || D > q8::MAX_XCH * 256 || ldh % 16 || ldh > q8::MAX_HCH * 128)
     return (int)cudaErrorInvalidValue;
@@ -294,11 +328,11 @@ extern "C" int ctc_geglu_ff_int8(const void* x, const void* gamma, const void* b
   if (!err) err = map_b8(&outm.m[1], w2, D, ldh, ldh);
   if (err) return err;
   const int xch = (D + 255) / 256, hch = (ldh + 127) / 128;
-  err = q8::launch_rows(xch <= 1   ? q8::quant_x_kernel<1>
-                        : xch <= 2 ? q8::quant_x_kernel<2>
-                        : xch <= 4 ? q8::quant_x_kernel<4>
-                                   : q8::quant_x_kernel<q8::MAX_XCH>,
-                        M, st, static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+  err = q8::launch_rows(xch <= 1   ? q8::quant_x_kernel<T, 1>
+                        : xch <= 2 ? q8::quant_x_kernel<T, 2>
+                        : xch <= 4 ? q8::quant_x_kernel<T, 4>
+                                   : q8::quant_x_kernel<T, q8::MAX_XCH>,
+                        M, st, static_cast<const T*>(x), static_cast<const float*>(gamma),
                         static_cast<const float*>(beta), static_cast<int8_t*>(xq),
                         static_cast<float*>(rx), M, D);
   if (err) return err;
@@ -315,8 +349,36 @@ extern "C" int ctc_geglu_ff_int8(const void* x, const void* gamma, const void* b
                         static_cast<float*>(rh), M, ldh);
   if (err) return err;
   return launch_gemm(outm, q8::LinearPlan8{},
-                     q8::OutEpi{static_cast<const float*>(rh), static_cast<const float*>(s2),
-                                static_cast<const bf16*>(x), static_cast<bf16*>(out), M, D,
-                                residual},
+                     q8::OutEpi<T>{static_cast<const float*>(rh), static_cast<const float*>(s2),
+                                   static_cast<const T*>(x), static_cast<T*>(out), M, D,
+                                   residual},
                      (D + BN - 1) / BN, M, ldh, st);
+}
+
+}  // namespace
+
+// x [M, D] bf16 (D a multiple of 16, at most 2048); gamma/beta [D] fp32;
+// wv/wg [ldh, D] and w2 [D, ldh] int8 (ldh, the padded inner width, a
+// multiple of 16, at most 4096; padded rows / columns zero); sv/sg [ldh],
+// s2 [D] fp32; workspaces xq [M, D] int8, rx [M] fp32, hbuf [M, ldh] fp32,
+// hq [M, ldh] int8, rh [M] fp32; out [M, D] bf16. Every pointer 16-B
+// aligned. Returns 0, an ERR_ code of gemm_sm90.cuh, or cudaGetLastError()
+// after the launches.
+extern "C" int ctc_geglu_ff_int8(const void* x, const void* gamma, const void* beta,
+                                 const void* wv, const void* wg, const void* w2, const void* sv,
+                                 const void* sg, const void* s2, void* xq, void* rx, void* hbuf,
+                                 void* hq, void* rh, void* out, int M, int D, int ldh,
+                                 int residual, void* stream) {
+  return geglu_ff_int8_chain<bf16>(x, gamma, beta, wv, wg, w2, sv, sg, s2, xq, rx, hbuf, hq, rh,
+                                   out, M, D, ldh, residual, stream);
+}
+
+// The same with x and out [M, D] fp32.
+extern "C" int ctc_geglu_ff_int8_f32(const void* x, const void* gamma, const void* beta,
+                                     const void* wv, const void* wg, const void* w2,
+                                     const void* sv, const void* sg, const void* s2, void* xq,
+                                     void* rx, void* hbuf, void* hq, void* rh, void* out, int M,
+                                     int D, int ldh, int residual, void* stream) {
+  return geglu_ff_int8_chain<float>(x, gamma, beta, wv, wg, w2, sv, sg, s2, xq, rx, hbuf, hq,
+                                    rh, out, M, D, ldh, residual, stream);
 }

@@ -1,4 +1,4 @@
-"""Zero-shot pathology classification, single device.
+"""Zero-shot pathology classification, on one card or data-parallel.
 
 Counterpart of ct_clip_ut_tpu/infer/zeroshot.py: the 36 prompts are
 tokenised padded to 512 tokens and encoded once per checkpoint, each batch
@@ -7,6 +7,16 @@ softmax([present, absent]) per pathology. `CTClipInference.predict` is the
 batch loop; `zeroshot` adds the metrics (`utils/metrics.py`, numpy only);
 `infer` runs zero-shot and then, where asked, the attribution suite
 (`attribution.suite.Visualizations` over `attribution_ctx`).
+
+With a `mesh` (parallel.mesh.DataMesh) each rank scores its shard of the
+dataset (its loader's ShardedSampler shard) and `gather_predictions`
+brings every rank's predictions and labels together before the metrics
+(the reference's gather_for_metrics). The sampler pads the last shard by
+wrapping to the first samples; the gather puts the rows back in the
+sampler's order and drops those wrapped duplicates, as gather_for_metrics
+does (the JAX package's process_allgather keeps them, so they count twice
+in its metrics). `zeroshot_probs_sharded` scores one global batch split
+over the ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ import torch
 from .. import _build
 from ..config import PATHOLOGIES
 from ..models.ctclip import CTCLIP, encode_image_latents, encode_text_latents
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh
+from ..parallel.sharding import shard_loader
 from ..utils import metrics
 
 
@@ -120,6 +133,47 @@ def zeroshot_probs(model: CTCLIP, image: torch.Tensor, prompt_latents: torch.Ten
     return torch.softmax(pair, dim=-1)[..., 0]
 
 
+@torch.no_grad()
+def zeroshot_probs_sharded(model: CTCLIP, image, prompt_latents: torch.Tensor, mesh,
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           plain: bool = False) -> torch.Tensor:
+    """[B, n_pathologies] probabilities of one global [B, 1, T, H, W] batch
+    that every rank holds, its rows split over the ranks
+    (infer/zeroshot.py:96-150): a batch the data axis does not divide is
+    padded by repeating its last row (rows score independently), each rank
+    scores its rows, and the rows are gathered back, the padding dropped."""
+    image = torch.as_tensor(image)
+    b = image.shape[0]
+    pad = (-b) % mesh.world
+    if pad:
+        image = torch.cat([image, image[-1:].expand(pad, *image.shape[1:])])
+    per = image.shape[0] // mesh.world
+    mine = image[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+    probs = zeroshot_probs(model, mine, prompt_latents, compute_dtype, plain)
+    return collectives.gather_rows(probs, mesh)[:b]
+
+
+def gather_predictions(preds: np.ndarray, targets: np.ndarray, mesh, total: Optional[int] = None):
+    """Every rank's (preds [n, k], targets [n, k]) on every rank (the
+    reference's gather_for_metrics, CTClipInference.py:188); each rank
+    holds the same number of rows. With `total`, the dataset's size under
+    a ShardedSampler (its shard r holding padded positions r, r + world,
+    ...), the rows come back in the sampler's order and the wrapped
+    duplicates past `total` are dropped; without it they are concatenated
+    rank by rank. A one-rank mesh returns its input."""
+    if mesh is None or mesh.world == 1:
+        return preds, targets
+    out = []
+    for a in (preds, targets):
+        a = np.asarray(a, np.float64)
+        g = collectives.gather_rows(torch.as_tensor(a, device=mesh.device), mesh).cpu().numpy()
+        if total is not None:
+            g = g.reshape(mesh.world, a.shape[0], -1).transpose(1, 0, 2).reshape(-1, a.shape[1])
+            g = g[:total]
+        out.append(g)
+    return out[0].astype(np.asarray(preds).dtype), out[1].astype(np.asarray(targets).dtype)
+
+
 class CTClipInference:
     """Zero-shot and attribution runner. `data` yields (images [B, 1, D, H,
     W], texts, labels [B, 18], ...); `prompt_tokens` is the tokenised
@@ -127,7 +181,11 @@ class CTClipInference:
     attention_mask / token_type_ids) on the model's device. `visualize`
     ({method: True, or occlusion's keyword dict}) and `attribution_ctx` (an
     `attribution.suite.AttributionContext`) are what `infer` hands the
-    suite (ct_clip_ut_tpu/infer/zeroshot.py:234-243)."""
+    suite (ct_clip_ut_tpu/infer/zeroshot.py:234-243). With a `mesh` the
+    model lies on the mesh's device on every rank, each rank scores its
+    shard of `data` (a loader with a one-shard ShardedSampler is given this
+    rank's shard), the metrics are computed over the gathered predictions
+    and rank 0 writes them."""
 
     def __init__(self, model: CTCLIP, prompt_tokens: dict, data: Iterable,
                  results_folder: str = "./results",
@@ -135,9 +193,9 @@ class CTClipInference:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  mesh=None, zero_shot: bool = True, visualize: Optional[dict] = None,
                  attribution_ctx=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded evaluation is not ported yet (ROADMAP, Queue 1 item 11)")
+        if check_mesh(mesh) is not None:
+            shard_loader(data, mesh)
+        self.mesh = mesh
         self.model = model
         self.prompt_tokens = prompt_tokens
         self.data = data
@@ -170,12 +228,18 @@ class CTClipInference:
 
     def zeroshot(self):
         """predict(), then the metrics, appended to metrics_history and
-        written to results_folder/metrics.txt. Returns (metrics, preds,
-        targets)."""
+        written to results_folder/metrics.txt (by rank 0 with a mesh, over
+        every rank's predictions). Returns (metrics, preds, targets)."""
         preds, targets = self.predict()
+        if self.mesh is not None:
+            sampler = getattr(self.data, "sampler", None)
+            preds, targets = gather_predictions(preds, targets, self.mesh,
+                                                total=getattr(sampler, "n", None))
         m = metrics.calculate_metrics(preds, targets, list(self.pathologies))
         self.metrics_history.append(m)
-        metrics.save_metrics(self.metrics_history, list(self.pathologies), self.results_folder)
+        if self.mesh is None or self.mesh.is_main:
+            metrics.save_metrics(self.metrics_history, list(self.pathologies),
+                                 self.results_folder)
         return m, preds, targets
 
     def infer(self):
@@ -188,5 +252,6 @@ class CTClipInference:
             from ..attribution.suite import Visualizations
             self.suite = Visualizations(self.attribution_ctx, self.results_folder)
             self.suite.visualize(**self.visualize)
-        print(f"Evaluation completed in {time.time() - start:.1f}s")
+        if self.mesh is None or self.mesh.is_main:
+            print(f"Evaluation completed in {time.time() - start:.1f}s")
         return result

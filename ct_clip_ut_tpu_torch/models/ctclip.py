@@ -24,6 +24,7 @@ from ..ops.attention import Attention
 from ..ops.layers import FrozenBiasLayerNorm, l2norm, linear
 from ..ops.taps import NULL_TAPS, Taps
 from ..ops.vq import VQState, _Codebook, vq_apply
+from ..parallel.collectives import all_gather
 from .bert import Bert, bert_cls
 from .ctvit import CTViT, ctvit_apply, ctvit_encode_tokens, ctvit_temporal_encode
 
@@ -119,14 +120,16 @@ def init_ctclip(cfg: CTCLIPConfig, seed: int = 0, device="cuda") -> CTCLIP:
 def encode_image_latents(model: CTCLIP, image: torch.Tensor, *, freeze_vq: bool = True,
                          return_weights: bool = False, taps: Taps = NULL_TAPS,
                          deterministic: bool = True, prepatchified: bool = False,
-                         plain: bool = False):
+                         plain: bool = False, vq_axis=None):
     """CT-ViT -> fp32 temporal mean (cast back) -> flatten -> project ->
     l2norm (ctclip.py:63-83). Returns (latents, CTViTOutput). With
     prepatchified=True `image` is a [b, t, h, w, patch_dim] patch tensor
-    (the gradient attribution entry, ctvit.ctvit_apply)."""
+    (the gradient attribution entry, ctvit.ctvit_apply); `vq_axis` as
+    ctvit.ctvit_apply's."""
     vit_out = ctvit_apply(model.visual_transformer, image, freeze_vq=freeze_vq,
                           return_weights=return_weights, taps=taps,
-                          deterministic=deterministic, prepatchified=prepatchified, plain=plain)
+                          deterministic=deterministic, prepatchified=prepatchified, plain=plain,
+                          vq_axis=vq_axis)
     return _image_latents_of(model, vit_out.tokens), vit_out
 
 
@@ -217,16 +220,26 @@ def ctclip_apply(model: CTCLIP, text_tokens: dict, image: torch.Tensor, *,
     deterministic=False. With text_tokens None, `text_embeds` [b, dim_text]
     (CLS-level embeddings, e.g. occlusion's pathology diff embeddings) give
     the text latents l2norm(text_embeds W^T) (ctclip.py:167-172). `taps`
-    and `prepatchified` as ctvit.ctvit_apply's."""
-    if gather_axis is not None:
-        raise NotImplementedError(
-            "the gradient-carrying all-gather of latents is not ported yet "
-            "(ROADMAP, Queue 1 item 11: parallel)")
+    and `prepatchified` as ctvit.ctvit_apply's.
+
+    With a data-axis mesh `gather_axis` (parallel/mesh.py) the local
+    latents of every rank are gathered, with a gradient, before the sim
+    matrix, which is then the global [B, B] one (ctclip.py:179-182; the
+    reference's GatherWithGrad): image and text latents in one
+    `all_gather`, image rows first. The VQ's EMA statistics are summed over
+    the same ranks."""
     text_latents = text_latents_of(model, text_tokens, text_embeds, image.dtype, plain,
                                    generator=generator, deterministic=deterministic)
     image_latents, vit_out = encode_image_latents(
         model, image, freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
-        deterministic=deterministic, prepatchified=prepatchified, plain=plain)
+        deterministic=deterministic, prepatchified=prepatchified, plain=plain,
+        vq_axis=gather_axis)
+    if gather_axis is not None:
+        d = image_latents.shape[-1]
+        both = all_gather(torch.cat([image_latents, text_latents.to(image_latents.dtype)], -1),
+                          gather_axis)
+        image_latents = both[:, :d].contiguous()
+        text_latents = both[:, d:].to(text_latents.dtype).contiguous()
     temp = model.temperature.exp()
     sim = (image_latents.float() @ text_latents.float().t()) * temp
     return CTCLIPOutput(sim_matrix=sim, image_latents=image_latents, text_latents=text_latents,

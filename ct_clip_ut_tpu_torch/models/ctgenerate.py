@@ -132,7 +132,7 @@ def ctgenerate_apply_batched(model: CTGenerate, ct_scans: torch.Tensor,
     Keyword spans are sliced from `cross_attention` per sample."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh-sharded CTGenerate is not ported yet (ROADMAP, Queue 1 item 11)")
+            "mesh-sharded CTGenerate is not ported yet (ROADMAP, Queue 1 item 11e)")
     self_attn_bias = None
     if bias_cache is not None:
         grid = token_grid_shape(model.cfg.ctvit, ct_scans.shape)

@@ -190,17 +190,18 @@ def check_image_dtype(dtype: torch.dtype, device_type: str, plain: bool) -> None
 
 def ctvit_encode_tokens(vit: CTViT, tokens: torch.Tensor, *, freeze_vq: bool = True,
                         return_weights: bool = False, taps: Taps = NULL_TAPS,
-                        plain: bool = False) -> CTViTOutput:
+                        plain: bool = False, vq_axis=None) -> CTViTOutput:
     """Transformer encode + VQ of an embedded [b, t, h, w, d] token grid
     (ctvit.py:299-322, `_ctvit_encode_tokens`), with the taps vq.input and
-    vq.features around the VQ."""
+    vq.features around the VQ. `vq_axis`: a data-axis mesh over whose ranks
+    the VQ's EMA statistics are summed (ops.vq.vq_apply)."""
     cfg = vit.cfg
     x, sp_w, tm_w = ctvit_encode(vit, tokens, return_weights=return_weights, taps=taps,
                                  plain=plain)
     b, t, h, w, d = x.shape
     flat = taps.tap("vq.input", x.reshape(b, t * h * w, d))
     quant, idx, state = vq_apply(vit.vq.state(), flat, freeze=freeze_vq, decay=cfg.vq_decay,
-                                 eps=cfg.vq_eps, plain=plain)
+                                 eps=cfg.vq_eps, plain=plain, axis=vq_axis)
     quant = taps.tap("vq.features", quant)
     return CTViTOutput(tokens=quant.reshape(b, t, h, w, d),
                        codebook_ids=idx.reshape(b, t, h, w),
@@ -210,12 +211,12 @@ def ctvit_encode_tokens(vit: CTViT, tokens: torch.Tensor, *, freeze_vq: bool = T
 def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
                 return_weights: bool = False, taps: Taps = NULL_TAPS,
                 deterministic: bool = True, prepatchified: bool = False,
-                plain: bool = False) -> CTViTOutput:
+                plain: bool = False, vq_axis=None) -> CTViTOutput:
     """Full CT-ViT forward of a [b, c, T, H, W] volume (ctvit.py:249-296),
     or with prepatchified=True of a [b, t, h, w, patch_dim] patch tensor
     through the matmul embed (the ctclip model type only).
     freeze_vq=False returns the EMA-updated codebook in `vq_state` (the
-    caller writes it back). CT-ViT dropout is not ported: its rates are 0
+    caller writes it back; over `vq_axis`'s ranks' statistics where given). CT-ViT dropout is not ported: its rates are 0
     in every configuration the JAX package ships, and a train-mode call
     with a rate above 0 raises. On the card the image must be bf16 or fp32
     (`check_image_dtype`)."""
@@ -230,7 +231,7 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
         check_image_dtype(image.dtype, image.device.type, plain)
         return ctvit_encode_tokens(vit, _patch_embed(vit.to_patch_emb, image),
                                    freeze_vq=freeze_vq, return_weights=return_weights, taps=taps,
-                                   plain=plain)
+                                   plain=plain, vq_axis=vq_axis)
     check_image_dtype(image.dtype, image.device.type, plain)
     if cfg.patch_embed_conv:
         def embed(emb, img, t_patch):
@@ -247,4 +248,4 @@ def ctvit_apply(vit: CTViT, image: torch.Tensor, *, freeze_vq: bool = True,
     else:
         tokens = embed(vit.to_patch_emb, image, cfg.temporal_patch_size)
     return ctvit_encode_tokens(vit, tokens, freeze_vq=freeze_vq, return_weights=return_weights,
-                               taps=taps, plain=plain)
+                               taps=taps, plain=plain, vq_axis=vq_axis)

@@ -12,7 +12,7 @@ scan, each stripe's bias built by the callback. plain=True asks for the
 kernel's plain version on any device.
 
 The kv-block variant (`blockwise_cosine_attention`, used only by the
-sequence-parallel encoder) is not ported yet (ROADMAP Queue 1 item 11).
+sequence-parallel encoder) is not ported yet (ROADMAP Queue 1 item 11f).
 """
 
 from __future__ import annotations

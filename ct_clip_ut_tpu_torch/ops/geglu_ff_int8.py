@@ -6,7 +6,11 @@ wgmma path of the Hopper core: LN and xn's codes; the value | gate product
 writing h in fp32, 64 columns of each a tile; h's row scales and codes;
 the W2 product with the residual. Its header says what bounds it on the
 H100 and what the design does about it. `geglu_ff_int8` launches it for
-CUDA tensors and takes the plain version for CPU tensors.
+CUDA tensors and takes the plain version for CPU tensors. x is bf16 (the
+zero-shot serving path) or fp32 (the fp32 attribution forward on a
+quantised model): the fp32 form (`ctc_geglu_ff_int8_f32`, counted as
+geglu_ff_int8_f32) reads fp32 rows and adds and stores the residual in
+fp32; the codes and both products are the bf16 form's.
 
 `geglu_ff_int8_plain` follows `xla_int8_reference` (pallas_ff_int8.py:
 100-119) step by step: LN in fp32 with beta (one-pass moments, eps 1e-5,
@@ -104,21 +108,33 @@ def geglu_ff_int8(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   wv_q: torch.Tensor, wg_q: torch.Tensor, w2_q: torch.Tensor,
                   sv: torch.Tensor, sg: torch.Tensor, s2: torch.Tensor,
                   residual: bool = False) -> torch.Tensor:
-    """The geglu_ff_int8 kernel on CUDA tensors (bf16 x; fp32 gamma, beta
-    and scales; int8 weights with an inner width and D that 16 divides),
-    the plain version on CPU tensors. Serving only: an input that requires
-    grad while autograd records raises."""
+    """The geglu_ff_int8 kernel on CUDA tensors (bf16 or fp32 x, the output
+    in x's dtype; fp32 gamma, beta and scales; int8 weights with an inner
+    width and D that 16 divides), the plain version on CPU tensors. Serving
+    only: an input that requires grad while autograd records raises."""
     serving_only(x)
     if not _build.on_cuda(x):
         return geglu_ff_int8_plain(x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2, residual)
+    out = launch_chain(x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2, residual)[0]
+    launches.count("geglu_ff_int8_f32" if x.dtype == torch.float32 else "geglu_ff_int8")
+    return out
+
+
+def launch_chain(x, gamma, beta, wv_q, wg_q, w2_q, sv, sg, s2, residual: bool = False) -> tuple:
+    """The C entry of x's dtype on CUDA tensors, uncounted: (out, xq, rx,
+    hq, rh), the output and the chain's workspaces holding xn's and h's
+    int8 codes and row scales. The one place that knows those workspaces
+    (the card's checks read the codes through it)."""
     n, d = x.shape
     inner = wv_q.shape[0]
     if d % 16 or inner % INNER_MULTIPLE or d > MAX_DIM or inner > MAX_INNER:
         raise ValueError(f"geglu_ff_int8 takes D <= {MAX_DIM} and an inner width <= {MAX_INNER},"
                          f" both multiples of 16; got D={d}, inner={inner} (Int8FeedForward pads"
                          " inner when it is built)")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"geglu_ff_int8 takes bf16 or fp32 x on the card; got {x.dtype}")
     dev = x.device
-    for t, name, dtype, shape in ((x, "x", torch.bfloat16, (n, d)),
+    for t, name, dtype, shape in ((x, "x", x.dtype, (n, d)),
                                   (gamma, "gamma", torch.float32, (d,)),
                                   (beta, "beta", torch.float32, (d,)),
                                   (wv_q, "wv_q", torch.int8, (inner, d)),
@@ -135,11 +151,12 @@ def geglu_ff_int8(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     hbuf = torch.empty((n, inner), **f32)
     hq, rh = torch.empty((n, inner), dtype=torch.int8, device=dev), torch.empty((n,), **f32)
     out = torch.empty_like(x)
-    err = _build.load().ctc_geglu_ff_int8(
+    f32_x = x.dtype == torch.float32
+    lib = _build.load()
+    err = (lib.ctc_geglu_ff_int8_f32 if f32_x else lib.ctc_geglu_ff_int8)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wv_q.data_ptr(), wg_q.data_ptr(),
         w2_q.data_ptr(), sv.data_ptr(), sg.data_ptr(), s2.data_ptr(), xq.data_ptr(),
         rx.data_ptr(), hbuf.data_ptr(), hq.data_ptr(), rh.data_ptr(), out.data_ptr(), n, d,
         inner, int(residual), _build.stream_of(x))
-    _build.check(err, "geglu_ff_int8")
-    launches.count("geglu_ff_int8")
-    return out
+    _build.check(err, "geglu_ff_int8_f32" if f32_x else "geglu_ff_int8")
+    return out, xq, rx, hq, rh

@@ -16,7 +16,8 @@ KERNELS = ("attn_block", "attn_packed", "geglu_ff", "vq_nearest", "patch_embed",
            "geglu_ff_f32", "vq_nearest_f32", "attn_block_bwd_f32", "attn_packed_bwd_f32",
            "geglu_ff_bwd_f32", "patch_embed_f32", "attn_qrows_f32", "attn_block_bwd_f32_full",
            "attn_packed_bwd_f32_full", "geglu_ff_bwd_f32_full", "patch_embed_res_f32",
-           "patch_embed_dkw_f32", "bert_layer_f32_train", "bert_layer_bwd_f32")
+           "patch_embed_dkw_f32", "bert_layer_f32_train", "bert_layer_bwd_f32",
+           "geglu_ff_int8_f32")
 
 attn_block = 0
 attn_packed = 0
@@ -52,6 +53,7 @@ patch_embed_res_f32 = 0
 patch_embed_dkw_f32 = 0
 bert_layer_f32_train = 0
 bert_layer_bwd_f32 = 0
+geglu_ff_int8_f32 = 0
 
 
 def count(name: str) -> None:

@@ -41,7 +41,7 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError(
-                "the MoE feed-forward is not ported yet (ROADMAP, Queue 1 item 11)")
+                "the MoE feed-forward is not ported yet (ROADMAP, Queue 1 item 11h: moe)")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             nn.ModuleList([PEG(cfg.dim, cfg.peg_causal, cfg.peg_pallas) if cfg.peg else None,

@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch import nn
 
+from ..parallel.collectives import psum
 from .layers import l2norm
 from .vq_nearest import vq_nearest, vq_nearest_plain
 
@@ -97,10 +98,13 @@ def vq_ema_update(state: VQState, counts: torch.Tensor, embed_sum: torch.Tensor,
 
 
 def vq_apply(state: VQState, x: torch.Tensor, *, freeze: bool = True, decay: float = 0.8,
-             eps: float = 1e-5,
-             plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, VQState]:
+             eps: float = 1e-5, plain: bool = False,
+             axis=None) -> Tuple[torch.Tensor, torch.Tensor, VQState]:
     """(out, indices, new state), out = x + (quant - x).detach()
-    (vq.py:143-162). With freeze=True the state comes back unchanged."""
+    (vq.py:143-162). With freeze=True the state comes back unchanged. With
+    a data-axis mesh `axis` the batch statistics are summed over its ranks
+    before the EMA update (what GSPMD does to the JAX step's global batch),
+    so every rank's codebook takes the global batch's update."""
     with torch.no_grad():
         quant, idx = vq_lookup(state, x.detach(), plain=plain)
     out = x + (quant - x).detach()
@@ -108,4 +112,6 @@ def vq_apply(state: VQState, x: torch.Tensor, *, freeze: bool = True, decay: flo
         return out, idx, state
     dim = state.embed.shape[1]
     counts, embed_sum = vq_batch_stats(idx, vq_stats_input(x, dim), state.embed.shape[0])
+    if axis is not None:
+        counts, embed_sum = psum(counts, axis), psum(embed_sum, axis)
     return out, idx, vq_ema_update(state, counts, embed_sum, decay=decay, eps=eps)

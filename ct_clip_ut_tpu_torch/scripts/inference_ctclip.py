@@ -1,10 +1,13 @@
-"""CT-CLIP zero-shot evaluation and attribution on one GPU.
+"""CT-CLIP zero-shot evaluation and attribution, on one GPU or data-parallel.
 
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctclip \
         --data-valid /data/valid --valid-reports reports/valid_reports.csv \
         --valid-labels labels/valid_labels.csv \
         --valid-metadata metadata/valid_metadata.csv --zero-shot [--quantize-ff] \
         [--visualize occlusion grad_cam ...] [--diff-embeds D.npy --occlusion-text-embeds]
+
+    torchrun --nproc-per-node N -m ct_clip_ut_tpu_torch.scripts.inference_ctclip \
+        ... --multihost [--mesh-data N]
 
 Counterpart of ct_clip_ut_tpu/scripts/inference_ctclip.py, with its parser
 flag for flag and its refusals (--quantize-ff with a gradient method,
@@ -14,7 +17,9 @@ reads the .nii.gz volumes under --data-valid through `InferenceDataset`
 scores them with `CTClipInference.zeroshot()` (36 prompts padded to 512
 tokens, bf16 volumes) and writes metrics.txt to --results-folder.
 --quantize-ff serves the visual transformer's FFs W8A8 (`quantize_ctclip_ff`,
-the geglu_ff_int8 kernel). --visualize runs the attribution suite
+the geglu_ff_int8 kernel: bf16 activations for zero-shot, fp32 under the
+forward attribution methods, raw attention, rollout and occlusion, which
+it pairs with as in the JAX script). --visualize runs the attribution suite
 (`attribution.suite.Visualizations` through `CTClipInference.infer()`)
 over the same dataset, one volume at a time, writing each method's maps
 and GIFs under --results-folder; --diff-embeds loads the diff embeddings
@@ -24,17 +29,24 @@ matplotlib or pillow, --visualize raises before the model loads;
 --no-gifs (the port's own flag: the JAX script always renders) writes the
 maps alone and needs neither.
 
+Data parallelism: --multihost (or --num-processes above 1) joins the
+process group, from torchrun's environment or from --coordinator-address /
+--num-processes / --process-id (parallel.mesh.initialize_runtime: NCCL for
+CUDA ranks, gloo for --device cpu), each rank on `cuda:LOCAL_RANK`.
+--mesh-data N (the group's size by default) is the data axis: each rank
+scores its shard of the volumes, rank 0 writes metrics.txt over all of
+them (wrapped duplicates of the last shard dropped), and occlusion sweeps
+its windows over the ranks (the suite, attribution/suite.py).
+--mesh-model above 1, the tensor-parallel axis, raises (Queue 1 item 11c).
+
 Weights: --checkpoint, a state dict of the port's CTCLIP
 (torch.save(model.state_dict())); without it, random weights from --seed.
 Prompts are tokenised by the stand-in `WordTokenizer`. Left for later, each
 raising with its ROADMAP item after the parser's refusals: HF tokenizer
-files (--tokenizer) and the reference's ctclip_v2.pt (Queue 1 item 12),
---multihost and the --mesh-* flags (item 11), and --quantize-ff with a
-forward attribution method (the JAX package runs the W8A8 FF under the
-fp32 attribution forward there; the geglu_ff_int8 kernel takes bf16
-activations only: Queue 2 item 16). `main(argv, model_cfg=, preprocess_cfg=)` takes
-another configuration from Python (the tests' tiny one); the command line
-serves the JAX script's `CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
+files (--tokenizer) and the reference's ctclip_v2.pt (Queue 1 item 12).
+`main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
+Python (the tests' tiny one); the command line serves the JAX script's
+`CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from ..data.loader import DataLoader, ShardedSampler
 from ..infer.zeroshot import CTClipInference, WordTokenizer, tokenize_prompts
 from ..models.ctclip import CTCLIP, init_ctclip
 from ..ops.quant import quantize_ctclip_ff
+from ..parallel.mesh import check_model_axis, initialize_runtime, make_mesh
 from ..utils import visualizations
 
 
@@ -83,18 +96,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--visualize writes the .npy maps alone, no GIFs (no matplotlib needed)")
     p.add_argument("--occlusion-text-embeds", action="store_true",
                    help="occlusion in the diff-embedding bypass mode (requires --diff-embeds)")
-    p.add_argument("--multihost", action="store_true", help="not ported (Queue 1 item 11)")
-    p.add_argument("--coordinator-address", default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torch.distributed process group (torchrun's environment, "
+                        "or the three flags below) before anything touches the card")
+    p.add_argument("--coordinator-address", default=None, help="host:port of rank 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--mesh-data", type=int, default=None, help="not ported (Queue 1 item 11)")
-    p.add_argument("--mesh-model", type=int, default=1, help="not ported (Queue 1 item 11)")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size (default: every process)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh axis size: not ported above 1 (Queue 1 item 11c)")
     p.add_argument("--occlusion-prompt", default="",
                    help="tag recorded in occlusion artifact filenames")
     p.add_argument("--quantize-ff", action="store_true",
                    help="serve the visual transformer's GEGLU FFs W8A8 (the geglu_ff_int8 "
-                        "kernel; forward-only, so incompatible with gradient-based "
-                        "attribution)")
+                        "kernel, bf16 or fp32 activations; forward-only, so incompatible with "
+                        "gradient-based attribution)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p
@@ -115,6 +132,29 @@ def load_model(cfg: CTCLIPConfig, checkpoint, seed: int, device) -> CTCLIP:
     return model
 
 
+def make_cli_mesh(args):
+    """The data-axis mesh of --multihost / --num-processes / --mesh-data /
+    --mesh-model, or None for a one-process run without mesh flags
+    (scripts/train_ctclip.py:99-110 in the JAX package). The process group
+    comes up first; its ranks lie on `cuda:LOCAL_RANK` (the CPU with
+    --device cpu)."""
+    check_model_axis(args.mesh_model)
+    explicit = args.coordinator_address is not None or args.process_id is not None
+    if args.multihost or (args.num_processes or 0) > 1 or explicit:
+        initialize_runtime(args.coordinator_address, args.num_processes, args.process_id,
+                           device=args.device)
+    elif args.mesh_data is None:
+        return None
+    cpu = torch.device(args.device).type == "cpu"
+    mesh = make_mesh(None, device="cpu" if cpu else None)
+    if args.mesh_data is not None and args.mesh_data != mesh.world:
+        raise ValueError(f"--mesh-data {args.mesh_data} needs {args.mesh_data} processes, "
+                         f"have {mesh.world} (start them with torchrun --nproc-per-node)")
+    if not cpu:
+        _build.check_device(mesh.device)
+    return mesh
+
+
 def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessConfig = None):
     """Returns (metrics, preds, targets) of --zero-shot, else None."""
     parser = build_parser()
@@ -132,21 +172,11 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
     if args.tokenizer is not None:
         raise NotImplementedError("HF tokenizer files are not in the repository (ROADMAP "
                                   "Queue 1 item 12); the stand-in WordTokenizer is used")
-    forward_methods = {"raw_attention_maps", "attention_rollout", "occlusion"}
-    if args.quantize_ff and forward_methods & set(args.visualize):
-        raise NotImplementedError(
-            "--quantize-ff with a forward attribution method: the JAX package runs the W8A8 FF "
-            "under the fp32 attribution forward there, and the geglu_ff_int8 kernel takes bf16 "
-            "activations only (ROADMAP Queue 2 item 16: its fp32-activation variant)")
-    if (args.multihost or args.coordinator_address or (args.num_processes or 0) > 1
-            or args.process_id is not None or args.mesh_data is not None
-            or args.mesh_model != 1):
-        raise NotImplementedError("multi-process and mesh-sharded evaluation are not ported "
-                                  "yet (ROADMAP Queue 1 item 11)")
     if args.visualize and not args.no_gifs:
         visualizations.require_renderer()   # before the model loads
 
-    device = _build.check_device(args.device)
+    mesh = make_cli_mesh(args)
+    device = mesh.device if mesh is not None else _build.check_device(args.device)
     cfg = model_cfg or CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
     model = load_model(cfg, args.checkpoint, args.seed, device)
     if args.quantize_ff:
@@ -155,8 +185,12 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
                           args.valid_labels, num_samples=args.num_valid_samples,
                           preprocess_cfg=preprocess_cfg or PreprocessConfig(),
                           cache_dir=args.preprocess_cache)
+    # each rank's interleaved shard (the reference's DistributedSampler,
+    # CTClipInference.py:59); one process takes the whole dataset
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
     dl = DataLoader(ds, batch_size=args.batch_size,
-                    sampler=ShardedSampler(len(ds), shuffle=False, drop_last=False),
+                    sampler=ShardedSampler(len(ds), shuffle=False, drop_last=False,
+                                           num_shards=world, shard_index=rank),
                     num_workers=args.num_workers, drop_last=False)
     tokenizer = WordTokenizer(cfg.bert.vocab_size)
     prompts = tokenize_prompts(tokenizer, device=device)
@@ -167,12 +201,12 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
     ctx = AttributionContext(model=model, tokenizer=tokenizer, data=ds,
                              diff_embeds=(load_diff_embeddings(args.diff_embeds)
                                           if args.diff_embeds else None),
-                             render_gifs=not args.no_gifs)
+                             render_gifs=not args.no_gifs, mesh=mesh)
     inference = CTClipInference(model, prompts, dl, results_folder=args.results_folder,
                                 zero_shot=args.zero_shot, visualize=visualize,
-                                attribution_ctx=ctx)
+                                attribution_ctx=ctx, mesh=mesh)
     result = inference.infer()
-    if result is not None:
+    if result is not None and (mesh is None or mesh.is_main):
         print(f"zero-shot: {len(ds)} volumes, mean ROC-AUC {result[0]['mean_roc_auc']:.4f} -> "
               f"{inference.results_folder / 'metrics.txt'}")
     return result

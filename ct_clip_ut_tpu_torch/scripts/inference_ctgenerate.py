@@ -28,7 +28,7 @@ token grid per prompt with `maskgit_generate` (bf16, generator seeded by
 Weights: --checkpoint, a state dict of the port's CTGenerate
 (torch.save(model.state_dict())); without it, random weights from --seed.
 Reports are tokenised by the stand-in `WordTokenizer`. Left for later, each
-raising with its ROADMAP item: --mesh-data (item 11), and the reference's
+raising with its ROADMAP item: --mesh-data (item 11e), and the reference's
 ctgenerate_filtered.pt or HF T5 tokenizer files (--t5, item 12).
 `main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
 Python (the tests' tiny one); the command line serves CTGenerateConfig().
@@ -80,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a state dict of the port's CTGenerate; default: random from --seed")
     p.add_argument("--t5", default=None, help="HF T5 tokenizer files: not ported (item 12)")
     p.add_argument("--batch-size", type=int, default=1, help="scans per forward")
-    p.add_argument("--mesh-data", type=int, default=None, help="not ported (item 11)")
+    p.add_argument("--mesh-data", type=int, default=None, help="not ported (item 11e)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
                    help="MaskGit's dtype at --batch-size > 1; the one-scan route runs fp32")
     p.add_argument("--gifs", action="store_true",
@@ -177,7 +177,7 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
     elif not args.generate:
         parser.error("--generate needs at least one prompt")
     if args.mesh_data is not None:
-        raise NotImplementedError("--mesh-data is not ported yet (ROADMAP Queue 1 item 11)")
+        raise NotImplementedError("--mesh-data is not ported yet (ROADMAP Queue 1 item 11e)")
     if args.t5 is not None:
         raise NotImplementedError("HF T5 tokenizer files are not in the repository (ROADMAP "
                                   "Queue 1 item 12); the stand-in WordTokenizer is used")

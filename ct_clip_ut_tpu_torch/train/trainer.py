@@ -18,11 +18,23 @@ tokens, its plain layers as in the JAX package.
 host, the epoch loop with the loss fetched one step late, the step-0
 bootstrap evaluation, `save_every_steps` checkpoints with the position
 sidecar (`<name>.pos.json`) that step-level resume reads, and the dated /
-indexed results folder. Not ported yet, and raising with their ROADMAP
-item: GradCache (grad_accum > 1), FSDP, sharded checkpoints, the MoE
-CT-ViT, meshes; the profiler window (`profile_steps`) is replaced by
-`python -m ct_clip_ut_tpu_torch.train.profile_train`. The training-curve
-plots are skipped.
+indexed results folder.
+
+Data parallelism (`mesh`, a parallel.mesh.DataMesh; trainer.py:86-113,
+284-384 under GSPMD): each rank steps on its own local batch, the latents
+of every rank are gathered with a gradient into the global sim matrix
+(ctclip_apply(gather_axis=mesh)), the VQ's EMA statistics are summed over
+the ranks, and the gradients are averaged over the ranks before the clip
+and Adam, so the clip sees the global norm and every rank takes the same
+update. Rank 0's parameters and moments are broadcast at the start; each
+rank's dropout generator is seeded from (seed, rank); rank 0 picks the run
+directory and broadcasts it, and alone writes checkpoints and prints.
+
+Not ported yet, and raising with their ROADMAP item: GradCache
+(grad_accum > 1), FSDP, sharded checkpoints, the MoE CT-ViT, a model mesh
+axis; the profiler window (`profile_steps`) is replaced by `python -m
+ct_clip_ut_tpu_torch.train.profile_train`. The training-curve plots are
+skipped.
 """
 
 from __future__ import annotations
@@ -42,6 +54,9 @@ from .. import _build
 from ..config import CTCLIPConfig, TrainConfig
 from ..models.ctclip import CTCLIP, contrastive_loss, ctclip_apply, init_ctclip
 from ..ops.vq import VQState
+from ..parallel import collectives, sharding
+from ..parallel.mesh import DataMesh, check_mesh
+from ..parallel.sharding import shard_loader
 from . import checkpoint as ckpt
 from .optimizer import Optimizer, get_optimizer
 
@@ -59,22 +74,28 @@ def _check_supported(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> None:
         raise NotImplementedError("GradCache (grad_accum > 1) is not ported yet "
                                   "(ROADMAP, Queue 1 item 8)")
     if train_cfg.fsdp:
-        raise NotImplementedError("FSDP is not ported yet (ROADMAP, Queue 1 item 11)")
+        raise NotImplementedError("FSDP is not ported yet (ROADMAP, Queue 1 item 11b: FSDP and "
+                                  "sharded checkpoints)")
     if train_cfg.sharded_checkpoints:
         raise NotImplementedError("sharded checkpoints are not ported yet "
-                                  "(ROADMAP, Queue 1 item 11)")
+                                  "(ROADMAP, Queue 1 item 11b: FSDP and sharded checkpoints)")
     if model_cfg.ctvit.moe_experts > 0:
-        raise NotImplementedError("the MoE CT-ViT is not ported yet (ROADMAP, Queue 1 item 11)")
+        raise NotImplementedError("the MoE CT-ViT is not ported yet (ROADMAP, Queue 1 item "
+                                  "11h: moe)")
 
 
 def create_train_state(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
-                       params: Optional[CTCLIP] = None, device="cuda") -> TrainState:
+                       params: Optional[CTCLIP] = None, device="cuda",
+                       mesh: Optional[DataMesh] = None) -> TrainState:
     """A TrainState on `device`: `params` (a CTCLIP, e.g. from
     convert.from_jax_params) or a model drawn from train_cfg.seed, the
     optimizer over its parameters, step 0, and the dropout generator
-    seeded from train_cfg.seed."""
+    seeded from train_cfg.seed. With a `mesh` the state lands on the
+    mesh's device, rank 0's parameters and moments are broadcast to every
+    rank, and the generator is seeded from (seed, rank)."""
     _check_supported(model_cfg, train_cfg)
-    device = _build.check_device(device)
+    check_mesh(mesh)
+    device = _build.check_device(mesh.device if mesh is not None else device)
     model = params if params is not None else init_ctclip(model_cfg, seed=train_cfg.seed,
                                                           device=device)
     model = model.to(device)
@@ -83,7 +104,11 @@ def create_train_state(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
                         max_grad_norm=train_cfg.max_grad_norm,
                         warmup_steps=train_cfg.warmup_steps, decay_steps=train_cfg.decay_steps,
                         end_lr_frac=train_cfg.end_lr_frac, mu_dtype=train_cfg.adam_mu_dtype)
-    gen = torch.Generator(device=device).manual_seed(train_cfg.seed)
+    # rank 0 keeps the single-process stream, rank r draws from seed + r 2^32
+    rank = mesh.rank if mesh is not None else 0
+    gen = torch.Generator(device=device).manual_seed(train_cfg.seed + (rank << 32))
+    if mesh is not None:
+        sharding.broadcast_state(model, opt, mesh)
     return TrainState(model=model, optimizer=opt, step=0, generator=gen)
 
 
@@ -97,20 +122,27 @@ def write_back_vq(model: CTCLIP, vq_state: VQState) -> None:
 
 
 def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
-                    plain: bool = False) -> Callable:
+                    plain: bool = False, mesh: Optional[DataMesh] = None) -> Callable:
     """train_step(state, image, text_tokens) -> loss (a device scalar);
     updates `state` in place. plain=True runs every kernel's plain forward
     and lets autograd differentiate it (the reference the card holds its
-    backward kernels against)."""
+    backward kernels against). With a `mesh`, `image` and `text_tokens`
+    are this rank's local batch, the loss is the global batch's (the same
+    on every rank), and the gradients are averaged over the ranks before
+    the optimizer (see the module doc)."""
     _check_supported(model_cfg, train_cfg)
+    check_mesh(mesh)
     dtype = getattr(torch, train_cfg.compute_dtype)
 
     def train_step(state: TrainState, image: torch.Tensor, text_tokens: dict) -> torch.Tensor:
         state.optimizer.zero_grad()
         out = ctclip_apply(state.model, text_tokens, image.to(dtype), freeze_vq=False,
-                           generator=state.generator, deterministic=False, plain=plain)
+                           generator=state.generator, deterministic=False, plain=plain,
+                           gather_axis=mesh)
         loss = contrastive_loss(out.sim_matrix)
         loss.backward()
+        if mesh is not None:
+            sharding.allreduce_grads(state.optimizer.params, mesh)
         state.optimizer.step()
         write_back_vq(state.model, out.vq_state)
         state.step += 1
@@ -119,14 +151,17 @@ def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     return train_step
 
 
-def make_eval_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> Callable:
+def make_eval_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
+                   mesh: Optional[DataMesh] = None) -> Callable:
     """eval_step(model, image, text_tokens) -> loss (a device scalar), the
-    codebook frozen and no dropout (trainer.py:254-264)."""
+    codebook frozen and no dropout (trainer.py:254-264). With a `mesh` the
+    latents are gathered over the ranks: the loss is the global batch's."""
     dtype = getattr(torch, train_cfg.compute_dtype)
 
     @torch.no_grad()
     def eval_step(model: CTCLIP, image: torch.Tensor, text_tokens: dict) -> torch.Tensor:
-        out = ctclip_apply(model, text_tokens, image.to(dtype), freeze_vq=True)
+        out = ctclip_apply(model, text_tokens, image.to(dtype), freeze_vq=True,
+                           gather_axis=mesh)
         return contrastive_loss(out.sim_matrix)
 
     return eval_step
@@ -138,14 +173,19 @@ class CTClipTrainer:
     `train_data` / `valid_data` are iterables (re-iterable per epoch)
     yielding (images [B, 1, D, H, W], texts) batches, numpy or tensors;
     `tokenizer` is an HF-style callable (max_length = text_max_length).
-    On the card unless `device` says otherwise."""
+    On the card unless `device` says otherwise.
+
+    With a `mesh` (parallel.mesh.make_mesh) every rank builds the trainer
+    with the same arguments; the state goes to the mesh's device. A loader
+    whose `sampler` is a one-shard `ShardedSampler` is given this rank's
+    shard (num_shards = world, shard_index = rank); any other iterable must
+    already yield this rank's batches, the same number on every rank."""
 
     def __init__(self, model_cfg: CTCLIPConfig, train_cfg: TrainConfig, tokenizer,
                  train_data: Iterable, valid_data: Iterable, results_folder: str = "./results",
-                 params: Optional[CTCLIP] = None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh-parallel training is not ported yet "
-                                      "(ROADMAP, Queue 1 item 11)")
+                 params: Optional[CTCLIP] = None, mesh: Optional[DataMesh] = None,
+                 device="cuda"):
+        check_mesh(mesh)
         if train_cfg.profile_steps > 0:
             raise NotImplementedError("the trainer's profiler window is not ported; profile "
                                       "with python -m ct_clip_ut_tpu_torch.train.profile_train")
@@ -154,16 +194,29 @@ class CTClipTrainer:
         self.tokenizer = tokenizer
         self.train_data = train_data
         self.valid_data = valid_data
-        self.device = _build.check_device(device)
-        self.state = create_train_state(model_cfg, train_cfg, params=params, device=self.device)
-        self.train_step = make_train_step(model_cfg, train_cfg)
-        self.eval_step = make_eval_step(model_cfg, train_cfg)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = _build.check_device(mesh.device if mesh is not None else device)
+        if mesh is not None:
+            for data in (train_data, valid_data):
+                shard_loader(data, mesh)
+        self.state = create_train_state(model_cfg, train_cfg, params=params, device=self.device,
+                                        mesh=mesh)
+        self.train_step = make_train_step(model_cfg, train_cfg, mesh=mesh)
+        self.eval_step = make_eval_step(model_cfg, train_cfg, mesh=mesh)
 
-        # dated + indexed results dir (reference CTClipTrainer.py:122-131)
-        base = Path(results_folder) / datetime.now().strftime("%d-%m-%Y")
-        base.mkdir(parents=True, exist_ok=True)
-        idx = len([d for d in base.iterdir() if d.is_dir()]) + 1
-        self.results_folder = base / str(idx)
+        # dated + indexed results dir (reference CTClipTrainer.py:122-131);
+        # rank 0 picks it and broadcasts it (trainer.py:314-331): ranks
+        # counting on a shared file system would race
+        run_rel = ""
+        if self.is_main:
+            base = Path(results_folder) / datetime.now().strftime("%d-%m-%Y")
+            base.mkdir(parents=True, exist_ok=True)
+            idx = len([d for d in base.iterdir() if d.is_dir()]) + 1
+            run_rel = f"{base.name}/{idx}"
+        if mesh is not None:
+            run_rel = collectives.broadcast_bytes(run_rel.encode(), mesh).decode()
+        self.results_folder = Path(results_folder) / run_rel
         self.results_folder.mkdir(parents=True, exist_ok=True)
 
         self.train_losses = {"steps": [], "epochs": []}
@@ -173,6 +226,10 @@ class CTClipTrainer:
         # checkpoint (trainer.py:344-350)
         self._pos = {"epoch": 0, "step_in_epoch": 0, "steps_per_epoch": None}
         self._resume_pos = None
+
+    def maybe_print(self, *args, **kwargs) -> None:
+        if self.is_main:
+            print(*args, **kwargs)
 
     # -- plumbing -----------------------------------------------------------
 
@@ -188,7 +245,16 @@ class CTClipTrainer:
         return images, self.tokenize(texts)
 
     def save_model(self, name: str) -> None:
-        ckpt.save_checkpoint(self.results_folder / name, self.state)
+        """Rank 0 writes the state every rank holds, with every rank's
+        dropout generator state (gathered on all ranks first)."""
+        rank_generators = None
+        if self.mesh is not None:
+            gen = self.state.generator.get_state().to(self.device)
+            rank_generators = collectives.gather_rows(gen[None], self.mesh).cpu()
+        if not self.is_main:
+            return
+        ckpt.save_checkpoint(self.results_folder / name, self.state,
+                             rank_generators=rank_generators)
         (self.results_folder / "architecture.json").write_text(
             json.dumps({"model_cfg": repr(self.model_cfg), "train_cfg": repr(self.cfg)},
                        indent=2))
@@ -201,9 +267,16 @@ class CTClipTrainer:
         tmp.replace(pos_path)
 
     def load_model(self, path) -> None:
+        """Every rank reads the checkpoint; the position sidecar is rank 0's
+        view, broadcast (trainer.py:430-453), so every rank resumes at the
+        same batch."""
         pos_path = Path(str(path) + ".pos.json")
-        pos = json.loads(pos_path.read_text()) if pos_path.exists() else None
-        ckpt.load_checkpoint(path, self.state)
+        pos = json.loads(pos_path.read_text()) if self.is_main and pos_path.exists() else None
+        if self.mesh is not None:
+            raw = collectives.broadcast_bytes(json.dumps(pos).encode(), self.mesh)
+            pos = json.loads(raw.decode())
+        ckpt.load_checkpoint(path, self.state,
+                             rank=self.mesh.rank if self.mesh is not None else None)
         step = int(self.state.step)
         if pos is not None and pos.get("global_step") is not None \
                 and int(pos["global_step"]) != step:
@@ -212,8 +285,8 @@ class CTClipTrainer:
             if spe:
                 pos = {"epoch": step // int(spe) + 1, "step_in_epoch": step % int(spe),
                        "steps_per_epoch": int(spe)}
-                print(f"resume sidecar was stale (crash window); position re-derived from "
-                      f"step {step}")
+                self.maybe_print(f"resume sidecar was stale (crash window); position "
+                                 f"re-derived from step {step}")
             else:
                 pos = None
         self._resume_pos = pos
@@ -228,7 +301,7 @@ class CTClipTrainer:
             n += 1
         avg = total / max(n, 1)
         self.valid_losses.append(avg)
-        print(f"Epoch {epoch} - Validation Loss: {avg:.4f}")
+        self.maybe_print(f"Epoch {epoch} - Validation Loss: {avg:.4f}")
         if epoch == 0 or (avg < self.best_score and self.cfg.save_best_model):
             self.best_score = min(avg, self.best_score)
             self.save_model("best_checkpoint.pt")
@@ -244,24 +317,25 @@ class CTClipTrainer:
             skip = int(pos.get("step_in_epoch") or 0)
             saved_spe = pos.get("steps_per_epoch")
             if saved_spe and steps_per_epoch and saved_spe != steps_per_epoch:
-                print(f"steps_per_epoch changed ({saved_spe} -> {steps_per_epoch}); falling "
-                      "back to epoch-level resume")
+                self.maybe_print(f"steps_per_epoch changed ({saved_spe} -> {steps_per_epoch});"
+                                 " falling back to epoch-level resume")
                 skip = 0
             spe = steps_per_epoch or saved_spe
             if spe and skip >= spe:
                 start_epoch, skip = start_epoch + 1, 0
             if start_epoch <= self.cfg.num_epochs:
-                print(f"Resuming at step {resumed_step}: epoch {start_epoch}"
-                      + (f", batch {skip + 1}" if skip else ""))
+                self.maybe_print(f"Resuming at step {resumed_step}: epoch {start_epoch}"
+                                 + (f", batch {skip + 1}" if skip else ""))
         elif resumed_step and steps_per_epoch:
             done = min(resumed_step // steps_per_epoch, self.cfg.num_epochs)
             start_epoch = done + 1
             if done:
-                print(f"Resuming at step {resumed_step}: skipping {done} completed epoch(s)")
+                self.maybe_print(f"Resuming at step {resumed_step}: skipping {done} completed "
+                                 "epoch(s)")
         return start_epoch, skip
 
     def train(self) -> TrainState:
-        print("Training started")
+        self.maybe_print("Training started")
         start = time.time()
         try:
             steps_per_epoch = len(self.train_data)
@@ -289,7 +363,7 @@ class CTClipTrainer:
                 steps += 1
                 if step % save_at == 0:
                     self.train_losses["steps"].append(loss)
-                print(f"Epoch {epoch} | Step {step} | Loss: {loss:.6f}")
+                self.maybe_print(f"Epoch {epoch} | Step {step} | Loss: {loss:.6f}")
                 return loss
 
             if not skip:
@@ -325,7 +399,8 @@ class CTClipTrainer:
                          "steps_per_epoch": steps_per_epoch}
             avg = total_loss / max(steps, 1)
             self.train_losses["epochs"].append(avg)
-            print(f"Epoch {epoch} done. Avg loss {avg:.6f} ({time.time() - epoch_start:.1f}s)")
+            self.maybe_print(f"Epoch {epoch} done. Avg loss {avg:.6f} "
+                             f"({time.time() - epoch_start:.1f}s)")
             self.evaluate(epoch)
-        print(f"Training completed in {time.time() - start:.1f}s")
+        self.maybe_print(f"Training completed in {time.time() - start:.1f}s")
         return self.state

@@ -238,10 +238,17 @@ def test_occlusion_heatmap_matches_jax():
                                       occlusion.report_text_latent(model, tt), occ=po, chunk=4)
     assert got.shape == (20, 32, 32) and got.dtype == np.float32
     close(got, want, LATENT_BAND)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # the window-sharded sweep (tests/test_torch_port_parallel.py) takes a
+    # DataMesh; one rank is the single-process sweep
+    from ct_clip_ut_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(TypeError, match="DataMesh"):
         occlusion.occlusion_heatmap(model, torch.from_numpy(img),
                                     occlusion.report_text_latent(model, tt), occ=po,
                                     mesh=object())
+    one = occlusion.occlusion_heatmap(model, torch.from_numpy(img),
+                                      occlusion.report_text_latent(model, tt), occ=po, chunk=4,
+                                      mesh=make_mesh(device="cpu"))
+    np.testing.assert_array_equal(one, got)
 
 
 def test_occlusion_heatmaps_multi_match_singles_and_jax():

@@ -827,6 +827,42 @@ def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, d, inner, re
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n", [27648, 13824, 77, 301])
+def test_geglu_ff_int8_f32_kernel_matches_plain_on_card(cuda_device, n, residual):
+    """The fp32-activation form (row 15f) at zero-shot's and an occlusion
+    chunk's token counts, 77 and an odd 301 rows: fp32 out, counted as
+    geglu_ff_int8_f32 (the bf16 form not at all), INT8_BAND against the
+    plain version with the same controls, two calls the same bits."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8, geglu_ff_int8_plain
+    from ct_clip_ut_tpu_torch.ops.layers import FeedForward
+    from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+
+    torch.manual_seed(1)
+    ff = FeedForward(512, 1365)
+    with torch.no_grad():
+        ff[0].weight.normal_(1.0, 0.2)
+        ff[0].bias.normal_(0.0, 0.1)
+    q = quantize_ff_params(ff).to(cuda_device)
+    args = [q.gamma, q.beta, q.wv_q, q.wg_q, q.w2_q, q.sv, q.sg, q.s2]
+    x = torch.randn((n, 512), device=cuda_device)
+    launches.reset_launch_counts()
+    got = geglu_ff_int8(x, *args, residual=residual)
+    counts = launches.launch_counts()
+    assert counts["geglu_ff_int8_f32"] == 1 and counts["geglu_ff_int8"] == 0
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel_rms(got, geglu_ff_int8_plain(x, *args, residual=residual)) <= INT8_BAND
+    assert torch.equal(got, geglu_ff_int8(x, *args, residual=residual))
+    if not residual:
+        swapped = list(args)
+        swapped[5], swapped[6] = args[6], args[5]
+        for c in (geglu_ff_int8_plain(x, *args, faults=("h_float",)),
+                  geglu_ff_int8_plain(x, *args, faults=("per_tensor",)),
+                  geglu_ff_int8_plain(x, *swapped)):
+            assert _rel_rms(got, c) > INT8_BAND
+
+
+@pytest.mark.cuda
 def test_geglu_ff_int8_chain_runs_on_int8_wgmma_on_card(cuda_device):
     """geglu_ff_int8's two products (HEpi and OutEpi on the Hopper core's
     int8 path) have IGMMA instructions in their SASS

@@ -268,18 +268,25 @@ def test_inference_cli_refusals(extra):
 
 
 @pytest.mark.parametrize("extra,item", [(["--tokenizer", "tok/"], "item 12"),
-                                        (["--quantize-ff", "--visualize", "occlusion"],
-                                         "item 16"),
+                                        (["--mesh-model", "2", "--mesh-data", "1"],
+                                         "item 11c"),
                                         (["--quantize-ff", "--visualize", "grad_cam",
                                           "raw_attention_maps"], None),
-                                        (["--multihost"], "item 11"),
-                                        (["--mesh-data", "2"], "item 11"),
-                                        (["--mesh-model", "2"], "item 11")])
+                                        (["--multihost", "--num-processes", "2"], "address"),
+                                        (["--mesh-data", "2"], "needs 2 processes"),
+                                        (["--mesh-model", "2"], "item 11c")])
 def test_inference_cli_unported_features_raise(extra, item):
     """Each raises with its ROADMAP item after the parser's refusals (the
-    third, a gradient method with --quantize-ff, is the parser's own)."""
+    third, a gradient method with --quantize-ff, is the parser's own); a
+    process group without its address, and a data axis wider than the
+    processes, raise ValueError. --quantize-ff with the forward methods runs
+    (tests/test_torch_port_int8_f32.py)."""
     if item is None:
         with pytest.raises(SystemExit):
+            cli.main(BASE + ["--zero-shot", "--device", "cpu"] + extra)
+        return
+    if not item.startswith("item"):
+        with pytest.raises(ValueError, match=item):
             cli.main(BASE + ["--zero-shot", "--device", "cpu"] + extra)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue [12] {item}"):

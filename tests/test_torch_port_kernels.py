@@ -119,11 +119,11 @@ def test_launch_counters_count_and_reset():
     launches.count("geglu_ff")
     launches.count("geglu_ff")
     assert launches.launch_counts() == {**dict.fromkeys(launches.KERNELS, 0), "geglu_ff": 2}
-    # 18 kernels, the fp32 variants of six, the fp32 data-gradient chains of three
-    # and the fp32 train step's seven (the full block and FF backwards, the
-    # residual-saving patch embed and its weight gradient, the BERT layer in
-    # train mode and its backward)
-    assert len(launches.KERNELS) == 34
+    # 18 kernels, the fp32 variants of seven (the W8A8 FF's on fp32 activations
+    # too), the fp32 data-gradient chains of three and the fp32 train step's
+    # seven (the full block and FF backwards, the residual-saving patch embed
+    # and its weight gradient, the BERT layer in train mode and its backward)
+    assert len(launches.KERNELS) == 35
     launches.reset_launch_counts()
     assert sum(launches.launch_counts().values()) == 0
 
@@ -149,7 +149,7 @@ def test_build_sources_are_the_package_csrc():
                 "ctc_peg_wgrad", "ctc_attn_qrows", "ctc_geglu_ff_int8", "ctc_cosine_attention",
                 "ctc_cosine_attention_max_m", "ctc_gemm_sm90_check", "ctc_wgrad_sm90_check",
                 "ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32", "ctc_geglu_ff_bwd_f32",
-                "ctc_attn_bwd_f32_max_n", "ctc_bert_layer_bwd_f32"))
+                "ctc_attn_bwd_f32_max_n", "ctc_bert_layer_bwd_f32", "ctc_geglu_ff_int8_f32"))
 
 
 def test_signatures_match_the_c_entries():

@@ -90,7 +90,7 @@ def _close(got, want, atol=ATOL):
 
 @pytest.mark.parametrize("name", ["AttentionConfig", "TransformerConfig", "CTViTConfig",
                                   "BertConfig", "CTCLIPConfig", "TrainConfig", "T5EncoderConfig",
-                                  "MaskGitConfig", "CTGenerateConfig"])
+                                  "MaskGitConfig", "CTGenerateConfig", "MeshConfig"])
 def test_config_mirrors_the_jax_dataclasses(name):
     j, p = getattr(jconfig, name)(), getattr(pconfig, name)()
     assert [f.name for f in dataclasses.fields(p)] == [f.name for f in dataclasses.fields(j)]

@@ -125,11 +125,18 @@ def test_suite_artifacts_match_the_jax_suite(tmp_path):
 
 
 def test_suite_is_one_process_on_one_card(tmp_path):
+    """A mesh must be a DataMesh; over more than one rank integrated
+    gradients raise (Queue 1 item 11d) before any collective."""
+    from ct_clip_ut_tpu_torch.parallel.mesh import DataMesh
+
     _, model = models()
     ctx = tsuite.AttributionContext(model=model, tokenizer=None, data=[], render_gifs=False,
                                     mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(TypeError, match="DataMesh"):
         tsuite.Visualizations(ctx, tmp_path)
+    ctx = dataclasses.replace(ctx, mesh=DataMesh(world=2, rank=1, device=torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11d"):
+        tsuite.Visualizations(ctx, tmp_path).visualize(integrated_gradients=True)
     ctx = dataclasses.replace(ctx, mesh=None, diff_embeds=None)
     vis = tsuite.Visualizations(ctx, tmp_path)
     with pytest.raises(ValueError, match="diff_embeds"):

@@ -480,7 +480,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             ttrainer.CTClipTrainer(port_config(TRAIN_CLIP), TrainConfig(**base, **kw),
                                    _Tokenizer(), _Batches(1), _Batches(1),
                                    results_folder=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    from ct_clip_ut_tpu_torch.config import MeshConfig
+    from ct_clip_ut_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        make_mesh(MeshConfig(data=1, model=2), device="cpu")
+    with pytest.raises(TypeError, match="DataMesh"):
         ttrainer.CTClipTrainer(port_config(TRAIN_CLIP), TrainConfig(**base), _Tokenizer(),
                                _Batches(1), _Batches(1), results_folder=tmp_path, mesh=object(),
                                device="cpu")

@@ -153,8 +153,10 @@ def test_inference_zeroshot_writes_metrics(setup, tmp_path):
 
 
 def test_inference_mesh_placement_is_not_ported(setup):
+    """The data-axis mesh is ported (tests/test_torch_port_parallel.py);
+    anything but a parallel.mesh.DataMesh is refused."""
     _, model, ids, mask, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DataMesh"):
         tz.CTClipInference(model, _prompts_torch(ids, mask), [], mesh=object())
 
 
