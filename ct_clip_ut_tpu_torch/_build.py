@@ -38,7 +38,7 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "ctc_attn_block": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
     "ctc_attn_packed": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
-    "ctc_attn_block_f32": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
+    "ctc_attn_block_f32": [_P] * 17 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_attn_packed_f32": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_attn_qrows": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "ctc_attn_qrows_f32": [_P] * 17 + [_I] * 5 + [_F, _I, _I, _P],
@@ -59,7 +59,7 @@ SIGNATURES = {
     "ctc_attn_block_bwd_f32": [_P] * 36 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_attn_packed_bwd_f32": [_P] * 33 + [_I] * 4 + [_F, _I, _I, _P],
     "ctc_geglu_ff_bwd": [_P] * 17 + [_I] * 5 + [_P],
-    "ctc_geglu_ff_bwd_f32": [_P] * 19 + [_I] * 7 + [_P],
+    "ctc_geglu_ff_bwd_f32": [_P] * 18 + [_I] * 7 + [_P],
     "ctc_bert_layer": [_P] * 27 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd_f32": [_P] * 55 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],

@@ -61,20 +61,23 @@ extern "C" int ctc_attn_block_max_n(void) { return ctc::tc::core_max_keys(); }
 // The fp32 variant (the JAX kernel at fp32: every rounding point an
 // identity), tc::block_forward_f32: the arguments of ctc_attn_block in fp32,
 // the workspaces xs [4][R*n][D], w_s [2][3 HD][D], wo_s [2][D][HD], qk
-// [4][R*n][HD], v_ws / o_ws [2][R*n][HD] bf16, out [R*n, D] fp32; flags 1:
-// every lo plane zeroed (one bf16 product for each fp32 one, the control).
+// [4][R*n][HD], v_ws / o_ws [2][R*n][HD] bf16, out [R*n, D] fp32; mld
+// [R][H][n] float4 or null: with it the forward keeps its row statistics
+// beside o's planes in o_ws for the backward (flags 2 of
+// ctc_attn_block_bwd_f32); flags 1: every lo plane zeroed (one bf16 product
+// for each fp32 one, the control).
 extern "C" int ctc_attn_block_f32(const void* x, const void* gamma, const void* wq,
                                   const void* wk, const void* wv, const void* wo, const void* qs,
                                   const void* ks, const void* bias, void* xs, void* w_s,
-                                  void* wo_s, void* qk, void* v_ws, void* o_ws, void* out, int R,
-                                  int n, int D, int H, float scale, int residual, int flags,
-                                  void* stream) {
+                                  void* wo_s, void* qk, void* v_ws, void* o_ws, void* mld,
+                                  void* out, int R, int n, int D, int H, float scale, int residual,
+                                  int flags, void* stream) {
   using ctc::tc::bf16;
   return ctc::tc::block_forward_f32(
       (const float*)x, (const float*)gamma, (const float*)wq, (const float*)wk, (const float*)wv,
       (const float*)wo, (const float*)qs, (const float*)ks, (const float*)bias, (bf16*)xs,
-      (bf16*)w_s, (bf16*)wo_s, (bf16*)qk, (bf16*)v_ws, (bf16*)o_ws, (float*)out, R, n, D, H, scale,
-      residual, !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
+      (bf16*)w_s, (bf16*)wo_s, (bf16*)qk, (bf16*)v_ws, (bf16*)o_ws, (float4*)mld, (float*)out, R,
+      n, D, H, scale, residual, !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Largest sequence length of the fp32 core (four staged planes), both blocks.

@@ -13,9 +13,10 @@
 // (with a bias) dbias [H, n, n] summed over the R sequences. Every fp32
 // product is three bf16 products of hi / lo planes (a_hi b_hi + a_lo b_hi +
 // a_hi b_lo, within ~2^-16 of fp32): the GEMMs as SplitPlan / SplitKNPlan on
-// the Hopper core (split_sm90.cuh), the attention passes on mma.sync with
-// split operands (attn_mma.cuh's split_scores for S, dP and their
-// transposes; P, dS split in registers against staged hi / lo planes for
+// the Hopper core (split_sm90.cuh), the attention passes on split operands
+// (the spatial block's on wgmma, attn_bwd_wg.cuh; the temporal block's on
+// mma.sync, below: attn_mma.cuh's split_scores for S, dP and their
+// transposes, P and dS split in registers against staged hi / lo planes for
 // P.V-shaped products), the weight gradients as one three-pass launch of
 // wgrad_sm90.cuh (BlockWgradSplitPlan) over the planes the dx chain writes.
 //
@@ -24,37 +25,44 @@
 // (2 M D HD each), dx_direct (2 M D 2 HD) and the weight gradients dWq,
 // dWk | dWv, dWo (2 M D HD each, 4 in all), and per (sequence, head) S,
 // P.V (for D), dP, dS.K, dS^T.Q, P^T.dO (2 n^2 32 each). The passes take
-// four more n^2 products than that (the statistics pass S twice, the key
-// pass S^T and dP^T again), and the dbias pass S and dP again.
-// A block stages one (sequence, head)'s four planes of n rows (147 KB at n
-// = 576: one block an SM, as the fp32 forward core). Launches:
+// two more n^2 products than that (the key pass's S^T and dP^T), the dbias
+// pass S and dP again, and the temporal block's statistics pass S twice.
+// Launches:
 //
-//   split_kernel x 5      the planes of wq | wk | wv (stacked [3 HD, D]),
-//                         wo and g
-//   ln_split_kernel       xn's and x's planes
+//   split_kernel x 4      the planes of wq | wk | wv (stacked [3 HD, D]) and
+//                         wo
+//   ln_split_kernel       xn's, x's and g's planes
 //   gemm_kernel           q, k, v (QkvSplitPlan, tc::QkvEpi: q / k
 //                         l2-normed and scaled as hi / lo planes, their unit
 //                         rows and norms in fp32, v as planes)
 //   gemm_kernel           dO = g Wo as planes (SplitKNPlan: Wo as stored)
-//   block_core_kernel     the fp32 core with STATS: o as planes, and each
-//                         row's (m log2 e, 1 / l, D = rowsum(dO o)) from the
-//                         fp32 o
-//   transpose_kernel      the bias transposed per head (with a bias)
-//   bwd_dq_f32_kernel     per (sequence, 128-query tile, head), K and V hi /
-//                         lo staged: P from the saved (m, l), dP = dO V^T, dS
-//                         = P (dP - D), dq^ = dS K, the scale and l2-norm
+//   block_core_kernel     the fp32 core with STATS: o as planes and each
+//                         row's (m log2 e, 1 / l) (the temporal block also
+//                         D = rowsum(dO o) from the fp32 o); the spatial
+//                         block skips it when the forward kept both
+//                         (`saved`)
+// the spatial block (with a bias):
+//   transpose_kernel      the bias transposed per head
+//   bwd_dq_wg_kernel      per (sequence, 64-query tile, head), the key tiles
+//                         streamed: D in its prologue, P, dP = dO V^T, dS = P
+//                         (dP - D), dq^ = dS K, the scale and l2-norm
 //                         backward -> dq planes; in the train form also the
 //                         block's sum of u_q . dq^ per column (dq_scale)
-//   bwd_dkv_f32_kernel    per (sequence, 128-key tile, head), Q and dO hi /
-//                         lo and each query's (lse, D) staged: S^T, dP^T =
-//                         V dO^T, dS^T, dV = P^T dO, dk^ = dS^T Q, the
-//                         l2-norm backward -> dk | dv planes (and the
-//                         block's u_k . dk^ sums)
-//   bwd_dbias_f32_kernel  (train form, with a bias) per (64-query tile,
-//                         64-key chunk, head): S and dP recomputed from the
-//                         split planes for every sequence in turn through a
-//                         two-stage cp.async ring, fp32 dS summed in
-//                         registers over the R sequences and written once
+//   bwd_dkv_wg_kernel     per (sequence, 64-key tile, head), the query tiles
+//                         streamed with their (lse, D): S^T, dP^T = V dO^T,
+//                         dS^T, dV = P^T dO, dk^ = dS^T Q, the l2-norm
+//                         backward -> dk | dv planes (and the block's u_k .
+//                         dk^ sums)
+//   bwd_dbias_f32_kernel  (train form) per (64-query tile, 64-key chunk,
+//                         head): S and dP recomputed from the split planes
+//                         for every sequence in turn through a two-stage
+//                         cp.async ring, fp32 dS summed in registers over the
+//                         R sequences and written once
+// the temporal block (n = 24, no bias; a block over 16-row warps, the
+// sequence's planes staged whole):
+//   bwd_dq_f32_kernel     the query pass of the spatial block on mma.sync
+//   bwd_dkv_f32_kernel    the key pass, each query's (lse, D) staged
+// both:
 //   gemm_kernel x 2       dxn = dq Wq, dx_direct = [dk | dv] [Wk; Wv] (fp32;
 //                         SplitKNPlan over the stacked weight planes)
 //   ln_bwd_f32_kernel     dx = LN'(dxn) + dx_direct (+ g); in the train form
@@ -69,131 +77,27 @@
 // give the same bits.
 #pragma once
 
-#include "attn_mma.cuh"
+#include "attn_bwd_wg.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace ctc {
 namespace tc {
 
-// The scale and l2-norm backward of rows a, b of a 16 x 32 gradient of the
-// scaled unit rows (the mma D layout, as attn_bwd.cuh's l2norm_bwd): du =
-// acc * gain, out = (du - u (u . du)) / norm, written as hi / lo planes at
-// hi_a / hi_b and lo_off further on; part[2 dt + e] += u acc, the gain's
-// gradient before its factor (this thread's columns 8 dt + 2 t + e).
-__device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], const float* u_a,
-                                                  const float* u_b, float norm_a, float norm_b,
-                                                  bool va, bool vb, const float (&gain)[8],
-                                                  bf16* hi_a, bf16* hi_b, int64_t lo_off,
-                                                  int keep_lo, int t, float (&part)[8]) {
-  float ua[8], ub[8], dot_a = 0.f, dot_b = 0.f;
-#pragma unroll
-  for (int dt = 0; dt < 4; ++dt) {
-    const int col = 8 * dt + 2 * t;
-    const float2 x = va ? *reinterpret_cast<const float2*>(u_a + col) : make_float2(0.f, 0.f);
-    const float2 y = vb ? *reinterpret_cast<const float2*>(u_b + col) : make_float2(0.f, 0.f);
-    ua[2 * dt] = x.x;
-    ua[2 * dt + 1] = x.y;
-    ub[2 * dt] = y.x;
-    ub[2 * dt + 1] = y.y;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      dot_a += ua[2 * dt + e] * (acc[dt][e] * gain[2 * dt + e]);
-      dot_b += ub[2 * dt + e] * (acc[dt][2 + e] * gain[2 * dt + e]);
-      part[2 * dt + e] += ua[2 * dt + e] * acc[dt][e] + ub[2 * dt + e] * acc[dt][2 + e];
-    }
-  }
-  dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 1);
-  dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 2);
-  dot_b += __shfl_xor_sync(0xffffffffu, dot_b, 1);
-  dot_b += __shfl_xor_sync(0xffffffffu, dot_b, 2);
-#pragma unroll
-  for (int dt = 0; dt < 4; ++dt) {
-    const int col = 8 * dt + 2 * t;
-    __nv_bfloat162 h2, l2;
-    if (va) {
-      sm90::split2((acc[dt][0] * gain[2 * dt] - ua[2 * dt] * dot_a) / norm_a,
-                   (acc[dt][1] * gain[2 * dt + 1] - ua[2 * dt + 1] * dot_a) / norm_a, keep_lo, h2,
-                   l2);
-      *reinterpret_cast<__nv_bfloat162*>(hi_a + col) = h2;
-      *reinterpret_cast<__nv_bfloat162*>(hi_a + lo_off + col) = l2;
-    }
-    if (vb) {
-      sm90::split2((acc[dt][2] * gain[2 * dt] - ub[2 * dt] * dot_b) / norm_b,
-                   (acc[dt][3] * gain[2 * dt + 1] - ub[2 * dt + 1] * dot_b) / norm_b, keep_lo, h2,
-                   l2);
-      *reinterpret_cast<__nv_bfloat162*>(hi_b + col) = h2;
-      *reinterpret_cast<__nv_bfloat162*>(hi_b + lo_off + col) = l2;
-    }
-  }
-}
-
-// this thread's 8 columns 8 dt + 2 t + e of a [32] vector, times mul
-__device__ __forceinline__ void gain_cols(float (&out)[8], const float* v, float mul, int t) {
-#pragma unroll
-  for (int dt = 0; dt < 4; ++dt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) out[2 * dt + e] = v[8 * dt + 2 * t + e] * mul;
-}
-
-// The block's sums of part[] over its rows into out[0 .. 31] (the 32
-// columns of a head), in a fixed order: the eight row groups of a warp by
-// shuffles, then the warps in order through `red` (32 floats a warp of
-// shared memory the block has finished with). Every thread of the block
-// calls it.
-__device__ __forceinline__ void head_cols_partial(float (&part)[8], float* red, float* out,
-                                                  int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 4);
-    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 8);
-    part[i] += __shfl_xor_sync(0xffffffffu, part[i], 16);
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, t = lane & 3;
-  if (lane < 4) {
-#pragma unroll
-    for (int dt = 0; dt < 4; ++dt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) red[warp * DH + 8 * dt + 2 * t + e] = part[2 * dt + e];
-  }
-  __syncthreads();
-  if (threadIdx.x < DH) {
-    float sum = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[w * DH + threadIdx.x];
-    out[threadIdx.x] = sum;
-  }
-}
-
-// The block's row of a [R * tiles * H][32] partial-sums matrix.
-__device__ __forceinline__ int64_t block_row() {
-  return ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-}
-
-// two A-fragment registers (rows a, b at two adjacent keys) of values y[4]
-// as hi / lo pairs
-__device__ __forceinline__ void split_frag(const float (&y)[4], int keep_lo, uint32_t& h_a,
-                                          uint32_t& h_b, uint32_t& l_a, uint32_t& l_b) {
-  __nv_bfloat162 hv, lv;
-  sm90::split2(y[0], y[1], keep_lo, hv, lv);
-  h_a = sm90::as_u32(hv);
-  l_a = sm90::as_u32(lv);
-  sm90::split2(y[2], y[3], keep_lo, hv, lv);
-  h_b = sm90::as_u32(hv);
-  l_b = sm90::as_u32(lv);
-}
-
 // Workspaces of the passes: qk [4][M][HD] (q_hi, q_lo, k_hi, k_lo), v and
 // dO [2][M][HD] (hi, lo), unit [2][M][HD] / norm [2][M][H] fp32 (q then
-// k), mld [R][H][n] float4 (m log2 e, 1 / l, D, 0).
+// k), mld [R][H][n] float4 (m log2 e, 1 / l, D, 0; the spatial block's
+// query pass writes lse in place of the 0).
 
+// The temporal block's passes (no bias), on mma.sync.
+//
 // The query pass: one block per (sequence r, query tile of QT rows, head
 // h), K and V hi / lo staged (four planes); dq [2][M][HD]; qs_part (null in
 // the data-gradient form) [R * tiles * H][32], the block's sums of u_q dq^.
-template <int BIAS>
+template <int Dummy = 0>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 1)
 bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-                  const bf16* __restrict__ dO, const float* __restrict__ bias,
-                  const float4* __restrict__ mld, const float* __restrict__ unit,
+                  const bf16* __restrict__ dO, const float4* __restrict__ mld,
+                  const float* __restrict__ unit,
                   const float* __restrict__ norm, const float* __restrict__ qs, float scale,
                   bf16* __restrict__ dq, float* __restrict__ qs_part, int M, int n, int HD,
                   int keep_lo) {
@@ -224,8 +128,6 @@ bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
     const float4* st = mld + ((int64_t)r * H + h) * n;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
-    const float* bias_a = BIAS ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
-    const float* bias_b = BIAS ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -238,14 +140,13 @@ bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int kb = kc + 16 * ks + 8 * u, key = kb + 2 * t;
-          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], ds[4];
+          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, ds[4];
           split_scores(s, qh, ql, sbase, sbase + pbytes, kb, lane);
           split_scores(dp, dh, dl, sbase + 2 * pbytes, sbase + 3 * pbytes, kb, lane);
-          bias_pair<BIAS>(b, bias_a, bias_b, va, vb, key, n);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float4& sr = i < 2 ? sa : sb;
-            const float p = key + (i & 1) < n ? exp2f((s[i] + b[i]) * LOG2E - sr.x) * sr.y : 0.f;
+            const float p = key + (i & 1) < n ? exp2f(s[i] * LOG2E - sr.x) * sr.y : 0.f;
             ds[i] = p * (dp[i] - sr.z);
           }
           split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
@@ -274,14 +175,13 @@ __host__ __device__ __forceinline__ size_t dkv_f32_smem_bytes(int n) {
 
 // The key pass: one block per (sequence r, key tile of QT keys, head h), Q
 // and dO hi / lo staged; warp w takes keys tile + 16 w as the A operand of
-// S^T and dP^T. biasT [H][key][query] as attn_bwd.cuh's key pass. dkv
-// [2][M][2 HD]: dk at columns h * 32 ..., dv at HD + h * 32 ...; ks_part
-// as the query pass's qs_part, the sums of u_k dk^.
-template <int BIAS>
+// S^T and dP^T. dkv [2][M][2 HD]: dk at columns h * 32 ..., dv at HD + h *
+// 32 ...; ks_part as the query pass's qs_part, the sums of u_k dk^.
+template <int Dummy = 0>
 __global__ void __launch_bounds__(CORE_WARPS * 32, 1)
 bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-                   const bf16* __restrict__ dO, const float* __restrict__ biasT,
-                   const float4* __restrict__ mld, const float* __restrict__ unit,
+                   const bf16* __restrict__ dO, const float4* __restrict__ mld,
+                   const float* __restrict__ unit,
                    const float* __restrict__ norm, const float* __restrict__ ks,
                    bf16* __restrict__ dkv, float* __restrict__ ks_part, int M, int n, int HD,
                    int keep_lo) {
@@ -314,8 +214,6 @@ bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
     load_a(kl, qk + 3 * plane + off, HD, k0, n, lane);
     load_a(vh, v + off, HD, k0, n, lane);
     load_a(vl, v + plane + off, HD, k0, n, lane);
-    const float* bias_a = BIAS ? biasT + ((int64_t)h * n + (va ? ka : 0)) * n : nullptr;
-    const float* bias_b = BIAS ? biasT + ((int64_t)h * n + (vb ? kb : 0)) * n : nullptr;
     float dv[4][4], dk[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -328,15 +226,14 @@ bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int qb = qc + 16 * kt + 8 * u, qi = qb + 2 * t;
-          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, b[4], p[4], ds[4];
+          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, p[4], ds[4];
           split_scores(s, kh, kl, sbase, sbase + pbytes, qb, lane);
           split_scores(dp, vh, vl, sbase + 2 * pbytes, sbase + 3 * pbytes, qb, lane);
-          bias_pair<BIAS>(b, bias_a, bias_b, va, vb, qi, n);
           const float4 sq = *reinterpret_cast<const float4*>(lse_d + qi);   // queries qi, qi + 1
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             // past n, lse is +inf and p 0
-            p[i] = exp2f((s[i] + b[i]) * LOG2E - ((i & 1) ? sq.z : sq.x));
+            p[i] = exp2f(s[i] * LOG2E - ((i & 1) ? sq.z : sq.x));
             ds[i] = p[i] * (dp[i] - ((i & 1) ? sq.w : sq.y));
           }
           split_frag(p, keep_lo, ph[2 * u], ph[2 * u + 1], pl[2 * u], pl[2 * u + 1]);
@@ -475,6 +372,26 @@ bwd_dbias_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   }
 }
 
+// The mma.sync passes over R sequences of n tokens without a bias (the
+// temporal block), after the core with STATS wrote mld (m log2 e, 1 / l, D).
+template <int Dummy = 0>
+int launch_mma_passes(const bf16* qk, const bf16* v, const bf16* dO, const float4* mld,
+                      const float* unit, const float* norm, const float* qs, const float* ks,
+                      float scale, bf16* dq, bf16* dkv, float* q_part, float* k_part, int R, int n,
+                      int H, int keep_lo, cudaStream_t st) {
+  const int M = R * n, HD = H * DH;
+  const int smem = (int)core_smem_bytes(n, 4), smem_kv = (int)dkv_f32_smem_bytes(n);
+  cudaFuncSetAttribute(bwd_dq_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(bwd_dkv_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_kv);
+  dim3 grid(R, (n + QT - 1) / QT, H);
+  bwd_dq_f32_kernel<><<<grid, core_threads(n), smem, st>>>(qk, v, dO, mld, unit, norm, qs, scale,
+                                                          dq, q_part, M, n, HD, keep_lo);
+  bwd_dkv_f32_kernel<><<<grid, core_threads(n), smem_kv, st>>>(qk, v, dO, mld, unit, norm, ks,
+                                                               dkv, k_part, M, n, HD, keep_lo);
+  return (int)cudaGetLastError();
+}
+
 // The weight gradients of the block in one three-pass launch. Maps (hi, lo
 // each): 0 / 1 dq [M, HD], 2 / 3 xn [M, D], 4 / 5 dk | dv [M, 2 HD], 6 / 7 x
 // [M, D], 8 / 9 g [M, D], 10 / 11 o [M, HD]. Tiles: dWq [HD, D] = dq^T xn,
@@ -529,7 +446,7 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
                        bf16* gs, bf16* qk, float* unit, float* norm, float* biasT, bf16* v,
                        bf16* dO, bf16* o, float4* mld, bf16* dq, bf16* dkv, float* dxn,
                        float* dxd, float* dx, const BlockGradsF32* grads, int R, int n, int D,
-                       int H, float scale, int residual, int keep_lo, cudaStream_t st) {
+                       int H, float scale, int residual, int keep_lo, int saved, cudaStream_t st) {
   using namespace sm90;
   const int M = R * n, HD = H * DH, tiles = HD / BN;
   const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz, mh = (int64_t)M * HD;
@@ -556,10 +473,9 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   for (int i = 0; i < 3 && !err; ++i)
     err = split_to(w3[i], w_s + i * wsz, w_s + wrows + i * wsz, wsz, keep_lo, st);
   if (!err) err = split(wo, wo_s, wsz, keep_lo, st);
-  if (!err) err = split(g, gs, md, keep_lo, st);
   if (!err)
     err = launch_ln_split(x, gamma, nullptr, nullptr, xs, xs + md, xs + 2 * md, xs + 3 * md, M, D,
-                          1e-5f, keep_lo, st);
+                          1e-5f, keep_lo, st, g, gs, gs + md);
   if (err) return err;
   err = launch_gemm(proj, QkvSplitPlan{tiles},
                     QkvEpi{qk, v, qs, ks, scale, M, HD, tiles, unit, norm, v + mh, keep_lo},
@@ -567,37 +483,37 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   if (!err)
     err = split_product_kn(gs, gs + md, D, wo_s, wo_s + wsz, HD, M, HD, D,
                            SplitOutEpi{dO, dO + mh, M, HD, HD, keep_lo}, st);
-  if (!err) err = launch_block_core<true, true>(qk, v, bias, o, R, n, H, mld, dO, st, keep_lo);
   if (err) return err;
-
-  const int smem = (int)core_smem_bytes(n, 4), smem_kv = (int)dkv_f32_smem_bytes(n);
-  auto dq_pass = bias == nullptr ? bwd_dq_f32_kernel<0>
-                 : (n % 2 == 0)  ? bwd_dq_f32_kernel<2>
-                                 : bwd_dq_f32_kernel<1>;
-  auto dkv_pass = bias == nullptr ? bwd_dkv_f32_kernel<0>
-                  : (n % 2 == 0)  ? bwd_dkv_f32_kernel<2>
-                                  : bwd_dkv_f32_kernel<1>;
-  cudaFuncSetAttribute(dq_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(dkv_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (bias != nullptr) {
-    dim3 gt((n + 31) / 32, (n + 31) / 32, H);
-    transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
-  }
-  dim3 grid(R, (n + QT - 1) / QT, H);
   float* q_part = grads != nullptr ? grads->q_part : nullptr;
   float* k_part = grads != nullptr ? grads->k_part : nullptr;
-  dq_pass<<<grid, core_threads(n), smem, st>>>(qk, v, dO, bias, mld, unit, norm, qs, scale, dq,
-                                               q_part, M, n, HD, keep_lo);
-  dkv_pass<<<grid, core_threads(n), smem_kv, st>>>(qk, v, dO, biasT, mld, unit, norm, ks, dkv,
-                                                   k_part, M, n, HD, keep_lo);
+  int parts;
+  if (bias != nullptr) {
+    // the spatial block: o's planes and (m log2 e, 1 / l) from the forward
+    // (saved) or from the core rerun here; the passes on wgmma
+    if (!saved)
+      err = launch_block_core<true, true>(qk, v, bias, o, R, n, H, mld, nullptr, st, keep_lo);
+    if (err) return err;
+    dim3 gt((n + 31) / 32, (n + 31) / 32, H);
+    transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
+    err = launch_wg_passes(qk, v, dO, o, bias, biasT, mld, unit, norm, qs, ks, scale, dq, dkv,
+                           q_part, k_part, R, n, H, keep_lo, st);
+    parts = R * ((n + WG_ROWS - 1) / WG_ROWS) * H;
+  } else {
+    err = launch_block_core<true, true>(qk, v, bias, o, R, n, H, mld, dO, st, keep_lo);
+    if (!err)
+      err = launch_mma_passes(qk, v, dO, mld, unit, norm, qs, ks, scale, dq, dkv, q_part, k_part,
+                              R, n, H, keep_lo, st);
+    parts = R * ((n + QT - 1) / QT) * H;
+  }
+  if (err) return err;
   if (grads != nullptr && bias != nullptr) {
     dim3 gb((n + KC - 1) / KC, (n + DB_QT - 1) / DB_QT, H);
     cudaFuncSetAttribute(bwd_dbias_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          DBF_SMEM);
     bwd_dbias_f32_kernel<><<<gb, DB_WARPS * 32, DBF_SMEM, st>>>(qk, v, dO, bias, mld,
                                                                 grads->dbias, R, n, HD);
+    err = (int)cudaGetLastError();
   }
-  err = (int)cudaGetLastError();
   if (!err)
     err = split_product_kn(dq, dq + mh, HD, w_s, w_s + wrows, D, M, D, HD,
                            F32OutEpi{dxn, nullptr, nullptr, M, D}, st);
@@ -608,7 +524,6 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
     err = launch_ln_bwd_f32(x, gamma, dxn, dxd, residual ? g : nullptr, dx, M, D, st,
                             grads != nullptr ? grads->ln_part : nullptr);
   if (err || grads == nullptr) return err;
-  const int parts = (int)grid.x * (int)grid.y * (int)grid.z;
   err = launch_colsum(grads->ln_part, grads->dgamma, ln_parts(M), D, 2 * D, 1.f, st);
   if (!err) err = launch_colsum(q_part, grads->dqs, parts, DH, DH, scale, st);
   if (!err) err = launch_colsum(k_part, grads->dks, parts, DH, DH, 1.f, st);

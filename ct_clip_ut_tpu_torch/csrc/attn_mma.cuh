@@ -316,7 +316,9 @@ struct Slice {
 // with o rounded to bf16 (flash-attention's D, sum_j P dP). F32: the fp32
 // core, p and v not rounded: P.V as p_lo v_hi + p_hi v_lo + p_hi v_hi (p
 // split in registers, v's planes staged), o written as hi / lo planes; with
-// STATS, D from the fp32 o and dO's planes (dO, dO_lo: dO_hi + dO_lo).
+// STATS, D from the fp32 o and dO's planes (dO, dO_lo: dO_hi + dO_lo);
+// with dO null, D = 0 (the forward keeping its statistics for the backward,
+// whose query pass forms D).
 template <int BIAS, bool STATS, bool F32 = false>
 __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float4* stats,
                                               const bf16* dO, const bf16* dO_lo = nullptr) {
@@ -460,7 +462,7 @@ __device__ __forceinline__ void two_pass_core(const Slice& sl, int q_tile, float
     if constexpr (STATS) {
       float d_a = 0.f, d_b = 0.f;
 #pragma unroll
-      for (int dt = 0; dt < 4; ++dt) {
+      for (int dt = 0; dt < 4 && dO != nullptr; ++dt) {
         const int64_t ca = (int64_t)ra * sl.ld + 8 * dt + 2 * t;
         const int64_t cb = (int64_t)rb * sl.ld + 8 * dt + 2 * t;
         if (va) {
@@ -539,10 +541,11 @@ block_core_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   const Slice sl{qk + off, qk + plane + off, qk + 2 * plane + off, qk + 3 * plane + off, v + off,
                  BIAS ? bias + (int64_t)h * n * n : nullptr, o + off, HD, n, n,
                  F32 ? v + plane + off : nullptr, F32 ? o + plane + off : nullptr, keep_lo};
+  const bool with_d = STATS && dO != nullptr;
   two_pass_core<BIAS, STATS, F32>(sl, blockIdx.y * QT,
                                   STATS ? mld + ((int64_t)r * gridDim.z + h) * n : nullptr,
-                                  STATS ? dO + off : nullptr,
-                                  STATS && F32 ? dO + plane + off : nullptr);
+                                  with_d ? dO + off : nullptr,
+                                  with_d && F32 ? dO + plane + off : nullptr);
 }
 
 // Launch block_core_kernel over R sequences of n tokens, H heads.
@@ -658,13 +661,15 @@ struct QkvSplitPlan {
 // fp32; bias [H][n][n] fp32 or null; workspaces xs [4][R*n][D] (xn_hi,
 // xn_lo, x_hi, x_lo), w_s [2][3 HD][D], wo_s [2][D][HD], qk [4][R*n][HD],
 // v_ws / o_ws [2][R*n][HD] bf16; out [R*n, D] fp32. keep_lo 0 zeroes every
-// lo plane (the one-pass control).
+// lo plane (the one-pass control). mld [R][H][n] float4 or null: the core
+// also writes each row's (m log2 e, 1 / l, 0, 0), which with o's planes the
+// spatial backward (attn_bwd_wg.cuh) takes in place of rerunning the core.
 template <int Dummy = 0>
 int block_forward_f32(const float* x, const float* gamma, const float* wq, const float* wk,
                       const float* wv, const float* wo, const float* qs, const float* ks,
                       const float* bias, bf16* xs, bf16* w_s, bf16* wo_s, bf16* qk, bf16* v_ws,
-                      bf16* o_ws, float* out, int R, int n, int D, int H, float scale,
-                      int residual, int keep_lo, cudaStream_t st) {
+                      bf16* o_ws, float4* mld, float* out, int R, int n, int D, int H,
+                      float scale, int residual, int keep_lo, cudaStream_t st) {
   using namespace sm90;
   const int M = R * n, HD = H * DH, tiles = HD / BN;
   const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz, mh = (int64_t)M * HD;
@@ -689,8 +694,10 @@ int block_forward_f32(const float* x, const float* gamma, const float* wq, const
                            keep_lo},
                     3 * tiles, M, D, st);
   if (err) return err;
-  err = launch_block_core<false, true>(qk, v_ws, bias, o_ws, R, n, H, nullptr, nullptr, st,
-                                       keep_lo);
+  err = mld != nullptr ? launch_block_core<true, true>(qk, v_ws, bias, o_ws, R, n, H, mld,
+                                                       nullptr, st, keep_lo)
+                       : launch_block_core<false, true>(qk, v_ws, bias, o_ws, R, n, H, nullptr,
+                                                        nullptr, st, keep_lo);
   if (err) return err;
   return split_product(o_ws, o_ws + mh, HD, wo_s, wo_s + wsz, HD, M, D, HD,
                        F32OutEpi{out, nullptr, residual ? x : nullptr, M, D}, st);

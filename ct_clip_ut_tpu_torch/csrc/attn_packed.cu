@@ -35,7 +35,8 @@ extern "C" int ctc_attn_packed(const void* x, const void* gamma, const void* wq,
 // block's shared memory.
 extern "C" int ctc_attn_packed_max_n(void) { return ctc::tc::core_max_keys(); }
 
-// The fp32 variant: the arguments of ctc_attn_block_f32 without the bias.
+// The fp32 variant: the arguments of ctc_attn_block_f32 without the bias
+// and mld (the temporal backward reruns its core).
 extern "C" int ctc_attn_packed_f32(const void* x, const void* gamma, const void* wq,
                                    const void* wk, const void* wv, const void* wo, const void* qs,
                                    const void* ks, void* xs, void* w_s, void* wo_s, void* qk,
@@ -45,6 +46,6 @@ extern "C" int ctc_attn_packed_f32(const void* x, const void* gamma, const void*
   return ctc::tc::block_forward_f32(
       (const float*)x, (const float*)gamma, (const float*)wq, (const float*)wk, (const float*)wv,
       (const float*)wo, (const float*)qs, (const float*)ks, nullptr, (bf16*)xs, (bf16*)w_s,
-      (bf16*)wo_s, (bf16*)qk, (bf16*)v_ws, (bf16*)o_ws, (float*)out, R, n, D, H, scale, residual,
-      !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
+      (bf16*)wo_s, (bf16*)qk, (bf16*)v_ws, (bf16*)o_ws, nullptr, (float*)out, R, n, D, H, scale,
+      residual, !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
 }

@@ -35,5 +35,5 @@ extern "C" int ctc_attn_packed_bwd_f32(const void* x, const void* gamma, const v
       (bf16*)w_s, (bf16*)wo_s, (bf16*)gs, (bf16*)qk, (float*)unit, (float*)norm, nullptr,
       (bf16*)v, (bf16*)dO, (bf16*)o, (float4*)mld, (bf16*)dq, (bf16*)dkv, (float*)dxn,
       (float*)dxd, (float*)dx, dgamma != nullptr ? &grads : nullptr, R, n, D, H, scale, residual,
-      !(flags & 1), reinterpret_cast<cudaStream_t>(stream));
+      !(flags & 1), 0, reinterpret_cast<cudaStream_t>(stream));
 }

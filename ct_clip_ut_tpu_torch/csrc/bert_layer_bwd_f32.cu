@@ -29,11 +29,15 @@
 //   gemm_kernel            dy = dr2 + dh1 W1 (fp32, in place of dr2)
 //   ln_drop_bwd_kernel     dr1 = LN1'(dy), do1 = dr1 keep1 as planes; dgamma1,
 //                          dbeta1, dbo partials
-//   gemm_kernel            dctx = do1 Wo as planes, and each row's and head's
-//                          D = rowsum(dctx ctx) (DctxSplitEpi): sum_j dp_ij
-//                          keep_ij p_ij = dctx_i . sum_j p_used_ij v_j, which
-//                          is ctx_i up to its hi / lo split
-//   dq_f32_kernel          per (64 queries, head, sequence): the split scores
+//   gemm_kernel            dctx = do1 Wo as planes (SplitOutEpi)
+//   dq_f32_kernel<true>    each row's and head's D = sum_j p_ij keep_ij dp_ij
+//                          from the same split scores and dP = dctx V^T as
+//                          the query and key passes form (below): a D from
+//                          another product (dctx . ctx over ctx's planes, the
+//                          first design) lost the gradients whose terms
+//                          cancel in dP - D, ~2^-16 of those terms, and a
+//                          third plane on dP alone did not bring them back
+//   dq_f32_kernel<false>   per (64 queries, head, sequence): the split scores
 //                          and dP = dctx V^T over 64-key chunks (K, V planes
 //                          staged by cp.async, double-buffered), p from the
 //                          saved (max, 1 / sum), the keep bits, ds, dq += ds
@@ -107,53 +111,6 @@ struct GeluBwdSplitEpi {
       s1 = bh::col_sum16(s1);
       if (g == 0 && c < F && row < M)
         *reinterpret_cast<float2*>(part + (int64_t)(row / 16) * F + c) = make_float2(s0, s1);
-    }
-  }
-};
-
-// dctx [M, D] as hi / lo planes, and for each row and each of the tile's two
-// heads the row term D = sum over the head's 64 columns of dctx (fp32) ctx
-// (hi + lo) into rowstat[(seq, head, i)].z; rows of n tokens, D a multiple
-// of 128.
-struct DctxSplitEpi {
-  bf16* hi;
-  bf16* lo;
-  const bf16* ctx_hi;
-  const bf16* ctx_lo;
-  float4* rowstat;
-  int M, D, n, keep_lo;
-  __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
-    const int g = lane >> 2, t = lane & 3, heads = D / DH;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float dot[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 8 * hh; j < 8 * hh + 8; ++j) {
-        const int c = nt * BN + 8 * j + 2 * t;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = row + g + 8 * h;
-          if (m >= M || c >= D) continue;
-          const int64_t off = (int64_t)m * D + c;
-          const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
-          __nv_bfloat162 h2, l2;
-          split2(a0, a1, keep_lo, h2, l2);
-          *reinterpret_cast<__nv_bfloat162*>(hi + off) = h2;
-          *reinterpret_cast<__nv_bfloat162*>(lo + off) = l2;
-          const float2 ch = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ctx_hi + off));
-          const float2 cl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ctx_lo + off));
-          dot[h] += a0 * (ch.x + cl.x) + a1 * (ch.y + cl.y);
-        }
-      }
-      const int head = (nt * BN + 64 * hh) / DH;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float d = dot[h] + __shfl_xor_sync(0xffffffffu, dot[h], 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        const int m = row + g + 8 * h;
-        if (t == 0 && m < M && head < heads)
-          rowstat[((int64_t)(m / n) * heads + head) * n + m % n].z = d;
-      }
     }
   }
 };
@@ -277,11 +234,14 @@ __device__ __forceinline__ void col_partial(const float (&v)[4], bool va, bool v
 // wrote it. One block per (64 query rows, head h, sequence b); the key
 // chunks' K and V planes staged by cp.async, double-buffered (ATTN_SMEM).
 // dq goes to dqkv's planes [2][B n][3D] at columns h 64 ..., and the fp32
-// sums of each warp's rows to part [B ceil(n / 16)][3D].
+// sums of each warp's rows to part [B ceil(n / 16)][3D]. ROW_TERM: the same
+// walk without dS's product, each row's D = sum_j p_ij keep_ij dp_ij (the
+// quad's columns in key order, then the quad) into rowstat's .z.
+template <bool ROW_TERM>
 __global__ void __launch_bounds__(WARPS * 32)
 dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
               const bf16* __restrict__ dctx_hi, const bf16* __restrict__ dctx_lo,
-              const float* __restrict__ mask, const float4* __restrict__ rowstat,
+              const float* __restrict__ mask, float4* __restrict__ rowstat,
               const unsigned* __restrict__ keep, Dropout drop, bf16* __restrict__ dq_hi,
               bf16* __restrict__ dq_lo, float* __restrict__ part, int n, int D, float scale,
               int keep_lo) {
@@ -311,7 +271,7 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
   load_a64(dl, dctx_lo + seq0 * D + h * DH, D, q0, n, lane);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 sa = va ? rowstat[bhd * n + ra] : zero, sb = vb ? rowstat[bhd * n + rb] : zero;
-  float acc[8][4];
+  float acc[8][4], d_row[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -351,14 +311,31 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
           const float p = expf(sv - st.x) * st.y;
           const unsigned wrd = i < 2 ? wa[jt >> 2] : wb[jt >> 2];
           const float kf = drop_on ? ((wrd >> (bit + (i & 1))) & 1u ? drop.scale_attn : 0.f) : 1.f;
-          ds[i] = p * (dp[i] * kf - st.z) * scale;
+          if (ROW_TERM) {
+            d_row[i >> 1] += p * (dp[i] * kf);
+          } else {
+            ds[i] = p * (dp[i] * kf - st.z) * scale;
+          }
         }
-        tc::split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
+        if (!ROW_TERM)
+          tc::split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
       }
-      split_cols64(acc, ah, al, kh, kl, 16 * ks, lane);
+      if (!ROW_TERM) split_cols64(acc, ah, al, kh, kl, 16 * ks, lane);
     }
   }
   if (!live) return;
+  if (ROW_TERM) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      d_row[i] += __shfl_xor_sync(0xffffffffu, d_row[i], 1);
+      d_row[i] += __shfl_xor_sync(0xffffffffu, d_row[i], 2);
+    }
+    if (t == 0) {
+      if (va) rowstat[bhd * n + ra].z = d_row[0];
+      if (vb) rowstat[bhd * n + rb].z = d_row[1];
+    }
+    return;
+  }
   const int64_t ld3 = 3 * (int64_t)D;
   float* prow = part + ((int64_t)b * ((n + 15) / 16) + q0 / 16) * ld3;
 #pragma unroll
@@ -626,16 +603,19 @@ extern "C" int ctc_bert_layer_bwd_f32(
   // the attention out-projection and the core
   if (!err)
     err = product_kn(do1, ws.wo_s, M, D, D,
-                     DctxSplitEpi{dctx, dctx + md, ws.ctx_s, ws.ctx_s + md, ws.rowstat, M, D, n,
-                                  keep_lo},
-                     st);
+                     ctc::sm90::SplitOutEpi{dctx, dctx + md, M, D, D, keep_lo}, st);
   if (err) return err;
   const dim3 grid((n + KC - 1) / KC, heads, B);
-  cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATTN_SMEM);
-  dq_f32_kernel<<<grid, WARPS * 32, ATTN_SMEM, st>>>(ws.qkv_s, ws.qkv_s + 3 * md, dctx,
-                                                     dctx + md, maskf, ws.rowstat, ws.keep, drop,
-                                                     dqkv, dqkv + 3 * md, pqkv, n, D, scale,
-                                                     keep_lo);
+  cudaFuncSetAttribute(dq_f32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       ATTN_SMEM);
+  cudaFuncSetAttribute(dq_f32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       ATTN_SMEM);
+  dq_f32_kernel<true><<<grid, WARPS * 32, ATTN_SMEM, st>>>(
+      ws.qkv_s, ws.qkv_s + 3 * md, dctx, dctx + md, maskf, ws.rowstat, ws.keep, drop, nullptr,
+      nullptr, nullptr, n, D, scale, keep_lo);
+  dq_f32_kernel<false><<<grid, WARPS * 32, ATTN_SMEM, st>>>(
+      ws.qkv_s, ws.qkv_s + 3 * md, dctx, dctx + md, maskf, ws.rowstat, ws.keep, drop, dqkv,
+      dqkv + 3 * md, pqkv, n, D, scale, keep_lo);
   err = (int)cudaGetLastError();
   if (err) return err;
   cudaFuncSetAttribute(dkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);

@@ -138,6 +138,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// all but the last committed group done
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // Shared-memory matrix descriptor of a K-major tile written by TMA with the
 // 128-B swizzle: rows of 128 B, 8-row core groups 1024 B apart (SBO), the

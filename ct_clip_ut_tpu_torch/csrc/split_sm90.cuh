@@ -72,30 +72,51 @@ split_kernel(const float4* __restrict__ src, bf16* __restrict__ hi, bf16* __rest
     store_split4(src[i], keep_lo, hi, lo, 4 * i);
 }
 
-// One warp a row of r [M, D] (D a multiple of 4): y = LN(r) * gamma (+ beta),
-// the moments in the one-pass form of the TPU kernels' LayerNorm; y to out
-// (fp32) and / or as hi / lo planes where those are given; r's own planes
-// to rhi / rlo where given.
+// One warp a row of r [M, D] (D a multiple of 4, at most 4 * 32 *
+// LNB_CHUNKS): y = LN(r) * gamma (+ beta), the moments in the one-pass form
+// of the TPU kernels' LayerNorm; y to out (fp32) and / or as hi / lo planes
+// where those are given; r's own planes to rhi / rlo where given; with r2
+// (another [M, D] array, the backward chains' cotangent) its row's planes
+// to r2hi / r2lo, one launch for both row passes. Lane l holds its float4s
+// of the row (columns 4 l + 128 k) in registers, loaded at once.
+constexpr int LNB_CHUNKS = 8;
 template <int Dummy = 0>
 __global__ void __launch_bounds__(256)
 ln_split_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
                 const float* __restrict__ beta, float* __restrict__ out, bf16* __restrict__ hi,
-                bf16* __restrict__ lo, bf16* __restrict__ rhi, bf16* __restrict__ rlo, int M, int D,
-                float eps, int keep_lo) {
+                bf16* __restrict__ lo, bf16* __restrict__ rhi, bf16* __restrict__ rlo,
+                const float* __restrict__ r2, bf16* __restrict__ r2hi, bf16* __restrict__ r2lo,
+                int M, int D, float eps, int keep_lo) {
   const int m = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (m >= M) return;
   const float* row = r + (int64_t)m * D;
+  float4 rv[LNB_CHUNKS], r2v[LNB_CHUNKS];
+#pragma unroll
+  for (int k = 0; k < LNB_CHUNKS && r2 != nullptr; ++k) {
+    const int c = 4 * lane + 128 * k;
+    if (c < D) r2v[k] = *reinterpret_cast<const float4*>(r2 + (int64_t)m * D + c);
+  }
+#pragma unroll
+  for (int k = 0; k < LNB_CHUNKS; ++k) {
+    const int c = 4 * lane + 128 * k;
+    if (c < D) rv[k] = *reinterpret_cast<const float4*>(row + c);
+  }
   float s = 0.f, s2 = 0.f;
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+  for (int k = 0; k < LNB_CHUNKS; ++k) {
+    if (4 * lane + 128 * k >= D) break;
+    const float4 v = rv[k];
     s += (v.x + v.y) + (v.z + v.w);
     s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
   }
   const float mean = warp_sum(s) / (float)D;
   const float var = warp_sum(s2) / (float)D - mean * mean;
   const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
-  for (int c = 4 * lane; c < D; c += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+  for (int k = 0; k < LNB_CHUNKS; ++k) {
+    const int c = 4 * lane + 128 * k;
+    if (c >= D) break;
+    const float4 v = rv[k];
     const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
     float4 y = make_float4((v.x - mean) * rstd * gm.x, (v.y - mean) * rstd * gm.y,
                            (v.z - mean) * rstd * gm.z, (v.w - mean) * rstd * gm.w);
@@ -107,6 +128,7 @@ ln_split_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
     if (out != nullptr) *reinterpret_cast<float4*>(out + off) = y;
     if (hi != nullptr) store_split4(y, keep_lo, hi, lo, off);
     if (rhi != nullptr) store_split4(v, keep_lo, rhi, rlo, off);
+    if (r2 != nullptr) store_split4(r2v[k], keep_lo, r2hi, r2lo, off);
   }
 }
 
@@ -184,15 +206,16 @@ struct SplitKNPlan {
 constexpr int LNG_ROWS = 64;
 
 // dx = the LayerNorm backward of y = LN(x) * gamma (+ beta) against dxn, plus
-// direct and g where given, all fp32 [M, D] (D a multiple of 4), one warp a
-// row: the moments recomputed from x in the one-pass form of
-// ln_split_kernel, xhat = (x - mean) rstd, dxhat = dxn gamma, dx = (dxhat -
-// mean(dxhat) - xhat mean(dxhat xhat)) rstd. The data-gradient chains take
-// it without GRADS, a block of 8 rows. With GRADS a block takes LNG_ROWS
-// rows, and its warps' sums of dxn xhat (dgamma) and dxn (dbeta) per column
-// go to shared memory [8][2 D] (each (warp, column) one lane's: no
-// atomics), then in warp order to part [gridDim.x][2 D]: colsum_kernel sums
-// those rows.
+// direct and g where given, all fp32 [M, D] (D a multiple of 4, at most 4 *
+// 32 * LNB_CHUNKS), one warp a row: the moments recomputed from x in the
+// one-pass form of ln_split_kernel, xhat = (x - mean) rstd, dxhat = dxn
+// gamma, dx = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd. Lane l
+// holds its float4s of the row's x and dxn (columns 4 l + 128 k) in
+// registers, all loaded at once. The data-gradient chains take it without
+// GRADS, a block of 8 rows. With GRADS a block takes LNG_ROWS rows, and its
+// warps' sums of dxn xhat (dgamma) and dxn (dbeta) per column go to shared
+// memory [8][2 D] (each (warp, column) one lane's: no atomics), then in warp
+// order to part [gridDim.x][2 D]: colsum_kernel sums those rows.
 template <bool GRADS = false>
 __global__ void __launch_bounds__(256)
 ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
@@ -210,18 +233,31 @@ ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     const int m = (blockIdx.x * rows + i) * 8 + warp;
     if (m >= M) break;
     const int64_t base = (int64_t)m * D;
+    float4 xv[LNB_CHUNKS], dv[LNB_CHUNKS];
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = 4 * lane + 128 * k;
+      if (c < D) {
+        xv[k] = *reinterpret_cast<const float4*>(x + base + c);
+        dv[k] = *reinterpret_cast<const float4*>(dxn + base + c);
+      }
+    }
     float s = 0.f, s2 = 0.f;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      if (4 * lane + 128 * k >= D) break;
+      const float4 v = xv[k];
       s += (v.x + v.y) + (v.z + v.w);
       s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
     }
     const float mean = warp_sum(s) / (float)D;
     const float rstd = rsqrtf(fmaxf(warp_sum(s2) / (float)D - mean * mean, 0.f) + eps);
     float a1 = 0.f, a2 = 0.f;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
-      const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = 4 * lane + 128 * k;
+      if (c >= D) break;
+      const float4 v = xv[k], d = dv[k];
       const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
       const float e0 = d.x * gm.x, e1 = d.y * gm.y, e2 = d.z * gm.z, e3 = d.w * gm.w;
       a1 += (e0 + e1) + (e2 + e3);
@@ -240,9 +276,11 @@ ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
     a1 = warp_sum(a1) / (float)D;
     a2 = warp_sum(a2) * rstd / (float)D;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(x + base + c);
-      const float4 d = *reinterpret_cast<const float4*>(dxn + base + c);
+#pragma unroll
+    for (int k = 0; k < LNB_CHUNKS; ++k) {
+      const int c = 4 * lane + 128 * k;
+      if (c >= D) break;
+      const float4 v = xv[k], d = dv[k];
       const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
       float4 y = make_float4((d.x * gm.x - a1 - (v.x - mean) * rstd * a2) * rstd,
                              (d.y * gm.y - a1 - (v.y - mean) * rstd * a2) * rstd,
@@ -313,9 +351,11 @@ inline int split(const void* src, bf16* planes, int64_t count, int keep_lo, cuda
 
 inline int launch_ln_split(const float* r, const float* gamma, const float* beta, float* out,
                            bf16* hi, bf16* lo, bf16* rhi, bf16* rlo, int M, int D, float eps,
-                           int keep_lo, cudaStream_t st) {
-  ln_split_kernel<><<<(M + 7) / 8, 256, 0, st>>>(r, gamma, beta, out, hi, lo, rhi, rlo, M, D, eps,
-                                                 keep_lo);
+                           int keep_lo, cudaStream_t st, const float* r2 = nullptr,
+                           bf16* r2hi = nullptr, bf16* r2lo = nullptr) {
+  if (D > 4 * 32 * LNB_CHUNKS) return (int)cudaErrorInvalidValue;
+  ln_split_kernel<><<<(M + 7) / 8, 256, 0, st>>>(r, gamma, beta, out, hi, lo, rhi, rlo, r2, r2hi,
+                                                 r2lo, M, D, eps, keep_lo);
   return (int)cudaGetLastError();
 }
 
@@ -350,6 +390,100 @@ inline int split_product_kn(const bf16* a_hi, const bf16* a_lo, int64_t lda, con
   return launch_gemm(maps, SplitKNPlan{}, epi, (N + BN - 1) / BN, M, K, st);
 }
 
+// The same product with each K slice's four planes staged together and
+// its three bf16 products taken at once (a_hi b_lo, a_lo b_hi, a_hi b_hi):
+// each plane crosses from L2 once, where SplitKNPlan's three passes read
+// A's hi plane and B's twice; one slice's wgmma group stays in flight while
+// the next is issued. A stage is 64 KB (three, one block an SM). For the
+// long products of the fp32 backward chains (K up to 2 x 1368), which read
+// at the L2's rate.
+constexpr int S4_STAGES = 3;
+constexpr int S4_STAGE = 2 * A_BYTES + 4 * B_HALF_BYTES;
+constexpr int S4_SMEM = S4_STAGES * S4_STAGE + 1024;   // + slack to align the ring to 1 KB
+
+template <class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+split4_kn_kernel(const __grid_constant__ Maps maps, const Epi epi, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S4_STAGES], empty[S4_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const int nt = blockIdx.x, m0 = blockIdx.y * BM, n0 = nt * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S4_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S4_STAGES, k0 = kt * BK;
+        mbar_wait(&empty[s], ((kt / S4_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], S4_STAGE);
+        char* a = ring + s * S4_STAGE;
+        char* b = a + 2 * A_BYTES;
+        for (int lo = 0; lo < 2; ++lo) {
+          tma_load_2d(a + lo * A_BYTES, &maps.m[lo], &full[s], k0, m0);
+          tma_load_2d(b + 2 * lo * B_HALF_BYTES, &maps.m[2 + lo], &full[s], n0, k0);
+          tma_load_2d(b + (2 * lo + 1) * B_HALF_BYTES, &maps.m[2 + lo], &full[s], n0 + 64, k0);
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S4_STAGES;
+    mbar_wait(&full[s], (kt / S4_STAGES) & 1);
+    const uint32_t ah = smem_u32(ring + s * S4_STAGE) + wg * (64 * BK * 2), al = ah + A_BYTES;
+    const uint32_t bh = smem_u32(ring + s * S4_STAGE + 2 * A_BYTES), bl = bh + 2 * B_HALF_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t a_hi = desc_sw128(ah + kk * 32), a_lo = desc_sw128(al + kk * 32);
+      const uint64_t b_hi = desc_mn_sw128(bh + kk * 2048, B_HALF_BYTES);
+      wgmma_m64n128k16_kn(acc, a_hi, desc_mn_sw128(bl + kk * 2048, B_HALF_BYTES));
+      wgmma_m64n128k16_kn(acc, a_lo, b_hi);
+      wgmma_m64n128k16_kn(acc, a_hi, b_hi);
+    }
+    wgmma_commit();
+    wgmma_wait_one();   // the slice before this one is read: give its stage back
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S4_STAGES]);
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  epi(acc, m0 + wg * 64 + (warp & 3) * 16, nt, lane);
+}
+
+// split_product_kn's product on split4_kn_kernel.
+template <class Epi>
+inline int split4_product_kn(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                             const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                             cudaStream_t st) {
+  Maps maps{};
+  int err = map_a(&maps.m[0], a_hi, M, K, lda);
+  if (!err) err = map_a(&maps.m[1], a_lo, M, K, lda);
+  if (!err) err = map_mn(&maps.m[2], b_hi, K, N, ldb);
+  if (!err) err = map_mn(&maps.m[3], b_lo, K, N, ldb);
+  if (err) return err;
+  auto kern = split4_kn_kernel<Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S4_SMEM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kern<<<grid, THREADS, S4_SMEM, st>>>(maps, epi, K);
+  return (int)cudaGetLastError();
+}
+
 // The LayerNorm backward; with `part` (not null) also the gains' partial
 // sums, [ln_parts(M)][2 D].
 inline int ln_parts(int M) { return (M + LNG_ROWS - 1) / LNG_ROWS; }
@@ -357,6 +491,7 @@ inline int ln_parts(int M) { return (M + LNG_ROWS - 1) / LNG_ROWS; }
 inline int launch_ln_bwd_f32(const float* x, const float* gamma, const float* dxn,
                              const float* direct, const float* g, float* dx, int M, int D,
                              cudaStream_t st, float* part = nullptr) {
+  if (D > 4 * 32 * LNB_CHUNKS) return (int)cudaErrorInvalidValue;
   if (part == nullptr) {
     ln_bwd_f32_kernel<false><<<(M + 7) / 8, 256, 0, st>>>(x, gamma, dxn, direct, g, dx, nullptr,
                                                          M, D, 1e-5f);

@@ -81,10 +81,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
 template <class Plan, class Epi, class MapsT>
 __global__ void __launch_bounds__(THREADS, 1)
 wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi, int tokens) {

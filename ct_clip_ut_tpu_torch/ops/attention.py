@@ -66,34 +66,48 @@ class _BlockFn(torch.autograd.Function):
     attn_packed (without), forward and backward, on CUDA tensors the kernels
     and on CPU tensors their plain versions. An fp32 CUDA x takes the
     data-gradient chain (`*_bwd_f32`) when no parameter wants its gradient,
-    the full fp32 chain when one does."""
+    the full fp32 chain when one does. `keep` (an optional last input, True
+    where a backward may follow): an fp32 CUDA forward with a bias keeps its
+    o planes and row statistics, which the fp32 backward takes in place of
+    rerunning the forward core."""
 
     @staticmethod
-    def forward(ctx, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual):
-        ctx.save_for_backward(x, gamma, wq, wk, wv, wo, qs, ks, bias)
+    def forward(ctx, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual, keep=None):
         ctx.scale, ctx.residual = scale, residual
-        if bias is not None:
-            return attn_block(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
-        return attn_packed(x, gamma, wq, wk, wv, wo, qs, ks, scale, residual)
+        ctx.inputs = 11 if keep is None else 12
+        saved = ()
+        if bias is None:
+            out = attn_packed(x, gamma, wq, wk, wv, wo, qs, ks, scale, residual)
+        elif keep and _build.on_cuda(x) and x.dtype == torch.float32:
+            out, saved = attn_block(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual,
+                                    keep=True)
+        else:
+            out = attn_block(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+        ctx.save_for_backward(x, gamma, wq, wk, wv, wo, qs, ks, bias, *saved)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, gamma, wq, wk, wv, wo, qs, ks, bias = ctx.saved_tensors
+        x, gamma, wq, wk, wv, wo, qs, ks, bias, *saved = ctx.saved_tensors
         args = (x, gamma, wq, wk, wv, wo, qs, ks)
+        saved = tuple(saved) or None
+        tail = (None,) * (ctx.inputs - 9)
         if fp32_data_grad_only(ctx, x):
             if bias is not None:
-                dx = attn_block_bwd_f32(*args, bias, g.contiguous(), ctx.scale, ctx.residual)
+                dx = attn_block_bwd_f32(*args, bias, g.contiguous(), ctx.scale, ctx.residual,
+                                        saved=saved)
             else:
                 dx = attn_packed_bwd_f32(*args, g.contiguous(), ctx.scale, ctx.residual)
-            return (dx,) + (None,) * 10
+            return (dx,) + (None,) * 8 + tail
         if bias is not None:
-            *grads, dbias = attn_block_bwd(*args, bias, g.contiguous(), ctx.scale, ctx.residual)
+            *grads, dbias = attn_block_bwd(*args, bias, g.contiguous(), ctx.scale, ctx.residual,
+                                           saved=saved)
             dbias = dbias.to(bias.dtype)
         else:
             grads = attn_packed_bwd(*args, g.contiguous(), ctx.scale, ctx.residual)
             dbias = None
         grads = [grads[0]] + [d.to(a.dtype) for d, a in zip(grads[1:], args[1:])]
-        return (*grads, dbias, None, None)
+        return (*grads, dbias) + tail
 
 
 class AttentionOutput(NamedTuple):
@@ -123,7 +137,7 @@ def attention(attn: Attention, x: torch.Tensor, *,
                 attn.q_scale.float(), attn.k_scale.float())
         bias = None if attn_bias is None else attn_bias.float().contiguous()
         if not plain:
-            out = _BlockFn.apply(*args, bias, cfg.scale, residual)
+            out = _BlockFn.apply(*args, bias, cfg.scale, residual, torch.is_grad_enabled())
         elif bias is not None:
             out = attn_block_plain(*args, bias, cfg.scale, residual)
         else:

@@ -27,7 +27,11 @@ products of hi / lo planes) in two forms: `attn_block_bwd` on fp32 CUDA
 tensors returns every gradient (the fp32 train step's backward; the
 weight gradients on the split planes in one wgrad_sm90.cuh launch, every
 sum over tokens in a fixed order), `attn_block_bwd_f32` dx alone (the
-gradient attribution methods', whose parameters are frozen).
+gradient attribution methods', whose parameters are frozen). Its attention
+passes are `csrc/attn_bwd_wg.cuh`'s; given `saved`, the o planes and row
+statistics the fp32 forward kept (`attn_block(..., keep=True)`, as
+`attention._BlockFn` does where a backward may follow), neither form
+reruns the forward core.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from . import launches
 from .fp32_grads import ln_parts
 
 DIM_HEAD = 32   # the head width the CUDA attention cores take
-QT = 128        # query or key rows a block of the backward's passes takes (csrc/attn_mma.cuh)
+QT = 128        # query or key rows a block of the temporal backward's passes (csrc/attn_mma.cuh)
+WG_ROWS = 64    # the spatial backward's (csrc/attn_bwd_wg.cuh)
 
 
 def attn_block_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -134,12 +139,15 @@ def launch_block(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: floa
 
 
 def launch_block_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: float,
-                     residual: bool, one_pass: bool = False) -> torch.Tensor:
+                     residual: bool, one_pass: bool = False, keep: bool = False):
     """Run the fp32 forward chain `entry` (ctc_attn_block_f32 with a bias,
     ctc_attn_packed_f32 with None) on CUDA tensors: the one place that knows
     their workspaces (xn's and x's hi / lo planes; the weights' planes, wq |
     wk | wv stacked; q and k, v, o as hi / lo planes). one_pass zeroes every
-    lo plane (the control)."""
+    lo plane (the control). keep (with a bias) returns (out, (o, mld)): o's
+    planes [2, R*n, h*dh] bf16 and each row's (m log2 e, 1 / l, 0, 0) [R*h*n,
+    4] fp32, what ctc_attn_block_bwd_f32 takes in place of rerunning the
+    core."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
                                       lib.ctc_attn_f32_max_n(), torch.float32)
@@ -153,33 +161,40 @@ def launch_block_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: 
           torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16))
     out = torch.empty_like(x)
     ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else [])
+    mld = [] if bias is None else [torch.empty((m * heads, 4), dtype=torch.float32,
+                                               device=x.device) if keep else None]
     err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in ws),
+                              *(None if t is None else t.data_ptr() for t in mld),
                               out.data_ptr(), r, n, d, heads, float(scale), int(residual),
                               int(one_pass), _build.stream_of(x))
     _build.check(err, entry)
-    return out
+    return (out, (ws[5], mld[0])) if keep else out
 
 
 def attn_block(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
-               scale: float = 8.0, residual: bool = False) -> torch.Tensor:
+               scale: float = 8.0, residual: bool = False, *, keep: bool = False):
     """The attn_block kernel on CUDA tensors (bf16 x and weights, a width
     that 8 divides; fp32 gamma, scales and bias [h, n, n]; fp32 x and
-    weights take the fp32 variant), the plain version on CPU tensors."""
+    weights take the fp32 variant), the plain version on CPU tensors. keep
+    (fp32 on CUDA tensors) returns (out, saved): what the fp32 backward
+    chain takes in place of rerunning the forward core (`saved` of
+    attn_block_bwd_f32 / attn_block_bwd); elsewhere (out, None)."""
     if not _build.on_cuda(x):
-        return attn_block_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+        out = attn_block_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual)
+        return (out, None) if keep else out
     if bias is None:
         raise ValueError("attn_block takes a bias [h, n, n]; attn_packed is the block without")
     if x.dtype == torch.float32:
         out = launch_block_f32("ctc_attn_block_f32", x, gamma, wq, wk, wv, wo, qs, ks, bias,
-                               scale, residual)
+                               scale, residual, keep=keep)
         launches.count("attn_block_f32")
         return out
     out = launch_block("ctc_attn_block", x, gamma, wq, wk, wv, wo, qs, ks, bias, scale,
                        residual)
     launches.count("attn_block")
-    return out
+    return (out, None) if keep else out
 
 
 def attn_block_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -312,17 +327,18 @@ def attn_block_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                    wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                    qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
                    g: torch.Tensor, scale: float = 8.0, residual: bool = False, *,
-                   one_pass: bool = False) -> tuple:
+                   one_pass: bool = False, saved=None) -> tuple:
     """The attn_block backward kernel chain on CUDA tensors (the forward's
     types; g like x: bf16, or fp32 for the fp32 chain with every parameter
     gradient, where one_pass=True zeroes every lo plane, the control, and
-    does not count as a launch of the path), the plain backward on CPU
-    tensors."""
+    does not count as a launch of the path, and `saved` is what
+    attn_block(..., keep=True) returned, or None to rerun the forward core),
+    the plain backward on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_block_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, residual)
     if x.dtype == torch.float32:
         grads = launch_attn_bwd_f32("ctc_attn_block_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks,
-                                    bias, g, scale, residual, one_pass, params=True)
+                                    bias, g, scale, residual, one_pass, params=True, saved=saved)
         if not one_pass:
             launches.count("attn_block_bwd_f32_full")
         return grads
@@ -333,13 +349,17 @@ def attn_block_bwd(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
 
 
 def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale: float,
-                        residual: bool, one_pass: bool = False, params: bool = False):
+                        residual: bool, one_pass: bool = False, params: bool = False,
+                        saved=None):
     """Run the fp32 backward chain `entry` (ctc_attn_block_bwd_f32 with a
     bias, ctc_attn_packed_bwd_f32 with None) on CUDA tensors: dx (+ g under
     residual) alone, or with params=True the gradients of
     attn_block_bwd_plain (dx, dgamma, dwq, dwk, dwv, dwo, dqs, dks, dbias;
     dbias None without a bias), all fp32. The one place that knows their
-    workspaces. one_pass zeroes every lo plane (the control)."""
+    workspaces. one_pass zeroes every lo plane (the control). saved (with a
+    bias): the forward's (o planes, row statistics) from attn_block(...,
+    keep=True), taken in place of rerunning the core (its query pass writes
+    D and lse into the statistics' free columns)."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
                                       lib.ctc_attn_bwd_f32_max_n(), torch.float32)
@@ -360,8 +380,13 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
             torch.empty((2, m, heads), **f32)]
     if bias is not None:
         work.append(torch.empty((heads, n, n), **f32))
-    work += [torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16),
-             torch.empty((2, m, hd), **b16), torch.empty((m * heads, 4), **f32),
+    if saved is not None:
+        o, mld = saved
+        _build.require(o, "saved o", torch.bfloat16, (2, m, hd), dev)
+        _build.require(mld, "saved statistics", torch.float32, (m * heads, 4), dev)
+    else:
+        o, mld = torch.empty((2, m, hd), **b16), torch.empty((m * heads, 4), **f32)
+    work += [torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16), o, mld,
              torch.empty((2, m, hd), **b16), torch.empty((2, m, 2 * hd), **b16),
              torch.empty((m, d), **f32), torch.empty((m, d), **f32)]
     dx = torch.empty_like(x)
@@ -375,14 +400,15 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
                 torch.empty((DIM_HEAD,), **f32)]
         if bias is not None:
             outs.append(torch.empty((heads, n, n), **f32))
-        blocks = r * -(-n // QT) * heads
+        blocks = r * -(-n // (WG_ROWS if bias is not None else QT)) * heads
         parts = [torch.empty((ln_parts(m), 2 * d), **f32), torch.empty((blocks, DIM_HEAD), **f32),
                  torch.empty((blocks, DIM_HEAD), **f32)]
     ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else []) + [g]
     err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in work),
                               dx.data_ptr(), *(None if t is None else t.data_ptr()
                                                for t in outs + parts),
-                              r, n, d, heads, float(scale), int(residual), int(one_pass),
+                              r, n, d, heads, float(scale), int(residual),
+                              int(one_pass) | (2 if saved is not None else 0),
                               _build.stream_of(x))
     _build.check(err, entry)
     if not params:
@@ -396,12 +422,12 @@ def attn_block_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
                        wk: torch.Tensor, wv: torch.Tensor, wo: torch.Tensor,
                        qs: torch.Tensor, ks: torch.Tensor, bias: torch.Tensor,
                        g: torch.Tensor, scale: float = 8.0, residual: bool = False, *,
-                       one_pass: bool = False) -> torch.Tensor:
+                       one_pass: bool = False, saved=None) -> torch.Tensor:
     """dx of attn_block_plain at fp32 against cotangent g: the fp32
     data-gradient chain on CUDA tensors (fp32 x, weights, g and bias [h,
     n, n]; one_pass=True zeroes every lo plane, the control, and does not
-    count as a launch of the path), the plain backward's dx on CPU
-    tensors."""
+    count as a launch of the path; saved as attn_block_bwd's), the plain
+    backward's dx on CPU tensors."""
     if not _build.on_cuda(x):
         return attn_block_bwd_plain(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale,
                                     residual)[0]
@@ -409,7 +435,7 @@ def attn_block_bwd_f32(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
         raise ValueError("attn_block_bwd_f32 takes a bias [h, n, n]; attn_packed_bwd_f32 is the "
                          "block without")
     dx = launch_attn_bwd_f32("ctc_attn_block_bwd_f32", x, gamma, wq, wk, wv, wo, qs, ks, bias, g,
-                             scale, residual, one_pass)
+                             scale, residual, one_pass, saved=saved)
     if not one_pass:
         launches.count("attn_block_bwd_f32")
     return dx

@@ -269,12 +269,11 @@ def _launch_bwd_f32(x, gamma, beta, w_in, w_out, g, residual: bool, one_pass: bo
     b16 = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     # the weights' planes (w_in's zero-padded to [2 ld, D]: value rows, then
-    # the gate rows at row ld), xn's and g's planes, dh, [dvalue | dgate]'s
+    # the gate rows at row ld), xn's and g's planes, [dvalue | dgate]'s
     # planes, dxn
     work = (torch.zeros((2, 2 * ld, d), **b16), torch.empty((2, d, ld), **b16),
             torch.empty((2, n, d), **b16), torch.empty((2, n, d), **b16),
-            torch.empty((n, ld), **f32), torch.empty((2, n, 2 * ld), **b16),
-            torch.empty((n, d), **f32))
+            torch.empty((2, n, 2 * ld), **b16), torch.empty((n, d), **f32))
     dx = torch.empty_like(x)
     # the train form: h's planes and the LN gains' partial sums (workspaces);
     # dgamma | dbeta, dw_in, dw_out (written whole)

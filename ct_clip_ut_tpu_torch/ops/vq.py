@@ -6,10 +6,11 @@ vq_nearest kernel, computed in the input's dtype as on the TPU, outside
 the autograd graph), the output is the selected row with the
 straight-through form x + (quant - x).detach(), so d out / d x is the
 identity. Training (freeze=False) also returns the EMA-updated codebook
-(vq.py:97-162). The batch statistics are computed with `index_add_` over
-the assignments, not the JAX package's [n, codebook] one-hot product (a
-27,648 x 8,192 fp32 one-hot would be 0.9 GB at two flagship volumes); the
-sums are the same.
+(vq.py:97-162). The batch statistics are not the JAX package's [n,
+codebook] one-hot product (a 27,648 x 8,192 fp32 one-hot would be 0.9 GB
+at two flagship volumes) but sums over the assignments in a fixed order
+with no atomics (`vq_batch_stats`), so two calls on the card give the same
+bits.
 """
 
 from __future__ import annotations
@@ -74,14 +75,21 @@ def vq_batch_stats(idx: torch.Tensor, flat: torch.Tensor,
                    codebook_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(counts [codebook], embed_sum [codebook, dim]): the number of inputs
     assigned to each code and the sum of those (normalised) inputs
-    (vq.py:108-121), by index_add_ over the assignments."""
+    (vq.py:108-121). In a fixed order, without atomics (index_add_'s float
+    atomics on CUDA moved the codebook by ~3e-7 between two calls): the
+    indices sorted stably, each code's count the length of its run, each
+    code's sum the difference of two rows of the sorted inputs' running
+    sums, taken along the tokens in float64 (their error, ~1e-12 at 27,648
+    unit rows, stays far under the fp32 sum's rounding)."""
     idx = idx.reshape(-1).long()
-    counts = torch.zeros((codebook_size,), dtype=torch.float32, device=flat.device)
-    counts.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
-    embed_sum = torch.zeros((codebook_size, flat.shape[-1]), dtype=torch.float32,
-                            device=flat.device)
-    embed_sum.index_add_(0, idx, flat.float())
-    return counts, embed_sum
+    dev = flat.device
+    sorted_idx, order = torch.sort(idx, stable=True)
+    bounds = torch.searchsorted(sorted_idx, torch.arange(codebook_size + 1, device=dev))
+    counts = (bounds[1:] - bounds[:-1]).float()
+    running = torch.cumsum(flat.float()[order].t().double().contiguous(), dim=1)   # [dim, n]
+    running = torch.cat([torch.zeros_like(running[:, :1]), running], dim=1)
+    embed_sum = (running[:, bounds[1:]] - running[:, bounds[:-1]]).t().float()
+    return counts, embed_sum.contiguous()
 
 
 def vq_ema_update(state: VQState, counts: torch.Tensor, embed_sum: torch.Tensor, *,

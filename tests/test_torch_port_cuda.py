@@ -1547,8 +1547,8 @@ def test_fp32_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, bias, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,residual", [(13824, False), (13824, True), (77, False)])
 def test_fp32_bwd_geglu_ff_matches_plain_on_card(cuda_device, n, residual):
-    """dx of the fp32 FF chain (ctc_geglu_ff_bwd_f32: dh through memory,
-    the recompute writing dvalue | dgate as planes, inner 1365 padded to
+    """dx of the fp32 FF chain (ctc_geglu_ff_bwd_f32: the recompute and dh
+    in one block, dvalue | dgate written as planes, inner 1365 padded to
     1368) within F32_BAND of the plain backward's, the same bits on two
     calls; the one-pass chain and the plain backward with GELU for its
     derivative or without the LN gain outside it."""
@@ -1611,6 +1611,39 @@ def test_fp32_bwd_autograd_routes_on_card(cuda_device):
             for gt, wt in zip(got, want):
                 if wt is not None:
                     assert _rel_err(gt, wt) <= F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(24, 576), (3, 101)])
+def test_fp32_bwd_saved_statistics_match_the_rerun_on_card(cuda_device, r, n):
+    """The spatial fp32 backward from the forward's o planes and row
+    statistics (attn_block(..., keep=True)) gives the bits of the chain
+    that reruns the forward core, dx alone and every gradient, on two
+    calls from the same saved tensors; _BlockFn with keep takes that route
+    (one forward launch, one backward, the rerun's dx bits)."""
+    from ct_clip_ut_tpu_torch.ops.attention import _BlockFn
+    from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_bwd, attn_block_bwd_f32
+
+    rng = np.random.default_rng(77)
+    a = _attn_inputs(rng, r=r, n=n, d=512, heads=8, dh=32, with_bias=True)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    b = torch.from_numpy(a["bias"]).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((r, n, 512)).astype(np.float32)).to(cuda_device)
+    out, saved = attn_block(*args, b, 8.0, True, keep=True)
+    assert torch.equal(out, attn_block(*args, b, 8.0, True))
+    rerun = attn_block_bwd_f32(*args, b, g, 8.0, True)
+    for _ in range(2):
+        assert torch.equal(attn_block_bwd_f32(*args, b, g, 8.0, True, saved=saved), rerun)
+    full = attn_block_bwd(*args, b, g, 8.0, True)
+    kept = attn_block_bwd(*args, b, g, 8.0, True, saved=saved)
+    assert all(torch.equal(x, y) for x, y in zip(full, kept))
+    x = args[0].clone().requires_grad_(True)
+    launches.reset_launch_counts()
+    y = _BlockFn.apply(x, *args[1:], b, 8.0, True, True)
+    (dx,) = torch.autograd.grad(y, [x], g)
+    counts = launches.launch_counts()
+    assert counts["attn_block_f32"] == 1 and counts["attn_block_bwd_f32"] == 1, counts
+    assert torch.equal(dx, rerun)
 
 
 @pytest.mark.cuda
