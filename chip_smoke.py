@@ -363,6 +363,7 @@ PROMPTS, PROMPT_LEN = 36, 512
 BF16_PEAK, FP32_PEAK, INT8_PEAK, HBM_RATE = 989e12, 67e12, 1979e12, 3.35e12
 LIB_WINDOWS, LIB_CALLS = 5, 50      # library_ms: the median of 5 windows of 50 calls
 PROFILE_TRIES = 3                   # profiles of one call in hopper_chain_check at most
+PROFILE_PAD = 64                    # short kernels before a profiled call (hopper_chain_check)
 SLICE, TILE = 64, 128               # the weight-gradient kernel's token slice and output tile
 
 KERNELS = {
@@ -635,9 +636,12 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                          ("17block_core_kernel", "Lb0ELb1E"),
                      "fp32 backward's statistics (the fp32 core with STATS)":
                          ("17block_core_kernel", "Lb1ELb1E"),
-                     "fp32 temporal backward's query pass (split dS.K)": "17bwd_dq_f32_kernel",
-                     "fp32 temporal backward's key pass (split P^T.dO, dS^T.Q)":
-                         "18bwd_dkv_f32_kernel",
+                     "fp32 temporal backward's fused pass, n <= 32 (split S, dP, dS.K, "
+                     "P^T.dO, dS^T.Q)": ("2tc21bwd_packed_f32_kernel", "Li32ELb0E"),
+                     "fp32 temporal backward's fused pass, train form (o = split P.V too)":
+                         ("2tc21bwd_packed_f32_kernel", "Li32ELb1E"),
+                     "fp32 temporal backward's fused pass, n <= 64":
+                         ("2tc21bwd_packed_f32_kernel", "Li64E"),
                      "fp32 backward's dbias pass (split S and dP)": "20bwd_dbias_f32_kernel",
                      "fp32 bert_layer attention with STATS (row 12F's recompute, Philox keep)":
                          ("4bert11attn_kernel", "ILb1E"),
@@ -653,6 +657,9 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
 # (ATOM, ATOMS, RED) in their SASS
 SASS_NO_ATOMICS = ("2tc16bwd_dq_wg_kernel", "2tc17bwd_dkv_wg_kernel",
                    "5ff32b21gate_bwd_split_kernel")
+# ... and the other fixed-order kernels: the temporal backward's fused pass
+# (mma.sync) and the chunked weight gradient's in-order sum of its partials
+SASS_NO_ATOMICS_OTHER = ("2tc21bwd_packed_f32_kernel", "4sm9016wgrad_sum_kernel")
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
 SASS_INT8_REQUIRED = {"geglu_ff_int8 value | gate product writing h (HEpi)":
                           "11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
@@ -696,7 +703,7 @@ def sass_check(lib: Path) -> None:
                 counts.setdefault(fn, 0)
             if any(marked(fn, mark) for mark in SASS_MMA_REQUIRED.values()):
                 mma.setdefault(fn, 0)
-            if any(mark in fn for mark in SASS_NO_ATOMICS):
+            if any(mark in fn for mark in SASS_NO_ATOMICS + SASS_NO_ATOMICS_OTHER):
                 atomics.setdefault(fn, 0)
         elif fn in counts and ("HGMMA" in line or "IGMMA" in line):
             counts[fn] += 1
@@ -730,10 +737,17 @@ def sass_check(lib: Path) -> None:
             raise AssertionError(f"no mma.sync kernel for {what} in the library")
     print(f"sass: atomic instructions in the fixed-order wgmma kernels: "
           + ", ".join(f"{fn[:60]} {n}" for fn, n in atomics.items()))
-    if len(atomics) < len(SASS_NO_ATOMICS) or any(atomics.values()):
-        raise AssertionError(f"a fixed-order kernel missing or with atomics: {atomics}")
+    missing = [m for m in SASS_NO_ATOMICS + SASS_NO_ATOMICS_OTHER
+               if not any(m in fn for fn in atomics)]
+    if missing or any(atomics.values()):
+        raise AssertionError(f"a fixed-order kernel missing ({missing}) or with atomics: "
+                             f"{atomics}")
 
 
+# the temporal fp32 backward at n <= 64: its fused pass, no core rerun and
+# none of the first design's passes
+FUSED_TEMPORAL = {"must": ("bwd_packed_f32_kernel",),
+                  "must_not": ("block_core_kernel", "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")}
 # kernels on wgmma, as the profiler names them: a chain's profile holds one
 WGMMA_KERNELS = ("gemm_kernel", "sm90::wgrad_kernel", "split4_kn_kernel", "gate_bwd_split_kernel",
                  "bwd_dq_wg_kernel")
@@ -744,49 +758,65 @@ HOPPER_SPACES = ("sm90", "tc::", "pe::", "bh::", "q8::", "vq::", "ff32b::", "3ct
                  "3ctc2bh", "3ctc2q8", "3ctc2vq")
 
 
-def hopper_chain_check(name: str, fn, card: str) -> None:
+def hopper_chain_check(name: str, fn, card: str, must=(), must_not=()) -> None:
     """Run fn once under torch.profiler (after a warm-up), print each of the
     port's launches with its ms, and raise if one lies outside
     HOPPER_SPACES (a wmma kernel of gemm_tile.cuh or bwd_common.cuh) or none
     is a wgmma kernel of the Hopper core (gemm_kernel, or wgrad_kernel for a
-    weight gradient). The profiled call starts with a short torch kernel (a
-    sleep, not listed): without one, the profiler did not record the first
-    launch of a call that starts in the port's library (patch_embed_dkw from
-    the volume, whose first launch is the patchify pass). A profile without
-    a wgmma kernel (once a bert_layer_bwd call's profile held no device
-    activity, though its times and bits showed it ran) is printed and taken
-    again, up to PROFILE_TRIES profiles; every profile taken is checked for
-    launches outside the Hopper pieces. (WGMMA_KERNELS names the wgmma
-    kernels.)"""
+    weight gradient). The profiled call starts with torch kernels (sleeps,
+    not listed): without one, the profiler did not record the first launch
+    of a call that starts in the port's library (patch_embed_dkw from the
+    volume, whose first launch is the patchify pass), and late in a whole
+    smoke it dropped a call's first launches (2 of phase 11's, 8 of phase
+    14's full backwards), so PROFILE_PAD short sleeps come first. `must` /
+    `must_not`: kernel names the accepted profile has to hold / no profile
+    may hold (the temporal backward's fused pass, and no core rerun). A
+    profile without a wgmma kernel (once a bert_layer_bwd call's profile
+    held no device activity, though its times and bits showed it ran) or
+    without a name of `must` (a full backward's profile once held only the
+    chain's second half) is printed and taken again, after a longer sleep,
+    up to PROFILE_TRIES profiles; every profile taken is checked for
+    launches outside the Hopper pieces and for `must_not`. (WGMMA_KERNELS
+    names the wgmma kernels.)"""
     import torch
 
     from ct_clip_ut_tpu_torch.infer.profile_zeroshot import profile_call
 
-    def call():
-        torch.cuda._sleep(1000)
-        fn()
-
     def wgmma(rows):
         return any(any(w in k for w in WGMMA_KERNELS) for _, _, k in rows)
 
-    stray = []
+    def absent(rows):
+        return [m for m in must if not any(m in k for _, _, k in rows)]
+
+    stray, present = [], []
     for attempt in range(1, PROFILE_TRIES + 1):
+        cycles = 1000 * 100 ** (attempt - 1)
+
+        def call():
+            for _ in range(PROFILE_PAD * attempt):
+                torch.cuda._sleep(1)
+            torch.cuda._sleep(cycles)
+            fn()
+
         try:
             rows = [(ms, n, k) for ms, n, k in profile_call(call)["rows"] if "ctc" in k]
         except RuntimeError as e:     # "the profiler recorded no device activity"
             rows, why = [], str(e)
         else:
-            why = "no wgmma kernel among them"
+            why = "no wgmma kernel among them" if not wgmma(rows) else f"no {absent(rows)}"
         print(f"kernel {name}: one call's launches (profile {attempt}): "
               + "; ".join(f"{k.split('(')[0][-70:]} x{n} {ms:.3f} ms" for ms, n, k in rows)
               + f" [{card}]")
         stray += [k for _, _, k in rows if not any(sp in k for sp in HOPPER_SPACES)]
-        if wgmma(rows):
+        present += [m for m in must_not if any(m in k for _, _, k in rows)]
+        if wgmma(rows) and not absent(rows):
             break
         print(f"kernel {name}: profile {attempt} of {PROFILE_TRIES} not accepted: {why}")
     if stray or not wgmma(rows):
         raise AssertionError(f"{name}: launches outside the Hopper pieces {stray}, or no "
                              f"wgmma kernel among {[k for _, _, k in rows]}")
+    if absent(rows) or present:
+        raise AssertionError(f"{name}: the profile lacks {absent(rows)} or holds {present}")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -3104,7 +3134,8 @@ def f32_bwd_check(torch, model, card: str) -> dict:
             out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
                              library_ms=library_ms)
             with torch.no_grad():
-                hopper_chain_check(name, lambda: kern(x, gg, **kept), card)
+                hopper_chain_check(name, lambda: kern(x, gg, **kept), card,
+                                   **(FUSED_TEMPORAL if name == "attn_packed_bwd_f32" else {}))
             del x, gg, got, want, kept
             torch.cuda.empty_cache()
 
@@ -3810,7 +3841,11 @@ def f32_train_check(torch, model, card: str) -> dict:
         out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
                          library_ms=library_ms)
         with torch.no_grad():
-            hopper_chain_check(name, lambda: kern(x, gg, **kept), card)
+            hopper_chain_check(name, lambda: kern(x, gg, **kept), card, **(
+                {"must": FUSED_TEMPORAL["must"] + ("wgrad_sum_kernel",),
+                 "must_not": FUSED_TEMPORAL["must_not"]} if name == "attn_packed_bwd_f32_full"
+                else {"must": ("wgrad_sum_kernel",)} if name == "attn_block_bwd_f32_full"
+                else {}))
         del x, gg, got, want, again, faulty, lib_grads, kept
         torch.cuda.empty_cache()
 
@@ -4086,12 +4121,141 @@ def f32_train_run(torch, model, card: str, text_len: int, words: int, seed: int,
     return step_counts, counts
 
 
+CLOSE_BAND = 1e-2   # the close-token stack's query / key weight gradients and dx (F10)
+LONG_TEMPORAL = (16, 101)   # R, n: the temporal chain above the fused pass's n <= 64
+
+
+def temporal_f32_check(torch, model, card: str) -> None:
+    """Phase 14's checks of the temporal fp32 backward's routes (rows 8f /
+    8F) and of the chunked block weight gradient (7F / 8F):
+    - F10, close tokens: layers 0 and 1 of the temporal stack (residual,
+      gains drawn by around_ones) over one volume's 576 sequences of 24
+      tokens 2% apart (adjacent CT slices lie that close), a cotangent on
+      each sequence's first token; each layer's query / key weight
+      gradients and the stack's dx from the full fp32 chain (its fused
+      pass, D = rowsum(P dP)), each propagating its own dx, within
+      CLOSE_BAND of the plain backward's (TF32 off); the chain with its lo
+      planes zeroed outside;
+    - above n = 64 (LONG_TEMPORAL: the core with statistics, then the
+      wgmma passes without a bias): dx alone and every gradient within
+      F32_BAND of the plain backward, the same bits on two calls, dx the
+      dx-only chain's; the one-pass control outside;
+    - the weight gradient of the B = 2 step's temporal block (27,648
+      tokens, D = 512, HD = 256) in its chunks (block_wgrad_partition)
+      against the same chain with one chunk (each tile over every token):
+      within F32_BAND, the same bits on two calls, both timed."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops import attn_block as ab
+    from ct_clip_ut_tpu_torch.ops.attn_packed import (attn_packed_bwd, attn_packed_bwd_f32,
+                                                      attn_packed_bwd_plain, attn_packed_plain)
+
+    vit = model.visual_transformer
+    d = vit.cfg.dim
+    t, h, w = token_grid_shape(vit.cfg, VOLUME)
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def layer(i):
+        a = vit.enc_temporal_transformer.layers[i][1]
+        inner = a.cfg.inner_dim
+        wkv = a.to_kv.weight.detach().float()
+        return [around_ones(torch, g, d), a.to_q.weight.detach().float(),
+                wkv[:inner].contiguous(), wkv[inner:].contiguous(),
+                a.to_out.weight.detach().float(), around_ones(torch, g, a.cfg.dim_head),
+                around_ones(torch, g, a.cfg.dim_head)]
+
+    scale = vit.enc_temporal_transformer.layers[0][1].cfg.scale
+    ws = [layer(0), layer(1)]
+    with torch.no_grad():
+        x0 = randn(h * w, 1, d) + 0.02 * randn(h * w, t, d)
+        cot = torch.zeros_like(x0)
+        cot[:, 0] = randn(h * w, d)
+        xs = [x0, attn_packed_plain(x0, *ws[0], scale, True)]
+
+        def stack(fn):
+            """[dWq, dWk of layer 1, of layer 0, dx], each layer's chain
+            propagating its own dx."""
+            dout, out = cot, []
+            for i in (1, 0):
+                grads = fn(xs[i], *ws[i], dout, scale, True)
+                out += [grads[2], grads[3]]
+                dout = grads[0]
+            return out + [dout]
+
+        want = stack(attn_packed_bwd_plain)
+        got = stack(attn_packed_bwd)
+        one = stack(lambda *a: attn_packed_bwd(*a, one_pass=True))
+    names = ("dWq layer 1", "dWk layer 1", "dWq layer 0", "dWk layer 0", "dx")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    one_errs = [rel_err(a, b) for a, b in zip(one, want)]
+    print(f"kernel attn_packed_bwd_f32_full: F10 close tokens (two temporal blocks, "
+          f"[{h * w}, {t}, {d}] tokens 2% apart, a cotangent on the first token) vs the plain "
+          f"backward, max_rel_err " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+          + f" (band {CLOSE_BAND}); one bf16 product each "
+          + ", ".join(f"{e:.3e}" for e in one_errs) + f" [{card}]")
+    if max(errs) > CLOSE_BAND or not max(one_errs) > CLOSE_BAND:
+        raise AssertionError(f"F10 close tokens: {errs}, the control {one_errs}")
+    del xs, got, want, one
+    torch.cuda.empty_cache()
+
+    # above the fused pass: the core with statistics and the wgmma passes
+    r, n = LONG_TEMPORAL
+    x, gg = randn(r, n, d), randn(r, n, d)
+    tm = ws[0]
+    with torch.no_grad():
+        dx = attn_packed_bwd_f32(x, *tm, gg, scale, True)
+        full = attn_packed_bwd(x, *tm, gg, scale, True)
+        want = attn_packed_bwd_plain(x, *tm, gg, scale, True)
+        same = (torch.equal(dx, attn_packed_bwd_f32(x, *tm, gg, scale, True))
+                and all(torch.equal(a, b) for a, b in zip(full, attn_packed_bwd(
+                    x, *tm, gg, scale, True))) and torch.equal(full[0], dx))
+        errs = [rel_err(a, b) for a, b in zip(full, want)]
+        one = [rel_err(a, b) for a, b in zip(attn_packed_bwd(x, *tm, gg, scale, True,
+                                                             one_pass=True), want)]
+    print(f"kernel attn_packed_bwd_f32: n = {n} > 64 ([{r}, {n}, {d}], the fp32 core and the "
+          f"wgmma passes without a bias), every gradient max_rel_err "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (band {F32_BAND}); two calls the same "
+          f"bits, dx the dx-only chain's: {same}; one bf16 product each max {max(one):.3e} "
+          f"[{card}]")
+    if max(errs) > F32_BAND or not same or not max(one) > F32_BAND:
+        raise AssertionError(f"the temporal chain at n = {n}: {errs}, same bits {same}, "
+                             f"control {one}")
+
+    # the weight gradient in chunks against one chunk
+    r = BATCH * h * w
+    chunk, chunks = ab.block_wgrad_partition(r * t, d, tm[1].shape[0])
+    x, gg = randn(r, t, d), randn(r, t, d)
+    split = ab.block_wgrad_partition
+    with torch.no_grad():
+        got = attn_packed_bwd(x, *tm, gg, scale, True)
+        same = all(torch.equal(a, b) for a, b in zip(got, attn_packed_bwd(x, *tm, gg, scale,
+                                                                          True)))
+        ms = cuda_ms(torch, lambda: attn_packed_bwd(x, *tm, gg, scale, True))
+        ab.block_wgrad_partition = lambda *a, **k: (0, 1)
+        try:
+            whole = attn_packed_bwd(x, *tm, gg, scale, True)
+            whole_ms = cuda_ms(torch, lambda: attn_packed_bwd(x, *tm, gg, scale, True))
+        finally:
+            ab.block_wgrad_partition = split
+    errs = [rel_err(got[i], whole[i]) for i in (2, 3, 4, 5)]
+    print(f"kernel attn_packed_bwd_f32_full: BlockWgradSplitPlan over {r * t} tokens in "
+          f"{chunks} chunks of {chunk} slices ({chunks} x 32 blocks) vs one chunk (32 blocks): "
+          f"dWq, dWk, dWv, dWo max_rel_err " + ", ".join(f"{e:.3e}" for e in errs)
+          + f"; two calls the same bits: {same}; the full chain {ms:.3f} ms chunked, "
+          f"{whole_ms:.3f} ms with one chunk [{card}]")
+    if max(errs) > F32_BAND or not same or chunks < 3:
+        raise AssertionError(f"the chunked weight gradient: {errs}, same bits {same}, "
+                             f"{chunks} chunks")
+
+
 def f32_train_phase(torch, card: str) -> tuple:
     """Phase 14: the fp32 train step at 120-token reports, at flagship width
     with peg_pallas=True, B = 2 (TrainConfig(compute_dtype="float32",
     text_max_length=120): BERT unfused under its n >= 128 gate, as in JAX;
-    the CT-ViT on its fp32 kernels both ways). First f32_train_check, then
-    f32_train_run: one step's gradients against plain=True and
+    the CT-ViT on its fp32 kernels both ways). First f32_train_check and
+    temporal_f32_check, then f32_train_run: one step's gradients against plain=True and
     CTClipTrainer.train() over 3 steps with the launches of each step
     (F32_TRAIN_STEP), 1f-4f, 5f in the evaluations, 16, and no bf16 kernel
     or dx-only chain. Returns (kernel record, launch counts of the train
@@ -4104,6 +4268,7 @@ def f32_train_phase(torch, card: str) -> tuple:
     cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
     model = init_ctclip(cfg, seed=0, device="cuda")
     record = f32_train_check(torch, model, card)
+    temporal_f32_check(torch, model, card)
     _, counts = f32_train_run(torch, model, card, EARLIER_TEXT_LEN, 40, 20, F32_TRAIN_STEP,
                               "train fp32")
     print(f"train fp32: phase 14 in {time.perf_counter() - t_phase:.1f} s [{card}]")

@@ -22,8 +22,10 @@ using ctc::tc::bf16;
 // w_s, wo_s, gs, qk, unit, norm, biasT, v, dO, o, mld, dq, dkv, dxn, dxd);
 // out dx [R*n, D] fp32. The train step's form also takes dgamma [D], dw_qkv
 // [3 HD, D], dwo [D, HD], dqs / dks [32], dbias [H, n, n] (fp32, written
-// whole) and the workspaces ln_part, q_part, k_part (tc::BlockGradsF32);
-// with dgamma null these are unused and the chain computes dx alone.
+// whole) and the workspaces ln_part, q_part, k_part, wg_part with
+// wg_chunk, the token slices a chunk of the weight gradient (0: none;
+// tc::BlockGradsF32); with dgamma null these are unused and the chain
+// computes dx alone.
 // flags 1: every lo plane zeroed (the control); 2: o and mld hold the
 // forward's o planes and row statistics (ctc_attn_block_f32 with its mld),
 // and the chain does not rerun the core.
@@ -35,11 +37,13 @@ extern "C" int ctc_attn_block_bwd_f32(const void* x, const void* gamma, const vo
                                       void* dO, void* o, void* mld, void* dq, void* dkv,
                                       void* dxn, void* dxd, void* dx, void* dgamma, void* dw_qkv,
                                       void* dwo, void* dqs, void* dks, void* dbias, void* ln_part,
-                                      void* q_part, void* k_part, int R, int n, int D, int H,
-                                      float scale, int residual, int flags, void* stream) {
-  const ctc::tc::BlockGradsF32 grads{(float*)dgamma, (float*)dw_qkv, (float*)dwo, (float*)dqs,
-                                     (float*)dks,    (float*)dbias,  (float*)ln_part,
-                                     (float*)q_part, (float*)k_part};
+                                      void* q_part, void* k_part, void* wg_part, int R, int n,
+                                      int D, int H, float scale, int residual, int wg_chunk,
+                                      int flags, void* stream) {
+  const ctc::tc::BlockGradsF32 grads{(float*)dgamma,  (float*)dw_qkv, (float*)dwo,
+                                     (float*)dqs,     (float*)dks,    (float*)dbias,
+                                     (float*)ln_part, (float*)q_part, (float*)k_part,
+                                     (float*)wg_part, wg_chunk};
   return ctc::tc::block_backward_f32(
       (const float*)x, (const float*)gamma, (const float*)wq, (const float*)wk, (const float*)wv,
       (const float*)wo, (const float*)qs, (const float*)ks, (const float*)bias, (const float*)g,

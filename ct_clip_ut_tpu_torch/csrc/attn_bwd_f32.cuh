@@ -14,20 +14,20 @@
 // product is three bf16 products of hi / lo planes (a_hi b_hi + a_lo b_hi +
 // a_hi b_lo, within ~2^-16 of fp32): the GEMMs as SplitPlan / SplitKNPlan on
 // the Hopper core (split_sm90.cuh), the attention passes on split operands
-// (the spatial block's on wgmma, attn_bwd_wg.cuh; the temporal block's on
-// mma.sync, below: attn_mma.cuh's split_scores for S, dP and their
-// transposes, P and dS split in registers against staged hi / lo planes for
-// P.V-shaped products), the weight gradients as one three-pass launch of
-// wgrad_sm90.cuh (BlockWgradSplitPlan) over the planes the dx chain writes.
+// (the spatial block's on wgmma, attn_bwd_wg.cuh; the temporal block's at n
+// <= 64 one fused mma.sync pass, attn_bwd_packed.cuh), the weight gradients
+// as one three-pass launch of wgrad_sm90.cuh (BlockWgradSplitPlan) over
+// the planes the dx chain writes, its tokens split into chunks.
 //
 // What bounds it on the H100: operations, three bf16 products for each
 // fp32 one. The function's products: the projections q, k, v, dO, dxn
 // (2 M D HD each), dx_direct (2 M D 2 HD) and the weight gradients dWq,
 // dWk | dWv, dWo (2 M D HD each, 4 in all), and per (sequence, head) S,
-// P.V (for D), dP, dS.K, dS^T.Q, P^T.dO (2 n^2 32 each). The passes take
-// two more n^2 products than that (the key pass's S^T and dP^T), the dbias
-// pass S and dP again, and the temporal block's statistics pass S twice.
-// Launches:
+// P.V (for D, or o in the temporal train form), dP, dS.K, dS^T.Q, P^T.dO
+// (2 n^2 32 each). The passes take two more n^2 products than that (the
+// key pass's S^T and dP^T), the dbias pass S and dP again, and the
+// statistics pass S twice. The temporal fused pass is bound by bytes (its
+// header). Launches:
 //
 //   split_kernel x 4      the planes of wq | wk | wv (stacked [3 HD, D]) and
 //                         wo
@@ -36,32 +36,34 @@
 //                         l2-normed and scaled as hi / lo planes, their unit
 //                         rows and norms in fp32, v as planes)
 //   gemm_kernel           dO = g Wo as planes (SplitKNPlan: Wo as stored)
+// the spatial block (with a bias), and the temporal block above n = 64:
 //   block_core_kernel     the fp32 core with STATS: o as planes and each
-//                         row's (m log2 e, 1 / l) (the temporal block also
-//                         D = rowsum(dO o) from the fp32 o); the spatial
-//                         block skips it when the forward kept both
-//                         (`saved`)
-// the spatial block (with a bias):
-//   transpose_kernel      the bias transposed per head
+//                         row's (m log2 e, 1 / l); the spatial block skips it
+//                         when the forward kept both (`saved`)
+//   transpose_kernel      (with a bias) the bias transposed per head
 //   bwd_dq_wg_kernel      per (sequence, 64-query tile, head), the key tiles
-//                         streamed: D in its prologue, P, dP = dO V^T, dS = P
-//                         (dP - D), dq^ = dS K, the scale and l2-norm
-//                         backward -> dq planes; in the train form also the
-//                         block's sum of u_q . dq^ per column (dq_scale)
+//                         streamed: D = rowsum(dO o) in its prologue, P, dP =
+//                         dO V^T, dS = P (dP - D), dq^ = dS K, the scale and
+//                         l2-norm backward -> dq planes; in the train form
+//                         also the block's sum of u_q . dq^ per column
+//                         (dq_scale)
 //   bwd_dkv_wg_kernel     per (sequence, 64-key tile, head), the query tiles
 //                         streamed with their (lse, D): S^T, dP^T = V dO^T,
 //                         dS^T, dV = P^T dO, dk^ = dS^T Q, the l2-norm
 //                         backward -> dk | dv planes (and the block's u_k .
 //                         dk^ sums)
-//   bwd_dbias_f32_kernel  (train form) per (64-query tile, 64-key chunk,
-//                         head): S and dP recomputed from the split planes
-//                         for every sequence in turn through a two-stage
-//                         cp.async ring, fp32 dS summed in registers over the
-//                         R sequences and written once
-// the temporal block (n = 24, no bias; a block over 16-row warps, the
-// sequence's planes staged whole):
-//   bwd_dq_f32_kernel     the query pass of the spatial block on mma.sync
-//   bwd_dkv_f32_kernel    the key pass, each query's (lse, D) staged
+//   bwd_dbias_f32_kernel  (train form, with a bias) per (64-query tile,
+//                         64-key chunk, head): S and dP recomputed from the
+//                         split planes for every sequence in turn through a
+//                         two-stage cp.async ring, fp32 dS summed in
+//                         registers over the R sequences and written once
+// the temporal block at n <= 64 (no bias):
+//   bwd_packed_f32_kernel one persistent block an SM over whole (sequence,
+//                         head) rows: S, dP, P, D = rowsum(P dP), dS, dq^,
+//                         (train form) o's planes, then dV and dk^; the
+//                         l2-norm backward -> dq and dk | dv planes (and each
+//                         item's u . dq^, u . dk^ sums); no core, nothing
+//                         kept from the forward
 // both:
 //   gemm_kernel x 2       dxn = dq Wq, dx_direct = [dk | dv] [Wk; Wv] (fp32;
 //                         SplitKNPlan over the stacked weight planes)
@@ -71,12 +73,16 @@
 //                         blocks' partial sums, in order
 //   wgrad_kernel          (train form) dWq = dq^T xn, dWk | dWv = [dk | dv]^T
 //                         x, dWo = g^T o: 32 tiles of 128 x 128 at D = 512,
-//                         HD = 256, each summing all R n tokens in order
-//                         over three passes of the planes
+//                         HD = 256, each tile's R n tokens split into
+//                         `wg_chunk`-slice chunks (128 blocks at 27,648
+//                         tokens), each chunk's fp32 partial tile written
+//                         whole; wgrad_sum_kernel adds the partials in
+//                         chunk order
 // Every sum over tokens runs in a fixed order without atomics: two calls
 // give the same bits.
 #pragma once
 
+#include "attn_bwd_packed.cuh"
 #include "attn_bwd_wg.cuh"
 #include "wgrad_sm90.cuh"
 
@@ -85,197 +91,9 @@ namespace tc {
 
 // Workspaces of the passes: qk [4][M][HD] (q_hi, q_lo, k_hi, k_lo), v and
 // dO [2][M][HD] (hi, lo), unit [2][M][HD] / norm [2][M][H] fp32 (q then
-// k), mld [R][H][n] float4 (m log2 e, 1 / l, D, 0; the spatial block's
-// query pass writes lse in place of the 0).
-
-// The temporal block's passes (no bias), on mma.sync.
-//
-// The query pass: one block per (sequence r, query tile of QT rows, head
-// h), K and V hi / lo staged (four planes); dq [2][M][HD]; qs_part (null in
-// the data-gradient form) [R * tiles * H][32], the block's sums of u_q dq^.
-template <int Dummy = 0>
-__global__ void __launch_bounds__(CORE_WARPS * 32, 1)
-bwd_dq_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-                  const bf16* __restrict__ dO, const float4* __restrict__ mld,
-                  const float* __restrict__ unit,
-                  const float* __restrict__ norm, const float* __restrict__ qs, float scale,
-                  bf16* __restrict__ dq, float* __restrict__ qs_part, int M, int n, int HD,
-                  int keep_lo) {
-  extern __shared__ __align__(128) char smem[];
-  const int r = blockIdx.x, h = blockIdx.z, H = gridDim.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.y * QT + (threadIdx.x >> 5) * 16;
-  const int n_pad = padded_keys(n);
-  const size_t plane = (size_t)M * HD;
-  const int64_t off = (int64_t)r * n * HD + h * DH;
-  const uint32_t sbase = sm90::smem_u32(smem), pbytes = n_pad * DH * 2;
-  {
-    const bf16* const src[4] = {qk + 2 * plane + off, qk + 3 * plane + off, v + off,
-                                v + plane + off};
-    stage_planes<4>(sbase, src, HD, n, n_pad);
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();
-  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (q0 < n) {
-    const int ra = q0 + g, rb = ra + 8;
-    const bool va = ra < n, vb = rb < n;
-    uint32_t qh[2][4], ql[2][4], dh[2][4], dl[2][4];
-    load_a(qh, qk + off, HD, q0, n, lane);
-    load_a(ql, qk + plane + off, HD, q0, n, lane);
-    load_a(dh, dO + off, HD, q0, n, lane);
-    load_a(dl, dO + plane + off, HD, q0, n, lane);
-    const float4* st = mld + ((int64_t)r * H + h) * n;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-    for (int kc = 0; kc < n_pad; kc += KC) {
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int kb = kc + 16 * ks + 8 * u, key = kb + 2 * t;
-          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, ds[4];
-          split_scores(s, qh, ql, sbase, sbase + pbytes, kb, lane);
-          split_scores(dp, dh, dl, sbase + 2 * pbytes, sbase + 3 * pbytes, kb, lane);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4& sr = i < 2 ? sa : sb;
-            const float p = key + (i & 1) < n ? exp2f(s[i] * LOG2E - sr.x) * sr.y : 0.f;
-            ds[i] = p * (dp[i] - sr.z);
-          }
-          split_frag(ds, keep_lo, ah[2 * u], ah[2 * u + 1], al[2 * u], al[2 * u + 1]);
-        }
-        col_products(acc, al, sbase, kc + 16 * ks, lane);
-        col_products(acc, ah, sbase + pbytes, kc + 16 * ks, lane);
-        col_products(acc, ah, sbase, kc + 16 * ks, lane);
-      }
-    }
-    const int64_t ma = (int64_t)r * n + (va ? ra : 0), mb = (int64_t)r * n + (vb ? rb : 0);
-    const int64_t col0 = h * DH;
-    float gain[8];
-    gain_cols(gain, qs, scale, t);
-    l2norm_bwd_planes(acc, unit + ma * HD + col0, unit + mb * HD + col0, norm[ma * H + h],
-                      norm[mb * H + h], va, vb, gain, dq + ma * HD + col0, dq + mb * HD + col0,
-                      (int64_t)plane, keep_lo, t, part);
-  }
-  if (qs_part != nullptr)
-    head_cols_partial(part, reinterpret_cast<float*>(smem), qs_part + block_row() * DH, lane);
-}
-
-// Shared memory of the fp32 key pass: four planes, then (lse, D) per query.
-__host__ __device__ __forceinline__ size_t dkv_f32_smem_bytes(int n) {
-  return core_smem_bytes(n, 4) + (size_t)padded_keys(n) * sizeof(float2);
-}
-
-// The key pass: one block per (sequence r, key tile of QT keys, head h), Q
-// and dO hi / lo staged; warp w takes keys tile + 16 w as the A operand of
-// S^T and dP^T. dkv [2][M][2 HD]: dk at columns h * 32 ..., dv at HD + h *
-// 32 ...; ks_part as the query pass's qs_part, the sums of u_k dk^.
-template <int Dummy = 0>
-__global__ void __launch_bounds__(CORE_WARPS * 32, 1)
-bwd_dkv_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-                   const bf16* __restrict__ dO, const float4* __restrict__ mld,
-                   const float* __restrict__ unit,
-                   const float* __restrict__ norm, const float* __restrict__ ks,
-                   bf16* __restrict__ dkv, float* __restrict__ ks_part, int M, int n, int HD,
-                   int keep_lo) {
-  extern __shared__ __align__(128) char smem[];
-  const int r = blockIdx.x, h = blockIdx.z, H = gridDim.z;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.y * QT + (threadIdx.x >> 5) * 16;
-  const int n_pad = padded_keys(n);
-  const size_t plane = (size_t)M * HD;
-  const int64_t off = (int64_t)r * n * HD + h * DH;
-  const uint32_t sbase = sm90::smem_u32(smem), pbytes = n_pad * DH * 2;
-  float2* lse_d = reinterpret_cast<float2*>(smem + 4 * pbytes);
-  {
-    const bf16* const src[4] = {qk + off, qk + plane + off, dO + off, dO + plane + off};
-    stage_planes<4>(sbase, src, HD, n, n_pad);
-  }
-  const float4* st = mld + ((int64_t)r * H + h) * n;
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
-    const float4 s4 = i < n ? st[i] : make_float4(0.f, 1.f, 0.f, 0.f);
-    lse_d[i] = make_float2(i < n ? s4.x - log2f(s4.y) : CUDART_INF_F, s4.z);
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();
-  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (k0 < n) {
-    const int ka = k0 + g, kb = ka + 8;
-    const bool va = ka < n, vb = kb < n;
-    uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
-    load_a(kh, qk + 2 * plane + off, HD, k0, n, lane);
-    load_a(kl, qk + 3 * plane + off, HD, k0, n, lane);
-    load_a(vh, v + off, HD, k0, n, lane);
-    load_a(vl, v + plane + off, HD, k0, n, lane);
-    float dv[4][4], dk[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dv[i][e] = dk[i][e] = 0.f;
-    for (int qc = 0; qc < n_pad; qc += KC) {
-#pragma unroll
-      for (int kt = 0; kt < KC / 16; ++kt) {
-        uint32_t ph[4], pl[4], sh[4], sl[4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int qb = qc + 16 * kt + 8 * u, qi = qb + 2 * t;
-          float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, p[4], ds[4];
-          split_scores(s, kh, kl, sbase, sbase + pbytes, qb, lane);
-          split_scores(dp, vh, vl, sbase + 2 * pbytes, sbase + 3 * pbytes, qb, lane);
-          const float4 sq = *reinterpret_cast<const float4*>(lse_d + qi);   // queries qi, qi + 1
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            // past n, lse is +inf and p 0
-            p[i] = exp2f(s[i] * LOG2E - ((i & 1) ? sq.z : sq.x));
-            ds[i] = p[i] * (dp[i] - ((i & 1) ? sq.w : sq.y));
-          }
-          split_frag(p, keep_lo, ph[2 * u], ph[2 * u + 1], pl[2 * u], pl[2 * u + 1]);
-          split_frag(ds, keep_lo, sh[2 * u], sh[2 * u + 1], sl[2 * u], sl[2 * u + 1]);
-        }
-        const int q16 = qc + 16 * kt;
-        col_products(dv, pl, sbase + 2 * pbytes, q16, lane);
-        col_products(dv, ph, sbase + 3 * pbytes, q16, lane);
-        col_products(dv, ph, sbase + 2 * pbytes, q16, lane);
-        col_products(dk, sl, sbase, q16, lane);
-        col_products(dk, sh, sbase + pbytes, q16, lane);
-        col_products(dk, sh, sbase, q16, lane);
-      }
-    }
-    const int64_t ma = (int64_t)r * n + (va ? ka : 0), mb = (int64_t)r * n + (vb ? kb : 0);
-    const int64_t col0 = h * DH, HD2 = 2 * (int64_t)HD, lo_off = 2 * (int64_t)plane;
-    float gain[8];
-    gain_cols(gain, ks, 1.f, t);
-    const float* uk = unit + plane;
-    const float* nk = norm + (size_t)M * H;
-    l2norm_bwd_planes(dk, uk + ma * HD + col0, uk + mb * HD + col0, nk[ma * H + h], nk[mb * H + h],
-                      va, vb, gain, dkv + ma * HD2 + col0, dkv + mb * HD2 + col0, lo_off, keep_lo,
-                      t, part);
-#pragma unroll
-    for (int dt = 0; dt < 4; ++dt) {
-      const int64_t col = HD + col0 + 8 * dt + 2 * t;
-      __nv_bfloat162 h2, l2;
-      if (va) {
-        sm90::split2(dv[dt][0], dv[dt][1], keep_lo, h2, l2);
-        *reinterpret_cast<__nv_bfloat162*>(dkv + ma * HD2 + col) = h2;
-        *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + ma * HD2 + col) = l2;
-      }
-      if (vb) {
-        sm90::split2(dv[dt][2], dv[dt][3], keep_lo, h2, l2);
-        *reinterpret_cast<__nv_bfloat162*>(dkv + mb * HD2 + col) = h2;
-        *reinterpret_cast<__nv_bfloat162*>(dkv + lo_off + mb * HD2 + col) = l2;
-      }
-    }
-  }
-  if (ks_part != nullptr)
-    head_cols_partial(part, reinterpret_cast<float*>(smem), ks_part + block_row() * DH, lane);
-}
+// k), mld [R][H][n] float4 (m log2 e, 1 / l, D, lse: the core writes the
+// first two, the wgmma query pass the others; the fused temporal pass
+// takes none).
 
 // a stage of the fp32 dbias pass: k_hi, k_lo, v_hi, v_lo of the key chunk;
 // q_hi, q_lo, dO_hi, dO_lo of the query tile; the tile's (m log2 e, 1 / l,
@@ -372,26 +190,6 @@ bwd_dbias_f32_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
   }
 }
 
-// The mma.sync passes over R sequences of n tokens without a bias (the
-// temporal block), after the core with STATS wrote mld (m log2 e, 1 / l, D).
-template <int Dummy = 0>
-int launch_mma_passes(const bf16* qk, const bf16* v, const bf16* dO, const float4* mld,
-                      const float* unit, const float* norm, const float* qs, const float* ks,
-                      float scale, bf16* dq, bf16* dkv, float* q_part, float* k_part, int R, int n,
-                      int H, int keep_lo, cudaStream_t st) {
-  const int M = R * n, HD = H * DH;
-  const int smem = (int)core_smem_bytes(n, 4), smem_kv = (int)dkv_f32_smem_bytes(n);
-  cudaFuncSetAttribute(bwd_dq_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(bwd_dkv_f32_kernel<>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_kv);
-  dim3 grid(R, (n + QT - 1) / QT, H);
-  bwd_dq_f32_kernel<><<<grid, core_threads(n), smem, st>>>(qk, v, dO, mld, unit, norm, qs, scale,
-                                                          dq, q_part, M, n, HD, keep_lo);
-  bwd_dkv_f32_kernel<><<<grid, core_threads(n), smem_kv, st>>>(qk, v, dO, mld, unit, norm, ks,
-                                                               dkv, k_part, M, n, HD, keep_lo);
-  return (int)cudaGetLastError();
-}
-
 // The weight gradients of the block in one three-pass launch. Maps (hi, lo
 // each): 0 / 1 dq [M, HD], 2 / 3 xn [M, D], 4 / 5 dk | dv [M, 2 HD], 6 / 7 x
 // [M, D], 8 / 9 g [M, D], 10 / 11 o [M, HD]. Tiles: dWq [HD, D] = dq^T xn,
@@ -414,21 +212,27 @@ struct BlockWgradSplitPlan {
   }
 };
 
-// Largest sequence length the fp32 passes take: the key pass's four staged
-// planes and each query's (lse, D) in one block's shared memory.
-inline int bwd_f32_max_n() {
-  int n = KC;
-  while (dkv_f32_smem_bytes(n + KC) <= 227 * 1024) n += KC;
-  return n;
-}
+// Largest sequence length the fp32 backward takes: the fp32 core's (its
+// four staged planes), which the spatial chain and the temporal one above
+// PK_MAX_N run for the row statistics.
+inline int bwd_f32_max_n() { return core_max_keys(4); }
 
 // The parameter gradients of the train step's form, all fp32 and written
 // whole: dgamma [D], dw_qkv [3 HD][D] (dWq, dWk, dWv), dwo [D][HD], dqs / dks
 // [32], dbias [H][n][n] (null without a bias); workspaces ln_part
-// [ln_parts(M)][2 D], q_part / k_part [R * ceil(n / QT) * H][32].
+// [ln_parts(M)][2 D], q_part / k_part [packed_parts(R, n, H, bias)][32],
+// wg_part [chunks][32 tiles at D = 512][64][256] for the weight gradient's
+// partial tiles (null and wg_chunk 0: each tile sums all tokens itself).
 struct BlockGradsF32 {
-  float *dgamma, *dw_qkv, *dwo, *dqs, *dks, *dbias, *ln_part, *q_part, *k_part;
+  float *dgamma, *dw_qkv, *dwo, *dqs, *dks, *dbias, *ln_part, *q_part, *k_part, *wg_part;
+  int wg_chunk;
 };
+
+// Rows of q_part / k_part: one a (sequence, head) of the fused temporal
+// pass, one a (sequence, 64-row tile, head) of the wgmma passes.
+inline int packed_parts(int R, int n, int H, bool bias) {
+  return bias || n > PK_MAX_N ? R * ((n + WG_ROWS - 1) / WG_ROWS) * H : R * H;
+}
 
 // The chain. x [R*n, D] fp32 (D a multiple of 8); gamma [D], qs / ks [32],
 // wq / wk / wv [HD, D], wo [D, HD], g [R*n, D] fp32; bias [H][n][n] fp32 or
@@ -437,7 +241,8 @@ struct BlockGradsF32 {
 // [2][R*n][HD] and dkv [2][R*n][2 HD] bf16; unit [2][R*n][HD], norm
 // [2][R*n][H], biasT [H][n][n] (null without a bias), dxn / dxd [R*n][D]
 // fp32; mld [R*n*H] float4; out dx [R*n, D] fp32; grads null (dx alone) or
-// the train step's outputs. HD = H * 32, a multiple of 128; every pointer
+// the train step's outputs. Without a bias at n <= PK_MAX_N, mld is unused
+// and o is written only in the train form (both may be null otherwise). HD = H * 32, a multiple of 128; every pointer
 // 16-B aligned. keep_lo 0 zeroes every lo plane (the one-pass control).
 template <int Dummy = 0>
 int block_backward_f32(const float* x, const float* gamma, const float* wq, const float* wk,
@@ -486,24 +291,24 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   if (err) return err;
   float* q_part = grads != nullptr ? grads->q_part : nullptr;
   float* k_part = grads != nullptr ? grads->k_part : nullptr;
-  int parts;
-  if (bias != nullptr) {
-    // the spatial block: o's planes and (m log2 e, 1 / l) from the forward
-    // (saved) or from the core rerun here; the passes on wgmma
+  const int parts = packed_parts(R, n, H, bias != nullptr);
+  if (bias == nullptr && n <= PK_MAX_N) {
+    // the temporal block: one fused pass, o's planes in the train form
+    const PackedOut out{unit, norm, qs, ks, scale, dq, dkv, grads != nullptr ? o : nullptr,
+                        q_part, k_part, keep_lo};
+    err = launch_packed_pass(qk, v, dO, out, R, n, H, st);
+  } else {
+    // o's planes and (m log2 e, 1 / l) from the forward (saved, with a
+    // bias) or from the core rerun here; the passes on wgmma
     if (!saved)
       err = launch_block_core<true, true>(qk, v, bias, o, R, n, H, mld, nullptr, st, keep_lo);
-    if (err) return err;
-    dim3 gt((n + 31) / 32, (n + 31) / 32, H);
-    transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
-    err = launch_wg_passes(qk, v, dO, o, bias, biasT, mld, unit, norm, qs, ks, scale, dq, dkv,
-                           q_part, k_part, R, n, H, keep_lo, st);
-    parts = R * ((n + WG_ROWS - 1) / WG_ROWS) * H;
-  } else {
-    err = launch_block_core<true, true>(qk, v, bias, o, R, n, H, mld, dO, st, keep_lo);
+    if (!err && bias != nullptr) {
+      dim3 gt((n + 31) / 32, (n + 31) / 32, H);
+      transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
+    }
     if (!err)
-      err = launch_mma_passes(qk, v, dO, mld, unit, norm, qs, ks, scale, dq, dkv, q_part, k_part,
-                              R, n, H, keep_lo, st);
-    parts = R * ((n + QT - 1) / QT) * H;
+      err = launch_wg_passes(qk, v, dO, o, bias, biasT, mld, unit, norm, qs, ks, scale, dq, dkv,
+                             q_part, k_part, R, n, H, keep_lo, st);
   }
   if (err) return err;
   if (grads != nullptr && bias != nullptr) {
@@ -531,7 +336,8 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
   const int d_tiles = (D + BN - 1) / BN, h_tiles = HD / BN;
   return launch_wgrad_sm90(wg, BlockWgradSplitPlan{HD, D, d_tiles, h_tiles},
                            WgradStoreEpi{{grads->dw_qkv, grads->dwo}, {D, HD}, {D, HD}},
-                           3 * d_tiles * h_tiles + d_tiles * h_tiles, M, st);
+                           3 * d_tiles * h_tiles + d_tiles * h_tiles, M, st, grads->wg_chunk,
+                           grads->wg_part);
 }
 
 }  // namespace tc

@@ -1,7 +1,8 @@
 // The spatial block's fp32 backward passes on wgmma (sm_90a): the query
 // pass (dq) and the key pass (dk, dv) of tc::block_backward_f32 with a bias
-// (rows 7f and 7F; the temporal block, n = 24, keeps attn_bwd_f32.cuh's
-// mma.sync passes).
+// (rows 7f and 7F), and without one (BIAS 1 with a null bias) the temporal
+// block's above n = 64 (at n <= 64 it takes attn_bwd_packed.cuh's fused
+// pass).
 //
 // Per (sequence, head) the n^2 products are S = Q K^T, dP = dO V^T, dq^ =
 // dS K in the query pass and S^T = K Q^T, dP^T = V dO^T, dV = P^T dO, dk^ =
@@ -104,33 +105,50 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
       : "memory");
 }
 
-// ---- the passes' shared pieces (also the mma.sync passes' of attn_bwd_f32.cuh) ----
+// ---- the passes' shared pieces (also the fused temporal pass's, attn_bwd_packed.cuh) ----
+
+// What the scale and l2-norm backward reads of rows a, b: this thread's
+// columns 8 dt + 2 t + e of their fp32 unit rows and their norms (zeros
+// for a row past the sequence). The fused temporal pass loads them before
+// its products, so the loads are in flight while the tensor cores run.
+struct UnitRows {
+  float a[8], b[8], norm_a, norm_b;
+};
+
+__device__ __forceinline__ void load_unit_rows(UnitRows& u, const float* u_a, const float* u_b,
+                                               const float* n_a, const float* n_b, bool va,
+                                               bool vb, int t) {
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    const int col = 8 * dt + 2 * t;
+    const float2 x = va ? *reinterpret_cast<const float2*>(u_a + col) : make_float2(0.f, 0.f);
+    const float2 y = vb ? *reinterpret_cast<const float2*>(u_b + col) : make_float2(0.f, 0.f);
+    u.a[2 * dt] = x.x;
+    u.a[2 * dt + 1] = x.y;
+    u.b[2 * dt] = y.x;
+    u.b[2 * dt + 1] = y.y;
+  }
+  u.norm_a = *n_a;
+  u.norm_b = *n_b;
+}
 
 // The scale and l2-norm backward of rows a, b of a 16 x 32 gradient of the
 // scaled unit rows (the mma D layout, as attn_bwd.cuh's l2norm_bwd): du =
 // acc * gain, out = (du - u (u . du)) / norm, written as hi / lo planes at
 // hi_a / hi_b and lo_off further on; part[2 dt + e] += u acc, the gain's
 // gradient before its factor (this thread's columns 8 dt + 2 t + e).
-__device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], const float* u_a,
-                                                  const float* u_b, float norm_a, float norm_b,
-                                                  bool va, bool vb, const float (&gain)[8],
-                                                  bf16* hi_a, bf16* hi_b, int64_t lo_off,
-                                                  int keep_lo, int t, float (&part)[8]) {
-  float ua[8], ub[8], dot_a = 0.f, dot_b = 0.f;
+__device__ __forceinline__ void l2norm_bwd_rows(const float (&acc)[4][4], const UnitRows& u,
+                                                bool va, bool vb, const float (&gain)[8],
+                                                bf16* hi_a, bf16* hi_b, int64_t lo_off,
+                                                int keep_lo, int t, float (&part)[8]) {
+  float dot_a = 0.f, dot_b = 0.f;
 #pragma unroll
   for (int dt = 0; dt < 4; ++dt) {
-    const int col = 8 * dt + 2 * t;
-    const float2 x = va ? *reinterpret_cast<const float2*>(u_a + col) : make_float2(0.f, 0.f);
-    const float2 y = vb ? *reinterpret_cast<const float2*>(u_b + col) : make_float2(0.f, 0.f);
-    ua[2 * dt] = x.x;
-    ua[2 * dt + 1] = x.y;
-    ub[2 * dt] = y.x;
-    ub[2 * dt + 1] = y.y;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      dot_a += ua[2 * dt + e] * (acc[dt][e] * gain[2 * dt + e]);
-      dot_b += ub[2 * dt + e] * (acc[dt][2 + e] * gain[2 * dt + e]);
-      part[2 * dt + e] += ua[2 * dt + e] * acc[dt][e] + ub[2 * dt + e] * acc[dt][2 + e];
+      dot_a += u.a[2 * dt + e] * (acc[dt][e] * gain[2 * dt + e]);
+      dot_b += u.b[2 * dt + e] * (acc[dt][2 + e] * gain[2 * dt + e]);
+      part[2 * dt + e] += u.a[2 * dt + e] * acc[dt][e] + u.b[2 * dt + e] * acc[dt][2 + e];
     }
   }
   dot_a += __shfl_xor_sync(0xffffffffu, dot_a, 1);
@@ -142,20 +160,33 @@ __device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], cons
     const int col = 8 * dt + 2 * t;
     __nv_bfloat162 h2, l2;
     if (va) {
-      sm90::split2((acc[dt][0] * gain[2 * dt] - ua[2 * dt] * dot_a) / norm_a,
-                   (acc[dt][1] * gain[2 * dt + 1] - ua[2 * dt + 1] * dot_a) / norm_a, keep_lo, h2,
-                   l2);
+      sm90::split2((acc[dt][0] * gain[2 * dt] - u.a[2 * dt] * dot_a) / u.norm_a,
+                   (acc[dt][1] * gain[2 * dt + 1] - u.a[2 * dt + 1] * dot_a) / u.norm_a, keep_lo,
+                   h2, l2);
       *reinterpret_cast<__nv_bfloat162*>(hi_a + col) = h2;
       *reinterpret_cast<__nv_bfloat162*>(hi_a + lo_off + col) = l2;
     }
     if (vb) {
-      sm90::split2((acc[dt][2] * gain[2 * dt] - ub[2 * dt] * dot_b) / norm_b,
-                   (acc[dt][3] * gain[2 * dt + 1] - ub[2 * dt + 1] * dot_b) / norm_b, keep_lo, h2,
-                   l2);
+      sm90::split2((acc[dt][2] * gain[2 * dt] - u.b[2 * dt] * dot_b) / u.norm_b,
+                   (acc[dt][3] * gain[2 * dt + 1] - u.b[2 * dt + 1] * dot_b) / u.norm_b, keep_lo,
+                   h2, l2);
       *reinterpret_cast<__nv_bfloat162*>(hi_b + col) = h2;
       *reinterpret_cast<__nv_bfloat162*>(hi_b + lo_off + col) = l2;
     }
   }
+}
+
+// load_unit_rows, then l2norm_bwd_rows (rows a, b of the unit rows at u_a /
+// u_b, norms norm_a / norm_b)
+__device__ __forceinline__ void l2norm_bwd_planes(const float (&acc)[4][4], const float* u_a,
+                                                  const float* u_b, const float* norm_a,
+                                                  const float* norm_b, bool va, bool vb,
+                                                  const float (&gain)[8], bf16* hi_a, bf16* hi_b,
+                                                  int64_t lo_off, int keep_lo, int t,
+                                                  float (&part)[8]) {
+  UnitRows u;
+  load_unit_rows(u, u_a, u_b, norm_a, norm_b, va, vb, t);
+  l2norm_bwd_rows(acc, u, va, vb, gain, hi_a, hi_b, lo_off, keep_lo, t, part);
 }
 
 // this thread's 8 columns 8 dt + 2 t + e of a [32] vector, times mul
@@ -295,7 +326,8 @@ constexpr int MAP_BIAS = 4;
 // `row` + 8 hf of the block's rows, column 8 jj + 2 t + e of the tile. BIAS
 // 2: from the stage's two TMA boxes (16-B chunk c of row r at chunk c ^ (r %
 // 8)); 1: from global memory (any n), rows a / b of bias_a / bias_b, zeros
-// past n.
+// past n, and zeros where bias_a is null (no bias: a no-bias variant of its
+// own had ptxas serialize its wgmmas, C7520).
 template <int BIAS>
 __device__ __forceinline__ void tile_bias(float (&b)[32], const char* box, const float* bias_a,
                                           const float* bias_b, bool va, bool vb, int col0, int n,
@@ -315,7 +347,8 @@ __device__ __forceinline__ void tile_bias(float (&b)[32], const char* box, const
       }
     } else {
       float q[4];
-      bias_pair<1>(q, bias_a, bias_b, va, vb, col0 + 8 * jj + 2 * t, n);
+      const bool has = bias_a != nullptr;
+      bias_pair<1>(q, bias_a, bias_b, va && has, vb && has, col0 + 8 * jj + 2 * t, n);
 #pragma unroll
       for (int i = 0; i < 4; ++i) b[4 * jj + i] = q[i];
     }
@@ -413,8 +446,9 @@ bwd_dq_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restrict
       if (vb) st[rb] = make_float4(sb.x, sb.y, sb.z, sb.x - log2f(sb.y));
     }
   }
-  const float* bias_a = BIAS == 1 ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
-  const float* bias_b = BIAS == 1 ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
+  const bool read = BIAS == 1 && bias != nullptr;   // the bias from global memory
+  const float* bias_a = read ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
+  const float* bias_b = read ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
   float acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
@@ -477,8 +511,8 @@ bwd_dq_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restrict
     const int64_t col0 = h * DH;
     float gain[8];
     gain_cols(gain, qs, scale, t);
-    l2norm_bwd_planes(a4, unit + ma * HD + col0, unit + mb * HD + col0, norm[ma * H + h],
-                      norm[mb * H + h], va, vb, gain, dq + ma * HD + col0, dq + mb * HD + col0,
+    l2norm_bwd_planes(a4, unit + ma * HD + col0, unit + mb * HD + col0, norm + ma * H + h,
+                      norm + mb * H + h, va, vb, gain, dq + ma * HD + col0, dq + mb * HD + col0,
                       (int64_t)plane, keep_lo, t, part);
   }
   if (qs_part != nullptr)
@@ -533,8 +567,9 @@ bwd_dkv_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restric
   load_a(kl, qk + 3 * plane + off, HD, k0, n, lane);
   load_a(vh, v + off, HD, k0, n, lane);
   load_a(vl, v + plane + off, HD, k0, n, lane);
-  const float* bias_a = BIAS == 1 ? biasT + ((int64_t)h * n + (va ? ka : 0)) * n : nullptr;
-  const float* bias_b = BIAS == 1 ? biasT + ((int64_t)h * n + (vb ? kb : 0)) * n : nullptr;
+  const bool read = BIAS == 1 && biasT != nullptr;  // the bias from global memory
+  const float* bias_a = read ? biasT + ((int64_t)h * n + (va ? ka : 0)) * n : nullptr;
+  const float* bias_b = read ? biasT + ((int64_t)h * n + (vb ? kb : 0)) * n : nullptr;
   float dk[16], dv[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
@@ -610,8 +645,8 @@ bwd_dkv_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restric
     gain_cols(gain, ks, 1.f, t);
     const float* uk = unit + plane;
     const float* nk = norm + (size_t)M * H;
-    l2norm_bwd_planes(a4, uk + ma * HD + col0, uk + mb * HD + col0, nk[ma * H + h],
-                      nk[mb * H + h], va, vb, gain, dkv + ma * HD2 + col0, dkv + mb * HD2 + col0,
+    l2norm_bwd_planes(a4, uk + ma * HD + col0, uk + mb * HD + col0, nk + ma * H + h,
+                      nk + mb * H + h, va, vb, gain, dkv + ma * HD2 + col0, dkv + mb * HD2 + col0,
                       lo_off, keep_lo, t, part);
 #pragma unroll
     for (int dt = 0; dt < 4; ++dt) {
@@ -635,14 +670,15 @@ bwd_dkv_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restric
 }
 
 // The map of a [rows, cols] bf16 plane (row stride ld) in boxes of 32
-// columns x 64 rows with the 64-B swizzle; zeros outside. Returns 0 or an
-// sm90 ERR_ code.
-inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld) {
+// columns x box_rows rows with the 64-B swizzle; zeros outside. Returns 0
+// or an sm90 ERR_ code.
+inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
+                    int box_rows = WG_TILE) {
   sm90::EncodeTiled fn = sm90::encode_tiled();
   if (fn == nullptr) return sm90::ERR_NO_ENCODER;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)DH, (cuuint32_t)WG_TILE};
+  const cuuint32_t box[2] = {(cuuint32_t)DH, (cuuint32_t)box_rows};
   const cuuint32_t estrides[2] = {1, 1};
   CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
                     strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -652,8 +688,9 @@ inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64
 }
 
 // Launch both passes over R sequences of n tokens, H heads: qk [4][M][HD],
-// v, dO and o [2][M][HD] (hi, lo), bias and biasT [H][n][n] fp32, mld
-// [R][H][n] float4 with (m log2 e, 1 / l) written;
+// v, dO and o [2][M][HD] (hi, lo), bias and biasT [H][n][n] fp32 (both null:
+// no bias, read as zeros by BIAS 1), mld [R][H][n] float4 with (m log2 e, 1 /
+// l) written;
 // out dq [2][M][HD], dkv [2][M][2 HD]; q_part / k_part [R * ceil(n / 64) *
 // H][32] or null.
 template <int Dummy = 0>
@@ -669,15 +706,15 @@ int launch_wg_passes(const bf16* qk, const bf16* v, const bf16* dO, const bf16* 
   const bf16* const qd_src[4] = {qk, qk + plane, dO, dO + plane};
   // the bias tiles through TMA where its rows are 16-B aligned, else read
   // from global memory
-  const bool staged = n % 4 == 0;
+  const int kind = bias != nullptr && n % 4 == 0 ? 2 : 1;
   int err = 0;
   for (int p = 0; p < 4 && !err; ++p) err = map_sw64(&kv.m[p], kv_src[p], M, HD, HD);
   for (int p = 0; p < 4 && !err; ++p) err = map_sw64(&qd.m[p], qd_src[p], M, HD, HD);
-  if (!err && staged) err = sm90::make_map(&kv.m[MAP_BIAS], bias, H * n, n, n, WG_ROWS, 4);
-  if (!err && staged) err = sm90::make_map(&qd.m[MAP_BIAS], biasT, H * n, n, n, WG_ROWS, 4);
+  if (!err && kind == 2) err = sm90::make_map(&kv.m[MAP_BIAS], bias, H * n, n, n, WG_ROWS, 4);
+  if (!err && kind == 2) err = sm90::make_map(&qd.m[MAP_BIAS], biasT, H * n, n, n, WG_ROWS, 4);
   if (err) return err;
-  auto dq_pass = staged ? bwd_dq_wg_kernel<2> : bwd_dq_wg_kernel<1>;
-  auto dkv_pass = staged ? bwd_dkv_wg_kernel<2> : bwd_dkv_wg_kernel<1>;
+  auto dq_pass = kind == 2 ? bwd_dq_wg_kernel<2> : bwd_dq_wg_kernel<1>;
+  auto dkv_pass = kind == 2 ? bwd_dkv_wg_kernel<2> : bwd_dkv_wg_kernel<1>;
   cudaFuncSetAttribute(dq_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PASS_SMEM);
   cudaFuncSetAttribute(dkv_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PASS_SMEM);
   dim3 grid(R, (n + WG_ROWS - 1) / WG_ROWS, H);

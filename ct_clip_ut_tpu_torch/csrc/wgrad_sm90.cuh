@@ -27,7 +27,12 @@
 // shared memory every WG_FLUSH token slices and starts it again from zero;
 // the same gradient then read 1.5e-5, the split products' own error. (The
 // bf16 plans' bands, 1.5e-2, do not see the drift; they keep one
-// accumulator.)
+// accumulator.) A plan with few tiles (BlockWgradSplitPlan's 32 at D = 512
+// on 132 SMs) can split each tile's tokens into chunks of `chunk` slices:
+// block c * tiles + t sums chunk c of tile t (flushing every WG_FLUSH of its
+// slices) and writes its fp32 partial tile whole; wgrad_sum_kernel then adds
+// each tile's partials in chunk order and stores them through the
+// epilogue. No atomics either way: two calls give the same bits.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -81,17 +86,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(1));
 }
 
+// part [chunks * tiles][64][256]: a consumer thread's 64 sums of block b at
+// part[(b * 64 + i) * 256 + threadIdx.x], coalesced
 template <class Plan, class Epi, class MapsT>
 __global__ void __launch_bounds__(THREADS, 1)
-wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi, int tokens) {
+wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi, int tokens,
+             int tiles, int chunk, float* __restrict__ part) {
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
   char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~static_cast<uintptr_t>(1023));
   constexpr bool SPLIT = Passes<Plan>::value > 1;
   constexpr int NS = SPLIT ? WG_SPLIT_STAGES : WG_STAGES;
-  const WgradTile tile = plan.tile(blockIdx.x);
-  const int passes_k = (tokens + BK - 1) / BK;           // token slices of one pass
+  const WgradTile tile = plan.tile(blockIdx.x % tiles);
+  const int slices = (tokens + BK - 1) / BK;             // token slices of one pass
+  // this block's slices [slice0, slice0 + passes_k) of each pass
+  const int slice0 = chunk > 0 ? (blockIdx.x / tiles) * chunk : 0;
+  const int passes_k = chunk > 0 ? min(chunk, slices - slice0) : slices;
   const int nk = Passes<Plan>::value * passes_k;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -107,7 +118,8 @@ wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (lane == 0) {
       for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % NS, pass = kt / passes_k, k0 = (kt - pass * passes_k) * BK;
+        const int s = kt % NS, pass = kt / passes_k;
+        const int k0 = (slice0 + kt - pass * passes_k) * BK;
         const CUtensorMap* ma = &maps.m[tile.a + (pass == 1)];
         const CUtensorMap* mb = &maps.m[tile.b + (pass == 2)];
         mbar_wait(&empty[s], ((kt / NS) & 1) ^ 1);
@@ -162,19 +174,60 @@ wgrad_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi,
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = sums[i * CONSUMER_WARPS * 32];
     }
-    epi(acc, tile, wg * 64 + (warp & 3) * 16, lane);
+    if (part != nullptr) {
+      float* mine = part + (int64_t)blockIdx.x * 64 * CONSUMER_WARPS * 32 + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mine[i * CONSUMER_WARPS * 32] = acc[i];
+    } else {
+      epi(acc, tile, wg * 64 + (warp & 3) * 16, lane);
+    }
   }
 }
 
-// Launch wgrad_kernel over `tiles` tiles of the plan; returns the launch's error.
+// The second launch of a chunked weight gradient: block t adds tile t's
+// partials in chunk order, each thread its 64 sums as the consumer thread
+// of the same index held them, and stores them through the epilogue.
+template <class Plan, class Epi>
+__global__ void __launch_bounds__(CONSUMER_WARPS * 32)
+wgrad_sum_kernel(const Plan plan, const Epi epi, const float* __restrict__ part, int tiles,
+                 int chunks) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const float* p = part + (int64_t)(c * tiles + blockIdx.x) * 64 * CONSUMER_WARPS * 32 +
+                     threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += p[i * CONSUMER_WARPS * 32];
+  }
+  epi(acc, plan.tile(blockIdx.x), (warp >> 2) * 64 + (warp & 3) * 16, lane);
+}
+
+// Launch wgrad_kernel over `tiles` tiles of the plan; returns the launch's
+// error. chunk > 0 (with part: [ceil(slices / chunk) * tiles][64][256]
+// fp32) splits each tile's token slices into chunks of `chunk`, then adds
+// the partials (wgrad_sum_kernel).
 template <class Plan, class Epi, class MapsT>
 int launch_wgrad_sm90(const MapsT& maps, const Plan& plan, const Epi& epi, int tiles, int tokens,
-                      cudaStream_t st) {
+                      cudaStream_t st, int chunk = 0, float* part = nullptr) {
   auto kern = wgrad_kernel<Plan, Epi, MapsT>;
   const int smem = Passes<Plan>::value > 1 ? WG_SPLIT_SMEM : WG_SMEM;
+  const int slices = (tokens + BK - 1) / BK;
+  const int chunks = chunk > 0 && part != nullptr ? (slices + chunk - 1) / chunk : 1;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kern<<<tiles, THREADS, smem, st>>>(maps, plan, epi, tokens);
-  return (int)cudaGetLastError();
+  if (chunks == 1) {
+    kern<<<tiles, THREADS, smem, st>>>(maps, plan, epi, tokens, tiles, 0, nullptr);
+    return (int)cudaGetLastError();
+  }
+  kern<<<chunks * tiles, THREADS, smem, st>>>(maps, plan, epi, tokens, tiles, chunk, part);
+  int err = (int)cudaGetLastError();
+  if (!err) {
+    wgrad_sum_kernel<Plan, Epi><<<tiles, CONSUMER_WARPS * 32, 0, st>>>(plan, epi, part, tiles,
+                                                                        chunks);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 // out[o] [rows, cols] fp32 (row stride ld) = the tile's sums, rows orow0 +

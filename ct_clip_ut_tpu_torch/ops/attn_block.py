@@ -31,7 +31,8 @@ gradient attribution methods', whose parameters are frozen). Its attention
 passes are `csrc/attn_bwd_wg.cuh`'s; given `saved`, the o planes and row
 statistics the fp32 forward kept (`attn_block(..., keep=True)`, as
 `attention._BlockFn` does where a backward may follow), neither form
-reruns the forward core.
+reruns the forward core. The weight gradients' token slices are cut into
+chunks summed in order (`block_wgrad_partition`).
 """
 
 from __future__ import annotations
@@ -45,8 +46,26 @@ from . import launches
 from .fp32_grads import ln_parts
 
 DIM_HEAD = 32   # the head width the CUDA attention cores take
-QT = 128        # query or key rows a block of the temporal backward's passes (csrc/attn_mma.cuh)
-WG_ROWS = 64    # the spatial backward's (csrc/attn_bwd_wg.cuh)
+WG_ROWS = 64    # query or key rows a block of the wgmma backward passes (csrc/attn_bwd_wg.cuh)
+PACKED_MAX_N = 64   # the longest sequence of the temporal backward's fused pass (attn_bwd_packed.cuh)
+WGRAD_TILE = 128    # rows and columns of a weight-gradient tile (csrc/wgrad_sm90.cuh)
+WGRAD_SLICE = 64    # tokens a slice of its K loop
+WGRAD_BLOCKS = 132  # blocks a chunked weight gradient aims at: one an SM of the H100
+
+
+def block_wgrad_partition(tokens: int, d: int, hd: int) -> tuple:
+    """(slices a chunk, chunks) of BlockWgradSplitPlan's launch
+    (csrc/attn_bwd_f32.cuh): its 4 ceil(d / 128) hd / 128 tiles' token
+    slices cut into equal chunks, as many as keep about WGRAD_BLOCKS
+    blocks busy, the last one ragged; (0, 1) where one chunk would take
+    them all (each tile then sums every token itself). Chunk c holds
+    tokens [c slices_a_chunk 64, min((c + 1) slices_a_chunk 64, tokens))."""
+    tiles = 4 * -(-d // WGRAD_TILE) * (hd // WGRAD_TILE)
+    slices = -(-tokens // WGRAD_SLICE)
+    chunks = max(1, min(slices, WGRAD_BLOCKS // tiles))
+    per = -(-slices // chunks)
+    chunks = -(-slices // per)
+    return (per, chunks) if chunks > 1 else (0, 1)
 
 
 def attn_block_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -356,10 +375,12 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
     residual) alone, or with params=True the gradients of
     attn_block_bwd_plain (dx, dgamma, dwq, dwk, dwv, dwo, dqs, dks, dbias;
     dbias None without a bias), all fp32. The one place that knows their
-    workspaces. one_pass zeroes every lo plane (the control). saved (with a
-    bias): the forward's (o planes, row statistics) from attn_block(...,
-    keep=True), taken in place of rerunning the core (its query pass writes
-    D and lse into the statistics' free columns)."""
+    workspaces, and allocates only what the route uses: the temporal
+    block's fused pass (no bias, n <= PACKED_MAX_N) takes no row statistics
+    and writes o's planes only for dWo. one_pass zeroes every lo plane (the
+    control). saved (with a bias): the forward's (o planes, row statistics)
+    from attn_block(..., keep=True), taken in place of rerunning the core
+    (its query pass writes D and lse into the statistics' free columns)."""
     lib = _build.load()
     r, n, d, heads = check_block_args(x, gamma, wq, wk, wv, wo, qs, ks,
                                       lib.ctc_attn_bwd_f32_max_n(), torch.float32)
@@ -367,7 +388,11 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
     _build.require(g, "g", torch.float32, (r, n, d), dev)
     if bias is not None:
         _build.require(bias, "bias", torch.float32, (heads, n, n), dev)
+    elif saved is not None:
+        raise ValueError("saved statistics are the spatial block's (with a bias); the temporal "
+                         "chain keeps nothing from the forward")
     m, hd = r * n, heads * DIM_HEAD
+    fused = bias is None and n <= PACKED_MAX_N   # the temporal fused pass: no core, no statistics
     x, g, gamma, wq, wk, wv, wo = (_build.aligned16(t) for t in (x, g, gamma, wq, wk, wv, wo))
     f32 = dict(dtype=torch.float32, device=dev)
     b16 = dict(dtype=torch.bfloat16, device=dev)
@@ -385,29 +410,36 @@ def launch_attn_bwd_f32(entry: str, x, gamma, wq, wk, wv, wo, qs, ks, bias, g, s
         _build.require(o, "saved o", torch.bfloat16, (2, m, hd), dev)
         _build.require(mld, "saved statistics", torch.float32, (m * heads, 4), dev)
     else:
-        o, mld = torch.empty((2, m, hd), **b16), torch.empty((m * heads, 4), **f32)
+        o = torch.empty((2, m, hd), **b16) if params or not fused else None
+        mld = None if fused else torch.empty((m * heads, 4), **f32)
     work += [torch.empty((2, m, hd), **b16), torch.empty((2, m, hd), **b16), o, mld,
              torch.empty((2, m, hd), **b16), torch.empty((2, m, 2 * hd), **b16),
              torch.empty((m, d), **f32), torch.empty((m, d), **f32)]
     dx = torch.empty_like(x)
     # the parameter gradients, written whole, then the partial sums of
     # dgamma (with a dbeta half the block has no use for), dq_scale, dk_scale
+    # and the weight gradient's partial tiles
     outs = [None] * (6 if bias is not None else 5)
-    parts = [None] * 3
+    parts = [None] * 4
+    chunk = 0
     if params:
         outs = [torch.empty((d,), **f32), torch.empty((3 * hd, d), **f32),
                 torch.empty((d, hd), **f32), torch.empty((DIM_HEAD,), **f32),
                 torch.empty((DIM_HEAD,), **f32)]
         if bias is not None:
             outs.append(torch.empty((heads, n, n), **f32))
-        blocks = r * -(-n // (WG_ROWS if bias is not None else QT)) * heads
+        blocks = r * heads if fused else r * -(-n // WG_ROWS) * heads
+        chunk, chunks = block_wgrad_partition(m, d, hd)
+        tiles = 4 * -(-d // WGRAD_TILE) * (hd // WGRAD_TILE)
         parts = [torch.empty((ln_parts(m), 2 * d), **f32), torch.empty((blocks, DIM_HEAD), **f32),
-                 torch.empty((blocks, DIM_HEAD), **f32)]
+                 torch.empty((blocks, DIM_HEAD), **f32),
+                 torch.empty((chunks * tiles, 64, 256), **f32) if chunk else None]
     ins = [x, gamma, wq, wk, wv, wo, qs, ks] + ([bias] if bias is not None else []) + [g]
-    err = getattr(lib, entry)(*(t.data_ptr() for t in ins), *(w.data_ptr() for w in work),
+    err = getattr(lib, entry)(*(t.data_ptr() for t in ins),
+                              *(None if w is None else w.data_ptr() for w in work),
                               dx.data_ptr(), *(None if t is None else t.data_ptr()
                                                for t in outs + parts),
-                              r, n, d, heads, float(scale), int(residual),
+                              r, n, d, heads, float(scale), int(residual), chunk,
                               int(one_pass) | (2 if saved is not None else 0),
                               _build.stream_of(x))
     _build.check(err, entry)

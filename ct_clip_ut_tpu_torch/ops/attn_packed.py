@@ -19,7 +19,10 @@ CUDA chain `csrc/attn_packed_bwd.cu` for bf16 CUDA tensors and
 bias) with every parameter gradient for fp32 ones, the plain backward
 (`attn_block_bwd_plain` without a bias) for CPU tensors;
 `attn_packed_bwd_f32` is the fp32 chain's dx alone (the gradient
-attribution methods').
+attribution methods'). At n <= 64 the fp32 chain's attention is one fused
+pass over whole rows (`csrc/attn_bwd_packed.cuh`: D = rowsum(P dP), no
+forward core rerun, nothing kept from the forward); above, the fp32 core
+and the spatial block's wgmma passes without a bias.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .. import _build
 from ..config import MeshConfig
 
 TIMEOUT = timedelta(minutes=30)
@@ -124,8 +125,9 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> DataMesh:
     """The data-axis mesh over the process group (one rank, this process,
     without one). cfg.data, where set, must equal the group's size; a model
     axis above 1 raises. `device` defaults to the current card (the one
-    initialize_runtime made current: `cuda:LOCAL_RANK` under NCCL) where
-    CUDA is available, else the CPU."""
+    initialize_runtime made current: `cuda:LOCAL_RANK` under NCCL), as does
+    "cuda" without an index; on a machine without a card both raise, as the
+    entry points do. Only device="cpu" gives a CPU mesh."""
     if cfg is not None:
         check_model_axis(cfg.model)
     up = dist.is_available() and dist.is_initialized()
@@ -133,9 +135,10 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> DataMesh:
     rank = dist.get_rank() if up else 0
     if cfg is not None and cfg.data != world:
         raise ValueError(f"mesh data={cfg.data} needs {cfg.data} processes, have {world}")
-    if device is None:
-        device = f"cuda:{torch.cuda.current_device()}" if torch.cuda.is_available() else "cpu"
-    return DataMesh(world=world, rank=rank, device=torch.device(device))
+    dev = _build.check_device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return DataMesh(world=world, rank=rank, device=dev)
 
 
 def local_batch_size(global_batch: int, mesh: DataMesh) -> int:

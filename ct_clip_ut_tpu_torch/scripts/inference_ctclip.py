@@ -145,13 +145,10 @@ def make_cli_mesh(args):
                            device=args.device)
     elif args.mesh_data is None:
         return None
-    cpu = torch.device(args.device).type == "cpu"
-    mesh = make_mesh(None, device="cpu" if cpu else None)
+    mesh = make_mesh(None, device=args.device)
     if args.mesh_data is not None and args.mesh_data != mesh.world:
         raise ValueError(f"--mesh-data {args.mesh_data} needs {args.mesh_data} processes, "
                          f"have {mesh.world} (start them with torchrun --nproc-per-node)")
-    if not cpu:
-        _build.check_device(mesh.device)
     return mesh
 
 

@@ -1508,11 +1508,12 @@ def test_fp32_vq_nearest_matches_plain_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("r,n,bias", [(24, 576, True), (3, 100, True), (2, 101, True),
-                                      (576, 24, False), (5, 7, False)])
+                                      (576, 24, False), (5, 7, False), (2, 101, False)])
 def test_fp32_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, bias, residual):
     """dx of the fp32 chains (tc::block_backward_f32) at Grad-CAM's spatial
     and temporal shapes, ragged and odd ones (n = 101: the bias read one
-    key at a time): within F32_BAND of the plain backward's dx in fp32,
+    key at a time; without a bias, the temporal chain above its fused
+    pass): within F32_BAND of the plain backward's dx in fp32,
     the same bits on two calls; the chain with its lo planes zeroed and
     the plain backward with the softmax row term, the l2-norm projection
     or the LN gain left out outside it."""
@@ -1648,7 +1649,7 @@ def test_fp32_bwd_saved_statistics_match_the_rerun_on_card(cuda_device, r, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,n,bias", [(48, 576, True), (3, 100, True), (2, 101, True),
-                                      (1152, 24, False), (5, 7, False)])
+                                      (1152, 24, False), (5, 7, False), (2, 101, False)])
 def test_fp32_full_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, bias):
     """Every gradient of the fp32 train step's block backward (the full
     tc::block_backward_f32: dx, dgamma, dWq, dWk, dWv, dWo, dqs, dks and
@@ -1685,6 +1686,37 @@ def test_fp32_full_bwd_attention_blocks_match_plain_on_card(cuda_device, r, n, b
         assert gt.dtype == torch.float32 and _rel_err(gt, wt) <= F32_BAND, k
     one = kern(one_pass=True)
     assert max(_rel_err(o, w) for o, w in zip(one, want)) > F32_BAND
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,bias", [(1152, 24, False), (48, 576, True)])
+def test_fp32_full_bwd_wgrad_chunks_same_bits_on_card(cuda_device, monkeypatch, r, n, bias):
+    """The block weight gradient of the B = 2 fp32 step (27,648 tokens, D =
+    512, HD = 256) split into 4 chunks of 108 slices (128 blocks), summed
+    in chunk order: the same bits on two calls, and within F32_BAND of the
+    same chain with one chunk (each tile over every token)."""
+    from ct_clip_ut_tpu_torch.ops import attn_block as ab
+    from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed_bwd
+
+    assert ab.block_wgrad_partition(r * n, 512, 256) == (108, 4)
+    rng = np.random.default_rng(76)
+    a = _attn_inputs(rng, r=r, n=n, d=512, heads=8, dh=32, with_bias=bias)
+    args = [t.to(cuda_device) for t in _torch_attn_args(a)]
+    b = torch.from_numpy(a["bias"]).to(cuda_device) if bias else None
+    g = torch.from_numpy(rng.standard_normal((r, n, 512)).astype(np.float32)).to(cuda_device)
+
+    def kern():
+        if bias:
+            return ab.attn_block_bwd(*args, b, g, 8.0, True)
+        return attn_packed_bwd(*args, g, 8.0, True)
+
+    got = kern()
+    assert all(torch.equal(x, y) for x, y in zip(got, kern()))
+    monkeypatch.setattr(ab, "block_wgrad_partition", lambda *a, **k: (0, 1))
+    whole = kern()
+    assert torch.equal(got[0], whole[0])
+    for k in (2, 3, 4, 5):
+        assert _rel_err(got[k], whole[k]) <= F32_BAND, k
 
 
 @pytest.mark.cuda

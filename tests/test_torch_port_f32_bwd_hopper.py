@@ -10,7 +10,9 @@ does for the forwards: every fp32 product three bf16 products of hi / lo
 planes, the planes written where the kernels write them (the weights once,
 read K-major and MN-major; xn and x; g; q and k l2-normed and scaled; v;
 dO; P and dS in registers; dq; dk | dv; dvalue | dgate), LayerNorm and its
-backward in one-pass moments, D = rowsum(dO o) from the fp32 o. The
+backward in one-pass moments, the spatial chain's D = rowsum(dO o) from
+the fp32 o (the temporal chain at n <= 64 is the fused pass of
+tests/test_torch_port_packed_bwd_hopper.py, D = rowsum(P dP)). The
 emulations are held against jax.vjp of the JAX package's XLA twins
 (`_xla_reference_block`, `packed_attention_xla`, `pallas_ff._xla_reference`)
 with respect to x and against the port's plain backwards, at fp32, within
@@ -144,8 +146,15 @@ def test_block_bwd_f32_chain_matches_the_jax_vjp(r, n, with_bias, residual):
     args = _torch_attn_args(a)
     bias = torch.from_numpy(a["bias"]) if with_bias else None
     tg = torch.from_numpy(g)
-    got = emulated_block_bwd_f32(*args, bias, tg, SCALE, residual).numpy()
-    control = emulated_block_bwd_f32(*args, bias, tg, SCALE, residual, one_pass=True).numpy()
+    if with_bias:
+        got = emulated_block_bwd_f32(*args, bias, tg, SCALE, residual).numpy()
+        control = emulated_block_bwd_f32(*args, bias, tg, SCALE, residual, one_pass=True).numpy()
+    else:
+        # the temporal chain at n <= 64: the fused pass
+        from test_torch_port_packed_bwd_hopper import emulated_packed_bwd_f32
+
+        got = emulated_packed_bwd_f32(*args, tg, SCALE, residual).numpy()
+        control = emulated_packed_bwd_f32(*args, tg, SCALE, residual, one_pass=True).numpy()
     j = {k: jnp.asarray(v) for k, v in a.items() if v is not None}
     rest = (j["gamma"], j["wq"], j["wk"], j["wv"], j["wo"], j["qs"], j["ks"])
     if with_bias:

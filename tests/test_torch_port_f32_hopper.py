@@ -284,16 +284,20 @@ def test_the_fp32_backwards_raise_on_the_card(fake_card, monkeypatch):
             geglu_ff.geglu_ff_bwd(*ff, gf))
     entries = ["ctc_attn_block_bwd_f32", "ctc_attn_packed_bwd_f32", "ctc_geglu_ff_bwd_f32"]
     assert [c[0] for c in fake_card.calls] == entries * 2
-    block_ints = (2, 24, 64, 4, SCALE, 0, 0)          # R, n, D, H, scale, residual, flags
+    # R, n, D, H, scale, residual, the weight gradient's slices a chunk (0: the
+    # 48 tokens in one), flags
+    block_ints = (2, 24, 64, 4, SCALE, 0, 0, 0)
     ff_ints = (20, 64, 170, 176, 176, 0, 0)           # n, d, inner, ldh, ldw, residual, flags
     # the parameter-gradient pointers before the sizes: dgamma, dw_qkv, dwo,
-    # dqs, dks, [dbias], ln_part, q_part, k_part; h_s, ln_part, dgb, dw_in, dw_out
-    for i, (call, ints, grads) in enumerate(zip(fake_card.calls,
-                                                (block_ints, block_ints, ff_ints) * 2,
-                                                (9, 8, 5) * 2)):
+    # dqs, dks, [dbias], ln_part, q_part, k_part (then wg_part, null without
+    # chunks); h_s, ln_part, dgb, dw_in, dw_out
+    for i, (call, ints, grads, tail) in enumerate(zip(fake_card.calls,
+                                                      (block_ints, block_ints, ff_ints) * 2,
+                                                      (9, 8, 5) * 2, (1, 1, 0) * 2)):
         assert call[1][-1 - len(ints):-1] == ints
-        ptrs = call[1][-1 - len(ints) - grads:-1 - len(ints)]
+        ptrs = call[1][-1 - len(ints) - tail - grads:-1 - len(ints) - tail]
         assert all((p is not None) == (i >= 3) for p in ptrs), call[0]
+        assert all(p is None for p in call[1][-1 - len(ints) - tail:-1 - len(ints)])
     counts = launches.launch_counts()
     assert [counts[k] for k in ("attn_block_bwd_f32", "attn_packed_bwd_f32", "geglu_ff_bwd_f32",
                                 "attn_block_bwd_f32_full", "attn_packed_bwd_f32_full",

@@ -177,8 +177,16 @@ def test_block_bwd_f32_full_chain_matches_the_jax_vjp(r, n, with_bias, residual)
     args = _torch_attn_args(a)
     bias = torch.from_numpy(a["bias"]) if with_bias else None
     tg = torch.from_numpy(g)
-    got = emulated_block_bwd_f32_full(*args, bias, tg, SCALE, residual)
-    control = emulated_block_bwd_f32_full(*args, bias, tg, SCALE, residual, one_pass=True)
+    if with_bias:
+        got = emulated_block_bwd_f32_full(*args, bias, tg, SCALE, residual)
+        control = emulated_block_bwd_f32_full(*args, bias, tg, SCALE, residual, one_pass=True)
+    else:
+        # the temporal chain at n <= 64: the fused pass, its weight
+        # gradients chunked over the tokens
+        from test_torch_port_packed_bwd_hopper import emulated_packed_bwd_f32
+
+        got = emulated_packed_bwd_f32(*args, tg, SCALE, residual, params=True)
+        control = emulated_packed_bwd_f32(*args, tg, SCALE, residual, one_pass=True, params=True)
     names = ("x", "gamma", "wq", "wk", "wv", "wo", "qs", "ks") + (("bias",) if with_bias else ())
     primals = [jnp.asarray(a[k]) for k in names]
     if with_bias:

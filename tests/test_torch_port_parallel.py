@@ -416,6 +416,29 @@ def test_mesh_of_one_process_and_its_refusals():
                        torch.tensor([10.0, 15.0]))
 
 
+def test_mesh_without_a_card_raises(monkeypatch, fake_volumes):
+    """F9: make_mesh() and make_mesh(device="cuda") raise on a machine
+    without a card, as the entry points do, where they once gave a CPU mesh;
+    device="cpu" still gives one. inference_ctclip --mesh-data 1 on its
+    default device raises before any model is built."""
+    from ct_clip_ut_tpu_torch.scripts import inference_ctclip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(**kw)
+    assert make_mesh(device="cpu").device == torch.device("cpu")
+
+    def built(*args, **kwargs):
+        raise AssertionError("a model was built")
+
+    monkeypatch.setattr(inference_ctclip, "load_model", built)
+    argv, cfgs = fake_volumes
+    argv = argv[:argv.index("--device")] + ["--mesh-data", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference_ctclip.main(argv, *cfgs)
+
+
 def test_nccl_rank_without_a_card_of_its_own_raises(monkeypatch):
     """initialize_runtime puts LOCAL_RANK on its card and refuses a rank
     past the last card, before any group forms."""
