@@ -582,10 +582,14 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                      "2bh13BertWgradPlan",
                  "patch_embed_dkw weight gradient over P (PatchWgradPlan, MN-major)":
                      "2pe14PatchWgradPlan",
-                 "fp32 attn_block / attn_packed projections (QkvSplitPlan: three bf16 passes)":
-                     "2tc12QkvSplitPlan",
-                 "fp32 geglu_ff value / gate product (GegluSplitPlan, h as hi / lo planes)":
-                     "2ff14GegluSplitPlan",
+                 "fp32 attn_qrows projections (QkvSplitPlan on gemm_kernel)":
+                     ("11gemm_kernel", "2tc12QkvSplitPlan"),
+                 "fp32 attn_block / attn_packed projections (split4_kernel: a slice's four "
+                 "planes at once)": ("13split4_kernel", "2tc12QkvSplitPlan"),
+                 "fp32 geglu_ff value / gate product (split4_kernel, GegluSplitPlan, h as hi / "
+                 "lo planes)": ("13split4_kernel", "2ff14GegluSplitPlan"),
+                 "fp32 forward output products (split4_kernel into F32OutEpi: geglu_ff, the "
+                 "blocks)": ("13split4_kernel", "9SplitPlanENS0_9F32OutEpi"),
                  "fp32 vq_nearest GEMM (SplitPlan into ArgmaxEpi)": "9SplitPlanENS_2vq9ArgmaxEpi",
                  "fp32 output products (SplitPlan into F32OutEpi: geglu_ff, the blocks, BERT)":
                      "9SplitPlanENS0_9F32OutEpi",
@@ -632,7 +636,8 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                          "2bh15fwd_core_kernel",
                      "bf16 bert_layer_bwd query pass": "2bh14dq_pass_kernel",
                      "bf16 bert_layer_bwd key pass": "2bh15dkv_pass_kernel",
-                     "fp32 block core (attn_block_f32, attn_packed_f32: split P.V)":
+                     "fp32 block core (attn_block_f32, attn_packed_f32 past 64 tokens: split "
+                     "P.V)":
                          ("17block_core_kernel", "Lb0ELb1E"),
                      "fp32 backward's statistics (the fp32 core with STATS)":
                          ("17block_core_kernel", "Lb1ELb1E"),
@@ -642,6 +647,10 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
                          ("2tc21bwd_packed_f32_kernel", "Li32ELb1E"),
                      "fp32 temporal backward's fused pass, n <= 64":
                          ("2tc21bwd_packed_f32_kernel", "Li64E"),
+                     "fp32 temporal forward core, whole items, n <= 32 (split S and P.V)":
+                         ("2tc21fwd_packed_f32_kernel", "Li32E"),
+                     "fp32 temporal forward core, whole items, n <= 64":
+                         ("2tc21fwd_packed_f32_kernel", "Li64E"),
                      "fp32 backward's dbias pass (split S and dP)": "20bwd_dbias_f32_kernel",
                      "fp32 bert_layer attention with STATS (row 12F's recompute, Philox keep)":
                          ("4bert11attn_kernel", "ILb1E"),
@@ -656,10 +665,11 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
 # the wgmma kernels that sum over tokens in a fixed order: no atomic instruction
 # (ATOM, ATOMS, RED) in their SASS
 SASS_NO_ATOMICS = ("2tc16bwd_dq_wg_kernel", "2tc17bwd_dkv_wg_kernel",
-                   "5ff32b21gate_bwd_split_kernel")
+                   "5ff32b21gate_bwd_split_kernel", "4sm9013split4_kernel")
 # ... and the other fixed-order kernels: the temporal backward's fused pass
 # (mma.sync) and the chunked weight gradient's in-order sum of its partials
-SASS_NO_ATOMICS_OTHER = ("2tc21bwd_packed_f32_kernel", "4sm9016wgrad_sum_kernel")
+SASS_NO_ATOMICS_OTHER = ("2tc21bwd_packed_f32_kernel", "4sm9016wgrad_sum_kernel",
+                         "2tc21fwd_packed_f32_kernel")
 # ... and of the int8 wgmma kernels of geglu_ff_int8 (IGMMA, not HGMMA)
 SASS_INT8_REQUIRED = {"geglu_ff_int8 value | gate product writing h (HEpi)":
                           "11gemm_kernelINS_2q810GegluPlan8ENS2_4HEpi",
@@ -697,7 +707,8 @@ def sass_check(lib: Path) -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if ("sm90" in fn and ("gemm_kernel" in fn or "gemm64_kernel" in fn
-                                  or "wgrad_kernel" in fn or "split4_kn_kernel" in fn)
+                                  or "wgrad_kernel" in fn or "split4_kn_kernel" in fn
+                                  or "split4_kernel" in fn)
                     or "2qr11core_kernel" in fn or "3ffb15gate_bwd_kernel" in fn
                     or any(mark in fn for mark in SASS_NO_ATOMICS)):
                 counts.setdefault(fn, 0)
@@ -749,8 +760,15 @@ def sass_check(lib: Path) -> None:
 FUSED_TEMPORAL = {"must": ("bwd_packed_f32_kernel",),
                   "must_not": ("block_core_kernel", "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")}
 # kernels on wgmma, as the profiler names them: a chain's profile holds one
-WGMMA_KERNELS = ("gemm_kernel", "sm90::wgrad_kernel", "split4_kn_kernel", "gate_bwd_split_kernel",
-                 "bwd_dq_wg_kernel")
+WGMMA_KERNELS = ("gemm_kernel", "sm90::wgrad_kernel", "split4_kn_kernel", "split4_kernel",
+                 "gate_bwd_split_kernel", "bwd_dq_wg_kernel")
+# the fp32 forward chains of rows 1f-3f: every product on split4_kernel, and
+# the temporal block's core (n = 24, no bias) the whole-item one
+F32_FORWARD = {"attn_block_f32": {"must": ("split4_kernel", "block_core_kernel"),
+                                  "must_not": ("gemm_kernel", "fwd_packed_f32_kernel")},
+               "attn_packed_f32": {"must": ("split4_kernel", "fwd_packed_f32_kernel"),
+                                   "must_not": ("gemm_kernel", "block_core_kernel")},
+               "geglu_ff_f32": {"must": ("split4_kernel",), "must_not": ("gemm_kernel",)}}
 # The namespaces of the Hopper pieces (mangled or demangled): a chain moved
 # off the wmma tile of gemm_tile.cuh launches no ctc kernel outside them
 # (vq:: holds vq_nearest's key-to-index pass after its argmax GEMM)
@@ -2609,15 +2627,19 @@ def f32_check(torch, model, card: str) -> dict:
     plain versions at the attribution path's shapes (TF32 off): attn_block
     over one volume's spatial stack [24, 576, 512] with the fp32 [8, 576,
     576] bias, attn_packed over a chunk of 8 windows' temporal stacks
-    [4608, 24, 512], geglu_ff at one volume's [13824, 512], vq_nearest on
-    [13824, 512] unit tokens x the 8192 codes. Bands: F32_BAND (max
-    relative error), the VQ's share of equal indices and tie margin.
-    Controls: the kernel with every lo plane zeroed (one bf16 product for
-    each fp32 one), and the plain version without the LN gain / bias, the
-    q scale or the position bias. bound_ms: three bf16 products for each
-    fp32 one at the bf16 peak, as row 6. library_ms: the same PyTorch
-    chain in fp32. One call of each under torch.profiler, every launch on
-    the Hopper pieces."""
+    [4608, 24, 512], geglu_ff over the same chunk's temporal tokens [110592,
+    512], vq_nearest on [13824, 512] unit tokens x the 8192 codes. Bands:
+    F32_BAND (max relative error), the VQ's share of equal indices and tie
+    margin; a second call gives the same bits. Controls: the kernel with
+    every lo plane zeroed (one bf16 product for each fp32 one), and the
+    plain version without the LN gain / bias, the q scale or the position
+    bias. bound_ms: three bf16 products for each fp32 one at the bf16 peak,
+    as row 6. library_ms: the same PyTorch chain in fp32. Then geglu_ff's
+    times at the sweep's other shapes (its largest frame-sparse slice,
+    [46080, 512], and a slab's clean stack, [13824, 512]). One call of each
+    under torch.profiler, every launch on the Hopper pieces: the products
+    on split4_kernel, attn_packed's core the whole-item one
+    (F32_FORWARD)."""
     from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
     from ct_clip_ut_tpu_torch.ops.attn_block import attn_block, attn_block_plain, launch_block_f32
     from ct_clip_ut_tpu_torch.ops.attn_packed import attn_packed, attn_packed_plain
@@ -2646,7 +2668,7 @@ def f32_check(torch, model, card: str) -> dict:
     scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
     xs = torch.randn((t, hw, d), generator=g, device="cuda")
     xt = torch.randn((OCC_CHUNK * hw, t, d), generator=g, device="cuda")
-    xf = torch.randn((t * hw, d), generator=g, device="cuda")
+    xf = torch.randn((OCC_CHUNK * t * hw, d), generator=g, device="cuda")
     ff = vit.enc_spatial_transformer.layers[0][3]
     attn_faults = {"no gamma": (1, 1.0), "no q_scale": (6, 1.0)}
 
@@ -2681,7 +2703,10 @@ def f32_check(torch, model, card: str) -> dict:
         for name, (kern, plain, args, faults, library, one_pass) in cases.items():
             got = kern(*args, residual=False)
             want = plain(*args, residual=False)
+            same = torch.equal(kern(*args, residual=False), got)
             torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"{name}: two calls gave different bits")
             controls = {"one bf16 product each (lo planes zeroed)":
                         rel_err(one_pass(*args, residual=False), want)}
             for fault, (i, value) in faults.items():
@@ -2707,10 +2732,27 @@ def f32_check(torch, model, card: str) -> dict:
             print(f"kernel {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, three bf16 products each), the "
                   f"PyTorch chain in fp32 {library_ms:.3f} ms ({library_ms.span}) (max_rel_err "
-                  f"{lib_err:.3e} vs the plain version) [{card}]")
+                  f"{lib_err:.3e} vs the plain version); a second call the same bits [{card}]")
             out[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **rec,
                              library_ms=library_ms)
-            hopper_chain_check(name, lambda: kern(*args, residual=True), card)
+            hopper_chain_check(name, lambda: kern(*args, residual=True), card, **F32_FORWARD[name])
+
+        # geglu_ff at the sweep's other shapes: its largest frame-sparse
+        # slice (8 windows x 10 frames) and a slab's clean stack
+        ff_args = cases["geglu_ff_f32"][2][1:]
+        for rows in (OCC_CHUNK * 10 * hw, t * hw):
+            x = torch.randn((rows, d), generator=g, device="cuda")
+            err = rel_err(geglu_ff(x, *ff_args, residual=True),
+                          geglu_ff_plain(x, *ff_args, residual=True))
+            ms = cuda_ms(torch, lambda: geglu_ff(x, *ff_args, residual=True))
+            rec = bound(3 * 6 * rows * d * ff_args[3].shape[1],
+                        nbytes(x, x, *[a for a in ff_args if isinstance(a, torch.Tensor)]),
+                        BF16_PEAK)
+            print(f"kernel geglu_ff_f32 at [{rows}, {d}]: {ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max_rel_err {err:.3e} vs plain "
+                  f"(band {F32_BAND}) [{card}]")
+            if not err <= F32_BAND:
+                raise AssertionError(f"geglu_ff_f32 at {rows} rows: {err}")
 
         tok = l2norm(torch.randn((t * hw, d), generator=g, device="cuda"))
         cb = vit.vq.state().embed.float().contiguous()

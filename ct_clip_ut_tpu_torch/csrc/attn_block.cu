@@ -37,9 +37,9 @@
 //   gemm_kernel         O . Wo^T with the residual added in fp32.
 // The fp32 variant (ctc_attn_block_f32) runs the same chain with every
 // product as three bf16 products of hi / lo planes, P.V included:
-// tc::block_forward_f32 (attn_mma.cuh). Its bound: three times the bf16
+// tc::block_forward_f32 (attn_fwd_packed.cuh). Its bound: three times the bf16
 // operations at the bf16 peak.
-#include "attn_mma.cuh"
+#include "attn_fwd_packed.cuh"
 
 // x [R*n, D] bf16 (D a multiple of 8); gamma [D], qs/ks [32], bias [H, n, n]
 // fp32; wq/wk/wv [HD, D], wo [D, HD] bf16; xn [R*n, D], qk [4, R*n, HD]

@@ -32,9 +32,12 @@
 //   split_kernel x 4      the planes of wq | wk | wv (stacked [3 HD, D]) and
 //                         wo
 //   ln_split_kernel       xn's, x's and g's planes
-//   gemm_kernel           q, k, v (QkvSplitPlan, tc::QkvEpi: q / k
+//   split4_kernel         q, k, v (QkvSplitPlan, tc::QkvEpi: q / k
 //                         l2-normed and scaled as hi / lo planes, their unit
-//                         rows and norms in fp32, v as planes)
+//                         rows and norms in fp32, v as planes), the forward
+//                         chain's product (attn_fwd_packed.cuh): the same
+//                         bits, so o and the statistics the forward keeps
+//                         are those a rerun of the core gives
 //   gemm_kernel           dO = g Wo as planes (SplitKNPlan: Wo as stored)
 // the spatial block (with a bias), and the temporal block above n = 64:
 //   block_core_kernel     the fp32 core with STATS: o as planes and each
@@ -282,9 +285,10 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
     err = launch_ln_split(x, gamma, nullptr, nullptr, xs, xs + md, xs + 2 * md, xs + 3 * md, M, D,
                           1e-5f, keep_lo, st, g, gs, gs + md);
   if (err) return err;
-  err = launch_gemm(proj, QkvSplitPlan{tiles},
-                    QkvEpi{qk, v, qs, ks, scale, M, HD, tiles, unit, norm, v + mh, keep_lo},
-                    3 * tiles, M, D, st);
+  err = launch_split4<false>(proj, QkvSplitPlan{tiles},
+                             QkvEpi{qk, v, qs, ks, scale, M, HD, tiles, unit, norm, v + mh,
+                                    keep_lo},
+                             3 * tiles, M, D, st);
   if (!err)
     err = split_product_kn(gs, gs + md, D, wo_s, wo_s + wsz, HD, M, HD, D,
                            SplitOutEpi{dO, dO + mh, M, HD, HD, keep_lo}, st);

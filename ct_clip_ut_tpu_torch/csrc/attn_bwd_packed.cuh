@@ -31,11 +31,12 @@
 //     thread, fill a ring of two stages paced by full / empty mbarriers, so
 //     the next stage's planes are in flight while the warps compute on this
 //     one;
-//   - a stage holds every plane of whole (sequence, head) items: one
-//     sequence's 8 heads at n = 24 (96 KB), one item a warp; a plane of an
-//     item is n rows of a head's 64 B, one TMA box each with the 64-B
-//     swizzle (attn_mma.cuh's swz), read by ldmatrix without bank
-//     conflicts; each plane is read from memory once;
+//   - a stage holds every plane of whole (sequence, head) items
+//     (PackedGeom, attn_fwd_packed.cuh): one sequence's 8 heads at n = 24
+//     (96 KB), one item a warp; a plane of an item is n rows of a head's
+//     64 B, one TMA box each with the 64-B swizzle (attn_mma.cuh's swz),
+//     read by ldmatrix without bank conflicts; each plane is read from
+//     memory once;
 //   - the keys are padded only to the mma tile (16; the rows of a region
 //     past n read as zeros or as the next region's finite rows, under P = 0
 //     or masked), the template NP (32 or 64) bounding the row held in
@@ -51,65 +52,15 @@
 
 #include <algorithm>
 
-#include "attn_bwd_wg.cuh"
-#include "wgrad_sm90.cuh"
+#include "attn_fwd_packed.cuh"
 
 namespace ctc {
 namespace tc {
 
-constexpr int PK_MAX_N = 64;             // the longest sequence the fused pass takes
-constexpr int PK_WARPS = 8;              // a block's warps, one item at a time each
-constexpr int PK_THREADS = PK_WARPS * 32;
 constexpr int PK_STAGES = 2;
 constexpr int PK_STAGE_MAX = 96 * 1024;  // the planes of a stage
-constexpr int PK_SPILL = 1024;           // zeros past the ring: rows read past its last region
 // an item's region holds its 8 planes in this order (hi, then lo)
 constexpr int PQ = 0, PK = 2, PV = 4, PD = 6;
-
-// The stages of the fused pass: items are (sequence, head); a stage holds
-// g sequences x hg heads; each item's region is 8 planes of nr rows (n up
-// to a multiple of 8, so each plane starts on the 64-B swizzle's 512-B
-// period) of 64 B.
-struct PackedGeom {
-  int R, n, H, nr, hg, g, units;
-  __host__ __device__ int plane_bytes() const { return nr * DH * 2; }
-  __host__ __device__ int item_bytes() const { return 8 * plane_bytes(); }
-  __host__ __device__ int stage_bytes() const { return g * hg * item_bytes(); }
-};
-
-// As many heads of a sequence a stage as PK_STAGE_MAX holds (halving H),
-// then as many sequences as give each warp an item.
-inline PackedGeom packed_geom(int R, int n, int H) {
-  PackedGeom p{R, n, H, (n + 7) / 8 * 8, H, 1, 0};
-  while (p.hg % 2 == 0 && p.hg * p.item_bytes() > PK_STAGE_MAX) p.hg /= 2;
-  p.g = std::max(1, std::min(PK_STAGE_MAX / (p.hg * p.item_bytes()),
-                             (PK_WARPS + p.hg - 1) / p.hg));
-  p.units = (R + p.g - 1) / p.g * (H / p.hg);
-  return p;
-}
-
-// The A fragments of rows r0 .. r0 + 15 of a staged plane, rows past the
-// sequence (a: g, b: g + 8) zeroed: their scores and gradients stay finite
-// whatever the region's rows past n hold.
-__device__ __forceinline__ void ldsm_rows(uint32_t (&a)[2][4], uint32_t plane, int r0, bool va,
-                                          bool vb, int lane) {
-  ldsm_a(a, plane, r0, lane);
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    if (!va) a[ks][0] = a[ks][2] = 0u;
-    if (!vb) a[ks][1] = a[ks][3] = 0u;
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // The item's sums of part[] (this thread's columns 8 dt + 2 t + e) over its
 // rows into out[0 .. 31]: the eight row groups of the warp by shuffles.
@@ -438,16 +389,13 @@ int launch_packed_pass(const bf16* qk, const bf16* v, const bf16* dO, const Pack
   int err = 0;
   for (int p = 0; p < 8 && !err; ++p) err = map_sw64(&maps.m[p], src[p], M, HD, HD, n);
   if (err) return err;
-  const PackedGeom geo = packed_geom(R, n, H);
+  const PackedGeom geo = packed_geom(R, n, H, 8, PK_STAGE_MAX);
   const int smem = PK_STAGES * geo.stage_bytes() + PK_SPILL + 1024;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const bool with_o = out.o != nullptr;
   auto kern = n <= 32 ? (with_o ? bwd_packed_f32_kernel<32, true> : bwd_packed_f32_kernel<32, false>)
                       : (with_o ? bwd_packed_f32_kernel<64, true> : bwd_packed_f32_kernel<64, false>);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kern<<<std::min(geo.units, sms), PK_THREADS, smem, st>>>(maps, geo, out);
+  kern<<<std::min(geo.units, sm90::sm_count()), PK_THREADS, smem, st>>>(maps, geo, out);
   return (int)cudaGetLastError();
 }
 

@@ -29,10 +29,10 @@
 //   block_forward        the block's forward chain on the Hopper GEMM core
 //                        around that core: LN pass, QkvPlan + QkvEpi, the
 //                        core, the output projection (+ x);
-//   block_forward_f32    the same chain in fp32 (the fp32 variants of
-//                        attn_block and attn_packed): every product three
-//                        bf16 products of hi / lo planes (split_sm90.cuh),
-//                        the core with split P.V (F32).
+//   QkvSplitPlan         the q | k | v product of the fp32 chains, whose
+//                        forward (block_forward_f32, every product three
+//                        bf16 products of hi / lo planes, the core with
+//                        split P.V: F32) is in attn_fwd_packed.cuh.
 #pragma once
 
 #include <math_constants.h>
@@ -649,59 +649,6 @@ struct QkvSplitPlan {
     return {a, b, r, b, r + 64};
   }
 };
-
-// The block's forward in fp32, the chain of the fp32 variants of
-// attn_block.cu / attn_packed.cu: every fp32 product as three bf16 products
-// of hi / lo planes (split_sm90.cuh). Launches: the weights' split pass
-// (wq | wk | wv stacked, wo); ln_split_kernel writing xn's and x's planes;
-// one QkvSplitPlan GEMM, QkvEpi writing q / k (l2-normed, scaled) and v as
-// hi / lo planes; the fp32 core (split scores, split P.V) writing o's
-// planes; a SplitPlan GEMM writing o Wo^T (+ x) in fp32. x [R*n, D] fp32 (D
-// a multiple of 8); gamma [D], qs / ks [32], wq / wk / wv [HD, D], wo [D, HD]
-// fp32; bias [H][n][n] fp32 or null; workspaces xs [4][R*n][D] (xn_hi,
-// xn_lo, x_hi, x_lo), w_s [2][3 HD][D], wo_s [2][D][HD], qk [4][R*n][HD],
-// v_ws / o_ws [2][R*n][HD] bf16; out [R*n, D] fp32. keep_lo 0 zeroes every
-// lo plane (the one-pass control). mld [R][H][n] float4 or null: the core
-// also writes each row's (m log2 e, 1 / l, 0, 0), which with o's planes the
-// spatial backward (attn_bwd_wg.cuh) takes in place of rerunning the core.
-template <int Dummy = 0>
-int block_forward_f32(const float* x, const float* gamma, const float* wq, const float* wk,
-                      const float* wv, const float* wo, const float* qs, const float* ks,
-                      const float* bias, bf16* xs, bf16* w_s, bf16* wo_s, bf16* qk, bf16* v_ws,
-                      bf16* o_ws, float4* mld, float* out, int R, int n, int D, int H,
-                      float scale, int residual, int keep_lo, cudaStream_t st) {
-  using namespace sm90;
-  const int M = R * n, HD = H * DH, tiles = HD / BN;
-  const int64_t md = (int64_t)M * D, wsz = (int64_t)HD * D, wrows = 3 * wsz, mh = (int64_t)M * HD;
-  Maps proj{};
-  int err = map_a(&proj.m[0], xs, M, D, D);
-  if (!err) err = map_a(&proj.m[1], xs + md, M, D, D);
-  if (!err) err = map_a(&proj.m[2], xs + 2 * md, M, D, D);
-  if (!err) err = map_a(&proj.m[3], xs + 3 * md, M, D, D);
-  if (!err) err = map_b(&proj.m[4], w_s, 3 * HD, D, D);
-  if (!err) err = map_b(&proj.m[5], w_s + wrows, 3 * HD, D, D);
-  if (err) return err;
-  const float* const w3[3] = {wq, wk, wv};
-  for (int i = 0; i < 3 && !err; ++i)
-    err = split_to(w3[i], w_s + i * wsz, w_s + wrows + i * wsz, wsz, keep_lo, st);
-  if (!err) err = split(wo, wo_s, wsz, keep_lo, st);
-  if (!err)
-    err = launch_ln_split(x, gamma, nullptr, nullptr, xs, xs + md, xs + 2 * md, xs + 3 * md, M, D,
-                          1e-5f, keep_lo, st);
-  if (err) return err;
-  err = launch_gemm(proj, QkvSplitPlan{tiles},
-                    QkvEpi{qk, v_ws, qs, ks, scale, M, HD, tiles, nullptr, nullptr, v_ws + mh,
-                           keep_lo},
-                    3 * tiles, M, D, st);
-  if (err) return err;
-  err = mld != nullptr ? launch_block_core<true, true>(qk, v_ws, bias, o_ws, R, n, H, mld,
-                                                       nullptr, st, keep_lo)
-                       : launch_block_core<false, true>(qk, v_ws, bias, o_ws, R, n, H, nullptr,
-                                                        nullptr, st, keep_lo);
-  if (err) return err;
-  return split_product(o_ws, o_ws + mh, HD, wo_s, wo_s + wsz, HD, M, D, HD,
-                       F32OutEpi{out, nullptr, residual ? x : nullptr, M, D}, st);
-}
 
 }  // namespace tc
 }  // namespace ctc

@@ -18,8 +18,11 @@
 // core (one block a sequence and head, one warp per 16 query rows: two at
 // n = 24, keys padded to 64 with zeros and masked to -inf) writes o; a
 // LinearPlan GEMM writes o Wo^T with the residual added in fp32. The fp32
-// variant (ctc_attn_packed_f32) is tc::block_forward_f32 without the bias.
-#include "attn_mma.cuh"
+// variant (ctc_attn_packed_f32) is tc::block_forward_f32 without the bias
+// (attn_fwd_packed.cuh): its products each K slice's four planes staged
+// once (split4_kernel), its core at n <= 64 whole (sequence, head) items,
+// one warp an item, keys padded to 16, fed by a TMA ring.
+#include "attn_fwd_packed.cuh"
 
 // The arguments of ctc_attn_block without the bias.
 extern "C" int ctc_attn_packed(const void* x, const void* gamma, const void* wq, const void* wk,

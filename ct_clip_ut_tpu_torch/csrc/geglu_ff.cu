@@ -30,8 +30,10 @@
 // xn's planes, xn . [Wv; Wg]^T as GegluSplitPlan (one map of each stacked
 // weight plane, the gate rows at row `inner` on) with h = gelu(gate) *
 // value written as hi / lo planes, h . W2^T as SplitPlan with the residual
-// added in fp32 (F32OutEpi). Its bound: three times the bf16 operations at
-// the bf16 peak.
+// added in fp32 (F32OutEpi). Both products run on split4_kernel: each K
+// slice's four planes staged once and its three bf16 products issued from
+// that stage, one persistent block an SM. Its bound: three times the bf16
+// operations at the bf16 peak.
 #include "split_sm90.cuh"
 
 namespace ctc {
@@ -175,12 +177,12 @@ extern "C" int ctc_geglu_ff_f32(const void* x, const void* gamma, const void* be
                           static_cast<const float*>(beta), nullptr, xn, xn + md, nullptr, nullptr,
                           M, D, 1e-5f, keep, st);
   if (err) return err;
-  err = launch_gemm(in, ctc::ff::GegluSplitPlan{inner},
-                    ctc::ff::GegluSplitEpi{h, h + mh, M, inner, ldh, keep}, (inner + 63) / 64, M,
-                    D, st);
+  err = launch_split4<true>(in, ctc::ff::GegluSplitPlan{inner},
+                      ctc::ff::GegluSplitEpi{h, h + mh, M, inner, ldh, keep}, (inner + 63) / 64, M,
+                      D, st);
   if (err) return err;
-  return split_product(h, h + mh, ldh, wo, wo + wout, ldw, M, D, inner,
-                       F32OutEpi{static_cast<float*>(out), nullptr,
-                                 residual ? static_cast<const float*>(x) : nullptr, M, D},
-                       st);
+  return split4_product<true>(h, h + mh, ldh, wo, wo + wout, ldw, M, D, inner,
+                        F32OutEpi{static_cast<float*>(out), nullptr,
+                                  residual ? static_cast<const float*>(x) : nullptr, M, D},
+                        st);
 }

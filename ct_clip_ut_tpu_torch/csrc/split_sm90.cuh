@@ -24,14 +24,19 @@
 //   split_product    the SplitPlan GEMM of two operands' planes;
 //   split_product_kn the same with B a [K, N] matrix read as it is stored
 //                    (SplitKNPlan: a weight in a backward product)
+//   split4_product_kn / split4_kn_kernel, split4_product / split4_kernel
+//                    the same products with each K slice's four planes
+//                    staged once and its three bf16 products issued from
+//                    that stage (the backward's MN-major products; the
+//                    forward chains' K-major ones, persistent)
 //   ln_bwd_f32_kernel the LayerNorm backward of fp32 rows (the fp32
 //                    backward chains' last launch); with GRADS also each
 //                    block's partial sums of the gains' gradients
 //   colsum_kernel    sums of the rows of a partial-sums matrix in a fixed
 //                    order (the fp32 train step's dgamma, dbeta, dq_scale,
 //                    dk_scale: no atomics, the same bits every call)
-//   ff::GegluSplitPlan the GEGLU's value | gate product (the fp32 forward
-//                    and the fp32 backward's recompute)
+//   ff::GegluSplitPlan the GEGLU's value | gate product (the fp32 forward,
+//                    on split4_kernel)
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -132,12 +137,23 @@ ln_split_kernel(const float* __restrict__ r, const float* __restrict__ gamma,
   }
 }
 
-// out [M, N] fp32 = acc (+ bias [N]) (+ res [M, N]); N even
+// out [M, N] fp32 = acc (+ bias [N]) (+ res [M, N]); N even. prefetch:
+// thread i of n brings the residual's 128-B lines of the tile at rows m0
+// ..., columns nt * 128 ... into L2 (split4_kernel calls it as the tile's K
+// loop starts).
 struct F32OutEpi {
   float* out;
   const float* bias;
   const float* res;
   int M, N;
+  __device__ void prefetch(int m0, int nt, int i, int n) const {
+    if (res == nullptr) return;
+    for (int l = i; l < BM * BN / 32; l += n) {
+      const int m = m0 + l / (BN / 32), c = nt * BN + (l % (BN / 32)) * 32;
+      if (m < M && c < N)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(res + (int64_t)m * N + c));
+    }
+  }
   __device__ void operator()(const float (&acc)[64], int row, int nt, int lane) const {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -484,6 +500,205 @@ inline int split4_product_kn(const bf16* a_hi, const bf16* a_lo, int64_t lda, co
   return (int)cudaGetLastError();
 }
 
+// The forward products of the fp32 chains (rows 1f-3f: the GEGLU's value |
+// gate and down products, the block's q | k | v and output projections) in
+// the same form, with B K-major as the weights are stored ([N, K]): for
+// each K slice of 64, one TMA stage holds A's hi / lo tiles (128 rows) and
+// B's hi / lo tiles (two 64-row halves each), and a consumer warpgroup
+// issues a_hi b_lo, a_lo b_hi, a_hi b_hi from that one stage into one fp32
+// accumulator, one slice's wgmma group in flight while the next is issued.
+// SplitPlan's three passes each walked every K slice: A's hi plane and B's
+// crossed from L2 twice and the ring drained and refilled at each pass.
+//   - The plan is SplitPlan or tc::QkvSplitPlan (gemm_kernel's three-pass
+//     plans; pass 0's source) or ff::GegluSplitPlan: it names each
+//     operand's hi plane, whose lo plane is the next map (a, a + 1; b, b +
+//     1), and B's two 64-row halves (the GEGLU's value and gate rows).
+//   - Persistent, one block an SM (three 64-KB stages): the block walks the
+//     tiles u = blockIdx.x, + gridDim.x, ..., row-tile major (u / n_tiles
+//     rows, u % n_tiles columns), so the blocks in flight share A's rows and
+//     all of B from L2.
+//   - PING (the FF's products): each consumer warpgroup owns whole 128 x
+//     128 tiles (two m64n128 accumulators), the block's even tiles
+//     warpgroup 0's and its odd tiles warpgroup 1's; their K loops take
+//     turns (two named barriers), so one warpgroup's epilogue runs while
+//     the other's wgmma run, and the ring's stages are consumed in the
+//     order they are filled. Without PING (the block's products: QkvEpi
+//     spills beside two accumulators, and the output projection's four K
+//     slices ran faster so, PERF.md §6) the two warpgroups split each
+//     tile's rows and the epilogue waits for both.
+//   - An epilogue with a `prefetch` member (F32OutEpi: the residual) has
+//     it called as its tile's K loop starts, so the epilogue's loads find
+//     their lines in L2.
+//   - A ragged K (the down product's 1365) and past-the-edge rows or
+//     columns read TMA's zeros, as in gemm_kernel.
+//   - Every sum runs in one order (slice by slice, the three products in
+//     the order above): two calls give the same bits.
+template <class E, class = void>
+struct Prefetch {
+  __device__ static void run(const E&, int, int, int, int) {}
+};
+template <class E>
+struct Prefetch<E, std::void_t<decltype(&E::prefetch)>> {
+  __device__ static void run(const E& e, int m0, int nt, int i, int n) { e.prefetch(m0, nt, i, n); }
+};
+
+template <bool PING, class Plan, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+split4_kernel(const __grid_constant__ Maps maps, const Plan plan, const Epi epi, int n_tiles,
+              int tiles, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S4_STAGES], empty[S4_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the block's tiles: u = blockIdx.x + j gridDim.x, j < count
+  const int count = blockIdx.x < tiles ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S4_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PING ? CONSUMER_WARPS / 2 : CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      int it = 0;   // slices loaded by this block, over all its tiles
+      for (int j = 0; j < count; ++j) {
+        const int u = blockIdx.x + j * gridDim.x;
+        const int nt = u % n_tiles, m0 = (u / n_tiles) * BM;
+        const TileSrc src = plan.src(nt, 0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % S4_STAGES, k0 = kt * BK;
+          mbar_wait(&empty[s], ((it / S4_STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], S4_STAGE);
+          char* a = ring + s * S4_STAGE;
+          char* b = a + 2 * A_BYTES;
+          for (int lo = 0; lo < 2; ++lo) {
+            tma_load_2d(a + lo * A_BYTES, &maps.m[src.a + lo], &full[s], k0, m0);
+            tma_load_2d(b + 2 * lo * B_HALF_BYTES, &maps.m[src.b0 + lo], &full[s], k0, src.row0);
+            tma_load_2d(b + (2 * lo + 1) * B_HALF_BYTES, &maps.m[src.b1 + lo], &full[s], k0,
+                        src.row1);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  // one slice's products: A rows r0 .. r0 + 63 of the stage at `ah`
+  auto slice = [&](float (&acc)[64], uint32_t ah, int r0) {
+    const uint32_t a = ah + r0 * BK * 2, al = a + A_BYTES;
+    const uint32_t bh = ah + 2 * A_BYTES, bl = bh + 2 * B_HALF_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t a_hi = desc_sw128(a + kk * 32), b_hi = desc_sw128(bh + kk * 32);
+      wgmma_m64n128k16(acc, a_hi, desc_sw128(bl + kk * 32));
+      wgmma_m64n128k16(acc, desc_sw128(al + kk * 32), b_hi);
+      wgmma_m64n128k16(acc, a_hi, b_hi);
+    }
+  };
+  if constexpr (PING) {
+    for (int j = wg; j < count; j += 2) {
+      const int u = blockIdx.x + j * gridDim.x;
+      const int nt = u % n_tiles, m0 = (u / n_tiles) * BM;
+      Prefetch<Epi>::run(epi, m0, nt, threadIdx.x & 127, 128);
+      float acc0[64], acc1[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      fence_regs(acc0);
+      fence_regs(acc1);
+      // the other warpgroup has waited for every slice of tile j - 1
+      if (j > 0)
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(CONSUMER_WARPS * 32) : "memory");
+      int it = j * nk;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S4_STAGES;
+        mbar_wait(&full[s], (it / S4_STAGES) & 1);
+        const uint32_t ah = smem_u32(ring + s * S4_STAGE);
+        wgmma_fence();
+        slice(acc0, ah, 0);
+        slice(acc1, ah, 64);
+        wgmma_commit();
+        wgmma_wait_one();   // the slice before this one is read: give its stage back
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S4_STAGES]);
+      }
+      // tile j + 1's K loop may start: this one has waited for all its slices
+      if (j + 1 < count)
+        asm volatile("bar.arrive %0, %1;" ::"r"(2 - wg), "n"(CONSUMER_WARPS * 32) : "memory");
+      wgmma_wait_all();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % S4_STAGES]);   // the tile's last slice
+      epi(acc0, m0 + (warp & 3) * 16, nt, lane);
+      epi(acc1, m0 + 64 + (warp & 3) * 16, nt, lane);
+    }
+  } else {
+    int it = 0;
+    for (int j = 0; j < count; ++j) {
+      const int u = blockIdx.x + j * gridDim.x;
+      const int nt = u % n_tiles, m0 = (u / n_tiles) * BM;
+      Prefetch<Epi>::run(epi, m0, nt, threadIdx.x, CONSUMER_WARPS * 32);
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S4_STAGES;
+        mbar_wait(&full[s], (it / S4_STAGES) & 1);
+        wgmma_fence();
+        slice(acc, smem_u32(ring + s * S4_STAGE), wg * 64);
+        wgmma_commit();
+        wgmma_wait_one();   // the slice before this one is read: give its stage back
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S4_STAGES]);
+      }
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % S4_STAGES]);   // the tile's last slice
+      epi(acc, m0 + wg * 64 + (warp & 3) * 16, nt, lane);
+    }
+  }
+}
+
+// SMs of the current device (the persistent kernels' grid).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Launch split4_kernel over n_tiles x ceil(M / BM) tiles, one block an SM
+// (or a tile, where there are fewer); returns the launch's error.
+template <bool PING, class Plan, class Epi>
+int launch_split4(const Maps& maps, const Plan& plan, const Epi& epi, int n_tiles, int M, int K,
+                  cudaStream_t st) {
+  auto kern = split4_kernel<PING, Plan, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S4_SMEM);
+  const int tiles = n_tiles * ((M + BM - 1) / BM);
+  if (tiles == 0) return 0;
+  kern<<<tiles < sm_count() ? tiles : sm_count(), THREADS, S4_SMEM, st>>>(maps, plan, epi,
+                                                                          n_tiles, tiles, K);
+  return (int)cudaGetLastError();
+}
+
+// split_product's product on split4_kernel.
+template <bool PING, class Epi>
+inline int split4_product(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                          const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                          cudaStream_t st) {
+  Maps maps{};
+  int err = map_a(&maps.m[0], a_hi, M, K, lda);
+  if (!err) err = map_a(&maps.m[1], a_lo, M, K, lda);
+  if (!err) err = map_b(&maps.m[2], b_hi, N, K, ldb);
+  if (!err) err = map_b(&maps.m[3], b_lo, N, K, ldb);
+  if (err) return err;
+  return launch_split4<PING>(maps, SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+}
+
 // The LayerNorm backward; with `part` (not null) also the gains' partial
 // sums, [ln_parts(M)][2 D].
 inline int ln_parts(int M) { return (M + LNG_ROWS - 1) / LNG_ROWS; }
@@ -516,20 +731,16 @@ inline int launch_colsum(const float* part, float* out, int P, int C, int ld, fl
 
 namespace ff {
 
-// The GEGLU's first product in fp32: maps 0 xn_hi, 1 xn_lo, 2 the hi plane
-// of the stacked weight [value rows; gate rows], 3 its lo plane; value rows
-// nt * 64 ... and the gate rows gate + nt * 64 ... of the same map (gate =
-// inner for w_in as stored, the padded row count in the backward's planes).
-// A value tile past inner reads gate (or zero) rows, a gate tile past the
-// map reads TMA's zeros: both land only in columns >= inner, which the
-// epilogues do not use.
+// The GEGLU's first product in fp32, on split4_kernel: maps 0 xn_hi, 1
+// xn_lo, 2 the hi plane of the stacked weight [value rows; gate rows], 3
+// its lo plane (the kernel reads a map's lo plane at the next map); value
+// rows nt * 64 ... and the gate rows gate + nt * 64 ... (gate = inner for
+// w_in as stored). A value tile past inner reads gate (or zero) rows, a
+// gate tile past the map reads TMA's zeros: both land only in columns >=
+// inner, which the epilogue does not use.
 struct GegluSplitPlan {
-  static constexpr int PASSES = 3;
   int gate;
-  __device__ sm90::TileSrc src(int nt, int pass) const {
-    const int a = pass == 1 ? 1 : 0, b = pass == 2 ? 3 : 2;
-    return {a, b, nt * 64, b, gate + nt * 64};
-  }
+  __device__ sm90::TileSrc src(int nt, int) const { return {0, 2, nt * 64, 2, gate + nt * 64}; }
 };
 
 }  // namespace ff

@@ -5,7 +5,9 @@ Replaces ct_clip_ut_tpu/ops/pallas_attn_packed.py:attention_block_packed
 `csrc/attn_packed.cu`, the spatial block's chain without the bias (LN
 pass, q / k / v on the Hopper GEMM core, the split-bf16 core, the output
 projection; `attn_block.launch_block` allocates its workspaces, and
-`launch_block_f32` those of its fp32 variant); its
+`launch_block_f32` those of its fp32 variant, whose products stage each K
+slice's four planes once and whose core at n <= 64 takes whole (sequence,
+head) items, `csrc/attn_fwd_packed.cuh`); its
 header says what bounds it on the H100 and what the design does about it.
 The TPU kernel's (token, head) packing is a Mosaic artefact, so the plain
 version is the block itself with no bias: the same math and rounding

@@ -4,8 +4,9 @@ Replaces ct_clip_ut_tpu/ops/pallas_ff.py:geglu_ff_fused. The CUDA chain is
 `csrc/geglu_ff.cu`; its header says what bounds it on the H100 and what the
 design does about it. `geglu_ff` launches it for CUDA tensors (bf16, or the
 fp32 variant `geglu_ff_f32` for fp32 tensors: three bf16 products of hi /
-lo planes for each fp32 product) and takes the plain version for CPU
-tensors; `geglu_ff_plain` is the same function in
+lo planes for each fp32 product, both products on the persistent
+split4_kernel of `csrc/split_sm90.cuh`, each K slice's four planes staged
+once) and takes the plain version for CPU tensors; `geglu_ff_plain` is the same function in
 plain PyTorch, with the TPU kernel's rounding points: LN (one-pass moments)
 rounded to the compute dtype, value and gate in fp32, h rounded before the
 second projection, the residual added in fp32.
@@ -107,12 +108,14 @@ def geglu_ff(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def _bf16_plane_rows(w_out: torch.Tensor) -> tuple:
-    """(fp32 w_out [D, ld], ld): its rows zero-padded to the 16-B pitch of
-    its bf16 planes (the fp32 chains' h / dvalue | dgate columns and W2's
-    rows), a copy made on this call where inner is not already that pitch."""
+def _bf16_plane_rows(w_out: torch.Tensor, align: int = _build.TMA_ALIGN) -> tuple:
+    """(fp32 w_out [D, ld], ld): its rows zero-padded to the `align`-B pitch
+    of its bf16 planes (the fp32 chains' h / dvalue | dgate columns and W2's
+    rows), a copy made on this call where inner is not already that pitch.
+    The forward takes 128 B, a whole 128-B swizzle row of a K slice: each
+    slice's TMA boxes then start on whole 128-B lines."""
     d, inner = w_out.shape
-    ld = _build.tma_pitch(inner)
+    ld = -(-inner * 2 // align) * align // 2
     if ld == inner:
         return w_out, ld
     w2 = w_out.new_zeros((d, ld))
@@ -137,7 +140,7 @@ def geglu_ff_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         _build.require(t, name, f32, shape, dev)
     if d % 8:
         raise ValueError(f"the geglu_ff kernels take a width that 8 divides, got {d}")
-    w2, ld = _bf16_plane_rows(w_out)
+    w2, ld = _bf16_plane_rows(w_out, 128)
     x, gamma, beta, w_in, w2 = (_build.aligned16(t) for t in (x, gamma, beta, w_in, w2))
     b16 = dict(dtype=torch.bfloat16, device=dev)
     work = (torch.empty((2, n, d), **b16), torch.empty((2, 2 * inner, d), **b16),

@@ -17,6 +17,16 @@ of ~1e-4). The one-pass control (every lo plane zero, one bf16 product for
 each fp32 one) misses each band. Last, the wrappers' routing by dtype,
 through a stand-in for the kernel library: fp32 CUDA tensors reach the
 fp32 entries with their workspaces, fp16 ones are refused.
+
+Two orders of work are emulated: the three passes above (`_product`: the
+form split_product keeps for the chains' other callers), and the order in
+which the forward chains of rows 1f-3f now take their products and their
+temporal core (`staged=True`): split4_kernel's K slices of 64, zero-filled
+past a ragged K (an inner of 85 or 42), each 16-deep step's a_hi b_lo, a_lo
+b_hi, a_hi b_hi added into one fp32 sum in that order; and at n <= 64
+without a bias the whole-item core, each (sequence, head) with its keys
+padded only to the mma tile of 16, the rows past n the next sequence's
+under P = 0, S formed once and P.V in 16-key steps.
 """
 
 import math
@@ -41,6 +51,11 @@ ATTN_TOL = 2e-5        # atol and rtol, tests/test_pallas.py:592
 # atol and rtol: three bf16 passes keep ~2^-16 of each product, and the FF's
 # two products read up to 1.04e-5 of the output's largest value here
 FF_TOL = 2e-5
+# the staged order's cases: the fp32 band the card holds rows 1f-3f to
+# (chip_smoke.py's F32_BAND); on their inputs either order of work reads
+# up to 2.4e-5 off the twins (the split's ~2^-16 a product, through the
+# planes of q, k, h and o)
+STAGED_TOL = 1e-4
 SCALE = 8.0
 
 
@@ -62,6 +77,22 @@ def _product(a, b):
     return ah @ t(bh) + al @ t(bh) + ah @ t(bl)
 
 
+def _staged_product(a, b):
+    """a . b^T as split4_kernel takes it: K zero-filled up to its 64-wide
+    slices, then each 16-deep step's a_hi b_lo, a_lo b_hi, a_hi b_hi added
+    in that order into one fp32 sum."""
+    (ah, al), (bh, bl) = a, b
+    k = ah.shape[-1]
+    pad = -k % 64
+    ah, al, bh, bl = (torch.nn.functional.pad(t, (0, pad)) for t in (ah, al, bh, bl))
+    acc = torch.zeros(ah.shape[:-1] + bh.shape[-2:-1])
+    for k0 in range(0, k + pad, 16):
+        step = slice(k0, k0 + 16)
+        for u, v in ((ah, bl), (al, bh), (ah, bh)):
+            acc = acc + u[..., step] @ v[..., step].transpose(-1, -2)
+    return acc
+
+
 def _ln_planes(x, gamma, beta, one_pass):
     """ln_split_kernel: one-pass moments, xn = LN(x) * gamma (+ beta) as planes."""
     mean = x.mean(-1, keepdim=True)
@@ -70,16 +101,19 @@ def _ln_planes(x, gamma, beta, one_pass):
     return _split(y if beta is None else y + beta, one_pass)
 
 
-def emulated_geglu_ff_f32(x, gamma, beta, w_in, w_out, residual=False, one_pass=False):
+def emulated_geglu_ff_f32(x, gamma, beta, w_in, w_out, residual=False, one_pass=False,
+                          staged=False):
     """ctc_geglu_ff_f32: the weights' split pass, xn's planes,
     GegluSplitPlan with h = gelu(gate) * value written as planes, SplitPlan
-    over h and W2 with the residual added in fp32."""
+    over h and W2 with the residual added in fp32 (staged: both products in
+    split4_kernel's order)."""
+    product = _staged_product if staged else _product
     inner = w_out.shape[1]
     xn = _ln_planes(x, gamma, beta, one_pass)
-    vg = _product(xn, _split(w_in, one_pass))
+    vg = product(xn, _split(w_in, one_pass))
     value, gate = vg[:, :inner], vg[:, inner:]
     h = 0.5 * gate * (1.0 + torch.erf(gate * 0.7071067811865476)) * value
-    out = _product(_split(h, one_pass), _split(w_out, one_pass))
+    out = product(_split(h, one_pass), _split(w_out, one_pass))
     return out + x if residual else out
 
 
@@ -89,16 +123,53 @@ def emulated_vq_f32(tok, cb, one_pass=False):
     return torch.argmax(_product(_split(tok, one_pass), _split(cb, one_pass)), dim=-1)
 
 
+def _whole_item_core(q, k, v, one_pass):
+    """The forward core at n <= 64 without a bias (attn_fwd_packed.cuh) on
+    q, k, v [r, h, n, dh]: a stage holds each plane of a sequence's heads as
+    one TMA box of nr = n rounded up to 8 rows a head, so the rows past n
+    are the next sequence's (zeros past the last); the keys are read in
+    8-key groups for S and 16-key steps for P.V, past n under P = 0. S =
+    q_hi k_lo + q_lo k_hi + q_hi k_hi; P = exp2(S log2 e - m log2 e) / l
+    over the row's n keys; o = the 16-key steps' p_lo v_hi + p_hi v_lo +
+    p_hi v_hi."""
+    n = q.shape[-2]
+    keys = -(-n // 16) * 16
+    planes = [*_split(q, one_pass), *_split(k, one_pass), *_split(v, one_pass)]
+
+    def rows(i):   # plane i's rows 0 .. keys - 1 of each sequence as the core reads them
+        t = planes[i]
+        after = torch.cat([t[1:], torch.zeros_like(t[:1])])
+        return torch.cat([t, after, torch.zeros_like(t)], dim=-2)[..., :keys, :]
+
+    s = torch.zeros(q.shape[:-1] + (keys,))
+    for pair in ((0, 3), (1, 2), (0, 2)):            # q_hi k_lo, q_lo k_hi, q_hi k_hi
+        s = s + planes[pair[0]] @ rows(pair[1]).transpose(-1, -2)
+    real = torch.arange(keys) < n
+    log2e = 1.4426950408889634
+    base = s.masked_fill(~real, -math.inf).amax(-1, keepdim=True) * log2e
+    e = torch.where(real, torch.exp2(s * log2e - base), torch.zeros(()))
+    p_hi, p_lo = _split(e * (1.0 / e.sum(-1, keepdim=True)), one_pass)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, keys, 16):
+        step = slice(k0, k0 + 16)
+        for pp, vi in ((p_lo, 4), (p_hi, 5), (p_hi, 4)):   # p_lo v_hi, p_hi v_lo, p_hi v_hi
+            o = o + pp[..., step] @ rows(vi)[..., step, :]
+    return o
+
+
 def emulated_block_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual=False,
-                       one_pass=False):
+                       one_pass=False, staged=False):
     """tc::block_forward_f32: ln_split_kernel (xn's and x's planes),
     QkvSplitPlan with QkvEpi (q, k l2-normed per head and scaled, v, all as
     planes), the fp32 core (split scores; two passes: the row max and sum,
     then p = exp(s - m) / l split in registers and P.V as p_lo v_hi + p_hi
-    v_lo + p_hi v_hi; o as planes), SplitPlan over o and Wo (+ x)."""
+    v_lo + p_hi v_hi; o as planes), SplitPlan over o and Wo (+ x). staged:
+    the products in split4_kernel's order, and without a bias at n <= 64 the
+    whole-item core."""
     r, n, d = x.shape
     dh = qs.shape[0]
     heads = wq.shape[0] // dh
+    product = _staged_product if staged else _product
     xn, xs = _ln_planes(x, gamma, None, one_pass), _split(x, one_pass)
 
     def heads_of(t):
@@ -107,18 +178,21 @@ def emulated_block_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual=F
     def unit(t, s):
         return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12) * s
 
-    q = unit(heads_of(_product(xn, _split(wq, one_pass))), qs * scale)
-    k = unit(heads_of(_product(xs, _split(wk, one_pass))), ks)
-    v = heads_of(_product(xs, _split(wv, one_pass)))
-    s = _product(_split(q, one_pass), _split(k, one_pass))
-    if bias is not None:
-        s = s + bias
-    m = s.amax(-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = e / e.sum(-1, keepdim=True)
-    o = _product(_split(p, one_pass), [t.transpose(-1, -2) for t in _split(v, one_pass)])
+    q = unit(heads_of(product(xn, _split(wq, one_pass))), qs * scale)
+    k = unit(heads_of(product(xs, _split(wk, one_pass))), ks)
+    v = heads_of(product(xs, _split(wv, one_pass)))
+    if staged and bias is None and n <= 64:
+        o = _whole_item_core(q, k, v, one_pass)
+    else:
+        s = _product(_split(q, one_pass), _split(k, one_pass))
+        if bias is not None:
+            s = s + bias
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        p = e / e.sum(-1, keepdim=True)
+        o = _product(_split(p, one_pass), [t.transpose(-1, -2) for t in _split(v, one_pass)])
     o = o.transpose(1, 2).reshape(r, n, heads * dh)
-    out = _product(_split(o, one_pass), _split(wo, one_pass))
+    out = product(_split(o, one_pass), _split(wo, one_pass))
     return out + x if residual else out
 
 
@@ -130,14 +204,22 @@ def _missed(got, want, tol) -> float:
 
 # ---- the attention blocks ------------------------------------------------------
 
-@pytest.mark.parametrize("r,n,with_bias,residual", [(3, 40, True, False), (2, 64, True, True),
-                                                    (4, 24, False, False), (6, 7, False, True)])
-def test_block_f32_chain_matches_the_jax_twin_and_kernel(r, n, with_bias, residual):
+# (r, n, bias, residual, staged): the three-pass cases keep their ids
+@pytest.mark.parametrize("r,n,with_bias,residual,staged", [
+    pytest.param(3, 40, True, False, False, id="3-40-True-False"),
+    pytest.param(2, 64, True, True, False, id="2-64-True-True"),
+    pytest.param(4, 24, False, False, False, id="4-24-False-False"),
+    pytest.param(6, 7, False, True, False, id="6-7-False-True"),
+    pytest.param(4, 24, False, True, True, id="staged-4-24-False-True"),
+    pytest.param(6, 7, False, False, True, id="staged-6-7-False-False"),
+    pytest.param(2, 40, True, True, True, id="staged-2-40-True-True")])
+def test_block_f32_chain_matches_the_jax_twin_and_kernel(r, n, with_bias, residual, staged):
     a = _attn_inputs(np.random.default_rng(n + r), r, n, 64, 4, 32, with_bias)
     args = _torch_attn_args(a)
     bias = torch.from_numpy(a["bias"]) if with_bias else None
-    got = emulated_block_f32(*args, bias, SCALE, residual).numpy()
-    control = emulated_block_f32(*args, bias, SCALE, residual, one_pass=True).numpy()
+    got = emulated_block_f32(*args, bias, SCALE, residual, staged=staged).numpy()
+    control = emulated_block_f32(*args, bias, SCALE, residual, one_pass=True,
+                                 staged=staged).numpy()
     j = {k: jnp.asarray(v) for k, v in a.items() if v is not None}
     jargs = (j["x"], j["gamma"], j["wq"], j["wk"], j["wv"], j["wo"], j["qs"], j["ks"])
     if with_bias:
@@ -147,27 +229,36 @@ def test_block_f32_chain_matches_the_jax_twin_and_kernel(r, n, with_bias, residu
         twin = packed_attention_xla(*jargs, SCALE, residual)
         kernel = attention_block_packed(*jargs, SCALE, True, residual)
     plain = attn_block.attn_block_plain(*args, bias, SCALE, residual).numpy()
+    tol = STAGED_TOL if staged else ATTN_TOL
     for want in (twin, kernel, plain):
-        np.testing.assert_allclose(got, np.asarray(want), atol=ATTN_TOL, rtol=ATTN_TOL)
-        assert _missed(control, want, ATTN_TOL) > 0
+        np.testing.assert_allclose(got, np.asarray(want), atol=tol, rtol=tol)
+        assert _missed(control, want, tol) > 0
 
 
 # ---- the FF --------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,dim,residual", [(20, 64, False), (77, 64, True), (33, 128, False)])
-def test_geglu_ff_f32_chain_matches_the_jax_twin_and_kernel(n, dim, residual):
+# (n, dim, residual, staged): inner 42 at dim 64, 85 at 128 (ragged K
+# slices); the three-pass cases keep their ids
+@pytest.mark.parametrize("n,dim,residual,staged", [
+    pytest.param(20, 64, False, False, id="20-64-False"),
+    pytest.param(77, 64, True, False, id="77-64-True"),
+    pytest.param(33, 128, False, False, id="33-128-False"),
+    pytest.param(20, 64, True, True, id="staged-20-64-True"),
+    pytest.param(33, 128, True, True, id="staged-33-128-True")])
+def test_geglu_ff_f32_chain_matches_the_jax_twin_and_kernel(n, dim, residual, staged):
     a = _ff_inputs(np.random.default_rng(n), n, dim)
     args = _torch_ff_args(a)
-    got = emulated_geglu_ff_f32(*args, residual).numpy()
-    control = emulated_geglu_ff_f32(*args, residual, one_pass=True).numpy()
+    got = emulated_geglu_ff_f32(*args, residual, staged=staged).numpy()
+    control = emulated_geglu_ff_f32(*args, residual, one_pass=True, staged=staged).numpy()
     j = {k: jnp.asarray(v) for k, v in a.items()}
     jargs = (j["x"], j["gamma"], j["beta"], j["wv"], j["wg"], j["w2"])
     twin = _xla_reference(*jargs, residual)
     kernel = geglu_ff_fused(*jargs, True, residual)
     plain = geglu_ff.geglu_ff_plain(*args, residual).numpy()
+    tol = STAGED_TOL if staged else FF_TOL
     for want in (twin, kernel, plain):
-        np.testing.assert_allclose(got, np.asarray(want), atol=FF_TOL, rtol=FF_TOL)
-        assert _missed(control, want, FF_TOL) > 0
+        np.testing.assert_allclose(got, np.asarray(want), atol=tol, rtol=tol)
+        assert _missed(control, want, tol) > 0
 
 
 # ---- the VQ --------------------------------------------------------------------
@@ -229,7 +320,8 @@ def test_fp32_tensors_reach_the_fp32_entries_and_fp16_is_refused(fake_card, kern
     if kernel == "geglu_ff":
         args = _torch_ff_args(_ff_inputs(rng, 20, 64))
         call = geglu_ff.geglu_ff
-        want_ints = (20, 64, 170, 176, 176, 0, 0)     # n, d, inner, ldh, ldw, residual, flags
+        # n, d, inner, ldh, ldw (the planes' rows padded to 128 B), residual, flags
+        want_ints = (20, 64, 170, 192, 192, 0, 0)
     elif kernel == "vq_nearest":
         args = (torch.randn(10, 64), torch.randn(30, 64))
         call = vq_nearest.vq_nearest

@@ -138,7 +138,7 @@ def test_build_sources_are_the_package_csrc():
                      "peg_wgrad.cu", "attn_qrows.cu", "geglu_ff_int8.cu",
                      "cosine_attention.cu", "gemm_sm90.cuh", "gemm_sm90_check.cu",
                      "attn_mma.cuh", "wgrad_sm90.cuh", "split_sm90.cuh", "attn_bwd_f32.cuh",
-                     "attn_bwd_wg.cuh", "attn_bwd_packed.cuh",
+                     "attn_bwd_wg.cuh", "attn_bwd_packed.cuh", "attn_fwd_packed.cuh",
                      "attn_block_bwd_f32.cu", "attn_packed_bwd_f32.cu", "geglu_ff_bwd_f32.cu",
                      "bert_f32.cuh", "bert_layer_bwd_f32.cu"}
     assert len(_build.source_hash()) == 16
