@@ -60,7 +60,7 @@ SIGNATURES = {
     "ctc_attn_packed_bwd_f32": [_P] * 34 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "ctc_geglu_ff_bwd": [_P] * 17 + [_I] * 5 + [_P],
     "ctc_geglu_ff_bwd_f32": [_P] * 18 + [_I] * 7 + [_P],
-    "ctc_bert_layer": [_P] * 27 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
+    "ctc_bert_layer": [_P] * 31 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd_f32": [_P] * 55 + [_I] * 6 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bf16": [_P] * 27 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],
     "ctc_bert_layer_bwd": [_P] * 53 + [_I] * 7 + [_F, _F, _U, _U, _F, _F, _P],

@@ -59,13 +59,8 @@ constexpr int WG_PASS_SMEM = WG_RING * WG_STAGE + 1024;  // + slack to align the
 
 // ---- PTX wrappers ----------------------------------------------------------------
 
-// Shared-memory descriptor of a K-major tile of 64-B rows written by TMA with
-// the 64-B swizzle: 8-row core groups 512 B apart (SBO); a 16-deep K step
-// inside the row adds 32 B to the start address.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
-         ((uint64_t)2 << 62);
-}
+// K-major tiles of 64-B rows with the 64-B swizzle (split_sm90.cuh)
+using sm90::desc_sw64;
 
 // The same tile read MN-major: its 64-B rows (32 columns) run along N, 8-row
 // core groups along K 512 B apart (SBO); a 16-deep K step is 1 KB.
@@ -670,21 +665,12 @@ bwd_dkv_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restric
 }
 
 // The map of a [rows, cols] bf16 plane (row stride ld) in boxes of 32
-// columns x box_rows rows with the 64-B swizzle; zeros outside. Returns 0
-// or an sm90 ERR_ code.
+// columns x box_rows rows with the 64-B swizzle (sm90::map_sw64; DH = 32
+// columns here).
 inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
                     int box_rows = WG_TILE) {
-  sm90::EncodeTiled fn = sm90::encode_tiled();
-  if (fn == nullptr) return sm90::ERR_NO_ENCODER;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)DH, (cuuint32_t)box_rows};
-  const cuuint32_t estrides[2] = {1, 1};
-  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                    strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                    CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : sm90::ERR_MAP;
+  static_assert(DH == 32, "the wgmma passes' planes are boxes of 32 columns");
+  return sm90::map_sw64(map, ptr, rows, cols, ld, box_rows);
 }
 
 // Launch both passes over R sequences of n tokens, H heads: qk [4][M][HD],

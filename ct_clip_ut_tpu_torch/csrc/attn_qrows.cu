@@ -77,24 +77,28 @@
 // products of hi / lo planes, within ~2^-16 of fp32 (split_sm90.cuh):
 //   split_kernel     the weights' planes (wq | wk | wv stacked, wo), per call;
 //   ln_split_kernel  xn = LN(x) * gamma and x itself as hi / lo planes;
-//   gemm_kernel      tc::QkvSplitPlan (q from xn, k and v from x, three
-//                    passes each); QkvEpi writes q and k (l2-normed, scaled,
-//                    not rounded) and v^T as hi / lo planes;
-//   core_kernel<F32> the same two passes over 64-key tiles, with the fp32
-//                    bias tile as two TMA boxes of 32 keys (128 B rows,
-//                    swizzled), the K and V^T tiles' hi and lo planes: the
-//                    scores as q_hi k_lo + q_lo k_hi + q_hi k_hi onto the
-//                    bias, p = exp(s - max) / sum in fp32 split into hi /
+//   split4_kernel    tc::QkvSplitPlan (q from xn, k and v from x, each K
+//                    slice's four planes staged once); QkvEpi writes q and
+//                    k (l2-normed, scaled, not rounded) and v^T as hi / lo
+//                    planes;
+//   core_f32_kernel  ONE pass over the 64-key tiles (where the bf16 core
+//                    takes two: at fp32 every rounding point is an
+//                    identity, so an online softmax computes the same
+//                    function within fp32 rounding), each tile's fp32 bias
+//                    (two TMA boxes of 32 keys, 128 B rows, swizzled) and
+//                    K's and V^T's hi and lo planes loaded once: the scores
+//                    as q_hi k_lo + q_lo k_hi + q_hi k_hi onto the bias,
+//                    each row's running max, o's fp32 accumulators rescaled
+//                    when it moves, p = exp(s - max) in fp32 split into hi /
 //                    lo A fragments in registers, P.V as p_lo v_hi + p_hi
-//                    v_lo + p_hi v_hi, o written as hi / lo planes. A block
-//                    takes 128 query rows (8 warps) whatever B: a stage is
-//                    64 KB (the bias tile 32 KB, four 8-KB planes), three
-//                    stages, one block an SM with up to 255 registers a
-//                    thread; P never reaches memory;
-//   gemm_kernel      SplitPlan o . Wo^T, the residual added in fp32.
+//                    v_lo + p_hi v_hi, o / sum at the end, written as hi /
+//                    lo planes. A block takes 128 query rows (8 warps)
+//                    whatever B, one block an SM; P never reaches memory;
+//   split4_32_kernel o . Wo^T, the residual added in fp32.
 // Its bound at MaskGit's shape: the fp32 table's 1.34 GB at 3.35 TB/s (0.40
-// ms) against ~297 GFLOP as three bf16 products (0.30 ms); the two passes
-// read the table twice, a floor of 0.80 ms.
+// ms) against ~297 GFLOP as three bf16 products (0.30 ms); the one pass
+// reads the table once (the first design's two passes twice, a floor of
+// 0.80 ms).
 #include <math_constants.h>
 
 #include "attn_mma.cuh"
@@ -196,47 +200,32 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// exp2: the fp32 core takes exp2f, the bf16 core the approximate ex2
-template <bool F32>
-__device__ __forceinline__ float exp2_of(float x) {
-  if constexpr (F32) {
-    return exp2f(x);
-  } else {
-    return ex2(x);
-  }
-}
-
-// maps of the core: 0 the bias [H*N, N] (boxes of R rows; fp32 boxes of 32
+// maps of the cores: 0 the bias [H*N, N] (boxes of R rows; fp32 boxes of 32
 // keys), 1 k [B*N, HD], 2 v^T [B*H*64, N] (boxes of 64 rows); the fp32
 // core's lo planes: 3 k_lo, 4 v^T_lo
 constexpr int MAP_BIAS = 0, MAP_K = 1, MAP_V = 2, MAP_K_LO = 3, MAP_V_LO = 4;
 
-// A block takes R query rows, R / 16 warps: 8 (two blocks an SM, one in
-// the fp32 core) or 16 (one).
+// The bf16 core: a block takes R query rows, R / 16 warps: 8 (two blocks
+// an SM) or 16 (one).
 __host__ __device__ constexpr int warps(int R) { return R / 16; }
-__host__ __device__ constexpr int bias_bytes(int R, bool F32) { return R * KT * (F32 ? 4 : 2); }
-__host__ __device__ constexpr int stage_bytes(int R, bool F32 = false) {
-  return bias_bytes(R, F32) + (F32 ? 4 : 2) * KV_BYTES;   // the bias tile, K and V^T (+ lo)
+__host__ __device__ constexpr int bias_bytes(int R) { return R * KT * 2; }
+__host__ __device__ constexpr int stage_bytes(int R) {
+  return bias_bytes(R) + 2 * KV_BYTES;   // the bias tile, K and V^T
 }
-__host__ __device__ constexpr int ring(int R, bool F32 = false) {
-  return F32 || warps(R) == 8 ? 3 : 4;
+__host__ __device__ constexpr int ring(int R) { return warps(R) == 8 ? 3 : 4; }
+__host__ __device__ constexpr int core_smem(int R) {
+  return ring(R) * stage_bytes(R) + 1024;   // + slack to align the ring to 1 KB
 }
-__host__ __device__ constexpr int core_smem(int R, bool F32 = false) {
-  return ring(R, F32) * stage_bytes(R, F32) + 1024;   // + slack to align the ring to 1 KB
-}
-constexpr int F32_ROWS = 128;   // query rows a block of the fp32 core
 
 // One block per (sequence, head, stripe of R query rows). Warp w takes rows
 // 16 w ... of the stripe; the four warps 4i .. 4i+3 form a warpgroup over
-// 64 rows. F32: q, o and the K / V^T maps as hi / lo planes (q's and o's lo
-// planes at + B N HD), the bias fp32; keep_lo 0 zeroes p's and o's lo.
-template <int R, bool BIAS, bool F32>
-__global__ void __launch_bounds__(warps(R) * 32, F32 ? 1 : 16 / warps(R))
+// 64 rows.
+template <int R, bool BIAS>
+__global__ void __launch_bounds__(warps(R) * 32, 16 / warps(R))
 core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16* __restrict__ o,
-            int N, int H, int HD, int keep_lo) {
-  constexpr int WARPS = warps(R), RING = ring(R, F32), STAGE = stage_bytes(R, F32);
-  constexpr int BIAS_BYTES = bias_bytes(R, F32);
-  constexpr int PLANES = F32 ? 2 : 1;   // K (and V^T) planes a tile
+            int N, int H, int HD) {
+  constexpr int WARPS = warps(R), RING = ring(R), STAGE = stage_bytes(R);
+  constexpr int BIAS_BYTES = bias_bytes(R);
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[RING];
   __shared__ int left[RING];   // warps yet to leave a stage in its current step
@@ -251,22 +240,12 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   auto load = [&](int it) {
     const int pass2 = it >= ntiles, tile = pass2 ? 2 * ntiles - 1 - it : it;
     const int s = it % RING;
-    mbar_expect_tx(&full[s], (BIAS ? BIAS_BYTES : 0) + (pass2 ? 2 : 1) * PLANES * KV_BYTES);
+    mbar_expect_tx(&full[s], (BIAS ? BIAS_BYTES : 0) + (pass2 ? 2 : 1) * KV_BYTES);
     char* st = stages + s * STAGE;
-    if (BIAS) {
-      tma_load_2d(st, &maps.m[MAP_BIAS], &full[s], tile * KT, h * N + q0);
-      if (F32)   // keys 32-63 of the tile: the second 128-B box
-        tma_load_2d(st + BIAS_BYTES / 2, &maps.m[MAP_BIAS], &full[s], tile * KT + KT / 2,
-                    h * N + q0);
-    }
+    if (BIAS) tma_load_2d(st, &maps.m[MAP_BIAS], &full[s], tile * KT, h * N + q0);
     char* kv = st + BIAS_BYTES;
     tma_load_2d(kv, &maps.m[MAP_K], &full[s], h * DH, item * N + tile * KT);
-    if (F32) tma_load_2d(kv + KV_BYTES, &maps.m[MAP_K_LO], &full[s], h * DH, item * N + tile * KT);
-    if (pass2) {
-      char* vv = kv + PLANES * KV_BYTES;
-      tma_load_2d(vv, &maps.m[MAP_V], &full[s], tile * KT, (item * H + h) * DH);
-      if (F32) tma_load_2d(vv + KV_BYTES, &maps.m[MAP_V_LO], &full[s], tile * KT, (item * H + h) * DH);
-    }
+    if (pass2) tma_load_2d(kv + KV_BYTES, &maps.m[MAP_V], &full[s], tile * KT, (item * H + h) * DH);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -297,10 +276,8 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   const int g = lane >> 2, t = lane & 3;
   const int wrow = warp * 16;
   const int ra = q0 + wrow + g, rb = ra + 8;
-  // q as wgmma's A in registers: the four 16-deep steps over the head (and
-  // its lo plane in the fp32 core)
-  const int64_t plane = (int64_t)gridDim.x * N * HD;
-  uint32_t qf[4][4], ql[F32 ? 4 : 1][4];
+  // q as wgmma's A in registers: the four 16-deep steps over the head
+  uint32_t qf[4][4];
   {
     const bf16* qb = q + ((int64_t)item * N + q0 + wrow) * HD + h * DH;
 #pragma unroll
@@ -308,11 +285,7 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rr = g + 8 * (i & 1), d = 16 * ks + 8 * (i >> 1) + 2 * t;
-        const bool in = q0 + wrow + rr < N;
-        qf[ks][i] = in ? *reinterpret_cast<const uint32_t*>(qb + (int64_t)rr * HD + d) : 0u;
-        if constexpr (F32)
-          ql[ks][i] =
-              in ? *reinterpret_cast<const uint32_t*>(qb + plane + (int64_t)rr * HD + d) : 0u;
+        qf[ks][i] = q0 + wrow + rr < N ? *reinterpret_cast<const uint32_t*>(qb + (int64_t)rr * HD + d) : 0u;
       }
     }
   }
@@ -331,14 +304,8 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
         float2 b = make_float2(0.f, 0.f);
         if (BIAS) {   // the TMA's 128-B swizzle: 16-B chunk c of row r at chunk c ^ (r % 8)
           const int r = wrow + g + 8 * hf;
-          if constexpr (F32) {   // key 8j + 2t: box j / 4, float kk of its row
-            const int kk = 8 * (j & 3) + 2 * t;
-            b = *reinterpret_cast<const float2*>(st + (j >> 2) * (BIAS_BYTES / 2) + r * 128 +
-                                                 (((kk >> 2) ^ (r & 7)) << 4) + 4 * (kk & 3));
-          } else {
-            b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t));
-          }
+          b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              st + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t));
         }
         s[4 * j + 2 * hf] = b.x;
         s[4 * j + 2 * hf + 1] = b.y;
@@ -347,13 +314,7 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
     const uint32_t kb = smem_u32(st + BIAS_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if constexpr (F32) {   // q_hi k_lo + q_lo k_hi, then q_hi k_hi
-        wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + KV_BYTES + 32 * ks));
-        wgmma_m64n64k16_rs(s, ql[ks], desc_sw128(kb + 32 * ks));
-      }
-      wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
-    }
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
     wgmma_commit();
   };
   // after the wait: keys past N at -inf
@@ -380,9 +341,9 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        sum += exp2_of<F32>(fmaf(s[4 * j + 2 * hf], LOG2E, -base)) +
-               exp2_of<F32>(fmaf(s[4 * j + 2 * hf + 1], LOG2E, -base));
-      l_r[hf] = l_r[hf] * exp2_of<F32>(fmaf(m_r[hf], LOG2E, -base)) + sum;
+        sum += ex2(fmaf(s[4 * j + 2 * hf], LOG2E, -base)) +
+               ex2(fmaf(s[4 * j + 2 * hf + 1], LOG2E, -base));
+      l_r[hf] = l_r[hf] * ex2(fmaf(m_r[hf], LOG2E, -base)) + sum;
       m_r[hf] = x;
     }
   };
@@ -405,18 +366,16 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
       if (it + 2 < ntiles) finish_scores(it + 2, sa);
     }
   }
-  // each row's max and sum over its quad; p = exp2(s log2 e - lb[hf]), in
-  // the fp32 core exp2(s log2 e - lb[hf]) * inv[hf] (the 1 / sum of 1f's core)
-  float lb[2], inv[2];
+  // each row's max and sum over its quad; p = exp2(s log2 e - lb[hf])
+  float lb[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float mq = fmaxf(m_r[hf], __shfl_xor_sync(0xffffffffu, m_r[hf], 1));
     mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
-    float lq = l_r[hf] * exp2_of<F32>(m_r[hf] * LOG2E - mq * LOG2E);
+    float lq = l_r[hf] * ex2(m_r[hf] * LOG2E - mq * LOG2E);
     lq += __shfl_xor_sync(0xffffffffu, lq, 1);
     lq += __shfl_xor_sync(0xffffffffu, lq, 2);
-    lb[hf] = F32 ? mq * LOG2E : mq * LOG2E + __log2f(lq);
-    inv[hf] = 1.f / lq;
+    lb[hf] = mq * LOG2E + __log2f(lq);
   }
 
   // pass 2, from the last tile to the first: p rounded to bf16, then P . V
@@ -428,35 +387,20 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
   wgmma_wait_all();
   finish_scores(ntiles - 1, sa);
   for (int it = ntiles; it < 2 * ntiles; ++it) {
-    uint32_t a[4][4], al[F32 ? 4 : 1][4];   // p of keys 16 ks ... as A fragments (hi, lo)
+    uint32_t a[4][4];   // p of keys 16 ks ... as A fragments
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int idx = 8 * ks + 2 * i, hf = i & 1;
-        if constexpr (F32) {
-          __nv_bfloat162 hv, lv;
-          split2(exp2f(fmaf(sa[idx], LOG2E, -lb[hf])) * inv[hf],
-                 exp2f(fmaf(sa[idx + 1], LOG2E, -lb[hf])) * inv[hf], keep_lo, hv, lv);
-          a[ks][i] = as_u32(hv);
-          al[ks][i] = as_u32(lv);
-        } else {
-          a[ks][i] = pack_bf16(ex2(fmaf(sa[idx], LOG2E, -lb[hf])),
-                               ex2(fmaf(sa[idx + 1], LOG2E, -lb[hf])));
-        }
+        a[ks][i] = pack_bf16(ex2(fmaf(sa[idx], LOG2E, -lb[hf])),
+                             ex2(fmaf(sa[idx + 1], LOG2E, -lb[hf])));
       }
     }
-    const uint32_t vb =
-        smem_u32(stages + (it % RING) * STAGE + BIAS_BYTES + PLANES * KV_BYTES);
+    const uint32_t vb = smem_u32(stages + (it % RING) * STAGE + BIAS_BYTES + KV_BYTES);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if constexpr (F32) {   // p_lo v_hi + p_hi v_lo, then p_hi v_hi
-        wgmma_m64n64k16_rs(oacc, al[ks], desc_sw128(vb + 32 * ks));
-        wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + KV_BYTES + 32 * ks));
-      }
-      wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
-    }
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
     wgmma_commit();
     if (it + 1 < 2 * ntiles) issue_scores(it + 1, sa);
     wgmma_wait_all();
@@ -472,10 +416,282 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
       const int r = hf ? rb : ra;
       if (r < N) {
         const int64_t off = (int64_t)r * HD + 8 * j + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(ob + off) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * hf], oacc[4 * j + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// ---- the fp32 core: one pass over the keys ---------------------------------
+
+// A block takes 128 query rows (8 warps, two warpgroups of 64) of one head
+// of one sequence, one block an SM. Its loads run through two rings: a
+// tile's fp32 bias (two TMA boxes of 32 keys, 128-B rows, swizzled) with
+// K's hi and lo planes, 48 KB a stage, three stages; V^T's hi and lo
+// planes, 16 KB a stage, four stages. A tile's scores read the first once
+// and free it, its P.V the second, so the first ring runs two tiles ahead
+// of the products (one 64-KB ring of three stages ran one ahead: ~64 KB in
+// flight an SM, 25 GB/s an SM, 1.03 ms for the core on the H100 80GB HBM3,
+// 700 W).
+constexpr int F32_ROWS = 128;
+constexpr int F32_WARPS = F32_ROWS / 16;
+constexpr int F32_BIAS_BYTES = F32_ROWS * KT * 4;
+constexpr int F32_SK = F32_BIAS_BYTES + 2 * KV_BYTES;   // bias, K hi / lo: 48 KB
+constexpr int F32_SV = 2 * KV_BYTES;                    // V^T hi / lo: 16 KB
+constexpr int F32_NK = 3, F32_NV = 4;                   // stages of the two rings
+constexpr int F32_SMEM = F32_NK * F32_SK + F32_NV * F32_SV + 1024;   // + slack to align to 1 KB
+
+// The fp32 core (ctc_attn_qrows_f32), every rounding point an identity: one
+// pass over the key tiles in order, each tile loaded once. Per tile: the
+// scores q_hi k_lo + q_lo k_hi + q_hi k_hi onto the bias tile; each row's
+// running max (its quad agrees on it: the row's o is spread over the quad);
+// alpha = exp(m_old - m_new) rescales o's fp32 accumulators and this
+// thread's partial row sum; p = exp(s - m_new) in fp32 (ex2.approx, within
+// ~2^-22 of exp, far inside the split's 2^-16; exp2f kept the core at 0.795
+// ms against 0.753 on the H100 80GB HBM3, 700 W) split into hi / lo A
+// fragments in registers; P.V as p_lo v_hi + p_hi v_lo + p_hi v_hi into o.
+// o is divided by the row sum once, at the end, and written as hi / lo
+// planes (q's and o's lo planes at + B N HD; keep_lo 0 zeroes p's and o's
+// lo). The scores of tile j + 1 are issued before tile j's softmax, and
+// tile j's P.V runs on beside tile j + 1's softmax; a stage goes back to
+// its ring once its products have completed (the last warp out refills it,
+// as in the bf16 core).
+template <bool BIAS>
+__global__ void __launch_bounds__(F32_WARPS * 32, 1)
+core_f32_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q,
+                bf16* __restrict__ o, int N, int H, int HD, int keep_lo) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full_k[F32_NK], full_v[F32_NV];
+  __shared__ int left_k[F32_NK], left_v[F32_NV];   // warps yet to leave a stage
+  char* ring_k = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                         ~static_cast<uintptr_t>(1023));
+  char* ring_v = ring_k + F32_NK * F32_SK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * F32_ROWS;
+  const int ntiles = (N + KT - 1) / KT;
+
+  auto load_k = [&](int tile) {   // the bias tile and K's planes
+    const int s = tile % F32_NK;
+    mbar_expect_tx(&full_k[s], (BIAS ? F32_BIAS_BYTES : 0) + 2 * KV_BYTES);
+    char* st = ring_k + s * F32_SK;
+    if (BIAS) {   // keys 0-31 and 32-63 of the tile: two 128-B boxes
+      tma_load_2d(st, &maps.m[MAP_BIAS], &full_k[s], tile * KT, h * N + q0);
+      tma_load_2d(st + F32_BIAS_BYTES / 2, &maps.m[MAP_BIAS], &full_k[s], tile * KT + KT / 2,
+                  h * N + q0);
+    }
+    char* kp = st + F32_BIAS_BYTES;
+    tma_load_2d(kp, &maps.m[MAP_K], &full_k[s], h * DH, item * N + tile * KT);
+    tma_load_2d(kp + KV_BYTES, &maps.m[MAP_K_LO], &full_k[s], h * DH, item * N + tile * KT);
+  };
+  auto load_v = [&](int tile) {   // V^T's planes
+    const int s = tile % F32_NV;
+    mbar_expect_tx(&full_v[s], 2 * KV_BYTES);
+    char* st = ring_v + s * F32_SV;
+    tma_load_2d(st, &maps.m[MAP_V], &full_v[s], tile * KT, (item * H + h) * DH);
+    tma_load_2d(st + KV_BYTES, &maps.m[MAP_V_LO], &full_v[s], tile * KT, (item * H + h) * DH);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_NK; ++s) {
+      mbar_init(&full_k[s], 1);
+      left_k[s] = F32_WARPS;
+    }
+    for (int s = 0; s < F32_NV; ++s) {
+      mbar_init(&full_v[s], 1);
+      left_v[s] = F32_WARPS;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int tile = 0; tile < F32_NK && tile < ntiles; ++tile) load_k(tile);
+    for (int tile = 0; tile < F32_NV && tile < ntiles; ++tile) load_v(tile);
+  }
+  __syncthreads();
+  // after a tile's products (every lane of this warp done with its stage):
+  // the last warp to leave refills the stage with the tile a ring later
+  auto release_k = [&](int tile) {
+    __syncwarp();
+    if (lane == 0) {
+      const int s = tile % F32_NK;
+      if (atomicAdd(&left_k[s], -1) == 1) {
+        atomicExch(&left_k[s], F32_WARPS);
+        if (tile + F32_NK < ntiles) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          load_k(tile + F32_NK);
+        }
+      }
+    }
+  };
+  auto release_v = [&](int tile) {
+    __syncwarp();
+    if (lane == 0) {
+      const int s = tile % F32_NV;
+      if (atomicAdd(&left_v[s], -1) == 1) {
+        atomicExch(&left_v[s], F32_WARPS);
+        if (tile + F32_NV < ntiles) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          load_v(tile + F32_NV);
+        }
+      }
+    }
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;
+  const int ra = q0 + wrow + g, rb = ra + 8;
+  // q's hi and lo planes as wgmma's A in registers: four 16-deep steps
+  const int64_t plane = (int64_t)gridDim.x * N * HD;
+  uint32_t qf[4][4], ql[4][4];
+  {
+    const bf16* qb = q + ((int64_t)item * N + q0 + wrow) * HD + h * DH;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = g + 8 * (i & 1), d = 16 * ks + 8 * (i >> 1) + 2 * t;
+        const bool in = q0 + wrow + rr < N;
+        const int64_t off = (int64_t)rr * HD + d;
+        qf[ks][i] = in ? *reinterpret_cast<const uint32_t*>(qb + off) : 0u;
+        ql[ks][i] = in ? *reinterpret_cast<const uint32_t*>(qb + plane + off) : 0u;
+      }
+    }
+  }
+
+  // tile `tile`'s scores, issued: s = the bias tile's rows, then q_hi k_lo
+  // + q_lo k_hi + q_hi k_hi over the head's four 16-deep steps (not waited
+  // for); s[4j + 2hf + e] is row g + 8 hf, key 8j + 2t + e of the tile
+  auto issue_scores = [&](int tile, float (&s)[32]) {
+    const int s_ = tile % F32_NK;
+    mbar_wait(&full_k[s_], (tile / F32_NK) & 1);
+    const char* st = ring_k + s_ * F32_SK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float2 b = make_float2(0.f, 0.f);
+        if (BIAS) {   // key 8j + 2t: box j / 4, float kk of its 128-B row (swizzled)
+          const int r = wrow + g + 8 * hf, kk = 8 * (j & 3) + 2 * t;
+          b = *reinterpret_cast<const float2*>(st + (j >> 2) * (F32_BIAS_BYTES / 2) + r * 128 +
+                                               (((kk >> 2) ^ (r & 7)) << 4) + 4 * (kk & 3));
+        }
+        s[4 * j + 2 * hf] = b.x;
+        s[4 * j + 2 * hf + 1] = b.y;
+      }
+    }
+    const uint32_t kb = smem_u32(st + F32_BIAS_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + KV_BYTES + 32 * ks));
+      wgmma_m64n64k16_rs(s, ql[ks], desc_sw128(kb + 32 * ks));
+      wgmma_m64n64k16_rs(s, qf[ks], desc_sw128(kb + 32 * ks));
+    }
+    wgmma_commit();
+  };
+  // after the wait: keys past N at -inf
+  auto finish_scores = [&](int tile, float (&s)[32]) {
+    fence_regs(s);
+    if ((tile + 1) * KT > N) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (tile * KT + 8 * (i >> 2) + 2 * t + (i & 1) >= N) s[i] = -CUDART_INF_F;
+    }
+  };
+
+  float m_r[2] = {-CUDART_INF_F, -CUDART_INF_F};   // each row's running max (quad-uniform)
+  float l_r[2] = {0.f, 0.f};                       // this thread's part of each row's sum
+  float oacc[32], sa[32], sb[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  // tile `tile` of the loop, its scores finished in `cur`: tile + 1's
+  // scores issued into `nxt` first, then this tile's softmax beside them
+  // (and beside the previous tile's P.V); then every wgmma group waited for
+  // (o and nxt are written only when none is in flight: ptxas serializes
+  // wgmma otherwise), o rescaled and this tile's P.V issued, left running
+  // into the next step
+  auto step = [&](int tile, float (&cur)[32], float (&nxt)[32]) {
+    const bool next = tile + 1 < ntiles;
+    if (next) issue_scores(tile + 1, nxt);
+    // the rows' new maxima over their quads (every row has a real key in
+    // tile 0, so no max is -inf from there on), alpha = exp(m_old - m_new)
+    float mb[2], alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = m_r[hf];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x = fmaxf(x, fmaxf(cur[4 * j + 2 * hf], cur[4 * j + 2 * hf + 1]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      mb[hf] = x * LOG2E;
+      alpha[hf] = ex2(fmaf(m_r[hf], LOG2E, -mb[hf]));
+      m_r[hf] = x;
+    }
+    // p = exp(s - m_new) in fp32: the partial row sums, hi / lo A fragments
+    uint32_t a[4][4], al[4][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int idx = 8 * ks + 2 * i, hf = i & 1;
+        const float p0 = ex2(fmaf(cur[idx], LOG2E, -mb[hf]));
+        const float p1 = ex2(fmaf(cur[idx + 1], LOG2E, -mb[hf]));
+        sum[hf] += p0 + p1;
         __nv_bfloat162 hv, lv;
-        split2(oacc[4 * j + 2 * hf], oacc[4 * j + 2 * hf + 1], F32 && keep_lo, hv, lv);
+        split2(p0, p1, keep_lo, hv, lv);
+        a[ks][i] = as_u32(hv);
+        al[ks][i] = as_u32(lv);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l_r[hf] = l_r[hf] * alpha[hf] + sum[hf];
+    wgmma_wait_all();   // the previous tile's P.V and tile + 1's scores
+    if (next) release_k(tile + 1);
+    if (tile > 0) release_v(tile - 1);
+    if (next) finish_scores(tile + 1, nxt);
+    fence_regs(oacc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    mbar_wait(&full_v[tile % F32_NV], (tile / F32_NV) & 1);
+    const uint32_t vb = smem_u32(ring_v + (tile % F32_NV) * F32_SV);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {   // p_lo v_hi + p_hi v_lo, then p_hi v_hi
+      wgmma_m64n64k16_rs(oacc, al[ks], desc_sw128(vb + 32 * ks));
+      wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + KV_BYTES + 32 * ks));
+      wgmma_m64n64k16_rs(oacc, a[ks], desc_sw128(vb + 32 * ks));
+    }
+    wgmma_commit();
+  };
+  issue_scores(0, sa);
+  wgmma_wait_all();
+  release_k(0);
+  finish_scores(0, sa);
+  for (int tile = 0; tile < ntiles; tile += 2) {
+    step(tile, sa, sb);
+    if (tile + 1 < ntiles) step(tile + 1, sb, sa);
+  }
+  wgmma_wait_all();
+  fence_regs(oacc);
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lq = l_r[hf] + __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+    inv[hf] = 1.f / lq;
+  }
+  bf16* ob = o + (int64_t)item * N * HD + h * DH;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = hf ? rb : ra;
+      if (r < N) {
+        const int64_t off = (int64_t)r * HD + 8 * j + 2 * t;
+        __nv_bfloat162 hv, lv;
+        split2(oacc[4 * j + 2 * hf] * inv[hf], oacc[4 * j + 2 * hf + 1] * inv[hf], keep_lo, hv,
+               lv);
         *reinterpret_cast<__nv_bfloat162*>(ob + off) = hv;
-        if constexpr (F32) *reinterpret_cast<__nv_bfloat162*>(ob + plane + off) = lv;
+        *reinterpret_cast<__nv_bfloat162*>(ob + plane + off) = lv;
       }
     }
   }
@@ -484,13 +700,23 @@ core_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ q, bf16*
 // The core's query rows a block for a batch of B (see the header).
 inline int core_rows(int B) { return B == 1 ? 256 : 128; }
 
-template <int R, bool BIAS, bool F32 = false>
+template <int R, bool BIAS>
 int launch_core(const Maps& maps, const bf16* q, bf16* o, int B, int N, int H, int HD,
-                int keep_lo, cudaStream_t st) {
-  auto kern = core_kernel<R, BIAS, F32>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem(R, F32));
+                cudaStream_t st) {
+  auto kern = core_kernel<R, BIAS>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, core_smem(R));
   dim3 grid(B, H, (N + R - 1) / R);
-  kern<<<grid, warps(R) * 32, core_smem(R, F32), st>>>(maps, q, o, N, H, HD, keep_lo);
+  kern<<<grid, warps(R) * 32, core_smem(R), st>>>(maps, q, o, N, H, HD);
+  return (int)cudaGetLastError();
+}
+
+template <bool BIAS>
+int launch_core_f32(const Maps& maps, const bf16* q, bf16* o, int B, int N, int H, int HD,
+                    int keep_lo, cudaStream_t st) {
+  auto kern = core_f32_kernel<BIAS>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+  dim3 grid(B, H, (N + F32_ROWS - 1) / F32_ROWS);
+  kern<<<grid, F32_WARPS * 32, F32_SMEM, st>>>(maps, q, o, N, H, HD, keep_lo);
   return (int)cudaGetLastError();
 }
 
@@ -538,10 +764,10 @@ extern "C" int ctc_attn_qrows(const void* x, const void* gamma, const void* wq, 
                            M, HD, tiles, N, ldv},
                     3 * tiles, M, D, st);
   if (err) return err;
-  typedef int (*Core)(const Maps&, const bf16*, bf16*, int, int, int, int, int, cudaStream_t);
+  typedef int (*Core)(const Maps&, const bf16*, bf16*, int, int, int, int, cudaStream_t);
   static const Core cores[2][2] = {{launch_core<128, false>, launch_core<128, true>},
                                    {launch_core<256, false>, launch_core<256, true>}};
-  err = cores[R == 256][bias != nullptr](core, qb, ob, B, N, H, HD, 1, st);
+  err = cores[R == 256][bias != nullptr](core, qb, ob, B, N, H, HD, st);
   if (err) return err;
   return launch_gemm(outm, LinearPlan{},
                      ResidualEpi{static_cast<bf16*>(out), static_cast<const bf16*>(x), M, D,
@@ -597,16 +823,16 @@ extern "C" int ctc_attn_qrows_f32(const void* x, const void* gamma, const void* 
     err = launch_ln_split(static_cast<const float*>(x), static_cast<const float*>(gamma), nullptr,
                           nullptr, xp, xp + md, xp + 2 * md, xp + 3 * md, M, D, 1e-5f, keep, st);
   if (err) return err;
-  err = launch_gemm(proj, ctc::tc::QkvSplitPlan{tiles},
-                    QkvEpi{qp, kp, vp, static_cast<const float*>(qs),
-                           static_cast<const float*>(ks), scale, M, HD, tiles, N, ldv, qp + mh,
-                           kp + mh, vp + vsz, keep},
-                    3 * tiles, M, D, st);
+  err = launch_split4<false>(proj, ctc::tc::QkvSplitPlan{tiles},
+                             QkvEpi{qp, kp, vp, static_cast<const float*>(qs),
+                                    static_cast<const float*>(ks), scale, M, HD, tiles, N, ldv,
+                                    qp + mh, kp + mh, vp + vsz, keep},
+                             3 * tiles, M, D, st);
   if (err) return err;
-  err = bias != nullptr ? launch_core<F32_ROWS, true, true>(core, qp, op, B, N, H, HD, keep, st)
-                        : launch_core<F32_ROWS, false, true>(core, qp, op, B, N, H, HD, keep, st);
+  err = bias != nullptr ? launch_core_f32<true>(core, qp, op, B, N, H, HD, keep, st)
+                        : launch_core_f32<false>(core, qp, op, B, N, H, HD, keep, st);
   if (err) return err;
-  return split_product(op, op + mh, HD, wop, wop + wsz, HD, M, D, HD,
+  return split4_product32<false>(op, op + mh, HD, wop, wop + wsz, HD, M, D, HD,
                        F32OutEpi{static_cast<float*>(out), nullptr,
                                  residual ? static_cast<const float*>(x) : nullptr, M, D},
                        st);

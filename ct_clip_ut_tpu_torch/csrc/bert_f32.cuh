@@ -20,8 +20,12 @@
 //
 //   split_kernel x 5          x and the four weight matrices as hi / lo
 //                             bf16 planes (per call)
-//   gemm_kernel<SplitPlan>    qkv = x Wqkv^T + bqkv as hi / lo planes
-//                             (SplitEpi)
+//   split4 product            qkv = x Wqkv^T + bqkv as hi / lo planes
+//                             (SplitEpi); every product stages a K slice's
+//                             four planes once (split_sm90.cuh's
+//                             split4_kernel, split4_32_kernel or
+//                             split4_64_kernel by the product's tiles:
+//                             `product` below)
 //   attn_kernel               per (sequence, head, 64 queries), mma.sync
 //                             split-bf16 scores and P.V with an online
 //                             softmax in fp32 over 64-key chunks staged by
@@ -33,13 +37,21 @@
 //                             Philox counter is the absolute position: the
 //                             same bits); with STATS each row's (max, 1 /
 //                             sum) and the keep mask as bits for the backward
-//   gemm_kernel<SplitPlan>    r1 = (ctx Wo^T + bo) keep1 + x (HiddenF32Epi;
+//   split4 product            r1 = (ctx Wo^T + bo) keep1 + x (HiddenF32Epi;
 //                             F32OutEpi with the hidden sites off)
 //   ln_split_kernel           y = LN1(r1) in fp32 and as hi / lo planes
-//   gemm_kernel<SplitPlan>    g = gelu(y W1^T + b1) as hi / lo planes (the
+//   split4 product            g = gelu(y W1^T + b1) as hi / lo planes (the
 //                             pre-activation in fp32 too, for the backward)
-//   gemm_kernel<SplitPlan>    r2 = (g W2^T + b2) keep2 + y (the same)
-//   ln_split_kernel           out = LN2(r2) (left out by the backward)
+//   split4 product            r2 = (g W2^T + b2) keep2 + y (the same)
+//   ln_split_kernel           out = LN2(r2) (left out by the backward's
+//                             rerun)
+// Where the caller keeps the chain's state for the backward (the train
+// step's forward under autograd), the workspaces hold what
+// bert_layer_bwd_f32.cu reads: every plane, fp32 r1, y, r2 and h1, each
+// attention row's (max, 1 / sum) and the keep bits; the backward then
+// starts at LN2's backward instead of rerunning this chain. A rerun (the
+// backward called with nothing kept) makes the same launches with the same
+// flags, so the two give the same bits.
 #pragma once
 
 #include "bert_bf16.cuh"
@@ -60,7 +72,7 @@ using tc::ldsm_x4;
 using tc::ldsm_x4_t;
 using tc::mma16816;
 
-constexpr int ONE_PASS = 1, NO_SKIP = 2;
+constexpr int ONE_PASS = 1, NO_SKIP = 2, KEPT = 4;
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
@@ -408,12 +420,22 @@ attn_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
 
 // ---- host side ------------------------------------------------------------------
 
-// The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo).
+// The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo),
+// each K slice's four planes staged once (split_sm90.cuh): 64-row tiles
+// where 128-row ones are fewer than the SMs (the width-768 products at a
+// train step's 1,024 rows), the persistent 128-row split4_kernel with
+// ping-pong warpgroups where each block has four or more tiles (the
+// prompts' 18,432 rows), and between the two (the QKV and W1 products at
+// 1,024 rows: 144 and 192 tiles) 32-deep slices at two blocks an SM.
 template <class Epi>
 inline int product(const bf16* a, const bf16* b, int M, int N, int K, const Epi& epi,
                    cudaStream_t st) {
-  return sm90::split_product(a, a + (int64_t)M * K, K, b, b + (int64_t)N * K, K, M, N, K, epi,
-                             st);
+  const bf16 *a_lo = a + (int64_t)M * K, *b_lo = b + (int64_t)N * K;
+  if (sm90::rows64(M, N))
+    return sm90::split4_product64<false>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
+  if (sm90::tiles128(M, N) >= 4 * sm90::sm_count())
+    return sm90::split4_product<true>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
+  return sm90::split4_product32<false>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
 }
 
 // The chain's workspaces: bf16 hi / lo planes [2][rows][cols] of x, wqkv,

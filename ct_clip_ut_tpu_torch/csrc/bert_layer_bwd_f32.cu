@@ -3,12 +3,14 @@
 // where its rounding points are identities: the fp32 train step's
 // 512-token reports (TrainConfig(compute_dtype="float32")).
 //
-// Like the TPU kernel it saves nothing between forward and backward: given
-// x, the key mask, the seeds, the weights and the output cotangent it runs
-// the fp32 forward chain again (bert_f32.cuh, every key chunk walked, each
-// attention row's (max, 1 / sum) and the attention keep mask's bits kept;
-// the masks are functions of the seeds and positions only), then the steps
-// of bert_layer_bwd.cu:
+// The TPU kernel saves nothing between forward and backward and recomputes
+// the forward. Here the train step's forward keeps its state (KEPT: the
+// planes of x, the weights, qkv, ctx, y and g; fp32 r1, y, r2 and h1; each
+// attention row's (max, 1 / sum) and the attention keep bits; ~80 MB a
+// layer at B = 2, n = 512), and the backward starts at LN2's backward; a
+// call with nothing kept first runs the fp32 forward chain again
+// (bert_f32.cuh) with the same launches and flags, which gives the same
+// bits. Then the steps of bert_layer_bwd.cu:
 //   LN2 backward -> do2 = dr2 keep2 -> dW2 = do2^T g, db2,
 //   dh1 = (do2 W2) gelu'(h1) -> dW1 = dh1^T y, db1, dy = dr2 + dh1 W1,
 //   LN1 backward -> do1 = dr1 keep1 -> dWo = do1^T ctx, dbo, dctx = do1 Wo,
@@ -17,19 +19,22 @@
 //   probabilities, dq = ds k, dk = ds^T q,
 //   dWqkv = dqkv^T x, dbqkv, dx = dr1 + dqkv Wqkv,
 // every product three bf16 products of hi / lo planes with fp32 sums, every
-// other value fp32. Launches after the forward's:
+// other value fp32. Launches (after the forward's, where it is rerun):
 //   ln_drop_bwd_kernel     dr2 = LN2'(dout) fp32 and do2 = dr2 keep2 as hi /
 //                          lo planes; the block's partial sums of dgamma2,
-//                          dbeta2 and db2 (no atomics)
-//   gemm_kernel            dh1 = (do2 W2) gelu'(h1) as planes (SplitKNPlan:
-//                          W2's planes read MN-major as stored;
-//                          GeluBwdSplitEpi with db1's 16-row partial sums)
-//   wgrad_kernel           dW2 | dW1 in one three-pass launch (SplitPairPlan,
-//                          144 + 144 tiles at D = 768, F = 3072)
-//   gemm_kernel            dy = dr2 + dh1 W1 (fp32, in place of dr2)
+//                          dbeta2 and db2 (no atomics); 8 rows a block (one
+//                          a warp): 128 blocks at 1,024 rows
+//   split4_32_kernel       dh1 = (do2 W2) gelu'(h1) as planes (W2's planes
+//                          read MN-major as stored; GeluBwdSplitEpi with
+//                          db1's 16-row partial sums); every backward
+//                          product stages a K slice's four planes once
+//                          (split_sm90.cuh: 32-deep slices at two blocks
+//                          an SM here, 64-row tiles for the width-768 ones
+//                          below)
+//   split4_64_kernel       dy = dr2 + dh1 W1 (fp32, in place of dr2)
 //   ln_drop_bwd_kernel     dr1 = LN1'(dy), do1 = dr1 keep1 as planes; dgamma1,
 //                          dbeta1, dbo partials
-//   gemm_kernel            dctx = do1 Wo as planes (SplitOutEpi)
+//   split4_64_kernel       dctx = do1 Wo as planes (SplitOutEpi)
 //   dq_f32_kernel<true>    each row's and head's D = sum_j p_ij keep_ij dp_ij
 //                          from the same split scores and dP = dctx V^T as
 //                          the query and key passes form (below): a D from
@@ -38,33 +43,40 @@
 //                          cancel in dP - D, ~2^-16 of those terms, and a
 //                          third plane on dP alone did not bring them back
 //   dq_f32_kernel<false>   per (64 queries, head, sequence): the split scores
-//                          and dP = dctx V^T over 64-key chunks (K, V planes
-//                          staged by cp.async, double-buffered), p from the
-//                          saved (max, 1 / sum), the keep bits, ds, dq += ds
-//                          K (split) -> dq planes and 16-row partial sums
+//                          and dP = dctx V^T over the live 64-key chunks (K,
+//                          V planes staged by cp.async, double-buffered), p
+//                          from the saved (max, 1 / sum), the keep bits, ds,
+//                          dq += ds K (split) -> dq planes and 16-row
+//                          partial sums
 //   dkv_f32_kernel         per (64 keys, head, sequence): S^T = K Q^T and
 //                          dP^T = V dctx^T over 64-query chunks (Q, dctx
 //                          planes, each query's statistics and keep words
-//                          staged), dv += p_used^T dctx, dk += ds^T q (split)
-//   wgrad_kernel           dWo | dWqkv in one three-pass launch (36 + 108
-//                          tiles)
-//   gemm_kernel            dx = dr1 + dqkv Wqkv (fp32)
+//                          staged), dv += p_used^T dctx, dk += ds^T q (split);
+//                          a chunk of keys the mask removes entirely writes
+//                          zeros
+//   wgrad4_kernel          dW2, dW1, dWo, dWqkv in one launch, each token
+//                          slice's four planes staged once (SplitQuadPlan,
+//                          144 + 144 + 36 + 108 tiles)
+//   split4_64_kernel       dx = dr1 + dqkv Wqkv (fp32)
 //   colsum_kernel x 8      dbqkv, db1, dgamma1, dbeta1, dbo, dgamma2, dbeta2,
 //                          db2 from the partial rows, in order
 // Every sum runs in a fixed order without atomics: two calls give the same
-// bits.
+// bits. The row term, the query pass and the key pass each form the split
+// S and dP: a walk fewer needs ds kept between passes (the key pass's ds
+// through memory into a dq product), not built here.
 //
 // What bounds it on the H100: tensor-core operations. The backward's
 // products, 4 B n D (3D + D + 2F) + 8 B heads n^2 dh (48.3 GFLOP at B = 2,
-// n = 512, D = 768, F = 3072), as three bf16 products each: 145 GFLOP,
-// 0.147 ms at the bf16 peak, and the recompute forward's 0.049 ms more. What
-// the design loses most to: the key pass holds K and V hi / lo fragments
-// and the dk and dv accumulators in registers (128 of them a thread before
-// any temporary) with four warps a block; both passes recompute the split
-// scores (S and dP twice each); the forward walks every key chunk (no
-// masked-chunk skipping here); 192 blocks of four warps at n = 512 fill the
-// SMs' warp slots thinly. A simple chain that is right: making it fast is
-// later work.
+// n = 512, D = 768, F = 3072, every key), as three bf16 products each: 145
+// GFLOP, 0.147 ms at the bf16 peak (and a rerun forward's 0.049 ms more).
+// What the design loses most to: the key pass holds K and V hi / lo
+// fragments and the dk and dv accumulators in registers (128 of them a
+// thread before any temporary) with four warps a block; the three passes
+// form the split S and dP three times; 192 blocks of four warps a pass at n
+// = 512 fill the SMs' warp slots thinly (the query and key passes in one
+// launch, 384 blocks, ran slower on the H100: the key pass's 247 registers
+// then held every block to two an SM, PERF.md); the weight gradients' 432
+// tiles take four rounds of the SMs for 3.3 rounds of work.
 #include "attn_bwd_f32.cuh"
 #include "bert_f32.cuh"
 
@@ -117,7 +129,7 @@ struct GeluBwdSplitEpi {
 
 // ---- the LayerNorm backward with a hidden dropout site --------------------------
 
-constexpr int LND_ROWS = 64;   // rows a block (8 a warp)
+constexpr int LND_ROWS = 8;    // rows a block (one a warp): 128 blocks at 1,024 rows
 
 // dr = the backward of y = LN(r) gamma + beta against dout, all fp32 [M, D]
 // (D a multiple of 4), the moments recomputed from r in the one-pass form of
@@ -229,9 +241,32 @@ __device__ __forceinline__ void col_partial(const float (&v)[4], bool va, bool v
   if (g == 0) *reinterpret_cast<float2*>(prow + col) = make_float2(s0, s1);
 }
 
+// Whether a sequence's mask row keeps any key (the warp's answer).
+__device__ __forceinline__ bool has_real(const float* mrow, int n, int lane) {
+  bool any_real = false;
+  for (int k = lane; k < n; k += 32) any_real |= mrow[k] > REAL;
+  return __any_sync(0xffffffffu, any_real);
+}
+
+// The first key chunk from c on that holds a key the mask keeps, or nch: a
+// sequence with a real key (any_real) skips the chunks its mask removes
+// entirely, where p is exactly 0 (the forward core skips them too and
+// writes no keep bits there). Every warp reaches the same answer from the
+// same mask row.
+__device__ __forceinline__ int next_live(const float* mrow, int n, int nch, int c, int lane,
+                                         bool any_real) {
+  if (!any_real) return c;
+  for (; c < nch; ++c) {
+    const int k0 = c * KC + lane, k1 = k0 + 32;
+    const bool dead = (k0 >= n || mrow[k0] < MASKED) && (k1 >= n || mrow[k1] < MASKED);
+    if (!__all_sync(0xffffffffu, dead)) break;
+  }
+  return c;
+}
+
 // The query pass. qkv and dctx as hi / lo planes ([2][B n][3D], [2][B n][D]),
 // rowstat [B, heads, n] (max, 1 / sum, D, -), keep as attn_kernel<true, true>
-// wrote it. One block per (64 query rows, head h, sequence b); the key
+// wrote it. One block per (64 query rows, head h, sequence b); the live key
 // chunks' K and V planes staged by cp.async, double-buffered (ATTN_SMEM).
 // dq goes to dqkv's planes [2][B n][3D] at columns h 64 ..., and the fp32
 // sums of each warp's rows to part [B ceil(n / 16)][3D]. ROW_TERM: the same
@@ -277,20 +312,24 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  stage(0, 0);
-  for (int c = 0; c < nch; ++c) {
+  const bool any_real = has_real(mrow, n, lane);
+  int c = next_live(mrow, n, nch, 0, lane, any_real), buf = 0;
+  if (c < nch) stage(c, 0);
+  for (; c < nch; buf ^= 1) {
     asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();  // chunk c is in its buffer; every warp is done with the other one
-    if (c + 1 < nch) stage(c + 1, (c + 1) & 1);
+    __syncthreads();  // chunk c is in `buf`; every warp is done with the other buffer
+    const int cur = c;
+    c = next_live(mrow, n, nch, c + 1, lane, any_real);
+    if (c < nch) stage(c, buf ^ 1);
     if (!live) continue;
-    const uint32_t kh = sbase + (c & 1) * STAGE_B, kl = kh + PLANE_B, vh = kl + PLANE_B,
+    const uint32_t kh = sbase + buf * STAGE_B, kl = kh + PLANE_B, vh = kl + PLANE_B,
                    vl = vh + PLANE_B;
     unsigned wa[2] = {~0u, ~0u}, wb[2] = {~0u, ~0u};
     if (drop_on) {
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
-        wa[w] = va ? keep[(bhd * n + ra) * words + 2 * c + w] : 0u;
-        wb[w] = vb ? keep[(bhd * n + rb) * words + 2 * c + w] : 0u;
+        wa[w] = va ? keep[(bhd * n + ra) * words + 2 * cur + w] : 0u;
+        wb[w] = vb ? keep[(bhd * n + rb) * words + 2 * cur + w] : 0u;
       }
     }
 #pragma unroll
@@ -298,7 +337,7 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
       uint32_t ah[4], al[4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int jt = 2 * ks + u, key = c * KC + 8 * jt + 2 * t;
+        const int jt = 2 * ks + u, key = cur * KC + 8 * jt + 2 * t;
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, ds[4];
         split_rows8(s, qh, ql, kh, kl, 8 * jt, lane);
         split_rows8(dp, dh, dl, vh, vl, 8 * jt, lane);
@@ -407,6 +446,33 @@ dkv_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
       }
     }
   };
+  // keys the mask removes entirely (in a sequence with a real key): p is 0,
+  // so dk and dv are zeros, the bits a walk over the queries would give
+  if (next_live(mask + seq0, n, nch, blockIdx.x, lane, has_real(mask + seq0, n, lane)) !=
+      blockIdx.x) {
+    if (!live) return;
+    const int64_t ld3 = 3 * (int64_t)D;
+    float* prow = part + ((int64_t)b * ((n + 15) / 16) + k0 / 16) * ld3;
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int col = (1 + which) * D + h * DH + 8 * dt + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = r ? key_b : key_a;
+          if (key < n) {
+            *reinterpret_cast<__nv_bfloat162*>(dkv_hi + (seq0 + key) * ld3 + col) = z2;
+            *reinterpret_cast<__nv_bfloat162*>(dkv_lo + (seq0 + key) * ld3 + col) = z2;
+          }
+        }
+        col_partial(zero, va, vb, prow, col, g);
+      }
+    }
+    return;
+  }
   uint32_t kh[4][4], kl[4][4], vh[4][4], vl[4][4];
   load_a64(kh, qkv_hi + seq0 * ld + D + h * DH, ld, k0, n, lane);
   load_a64(kl, qkv_lo + seq0 * ld + D + h * DH, ld, k0, n, lane);
@@ -489,51 +555,95 @@ dkv_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
 
 // ---- the weight gradients ------------------------------------------------------
 
-// Two fp32 weight gradients in one three-pass launch of wgrad_sm90.cuh's
-// kernel: C0 = A0^T B0 [rows0, cols0] (maps 0 / 1 A0's hi / lo planes, 2 /
-// 3 B0's; output 0) on tiles [0, tiles0), then C1 = A1^T B1 [rows1, cols1]
-// (maps 4 / 5, 6 / 7; output 1); each row-major over 128 x 128 tiles.
-struct SplitPairPlan {
-  static constexpr int PASSES = 3;
-  int rows0, col_tiles0, tiles0, rows1, col_tiles1;
+// The layer's four fp32 weight gradients in one launch of wgrad_sm90.cuh's
+// staged kernel (wgrad4_kernel: each token slice's four planes at once),
+// C_i = A_i^T B_i [rows_i, cols_i] for i = 0 .. 3 (dW2, dW1, dWo, dWqkv:
+// maps 4 i / 4 i + 1 A_i's hi / lo planes, 4 i + 2 / 4 i + 3 B_i's; output
+// i), each row-major over 128 x 128 tiles, product i on tiles [first_i,
+// first_{i+1}). One launch of 432 tiles at D = 768, F = 3,072 fills four
+// rounds of 132 SMs, where two launches of 288 and 144 tiles took three
+// and two.
+struct SplitQuadPlan {
+  int rows[4], col_tiles[4], first[4];
   __device__ WgradTile tile(int t) const {
-    const bool second = t >= tiles0;
-    const int u = second ? t - tiles0 : t, ct = second ? col_tiles1 : col_tiles0;
-    const int rows = second ? rows1 : rows0;
+    const int i = t >= first[3] ? 3 : t >= first[2] ? 2 : t >= first[1] ? 1 : 0;
+    // selected, not indexed: a runtime index would put the arrays on the stack
+    const int u = t - (i == 3 ? first[3] : i == 2 ? first[2] : i == 1 ? first[1] : 0);
+    const int ct = i == 3 ? col_tiles[3] : i == 2 ? col_tiles[2] : i == 1 ? col_tiles[1]
+                                                                           : col_tiles[0];
+    const int r = i == 3 ? rows[3] : i == 2 ? rows[2] : i == 1 ? rows[1] : rows[0];
     const int i0 = (u / ct) * sm90::BM, j0 = (u % ct) * BN;
-    return {second ? 4 : 0, second ? 6 : 2, i0, j0, second ? 1 : 0, i0, min(sm90::BM, rows - i0)};
+    return {4 * i, 4 * i + 2, i0, j0, i, i0, min(sm90::BM, r - i0)};
   }
 };
 
-// dW0 [r0, c0] = A0^T B0 and dW1 [r1, c1] = A1^T B1 over M tokens, each
-// operand hi / lo planes [2][M][cols] bf16, the outputs fp32 written whole.
-inline int wgrad_pair_f32(const bf16* a0, const bf16* b0, float* w0, int r0, int c0,
-                          const bf16* a1, const bf16* b1, float* w1, int r1, int c1, int M,
+// out[o] [rows, cols[o]] fp32 = the tile's sums (rows orow0 + r, r < nrows;
+// columns below cols[o], even), four outputs
+struct Wgrad4StoreEpi {
+  float* out[4];
+  int cols[4];
+  __device__ void operator()(const float (&acc)[64], const WgradTile& tile, int r0,
+                             int lane) const {
+    const int g = lane >> 2, t = lane & 3, o = tile.out;
+    float* base = o == 3 ? out[3] : o == 2 ? out[2] : o == 1 ? out[1] : out[0];
+    const int nc = o == 3 ? cols[3] : o == 2 ? cols[2] : o == 1 ? cols[1] : cols[0];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r >= tile.nrows) continue;
+      float* row = base + (int64_t)(tile.orow0 + r) * nc;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = tile.j0 + 8 * j + 2 * t;
+        if (c < nc)
+          *reinterpret_cast<float2*>(row + c) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+// dW_i [r_i, c_i] = A_i^T B_i over M tokens for four (A_i, B_i), each
+// operand hi / lo planes [2][M][cols] bf16, the outputs fp32 written whole
+// (c_i even).
+inline int wgrad_quad_f32(const bf16* const (&a)[4], const bf16* const (&b)[4],
+                          float* const (&w)[4], const int (&r)[4], const int (&c)[4], int M,
                           cudaStream_t st) {
-  MapsN<8> maps{};
-  const bf16* const src[4] = {a0, b0, a1, b1};
-  const int cols[4] = {r0, c0, r1, c1};
+  MapsN<16> maps{};
   int err = 0;
+  SplitQuadPlan plan{};
+  Wgrad4StoreEpi epi{};
+  int tiles = 0;
   for (int i = 0; i < 4 && !err; ++i) {
-    err = sm90::map_mn(&maps.m[2 * i], src[i], M, cols[i], cols[i]);
-    if (!err)
-      err = sm90::map_mn(&maps.m[2 * i + 1], src[i] + (int64_t)M * cols[i], M, cols[i], cols[i]);
+    const bf16* const src[2] = {a[i], b[i]};
+    const int cols[2] = {r[i], c[i]};
+    for (int k = 0; k < 2 && !err; ++k) {
+      err = sm90::map_mn(&maps.m[4 * i + 2 * k], src[k], M, cols[k], cols[k]);
+      if (!err)
+        err = sm90::map_mn(&maps.m[4 * i + 2 * k + 1], src[k] + (int64_t)M * cols[k], M, cols[k],
+                           cols[k]);
+    }
+    plan.rows[i] = r[i];
+    plan.col_tiles[i] = (c[i] + BN - 1) / BN;
+    plan.first[i] = tiles;
+    tiles += (r[i] + sm90::BM - 1) / sm90::BM * plan.col_tiles[i];
+    epi.out[i] = w[i];
+    epi.cols[i] = c[i];
   }
   if (err) return err;
-  const int ct0 = (c0 + BN - 1) / BN, ct1 = (c1 + BN - 1) / BN;
-  const int tiles0 = (r0 + sm90::BM - 1) / sm90::BM * ct0;
-  const int tiles1 = (r1 + sm90::BM - 1) / sm90::BM * ct1;
-  const sm90::WgradStoreEpi epi{{w0, w1}, {c0, c1}, {c0, c1}};
-  return sm90::launch_wgrad_sm90(maps, SplitPairPlan{r0, ct0, tiles0, r1, ct1}, epi,
-                                 tiles0 + tiles1, M, st);
+  return sm90::launch_wgrad4_sm90(maps, plan, epi, tiles, M, st);
 }
 
-// A product with B a weight's planes [2][K][N] read as stored (SplitKNPlan).
+// A product with B a weight's planes [2][K][N] read as stored, each K slice's
+// four planes staged once: 64-row tiles where 128-row ones are fewer than
+// the SMs (the width-768 products at a train step's 1,024 rows), else
+// 32-deep slices at two blocks an SM (dh1: 192 tiles).
 template <class Epi>
 inline int product_kn(const bf16* a, const bf16* b, int M, int N, int K, const Epi& epi,
                       cudaStream_t st) {
-  return sm90::split_product_kn(a, a + (int64_t)M * K, K, b, b + (int64_t)K * N, N, M, N, K, epi,
-                                st);
+  const bf16 *a_lo = a + (int64_t)M * K, *b_lo = b + (int64_t)K * N;
+  if (sm90::rows64(M, N))
+    return sm90::split4_product64<true>(a, a_lo, K, b, b_lo, N, M, N, K, epi, st);
+  return sm90::split4_product32<true>(a, a_lo, K, b, b_lo, N, M, N, K, epi, st);
 }
 
 }  // namespace bert
@@ -552,8 +662,10 @@ using namespace ctc::bert;
 // written whole: dx [B*n, D]; dwqkv [3D, D], dbqkv [3D], dwo [D, D], dbo,
 // dg1, dbe1 [D], dw1 [F, D], db1 [F], dw2 [D, F], db2, dg2, dbe2 [D], all
 // fp32. D = heads * 64, a multiple of 128; F a multiple of 8; n a multiple
-// of 4. flags: ONE_PASS (every lo plane zeroed: the control). Every pointer
-// 16-B aligned.
+// of 4. flags: ONE_PASS (every lo plane zeroed: the control), KEPT (the
+// workspaces x_s ... keep already hold the state ctc_bert_layer kept with
+// the same inputs and flags: the forward is not rerun). Every pointer 16-B
+// aligned.
 extern "C" int ctc_bert_layer_bwd_f32(
     const void* x, const void* mask, const void* seeds, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, const void* g1, const void* be1, const void* w1,
@@ -577,8 +689,10 @@ extern "C" int ctc_bert_layer_bwd_f32(
   const Dropout drop{(const int*)seeds, thresh_attn, thresh_hidden, scale_attn, scale_hidden};
   const float* xf = static_cast<const float*>(x);
   const float* maskf = static_cast<const float*>(mask);
-  int err = forward_chain_f32(xf, maskf, w, ws, nullptr, drop, B, n, D, F, heads, flags | NO_SKIP,
-                              eps, scale, st);
+  int err = 0;
+  if (!(flags & KEPT))
+    err = forward_chain_f32(xf, maskf, w, ws, nullptr, drop, B, n, D, F, heads, flags & ONE_PASS,
+                            eps, scale, st);
   if (err) return err;
 
   const int64_t md = (int64_t)M * D;
@@ -593,8 +707,6 @@ extern "C" int ctc_bert_layer_bwd_f32(
     err = product_kn(do2, ws.w2_s, M, F, D, GeluBwdSplitEpi{ws.h1, dh1, dh1 + (int64_t)M * F, pb1,
                                                             M, F, keep_lo},
                      st);
-  if (!err)
-    err = wgrad_pair_f32(do2, ws.h_s, (float*)dw2, D, F, dh1, ws.y_s, (float*)dw1, F, D, M, st);
   if (!err)
     err = product_kn(dh1, ws.w1_s, M, D, F, ctc::sm90::F32OutEpi{dr2f, nullptr, dr2f, M, D}, st);
   if (!err)
@@ -623,10 +735,11 @@ extern "C" int ctc_bert_layer_bwd_f32(
                                                     maskf, ws.rowstat, ws.keep, drop, dqkv,
                                                     dqkv + 3 * md, pqkv, n, D, scale, keep_lo);
   err = (int)cudaGetLastError();
-  // dWo | dWqkv, then dx = dr1 + dqkv Wqkv
+  // dW2, dW1, dWo, dWqkv in one launch, then dx = dr1 + dqkv Wqkv
   if (!err)
-    err = wgrad_pair_f32(do1, ws.ctx_s, (float*)dwo, D, D, dqkv, ws.x_s, (float*)dwqkv, 3 * D, D,
-                         M, st);
+    err = wgrad_quad_f32({do2, dh1, do1, dqkv}, {ws.h_s, ws.y_s, ws.ctx_s, ws.x_s},
+                         {(float*)dw2, (float*)dw1, (float*)dwo, (float*)dwqkv}, {D, F, D, 3 * D},
+                         {F, D, D, D}, M, st);
   if (!err)
     err = product_kn(dqkv, ws.wqkv_s, M, D, 3 * D,
                      ctc::sm90::F32OutEpi{(float*)dx, nullptr, dr1f, M, D}, st);

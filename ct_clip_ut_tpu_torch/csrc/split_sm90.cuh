@@ -29,6 +29,14 @@
 //                    staged once and its three bf16 products issued from
 //                    that stage (the backward's MN-major products; the
 //                    forward chains' K-major ones, persistent)
+//   split4_product32 / split4_32_kernel
+//                    the same at K slices of 32, two blocks an SM (products
+//                    of one to four rounds of 128 x 128 tiles)
+//   split4_product64 / split4_64_kernel
+//                    the same at 64-row tiles, the K slices alternating
+//                    between the warpgroups (products of fewer 128-row
+//                    tiles than SMs: the fp32 BERT layer's N = 768 ones at
+//                    a train step's 1,024 rows)
 //   ln_bwd_f32_kernel the LayerNorm backward of fp32 rows (the fp32
 //                    backward chains' last launch); with GRADS also each
 //                    block's partial sums of the gains' gradients
@@ -697,6 +705,299 @@ inline int split4_product(const bf16* a_hi, const bf16* a_lo, int64_t lda, const
   if (!err) err = map_b(&maps.m[3], b_lo, N, K, ldb);
   if (err) return err;
   return launch_split4<PING>(maps, SplitPlan{}, epi, (N + BN - 1) / BN, M, K, st);
+}
+
+// The same staged products at 64-row tiles, for products of fewer 128 x 128
+// tiles than the card has SMs (the fp32 BERT layer's of width 768 at a
+// train step's M = B n = 1,024 rows: 48 tiles of 128 x 128, 96 of 64 x
+// 128). A block takes one 64 x 128 tile: one
+// producer warp feeds a ring of stages, each a K slice's four planes (A's
+// hi / lo 64 rows: boxes of 64 rows, map_b's; B's hi / lo as two 64-row
+// halves each, K-major [N, K] as stored weights of the forward, or with
+// B_MN a [K, N] weight read as stored, map_mn's); consumer warpgroup w
+// takes the slices kt with kt % 2 == w into its own accumulator, a_hi b_lo,
+// a_lo b_hi, a_hi b_hi from each stage, and keeps one slice's wgmma group
+// in flight; at the end each warp pair (warp q of both warpgroups, the same
+// 16 rows) meets in shared memory and one of the pair adds the other's
+// sums (a + b: the same bits on every call) and runs the epilogue with
+// gemm_kernel's interface. A stage is 48 KB, four stages.
+constexpr int S64_SPLIT_STAGES = 4;
+constexpr int S64_SPLIT_STAGE = 2 * A64_BYTES + 4 * B_HALF_BYTES;
+constexpr int S64_SPLIT_SMEM = S64_SPLIT_STAGES * S64_SPLIT_STAGE + RED64_BYTES + 1024;
+
+template <bool B_MN, class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+split4_64_kernel(const __grid_constant__ Maps maps, const Epi epi, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S64_SPLIT_STAGES], empty[S64_SPLIT_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  float* red = reinterpret_cast<float*>(ring + S64_SPLIT_STAGES * S64_SPLIT_STAGE);
+  const int nt = blockIdx.x, m0 = blockIdx.y * 64, n0 = nt * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S64_SPLIT_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS / 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S64_SPLIT_STAGES, k0 = kt * BK;
+        mbar_wait(&empty[s], ((kt / S64_SPLIT_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], S64_SPLIT_STAGE);
+        char* a = ring + s * S64_SPLIT_STAGE;
+        char* b = a + 2 * A64_BYTES;
+        for (int lo = 0; lo < 2; ++lo) {
+          tma_load_2d(a + lo * A64_BYTES, &maps.m[lo], &full[s], k0, m0);
+          char* bp = b + 2 * lo * B_HALF_BYTES;
+          if constexpr (B_MN) {
+            tma_load_2d(bp, &maps.m[2 + lo], &full[s], n0, k0);
+            tma_load_2d(bp + B_HALF_BYTES, &maps.m[2 + lo], &full[s], n0 + 64, k0);
+          } else {
+            tma_load_2d(bp, &maps.m[2 + lo], &full[s], k0, n0);
+            tma_load_2d(bp + B_HALF_BYTES, &maps.m[2 + lo], &full[s], k0, n0 + 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int kt = wg; kt < nk; kt += 2) {
+    const int s = kt % S64_SPLIT_STAGES;
+    mbar_wait(&full[s], (kt / S64_SPLIT_STAGES) & 1);
+    const uint32_t ah = smem_u32(ring + s * S64_SPLIT_STAGE), al = ah + A64_BYTES;
+    const uint32_t bh = ah + 2 * A64_BYTES, bl = bh + 2 * B_HALF_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t a_hi = desc_sw128(ah + kk * 32), a_lo = desc_sw128(al + kk * 32);
+      if constexpr (B_MN) {
+        const uint64_t b_hi = desc_mn_sw128(bh + kk * 2048, B_HALF_BYTES);
+        wgmma_m64n128k16_kn(acc, a_hi, desc_mn_sw128(bl + kk * 2048, B_HALF_BYTES));
+        wgmma_m64n128k16_kn(acc, a_lo, b_hi);
+        wgmma_m64n128k16_kn(acc, a_hi, b_hi);
+      } else {
+        const uint64_t b_hi = desc_sw128(bh + kk * 32);
+        wgmma_m64n128k16(acc, a_hi, desc_sw128(bl + kk * 32));
+        wgmma_m64n128k16(acc, a_lo, b_hi);
+        wgmma_m64n128k16(acc, a_hi, b_hi);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_one();   // this warpgroup's slice before this one is read: give its stage back
+    if (kt >= 2 && lane == 0) mbar_arrive(&empty[(kt - 2) % S64_SPLIT_STAGES]);
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  // rows 16 q ... (q = warp % 4) finish in warpgroup 0 for q < 2 and in
+  // warpgroup 1 for q >= 2: the other warp of the pair hands over its sums
+  const int q = warp & 3, slot = q * 32 + lane;
+  const bool finisher = (wg == 0) == (q < 2);
+  if (!finisher) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) red[i * 128 + slot] = acc[i];
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_WARPS * 32) : "memory");
+  if (finisher) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += red[i * 128 + slot];
+    epi(acc, m0 + q * 16, nt, lane);
+  }
+}
+
+// Shared-memory descriptor of a K-major tile of 64-B rows written by TMA with
+// the 64-B swizzle: 8-row core groups 512 B apart (SBO); a 16-deep K step
+// inside the row adds 32 B to the start address.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
+// The map of a [rows, cols] bf16 matrix (row stride ld) in boxes of 32
+// columns x box_rows rows with the 64-B swizzle; zeros outside. Returns 0
+// or an ERR_ code.
+inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64_t ld,
+                    int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {32u, (cuuint32_t)box_rows};
+  const cuuint32_t estrides[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                  box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_MAP;
+}
+
+// The staged products at K slices of 32 and two blocks an SM, for products
+// of one to four rounds of 128 x 128 tiles (the fp32 BERT layer's QKV, W1
+// and dh1 products at a train step's 1,024 rows: 144 and 192 tiles). There
+// split4_kernel's one block an SM left 12 or 60 SMs a second round, and
+// 64-row tiles read as many bytes as three passes: both ran slower than
+// the three-pass gemm_kernel at two blocks an SM (H100 80GB HBM3, 700 W;
+// PERF.md). Here a stage holds a 32-deep K slice's four planes (A's 128
+// rows hi / lo, 8 KB each, and B's two 64-row halves hi / lo, 4 KB each;
+// 64-B swizzle, or B_MN: a weight [K, N] read as stored, boxes of 64
+// columns x 32 K rows with the 128-B swizzle), 32 KB, three stages, so two
+// blocks share an SM and every tile of such a product is in flight at once.
+// The warpgroups split the tile's rows; a_hi b_lo, a_lo b_hi, a_hi b_hi
+// from each stage into one accumulator, in order: the same bits every call.
+constexpr int BK32 = 32;
+constexpr int S32_A = BM * BK32 * 2;              // one plane of A's 128 rows: 8 KB
+constexpr int S32_BH = 64 * BK32 * 2;             // one plane of a B half: 4 KB
+constexpr int S32_STAGE = 2 * S32_A + 4 * S32_BH; // 32 KB
+constexpr int S32_STAGES = 3;
+constexpr int S32_SMEM = S32_STAGES * S32_STAGE + 1024;   // + slack to align the ring to 1 KB
+
+template <bool B_MN, class Epi>
+__global__ void __launch_bounds__(THREADS, 2)
+split4_32_kernel(const __grid_constant__ Maps maps, const Epi epi, int K) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S32_STAGES], empty[S32_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const int nt = blockIdx.x, m0 = blockIdx.y * BM, n0 = nt * BN;
+  const int nk = (K + BK32 - 1) / BK32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S32_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S32_STAGES, k0 = kt * BK32;
+        mbar_wait(&empty[s], ((kt / S32_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], S32_STAGE);
+        char* a = ring + s * S32_STAGE;
+        char* b = a + 2 * S32_A;
+        for (int lo = 0; lo < 2; ++lo) {
+          tma_load_2d(a + lo * S32_A, &maps.m[lo], &full[s], k0, m0);
+          char* bp = b + 2 * lo * S32_BH;
+          if constexpr (B_MN) {
+            tma_load_2d(bp, &maps.m[2 + lo], &full[s], n0, k0);
+            tma_load_2d(bp + S32_BH, &maps.m[2 + lo], &full[s], n0 + 64, k0);
+          } else {
+            tma_load_2d(bp, &maps.m[2 + lo], &full[s], k0, n0);
+            tma_load_2d(bp + S32_BH, &maps.m[2 + lo], &full[s], k0, n0 + 64);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % S32_STAGES;
+    mbar_wait(&full[s], (kt / S32_STAGES) & 1);
+    const uint32_t ah = smem_u32(ring + s * S32_STAGE) + wg * (64 * BK32 * 2), al = ah + S32_A;
+    const uint32_t bh = smem_u32(ring + s * S32_STAGE + 2 * S32_A), bl = bh + 2 * S32_BH;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK32 / 16; ++kk) {
+      const uint64_t a_hi = desc_sw64(ah + kk * 32), a_lo = desc_sw64(al + kk * 32);
+      if constexpr (B_MN) {
+        const uint64_t b_hi = desc_mn_sw128(bh + kk * 2048, S32_BH);
+        wgmma_m64n128k16_kn(acc, a_hi, desc_mn_sw128(bl + kk * 2048, S32_BH));
+        wgmma_m64n128k16_kn(acc, a_lo, b_hi);
+        wgmma_m64n128k16_kn(acc, a_hi, b_hi);
+      } else {
+        const uint64_t b_hi = desc_sw64(bh + kk * 32);
+        wgmma_m64n128k16(acc, a_hi, desc_sw64(bl + kk * 32));
+        wgmma_m64n128k16(acc, a_lo, b_hi);
+        wgmma_m64n128k16(acc, a_hi, b_hi);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_one();   // the slice before this one is read: give its stage back
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S32_STAGES]);
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+  epi(acc, m0 + wg * 64 + (warp & 3) * 16, nt, lane);
+}
+
+// split4_32_kernel's product of A's planes (hi, lo: [M, K], row stride lda)
+// and B's (B_MN: [K, N] as stored, else [N, K]; row stride ldb); every
+// pointer 16-B aligned, strides multiples of 8.
+template <bool B_MN, class Epi>
+inline int split4_product32(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                            const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                            cudaStream_t st) {
+  Maps maps{};
+  int err = map_sw64(&maps.m[0], a_hi, M, K, lda, BM);
+  if (!err) err = map_sw64(&maps.m[1], a_lo, M, K, lda, BM);
+  if constexpr (B_MN) {
+    if (!err) err = make_map(&maps.m[2], b_hi, K, N, ldb, BK32);
+    if (!err) err = make_map(&maps.m[3], b_lo, K, N, ldb, BK32);
+  } else {
+    if (!err) err = map_sw64(&maps.m[2], b_hi, N, K, ldb, 64);
+    if (!err) err = map_sw64(&maps.m[3], b_lo, N, K, ldb, 64);
+  }
+  if (err) return err;
+  auto kern = split4_32_kernel<B_MN, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S32_SMEM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kern<<<grid, THREADS, S32_SMEM, st>>>(maps, epi, K);
+  return (int)cudaGetLastError();
+}
+
+// 128 x 128 tiles of an M x N product
+inline int64_t tiles128(int M, int N) {
+  return (int64_t)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+}
+
+// Whether a product of M x N takes 64-row tiles (split4_64_kernel): fewer
+// 128 x 128 tiles than the card has SMs. (At 144 and 192 tiles the 64-row
+// tiles ran slower than split4_32_kernel: H100 80GB HBM3, 700 W, PERF.md.)
+inline bool rows64(int M, int N) { return tiles128(M, N) < sm_count(); }
+
+// The staged split product of A's planes (hi, lo: [M, K], row stride lda)
+// and B's (B_MN: [K, N] as stored, else [N, K]; row stride ldb) on 64-row
+// tiles; every pointer 16-B aligned, strides multiples of 8.
+template <bool B_MN, class Epi>
+inline int split4_product64(const bf16* a_hi, const bf16* a_lo, int64_t lda, const bf16* b_hi,
+                            const bf16* b_lo, int64_t ldb, int M, int N, int K, const Epi& epi,
+                            cudaStream_t st) {
+  Maps maps{};
+  int err = map_b(&maps.m[0], a_hi, M, K, lda);   // boxes of 64 rows
+  if (!err) err = map_b(&maps.m[1], a_lo, M, K, lda);
+  if constexpr (B_MN) {
+    if (!err) err = map_mn(&maps.m[2], b_hi, K, N, ldb);
+    if (!err) err = map_mn(&maps.m[3], b_lo, K, N, ldb);
+  } else {
+    if (!err) err = map_b(&maps.m[2], b_hi, N, K, ldb);
+    if (!err) err = map_b(&maps.m[3], b_lo, N, K, ldb);
+  }
+  if (err) return err;
+  auto kern = split4_64_kernel<B_MN, Epi>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S64_SPLIT_SMEM);
+  dim3 grid((N + BN - 1) / BN, (M + 63) / 64);
+  kern<<<grid, THREADS, S64_SPLIT_SMEM, st>>>(maps, epi, K);
+  return (int)cudaGetLastError();
 }
 
 // The LayerNorm backward; with `part` (not null) also the gains' partial

@@ -230,6 +230,112 @@ int launch_wgrad_sm90(const MapsT& maps, const Plan& plan, const Epi& epi, int t
   return err;
 }
 
+// The split-bf16 weight gradients with each token slice's four planes
+// staged once: a stage holds A's hi and lo planes and B's (each two boxes of
+// 64 columns x 64 tokens, as wgrad_kernel's), 64 KB, three stages, and a
+// consumer warpgroup takes a_hi b_lo, a_lo b_hi, a_hi b_hi from it into one
+// accumulator, one slice's wgmma group in flight while the next is issued.
+// wgrad_kernel's three-pass plans walk the tokens three times and read A's
+// and B's hi planes twice from L2 (the fp32 BERT layer's weight gradients
+// read at ~4 TB/s from L2 on the H100 80GB HBM3, 700 W, PERF.md). The accumulator is added
+// into fp32 sums in registers every WG4_FLUSH slices (wgmma's accumulation
+// drifts without; wgrad_kernel's smem sums would not fit beside the
+// stages), started again from zero, and the sums go through the
+// epilogue. One block a tile over every token, in order: no atomics, the
+// same bits every call. The plan names each tile's hi maps (a, b); each lo
+// plane's map is the next one.
+constexpr int WG4_STAGES = 3;
+constexpr int WG4_STAGE = 2 * STAGE_BYTES;
+constexpr int WG4_SMEM = WG4_STAGES * WG4_STAGE + 1024;
+constexpr int WG4_FLUSH = 2;
+
+template <class Plan, class Epi, class MapsT>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad4_kernel(const __grid_constant__ MapsT maps, const Plan plan, const Epi epi, int tokens) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG4_STAGES], empty[WG4_STAGES];
+  char* ring = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~static_cast<uintptr_t>(1023));
+  const WgradTile tile = plan.tile(blockIdx.x);
+  const int nk = (tokens + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG4_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG4_STAGES, k0 = kt * BK;
+        mbar_wait(&empty[s], ((kt / WG4_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], WG4_STAGE);
+        for (int lo = 0; lo < 2; ++lo) {   // hi planes, then lo
+          char* a = ring + s * WG4_STAGE + lo * STAGE_BYTES;
+          char* b = a + A_BYTES;
+          tma_load_2d(a, &maps.m[tile.a + lo], &full[s], tile.i0, k0);
+          tma_load_2d(a + B_HALF_BYTES, &maps.m[tile.a + lo], &full[s], tile.i0 + 64, k0);
+          tma_load_2d(b, &maps.m[tile.b + lo], &full[s], tile.j0, k0);
+          tma_load_2d(b + B_HALF_BYTES, &maps.m[tile.b + lo], &full[s], tile.j0 + 64, k0);
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  float acc[64], sums[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sums[i] = 0.f;
+  fence_regs(acc);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % WG4_STAGES;
+    mbar_wait(&full[s], (kt / WG4_STAGES) & 1);
+    const uint32_t hi = smem_u32(ring + s * WG4_STAGE), lo = hi + STAGE_BYTES;
+    const uint32_t a_hi = hi + wg * B_HALF_BYTES, a_lo = lo + wg * B_HALF_BYTES;
+    const uint32_t b_hi = hi + A_BYTES, b_lo = lo + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t ah = desc_mn_sw128(a_hi + kk * 2048, B_HALF_BYTES);
+      const uint64_t bh = desc_mn_sw128(b_hi + kk * 2048, B_HALF_BYTES);
+      wgmma_m64n128k16_mn(acc, ah, desc_mn_sw128(b_lo + kk * 2048, B_HALF_BYTES));
+      wgmma_m64n128k16_mn(acc, desc_mn_sw128(a_lo + kk * 2048, B_HALF_BYTES), bh);
+      wgmma_m64n128k16_mn(acc, ah, bh);
+    }
+    wgmma_commit();
+    wgmma_wait_one();   // the slice before this one is read: give its stage back
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % WG4_STAGES]);
+    if ((kt + 1) % WG4_FLUSH == 0 || kt + 1 == nk) {
+      wgmma_wait_all();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sums[i] += acc[i];
+        acc[i] = 0.f;
+      }
+      fence_regs(acc);
+    }
+  }
+  epi(sums, tile, wg * 64 + (warp & 3) * 16, lane);
+}
+
+// Launch wgrad4_kernel over `tiles` tiles of the plan; returns the launch's
+// error.
+template <class Plan, class Epi, class MapsT>
+int launch_wgrad4_sm90(const MapsT& maps, const Plan& plan, const Epi& epi, int tiles, int tokens,
+                       cudaStream_t st) {
+  auto kern = wgrad4_kernel<Plan, Epi, MapsT>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WG4_SMEM);
+  if (tiles == 0) return 0;
+  kern<<<tiles, THREADS, WG4_SMEM, st>>>(maps, plan, epi, tokens);
+  return (int)cudaGetLastError();
+}
+
 // out[o] [rows, cols] fp32 (row stride ld) = the tile's sums, rows orow0 +
 // r for r < nrows, columns below cols[o]; pairs of columns as one 8-B store
 // where cols and ld are even.

@@ -18,6 +18,22 @@ windows):
   `attn_block_bwd` [48, 576, 512] (kept statistics where available),
   `attn_packed_bwd` [1152, 24, 512], `geglu_ff_bwd` [27648, 512].
 
+With --stages it times instead, stage by stage, the fp32 BERT layer of a
+B = 2 fp32 train step (rows 6F and 12F: x [2, 512, 768], 12 heads of 64, F
+= 3072, dropout 0.1 / 0.1, one sequence padded after 300 tokens: 812 real
+keys, as chip_smoke.py phase 15 draws them), row 6 (the same layer,
+deterministic, over the 36 zero-shot prompts) and the fp32 q-row attention
+of CTGenerate's one-scan forward (row 13f: x [1, 6464, 512], 8 heads of
+64, an fp32 [8, 6464, 6464] bias table). Each chain's total is CUDA-event
+time as above; its stages are the device times of its launches under
+torch.profiler over `repeats` calls, grouped by kernel name (`STAGES_12F`,
+`STAGES_6F`, `STAGES_13F`: the recompute forward, the LayerNorm backwards,
+the dh1, dy, dctx and dx products, the two weight-gradient launches, the
+attention passes and the column sums of 12F; the projections, the core and
+the output projection of 13F). Where the package's forward can keep its
+state for the backward (`bert_layer_fp32(..., keep=True)`), 12F is timed
+from the kept state too.
+
 It prints one line a chain and one JSON object of the medians. The module
 imports the package by absolute name only, so that it also runs as a file
 against another checkout of the port on PYTHONPATH: two versions timed in
@@ -31,6 +47,7 @@ import inspect
 import json
 import statistics
 import sys
+from collections import defaultdict
 
 import torch
 
@@ -45,6 +62,9 @@ from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
 
 VOLUME = (1, 240, 480, 480)
 IG_CHUNK, BATCH = 5, 2
+BERT_TOKENS, BERT_SHORT, BERT_WIDTH = 512, 300, 768     # 812 real keys at B = 2
+PROMPTS = 36                                            # the zero-shot prompts, row 6
+QROWS_TOKENS, QROWS_WIDTH, QROWS_HEADS = 6464, 512, 8   # MaskGit's token grid, 101 x 8 x 8
 
 
 def window_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -83,9 +103,99 @@ def layer_args(vit, g) -> tuple:
             attn(vit.enc_spatial_transformer), attn(vit.enc_temporal_transformer), ffw)
 
 
+# (stage, kernel-name substrings), matched in order. A stage "a | b" takes
+# a call's first matching launch as a and every later one as b; a stage
+# "a, b" is a before the call's first attention launch and b after it.
+STAGES_12F = (
+    ("dh1 product", ("GeluBwdSplitEpi",)),
+    ("recompute forward", ("attn_kernel", "split_kernel", "ln_split", "SplitEpi<",
+                           "HiddenF32Epi")),
+    ("LN2 backward | LN1 backward", ("ln_drop_bwd",)),
+    ("dy product | dx product", ("F32OutEpi",)),
+    ("dctx product", ("SplitOutEpi",)),
+    ("attention", ("dq_f32", "dkv_f32")),
+    ("weight gradients before the attention, weight gradients after it", ("wgrad",)),
+    ("column sums", ("colsum",)),
+)
+STAGES_6F = (
+    ("LN1 | LN2", ("ln_split",)),                  # before split_kernel, its substring
+    ("x and weight planes", ("split_kernel",)),
+    ("QKV product", ("SplitEpi<false>",)),
+    ("attention core", ("attn_kernel",)),
+    ("Wo product | W2 product", ("HiddenF32Epi", "F32OutEpi")),
+    ("W1 product", ("SplitEpi<true>",)),
+)
+STAGES_13F = (
+    ("output projection", ("F32OutEpi",)),
+    ("projections", ("split_kernel", "QkvEpi")),
+    ("core", ("core_kernel", "core_f32")),
+)
+
+
+def call_spans(fn) -> list:
+    """(start, end, name) of each device launch of one fn() call under
+    torch.profiler, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    return spans
+
+
+def label_spans(spans, stages) -> list:
+    """(stage, ms, name) of each launch of one call (see STAGES_12F)."""
+    seen, out, after = defaultdict(int), [], False
+    for start, end, name in spans:
+        label = next((st for st, keys in stages if any(k in name for k in keys)), "other")
+        if label == "attention":
+            after = True
+        if ", " in label:
+            label = label.split(", ")[int(after)]
+        if " | " in label:
+            parts, k = label.split(" | "), seen[label]
+            seen[label] += 1
+            label = parts[min(k, len(parts) - 1)]
+        out.append((label, (end - start) / 1e3, name))
+    return out
+
+
+def stage_times(fn, stages, repeats: int = 5) -> dict:
+    """fn() `repeats` times, each under torch.profiler, after one warm-up:
+    each stage's median device ms a call and its launches a call, in the
+    order the stages first ran; the names of launches no stage takes."""
+    fn()
+    torch.cuda.synchronize()
+    calls = [label_spans(call_spans(fn), stages) for _ in range(repeats)]
+    order = list(dict.fromkeys(label for label, _, _ in calls[0]))
+    rows = {}
+    for label in order:
+        per_call = [sum(ms for lb, ms, _ in c if lb == label) for c in calls]
+        rows[label] = dict(ms=statistics.median(per_call),
+                           launches=sum(1 for lb, _, _ in calls[0] if lb == label))
+    total = [sum(ms for _, ms, _ in c) for c in calls]
+    return dict(stages=rows, kernel_ms=statistics.median(total),
+                other=sorted({nm[:120] for lb, _, nm in calls[0] if lb == "other"}))
+
+
+def print_stages(label: str, st: dict, event_ms: float, card: str) -> None:
+    print(f"{label}: {event_ms:.3f} ms a call (CUDA events), device kernel time "
+          f"{st['kernel_ms']:.3f} ms [{card}]", flush=True)
+    for name, r in st["stages"].items():
+        print(f"  {r['ms']:8.4f} ms {r['launches']:3d}x  {name}")
+    for name in st["other"]:
+        print(f"  (other: {name})")
+
+
 def main(argv=None) -> int:
     ap_ = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap_.add_argument("--repeats", type=int, default=3, help="timing windows of each chain")
+    ap_.add_argument("--stages", action="store_true",
+                     help="time rows 6F, 12F and 13f stage by stage instead")
     args = ap_.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_backward: needs a CUDA device", file=sys.stderr)
@@ -93,6 +203,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
+    if args.stages:
+        return stages_main(args, card)
     vit = init_ctclip(flagship_cfg(), seed=0, device="cuda").visual_transformer
     g = torch.Generator(device="cuda").manual_seed(18)
     t, h, w = token_grid_shape(vit.cfg, VOLUME)
@@ -145,6 +257,89 @@ def main(argv=None) -> int:
                   f"{bool(kw)}) [{card}]", flush=True)
             del x, gg, kw
             torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def bert_inputs(g) -> tuple:
+    """Row 6F / 12F's inputs at a B = 2 fp32 train step's shape: (x, mask_row,
+    the twelve weights, dout, seeds), BERT's init scale (N(0, 0.02) matrices),
+    the LN gains 1 + 0.1 N and the biases 0.1 N."""
+    b, n, d, f = BATCH, BERT_TOKENS, BERT_WIDTH, 4 * BERT_WIDTH
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(shape, generator=g, device="cuda")
+
+    lengths = torch.tensor([n, BERT_SHORT], device="cuda")
+    pad = torch.arange(n, device="cuda")[None, :] >= lengths[:, None]
+    mask_row = pad.float() * torch.finfo(torch.float32).min
+    w = [randn(3 * d, d, std=0.02), randn(3 * d, std=0.1), randn(d, d, std=0.02),
+         randn(d, std=0.1), 1.0 + randn(d, std=0.1), randn(d, std=0.1), randn(f, d, std=0.02),
+         randn(f, std=0.1), randn(d, f, std=0.02), randn(d, std=0.1), 1.0 + randn(d, std=0.1),
+         randn(d, std=0.1)]
+    seeds = torch.tensor([20231, 77, 1 << 30], dtype=torch.int32, device="cuda")
+    return randn(b, n, d), mask_row, w, randn(b, n, d), seeds
+
+
+def qrows_inputs(g) -> tuple:
+    """Row 13f's inputs at CTGenerate's one-scan shape: x [1, 6464, 512] and
+    an fp32 [8, 6464, 6464] bias table, N(0, 1) entries; 8 heads of 64."""
+    n, d, hd = QROWS_TOKENS, QROWS_WIDTH, QROWS_HEADS * 64
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(shape, generator=g, device="cuda")
+
+    w = [1.0 + randn(d, std=0.1), randn(hd, d, std=d ** -0.5), randn(hd, d, std=d ** -0.5),
+         randn(hd, d, std=d ** -0.5), randn(d, hd, std=hd ** -0.5), 1.0 + randn(64, std=0.1),
+         1.0 + randn(64, std=0.1)]
+    return randn(1, n, d), w, randn(QROWS_HEADS, n, n)
+
+
+def stages_main(args, card: str) -> int:
+    """--stages: rows 6F, 12F (rerun and, where the package keeps the
+    forward's state, kept) and 13f, each a total and its stages."""
+    from ct_clip_ut_tpu_torch.ops import attn_qrows as aq
+    from ct_clip_ut_tpu_torch.ops import bert_layer as bl
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x, mask_row, w, dout, seeds = bert_inputs(g)
+    heads, eps = BERT_WIDTH // 64, 1e-12
+    train = dict(p_attn=0.1, p_hidden=0.1, train=True, seeds=seeds)
+    kept = "saved" in inspect.signature(bl.bert_layer_bwd_f32).parameters
+    out = {}
+    with torch.no_grad():
+        def time_rows(label, fn, stages):
+            ms = statistics.median(window_ms(fn) for _ in range(args.repeats))
+            st = stage_times(fn, stages)
+            print_stages(label, st, ms, card)
+            out[label] = dict(ms=ms, kernel_ms=st["kernel_ms"],
+                              stages={k: v["ms"] for k, v in st["stages"].items()})
+
+        time_rows("6F bert_layer fp32 train [2, 512, 768]",
+                  lambda: bl.bert_layer_fp32(x, mask_row, *w, heads, eps, **train), STAGES_6F)
+        time_rows("12F bert_layer_bwd_f32 rerunning the forward",
+                  lambda: bl.bert_layer_bwd_f32(x, mask_row, *w, dout, heads, eps, **train),
+                  STAGES_12F)
+        if kept:
+            time_rows("6F keeping its state for 12F",
+                      lambda: bl.bert_layer_fp32(x, mask_row, *w, heads, eps, **train,
+                                                 keep=True), STAGES_6F)
+            state = bl.bert_layer_fp32(x, mask_row, *w, heads, eps, **train, keep=True)[1]
+            time_rows("12F bert_layer_bwd_f32 from the kept state",
+                      lambda: bl.bert_layer_bwd_f32(x, mask_row, *w, dout, heads, eps, **train,
+                                                    saved=state), STAGES_12F)
+            del state
+        xp = torch.randn((PROMPTS, BERT_TOKENS, BERT_WIDTH), generator=g, device="cuda")
+        lengths = torch.randint(8, BERT_TOKENS, (PROMPTS,), generator=g, device="cuda")
+        mp = ((torch.arange(BERT_TOKENS, device="cuda")[None] >= lengths[:, None]).float()
+              * torch.finfo(torch.float32).min)
+        time_rows("6 bert_layer fp32 deterministic [36, 512, 768] (the prompts)",
+                  lambda: bl.bert_layer_fp32(xp, mp, *w, heads, eps), STAGES_6F)
+        del x, mask_row, w, dout, xp
+        torch.cuda.empty_cache()
+        xq, wq, bias = qrows_inputs(g)
+        time_rows("13f attn_qrows fp32 x [1, 6464, 512], bias [8, 6464, 6464]",
+                  lambda: aq.attn_qrows(xq, *wq, bias, 8.0, True), STAGES_13F)
     print(json.dumps(out))
     return 0
 

@@ -18,10 +18,12 @@ what bounds it on the H100 and what the design does about it:
 - `csrc/bert_layer_bwd.cu`: the backward of the bf16 chain: dx and the
   twelve parameter gradients.
 
-Both backwards recompute the forward and regenerate the dropout masks from
-the same seeds, and sum every gradient in a fixed order, so two calls give
-the same bits. `bert_layer` and `bert_layer_bwd` pick the chain by x's
-dtype; `bert_layer_grad` is the layer with its backward (a
+Both backwards can recompute the forward and regenerate the dropout masks
+from the same seeds, and sum every gradient in a fixed order, so two calls
+give the same bits; under autograd the fp32 chain's forward keeps its state
+instead (`F32State`), and its backward starts from it with the same bits.
+`bert_layer` and `bert_layer_bwd` pick the chain by x's dtype;
+`bert_layer_grad` is the layer with its backward (a
 torch.autograd.Function, the custom VJP of `bert_layer_fused`).
 
 Dropout. The TPU kernel reseeds its hardware PRNG per (site, sequence,
@@ -344,7 +346,7 @@ def _bf16_work(b, npad, d, f, heads, backward: bool, weights_f32: bool) -> list:
     return sizes
 
 
-FP32_ONE_PASS, FP32_NO_SKIP = 1, 2     # the fp32 chains' flags
+FP32_ONE_PASS, FP32_NO_SKIP, FP32_KEPT = 1, 2, 4     # the fp32 chains' flags
 _WEIGHT_NAMES = ("wqkv", "bqkv", "wo", "bo", "g1", "be1", "w1", "b1", "w2", "b2", "g2", "be2")
 
 
@@ -383,26 +385,45 @@ def _f32_work(b: int, n: int, d: int, f: int, heads: int, backward: bool) -> lis
     order: bf16 hi / lo planes of x, wqkv, wo, w1, w2, qkv, ctx, y, g; fp32
     r (r1 in the backward), y; for the backward also fp32 h1 and r2, rowstat
     [b, heads, n] float4, the attention keep bits [b, heads, n, n / 32
-    rounded up to a whole 64-key chunk's two words] u32, fp32 dr2, the
-    planes of do2 and dh1, fp32 dr1, the planes of do1, dctx and dqkv, and
-    the partial rows of both LayerNorms [ceil(m / 64), 3d], of db1
-    [ceil(m / 16), f] and of dbqkv [b ceil(n / 16), 3d] (m = b n)."""
+    rounded up to a whole 64-key chunk's two words] u32 (the first
+    _F32_STATE blocks: the state a train forward keeps for the backward),
+    fp32 dr2, the planes of do2 and dh1, fp32 dr1, the planes of do1, dctx
+    and dqkv, and the partial rows of both LayerNorms [ceil(m / 8), 3d], of
+    db1 [ceil(m / 16), f] and of dbqkv [b ceil(n / 16), 3d] (m = b n)."""
     m = b * n
     sizes = [4 * m * d, 12 * d * d, 4 * d * d, 4 * f * d, 4 * d * f, 12 * m * d, 4 * m * d,
              4 * m * d, 4 * m * f, 4 * m * d, 4 * m * d]
     if backward:
         words = -(-n // KEY_CHUNK) * 2
-        ln_parts = 4 * -(-m // 64) * 3 * d
+        ln_parts = 4 * -(-m // 8) * 3 * d
         sizes += [4 * m * f, 4 * m * d, 16 * b * heads * n, 4 * b * heads * n * words,
                   4 * m * d, 4 * m * d, 4 * m * f, 4 * m * d, 4 * m * d, 4 * m * d, 12 * m * d,
                   ln_parts, ln_parts, 4 * -(-m // 16) * f, 4 * b * -(-n // 16) * 3 * d]
     return sizes
 
 
+_F32_STATE = 15     # the fp32 backward's first workspaces: the forward's kept state
+
+
+class F32State:
+    """What an fp32 train-mode forward keeps for its backward
+    (`bert_layer_fp32(..., keep=True)`): one device buffer holding the
+    backward's first _F32_STATE workspaces (every plane, fp32 r1, y, h1 and
+    r2, each attention row's (max, 1 / sum), the keep bits; ~80 MB a layer
+    at [2, 512, 768], F = 3072), and the call's sizes and flags, which the
+    backward checks."""
+
+    def __init__(self, buf: torch.Tensor, offs: list, key: tuple):
+        self.buf, self.offs, self.key = buf, offs, key
+
+    def pointers(self) -> list:
+        return [self.buf.data_ptr() + o for o in self.offs]
+
+
 def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
                     heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
                     train: bool = False, seeds: Optional[torch.Tensor] = None,
-                    one_pass: bool = False, skip_masked: bool = True) -> torch.Tensor:
+                    one_pass: bool = False, skip_masked: bool = True, keep: bool = False):
     """The fp32 chain (csrc/bert_layer.cu) on CUDA tensors: every product as
     three bf16 products of hi / lo planes on the tensor cores;
     deterministic, or with train=True dropout at the bf16 chain's Philox
@@ -411,8 +432,10 @@ def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2
     `one_pass=True` zeroes every lo plane (one bf16 product each: the
     control a run holds outside the fp32 band); `skip_masked=False` walks
     the key chunks that the mask removes entirely, which add exactly 0 (a
-    run holds the two outputs bit for bit). CPU tensors raise: their route
-    is `bert_layer`'s plain version."""
+    run holds the two outputs bit for bit). `keep=True` returns (out,
+    F32State): the state `bert_layer_bwd_f32(..., saved=)` starts from
+    instead of rerunning this chain. CPU tensors raise: their route is
+    `bert_layer`'s plain version."""
     if not _build.on_cuda(x):
         raise ValueError("bert_layer_fp32 runs the CUDA chain; bert_layer takes the plain "
                          "version for CPU tensors")
@@ -422,27 +445,39 @@ def bert_layer_fp32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2
     f = w1.shape[0]
     ins = _f32_args(x, mask_row, w, heads)
     seeds_ptr = _f32_seeds(seeds, bool(ta or th), n, x.device)
-    offs, total = _layout(_f32_work(b, n, d, f, heads, backward=False))
-    buf = torch.empty((total,), dtype=torch.uint8, device=x.device)
-    out = torch.empty_like(x)
     flags = (FP32_ONE_PASS if one_pass else 0) | (0 if skip_masked else FP32_NO_SKIP)
+    if keep:
+        if not skip_masked:
+            raise ValueError("a kept state comes from the chain the backward reruns, which "
+                             "skips the masked key chunks")
+        offs, total = _layout(_f32_work(b, n, d, f, heads, backward=True)[:_F32_STATE])
+        state = F32State(torch.empty((total,), dtype=torch.uint8, device=x.device), offs,
+                         (b, n, d, f, heads, flags, ta, th))
+        ptrs = state.pointers()
+    else:
+        offs, total = _layout(_f32_work(b, n, d, f, heads, backward=False))
+        buf = torch.empty((total,), dtype=torch.uint8, device=x.device)
+        ptrs = [buf.data_ptr() + o for o in offs] + [None] * (_F32_STATE - len(offs))
+    out = torch.empty_like(x)
     err = _build.load().ctc_bert_layer(
         ins[0].data_ptr(), ins[1].data_ptr(), seeds_ptr, *(t.data_ptr() for t in ins[2:]),
-        *(buf.data_ptr() + o for o in offs), out.data_ptr(), b, n, d, f, heads, flags,
-        float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
+        *ptrs, out.data_ptr(), b, n, d, f, heads, flags, float(eps), 1.0 / DIM_HEAD ** 0.5, ta,
+        th, sa, sh, _build.stream_of(x))
     _build.check(err, "bert_layer")
     launches.count("bert_layer_f32_train" if train else "bert_layer")
-    return out
+    return (out, state) if keep else out
 
 
 def bert_layer_bwd_f32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, dout,
                        heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
                        train: bool = False, seeds: Optional[torch.Tensor] = None,
-                       one_pass: bool = False) -> tuple:
+                       one_pass: bool = False, saved: Optional[F32State] = None) -> tuple:
     """The fp32 backward chain (csrc/bert_layer_bwd_f32.cu) on CUDA tensors:
-    the forward recomputed, then (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1,
-    dw1, db1, dw2, db2, dg2, dbe2), all fp32, every product three bf16
-    products of hi / lo planes and every sum in a fixed order.
+    from the forward's kept state (`saved`, from `bert_layer_fp32(...,
+    keep=True)` on the same inputs) or, with none, the forward rerun first;
+    then (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2,
+    dbe2), all fp32, every product three bf16 products of hi / lo planes and
+    every sum in a fixed order: the two routes give the same bits.
     `one_pass=True` zeroes every lo plane (the control). CPU tensors raise:
     their route is `bert_layer_bwd`'s plain version."""
     if not _build.on_cuda(x):
@@ -460,15 +495,26 @@ def bert_layer_bwd_f32(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2,
     seeds_ptr = _f32_seeds(seeds, bool(ta or th), n, dev)
     _build.require(dout, "dout", torch.float32, (b, n, d), dev)
     dout = _build.aligned16(dout)
-    offs, total = _layout(_f32_work(b, n, d, f, heads, backward=True))
-    buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+    flags = FP32_ONE_PASS if one_pass else 0
+    sizes = _f32_work(b, n, d, f, heads, backward=True)
+    if saved is not None:
+        if saved.key != (b, n, d, f, heads, flags, ta, th):
+            raise ValueError(f"the kept state is of another call: {saved.key}, this backward's "
+                             f"{(b, n, d, f, heads, flags, ta, th)}")
+        offs, total = _layout(sizes[_F32_STATE:])
+        buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+        ptrs = saved.pointers() + [buf.data_ptr() + o for o in offs]
+        flags |= FP32_KEPT
+    else:
+        offs, total = _layout(sizes)
+        buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+        ptrs = [buf.data_ptr() + o for o in offs]
     dx = torch.empty_like(x)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=dev) for t in w]
     err = _build.load().ctc_bert_layer_bwd_f32(
         ins[0].data_ptr(), ins[1].data_ptr(), seeds_ptr, *(t.data_ptr() for t in ins[2:]),
-        dout.data_ptr(), *(buf.data_ptr() + o for o in offs), dx.data_ptr(),
-        *(t.data_ptr() for t in grads), b, n, d, f, heads, FP32_ONE_PASS if one_pass else 0,
-        float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
+        dout.data_ptr(), *ptrs, dx.data_ptr(), *(t.data_ptr() for t in grads), b, n, d, f, heads,
+        flags, float(eps), 1.0 / DIM_HEAD ** 0.5, ta, th, sa, sh, _build.stream_of(x))
     _build.check(err, "bert_layer_bwd_f32")
     launches.count("bert_layer_bwd_f32")
     return (dx, *grads)
@@ -517,11 +563,13 @@ def bert_layer(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2
 
 def bert_layer_bwd(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, dout,
                    heads: int, eps: float, *, p_attn: float = 0.0, p_hidden: float = 0.0,
-                   train: bool = False, seeds: Optional[torch.Tensor] = None) -> tuple:
+                   train: bool = False, seeds: Optional[torch.Tensor] = None,
+                   saved: Optional[F32State] = None) -> tuple:
     """The bert_layer backward kernel chains on CUDA tensors (fp32 x and
-    dout: `bert_layer_bwd_f32`; bf16: the bf16 chain), the plain backward
-    on CPU tensors: (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2,
-    db2, dg2, dbe2), dx in x's dtype, the rest fp32."""
+    dout: `bert_layer_bwd_f32`, from the forward's kept state where `saved`
+    holds it; bf16: the bf16 chain), the plain backward on CPU tensors:
+    (dx, dwqkv, dbqkv, dwo, dbo, dg1, dbe1, dw1, db1, dw2, db2, dg2, dbe2),
+    dx in x's dtype, the rest fp32."""
     _check_types(x)
     w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
     if not _build.on_cuda(x):
@@ -529,7 +577,7 @@ def bert_layer_bwd(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2,
                                     p_hidden=p_hidden, train=train, seeds=seeds)
     if x.dtype == torch.float32:
         return bert_layer_bwd_f32(x, mask_row, *w, dout, heads, eps, p_attn=p_attn,
-                                  p_hidden=p_hidden, train=train, seeds=seeds)
+                                  p_hidden=p_hidden, train=train, seeds=seeds, saved=saved)
     ta, th, sa, sh = _thresholds(p_attn, p_hidden, train, seeds)
     b, n, d = x.shape
     dev = x.device
@@ -585,28 +633,36 @@ def keep_mask(seeds: torch.Tensor, site: int, b: int, heads: int, inner: int,
 
 class _BertLayerFn(torch.autograd.Function):
     """The layer with its backward: bert_layer and bert_layer_bwd, on CUDA
-    tensors the kernel chains and on CPU tensors their plain versions. Like
-    the TPU kernel it saves its inputs only (the weight matrices in x's
-    dtype): the backward recomputes the forward and regenerates the masks
-    from the seeds."""
+    tensors the kernel chains and on CPU tensors their plain versions. It
+    saves its inputs (the weight matrices in x's dtype); where the backward
+    will run (`keep`) an fp32 layer on the card also keeps the forward
+    chain's state (`F32State`), and its backward starts from it. Elsewhere
+    the backward recomputes the forward and regenerates the masks from the
+    seeds, as the TPU kernel does."""
 
     @staticmethod
-    def forward(ctx, x, mask_row, seeds, heads, eps, p_attn, p_hidden, train, *w):
+    def forward(ctx, x, mask_row, seeds, heads, eps, p_attn, p_hidden, train, keep, *w):
         dt = x.dtype
         cast = tuple(t.detach().to(dt) if t.dim() == 2 else t.detach() for t in w)
         ctx.save_for_backward(x, mask_row, seeds, *cast)
         ctx.cfg = (heads, eps, p_attn, p_hidden, train)
         ctx.dtypes = tuple(t.dtype for t in w)
-        return bert_layer(x, mask_row, *cast, heads, eps, p_attn=p_attn, p_hidden=p_hidden,
-                          train=train, seeds=seeds)
+        ctx.state = None
+        kw = dict(p_attn=p_attn, p_hidden=p_hidden, train=train, seeds=seeds)
+        if keep and dt == torch.float32 and _build.on_cuda(x):
+            out, ctx.state = bert_layer_fp32(x, mask_row, *cast, heads, eps, **kw, keep=True)
+            return out
+        return bert_layer(x, mask_row, *cast, heads, eps, **kw)
 
     @staticmethod
     def backward(ctx, dout):
         x, mask_row, seeds, *w = ctx.saved_tensors
         heads, eps, p_attn, p_hidden, train = ctx.cfg
         dx, *grads = bert_layer_bwd(x, mask_row, *w, dout.contiguous(), heads, eps,
-                                    p_attn=p_attn, p_hidden=p_hidden, train=train, seeds=seeds)
-        return (dx, None, None, None, None, None, None, None,
+                                    p_attn=p_attn, p_hidden=p_hidden, train=train, seeds=seeds,
+                                    saved=ctx.state)
+        ctx.state = None
+        return (dx, None, None, None, None, None, None, None, None,
                 *(g.to(dt) for g, dt in zip(grads, ctx.dtypes)))
 
 
@@ -615,6 +671,9 @@ def bert_layer_grad(x, mask_row, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2
                     train: bool = False, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """bert_layer with its backward (the custom VJP of
     pallas_bert_layer.bert_layer_fused): dx in x's dtype and the twelve
-    parameter gradients in the parameters' dtypes."""
-    return _BertLayerFn.apply(x, mask_row, seeds, heads, eps, p_attn, p_hidden, train,
-                              wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    parameter gradients in the parameters' dtypes. Under autograd with an
+    input that wants its gradient, an fp32 layer on the card keeps its
+    forward's state for the backward."""
+    w = (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2)
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *w))
+    return _BertLayerFn.apply(x, mask_row, seeds, heads, eps, p_attn, p_hidden, train, keep, *w)

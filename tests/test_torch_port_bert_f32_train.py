@@ -27,9 +27,13 @@ is a stub), for the output, x and all twelve parameters, within 2e-5 of each
 output's largest entry. The one-pass control (every lo plane zero) and the
 plain backward's three faults (the attention keep left out of dp, the
 post-FF keep left out of do2, the dropped probabilities in ds) each miss the
-band. Last, the keep bits' layout as the passes read it, and the split pair
-plan's tiles (mirrored from csrc/bert_layer_bwd_f32.cu) covering every
-weight gradient's elements once.
+band. Then the kept route (the train forward's state, KEPT) against the
+rerun, bit for bit, and through a stand-in library that autograd hands the
+backward the forward's workspaces and no rerun runs. Last, the keep bits'
+layout as the passes read it, the weight gradients' one launch
+(SplitQuadPlan, mirrored from csrc/bert_layer_bwd_f32.cu) covering every
+element once, and the 64-row staged products (split4_64_kernel's K slices
+alternating between two warpgroups) against fp32.
 
 F8, the gradients whose terms cancel: at dropout 0, two layers, tokens
 that differ by 2% of their common part and a cotangent on the first token
@@ -197,9 +201,11 @@ def _product3(a, b):
 
 
 def emulated_backward(x, mask, w, dout, keeps, *, one_pass=False, d_from_ctx=False,
-                      dp_planes=2):
-    """ctc_bert_layer_bwd_f32: the forward recomputed with every key chunk
-    walked, then ln_drop_bwd (LN2, keep2), dh1 = (do2 W2) gelu'(h1) (W2's
+                      dp_planes=2, saved=None):
+    """ctc_bert_layer_bwd_f32: from the forward's kept state (`saved`, the
+    second value of emulated_forward on the same inputs: KEPT) or, with
+    none, the forward recomputed the same way (its chunks the mask removes
+    entirely skipped), then ln_drop_bwd (LN2, keep2), dh1 = (do2 W2) gelu'(h1) (W2's
     planes read MN-major), dW2 | dW1, dy = dr2 + dh1 W1, ln_drop_bwd (LN1,
     keep1), dctx = do1 Wo as planes, the row-term pass D = rowsum(p dp)
     from the split dp = (dctx v^T) keep, the query and key passes (p =
@@ -212,7 +218,7 @@ def emulated_backward(x, mask, w, dout, keeps, *, one_pass=False, d_from_ctx=Fal
     ka, k1, k2 = keeps
     b, n, d = x.shape
     dh = d // HEADS
-    _, f = emulated_forward(x, mask, w, keeps, one_pass=one_pass, skip=False)
+    f = saved if saved is not None else emulated_forward(x, mask, w, keeps, one_pass=one_pass)[1]
     ws = f["ws"]
     g1, g2 = w[4], w[10]
 
@@ -341,6 +347,68 @@ def test_f32_train_backward_chain_matches_the_plain_backward():
                    for gt, ft, wt in zip(got, faulty, want)) > BAND, fault
 
 
+def test_f32_backward_from_the_kept_state_gives_the_rerun_bits():
+    """KEPT: the backward from the train forward's kept state (what
+    ctc_bert_layer writes under autograd) and the backward that reruns the
+    forward (the same chain, the same flags) give every gradient the same
+    bits; a state kept without the attention site's keep mask does not."""
+    a, x, mask, w = _args(66)
+    tg = torch.from_numpy(np.random.default_rng(67).standard_normal(a["x"].shape)
+                          .astype(np.float32))
+    keeps = _keeps(*x.shape, True)
+    _, state = emulated_forward(x, mask, w, keeps)
+    rerun = emulated_backward(x, mask, w, tg, keeps)
+    kept = emulated_backward(x, mask, w, tg, keeps, saved=state)
+    for name, r, k in zip(NAMES, rerun, kept):
+        assert torch.equal(r, k), name
+    _, other = emulated_forward(x, mask, w, (None, *keeps[1:]))
+    stale = emulated_backward(x, mask, w, tg, keeps, saved=other)
+    assert not all(torch.equal(r, k) for r, k in zip(rerun, stale))
+
+
+def test_autograd_keeps_the_forward_state_for_the_fp32_backward(monkeypatch):
+    """Through a stand-in library: under autograd an fp32 layer on the
+    (stand-in) card reaches ctc_bert_layer with the state's workspaces
+    (h1, r2, rowstat and keep not null), and its backward reaches
+    ctc_bert_layer_bwd_f32 with flags KEPT and the forward's fifteen
+    workspaces: no rerun. Without autograd, and for a direct
+    bert_layer_bwd call, nothing is kept and the backward runs the forward
+    again (flags without KEPT)."""
+    from ct_clip_ut_tpu_torch import _build
+    from ct_clip_ut_tpu_torch.ops import bert_layer as bl
+    from ct_clip_ut_tpu_torch.ops.bert_layer import bert_layer_grad
+
+    from test_torch_port_f32_hopper import FakeLib
+
+    lib = FakeLib()
+    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    for name in ("bert_layer_plain", "bert_layer_bwd_plain"):
+        monkeypatch.setattr(bl, name, lambda *a, **k: pytest.fail("a plain version ran"))
+    _, x, mask, w = _args(68)
+    train = dict(p_attn=RATE, p_hidden=RATE, train=True, seeds=SEEDS)
+    xg = x.clone().requires_grad_(True)
+    bert_layer_grad(xg, mask, *w, HEADS, EPS, **train).sum().backward()
+    (fname, fargs), (bname, bargs) = lib.calls
+    assert (fname, bname) == ("ctc_bert_layer", "ctc_bert_layer_bwd_f32")
+    # x, mask, seeds, 12 weights, then the workspaces: 15 kept, out
+    state = fargs[15:30]
+    assert all(p is not None for p in state) and len(set(state)) == 15
+    # x, mask, seeds, 12 weights, dout, then the workspaces
+    assert bargs[16:31] == state
+    flags = bargs[-8]             # (..., heads, flags, eps, scale, four dropout args, stream)
+    assert flags == bl.FP32_KEPT
+    assert fargs[-8] == 0         # the forward: no one-pass, the masked chunks skipped
+    lib.calls.clear()
+    with torch.no_grad():
+        bert_layer_grad(x, mask, *w, HEADS, EPS, **train)
+    assert lib.calls[0][1][26:30] == (None,) * 4
+    lib.calls.clear()
+    bl.bert_layer_bwd(x, mask, *w, torch.zeros_like(x), HEADS, EPS, **train)
+    assert lib.calls[0][1][-8] == 0
+
+
 def test_keep_bits_read_by_the_passes_are_the_philox_masks():
     """attn_kernel<true> writes the keep mask of row i as keep_words(n)
     words, key j at bit 8 (jt % 4) + 2 t + e of word 2 c + jt / 4 (chunk c,
@@ -369,33 +437,83 @@ def test_keep_bits_read_by_the_passes_are_the_philox_masks():
 
 
 BM = BN = 128
+SMS = 132                 # the H100's SMs (the 64-row rule reads the device's count)
 
 
-def split_pair_tiles(r0, c0, r1, c1):
-    """SplitPairPlan's tiles: (map a, map b, i0, j0, out, orow0, nrows)."""
-    ct0, ct1 = -(-c0 // BN), -(-c1 // BN)
-    tiles0, tiles1 = -(-r0 // BM) * ct0, -(-r1 // BM) * ct1
+def split_quad_tiles(shapes):
+    """SplitQuadPlan's tiles for four [rows, cols] weight gradients: (map a,
+    map b, i0, j0, out, orow0, nrows), product i on tiles [first_i,
+    first_{i+1})."""
     tiles = []
-    for t in range(tiles0 + tiles1):
-        second = t >= tiles0
-        u, ct, rows = (t - tiles0, ct1, r1) if second else (t, ct0, r0)
-        i0, j0 = (u // ct) * BM, (u % ct) * BN
-        tiles.append((4 if second else 0, 6 if second else 2, i0, j0, int(second), i0,
-                      min(BM, rows - i0)))
+    for i, (rows, cols) in enumerate(shapes):
+        ct = -(-cols // BN)
+        for u in range(-(-rows // BM) * ct):
+            i0, j0 = (u // ct) * BM, (u % ct) * BN
+            tiles.append((4 * i, 4 * i + 2, i0, j0, i, i0, min(BM, rows - i0)))
     return tiles
 
 
 @pytest.mark.parametrize("d,f", [(768, 3072), (256, 512), (384, 200)])
 def test_split_pair_plans_write_every_weight_gradient_once(d, f):
-    """dW2 [d, f] | dW1 [f, d] and dWo [d, d] | dWqkv [3d, d]: every element
-    of both outputs written by one tile, the hi maps even (lo at + 1)."""
-    for shapes in (((d, f), (f, d)), ((d, d), (3 * d, d))):
-        tiles = split_pair_tiles(*shapes[0], *shapes[1])
-        assert all(a % 2 == 0 and b % 2 == 0 for a, b, *_ in tiles)
-        seen = [np.zeros(s, np.int64) for s in shapes]
-        for _, _, _, j0, out, orow0, nrows in tiles:
-            seen[out][orow0:orow0 + nrows, j0:j0 + BN] += 1
-        assert all((s == 1).all() for s in seen)
+    """The four weight gradients' one launch (SplitQuadPlan, which took the
+    place of two pair launches): dW2 [d, f], dW1 [f, d], dWo [d, d], dWqkv
+    [3d, d], every element of each written by one tile, the hi maps at 4 i
+    and 4 i + 2 (lo at + 1); at the train step's widths 432 tiles, four
+    rounds of 132 SMs where the two launches took three and two."""
+    shapes = ((d, f), (f, d), (d, d), (3 * d, d))
+    tiles = split_quad_tiles(shapes)
+    assert all(a % 2 == 0 and b % 2 == 0 and a == 4 * out for a, b, _, _, out, _, _ in tiles)
+    seen = [np.zeros(sh, np.int64) for sh in shapes]
+    for _, _, _, j0, out, orow0, nrows in tiles:
+        seen[out][orow0:orow0 + nrows, j0:j0 + BN] += 1
+    assert all((v == 1).all() for v in seen)
+    if (d, f) == (768, 3072):
+        assert len(tiles) == 432 and -(-len(tiles) // SMS) == 4
+        assert -(-288 // SMS) + -(-144 // SMS) == 5
+
+
+def rows64(m, n):
+    """split_sm90.cuh's rows64: 64-row tiles below two rounds of 128-row ones."""
+    return -(-m // BM) * -(-n // BN) < 2 * SMS
+
+
+def staged64_product(a, b, slices=(0, 1)):
+    """split4_64_kernel's order on planes a [M, K] and b [N, K] (hi, lo):
+    per 64-deep K slice a_hi b_lo, a_lo b_hi, a_hi b_hi into the
+    accumulator of warpgroup kt % 2, then the two accumulators added. A K
+    past the edge reads zeros. `slices` names the warpgroups whose sums are
+    kept (the control leaves one out)."""
+    (ah, al), (bh, bl) = a, b
+    acc = [torch.zeros(ah.shape[0], bh.shape[0]) for _ in range(2)]
+    for kt, k0 in enumerate(range(0, ah.shape[1], 64)):
+        ks = slice(k0, k0 + 64)
+        for x, y in ((ah, bl), (al, bh), (ah, bh)):
+            acc[kt % 2] = acc[kt % 2] + x[:, ks] @ y[:, ks].t()
+    return sum(acc[w] for w in slices) if len(slices) == 2 else acc[slices[0]]
+
+
+@pytest.mark.parametrize("m,n,k", [(1024, 768, 3072), (1024, 768, 768), (1024, 2304, 768),
+                                   (130, 200, 200)])
+def test_staged_64_row_products_cover_and_match_fp32(m, n, k):
+    """The products of a train step's 1,024 rows take 64-row tiles (the
+    48-tile N = 768 products become 96), the prompts' 18,432 rows the
+    persistent 128-row kernel; each 64 x 128 tile's K slices alternate
+    between its two warpgroups, every slice taken once, and the two sums
+    added give the fp32 product within the band (K = 200: a ragged last
+    slice of zeros); one warpgroup's sums alone miss it."""
+    assert rows64(m, n) and not rows64(36 * 512, n)
+    if (m, n) == (1024, 768):
+        assert -(-m // BM) * -(-n // BN) == 48 and -(-m // 64) * -(-n // BN) == 96
+    nk = -(-k // 64)
+    taken = sorted(kt for w in range(2) for kt in range(w, nk, 2))
+    assert taken == list(range(nk))
+    rng = np.random.default_rng(m + n + k)
+    a = torch.from_numpy(rng.standard_normal((min(m, 256), k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((min(n, 256), k)).astype(np.float32))
+    want = (a.double() @ b.double().t()).float()
+    got = staged64_product(_split(a, False), _split(b, False))
+    assert _rel(got, want) <= BAND
+    assert _rel(staged64_product(_split(a, False), _split(b, False), slices=(0,)), want) > BAND
 
 
 @functools.lru_cache(maxsize=1)

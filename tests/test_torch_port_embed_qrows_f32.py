@@ -9,16 +9,18 @@ fp32 product as three bf16 products of hi / lo planes. The patch embed:
 the patch matrix P written as planes, each patch's LN1 moments in one-pass
 fp32, P . Kw^T as SplitPlan, the folded LN1 in fp32, LN2 two-pass. The q-row
 attention: LN and x as planes, the split projections, q / k l2-normed and
-scaled, v; the core's two passes over 64-key tiles (pass 1 the running row
-max and sum tile by tile, pass 2 from the last tile to the first with p =
-exp(s - max) / sum split in registers and P.V as three products); the split
+scaled, v; the core's one pass over 64-key tiles in order (each row's
+running max; o's fp32 accumulators and the row sum rescaled by exp(m_old -
+m_new) when the max moves; p = exp(s - m_new) split in registers and P.V
+as three products; o divided by the row sum once, at the end); the split
 output projection with the residual. Each emulation is held against the
 port's plain version at fp32 and the JAX package's Pallas kernel in
 interpret mode at fp32 (the patch embed also against its XLA twin) within
 2e-5 of the output's scale (three bf16 passes keep ~2^-16 of each product;
 tests/test_pallas.py:592's band), at temporal patch 1 (the first frame) and
 2, K = 4000, and a dense [h, N, N] bias; the one-pass control (every lo
-plane zero) misses the band. Last, the wrappers' routing through a stand-in
+plane zero) misses the band, and so does the core without o's rescale
+wherever a row's max moves after its first tile. Last, the wrappers' routing through a stand-in
 for the kernel library: fp32 CUDA tensors reach the fp32 entries with their
 sizes and count their launches, fp16 and shapes the kernels do not take
 raise.
@@ -59,10 +61,11 @@ def emulated_patch_embed_f32(image, kw, s1, b1, g2, b2, patch, t_patch, one_pass
 
 
 def emulated_qrows_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual=False,
-                       one_pass=False):
+                       one_pass=False, rescale=True):
     """ctc_attn_qrows_f32: ln_split_kernel, QkvSplitPlan + QkvEpi (q, k
-    l2-normed per head of 64 and scaled, v, as planes), core_kernel<F32>'s
-    two passes over 64-key tiles, SplitPlan o . Wo^T (+ x)."""
+    l2-normed per head of 64 and scaled, v, as planes), core_f32_kernel's
+    one pass over 64-key tiles, SplitPlan o . Wo^T (+ x). rescale=False
+    leaves o's accumulators unscaled when a row's max moves (the control)."""
     b, n, d = x.shape
     dh = qs.shape[0]
     heads = wq.shape[0] // dh
@@ -84,16 +87,17 @@ def emulated_qrows_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, scale, residual=F
 
     m = torch.full((b, heads, n, 1), -torch.inf)
     l = torch.zeros((b, heads, n, 1))
-    for k0 in range(0, n, KT):                      # pass 1: the running max and sum
+    o = torch.zeros((b, heads, n, dh))
+    for k0 in range(0, n, KT):                      # each tile once, in order
         s = scores(k0)
         mx = torch.maximum(m, s.amax(-1, keepdim=True))
-        l = l * torch.exp(m - mx) + torch.exp(s - mx).sum(-1, keepdim=True)
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = _product(_split(p, one_pass), [t[:, :, k0:k0 + KT].transpose(-1, -2) for t in v])
+        o = (o * alpha if rescale else o) + pv
         m = mx
-    o = torch.zeros((b, heads, n, dh))
-    for k0 in reversed(range(0, n, KT)):           # pass 2, from the last tile to the first
-        p = torch.exp(scores(k0) - m) / l
-        o = o + _product(_split(p, one_pass), [t[:, :, k0:k0 + KT].transpose(-1, -2) for t in v])
-    o = o.transpose(1, 2).reshape(b, n, heads * dh)
+    o = (o / l).transpose(1, 2).reshape(b, n, heads * dh)
     out = _product(_split(o, one_pass), _split(wo, one_pass))
     return out + x if residual else out
 
@@ -140,6 +144,8 @@ def test_qrows_f32_chain_matches_plain_and_the_jax_kernel(b, n, with_bias, resid
     got = emulated_qrows_f32(*args, bias[None] if with_bias else None, SCALE, residual).numpy()
     control = emulated_qrows_f32(*args, bias[None] if with_bias else None, SCALE, residual,
                                  one_pass=True).numpy()
+    unscaled = emulated_qrows_f32(*args, bias[None] if with_bias else None, SCALE, residual,
+                                  rescale=False).numpy()
     j = {k: jnp.asarray(v) for k, v in a.items() if v is not None}
     kernel = attention_qrows_fused(j["x"], j["gamma"], j["wq"], j["wk"], j["wv"], j["wo"],
                                    j["qs"], j["ks"], j.get("bias"), SCALE, 64, True, residual)
@@ -149,6 +155,8 @@ def test_qrows_f32_chain_matches_plain_and_the_jax_kernel(b, n, with_bias, resid
         scale = np.abs(want).max()
         assert _within(got, want, scale)
         assert not _within(control, want, scale)
+        # one tile: no max moves, the rescale is the identity
+        assert _within(unscaled, want, scale) == (n <= KT)
 
 
 # ---- the wrappers' routing, through a stand-in library ------------------------
