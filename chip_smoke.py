@@ -28,11 +28,12 @@ Phases, each printing its lines before the last:
      (BertWgradPlan), HMMA in its forward core and its backward's query
      and key passes; HGMMA in the patch embed's weight gradient over its
      patch matrix (PatchWgradPlan); IGMMA (int8 wgmma) in geglu_ff_int8's
-     two products (HEpi, OutEpi); for the fp32 BERT layer in train mode and
-     its backward (rows 6F, 12F), HGMMA in the hidden sites' epilogue
-     (HiddenF32Epi), the backward's GELU and dctx products and its weight
-     gradients (SplitPairPlan), HMMA in the core with STATS and the
-     backward's query and key passes;
+     two products (HEpi, OutEpi); HGMMA in the fp32 patch embed's product
+     on split4_kernel, split4_32_kernel and split4_64_kernel; for the fp32
+     BERT layer in train mode and its backward (rows 6F, 12F), HGMMA in the
+     hidden sites' epilogue (HiddenF32Epi), the backward's GELU and dctx
+     products and its weight gradients (SplitPairPlan), HMMA in the core
+     with STATS and the backward's query and key passes;
   3. each of the six forward kernels against its plain PyTorch version on the card,
      at the shapes the zero-shot path gives it (2 volumes; 36 prompts of
      512 tokens), with both times, the least time the card could take
@@ -211,8 +212,10 @@ Phases, each printing its lines before the last:
      at the route's two temporal patches, timed together) and 13f (the
      fp32 q-row attention at [1, 6464, 512] with the fp32 [8, 6464, 6464]
      table) against their plain versions (F32_BAND; controls one bf16
-     product each, and 13f's bias or q scale left out), times, `bound_ms`,
-     the fp32 PyTorch chains as `library_ms`; then, counted,
+     product each, and 13f's bias or q scale left out), 5f's two calls
+     profiled (its products on split4_64_kernel and split4_32_kernel, no
+     gemm_kernel), times, `bound_ms`, the fp32 PyTorch chains as
+     `library_ms`; then, counted,
      `inference_ctgenerate.main --data-valid` over 2 synthetic NIfTI
      volumes at --batch-size 1: 5f x 2 and 13f x 6 a scan, the fp32
      CT-ViT variants, no bf16 kernel; each scan through `localize_scan`
@@ -236,9 +239,10 @@ Phases, each printing its lines before the last:
      480] fp32 volume, and the PEG kernels (16, 17) on fp32 tokens, each
      against its plain version within F32_BAND (PEG_F32_KERNEL_BAND,
      PEG_WGRAD_BAND) with a one-pass control outside (the PEG's: fault
-     controls), times, `bound_ms`, the fp32 PyTorch chain forward + backward
-     with every parameter wanting its gradient (conv3d_weight for 11f and
-     17) as `library_ms`. Then one step's gradients against plain=True from
+     controls), 10f's two calls the same bits and its profile (the product
+     on split4_kernel, no gemm_kernel), times, `bound_ms`, the fp32 PyTorch
+     chain forward + backward with every parameter wanting its gradient
+     (conv3d_weight for 11f and 17) as `library_ms`. Then one step's gradients against plain=True from
      the same weights, batch, dropout draws and codes (the plain path
      quantises with the kernel path's indices; each index that flipped a
      tie within VQ_F32_TIE): every parameter within STEP_GRAD_BAND of its
@@ -263,12 +267,13 @@ Phases, each printing its lines before the last:
      x 12 a step besides phase 14's launches, row 6 in the evaluations, no
      bf16 BERT kernel; three more steps timed.
  16. the W8A8 FF on fp32 activations (row 15f) and the forward attribution
-     methods on a quantised model: first geglu_ff_int8 on fp32 x [27648,
-     512] and [13824, 512] (the seeded flagship's spatial layer 0 FF,
-     quantised), residual off and on, against its plain version within
-     INT8_BAND relative rms with row 15's controls, xn's and h's codes read
-     from the chain's workspaces (`launch_chain`) against the plain steps',
-     each flip a tie within CODE_TIE; fp32 out, two calls the same bits, one
+     methods on a quantised model: first geglu_ff_int8 on fp32 x at
+     INT8_F32_ROWS (2 volumes, 1 volume, a quantised occlusion chunk's
+     temporal tokens; the seeded flagship's spatial layer 0 FF, quantised),
+     residual off and on, against its plain version within INT8_BAND
+     relative rms with row 15's controls, xn's and h's codes read from the
+     chain's workspaces (`launch_chain`) against the plain steps', each
+     flip a tie within CODE_TIE; fp32 out, two calls the same bits, one
      call profiled on the Hopper pieces; times, `bound_ms`, the
      torch._int_mm chain on fp32 rows as `library_ms`. Then, counted,
      `inference_ctclip --quantize-ff --visualize raw_attention_maps
@@ -492,7 +497,9 @@ PEG_F32_KERNEL_BAND = 1e-5   # the fp32 PEG stencil's branch vs its plain versio
 BERT_F32_KERNELS = ("bert_layer_f32_train", "bert_layer_bwd_f32")
 BERT_F32_STEP = dict.fromkeys(BERT_F32_KERNELS, 12)
 # Phase 16, the W8A8 FF on fp32 activations (row 15f) under the forward methods:
-INT8_F32_ROWS = (27648, 13824)   # zero-shot's 2 volumes; one volume, an occlusion chunk's
+# zero-shot's 2 volumes; one volume (a slab's clean stack); a quantised occlusion
+# chunk's temporal tokens (8 windows' volumes)
+INT8_F32_ROWS = (27648, 13824, 110592)
 CODE_TIE = 1e-3         # a flipped int8 code: the plain quotient within this of a .5 boundary
 # ... along a whole forward, where the FF's inputs already differ by the fp32
 # attention kernels' rounding (~1e-5 relative after 8 layers: ~1e-3 of a code
@@ -605,7 +612,13 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                      "2tc16bwd_dq_wg_kernel",
                  "fp32 spatial backward's key pass (wgmma: split S^T, dP^T, P^T.dO, dS^T.Q)":
                      "2tc17bwd_dkv_wg_kernel",
-                 "fp32 patch_embed product (SplitPlan into PatchF32Epi)": "2pe11PatchF32Epi",
+                 "fp32 patch_embed product, the train step's 27,648 patches (split4_kernel "
+                 "into PatchF32Epi: a slice's four planes at once)":
+                     ("13split4_kernel", "2pe11PatchF32Epi"),
+                 "fp32 patch_embed product, CTGenerate's 6,400 patches (split4_32_kernel into "
+                 "PatchF32Epi)": ("16split4_32_kernel", "2pe11PatchF32Epi"),
+                 "fp32 patch_embed product, CTGenerate's first frame (split4_64_kernel into "
+                 "PatchF32Epi)": ("16split4_64_kernel", "2pe11PatchF32Epi"),
                  "fp32 attn_qrows projections (QkvSplitPlan into qr::QkvEpi)":
                      "12QkvSplitPlanENS_2qr6QkvEpi",
                  "fp32 attn_qrows core (one pass: split scores and P.V, the fp32 bias, o "
@@ -3424,6 +3437,13 @@ def ctgen_f32_check(torch, model, card: str, g) -> dict:
         def both(fn):
             return [fn(*args, p, tp) for args, tp, _ in cases]
 
+        # the first frame's 64 patches on 64-row tiles, the other frames' 6,400 on
+        # 32-deep slices: the staged split products, no gemm_kernel
+        hopper_chain_check("patch_embed_f32 (the route's two launches)",
+                           lambda: both(patch_embed_fused), card,
+                           must=("split4_64_kernel", "split4_32_kernel"),
+                           must_not=("gemm_kernel",))
+
         libs = [patch_library(emb, p, tp) for _, tp, emb in cases]
         lib_err = max(rel_err(lib(args[0]), patch_embed_plain(*args, p, tp))
                       for lib, (args, tp, _) in zip(libs, cases))
@@ -3948,6 +3968,13 @@ def f32_train_check(torch, model, card: str) -> dict:
         abs_err = grads_check("patch_embed_res_f32", got, want, F32_BAND,
                               {"one bf16 product each (lo planes zeroed)": one},
                               f"fp32 {list(image.shape)} -> out, conv, stats")
+        again = _res_with_patches(*args, p, tp)[:3]
+        if not all(torch.equal(got[k], v) for k, v in zip(names, again)):
+            raise AssertionError("patch_embed_res_f32: two calls differ")
+        # the product on split4_kernel (a slice's four planes at once), no gemm_kernel
+        hopper_chain_check("patch_embed_res_f32", lambda: _res_with_patches(*args, p, tp), card,
+                           must=("split4_kernel", "patchify_f32_kernel", "pe_ln_f32_kernel"),
+                           must_not=("gemm_kernel",))
         ms = cuda_ms(torch, lambda: _res_with_patches(*args, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_res_plain(*args, p, tp))
         library = patch_library(emb, p, tp)

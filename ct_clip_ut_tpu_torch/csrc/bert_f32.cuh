@@ -420,22 +420,12 @@ attn_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
 
 // ---- host side ------------------------------------------------------------------
 
-// The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo),
-// each K slice's four planes staged once (split_sm90.cuh): 64-row tiles
-// where 128-row ones are fewer than the SMs (the width-768 products at a
-// train step's 1,024 rows), the persistent 128-row split4_kernel with
-// ping-pong warpgroups where each block has four or more tiles (the
-// prompts' 18,432 rows), and between the two (the QKV and W1 products at
-// 1,024 rows: 144 and 192 tiles) 32-deep slices at two blocks an SM.
+// The split product of planes a [2][M][K] and b [2][N][K] (hi, then lo) on
+// the staged tiling split_sm90.cuh picks (split4_planes).
 template <class Epi>
 inline int product(const bf16* a, const bf16* b, int M, int N, int K, const Epi& epi,
                    cudaStream_t st) {
-  const bf16 *a_lo = a + (int64_t)M * K, *b_lo = b + (int64_t)N * K;
-  if (sm90::rows64(M, N))
-    return sm90::split4_product64<false>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
-  if (sm90::tiles128(M, N) >= 4 * sm90::sm_count())
-    return sm90::split4_product<true>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
-  return sm90::split4_product32<false>(a, a_lo, K, b, b_lo, K, M, N, K, epi, st);
+  return sm90::split4_planes(a, b, K, M, N, K, epi, st);
 }
 
 // The chain's workspaces: bf16 hi / lo planes [2][rows][cols] of x, wqkv,

@@ -46,8 +46,12 @@
 //   patchify_f32_kernel  the volume read once, P written as hi / lo bf16
 //                        planes [2][M][ldp] and each patch's LN1 moments
 //                        summed in fp32 from the fp32 pixels;
-//   gemm_kernel          SplitPlan over P's planes and the folded weight's
-//                        (split per call from the fp32 [dim, ldk] fold);
+//   split4_planes        P . Kw^T over P's planes and the folded weight's
+//                        (split per call from the fp32 [dim, ldk] fold),
+//                        each K slice's four planes staged once and its
+//                        three bf16 products issued from that stage (the
+//                        ragged last slice zero-filled by TMA), on the
+//                        tiling the product's size picks;
 //                        PatchF32Epi applies the folded LN1 and b1 in fp32
 //                        and writes h fp32 into `out`;
 //   pe_ln_f32_kernel     LN2 over each fp32 row of `out`, in place, with
@@ -55,8 +59,9 @@
 // Its bound at CTGenerate's shapes (K = 256 for the first frame, 512 for
 // the other 200 frames, 6,464 patches of dim 512): 10 GFLOP as three bf16
 // products (0.010 ms at the bf16 peak) against 26 MB of volume and output
-// (0.008 ms). The first frame is one 64-row tile: TMA zero-fills the other
-// 64 rows of its 128-row block, whose stores the epilogue masks.
+// (0.008 ms). The first frame's 64 patches are 4 tiles of 64 rows
+// (split4_64_kernel), the other frames' 6,400 are 200 tiles of 128 rows
+// on 32-deep slices at two blocks an SM (split4_32_kernel).
 //
 // The fp32 residual-saving variant (ctc_patch_embed_res_f32: the port of
 // _forward_res_impl on an fp32 volume, the fp32 train step's patch embed)
@@ -67,6 +72,9 @@
 // bf16 train step keeps P. At B = 2 (27,648 patches of 4,000 pixels into
 // 512) it is 340 GFLOP as bf16 products, 0.34 ms at the bf16 peak, against
 // 442 MB of volume and 113 MB of out and conv (0.17 ms): operations bound.
+// Its 864 tiles take split4_kernel: persistent, one block an SM, the
+// warpgroups owning whole tiles in turn (one's epilogue, which writes h and
+// conv, runs under the other's products), 62.5 K slices of 64 a tile.
 // ctc_patchify_f32 is its patchify pass alone (P's planes of a volume, for
 // a weight gradient called from the volume).
 #include "gemm_sm90.cuh"
@@ -274,7 +282,7 @@ inline int launch_f32(const float* image, const float* kwd, const float* s1, con
       image, patches, patches + pm, static_cast<float2*>(stats), M, ldp, g, vec4, keep_lo);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = split_product(patches, patches + pm, ldp, kw_s, kw_s + pw, ldp, M, dim, K,
+  err = split4_planes(patches, kw_s, ldp, M, dim, K,
                       PatchF32Epi{out, static_cast<const float2*>(stats), s1, b1, M, dim, conv},
                       st);
   if (err) return err;

@@ -1000,6 +1000,24 @@ inline int split4_product64(const bf16* a_hi, const bf16* a_lo, int64_t lda, con
   return (int)cudaGetLastError();
 }
 
+// The split product of planes a [2][M][ld] and b [2][N][ld] (hi, then lo;
+// K columns read), each K slice's four planes staged once, on the tiling
+// its 128 x 128 tiles pick: 64-row tiles where they are fewer than the SMs
+// (the fp32 BERT layer's width-768 products at a train step's 1,024 rows,
+// CTGenerate's first-frame patch embed), the persistent split4_kernel with
+// ping-pong warpgroups where each block has four or more (the prompts'
+// 18,432 rows, the fp32 train step's 27,648 patches), and between the two
+// (144 to 528 tiles) 32-deep slices at two blocks an SM.
+template <class Epi>
+inline int split4_planes(const bf16* a, const bf16* b, int64_t ld, int M, int N, int K,
+                         const Epi& epi, cudaStream_t st) {
+  const bf16 *a_lo = a + (int64_t)M * ld, *b_lo = b + (int64_t)N * ld;
+  if (rows64(M, N)) return split4_product64<false>(a, a_lo, ld, b, b_lo, ld, M, N, K, epi, st);
+  if (tiles128(M, N) >= 4 * sm_count())
+    return split4_product<true>(a, a_lo, ld, b, b_lo, ld, M, N, K, epi, st);
+  return split4_product32<false>(a, a_lo, ld, b, b_lo, ld, M, N, K, epi, st);
+}
+
 // The LayerNorm backward; with `part` (not null) also the gains' partial
 // sums, [ln_parts(M)][2 D].
 inline int ln_parts(int M) { return (M + LNG_ROWS - 1) / LNG_ROWS; }

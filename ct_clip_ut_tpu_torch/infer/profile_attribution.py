@@ -2,6 +2,7 @@
 
     python -m ct_clip_ut_tpu_torch.infer.profile_attribution [--table PATH]
                                                              [--windows N] [--repeats R]
+                                                             [--quantize-ff]
 
 At flagship width (`config.flagship_cfg()`, random weights from seed 0;
 the suite embeds patches by matmul, `capture.parity_cfg`) on one [1, 1,
@@ -30,6 +31,15 @@ the suite embeds patches by matmul, `capture.parity_cfg`) on one [1, 1,
 - one IG chunk (5 steps: the batched forward and its backward) under
   torch.profiler, as the sweep's (--table writes its rows to PATH.ig).
 
+With --quantize-ff the model's visual FFs are quantised W8A8
+(`quantize_ctclip_ff`, the `inference_ctclip --quantize-ff` model): every
+FF of the forward methods runs row 15f (`geglu_ff_int8` on fp32 rows).
+The forward methods run as above (raw attention, rollout, the occlusion
+sweep and its one-chunk profile, which also prints row 15f's launches, its
+kernels' ms and their share of the chunk's kernel time); Grad-CAM and
+integrated gradients are skipped, and say so: the int8 route has no
+gradient (serving only).
+
 Each line names the card and its power limit (`nvidia-smi`). The module
 imports the package by absolute name only, so it also runs as a file
 against another checkout of the port on PYTHONPATH.
@@ -50,10 +60,12 @@ from ct_clip_ut_tpu_torch.config import OcclusionConfig, flagship_cfg
 from ct_clip_ut_tpu_torch.infer.profile_zeroshot import card_name, print_profile, profile_call
 from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer, tokenize_prompts
 from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+from ct_clip_ut_tpu_torch.ops.quant import quantize_ctclip_ff
 
 VOLUME = (1, 240, 480, 480)          # [c, T, H, W] of the flagship's volumes
 PROMPT_LEN, CHUNK = 512, 8
 FULL_SWEEP = 12167                   # windows of the flagship grid (23^3)
+INT8_FF = "q8::"                     # in row 15f's kernels' names, as the profiler gives them
 
 
 def timed(fn, repeats: int) -> dict:
@@ -82,6 +94,8 @@ def main(argv=None) -> int:
     ap.add_argument("--table", default=None, help="write every kernel's profile row here")
     ap.add_argument("--windows", type=int, default=160, help="occlusion windows swept")
     ap.add_argument("--repeats", type=int, default=3, help="timed calls of each method")
+    ap.add_argument("--quantize-ff", action="store_true",
+                    help="the forward methods on the model with its visual FFs quantised W8A8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_attribution: needs a CUDA device", file=sys.stderr)
@@ -89,6 +103,10 @@ def main(argv=None) -> int:
     card = card_name()
     cfg = flagship_cfg()
     model = init_ctclip(cfg, seed=0, device="cuda")
+    if args.quantize_ff:
+        model = quantize_ctclip_ff(model)
+        print(f"--quantize-ff: the visual FFs quantised W8A8 (row 15f on fp32 rows) [{card}]",
+              flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     image = torch.randn((1, *VOLUME), generator=g, device="cuda")
     prompt = {k: v[:1] for k, v in tokenize_prompts(WordTokenizer(cfg.bert.vocab_size),
@@ -131,10 +149,22 @@ def main(argv=None) -> int:
           f"{r['median']:.3f} s: {ms:.3f} ms a window, a full {FULL_SWEEP}-window sweep "
           f"~{FULL_SWEEP * ms / 1e3:.1f} s, peak {r['peak_gb']:.2f} GB (the clean caches "
           f"included) [{card}]", flush=True)
-    print_profile(profile_call(lambda: sweep(grid[:CHUNK - 1])),
-                  f"profile of a one-chunk sweep (the clean caches, the baseline and "
-                  f"{CHUNK - 1} windows)",
-                  card, args.table)
+    prof = profile_call(lambda: sweep(grid[:CHUNK - 1]))
+    print_profile(prof, f"profile of a one-chunk sweep (the clean caches, the baseline and "
+                        f"{CHUNK - 1} windows)", card, args.table)
+    if args.quantize_ff:
+        ff = [(ms, n, k) for ms, n, k in prof["rows"] if INT8_FF in k]
+        ff_ms = sum(ms for ms, _, _ in ff)
+        calls = prof["counts"].get("geglu_ff_int8_f32", 0)
+        print(f"row 15f in the one-chunk sweep: {calls} calls, {sum(n for _, n, _ in ff)} "
+              f"launches, {ff_ms:.3f} ms of kernels ({100 * ff_ms / prof['kernel_ms']:.1f}% of "
+              f"the chunk's {prof['kernel_ms']:.3f} ms; busy {100 * prof['busy_share']:.1f}% of "
+              f"the wall): "
+              + "; ".join(f"{k.split('(')[0][-60:]} x{n} {ms:.3f} ms" for ms, n, k in ff)
+              + f" [{card}]", flush=True)
+        print("grad_cam, integrated_gradients: skipped with --quantize-ff (the int8 FF is "
+              "serving-only: it has no gradient)", flush=True)
+        return 0
 
     r = timed(lambda: grad_cam.grad_cam_volumes(model, prompt, image), args.repeats)
     t0 = time.perf_counter()

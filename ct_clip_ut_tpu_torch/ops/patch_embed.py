@@ -37,9 +37,11 @@ image cotangent is autograd of the plain version, and only when the image
 requires grad (the JAX package's `_xla_twin` VJP); training never asks
 for it. An fp32 volume (the fp32 train step) takes the fp32 forms of both
 kernels: `patch_embed_res_f32` (`ctc_patch_embed_res_f32`, row 5f's chain
-also storing conv and the moments) keeps P's hi / lo planes (442 MB at B
-= 2), and `patch_embed_dkw` reads them on the split weight-gradient plan
-(`ctc_patch_embed_dkw_f32`), dconv staying fp32 as in JAX's `_pe_bwd`.
+also storing conv and the moments; its product on the staged split
+products of split_sm90.cuh) keeps P's hi / lo planes (rows of 4,032, 446
+MB at B = 2), and `patch_embed_dkw` reads them on the split
+weight-gradient plan (`ctc_patch_embed_dkw_f32`), dconv staying fp32 as
+in JAX's `_pe_bwd`.
 """
 
 from __future__ import annotations
@@ -92,6 +94,13 @@ def patch_embed_plain(image: torch.Tensor, kw: torch.Tensor, s1: torch.Tensor,
     v = h.var(-1, unbiased=False, keepdim=True)
     out = (h - mu) * torch.rsqrt(v + EPS) * g2.float() + b2.float()
     return out.reshape(b, t, hp, wp, dim).to(image.dtype)
+
+
+def _plane_pitch(k: int) -> int:
+    """The row length, in elements, of the fp32 chains' bf16 planes of P and
+    of the folded weight: K rounded up to 64 (128-B rows, so that each
+    64-wide K slice the staged product loads starts on a 128-B line)."""
+    return -(-k // 64) * 64
 
 
 def _check_embed_args(image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
@@ -167,7 +176,7 @@ def _launch_f32(entry: str, image, kw, s1, b1, g2, b2, patch: int, t_patch: int,
     dev = image.device
     t, hp, wp = T // t_patch, H // patch, W // patch
     m, k = b * t * hp * wp, t_patch * patch * patch
-    ld = _build.tma_pitch(k)
+    ld = _plane_pitch(k)
     kwd = _kernel_weight(kw, torch.float32)
     if ld != k:
         kwd = torch.nn.functional.pad(kwd, (0, ld - k))
@@ -300,7 +309,7 @@ def _patch_planes_f32(image: torch.Tensor, patch: int, t_patch: int,
     weight gradient's operand for a call from the volume alone."""
     b, _, T, H, W = image.shape
     m = b * (T // t_patch) * (H // patch) * (W // patch)
-    ld = _build.tma_pitch(t_patch * patch * patch)
+    ld = _plane_pitch(t_patch * patch * patch)
     image = _build.aligned16(image)
     planes = torch.empty((2, m, ld), dtype=torch.bfloat16, device=image.device)
     err = _build.load().ctc_patchify_f32(image.data_ptr(), planes.data_ptr(), b, T, H, W, patch,
@@ -339,7 +348,7 @@ def patch_embed_dkw(image: torch.Tensor, dconv: torch.Tensor, patch: int, t_patc
     if dt == torch.float32:
         if one_pass and patches is not None:
             raise ValueError("the one-pass control writes its own one-pass planes of P")
-        ld = _build.tma_pitch(k)
+        ld = _plane_pitch(k)
         if patches is None:
             patches = _patch_planes_f32(image, patch, t_patch, one_pass)
         _build.require(patches, "patches", torch.bfloat16, (2, m, ld), image.device)

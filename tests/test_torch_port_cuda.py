@@ -828,10 +828,11 @@ def test_geglu_ff_int8_kernel_matches_plain_on_card(cuda_device, n, d, inner, re
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n", [27648, 13824, 77, 301])
+@pytest.mark.parametrize("n", [27648, 13824, 77, 301, 110592])
 def test_geglu_ff_int8_f32_kernel_matches_plain_on_card(cuda_device, n, residual):
-    """The fp32-activation form (row 15f) at zero-shot's and an occlusion
-    chunk's token counts, 77 and an odd 301 rows: fp32 out, counted as
+    """The fp32-activation form (row 15f) at zero-shot's token count, a
+    volume's, 77 and an odd 301 rows, and a quantised occlusion chunk's
+    temporal tokens (110,592): fp32 out, counted as
     geglu_ff_int8_f32 (the bf16 form not at all), INT8_BAND against the
     plain version with the same controls, two calls the same bits."""
     from ct_clip_ut_tpu_torch.ops.geglu_ff_int8 import geglu_ff_int8, geglu_ff_int8_plain
