@@ -242,7 +242,11 @@ Phases, each printing its lines before the last:
      controls), 10f's two calls the same bits and its profile (the product
      on split4_kernel, no gemm_kernel), times, `bound_ms`, the fp32 PyTorch
      chain forward + backward with every parameter wanting its gradient
-     (conv3d_weight for 11f and 17) as `library_ms`. Then one step's gradients against plain=True from
+     (conv3d_weight for 11f and 17) as `library_ms`; 9F's and 11f's
+     weight gradients profiled on wgrad4_kernel, no wgrad_kernel. Then the
+     close-token checks (F10 over two temporal blocks, F11 over two spatial
+     blocks at 24 frames of 576 patches against a float64 block) and one
+     step's gradients against plain=True from
      the same weights, batch, dropout draws and codes (the plain path
      quantises with the kernel path's indices; each index that flipped a
      tie within VQ_F32_TIE): every parameter within STEP_GRAD_BAND of its
@@ -578,7 +582,8 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "patch_embed GEMM (PatchEpi: the folded LN1, conv)": "2pe8PatchEpi",
                  "attn_qrows projections (QkvPlan, qr::QkvEpi)": "2qr6QkvEpi",
                  "attn_qrows core": "2qr11core_kernel",
-                 "fp32 bert_layer products (SplitPlan: three bf16 passes)": "9SplitPlan",
+                 "three-pass split products (gemm_kernel over SplitPlan: 4f's vq_nearest, the "
+                 "core's test entry)": ("11gemm_kernel", "9SplitPlanE"),
                  "geglu_ff_bwd value / gate recompute with dh (GateBwdEpi)": "10GateBwdEpi",
                  "geglu_ff_bwd weight gradients (FFWgradPlan, MN-major)": "11FFWgradPlan",
                  "bf16 bert_layer hidden sites (HiddenEpi: bias, Philox keep, residual)":
@@ -609,7 +614,9 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "fp32 geglu_ff backward's dxn (split4_kn_kernel: a slice's four planes at once)":
                      "4sm9016split4_kn_kernel",
                  "fp32 spatial backward's query pass (wgmma: split S, dP, dS.K)":
-                     "2tc16bwd_dq_wg_kernel",
+                     ("2tc16bwd_dq_wg_kernel", "Lb0E"),
+                 "fp32 spatial backward's row term (wgmma: D = c + rowsum(P (dP - c)) / "
+                 "rowsum(P) from the split S and dP, F11)": ("2tc16bwd_dq_wg_kernel", "Lb1E"),
                  "fp32 spatial backward's key pass (wgmma: split S^T, dP^T, P^T.dO, dS^T.Q)":
                      "2tc17bwd_dkv_wg_kernel",
                  "fp32 patch_embed product, the train step's 27,648 patches (split4_kernel "
@@ -625,9 +632,10 @@ SASS_REQUIRED = {"vq_nearest GEMM (ArgmaxEpi)": "2vq9ArgmaxEpi",
                  "rescaled as the row max moves)": ("2qr15core_f32_kernel", "ILb1E"),
                  "fp32 block weight gradients (BlockWgradSplitPlan: three passes, 12 maps)":
                      "19BlockWgradSplitPlan",
-                 "fp32 FF weight gradients (FFWgradSplitPlan)": "16FFWgradSplitPlan",
-                 "fp32 patch embed weight gradient (PatchWgradSplitPlan)":
-                     "19PatchWgradSplitPlan",
+                 "fp32 FF weight gradients (wgrad4_kernel, FFWgradSplitPlan: a slice's four "
+                 "planes at once)": ("13wgrad4_kernel", "16FFWgradSplitPlan"),
+                 "fp32 patch embed weight gradient (wgrad4_kernel, PatchWgradSplitPlan)":
+                     ("13wgrad4_kernel", "19PatchWgradSplitPlan"),
                  "fp32 bert_layer hidden sites (HiddenF32Epi: bias, Philox keep, residual)":
                      "4bert12HiddenF32Epi",
                  "fp32 bert_layer_bwd GELU backward (GeluBwdSplitEpi, W2 read as stored)":
@@ -691,7 +699,7 @@ SASS_MMA_REQUIRED = {"shared core (attn_block, attn_packed, the backward's stati
 SASS_NO_ATOMICS = ("2tc16bwd_dq_wg_kernel", "2tc17bwd_dkv_wg_kernel",
                    "5ff32b21gate_bwd_split_kernel", "4sm9013split4_kernel",
                    "4sm9016split4_64_kernel", "4sm9016split4_32_kernel",
-                   "4bert13SplitQuadPlan")
+                   "4bert13SplitQuadPlan", "16FFWgradSplitPlan", "19PatchWgradSplitPlan")
 # ... and the other fixed-order kernels: the temporal backward's fused pass
 # (mma.sync) and the chunked weight gradient's in-order sum of its partials
 SASS_NO_ATOMICS_OTHER = ("2tc21bwd_packed_f32_kernel", "4sm9016wgrad_sum_kernel",
@@ -3845,12 +3853,9 @@ def f32_train_check(torch, model, card: str) -> dict:
     PyTorch chain forward + backward with x and every parameter wanting its
     gradient (7F-9F), fp32 patchify + F.layer_norm + F.linear + F.layer_norm
     (10f), torch.nn.grad.conv3d_weight (11f, 17), the NCDHW copy + F.conv3d
-    + copy (16); one call of each backward (7F-9F) under torch.profiler on
-    the Hopper pieces. (10f and 11f are not profiled here: in two whole
-    smokes the profiler recorded no device activity for 10f's call, the
-    eighteenth profile of the process, though it recorded the same call
-    when phase 14 ran alone; their launches are each one entry's, all in
-    ctc::sm90 / ctc::pe.)"""
+    + copy (16); one call of each backward (7F-9F), of 10f and of 11f under
+    torch.profiler on the Hopper pieces (9F's and 11f's weight gradients on
+    wgrad4_kernel, no wgrad_kernel)."""
     import copy
 
     import torch.nn.functional as F
@@ -3947,7 +3952,7 @@ def f32_train_check(torch, model, card: str) -> dict:
                 {"must": FUSED_TEMPORAL["must"] + ("wgrad_sum_kernel",),
                  "must_not": FUSED_TEMPORAL["must_not"]} if name == "attn_packed_bwd_f32_full"
                 else {"must": ("wgrad_sum_kernel",)} if name == "attn_block_bwd_f32_full"
-                else {}))
+                else {"must": ("wgrad4_kernel",), "must_not": ("wgrad_kernel",)}))
         del x, gg, got, want, again, faulty, lib_grads, kept
         torch.cuda.empty_cache()
 
@@ -4005,6 +4010,10 @@ def f32_train_check(torch, model, card: str) -> dict:
         if not same:
             raise AssertionError("patch_embed_dkw_f32: two calls, or the call from the volume "
                                  "and the call from the forward's planes, differ")
+        # the weight gradient on the staged walk, none of wgrad_kernel's three passes
+        hopper_chain_check("patch_embed_dkw_f32",
+                           lambda: patch_embed_dkw(image, dconv, p, tp, planes), card,
+                           must=("wgrad4_kernel",), must_not=("wgrad_kernel", "gemm_kernel"))
         ms = cuda_ms(torch, lambda: patch_embed_dkw(image, dconv, p, tp, planes))
         vol_ms = cuda_ms(torch, lambda: patch_embed_dkw(image, dconv, p, tp))
         plain_ms = cuda_ms(torch, lambda: patch_embed_dkw_plain(image, dconv, p, tp))
@@ -4230,7 +4239,8 @@ def f32_train_run(torch, model, card: str, text_len: int, words: int, seed: int,
     return step_counts, counts
 
 
-CLOSE_BAND = 1e-2   # the close-token stack's query / key weight gradients and dx (F10)
+CLOSE_BAND = 1e-2   # the close-token stacks' query / key weight gradients and dx (F10, F11)
+F11_FRAMES = 24     # one volume's frames of the flagship's 24 x 24 patches (spatial_close_check)
 LONG_TEMPORAL = (16, 101)   # R, n: the temporal chain above the fused pass's n <= 64
 
 
@@ -4359,6 +4369,115 @@ def temporal_f32_check(torch, model, card: str) -> None:
                              f"{chunks} chunks")
 
 
+def block_f64(torch, x, gamma, wq, wk, wv, wo, qs, ks, bias, scale: float):
+    """The residual attention block in float64 (two-pass LayerNorm moments),
+    independent of attn_block_plain: x + Wo attention(l2norm(LN(x) Wq^T)
+    qs scale, l2norm(x Wk^T) ks, x Wv^T, + bias)."""
+    r, n, _ = x.shape
+    dh = qs.shape[0]
+    heads = wq.shape[0] // dh
+
+    def heads_of(t):
+        return t.reshape(r, n, heads, dh).transpose(1, 2)
+
+    mean = x.mean(-1, keepdim=True)
+    xn = (x - mean) * torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + 1e-5) * gamma
+    q, k, v = heads_of(xn @ wq.t()), heads_of(x @ wk.t()), heads_of(x @ wv.t())
+    q = q / q.norm(dim=-1, keepdim=True) * (qs * scale)
+    k = k / k.norm(dim=-1, keepdim=True) * ks
+    p = torch.softmax(q @ k.transpose(-1, -2) + bias, dim=-1)
+    return x + (p @ v).transpose(1, 2).reshape(r, n, heads * dh) @ wo.t()
+
+
+def spatial_close_grads(torch, model) -> dict:
+    """F11's stack: layers 0 and 1 of the spatial transformer (residual, the
+    CPB bias of the flagship's 24 x 24 patches, gains drawn by around_ones)
+    over F11_FRAMES frames of patches 2% apart (adjacent patches of a frame
+    lie that close), a cotangent on each frame's first patch. Returns, for the
+    float64 block (block_f64, each layer at the fp32 chain's own input and
+    the float64 dx of the layer above), the plain fp32 backward (TF32 off),
+    the full fp32 chain rerunning the forward core, the chain from the
+    statistics the fp32 forward kept (the train step's form) and the
+    one-pass control, [dWq, dWk of layer 1, of layer 0, dx], each backward
+    propagating its own dx."""
+    from ct_clip_ut_tpu_torch.models.ctvit import token_grid_shape
+    from ct_clip_ut_tpu_torch.ops.attn_block import (attn_block, attn_block_bwd,
+                                                     attn_block_bwd_plain, attn_block_plain)
+    from ct_clip_ut_tpu_torch.ops.posbias import continuous_pos_bias
+
+    vit = model.visual_transformer
+    d = vit.cfg.dim
+    _, h, w = token_grid_shape(vit.cfg, VOLUME)
+    scale = vit.enc_spatial_transformer.layers[0][1].cfg.scale
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def layer(i):
+        a = vit.enc_spatial_transformer.layers[i][1]
+        inner = a.cfg.inner_dim
+        wkv = a.to_kv.weight.detach().float()
+        return [around_ones(torch, g, d), a.to_q.weight.detach().float(),
+                wkv[:inner].contiguous(), wkv[inner:].contiguous(),
+                a.to_out.weight.detach().float(), around_ones(torch, g, a.cfg.dim_head),
+                around_ones(torch, g, a.cfg.dim_head)]
+
+    ws = [layer(0), layer(1)]
+    with torch.no_grad():
+        bias = continuous_pos_bias(vit.spatial_rel_pos_bias, h, w).float().contiguous()
+        x0 = (torch.randn((F11_FRAMES, 1, d), generator=g, device="cuda")
+              + 0.02 * torch.randn((F11_FRAMES, h * w, d), generator=g, device="cuda"))
+        cot = torch.zeros_like(x0)
+        cot[:, 0] = torch.randn((F11_FRAMES, d), generator=g, device="cuda")
+        xs = [x0, attn_block_plain(x0, *ws[0], bias, scale, True)]
+        kept = [attn_block(x, *wl, bias, scale, True, keep=True)[1] for x, wl in zip(xs, ws)]
+
+    def f64(x, *args):
+        dout = args[-3]
+        leaves = [t.double().requires_grad_() for t in (x, *args[:7])]
+        with torch.enable_grad():
+            y = block_f64(torch, *leaves, bias.double(), scale)
+            return torch.autograd.grad(y, leaves, dout.double())
+
+    def stack(fn, **kw):
+        dout, out = cot, []
+        for i in (1, 0):
+            grads = fn(xs[i], *ws[i], bias, dout, scale, True,
+                       **{k: v[i] for k, v in kw.items()})
+            out += [grads[2], grads[3]]
+            dout = grads[0]
+        return out + [dout]
+
+    with torch.no_grad():
+        return {"float64": stack(f64), "plain": stack(attn_block_bwd_plain),
+                "chain": stack(attn_block_bwd), "chain, kept": stack(attn_block_bwd, saved=kept),
+                "one_pass": stack(lambda *a: attn_block_bwd(*a, one_pass=True))}
+
+
+def spatial_close_check(torch, model, card: str) -> None:
+    """F11 in phase 14: spatial_close_grads over one volume's 24 frames of
+    576 patches. The plain fp32 backward and the full fp32 chain (the row
+    term's walk, D = c + rowsum(P (dP - c)) / rowsum(P) from the same split
+    S and dP, c each row's dP at key 0, then the wgmma passes), rerunning
+    the forward core or from the statistics the forward kept, each within
+    CLOSE_BAND of float64 in every gradient, the one-pass control outside.
+    (On the H100 the walk's first form, D = rowsum(P dP) summed in order
+    with P from the forward's 1 / l, read 3.9e-2 here, plain fp32 5.3e-3.)"""
+    got = spatial_close_grads(torch, model)
+    ref = got.pop("float64")
+    errs = {k: [rel_err(a, b) for a, b in zip(v, ref)] for k, v in got.items()}
+    names = ("dWq layer 1", "dWk layer 1", "dWq layer 0", "dWk layer 0", "dx")
+    print(f"kernel attn_block_bwd_f32_full: F11 close tokens (two spatial blocks with the "
+          f"bias, [{F11_FRAMES}, {ref[-1].shape[1]}, {ref[-1].shape[2]}] patches 2% apart, "
+          f"a cotangent on each frame's first patch) vs float64, max_rel_err "
+          + "; ".join(f"{k}: " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, v))
+                      for k, v in errs.items())
+          + f" (band {CLOSE_BAND}); the chain vs the plain backward "
+          + ", ".join(f"{rel_err(a, b):.3e}" for a, b in zip(got["chain"], got["plain"]))
+          + f" [{card}]")
+    if (max(max(errs[k]) for k in ("plain", "chain", "chain, kept")) > CLOSE_BAND
+            or not max(errs["one_pass"]) > CLOSE_BAND):
+        raise AssertionError(f"F11 close tokens: {errs}")
+
+
 def f32_train_phase(torch, card: str) -> tuple:
     """Phase 14: the fp32 train step at 120-token reports, at flagship width
     with peg_pallas=True, B = 2 (TrainConfig(compute_dtype="float32",
@@ -4378,6 +4497,7 @@ def f32_train_phase(torch, card: str) -> tuple:
     model = init_ctclip(cfg, seed=0, device="cuda")
     record = f32_train_check(torch, model, card)
     temporal_f32_check(torch, model, card)
+    spatial_close_check(torch, model, card)
     _, counts = f32_train_run(torch, model, card, EARLIER_TEXT_LEN, 40, 20, F32_TRAIN_STEP,
                               "train fp32")
     print(f"train fp32: phase 14 in {time.perf_counter() - t_phase:.1f} s [{card}]")

@@ -23,10 +23,10 @@
 // fp32 one. The function's products: the projections q, k, v, dO, dxn
 // (2 M D HD each), dx_direct (2 M D 2 HD) and the weight gradients dWq,
 // dWk | dWv, dWo (2 M D HD each, 4 in all), and per (sequence, head) S,
-// P.V (for D, or o in the temporal train form), dP, dS.K, dS^T.Q, P^T.dO
-// (2 n^2 32 each). The passes take two more n^2 products than that (the
-// key pass's S^T and dP^T), the dbias pass S and dP again, and the
-// statistics pass S twice. The temporal fused pass is bound by bytes (its
+// P.V (o, for dWo), dP, dS.K, dS^T.Q, P^T.dO (2 n^2 32 each). The passes
+// take four more n^2 products than that (the row term's walk and the key
+// pass S and dP again), the dbias pass S and dP again, and the statistics
+// pass S twice. The temporal fused pass is bound by bytes (its
 // header). Launches:
 //
 //   split_kernel x 4      the planes of wq | wk | wv (stacked [3 HD, D]) and
@@ -44,9 +44,14 @@
 //                         row's (m log2 e, 1 / l); the spatial block skips it
 //                         when the forward kept both (`saved`)
 //   transpose_kernel      (with a bias) the bias transposed per head
+//   bwd_dq_wg_kernel      (ROWTERM) the row term's walk, the same blocks and
+//                         tiles as the query pass: S, dP, P, D = c +
+//                         rowsum(P (dP - c)) / rowsum(P) from the same split
+//                         dP (c the row's dP at key 0), written into mld
+//                         with lse (F11)
 //   bwd_dq_wg_kernel      per (sequence, 64-query tile, head), the key tiles
-//                         streamed: D = rowsum(dO o) in its prologue, P, dP =
-//                         dO V^T, dS = P (dP - D), dq^ = dS K, the scale and
+//                         streamed: P, dP = dO V^T, dS = P (dP - D), dq^ =
+//                         dS K, the scale and
 //                         l2-norm backward -> dq planes; in the train form
 //                         also the block's sum of u_q . dq^ per column
 //                         (dq_scale)
@@ -95,8 +100,8 @@ namespace tc {
 // Workspaces of the passes: qk [4][M][HD] (q_hi, q_lo, k_hi, k_lo), v and
 // dO [2][M][HD] (hi, lo), unit [2][M][HD] / norm [2][M][H] fp32 (q then
 // k), mld [R][H][n] float4 (m log2 e, 1 / l, D, lse: the core writes the
-// first two, the wgmma query pass the others; the fused temporal pass
-// takes none).
+// first two, the row term's walk the others; the fused temporal pass takes
+// none).
 
 // a stage of the fp32 dbias pass: k_hi, k_lo, v_hi, v_lo of the key chunk;
 // q_hi, q_lo, dO_hi, dO_lo of the query tile; the tile's (m log2 e, 1 / l,
@@ -311,7 +316,7 @@ int block_backward_f32(const float* x, const float* gamma, const float* wq, cons
       transpose_kernel<><<<gt, 256, 0, st>>>(bias, biasT, n);
     }
     if (!err)
-      err = launch_wg_passes(qk, v, dO, o, bias, biasT, mld, unit, norm, qs, ks, scale, dq, dkv,
+      err = launch_wg_passes(qk, v, dO, bias, biasT, mld, unit, norm, qs, ks, scale, dq, dkv,
                              q_part, k_part, R, n, H, keep_lo, st);
   }
   if (err) return err;

@@ -34,10 +34,25 @@
 //   - the row statistics come from the forward: (m log2 e, 1 / l) in mld,
 //     written by the fp32 forward core when the forward keeps them for the
 //     backward (attention._BlockFn) or by the core the chain reruns when it
-//     does not; the query pass forms D = rowsum(dO o) from o's and dO's
-//     planes in its prologue and writes (m log2 e, 1 / l, D, lse) for the
-//     key pass, whose stage carries its query tile's rows of it (one bulk
-//     copy);
+//     does not; a walk of its own before the query pass (the query pass's
+//     kernel with ROWTERM) forms the split S and dP over the key tiles as
+//     the query pass does, D = c + rowsum(P (dP - c)) / rowsum(P) from them
+//     (c the row's dP at key 0), and writes (m log2 e, 1 / l, D, lse) for
+//     both passes; the key pass's stage carries its query tile's rows of it
+//     (one bulk copy). Over tokens that lie close (adjacent patches of a
+//     frame) dP - D is a small difference and each row of dS = P (dP - D)
+//     must sum to zero far below fp32's step in D, or the query / key
+//     weight gradients, sums of dS against nearly equal rows, lose it all
+//     (F11). So D comes from the same split dP it is subtracted from (the
+//     first design's D = rowsum(dO o), from o's and dO's planes, left them
+//     2.3e-2 to 6.9e-2 off the fp32 XLA twins of two blocks in the CPU
+//     emulation, tests/test_torch_port_wgrad_staged.py), over the walk's own
+//     row sum of P (the forward's l comes from another kernel's S and
+//     rounding), and its summands are shifted by c (unshifted, an in-order
+//     fp32 sum of 576 terms near D rounds away too much of it). On the
+//     H100 at 24 frames of 576 patches the three steps read 3.9e-2, 1.5e-2
+//     and 2.3e-3 off a float64 block (chip_smoke.py phase 14), the plain
+//     fp32 backward 5.3e-3;
 //   - every sum over tokens runs in order in one accumulator (dq over the
 //     key tiles, dk and dv over the query tiles), no atomics: two calls
 //     give the same bits.
@@ -368,22 +383,24 @@ __device__ __forceinline__ void load_tile(const sm90::Maps& maps, char* stg, uin
 }
 
 // The query pass: one block per (sequence r, 64-query tile, head h). mld
-// [R][H][n] holds (m log2 e, 1 / l) of each query row; the prologue adds D =
-// rowsum(dO o) (o [2][M][HD], hi then lo) and lse = m log2 e - log2(1 / l)
-// for the key pass. Over the key tiles: S, then dP, in two wgmma groups; P =
-// exp2(S log2 e - m) / l while dP runs; then per 16-key step dS = P (dP - D)
-// split and its three products into dq^, the next step's dS formed while
-// they run; then the scale and l2-norm backward into dq's planes; qs_part
-// (null in the data-gradient form) [R * tiles * H][32] the block's sums of
-// u_q dq^.
-template <int BIAS>
+// [R][H][n] holds (m log2 e, 1 / l, D, lse) of each query row. Over the key
+// tiles: S, then dP, in two wgmma groups; P = exp2(S log2 e - m) / l while
+// dP runs; then per 16-key step dS = P (dP - D) split and its three
+// products into dq^, the next step's dS formed while they run; then the
+// scale and l2-norm backward into dq's planes; qs_part (null in the
+// data-gradient form) [R * tiles * H][32] the block's sums of u_q dq^.
+// ROWTERM: the row term's walk before it, over the same tiles: the same S,
+// dP and P, D = c + rowsum(P (dP - c)) / rowsum(P) with c the row's dP at
+// key 0 (each thread's elements in tile order, then the quad's four), and
+// (m log2 e, 1 / l, D, m log2 e - log2(1 / l)) written into mld; no dq.
+template <int BIAS, bool ROWTERM>
 __global__ void __launch_bounds__(WG_ROWS * 2, 3)
 bwd_dq_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restrict__ qk,
-                 const bf16* __restrict__ dO, const bf16* __restrict__ o,
-                 const float* __restrict__ bias, float4* __restrict__ mld,
-                 const float* __restrict__ unit, const float* __restrict__ norm,
-                 const float* __restrict__ qs, float scale, bf16* __restrict__ dq,
-                 float* __restrict__ qs_part, int M, int n, int HD, int keep_lo) {
+                 const bf16* __restrict__ dO, const float* __restrict__ bias,
+                 float4* __restrict__ mld, const float* __restrict__ unit,
+                 const float* __restrict__ norm, const float* __restrict__ qs, float scale,
+                 bf16* __restrict__ dq, float* __restrict__ qs_part, int M, int n, int HD,
+                 int keep_lo) {
   using namespace sm90;
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[WG_RING], empty[WG_RING];
@@ -411,40 +428,11 @@ bwd_dq_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restrict
   load_a(dl, dO + plane + off, HD, q0, n, lane);
   float4* st = mld + ((int64_t)r * H + h) * n;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
-  {
-    // D = rowsum(dO o) over the quad's columns of rows a and b
-    uint32_t oh[2][4], ol[2][4];
-    load_a(oh, o + off, HD, q0, n, lane);
-    load_a(ol, o + plane + off, HD, q0, n, lane);
-    float d[2] = {0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const auto bf = [](uint32_t u) {
-          return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-        };
-        const float2 x0 = bf(dh[ks][i]), x1 = bf(dl[ks][i]), y0 = bf(oh[ks][i]), y1 = bf(ol[ks][i]);
-        d[i & 1] += (x0.x + x1.x) * (y0.x + y1.x) + (x0.y + x1.y) * (y0.y + y1.y);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      d[i] += __shfl_xor_sync(0xffffffffu, d[i], 1);
-      d[i] += __shfl_xor_sync(0xffffffffu, d[i], 2);
-    }
-    sa.z = d[0];
-    sb.z = d[1];
-    if (t == 0) {
-      if (va) st[ra] = make_float4(sa.x, sa.y, sa.z, sa.x - log2f(sa.y));
-      if (vb) st[rb] = make_float4(sb.x, sb.y, sb.z, sb.x - log2f(sb.y));
-    }
-  }
+  const float4 sa = va ? st[ra] : zero, sb = vb ? st[rb] : zero;
   const bool read = BIAS == 1 && bias != nullptr;   // the bias from global memory
   const float* bias_a = read ? bias + ((int64_t)h * n + (va ? ra : 0)) * n : nullptr;
   const float* bias_b = read ? bias + ((int64_t)h * n + (vb ? rb : 0)) * n : nullptr;
-  float acc[16];
+  float acc[16], rowterm[2] = {0.f, 0.f}, rowsum[2] = {0.f, 0.f}, shift[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
   for (int j = 0; j < tiles; ++j) {
@@ -473,29 +461,57 @@ bwd_dq_wg_kernel(const __grid_constant__ sm90::Maps maps, const bf16* __restrict
     }
     wgmma_wait_all();
     fence_regs(dp);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      // dS of keys 16 ks ... (elements 8 ks ... 8 ks + 7) as A fragments,
-      // then its three products while the next step's are formed
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = 8 * ks + 2 * i;
-        const float4& sr = (i & 1) ? sb : sa;
-        __nv_bfloat162 hv, lv;
-        split2(s[k] * (dp[k] - sr.z), s[k + 1] * (dp[k + 1] - sr.z), keep_lo, hv, lv);
-        ah[i] = as_u32(hv);
-        al[i] = as_u32(lv);
+    if constexpr (ROWTERM) {
+      if (j == 0) {   // each row's dP at key 0, from its quad's first lane
+        shift[0] = __shfl_sync(0xffffffffu, dp[0], lane & ~3);
+        shift[1] = __shfl_sync(0xffffffffu, dp[2], lane & ~3);
       }
-      const uint32_t kr = kb + 1024 * ks;
-      wgmma_fence();
-      wgmma_m64n32k16_rs_t(acc, al, desc_mn_sw64(kr));
-      wgmma_m64n32k16_rs_t(acc, ah, desc_mn_sw64(kr + WG_PLANE));
-      wgmma_m64n32k16_rs_t(acc, ah, desc_mn_sw64(kr));
-      wgmma_commit();
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        rowterm[(k >> 1) & 1] += s[k] * (dp[k] - shift[(k >> 1) & 1]);
+        rowsum[(k >> 1) & 1] += s[k];
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        // dS of keys 16 ks ... (elements 8 ks ... 8 ks + 7) as A fragments,
+        // then its three products while the next step's are formed
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = 8 * ks + 2 * i;
+          const float4& sr = (i & 1) ? sb : sa;
+          __nv_bfloat162 hv, lv;
+          split2(s[k] * (dp[k] - sr.z), s[k + 1] * (dp[k + 1] - sr.z), keep_lo, hv, lv);
+          ah[i] = as_u32(hv);
+          al[i] = as_u32(lv);
+        }
+        const uint32_t kr = kb + 1024 * ks;
+        wgmma_fence();
+        wgmma_m64n32k16_rs_t(acc, al, desc_mn_sw64(kr));
+        wgmma_m64n32k16_rs_t(acc, ah, desc_mn_sw64(kr + WG_PLANE));
+        wgmma_m64n32k16_rs_t(acc, ah, desc_mn_sw64(kr));
+        wgmma_commit();
+      }
+      wgmma_wait_all();
     }
-    wgmma_wait_all();
     ring_release(ring, j, tiles, lane, load);
+  }
+  if constexpr (ROWTERM) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rowterm[i] += __shfl_xor_sync(0xffffffffu, rowterm[i], 1);
+      rowterm[i] += __shfl_xor_sync(0xffffffffu, rowterm[i], 2);
+      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 1);
+      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], 2);
+    }
+    if (t == 0) {
+      if (va) st[ra] = make_float4(sa.x, sa.y, shift[0] + rowterm[0] / rowsum[0],
+                                   sa.x - log2f(sa.y));
+      if (vb) st[rb] = make_float4(sb.x, sb.y, shift[1] + rowterm[1] / rowsum[1],
+                                   sb.x - log2f(sb.y));
+    }
+    return;
   }
   fence_regs(acc);
   float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -673,17 +689,17 @@ inline int map_sw64(CUtensorMap* map, const void* ptr, int rows, int cols, int64
   return sm90::map_sw64(map, ptr, rows, cols, ld, box_rows);
 }
 
-// Launch both passes over R sequences of n tokens, H heads: qk [4][M][HD],
-// v, dO and o [2][M][HD] (hi, lo), bias and biasT [H][n][n] fp32 (both null:
-// no bias, read as zeros by BIAS 1), mld [R][H][n] float4 with (m log2 e, 1 /
-// l) written;
+// Launch the row term's walk and both passes over R sequences of n tokens, H
+// heads: qk [4][M][HD], v and dO [2][M][HD] (hi, lo), bias and biasT
+// [H][n][n] fp32 (both null: no bias, read as zeros by BIAS 1), mld
+// [R][H][n] float4 with (m log2 e, 1 / l) written;
 // out dq [2][M][HD], dkv [2][M][2 HD]; q_part / k_part [R * ceil(n / 64) *
 // H][32] or null.
 template <int Dummy = 0>
-int launch_wg_passes(const bf16* qk, const bf16* v, const bf16* dO, const bf16* o,
-                     const float* bias, const float* biasT, float4* mld, const float* unit,
-                     const float* norm, const float* qs, const float* ks, float scale, bf16* dq,
-                     bf16* dkv, float* q_part, float* k_part, int R, int n, int H, int keep_lo,
+int launch_wg_passes(const bf16* qk, const bf16* v, const bf16* dO, const float* bias,
+                     const float* biasT, float4* mld, const float* unit, const float* norm,
+                     const float* qs, const float* ks, float scale, bf16* dq, bf16* dkv,
+                     float* q_part, float* k_part, int R, int n, int H, int keep_lo,
                      cudaStream_t st) {
   const int M = R * n, HD = H * DH;
   const size_t plane = (size_t)M * HD;
@@ -699,13 +715,17 @@ int launch_wg_passes(const bf16* qk, const bf16* v, const bf16* dO, const bf16* 
   if (!err && kind == 2) err = sm90::make_map(&kv.m[MAP_BIAS], bias, H * n, n, n, WG_ROWS, 4);
   if (!err && kind == 2) err = sm90::make_map(&qd.m[MAP_BIAS], biasT, H * n, n, n, WG_ROWS, 4);
   if (err) return err;
-  auto dq_pass = kind == 2 ? bwd_dq_wg_kernel<2> : bwd_dq_wg_kernel<1>;
+  auto row_term = kind == 2 ? bwd_dq_wg_kernel<2, true> : bwd_dq_wg_kernel<1, true>;
+  auto dq_pass = kind == 2 ? bwd_dq_wg_kernel<2, false> : bwd_dq_wg_kernel<1, false>;
   auto dkv_pass = kind == 2 ? bwd_dkv_wg_kernel<2> : bwd_dkv_wg_kernel<1>;
+  cudaFuncSetAttribute(row_term, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PASS_SMEM);
   cudaFuncSetAttribute(dq_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PASS_SMEM);
   cudaFuncSetAttribute(dkv_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_PASS_SMEM);
   dim3 grid(R, (n + WG_ROWS - 1) / WG_ROWS, H);
-  dq_pass<<<grid, WG_ROWS * 2, WG_PASS_SMEM, st>>>(kv, qk, dO, o, bias, mld, unit, norm, qs,
-                                                   scale, dq, q_part, M, n, HD, keep_lo);
+  row_term<<<grid, WG_ROWS * 2, WG_PASS_SMEM, st>>>(kv, qk, dO, bias, mld, unit, norm, qs, scale,
+                                                    dq, nullptr, M, n, HD, keep_lo);
+  dq_pass<<<grid, WG_ROWS * 2, WG_PASS_SMEM, st>>>(kv, qk, dO, bias, mld, unit, norm, qs, scale,
+                                                   dq, q_part, M, n, HD, keep_lo);
   dkv_pass<<<grid, WG_ROWS * 2, WG_PASS_SMEM, st>>>(qd, qk, v, biasT, mld, unit, norm, ks, dkv,
                                                     k_part, M, n, HD, keep_lo);
   return (int)cudaGetLastError();

@@ -39,13 +39,15 @@
 //   ln_bwd_f32_kernel     dx (+ g); in the train form each block's dgamma
 //                         and dbeta partial sums
 //   colsum_kernel         (train form) dgamma | dbeta, the partials in order
-//   wgrad_kernel          (train form) dW2 = g^T h and dWv | dWg = [dvalue |
-//                         dgate]^T xn in one three-pass launch on
-//                         wgrad_sm90.cuh (FFWgradSplitPlan: 4 x 11 tiles of
-//                         dW2, 22 x 4 of dWv | dWg, 132 in all), each tile
-//                         summing all N rows in order: no atomics, the same
-//                         bits every call; inner's padding stays out of the
-//                         outputs
+//   wgrad4_kernel         (train form) dW2 = g^T h and dWv | dWg = [dvalue |
+//                         dgate]^T xn in one launch (wgrad_sm90.cuh, each
+//                         token slice's four planes staged once;
+//                         FFWgradSplitPlan: 4 x 11 tiles of dW2, 22 x 4 of
+//                         dWv | dWg, 132 in all), each tile summing all N
+//                         rows in order: no atomics, the same bits every
+//                         call; inner's padding stays out of the outputs.
+//                         0.57-0.60 ms at N = 27,648, where wgrad_kernel's
+//                         three passes over the tokens took 0.91
 // The first design wrote dh to memory in fp32 (378 MB at N = 69,120) and
 // read it back in the recompute's epilogue, whose 4-B stores straight from
 // the fragments left the mainloop idle: that launch took 1.23 ms at N =
@@ -286,16 +288,15 @@ gate_bwd_split_kernel(const __grid_constant__ MapsN<8> maps, bf16* __restrict__ 
   }
 }
 
-// The two weight gradients in one three-pass launch. Maps (hi, lo each): 0
-// / 1 g [M, D], 2 / 3 h [M, inner] (row stride ldh), 4 / 5 [dvalue |
-// dgate] [M, 2 ldh], 6 / 7 xn [M, D]. Tiles [0, d_tiles * inner_tiles): dW2
-// [D, inner] = g^T h (output 0); then dW_in [2 inner, D]: dvalue^T xn (rows
-// [0, inner), columns i0 of the dvalue | dgate planes) and dgate^T xn (rows
-// [inner, 2 inner), columns ldh + i0) (output 1). A value tile's last
-// columns past inner read gate columns, a gate tile's TMA zeros: neither
-// lands in a stored row.
+// The two weight gradients in one launch. Maps (hi, lo each): 0 / 1 g [M,
+// D], 2 / 3 h [M, inner] (row stride ldh), 4 / 5 [dvalue | dgate] [M, 2
+// ldh], 6 / 7 xn [M, D]. Tiles [0, d_tiles * inner_tiles): dW2 [D, inner] =
+// g^T h (output 0); then dW_in [2 inner, D]: dvalue^T xn (rows [0, inner),
+// columns i0 of the dvalue | dgate planes) and dgate^T xn (rows [inner, 2
+// inner), columns ldh + i0) (output 1). A value tile's last columns past
+// inner read gate columns, a gate tile's TMA zeros: neither lands in a
+// stored row.
 struct FFWgradSplitPlan {
-  static constexpr int PASSES = 3;
   int D, inner, ldh, d_tiles, inner_tiles;
   __device__ WgradTile tile(int t) const {
     const int out_tiles = d_tiles * inner_tiles;
@@ -398,7 +399,7 @@ extern "C" int ctc_geglu_ff_bwd_f32(const void* x, const void* gamma, const void
   err = launch_colsum(part, static_cast<float*>(dgb), ln_parts(M), 2 * D, 2 * D, 1.f, st);
   if (err) return err;
   const int d_tiles = (D + BN - 1) / BN, inner_tiles = (inner + BN - 1) / BN;
-  return launch_wgrad_sm90(
+  return launch_wgrad4_sm90(
       wg, FFWgradSplitPlan{D, inner, ldh, d_tiles, inner_tiles},
       WgradStoreEpi{{(float*)dw_out, (float*)dw_in}, {inner, D}, {inner, D}},
       d_tiles * inner_tiles * 3, M, st);

@@ -28,11 +28,14 @@
 // volume and dconv fp32, as JAX's _pe_bwd keeps dconv in the image dtype)
 // takes P as the fp32 forward's hi / lo planes (patch_embed.cu's
 // ctc_patch_embed_res_f32, or ctc_patchify_f32 from the volume), splits
-// dconv into planes by a row pass, and runs the same tiles over three
-// passes of the planes (PatchWgradSplitPlan: P_hi dconv_hi, P_lo dconv_hi,
-// P_hi dconv_lo into one fp32 accumulator, within ~2^-16 of the fp32
-// product). Its bound at B = 2: 340 GFLOP as bf16 products, 0.34 ms at the
-// bf16 peak (the planes of P, 442 MB, 0.13 ms).
+// dconv into planes by a row pass, and runs the same tiles as split
+// products (PatchWgradSplitPlan: P_hi dconv_lo, P_lo dconv_hi, P_hi
+// dconv_hi into one fp32 accumulator, within ~2^-16 of the fp32 product).
+// Its bound at B = 2: 340 GFLOP as bf16 products, 0.34 ms at the bf16 peak
+// (the planes of P, 442 MB, 0.13 ms). Walking the tokens three times
+// (wgrad_kernel's three passes) read 128 x 3 x 432 x 32 KB = 5.3 GB from L2,
+// 0.89 ms on the H100; here each 64-token slice's four planes are staged
+// once (wgrad4_kernel, 3.6 GB, 0.48 ms).
 #include "patch_common.cuh"
 #include "split_sm90.cuh"
 #include "wgrad_sm90.cuh"
@@ -52,7 +55,6 @@ struct PatchWgradPlan {
 
 // PatchWgradPlan over split planes: maps 0 / 1 P's hi / lo, 2 / 3 dconv's.
 struct PatchWgradSplitPlan {
-  static constexpr int PASSES = 3;
   int K, col_tiles;
   __device__ sm90::WgradTile tile(int t) const {
     const int i0 = (t / col_tiles) * sm90::BM, j0 = (t % col_tiles) * sm90::BN;
@@ -144,7 +146,7 @@ extern "C" int ctc_patch_embed_dkw_f32(const void* patches, const void* dconv, v
   if (!err) err = sm90::split(dconv, ds, dm, !(flags & 1), st);
   if (err) return err;
   const int col_tiles = (dim + sm90::BN - 1) / sm90::BN;
-  return sm90::launch_wgrad_sm90(maps, pe::PatchWgradSplitPlan{K, col_tiles},
-                                 pe::DkwStoreEpi{static_cast<float*>(out), dim, patch, K / patch},
-                                 ((K + sm90::BM - 1) / sm90::BM) * col_tiles, M, st);
+  return sm90::launch_wgrad4_sm90(maps, pe::PatchWgradSplitPlan{K, col_tiles},
+                                  pe::DkwStoreEpi{static_cast<float*>(out), dim, patch, K / patch},
+                                  ((K + sm90::BM - 1) / sm90::BM) * col_tiles, M, st);
 }

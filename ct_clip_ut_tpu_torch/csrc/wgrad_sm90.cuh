@@ -243,7 +243,13 @@ int launch_wgrad_sm90(const MapsT& maps, const Plan& plan, const Epi& epi, int t
 // stages), started again from zero, and the sums go through the
 // epilogue. One block a tile over every token, in order: no atomics, the
 // same bits every call. The plan names each tile's hi maps (a, b); each lo
-// plane's map is the next one.
+// plane's map is the next one. The fp32 weight gradients of the BERT layer,
+// the patch embed and the GEGLU FF run on it. A pair of blocks in a thread
+// block cluster, two tiles sharing one operand and each block multicasting
+// one 64-column box of it into both blocks' stages, cut the reads from L2
+// by a quarter but read slower on the H100 80GB HBM3, 700 W (PERF.md): it
+// leaves the 64 KB that land in each block's shared memory a slice as they
+// are, and the partners' handshake delays each stage's refill.
 constexpr int WG4_STAGES = 3;
 constexpr int WG4_STAGE = 2 * STAGE_BYTES;
 constexpr int WG4_SMEM = WG4_STAGES * WG4_STAGE + 1024;

@@ -30,7 +30,15 @@ windows) the chains of a frame-sparse sweep's chunk of 8 windows:
   `patch_embed_fused` (row 5f, CTGenerate's one-scan route: the first
   frame of a [1, 1, 201, 128, 128] scan at a temporal patch of 1, then its
   other 200 frames at 2, random weights from the seed); their yardstick
-  patchify by reshape, F.layer_norm, F.linear, F.layer_norm in fp32.
+  patchify by reshape, F.layer_norm, F.linear, F.layer_norm in fp32;
+- `vq_nearest` fp32 (row 4f) over a chunk's tokens [110592, 512] (the
+  sweep's shape, one launch a chunk) and a volume's [13824, 512] against
+  8,192 codes (l2-normed N(0, 1) rows); its yardstick fp32 tokens @
+  codes.t() and argmax; its error the share of indices that differ from
+  the plain version's;
+- the fp32 FF backward with every gradient (row 9F, the fp32 train step's,
+  [27648, 512], the residual on): `geglu_ff_bwd` on fp32 tensors; its
+  yardstick the PyTorch fp32 chain forward and backward by autograd.
 
 Beside each it times the plain version (one window) and the same
 function as a chain of PyTorch fp32 calls (the yardstick), gives the bound
@@ -70,6 +78,7 @@ from ct_clip_ut_tpu_torch.ops import geglu_ff_int8 as gi
 from ct_clip_ut_tpu_torch.ops import patch_embed as pe
 from ct_clip_ut_tpu_torch.ops.patch_embed import fold_patch_embed
 from ct_clip_ut_tpu_torch.ops.quant import quantize_ff_params
+from ct_clip_ut_tpu_torch.ops.vq_nearest import vq_nearest, vq_nearest_plain
 
 VOLUME = (1, 240, 480, 480)
 CTGEN_SCAN = (1, 201, 128, 128)      # [c, T, H, W] of a CTGenerate scan
@@ -231,6 +240,21 @@ def main(argv=None) -> int:
                                        d).permute(0, 4, 1, 2, 3).contiguous()
         return x
 
+    def l2rows(n):
+        return lambda: F.normalize(torch.randn((n, d), generator=g, device="cuda"), dim=-1)
+
+    codes = l2rows(vit.cfg.codebook_size)()
+    ffg = {}   # row 9F's cotangent
+
+    def ff_bwd_rows():
+        ffg["g"] = torch.randn((2 * t * hw, d), generator=g, device="cuda")
+        return torch.randn((2 * t * hw, d), generator=g, device="cuda")
+
+    def ff_grad_chain(x):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(True) for a in (x, *ffw)]
+            return torch.autograd.grad(ff_chain(*leaves), leaves, ffg["g"])
+
     m5 = [(CTGEN_SCAN[1] - 1) // 2 * 64, 64]
     # name -> (input, kernel, plain, chain, operations, their peak, weights, launches a
     # chunk, a sweep)
@@ -271,6 +295,18 @@ def main(argv=None) -> int:
         "5f": (ctgen_scan, ctgen(pe.patch_embed_fused), ctgen(pe.patch_embed_plain),
                ctgen_chain, sum(3 * 2 * m * ctp * 256 * d for m, ctp in zip(m5, (2, 1))),
                BF16_PEAK, [w for _, _, ws in ctg for w in ws], 0, 0),
+        "4f sweep": (l2rows(CHUNK * t * hw), lambda x: vq_nearest(x, codes),
+                     lambda x: vq_nearest_plain(x, codes),
+                     lambda x: torch.argmax(x @ codes.t(), dim=-1),
+                     3 * 2 * CHUNK * t * hw * codes.shape[0] * d, BF16_PEAK, [codes], 1,
+                     FULL_SWEEP_CHUNKS),
+        "4f volume": (l2rows(t * hw), lambda x: vq_nearest(x, codes),
+                      lambda x: vq_nearest_plain(x, codes),
+                      lambda x: torch.argmax(x @ codes.t(), dim=-1),
+                      3 * 2 * t * hw * codes.shape[0] * d, BF16_PEAK, [codes], 0, 0),
+        "9F": (ff_bwd_rows, lambda x: gf.geglu_ff_bwd(x, *ffw, ffg["g"], True),
+               lambda x: gf.geglu_ff_bwd_plain(x, *ffw, ffg["g"], True), ff_grad_chain,
+               48 * 2 * t * hw * d * inner, BF16_PEAK, ffw, 0, 0),
     }
     chosen = None if args.cases is None else set(args.cases.split(","))
     out = {}
@@ -282,7 +318,9 @@ def main(argv=None) -> int:
                 continue
             x = make()
             got, want = tensors(kern(x)), tensors(plain(x))
-            err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            # indices (4f): the share that differ; values: the largest error
+            err = max((a != b).float().mean().item() if not b.is_floating_point() else
+                      ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                       for a, b in zip(got, want))
             again = all(torch.equal(a, b) for a, b in zip(tensors(kern(x)), got))
             times = [window_ms(lambda: kern(x)) for _ in range(args.repeats)]

@@ -1776,6 +1776,54 @@ def test_fp32_patch_embed_res_and_dkw_on_card(cuda_device, shape, patch, t_patch
     assert _rel_err(one, want) > F32_BAND
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dim", [(27648, 512), (77, 512), (301, 384)])
+def test_fp32_staged_wgrad_geglu_ff_on_card(cuda_device, n, dim):
+    """9F's weight gradients (FFWgradSplitPlan on wgrad4_kernel's staged
+    walk; n = 77 and 301 ragged slices, D = 384 an odd count of D's tiles)
+    within F32_BAND of the plain backward, the same bits on two calls, one
+    launch counted; the one-pass control outside."""
+    from ct_clip_ut_tpu_torch.ops.geglu_ff import geglu_ff_bwd, geglu_ff_bwd_plain
+
+    rng = np.random.default_rng(78)
+    args = [t.to(cuda_device) for t in _torch_ff_args(_ff_inputs(rng, n=n, dim=dim))]
+    g = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32)).to(cuda_device)
+    launches.reset_launch_counts()
+    got = geglu_ff_bwd(*args, g, True)
+    assert launches.launch_counts()["geglu_ff_bwd_f32_full"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(got, geglu_ff_bwd(*args, g, True)))
+    want = geglu_ff_bwd_plain(*args, g, True)
+    one = geglu_ff_bwd(*args, g, True, one_pass=True)
+    for k in (3, 4):   # dw_in, dw_out
+        assert _rel_err(got[k], want[k]) <= F32_BAND, k
+        assert _rel_err(one[k], want[k]) > F32_BAND, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,t_patch,dim", [((2, 1, 240, 480, 480), 20, 10, 512),
+                                                     ((2, 1, 6, 48, 32), 16, 2, 64),
+                                                     ((1, 1, 20, 60, 100), 20, 10, 384)])
+def test_fp32_staged_wgrad_patch_dkw_on_card(cuda_device, shape, patch, t_patch, dim):
+    """11f (PatchWgradSplitPlan on wgrad4_kernel's staged walk; dim 64 and
+    384 a column tile masked past dim) within F32_BAND of the plain version,
+    the same bits on two calls, one launch counted; the one-pass control
+    outside."""
+    from ct_clip_ut_tpu_torch.ops.patch_embed import patch_embed_dkw, patch_embed_dkw_plain
+
+    rng = np.random.default_rng(79)
+    b, _, T, H, W = shape
+    image = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    m = b * (T // t_patch) * (H // patch) * (W // patch)
+    dconv = torch.from_numpy(rng.standard_normal((m, dim)).astype(np.float32)).to(cuda_device)
+    launches.reset_launch_counts()
+    got = patch_embed_dkw(image, dconv, patch, t_patch)
+    assert launches.launch_counts()["patch_embed_dkw_f32"] == 1
+    assert torch.equal(got, patch_embed_dkw(image, dconv, patch, t_patch))
+    want = patch_embed_dkw_plain(image, dconv, patch, t_patch)
+    assert _rel_err(got, want) <= F32_BAND
+    assert _rel_err(patch_embed_dkw(image, dconv, patch, t_patch, one_pass=True), want) > F32_BAND
+
+
 # ---- CTGenerate's one-scan route in fp32 (rows 5f, 13f) -----------------------
 
 @pytest.mark.cuda

@@ -10,8 +10,10 @@ does for the forwards: every fp32 product three bf16 products of hi / lo
 planes, the planes written where the kernels write them (the weights once,
 read K-major and MN-major; xn and x; g; q and k l2-normed and scaled; v;
 dO; P and dS in registers; dq; dk | dv; dvalue | dgate), LayerNorm and its
-backward in one-pass moments, the spatial chain's D = rowsum(dO o) from
-the fp32 o (the temporal chain at n <= 64 is the fused pass of
+backward in one-pass moments; the spatial chain's wgmma passes take D =
+rowsum(P dP) / rowsum(P) from the row term's walk over the same split S
+and dP (`_row_term`, F11; the first design's D = rowsum(dO o) from the fp32 o is the
+`d_from_o` control; the temporal chain at n <= 64 is the fused pass of
 tests/test_torch_port_packed_bwd_hopper.py, D = rowsum(P dP)). The
 emulations are held against jax.vjp of the JAX package's XLA twins
 (`_xla_reference_block`, `packed_attention_xla`, `pallas_ff._xla_reference`)
@@ -79,12 +81,21 @@ def emulated_geglu_ff_bwd_f32(x, gamma, beta, w_in, w_out, g, residual=False, on
     return _ln_bwd(x, gamma, dxn, g if residual else None)
 
 
+def _row_term(p, dp):
+    """The row term's walk: D = c + rowsum(P (dP - c)) / rowsum(P), c each
+    row's dP at key 0 (summands near zero over close tokens), so that each
+    row of dS = P (dP - D) sums to zero whatever the l that scaled P."""
+    c = dp[..., :1]
+    return c + (p * (dp - c)).sum(-1, keepdim=True) / p.sum(-1, keepdim=True)
+
+
 def emulated_block_bwd_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, residual=False,
-                           one_pass=False):
-    """tc::block_backward_f32: the weights' planes (wq | wk | wv, wo), xn's,
-    x's and g's; q, k (l2-normed, scaled) and v as planes with q's and k's
-    unit rows and norms in fp32; dO = g Wo as planes; the statistics pass's
-    p and D = rowsum(dO o) from the fp32 o; the query pass (dP = dO V^T, dS
+                           one_pass=False, d_from_o=False):
+    """tc::block_backward_f32 over whole sequences: the weights' planes (wq |
+    wk | wv, wo), xn's, x's and g's; q, k (l2-normed, scaled) and v as planes
+    with q's and k's unit rows and norms in fp32; dO = g Wo as planes; the
+    statistics pass's p and D = rowsum(P dP) from the split dP (d_from_o:
+    the first design's rowsum(dO o) from the fp32 o); the query pass (dP = dO V^T, dS
     = P (dP - D), dq^ = dS K split) and the key pass (dV = P^T dO, dk^ =
     dS^T Q, P and dS split); the scale and l2-norm backward into dq, dk
     planes; dxn = dq Wq, dx_direct = [dk | dv] [Wk; Wv]; the LN backward +
@@ -116,9 +127,12 @@ def emulated_block_bwd_f32(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, res
     if bias is not None:
         s = s + bias
     p = torch.softmax(s, dim=-1)
-    o = _product(sp(p), _t(v))
-    dsum = ((do[0] + do[1]) * o).sum(-1, keepdim=True)
-    ds = p * (_product(do, v) - dsum)
+    dp = _product(do, v)
+    if d_from_o:
+        dsum = ((do[0] + do[1]) * _product(sp(p), _t(v))).sum(-1, keepdim=True)
+    else:
+        dsum = _row_term(p, dp)
+    ds = p * (dp - dsum)
     dqh = _product(sp(ds), _t(kh))
     dkh = _product(sp(ds.transpose(-1, -2)), _t(qh))
     dv = _product(sp(p.transpose(-1, -2)), _t(do))
@@ -210,16 +224,24 @@ def _forward_core_stats(qh, kh, v, bias, one_pass=False):
     return base, inv, _split(o, one_pass)
 
 
-def _wg_passes(qh, kh, v, do, bias, base, inv, o, one_pass=False):
-    """bwd_dq_wg_kernel and bwd_dkv_wg_kernel on planes [r, h, n, 32]: D =
-    rowsum((dO_hi + dO_lo)(o_hi + o_lo)) and lse = m log2 e - log2(1 / l) in
-    the query pass's prologue; the query pass over 64-key tiles (S, dP, P
-    from the saved (m, l), dS = P (dP - D) split, dq^ summed tile by tile
-    in order), the key pass over 64-query tiles (S^T, dP^T, P^T from lse,
-    dV and dk^ summed tile by tile). Returns (dq^, dk^, dv)."""
+def _wg_passes(qh, kh, v, do, bias, base, inv, o, one_pass=False, d_from_o=False):
+    """bwd_dq_wg_kernel's row-term walk and passes and bwd_dkv_wg_kernel on
+    planes [r, h, n, 32]: D = rowsum(P dP) / rowsum(P) over the split S (+
+    bias) and dP with P from the saved (m, l) (`_row_term`) (d_from_o: the
+    first design's D =
+    rowsum((dO_hi + dO_lo)(o_hi + o_lo)), F11's control) and lse = m log2 e
+    - log2(1 / l); the query pass over 64-key tiles (S, dP, P, dS = P (dP -
+    D) split, dq^ summed tile by tile in order), the key pass over 64-query
+    tiles (S^T, dP^T, P^T from lse, dV and dk^ summed tile by tile).
+    Returns (dq^, dk^, dv)."""
     n = qh[0].shape[-2]
     sp = (lambda t: _split(t, one_pass))
-    d = ((do[0] + do[1]) * (o[0] + o[1])).sum(-1, keepdim=True)
+    if d_from_o:
+        d = ((do[0] + do[1]) * (o[0] + o[1])).sum(-1, keepdim=True)
+    else:
+        s = _product(qh, kh) + (bias if bias is not None else 0.0)
+        p = torch.exp2(s * LOG2E - base) * inv
+        d = _row_term(p, _product(do, v))
     lse = base - torch.log2(inv)
     dq = torch.zeros_like(qh[0])
     for j0 in range(0, n, TILE):
@@ -243,7 +265,7 @@ def _wg_passes(qh, kh, v, do, bias, base, inv, o, one_pass=False):
 
 
 def emulated_block_bwd_f32_wg(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, residual=False,
-                              one_pass=False, saved=None):
+                              one_pass=False, saved=None, d_from_o=False, params=False):
     """tc::block_backward_f32 with a bias (rows 7f / 7F): the weights', xn's,
     x's and g's planes; q, k (l2-normed, scaled) and v as planes with q's and
     k's unit rows and norms; dO = g Wo as planes; the forward core's
@@ -251,7 +273,9 @@ def emulated_block_bwd_f32_wg(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, 
     `_forward_core_stats` writes them) or rerun here; the two wgmma passes
     (`_wg_passes`); the scale and l2-norm backward; dxn = dq Wq, dx_direct =
     [dk | dv] [Wk; Wv]; the LN backward + dx_direct (+ g). Returns (dx, the
-    statistics and o's planes the chain used)."""
+    statistics and o's planes the chain used); with params (dx, dWq = dq^T
+    xn, dWk = dk^T x) on the planes, as BlockWgradSplitPlan takes them.
+    d_from_o: the first design's row term (`_wg_passes`)."""
     r, n, d = x.shape
     dh = qs.shape[0]
     heads = wq.shape[0] // dh
@@ -276,15 +300,20 @@ def emulated_block_bwd_f32_wg(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale, 
     qh, kh = sp(uq * qsc), sp(uk * ks)
     do = sp(heads_of(_product(sp(g2), _t(wos))))
     stats = saved if saved is not None else _forward_core_stats(qh, kh, v, bias, one_pass)
-    dqh, dkh, dv = _wg_passes(qh, kh, v, do, bias, *stats, one_pass)
+    dqh, dkh, dv = _wg_passes(qh, kh, v, do, bias, *stats, one_pass, d_from_o)
     duq, duk = dqh * qsc, dkh * ks
     dq = (duq - uq * (uq * duq).sum(-1, keepdim=True)) / qn
     dk = (duk - uk * (uk * duk).sum(-1, keepdim=True)) / kn
-    dxn = _product(sp(merged(dq)), _t(wqs))
-    dkv = torch.cat([merged(dk), merged(dv)], dim=-1)
-    dxd = _product(sp(dkv), _t(sp(torch.cat([wk, wv]))))
+    dqs_ = sp(merged(dq))
+    dxn = _product(dqs_, _t(wqs))
+    dkv = sp(torch.cat([merged(dk), merged(dv)], dim=-1))
+    dxd = _product(dkv, _t(sp(torch.cat([wk, wv]))))
     dx = _ln_bwd(x2, gamma, dxn, dxd)
-    return (dx + g2 if residual else dx).reshape(r, n, d), stats
+    dx = (dx + g2 if residual else dx).reshape(r, n, d)
+    if params:
+        hd = heads * dh
+        return dx, _product(_t(dqs_), _t(xn)), _product(_t([p[:, :hd] for p in dkv]), _t(xs))
+    return dx, stats
 
 
 def emulated_block_forward_saving(x, gamma, wq, wk, wv, scale, qs, ks, bias):
@@ -312,7 +341,8 @@ def test_block_bwd_f32_wg_chain_matches_the_jax_vjp(r, n, residual):
     64-query tiles, n = 130 a ragged third tile) from the forward's saved
     statistics: within BAND of jax.vjp of the XLA twin and of the plain
     backward; the same bits as the chain that reruns the forward core; the
-    one-pass control outside the band."""
+    one-pass control outside the band; the tiles' sums within BAND / 4 of
+    the whole-sequence emulation."""
     rng = np.random.default_rng(n + r + 300)
     a = _attn_inputs(rng, r, n, 64, 4, 32, True)
     g = rng.standard_normal((r, n, 64)).astype(np.float32)
@@ -332,7 +362,7 @@ def test_block_bwd_f32_wg_chain_matches_the_jax_vjp(r, n, residual):
     for want in (twin, plain):
         assert _rel_err(got.numpy(), want) <= BAND
         assert _rel_err(control.numpy(), want) > BAND
-    # the tiles' sums against the whole-sequence passes of the first design
+    # the tiles' sums against the whole-sequence passes
     whole = emulated_block_bwd_f32(*args, bias, tg, SCALE, residual).numpy()
     assert _rel_err(got.numpy(), whole) <= BAND / 4
 

@@ -45,7 +45,7 @@ from ct_clip_ut_tpu_torch.ops.patch_embed import EPS, _kernel_weight, _patches
 
 from test_torch_port_cuda import (_attn_inputs, _ff_inputs, _patch_args, _patch_inputs,
                                   _torch_attn_args, _torch_ff_args)
-from test_torch_port_f32_bwd_hopper import _ln_bwd, _t
+from test_torch_port_f32_bwd_hopper import _ln_bwd, _row_term, _t
 from test_torch_port_f32_hopper import _ln_planes, _product, _split
 from test_torch_port_kernels import _jax_fold
 
@@ -81,11 +81,12 @@ def _ln_gain_grads(x, dxn):
 def emulated_block_bwd_f32_full(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale,
                                 residual=False, one_pass=False):
     """tc::block_backward_f32 with its parameter gradients: the dx chain of
-    emulated_block_bwd_f32 (test_torch_port_f32_bwd_hopper.py), then dgamma
-    from the LN backward's partial sums, dq_scale / dk_scale from the
-    passes' u . dq^ / u . dk^ sums, dbias = sum over sequences of the fp32
-    dS, and dWq = dq^T xn, dWk | dWv = [dk | dv]^T x, dWo = g^T o on the
-    planes (BlockWgradSplitPlan). Returns the gradients of
+    emulated_block_bwd_f32 (test_torch_port_f32_bwd_hopper.py) with D =
+    rowsum(P dP) / rowsum(P) from the same split dP (`_row_term`, the walk),
+    then dgamma from the LN backward's partial sums, dq_scale / dk_scale
+    from the passes' u . dq^ / u . dk^ sums, dbias = sum over sequences of
+    the fp32 dS, and dWq = dq^T xn, dWk | dWv = [dk | dv]^T x, dWo = g^T o
+    on the planes (BlockWgradSplitPlan). Returns the gradients of
     attn_block_bwd_plain."""
     r, n, d = x.shape
     dh = qs.shape[0]
@@ -116,8 +117,8 @@ def emulated_block_bwd_f32_full(x, gamma, wq, wk, wv, wo, qs, ks, bias, g, scale
         s = s + bias
     p = torch.softmax(s, dim=-1)
     o = _product(sp(p), _t(v))
-    dsum = ((do[0] + do[1]) * o).sum(-1, keepdim=True)
-    ds = p * (_product(do, v) - dsum)
+    dp = _product(do, v)
+    ds = p * (dp - _row_term(p, dp))
     dqh = _product(sp(ds), _t(kh))
     dkh = _product(sp(ds.transpose(-1, -2)), _t(qh))
     dv = _product(sp(p.transpose(-1, -2)), _t(do))
