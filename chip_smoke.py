@@ -83,6 +83,24 @@ Phases, each printing its lines before the last:
      NIfTI volumes (128 x 128 x 60 int16, resampled and padded to [1, 240,
      480, 480]) with their CSVs, with --quantize-ff and without, each
      writing metrics.txt;
+  4e. the train CLI (scripts.train_ctclip.main) at flagship width with
+     peg_pallas=True: a reference-layout ctclip_v2.pt of seeded weights
+     (module. prefix, the codebook's leading axis, HF BERT's position_ids
+     and pooler) converted to the source's bits, a vocab.txt for the
+     WordPiece tokenizer, one epoch over 8 synthetic NIfTI volumes with
+     --batch-size 2 --grad-accum 2 (bf16, 512 tokens): finite losses, every
+     kernel of the path launched with GradCache's counts, the
+     last_checkpoint.pt reloading the trained bits, the seconds of each
+     step; then one GradCache step (k = 2) against one single-pass step at
+     B = 2 on a batch whose latents lie apart at init (a white-noise and a
+     smooth volume, a 4-word and a 300-word report), dropout 0: in fp32 the
+     loss and every gradient within 1e-3 of the tensor's largest entry; in
+     bf16 the loss and every gradient within 1.5e-2 of the same
+     microbatches' forwards in one graph, and each group's relative rms
+     against the fp32 single-pass step within the bf16 single-pass step's
+     own plus 1.5e-2 (the direct bf16 reading printed); the codes replayed
+     and their flips counted, the gradients of another batch as the
+     control; with dropout, pass 2's latents pass 1's bits in both dtypes;
   4d. cosine_attention (the bare core: a prologue writing the l2-normed,
      scaled q and k as bf16 hi / lo pairs, then the shared split-bf16 core)
      against its plain version at q/k/v [384, 576, 32] with the [8, 576,
@@ -265,7 +283,12 @@ Phases, each printing its lines before the last:
      site left out and the plain backward's three faults; two calls the
      same bits, train mode at rate 0 row 6's bits; times, `bound_ms`, the
      fp32 PyTorch chain (TF32 off, SDPA with the key mask and dropout) as
-     `library_ms`, forward and forward + backward. Then phase 14's step
+     `library_ms`, forward and forward + backward. F12 (bert_close_check):
+     two BERT layers over [2, 512, 768] tokens 2% apart, keys padded, a
+     cotangent on each [CLS], at rate 0 and with dropout: dWq, dWk and dx of
+     plain fp32 and 12F (rerunning the forward, and from the kept state:
+     the same bits) within CLOSE_BAND of a float64 layer (bert_f64) through
+     the same keep factors, the one-pass chain outside at rate 0. Then phase 14's step
      checks at 512 tokens: one step's gradients against plain=True within
      STEP_GRAD_BAND, CTClipTrainer.train() over 3 steps with 6F x 12 and 12F
      x 12 a step besides phase 14's launches, row 6 in the evaluations, no
@@ -1597,11 +1620,12 @@ def quantized_phase(torch, model, card: str) -> dict:
     return counts
 
 
-def write_cli_dataset(root: Path, rng, reports=("the lungs are clear", "no acute finding")):
-    """2 synthetic NIfTI volumes (raw CLI_VOLUME int16 grids at CLI_SPACING,
-    which the chain resamples and pads to [1, 240, 480, 480]) under
-    root/valid with their reports / metadata / labels CSVs; returns the
-    CLI's data arguments."""
+def write_cli_dataset(root: Path, rng, reports=("the lungs are clear", "no acute finding"),
+                      volumes: int = 2):
+    """`volumes` synthetic NIfTI volumes (raw CLI_VOLUME int16 grids at
+    CLI_SPACING, which the chain resamples and pads to [1, 240, 480, 480])
+    under root/valid with their reports / metadata / labels CSVs; returns
+    the CLI's data arguments."""
     import csv
 
     import numpy as np
@@ -1610,7 +1634,7 @@ def write_cli_dataset(root: Path, rng, reports=("the lungs are clear", "no acute
 
     xy, z = CLI_SPACING
     (root / "valid").mkdir()
-    names = [f"valid_{i}_a_1.nii.gz" for i in range(2)]
+    names = [f"valid_{i}_a_1.nii.gz" for i in range(volumes)]
     for name in names:
         write_nii(root / "valid" / name, rng.integers(-1024, 2000, CLI_VOLUME).astype(np.int16),
                   pixdim=(xy, xy, z))
@@ -1664,6 +1688,321 @@ def cli_phase(torch, card: str) -> None:
                 raise AssertionError("the CLI wrote no metrics table")
             if (counts["geglu_ff_int8"] > 0) != quantize or (counts["geglu_ff"] > 0) == quantize:
                 raise AssertionError(f"the CLI took the wrong FF route: {counts}")
+
+
+def reference_state_dict(torch, model) -> dict:
+    """`model`'s weights in the layout of the reference's ctclip_v2.pt as
+    its trainer saves it: {"model": ..., "optim": ...}, every key under
+    DDP's `module.` prefix, the VQ buffers with their leading
+    num_codebooks axis, HF BERT's position-id buffer and pooler (which the
+    converter drops), on the CPU."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu()
+        sd[f"module.{k}"] = v[None] if ".vq._codebook." in k else v
+    d, n = model.cfg.bert.hidden_size, model.cfg.bert.max_position_embeddings
+    sd["module.text_transformer.embeddings.position_ids"] = torch.arange(n)[None]
+    sd["module.text_transformer.pooler.dense.weight"] = torch.zeros(d, d)
+    sd["module.text_transformer.pooler.dense.bias"] = torch.zeros(d)
+    return {"model": sd, "optim": {}}
+
+
+TRAIN_CLI_VOLUMES = 8        # the train CLI's epoch: 4 steps of 2 volumes in 2 microbatches
+TRAIN_CLI_WORDS = ("the lungs are clear no acute finding emphysema nodule effusion in right "
+                   "upper lobe").split()
+# the bf16 512-token step's kernels with peg_pallas=True (GradCache: pass 1
+# takes each forward's no-grad kernel, pass 2 its autograd forward and backward)
+TRAIN_CLI_PATH = ("patch_embed", "patch_embed_res", "patch_embed_dkw", "attn_block",
+                  "attn_block_bwd", "attn_packed", "attn_packed_bwd", "geglu_ff", "geglu_ff_bwd",
+                  "vq_nearest", "bert_layer_bf16", "bert_layer_bwd", "peg", "peg_weight_grads")
+
+
+def train_cli_phase(torch, card: str) -> None:
+    """Phase 4e, the train CLI as users run it, at flagship width with
+    peg_pallas=True: a reference-layout state dict of init_ctclip's seeded
+    weights (reference_state_dict), a vocab.txt of the reports' words, and
+    scripts.train_ctclip.main for one epoch over TRAIN_CLI_VOLUMES synthetic
+    NIfTI volumes with --checkpoint, --tokenizer, --batch-size 2
+    --grad-accum 2 (bf16, 512-token reports). Checks: the converted weights
+    the source's bits; finite losses; the run's last_checkpoint.pt (the
+    port's train state) reloads into the trained model's bits; every kernel
+    of TRAIN_CLI_PATH launched, the GradCache counts of BERT's and the
+    PEG's kernels (two forwards and one backward a microbatch), no fp32 or
+    serving kernel. Prints the seconds of each step (host clock,
+    synchronised)."""
+    import tempfile
+
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch import convert
+    from ct_clip_ut_tpu_torch.config import flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.ops import launches
+    from ct_clip_ut_tpu_torch.scripts import train_ctclip
+    from ct_clip_ut_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg()
+    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        source = init_ctclip(cfg, seed=31, device="cuda")
+        want = {k: v.detach().clone() for k, v in source.state_dict().items()}
+        torch.save(reference_state_dict(torch, source), root / "ctclip_v2.pt")
+        del source
+        converted = convert.load_ctclip(root / "ctclip_v2.pt", cfg, device="cuda").state_dict()
+        same = [k for k, v in converted.items() if torch.equal(v, want[k])]
+        print(f"train cli: the reference-layout checkpoint ({len(want)} tensors under module., "
+              f"the codebook's leading axis, position_ids and the pooler) converted to the "
+              f"source's bits in {len(same)} of {len(want)} tensors")
+        if len(same) != len(want) or set(converted) != set(want):
+            raise AssertionError(f"the converter moved {sorted(set(want) - set(same))[:5]}")
+        del converted
+        (root / "tok").mkdir()
+        (root / "tok" / "vocab.txt").write_text("\n".join(
+            ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ","] + list(TRAIN_CLI_WORDS)))
+        data = write_cli_dataset(root, np.random.default_rng(17), volumes=TRAIN_CLI_VOLUMES,
+                                 reports=("the lungs are clear, no acute finding.",
+                                          "emphysema in the right upper lobe; a nodule."))
+        csvs = dict(zip(data[::2], data[1::2]))
+        argv = ["--data-train", csvs["--data-valid"], "--train-reports", csvs["--valid-reports"],
+                "--train-metadata", csvs["--valid-metadata"], *data,
+                "--checkpoint", str(root / "ctclip_v2.pt"), "--tokenizer", str(root / "tok"),
+                "--batch-size", "2", "--grad-accum", "2", "--num-epochs", "1",
+                "--num-train-samples", str(TRAIN_CLI_VOLUMES), "--num-valid-samples", "2",
+                "--save-every-steps", "2", "--num-workers", "4",
+                "--results-folder", str(root / "train")]
+        seconds, make = [], trainer_mod.make_train_step
+
+        def timed_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(state, image, tokens):
+                t0 = time.perf_counter()
+                loss = step(state, image, tokens)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                return loss
+            return timed
+
+        trainer_mod.make_train_step = timed_make
+        launches.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            tr = train_ctclip.main(argv, model_cfg=cfg)
+        finally:
+            trainer_mod.make_train_step = make
+        total = time.perf_counter() - t0
+        counts = launches.launch_counts()
+        last = tr.results_folder / "last_checkpoint.pt"
+        back = convert.load_ctclip(last, cfg, device="cuda").state_dict()
+        reloaded = all(torch.equal(v, back[k]) for k, v in tr.state.model.state_dict().items())
+        files = sorted(p.name for p in tr.results_folder.iterdir())
+    losses = tr.train_losses["epochs"] + tr.valid_losses
+    steps = int(tr.state.step)
+    print(f"train cli: train_ctclip --batch-size 2 --grad-accum 2 over {TRAIN_CLI_VOLUMES} "
+          f"volumes {list(CLI_VOLUME)} int16 -> [1, 240, 480, 480] bf16, 512-token reports, "
+          f"peg_pallas=True: {steps} steps in {total:.1f} s (host clock; weights, preprocessing, "
+          f"{len(tr.valid_losses)} evaluations and a checkpoint included), the steps "
+          + ", ".join(f"{v:.3f}" for v in seconds) + f" s each (host clock, synchronised; after "
+          f"the first, median {statistics.median(seconds[1:]):.3f} s) [{card}]; losses {losses}; last_checkpoint.pt reloads the trained bits: {reloaded}; "
+          f"files {files}; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    if steps != TRAIN_CLI_VOLUMES // 2 or not all(np.isfinite(losses)) or not reloaded:
+        raise AssertionError(f"the train CLI: {steps} steps, losses {losses}, reloaded {reloaded}")
+    missing = [k for k in TRAIN_CLI_PATH if counts[k] <= 0]
+    foreign = [k for k in SERVING_KERNELS if counts[k] > 0]
+    layers, pegs = cfg.bert.num_layers, cfg.ctvit.spatial_depth + cfg.ctvit.temporal_depth
+    micro, evals = 2 * steps, len(tr.valid_losses)
+    want_counts = {"bert_layer_bf16": (2 * micro + evals) * layers,
+                   "bert_layer_bwd": micro * layers, "peg": (3 * micro + evals) * pegs,
+                   "peg_weight_grads": micro * pegs, "patch_embed": micro + evals,
+                   "patch_embed_res": micro, "patch_embed_dkw": micro}
+    got_counts = {k: counts[k] for k in want_counts}
+    if missing or foreign or got_counts != want_counts:
+        raise AssertionError(f"the train CLI's launches: not launched {missing}, other paths' "
+                             f"{foreign}, GradCache counts {got_counts} (expected "
+                             f"{want_counts})")
+    print(f"train cli: phase 4e in {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+GRADCACHE_SPLIT_BANDS = {"float32": DP_SPLIT_BAND, "bfloat16": FLOAT_BAND}
+
+
+def group_rms(model, got, want) -> dict:
+    """Relative rms of the gradients `got` against `want` (parameter
+    order) over each parameter group (param_group)."""
+    import torch
+
+    groups = {}
+    for (n, _), g, w in zip(model.named_parameters(), got, want):
+        a, b = groups.setdefault(param_group(n), ([], []))
+        a.append(g.detach().float().flatten())
+        b.append(w.detach().float().flatten())
+    return {k: ((torch.cat(a) - torch.cat(b)).norm() / torch.cat(b).norm()).item()
+            for k, (a, b) in groups.items()}
+
+
+def gradcache_batch(torch, g) -> tuple:
+    """Phase 4e's GradCache batch, B = 2, whose latents lie apart at init:
+    a white-noise volume and a smooth one (noise on a 15 x 30 x 30 grid,
+    trilinear to VOLUME, standardised), and a 4-word report beside a
+    300-word one from the other half of REPORT_WORDS. Two white-noise
+    volumes and two long reports of the same words give latents that
+    nearly coincide at init, and every gradient of a B = 2 contrastive loss
+    is then the difference of two near-equal per-sample terms. Returns
+    (images [2, *VOLUME] fp32, texts)."""
+    import torch.nn.functional as F
+
+    smooth = torch.randn((1, 1, 15, 30, 30), generator=g, device="cuda")
+    smooth = F.interpolate(smooth, size=VOLUME[1:], mode="trilinear", align_corners=False)[0]
+    images = torch.stack([torch.randn(VOLUME, generator=g, device="cuda"),
+                          (smooth - smooth.mean()) / smooth.std()])
+    half = len(REPORT_WORDS) // 2
+    texts = [" ".join(REPORT_WORDS[:4]),
+             " ".join(REPORT_WORDS[half + k % (len(REPORT_WORDS) - half)] for k in range(300))]
+    return images, texts
+
+
+def gradcache_check(torch, card: str) -> None:
+    """Phase 4e's GradCache check at flagship width (peg_pallas=True), B = 2
+    with 512-token reports, in fp32 (TrainConfig(compute_dtype="float32"):
+    rows 6F-12F, 7F-9F, 10f, 11f) and bf16, on gradcache_batch. Deterministic
+    (every dropout rate 0), from the same weights, every forward quantising
+    with the single-pass step's VQ codes (VQRecorder; the flips counted,
+    each a tie within VQ_F32_TIE, VQ_TIE in bf16). One GradCache step
+    (k = 2) against (a) the same batch's loss with each microbatch's
+    latents from a forward of its own in one graph (split_step_grads:
+    GradCache's function without its two passes): every gradient within
+    GRADCACHE_SPLIT_BANDS of its largest entry (fp32 DP_SPLIT_BAND, bf16
+    FLOAT_BAND); (b) the single-pass step of make_train_step: the codebook
+    within DP_CODEBOOK_BAND, the loss within STEP_GRAD_BAND (fp32) or
+    FLOAT_BAND (bf16); in fp32 every gradient entering the optimizer within
+    STEP_GRAD_BAND of its largest entry. In bf16 the single-pass step
+    itself lies ~3e-2 (relative rms per group) from the fp32 step at these
+    codes, a batch of 1 rounds otherwise than a batch of 2, and so
+    GradCache's bf16 gradients are held against the fp32 single-pass step
+    (on the bf16 run's codes): each group's relative rms within the bf16
+    single-pass step's own plus FLOAT_BAND; the direct reading against the
+    bf16 single-pass step is printed. The controls, another batch's
+    single-pass gradients, lie outside the bands. In train mode (BERT's
+    dropout 0.1) each microbatch's latents of pass 2 are pass 1's, bit for
+    bit, in both dtypes (the generator's state replayed: the same Philox
+    seeds for the BERT kernels)."""
+    import torch.nn.functional as F
+
+    from ct_clip_ut_tpu_torch.config import TrainConfig, flagship_cfg, replace
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctclip import CTCLIP, ctclip_apply, init_ctclip
+    from ct_clip_ut_tpu_torch.train.trainer import create_train_state, make_train_step_gradcache
+
+    cfg = flagship_cfg()
+    cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=True))
+    det = replace(cfg, bert=replace(cfg.bert, hidden_dropout=0.0, attention_dropout=0.0))
+    with torch.device("meta"):
+        meta = CTCLIP(det)                     # the parameters' names and groups
+    g = torch.Generator(device="cuda").manual_seed(53)
+    batch, texts = gradcache_batch(torch, g)
+    other, other_texts = train_batches(torch, g, 1, DP_REPORT_WORDS, dtype=torch.float32)[0]
+    tok = WordTokenizer(cfg.bert.vocab_size)
+    f32 = TrainConfig(compute_dtype="float32")
+
+    def tokens(t):
+        enc = tok(t, max_length=f32.text_max_length)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in enc.items()}
+
+    def worst(e):
+        return ", ".join(f"{k} {v:.3e}" for k, v in sorted(e.items(), key=lambda kv: -kv[1])[:2])
+
+    def groups(e):
+        return ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+
+    with torch.no_grad():
+        out = ctclip_apply(init_ctclip(det, seed=47), tokens(texts), batch)
+        i, t = (F.normalize(x.float(), dim=-1) for x in (out.image_latents, out.text_latents))
+    print(f"gradcache: B = 2 apart at init (gradcache_batch): fp32 latents' cosines, images "
+          f"{(i[0] @ i[1]).item():.4f}, reports {(t[0] @ t[1]).item():.4f}")
+    for dtype in ("float32", "bfloat16"):
+        fp32 = dtype == "float32"
+        tcfg = TrainConfig(compute_dtype=dtype)
+        images = batch.to(getattr(torch, dtype))
+        with VQRecorder(torch) as rec:
+            loss_sp, grads_sp, cb_sp = dp_step(torch, det, tcfg, init_ctclip(det, seed=47),
+                                               images, tokens(texts))
+        rows = rec.ids[0]
+
+        class Codes:
+            ids = [rows[0:1], rows[1:2]] * 2      # pass 1's microbatches, then pass 2's
+
+        class Whole:
+            ids = [rows]
+
+        with VQRecorder(torch, against=Codes, replay=True) as vq:
+            loss_gc, grads_gc, cb_gc = dp_step(torch, det, replace(tcfg, grad_accum=2),
+                                               init_ctclip(det, seed=47), images, tokens(texts))
+        with VQRecorder(torch, against=Codes, replay=True):
+            split = split_step_grads(torch, init_ctclip(det, seed=47).requires_grad_(True),
+                                     images, tokens(texts), ((0, 1), (1, 2)))
+        ctrl = dp_step(torch, det, tcfg, init_ctclip(det, seed=47), other.to(images.dtype),
+                       tokens(other_texts))[1]
+        band, tie = (STEP_GRAD_BAND, VQ_F32_TIE) if fp32 else (FLOAT_BAND, VQ_TIE)
+        errs, ctrl_errs = step_errors(meta, grads_gc, grads_sp), step_errors(meta, ctrl, grads_sp)
+        split_errs = step_errors(meta, grads_gc, split)
+        loss_err = abs(loss_gc - loss_sp) / abs(loss_sp)
+        cb_err = codebook_err(cb_gc, cb_sp)
+        flips = int(vq.flips().sum())
+        line = (f"gradcache {dtype}: one GradCache step (k = 2) vs one single-pass step at B = 2, "
+                f"flagship, {tcfg.text_max_length}-token reports, dropout 0: loss {loss_gc:.6f} vs "
+                f"{loss_sp:.6f} (relative {loss_err:.3e}, band {band}); gradients max |diff| over "
+                f"the tensor's largest entry {max(errs.values()):.3e} ({worst(errs)}"
+                + (f", band {band}" if fp32 else "") + "), relative rms per group "
+                + groups(group_rms(meta, grads_gc, grads_sp))
+                + f"; vs the same microbatches' forwards in one graph (the split step) "
+                f"{max(split_errs.values()):.3e} ({worst(split_errs)}; band "
+                f"{GRADCACHE_SPLIT_BANDS[dtype]}); codebook {cb_err:.3e} (band "
+                f"{DP_CODEBOOK_BAND}); VQ flips {flips} (largest tie "
+                f"{max(vq.gaps, default=0.0):.2e}, band {tie})")
+        bad = (loss_err > band or cb_err > DP_CODEBOOK_BAND
+               or max(split_errs.values()) > GRADCACHE_SPLIT_BANDS[dtype]
+               or max(vq.gaps, default=0.0) > tie)
+        if fp32:
+            blind = not max(ctrl_errs.values()) > band
+            bad = bad or max(errs.values()) > band
+            line += f"; control (another batch) max {max(ctrl_errs.values()):.3e}"
+        else:
+            # the fp32 single-pass step at the bf16 run's codes (the flips
+            # printed: bf16's VQ inputs move off fp32's by its rounding)
+            with VQRecorder(torch, against=Whole, replay=True) as vq32:
+                ref = dp_step(torch, det, f32, init_ctclip(det, seed=47), images.float(),
+                              tokens(texts))[1]
+            own, gc_rms = group_rms(meta, grads_sp, ref), group_rms(meta, grads_gc, ref)
+            ctrl_rms = group_rms(meta, ctrl, ref)
+            over = {k: v for k, v in gc_rms.items() if not v <= own[k] + FLOAT_BAND}
+            blind = any(not v > own[k] + FLOAT_BAND for k, v in ctrl_rms.items())
+            bad = bad or bool(over)
+            line += (f"; vs the fp32 single-pass step (its VQ flips {int(vq32.flips().sum())}, "
+                     f"largest gap {max(vq32.gaps, default=0.0):.2e}), relative rms per group, "
+                     f"GradCache " + groups(gc_rms) + ", the single-pass step " + groups(own)
+                     + f" (band: the single-pass step's + {FLOAT_BAND}); control (another "
+                     f"batch) " + groups(ctrl_rms))
+            del ref
+        print(line + f" [{card}]")
+        if bad or blind:
+            raise AssertionError(f"GradCache {dtype}: {line}")
+        del grads_gc, grads_sp, ctrl, split
+
+        # train mode: pass 2 replays pass 1's dropout
+        record = {}
+        state = create_train_state(cfg, tcfg, params=init_ctclip(cfg, seed=47), device="cuda")
+        make_train_step_gradcache(cfg, replace(tcfg, grad_accum=2), record=record)(
+            state, images, tokens(texts))
+        same = [torch.equal(a, b) for p1, p2 in zip(record["pass1"], record["pass2"])
+                for a, b in zip(p1, p2)]
+        print(f"gradcache {dtype}: dropout 0.1 at BERT's sites, pass 2's latents pass 1's bits in "
+              f"{sum(same)} of {len(same)} (image and text latents of each microbatch)")
+        if not all(same):
+            raise AssertionError(f"GradCache {dtype}: pass 2 drew other masks than pass 1")
+        del state, record
+        torch.cuda.empty_cache()
 
 
 def cosine_check(torch, card: str) -> tuple:
@@ -4678,6 +5017,143 @@ def bert_f32_train_check(torch, model, card: str) -> dict:
     return out
 
 
+BERT_CLOSE_LENGTHS = (512, 300)   # real tokens of the two sequences of bert_close_check
+
+
+def bert_f64(torch, x, mask_row, w, heads: int, eps: float, keeps):
+    """One post-LN BERT layer in float64 (two-pass LayerNorm moments, exact
+    GELU), independent of bert_layer_plain: the additive key mask, the
+    attention keep factors on the probabilities after the softmax and the
+    hidden sites' on each sublayer's output before its residual, `keeps`
+    = (attention [B, heads, n, n], post-attention, post-FF [B, n, D])."""
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = w
+    ka, k1, k2 = keeps
+    b, n, d = x.shape
+    dh = d // heads
+
+    def ln(r, gamma, beta):
+        mean = r.mean(-1, keepdim=True)
+        return (r - mean) * torch.rsqrt(((r - mean) ** 2).mean(-1, keepdim=True) + eps) \
+            * gamma + beta
+
+    q, k, v = ((x @ wqkv.t() + bqkv)[..., i * d:(i + 1) * d].reshape(b, n, heads, dh)
+               .transpose(1, 2) for i in range(3))
+    p = torch.softmax(q @ k.transpose(-1, -2) / dh ** 0.5 + mask_row[:, None, None, :], dim=-1)
+    ctx = ((p * ka) @ v).transpose(1, 2).reshape(b, n, d)
+    y = ln((ctx @ wo.t() + bo) * k1 + x, g1, be1)
+    h = y @ w1.t() + b1
+    h = 0.5 * h * (1.0 + torch.erf(h / 2 ** 0.5))
+    return ln((h @ w2.t() + b2) * k2 + y, g2, be2)
+
+
+def bert_close_grads(torch, model, dropout: bool) -> dict:
+    """F12's stack: layers 0 and 1 of the text transformer in train mode
+    (with `dropout` the config's 0.1 / 0.1 at the three sites, each layer's
+    own seeds, else rate 0; LN gains drawn by around_ones, LN biases 0.1 N)
+    over [2, 512, 768] tokens whose
+    rows lie 2% apart (each sequence's common part plus 0.02 N), the second
+    sequence's keys padded after BERT_CLOSE_LENGTHS[1], a cotangent on each
+    sequence's first token ([CLS], the latent's row). Returns, for the
+    float64 layer (bert_f64 at each layer's fp32 input, through the same
+    Philox keep factors, the float64 dx of the layer above), the plain fp32
+    backward, 12F rerunning the forward, 12F from the state the train
+    forward kept and the one-pass control, [dWq, dWk of layer 1, of layer
+    0, dx], each backward propagating its own dx."""
+    from ct_clip_ut_tpu_torch.models.bert import layer_args
+    from ct_clip_ut_tpu_torch.ops.bert_layer import (bert_layer_bwd, bert_layer_bwd_f32,
+                                                     bert_layer_bwd_plain, bert_layer_fp32,
+                                                     bert_layer_plain, philox_keep)
+
+    bcfg = model.cfg.bert
+    d, heads, eps = bcfg.hidden_size, bcfg.num_heads, bcfg.layer_norm_eps
+    pa, ph = (bcfg.attention_dropout, bcfg.hidden_dropout) if dropout else (0.0, 0.0)
+    b, n = len(BERT_CLOSE_LENGTHS), max(BERT_CLOSE_LENGTHS)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    lengths = torch.tensor(BERT_CLOSE_LENGTHS, device="cuda")
+    pad = torch.arange(n, device="cuda")[None, :] >= lengths[:, None]
+    mask_row = pad.float() * torch.finfo(torch.float32).min
+
+    def layer(i):
+        w = [t.detach().clone() for t in layer_args(model.text_transformer.encoder.layer[i])]
+        for j in (4, 10):
+            w[j] = around_ones(torch, g, d)
+        for j in (5, 11):
+            w[j] = 0.1 * torch.randn((d,), generator=g, device="cuda")
+        return w
+
+    ws = [layer(0), layer(1)]
+    train = [dict(p_attn=pa, p_hidden=ph, train=True,
+                    seeds=torch.tensor([20231 + i, 77 + i, (1 << 30) + i], dtype=torch.int32,
+                                     device="cuda")) for i in range(2)]
+    with torch.no_grad():
+        x0 = (torch.randn((b, 1, d), generator=g, device="cuda")
+              + 0.02 * torch.randn((b, n, d), generator=g, device="cuda"))
+        cot = torch.zeros_like(x0)
+        cot[:, 0] = torch.randn((b, d), generator=g, device="cuda")
+        xs = [x0, bert_layer_plain(x0, mask_row, *ws[0], heads, eps, **train[0])]
+        kept = [bert_layer_fp32(x, mask_row, *wl, heads, eps, **tr, keep=True)[1]
+                for x, wl, tr in zip(xs, ws, train)]
+
+    def f64(x, mask, *args, seeds, **_):
+        *w, dout = args[:13]
+        keeps = (philox_keep(seeds, 0, b, heads, n * n, pa).reshape(b, heads, n, n),
+                 *(philox_keep(seeds, s, b, 1, n * d, ph).reshape(b, n, d) for s in (1, 2)))
+        leaves = [t.double().requires_grad_() for t in (x, *w)]
+        with torch.enable_grad():
+            y = bert_f64(torch, leaves[0], mask.double(), leaves[1:], heads, eps,
+                         [t.double() for t in keeps])
+            return torch.autograd.grad(y, leaves, dout.double())
+
+    def stack(fn, **kw):
+        dout, out = cot, []
+        for i in (1, 0):
+            grads = fn(xs[i], mask_row, *ws[i], dout, heads, eps, **train[i],
+                       **{k: v[i] for k, v in kw.items()})
+            out += [grads[1][:d], grads[1][d:2 * d]]
+            dout = grads[0]
+        return out + [dout]
+
+    with torch.no_grad():
+        got = {"float64": stack(f64), "plain": stack(bert_layer_bwd_plain),
+               "12F rerunning": stack(bert_layer_bwd),
+               "12F, kept": stack(bert_layer_bwd, saved=kept),
+               "one_pass": stack(lambda *a, **k: bert_layer_bwd_f32(*a, **k, one_pass=True))}
+    del kept
+    return got
+
+
+def bert_close_check(torch, model, card: str) -> None:
+    """F12 in phase 15: bert_close_grads at rate 0 and with dropout. The
+    plain fp32 backward and row 12F (the row term's walk, D = c + rowsum(P
+    (keep dP - c)) / rowsum(P) from the same split S and dP, c each row's
+    dP at key 0 as a kept key gives it), rerunning the forward and from the
+    state the train forward kept (the same bits), each within CLOSE_BAND of
+    float64 in every gradient; the one-pass chain outside it at rate 0,
+    where the gradients cancel (with dropout the keep factors part the
+    close rows' dP, and the one-pass chain's reading is printed)."""
+    names = ("dWq layer 1", "dWk layer 1", "dWq layer 0", "dWk layer 0", "dx")
+    for dropout in (False, True):
+        got = bert_close_grads(torch, model, dropout)
+        ref = got.pop("float64")
+        errs = {k: [rel_err(a, b) for a, b in zip(v, ref)] for k, v in got.items()}
+        same = all(torch.equal(a, b) for a, b in zip(got["12F rerunning"], got["12F, kept"]))
+        mode = "dropout 0.1 / 0.1" if dropout else "rate 0"
+        print(f"kernel bert_layer_bwd_f32: F12 close tokens, {mode} (two BERT layers, "
+              f"{list(ref[-1].shape)} tokens 2% apart, keys padded after "
+              f"{BERT_CLOSE_LENGTHS[1]} in the second sequence, a cotangent on each [CLS]) vs "
+              f"float64, max_rel_err "
+              + "; ".join(f"{k}: " + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, v))
+                          for k, v in errs.items())
+              + f" (band {CLOSE_BAND}); 12F vs the plain backward "
+              + ", ".join(f"{rel_err(a, b):.3e}"
+                          for a, b in zip(got["12F rerunning"], got["plain"]))
+              + f"; kept and rerun routes the same bits: {same} [{card}]")
+        if (max(max(errs[k]) for k in ("plain", "12F rerunning", "12F, kept")) > CLOSE_BAND
+                or not (dropout or max(errs["one_pass"]) > CLOSE_BAND) or not same):
+            raise AssertionError(f"F12 close tokens, {mode}: {errs}, kept == rerun: {same}")
+        del got, ref
+
+
 def bert_f32_train_phase(torch, model, card: str) -> tuple:
     """Phase 15: the fp32 train step at the TrainConfig default 512-token
     reports (TrainConfig(compute_dtype="float32")), on phase 14's model
@@ -4690,6 +5166,7 @@ def bert_f32_train_phase(torch, model, card: str) -> tuple:
     Returns (kernel record, launch counts of the train run)."""
     t_phase = time.perf_counter()
     record = bert_f32_train_check(torch, model, card)
+    bert_close_check(torch, model, card)
     step_counts, counts = f32_train_run(torch, model, card, TEXT_LEN, 300, 21,
                                         {**F32_TRAIN_STEP, **BERT_F32_STEP}, "train fp32 512")
     got = {k: step_counts[k] for k in BERT_F32_STEP}
@@ -5383,6 +5860,9 @@ def main() -> int:
         record["geglu_ff_int8"] = int8_check(torch, model, card)
         int8_counts = quantized_phase(torch, model, card)
         cli_phase(torch, card)
+        train_cli_phase(torch, card)
+        gradcache_check(torch, card)
+        torch.cuda.empty_cache()
         record["cosine_attention"], cosine_counts = cosine_check(torch, card)
         torch.cuda.empty_cache()
         record.update(backward_phase(torch, model, card))

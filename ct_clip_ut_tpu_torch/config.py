@@ -274,10 +274,10 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
-    CTClipTrainer.py:38-59, optimizer.py). The port runs single-pass
-    steps on one card or data-parallel over processes: grad_accum > 1,
-    fsdp, sharded_checkpoints and the MoE aux loss raise in the trainer
-    (ROADMAP Queue 1 items 8, 11b and 11h)."""
+    CTClipTrainer.py:38-59, optimizer.py). The port runs single-pass and
+    GradCache (grad_accum > 1) steps on one card or data-parallel over
+    processes: fsdp, sharded_checkpoints and the MoE aux loss raise in the
+    trainer (ROADMAP Queue 1 items 11b and 11h)."""
     batch_size: int = 1          # per-device
     lr: float = 1.25e-5
     wd: float = 0.0              # wd==0 -> plain Adam (reference optimizer.py:42)

@@ -35,13 +35,20 @@
 //   ln_drop_bwd_kernel     dr1 = LN1'(dy), do1 = dr1 keep1 as planes; dgamma1,
 //                          dbeta1, dbo partials
 //   split4_64_kernel       dctx = do1 Wo as planes (SplitOutEpi)
-//   dq_f32_kernel<true>    each row's and head's D = sum_j p_ij keep_ij dp_ij
-//                          from the same split scores and dP = dctx V^T as
-//                          the query and key passes form (below): a D from
-//                          another product (dctx . ctx over ctx's planes, the
-//                          first design) lost the gradients whose terms
-//                          cancel in dP - D, ~2^-16 of those terms, and a
-//                          third plane on dP alone did not bring them back
+//   dq_f32_kernel<true>    each row's and head's D = c + sum_j p_ij (u_ij -
+//                          c) / sum_j p_ij, u = keep dP, c the row's dP at
+//                          key 0 as a kept key gives it ([CLS] is always a
+//                          real key), from the same split scores and dP =
+//                          dctx V^T as the query and key passes form
+//                          (below): a D from another product (dctx . ctx
+//                          over ctx's planes, the first design) lost the
+//                          gradients whose terms cancel in dP - D, ~2^-16
+//                          of those terms, and a third plane on dP alone did
+//                          not bring them back; summed unshifted in key
+//                          order over the forward's 1 / sum (the second
+//                          design), the rounding of D over close tokens
+//                          still reached the query / key weight gradients
+//                          (F12, as F11 in attn_bwd_wg.cuh)
 //   dq_f32_kernel<false>   per (64 queries, head, sequence): the split scores
 //                          and dP = dctx V^T over the live 64-key chunks (K,
 //                          V planes staged by cp.async, double-buffered), p
@@ -270,8 +277,12 @@ __device__ __forceinline__ int next_live(const float* mrow, int n, int nch, int 
 // chunks' K and V planes staged by cp.async, double-buffered (ATTN_SMEM).
 // dq goes to dqkv's planes [2][B n][3D] at columns h 64 ..., and the fp32
 // sums of each warp's rows to part [B ceil(n / 16)][3D]. ROW_TERM: the same
-// walk without dS's product, each row's D = sum_j p_ij keep_ij dp_ij (the
-// quad's columns in key order, then the quad) into rowstat's .z.
+// walk without dS's product, each row's D = c + sum_j p_ij (u_ij - c) / sum_j
+// p_ij with u = keep dp and c = scale_attn dp at the first key walked (key 0,
+// [CLS], where the mask keeps one: the quad's first lane holds it), both sums
+// over the quad's columns in key order, then the quad, into rowstat's .z.
+// Over close tokens u - c is small where u itself is not, and the walk's own
+// sum of p is the one its summands carry (F12).
 template <bool ROW_TERM>
 __global__ void __launch_bounds__(WARPS * 32)
 dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
@@ -306,7 +317,8 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
   load_a64(dl, dctx_lo + seq0 * D + h * DH, D, q0, n, lane);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const float4 sa = va ? rowstat[bhd * n + ra] : zero, sb = vb ? rowstat[bhd * n + rb] : zero;
-  float acc[8][4], d_row[2] = {0.f, 0.f};
+  float acc[8][4], d_row[2] = {0.f, 0.f}, p_row[2] = {0.f, 0.f}, shift[2] = {0.f, 0.f};
+  bool first = true;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -341,6 +353,12 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f}, ds[4];
         split_rows8(s, qh, ql, kh, kl, 8 * jt, lane);
         split_rows8(dp, dh, dl, vh, vl, 8 * jt, lane);
+        if (ROW_TERM && first) {   // the row's dP at the first key walked, kept
+          first = false;
+          const float ka = drop_on ? drop.scale_attn : 1.f;
+          shift[0] = __shfl_sync(0xffffffffu, dp[0], lane & ~3) * ka;
+          shift[1] = __shfl_sync(0xffffffffu, dp[2], lane & ~3) * ka;
+        }
         const int bit = 8 * (jt & 3) + 2 * t;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -351,7 +369,8 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
           const unsigned wrd = i < 2 ? wa[jt >> 2] : wb[jt >> 2];
           const float kf = drop_on ? ((wrd >> (bit + (i & 1))) & 1u ? drop.scale_attn : 0.f) : 1.f;
           if (ROW_TERM) {
-            d_row[i >> 1] += p * (dp[i] * kf);
+            d_row[i >> 1] += p * (dp[i] * kf - shift[i >> 1]);
+            p_row[i >> 1] += p;
           } else {
             ds[i] = p * (dp[i] * kf - st.z) * scale;
           }
@@ -368,10 +387,12 @@ dq_f32_kernel(const bf16* __restrict__ qkv_hi, const bf16* __restrict__ qkv_lo,
     for (int i = 0; i < 2; ++i) {
       d_row[i] += __shfl_xor_sync(0xffffffffu, d_row[i], 1);
       d_row[i] += __shfl_xor_sync(0xffffffffu, d_row[i], 2);
+      p_row[i] += __shfl_xor_sync(0xffffffffu, p_row[i], 1);
+      p_row[i] += __shfl_xor_sync(0xffffffffu, p_row[i], 2);
     }
     if (t == 0) {
-      if (va) rowstat[bhd * n + ra].z = d_row[0];
-      if (vb) rowstat[bhd * n + rb].z = d_row[1];
+      if (va) rowstat[bhd * n + ra].z = shift[0] + d_row[0] / p_row[0];
+      if (vb) rowstat[bhd * n + rb].z = shift[1] + d_row[1] / p_row[1];
     }
     return;
   }

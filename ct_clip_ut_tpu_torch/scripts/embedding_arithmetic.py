@@ -13,10 +13,13 @@ writes the pickled-dict .npy that occlusion's text-embeds mode reads
 (`inference_ctclip --diff-embeds`). The CSVs are read with the `csv`
 module, which the card's machine has (no pandas there).
 
-Weights: --checkpoint, a state dict of the port's CTCLIP; without it,
-random weights from --seed. Reports are tokenised by the stand-in
-`WordTokenizer`; HF tokenizer files (--tokenizer) raise (ROADMAP Queue 1
-item 12). `main(argv, model_cfg=)` takes another configuration from Python.
+Weights: --checkpoint, any of `convert.load_ctclip`'s three files (the
+reference's ctclip_v2.pt, a port state dict, a port train-state
+checkpoint); without it, random weights from --seed. --tokenizer DIR
+tokenises the reports with the WordPiece tokenizer of DIR/vocab.txt;
+without it, the stand-in `WordTokenizer`, which --checkpoint takes only
+with --stand-in-tokenizer (`inference_ctclip.load_tokenizer`).
+`main(argv, model_cfg=)` takes another configuration from Python.
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ from .. import _build
 from ..attribution.embedding_arithmetic import compute_diff_embeddings, save_diff_embeddings
 from ..config import PATHOLOGIES, CTCLIPConfig, CTViTConfig
 from ..data.datasets import read_csv_rows
-from ..infer.zeroshot import WordTokenizer
-from .inference_ctclip import load_model
+from .inference_ctclip import load_model, load_tokenizer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,11 +41,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reports", required=True, help="reports CSV")
     p.add_argument("--labels", required=True, help="labels CSV")
     p.add_argument("--checkpoint", default=None,
-                   help="a state dict of the port's CTCLIP; default: random from --seed")
+                   help="the reference's ctclip_v2.pt, a port state dict or a port train-state "
+                        "checkpoint; default: random from --seed")
     p.add_argument("--out", default="resources/pathology_diff_embeddings.npy")
     p.add_argument("--tokenizer", default=None,
-                   help="HF tokenizer files: not in the repository (Queue 1 item 12); "
-                        "default: the stand-in WordTokenizer")
+                   help="a directory holding the BERT tokenizer's vocab.txt; default: the "
+                        "stand-in WordTokenizer")
+    p.add_argument("--stand-in-tokenizer", action="store_true",
+                   help="tokenise with the stand-in WordTokenizer although --checkpoint is given "
+                        "(its ids mean nothing to trained weights)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
@@ -70,15 +76,13 @@ def read_corpus(reports_csv, labels_csv, pathologies=PATHOLOGIES) -> tuple:
 def main(argv=None, model_cfg: CTCLIPConfig = None) -> dict:
     """Returns the diff embeddings written to --out."""
     args = build_parser().parse_args(argv)
-    if args.tokenizer is not None:
-        raise NotImplementedError("HF tokenizer files are not in the repository (ROADMAP "
-                                  "Queue 1 item 12); the stand-in WordTokenizer is used")
     device = _build.check_device(args.device)
     cfg = model_cfg or CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
+    tokenizer = load_tokenizer(args, cfg.bert.vocab_size)
     model = load_model(cfg, args.checkpoint, args.seed, device)
     texts, labels = read_corpus(args.reports, args.labels)
     start = time.time()
-    embeds = compute_diff_embeddings(model, WordTokenizer(cfg.bert.vocab_size), texts, labels,
+    embeds = compute_diff_embeddings(model, tokenizer, texts, labels,
                                      batch_size=args.batch_size)
     save_diff_embeddings(embeds, args.out)
     print(f"saved {len(embeds)} pathology diff embeddings of {len(texts)} reports to {args.out} "

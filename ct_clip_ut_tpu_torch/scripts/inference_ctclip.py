@@ -39,11 +39,14 @@ them (wrapped duplicates of the last shard dropped), and occlusion sweeps
 its windows over the ranks (the suite, attribution/suite.py).
 --mesh-model above 1, the tensor-parallel axis, raises (Queue 1 item 11c).
 
-Weights: --checkpoint, a state dict of the port's CTCLIP
-(torch.save(model.state_dict())); without it, random weights from --seed.
-Prompts are tokenised by the stand-in `WordTokenizer`. Left for later, each
-raising with its ROADMAP item after the parser's refusals: HF tokenizer
-files (--tokenizer) and the reference's ctclip_v2.pt (Queue 1 item 12).
+Weights: --checkpoint, the reference's ctclip_v2.pt, a state dict of the
+port's CTCLIP or the port's train-state checkpoint (`convert.load_ctclip`);
+without it, random weights from --seed. --tokenizer DIR tokenises the
+prompts with the WordPiece tokenizer of DIR/vocab.txt
+(`data.tokenizer.BertWordPiece`, CXR-BERT's vocabulary where the weights
+are the reference's); without it, the stand-in `WordTokenizer`, whose ids
+mean nothing to trained weights: with --checkpoint it raises unless
+--stand-in-tokenizer (the port's own flag) asks for it.
 `main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
 Python (the tests' tiny one); the command line serves the JAX script's
 `CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))`.
@@ -55,12 +58,13 @@ import argparse
 
 import torch
 
-from .. import _build
+from .. import _build, convert
 from ..attribution.embedding_arithmetic import load_diff_embeddings
 from ..attribution.suite import AttributionContext
 from ..config import CTCLIPConfig, CTViTConfig, PreprocessConfig
 from ..data.datasets import InferenceDataset
 from ..data.loader import DataLoader, ShardedSampler
+from ..data.tokenizer import BertWordPiece
 from ..infer.zeroshot import CTClipInference, WordTokenizer, tokenize_prompts
 from ..models.ctclip import CTCLIP, init_ctclip
 from ..ops.quant import quantize_ctclip_ff
@@ -78,10 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--diff-embeds", default=None,
                    help="pathology_diff_embeddings.npy for occlusion's text-embeds mode")
     p.add_argument("--checkpoint", default=None,
-                   help="a state dict of the port's CTCLIP; default: random from --seed")
+                   help="the reference's ctclip_v2.pt, a port state dict or a port train-state "
+                        "checkpoint; default: random from --seed")
     p.add_argument("--tokenizer", default=None,
-                   help="HF tokenizer files: not in the repository (Queue 1 item 12); "
-                        "default: the stand-in WordTokenizer")
+                   help="a directory holding the BERT tokenizer's vocab.txt; default: the "
+                        "stand-in WordTokenizer")
+    p.add_argument("--stand-in-tokenizer", action="store_true",
+                   help="tokenise with the stand-in WordTokenizer although --checkpoint is given "
+                        "(its ids mean nothing to trained weights)")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--num-valid-samples", type=int, default=10)
@@ -118,18 +126,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(cfg: CTCLIPConfig, checkpoint, seed: int, device) -> CTCLIP:
-    """The port's CTCLIP from a state dict of its own, or seeded random
-    weights."""
-    model = init_ctclip(cfg, seed=seed, device=device)
+    """The port's CTCLIP from `checkpoint` (any of convert.load_ctclip's
+    three files), or seeded random weights."""
     if checkpoint is None:
-        return model
-    sd = torch.load(checkpoint, map_location=device, weights_only=True)
-    if not isinstance(sd, dict) or set(sd) != set(model.state_dict()):
-        raise NotImplementedError(
-            f"{checkpoint} is not a state dict of the port's CTCLIP; converting the "
-            "reference's ctclip_v2.pt waits for that file (ROADMAP Queue 1 item 12)")
-    model.load_state_dict(sd, strict=True)
-    return model
+        return init_ctclip(cfg, seed=seed, device=device)
+    return convert.load_ctclip(checkpoint, cfg, device=device)
+
+
+def load_tokenizer(args, vocab_size: int):
+    """The WordPiece tokenizer of --tokenizer DIR/vocab.txt, or without it
+    the stand-in WordTokenizer, which weights from --checkpoint take only
+    with --stand-in-tokenizer."""
+    if args.tokenizer is not None:
+        return BertWordPiece.from_dir(args.tokenizer)
+    if args.checkpoint is not None and not args.stand_in_tokenizer:
+        raise ValueError("--checkpoint's weights read the ids of the tokenizer they were trained "
+                         "with: pass --tokenizer DIR (its vocab.txt; CXR-BERT's for the "
+                         "reference's weights), or --stand-in-tokenizer to score with the "
+                         "stand-in WordTokenizer's ids all the same")
+    return WordTokenizer(vocab_size)
 
 
 def make_cli_mesh(args):
@@ -166,15 +181,13 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
         if grad_methods:
             parser.error("--quantize-ff is forward-only (the int8 kernel raises under "
                          "autograd); drop " + ", ".join(sorted(grad_methods)))
-    if args.tokenizer is not None:
-        raise NotImplementedError("HF tokenizer files are not in the repository (ROADMAP "
-                                  "Queue 1 item 12); the stand-in WordTokenizer is used")
     if args.visualize and not args.no_gifs:
         visualizations.require_renderer()   # before the model loads
 
     mesh = make_cli_mesh(args)
     device = mesh.device if mesh is not None else _build.check_device(args.device)
     cfg = model_cfg or CTCLIPConfig(ctvit=CTViTConfig(dim_head=32))
+    tokenizer = load_tokenizer(args, cfg.bert.vocab_size)
     model = load_model(cfg, args.checkpoint, args.seed, device)
     if args.quantize_ff:
         model = quantize_ctclip_ff(model)
@@ -189,7 +202,6 @@ def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessCo
                     sampler=ShardedSampler(len(ds), shuffle=False, drop_last=False,
                                            num_shards=world, shard_index=rank),
                     num_workers=args.num_workers, drop_last=False)
-    tokenizer = WordTokenizer(cfg.bert.vocab_size)
     prompts = tokenize_prompts(tokenizer, device=device)
     visualize = {name: True for name in args.visualize}
     if "occlusion" in visualize and (args.occlusion_text_embeds or args.occlusion_prompt):

@@ -26,10 +26,15 @@ token grid per prompt with `maskgit_generate` (bf16, generator seeded by
 --seed) and saves it as generated_<i>_<slug>_tokens.npy.
 
 Weights: --checkpoint, a state dict of the port's CTGenerate
-(torch.save(model.state_dict())); without it, random weights from --seed.
-Reports are tokenised by the stand-in `WordTokenizer`. Left for later, each
-raising with its ROADMAP item: --mesh-data (item 11e), and the reference's
-ctgenerate_filtered.pt or HF T5 tokenizer files (--t5, item 12).
+(torch.save(model.state_dict()), or the reference's ctgenerate_filtered.pt
+converted with its T5 tower by scripts/convert_checkpoint.py; the
+reference's file itself raises, `convert.load_ctgenerate`); without it,
+random weights from --seed. Reports are tokenised by the stand-in
+`WordTokenizer`, whose ids mean nothing to a trained T5 tower: with
+--checkpoint the run raises unless --stand-in-tokenizer (the port's own
+flag) asks for it. Left for later, each raising with its ROADMAP item:
+--mesh-data (item 11e) and the T5 SentencePiece tokenizer (--t5, item
+12d).
 `main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
 Python (the tests' tiny one); the command line serves CTGenerateConfig().
 """
@@ -43,7 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, convert
 from ..attribution.capture import full_fp32, rot90_ct
 from ..config import PATHOLOGIES, CTGenerateConfig, PreprocessConfig
 from ..data.datasets import InferenceDataset
@@ -78,7 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--results-folder", default="./results/valid/ctgenerate")
     p.add_argument("--checkpoint", default=None,
                    help="a state dict of the port's CTGenerate; default: random from --seed")
-    p.add_argument("--t5", default=None, help="HF T5 tokenizer files: not ported (item 12)")
+    p.add_argument("--t5", default=None,
+                   help="HF T5 tokenizer files (SentencePiece): not ported (item 12d)")
+    p.add_argument("--stand-in-tokenizer", action="store_true",
+                   help="condition --checkpoint's T5 tower on the stand-in WordTokenizer's ids "
+                        "(they mean nothing to trained weights)")
     p.add_argument("--batch-size", type=int, default=1, help="scans per forward")
     p.add_argument("--mesh-data", type=int, default=None, help="not ported (item 11e)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
@@ -90,18 +99,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(cfg: CTGenerateConfig, checkpoint, seed: int, device) -> CTGenerate:
-    """The port's CTGenerate from a state dict of its own, or seeded random
-    weights."""
-    model = init_ctgenerate(cfg, seed=seed, device=device)
+    """The port's CTGenerate from `checkpoint` (a port state dict), or
+    seeded random weights."""
     if checkpoint is None:
-        return model
-    sd = torch.load(checkpoint, map_location=device, weights_only=True)
-    if not isinstance(sd, dict) or set(sd) != set(model.state_dict()):
-        raise NotImplementedError(
-            f"{checkpoint} is not a state dict of the port's CTGenerate; converting the "
-            "reference's ctgenerate_filtered.pt waits for that file (ROADMAP Queue 1 item 12)")
-    model.load_state_dict(sd, strict=True)
-    return model
+        return init_ctgenerate(cfg, seed=seed, device=device)
+    return convert.load_ctgenerate(checkpoint, cfg, device=device)
 
 
 @torch.no_grad()
@@ -179,8 +181,13 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
     if args.mesh_data is not None:
         raise NotImplementedError("--mesh-data is not ported yet (ROADMAP Queue 1 item 11e)")
     if args.t5 is not None:
-        raise NotImplementedError("HF T5 tokenizer files are not in the repository (ROADMAP "
-                                  "Queue 1 item 12); the stand-in WordTokenizer is used")
+        raise NotImplementedError("the T5 SentencePiece tokenizer is not ported (ROADMAP "
+                                  "Queue 1 item 12d); the stand-in WordTokenizer is used")
+    if args.checkpoint is not None and not args.stand_in_tokenizer:
+        raise ValueError("--checkpoint's T5 tower reads the ids of T5's SentencePiece tokenizer, "
+                         "which is not ported (ROADMAP Queue 1 item 12d): pass "
+                         "--stand-in-tokenizer to condition it on the stand-in WordTokenizer's "
+                         "ids all the same")
     if args.gifs:
         visualizations.require_renderer()   # before the model loads
 

@@ -6,9 +6,10 @@ included), the optimizer's moments and update count, the global step and
 the dropout generator's state, so a resumed run continues bit for bit.
 Writes are atomic (a temporary file beside the target, then os.replace):
 a crash mid-write leaves the previous checkpoint intact. A data-parallel
-run's file also holds every rank's generator state. Sharded (orbax)
-checkpoints and the reference-checkpoint converter are not ported yet
-(ROADMAP Queue 1 items 11b and 12).
+run's file also holds every rank's generator state. The reference's
+checkpoints go through convert.py (`load_ctclip` reads this module's files
+too). Sharded (orbax) checkpoints are not ported yet (ROADMAP Queue 1 item
+11b).
 """
 
 from __future__ import annotations
@@ -34,11 +35,13 @@ def save_checkpoint(path, state, rank_generators=None) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint(path, state, rank=None):
-    """Load `path` into `state` in place (its tensors keep their devices);
-    returns it. A data-parallel `rank` takes its own generator state where
-    the file holds every rank's."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+def load_checkpoint(path, state, rank=None, blob=None):
+    """Load `path` (or `blob`, its contents already read) into `state` in
+    place (its tensors keep their devices); returns it. A data-parallel
+    `rank` takes its own generator state where the file holds every
+    rank's."""
+    if blob is None:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(blob["model"], strict=True)
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])

@@ -2,7 +2,7 @@
 
     python -m ct_clip_ut_tpu_torch.train.profile_train [--table PATH] [--sizes 2,4,8]
                                                        [--text-len 512] [--peg both]
-                                                       [--dtype bfloat16]
+                                                       [--dtype bfloat16] [--grad-accum 1,2,4]
 
 The counterpart of infer/profile_zeroshot.py and of the JAX bench's train
 measurement (bench.py:335-381). At flagship width (`config.flagship_cfg()`,
@@ -22,8 +22,13 @@ compute, Adam, lr 1.25e-5, clip 0.5, 512-token reports from the stand-in
   port's kernels, and the device kernels ranked by time (--table writes
   every row to PATH).
 
-`--text-len 120` measures the earlier slice's reports, under the fused BERT
-layer's gate (n >= 128), where BERT trains on its layer loop. `--dtype
+`--grad-accum K[,K...]` times the GradCache step (TrainConfig.grad_accum
+= K: pass 1 without a graph, pass 2 with it, K microbatches of b / K) at
+each K in turn, a fresh train state each; the peak memory beside the ms is
+what GradCache trades for time. The profiled step runs after the last K
+where K divides PROFILE_BATCH. `--text-len 120` measures the earlier
+slice's reports, under the fused BERT layer's gate (n >= 128), where BERT
+trains on its layer loop. `--dtype
 float32` times the fp32 step (TrainConfig(compute_dtype="float32"): the
 CT-ViT's fp32 kernels forward and backward, every product three bf16
 products of hi / lo planes; at the default 512 tokens BERT's fp32
@@ -108,6 +113,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="TrainConfig.compute_dtype (float32: the fp32 step, BERT on its fp32 "
                          "kernels at the default 512 tokens)")
+    ap.add_argument("--grad-accum", default="1",
+                    help="comma-separated GradCache microbatch counts, each timed in turn")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA device", file=sys.stderr)
@@ -118,13 +125,16 @@ def main(argv=None) -> int:
     tcfg = dataclasses.replace(TrainConfig(), text_max_length=args.text_len,
                                compute_dtype=args.dtype)
     sizes = [int(s) for s in args.sizes.split(",")]
+    accums = [int(k) for k in args.grad_accum.split(",")]
     routes = {"both": (False, True), "on": (True,), "off": (False,)}[args.peg]
-    for fused in routes:                       # the profiled route comes last
+    for fused, k in [(f, k) for f in routes for k in accums]:   # the profiled one comes last
         cfg = flagship_cfg()
         cfg = replace(cfg, ctvit=replace(cfg.ctvit, peg_pallas=fused))
-        label = f"{args.dtype} {args.text_len} tokens, peg_pallas={fused},"
-        state, step, batch = measure(cfg, tcfg, sizes, card, label)
-        if fused is routes[-1]:
+        label = (f"{args.dtype} {args.text_len} tokens, peg_pallas={fused}"
+                 + (f", grad_accum={k}," if k > 1 else ","))
+        state, step, batch = measure(cfg, dataclasses.replace(tcfg, grad_accum=k), sizes, card,
+                                     label)
+        if fused is routes[-1] and k == accums[-1] and PROFILE_BATCH % k == 0:
             print(f"train state: {sum(p.numel() for p in state.model.parameters()) / 1e6:.1f} M "
                   f"parameters [{card}]", flush=True)
             image, text = batch(PROFILE_BATCH)

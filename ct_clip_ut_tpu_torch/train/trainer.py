@@ -30,11 +30,16 @@ update. Rank 0's parameters and moments are broadcast at the start; each
 rank's dropout generator is seeded from (seed, rank); rank 0 picks the run
 directory and broadcasts it, and alone writes checkpoints and prints.
 
-Not ported yet, and raising with their ROADMAP item: GradCache
-(grad_accum > 1), FSDP, sharded checkpoints, the MoE CT-ViT, a model mesh
-axis; the profiler window (`profile_steps`) is replaced by `python -m
-ct_clip_ut_tpu_torch.train.profile_train`. The training-curve plots are
-skipped.
+GradCache (`grad_accum` k > 1, trainer.py:116-251): the full batch's
+InfoNCE objective at the activations of B / k volumes
+(`make_train_step_gradcache`). The profiler window (`profile_steps`):
+steps [2, 2 + profile_steps) of epoch 1 under torch.profiler, its trace
+written to `profile_dir`. After each evaluation the training curves go to
+training_progress.png (best effort: skipped with a message without
+matplotlib).
+
+Not ported yet, and raising with their ROADMAP item: FSDP, sharded
+checkpoints, the MoE CT-ViT, a model mesh axis.
 """
 
 from __future__ import annotations
@@ -52,11 +57,14 @@ import torch
 
 from .. import _build
 from ..config import CTCLIPConfig, TrainConfig
-from ..models.ctclip import CTCLIP, contrastive_loss, ctclip_apply, init_ctclip
-from ..ops.vq import VQState
+from ..models.ctclip import (CTCLIP, contrastive_loss, ctclip_apply, encode_image_latents,
+                             init_ctclip, text_latents_of)
+from ..ops.taps import Taps
+from ..ops.vq import VQState, vq_batch_stats, vq_ema_update, vq_stats_input
 from ..parallel import collectives, sharding
 from ..parallel.mesh import DataMesh, check_mesh
 from ..parallel.sharding import shard_loader
+from ..utils import metrics
 from . import checkpoint as ckpt
 from .optimizer import Optimizer, get_optimizer
 
@@ -69,10 +77,11 @@ class TrainState:
     generator: torch.Generator
 
 
-def _check_supported(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> None:
-    if train_cfg.grad_accum > 1:
-        raise NotImplementedError("GradCache (grad_accum > 1) is not ported yet "
-                                  "(ROADMAP, Queue 1 item 8)")
+def check_supported(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> None:
+    """Raise for what the port does not run yet, naming its ROADMAP item."""
+    if train_cfg.grad_accum < 1:
+        raise ValueError(f"grad_accum must be a positive microbatch count, got "
+                         f"{train_cfg.grad_accum}")
     if train_cfg.fsdp:
         raise NotImplementedError("FSDP is not ported yet (ROADMAP, Queue 1 item 11b: FSDP and "
                                   "sharded checkpoints)")
@@ -93,7 +102,7 @@ def create_train_state(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     seeded from train_cfg.seed. With a `mesh` the state lands on the
     mesh's device, rank 0's parameters and moments are broadcast to every
     rank, and the generator is seeded from (seed, rank)."""
-    _check_supported(model_cfg, train_cfg)
+    check_supported(model_cfg, train_cfg)
     check_mesh(mesh)
     device = _build.check_device(mesh.device if mesh is not None else device)
     model = params if params is not None else init_ctclip(model_cfg, seed=train_cfg.seed,
@@ -129,9 +138,12 @@ def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     backward kernels against). With a `mesh`, `image` and `text_tokens`
     are this rank's local batch, the loss is the global batch's (the same
     on every rank), and the gradients are averaged over the ranks before
-    the optimizer (see the module doc)."""
-    _check_supported(model_cfg, train_cfg)
+    the optimizer (see the module doc). grad_accum > 1 gives
+    make_train_step_gradcache's step."""
+    check_supported(model_cfg, train_cfg)
     check_mesh(mesh)
+    if train_cfg.grad_accum > 1:
+        return make_train_step_gradcache(model_cfg, train_cfg, plain=plain, mesh=mesh)
     dtype = getattr(torch, train_cfg.compute_dtype)
 
     def train_step(state: TrainState, image: torch.Tensor, text_tokens: dict) -> torch.Tensor:
@@ -145,6 +157,121 @@ def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
             sharding.allreduce_grads(state.optimizer.params, mesh)
         state.optimizer.step()
         write_back_vq(state.model, out.vq_state)
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_train_step_gradcache(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
+                              plain: bool = False, mesh: Optional[DataMesh] = None,
+                              record: Optional[dict] = None) -> Callable:
+    """train_step(state, image, text_tokens) -> loss: the single-pass
+    step's loss, update and VQ EMA at the activations of one microbatch of
+    B / k volumes (k = train_cfg.grad_accum; GradCache, Gao et al. 2021;
+    trainer.py:116-251). Accumulating per-microbatch losses would contrast
+    each volume against its own microbatch only; the InfoNCE objective
+    couples the whole batch through its [B, B] similarity matrix. So:
+
+    pass 1  each microbatch's latents without a graph (torch.no_grad: the
+            fp32 BERT layer keeps no state for a backward), the codebook
+            frozen at the step's own, and its VQ statistics (`vq_stats_input`
+            of the vq.input tap, `vq_batch_stats`), summed over the
+            microbatches in order;
+    head    the loss, its cotangents on the latents and the temperature's
+            gradient from the [B, B] similarity matrix;
+    pass 2  each microbatch again under autograd, its latents' backward
+            with their cotangents, the gradients accumulated in order;
+
+    then one clip-and-Adam step and one EMA update from the summed
+    statistics. Dropout (F4): the generator's state before each
+    microbatch's pass 1 is restored for its pass 2, so the text tower draws
+    the same masks and `draw_seeds` the BERT kernels' same Philox seeds, and
+    pass 2's latents are pass 1's, bit for bit; the generator then stands
+    where pass 1 left it. The masks are drawn per microbatch, so they are
+    not the single-pass step's.
+
+    With a data-axis `mesh`, `image` is this rank's local batch: pass 1's
+    latents are gathered into the global similarity matrix, the statistics
+    summed over the ranks, each rank's pass 2 runs its own microbatches
+    with its rows' cotangents (times the world size, as the single-pass
+    step's all_gather backward gives them), and the gradients are averaged
+    over the ranks. `record`, where given, receives each microbatch's
+    latents of both passes: record["pass1"], record["pass2"], lists of
+    (image latents, text latents)."""
+    check_supported(model_cfg, train_cfg)
+    check_mesh(mesh)
+    k = train_cfg.grad_accum
+    dtype = getattr(torch, train_cfg.compute_dtype)
+    vcfg = model_cfg.ctvit
+
+    def latents(model, image, tokens, generator, taps):
+        # the order of ctclip_apply: the text tower draws its masks first
+        txt = text_latents_of(model, tokens, None, image.dtype, plain, generator=generator,
+                              deterministic=False)
+        img, vit_out = encode_image_latents(model, image, freeze_vq=True, taps=taps,
+                                            deterministic=False, plain=plain)
+        return img, txt, vit_out
+
+    def train_step(state: TrainState, image: torch.Tensor, text_tokens: dict) -> torch.Tensor:
+        b = image.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} is not a multiple of grad_accum {k}")
+        m = b // k
+        image = image.to(dtype)
+        model, gen = state.model, state.generator
+        parts = [(image[i * m:(i + 1) * m], {key: v[i * m:(i + 1) * m]
+                                             for key, v in text_tokens.items()})
+                 for i in range(k)]
+        vq0 = model.visual_transformer.vq.state()
+        dim, size = vq0.embed.shape[1], vq0.embed.shape[0]
+        starts, imgs, txts, counts, embed_sum = [], [], [], 0.0, 0.0
+        with torch.no_grad():
+            for img_i, tok_i in parts:
+                starts.append(gen.get_state())
+                taps = Taps(capture=("vq.input",))
+                img, txt, vit_out = latents(model, img_i, tok_i, gen, taps)
+                c, e = vq_batch_stats(vit_out.codebook_ids,
+                                      vq_stats_input(taps.collected["vq.input"], dim), size)
+                counts, embed_sum = counts + c, embed_sum + e
+                imgs.append(img)
+                txts.append(txt)
+        end = gen.get_state()
+        img_all, txt_all = torch.cat(imgs), torch.cat(txts)
+        if mesh is not None:
+            counts, embed_sum = collectives.psum(counts, mesh), collectives.psum(embed_sum, mesh)
+            d = img_all.shape[-1]
+            both = collectives.gather_rows(
+                torch.cat([img_all, txt_all.to(img_all.dtype)], -1), mesh)
+            img_all, txt_all = both[:, :d], both[:, d:].to(txt_all.dtype)
+
+        temp = model.temperature
+        img_h = img_all.float().requires_grad_()
+        txt_h = txt_all.float().requires_grad_()
+        with torch.enable_grad():
+            loss = contrastive_loss((img_h @ txt_h.t()) * temp.exp())
+            g_temp, g_img, g_txt = torch.autograd.grad(loss, [temp, img_h, txt_h])
+        if mesh is not None:
+            rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+            g_img, g_txt = g_img[rows] * mesh.world, g_txt[rows] * mesh.world
+
+        state.optimizer.zero_grad()
+        replayed = []
+        for i, (img_i, tok_i) in enumerate(parts):
+            gen.set_state(starts[i])
+            img, txt, _ = latents(model, img_i, tok_i, gen, Taps())
+            torch.autograd.backward([img.float(), txt.float()],
+                                    [g_img[i * m:(i + 1) * m], g_txt[i * m:(i + 1) * m]])
+            replayed.append((img.detach(), txt.detach()))
+        gen.set_state(end)
+        if record is not None:
+            record.update(pass1=list(zip(imgs, txts)), pass2=replayed)
+        temp.grad = g_temp
+        if mesh is not None:
+            sharding.allreduce_grads(state.optimizer.params, mesh)
+        state.optimizer.step()
+        write_back_vq(model, vq_ema_update(vq0, counts, embed_sum, decay=vcfg.vq_decay,
+                                           eps=vcfg.vq_eps))
         state.step += 1
         return loss.detach()
 
@@ -186,9 +313,6 @@ class CTClipTrainer:
                  params: Optional[CTCLIP] = None, mesh: Optional[DataMesh] = None,
                  device="cuda"):
         check_mesh(mesh)
-        if train_cfg.profile_steps > 0:
-            raise NotImplementedError("the trainer's profiler window is not ported; profile "
-                                      "with python -m ct_clip_ut_tpu_torch.train.profile_train")
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.tokenizer = tokenizer
@@ -226,10 +350,32 @@ class CTClipTrainer:
         # checkpoint (trainer.py:344-350)
         self._pos = {"epoch": 0, "step_in_epoch": 0, "steps_per_epoch": None}
         self._resume_pos = None
+        self._profiler = None
 
     def maybe_print(self, *args, **kwargs) -> None:
         if self.is_main:
             print(*args, **kwargs)
+
+    def _start_trace(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_trace(self) -> None:
+        """The profiler window's trace to profile_dir/trace.json (chrome
+        trace format: chrome://tracing, Perfetto, TensorBoard)."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = Path(self.cfg.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        self._profiler.export_chrome_trace(str(out / "trace.json"))
+        self._profiler = None
+        self.maybe_print(f"profiler trace -> {out / 'trace.json'}")
 
     # -- plumbing -----------------------------------------------------------
 
@@ -266,17 +412,18 @@ class CTClipTrainer:
         tmp.write_text(json.dumps({**self._pos, "global_step": int(self.state.step)}))
         tmp.replace(pos_path)
 
-    def load_model(self, path) -> None:
-        """Every rank reads the checkpoint; the position sidecar is rank 0's
-        view, broadcast (trainer.py:430-453), so every rank resumes at the
-        same batch."""
+    def load_model(self, path, blob=None) -> None:
+        """Every rank reads the checkpoint (or takes `blob`, the file's
+        contents already read); the position sidecar is rank 0's view,
+        broadcast (trainer.py:430-453), so every rank resumes at the same
+        batch."""
         pos_path = Path(str(path) + ".pos.json")
         pos = json.loads(pos_path.read_text()) if self.is_main and pos_path.exists() else None
         if self.mesh is not None:
             raw = collectives.broadcast_bytes(json.dumps(pos).encode(), self.mesh)
             pos = json.loads(raw.decode())
         ckpt.load_checkpoint(path, self.state,
-                             rank=self.mesh.rank if self.mesh is not None else None)
+                             rank=self.mesh.rank if self.mesh is not None else None, blob=blob)
         step = int(self.state.step)
         if pos is not None and pos.get("global_step") is not None \
                 and int(pos["global_step"]) != step:
@@ -305,6 +452,12 @@ class CTClipTrainer:
         if epoch == 0 or (avg < self.best_score and self.cfg.save_best_model):
             self.best_score = min(avg, self.best_score)
             self.save_model("best_checkpoint.pt")
+        if self.is_main:
+            try:
+                metrics.plot_training_progress(self.train_losses, self.valid_losses,
+                                               self.results_folder)
+            except Exception as e:   # best effort, as in the JAX trainer (:513-517)
+                print(f"plot skipped: {e}")
         return avg
 
     def _start(self, steps_per_epoch):
@@ -375,6 +528,12 @@ class CTClipTrainer:
             for step, (images, texts, *_) in enumerate(data_iter, start=skip + 1):
                 self._pos = {"epoch": epoch, "step_in_epoch": step,
                              "steps_per_epoch": steps_per_epoch}
+                # the profiler window: steps [2, 2 + profile_steps) of epoch 1
+                if self.cfg.profile_steps > 0 and epoch == 1 and self.is_main:
+                    if step == 2:
+                        self._start_trace()
+                    elif step == 2 + self.cfg.profile_steps:
+                        self._stop_trace()
                 images, tokens = self._put_batch(images, texts)
                 loss = self.train_step(self.state, images, tokens)
                 if epoch == 1 and step == 1 and resumed_step == 0:
@@ -395,6 +554,7 @@ class CTClipTrainer:
                     self.save_model("last_checkpoint.pt")
             if pending is not None:
                 log_step(*pending)
+            self._stop_trace()   # an epoch shorter than the window
             self._pos = {"epoch": epoch + 1, "step_in_epoch": 0,
                          "steps_per_epoch": steps_per_epoch}
             avg = total_loss / max(steps, 1)

@@ -22,7 +22,9 @@ JAX module relies on:
     flush left.
 
 tests/test_torch_port_metrics.py holds both functions equal to the JAX
-module's wherever scikit-learn is installed.
+module's wherever scikit-learn is installed. `plot_training_progress`
+(the trainer's curves, ct_clip_ut_tpu/utils/metrics.py:212-236) imports
+matplotlib when called: ImportError where it does not import.
 """
 
 from __future__ import annotations
@@ -212,3 +214,37 @@ def save_metrics(metrics_list, pathologies, results_path) -> None:
                              f"{auc:.4f}" if not np.isnan(auc) else "N/A"])
             f.write(grid_table(rows, ["Pathology", "Precision", "Recall", "F1 Score",
                                       "ROC-AUC"]) + "\n\n")
+
+
+def plot_training_progress(train_losses: dict, valid_losses, results_path) -> None:
+    """training_progress.png under results_path: the step and epoch losses
+    beside the validation losses (the JAX module's figure)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    path = Path(results_path)
+    path.mkdir(parents=True, exist_ok=True)
+    steps, epochs = train_losses["steps"], train_losses["epochs"]
+    epoch_idx = (np.linspace(0, max(len(steps) - 1, 0), len(epochs)).astype(int)
+                 if epochs else np.array([], int))
+    fig, ax = plt.subplots(1, 2, figsize=(14, 6), gridspec_kw={"wspace": 0.3})
+    ax[0].plot(np.arange(len(steps)), steps, color="tab:blue", marker="o", linestyle="-",
+               label="Step Losses")
+    if len(epochs):
+        ax[0].plot(epoch_idx, epochs, color="tab:green", marker="s", linestyle="--",
+                   label="Epoch Losses")
+    ax[0].set_xlabel("Step")
+    ax[0].set_ylabel("Contrastive Loss")
+    ax[0].set_title("Training Loss")
+    ax[0].legend()
+    ax[0].grid(True, linestyle="--", alpha=0.5)
+    ax[1].plot(np.arange(len(valid_losses)), valid_losses, color="tab:orange", marker="o",
+               linestyle="-")
+    ax[1].set_xlabel("Epoch")
+    ax[1].set_ylabel("Contrastive Loss")
+    ax[1].set_title("Validation Loss")
+    ax[1].grid(True, linestyle="--", alpha=0.5)
+    plt.suptitle("Training Progress", fontsize=14, fontweight="bold")
+    plt.savefig(path / "training_progress.png")
+    plt.close(fig)

@@ -7,8 +7,8 @@ pathologies) at tests/test_torch_port_ctgenerate.py's SMALL_GEN (the JAX
 init carried across by from_jax_ctgenerate_params, saved as a port state
 dict for --checkpoint): each heatmap file against the JAX package's
 `ctgenerate_apply` (fp32), `keyword_heatmap` and `rot90_ct` on the same
-preprocessed scans and the same stand-in token ids (the JAX script itself
-needs HF T5 files), within 1e-5 (fp32 sums in another order); its file
+preprocessed scans and the same stand-in token ids (--stand-in-tokenizer;
+the JAX script itself needs HF T5 files), within 1e-5 (fp32 sums in another order); its file
 names those of the JAX script's `render`. --batch-size 2 --compute-dtype
 float32 against the JAX batched forward in the same band. With --gifs the
 overlays are written beside the maps and decode to the frames the JAX
@@ -80,7 +80,8 @@ def _argv(d, out, *extra):
     return ["--data-valid", str(d / "volumes"), "--valid-reports", str(d / "reports.csv"),
             "--valid-labels", str(d / "labels.csv"), "--valid-metadata",
             str(d / "metadata.csv"), "--num-valid-samples", "2", "--checkpoint",
-            str(d / "ctgen.pt"), "--results-folder", str(out), "--device", "cpu", *extra]
+            str(d / "ctgen.pt"), "--stand-in-tokenizer", "--results-folder", str(out),
+            "--device", "cpu", *extra]
 
 
 def _jax_heatmaps(d, batched: bool) -> dict:

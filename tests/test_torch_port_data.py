@@ -267,7 +267,7 @@ def test_inference_cli_refusals(extra):
         cli.main(BASE + extra)
 
 
-@pytest.mark.parametrize("extra,item", [(["--tokenizer", "tok/"], "item 12"),
+@pytest.mark.parametrize("extra,item", [(["--tokenizer", "tok/"], "vocab.txt"),
                                         (["--mesh-model", "2", "--mesh-data", "1"],
                                          "item 11c"),
                                         (["--quantize-ff", "--visualize", "grad_cam",
@@ -279,14 +279,16 @@ def test_inference_cli_unported_features_raise(extra, item):
     """Each raises with its ROADMAP item after the parser's refusals (the
     third, a gradient method with --quantize-ff, is the parser's own); a
     process group without its address, and a data axis wider than the
-    processes, raise ValueError. --quantize-ff with the forward methods runs
-    (tests/test_torch_port_int8_f32.py)."""
+    processes, raise ValueError; a --tokenizer directory without vocab.txt
+    raises FileNotFoundError naming it (the tokenizer itself:
+    test_inference_cli_zero_shot_with_a_wordpiece_vocab). --quantize-ff with
+    the forward methods runs (tests/test_torch_port_int8_f32.py)."""
     if item is None:
         with pytest.raises(SystemExit):
             cli.main(BASE + ["--zero-shot", "--device", "cpu"] + extra)
         return
     if not item.startswith("item"):
-        with pytest.raises(ValueError, match=item):
+        with pytest.raises(FileNotFoundError if item == "vocab.txt" else ValueError, match=item):
             cli.main(BASE + ["--zero-shot", "--device", "cpu"] + extra)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue [12] {item}"):
@@ -316,3 +318,38 @@ def test_inference_cli_zero_shot_writes_metrics(fake_dataset_dir, tmp_path, quan
         plain = cli.main([a for a in argv if a != "--quantize-ff"], model_cfg=TINY_CLIP,
                          preprocess_cfg=CFG)[1]
         assert not np.array_equal(plain, preds) and np.abs(plain - preds).max() < 0.05
+
+
+def test_inference_cli_zero_shot_with_a_wordpiece_vocab(fake_dataset_dir, tmp_path):
+    """--tokenizer DIR: the prompts tokenised by DIR/vocab.txt's WordPiece
+    tokenizer (data/tokenizer.py) score the volumes; the stand-in
+    tokenizer's ids give other probabilities. Weights from --checkpoint
+    without --tokenizer raise unless --stand-in-tokenizer asks for the
+    stand-in, which then scores as the same weights from --seed."""
+    from test_torch_port_train_cli import write_vocab
+
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+
+    d = fake_dataset_dir
+    argv = ["--data-valid", str(d / "volumes"), "--valid-reports", str(d / "reports.csv"),
+            "--valid-labels", str(d / "labels.csv"), "--valid-metadata", str(d / "metadata.csv"),
+            "--results-folder", str(tmp_path / "results"), "--zero-shot", "--batch-size", "2",
+            "--num-workers", "2", "--device", "cpu"]
+    vocab = write_vocab(tmp_path / "tok", ("there", "is", "no", *_pathology_words()))
+    _, preds, _ = cli.main(argv + ["--tokenizer", str(vocab)], model_cfg=TINY_CLIP,
+                           preprocess_cfg=CFG)
+    _, stand_in, _ = cli.main(argv, model_cfg=TINY_CLIP, preprocess_cfg=CFG)
+    assert preds.shape == (5, 18) and np.isfinite(preds).all()
+    assert not np.array_equal(preds, stand_in)
+    torch.save(init_ctclip(TINY_CLIP, seed=0, device="cpu").state_dict(), tmp_path / "ck.pt")
+    argv += ["--checkpoint", str(tmp_path / "ck.pt")]
+    with pytest.raises(ValueError, match="--stand-in-tokenizer"):
+        cli.main(argv, model_cfg=TINY_CLIP, preprocess_cfg=CFG)
+    _, again, _ = cli.main(argv + ["--stand-in-tokenizer"], model_cfg=TINY_CLIP,
+                           preprocess_cfg=CFG)
+    np.testing.assert_array_equal(again, stand_in)
+
+
+def _pathology_words():
+    from ct_clip_ut_tpu_torch.config import PATHOLOGIES
+    return sorted({w.lower() for p in PATHOLOGIES for w in p.split()})

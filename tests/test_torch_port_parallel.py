@@ -9,7 +9,9 @@ the tests hold it against the same calls in this one process:
   * CTClipTrainer over the two ranks against one process (one run
     directory, rank 0's files, losses and parameters, each rank's
     generator through its checkpoint);
-  * the data-parallel fp32 train step (local batch 1 a rank, dropout 0):
+  * the data-parallel fp32 train step (local batch 1 a rank, dropout 0)
+    and its GradCache form (local batch 2 in microbatches of 1) against
+    one process's GradCache and single-pass steps:
     loss, every gradient entering the optimizer, the parameters after the
     update and the VQ codebook, the same bits on both ranks and within
     1e-5 of each tensor's largest entry (parameters: or of 1) of the
@@ -98,6 +100,8 @@ ATT_CLIP = dataclasses.replace(P_CLIP, ctvit=dataclasses.replace(P_CLIP.ctvit,
                                                                  patch_embed_conv=False))
 J_TRAIN = jconfig.TrainConfig(lr=1e-3, compute_dtype="float32", text_max_length=TEXT_LEN)
 P_TRAIN = port_config(J_TRAIN)
+# GradCache over the ranks: a global batch of 4, 2 a rank in microbatches of 1
+GC_TRAIN, GC_BATCH = dataclasses.replace(P_TRAIN, grad_accum=2), 4
 OCC = pconfig.OcclusionConfig(patch_size=(10, 16, 16), stride=(5, 8, 8))
 # the suite's group: a collective waiting longer than SUITE_TIMEOUT fails;
 # raw attention over SUITE_SAMPLES samples at SUITE_SLEEP each outlasts it
@@ -130,12 +134,13 @@ def _prompts():
     return tz.tokenize_prompts(tz.WordTokenizer(2048), max_length=16, device="cpu")
 
 
-def _step(model, mesh=None):
-    """One train step of `model`: (loss, gradients entering the optimizer,
-    state after the step). With a mesh, on this rank's row of the global
-    batch."""
-    images, text = _batch()
-    state = ttrainer.create_train_state(P_CLIP, P_TRAIN, params=model, device="cpu", mesh=mesh)
+def _step(model, mesh=None, train_cfg=P_TRAIN, b=2):
+    """One train step of `model` on a batch of b (train_cfg's: single-pass
+    or GradCache): (loss, gradients entering the optimizer, state after the
+    step). With a mesh, on this rank's rows of the global batch."""
+    images, text = _batch(b=b)
+    state = ttrainer.create_train_state(P_CLIP, train_cfg, params=model, device="cpu",
+                                        mesh=mesh)
     grads = []
     step_opt = state.optimizer.step
 
@@ -144,7 +149,7 @@ def _step(model, mesh=None):
         return step_opt()
 
     state.optimizer.step = recording_step
-    step = ttrainer.make_train_step(P_CLIP, P_TRAIN, mesh=mesh)
+    step = ttrainer.make_train_step(P_CLIP, train_cfg, mesh=mesh)
     images, text = torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in text.items()}
     if mesh is not None:
         images, text = sharding.shard_host_batch(images, mesh), sharding.shard_host_batch(text,
@@ -210,6 +215,7 @@ def _rank_main(rank, port, suite_port, tmp, init_path, cli_args):
         return model.requires_grad_(True)
 
     out["step"] = _snapshot(*_step(train_model(), mesh))
+    out["gradcache"] = _snapshot(*_step(train_model(), mesh, GC_TRAIN, GC_BATCH))
     out["trainer"] = _train(train_model(), tmp / "train", mesh)
     # controls: the gather's backward without the cross-rank sum; the VQ
     # statistics left unsummed
@@ -521,6 +527,33 @@ def test_data_parallel_step_is_the_one_process_split_bit_for_bit(ranks):
         assert torch.equal(g, want), n
 
 
+def test_data_parallel_gradcache_matches_one_process(ranks):
+    """GradCache over the two ranks (pass 1's latents gathered into the
+    global [4, 4] similarity matrix, each rank's pass 2 on its own
+    microbatches, the statistics and gradients reduced over the ranks)
+    against one process's GradCache step over the same 4 rows in
+    microbatches of 1, and its single-pass step: the same bits on both
+    ranks, the loss, gradients, parameters and codebook within BAND."""
+    (r0, r1), tmp, _ = ranks
+    assert r0["gradcache"]["loss"] == r1["gradcache"]["loss"]
+    for a, b in zip(r0["gradcache"]["params"], r1["gradcache"]["params"]):
+        assert torch.equal(a, b)
+    names = [n for n, _ in init_ctclip(P_CLIP, device="cpu").named_parameters()]
+    for cfg in (dataclasses.replace(P_TRAIN, grad_accum=GC_BATCH), P_TRAIN):
+        model = init_ctclip(P_CLIP, seed=0, device="cpu")
+        model.load_state_dict(torch.load(tmp / "init.pt"))
+        want, got = _snapshot(*_step(model.requires_grad_(True), None, cfg, GC_BATCH)), \
+            r0["gradcache"]
+        assert abs(got["loss"] - want["loss"]) <= BAND * abs(want["loss"])
+        _grads_within(names, got["grads"], want["grads"], BAND)
+        for n, g, w in zip(names, got["params"], want["params"]):
+            if w.numel():
+                _within(g, w, 2 * P_TRAIN.lr if n in SHIFT_INVARIANT else BAND, n,
+                        scale=max(float(w.abs().max()), 1.0))
+        for k, w in want["buffers"].items():
+            _within(got["buffers"][k], w, name=k)
+
+
 def test_data_parallel_step_matches_jax(ranks):
     """The step's loss and gradients against jax.value_and_grad of the JAX
     step's loss on the same B = 2 batch and parameters."""
@@ -532,7 +565,7 @@ def test_data_parallel_step_matches_jax(ranks):
 
 def test_trainer_over_two_ranks_matches_one_process(ranks, tmp_path):
     """CTClipTrainer(mesh=) over 2 steps: one run directory (rank 0's,
-    broadcast) with one set of files, losses and parameters within BAND of
+    broadcast) with one set of files (the training curves rank 0's too), losses and parameters within BAND of
     the single-process trainer at global batch 2, every rank's generator
     its own (seeded from (seed, rank)) and reloaded from the checkpoint."""
     (r0, r1), tmp, _ = ranks
@@ -543,7 +576,7 @@ def test_trainer_over_two_ranks_matches_one_process(ranks, tmp_path):
     assert t0["folder"] == t1["folder"] and t0["step"] == t1["step"] == want["step"] == 2
     assert t0["files"] == want["files"] == ["architecture.json", "best_checkpoint.pt",
                                             "best_checkpoint.pt.pos.json", "last.pt",
-                                            "last.pt.pos.json"]
+                                            "last.pt.pos.json", "training_progress.png"]
     for a, b in ((t0["losses"]["epochs"], want["losses"]["epochs"]), (t0["valid"], want["valid"]),
                  (t1["valid"], want["valid"])):
         np.testing.assert_allclose(a, b, rtol=BAND, atol=0)

@@ -209,17 +209,29 @@ def test_script_writes_the_diff_embeddings(tmp_path):
     _write_corpus(tmp_path)
     torch.save(model.state_dict(), tmp_path / "ctclip.pt")
     out = tmp_path / "res" / "diff.npy"
-    embeds = escript.main(["--reports", str(tmp_path / "reports.csv"), "--labels",
-                           str(tmp_path / "labels.csv"), "--checkpoint", str(tmp_path / "ctclip.pt"),
-                           "--out", str(out), "--batch-size", "4", "--device", "cpu"],
-                          model_cfg=port_config(SUITE_CLIP))
+    argv = ["--reports", str(tmp_path / "reports.csv"), "--labels", str(tmp_path / "labels.csv"),
+            "--checkpoint", str(tmp_path / "ctclip.pt"), "--out", str(out), "--batch-size", "4",
+            "--device", "cpu"]
+    with pytest.raises(ValueError, match="--stand-in-tokenizer"):
+        escript.main(argv, model_cfg=port_config(SUITE_CLIP))
+    embeds = escript.main(argv + ["--stand-in-tokenizer"], model_cfg=port_config(SUITE_CLIP))
     texts, labels = escript.read_corpus(tmp_path / "reports.csv", tmp_path / "labels.csv")
     want = tea.compute_diff_embeddings(model, WordTokenizer(BERT.vocab_size), texts, labels,
                                        batch_size=4)
     back = jea.load_diff_embeddings(out)
     assert sorted(back) == sorted(want) == sorted(embeds)
     assert all(np.array_equal(back[k], want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    # --tokenizer DIR: the reports through DIR/vocab.txt's WordPiece tokenizer
+    from ct_clip_ut_tpu_torch.data.tokenizer import BertWordPiece
+    from test_torch_port_train_cli import write_vocab
+    vocab = write_vocab(tmp_path / "tok", sorted({w.strip(".,").lower() for t in texts
+                                                 for w in t.split()}))
+    embeds = escript.main(argv + ["--tokenizer", str(vocab)], model_cfg=port_config(SUITE_CLIP))
+    want = tea.compute_diff_embeddings(model, BertWordPiece.from_dir(vocab), texts, labels,
+                                       batch_size=4)
+    assert sorted(embeds) == sorted(want)
+    assert all(np.array_equal(embeds[k], want[k]) for k in want)
+    with pytest.raises(FileNotFoundError, match="vocab.txt"):
         escript.main(["--reports", "r", "--labels", "l", "--tokenizer", "t", "--device", "cpu"])
 
 

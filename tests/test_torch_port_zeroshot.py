@@ -172,6 +172,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "import ct_clip_ut_tpu_torch.infer.zeroshot, ct_clip_ut_tpu_torch._build\n"
             "import ct_clip_ut_tpu_torch.infer.profile_zeroshot\n"
             "import ct_clip_ut_tpu_torch.train.trainer, ct_clip_ut_tpu_torch.train.profile_train\n"
+            "import ct_clip_ut_tpu_torch.scripts.train_ctclip, ct_clip_ut_tpu_torch.data.tokenizer\n"
+            "import ct_clip_ut_tpu_torch.scripts.convert_checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ct_clip_ut_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(), check=True,
@@ -297,3 +299,28 @@ def test_import_scan_sees_lazy_imports(tmp_path):
     src.write_text("def f():\n    from ct_clip_ut_tpu.utils import metrics\n"
                    "    import jax.numpy\n    __import__('flax')\n")
     assert _imports(src) == ["ct_clip_ut_tpu.utils", "jax.numpy", "flax"]
+
+
+def test_zeroshot_hoisting_is_scoring_exact(setup):
+    """Batched scoring with the prompt latents encoded once and the image
+    latents hoisted equals the reference's per-pathology full forward over
+    each (present, absent) prompt pair (CTClipInference.py:158-178), the
+    port's counterpart of tests/test_train_infer.py's test of the same
+    name."""
+    from ct_clip_ut_tpu_torch.models.ctclip import ctclip_apply
+
+    _, model, _, _, images = setup
+    n_path = 3
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (2 * n_path, 8)))
+    tokens = {"input_ids": ids, "attention_mask": torch.ones_like(ids)}
+    image = torch.from_numpy(images[:2])
+    probs = tz.zeroshot_probs(model, image, tz.encode_prompt_latents(model, tokens),
+                              compute_dtype=torch.float32)
+    want = np.zeros((2, n_path))
+    with torch.no_grad():
+        for j in range(n_path):
+            out = ctclip_apply(model, {k: v[2 * j:2 * j + 2] for k, v in tokens.items()}, image)
+            sim = (out.image_latents @ out.text_latents.t() * out.temperature).numpy()
+            e = np.exp(sim - sim.max(1, keepdims=True))
+            want[:, j] = e[:, 0] / e.sum(1)
+    np.testing.assert_allclose(probs.numpy()[:, :n_path], want, atol=1e-5)
