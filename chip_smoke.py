@@ -328,6 +328,23 @@ Phases, each printing its lines before the last:
      volumes (the wrapped duplicate dropped) and the window-sharded
      occlusion sweep over DP_OCC_WINDOWS windows against one process. A
      failed collective fails its rank, and the phase.
+     FSDP (parallel/sharding.py): in (a) the fp32 step with fsdp=True over
+     the one-rank group against the single-process step (loss, gradients,
+     codebook and parameters after the step the same bits, else the first
+     quantity that differs named and held within FSDP_BAND), a sharded
+     checkpoint saved, loaded into a fresh state and stepped again: the
+     uninterrupted run's bits; in (b) two FSDP steps at local batch 1
+     against two data-parallel ones (the loss the same bits, each gradient
+     piece the bits of the averaged gradient's slice, the parameters within
+     FSDP_BAND, the gathered parameters the same bits on both ranks), each
+     rank's memory at rest beside data parallelism's;
+     `integrated_gradients_sharded` (DP_IG_STEPS steps in chunks of
+     DP_IG_CHUNK) against one process's map (the average gradient within
+     DP_IG_BAND, the final map off the threshold crossings within MAP_BAND,
+     each crossing within IG_CROSS_BAND of the threshold), both timed; and
+     CTGenerate over DP_CTGEN_SCANS scans (`ctgenerate_apply_batched(mesh=)`
+     and `localize(mesh=)`): the cross-attention and the heatmaps against
+     one process within CROSS_BAND.
 Kernel times are CUDA events over 10 calls after 2 warm-ups; every
 library_ms is the median of 5 windows of 50 calls, with their range on the
 kernel's line (a library chain of ~0.3 ms reads what the host's launches
@@ -557,6 +574,17 @@ DP_GRAD_FLOOR = 1e-2
 # are summed by halves, one process sums them whole; phase 17 (a) holds its
 # one-rank step's codebook bit for bit)
 DP_CODEBOOK_BAND = 1e-5
+# FSDP against data parallelism: a quantity that is not the same bits is
+# named and held within this of its tensor's largest entry (none is expected:
+# the FSDP step is the data-parallel step's arithmetic, its clip norm taken
+# over the whole leaves)
+FSDP_BAND = 1e-6
+# the sharded integrated gradients (phase 17 (b)): steps in chunks, the
+# chunks each rank's contiguous share; the average gradient vs one process
+# within DP_IG_BAND of its largest entry (the sums over the chunks in another
+# order)
+DP_IG_STEPS, DP_IG_CHUNK, DP_IG_BAND = 8, 2, 1e-5
+DP_CTGEN_SCANS = 3      # CTGenerate over the ranks: padded to 4, 2 a rank
 # kernel rows whose launches another counter holds (the PEG wrappers count either dtype)
 COUNTER_OF = {"peg_f32": "peg", "peg_weight_grads_f32": "peg_weight_grads"}
 # CTGenerate (phase 9): the kernels of one batched forward, with their launches each
@@ -5520,9 +5548,9 @@ def dp_step(torch, cfg, tcfg, model, images, tokens, mesh=None):
                                mesh=mesh)
     grads, opt_step = [], state.optimizer.step
 
-    def recording_step():
+    def recording_step(*args):
         grads.extend(g.detach().clone() for g in state.optimizer.grads())
-        return opt_step()
+        return opt_step(*args)
 
     state.optimizer.step = recording_step
     if mesh is not None:
@@ -5580,15 +5608,331 @@ def codebook_err(got, want) -> float:
     return max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want))
 
 
-def dp_rank(rank: int, port: int, out_dir: str) -> None:
+def state_run(torch, cfg, tcfg, model, images, tokens, mesh=None, steps: int = 1,
+              state=None) -> dict:
+    """`steps` train steps of `tcfg` (FSDP where it says so) on one batch
+    (this rank's rows with a mesh), from `model` or from `state` where
+    given: {"state", "losses", "grads": the first step's gradients entering
+    the optimizer on the host (an FSDP leaf's piece)}."""
+    from ct_clip_ut_tpu_torch.parallel.sharding import shard_host_batch
+    from ct_clip_ut_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    if state is None:
+        state = create_train_state(cfg, tcfg, params=model.requires_grad_(True),
+                                   device=images.device, mesh=mesh)
+    grads, opt_step = [], state.optimizer.step
+
+    def recording_step(*args):
+        if not grads:
+            grads.extend(g.detach().cpu() for g in state.optimizer.grads())
+        return opt_step(*args)
+
+    state.optimizer.step = recording_step
+    if mesh is not None:
+        images, tokens = shard_host_batch(images, mesh), shard_host_batch(tokens, mesh)
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    losses = [step(state, images, tokens).item() for _ in range(steps)]
+    state.optimizer.step = opt_step
+    return {"state": state, "losses": losses, "grads": grads}
+
+
+def state_tensors(torch, state) -> list:
+    """(name, tensor) of what a train state holds, on the host: the
+    parameters (gathered whole under FSDP), the moments as the optimizer
+    holds them, the codebook buffers, the generator."""
+    from ct_clip_ut_tpu_torch.parallel import sharding
+
+    if state.fsdp is not None:
+        sharding.gather_params(state.fsdp)
+    out = [(n, p.detach().cpu()) for n, p in state.model.named_parameters()]
+    if state.fsdp is not None:
+        sharding.release_params(state.fsdp)
+    names = [n for n, _ in out]
+    out += [(f"mu {n}", m.cpu()) for n, m in zip(names, state.optimizer.mu)]
+    out += [(f"nu {n}", v.cpu()) for n, v in zip(names, state.optimizer.nu)]
+    cb = state.model.visual_transformer.vq._codebook
+    out += [(f"codebook {k}", getattr(cb, k).cpu()) for k in ("embed", "embed_avg",
+                                                              "cluster_size")]
+    return out + [("generator", state.generator.get_state())]
+
+
+def first_difference(pairs, band: float = FSDP_BAND) -> tuple:
+    """Over (name, got, want) triples: (the name of the first pair that is
+    not the same bits or None, the largest max |got - want| over the
+    tensor's largest entry among them, whether every such pair lies within
+    `band`)."""
+    first, worst = None, 0.0
+    for name, got, want in pairs:
+        got = got.reshape(want.shape)
+        if got.dtype != want.dtype or not got.equal(want):
+            first = first or name
+            top = want.double().abs().max().item() if want.numel() else 0.0
+            err = (got.double() - want.double()).abs().max().item()
+            worst = max(worst, err / top if top else float("inf"))
+    return first, worst, worst <= band
+
+
+def fsdp_one_rank(torch, cfg, tcfg, images, tokens, mesh, card: str) -> None:
+    """Phase 17 (a)'s FSDP: the step with fsdp=True over the one-rank group
+    (each sharded leaf's one piece the whole leaf) against the
+    single-process step, then the sharded checkpoint's resume."""
+    import tempfile
+
+    from ct_clip_ut_tpu_torch.config import replace
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.train import checkpoint as ckpt
+
+    fcfg = replace(tcfg, fsdp=True, sharded_checkpoints=True)
+    single = state_run(torch, cfg, tcfg, init_ctclip(cfg, seed=0, device="cuda"), images, tokens)
+    want = state_tensors(torch, single["state"])
+    del single["state"]
+    torch.cuda.empty_cache()
+    fsdp = state_run(torch, cfg, fcfg, init_ctclip(cfg, seed=0, device="cuda"), images, tokens,
+                     mesh)
+    state = fsdp["state"]
+    layout = state.fsdp
+    got = state_tensors(torch, state)
+    grads = [(f"grad {n}", g, w) for (n, _), g, w in zip(got, fsdp["grads"], single["grads"])]
+    first, worst, ok = first_difference(
+        [("loss", torch.tensor(fsdp["losses"]), torch.tensor(single["losses"])), *grads,
+         *((n, a, b) for (n, a), (_, b) in zip(got, want))])
+    print(f"fsdp: the fp32 step at B = {BATCH} with fsdp=True over the one-rank "
+          f"{torch.distributed.get_backend()} group ({sum(layout.sharded)} of "
+          f"{len(layout.sharded)} parameters sharded, each one piece) vs the single-process "
+          f"step: loss {fsdp['losses'][0]:.7f}; loss, {len(grads)} gradients, the parameters, "
+          f"moments and codebook after the step "
+          + ("the same bits" if first is None else
+             f"first off the same bits: {first}, the largest {worst:.2e} of a tensor's largest "
+             f"entry (band {FSDP_BAND})") + f" [{card}]")
+    if not ok:
+        raise AssertionError("FSDP over one rank: off the single-process step")
+    del want, got, grads, single
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "last.dcp"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint_sharded(path, state, mesh)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+        straight = state_run(torch, cfg, fcfg, None, images, tokens, mesh, state=state)
+        want = [("loss", torch.tensor(straight["losses"])), *state_tensors(torch, state)]
+        del state, fsdp, straight
+        torch.cuda.empty_cache()
+        fresh = state_run(torch, cfg, fcfg, init_ctclip(cfg, seed=1, device="cuda"), images,
+                          tokens, mesh, steps=0)["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint_sharded(path, fresh, mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    resumed = state_run(torch, cfg, fcfg, None, images, tokens, mesh, state=fresh)
+    got = [("loss", torch.tensor(resumed["losses"])), *state_tensors(torch, fresh)]
+    first, worst, _ = first_difference([(n, a, b) for (n, a), (_, b) in zip(got, want)])
+    print(f"fsdp: a sharded checkpoint after the step ({size / 1e9:.3f} GB written in "
+          f"{save_s:.2f} s, read into a fresh state in {load_s:.2f} s, host clock, the page "
+          f"cache warm), then one more step: loss {resumed['losses'][0]:.7f}; parameters, "
+          f"moments, codebook and generator, and the loss, vs the uninterrupted run "
+          + ("the same bits" if first is None else f"first off: {first} ({worst:.2e})")
+          + f" [{card}]")
+    if first is not None:
+        raise AssertionError("the sharded checkpoint's resume is not the uninterrupted run")
+    del fresh, resumed, got, want
+    torch.cuda.empty_cache()
+
+
+def fsdp_ranks(torch, cfg, tcfg, images, tokens, mesh, say, card: str) -> None:
+    """Phase 17 (b)'s FSDP: two steps at local batch 1 of data parallelism,
+    then of FSDP, from rank 0's model; each rank's memory at rest (the
+    allocator's bytes past those before the model, gradients freed) and
+    its peak over the two steps (torch.cuda.max_memory_allocated past the
+    same base) beside the other's."""
+    from ct_clip_ut_tpu_torch.config import replace
+    from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
+    from ct_clip_ut_tpu_torch.parallel import collectives, sharding
+
+    import gc
+
+    runs = {}
+    for name, c in (("dp", tcfg), ("fsdp", replace(tcfg, fsdp=True))):
+        gc.collect()            # a state held only by a cycle (a patched step) frees here
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_ctclip(cfg, seed=0 if mesh.is_main else 1, device="cuda")
+        t0 = time.perf_counter()
+        run = state_run(torch, cfg, c, model, images, tokens, mesh, steps=2)
+        torch.cuda.synchronize()
+        run["seconds"] = time.perf_counter() - t0
+        run["peak"] = torch.cuda.max_memory_allocated() - base
+        state = run.pop("state")
+        state.optimizer.zero_grad()
+        gc.collect()
+        torch.cuda.synchronize()
+        run["rest"] = torch.cuda.memory_allocated() - base
+        layout = state.fsdp
+        run["spans"] = None if layout is None else layout.spans
+        run["pieces_only"] = layout is None or all(
+            p.numel() == 0 and p.grad is None for p, s in zip(layout.params, layout.spans)
+            if s is not None)
+        if layout is not None:
+            sharding.gather_params(layout)
+            same = 0
+            for p in layout.params:
+                t = p.detach().clone()
+                collectives.broadcast(t, mesh)
+                same += int(torch.equal(t, p))
+            run["same"] = int(collectives.psum(torch.tensor([same], device="cuda"), mesh).item())
+            sharding.release_params(layout)
+        run["params"] = [t for n, t in state_tensors(torch, state)[:len(run["grads"])]]
+        runs[name] = run
+        del state, model, layout
+    dp, fs = runs["dp"], runs["fsdp"]
+    pieces = sum(torch.equal(g.reshape(-1), w.reshape(-1) if s is None
+                             else w.reshape(-1)[s[0]:s[1]])
+                 for s, g, w in zip(fs["spans"], fs["grads"], dp["grads"]))
+    pieces = int(collectives.psum(torch.tensor([pieces], device="cuda"), mesh).item())
+    rest = collectives.gather_rows(torch.tensor([[dp["rest"], fs["rest"], dp["peak"],
+                                                  fs["peak"]]], device="cuda",
+                                                dtype=torch.float64), mesh).cpu().tolist()
+    first, worst, ok = first_difference(
+        [(f"param {i}", a, b) for i, (a, b) in enumerate(zip(fs["params"], dp["params"]))])
+    n = len(dp["grads"])
+    say(f"fsdp: {mesh.world} gloo ranks on the one card, two fp32 steps at local batch 1 "
+        f"({sum(s is not None for s in fs['spans'])} of {n} parameters sharded): the first loss "
+        f"{fs['losses'][0]:.7f} vs data parallelism's the same bits "
+        f"{fs['losses'][0] == dp['losses'][0]}, the second {fs['losses'][1]:.7f} vs "
+        f"{dp['losses'][1]:.7f}; gradient pieces the bits of the averaged gradient's slice in "
+        f"{pieces} of {mesh.world * n}; the parameters after two steps "
+        + ("the same bits" if first is None else
+           f"within {worst:.2e} of each tensor's largest entry (band {FSDP_BAND})")
+        + f"; the gathered parameters the same bits on both ranks in {fs['same']} of "
+        f"{mesh.world * n}; at rest (the allocator's "
+        f"bytes over the state, gradients freed) by rank "
+        + ", ".join(f"DP {a / 1e9:.3f} GB / FSDP {b / 1e9:.3f} GB" for a, b, _, _ in rest)
+        + "; the peak over the two steps (max_memory_allocated past the same bytes) by rank "
+        + ", ".join(f"DP {c / 1e9:.3f} GB / FSDP {d / 1e9:.3f} GB" for _, _, c, d in rest)
+        + f"; two steps in {dp['seconds']:.2f} s (DP) / {fs['seconds']:.2f} s (FSDP), host "
+        f"clock, first calls, gloo's all-reduces through the host included [{card}]")
+    if not (fs["losses"][0] == dp["losses"][0] and pieces == mesh.world * n and ok
+            and fs["same"] == mesh.world * n and fs["pieces_only"]):
+        raise AssertionError("FSDP over the ranks: off the data-parallel steps")
+
+
+def ig_ranks(torch, model, prompt, image, mesh, say, card: str) -> None:
+    """Phase 17 (b)'s integrated gradients: DP_IG_STEPS steps in chunks of
+    DP_IG_CHUNK over the ranks (each rank's chunks the same batches as one
+    process's) against one process on rank 0, and each map's time."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.attribution import integrated_gradients as ig
+    from ct_clip_ut_tpu_torch.parallel import collectives
+
+    kw = dict(steps=DP_IG_STEPS, chunk=DP_IG_CHUNK)
+    ig.integrated_gradients_sharded(model, prompt, image, mesh, **kw)        # first calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ig.integrated_gradients_sharded(model, prompt, image, mesh, **kw)
+    sharded_s = time.perf_counter() - t0
+    diff, avg = ig._ig_avg_grads_sharded(model, prompt, image, mesh, **kw)
+    same = torch.from_numpy(got).to("cuda")
+    collectives.broadcast(same, mesh)
+    same = bool(torch.equal(same.cpu(), torch.from_numpy(got)))
+    if not mesh.is_main:
+        return
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ig.integrated_gradients(model, prompt, image, **kw)
+    one_s = time.perf_counter() - t0
+    _, want_avg = ig._ig_avg_grads(model, prompt, image, **kw)
+    avg_err = ((avg - want_avg).abs().max() / want_avg.abs().max()).item()
+    # in patch space: the crossings of the 0.90 threshold and their distance from it
+    pre = ig._ig_normalize(diff, want_avg, 0.0, 1.0)
+    threshold = ig._quantile(pre, 0.9)
+    crossed = ((ig._ig_normalize(diff, avg, 0.9, 0.05) > 0)
+               != (ig._ig_normalize(diff, want_avg, 0.9, 0.05) > 0))
+    gap = (pre[crossed] - threshold).abs().max().item() if crossed.any() else 0.0
+    # the public maps, off their crossings
+    off = (got > 0) == (want > 0)
+    map_err = float(np.abs(got - want)[off].max())
+    say(f"fsdp: integrated gradients over {mesh.world} ranks ({DP_IG_STEPS} steps in chunks of "
+        f"{DP_IG_CHUNK}, each rank {DP_IG_STEPS // mesh.world}) vs one process: the average "
+        f"gradient within {avg_err:.2e} of its largest entry (band {DP_IG_BAND}); the map the "
+        f"same on both ranks {same}, {int(crossed.sum())} elements crossed the threshold (the "
+        f"farthest {gap:.2e} from it, band {IG_CROSS_BAND}), off them within {map_err:.2e} "
+        f"(band {MAP_BAND}); a map in {sharded_s:.3f} s over the ranks vs {one_s:.3f} s in one "
+        f"process (host clock; the ranks share the card, so no speedup is expected) [{card}]")
+    if not (avg_err <= DP_IG_BAND and same and map_err <= MAP_BAND and gap <= IG_CROSS_BAND):
+        raise AssertionError("sharded integrated gradients: off one process's map")
+
+
+def ctgen_ranks(torch, mesh, say, card: str) -> None:
+    """Phase 17 (b)'s CTGenerate: DP_CTGEN_SCANS bf16 scans over the ranks
+    (padded with the last) through ctgenerate_apply_batched(mesh=) and
+    localize(mesh=), against one process on rank 0."""
+    import numpy as np
+
+    from ct_clip_ut_tpu_torch.config import CTGenerateConfig
+    from ct_clip_ut_tpu_torch.infer.profile_ctgenerate import reports
+    from ct_clip_ut_tpu_torch.infer.zeroshot import WordTokenizer
+    from ct_clip_ut_tpu_torch.models.ctgenerate import ctgenerate_apply_batched, init_ctgenerate
+    from ct_clip_ut_tpu_torch.models.t5 import T5TextConditioner
+    from ct_clip_ut_tpu_torch.scripts.inference_ctgenerate import localize
+
+    cfg = CTGenerateConfig()
+    model = init_ctgenerate(cfg, seed=0, device="cuda")
+    t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    scans = torch.randn((DP_CTGEN_SCANS, *CTGEN_SCAN), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+    texts = [r if i % 2 == 0 else " ".join(r.split()[:SHORT_REPORT])
+             for i, r in enumerate(reports(DP_CTGEN_SCANS))]
+    emb, mask = t5.encode(texts)
+    cache = {}
+    with torch.no_grad():
+        got = ctgenerate_apply_batched(model, scans, emb, mask, mesh=mesh, bias_cache=cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps = localize(model, t5, scans, texts, bias_cache=cache, mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        if not mesh.is_main:
+            return
+        want = ctgenerate_apply_batched(model, scans, emb, mask, bias_cache=cache)
+        t0 = time.perf_counter()
+        want_maps = localize(model, t5, scans, texts, bias_cache=cache)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    cross = (got.cross_attention.float() - want.cross_attention.float()).abs().max().item()
+    ids = bool(torch.equal(got.codebook_ids, want.codebook_ids))
+    bits = bool(torch.equal(got.cross_attention, want.cross_attention)
+                and torch.equal(got.feature_map, want.feature_map))
+    heat = max(float(np.abs(maps[i][k] - want_maps[i][k]).max())
+               for i in range(DP_CTGEN_SCANS) for k in want_maps[i])
+    keys = [sorted(m) for m in maps] == [sorted(m) for m in want_maps]
+    say(f"fsdp: CTGenerate over {mesh.world} ranks, {DP_CTGEN_SCANS} bf16 scans "
+        f"{list(CTGEN_SCAN)} padded to {-(-DP_CTGEN_SCANS // mesh.world) * mesh.world}: "
+        f"codebook ids those of one process {ids}, the cross-attention max abs "
+        f"{cross:.2e} (band {CROSS_BAND}), the same bits (and feature map) {bits}; "
+        f"localize()'s heatmaps the same pathologies {keys}, max abs {heat:.2e} (band "
+        f"{CROSS_BAND}); localize in "
+        f"{mesh_s:.3f} s over the ranks vs {one_s:.3f} s in one process (host clock) [{card}]")
+    if not (ids and keys and cross <= CROSS_BAND and heat <= CROSS_BAND
+            and got.cross_attention.shape[0] == DP_CTGEN_SCANS):
+        raise AssertionError("CTGenerate over the ranks: off one process")
+
+
+def dp_rank(rank: int, port: int, out_dir: str, card: str) -> None:
     """Phase 17 (b): one of DP_WORLD ranks sharing the card over gloo (the
     smoke names the backend; NCCL takes one rank a device). Rank 0 first
     runs each check's single-process reference; then both ranks run the
     data-parallel step (local batch 1, rank 1's model drawn from another
     seed so that rank 0's broadcast shows), sharded zero-shot over
     DP_ZS_VOLUMES volumes and the window-sharded occlusion sweep over
-    DP_OCC_WINDOWS windows. Rank 0 prints and checks; a failed collective
-    raises in its rank."""
+    DP_OCC_WINDOWS windows; then FSDP against data parallelism
+    (`fsdp_ranks`), the sharded integrated gradients (`ig_ranks`) and
+    CTGenerate over the ranks (`ctgen_ranks`). Rank 0 prints and checks; a
+    failed collective raises in its rank."""
     import types
 
     import numpy as np
@@ -5678,6 +6022,9 @@ def dp_rank(rank: int, port: int, out_dir: str) -> None:
         del ref, rgrads, rcb, halves
     del model, grads, codebook
     torch.cuda.empty_cache()
+    fsdp_ranks(torch, cfg, tcfg, images, tokens, mesh, say, card)
+    del images, tokens
+    torch.cuda.empty_cache()
 
     # sharded zero-shot over DP_ZS_VOLUMES volumes (the last shard wraps)
     zs_model = init_ctclip(flagship_cfg(), seed=0, device="cuda")
@@ -5745,6 +6092,10 @@ def dp_rank(rank: int, port: int, out_dir: str) -> None:
         if scores.shape != (DP_OCC_WINDOWS, 2) or errs[~flipped].max(initial=0.0) > OCC_BAND \
                 or not np.array_equal(orig, ref_orig):
             raise AssertionError("sharded occlusion: off the single-process sweep")
+    ig_ranks(torch, zs_model, {k: v[:1] for k, v in prompts.items()}, image, mesh, say, card)
+    del zs_model, latents, image
+    torch.cuda.empty_cache()
+    ctgen_ranks(torch, mesh, say, card)
     shutdown_runtime()
 
 
@@ -5782,9 +6133,11 @@ def dp_phase(torch, card: str) -> None:
         backend = torch.distributed.get_backend()
         _, _, model, _, _ = dp_train_setup(torch, seed=0)
         over_mesh = dp_step(torch, cfg, tcfg, model, images, tokens, mesh)
+        del model
+        torch.cuda.empty_cache()
+        fsdp_one_rank(torch, cfg, tcfg, images, tokens, mesh, card)
     finally:
         shutdown_runtime()
-    del model
     same_loss = single[0] == over_mesh[0]
     same = [torch.equal(a, b) for a, b in zip(single[1], over_mesh[1])]
     # the codebook's EMA statistics are summed in a fixed order: the same
@@ -5818,7 +6171,8 @@ def dp_phase(torch, card: str) -> None:
 
     sys.stdout.flush()
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.start_processes(dp_rank, args=(free_port(), tmp), nprocs=DP_WORLD,
+        torch.multiprocessing.start_processes(dp_rank, args=(free_port(), tmp, card),
+                                              nprocs=DP_WORLD,
                                               join=True, start_method="spawn")
     print(f"data parallel: phase 17 in {time.perf_counter() - t_phase:.1f} s [{card}]")
 

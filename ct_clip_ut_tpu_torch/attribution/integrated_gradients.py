@@ -25,6 +25,16 @@ gradients add into one running fp32 sum. On the card the backward runs the
 fp32 data-gradient chains: a map launches attn_block_bwd_f32 and
 attn_packed_bwd_f32 4 times a chunk and geglu_ff_bwd_f32 8 times.
 
+Over a data-axis mesh (`integrated_gradients_sharded`, JAX :113-190) the
+alphas are split over the ranks: the same linspace, padded with zero
+weights to a multiple of world * chunk and cut into each rank's contiguous
+share, as JAX's shard_map takes them. Each rank runs its chunks through
+the same body (`_ig_chunk_sum`; steps of zero weight are not run: they add
+nothing), the per-rank sums are summed over the ranks (a rank whose whole
+share is padding adds zeros) and every rank normalises the same average,
+so every rank holds the map. It equals one process's map but for the
+order of the sum over the chunks.
+
 The quantile is jnp.quantile's default (linear interpolation at position
 q (n - 1)) over a sort: torch.quantile refuses more than 2^24 elements,
 and the flagship map has 55,296,000. The finished map goes to the host as
@@ -43,11 +53,9 @@ from ..config import CTCLIPConfig
 from ..models.bert import bert_cls
 from ..models.ctclip import CTCLIP
 from ..models.ctvit import patchify, unpatchify_np
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh
 from .capture import scored_forward, with_grad
-
-SHARDED = ("the mesh-parallel integrated gradients (integrated_gradients_sharded) are not "
-           "ported yet (ROADMAP Queue 1 item 11d: integrated_gradients_sharded and the suite's "
-           "per-process mode)")
 
 
 def _hoist_text_tower(model: CTCLIP, text_tokens, text_embeds, plain: bool = False):
@@ -64,6 +72,30 @@ def _hoist_text_tower(model: CTCLIP, text_tokens, text_embeds, plain: bool = Fal
     return None, cls
 
 
+def _ig_setup(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds, steps: int,
+              baseline_value: float, plain: bool) -> tuple:
+    """(text_embeds with the text tower hoisted, baseline and diff [1, t, h,
+    w, patch_dim] fp32 in patch space, the alphas linspace(0, 1, steps) on
+    the image's device)."""
+    cfg = model.visual_transformer.cfg
+    _, text_embeds = _hoist_text_tower(model, text_tokens, text_embeds, plain)
+    patches = patchify(image.float(), cfg.patch_size, cfg.temporal_patch_size)  # [1, t, h, w, p]
+    # patchify(const) == const: the all-ones baseline is exact in patch space
+    baseline = torch.full_like(patches, baseline_value)
+    alphas = torch.from_numpy(np.linspace(0.0, 1.0, steps, dtype=np.float32)).to(image.device)
+    return text_embeds, baseline, patches - baseline, alphas
+
+
+def _ig_chunk_sum(model: CTCLIP, text_embeds, baseline, diff, a: torch.Tensor,
+                  plain: bool) -> torch.Tensor:
+    """The score's gradient at baseline + a * diff for each alpha of the
+    chunk `a`, summed over the chunk: [1, t, h, w, patch_dim]."""
+    batch = (baseline + a.reshape(-1, 1, 1, 1, 1) * diff).requires_grad_(True)
+    _, out = scored_forward(model, None, batch, text_embeds, prepatchified=True, plain=plain)
+    (g,) = torch.autograd.grad(out.sim_matrix[:, 0].sum(), batch)
+    return g.sum(dim=0, keepdim=True)
+
+
 @with_grad
 def _ig_avg_grads(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, *,
                   baseline_value: float = 1.0, steps: int = 50, chunk: int = 5,
@@ -71,23 +103,39 @@ def _ig_avg_grads(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=N
     """(diff, the score's gradient averaged over the steps), both [1, t, h,
     w, patch_dim] fp32 in patch space on the image's device: the Riemann
     sum the map is made of."""
-    cfg = model.visual_transformer.cfg
-    _, text_embeds = _hoist_text_tower(model, text_tokens, text_embeds, plain)
-    patches = patchify(image.float(), cfg.patch_size, cfg.temporal_patch_size)  # [1, t, h, w, p]
-    # patchify(const) == const: the all-ones baseline is exact in patch space
-    baseline = torch.full_like(patches, baseline_value)
-    diff = patches - baseline
-    alphas = torch.from_numpy(np.linspace(0.0, 1.0, steps, dtype=np.float32)).to(image.device)
-    sum_grads = torch.zeros_like(patches)
+    text_embeds, baseline, diff, alphas = _ig_setup(model, text_tokens, image, text_embeds,
+                                                    steps, baseline_value, plain)
+    sum_grads = torch.zeros_like(diff)
     for lo in range(0, steps, chunk):
-        a = alphas[lo:lo + chunk].reshape(-1, 1, 1, 1, 1)
-        batch = (baseline + a * diff).requires_grad_(True)        # [chunk, t, h, w, p]
-        _, out = scored_forward(model, None, batch, text_embeds, prepatchified=True,
-                                plain=plain)
-        (g,) = torch.autograd.grad(out.sim_matrix[:, 0].sum(), batch)
-        sum_grads += g.sum(dim=0, keepdim=True)
-        del batch, out, g
+        sum_grads += _ig_chunk_sum(model, text_embeds, baseline, diff, alphas[lo:lo + chunk],
+                                   plain)
     return diff, sum_grads / steps
+
+
+def rank_alphas(steps: int, chunk: int, world: int, rank: int) -> list:
+    """rank's chunks of step indices: the `steps` alphas padded with zero
+    weights to a multiple of world * chunk, rank's contiguous share of
+    them in chunks of `chunk` (JAX :142-145), each chunk's padding dropped
+    (and a chunk of padding alone); a rank may get none."""
+    per = -(-steps // (world * chunk)) * chunk
+    lo = rank * per
+    return [list(range(c, min(c + chunk, steps))) for c in range(lo, lo + per, chunk)
+            if c < steps]
+
+
+@with_grad
+def _ig_avg_grads_sharded(model: CTCLIP, text_tokens, image: torch.Tensor, mesh,
+                          text_embeds=None, *, baseline_value: float = 1.0, steps: int = 50,
+                          chunk: int = 5, plain: bool = False) -> tuple:
+    """`_ig_avg_grads` with the steps split over `mesh` (`rank_alphas`):
+    this rank's chunk sums, then their sum over the ranks."""
+    text_embeds, baseline, diff, alphas = _ig_setup(model, text_tokens, image, text_embeds,
+                                                    steps, baseline_value, plain)
+    sum_grads = torch.zeros_like(diff)
+    for idx in rank_alphas(steps, chunk, mesh.world, mesh.rank):
+        sum_grads += _ig_chunk_sum(model, text_embeds, baseline, diff, alphas[idx[0]:idx[-1] + 1],
+                                   plain)
+    return diff, collectives.psum(sum_grads, mesh) / steps
 
 
 def _ig_patch_space(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds=None, *,
@@ -174,11 +222,19 @@ def _ig_transport_k(cfg: CTCLIPConfig, image_shape, quantile: float) -> int:
     return min(n, int(n * (1.0 - quantile) * 1.02) + 16)
 
 
-def _ig_fetch(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds, kw: dict):
-    """Start one map: its device work queued, its packed transport copied
-    to the host asynchronously (pinned memory where the image is on the
-    card). Returns the pending entry `_ig_finish` completes."""
-    ig = _ig_patch_space(model, text_tokens, image, text_embeds, **kw)
+def _ig_fetch(model: CTCLIP, text_tokens, image: torch.Tensor, text_embeds, kw: dict,
+              mesh=None):
+    """Start one map (its steps split over `mesh` where given): its device
+    work queued, its packed transport copied to the host asynchronously
+    (pinned memory where the image is on the card). Returns the pending
+    entry `_ig_finish` completes."""
+    if mesh is None:
+        ig = _ig_patch_space(model, text_tokens, image, text_embeds, **kw)
+    else:
+        grad_kw = {k: v for k, v in kw.items() if k not in ("quantile", "contrast")}
+        diff, avg = _ig_avg_grads_sharded(model, text_tokens, image, mesh, text_embeds,
+                                          **grad_kw)
+        ig = _ig_normalize(diff, avg, kw["quantile"], kw["contrast"])
     packed, vals, m = _ig_pack(ig, _ig_transport_k(model.cfg, image.shape, kw["quantile"]))
     done = None
     if image.device.type == "cuda":
@@ -229,7 +285,18 @@ def integrated_gradients_pipelined(model: CTCLIP, items: Iterable, *,
         yield _ig_finish(model, pending)
 
 
-def integrated_gradients_sharded(model: CTCLIP, text_tokens, image: torch.Tensor, mesh,
-                                 **kw) -> np.ndarray:
-    """The steps sharded over a mesh axis: not ported yet."""
-    raise NotImplementedError(SHARDED)
+def integrated_gradients_sharded(model: CTCLIP, text_tokens, image: torch.Tensor, mesh, *,
+                                 text_embeds=None, baseline_value: float = 1.0, steps: int = 50,
+                                 chunk: int = 5, quantile: float = 0.90, contrast: float = 0.05,
+                                 plain: bool = False) -> np.ndarray:
+    """`integrated_gradients` with the interpolation steps split over the
+    data-axis `mesh` (parallel.mesh.DataMesh; see the module doc):
+    collective, every rank calls it with the same sample and every rank
+    gets the [D, H, W] map. The image must lie on the mesh's device."""
+    if check_mesh(mesh) is None:
+        raise TypeError("integrated_gradients_sharded needs a parallel.mesh.DataMesh")
+    if image.device != mesh.device:
+        raise ValueError(f"the image is on {image.device}, the mesh on {mesh.device}")
+    kw = dict(baseline_value=baseline_value, steps=steps, chunk=chunk, quantile=quantile,
+              contrast=contrast, plain=plain)
+    return _ig_finish(model, _ig_fetch(model, text_tokens, image, text_embeds, kw, mesh))

@@ -23,18 +23,19 @@ positive pathology that has a diff embedding in one window sweep.
 
 On one card every map is computed and written by the one process. With a
 data-axis `mesh` of more than one rank (parallel/mesh.py; every rank runs
-the suite over the same dataset), occlusion is collective: every rank
-takes rank 0's sample (`_broadcast_sample`, the reference's
-visualizations.py:296-318) and sweeps its run of the windows, and rank 0
-writes the maps. Raw attention, rollout and Grad-CAM split the samples
-over the ranks, interleaved as the zero-shot sampler does (sample i on
-rank i % world, read by index where the dataset has one), and each rank
-writes its own samples' maps: together they write every map the one-card
-suite writes, each sample's in a run directory of its own, numbered in
-the order the ranks claim them. Integrated gradients over a mesh
-(`integrated_gradients_sharded`, and the JAX suite's per-process mode,
-which keeps only the first process's maps) raises (ROADMAP Queue 1 item
-11d).
+the suite over the same dataset), occlusion and integrated gradients are
+collective: every rank takes rank 0's sample (`_broadcast_sample`, the
+reference's visualizations.py:296-318), occlusion sweeps each rank's run
+of the windows and integrated gradients each rank's share of the
+interpolation steps (`integrated_gradients_sharded`), and rank 0 writes
+every sample's map, once. (The JAX suite's per-process mode keeps only the
+first process's IG maps, suite.py:173; here none is dropped.) Raw
+attention, rollout and Grad-CAM split the samples over the ranks,
+interleaved as the zero-shot sampler does (sample i on rank i % world,
+read by index where the dataset has one), and each rank writes its own
+samples' maps: together they write every map the one-card suite writes,
+each sample's in a run directory of its own, numbered in the order the
+ranks claim them.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ class AttributionContext:
     pathologies: Sequence[str] = PATHOLOGIES
     text_max_length: int = 512
     render_gifs: bool = True
-    mesh: Any = None                    # a parallel.mesh.DataMesh: occlusion window-sharded
+    mesh: Any = None                    # a parallel.mesh.DataMesh (see the module doc)
 
 
 def _check_mesh(mesh) -> None:
@@ -171,10 +172,19 @@ class Visualizations:
 
     def integrated_gradients(self, image, text_tokens, labels, scan_name, path,
                              steps: int = 50):
-        sal = ig.integrated_gradients(self.ctx.model, text_tokens, image, steps=steps)
+        """One sample's map; over a mesh of more than one rank collective
+        (the steps split over the ranks), rank 0 writing it."""
+        if self.sharded:
+            sal = ig.integrated_gradients_sharded(self.ctx.model, text_tokens, image,
+                                                  self.ctx.mesh, steps=steps)
+        else:
+            sal = ig.integrated_gradients(self.ctx.model, text_tokens, image, steps=steps)
         self._save_ig_map(sal, image, scan_name)
+        return sal
 
     def _save_ig_map(self, sal, image, scan_name):
+        if not self.is_main:    # the same map on every rank; rank 0 writes
+            return
         sal = rot90_ct(sal)
         out = self._out("integrated_gradients")
         np.save(out / f"{scan_name}.npy", sal)
@@ -295,17 +305,17 @@ class Visualizations:
             if name not in self.METHODS:
                 print(f"{name} is not a valid visualization argument.")
                 continue
-            if self.sharded and name == "integrated_gradients":
-                raise NotImplementedError(
-                    "integrated gradients over a data-parallel mesh "
-                    "(integrated_gradients_sharded, the suite's per-process mode) is not ported "
-                    "yet (ROADMAP Queue 1 item 11d)")
             if self.is_main:
                 print(f"{name} visualization started.")
             start = time.time()
-            # every method but occlusion: each rank its share of the samples
-            share = name != "occlusion"
-            if name == "integrated_gradients":
+            # the collective methods take every sample (rank 0's); the others
+            # each rank its share of the samples
+            collective = name in ("occlusion", "integrated_gradients")
+            share = not collective
+            if name == "integrated_gradients" and self.sharded:
+                for sample in self.prepared(share):
+                    self.integrated_gradients(*self._broadcast_sample(sample))
+            elif name == "integrated_gradients":
                 self.integrated_gradients_worklist(
                     (img, tok, nm) for img, tok, _, nm, _ in self.prepared(share))
             elif name == "attention_rollout":
@@ -314,7 +324,7 @@ class Visualizations:
             else:
                 kwargs = enabled if name == "occlusion" and isinstance(enabled, dict) else {}
                 for sample in self.prepared(share):
-                    if self.sharded and name == "occlusion":
+                    if self.sharded and collective:
                         sample = self._broadcast_sample(sample)
                     getattr(self, name)(*sample, **kwargs)
             if self.device.type == "cuda":

@@ -276,8 +276,11 @@ class TrainConfig:
     """Training hyperparameters (ct_clip_ut_tpu/config.py:293-345; reference
     CTClipTrainer.py:38-59, optimizer.py). The port runs single-pass and
     GradCache (grad_accum > 1) steps on one card or data-parallel over
-    processes: fsdp, sharded_checkpoints and the MoE aux loss raise in the
-    trainer (ROADMAP Queue 1 items 11b and 11h)."""
+    processes; fsdp shards the parameters, gradients and Adam's moments
+    over the ranks at rest (parallel/sharding.py) and sharded_checkpoints
+    writes directories every rank writes its pieces into
+    (train/checkpoint.py). The MoE aux loss raises in the trainer (ROADMAP
+    Queue 1 item 11h)."""
     batch_size: int = 1          # per-device
     lr: float = 1.25e-5
     wd: float = 0.0              # wd==0 -> plain Adam (reference optimizer.py:42)

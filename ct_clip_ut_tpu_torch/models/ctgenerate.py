@@ -15,6 +15,11 @@ one-scan route at --batch-size 1) through the fp32 attn_qrows and
 geglu_ff, bf16 (the default of `ctgenerate_apply_batched`, serving with
 the bias cache) through their bf16 kernels. plain=True runs every
 kernel's plain version instead (what the card compares the kernels with).
+
+Over a data-axis mesh (`ctgenerate_apply_batched(mesh=)`, JAX :193-217)
+the batch is padded to a multiple of the world by repeating its last
+scan, each rank runs its rows, and the outputs are gathered in rank order
+and cut back to the batch: every rank holds every row.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from torch import nn
 from .. import _build
 from ..config import CTGenerateConfig
 from ..ops.posbias import continuous_pos_bias_grouped3
+from ..parallel import collectives
+from ..parallel.mesh import check_mesh
 from .ctclip import SeededInit
 from .ctvit import CTViT, ctvit_apply, token_grid_shape
 from .maskgit import MaskGit, _dtype, maskgit_apply, qrows_route
@@ -128,11 +135,23 @@ def ctgenerate_apply_batched(model: CTGenerate, ct_scans: torch.Tensor,
     """[b] scans with their longest-padded T5 embeddings in one forward
     (ctgenerate.py:152-217), MaskGit in bf16 by default. `bias_cache`, a
     caller-owned dict valid for one set of weights, holds the CPB table per
-    (grid, dtype) on the q-row route under the cap, built on first use.
-    Keyword spans are sliced from `cross_attention` per sample."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded CTGenerate is not ported yet (ROADMAP, Queue 1 item 11e)")
+    (grid, dtype) on the q-row route under the cap, built on first use
+    (over a mesh each rank keeps its own). Keyword spans are sliced from
+    `cross_attention` per sample. With a data-axis `mesh` (collective:
+    every rank passes the same global batch, on the mesh's device) each
+    rank runs its rows of the batch padded to a multiple of the world with
+    its last scan, and every output is gathered whole (see the module
+    doc)."""
+    b = ct_scans.shape[0]
+    if check_mesh(mesh) is not None:
+        if ct_scans.device != mesh.device:
+            raise ValueError(f"the scans are on {ct_scans.device}, the mesh on {mesh.device}")
+        pad = (-b) % mesh.world
+        rows = (b + pad) // mesh.world
+        ct_scans, text_embed, text_mask = (
+            torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])[mesh.rank * rows:
+                                                             (mesh.rank + 1) * rows]
+            for x in (ct_scans, text_embed, text_mask))
     self_attn_bias = None
     if bias_cache is not None:
         grid = token_grid_shape(model.cfg.ctvit, ct_scans.shape)
@@ -142,9 +161,14 @@ def ctgenerate_apply_batched(model: CTGenerate, ct_scans: torch.Tensor,
             if key not in bias_cache:
                 bias_cache[key] = maskgit_bias_table(model, grid, dtype=compute_dtype)
             self_attn_bias = bias_cache[key]
-    return ctgenerate_apply(model, ct_scans, text_embed, text_mask, {}, return_embeds=True,
-                            self_attn_bias=self_attn_bias, compute_dtype=compute_dtype,
-                            plain=plain)
+    out = ctgenerate_apply(model, ct_scans, text_embed, text_mask, {}, return_embeds=True,
+                           self_attn_bias=self_attn_bias, compute_dtype=compute_dtype,
+                           plain=plain)
+    if mesh is None:
+        return out
+    whole = [collectives.gather_rows(t.contiguous(), mesh)[:b]
+             for t in (out.feature_map, out.codebook_ids, out.cross_attention)]
+    return out._replace(feature_map=whole[0], codebook_ids=whole[1], cross_attention=whole[2])
 
 
 def keyword_heatmap(cross_attention: torch.Tensor, video_patch_shape: Tuple[int, int, int],

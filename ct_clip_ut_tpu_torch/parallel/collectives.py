@@ -15,6 +15,17 @@ rows: x + 0 = x, so the gathered rows are each rank's bits (a -0.0 comes
 back +0.0). A mesh of one rank without a process group makes each of them
 the identity.
 
+FSDP's collectives take the same route: its gather (`gather_flat`) is the
+all_reduce of a zero-filled flat buffer holding this rank's pieces, its
+reduce-scatter the data-parallel all_reduce of the whole gradient
+(sharding.allreduce_grads), divided by the world, of which each rank
+keeps its pieces (sharding.reduce_grads). Both move world x the bytes of
+a true all-gather or reduce-scatter (every rank sends and receives the
+whole buffer); NCCL's own `all_gather_into_tensor` /
+`reduce_scatter_tensor` would move 1 / world of it, and wait for a
+measurement across cards (ROADMAP "Across cards"): the card's machine
+has one.
+
 The gradient convention of `all_gather` is the reference's: its backward
 sums the cotangent over the ranks and hands each rank its own rows of the
 sum. Every rank computes the same loss from the same gathered matrix, so
@@ -76,6 +87,19 @@ def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     b = x.shape[0]
     out = x.new_zeros((mesh.world * b, *x.shape[1:]))
     out[mesh.rank * b:(mesh.rank + 1) * b] = x.detach()
+    if _live(mesh):
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out
+
+
+def gather_flat(pieces, spans, numel: int, mesh, like: torch.Tensor) -> torch.Tensor:
+    """[numel]: a flat buffer (like's dtype and device) of which every rank
+    holds the pieces at its own `spans` ((lo, hi) each, with `pieces` in
+    the same order), whole on every rank. The spans of the ranks tile the
+    buffer; each element is its holder's bits (a -0.0 comes back +0.0)."""
+    out = like.new_zeros((numel,))
+    for piece, (lo, hi) in zip(pieces, spans):
+        out[lo:hi] = piece.reshape(-1)
     if _live(mesh):
         dist.all_reduce(out, op=dist.ReduceOp.SUM)
     return out

@@ -141,6 +141,27 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device=None) -> DataMesh:
     return DataMesh(world=world, rank=rank, device=dev)
 
 
+def make_cli_mesh(args) -> Optional[DataMesh]:
+    """The data-axis mesh of the entry points' --multihost / --num-processes
+    / --coordinator-address / --process-id / --mesh-data (and --mesh-model,
+    where a parser has it), or None for a one-process run without mesh
+    flags (scripts/train_ctclip.py:99-110 in the JAX package). The process
+    group comes up first; its ranks lie on `cuda:LOCAL_RANK` (the CPU with
+    --device cpu)."""
+    check_model_axis(getattr(args, "mesh_model", 1))
+    explicit = args.coordinator_address is not None or args.process_id is not None
+    if args.multihost or (args.num_processes or 0) > 1 or explicit:
+        initialize_runtime(args.coordinator_address, args.num_processes, args.process_id,
+                           device=args.device)
+    elif args.mesh_data is None:
+        return None
+    mesh = make_mesh(None, device=args.device)
+    if args.mesh_data is not None and args.mesh_data != mesh.world:
+        raise ValueError(f"--mesh-data {args.mesh_data} needs {args.mesh_data} processes, "
+                         f"have {mesh.world} (start them with torchrun --nproc-per-node)")
+    return mesh
+
+
 def local_batch_size(global_batch: int, mesh: DataMesh) -> int:
     """The rows each rank takes of a global batch (which the data axis must divide)."""
     if global_batch % mesh.world:

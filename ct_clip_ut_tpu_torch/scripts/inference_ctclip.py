@@ -35,8 +35,9 @@ process group, from torchrun's environment or from --coordinator-address /
 CUDA ranks, gloo for --device cpu), each rank on `cuda:LOCAL_RANK`.
 --mesh-data N (the group's size by default) is the data axis: each rank
 scores its shard of the volumes, rank 0 writes metrics.txt over all of
-them (wrapped duplicates of the last shard dropped), and occlusion sweeps
-its windows over the ranks (the suite, attribution/suite.py).
+them (wrapped duplicates of the last shard dropped), occlusion sweeps its
+windows and integrated gradients each map's steps over the ranks, rank 0
+writing every map (the suite, attribution/suite.py).
 --mesh-model above 1, the tensor-parallel axis, raises (Queue 1 item 11c).
 
 Weights: --checkpoint, the reference's ctclip_v2.pt, a state dict of the
@@ -68,7 +69,7 @@ from ..data.tokenizer import BertWordPiece
 from ..infer.zeroshot import CTClipInference, WordTokenizer, tokenize_prompts
 from ..models.ctclip import CTCLIP, init_ctclip
 from ..ops.quant import quantize_ctclip_ff
-from ..parallel.mesh import check_model_axis, initialize_runtime, make_mesh
+from ..parallel.mesh import make_cli_mesh
 from ..utils import visualizations
 
 
@@ -145,26 +146,6 @@ def load_tokenizer(args, vocab_size: int):
                          "reference's weights), or --stand-in-tokenizer to score with the "
                          "stand-in WordTokenizer's ids all the same")
     return WordTokenizer(vocab_size)
-
-
-def make_cli_mesh(args):
-    """The data-axis mesh of --multihost / --num-processes / --mesh-data /
-    --mesh-model, or None for a one-process run without mesh flags
-    (scripts/train_ctclip.py:99-110 in the JAX package). The process group
-    comes up first; its ranks lie on `cuda:LOCAL_RANK` (the CPU with
-    --device cpu)."""
-    check_model_axis(args.mesh_model)
-    explicit = args.coordinator_address is not None or args.process_id is not None
-    if args.multihost or (args.num_processes or 0) > 1 or explicit:
-        initialize_runtime(args.coordinator_address, args.num_processes, args.process_id,
-                           device=args.device)
-    elif args.mesh_data is None:
-        return None
-    mesh = make_mesh(None, device=args.device)
-    if args.mesh_data is not None and args.mesh_data != mesh.world:
-        raise ValueError(f"--mesh-data {args.mesh_data} needs {args.mesh_data} processes, "
-                         f"have {mesh.world} (start them with torchrun --nproc-per-node)")
-    return mesh
 
 
 def main(argv=None, model_cfg: CTCLIPConfig = None, preprocess_cfg: PreprocessConfig = None):

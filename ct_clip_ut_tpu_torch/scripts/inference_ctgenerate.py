@@ -1,4 +1,4 @@
-"""CTGenerate on one GPU: keyword localisation heatmaps, or GenerateCT decoding.
+"""CTGenerate on one GPU or data-parallel: keyword localisation heatmaps, or GenerateCT decoding.
 
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate \
         --data-valid /data/valid --valid-reports R.csv --valid-labels L.csv \
@@ -6,6 +6,8 @@
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate \
         --scans SCANS.npy --reports REPORTS.txt [--labels LABELS.npy]
     python -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate --generate "PROMPT" ...
+    torchrun --nproc-per-node N -m ct_clip_ut_tpu_torch.scripts.inference_ctgenerate \
+        ... --batch-size B --multihost [--mesh-data N]
 
 Counterpart of ct_clip_ut_tpu/scripts/inference_ctgenerate.py.
 Localisation over --data-valid reads the scans through `InferenceDataset`
@@ -25,6 +27,17 @@ one on bf16 scans), files named by sample index. --generate decodes one
 token grid per prompt with `maskgit_generate` (bf16, generator seeded by
 --seed) and saves it as generated_<i>_<slug>_tokens.npy.
 
+Data parallelism: --mesh-data N (the JAX script's flag; the process group's
+size) with the runtime flags of `inference_ctclip` (--multihost,
+--coordinator-address, --num-processes, --process-id:
+`parallel.mesh.make_cli_mesh`, each rank on `cuda:LOCAL_RANK`) splits
+each batch's scans over the ranks (`ctgenerate_apply_batched(mesh=)`: a batch padded to the
+world with its last scan, every rank's rows gathered); the one-scan route
+is taken only without a mesh (JAX :148), so --batch-size 1 over a mesh
+runs batches of one scan on the batched route. Every rank reads the same
+dataset; rank 0 renders and writes each heatmap, once, and with
+--generate alone decodes and writes the grids.
+
 Weights: --checkpoint, a state dict of the port's CTGenerate
 (torch.save(model.state_dict()), or the reference's ctgenerate_filtered.pt
 converted with its T5 tower by scripts/convert_checkpoint.py; the
@@ -32,9 +45,8 @@ reference's file itself raises, `convert.load_ctgenerate`); without it,
 random weights from --seed. Reports are tokenised by the stand-in
 `WordTokenizer`, whose ids mean nothing to a trained T5 tower: with
 --checkpoint the run raises unless --stand-in-tokenizer (the port's own
-flag) asks for it. Left for later, each raising with its ROADMAP item:
---mesh-data (item 11e) and the T5 SentencePiece tokenizer (--t5, item
-12d).
+flag) asks for it. Left for later, raising with its ROADMAP item: the T5
+SentencePiece tokenizer (--t5, item 12d).
 `main(argv, model_cfg=, preprocess_cfg=)` takes another configuration from
 Python (the tests' tiny one); the command line serves CTGenerateConfig().
 """
@@ -58,6 +70,7 @@ from ..models.ctgenerate import (CTGenerate, ctgenerate_apply, ctgenerate_apply_
 from ..models.ctvit import token_grid_shape
 from ..models.maskgit import maskgit_generate
 from ..models.t5 import T5TextConditioner
+from ..parallel.mesh import make_cli_mesh
 from ..utils import visualizations
 
 
@@ -89,11 +102,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="condition --checkpoint's T5 tower on the stand-in WordTokenizer's ids "
                         "(they mean nothing to trained weights)")
     p.add_argument("--batch-size", type=int, default=1, help="scans per forward")
-    p.add_argument("--mesh-data", type=int, default=None, help="not ported (item 11e)")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size: each batch's scans split over the "
+                        "processes (default: every process of --multihost)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=("bfloat16", "float32"),
                    help="MaskGit's dtype at --batch-size > 1; the one-scan route runs fp32")
     p.add_argument("--gifs", action="store_true",
                    help="also render each heatmap over its scan as a GIF (matplotlib, pillow)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torch.distributed process group (torchrun's environment, "
+                        "or the three flags below)")
+    p.add_argument("--coordinator-address", default=None, help="host:port of rank 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda")
     return p
 
@@ -129,13 +150,16 @@ def localize_scan(model: CTGenerate, t5: T5TextConditioner, scan: torch.Tensor, 
 
 @torch.no_grad()
 def localize(model: CTGenerate, t5: T5TextConditioner, scans: torch.Tensor, reports, labels=None,
-             bias_cache=None, compute_dtype="bfloat16", pathologies=PATHOLOGIES) -> list:
+             bias_cache=None, compute_dtype="bfloat16", pathologies=PATHOLOGIES,
+             mesh=None) -> list:
     """The batched localisation loop's body (script :163-182): one dict per
     scan of {pathology: heatmap [D, H, W] numpy in [0, 1]} for its positive
-    pathologies (all when labels is None) found in its report."""
+    pathologies (all when labels is None) found in its report. With a
+    data-axis `mesh` the scans are split over the ranks (collective: every
+    rank passes the same batch and gets every scan's maps)."""
     text_embed, text_mask = t5.encode(list(reports))
-    out = ctgenerate_apply_batched(model, scans, text_embed, text_mask, bias_cache=bias_cache,
-                                   compute_dtype=compute_dtype)
+    out = ctgenerate_apply_batched(model, scans, text_embed, text_mask, mesh=mesh,
+                                   bias_cache=bias_cache, compute_dtype=compute_dtype)
     maps = []
     for i in range(scans.shape[0]):
         positives = [p for j, p in enumerate(pathologies) if labels is None or labels[i][j] == 1]
@@ -178,8 +202,6 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
                          "--reports (or pass --generate PROMPT...)")
     elif not args.generate:
         parser.error("--generate needs at least one prompt")
-    if args.mesh_data is not None:
-        raise NotImplementedError("--mesh-data is not ported yet (ROADMAP Queue 1 item 11e)")
     if args.t5 is not None:
         raise NotImplementedError("the T5 SentencePiece tokenizer is not ported (ROADMAP "
                                   "Queue 1 item 12d); the stand-in WordTokenizer is used")
@@ -191,7 +213,9 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
     if args.gifs:
         visualizations.require_renderer()   # before the model loads
 
-    device = _build.check_device(args.device)
+    mesh = make_cli_mesh(args)
+    device = mesh.device if mesh is not None else _build.check_device(args.device)
+    is_main = mesh is None or mesh.is_main
     cfg = model_cfg or CTGenerateConfig()
     model = load_model(cfg, args.checkpoint, args.seed, device)
     t5 = T5TextConditioner(model.t5, WordTokenizer(cfg.t5.vocab_size))
@@ -199,6 +223,8 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
     results.mkdir(parents=True, exist_ok=True)
     start = time.time()
 
+    if args.generate is not None and not is_main:
+        return []
     if args.generate is not None:
         ids = generate(model, t5, args.generate, args.generate_frames, args.generate_steps,
                        args.generate_temperature, args.seed, args.compute_dtype)
@@ -214,7 +240,10 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
 
     def render(image, heat, scan_name, pathology):
         """The rotated heatmap to its .npy, and with --gifs over the
-        rotated scan to its .gif (the JAX script's `render`)."""
+        rotated scan to its .gif (the JAX script's `render`); over a mesh
+        rank 0 alone writes."""
+        if not is_main:
+            return
         heat = rot90_ct(heat)
         stem = results / f"ctgenerate_{scan_name}_{pathology}"
         np.save(f"{stem}.npy", heat)
@@ -246,7 +275,7 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
         count = len(scans)
         scan_dtype = torch.bfloat16         # the batched serving route's scans
     bsz, cache = max(1, args.batch_size), {}
-    if bsz == 1:
+    if bsz == 1 and mesh is None:
         for image, text, positives, scan_name in samples:
             scan = torch.as_tensor(image, dtype=torch.float32)[None].to(device)
             maps, _ = localize_scan(model, t5, scan, text, positives)
@@ -259,11 +288,12 @@ def main(argv=None, model_cfg: CTGenerateConfig = None,
             scans_b = torch.as_tensor(np.stack([s[0] for s in batch])).to(device, scan_dtype)
             onehot = [[1 if p in s[2] else 0 for p in PATHOLOGIES] for s in batch]
             maps = localize(model, t5, scans_b, [s[1] for s in batch], onehot, cache,
-                            args.compute_dtype)
+                            args.compute_dtype, mesh=mesh)
             for (image, _, _, scan_name), heat in zip(batch, maps):
                 for pathology, vol in heat.items():
                     render(image, vol, scan_name, pathology)
-    print(f"CTGENERATE inference completed in {time.time() - start:.1f}s")
+    if is_main:
+        print(f"CTGENERATE inference completed in {time.time() - start:.1f}s")
     return written
 
 

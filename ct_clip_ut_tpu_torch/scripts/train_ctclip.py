@@ -28,20 +28,25 @@ checkpoint) into the WordPiece tokenizer `data.tokenizer.BertWordPiece`
 (nothing is downloaded: the default names a directory that must exist).
 --checkpoint takes the reference's `ctclip_v2.pt`, a state dict of the
 port's CTCLIP (`convert.load_ctclip`: the training starts from those
-weights), or the port's train-state checkpoint (`last_checkpoint.pt`:
-the run resumes from it, moments, step and data position included).
+weights), or the port's train-state checkpoint (`last_checkpoint.pt`, or
+with --sharded-checkpoints the directory `last_checkpoint.dcp`, of any
+world size: the run resumes from it, moments, step and data position
+included).
 
 Data parallelism: --multihost (or --num-processes above 1) joins the
 process group from torchrun's environment or from --coordinator-address /
 --num-processes / --process-id, each rank on `cuda:LOCAL_RANK`; --mesh-data
 is the data axis (every process by default). Each rank loads --batch-size
-volumes a step; the similarity matrix is the global batch's.
+volumes a step; the similarity matrix is the global batch's. --fsdp
+shards the parameters, gradients and Adam's moments over the ranks
+(train/trainer.py); --sharded-checkpoints writes each checkpoint as a
+directory every rank writes its pieces into, and FSDP over more than one
+process needs it (as in JAX).
 
-Refused with their ROADMAP items: --fsdp and --sharded-checkpoints (Queue 1
-item 11b), --moe-experts above 0 (item 11h), --mesh-model above 1 (item
-11c). `main(argv, model_cfg=, preprocess_cfg=)` takes another
-configuration from Python (the tests' tiny one, the smoke's
-peg_pallas=True flagship).
+Refused with their ROADMAP items: --moe-experts above 0 (item 11h),
+--mesh-model above 1 (item 11c). `main(argv, model_cfg=,
+preprocess_cfg=)` takes another configuration from Python (the tests'
+tiny one, the smoke's peg_pallas=True flagship).
 """
 
 from __future__ import annotations
@@ -55,8 +60,8 @@ from ..data.datasets import InferenceDataset, TrainDataset
 from ..data.loader import DataLoader, ShardedSampler
 from ..data.tokenizer import BertWordPiece
 from ..train import trainer as trainer_mod
-from ..parallel.mesh import check_model_axis
-from .inference_ctclip import make_cli_mesh
+from ..train.checkpoint import sharded_dir
+from ..parallel.mesh import check_model_axis, make_cli_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-every-steps", type=int, default=0,
                    help="atomically write last_checkpoint every N steps (0 = off)")
     p.add_argument("--sharded-checkpoints", action="store_true",
-                   help="per-rank checkpoint shards: not ported (Queue 1 item 11b)")
+                   help="checkpoints as directories every rank writes its pieces into "
+                        "(torch.distributed.checkpoint); needed by --fsdp over processes")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--preprocess-cache", default=None,
                    help="dir for preprocessed-volume .npy cache")
@@ -118,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam-mu-dtype", default=None,
                    help="dtype of Adam's first moment (e.g. bfloat16); default fp32")
     p.add_argument("--fsdp", action="store_true",
-                   help="fully-sharded data parallelism: not ported (Queue 1 item 11b)")
+                   help="fully-sharded data parallelism: params, grads and Adam moments "
+                        "sharded over the ranks at rest")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -166,7 +173,9 @@ def main(argv=None, model_cfg: CTCLIPConfig = None,
                           num_workers=args.num_workers)
 
     params, resume = None, None
-    if args.checkpoint:
+    if args.checkpoint and sharded_dir(args.checkpoint) is not None:
+        resume = args.checkpoint        # a sharded train state, read by every rank below
+    elif args.checkpoint:
         blob = convert.read_checkpoint(args.checkpoint)
         if convert.is_train_state(blob):
             resume = blob               # the port's train state, loaded whole below
@@ -177,7 +186,7 @@ def main(argv=None, model_cfg: CTCLIPConfig = None,
                                         results_folder=args.results_folder, params=params,
                                         mesh=mesh, device=device)
     if resume is not None:
-        trainer.load_model(args.checkpoint, blob=resume)
+        trainer.load_model(args.checkpoint, blob=None if isinstance(resume, str) else resume)
         del resume
     start = time.time()
     trainer.train()

@@ -17,9 +17,18 @@ the JAX package chains in optax:
   * the opt-in bf16 first moment (mu_dtype): b1 * mu is taken in bf16,
     the update is computed in fp32 and mu stored rounded, as optax does.
 Gradients that are None count as zeros, as JAX's gradient of an unused
-parameter is. Everything stays on the device: the clip factor is a tensor,
-the schedule and bias corrections are host floats of the host step count.
-The updates use torch._foreach_* (one multi-tensor launch per operation).
+parameter is.
+
+Under FSDP (`shard`, called by parallel.sharding.shard_state) the
+optimizer holds each sharded leaf's flat piece, with its moments' pieces:
+the decay mask stays the full leaves' (a piece is 1-D, so reading its ndim
+would stop AdamW decaying every matrix), and the clip takes the whole
+leaves' norms that `sharding.reduce_grads` returns (`step(norms)`), so it
+sees the norm of the whole gradient, data parallelism's bits.
+
+Everything stays on the device: the clip factor is a tensor, the schedule
+and bias corrections are host floats of the host step count. The updates
+use torch._foreach_* (one multi-tensor launch per operation).
 """
 
 from __future__ import annotations
@@ -67,7 +76,33 @@ class Optimizer:
         self.count = 0
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # the full leaves' ndim, kept when `shard` carries them onto 1-D pieces
         self.decayed = [i for i, p in enumerate(self.params) if p.ndim >= 2]
+        self.needs_norms = False     # set by `shard` over more than one rank
+
+    @torch.no_grad()
+    def shard(self, layout) -> None:
+        """Hold the FSDP layout's leaves (parallel.sharding.FsdpLayout: each
+        sharded parameter's piece, each replicated parameter) in place of
+        the parameters, each moment cut to its leaf's piece; the decay mask
+        stays the full leaves'."""
+        self.mu = [m if s is None else layout.piece_of(i, m)
+                   for i, (m, s) in enumerate(zip(self.mu, layout.spans))]
+        self.nu = [v if s is None else layout.piece_of(i, v)
+                   for i, (v, s) in enumerate(zip(self.nu, layout.spans))]
+        self.params = layout.leaves
+        self.needs_norms = layout.mesh.world > 1 and any(layout.sharded)
+
+    def global_norm(self, grads, norms=None) -> torch.Tensor:
+        """The norm of the whole gradient from each leaf's norm: `norms`
+        where the caller has them (FSDP's whole leaves, which no piece
+        holds over more than one rank), else the norms of `grads`."""
+        if norms is None:
+            if self.needs_norms:
+                raise ValueError("the pieces of more than one rank give no leaf's norm: "
+                                 "pass the whole leaves' norms (sharding.reduce_grads)")
+            norms = torch._foreach_norm(grads)
+        return torch.linalg.vector_norm(torch.stack(list(norms)))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -77,11 +112,12 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the parameters' .grad; returns the global norm
-        of the gradients before clipping (a device scalar)."""
+    def step(self, norms=None) -> torch.Tensor:
+        """One update from the parameters' .grad (`norms`: each leaf's
+        gradient norm where the caller has them, FSDP's); returns the global
+        norm of the gradients before clipping (a device scalar)."""
         grads = self.grads()
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads, norms)
         if self.max_grad_norm is not None:
             limit = torch.as_tensor(self.max_grad_norm, dtype=norm.dtype, device=norm.device)
             torch._foreach_mul_(grads, torch.where(norm < limit, torch.ones_like(norm),

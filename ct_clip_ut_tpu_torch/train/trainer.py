@@ -30,6 +30,21 @@ update. Rank 0's parameters and moments are broadcast at the start; each
 rank's dropout generator is seeded from (seed, rank); rank 0 picks the run
 directory and broadcasts it, and alone writes checkpoints and prints.
 
+FSDP (`train_cfg.fsdp`; JAX shards the same state through GSPMD): after
+rank 0's broadcast each rank keeps its flat piece of every parameter of
+at least parallel.sharding._FSDP_MIN_SIZE elements and of its moments
+(`sharding.shard_state`); a step gathers the parameters whole, runs the
+forward and backward, gives each piece the mean of its gradient slice
+(data parallelism's all-reduce: the pieces are the bits of the averaged
+gradient's slices, and the clip's norm is its norm), updates the pieces
+and frees the gathered storage: the data-parallel step, bit for bit.
+Without a mesh FSDP runs over one rank, each piece the whole leaf.
+Sharded checkpoints (`train_cfg.sharded_checkpoints`,
+trainer.py:403-407) are directories every rank writes its pieces into
+(`checkpoint.save_checkpoint_sharded`), named `<name>.dcp`; FSDP over more
+than one process needs them, as in JAX (trainer.py:295-304): a single
+file would need one rank to hold the whole state.
+
 GradCache (`grad_accum` k > 1, trainer.py:116-251): the full batch's
 InfoNCE objective at the activations of B / k volumes
 (`make_train_step_gradcache`). The profiler window (`profile_steps`):
@@ -38,8 +53,8 @@ written to `profile_dir`. After each evaluation the training curves go to
 training_progress.png (best effort: skipped with a message without
 matplotlib).
 
-Not ported yet, and raising with their ROADMAP item: FSDP, sharded
-checkpoints, the MoE CT-ViT, a model mesh axis.
+Not ported yet, and raising with their ROADMAP item: the MoE CT-ViT, a
+model mesh axis.
 """
 
 from __future__ import annotations
@@ -63,7 +78,7 @@ from ..ops.taps import Taps
 from ..ops.vq import VQState, vq_batch_stats, vq_ema_update, vq_stats_input
 from ..parallel import collectives, sharding
 from ..parallel.mesh import DataMesh, check_mesh
-from ..parallel.sharding import shard_loader
+from ..parallel.sharding import FsdpLayout, shard_loader
 from ..utils import metrics
 from . import checkpoint as ckpt
 from .optimizer import Optimizer, get_optimizer
@@ -75,6 +90,7 @@ class TrainState:
     optimizer: Optimizer
     step: int
     generator: torch.Generator
+    fsdp: Optional[FsdpLayout] = None    # the FSDP layout (train_cfg.fsdp), else None
 
 
 def check_supported(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> None:
@@ -82,12 +98,6 @@ def check_supported(model_cfg: CTCLIPConfig, train_cfg: TrainConfig) -> None:
     if train_cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be a positive microbatch count, got "
                          f"{train_cfg.grad_accum}")
-    if train_cfg.fsdp:
-        raise NotImplementedError("FSDP is not ported yet (ROADMAP, Queue 1 item 11b: FSDP and "
-                                  "sharded checkpoints)")
-    if train_cfg.sharded_checkpoints:
-        raise NotImplementedError("sharded checkpoints are not ported yet "
-                                  "(ROADMAP, Queue 1 item 11b: FSDP and sharded checkpoints)")
     if model_cfg.ctvit.moe_experts > 0:
         raise NotImplementedError("the MoE CT-ViT is not ported yet (ROADMAP, Queue 1 item "
                                   "11h: moe)")
@@ -101,7 +111,9 @@ def create_train_state(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     optimizer over its parameters, step 0, and the dropout generator
     seeded from train_cfg.seed. With a `mesh` the state lands on the
     mesh's device, rank 0's parameters and moments are broadcast to every
-    rank, and the generator is seeded from (seed, rank)."""
+    rank, and the generator is seeded from (seed, rank). train_cfg.fsdp
+    then shards the parameters and moments over the mesh (over one rank
+    without one): `state.fsdp` is the layout."""
     check_supported(model_cfg, train_cfg)
     check_mesh(mesh)
     device = _build.check_device(mesh.device if mesh is not None else device)
@@ -118,7 +130,11 @@ def create_train_state(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     gen = torch.Generator(device=device).manual_seed(train_cfg.seed + (rank << 32))
     if mesh is not None:
         sharding.broadcast_state(model, opt, mesh)
-    return TrainState(model=model, optimizer=opt, step=0, generator=gen)
+    layout = None
+    if train_cfg.fsdp:
+        layout = sharding.shard_state(model, opt, mesh if mesh is not None
+                                      else DataMesh(1, 0, device))
+    return TrainState(model=model, optimizer=opt, step=0, generator=gen, fsdp=layout)
 
 
 @torch.no_grad()
@@ -130,6 +146,32 @@ def write_back_vq(model: CTCLIP, vq_state: VQState) -> None:
     cb.cluster_size.copy_(vq_state.cluster_size)
 
 
+def _gather(state: TrainState) -> None:
+    """Under FSDP, every sharded parameter whole for the step."""
+    if state.fsdp is not None:
+        sharding.gather_params(state.fsdp)
+
+
+def _reduce(state: TrainState, mesh: Optional[DataMesh]):
+    """The gradients onto what the optimizer holds: the pieces' means under
+    FSDP (returns the whole leaves' norms for the clip), the ranks' means
+    in data parallelism, left as they are alone (both return None)."""
+    if state.fsdp is not None:
+        if (state.fsdp.mesh.world != 1 if mesh is None else mesh != state.fsdp.mesh):
+            raise ValueError(f"the step's mesh {mesh} is not the one the state is sharded over, "
+                             f"{state.fsdp.mesh}")
+        return sharding.reduce_grads(state.fsdp)
+    if mesh is not None:
+        sharding.allreduce_grads(state.optimizer.params, mesh)
+    return None
+
+
+def _release(state: TrainState) -> None:
+    """Under FSDP, the gathered storage freed: the pieces alone stay."""
+    if state.fsdp is not None:
+        sharding.release_params(state.fsdp)
+
+
 def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
                     plain: bool = False, mesh: Optional[DataMesh] = None) -> Callable:
     """train_step(state, image, text_tokens) -> loss (a device scalar);
@@ -138,8 +180,9 @@ def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     backward kernels against). With a `mesh`, `image` and `text_tokens`
     are this rank's local batch, the loss is the global batch's (the same
     on every rank), and the gradients are averaged over the ranks before
-    the optimizer (see the module doc). grad_accum > 1 gives
-    make_train_step_gradcache's step."""
+    the optimizer (see the module doc); under FSDP (state.fsdp) the
+    parameters are gathered for the step and the gradients reduced onto
+    the pieces. grad_accum > 1 gives make_train_step_gradcache's step."""
     check_supported(model_cfg, train_cfg)
     check_mesh(mesh)
     if train_cfg.grad_accum > 1:
@@ -147,16 +190,16 @@ def make_train_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     dtype = getattr(torch, train_cfg.compute_dtype)
 
     def train_step(state: TrainState, image: torch.Tensor, text_tokens: dict) -> torch.Tensor:
+        _gather(state)
         state.optimizer.zero_grad()
         out = ctclip_apply(state.model, text_tokens, image.to(dtype), freeze_vq=False,
                            generator=state.generator, deterministic=False, plain=plain,
                            gather_axis=mesh)
         loss = contrastive_loss(out.sim_matrix)
         loss.backward()
-        if mesh is not None:
-            sharding.allreduce_grads(state.optimizer.params, mesh)
-        state.optimizer.step()
+        state.optimizer.step(_reduce(state, mesh))
         write_back_vq(state.model, out.vq_state)
+        _release(state)
         state.step += 1
         return loss.detach()
 
@@ -196,7 +239,9 @@ def make_train_step_gradcache(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
     summed over the ranks, each rank's pass 2 runs its own microbatches
     with its rows' cotangents (times the world size, as the single-pass
     step's all_gather backward gives them), and the gradients are averaged
-    over the ranks. `record`, where given, receives each microbatch's
+    over the ranks. Under FSDP the parameters are gathered once for both
+    passes and the gradients reduced once, after pass 2. `record`, where
+    given, receives each microbatch's
     latents of both passes: record["pass1"], record["pass2"], lists of
     (image latents, text latents)."""
     check_supported(model_cfg, train_cfg)
@@ -220,6 +265,7 @@ def make_train_step_gradcache(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
         m = b // k
         image = image.to(dtype)
         model, gen = state.model, state.generator
+        _gather(state)
         parts = [(image[i * m:(i + 1) * m], {key: v[i * m:(i + 1) * m]
                                              for key, v in text_tokens.items()})
                  for i in range(k)]
@@ -267,11 +313,10 @@ def make_train_step_gradcache(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
         if record is not None:
             record.update(pass1=list(zip(imgs, txts)), pass2=replayed)
         temp.grad = g_temp
-        if mesh is not None:
-            sharding.allreduce_grads(state.optimizer.params, mesh)
-        state.optimizer.step()
+        state.optimizer.step(_reduce(state, mesh))
         write_back_vq(model, vq_ema_update(vq0, counts, embed_sum, decay=vcfg.vq_decay,
                                            eps=vcfg.vq_eps))
+        _release(state)
         state.step += 1
         return loss.detach()
 
@@ -282,7 +327,8 @@ def make_eval_step(model_cfg: CTCLIPConfig, train_cfg: TrainConfig,
                    mesh: Optional[DataMesh] = None) -> Callable:
     """eval_step(model, image, text_tokens) -> loss (a device scalar), the
     codebook frozen and no dropout (trainer.py:254-264). With a `mesh` the
-    latents are gathered over the ranks: the loss is the global batch's."""
+    latents are gathered over the ranks: the loss is the global batch's.
+    Under FSDP the caller gathers the parameters first (CTClipTrainer.evaluate)."""
     dtype = getattr(torch, train_cfg.compute_dtype)
 
     @torch.no_grad()
@@ -306,13 +352,25 @@ class CTClipTrainer:
     with the same arguments; the state goes to the mesh's device. A loader
     whose `sampler` is a one-shard `ShardedSampler` is given this rank's
     shard (num_shards = world, shard_index = rank); any other iterable must
-    already yield this rank's batches, the same number on every rank."""
+    already yield this rank's batches, the same number on every rank.
+
+    FSDP over more than one process needs `sharded_checkpoints` (JAX
+    trainer.py:295-304); with them `save_model` is collective (every rank
+    calls it and writes its pieces) and the checkpoints are directories
+    named `<name>.dcp` where the single files are `<name>.pt`."""
 
     def __init__(self, model_cfg: CTCLIPConfig, train_cfg: TrainConfig, tokenizer,
                  train_data: Iterable, valid_data: Iterable, results_folder: str = "./results",
                  params: Optional[CTCLIP] = None, mesh: Optional[DataMesh] = None,
                  device="cuda"):
         check_mesh(mesh)
+        if train_cfg.fsdp and not train_cfg.sharded_checkpoints and mesh is not None \
+                and mesh.world > 1:
+            # a single-file save gathers the whole state onto one rank, which
+            # no rank holds: refuse up front rather than at the first save
+            raise ValueError("fsdp=True over more than one process needs "
+                             "sharded_checkpoints=True (--sharded-checkpoints): a single-file "
+                             "checkpoint cannot gather parameters that no single process holds")
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.tokenizer = tokenizer
@@ -390,17 +448,28 @@ class CTClipTrainer:
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         return images, self.tokenize(texts)
 
+    def checkpoint_name(self, stem: str) -> str:
+        """The file (`<stem>.pt`) or, with sharded checkpoints, directory
+        (`<stem>.dcp`) a checkpoint is saved as (JAX: .msgpack, .orbax)."""
+        return stem + (".dcp" if self.cfg.sharded_checkpoints else ".pt")
+
     def save_model(self, name: str) -> None:
         """Rank 0 writes the state every rank holds, with every rank's
-        dropout generator state (gathered on all ranks first)."""
+        dropout generator state (gathered on all ranks first); with sharded
+        checkpoints every rank writes its pieces into the directory `name`
+        (collective: every rank calls this)."""
         rank_generators = None
         if self.mesh is not None:
             gen = self.state.generator.get_state().to(self.device)
             rank_generators = collectives.gather_rows(gen[None], self.mesh).cpu()
+        if self.cfg.sharded_checkpoints:
+            ckpt.save_checkpoint_sharded(self.results_folder / name, self.state, self.mesh,
+                                         rank_generators=rank_generators)
+        elif self.is_main:
+            ckpt.save_checkpoint(self.results_folder / name, self.state,
+                                 rank_generators=rank_generators)
         if not self.is_main:
             return
-        ckpt.save_checkpoint(self.results_folder / name, self.state,
-                             rank_generators=rank_generators)
         (self.results_folder / "architecture.json").write_text(
             json.dumps({"model_cfg": repr(self.model_cfg), "train_cfg": repr(self.cfg)},
                        indent=2))
@@ -414,16 +483,21 @@ class CTClipTrainer:
 
     def load_model(self, path, blob=None) -> None:
         """Every rank reads the checkpoint (or takes `blob`, the file's
-        contents already read); the position sidecar is rank 0's view,
-        broadcast (trainer.py:430-453), so every rank resumes at the same
-        batch."""
+        contents already read); a directory is a sharded checkpoint, read
+        collectively, each rank its own slices (of any world's save). The
+        position sidecar is rank 0's view, broadcast (trainer.py:430-453),
+        so every rank resumes at the same batch."""
         pos_path = Path(str(path) + ".pos.json")
         pos = json.loads(pos_path.read_text()) if self.is_main and pos_path.exists() else None
         if self.mesh is not None:
             raw = collectives.broadcast_bytes(json.dumps(pos).encode(), self.mesh)
             pos = json.loads(raw.decode())
-        ckpt.load_checkpoint(path, self.state,
-                             rank=self.mesh.rank if self.mesh is not None else None, blob=blob)
+        if blob is None and ckpt.sharded_dir(path) is not None:
+            ckpt.load_checkpoint_sharded(path, self.state, self.mesh)
+        else:
+            ckpt.load_checkpoint(path, self.state,
+                                 rank=self.mesh.rank if self.mesh is not None else None,
+                                 blob=blob)
         step = int(self.state.step)
         if pos is not None and pos.get("global_step") is not None \
                 and int(pos["global_step"]) != step:
@@ -442,16 +516,18 @@ class CTClipTrainer:
 
     def evaluate(self, epoch: int) -> float:
         total, n = 0.0, 0
+        _gather(self.state)
         for images, texts, *_ in self.valid_data:
             images, tokens = self._put_batch(images, texts)
             total += float(self.eval_step(self.state.model, images, tokens))
             n += 1
+        _release(self.state)
         avg = total / max(n, 1)
         self.valid_losses.append(avg)
         self.maybe_print(f"Epoch {epoch} - Validation Loss: {avg:.4f}")
         if epoch == 0 or (avg < self.best_score and self.cfg.save_best_model):
             self.best_score = min(avg, self.best_score)
-            self.save_model("best_checkpoint.pt")
+            self.save_model(self.checkpoint_name("best_checkpoint"))
         if self.is_main:
             try:
                 metrics.plot_training_progress(self.train_losses, self.valid_losses,
@@ -551,7 +627,7 @@ class CTClipTrainer:
                     log_step(*pending)
                     pending = None
                     self._pos = {**self._pos, "loss_sum": total_loss, "loss_steps": steps}
-                    self.save_model("last_checkpoint.pt")
+                    self.save_model(self.checkpoint_name("last_checkpoint"))
             if pending is not None:
                 log_step(*pending)
             self._stop_trace()   # an epoch shorter than the window

@@ -313,5 +313,8 @@ def test_ig_pipelined_equals_serial_calls_and_sharded_raises():
     assert len(got) == 2
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    from ct_clip_ut_tpu_torch.parallel.mesh import DataMesh
+    with pytest.raises(TypeError, match="DataMesh"):
         ig.integrated_gradients_sharded(model, tt, imgs[0], mesh=None)
+    with pytest.raises(ValueError, match="the mesh on meta"):
+        ig.integrated_gradients_sharded(model, tt, imgs[0], DataMesh(1, 0, torch.device("meta")))

@@ -29,14 +29,28 @@ the tests hold it against the same calls in this one process:
     `zeroshot_probs_sharded` of a 3-volume global batch (one padded row);
   * the window-sharded occlusion sweep over 27 windows (padded to 28) and
     its heatmaps;
-  * `inference_ctclip --multihost` over 2 processes: one metrics.txt equal
-    to the one-process run's;
+  * `inference_ctclip --multihost --visualize integrated_gradients` over 2
+    processes: one metrics.txt and one set of IG maps, equal to the
+    one-process run's;
   * the attribution suite over 4 samples in a second group whose
     collectives time out after SUITE_TIMEOUT, raw attention slowed to
     SUITE_SLEEP a sample (4 of them outlast the timeout): each rank takes
     its interleaved share of raw attention and rollout and writes its maps,
-    occlusion is collective with rank 0 writing, and the files equal the
-    one-process suite's.
+    occlusion and integrated gradients are collective with rank 0 writing
+    every sample's map once, and the files equal the one-process suite's;
+  * FSDP (leaves of FSDP_MIN elements and up sharded, 38 of the tiny
+    model's 94): two AdamW steps and a GradCache step against the
+    data-parallel ones, the same bits (losses, each piece its slice of the
+    averaged gradient, parameters, moments, codebook), what each rank holds
+    between steps, the gathered parameters the same bits on both ranks;
+    the collective sharded save, reloaded in one process (2 -> 1), and a
+    one-process directory loaded onto the ranks (1 -> 2), the same bits;
+  * `integrated_gradients_sharded` at JAX's (steps, chunk) cases (rank 1
+    holding padding alone at (2, 2)) against one process's
+    `integrated_gradients` and JAX's;
+  * `ctgenerate_apply_batched(mesh=)` over 3 scans (padded to 4) against one
+    process and JAX, and `inference_ctgenerate --mesh-data 2` against one
+    process's files.
 """
 
 import dataclasses
@@ -50,14 +64,17 @@ import torch
 
 from ct_clip_ut_tpu import config as jconfig    # dataclasses only: no JAX
 from ct_clip_ut_tpu_torch import config as pconfig
+from ct_clip_ut_tpu_torch.attribution import integrated_gradients as tig
 from ct_clip_ut_tpu_torch.attribution import occlusion as tocc
 from ct_clip_ut_tpu_torch.attribution import suite as tsuite
 from ct_clip_ut_tpu_torch.data.loader import DataLoader, ShardedSampler
 from ct_clip_ut_tpu_torch.infer import zeroshot as tz
+from ct_clip_ut_tpu_torch.models import ctgenerate as tcg
 from ct_clip_ut_tpu_torch.models.ctclip import init_ctclip
 from ct_clip_ut_tpu_torch.parallel import collectives, sharding
 from ct_clip_ut_tpu_torch.parallel.mesh import (DataMesh, initialize_runtime, local_batch_size,
                                                 make_mesh, shutdown_runtime)
+from ct_clip_ut_tpu_torch.train import checkpoint as tckpt
 from ct_clip_ut_tpu_torch.train import trainer as ttrainer
 
 WORLD = 2
@@ -108,7 +125,28 @@ OCC = pconfig.OcclusionConfig(patch_size=(10, 16, 16), stride=(5, 8, 8))
 # on one rank, and half of them do not
 SUITE_SAMPLES, SUITE_SLEEP, SUITE_TIMEOUT = 4, 2.0, 5.0
 SUITE_METHODS = {"raw_attention_maps": True, "attention_rollout": True,
-                 "occlusion": {"occ": OCC, "prompt": "p"}}
+                 "integrated_gradients": True, "occlusion": {"occ": OCC, "prompt": "p"}}
+# FSDP: leaves of this many elements and up sharded (38 of the tiny model's 94)
+FSDP_MIN = 100
+# AdamW with the clip active (the tiny model's gradient norm is ~1e-1)
+ADAMW_TRAIN = dataclasses.replace(P_TRAIN, wd=0.1, max_grad_norm=1e-3)
+FSDP_TRAIN = dataclasses.replace(ADAMW_TRAIN, fsdp=True, sharded_checkpoints=True)
+# JAX's cases of tests/test_attribution.py:147-162 at the two ranks: (2, 2)
+# leaves rank 1 padding alone
+IG_CASES = ((16, 2), (6, 2), (2, 2))
+# the CTGenerate slice's small configuration (tests/test_torch_port_ctgenerate.py)
+J_GEN = jconfig.CTGenerateConfig(
+    ctvit=jconfig.CTViTConfig(dim=16, codebook_size=32, image_size=32, patch_size=8,
+                              temporal_patch_size=2, spatial_depth=1, temporal_depth=1,
+                              dim_head=4, heads=4, model_type="ctgenerate"),
+    maskgit=jconfig.MaskGitConfig(dim=16, num_tokens=32, max_seq_len=2048, heads=4, dim_head=4,
+                                  depth=1, dim_context=32),
+    t5=jconfig.T5EncoderConfig(vocab_size=2048, d_model=32, d_kv=8, num_heads=4, d_ff=64,
+                               num_layers=2))
+P_GEN = port_config(J_GEN)
+GEN_SCANS = 3
+GEN_REPORTS = ["Emphysema and a lung nodule.", "Cardiomegaly, small pleural effusion.",
+               "Consolidation with atelectasis."]
 
 
 def _batch(seed=41, b=2):
@@ -144,9 +182,9 @@ def _step(model, mesh=None, train_cfg=P_TRAIN, b=2):
     grads = []
     step_opt = state.optimizer.step
 
-    def recording_step():
+    def recording_step(*args):
         grads.extend(g.detach().clone() for g in state.optimizer.grads())
-        return step_opt()
+        return step_opt(*args)
 
     state.optimizer.step = recording_step
     step = ttrainer.make_train_step(P_CLIP, train_cfg, mesh=mesh)
@@ -156,6 +194,81 @@ def _step(model, mesh=None, train_cfg=P_TRAIN, b=2):
                                                                                           mesh)
     loss = step(state, images, text)
     return loss, grads, state
+
+
+def _ig_inputs():
+    """A [1, 1, DEPTH, IMG, IMG] volume and a one-row report's tokens."""
+    images, text = _batch(seed=71, b=1)
+    return images, {k: text[k] for k in ("input_ids", "attention_mask")}
+
+
+def _gen_inputs():
+    """GEN_SCANS [1, 9, 32, 32] scans and longest-padded report embeddings
+    [GEN_SCANS, 6, 32] with their mask (the last row's end padded)."""
+    rng = np.random.default_rng(81)
+    scans = rng.standard_normal((GEN_SCANS, 1, 9, 32, 32)).astype(np.float32)
+    mask = np.ones((GEN_SCANS, 6), bool)
+    mask[-1, 3:] = False
+    return scans, rng.standard_normal((GEN_SCANS, 6, 32)).astype(np.float32) * mask[..., None], \
+        mask
+
+
+def _gen_argv(folder, scans_path, reports_path):
+    return ["--scans", str(scans_path), "--reports", str(reports_path), "--batch-size", "2",
+            "--compute-dtype", "float32", "--results-folder", str(folder), "--device", "cpu"]
+
+
+def _run_steps(model, mesh, cfg, b=2, steps=2, save=None):
+    """`steps` steps of `cfg`'s train step from `model` (batches of b, this
+    rank's rows with a mesh; a batch of its own each step): the losses, the
+    first step's gradients entering the optimizer (an FSDP leaf's piece),
+    the parameters after the steps (gathered whole under FSDP) and, under
+    FSDP, what the rank holds between steps; with `save`, the state saved
+    collectively into that directory."""
+    state = ttrainer.create_train_state(P_CLIP, cfg, params=model, device="cpu", mesh=mesh)
+    grads, opt_step = [], state.optimizer.step
+
+    def recording_step(*args):
+        if not grads:
+            grads.extend(g.detach().clone() for g in state.optimizer.grads())
+        return opt_step(*args)
+
+    state.optimizer.step = recording_step
+    step = ttrainer.make_train_step(P_CLIP, cfg, mesh=mesh)
+    losses = []
+    for i in range(steps):
+        images, text = _batch(seed=41 + i, b=b)
+        images, text = torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in text.items()}
+        if mesh is not None:
+            images, text = sharding.shard_host_batch(images, mesh), sharding.shard_host_batch(
+                text, mesh)
+        losses.append(step(state, images, text).item())
+    out = {"losses": losses, "grads": grads, "mu": [m.clone() for m in state.optimizer.mu],
+           "nu": [v.clone() for v in state.optimizer.nu], "generator": state.generator.get_state()}
+    layout = state.fsdp
+    if layout is not None:
+        out["spans"] = layout.spans
+        out["rest"] = [(p.numel(), p.grad is None, None if q is None else q.numel())
+                       for p, q in zip(layout.params, layout.pieces)]
+        sharding.gather_params(layout)
+    out["params"] = [p.detach().clone() for p in state.model.parameters()]
+    if layout is not None:
+        sharding.release_params(layout)
+    out["buffers"] = {k: v.clone() for k, v in state.model.named_buffers()}
+    if save is not None:
+        gens = collectives.gather_rows(state.generator.get_state()[None], mesh)
+        tckpt.save_checkpoint_sharded(save, state, mesh, rank_generators=gens)
+    return out
+
+
+def _held(state):
+    """What a state holds after a load: each leaf the optimizer updates (a
+    piece under FSDP), the moments, step, count and generator."""
+    return {"leaves": [t.detach().clone() for t in state.optimizer.params],
+            "mu": [m.clone() for m in state.optimizer.mu],
+            "nu": [v.clone() for v in state.optimizer.nu], "step": state.step,
+            "count": state.optimizer.count, "generator": state.generator.get_state(),
+            "spans": None if state.fsdp is None else state.fsdp.spans}
 
 
 def _snapshot(loss, grads, state):
@@ -216,6 +329,42 @@ def _rank_main(rank, port, suite_port, tmp, init_path, cli_args):
 
     out["step"] = _snapshot(*_step(train_model(), mesh))
     out["gradcache"] = _snapshot(*_step(train_model(), mesh, GC_TRAIN, GC_BATCH))
+
+    # FSDP against data parallelism; the sharded checkpoints both ways
+    keep_min = sharding._FSDP_MIN_SIZE
+    sharding._FSDP_MIN_SIZE = FSDP_MIN
+    out["dp_adamw"] = _run_steps(train_model(), mesh, ADAMW_TRAIN)
+    out["fsdp_adamw"] = _run_steps(train_model(), mesh, FSDP_TRAIN, save=tmp / "fsdp.dcp")
+    out["fsdp_gc"] = _run_steps(train_model(), mesh, dataclasses.replace(GC_TRAIN, fsdp=True),
+                                b=GC_BATCH, steps=1)
+    state = ttrainer.create_train_state(P_CLIP, FSDP_TRAIN, params=train_model(), device="cpu",
+                                        mesh=mesh)
+    out["one_to_two"] = _held(tckpt.load_checkpoint_sharded(tmp / "one.dcp", state, mesh))
+    sharding._FSDP_MIN_SIZE = keep_min
+
+    # the mesh-sharded integrated gradients, every rank on the same weights
+    ig_model = init_ctclip(P_CLIP, seed=0, device="cpu")
+    ig_model.load_state_dict(torch.load(init_path))
+    image, tokens = (torch.from_numpy(a) if isinstance(a, np.ndarray) else
+                     {k: torch.from_numpy(v) for k, v in a.items()} for a in _ig_inputs())
+    out["ig"] = {case: tig.integrated_gradients_sharded(ig_model, tokens, image, mesh,
+                                                        steps=case[0], chunk=case[1])
+                 for case in IG_CASES}
+    out["ig_avg"] = tig._ig_avg_grads_sharded(ig_model, tokens, image, mesh, steps=16,
+                                              chunk=2)[1]
+
+    # CTGenerate over the ranks, and its CLI
+    gen = tcg.init_ctgenerate(P_GEN, seed=0, device="cpu")
+    gen.load_state_dict(torch.load(tmp / "gen.pt"))
+    scans, ctx, mask = (torch.from_numpy(a) for a in _gen_inputs())
+    got = tcg.ctgenerate_apply_batched(gen, scans, ctx, mask, mesh=mesh, compute_dtype="float32")
+    out["ctgen"] = (got.feature_map, got.cross_attention, got.codebook_ids)
+    from ct_clip_ut_tpu_torch.scripts import inference_ctgenerate as gen_cli
+    out["ctgen_cli"] = gen_cli.main(
+        _gen_argv(tmp / "gen_cli", tmp / "scans.npy", tmp / "reports.txt")
+        + ["--mesh-data", str(WORLD), "--multihost", "--coordinator-address",
+           f"localhost:{port}", "--num-processes", str(WORLD), "--process-id", str(rank)],
+        model_cfg=P_GEN)
     out["trainer"] = _train(train_model(), tmp / "train", mesh)
     # controls: the gather's backward without the cross-rank sum; the VQ
     # statistics left unsummed
@@ -314,20 +463,54 @@ def _jax_loss_and_grads(params):
     return float(loss), [(n, w.detach()) for n, w in grads.named_parameters()]
 
 
+# the JAX references the `ranks` fixture computes while the ranks run
+_JAX = {}
+
+
+def _one_process_checkpoint(init_path, path):
+    """One FSDP AdamW step of one process (each sharded leaf's one piece
+    the whole leaf) from init_path's weights, saved as the sharded
+    directory `path`; returns what the state holds (`_held`)."""
+    keep = sharding._FSDP_MIN_SIZE
+    sharding._FSDP_MIN_SIZE = FSDP_MIN
+    try:
+        model = init_ctclip(P_CLIP, seed=0, device="cpu")
+        model.load_state_dict(torch.load(init_path))
+        state = ttrainer.create_train_state(P_CLIP, FSDP_TRAIN, params=model.requires_grad_(True),
+                                            device="cpu")
+        images, text = _batch()
+        ttrainer.make_train_step(P_CLIP, FSDP_TRAIN)(
+            state, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in text.items()})
+        tckpt.save_checkpoint_sharded(path, state)
+        return _held(state)
+    finally:
+        sharding._FSDP_MIN_SIZE = keep
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, fake_volumes):
     """Spawn the two ranks once, from JAX-initialised weights, and take
     JAX's loss and gradients while they run; ([rank 0's, rank 1's]
     results, the folder, JAX's (loss, [(name, gradient)]))."""
     import jax
+    import jax.numpy as jnp
 
     from ct_clip_ut_tpu.models.ctclip import init_ctclip as jax_init_ctclip
     from ct_clip_ut_tpu_torch import convert
+
+    from ct_clip_ut_tpu.attribution import integrated_gradients as jig
+    from ct_clip_ut_tpu.models import ctgenerate as jcg
 
     tmp = tmp_path_factory.mktemp("dp")
     params = jax.jit(lambda key: jax_init_ctclip(key, J_CLIP))(jax.random.PRNGKey(3))
     model = convert.from_jax_params(jax.tree.map(np.asarray, params), P_CLIP, device="cpu")
     torch.save(model.state_dict(), tmp / "init.pt")
+    gen_params = jax.jit(lambda key: jcg.init_ctgenerate(key, J_GEN))(jax.random.PRNGKey(4))
+    torch.save(convert.from_jax_ctgenerate_params(jax.tree.map(np.asarray, gen_params), P_GEN,
+                                                  device="cpu").state_dict(), tmp / "gen.pt")
+    np.save(tmp / "scans.npy", _gen_inputs()[0])
+    (tmp / "reports.txt").write_text("\n".join(GEN_REPORTS) + "\n")
+    _one_process_checkpoint(tmp / "init.pt", tmp / "one.dcp")
     argv, cfgs = fake_volumes
     cli_args = (argv + ["--results-folder", str(tmp / "cli")], *cfgs)
     procs = torch.multiprocessing.start_processes(
@@ -335,6 +518,15 @@ def ranks(tmp_path_factory, fake_volumes):
         nprocs=WORLD,
         join=False, start_method="spawn")
     want = _jax_loss_and_grads(params)
+    image, tokens = _ig_inputs()
+    tokens = {k: jnp.asarray(v) for k, v in tokens.items()}
+    _JAX["ig"] = {case: jig.integrated_gradients(params, J_CLIP, tokens, jnp.asarray(image),
+                                                 steps=case[0], chunk=case[1])
+                  for case in IG_CASES}
+    scans, ctx, mask = _gen_inputs()
+    _JAX["ctgen"] = jcg.ctgenerate_apply_batched(gen_params, J_GEN, jnp.asarray(scans),
+                                                 jnp.asarray(ctx), jnp.asarray(mask),
+                                                 compute_dtype="float32")
     while not procs.join():
         pass
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)], tmp, want
@@ -364,7 +556,8 @@ def fake_volumes(tmp_path_factory):
     labels.to_csv(d / "l.csv", index=False)
     argv = ["--data-valid", str(d / "v"), "--valid-reports", str(d / "r.csv"),
             "--valid-labels", str(d / "l.csv"), "--valid-metadata", str(d / "m.csv"),
-            "--zero-shot", "--num-workers", "1", "--device", "cpu"]
+            "--zero-shot", "--visualize", "integrated_gradients", "--no-gifs",
+            "--num-workers", "1", "--device", "cpu"]
     pre = pconfig.PreprocessConfig(target_shape_hwd=(IMG, IMG, DEPTH))
     # the CLI pads its prompts to 512 tokens
     cli_clip = dataclasses.replace(P_CLIP, bert=dataclasses.replace(P_CLIP.bert,
@@ -657,14 +850,17 @@ def _suite_maps(root):
     """{(method, file name): map} of a suite's results folder, and the run
     directories each method made."""
     maps = {(p.parent.parent.name, p.name): np.load(p) for p in root.rglob("*.npy")}
-    dirs = {m.name: len([d for d in m.iterdir() if d.is_dir()]) for m in root.iterdir()}
+    dirs = {m.name: len([d for d in m.iterdir() if d.is_dir()]) for m in root.iterdir()
+            if m.is_dir()}
     return maps, dirs
 
 
 def test_suite_splits_its_one_rank_methods_over_the_ranks(ranks, tmp_path):
     """Raw attention and rollout: sample i on rank i % 2, so neither rank
     waits out the other's whole pass (which outlasts the group's timeout);
-    every map equal to the one-process suite's."""
+    integrated gradients collective, rank 0 writing every sample's map once
+    (none dropped, as the JAX suite's per-process mode drops those of
+    ranks > 0); every map equal to the one-process suite's."""
     (r0, r1), tmp, _ = ranks
     assert r0["suite_ran"] == ["scan_0", "scan_2"]
     assert r1["suite_ran"] == ["scan_1", "scan_3"]
@@ -677,9 +873,10 @@ def test_suite_splits_its_one_rank_methods_over_the_ranks(ranks, tmp_path):
     got, got_dirs = _suite_maps(tmp / "suite")
     want, want_dirs = _suite_maps(tmp_path)
     assert sorted(got) == sorted(want)
-    assert len(want) == 5 * SUITE_SAMPLES
+    assert len(want) == 6 * SUITE_SAMPLES
     assert got_dirs == want_dirs == {"raw_attention_grids": SUITE_SAMPLES,
                                      "attention_rollout": SUITE_SAMPLES,
+                                     "integrated_gradients": SUITE_SAMPLES,
                                      "occlusion": SUITE_SAMPLES}
     for key, w in want.items():
         np.testing.assert_allclose(got[key], w, atol=BAND, rtol=0, err_msg=str(key))
@@ -688,6 +885,10 @@ def test_suite_splits_its_one_rank_methods_over_the_ranks(ranks, tmp_path):
 # ---- the CLI --------------------------------------------------------------------
 
 def test_cli_multihost_matches_one_process(ranks, fake_volumes, tmp_path):
+    """inference_ctclip --multihost --zero-shot --visualize
+    integrated_gradients over 2 processes: one metrics.txt equal to the
+    one-process run's, and every volume's IG map written once (the steps
+    split over the ranks), each the one-process map's within BAND."""
     from ct_clip_ut_tpu_torch.scripts import inference_ctclip as cli
 
     (r0, r1), tmp, _ = ranks
@@ -698,3 +899,200 @@ def test_cli_multihost_matches_one_process(ranks, fake_volumes, tmp_path):
         np.testing.assert_allclose(r["cli"], preds, atol=1e-6, rtol=0)
     assert (tmp / "cli" / "metrics.txt").read_text() == (tmp_path / "metrics.txt").read_text()
     assert "mean_roc_auc" in metrics
+    got, _ = _suite_maps(tmp / "cli")
+    want, _ = _suite_maps(tmp_path)
+    assert sorted(got) == sorted(want) and len(want) == 3
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, atol=BAND, rtol=0, err_msg=str(key))
+
+
+# ---- FSDP and the sharded checkpoints ----------------------------------------------
+
+def _names():
+    return [n for n, _ in init_ctclip(P_CLIP, device="cpu").named_parameters()]
+
+
+def _piece(full, span):
+    return full.reshape(-1) if span is None else full.reshape(-1)[span[0]:span[1]]
+
+
+def test_fsdp_step_matches_the_data_parallel_step(ranks):
+    """Two AdamW steps (wd > 0) of FSDP against data parallelism on the same
+    batches: both losses, each gradient piece (the bits of the averaged
+    gradient's slice; the replicated leaves whole), the parameters, moments
+    and codebook after two steps the same bits, and on both ranks; between
+    steps each rank holds only its pieces; through the data-parallel
+    step's bits, JAX's loss and gradients."""
+    (r0, r1), _, (jloss, jgrads) = ranks
+    names = _names()
+    for r in (r0, r1):
+        dp, fs = r["dp_adamw"], r["fsdp_adamw"]
+        assert fs["losses"] == dp["losses"]
+        for n, span, g, w in zip(names, fs["spans"], fs["grads"], dp["grads"]):
+            assert torch.equal(g.reshape(-1), _piece(w, span)), n
+        for n, span, g, w, m, dm, v, dv in zip(names, fs["spans"], fs["params"], dp["params"],
+                                               fs["mu"], dp["mu"], fs["nu"], dp["nu"]):
+            assert torch.equal(g, w), n
+            assert torch.equal(m.reshape(-1), _piece(dm, span)), n
+            assert torch.equal(v.reshape(-1), _piece(dv, span)), n
+        for k, w in dp["buffers"].items():
+            assert torch.equal(fs["buffers"][k], w), k
+        for n, span, (numel, no_grad, piece), p, m, v in zip(
+                names, fs["spans"], fs["rest"], fs["params"], fs["mu"], fs["nu"]):
+            held = p.numel() if span is None else span[1] - span[0]
+            assert (numel, no_grad or span is None) == (0 if span else p.numel(), True), n
+            assert piece == (None if span is None else held) and m.numel() == v.numel() == held
+    sharded = [s is not None for s in r0["fsdp_adamw"]["spans"]]
+    assert sharded == [p.numel() >= FSDP_MIN for p in r0["dp_adamw"]["params"]]
+    assert sum(sharded) == 38
+    for n, s0, s1, full in zip(names, r0["fsdp_adamw"]["spans"], r1["fsdp_adamw"]["spans"],
+                               r0["fsdp_adamw"]["params"]):
+        assert s0 is None or (s0[0], s1[1], s0[1]) == (0, full.numel(), s1[0]), n
+    for a, b in zip(r0["fsdp_adamw"]["params"], r1["fsdp_adamw"]["params"]):
+        assert torch.equal(a, b)
+    assert abs(r0["fsdp_adamw"]["losses"][0] - jloss) <= BAND * abs(jloss)
+    whole = [torch.cat([g0.reshape(-1), g1.reshape(-1)]).view_as(w) if s is not None else g0
+             for s, g0, g1, w in zip(r0["fsdp_adamw"]["spans"], r0["fsdp_adamw"]["grads"],
+                                     r1["fsdp_adamw"]["grads"], r0["dp_adamw"]["grads"])]
+    _grads_within(names, whole, [w for _, w in jgrads], JAX_GRAD_BAND)
+
+
+def test_fsdp_gradcache_matches_the_data_parallel_gradcache(ranks):
+    """The FSDP GradCache step (gathered once for both passes, reduced once
+    after pass 2) against the data-parallel GradCache step: the loss, each
+    piece (its slice of the averaged gradient), the parameters and the
+    codebook the same bits."""
+    (r0, r1), _, _ = ranks
+    names = _names()
+    for r in (r0, r1):
+        dp, fs = r["gradcache"], r["fsdp_gc"]
+        assert fs["losses"][0] == dp["loss"]
+        for n, span, g, w in zip(names, fs["spans"], fs["grads"], dp["grads"]):
+            assert torch.equal(g.reshape(-1), _piece(w, span)), n
+        for n, g, w in zip(names, fs["params"], dp["params"]):
+            assert torch.equal(g, w), n
+        for k, w in dp["buffers"].items():
+            assert torch.equal(fs["buffers"][k], w), k
+
+
+def _fresh_state(cfg):
+    model = init_ctclip(P_CLIP, seed=5, device="cpu").requires_grad_(True)
+    return ttrainer.create_train_state(P_CLIP, cfg, params=model, device="cpu")
+
+
+def test_sharded_checkpoint_reloads_on_one_process(ranks):
+    """The directory both ranks wrote after two FSDP steps, loaded into one
+    process (2 -> 1): as FSDP over one rank and as a replicated state, every
+    parameter and moment the ranks' bits, the step, count and rank 0's
+    generator."""
+    (r0, r1), tmp, _ = ranks
+    fs0, fs1 = r0["fsdp_adamw"], r1["fsdp_adamw"]
+    assert sorted(p.name for p in tmp.iterdir() if "dcp" in p.name) == ["fsdp.dcp", "one.dcp"]
+    keep = sharding._FSDP_MIN_SIZE
+    sharding._FSDP_MIN_SIZE = FSDP_MIN
+    try:
+        for cfg in (FSDP_TRAIN, ADAMW_TRAIN):
+            held = _held(tckpt.load_checkpoint_sharded(tmp / "fsdp.dcp", _fresh_state(cfg)))
+            assert (held["step"], held["count"]) == (2, 2)
+            assert torch.equal(held["generator"], fs0["generator"])
+            for i, (span, full) in enumerate(zip(fs0["spans"], fs0["params"])):
+                assert torch.equal(held["leaves"][i].reshape(-1), full.reshape(-1)), i
+                for key in ("mu", "nu"):
+                    want = fs0[key][i] if span is None else torch.cat([fs0[key][i], fs1[key][i]])
+                    assert torch.equal(held[key][i].reshape(-1), want.reshape(-1)), (key, i)
+    finally:
+        sharding._FSDP_MIN_SIZE = keep
+
+
+def test_sharded_checkpoint_loads_onto_the_ranks(ranks):
+    """A one-process directory loaded by both FSDP ranks (1 -> 2): each
+    piece and moment piece the bits of its slice of the saved leaf; rank 0
+    takes the saved generator, rank 1 (past the saved world) keeps its own,
+    seeded from (seed, 1)."""
+    (r0, r1), tmp, _ = ranks
+    saved = _held(tckpt.load_checkpoint_sharded(tmp / "one.dcp", _fresh_state(ADAMW_TRAIN)))
+    assert (saved["step"], saved["count"]) == (1, 1)
+    for r in (r0, r1):
+        got = r["one_to_two"]
+        assert (got["step"], got["count"]) == (1, 1)
+        for i, span in enumerate(got["spans"]):
+            for key in ("leaves", "mu", "nu"):
+                assert torch.equal(got[key][i].reshape(-1), _piece(saved[key][i], span)), (key, i)
+    assert torch.equal(r0["one_to_two"]["generator"], saved["generator"])
+    own = torch.Generator().manual_seed(FSDP_TRAIN.seed + (1 << 32)).get_state()
+    assert torch.equal(r1["one_to_two"]["generator"], own)
+
+
+# ---- integrated gradients over the mesh ---------------------------------------------
+
+def _held_outside_crossings(got, want, band):
+    """Every element on the same side of the quantile threshold within
+    `band` of the map's largest entry; the crossings (an element within
+    rounding of the threshold kept by one map and zeroed by the other)
+    under 1e-3 of the map."""
+    crossed = (got > 0) != (want > 0)
+    assert crossed.mean() < 1e-3
+    np.testing.assert_allclose(got[~crossed], want[~crossed], atol=band * np.abs(want).max())
+
+
+def test_sharded_integrated_gradients_match_one_process_and_jax(ranks):
+    """At JAX's (steps, chunk) cases, (2, 2) leaving rank 1 padding alone:
+    both ranks the same map; against one process's integrated_gradients the
+    average gradient within BAND of its largest entry and the map within
+    BAND outside the threshold crossings; against JAX's the map within the
+    port's IG band (MAP_BAND of tests/test_torch_port_attribution.py)
+    likewise."""
+    (r0, r1), tmp, _ = ranks
+    model = init_ctclip(P_CLIP, seed=0, device="cpu")
+    model.load_state_dict(torch.load(tmp / "init.pt"))
+    image, tokens = _ig_inputs()
+    image, tokens = torch.from_numpy(image), {k: torch.from_numpy(v) for k, v in tokens.items()}
+    assert tig.rank_alphas(2, 2, WORLD, 1) == []
+    _, avg = tig._ig_avg_grads(model, tokens, image, steps=16, chunk=2)
+    _within(r0["ig_avg"], avg)
+    for case in IG_CASES:
+        np.testing.assert_array_equal(r0["ig"][case], r1["ig"][case])
+        want = tig.integrated_gradients(model, tokens, image, steps=case[0], chunk=case[1])
+        _held_outside_crossings(r0["ig"][case], want, BAND)
+        _held_outside_crossings(r0["ig"][case], _JAX["ig"][case], 1e-3)
+
+
+# ---- CTGenerate over the mesh ---------------------------------------------------------
+
+def test_ctgenerate_over_the_ranks_matches_one_process_and_jax(ranks):
+    """ctgenerate_apply_batched(mesh=) over 3 scans on 2 ranks (padded to 4
+    with the last scan): every rank every row, the codebook ids those of one
+    process and of JAX, the feature map and cross-attention within 1e-5."""
+    (r0, r1), tmp, _ = ranks
+    for a, b in zip(r0["ctgen"], r1["ctgen"]):
+        assert torch.equal(a, b)
+    gen = tcg.init_ctgenerate(P_GEN, seed=0, device="cpu")
+    gen.load_state_dict(torch.load(tmp / "gen.pt"))
+    scans, ctx, mask = (torch.from_numpy(a) for a in _gen_inputs())
+    one = tcg.ctgenerate_apply_batched(gen, scans, ctx, mask, compute_dtype="float32")
+    jax_out = _JAX["ctgen"]
+    feature, cross, ids = r0["ctgen"]
+    assert feature.shape[0] == cross.shape[0] == ids.shape[0] == GEN_SCANS
+    for want in (one, jax_out):
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(want.codebook_ids))
+        np.testing.assert_allclose(feature.numpy(), np.asarray(want.feature_map), atol=1e-5)
+        np.testing.assert_allclose(cross.numpy(), np.asarray(want.cross_attention), atol=1e-5)
+
+
+def test_inference_ctgenerate_mesh_data_writes_one_process_files(ranks, tmp_path):
+    """inference_ctgenerate --mesh-data 2 over 3 scans in batches of 2:
+    rank 0 writes every heatmap the one-process run writes, once, each
+    within 1e-5; rank 1 writes none. --mesh-data 2 in one process raises."""
+    from ct_clip_ut_tpu_torch.scripts import inference_ctgenerate as gen_cli
+
+    (r0, r1), tmp, _ = ranks
+    want = gen_cli.main(_gen_argv(tmp_path, tmp / "scans.npy", tmp / "reports.txt"),
+                        model_cfg=P_GEN)
+    assert want and r1["ctgen_cli"] == []
+    assert sorted(p.name for p in r0["ctgen_cli"]) == sorted(p.name for p in want)
+    assert sorted(p.name for p in (tmp / "gen_cli").iterdir()) == sorted(p.name for p in want)
+    for p in want:
+        np.testing.assert_allclose(np.load(tmp / "gen_cli" / p.name), np.load(p), atol=1e-5)
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        gen_cli.main(_gen_argv(tmp_path, tmp / "scans.npy", tmp / "reports.txt")
+                     + ["--mesh-data", "2"], model_cfg=P_GEN)

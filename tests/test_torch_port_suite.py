@@ -126,7 +126,8 @@ def test_suite_artifacts_match_the_jax_suite(tmp_path):
 
 def test_suite_is_one_process_on_one_card(tmp_path):
     """A mesh must be a DataMesh; over more than one rank integrated
-    gradients raise (Queue 1 item 11d) before any collective."""
+    gradients are collective, and without a process group their first
+    collective (rank 0's sample broadcast) raises."""
     from ct_clip_ut_tpu_torch.parallel.mesh import DataMesh
 
     _, model = models()
@@ -134,9 +135,13 @@ def test_suite_is_one_process_on_one_card(tmp_path):
                                     mesh=object())
     with pytest.raises(TypeError, match="DataMesh"):
         tsuite.Visualizations(ctx, tmp_path)
-    ctx = dataclasses.replace(ctx, mesh=DataMesh(world=2, rank=1, device=torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11d"):
+    ctx = dataclasses.replace(ctx, mesh=DataMesh(world=2, rank=1, device=torch.device("cpu")),
+                              tokenizer=WordTokenizer(2048),
+                              data=[(np.zeros((1, 20, 32, 32), np.float32), "a report",
+                                     np.zeros(18), "scan", "path")])
+    with pytest.raises(RuntimeError, match="needs a process group"):
         tsuite.Visualizations(ctx, tmp_path).visualize(integrated_gradients=True)
+    assert not (tmp_path / "integrated_gradients").exists()
     ctx = dataclasses.replace(ctx, mesh=None, diff_embeds=None)
     vis = tsuite.Visualizations(ctx, tmp_path)
     with pytest.raises(ValueError, match="diff_embeds"):

@@ -497,12 +497,15 @@ def test_trainer_trains_with_gradcache_and_traces_its_window(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """A model axis above 1 and a mesh that is not a DataMesh raise; FSDP
+    over more than one process without sharded checkpoints raises before
+    any state is built or collective run (JAX trainer.py:295-304)."""
+    from ct_clip_ut_tpu_torch.parallel.mesh import DataMesh
     base = dict(text_max_length=TEXT_LEN, compute_dtype="float32")
-    for kw, item in ((dict(fsdp=True), "item 11"), (dict(sharded_checkpoints=True), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrainer.CTClipTrainer(port_config(TRAIN_CLIP), TrainConfig(**base, **kw),
-                                   _Tokenizer(), _Batches(1), _Batches(1),
-                                   results_folder=tmp_path, device="cpu")
+    with pytest.raises(ValueError, match="sharded_checkpoints=True"):
+        ttrainer.CTClipTrainer(port_config(TRAIN_CLIP), TrainConfig(**base, fsdp=True),
+                               _Tokenizer(), _Batches(1), _Batches(1), results_folder=tmp_path,
+                               mesh=DataMesh(2, 0, torch.device("cpu")), device="cpu")
     from ct_clip_ut_tpu_torch.config import MeshConfig
     from ct_clip_ut_tpu_torch.parallel.mesh import make_mesh
     with pytest.raises(NotImplementedError, match="item 11c"):

@@ -57,8 +57,6 @@ def test_train_parser_matches_jax_flags():
 @pytest.mark.parametrize("extra,error,match", [
     (["--batch-size", "3", "--grad-accum", "2"], SystemExit, None),
     (["--grad-accum", "0"], SystemExit, None),
-    (["--fsdp"], NotImplementedError, "item 11b"),
-    (["--sharded-checkpoints"], NotImplementedError, "item 11b"),
     (["--moe-experts", "2"], NotImplementedError, "item 11h"),
     (["--mesh-model", "2"], NotImplementedError, "item 11c"),
     (["--tokenizer", "no/such/dir"], FileNotFoundError, "vocab.txt")])
